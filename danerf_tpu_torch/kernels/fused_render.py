@@ -35,6 +35,18 @@ from danerf_tpu_torch.ops.composite import composite
 
 LAUNCHES = {"march": 0, "merged": 0}
 
+# Max abs error allowed between a kernel and its plain version on the same
+# inputs (field_sigma: relative to max(1, |sigma|)).  Both round to bf16 at the
+# same points and sum in f32 in another order, so an activation on a bf16
+# rounding boundary can round apart by one ulp; on the H100 that shows as
+# ~1e-5 in rgb/acc/weights/depth and ~3e-4 in the per-sample field.  Each
+# limit keeps an order of magnitude above that and stays below a typical
+# value of what it compares (a weight averages ~0.014 at 64 samples and
+# ~0.007 at 128), so a misplaced or missing weight fails.  The merged depths
+# are a permutation of the inputs and must match exactly.
+PLAIN_TOL = {"rgb": 2e-3, "acc": 2e-3, "weights": 1e-3, "depth": 5e-3,
+             "field_rgb": 5e-3, "field_sigma": 5e-3, "z_vals": 0.0}
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:

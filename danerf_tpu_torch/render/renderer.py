@@ -86,10 +86,12 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
 
     if fused_composite:
         from danerf_tpu_torch.kernels.fused_render import (
-            fused_render_rays_coarse_field, fused_render_rays_eval,
+            _prepare, fused_render_rays_coarse_field, fused_render_rays_eval,
             fused_render_rays_merged)
 
-        params = model if packed is None else packed
+        # pack once for both passes (this also refuses autograd)
+        params = (packed if packed is not None
+                  else _prepare(model, cfg, rays_o, appearance_embedding)[0])
         if n_importance <= 0:
             out = add_bg(fused_render_rays_eval(params, cfg, rays_o, rays_d, z_coarse,
                                                 appearance_embedding, t))
