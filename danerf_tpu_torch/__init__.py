@@ -1,9 +1,10 @@
 """danerf_tpu_torch — the PyTorch/CUDA port of danerf_tpu (NeRF-W with
 depth-aware shader effects) for NVIDIA Hopper.
 
-Plain tensor code is PyTorch; the ray-march and merged-composite kernels are
-hand-written CUDA C++ for ``sm_90a`` under ``kernels/csrc/``, built with
-``nvcc`` on first use.  Module and function names follow ``danerf_tpu`` so a
+Plain tensor code is PyTorch; the kernels of rendering (ray march, merged
+composite) and of training (ray-march backward, merged fine pass with its
+loss and backward) are hand-written CUDA C++ for ``sm_90a`` under
+``kernels/csrc/``, built with ``nvcc`` on first use.  Module and function names follow ``danerf_tpu`` so a
 reader can find each counterpart.  This package imports neither JAX nor
 ``danerf_tpu``.
 

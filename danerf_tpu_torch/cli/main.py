@@ -1,10 +1,12 @@
 """Command line of the port (counterpart of danerf_tpu/cli/main.py):
-``python -m danerf_tpu_torch.cli.main render ...``.
+``python -m danerf_tpu_torch.cli.main {train,render} ...``.
 
-``render`` takes the JAX CLI's flags plus ``--device`` (default cuda) and
-``--seed``.  ``--checkpoint`` is a reference-format ``.pt`` (the port's own
-saved state_dict uses the same keys).  Flags whose machinery is not yet
-ported raise instead of being ignored.
+``train`` takes the JAX CLI's flags plus ``--device`` (default cuda) and
+``--checkpoint_every``, and writes reference-format ``.pt`` checkpoints and
+``metrics.jsonl`` into ``--save_dir``.  ``render`` takes the JAX CLI's
+flags plus ``--device`` and ``--seed``; ``--checkpoint`` is a
+reference-format ``.pt`` (such as ``<save_dir>/checkpoint_final.pt``).
+Flags whose machinery is not yet ported raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -15,8 +17,38 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="danerf-torch",
-                                description="NeRF-W rendering on PyTorch/CUDA")
+                                description="NeRF-W training and rendering on PyTorch/CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train a NeRF-W model")
+    t.add_argument("--scene", type=str, default="lego")
+    t.add_argument("--dataset_path", type=str, default="data/nerf_synthetic")
+    t.add_argument("--iters", type=int, default=None)
+    t.add_argument("--batch_size", type=int, default=None)
+    t.add_argument("--save_dir", type=str, default=None)
+    t.add_argument("--resume", action="store_true", help="(not yet ported)")
+    t.add_argument("--no_appearance", action="store_true")
+    t.add_argument("--num_importance", type=int, default=None)
+    t.add_argument("--mesh_data", type=int, default=1, help="(not yet ported; must be 1)")
+    t.add_argument("--mesh_model", type=int, default=1, help="(not yet ported; must be 1)")
+    t.add_argument("--seed", type=int, default=0,
+                   help="seeds the initial weights and every draw of the run")
+    t.add_argument("--profile", type=str, default=None, help="(not yet ported)")
+    t.add_argument("--density_activation", type=str, default=None,
+                   choices=["relu", "softplus"])
+    t.add_argument("--density_bias_init", type=float, default=None,
+                   help="added to the density bias at init (e.g. 0.5)")
+    t.add_argument("--no_pallas", action="store_true",
+                   help="take the reference route (autograd) instead of the kernels")
+    t.add_argument("--white_background", action="store_true",
+                   help="composite RGBA targets over white (reference route only)")
+    t.add_argument("--use_time", action="store_true", help="(not yet ported)")
+    t.add_argument("--coordinator_address", type=str, default=None, help="(not yet ported)")
+    t.add_argument("--num_processes", type=int, default=None, help="(not yet ported)")
+    t.add_argument("--process_id", type=int, default=None, help="(not yet ported)")
+    t.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    t.add_argument("--checkpoint_every", type=int, default=1000,
+                   help="steps between checkpoints (0: only the final one)")
 
     r = sub.add_parser("render", help="render novel views along a camera path")
     r.add_argument("--scene", type=str, default="hotdog")
@@ -58,6 +90,80 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _train_not_ported(args) -> list:
+    bad = []
+    if args.resume:
+        bad.append("--resume")
+    if args.profile is not None:
+        bad.append("--profile")
+    if args.mesh_data != 1 or args.mesh_model != 1:
+        bad.append("--mesh_data/--mesh_model != 1")
+    if (args.coordinator_address is not None or args.num_processes is not None
+            or args.process_id is not None):
+        bad.append("--coordinator_address/--num_processes/--process_id")
+    if args.use_time:
+        bad.append("--use_time")
+    return bad
+
+
+def _train_config(args):
+    from danerf_tpu_torch.config import NeRFConfig
+
+    over = {"use_kernels": not args.no_pallas, "white_background": args.white_background}
+    if args.batch_size:
+        over["batch_size"] = args.batch_size
+    if args.no_appearance:
+        over["use_appearance"] = False
+    if args.num_importance is not None:
+        over["num_importance"] = args.num_importance
+    if args.density_activation:
+        over["density_activation"] = args.density_activation
+    if args.density_bias_init is not None:
+        over["density_bias_init"] = args.density_bias_init
+    return NeRFConfig(scene=args.scene, dataset_path=args.dataset_path).replace(**over)
+
+
+def cmd_train(args):
+    import os
+
+    import torch
+
+    from danerf_tpu_torch import resolve_device
+    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.models.nerf import NeRF
+    from danerf_tpu_torch.train.trainer import train
+
+    bad = _train_not_ported(args)
+    if bad:
+        raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
+    device = resolve_device(args.device)
+    cfg = _train_config(args)
+
+    # Start-up smoke test before committing to training (reference
+    # run.py:327-344): 10 random points through the model, with and without
+    # an appearance embedding.
+    g = torch.Generator().manual_seed(0)
+    model = NeRF(cfg, g).to(device)
+    x = torch.randn(10, 3, generator=g).to(device)
+    d = torch.randn(10, 3, generator=g).to(device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    with torch.no_grad():
+        rgb, sigma = model(x, d)
+        assert rgb.shape == (10, 3) and sigma.shape == (10,)
+        if cfg.use_appearance:
+            emb = torch.randn(10, cfg.appearance_dim, generator=g).to(device)
+            rgb, sigma = model(x, d, emb)
+            assert rgb.shape == (10, 3)
+    print(f"model smoke test passed: rgb={tuple(rgb.shape)}, sigma={tuple(sigma.shape)}")
+    del model
+
+    ds = load_dataset(cfg, "train")
+    save_dir = args.save_dir or f"checkpoints_{args.scene}"
+    return train(cfg, ds, save_dir=save_dir, num_iterations=args.iters, seed=args.seed,
+                 device=device, checkpoint_every=args.checkpoint_every,
+                 log_path=os.path.join(save_dir, "metrics.jsonl"))
+
+
 def _not_ported(args) -> list:
     bad = []
     if args.effect is not None:
@@ -92,7 +198,7 @@ def _load_model(args, cfg, device):
 def cmd_render(args):
     from danerf_tpu_torch import resolve_device
     from danerf_tpu_torch.config import NeRFConfig
-    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.data.dataset import scene_intrinsics
     from danerf_tpu_torch.render.frames import render_path
 
     bad = _not_ported(args)
@@ -104,7 +210,7 @@ def cmd_render(args):
     cfg = NeRFConfig(scene=args.scene, dataset_path=args.dataset_path,
                      white_background=args.white_background,
                      use_kernels=not args.no_pallas)
-    ds = load_dataset(cfg, "train")
+    ds = scene_intrinsics(cfg, "train")
     model, emb, cfg = _load_model(args, cfg, device)
     return render_path(model, cfg, args.output_dir, appearance_embedding=emb,
                        num_frames=args.frames, quality=args.quality,
@@ -120,6 +226,8 @@ def cmd_render(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.cmd == "train":
+        return cmd_train(args)
     if args.cmd == "render":
         return cmd_render(args)
     raise SystemExit(f"unknown command {args.cmd!r}")

@@ -3,8 +3,8 @@
 The fields and defaults equal the JAX package's ``NeRFConfig``, except that
 the TPU knobs (``use_pallas``, ``use_fused_train``, ``fused_composite2d``,
 ``use_hier_onepass``) become one switch, ``use_kernels``: route rendering
-through the hand-written CUDA kernels (on CUDA tensors; their plain PyTorch
-versions on CPU tensors).
+and training through the hand-written CUDA kernels (on CUDA tensors; their
+plain PyTorch versions on CPU tensors).
 """
 
 from __future__ import annotations
@@ -63,7 +63,8 @@ class NeRFConfig:
     # --- device ---
     # bf16 matmul inputs with f32 accumulation (the JAX package's use_bf16).
     use_bf16: bool = True
-    # Hand-written kernels for the ray march and the merged composite.
+    # Hand-written kernels for rendering and training (else the module's
+    # forward and autograd: the reference route, --no_pallas).
     use_kernels: bool = True
     remat: bool = False
     white_background: bool = False

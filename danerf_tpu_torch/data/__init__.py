@@ -1,3 +1,5 @@
-from danerf_tpu_torch.data.dataset import SceneIntrinsics, load_dataset
+from danerf_tpu_torch.data.dataset import (RayDataset, SceneIntrinsics, load_dataset,
+                                           sample_ray_batch, scene_intrinsics)
 
-__all__ = ["SceneIntrinsics", "load_dataset"]
+__all__ = ["RayDataset", "SceneIntrinsics", "load_dataset", "sample_ray_batch",
+           "scene_intrinsics"]

@@ -1,11 +1,15 @@
-"""Scene intrinsics for rendering (the part of danerf_tpu.data.load_dataset
-that ``render`` uses: the scene's image width and focal length).
+"""Scene data (counterpart of danerf_tpu/data/dataset.py).
 
-A Blender ``nerf_synthetic`` scene is read from its ``transforms_{split}.json``
-header (focal from ``camera_angle_x``, else ``fl_x``, else a 55-degree field
-of view) and the first frame's PNG header for the width, without decoding any
-image.  Without one, the procedural scene's constants apply (100 px wide,
-``0.5 W / tan(0.5 * 0.6911)``).  The full ray-pool loaders come with training.
+- ``RayDataset``: images, alphas and camera matrices of one split, decoded
+  once; ``device_arrays`` uploads the pixel pool to the device once as
+  (N*H*W, 3) f32, composited over white when asked.
+- ``sample_ray_batch``: one training batch drawn on the device -- one image
+  per batch, pixels with replacement, then ``rays_for_pixels``.
+- ``load_dataset``: the Blender scene when ``transforms_{split}.json``
+  exists, otherwise the procedural scene.
+- ``scene_intrinsics``: what ``render`` needs of a scene (its width and
+  focal length), read from the ``transforms`` header and the first frame's
+  PNG header without decoding any image.
 """
 
 from __future__ import annotations
@@ -14,13 +18,106 @@ import dataclasses
 import json
 import os
 import struct
+from typing import Optional
 
 import numpy as np
+import torch
 
 from danerf_tpu_torch.config import NeRFConfig
 
 SYNTHETIC_WIDTH = 100
-SYNTHETIC_FOV = 0.6911
+
+
+@dataclasses.dataclass
+class RayDataset:
+    """images (N, H, W, 3) uint8; alphas (N, H, W) uint8; c2ws (N, 4, 4)
+    f32; focal in pixels; near/far bounds; times (N,) for the
+    time-conditioned variant, whose data path is not yet ported."""
+
+    images: np.ndarray
+    alphas: np.ndarray
+    c2ws: np.ndarray
+    focal: float
+    near: float
+    far: float
+    split: str = "train"
+    times: Optional[np.ndarray] = None
+
+    @property
+    def n_images(self) -> int:
+        return self.images.shape[0]
+
+    @property
+    def height(self) -> int:
+        return self.images.shape[1]
+
+    @property
+    def width(self) -> int:
+        return self.images.shape[2]
+
+    def __len__(self) -> int:
+        return self.n_images
+
+    def device_arrays(self, white_background: bool = False, device="cpu") -> dict:
+        """The pool on ``device``: images (N*H*W, 3) f32 in [0, 1] (over
+        white when asked), c2ws (N, 4, 4) f32."""
+        imgs = self.images.astype(np.float32) / 255.0
+        if white_background:
+            a = self.alphas.astype(np.float32)[..., None] / 255.0
+            imgs = imgs * a + (1.0 - a)
+        return {"images": torch.from_numpy(imgs.reshape(-1, 3)).to(device),
+                "c2ws": torch.from_numpy(np.asarray(self.c2ws, np.float32)).to(device)}
+
+
+def sample_ray_batch(pool: dict, cfg: NeRFConfig, height: int, width: int, focal,
+                     batch_size: Optional[int] = None,
+                     generator: Optional[torch.Generator] = None,
+                     img_idx: Optional[torch.Tensor] = None,
+                     pix_idx: Optional[torch.Tensor] = None) -> dict:
+    """A training batch, drawn on the pool's device.
+
+    All rays come from one random image; pixels are drawn with replacement.
+    ``img_idx`` (a scalar or (B,)) and ``pix_idx`` (B,) replace the draws
+    from ``generator`` when given.
+
+    Returns dict rays_o, rays_d (B, 3), rgb (B, 3), img_idx (B,) int64.
+    """
+    from danerf_tpu_torch.ops.rays import rays_for_pixels
+
+    if batch_size is None:
+        batch_size = cfg.batch_size
+    dev = pool["images"].device
+    n_images = pool["c2ws"].shape[0]
+    if img_idx is None:
+        img_idx = torch.randint(0, n_images, (), generator=generator, device=dev)
+    img_idx = torch.as_tensor(img_idx, device=dev).to(torch.int64).expand(batch_size)
+    if pix_idx is None:
+        pix_idx = torch.randint(0, height * width, (batch_size,), generator=generator,
+                                device=dev)
+    pix_idx = torch.as_tensor(pix_idx, device=dev).to(torch.int64)
+    rays_o, rays_d = rays_for_pixels(pix_idx, pool["c2ws"][img_idx], height, width, focal)
+    rgb = pool["images"][img_idx * (height * width) + pix_idx]
+    return {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb, "img_idx": img_idx}
+
+
+def load_dataset(cfg: NeRFConfig, split: str = "train") -> RayDataset:
+    """The Blender scene under ``dataset_path/scene`` when its transforms
+    file exists, otherwise the procedural scene (seed 0)."""
+    if cfg.dataset_type != "nerf_synthetic":
+        raise NotImplementedError(
+            f"dataset_type {cfg.dataset_type!r} (the custom loader) is not yet ported to "
+            "danerf_tpu_torch (only nerf_synthetic and the procedural scene)")
+    if cfg.use_time:
+        raise NotImplementedError("use_time data (the time-varying procedural scene) is not "
+                                  "yet ported to danerf_tpu_torch")
+    scene_dir = os.path.join(cfg.dataset_path, cfg.scene)
+    if os.path.exists(os.path.join(scene_dir, f"transforms_{split}.json")):
+        from danerf_tpu_torch.data.blender import load_blender_scene
+
+        return load_blender_scene(scene_dir, split=split, near=cfg.near, far=cfg.far)
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+
+    return make_synthetic_scene(split=split, near=cfg.near, far=cfg.far, seed=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +135,9 @@ def _png_width(path: str) -> int:
     return struct.unpack(">I", head[16:20])[0]
 
 
-def load_dataset(cfg: NeRFConfig, split: str = "train") -> SceneIntrinsics:
+def scene_intrinsics(cfg: NeRFConfig, split: str = "train") -> SceneIntrinsics:
+    """Width and focal of the scene ``load_dataset`` would load, without
+    decoding or rendering its images."""
     if cfg.dataset_type != "nerf_synthetic":
         raise NotImplementedError(
             f"dataset_type {cfg.dataset_type!r} is not yet ported to "
@@ -46,6 +145,8 @@ def load_dataset(cfg: NeRFConfig, split: str = "train") -> SceneIntrinsics:
     scene_dir = os.path.join(cfg.dataset_path, cfg.scene)
     meta_path = os.path.join(scene_dir, f"transforms_{split}.json")
     if not os.path.exists(meta_path):
+        from danerf_tpu_torch.data.synthetic import SYNTHETIC_FOV
+
         width = SYNTHETIC_WIDTH
         return SceneIntrinsics(width, float(0.5 * width / np.tan(0.5 * SYNTHETIC_FOV)))
 

@@ -19,16 +19,20 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "danerf_tpu_torch"
-SOURCES = ("march", "merged")
+SOURCES = ("march", "merged", "march_bwd", "merged_train")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_longlong
-# C signatures (csrc/march.cu, csrc/merged.cu); every pointer, the stream
-# included, is a c_void_p so ctypes does not cut it to 32 bits.
+# C signatures (csrc/*.cu); every pointer, the stream included, is a
+# c_void_p so ctypes does not cut it to 32 bits.  The tail of the backward
+# entry points: transposed weights, their layout record, scratch, n_vecs.
+_BWD_TAIL = [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P]
 _SIGNATURES = {
     "march": ("danerf_march", [_P] * 4 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
     "merged": ("danerf_merged", [_P] * 6 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _I, _P]),
+    "march_bwd": ("danerf_march_bwd", [_P] * 4 + [_I] * 3 + [_P] * 5 + [_P] * 3 + _BWD_TAIL),
+    "merged_train": ("danerf_merged_train", [_P] * 7 + [_I] * 4 + [_P] * 5 + _BWD_TAIL),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -99,6 +103,9 @@ def load(name: str) -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        if hasattr(lib, "danerf_bwd_scratch_bytes"):
+            lib.danerf_bwd_scratch_bytes.argtypes = [_P, _I, _I, _I, _I]
+            lib.danerf_bwd_scratch_bytes.restype = ctypes.c_longlong
         lib.danerf_error_string.argtypes = [ctypes.c_int]
         lib.danerf_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

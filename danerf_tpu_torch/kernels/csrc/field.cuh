@@ -1,5 +1,6 @@
 // Shared device code of the ray-march (march.cu) and merged-composite
-// (merged.cu) kernels: the NeRF-W field on a tile of 128 samples, the
+// (merged.cu) kernels, and the forward half of the backward kernels
+// (field_bwd.cuh): the NeRF-W field on a tile of 128 samples, the
 // counterpart of danerf_tpu/kernels/fused_mlp.py _encode + _field_from_enc.
 //
 // Numerics (use_bf16): encodings and activations are held in bf16, every
@@ -56,10 +57,25 @@ struct Smem {
   __nv_bfloat16 encd[TILE_M * LDD];
   float rgb[TILE_M * 3];
   float sigma[TILE_M];
+  float sigma_pre[TILE_M];     // density head before its activation
   float z[TILE_M];
   float app[MAX_RPC * HALF];   // per-ray emb@Wapp (f32)
   float o[MAX_RPC * 3], d[MAX_RPC * 3];
   float emb[MAX_RPC * MAX_E];
+};
+
+// Where the backward kernels (field_bwd.cuh) want field_tile to leave its
+// residuals in device memory: every trunk layer's output, the encodings,
+// happ (bf16) and the dir layer's relu gate, at the tile's rows row0.. of
+// (rows x width) row-major buffers.  The forward kernels pass none.
+struct Stash {
+  __nv_bfloat16* h;            // L x rows x HID, layer stride layer_stride
+  __nv_bfloat16* encx;         // rows x kx
+  __nv_bfloat16* encd;         // rows x kd
+  __nv_bfloat16* happ;         // rows x HALF
+  unsigned char* dirg;         // rows x HALF, 1 where the dir layer's input to relu > 0
+  long long layer_stride;
+  long long row0;
 };
 
 // Error codes below 0 are argument errors; codes >= 0 are cudaError_t.
@@ -171,6 +187,18 @@ __device__ __forceinline__ void gemm_tile(const __nv_bfloat16* seg_a, int lda, i
   }
 }
 
+// Copy a 128-row bf16 tile from shared memory (row stride lds) to device
+// memory (row stride ldg), 16 bytes a thread; cols, lds and ldg are
+// multiples of 8.
+__device__ __forceinline__ void copy_tile_out(const __nv_bfloat16* s, int lds, int cols,
+                                              __nv_bfloat16* g, long long ldg) {
+  const int vec = cols / 8;
+  for (int idx = threadIdx.x; idx < TILE_M * vec; idx += THREADS) {
+    const int r = idx / vec, c = (idx - r * vec) * 8;
+    *reinterpret_cast<uint4*>(g + r * ldg + c) = *reinterpret_cast<const uint4*>(s + r * lds + c);
+  }
+}
+
 // ------------------------------------------------------------- tile stages
 
 // Fill sm.encx / sm.encd for the tile: row = ray j * s + sample, position
@@ -234,13 +262,20 @@ __device__ void encode_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
 }
 
 // The field on the tile: needs encode_tile's output (and a __syncthreads
-// after it); leaves sm.rgb (128 x 3) and sm.sigma (128) valid behind a
-// __syncthreads.  s = samples per ray in the tile's rows.
-__device__ void field_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
+// after it); leaves sm.rgb (128 x 3), sm.sigma and sm.sigma_pre (128) valid
+// behind a __syncthreads.  s = samples per ray in the tile's rows.  Returns
+// the buffer (sm.hA or sm.hB) holding the last trunk layer's output; the
+// other one holds happ.  With a stash, the residuals also go to it.
+__device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rpc,
+                                     const Stash* st = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   __nv_bfloat16* cur = sm.hA;
   __nv_bfloat16* nxt = sm.hB;
+  if (st != nullptr) {
+    copy_tile_out(sm.encx, LDX, P.kx, st->encx + st->row0 * P.kx, P.kx);
+    copy_tile_out(sm.encd, LDD, P.kd, st->encd + st->row0 * P.kd, P.kd);
+  }
 
   for (int i = 0; i < P.num_layers; ++i) {
     const __nv_bfloat16* W = P.mats + P.w_off[i];
@@ -265,6 +300,8 @@ __device__ void field_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
       }
     }
     __syncthreads();
+    if (st != nullptr)
+      copy_tile_out(nxt, LDH, HID, st->h + i * st->layer_stride + st->row0 * HID, HID);
     __nv_bfloat16* t = cur; cur = nxt; nxt = t;
   }
 
@@ -287,9 +324,15 @@ __device__ void field_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
           const int row = mt * 16 + gid + 8 * h;
           const int j = min(row / s, rpc - 1);
           const float* app = sm.app + j * HALF;
-          const float v0 = (fmaxf(acc[mt][nt][2 * h] + b0, 0.f) + app[col]) + a0;
-          const float v1 = (fmaxf(acc[mt][nt][2 * h + 1] + b1, 0.f) + app[col + 1]) + a1;
+          const float p0 = acc[mt][nt][2 * h] + b0, p1 = acc[mt][nt][2 * h + 1] + b1;
+          const float v0 = (fmaxf(p0, 0.f) + app[col]) + a0;
+          const float v1 = (fmaxf(p1, 0.f) + app[col + 1]) + a1;
           *reinterpret_cast<__nv_bfloat162*>(nxt + row * LDH + col) = __floats2bfloat162_rn(v0, v1);
+          if (st != nullptr) {
+            unsigned char* g = st->dirg + (st->row0 + row) * HALF + col;
+            g[0] = p0 > 0.f;
+            g[1] = p1 > 0.f;
+          }
         }
       }
     }
@@ -309,6 +352,7 @@ __device__ void field_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
       }
       acc = warp_sum(acc) + bd;
       if (lane == 0) {
+        sm.sigma_pre[r] = acc;
         float sg;
         if (P.softplus)
           sg = fmaxf(acc, 0.f) + log1pf(expf(-fabsf(acc)));
@@ -319,6 +363,7 @@ __device__ void field_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
     }
   }
   __syncthreads();
+  if (st != nullptr) copy_tile_out(nxt, LDH, HALF, st->happ + st->row0 * HALF, HALF);
 
   // rgb head: sigmoid(happ_bf16 @ Wrgb^T + brgb), N = 3
   {
@@ -343,6 +388,7 @@ __device__ void field_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
     }
   }
   __syncthreads();
+  return cur;
 }
 
 // Load a tile's per-ray inputs (zeros past R) into shared memory.
@@ -358,6 +404,45 @@ __device__ void load_rays(Smem& sm, const float* __restrict__ o, const float* __
     const long long r = ray0 + idx / emb_dim;
     sm.emb[idx] = r < R ? emb[r * emb_dim + idx % emb_dim] : 0.f;
   }
+}
+
+// Stable rank merge of one ray's samples by one warp (K5, K4): the sorted
+// coarse depths zc (Sc) with their field fc (the ray's (4, Sc) slice of
+// K2's output) and the sorted fine depths zf (Sf) whose field is the tile's
+// rows row0.. of sm.rgb / sm.sigma.  rank_c = i + #{z_f < z_c[i]}, rank_f =
+// j + #{z_c <= z_f[j]} (coarse first on ties) replaces the TPU kernel's
+// one-hot permutation matmuls.  Writes the merged z, sigma, rgb (Sc + Sf)
+// and, when given, the ranks.
+__device__ void merge_ray(const Smem& sm, const float* zc, int Sc, const float* zf, int Sf,
+                          const float* __restrict__ fc, int row0, float* mz, float* msig,
+                          float* mrgb, int* rank_c, int* rank_f) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < Sc; i += 32) {
+    const float zv = zc[i];
+    int cnt = 0;
+    for (int k = 0; k < Sf; ++k) cnt += zf[k] < zv;
+    const int k = i + cnt;
+    if (rank_c != nullptr) rank_c[i] = k;
+    mz[k] = zv;
+    mrgb[k * 3 + 0] = fc[i];
+    mrgb[k * 3 + 1] = fc[Sc + i];
+    mrgb[k * 3 + 2] = fc[2 * Sc + i];
+    msig[k] = fc[3 * Sc + i];
+  }
+  for (int i = lane; i < Sf; i += 32) {
+    const float zv = zf[i];
+    int cnt = 0;
+    for (int k = 0; k < Sc; ++k) cnt += zc[k] <= zv;
+    const int k = i + cnt;
+    const int row = row0 + i;
+    if (rank_f != nullptr) rank_f[i] = k;
+    mz[k] = zv;
+    mrgb[k * 3 + 0] = sm.rgb[row * 3 + 0];
+    mrgb[k * 3 + 1] = sm.rgb[row * 3 + 1];
+    mrgb[k * 3 + 2] = sm.rgb[row * 3 + 2];
+    msig[k] = sm.sigma[row];
+  }
+  __syncwarp();
 }
 
 // Composite one ray with one warp: alpha = 1 - exp(-sigma * dist) (1e-3 tail

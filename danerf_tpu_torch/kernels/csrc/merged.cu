@@ -10,10 +10,10 @@
 // output instead of a second MLP evaluation.  Per-ray HBM traffic is ~3.6 KB
 // (field_c in, weights and z_all out), ~0.24 GB per chunk, ~70 us.  The MLP
 // is field.cuh's tensor-core tile; the merge replaces the TPU kernel's
-// one-hot permutation matmuls with per-ray counting in shared memory:
-//   rank_c[i] = i + #{z_f < z_c[i]},  rank_f[j] = j + #{z_c <= z_f[j]}
-// (a stable merge, coarse first on ties; both inputs arrive sorted), then
-// one warp per ray composites the merged samples with a product scan.
+// one-hot permutation matmuls with per-ray counting in shared memory
+// (field.cuh merge_ray: a stable merge, coarse first on ties; both inputs
+// arrive sorted), then one warp per ray composites the merged samples with
+// a product scan.
 //
 //   in : o, d (R,3), emb (R,E), z_c (R,Sc), field_c (R,4,Sc), z_f (R,Sf) f32
 //   out: rgb (R,3), depth (R), acc (R), w (R,Sc+Sf), z_all (R,Sc+Sf)
@@ -56,36 +56,11 @@ merged_kernel(const FieldArgs P, const float* __restrict__ o, const float* __res
   for (int j = warp; j < rpc; j += WARPS) {
     const long long r = ray0 + j;
     if (r >= R) break;
-    const float* zcj = zc_s + j * Sc;
-    const float* zfj = sm.z + j * Sf;
     float* mzj = mz + j * Sa;
     float* msj = msig + j * Sa;
     float* mrj = mrgb + j * Sa * 3;
-    const float* fcr = fc + r * 4 * Sc;
-    for (int i = lane; i < Sc; i += 32) {
-      const float zv = zcj[i];
-      int cnt = 0;
-      for (int k = 0; k < Sf; ++k) cnt += zfj[k] < zv;
-      const int k = i + cnt;
-      mzj[k] = zv;
-      mrj[k * 3 + 0] = fcr[i];
-      mrj[k * 3 + 1] = fcr[Sc + i];
-      mrj[k * 3 + 2] = fcr[2 * Sc + i];
-      msj[k] = fcr[3 * Sc + i];
-    }
-    for (int i = lane; i < Sf; i += 32) {
-      const float zv = zfj[i];
-      int cnt = 0;
-      for (int k = 0; k < Sc; ++k) cnt += zcj[k] <= zv;
-      const int k = i + cnt;
-      const int row = j * Sf + i;
-      mzj[k] = zv;
-      mrj[k * 3 + 0] = sm.rgb[row * 3 + 0];
-      mrj[k * 3 + 1] = sm.rgb[row * 3 + 1];
-      mrj[k * 3 + 2] = sm.rgb[row * 3 + 2];
-      msj[k] = sm.sigma[row];
-    }
-    __syncwarp();
+    merge_ray(sm, zc_s + j * Sc, Sc, sm.z + j * Sf, Sf, fc + r * 4 * Sc, j * Sf, mzj, msj, mrj,
+              nullptr, nullptr);
     composite_ray(mzj, msj, mrj, Sa, w + r * Sa, rgb + r * 3, depth + r, acc + r);
     for (int k = lane; k < Sa; k += 32) zall[r * Sa + k] = mzj[k];
   }

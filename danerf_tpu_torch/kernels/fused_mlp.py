@@ -152,6 +152,24 @@ def kernel_meta(packed: PackedParams, cfg: NeRFConfig) -> Tuple[int, ...]:
     return tuple(head + w_off + b_off + tail)
 
 
+def transposed_mats(packed: PackedParams, cfg: NeRFConfig):
+    """The hidden-input block of each trunk layer after the first, and of the
+    dir layer, transposed: W[:, :hidden]^T as (hidden, out) row-major bf16,
+    which the backward kernels read as the B operand of d_in = d_pre @ W
+    (csrc/field_bwd.cuh).  Returns (flat tensor, offsets): one offset per
+    trunk layer (-1 for layer 0, whose d_in is not formed) and one for the
+    dir layer."""
+    hid = cfg.hidden_dim
+    parts, offs, n = [], [-1], 0
+    names = [f"w{i}" for i in range(1, packed.num_layers)] + ["wdir"]
+    for name in names:
+        t = packed.mat(name)[:, :hid].t().contiguous().reshape(-1)
+        offs.append(n)
+        parts.append(t)
+        n += t.numel()
+    return torch.cat(parts), tuple(offs)
+
+
 def _enc_cols(levels: int, dim: int, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per output column of the encoding: input index, frequency, phase,
     is-input flag (the constants of the JAX package's ``_encode_consts``)."""
@@ -185,30 +203,161 @@ def _dot(a: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
 
 
 def field_from_enc_plain(cfg: NeRFConfig, enc_x: torch.Tensor, enc_d: torch.Tensor,
-                         emb: torch.Tensor, packed: PackedParams):
+                         emb: torch.Tensor, packed: PackedParams, want_res: bool = False):
     """Trunk + heads on encoded inputs, the plain version of the kernels'
     ``field_tile``.
 
     enc_x: (N, pos_in), enc_d: (N, dir_enc), emb: (N, E) f32.
-    Returns rgb (N, 3) and sigma (N, 1).
+    Returns rgb (N, 3) and sigma (N, 1); with ``want_res`` also the
+    residuals of ``_field_from_enc`` that ``field_bwd_plain`` reads: layer
+    inputs ``ins`` and relu ``gates``, ``sigma_pre``, ``dcat``, ``dir_gate``,
+    ``happ`` (compute dtype) and ``rgb``.
     """
     cdt = torch.bfloat16 if cfg.use_bf16 else torch.float32
     kx, kd = enc_widths(cfg)
     enc_x = F.pad(enc_x, (0, kx - enc_x.shape[-1])).to(cdt)
     enc_d = F.pad(enc_d, (0, kd - enc_d.shape[-1])).to(cdt)
     h = enc_x
+    ins, gates = [], []
     for i in range(packed.num_layers):
         if i in cfg.skip_connect_layers and i > 0:
             h = torch.cat([h, enc_x], dim=-1)
-        h = F.relu(_dot(h, packed.mat(f"w{i}"), cdt) + packed.vec(f"b{i}")).to(cdt)
+        ins.append(h)
+        pre = _dot(h, packed.mat(f"w{i}"), cdt) + packed.vec(f"b{i}")
+        gates.append(pre > 0)
+        h = F.relu(pre).to(cdt)
     sigma_pre = torch.sum(h.to(torch.float32) * packed.vec("wd"), dim=-1,
                           keepdim=True) + packed.vec("bd")
     sigma = F.softplus(sigma_pre) if cfg.density_activation == "softplus" else F.relu(sigma_pre)
-    hdir = F.relu(_dot(torch.cat([h, enc_d], dim=-1), packed.mat("wdir"), cdt)
-                  + packed.vec("bdir"))
-    happ = hdir + _dot(emb, packed.mat("wapp"), cdt) + packed.vec("bapp")
+    dcat = torch.cat([h, enc_d], dim=-1)
+    hdir_pre = _dot(dcat, packed.mat("wdir"), cdt) + packed.vec("bdir")
+    happ = F.relu(hdir_pre) + _dot(emb, packed.mat("wapp"), cdt) + packed.vec("bapp")
     rgb = torch.sigmoid(_dot(happ, packed.mat("wrgb"), cdt) + packed.vec("brgb"))
-    return rgb, sigma
+    if not want_res:
+        return rgb, sigma
+    res = dict(ins=ins, gates=gates, h_last=h, sigma_pre=sigma_pre, dcat=dcat,
+               dir_gate=hdir_pre > 0, happ=happ.to(cdt), rgb=rgb)
+    return rgb, sigma, res
+
+
+# ---------------------------------------------------------------- backward
+
+@dataclasses.dataclass(frozen=True)
+class PackedGrads:
+    """f32 gradients in the layout of ``packed``: ``mats`` as
+    ``packed.mats`` (K padding included), ``vecs`` as ``packed.vecs``.  The
+    backward kernels write this layout; ``unpack_grads`` turns it into one
+    tensor per module parameter."""
+    mats: torch.Tensor
+    vecs: torch.Tensor
+    packed: PackedParams
+
+    def mat(self, name: str) -> torch.Tensor:
+        off, shape = self.packed.mat_at[name]
+        return self.mats[off:off + math.prod(shape)].view(shape)
+
+    def vec(self, name: str) -> torch.Tensor:
+        off, shape = self.packed.vec_at[name]
+        return self.vecs[off:off + math.prod(shape)].view(shape)
+
+    @staticmethod
+    def zeros(packed: PackedParams) -> "PackedGrads":
+        dev = packed.device
+        return PackedGrads(torch.zeros(packed.mats.numel(), device=dev),
+                           torch.zeros(packed.vecs.numel(), device=dev), packed)
+
+
+def _dW(g: torch.Tensor, a: torch.Tensor, cdt) -> torch.Tensor:
+    """Weight gradient g^T @ a in the (out, K) layout: both operands rounded
+    to the compute dtype, f32 accumulation (the JAX kernels' ``dotT_a``)."""
+    return g.to(cdt).to(torch.float32).t() @ a.to(cdt).to(torch.float32)
+
+
+def _dX(g: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
+    """Input cotangent g @ W for W (out, K): ``dot_wT``'s rounding."""
+    return g.to(cdt).to(torch.float32) @ w.to(torch.float32)
+
+
+def field_bwd_plain(cfg: NeRFConfig, packed: PackedParams, res: dict, emb: torch.Tensor,
+                    g_rgb: torch.Tensor, g_sigma: torch.Tensor):
+    """Transposed MLP chain from ``field_from_enc_plain``'s residuals, step
+    for step ``_field_bwd_from_res`` (the shared device code of the backward
+    kernels, ``csrc/field_bwd.cuh``).
+
+    g_rgb (N, 3), g_sigma (N, 1) f32.  Returns (PackedGrads summed over the
+    N rows, demb (N, E)).  Upstream cotangents of the data inputs (the
+    enc_x tail of a skip layer, the enc_d tail of the dir layer, the first
+    layer's input) are not formed.
+    """
+    cdt = torch.bfloat16 if cfg.use_bf16 else torch.float32
+    hid = cfg.hidden_dim
+    out = PackedGrads.zeros(packed)
+
+    d_pre_rgb = g_rgb * res["rgb"] * (1.0 - res["rgb"])
+    out.mat("wrgb").copy_(_dW(d_pre_rgb, res["happ"], cdt))
+    out.vec("brgb").copy_(d_pre_rgb.sum(0))
+    d_happ = _dX(d_pre_rgb, packed.mat("wrgb"), cdt)
+
+    out.mat("wapp").copy_(_dW(d_happ, emb, cdt))
+    out.vec("bapp").copy_(d_happ.sum(0))
+    demb = _dX(d_happ, packed.mat("wapp"), cdt)
+
+    d_hdir_pre = torch.where(res["dir_gate"], d_happ, 0.0)
+    out.mat("wdir").copy_(_dW(d_hdir_pre, res["dcat"], cdt))
+    out.vec("bdir").copy_(d_hdir_pre.sum(0))
+    d_h = _dX(d_hdir_pre, packed.mat("wdir"), cdt)[:, :hid]
+
+    if cfg.density_activation == "softplus":
+        d_sigma_pre = g_sigma * torch.sigmoid(res["sigma_pre"])
+    else:
+        d_sigma_pre = g_sigma * (res["sigma_pre"] > 0)
+    out.vec("wd").copy_((res["h_last"].to(torch.float32) * d_sigma_pre).sum(0))
+    out.vec("bd").copy_(d_sigma_pre.sum(0))
+    d_h = d_h + d_sigma_pre * packed.vec("wd")
+
+    for i in range(packed.num_layers - 1, -1, -1):
+        d_pre = torch.where(res["gates"][i], d_h, 0.0)
+        out.mat(f"w{i}").copy_(_dW(d_pre, res["ins"][i], cdt))
+        out.vec(f"b{i}").copy_(d_pre.sum(0))
+        if i > 0:
+            d_h = _dX(d_pre, packed.mat(f"w{i}"), cdt)[:, :hid]
+    return out, demb
+
+
+def _param_slot(name: str):
+    """(kind, packed name) of a ``NeRF`` parameter name."""
+    mod, kind = name.rsplit(".", 1)
+    if mod.startswith("pts_linears."):
+        i = mod.split(".")[1]
+        return ("mat", f"w{i}") if kind == "weight" else ("vec", f"b{i}")
+    base = {"density_head": "d", "dir_linear": "dir", "appearance_projection": "app",
+            "rgb_linear": "rgb"}[mod]
+    if base == "d":
+        return ("vec", "wd") if kind == "weight" else ("vec", "bd")
+    return ("mat", f"w{base}") if kind == "weight" else ("vec", f"b{base}")
+
+
+def unpack_grads(grads: PackedGrads, model) -> Dict[str, torch.Tensor]:
+    """Packed-layout f32 gradients -> {parameter name: gradient} for every
+    parameter of ``model`` (a ``NeRF`` module, or its (name, parameter)
+    pairs), in its (out, in) shape with the K padding sliced off.  A
+    projection packed as zeros (no embedding given) gets zeros, as the JAX
+    package zeroes the gradient of a skipped term."""
+    named = model.named_parameters() if isinstance(model, torch.nn.Module) else model
+    out = {}
+    for name, p in named:
+        kind, slot = _param_slot(name)
+        if slot in ("wapp", "bapp") and not grads.packed.has_appearance:
+            out[name] = torch.zeros_like(p)
+            continue
+        g = grads.mat(slot) if kind == "mat" else grads.vec(slot)
+        if p.dim() == 2:
+            g = g.reshape(-1, g.shape[-1]) if kind == "mat" else g.reshape(p.shape)
+            g = g[:p.shape[0], :p.shape[1]]
+        else:
+            g = g[:p.shape[0]]
+        out[name] = g.to(p.dtype).reshape(p.shape)
+    return out
 
 
 def params_from_jax_module(params: dict, cfg: NeRFConfig, device="cpu"):

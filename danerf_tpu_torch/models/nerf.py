@@ -98,3 +98,11 @@ class NeRF(nn.Module):
             h_dir = h_dir + _linear(self.appearance_projection, appearance_embedding, cdt)
         rgb = torch.sigmoid(_linear(self.rgb_linear, h_dir, cdt))
         return rgb, sigma
+
+
+def init_appearance_embeddings(num_images: int, appearance_dim: int,
+                               generator: Optional[torch.Generator] = None,
+                               device=None) -> torch.Tensor:
+    """Per-image N(0, 1) appearance embeddings, an (N, E) f32 table
+    (reference src/dataset.py:81-83)."""
+    return torch.randn(num_images, appearance_dim, generator=generator, device=device)

@@ -37,6 +37,31 @@ def generate_rays(height: int, width: int, focal, c2w: torch.Tensor):
     return origins, dirs
 
 
+def rays_for_pixels(pixel_idx: torch.Tensor, c2w: torch.Tensor, height: int, width: int,
+                    focal):
+    """Rays for a batch of flat row-major pixel indices.
+
+    Args:
+        pixel_idx: (B,) integer indices into the height*width grid.
+        c2w: (B, 3|4, 4) per-ray camera matrices, or one (3|4, 4).
+
+    Returns:
+        origins, directions: (B, 3); directions unit-norm.
+    """
+    i = torch.div(pixel_idx, width, rounding_mode="floor").to(torch.float32)
+    j = (pixel_idx % width).to(torch.float32)
+    x = (j - width * 0.5) / focal
+    y = -(i - height * 0.5) / focal
+    dirs = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
+    c2w = c2w.to(torch.float32)
+    if c2w.dim() == 2:
+        c2w = c2w.expand((dirs.shape[0],) + tuple(c2w.shape))
+    dirs = torch.sum(dirs[..., None, :] * c2w[..., :3, :3], dim=-1)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    origins = torch.broadcast_to(c2w[..., :3, 3], dirs.shape)
+    return origins, dirs
+
+
 def look_at_c2w(cam_pos, center, up) -> np.ndarray:
     """4x4 c2w from camera position, look-at center and up vector; columns
     [right | up | -forward | position], with the degenerate-basis guards of

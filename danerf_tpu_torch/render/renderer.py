@@ -44,7 +44,8 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
                 t: Optional[torch.Tensor] = None, n_samples: Optional[int] = None,
                 n_importance: Optional[int] = None, perturb: bool = True,
                 background_color=None, fused_composite: bool = False,
-                generator: Optional[torch.Generator] = None, packed=None) -> dict:
+                generator: Optional[torch.Generator] = None, packed=None,
+                draws=None) -> dict:
     """Render a batch of rays.
 
     Args:
@@ -57,6 +58,9 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
         background_color: optional (3,).
         fused_composite: take the kernel route.
         packed: ``pack_params`` output to reuse across calls (kernel route).
+        draws: optional (stratified, importance) jitter tensors of U[0,1)
+            draws, (R, n_samples) and (R, n_importance), used instead of
+            drawing from ``generator``.
 
     Returns:
         dict rgb (R, 3), depth (R,), acc (R,), weights (R, S_total),
@@ -74,8 +78,9 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
         box = cfg.scene_aabb
         near, far = ray_aabb_bounds(rays_o, rays_d, box[:3], box[3:], cfg.near, cfg.far)
 
+    r_strat, r_imp = (generator, generator) if draws is None else draws
     z_coarse, pts = sample_stratified(rays_o, rays_d, near, far, n_samples,
-                                      perturb=perturb, rand=generator)
+                                      perturb=perturb, rand=r_strat)
     bg = (None if background_color is None
           else torch.as_tensor(background_color, dtype=torch.float32, device=rays_o.device))
 
@@ -89,7 +94,7 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
             _prepare, fused_render_rays_coarse_field, fused_render_rays_eval,
             fused_render_rays_merged)
 
-        # pack once for both passes (this also refuses autograd)
+        # pack once for both passes
         params = (packed if packed is not None
                   else _prepare(model, cfg, rays_o, appearance_embedding)[0])
         if n_importance <= 0:
@@ -100,7 +105,7 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
         coarse = fused_render_rays_coarse_field(params, cfg, rays_o, rays_d, z_coarse,
                                                 appearance_embedding, t)
         z_fine = sample_pdf(z_coarse, coarse["weights"].detach(), n_importance,
-                            perturb=perturb, rand=generator)
+                            perturb=perturb, rand=r_imp)
         fine = add_bg(fused_render_rays_merged(params, cfg, rays_o, rays_d, z_coarse,
                                                coarse["field"], z_fine.detach(),
                                                appearance_embedding, t))
@@ -115,7 +120,7 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
         return coarse
 
     z_fine = sample_pdf(z_coarse, coarse["weights"].detach(), n_importance,
-                        perturb=perturb, rand=generator)
+                        perturb=perturb, rand=r_imp)
     z_all, pts_all = combine_z(rays_o, rays_d, z_coarse, z_fine.detach())
     rgb, sigma = _eval_field(model, pts_all, rays_d, appearance_embedding, t)
     fine = composite(rgb, sigma, z_all, bg)

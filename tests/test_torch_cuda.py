@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels (K2, K5 and the backward kernels K3, K4) against their
+plain versions, on the card.
 
 These need a GPU with ``nvcc``: on a host without CUDA each test skips
 (decided in the fixture, not at import).  On the card, whose machine has no
@@ -10,7 +11,8 @@ Full width (default NeRFConfig, 8x256, bf16).  Tolerances: the kernels and
 the plain versions round to bf16 at the same places and sum in f32 in
 another order, so an activation next to a bf16 rounding boundary can round
 apart by one bf16 ulp.  The limits are ``fused_render.PLAIN_TOL``, the ones
-chip_smoke.py holds the kernels to (the comment there gives their reasons).
+chip_smoke.py holds the kernels to (the comment there gives their reasons);
+gradients are compared by relative Frobenius error per parameter.
 """
 
 import pytest
@@ -97,5 +99,93 @@ def test_kernel_route_counts_launches(dev):
     fr.reset_launch_counts()
     rgb, depth, _ = render_frame(model, cfg, camera_path("circle", 2, "lego")[0], 40, 30,
                                  40.0, chunk=500, device=dev)
-    assert fr.LAUNCHES == {"march": 3, "merged": 3}   # 1200 rays in chunks of 500
+    # 1200 rays in chunks of 500; rendering launches no backward kernel
+    assert fr.LAUNCHES == {"march": 3, "merged": 3, "march_bwd": 0, "merged_train": 0}
     assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
+
+
+def _cotangents(g, n, s, dev):
+    return (torch.randn(n, 3, generator=g, device=dev), torch.randn(n, generator=g, device=dev),
+            torch.randn(n, generator=g, device=dev),
+            0.1 * torch.randn(n, s, generator=g, device=dev),
+            0.1 * torch.randn(n, 4, s, generator=g, device=dev))
+
+
+def _close_grads(got, want, model):
+    errs = fr.grad_rel_errors(got, want, model)
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= TOL["grad_rel"], f"{worst}: {errs[worst]}"
+
+
+@pytest.mark.parametrize("want_field", [True, False])
+def test_march_bwd_kernel_matches_plain(dev, want_field):
+    """K3 at 37 rays (19 blocks: a lost or doubled block moves every summed
+    gradient by several percent), every cotangent non-zero."""
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
+    packed = pack_params(model, cfg)
+    *cot, g_field = _cotangents(g, 37, cfg.num_samples, dev)
+    g_field = g_field if want_field else None
+    gk, dk = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field)
+    gk2, _ = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field)
+    gp, dp = fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb"]
+    assert torch.equal(gk.mats, gk2.mats) and torch.equal(gk.vecs, gk2.vecs)   # deterministic
+
+
+def test_merged_train_kernel_matches_plain(dev):
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
+    packed = pack_params(model, cfg)
+    coarse = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], cfg.num_importance, True, rand=g)
+    target = torch.rand(37, 3, generator=g, device=dev)
+    lk, gk, dk, fk = fr.merged_train_cuda(packed, cfg, o, d, emb, z, coarse["field"], z_f, target)
+    lp, gp, dp, fp = fr.merged_train_plain(packed, cfg, o, d, emb, z, coarse["field"], z_f, target)
+    assert abs(float(lk) - float(lp)) <= TOL["loss"]
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k4"]
+    assert float((fk - fp).abs().max()) <= TOL["g_field"]
+
+
+def test_train_step_launches_each_kernel_once(dev):
+    from danerf_tpu_torch.data.dataset import RayDataset
+    from danerf_tpu_torch.train.trainer import init_model, make_optimizer, train_step
+
+    cfg = NeRFConfig(density_bias_init=0.5)
+    rng = torch.Generator().manual_seed(0)
+    imgs = torch.randint(0, 256, (2, 16, 16, 3), generator=rng, dtype=torch.uint8).numpy()
+    c2w = torch.eye(4)
+    c2w[2, 3] = 4.0
+    ds = RayDataset(imgs, imgs[..., 0], torch.stack([c2w, c2w]).numpy(), 20.0, 2.0, 6.0)
+    model, table = init_model(cfg, 2, 0, dev)
+    opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
+    fr.reset_launch_counts()
+    m = train_step(model, table, opt, sched, ds.device_arrays(device=dev), cfg, 16, 16, 20.0,
+                   256, torch.Generator(device=dev).manual_seed(0))
+    assert fr.LAUNCHES == {"march": 1, "merged": 0, "march_bwd": 1, "merged_train": 1}
+    assert bool(torch.isfinite(m["loss"])) and table.grad is not None
+
+
+@pytest.mark.parametrize("sc,sf", [(48, 32), (64, 48)])
+def test_backward_kernels_at_other_sample_counts(dev, sc, sf):
+    """Tile layouts beside 2 x 64: K3 at S = 48 (two rays fill 96 of 128 rows,
+    the second across the row halves that demb's sums split at) and K4 at
+    Sf = 32 (four rays a tile) or 48."""
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
+    cfg = cfg.replace(num_samples=sc, num_importance=sf)
+    z, _ = sample_stratified(o, d, cfg.near, cfg.far, sc, True, g)
+    packed = pack_params(model, cfg)
+    *cot, g_field = _cotangents(g, 37, sc, dev)
+    gk, dk = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field)
+    gp, dp = fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb"]
+    coarse = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+    target = torch.rand(37, 3, generator=g, device=dev)
+    lk, gk, dk, fk = fr.merged_train_cuda(packed, cfg, o, d, emb, z, coarse["field"], z_f, target)
+    lp, gp, dp, fp = fr.merged_train_plain(packed, cfg, o, d, emb, z, coarse["field"], z_f, target)
+    assert abs(float(lk) - float(lp)) <= TOL["loss"]
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k4"]
+    assert float((fk - fp).abs().max()) <= TOL["g_field"]
