@@ -15,32 +15,39 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             64 + 64 with z_f from sample_pdf of K2's weights; and
             render_rays' kernel route against its reference route on 512
             rays.
-4. bwd      the backward kernels against their plain versions at 37 rays
-            (19 blocks, so a lost or doubled block shows) and at the
-            1024-ray training batch: K3 with every cotangent seeded non-zero,
-            want_field on and off; K4 with field_c from K2, z_f from
-            sample_pdf and a seeded target.  Per-ray outputs and the loss by
-            max abs error, each parameter gradient by relative Frobenius
-            error; each K3 call twice, which must agree bit for bit.
-5. step     one training step at B = 1024 built twice from the same module,
-            table, batch and draws: through the kernels and through their
-            plain versions; loss, every gradient and the parameters after
-            one Adam step compared.
+4. bwd      the backward and training kernels against their plain versions
+            at 37 rays (19 blocks, so a lost or doubled block shows) and at
+            the 1024-ray training batch: K3 with every cotangent seeded
+            non-zero, want_field on and off; K4 and K7 with a seeded target
+            (K4's field_c from K2, z_f from sample_pdf); K6 with every
+            cotangent seeded and a coarse/fine tie in z.  Per-ray outputs and
+            the loss by max abs error, each parameter gradient by relative
+            Frobenius error; K3 and K7 twice, which must agree bit for bit.
+5. step     one training step at B = 1024 on each training path (64 + 64;
+            coarse only, num_importance=0; 64 + 64 on a white background),
+            each built twice from the same module, table, batch and draws:
+            through the kernels and through their plain versions; the
+            launches, loss, every gradient and the parameters after one Adam
+            step compared.
 6. render   the serving path: a seeded full-width model saved as a
             reference-format .pt, rendered by `cli.main render` (two
             400x400 medium frames, then one preview frame); launch counts
             are zeroed just before each and read just after.
-7. train    the training path: `cli.main train` for 200 steps on the
-            procedural scene (5 warm-up steps of 64 rays, then 1024);
-            exactly one K2, K4 and K3 launch per step, finite losses, a
-            rising PSNR, and `render` of the final checkpoint.
+7. train    the training paths through `cli.main train` on the procedural
+            scene (5 warm-up steps of 64 rays, then 1024), launch counts
+            zeroed just before each run: 200 steps of 64 + 64 (exactly one
+            K2, K4 and K3 launch a step; then `render` of the final
+            checkpoint), 100 steps of `--num_importance 0` (one K7 a step
+            and nothing else), 100 steps of `--white_background` (one K2,
+            K5, K6 and K3 a step); finite losses and a rising PSNR.
 8. timing   CUDA-event times of every kernel and its plain version, each
             beside its bound: K2 (want_field) and K5 on a 65,536-ray chunk,
-            K3 and K4 on a chunk and at B = 1024 (plain versions at B =
-            1024); an 800x800 medium frame end to end (median of three after
-            a warm-up frame); the training step at B = 1024 (median of 50
-            synchronised steps) with its rays/s and the share of K2+K3+K4,
-            and the device time by kernel over 10 steps (torch.profiler).
+            K3, K4, K6 and K7 on a chunk and at B = 1024 (plain versions at
+            B = 1024); an 800x800 medium frame end to end (median of three
+            after a warm-up frame); the training step of each path at
+            B = 1024 (median of 50 synchronised steps) with its rays/s and
+            its kernels' share, and the device time by kernel over 10 steps
+            (torch.profiler) of the 64 + 64 and the coarse-only step.
 
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record; the last line is the ok record.  Exits non-zero,
@@ -296,19 +303,33 @@ def _cotangents(n, s, g, device):
             0.1 * torch.randn(n, 4, s, generator=g, device=device))
 
 
+def _tie(z, z_f):
+    """z_f with its sixth depth set to each ray's eighth coarse depth, sorted:
+    a coarse/fine tie (the merge puts the coarse sample first)."""
+    import torch
+
+    z_f = z_f.clone()
+    z_f[:, 5] = z[:, 7]
+    return torch.sort(z_f, dim=-1).values
+
+
 def phase_bwd(cfg, model, device):
-    """K3 and K4 against their plain versions at 37 rays and at the 1024-ray
-    batch.  Returns the max abs error of each kernel's per-ray outputs (and
-    loss) for the kernels record."""
+    """The backward and training kernels against their plain versions at 37
+    rays and at the 1024-ray batch: K3 (every cotangent seeded, want_field on
+    and off), K4 and K7 (seeded targets), K6 (every cotangent seeded,
+    weights in merged order, a coarse/fine tie in z).  K3 and K7 run twice
+    and must agree bit for bit.  Returns the max abs error of each kernel's
+    per-ray outputs (and loss) for the kernels record."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_render as fr
-    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.kernels.fused_mlp import PackedGrads, pack_params
     from danerf_tpu_torch.ops.sampling import sample_pdf
 
     tol = fr.PLAIN_TOL
     packed = pack_params(model, cfg)
-    errs, grad_rel, failures, deterministic = {}, {}, [], True
+    sa = cfg.num_samples + cfg.num_importance
+    errs, grad_rel, failures, deterministic, drop = {}, {}, [], {"K3": True, "K7": True}, {}
 
     def check(name, err, limit):
         errs[name] = err
@@ -322,7 +343,17 @@ def phase_bwd(cfg, model, device):
         if not math.isfinite(rel[worst]) or rel[worst] > tol["grad_rel"]:
             failures.append(f"{tag}.grad_rel {worst}: {rel[worst]} > {tol['grad_rel']}")
 
-    drop = None
+    def same(a, b):
+        return bool(torch.equal(a.mats, b.mats) and torch.equal(a.vecs, b.vecs))
+
+    def dropped(kern, got, want, **first_block):
+        """What losing the first block of rays (2 rays at 64 samples) does:
+        the summed gradients' relative change, and the block's per-ray
+        outputs, which would be missing."""
+        eff = fr.grad_rel_errors(got, want, model)
+        drop[kern] = {"grad_rel_min": min(eff.values()), "grad_rel_max": max(eff.values()),
+                      **{k: float(v[:2].abs().max()) for k, v in first_block.items()}}
+
     for n, seed in ((37, 11), (cfg.batch_size, 12)):
         o, d, emb, z = make_rays(n, cfg, seed=seed, device=device)
         g = torch.Generator(device=device).manual_seed(seed + 100)
@@ -334,15 +365,13 @@ def phase_bwd(cfg, model, device):
             gk2, _ = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, gf)
             gp, dp = fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, gf)
             torch.cuda.synchronize()
-            deterministic &= bool(torch.equal(gk.mats, gk2.mats) and torch.equal(gk.vecs, gk2.vecs))
+            deterministic["K3"] &= same(gk, gk2)
             check_grads(tag, gk, gp)
             check(f"{tag}.demb", max_err(dk, dp), tol["demb"])
             if n == 37 and want_field:
-                # what a lost block of rays (the first 2) does to the sums
                 gd, _ = fr.march_bwd_plain(packed, cfg, o[2:], d[2:], emb[2:], z[2:],
                                            *(c[2:] for c in cot), gf[2:])
-                eff = fr.grad_rel_errors(gd, gp, model)
-                drop = {"min": min(eff.values()), "max": max(eff.values())}
+                dropped("K3", gd, gp, demb=dp)
         coarse = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
         z_f = sample_pdf(z, coarse["weights"], cfg.num_importance, True, rand=g)
         target = torch.rand(n, 3, generator=g, device=device)
@@ -356,18 +385,56 @@ def phase_bwd(cfg, model, device):
         check(f"K4@{n}.demb", max_err(dk, dp), tol["demb_k4"])
         check(f"K4@{n}.g_field", max_err(fk, fp), tol["g_field"])
         errs[f"K4@{n}.g_field_scale"] = float(fp.abs().max())
-    if not deterministic:
-        failures.append("K3 gave different gradients on the same inputs")
+
+        # K7: the coarse-only loss and its gradients
+        lk, gk, dk = fr.march_train_cuda(packed, cfg, o, d, emb, z, target)
+        lk2, gk2, dk2 = fr.march_train_cuda(packed, cfg, o, d, emb, z, target)
+        lp, gp, dp = fr.march_train_plain(packed, cfg, o, d, emb, z, target)
+        torch.cuda.synchronize()
+        deterministic["K7"] &= (same(gk, gk2) and bool(torch.equal(lk, lk2))
+                                and bool(torch.equal(dk, dk2)))
+        check_grads(f"K7@{n}", gk, gp)
+        check(f"K7@{n}.loss", abs(float(lk) - float(lp)), tol["loss"])
+        check(f"K7@{n}.demb", max_err(dk, dp), tol["demb_k4"])
+        errs[f"K7@{n}.demb_scale"] = float(dp.abs().max())
+        if n == 37:
+            # the other rays' terms, still over 3R
+            _, gd, _ = fr.march_train_plain(packed, cfg, o[2:], d[2:], emb[2:], z[2:], target[2:])
+            f = (n - 2) / n
+            dropped("K7", PackedGrads(gd.mats * f, gd.vecs * f, gd.packed), gp, demb=dp)
+
+        # K6: the merged composite's VJP, every cotangent non-zero
+        z_t = _tie(z, z_f)
+        c6 = (torch.randn(n, 3, generator=g, device=device),
+              torch.randn(n, generator=g, device=device),
+              torch.randn(n, generator=g, device=device),
+              0.1 * torch.randn(n, sa, generator=g, device=device))
+        gk, dk, fk = fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, coarse["field"], z_t, *c6)
+        gp, dp, fp = fr.merged_bwd_plain(packed, cfg, o, d, emb, z, coarse["field"], z_t, *c6)
+        torch.cuda.synchronize()
+        check_grads(f"K6@{n}", gk, gp)
+        check(f"K6@{n}.demb", max_err(dk, dp), tol["demb"])
+        check(f"K6@{n}.g_field", max_err(fk, fp), tol["g_field_k6"])
+        errs[f"K6@{n}.g_field_scale"] = float(fp.abs().max())
+        if n == 37:
+            gd, _, _ = fr.merged_bwd_plain(packed, cfg, o[2:], d[2:], emb[2:], z[2:],
+                                           coarse["field"][2:], z_t[2:], *(c[2:] for c in c6))
+            dropped("K6", gd, gp, demb=dp, g_field=fp)
+        del coarse
+    for kern, ok in deterministic.items():
+        if not ok:
+            failures.append(f"{kern} gave different results on the same inputs")
     emit({"phase": "bwd", "rays": [37, cfg.batch_size], "max_abs_err": errs,
           "grad_rel": grad_rel, "dropped_block_effect_at_37": drop,
           "deterministic": deterministic,
-          "tolerance": {k: tol[k] for k in ("grad_rel", "demb", "demb_k4", "g_field", "loss")},
+          "tolerance": {k: tol[k] for k in ("grad_rel", "demb", "demb_k4", "g_field",
+                                            "g_field_k6", "loss")},
           "failures": failures})
     if failures:
         raise AssertionError("backward kernel disagrees with its plain version: "
                              + "; ".join(failures))
     return {kern: max(v for k, v in errs.items() if k.startswith(kern) and "scale" not in k)
-            for kern in ("K3", "K4")}
+            for kern in ("K3", "K4", "K6", "K7")}
 
 
 @contextlib.contextmanager
@@ -376,20 +443,45 @@ def plain_route():
     (for the step-parity phase only; the port itself never does this)."""
     from danerf_tpu_torch.kernels import fused_render as fr
 
-    saved = fr._march_fwd, fr._march_bwd, fr._merged_train
+    names = ("_march_fwd", "_march_bwd", "_march_train", "_merged_fwd", "_merged_bwd",
+             "_merged_train")
+    saved = {n: getattr(fr, n) for n in names}
     fr._march_fwd = lambda pk, c, o, d, e, z, t, wf: fr.march_plain(pk, c, o, d, e, z, t, wf)
     fr._march_bwd = lambda pk, c, o, d, e, z, t, cot: fr.march_bwd_plain(pk, c, o, d, e, z,
                                                                          *cot, t=t)
+    fr._march_train = lambda pk, c, *a: fr.march_train_plain(pk, c, *a)
+    fr._merged_fwd = lambda pk, c, *a: fr.merged_plain(pk, c, *a)
+    fr._merged_bwd = lambda pk, c, o, d, e, zc, fc, zf, t, cot: fr.merged_bwd_plain(
+        pk, c, o, d, e, zc, fc, zf, *cot, t=t)
     fr._merged_train = lambda pk, c, *a: fr.merged_train_plain(pk, c, *a)
     try:
         yield
     finally:
-        fr._march_fwd, fr._march_bwd, fr._merged_train = saved
+        for n, f in saved.items():
+            setattr(fr, n, f)
+
+
+# The training paths: config changes, and the launches of one step.
+PATHS = {
+    "hier": ({}, {"march": 1, "march_bwd": 1, "merged_train": 1}),
+    "coarse": ({"num_importance": 0}, {"march_train": 1}),
+    "white": ({"white_background": True},
+              {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
+}
+
+
+def launches_of(per_step, steps=1):
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    return {k: per_step.get(k, 0) * steps for k in fr.LAUNCHES}
 
 
 def phase_step(cfg, model, device):
-    """One training step at B = 1024 through the kernels and through the
-    plain versions, from the same module, table, batch and draws."""
+    """One training step at B = 1024 on each training path (64 + 64; coarse
+    only; 64 + 64 on a white background), each built twice from the same
+    module, table, batch and draws: through the kernels and through their
+    plain versions; loss, every gradient and the parameters after one Adam
+    step compared."""
     import copy
 
     import torch
@@ -405,54 +497,57 @@ def phase_step(cfg, model, device):
     draws = (torch.rand(n, cfg.num_samples, generator=g, device=device),
              torch.rand(n, cfg.num_importance, generator=g, device=device))
     table0 = torch.randn(n_img, cfg.appearance_dim, generator=g, device=device)
-    runs = {}
-    for route in ("kernel", "plain"):
-        m = copy.deepcopy(model).requires_grad_(True)
-        table = torch.nn.Parameter(table0.clone())
-        params = list(m.parameters()) + [table]
-        opt, sched = make_optimizer(cfg, params)
-        before = [p.detach().clone() for p in params]
-        fr.reset_launch_counts()
-        with plain_route() if route == "plain" else contextlib.nullcontext():
-            opt.zero_grad(set_to_none=True)
-            loss, aux = compute_loss_and_grads(m, table, cfg, batch, draws=draws)
-            grads = [p.grad.detach().clone() for p in params]
-            opt.step()
-            sched.step()
-        torch.cuda.synchronize()
-        runs[route] = {"loss": float(loss), "mse": float(aux["mse"]),
-                       "coarse_mse": float(aux["coarse_mse"]), "grads": grads,
-                       "delta": [p.detach() - b for p, b in zip(params, before)],
-                       "launches": dict(fr.LAUNCHES)}
-    k, p = runs["kernel"], runs["plain"]
     names = [nm for nm, _ in model.named_parameters()] + ["appearance"]
-    grad_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
-                zip(names, k["grads"], p["grads"]) if float(b.norm()) > 0}
-    upd_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
-               zip(names, k["delta"], p["delta"]) if float(b.norm()) > 0}
-    param_abs = max(max_err(a, b) for a, b in zip(k["delta"], p["delta"]))
     tol = fr.PLAIN_TOL
-    failures = []
-    if k["launches"] != {"march": 1, "merged": 0, "march_bwd": 1, "merged_train": 1}:
-        failures.append(f"kernel step launches {k['launches']}")
-    if any(p["launches"].values()):
-        failures.append(f"plain step launched kernels {p['launches']}")
-    loss_err = abs(k["loss"] - p["loss"])
-    if not math.isfinite(loss_err) or loss_err > tol["loss"]:
-        failures.append(f"loss: {loss_err} > {tol['loss']}")
-    worst = max(grad_rel, key=grad_rel.get)
-    if not math.isfinite(grad_rel[worst]) or grad_rel[worst] > tol["grad_rel"]:
-        failures.append(f"grad {worst}: {grad_rel[worst]} > {tol['grad_rel']}")
-    # Adam's first step moves each element by at most lr, so the two runs'
-    # parameters differ by at most 2 lr, reached where a gradient element
-    # near 0 changes sign between them
-    if not math.isfinite(param_abs) or param_abs > 2 * cfg.learning_rate * (1 + 1e-3):
-        failures.append(f"parameters after one Adam step: {param_abs}")
-    emit({"phase": "step", "rays": n, "loss": [k["loss"], p["loss"]], "loss_err": loss_err,
-          "mse": [k["mse"], p["mse"]], "coarse_mse": [k["coarse_mse"], p["coarse_mse"]],
-          "grad_rel_worst": {"param": worst, "err": grad_rel[worst]},
-          "update_rel_worst": max(upd_rel.values()), "param_max_abs_diff": param_abs,
-          "launches": k["launches"], "failures": failures})
+    report, failures = {}, []
+    for path, (over, per_step) in PATHS.items():
+        pcfg = cfg.replace(**over)
+        pdraws = draws if pcfg.num_importance > 0 else draws[:1]
+        runs = {}
+        for route in ("kernel", "plain"):
+            m = copy.deepcopy(model).requires_grad_(True)
+            table = torch.nn.Parameter(table0.clone())
+            params = list(m.parameters()) + [table]
+            opt, sched = make_optimizer(pcfg, params)
+            before = [p.detach().clone() for p in params]
+            fr.reset_launch_counts()
+            with plain_route() if route == "plain" else contextlib.nullcontext():
+                opt.zero_grad(set_to_none=True)
+                loss, aux = compute_loss_and_grads(m, table, pcfg, batch, draws=pdraws)
+                grads = [p.grad.detach().clone() for p in params]
+                opt.step()
+                sched.step()
+            torch.cuda.synchronize()
+            runs[route] = {"loss": float(loss), **{k: float(v) for k, v in aux.items()},
+                           "grads": grads, "delta": [p.detach() - b for p, b in zip(params, before)],
+                           "launches": dict(fr.LAUNCHES)}
+        k, p = runs["kernel"], runs["plain"]
+        grad_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
+                    zip(names, k["grads"], p["grads"]) if float(b.norm()) > 0}
+        upd_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
+                   zip(names, k["delta"], p["delta"]) if float(b.norm()) > 0}
+        param_abs = max(max_err(a, b) for a, b in zip(k["delta"], p["delta"]))
+        if k["launches"] != launches_of(per_step):
+            failures.append(f"{path}: kernel step launches {k['launches']}")
+        if any(p["launches"].values()):
+            failures.append(f"{path}: plain step launched kernels {p['launches']}")
+        loss_err = abs(k["loss"] - p["loss"])
+        if not math.isfinite(loss_err) or loss_err > tol["loss"]:
+            failures.append(f"{path}: loss: {loss_err} > {tol['loss']}")
+        worst = max(grad_rel, key=grad_rel.get)
+        if not math.isfinite(grad_rel[worst]) or grad_rel[worst] > tol["grad_rel"]:
+            failures.append(f"{path}: grad {worst}: {grad_rel[worst]} > {tol['grad_rel']}")
+        # Adam's first step moves each element by at most lr, so the two runs'
+        # parameters differ by at most 2 lr, reached where a gradient element
+        # near 0 changes sign between them
+        if not math.isfinite(param_abs) or param_abs > 2 * pcfg.learning_rate * (1 + 1e-3):
+            failures.append(f"{path}: parameters after one Adam step: {param_abs}")
+        report[path] = {"loss": [k["loss"], p["loss"]], "loss_err": loss_err,
+                        **{a: [k[a], p[a]] for a in ("mse", "coarse_mse") if a in k},
+                        "grad_rel_worst": {"param": worst, "err": grad_rel[worst]},
+                        "update_rel_worst": max(upd_rel.values()),
+                        "param_max_abs_diff": param_abs, "launches": k["launches"]}
+    emit({"phase": "step", "rays": n, **report, "failures": failures})
     if failures:
         raise AssertionError("kernel step disagrees with the plain step: " + "; ".join(failures))
 
@@ -501,9 +596,14 @@ def phase_render(cfg, model, out_dir):
     return runs["medium"]["launches"]
 
 
-def phase_train(out_dir):
-    """The training path through its entry point: 200 steps of `cli.main
-    train` on the procedural scene, then `render` of the final checkpoint."""
+TRAIN_FLAGS = {"hier": [], "coarse": ["--num_importance", "0"], "white": ["--white_background"]}
+
+
+def phase_train(out_dir, path, iters, render):
+    """A training path through its entry point: `cli.main train` for
+    ``iters`` steps on the procedural scene, with exactly the path's kernel
+    launches per step, finite losses and a rising PSNR; then, when
+    ``render``, `render` of the final checkpoint."""
     import shutil
 
     import numpy as np
@@ -512,41 +612,43 @@ def phase_train(out_dir):
     from danerf_tpu_torch.cli.main import main as cli_main
     from danerf_tpu_torch.kernels import fused_render as fr
 
-    iters, warmup = 200, 5
-    save = os.path.join(out_dir, "train")
+    warmup = 5
+    save = os.path.join(out_dir, f"train_{path}")
     shutil.rmtree(save, ignore_errors=True)          # metrics.jsonl appends
     no_scene = os.path.join(out_dir, "no_scene")     # -> the procedural scene
     argv = ["train", "--iters", str(iters), "--density_bias_init", "0.5", "--save_dir", save,
-            "--device", "cuda", "--seed", "0", "--dataset_path", no_scene]
+            "--device", "cuda", "--seed", "0", "--dataset_path", no_scene, *TRAIN_FLAGS[path]]
     fr.reset_launch_counts()
     t0 = time.perf_counter()
     cli_main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(fr.LAUNCHES)
-    want = {"march": iters, "merged": 0, "march_bwd": iters, "merged_train": iters}
+    want = launches_of(PATHS[path][1], iters)
     if counts != want:
-        raise AssertionError(f"train: launches {counts}, expected {want}")
+        raise AssertionError(f"train {path}: launches {counts}, expected {want}")
     with open(os.path.join(save, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     if [r["step"] for r in rows] != list(range(1, iters + 1)):
-        raise AssertionError("train: metrics.jsonl does not hold one row per step")
+        raise AssertionError(f"train {path}: metrics.jsonl does not hold one row per step")
     if not all(math.isfinite(r["loss"]) for r in rows):
-        raise AssertionError("train: a logged loss is not finite")
+        raise AssertionError(f"train {path}: a logged loss is not finite")
     first = float(np.mean([r["psnr"] for r in rows[warmup:warmup + 20]]))
     last = float(np.mean([r["psnr"] for r in rows[-20:]]))
     if not last > first:
-        raise AssertionError(f"train: PSNR did not rise ({first} -> {last})")
+        raise AssertionError(f"train {path}: PSNR did not rise ({first} -> {last})")
     ckpt = os.path.join(save, "checkpoint_final.pt")
     if not os.path.exists(ckpt):
-        raise AssertionError("train: checkpoint_final.pt was not written")
-    render_dir = os.path.join(out_dir, "render_trained")
-    written = cli_main(["render", "--checkpoint", ckpt, "--output_dir", render_dir,
-                        "--quality", "preview", "--frames", "1", "--width", "100", "--height",
-                        "100", "--device", "cuda", "--dataset_path", no_scene])
-    if len(written) != 1 or not os.path.exists(written[0]):
-        raise AssertionError("render of the trained checkpoint wrote no frame")
-    emit({"phase": "train", "iters": iters, "seconds_incl_scene": secs, "launches": counts,
+        raise AssertionError(f"train {path}: checkpoint_final.pt was not written")
+    if render:
+        render_dir = os.path.join(out_dir, f"render_trained_{path}")
+        written = cli_main(["render", "--checkpoint", ckpt, "--output_dir", render_dir,
+                            "--quality", "preview", "--frames", "1", "--width", "100",
+                            "--height", "100", "--device", "cuda", "--dataset_path", no_scene])
+        if len(written) != 1 or not os.path.exists(written[0]):
+            raise AssertionError("render of the trained checkpoint wrote no frame")
+    emit({"phase": "train", "path": path, "flags": TRAIN_FLAGS[path], "iters": iters,
+          "seconds_incl_scene": secs, "launches": counts,
           "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
           "psnr_mean_first20_after_warmup": first, "psnr_mean_last20": last})
     return counts
@@ -612,101 +714,20 @@ def phase_timing(cfg, model, device, chunk):
     return timing, (k2_by, k5_by)
 
 
-def phase_train_timing(cfg, model, device, chunk):
-    """K3 and K4 on the 65,536-ray chunk and at the 1024-ray batch, their
-    plain versions at the batch, and the training step at B = 1024."""
-    import numpy as np
+def profile_steps(step, n_prof=10):
+    """Device time by kernel over ``n_prof`` steps (torch.profiler, CUPTI):
+    the top kernels, the device's busy ms a step and the profiled wall ms a
+    step."""
     import torch
-
-    from danerf_tpu_torch.data.dataset import RayDataset
-    from danerf_tpu_torch.kernels import fused_render as fr
-    from danerf_tpu_torch.kernels.fused_mlp import pack_params
-    from danerf_tpu_torch.ops.sampling import sample_pdf
-    from danerf_tpu_torch.train.trainer import init_model, make_optimizer, train_step
-
-    packed = pack_params(model, cfg)
-    sc, sf, e = cfg.num_samples, cfg.num_importance, cfg.appearance_dim
-    w_bytes = packed.mats.numel() * 2 + packed.vecs.numel() * 4
-    g_bytes = (packed.mats.numel() + packed.vecs.numel()) * 4
-
-    def k3_bytes(n):
-        return 4 * n * (3 + 3 + e + sc + 3 + 1 + 1 + sc + 4 * sc) + 4 * n * e + w_bytes + g_bytes
-
-    def k4_bytes(n):
-        return (4 * n * (3 + 3 + e + sc + 4 * sc + sf + 3) + 4 * n * (e + 4 * sc) + 4
-                + w_bytes + g_bytes)
-
-    out = {}
-    g = torch.Generator(device=device).manual_seed(31)
-    shapes = (("chunk", chunk),
-              ("batch", make_rays(cfg.batch_size, cfg, seed=32, device=device) + (None,)))
-
-    for tag, (o, d, emb, z, z_f) in shapes:
-        n = o.shape[0]
-        *cot, g_field = _cotangents(n, sc, g, device)
-        coarse = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
-        if z_f is None:
-            z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
-        field = coarse["field"]
-        target = torch.rand(n, 3, generator=g, device=device)
-        del coarse
-        iters = 3 if tag == "chunk" else 20
-        out[f"k3_{tag}_ms"] = cuda_ms(
-            lambda: fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field), iters)
-        out[f"k4_{tag}_ms"] = cuda_ms(
-            lambda: fr.merged_train_cuda(packed, cfg, o, d, emb, z, field, z_f, target), iters)
-        out[f"k3_{tag}_bound_ms"], by3 = bound(cfg, n, sc, k3_bytes(n), backward=True)
-        out[f"k4_{tag}_bound_ms"], by4 = bound(cfg, n, sf, k4_bytes(n), backward=True)
-        if tag == "batch":
-            out["k2_batch_ms"] = cuda_ms(
-                lambda: fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True), iters)
-            out["k3_batch_plain_ms"] = cuda_ms(
-                lambda: fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field), 5)
-            out["k4_batch_plain_ms"] = cuda_ms(
-                lambda: fr.merged_train_plain(packed, cfg, o, d, emb, z, field, z_f, target), 5)
-            k2_bytes = 4 * n * (3 + 3 + e + sc) + 4 * n * (3 + 1 + 1 + sc + 4 * sc) + w_bytes
-            out["k2_batch_bound_ms"], _ = bound(cfg, n, sc, k2_bytes)
-            out["bound_by"] = (by3, by4)
-        del cot, g_field, field, target
-
-    # the training step at B = 1024 on a pool of 20 random 100x100 images
-    rng = np.random.default_rng(0)
-    imgs = rng.integers(0, 256, size=(20, 100, 100, 3), dtype=np.uint8)
-    from danerf_tpu_torch.viz.paths import camera_path
-
-    c2ws = np.stack([np.asarray(c, np.float32) for c in camera_path("circle", 20, cfg.scene)])
-    ds = RayDataset(imgs, imgs[..., 0], c2ws, 138.9, cfg.near, cfg.far)
-    model_t, table = init_model(cfg, 20, 0, device)
-    opt, sched = make_optimizer(cfg, list(model_t.parameters()) + [table])
-    pool = ds.device_arrays(device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
-
-    def step():
-        return train_step(model_t, table, opt, sched, pool, cfg, 100, 100, ds.focal, None, gen)
-
-    for _ in range(5):
-        step()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(50):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = float(np.median(times))
-    kern_ms = out["k2_batch_ms"] + out["k3_batch_ms"] + out["k4_batch_ms"]
-
-    # device time by kernel over 10 steps (torch.profiler, CUPTI)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    n_prof = 10
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
             step()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
     kernels = sorted(((ev.key, ev.self_device_time_total / 1e3 / n_prof, ev.count / n_prof)
                       for ev in prof.key_averages()
                       # kernels and copies; a user range (Optimizer.step#...) on the
@@ -716,18 +737,126 @@ def phase_train_timing(cfg, model, device, chunk):
                       and not ev.key.startswith("Optimizer.")),
                      key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    out.update({"profile_ms_per_step": [[k[0][:70], k[1], k[2]] for k in kernels[:14]],
-                "profile_device_busy_ms_per_step": busy_ms,
-                "profile_wall_ms_per_step": prof_wall_ms,
-                "profile_idle_share": 1.0 - busy_ms / prof_wall_ms})
-    out.update({"step_ms_median": step_ms, "step_ms_min": min(times),
-                "step_ms_max": max(times), "rays_per_s": cfg.batch_size / (step_ms / 1e3),
-                "k2_k3_k4_share": kern_ms / step_ms,
-                "step_bound_ms": out["k2_batch_bound_ms"] + out["k3_batch_bound_ms"]
-                + out["k4_batch_bound_ms"]})
+    return {"profile_ms_per_step": [[k[0][:70], k[1], k[2]] for k in kernels[:14]],
+            "profile_device_busy_ms_per_step": busy_ms, "profile_wall_ms_per_step": wall_ms,
+            "profile_idle_share": 1.0 - busy_ms / wall_ms}
+
+
+def phase_train_timing(cfg, model, device, chunk):
+    """The training kernels (K3, K4, K6, K7) on the 65,536-ray chunk and at
+    the 1024-ray batch, their plain versions at the batch, and the training
+    step of each path at B = 1024 (median of 50 synchronised steps) with a
+    torch.profiler breakdown of the 64 + 64 and the coarse-only step."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.data.dataset import RayDataset
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import sample_pdf
+    from danerf_tpu_torch.train.trainer import init_model, make_optimizer, train_step
+    from danerf_tpu_torch.viz.paths import camera_path
+
+    packed = pack_params(model, cfg)
+    sc, sf, e = cfg.num_samples, cfg.num_importance, cfg.appearance_dim
+    sa = sc + sf
+    w_bytes = packed.mats.numel() * 2 + packed.vecs.numel() * 4
+    g_bytes = (packed.mats.numel() + packed.vecs.numel()) * 4
+    # bytes each kernel must move: inputs read once, outputs written once
+    ray_bytes = {
+        "k3": lambda n: 4 * n * (3 + 3 + e + sc + 3 + 1 + 1 + sc + 4 * sc) + 4 * n * e,
+        "k4": lambda n: 4 * n * (3 + 3 + e + sc + 4 * sc + sf + 3) + 4 * n * (e + 4 * sc) + 4,
+        "k6": lambda n: (4 * n * (3 + 3 + e + sc + 4 * sc + sf + 3 + 1 + 1 + sa)
+                         + 4 * n * (e + 4 * sc)),
+        "k7": lambda n: 4 * n * (3 + 3 + e + sc + 3) + 4 * n * e + 4,
+    }
+    fine = {"k3": False, "k4": True, "k6": True, "k7": False}   # field at Sf, else Sc
+
+    out, bound_by = {}, {}
+    g = torch.Generator(device=device).manual_seed(31)
+    shapes = (("chunk", chunk),
+              ("batch", make_rays(cfg.batch_size, cfg, seed=32, device=device) + (None,)))
+    for tag, (o, d, emb, z, z_f) in shapes:
+        n = o.shape[0]
+        *cot, g_field = _cotangents(n, sc, g, device)
+        coarse = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
+        if z_f is None:
+            z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+        field = coarse["field"]
+        target = torch.rand(n, 3, generator=g, device=device)
+        c6 = (cot[0], cot[1], cot[2], 0.1 * torch.randn(n, sa, generator=g, device=device))
+        del coarse
+        calls = {
+            "k3": (lambda: fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field),
+                   lambda: fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field)),
+            "k4": (lambda: fr.merged_train_cuda(packed, cfg, o, d, emb, z, field, z_f, target),
+                   lambda: fr.merged_train_plain(packed, cfg, o, d, emb, z, field, z_f, target)),
+            "k6": (lambda: fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, field, z_f, *c6),
+                   lambda: fr.merged_bwd_plain(packed, cfg, o, d, emb, z, field, z_f, *c6)),
+            "k7": (lambda: fr.march_train_cuda(packed, cfg, o, d, emb, z, target),
+                   lambda: fr.march_train_plain(packed, cfg, o, d, emb, z, target)),
+        }
+        iters = 3 if tag == "chunk" else 20
+        for k, (kern, plain) in calls.items():
+            out[f"{k}_{tag}_ms"] = cuda_ms(kern, iters)
+            out[f"{k}_{tag}_bound_ms"], bound_by[k] = bound(
+                cfg, n, sf if fine[k] else sc, ray_bytes[k](n) + w_bytes + g_bytes,
+                backward=True)
+            if tag == "batch":
+                out[f"{k}_batch_plain_ms"] = cuda_ms(plain, 5)
+        if tag == "batch":
+            out["k2_batch_ms"] = cuda_ms(
+                lambda: fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True), iters)
+            out["k5_batch_ms"] = cuda_ms(
+                lambda: fr.merged_cuda(packed, cfg, o, d, emb, z, field, z_f), iters)
+            k2_bytes = 4 * n * (3 + 3 + e + sc) + 4 * n * (3 + 1 + 1 + sc + 4 * sc) + w_bytes
+            out["k2_batch_bound_ms"], _ = bound(cfg, n, sc, k2_bytes)
+            k5_bytes = (4 * n * (3 + 3 + e + sc + 4 * sc + sf) + 4 * n * (3 + 1 + 1 + sa + sa)
+                        + w_bytes)
+            out["k5_batch_bound_ms"], _ = bound(cfg, n, sf, k5_bytes)
+        del cot, g_field, field, target, c6, calls
+
+    # the training step at B = 1024 on a pool of 20 random 100x100 images
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, size=(20, 100, 100, 3), dtype=np.uint8)
+    c2ws = np.stack([np.asarray(c, np.float32) for c in camera_path("circle", 20, cfg.scene)])
+    ds = RayDataset(imgs, imgs[..., 0], c2ws, 138.9, cfg.near, cfg.far)
+    # the kernels of a step, and their bound, at B = 1024
+    step_kernels = {"hier": ("k2", "k3", "k4"), "coarse": ("k7",),
+                    "white": ("k2", "k5", "k6", "k3")}
+    steps = {}
+    for path, (over, _) in PATHS.items():
+        pcfg = cfg.replace(**over)
+        model_t, table = init_model(pcfg, 20, 0, device)
+        opt, sched = make_optimizer(pcfg, list(model_t.parameters()) + [table])
+        pool = ds.device_arrays(pcfg.white_background, device=device)
+        gen = torch.Generator(device=device).manual_seed(0)
+
+        def step():
+            return train_step(model_t, table, opt, sched, pool, pcfg, 100, 100, ds.focal, None,
+                              gen)
+
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms = float(np.median(times))
+        kern_ms = sum(out[f"{k}_batch_ms"] for k in step_kernels[path])
+        steps[path] = {"step_ms_median": step_ms, "step_ms_min": min(times),
+                       "step_ms_max": max(times), "rays_per_s": cfg.batch_size / (step_ms / 1e3),
+                       "kernels": step_kernels[path], "kernel_share": kern_ms / step_ms,
+                       "step_bound_ms": sum(out[f"{k}_batch_bound_ms"]
+                                            for k in step_kernels[path])}
+        if path in ("hier", "coarse"):
+            steps[path].update(profile_steps(step))
     emit({"phase": "train_timing", "batch": cfg.batch_size, "chunk_rays": chunk[0].shape[0],
-          **{k: v for k, v in out.items() if k != "bound_by"}})
-    return out
+          **out, "steps": steps})
+    return out, bound_by
 
 
 def main(argv=None):
@@ -761,9 +890,22 @@ def main(argv=None):
     errs.update(phase_bwd(cfg, model, device))
     phase_step(cfg, model, device)
     launches = phase_render(cfg, model, args.out)
-    train_launches = phase_train(args.out)
+    train_launches = {"hier": phase_train(args.out, "hier", 200, render=True),
+                      "coarse": phase_train(args.out, "coarse", 100, render=False),
+                      "white": phase_train(args.out, "white", 100, render=False)}
     timing, bound_by = phase_timing(cfg, model, device, chunk)
-    tt = phase_train_timing(cfg, model, device, chunk)
+    tt, tt_bound_by = phase_train_timing(cfg, model, device, chunk)
+
+    def train_kernel(name, key, source, replaces, path, counter):
+        # a training kernel at the batch (B = 1024 rays, 64 + 64), its
+        # launches from its path's training run
+        return {"name": name, "route": "cuda",
+                "source": f"danerf_tpu_torch/kernels/csrc/{source}",
+                "replaces": f"danerf_tpu/kernels/fused_render.py:{replaces}",
+                "launches": train_launches[path][counter], "max_abs_err": errs[key.upper()],
+                "ms": tt[f"{key}_batch_ms"], "plain_ms": tt[f"{key}_batch_plain_ms"],
+                "bound_ms": tt[f"{key}_batch_bound_ms"], "bound_by": tt_bound_by[key],
+                "library_ms": None}
 
     kernels = [
         {"name": "K2 ray march (want_field)", "route": "cuda",
@@ -778,19 +920,14 @@ def main(argv=None):
          "launches": launches["merged"], "max_abs_err": errs["K5"],
          "ms": timing["k5_ms"], "plain_ms": timing["k5_plain_ms"],
          "bound_ms": timing["k5_bound_ms"], "bound_by": bound_by[1], "library_ms": None},
-        # the backward kernels at the training batch (B = 1024 rays, 64 + 64)
-        {"name": "K3 ray-march backward (want_field)", "route": "cuda",
-         "source": "danerf_tpu_torch/kernels/csrc/march_bwd.cu",
-         "replaces": "danerf_tpu/kernels/fused_render.py:212",
-         "launches": train_launches["march_bwd"], "max_abs_err": errs["K3"],
-         "ms": tt["k3_batch_ms"], "plain_ms": tt["k3_batch_plain_ms"],
-         "bound_ms": tt["k3_batch_bound_ms"], "bound_by": tt["bound_by"][0], "library_ms": None},
-        {"name": "K4 merged fine pass + MSE + backward", "route": "cuda",
-         "source": "danerf_tpu_torch/kernels/csrc/merged_train.cu",
-         "replaces": "danerf_tpu/kernels/fused_render.py:831",
-         "launches": train_launches["merged_train"], "max_abs_err": errs["K4"],
-         "ms": tt["k4_batch_ms"], "plain_ms": tt["k4_batch_plain_ms"],
-         "bound_ms": tt["k4_batch_bound_ms"], "bound_by": tt["bound_by"][1], "library_ms": None},
+        train_kernel("K3 ray-march backward (want_field)", "k3", "march_bwd.cu", 212, "hier",
+                     "march_bwd"),
+        train_kernel("K4 merged fine pass + MSE + backward", "k4", "merged_train.cu", 831,
+                     "hier", "merged_train"),
+        train_kernel("K6 merged-composite backward", "k6", "merged_bwd.cu", 779, "white",
+                     "merged_bwd"),
+        train_kernel("K7 coarse march + MSE + backward", "k7", "march_train.cu", 449, "coarse",
+                     "march_train"),
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

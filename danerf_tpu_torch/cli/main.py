@@ -41,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--no_pallas", action="store_true",
                    help="take the reference route (autograd) instead of the kernels")
     t.add_argument("--white_background", action="store_true",
-                   help="composite RGBA targets over white (reference route only)")
+                   help="composite RGBA targets over white")
     t.add_argument("--use_time", action="store_true", help="(not yet ported)")
     t.add_argument("--coordinator_address", type=str, default=None, help="(not yet ported)")
     t.add_argument("--num_processes", type=int, default=None, help="(not yet ported)")

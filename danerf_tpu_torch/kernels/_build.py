@@ -19,7 +19,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "danerf_tpu_torch"
-SOURCES = ("march", "merged", "march_bwd", "merged_train")
+SOURCES = ("march", "merged", "march_bwd", "merged_train", "march_train", "merged_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -33,6 +33,8 @@ _SIGNATURES = {
     "merged": ("danerf_merged", [_P] * 6 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _I, _P]),
     "march_bwd": ("danerf_march_bwd", [_P] * 4 + [_I] * 3 + [_P] * 5 + [_P] * 3 + _BWD_TAIL),
     "merged_train": ("danerf_merged_train", [_P] * 7 + [_I] * 4 + [_P] * 5 + _BWD_TAIL),
+    "march_train": ("danerf_march_train", [_P] * 5 + [_I] * 3 + [_P] * 4 + _BWD_TAIL),
+    "merged_bwd": ("danerf_merged_bwd", [_P] * 6 + [_I] * 4 + [_P] * 4 + [_P] * 4 + _BWD_TAIL),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

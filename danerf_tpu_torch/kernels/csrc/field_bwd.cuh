@@ -1,6 +1,7 @@
-// Shared code of the backward kernels K3 (march_bwd.cu) and K4
-// (merged_train.cu): the composite's transpose for one ray, the transposed
-// MLP chain on a tile of 128 rows (the counterpart of
+// Shared code of the backward kernels K3 (march_bwd.cu), K4
+// (merged_train.cu), K6 (merged_bwd.cu) and K7 (march_train.cu), whose
+// tile kernels are bwd_tiles.cuh's: the composite's transpose for one ray,
+// the transposed MLP chain on a tile of 128 rows (the counterpart of
 // danerf_tpu/kernels/fused_mlp.py _field_bwd_from_res and
 // danerf_tpu/kernels/fused_render.py _composite_bwd_lanes), and the two
 // passes that turn the per-row cotangents into parameter gradients.
@@ -134,7 +135,7 @@ struct BwdSmem {
   float dsp[TILE_M];           // d_sigma_pre
   float dsum[MAX_RPC * HALF];  // per-ray sums of bf16(d_happ), for demb
   float half_sum[2][2 * HALF]; // bapp / bdir row sums of the two row halves
-  float loss[MAX_RPC];         // per-ray loss terms (K4)
+  float loss[MAX_RPC];         // per-ray loss terms (K4, K7)
 };
 
 inline size_t bwd_smem_bytes(int n_comp) {
@@ -587,7 +588,7 @@ inline int finish_pass(const FieldArgs& P, const Scratch& sc, int tiles, float* 
 
 // What both entry points set up: the layout records, the shape checks, the
 // scratch of one pass and the pass sizes, for R rays of s_tile samples in a
-// tile's rows (K3: S, K4: Sf).
+// tile's rows (K3, K7: S; K4, K6: Sf).
 struct BwdCall {
   FieldArgs P;
   BwdWeights W;
@@ -640,7 +641,7 @@ inline int run_passes(const BwdCall& c, const void* kernel, size_t smem, float* 
 }  // namespace danerf
 
 // Bytes of scratch a backward call needs for R rays of s samples per tile
-// row group (K3: S, K4: Sf); negative on a malformed layout.
+// row group (K3, K7: S; K4, K6: Sf); negative on a malformed layout.
 extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n_meta,
                                               long long R, long long s, long long n_vecs) {
   using namespace danerf;

@@ -8,7 +8,8 @@ stratified coarse pass, inverse-CDF importance pass, alpha compositing.
 - the kernel route (``fused_composite=True``): K2 marches the coarse samples
   and returns their field, ``sample_pdf`` draws the importance depths, and K5
   evaluates the field only there and composites the rank-merged union (the
-  plain versions on CPU tensors).
+  plain versions on CPU tensors).  Under autograd the backward runs K6 for
+  the fine pass and K3 for the coarse one (K3 alone without a fine pass).
 
 ``render_frame`` renders a whole frame as a Python loop over chunks of rays;
 the last chunk may be short (the kernels mask the ragged tile).
@@ -94,21 +95,22 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
             _prepare, fused_render_rays_coarse_field, fused_render_rays_eval,
             fused_render_rays_merged)
 
-        # pack once for both passes
-        params = (packed if packed is not None
-                  else _prepare(model, cfg, rays_o, appearance_embedding)[0])
+        # pack once for both passes; the module goes along so that, under
+        # autograd, the gradients reach its parameters (K3, K6)
+        if packed is None:
+            packed = _prepare(model, cfg, rays_o, appearance_embedding)[0]
         if n_importance <= 0:
-            out = add_bg(fused_render_rays_eval(params, cfg, rays_o, rays_d, z_coarse,
-                                                appearance_embedding, t))
+            out = add_bg(fused_render_rays_eval(model, cfg, rays_o, rays_d, z_coarse,
+                                                appearance_embedding, t, packed))
             out["z_vals"] = z_coarse
             return out
-        coarse = fused_render_rays_coarse_field(params, cfg, rays_o, rays_d, z_coarse,
-                                                appearance_embedding, t)
+        coarse = fused_render_rays_coarse_field(model, cfg, rays_o, rays_d, z_coarse,
+                                                appearance_embedding, t, packed)
         z_fine = sample_pdf(z_coarse, coarse["weights"].detach(), n_importance,
                             perturb=perturb, rand=r_imp)
-        fine = add_bg(fused_render_rays_merged(params, cfg, rays_o, rays_d, z_coarse,
+        fine = add_bg(fused_render_rays_merged(model, cfg, rays_o, rays_d, z_coarse,
                                                coarse["field"], z_fine.detach(),
-                                               appearance_embedding, t))
+                                               appearance_embedding, t, packed))
         fine["coarse_rgb"] = add_bg(coarse)["rgb"]
         fine["coarse_depth"] = coarse["depth"]
         return fine

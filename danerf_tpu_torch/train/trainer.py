@@ -3,19 +3,28 @@ module's parameters and the appearance table, lr 5e-4 halved every 10k
 steps (StepLR), MSE over a 1024-ray batch (64 for the first 5 steps), PSNR
 logging, checkpoints.
 
-Two routes compute the loss and its gradients (``compute_loss_and_grads``):
-- the kernel route (``cfg.use_kernels``), ``_onepass_hier_loss_grads``: K2
-  marches the coarse samples and keeps their field, ``sample_pdf`` draws the
-  importance depths, K4 computes the fine MSE with its whole backward, and
-  K3 runs the coarse backward, fed K4's coarse-field cotangent plus the
-  coarse MSE's (on CPU tensors, their plain versions);
-- the reference route, ``loss_fn``: the module's forward at every sample,
-  ``composite``, and autograd.
+``compute_loss_and_grads`` takes the route the config asks for, as the
+JAX package's does:
+- ``use_onepass(cfg)`` (kernels, black background, no time): the one-pass
+  losses, whose kernels compute the MSE and all of its gradients at once.
+  With importance samples, ``_onepass_hier_loss_grads``: K2 marches the
+  coarse samples and keeps their field, ``sample_pdf`` draws the importance
+  depths, K4 computes the fine MSE with its whole backward, and K3 runs the
+  coarse backward, fed K4's coarse-field cotangent plus the coarse MSE's.
+  Without (``num_importance=0``), ``_onepass_loss_grads``: one K7 launch.
+- otherwise ``loss_fn`` and autograd.  On the kernel route
+  (``use_kernels``, e.g. with a white background) ``render_rays`` runs K2,
+  ``sample_pdf`` and K5 forward, and the backward K6 and then K3 (K2/K3
+  alone without importance samples); on the reference route
+  (``--no_pallas``) the module's forward at every sample and
+  ``composite``.
+On CPU tensors the kernels' plain versions run in their place.
 
-Random draws (batch, stratified jitter, importance jitter) come from one
-``torch.Generator`` on the device, seeded from ``seed``; the loss functions
-also take the jitter as tensors (``draws``) so the tests can feed in the
-JAX package's draws.  No step synchronises with the host: metrics stay on
+Random draws (batch, stratified jitter, importance jitter, in that order)
+come from one ``torch.Generator`` on the device, seeded from ``seed``;
+coarse-only training draws no importance jitter.  The loss functions also
+take the jitter as tensors (``draws``) so the tests can feed in the JAX
+package's draws.  No step synchronises with the host: metrics stay on
 the device and are written every ``LOG_FLUSH`` steps.
 """
 
@@ -81,14 +90,16 @@ def _embedding(table, cfg: NeRFConfig, batch):
 
 def loss_fn(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):
     """MSE of the rendered rgb against the target, plus coarse_loss_weight x
-    the coarse MSE when a fine pass runs (reference route, autograd)."""
+    the coarse MSE when a fine pass runs; ``render_rays`` takes the kernel
+    route when ``cfg.use_kernels`` (its backward K6/K3), else the reference
+    route.  Differentiated by autograd."""
     from danerf_tpu_torch.render.renderer import render_rays
 
     emb = _embedding(table, cfg, batch)
     bg = (1.0, 1.0, 1.0) if cfg.white_background else None
     out = render_rays(model, cfg, batch["rays_o"], batch["rays_d"], appearance_embedding=emb,
                       t=batch.get("t"), perturb=True, background_color=bg,
-                      fused_composite=False, generator=generator, draws=draws)
+                      fused_composite=cfg.use_kernels, generator=generator, draws=draws)
     loss = torch.mean((out["rgb"] - batch["rgb"]) ** 2)
     aux = {"mse": loss}
     if "coarse_rgb" in out and cfg.coarse_loss_weight > 0:
@@ -98,30 +109,41 @@ def loss_fn(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):
     return loss, aux
 
 
-def _onepass_hier_loss_grads(model, table, cfg: NeRFConfig, batch, generator=None,
-                             draws=None):
-    """Hierarchical training through the kernels; leaves the gradients in
-    ``.grad`` and returns (loss, {"mse", "coarse_mse"}).
-
-    The weights are packed once and shared by both Functions.  Autograd sums
-    K4's ``g_field`` with the coarse MSE's cotangent and hands both to K3;
-    the embedding gather scatter-adds demb_f + demb_c into the table."""
+def _onepass_inputs(model, table, cfg: NeRFConfig, batch, u_strat):
+    """What both one-pass losses start from: the unit directions, the
+    stratified depths at jitter ``u_strat``, the batch's embedding rows
+    (zeros without appearance), the weights packed once for every kernel of
+    the step, and the module's (names, parameters)."""
     from danerf_tpu_torch.kernels.fused_mlp import pack_params
-    from danerf_tpu_torch.kernels.fused_render import (MarchFn, MergedTrainLossFn,
-                                                       module_params)
-    from danerf_tpu_torch.ops.sampling import sample_pdf, sample_stratified
+    from danerf_tpu_torch.kernels.fused_render import module_params
+    from danerf_tpu_torch.ops.sampling import sample_stratified
 
-    rays_o, target = batch["rays_o"], batch["rgb"]
+    rays_o = batch["rays_o"]
     rays_d = batch["rays_d"] / torch.linalg.norm(batch["rays_d"], dim=-1, keepdim=True)
     near, far = _bounds(cfg, rays_o, rays_d)
-    u_strat, u_imp = _draws(cfg, rays_o.shape[0], generator, draws, rays_o.device)
     z_c, _ = sample_stratified(rays_o, rays_d, near, far, cfg.num_samples, True, rand=u_strat)
     emb = _embedding(table, cfg, batch)
     packed = pack_params(model, cfg, appearance=emb is not None, device=rays_o.device)
     if emb is None:
         emb = torch.zeros(rays_o.shape[0], cfg.appearance_dim, device=rays_o.device)
-    names, params = module_params(model)
+    return rays_d, z_c, emb, packed, module_params(model)
 
+
+def _onepass_hier_loss_grads(model, table, cfg: NeRFConfig, batch, generator=None,
+                             draws=None):
+    """Hierarchical training through the kernels; leaves the gradients in
+    ``.grad`` and returns (loss, {"mse", "coarse_mse"}).
+
+    Autograd sums K4's ``g_field`` with the coarse MSE's cotangent and hands
+    both to K3; the embedding gather scatter-adds demb_f + demb_c into the
+    table."""
+    from danerf_tpu_torch.kernels.fused_render import MarchFn, MergedTrainLossFn
+    from danerf_tpu_torch.ops.sampling import sample_pdf
+
+    rays_o, target = batch["rays_o"], batch["rgb"]
+    u_strat, u_imp = _draws(cfg, rays_o.shape[0], generator, draws, rays_o.device)
+    rays_d, z_c, emb, packed, (names, params) = _onepass_inputs(model, table, cfg, batch,
+                                                                u_strat)
     rgb_c, _, _, w_c, field_c = MarchFn.apply(cfg, packed, names, True, rays_o, rays_d, emb,
                                               z_c, None, *params)
     z_f = sample_pdf(z_c, w_c.detach(), cfg.num_importance, True, rand=u_imp).detach()
@@ -133,24 +155,51 @@ def _onepass_hier_loss_grads(model, table, cfg: NeRFConfig, batch, generator=Non
     return loss.detach(), {"mse": mse_fine.detach(), "coarse_mse": mse_coarse.detach()}
 
 
+def _onepass_loss_grads(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):
+    """Coarse-only training in one kernel (K7); leaves the gradients in
+    ``.grad`` and returns (mse, {"mse"}).
+
+    Only the stratified jitter is drawn (the JAX function's key split, of
+    which it uses the first half): ``draws`` is that tensor, or a 1-tuple of
+    it.  The embedding gather's backward scatter-adds demb into the table."""
+    from danerf_tpu_torch.kernels.fused_render import MarchTrainLossFn
+
+    rays_o, target = batch["rays_o"], batch["rgb"]
+    if draws is None:
+        u_strat = torch.rand(rays_o.shape[0], cfg.num_samples, generator=generator,
+                             device=rays_o.device)
+    else:
+        u_strat = draws[0] if isinstance(draws, (tuple, list)) else draws
+    rays_d, z, emb, packed, (names, params) = _onepass_inputs(model, table, cfg, batch,
+                                                              u_strat)
+    mse = MarchTrainLossFn.apply(cfg, packed, names, rays_o, rays_d, emb, z, target, None,
+                                 *params)
+    mse.backward()
+    return mse.detach(), {"mse": mse.detach()}
+
+
+def use_onepass(cfg: NeRFConfig) -> bool:
+    """True when the one-pass training kernels (K7, K4) serve this config.
+
+    A white background takes ``loss_fn``'s route instead (K2, K5 forward;
+    K6, K3 backward): the one-pass kernels form the MSE in the kernel
+    against the raw composite, with no background fill for acc < 1."""
+    return cfg.use_kernels and not cfg.use_time and not cfg.white_background
+
+
 def compute_loss_and_grads(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):
     """Loss and gradients (left in ``.grad``) by the route the config asks
     for; returns (loss, aux) as detached device tensors."""
-    if cfg.use_kernels:
-        if cfg.use_time:
-            raise NotImplementedError("use_time training on the kernel route needs K6 "
-                                      "(_merged_bwd_kernel with has_time), not yet ported")
-        if cfg.white_background:
-            raise NotImplementedError("white_background training on the kernel route needs "
-                                      "K6 (_merged_bwd_kernel), not yet ported; pass "
-                                      "--no_pallas for the reference route")
-        if cfg.num_importance <= 0:
-            raise NotImplementedError("num_importance=0 training on the kernel route needs "
-                                      "K7 (_train_kernel), not yet ported; pass --no_pallas "
-                                      "for the reference route")
-        return _onepass_hier_loss_grads(model, table, cfg, batch, generator, draws)
     if cfg.use_time:
+        if cfg.use_kernels:
+            raise NotImplementedError(
+                "use_time training on the kernel route is not yet ported: it needs the "
+                "has_time variants of K2-K6 (the encoded time at the input and at each skip)")
         raise NotImplementedError("use_time training is not yet ported (its scene is not)")
+    if use_onepass(cfg):
+        if cfg.num_importance > 0:
+            return _onepass_hier_loss_grads(model, table, cfg, batch, generator, draws)
+        return _onepass_loss_grads(model, table, cfg, batch, generator, draws)
     loss, aux = loss_fn(model, table, cfg, batch, generator, draws)
     loss.backward()
     return loss.detach(), {k: v.detach() for k, v in aux.items()}

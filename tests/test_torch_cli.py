@@ -81,6 +81,25 @@ def test_cli_train_then_render(scene, tmp_path, route):
     assert len(written) == 1 and os.path.exists(written[0])
 
 
+@pytest.mark.parametrize("flags", [["--num_importance", "0"], ["--white_background"]],
+                         ids=["coarse_only", "white_background"])
+def test_cli_train_paths(scene, tmp_path, flags):
+    """The other kernel-route training paths through the entry point: the
+    coarse-only one-pass step (K7's plain version) and the white-background
+    step (K2, K5 forward; K6, K3 backward)."""
+    from danerf_tpu_torch.cli.main import main
+
+    save = tmp_path / "run"
+    main(["train", "--dataset_path", str(scene), "--scene", "tiny", "--iters", "3",
+          "--batch_size", "16", "--save_dir", str(save), "--device", "cpu", *flags])
+    rows = [json.loads(line) for line in (save / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2, 3]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    assert ("coarse_mse" in rows[0]) == ("--white_background" in flags)
+    ckpt = torch.load(save / "checkpoint_final.pt", weights_only=False)
+    assert ckpt["iteration"] == 3 and ckpt["appearance_embeddings"].shape == (2, 8)
+
+
 @pytest.mark.parametrize("flag", [["--resume"], ["--use_time"], ["--mesh_data", "2"],
                                   ["--profile", "x"], ["--num_processes", "2"]],
                          ids=["resume", "use_time", "mesh", "profile", "multihost"])

@@ -1,5 +1,6 @@
-"""The CUDA kernels (K2, K5 and the backward kernels K3, K4) against their
-plain versions, on the card.
+"""The CUDA kernels (K2, K5, the backward kernels K3, K6 and the one-pass
+training kernels K4, K7) against their plain versions, on the card, and the
+kernel launches of each training path.
 
 These need a GPU with ``nvcc``: on a host without CUDA each test skips
 (decided in the fixture, not at import).  On the card, whose machine has no
@@ -100,7 +101,8 @@ def test_kernel_route_counts_launches(dev):
     rgb, depth, _ = render_frame(model, cfg, camera_path("circle", 2, "lego")[0], 40, 30,
                                  40.0, chunk=500, device=dev)
     # 1200 rays in chunks of 500; rendering launches no backward kernel
-    assert fr.LAUNCHES == {"march": 3, "merged": 3, "march_bwd": 0, "merged_train": 0}
+    assert fr.LAUNCHES == {"march": 3, "merged": 3, "march_bwd": 0, "merged_train": 0,
+                           "march_train": 0, "merged_bwd": 0}
     assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
 
 
@@ -147,11 +149,17 @@ def test_merged_train_kernel_matches_plain(dev):
     assert float((fk - fp).abs().max()) <= TOL["g_field"]
 
 
-def test_train_step_launches_each_kernel_once(dev):
+@pytest.mark.parametrize("over,want", [
+    ({}, {"march": 1, "march_bwd": 1, "merged_train": 1}),
+    ({"num_importance": 0}, {"march_train": 1}),
+    ({"white_background": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1})],
+    ids=["hier", "coarse_only", "white_background"])
+def test_train_step_launches_each_kernel_once(dev, over, want):
+    """One step of each training path launches exactly its kernels."""
     from danerf_tpu_torch.data.dataset import RayDataset
     from danerf_tpu_torch.train.trainer import init_model, make_optimizer, train_step
 
-    cfg = NeRFConfig(density_bias_init=0.5)
+    cfg = NeRFConfig(density_bias_init=0.5, **over)
     rng = torch.Generator().manual_seed(0)
     imgs = torch.randint(0, 256, (2, 16, 16, 3), generator=rng, dtype=torch.uint8).numpy()
     c2w = torch.eye(4)
@@ -160,10 +168,50 @@ def test_train_step_launches_each_kernel_once(dev):
     model, table = init_model(cfg, 2, 0, dev)
     opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
     fr.reset_launch_counts()
-    m = train_step(model, table, opt, sched, ds.device_arrays(device=dev), cfg, 16, 16, 20.0,
-                   256, torch.Generator(device=dev).manual_seed(0))
-    assert fr.LAUNCHES == {"march": 1, "merged": 0, "march_bwd": 1, "merged_train": 1}
+    m = train_step(model, table, opt, sched, ds.device_arrays(cfg.white_background, device=dev),
+                   cfg, 16, 16, 20.0, 256, torch.Generator(device=dev).manual_seed(0))
+    assert fr.LAUNCHES == {k: want.get(k, 0) for k in fr.LAUNCHES}
     assert bool(torch.isfinite(m["loss"])) and table.grad is not None
+
+
+def test_march_train_kernel_matches_plain(dev):
+    """K7 at 37 rays: the loss, every gradient and demb; two runs agree bit
+    for bit."""
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
+    packed = pack_params(model, cfg)
+    target = torch.rand(37, 3, generator=g, device=dev)
+    lk, gk, dk = fr.march_train_cuda(packed, cfg, o, d, emb, z, target)
+    lk2, gk2, dk2 = fr.march_train_cuda(packed, cfg, o, d, emb, z, target)
+    lp, gp, dp = fr.march_train_plain(packed, cfg, o, d, emb, z, target)
+    assert abs(float(lk) - float(lp)) <= TOL["loss"]
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k4"]
+    assert torch.equal(gk.mats, gk2.mats) and torch.equal(gk.vecs, gk2.vecs)
+    assert torch.equal(lk, lk2) and torch.equal(dk, dk2)
+
+
+@pytest.mark.parametrize("all_cot", [True, False], ids=["every_cotangent", "rgb_acc_only"])
+def test_merged_bwd_kernel_matches_plain(dev, all_cot):
+    """K6 at 37 rays with a coarse/fine tie in z: every cotangent non-zero,
+    or only rgb and acc (the others None, read as zeros, as autograd hands
+    them on the white-background path)."""
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
+    packed = pack_params(model, cfg)
+    coarse = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], cfg.num_importance, True, rand=g)
+    z_f[:, 5] = z[:, 7]
+    z_f = torch.sort(z_f, dim=-1).values
+    sa = cfg.num_samples + cfg.num_importance
+    cot = [torch.randn(37, 3, generator=g, device=dev), torch.randn(37, generator=g, device=dev),
+           torch.randn(37, generator=g, device=dev),
+           0.1 * torch.randn(37, sa, generator=g, device=dev)]
+    if not all_cot:
+        cot[1] = cot[3] = None
+    gk, dk, fk = fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, coarse["field"], z_f, *cot)
+    gp, dp, fp = fr.merged_bwd_plain(packed, cfg, o, d, emb, z, coarse["field"], z_f, *cot)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb"]
+    assert float((fk - fp).abs().max()) <= TOL["g_field_k6"]
 
 
 @pytest.mark.parametrize("sc,sf", [(48, 32), (64, 48)])

@@ -1,5 +1,6 @@
 """danerf_tpu_torch stands alone: it imports neither JAX nor danerf_tpu
-(it renders a frame and takes a training step with both blocked), and
+(it renders a frame and takes a 64 + 64 and a coarse-only training step
+with both blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
 
@@ -58,6 +59,13 @@ opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
 m = train_step(model, table, opt, sched, ds.device_arrays(), cfg, 6, 5, 6.0, 4,
                torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(m["loss"])) and table.grad is not None
+# and one coarse-only step (the plain K7)
+coarse = cfg.replace(num_importance=0)
+model, table = init_model(coarse, 2, 0, "cpu")
+opt, sched = make_optimizer(coarse, list(model.parameters()) + [table])
+m = train_step(model, table, opt, sched, ds.device_arrays(), coarse, 6, 5, 6.0, 4,
+               torch.Generator().manual_seed(0))
+assert bool(torch.isfinite(m["loss"])) and set(m) == {"loss", "psnr", "mse"}
 assert not any(k.split(".")[0] in ("jax", "danerf_tpu") for k in sys.modules)
 print("ISOLATED-OK")
 '''

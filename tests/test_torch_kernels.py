@@ -140,14 +140,12 @@ def test_pack_layout():
 
 
 def test_kernel_route_is_inference_only():
-    """The merged composite has no backward yet (K6) and refuses autograd;
-    the march is differentiable (K3) but needs the module, not a packed
-    copy, for gradients to reach the parameters."""
+    """Through a packed copy of the weights the kernel route is inference
+    only: the march and the merged composite are differentiable (K3, K6)
+    but need the module for gradients to reach the parameters."""
     _, cfg, _, model, o, d, emb, z, zf = _setup(False)
     field = fr.fused_render_rays_coarse_field(model, cfg, _t(o), _t(d), _t(z), _t(emb))["field"]
     assert field.requires_grad
-    with pytest.raises(RuntimeError, match="K6"):
-        fr.fused_render_rays_merged(model, cfg, _t(o), _t(d), _t(z), field, _t(zf), _t(emb))
     packed = pack_params(model, cfg)
     with pytest.raises(ValueError, match="module"):
         fr.fused_render_rays_eval(packed, cfg, _t(o), _t(d), _t(z),

@@ -230,17 +230,27 @@ def test_adam_steplr_matches_optax():
 
 
 def test_kernel_route_refuses_unported_configs():
+    """Coarse-only (K7) and white-background (K6) training run on the kernel
+    route now; use_time still raises, naming the missing has_time kernels."""
     from danerf_tpu_torch.train.trainer import compute_loss_and_grads
 
     _, cfg, _, model, *_ = _setup(False)
-    for over, kernel in ((dict(num_importance=0), "K7"), (dict(white_background=True), "K6")):
-        with pytest.raises(NotImplementedError, match=kernel):
-            compute_loss_and_grads(model, None, cfg.replace(**over), {})
+    with pytest.raises(NotImplementedError, match="has_time"):
+        compute_loss_and_grads(model, None, cfg.replace(use_time=True), {})
 
 
 def test_merged_render_still_refuses_autograd():
+    """fused_render_rays_merged is differentiable through the module (K6,
+    tests/test_torch_train_paths.py); through a packed copy of the weights,
+    which autograd cannot reach, it still refuses."""
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+
     _, cfg, _, model, o, d, emb, z, _ = _setup(False)
-    field = torch.zeros(R, 4, SC)
-    with pytest.raises(RuntimeError, match="K6"):
-        fr.fused_render_rays_merged(model, cfg, torch.tensor(o), torch.tensor(d),
-                                    torch.tensor(z), field, torch.tensor(z), torch.tensor(emb))
+    field = torch.zeros(R, 4, SC, requires_grad=True)
+    with pytest.raises(ValueError, match="module"):
+        fr.fused_render_rays_merged(pack_params(model, cfg), cfg, torch.tensor(o),
+                                    torch.tensor(d), torch.tensor(z), field, torch.tensor(z),
+                                    torch.tensor(emb))
+    out = fr.fused_render_rays_merged(model, cfg, torch.tensor(o), torch.tensor(d),
+                                      torch.tensor(z), field, torch.tensor(z), torch.tensor(emb))
+    assert out["rgb"].requires_grad and not out["z_vals"].requires_grad
