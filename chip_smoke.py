@@ -12,23 +12,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             within fused_render.PLAIN_TOL, at 4093 rays (a ragged tile) and
             at one 65,536-ray chunk: K2 with want_field at 64 samples
             (medium's coarse pass) and without at 32 (preview), K5 at
-            64 + 64 with z_f from sample_pdf of K2's weights; and
-            render_rays' kernel route against its reference route on 512
-            rays.
+            64 + 64 with z_f from sample_pdf of K2's weights; K1 on the
+            points of 4093 x 32 = 130,976 rows (ragged), and of 65,536 and
+            131,072 rows (the coarse and fine evaluations of a 1024-ray
+            batch), with and without the appearance projection; and
+            render_rays' fused route against its reference route and its
+            per-sample kernel route (K1) on 512 rays.
 4. bwd      the backward and training kernels against their plain versions
             at 37 rays (19 blocks, so a lost or doubled block shows) and at
             the 1024-ray training batch: K3 with every cotangent seeded
             non-zero, want_field on and off; K4 and K7 with a seeded target
             (K4's field_c from K2, z_f from sample_pdf); K6 with every
-            cotangent seeded and a coarse/fine tie in z.  Per-ray outputs and
-            the loss by max abs error, each parameter gradient by relative
-            Frobenius error; K3 and K7 twice, which must agree bit for bit.
+            cotangent seeded and a coarse/fine tie in z; K8 with seeded
+            per-row cotangents at 2,400 rows (19 tiles) and 131,072.
+            Per-ray (per-row) outputs and the loss by max abs error, each
+            parameter gradient by relative Frobenius error; K3, K7 and K8
+            twice, which must agree bit for bit.
 5. step     one training step at B = 1024 on each training path (64 + 64;
-            coarse only, num_importance=0; 64 + 64 on a white background),
-            each built twice from the same module, table, batch and draws:
-            through the kernels and through their plain versions; the
-            launches, loss, every gradient and the parameters after one Adam
-            step compared.
+            coarse only, num_importance=0; 64 + 64 on a white background;
+            64 + 64 per sample, use_fused_train=False), each built twice
+            from the same module, table, batch and draws: through the
+            kernels and through their plain versions; the launches, loss,
+            every gradient and the parameters after one Adam step compared.
 6. render   the serving path: a seeded full-width model saved as a
             reference-format .pt, rendered by `cli.main render` (two
             400x400 medium frames, then one preview frame); launch counts
@@ -39,15 +44,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             K2, K4 and K3 launch a step; then `render` of the final
             checkpoint), 100 steps of `--num_importance 0` (one K7 a step
             and nothing else), 100 steps of `--white_background` (one K2,
-            K5, K6 and K3 a step); finite losses and a rising PSNR.
+            K5, K6 and K3 a step); then 100 steps of the per-sample route,
+            which has no CLI flag (nor has the JAX CLI): train() with
+            use_fused_train=False (two K1 and two K8 a step and nothing
+            else); finite losses and a rising PSNR.
 8. timing   CUDA-event times of every kernel and its plain version, each
             beside its bound: K2 (want_field) and K5 on a 65,536-ray chunk,
             K3, K4, K6 and K7 on a chunk and at B = 1024 (plain versions at
-            B = 1024); an 800x800 medium frame end to end (median of three
-            after a warm-up frame); the training step of each path at
-            B = 1024 (median of 50 synchronised steps) with its rays/s and
-            its kernels' share, and the device time by kernel over 10 steps
-            (torch.profiler) of the 64 + 64 and the coarse-only step.
+            B = 1024), K1 at 65,536 and 131,072 rows and on a chunk's
+            4,194,304 sample rows, K8 at 65,536 and 131,072 rows; an 800x800
+            medium frame end to end (median of three after a warm-up
+            frame); the training step of each path at B = 1024 (median of 50
+            synchronised steps) with its rays/s and its kernels' share, and
+            the device time by kernel over 10 steps (torch.profiler) of the
+            64 + 64, the coarse-only and the per-sample step.
 
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record; the last line is the ok record.  Exits non-zero,
@@ -168,6 +178,18 @@ def make_rays(n, cfg, seed, device, samples=None, perturb=True):
     return o, d, emb, z
 
 
+def sample_rows(rays, cfg, seed, device, samples):
+    """The per-sample route's rows for ``rays`` seeded rays of ``samples``
+    stratified depths: flat points o + z d, and each row's direction and
+    embedding (its ray's)."""
+    o, d, emb, z = make_rays(rays, cfg, seed, device, samples=samples)
+
+    def per_row(t):
+        return t[:, None, :].expand(-1, samples, -1).reshape(-1, t.shape[-1]).contiguous()
+
+    return (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3), per_row(d), per_row(emb)
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_env():
@@ -219,10 +241,12 @@ def phase_kernels(cfg, model, device):
     """Each kernel against its plain version at the shapes the main path
     gives it: 4093 rays (a ragged tile) and one full 65,536-ray chunk; K2 with
     want_field at 64 samples (medium) and without at 32 (preview); K5 at
-    64 + 64 with z_f from sample_pdf of K2's weights.  Returns the max abs
-    errors per kernel and the chunk's inputs for the timing phase."""
+    64 + 64 with z_f from sample_pdf of K2's weights; K1 at the rows of the
+    per-sample route.  Returns the max abs errors per kernel and the chunk's
+    inputs for the timing phase."""
     import torch
 
+    from danerf_tpu_torch.kernels import fused_mlp as fm
     from danerf_tpu_torch.kernels import fused_render as fr
     from danerf_tpu_torch.kernels.fused_mlp import pack_params
     from danerf_tpu_torch.ops.sampling import sample_pdf
@@ -263,23 +287,49 @@ def phase_kernels(cfg, model, device):
         del want_f, got_f, want, got, want_m, got_m
         chunk = (o, d, emb, z, z_f)
 
-    # the slice against the reference route: module forward at every sample
-    # (nerf_apply's encoding form, sin(2^i (o + z d)) whose f32 rounding 2^9
-    # amplifies, and bf16 density matmul), sorted union
+    # K1 on flat points: the samples of 4093 rays x 32 (130,976 rows, a
+    # ragged tile), and the coarse (65,536) and fine (131,072) evaluations
+    # of a 1024-ray batch; with and without the appearance projection
+    no_app = pack_params(model, cfg, appearance=False)
+    for rays, s_per, seed in ((4093, 32, 1), (1024, 64, 2), (1024, 128, 3)):
+        x, dr, er = sample_rows(rays, cfg, seed, device, s_per)
+        n = x.shape[0]
+        for tag, pk, e in (("", packed, er), ("_noapp", no_app, torch.zeros_like(er))):
+            rk, sk = fm.fused_fwd_cuda(pk, cfg, x, dr, e)
+            rp, sp = fm.fused_fwd_plain(pk, cfg, x, dr, e)
+            torch.cuda.synchronize()
+            checks = {"field_rgb": max_err(rk, rp),
+                      "field_sigma": max_err((sk - sp) / sp.abs().clamp_min(1.0), 0 * sp)}
+            for name, e_ in checks.items():
+                errs[f"K1@{n}{tag}.{name}"] = e_
+                if not math.isfinite(e_) or e_ > fr.PLAIN_TOL[name]:
+                    failures.append(f"K1@{n}{tag}.{name}: {e_} > {fr.PLAIN_TOL[name]}")
+            errs[f"K1@{n}{tag}.sigma"] = max_err(sk, sp)
+        del x, dr, er, rk, sk, rp, sp
+
+    # the fused route against the reference route (module forward at every
+    # sample: nerf_apply's encoding form, sin(2^i (o + z d)) whose f32
+    # rounding 2^9 amplifies, and bf16 density matmul; sorted union) and
+    # against the per-sample kernel route (K1 at every sample; sorted union)
     n = 512
     o, d, emb = (x[:n] for x in chunk[:3])
     with torch.no_grad():
-        ref = render_rays(model, cfg, o, d, emb, perturb=False, fused_composite=False)
         ker = render_rays(model, cfg, o, d, emb, perturb=False, fused_composite=True)
+        routes = {"render_rays": render_rays(model, cfg.replace(use_kernels=False), o, d, emb,
+                                             perturb=False, fused_composite=False),
+                  "render_rays_per_sample": render_rays(model, cfg, o, d, emb, perturb=False,
+                                                        fused_composite=False)}
     torch.cuda.synchronize()
     slice_tol = {"rgb": 5e-3, "acc": 5e-3, "depth": 2e-2}
-    for k, t in slice_tol.items():
-        e = max_err(ker[k], ref[k])
-        errs[f"render_rays.{k}"] = e
-        if not math.isfinite(e) or e > t:
-            failures.append(f"render_rays.{k}: {e} > {t}")
+    for route, ref in routes.items():
+        for k, t in slice_tol.items():
+            e = max_err(ker[k], ref[k])
+            errs[f"{route}.{k}"] = e
+            if not math.isfinite(e) or e > t:
+                failures.append(f"{route}.{k}: {e} > {t}")
 
-    emit({"phase": "kernels", "rays": [4093, cfg.render_chunk], "max_abs_err": errs,
+    emit({"phase": "kernels", "rays": [4093, cfg.render_chunk],
+          "k1_rows": [4093 * 32, 65536, 131072], "max_abs_err": errs,
           "tolerance": {**fr.PLAIN_TOL, **{f"render_rays.{k}": v for k, v in slice_tol.items()}},
           "mean_acc": mean_acc, "failures": failures})
     if failures:
@@ -287,7 +337,7 @@ def phase_kernels(cfg, model, device):
     # the kernels record takes absolute errors (field_sigma's is relative)
     worst = {kern: max(v for k, v in errs.items()
                        if k.startswith(kern) and not k.endswith("field_sigma"))
-             for kern in ("K2", "K5")}
+             for kern in ("K1", "K2", "K5")}
     return worst, chunk
 
 
@@ -317,11 +367,13 @@ def phase_bwd(cfg, model, device):
     """The backward and training kernels against their plain versions at 37
     rays and at the 1024-ray batch: K3 (every cotangent seeded, want_field on
     and off), K4 and K7 (seeded targets), K6 (every cotangent seeded,
-    weights in merged order, a coarse/fine tie in z).  K3 and K7 run twice
-    and must agree bit for bit.  Returns the max abs error of each kernel's
-    per-ray outputs (and loss) for the kernels record."""
+    weights in merged order, a coarse/fine tie in z); K8 at 2,400 and
+    131,072 rows.  K3, K7 and K8 run twice and must agree bit for bit.
+    Returns the max abs error of each kernel's per-ray (per-row) outputs
+    (and loss) for the kernels record."""
     import torch
 
+    from danerf_tpu_torch.kernels import fused_mlp as fm
     from danerf_tpu_torch.kernels import fused_render as fr
     from danerf_tpu_torch.kernels.fused_mlp import PackedGrads, pack_params
     from danerf_tpu_torch.ops.sampling import sample_pdf
@@ -346,13 +398,13 @@ def phase_bwd(cfg, model, device):
     def same(a, b):
         return bool(torch.equal(a.mats, b.mats) and torch.equal(a.vecs, b.vecs))
 
-    def dropped(kern, got, want, **first_block):
-        """What losing the first block of rays (2 rays at 64 samples) does:
-        the summed gradients' relative change, and the block's per-ray
-        outputs, which would be missing."""
+    def dropped(kern, got, want, first=2, **first_block):
+        """What losing the first block (2 rays at 64 samples; K8: 128 rows)
+        does: the summed gradients' relative change, and the block's per-ray
+        (per-row) outputs, which would be missing."""
         eff = fr.grad_rel_errors(got, want, model)
         drop[kern] = {"grad_rel_min": min(eff.values()), "grad_rel_max": max(eff.values()),
-                      **{k: float(v[:2].abs().max()) for k, v in first_block.items()}}
+                      **{k: float(v[:first].abs().max()) for k, v in first_block.items()}}
 
     for n, seed in ((37, 11), (cfg.batch_size, 12)):
         o, d, emb, z = make_rays(n, cfg, seed=seed, device=device)
@@ -421,6 +473,30 @@ def phase_bwd(cfg, model, device):
                                            coarse["field"][2:], z_t[2:], *(c[2:] for c in c6))
             dropped("K6", gd, gp, demb=dp, g_field=fp)
         del coarse
+
+    # K8: the per-sample field's backward under seeded per-row cotangents,
+    # at 2,400 rows (19 tiles, the last ragged) and at the 131,072 rows of a
+    # 1024-ray fine pass
+    deterministic["K8"] = True
+    for n, seed in ((2400, 13), (2 * cfg.batch_size * cfg.num_samples, 14)):
+        x, dr, er = (t[:n] for t in sample_rows(-(-n // cfg.num_samples), cfg, seed, device,
+                                                cfg.num_samples))
+        g = torch.Generator(device=device).manual_seed(seed + 100)
+        g_rgb = torch.randn(n, 3, generator=g, device=device)
+        g_sig = torch.randn(n, 1, generator=g, device=device)
+        gk, dk = fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig)
+        gk2, dk2 = fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig)
+        gp, dp = fm.fused_bwd_plain(packed, cfg, x, dr, er, g_rgb, g_sig)
+        torch.cuda.synchronize()
+        deterministic["K8"] &= same(gk, gk2) and bool(torch.equal(dk, dk2))
+        check_grads(f"K8@{n}", gk, gp)
+        check(f"K8@{n}.demb", max_err(dk, dp), tol["demb_k8"])
+        errs[f"K8@{n}.demb_scale"] = float(dp.abs().max())
+        if n == 2400:
+            gd, _ = fm.fused_bwd_plain(packed, cfg, x[128:], dr[128:], er[128:], g_rgb[128:],
+                                       g_sig[128:])
+            dropped("K8", gd, gp, first=128, demb=dp)
+        del gk, gk2, gp, dk, dk2, dp
     for kern, ok in deterministic.items():
         if not ok:
             failures.append(f"{kern} gave different results on the same inputs")
@@ -428,24 +504,29 @@ def phase_bwd(cfg, model, device):
           "grad_rel": grad_rel, "dropped_block_effect_at_37": drop,
           "deterministic": deterministic,
           "tolerance": {k: tol[k] for k in ("grad_rel", "demb", "demb_k4", "g_field",
-                                            "g_field_k6", "loss")},
+                                            "g_field_k6", "loss", "demb_k8")},
           "failures": failures})
     if failures:
         raise AssertionError("backward kernel disagrees with its plain version: "
                              + "; ".join(failures))
     return {kern: max(v for k, v in errs.items() if k.startswith(kern) and "scale" not in k)
-            for kern in ("K3", "K4", "K6", "K7")}
+            for kern in ("K3", "K4", "K6", "K7", "K8")}
 
 
 @contextlib.contextmanager
 def plain_route():
     """Route the autograd Functions through the plain versions on the card
     (for the step-parity phase only; the port itself never does this)."""
+    from danerf_tpu_torch.kernels import fused_mlp as fm
     from danerf_tpu_torch.kernels import fused_render as fr
 
     names = ("_march_fwd", "_march_bwd", "_march_train", "_merged_fwd", "_merged_bwd",
              "_merged_train")
     saved = {n: getattr(fr, n) for n in names}
+    saved_fm = {n: getattr(fm, n) for n in ("_field_fwd", "_field_bwd")}
+    fm._field_fwd = lambda pk, c, x, d, e, t: fm.fused_fwd_plain(pk, c, x, d, e, t)
+    fm._field_bwd = lambda pk, c, x, d, e, t, gr, gs: fm.fused_bwd_plain(pk, c, x, d, e, gr, gs,
+                                                                         t)
     fr._march_fwd = lambda pk, c, o, d, e, z, t, wf: fr.march_plain(pk, c, o, d, e, z, t, wf)
     fr._march_bwd = lambda pk, c, o, d, e, z, t, cot: fr.march_bwd_plain(pk, c, o, d, e, z,
                                                                          *cot, t=t)
@@ -459,6 +540,8 @@ def plain_route():
     finally:
         for n, f in saved.items():
             setattr(fr, n, f)
+        for n, f in saved_fm.items():
+            setattr(fm, n, f)
 
 
 # The training paths: config changes, and the launches of one step.
@@ -467,6 +550,7 @@ PATHS = {
     "coarse": ({"num_importance": 0}, {"march_train": 1}),
     "white": ({"white_background": True},
               {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
+    "per_sample": ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2}),
 }
 
 
@@ -478,7 +562,8 @@ def launches_of(per_step, steps=1):
 
 def phase_step(cfg, model, device):
     """One training step at B = 1024 on each training path (64 + 64; coarse
-    only; 64 + 64 on a white background), each built twice from the same
+    only; 64 + 64 on a white background; 64 + 64 per sample, K1/K8), each
+    built twice from the same
     module, table, batch and draws: through the kernels and through their
     plain versions; loss, every gradient and the parameters after one Adam
     step compared."""
@@ -596,14 +681,32 @@ def phase_render(cfg, model, out_dir):
     return runs["medium"]["launches"]
 
 
-TRAIN_FLAGS = {"hier": [], "coarse": ["--num_importance", "0"], "white": ["--white_background"]}
+TRAIN_FLAGS = {"hier": [], "coarse": ["--num_importance", "0"], "white": ["--white_background"],
+               "per_sample": []}
+
+
+def train_per_sample(argv):
+    """The per-sample route's entry point, ``train(cfg.replace(
+    use_fused_train=False), dataset)``: it has no CLI flag (the JAX CLI has
+    none), so this builds the config and dataset as `cli.main train` does
+    from ``argv``'s flags."""
+    from danerf_tpu_torch.cli.main import _train_config, build_parser
+    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.train.trainer import train
+
+    args = build_parser().parse_args(argv)
+    cfg = _train_config(args).replace(use_fused_train=False)
+    return train(cfg, load_dataset(cfg, "train"), save_dir=args.save_dir,
+                 num_iterations=args.iters, seed=args.seed, device=args.device,
+                 log_path=os.path.join(args.save_dir, "metrics.jsonl"))
 
 
 def phase_train(out_dir, path, iters, render):
-    """A training path through its entry point: `cli.main train` for
-    ``iters`` steps on the procedural scene, with exactly the path's kernel
-    launches per step, finite losses and a rising PSNR; then, when
-    ``render``, `render` of the final checkpoint."""
+    """A training path through its entry point: `cli.main train` (for the
+    per-sample route ``train_per_sample``) for ``iters`` steps on the
+    procedural scene, with exactly the path's kernel launches per step,
+    finite losses and a rising PSNR; then, when ``render``, `render` of the
+    final checkpoint."""
     import shutil
 
     import numpy as np
@@ -620,7 +723,10 @@ def phase_train(out_dir, path, iters, render):
             "--device", "cuda", "--seed", "0", "--dataset_path", no_scene, *TRAIN_FLAGS[path]]
     fr.reset_launch_counts()
     t0 = time.perf_counter()
-    cli_main(argv)
+    if path == "per_sample":
+        train_per_sample(argv)
+    else:
+        cli_main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(fr.LAUNCHES)
@@ -744,13 +850,16 @@ def profile_steps(step, n_prof=10):
 
 def phase_train_timing(cfg, model, device, chunk):
     """The training kernels (K3, K4, K6, K7) on the 65,536-ray chunk and at
-    the 1024-ray batch, their plain versions at the batch, and the training
-    step of each path at B = 1024 (median of 50 synchronised steps) with a
-    torch.profiler breakdown of the 64 + 64 and the coarse-only step."""
+    the 1024-ray batch, their plain versions at the batch; K1 and K8 at the
+    per-sample route's rows of a batch (K1 also on the chunk's), with their
+    plain versions; and the training step of each path at B = 1024 (median
+    of 50 synchronised steps) with a torch.profiler breakdown of the 64 +
+    64, the coarse-only and the per-sample step."""
     import numpy as np
     import torch
 
     from danerf_tpu_torch.data.dataset import RayDataset
+    from danerf_tpu_torch.kernels import fused_mlp as fm
     from danerf_tpu_torch.kernels import fused_render as fr
     from danerf_tpu_torch.kernels.fused_mlp import pack_params
     from danerf_tpu_torch.ops.sampling import sample_pdf
@@ -816,14 +925,42 @@ def phase_train_timing(cfg, model, device, chunk):
             out["k5_batch_bound_ms"], _ = bound(cfg, n, sf, k5_bytes)
         del cot, g_field, field, target, c6, calls
 
+    # K1 and K8 at the rows of a 1024-ray batch's coarse (65,536) and fine
+    # (131,072) evaluations, and K1 on a render chunk's sample rows
+    # (65,536 rays x 64 = 4,194,304); bytes: inputs once, outputs once
+    k1_bytes = lambda n: 4 * n * (3 + 3 + e) + 4 * n * (3 + 1) + w_bytes
+    k8_bytes = lambda n: 4 * n * (3 + 3 + e + 3 + 1) + 4 * n * e + w_bytes + g_bytes
+    row_sets = {"65536": sample_rows(cfg.batch_size, cfg, 33, device, sc),
+                "131072": sample_rows(cfg.batch_size, cfg, 34, device, sc + sf),
+                "chunk": sample_rows(cfg.render_chunk, cfg, 35, device, sc)}
+    for tag, (x, dr, er) in row_sets.items():
+        n = x.shape[0]
+        out[f"k1_{tag}_ms"] = cuda_ms(lambda: fm.fused_fwd_cuda(packed, cfg, x, dr, er),
+                                      3 if tag == "chunk" else 20)
+        out[f"k1_{tag}_plain_ms"] = cuda_ms(lambda: fm.fused_fwd_plain(packed, cfg, x, dr, er),
+                                            2 if tag == "chunk" else 5)
+        out[f"k1_{tag}_bound_ms"], bound_by["k1"] = bound(cfg, n, 1, k1_bytes(n))
+        if tag != "chunk":
+            g_rgb = torch.randn(n, 3, generator=g, device=device)
+            g_sig = torch.randn(n, 1, generator=g, device=device)
+            out[f"k8_{tag}_ms"] = cuda_ms(
+                lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig), 10)
+            out[f"k8_{tag}_plain_ms"] = cuda_ms(
+                lambda: fm.fused_bwd_plain(packed, cfg, x, dr, er, g_rgb, g_sig), 3)
+            out[f"k8_{tag}_bound_ms"], bound_by["k8"] = bound(cfg, n, 1, k8_bytes(n),
+                                                              backward=True)
+        del x, dr, er
+    del row_sets
+
     # the training step at B = 1024 on a pool of 20 random 100x100 images
     rng = np.random.default_rng(0)
     imgs = rng.integers(0, 256, size=(20, 100, 100, 3), dtype=np.uint8)
     c2ws = np.stack([np.asarray(c, np.float32) for c in camera_path("circle", 20, cfg.scene)])
     ds = RayDataset(imgs, imgs[..., 0], c2ws, 138.9, cfg.near, cfg.far)
     # the kernels of a step, and their bound, at B = 1024
-    step_kernels = {"hier": ("k2", "k3", "k4"), "coarse": ("k7",),
-                    "white": ("k2", "k5", "k6", "k3")}
+    step_kernels = {"hier": ("k2_batch", "k3_batch", "k4_batch"), "coarse": ("k7_batch",),
+                    "white": ("k2_batch", "k5_batch", "k6_batch", "k3_batch"),
+                    "per_sample": ("k1_65536", "k1_131072", "k8_65536", "k8_131072")}
     steps = {}
     for path, (over, _) in PATHS.items():
         pcfg = cfg.replace(**over)
@@ -846,13 +983,12 @@ def phase_train_timing(cfg, model, device, chunk):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         step_ms = float(np.median(times))
-        kern_ms = sum(out[f"{k}_batch_ms"] for k in step_kernels[path])
+        kern_ms = sum(out[f"{k}_ms"] for k in step_kernels[path])
         steps[path] = {"step_ms_median": step_ms, "step_ms_min": min(times),
                        "step_ms_max": max(times), "rays_per_s": cfg.batch_size / (step_ms / 1e3),
                        "kernels": step_kernels[path], "kernel_share": kern_ms / step_ms,
-                       "step_bound_ms": sum(out[f"{k}_batch_bound_ms"]
-                                            for k in step_kernels[path])}
-        if path in ("hier", "coarse"):
+                       "step_bound_ms": sum(out[f"{k}_bound_ms"] for k in step_kernels[path])}
+        if path in ("hier", "coarse", "per_sample"):
             steps[path].update(profile_steps(step))
     emit({"phase": "train_timing", "batch": cfg.batch_size, "chunk_rays": chunk[0].shape[0],
           **out, "steps": steps})
@@ -892,7 +1028,8 @@ def main(argv=None):
     launches = phase_render(cfg, model, args.out)
     train_launches = {"hier": phase_train(args.out, "hier", 200, render=True),
                       "coarse": phase_train(args.out, "coarse", 100, render=False),
-                      "white": phase_train(args.out, "white", 100, render=False)}
+                      "white": phase_train(args.out, "white", 100, render=False),
+                      "per_sample": phase_train(args.out, "per_sample", 100, render=False)}
     timing, bound_by = phase_timing(cfg, model, device, chunk)
     tt, tt_bound_by = phase_train_timing(cfg, model, device, chunk)
 
@@ -929,6 +1066,19 @@ def main(argv=None):
         train_kernel("K7 coarse march + MSE + backward", "k7", "march_train.cu", 449, "coarse",
                      "march_train"),
     ]
+    # K1 and K8 at the 131,072 rows of the per-sample step's fine evaluation,
+    # their launches from the per-sample training run
+    for name, key, source, line, counter in (
+            ("K1 per-sample field", "k1", "mlp_fwd.cu", 231, "mlp_fwd"),
+            ("K8 per-sample field backward", "k8", "mlp_bwd.cu", 249, "mlp_bwd")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"danerf_tpu_torch/kernels/csrc/{source}",
+                        "replaces": f"danerf_tpu/kernels/fused_mlp.py:{line}",
+                        "launches": train_launches["per_sample"][counter],
+                        "max_abs_err": errs[key.upper()], "ms": tt[f"{key}_131072_ms"],
+                        "plain_ms": tt[f"{key}_131072_plain_ms"],
+                        "bound_ms": tt[f"{key}_131072_bound_ms"], "bound_by": tt_bound_by[key],
+                        "library_ms": None})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

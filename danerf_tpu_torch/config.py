@@ -1,10 +1,13 @@
 """Frozen configuration: the counterpart of ``danerf_tpu/config.py``.
 
 The fields and defaults equal the JAX package's ``NeRFConfig``, except that
-the TPU knobs (``use_pallas``, ``use_fused_train``, ``fused_composite2d``,
-``use_hier_onepass``) become one switch, ``use_kernels``: route rendering
-and training through the hand-written CUDA kernels (on CUDA tensors; their
-plain PyTorch versions on CPU tensors).
+the TPU knobs ``use_pallas``, ``fused_composite2d`` and ``use_hier_onepass``
+become one switch, ``use_kernels``: route rendering and training through the
+hand-written CUDA kernels (on CUDA tensors; their plain PyTorch versions on
+CPU tensors).  ``use_fused_train`` keeps the JAX meaning: with
+``use_kernels``, training goes through the fused ray-march kernels (K2-K7);
+off, through the per-sample field kernels (K1 forward, K8 backward) with
+plain compositing.
 """
 
 from __future__ import annotations
@@ -66,6 +69,10 @@ class NeRFConfig:
     # Hand-written kernels for rendering and training (else the module's
     # forward and autograd: the reference route, --no_pallas).
     use_kernels: bool = True
+    # Training through the fused ray-march kernels (K2-K7, per-ray HBM I/O);
+    # False: the per-sample field kernels K1/K8 with plain compositing
+    # (render_rays with fused_composite=False).  Needs use_kernels.
+    use_fused_train: bool = True
     remat: bool = False
     white_background: bool = False
     mesh_data: int = 1

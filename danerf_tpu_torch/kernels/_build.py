@@ -19,7 +19,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "danerf_tpu_torch"
-SOURCES = ("march", "merged", "march_bwd", "merged_train", "march_train", "merged_bwd")
+SOURCES = ("march", "merged", "march_bwd", "merged_train", "march_train", "merged_bwd",
+           "mlp_fwd", "mlp_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,6 +36,8 @@ _SIGNATURES = {
     "merged_train": ("danerf_merged_train", [_P] * 7 + [_I] * 4 + [_P] * 5 + _BWD_TAIL),
     "march_train": ("danerf_march_train", [_P] * 5 + [_I] * 3 + [_P] * 4 + _BWD_TAIL),
     "merged_bwd": ("danerf_merged_bwd", [_P] * 6 + [_I] * 4 + [_P] * 4 + [_P] * 4 + _BWD_TAIL),
+    "mlp_fwd": ("danerf_mlp_fwd", [_P] * 3 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
+    "mlp_bwd": ("danerf_mlp_bwd", [_P] * 3 + [_I] * 2 + [_P] * 2 + [_P] * 3 + _BWD_TAIL),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

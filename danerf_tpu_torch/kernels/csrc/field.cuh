@@ -1,7 +1,8 @@
 // Shared device code of the ray-march (march.cu) and merged-composite
-// (merged.cu) kernels, and the forward half of the backward kernels
-// (field_bwd.cuh): the NeRF-W field on a tile of 128 samples, the
-// counterpart of danerf_tpu/kernels/fused_mlp.py _encode + _field_from_enc.
+// (merged.cu) kernels, the per-sample field kernel (mlp_fwd.cu), and the
+// forward half of the backward kernels (field_bwd.cuh): the NeRF-W field on
+// a tile of 128 samples, the counterpart of
+// danerf_tpu/kernels/fused_mlp.py _encode + _field_from_enc.
 //
 // Numerics (use_bf16): encodings and activations are held in bf16, every
 // matmul accumulates in f32 on the tensor cores (mma.sync m16n8k16 bf16),
@@ -9,6 +10,13 @@
 // and happ = relu(hdir_pre) + emb@Wapp + bapp is formed in f32 before the
 // bf16 rgb matmul -- the same roundings as the JAX kernel, in another
 // summation order.
+//
+// Two ways to fill a tile: rays of s samples (the ray kernels: per-ray
+// origin, direction and embedding in Smem, a depth per row; emb@Wapp once
+// per ray), or 128 independent rows (mlp_fwd.cu, mlp_bwd.cu: a point,
+// direction and embedding per row in RowSmem; emb@Wapp a tensor-core
+// product per row).  field_tile<ROWS> takes either; the trunk and heads are
+// one code path.
 //
 // Layout: a CTA of 8 warps owns TILE_M = 128 rows (rays x samples).  Its
 // activations live in shared memory (two 128 x 256 bf16 ping-pong buffers
@@ -41,6 +49,7 @@ constexpr int MAX_E = 64;           // appearance embedding width
 constexpr int LDH = HID + 8;
 constexpr int LDX = MAX_KX + 8;
 constexpr int LDD = MAX_KD + 8;
+constexpr int LDE = MAX_E + 8;
 
 struct FieldArgs {
   const __nv_bfloat16* mats;   // packed matrices, (out, K_pad) row-major
@@ -62,6 +71,15 @@ struct Smem {
   float app[MAX_RPC * HALF];   // per-ray emb@Wapp (f32)
   float o[MAX_RPC * 3], d[MAX_RPC * 3];
   float emb[MAX_RPC * MAX_E];
+};
+
+// The per-row inputs of a tile of independent rows (K1, K8), beside Smem;
+// zeros past the last row.  The embedding is held in bf16 as the A operand
+// of emb @ Wapp^T.
+struct RowSmem {
+  float x[TILE_M * 3];
+  float d[TILE_M * 3];
+  __nv_bfloat16 emb[TILE_M * LDE];
 };
 
 // Where the backward kernels (field_bwd.cuh) want field_tile to leave its
@@ -201,54 +219,70 @@ __device__ __forceinline__ void copy_tile_out(const __nv_bfloat16* s, int lds, i
 
 // ------------------------------------------------------------- tile stages
 
-// Fill sm.encx / sm.encd for the tile: row = ray j * s + sample, position
-// o + z d encoded as y = 2^i o + z (2^i d), sin(y + phase) (cos columns carry
-// phase pi/2), the TPU kernel's form; padded columns and unused rows are 0.
-__device__ void encode_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
+// Column c of an encoding of 3-vectors: [v, sin(2^0 v), cos(2^0 v), ...]
+// -> the input dimension, the level and whether it is a cos column.
+__device__ __forceinline__ void enc_col(int c, int* dim, int* lvl, bool* is_cos) {
+  *dim = c;
+  *lvl = 0;
+  *is_cos = false;
+  if (c >= 3) {
+    const int q = c - 3;
+    *lvl = q / 6;
+    const int w = q - *lvl * 6;
+    *dim = w % 3;
+    *is_cos = w >= 3;
+  }
+}
+
+// Fill sm.encx / sm.encd for the tile: y = pos(row, dim, 2^i), the input
+// column for i = 0, else sin(y + phase) (cos columns carry phase pi/2), the
+// TPU kernel's form; the direction likewise from dir(row, dim) 2^i.
+// Padded columns and rows where valid(row) is false are 0.
+template <class Pos, class Dir, class Valid>
+__device__ __forceinline__ void encode_cols(const FieldArgs& P, Smem& sm, Pos pos, Dir dir,
+                                            Valid valid) {
   const int nx = 3 * (1 + 2 * P.pos_levels);
   const int nd = 3 * (1 + 2 * P.dir_levels);
   const float half_pi = 1.57079637f;
   for (int idx = threadIdx.x; idx < TILE_M * P.kx; idx += THREADS) {
     const int row = idx / P.kx, c = idx - row * P.kx;
-    const int j = row / s;
     float v = 0.f;
-    if (j < rpc && c < nx) {
-      int dim = c, lvl = 0;
-      bool is_cos = false;
-      if (c >= 3) {
-        const int q = c - 3;
-        lvl = q / 6;
-        const int w = q - lvl * 6;
-        dim = w % 3;
-        is_cos = w >= 3;
-      }
-      const float f = (float)(1 << lvl);
-      const float a = sm.o[j * 3 + dim] * f;
-      const float b = sm.d[j * 3 + dim] * f;
-      const float y = __fadd_rn(a, __fmul_rn(sm.z[row], b));
+    if (valid(row) && c < nx) {
+      int dim, lvl;
+      bool is_cos;
+      enc_col(c, &dim, &lvl, &is_cos);
+      const float y = pos(row, dim, (float)(1 << lvl));
       v = (c < 3) ? y : sinf(is_cos ? __fadd_rn(y, half_pi) : y);
     }
     sm.encx[row * LDX + c] = __float2bfloat16_rn(v);
   }
   for (int idx = threadIdx.x; idx < TILE_M * P.kd; idx += THREADS) {
     const int row = idx / P.kd, c = idx - row * P.kd;
-    const int j = row / s;
     float v = 0.f;
-    if (j < rpc && c < nd) {
-      int dim = c, lvl = 0;
-      bool is_cos = false;
-      if (c >= 3) {
-        const int q = c - 3;
-        lvl = q / 6;
-        const int w = q - lvl * 6;
-        dim = w % 3;
-        is_cos = w >= 3;
-      }
-      const float y = sm.d[j * 3 + dim] * (float)(1 << lvl);
+    if (valid(row) && c < nd) {
+      int dim, lvl;
+      bool is_cos;
+      enc_col(c, &dim, &lvl, &is_cos);
+      const float y = dir(row, dim) * (float)(1 << lvl);
       v = (c < 3) ? y : sinf(is_cos ? __fadd_rn(y, half_pi) : y);
     }
     sm.encd[row * LDD + c] = __float2bfloat16_rn(v);
   }
+}
+
+// A tile of rays: row = ray j * s + sample, the position o + z d encoded as
+// y = 2^i o + z (2^i d), without forming the point.
+__device__ void encode_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
+  encode_cols(
+      P, sm,
+      [&](int row, int dim, float f) {
+        const int j = row / s;
+        const float a = sm.o[j * 3 + dim] * f;
+        const float b = sm.d[j * 3 + dim] * f;
+        return __fadd_rn(a, __fmul_rn(sm.z[row], b));
+      },
+      [&](int row, int dim) { return sm.d[(row / s) * 3 + dim]; },
+      [&](int row) { return row / s < rpc; });
   // per-ray appearance term emb @ Wapp^T (bf16 inputs, f32 sum); bapp is
   // added after relu(hdir_pre) + this, in the JAX kernel's order
   const __nv_bfloat16* wapp = P.mats + P.wapp_off;
@@ -261,13 +295,28 @@ __device__ void encode_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
   }
 }
 
-// The field on the tile: needs encode_tile's output (and a __syncthreads
-// after it); leaves sm.rgb (128 x 3), sm.sigma and sm.sigma_pre (128) valid
-// behind a __syncthreads.  s = samples per ray in the tile's rows.  Returns
+// A tile of independent rows (after load_rows): y = 2^i x, the encoding of
+// danerf_tpu's _encode(pts); rows from nvalid on are 0.  The appearance
+// term is formed per row inside field_tile<true>.
+__device__ void encode_rows(const FieldArgs& P, Smem& sm, const RowSmem& rs, int nvalid) {
+  encode_cols(
+      P, sm, [&](int row, int dim, float f) { return rs.x[row * 3 + dim] * f; },
+      [&](int row, int dim) { return rs.d[row * 3 + dim]; },
+      [&](int row) { return row < nvalid; });
+}
+
+// The field on the tile: needs encode_tile's (encode_rows's for ROWS)
+// output and a __syncthreads after it; leaves sm.rgb (128 x 3), sm.sigma and
+// sm.sigma_pre (128) valid behind a __syncthreads.  Rays: s = samples per
+// ray in the tile's rows, the appearance term from sm.app.  ROWS: the
+// appearance term is embx (128 x E bf16, row stride LDE) @ Wapp^T on the
+// tensor cores, in registers beside the dir layer's accumulator.  Returns
 // the buffer (sm.hA or sm.hB) holding the last trunk layer's output; the
 // other one holds happ.  With a stash, the residuals also go to it.
+template <bool ROWS = false>
 __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rpc,
-                                     const Stash* st = nullptr) {
+                                     const Stash* st = nullptr,
+                                     const __nv_bfloat16* embx = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   __nv_bfloat16* cur = sm.hA;
@@ -310,6 +359,9 @@ __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rp
     const int n_base = warp * 16;
     float acc[M_TILES][2][4];
     gemm_tile<2>(cur, LDH, HID, sm.encd, LDD, P.kd, P.mats + P.wdir_off, n_base, acc);
+    float app_acc[M_TILES][2][4];
+    if constexpr (ROWS)
+      gemm_tile<2>(embx, LDE, P.emb_dim, embx, LDE, 0, P.mats + P.wapp_off, n_base, app_acc);
     const float* bdir = P.vecs + P.bdir_off;
     const float* bapp = P.vecs + P.bapp_off;
 #pragma unroll
@@ -322,11 +374,18 @@ __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rp
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = mt * 16 + gid + 8 * h;
-          const int j = min(row / s, rpc - 1);
-          const float* app = sm.app + j * HALF;
+          float e0, e1;
+          if constexpr (ROWS) {
+            e0 = app_acc[mt][nt][2 * h];
+            e1 = app_acc[mt][nt][2 * h + 1];
+          } else {
+            const float* app = sm.app + min(row / s, rpc - 1) * HALF;
+            e0 = app[col];
+            e1 = app[col + 1];
+          }
           const float p0 = acc[mt][nt][2 * h] + b0, p1 = acc[mt][nt][2 * h + 1] + b1;
-          const float v0 = (fmaxf(p0, 0.f) + app[col]) + a0;
-          const float v1 = (fmaxf(p1, 0.f) + app[col + 1]) + a1;
+          const float v0 = (fmaxf(p0, 0.f) + e0) + a0;
+          const float v1 = (fmaxf(p1, 0.f) + e1) + a1;
           *reinterpret_cast<__nv_bfloat162*>(nxt + row * LDH + col) = __floats2bfloat162_rn(v0, v1);
           if (st != nullptr) {
             unsigned char* g = st->dirg + (st->row0 + row) * HALF + col;
@@ -403,6 +462,22 @@ __device__ void load_rays(Smem& sm, const float* __restrict__ o, const float* __
   for (int idx = threadIdx.x; idx < rpc * emb_dim; idx += THREADS) {
     const long long r = ray0 + idx / emb_dim;
     sm.emb[idx] = r < R ? emb[r * emb_dim + idx % emb_dim] : 0.f;
+  }
+}
+
+// Load a tile's per-row inputs, rows row0 .. row0 + nvalid of x, d (N,3)
+// and emb (N,E), into RowSmem; zeros on the tile's other rows.
+__device__ void load_rows(RowSmem& rs, const float* __restrict__ x, const float* __restrict__ d,
+                          const float* __restrict__ emb, int emb_dim, long long row0,
+                          int nvalid) {
+  for (int idx = threadIdx.x; idx < TILE_M * 3; idx += THREADS) {
+    const bool ok = idx / 3 < nvalid;
+    rs.x[idx] = ok ? x[row0 * 3 + idx] : 0.f;
+    rs.d[idx] = ok ? d[row0 * 3 + idx] : 0.f;
+  }
+  for (int idx = threadIdx.x; idx < TILE_M * emb_dim; idx += THREADS) {
+    const int r = idx / emb_dim, k = idx - r * emb_dim;
+    rs.emb[r * LDE + k] = __float2bfloat16_rn(r < nvalid ? emb[(row0 + r) * emb_dim + k] : 0.f);
   }
 }
 

@@ -1,6 +1,7 @@
 // Shared code of the backward kernels K3 (march_bwd.cu), K4
 // (merged_train.cu), K6 (merged_bwd.cu) and K7 (march_train.cu), whose
-// tile kernels are bwd_tiles.cuh's: the composite's transpose for one ray,
+// tile kernels are bwd_tiles.cuh's, and of K8 (mlp_bwd.cu), whose tile
+// holds 128 independent rows: the composite's transpose for one ray,
 // the transposed MLP chain on a tile of 128 rows (the counterpart of
 // danerf_tpu/kernels/fused_mlp.py _field_bwd_from_res and
 // danerf_tpu/kernels/fused_render.py _composite_bwd_lanes), and the two
@@ -16,7 +17,8 @@
 // the first layer -- d_in = bf16(d_pre) @ W on the tensor cores, with the
 // gates read back from the stash -- storing every layer's bf16 d_pre.
 // Row sums (biases, density head) are written per tile, and per-ray sums
-// (demb, g_field) per ray, by the block that owns the rays: no atomics.
+// (demb, g_field) per ray (K8: demb per row), by the block that owns the
+// rays: no atomics in device memory.
 //
 // Parameter gradients.  dW = d_pre^T @ input sums over every row of the
 // batch, and CUDA blocks run in no order.  Instead of atomics (which make
@@ -46,18 +48,19 @@ constexpr int DW_PARTS = 8;               // row partitions of pass 2
 constexpr int DW_LD = DW_TILE + 8;        // smem row stride: ldmatrix rows on distinct banks
 constexpr int MAX_JOBS = 40;
 
-// Transposed hidden-input blocks of the weights (kernels/fused_mlp.py
-// transposed_mats): wt_off[i] for trunk layer i >= 1, wt_off[L] for dir.
+// Transposed blocks of the weights (kernels/fused_mlp.py transposed_mats):
+// wt_off[i] the hidden-input block of trunk layer i >= 1, wt_off[L] that of
+// dir, wt_off[L + 1] the appearance projection (E x HALF, for K8's demb).
 struct BwdWeights {
   const __nv_bfloat16* mats_t;
-  long long wt_off[MAX_LAYERS + 1];
+  long long wt_off[MAX_LAYERS + 2];
 };
 
 inline int parse_meta_t(const long long* m, long long n, const FieldArgs& P, const void* mats_t,
                         BwdWeights* W) {
-  if (n != P.num_layers + 1) return ERR_META;
+  if (n != P.num_layers + 2) return ERR_META;
   W->mats_t = static_cast<const __nv_bfloat16*>(mats_t);
-  for (int i = 0; i <= P.num_layers; ++i) W->wt_off[i] = m[i];
+  for (int i = 0; i <= P.num_layers + 1; ++i) W->wt_off[i] = m[i];
   return 0;
 }
 
@@ -126,6 +129,12 @@ inline long long carve(char* base, const FieldArgs& P, long long tiles, int n_ve
 }
 
 inline int rays_per_tile(long long s) { return (int)(TILE_M / s < MAX_RPC ? TILE_M / s : MAX_RPC); }
+
+// The s_tile of the per-row kernel K8: a tile holds 128 independent rows.
+constexpr long long ROW_TILES = 0;
+
+// Units (rays of s samples, or rows) in one tile.
+inline int units_per_tile(long long s) { return s == ROW_TILES ? TILE_M : rays_per_tile(s); }
 
 // Shared memory of the tile kernels beyond Smem.
 struct BwdSmem {
@@ -280,15 +289,65 @@ __device__ __forceinline__ void bwd_epilogue(const float (&acc)[M_TILES][4][4],
   }
 }
 
-// The transposed chain on one tile, after field_tile(..., stash) and with
-// bs.g_rgb / bs.g_sig set for all 128 rows (zero on rows of no ray).
+// out[r][0..n) = A[r] @ W^T for the tile's rows r < nvalid (row stride ldo),
+// A (128 x k, bf16, shared memory, row stride lda), W (n x k) row-major
+// bf16 in device memory, n a multiple of 8 up to MAX_E, k of 16.  For the
+// narrow products (n < 8 x WARPS) each warp owns 16 rows and every column.
+__device__ void gemm_rows(const __nv_bfloat16* A, int lda, int k,
+                          const __nv_bfloat16* __restrict__ W, int n, float* __restrict__ out,
+                          long long ldo, int nvalid) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  constexpr int NT = MAX_E / 8;
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
+  const __nv_bfloat16* arow = A + (warp * 16 + (lane & 15)) * lda + (lane >> 4) * 8;
+  for (int k0 = 0; k0 < k; k0 += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, arow + k0);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt * 8 < n) {
+        const __nv_bfloat16* w = W + (long long)(nt * 8 + gid) * k + k0 + 2 * tig;
+        const uint32_t b[2] = {__ldg(reinterpret_cast<const unsigned int*>(w)),
+                               __ldg(reinterpret_cast<const unsigned int*>(w + 8))};
+        mma_bf16(acc[nt], a, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt * 8 < n) {
+      const int r = warp * 16 + gid, c = nt * 8 + 2 * tig;
+      if (r < nvalid) {
+        out[r * ldo + c] = acc[nt][0];
+        out[r * ldo + c + 1] = acc[nt][1];
+      }
+      if (r + 8 < nvalid) {
+        out[(r + 8) * ldo + c] = acc[nt][2];
+        out[(r + 8) * ldo + c + 1] = acc[nt][3];
+      }
+    }
+  }
+}
+
+// The transposed chain on one tile, after field_tile<ROWS>(..., stash) and
+// with bs.g_rgb / bs.g_sig set for all 128 rows (zero on rows of no ray).
 // cur holds the last trunk layer's output, nxt happ (already stashed); both
-// are overwritten.  Writes the tile's d_pre residuals, its row sums to
-// sc.part + tile * sc.nv, and demb for its valid rays (ray0.., nvalid).
+// are overwritten.  Writes the tile's d_pre residuals and its row sums to
+// sc.part + tile * sc.nv.  Rays: demb for the valid rays (ray0.., nvalid),
+// the sum over each ray's samples of bf16(d_happ) @ Wapp.  ROWS: demb for
+// the valid rows, bf16(d_happ) @ Wapp per row on the tensor cores, and the
+// rows' embeddings come from embx (bf16, row stride LDE).
+template <bool ROWS = false>
 __device__ void field_bwd_tile(const FieldArgs& P, const BwdWeights& W, Smem& sm, BwdSmem& bs,
                                const Scratch& sc, int tile, int s, int rpc, int nvalid,
                                __nv_bfloat16* cur, __nv_bfloat16* nxt,
-                               float* __restrict__ demb_ray0) {
+                               float* __restrict__ demb_ray0,
+                               const __nv_bfloat16* embx = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int L = P.num_layers, E = P.emb_dim;
   const long long row0 = (long long)tile * TILE_M;
@@ -311,8 +370,12 @@ __device__ void field_bwd_tile(const FieldArgs& P, const BwdWeights& W, Smem& sm
   }
   for (int idx = threadIdx.x; idx < TILE_M * E; idx += THREADS) {
     const int r = idx / E, k = idx - r * E;
-    const int j = r / s;
-    sc.embr[(row0 + r) * E + k] = __float2bfloat16_rn(j < nvalid ? sm.emb[j * E + k] : 0.f);
+    if constexpr (ROWS) {
+      sc.embr[(row0 + r) * E + k] = embx[r * LDE + k];
+    } else {
+      const int j = r / s;
+      sc.embr[(row0 + r) * E + k] = __float2bfloat16_rn(j < nvalid ? sm.emb[j * E + k] : 0.f);
+    }
   }
   for (int idx = threadIdx.x; idx < MAX_RPC * HALF; idx += THREADS) bs.dsum[idx] = 0.f;
   __syncthreads();
@@ -337,7 +400,8 @@ __device__ void field_bwd_tile(const FieldArgs& P, const BwdWeights& W, Smem& sm
   }
 
   // d_happ = bf16(d_pre_rgb) @ Wrgb (f32), d_hdir_pre = gate ? d_happ : 0;
-  // thread (col, half of the rows)
+  // thread (col, half of the rows).  nxt gets bf16(d_hdir_pre), or for
+  // ROWS first bf16(d_happ), the A operand of demb, gated below.
   {
     const int col = threadIdx.x & (HALF - 1), half = threadIdx.x / HALF;
     const __nv_bfloat16* wrgb = P.mats + P.wrgb_off;
@@ -350,16 +414,18 @@ __device__ void field_bwd_tile(const FieldArgs& P, const BwdWeights& W, Smem& sm
                        bf16_round(bs.dpr[r * 3 + 2]) * w2;
       const __nv_bfloat16 b = __float2bfloat16_rn(dh);
       sc.dapp[(row0 + r) * HALF + col] = b;
-      const int j = r / s;
-      if (j != jc) {
-        if (jc >= 0 && jc < rpc) atomicAdd(&bs.dsum[jc * HALF + col], js);  // <= 2 adds: exact order-free
-        jc = j;
-        js = 0.f;
+      if constexpr (!ROWS) {
+        const int j = r / s;
+        if (j != jc) {
+          if (jc >= 0 && jc < rpc) atomicAdd(&bs.dsum[jc * HALF + col], js);  // <= 2 adds: exact order-free
+          jc = j;
+          js = 0.f;
+        }
+        js += __bfloat162float(b);
       }
-      js += __bfloat162float(b);
       const float g = sc.dirg[(row0 + r) * HALF + col] ? dh : 0.f;
       const __nv_bfloat16 gb = __float2bfloat16_rn(g);
-      nxt[r * LDH + col] = gb;
+      nxt[r * LDH + col] = ROWS ? b : gb;
       sc.ddir[(row0 + r) * HALF + col] = gb;
       sa += dh;
       sd += g;
@@ -373,8 +439,18 @@ __device__ void field_bwd_tile(const FieldArgs& P, const BwdWeights& W, Smem& sm
     part[P.bapp_off + c] = bs.half_sum[0][c] + bs.half_sum[1][c];
     part[P.bdir_off + c] = bs.half_sum[0][HALF + c] + bs.half_sum[1][HALF + c];
   }
-  // demb = (sum over the ray's samples of bf16(d_happ)) @ Wapp
-  {
+  if constexpr (ROWS) {
+    // demb = bf16(d_happ) @ Wapp per row, then gate nxt in place:
+    // bf16(gate ? d_happ : 0) = gate ? bf16(d_happ) : 0
+    gemm_rows(nxt, LDH, HALF, W.mats_t + W.wt_off[L + 1], E, demb_ray0, E, nvalid);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < TILE_M * HALF; idx += THREADS) {
+      const int r = idx / HALF, c = idx - r * HALF;
+      if (!sc.dirg[(row0 + r) * HALF + c]) nxt[r * LDH + c] = __float2bfloat16_rn(0.f);
+    }
+    __syncthreads();
+  } else {
+    // demb = (sum over the ray's samples of bf16(d_happ)) @ Wapp
     const __nv_bfloat16* wapp = P.mats + P.wapp_off;
     for (int idx = threadIdx.x; idx < nvalid * E; idx += THREADS) {
       const int j = idx / E, e = idx - j * E;
@@ -586,9 +662,10 @@ inline int finish_pass(const FieldArgs& P, const Scratch& sc, int tiles, float* 
   return (int)cudaGetLastError();
 }
 
-// What both entry points set up: the layout records, the shape checks, the
+// What every entry point sets up: the layout records, the shape checks, the
 // scratch of one pass and the pass sizes, for R rays of s_tile samples in a
-// tile's rows (K3, K7: S; K4, K6: Sf).
+// tile's rows (K3, K7: S; K4, K6: Sf), or R rows for s_tile = ROW_TILES
+// (K8).
 struct BwdCall {
   FieldArgs P;
   BwdWeights W;
@@ -605,10 +682,10 @@ inline int bwd_setup(const long long* meta, long long n_meta, const void* mats, 
   if (err) return err;
   err = parse_meta_t(meta_t, n_meta_t, c->P, mats_t, &c->W);
   if (err) return err;
-  if (c->P.emb_dim % 8 || 2 * c->P.num_layers + 4 > MAX_JOBS || n_vecs < 1 || s_tile < 1 ||
-      s_tile > TILE_M)
+  if (c->P.emb_dim % 8 || 2 * c->P.num_layers + 4 > MAX_JOBS || n_vecs < 1 || s_tile < 0 ||
+      s_tile > TILE_M || R < 0)
     return ERR_SHAPE;
-  c->rpc = rays_per_tile(s_tile);
+  c->rpc = units_per_tile(s_tile);
   c->tiles_total = (R + c->rpc - 1) / c->rpc;
   c->tiles_pass = (int)(c->tiles_total < MAX_TILES_PER_PASS ? c->tiles_total : MAX_TILES_PER_PASS);
   if (carve(static_cast<char*>(scratch), c->P, c->tiles_pass, (int)n_vecs, &c->sc) > scratch_bytes)
@@ -641,7 +718,8 @@ inline int run_passes(const BwdCall& c, const void* kernel, size_t smem, float* 
 }  // namespace danerf
 
 // Bytes of scratch a backward call needs for R rays of s samples per tile
-// row group (K3, K7: S; K4, K6: Sf); negative on a malformed layout.
+// row group (K3, K7: S; K4, K6: Sf), or R rows for s = ROW_TILES (K8);
+// negative on a malformed layout.
 extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n_meta,
                                               long long R, long long s, long long n_vecs) {
   using namespace danerf;
@@ -649,8 +727,8 @@ extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n
   FieldArgs P;
   const int err = parse_meta(meta, n_meta, nullptr, nullptr, meta[8], &P);
   if (err) return err;
-  if (s < 1 || s > TILE_M || R < 0) return ERR_SHAPE;
-  const int rpc = rays_per_tile(s);
+  if (s < 0 || s > TILE_M || R < 0) return ERR_SHAPE;
+  const int rpc = units_per_tile(s);
   long long tiles = (R + rpc - 1) / rpc;
   if (tiles > MAX_TILES_PER_PASS) tiles = MAX_TILES_PER_PASS;
   Scratch sc;

@@ -13,13 +13,28 @@ danerf_tpu/kernels/fused_mlp.py).
   trunk output, and ``happ = relu(hdir_pre) + emb @ Wapp + bapp`` in f32
   before the rgb matmul.
 
+- K1, ``csrc/mlp_fwd.cu`` / ``fused_fwd_plain``: the field on flat points,
+  each row with its own point, direction and embedding (``_fwd_kernel``).
+- K8, ``csrc/mlp_bwd.cu`` / ``fused_bwd_plain``: its VJP (``_bwd_kernel``):
+  recompute, transposed chain, parameter gradients summed over the rows,
+  ``demb`` per row.
+- ``fused_nerf_apply``: the counterpart of the JAX function, a drop-in for
+  the module's forward; ``FieldFn`` routes its gradients (K1 forward, K8
+  backward).  CUDA tensors launch the kernels, CPU tensors take the plain
+  versions.
+
 The encoding here is the kernels' form, ``y = 2^i o + z (2^i d)`` then
 ``sin(y + phase)``, not ``nerf_apply``'s ``sin(2^i (o + z d))``: the two
-differ by f32 rounding that sin amplifies at 2^9.
+differ by f32 rounding that sin amplifies at 2^9.  (K1 encodes its points
+as ``2^i x``, as the JAX kernel does.)
+
+The launch helpers shared with ``fused_render.py`` live here too, with
+``LAUNCHES``, the count of launches per kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -28,8 +43,21 @@ import torch
 import torch.nn.functional as F
 
 from danerf_tpu_torch.config import NeRFConfig
+from danerf_tpu_torch.kernels import _build
 
 _HALF_PI = torch.tensor(math.pi / 2, dtype=torch.float32).item()  # f32-rounded
+
+LAUNCHES = {"march": 0, "merged": 0, "march_bwd": 0, "merged_train": 0,
+            "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0}
+
+# The s_tile of a backward call whose tiles hold 128 independent rows (K8;
+# csrc/field_bwd.cuh ROW_TILES), not rays of s samples.
+ROW_TILES = 0
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _pad16(n: int) -> int:
@@ -156,14 +184,16 @@ def transposed_mats(packed: PackedParams, cfg: NeRFConfig):
     """The hidden-input block of each trunk layer after the first, and of the
     dir layer, transposed: W[:, :hidden]^T as (hidden, out) row-major bf16,
     which the backward kernels read as the B operand of d_in = d_pre @ W
-    (csrc/field_bwd.cuh).  Returns (flat tensor, offsets): one offset per
-    trunk layer (-1 for layer 0, whose d_in is not formed) and one for the
-    dir layer."""
+    (csrc/field_bwd.cuh); and the appearance projection transposed, (E,
+    half), the B operand of K8's per-row demb = d_happ @ Wapp.  Returns
+    (flat tensor, offsets): one offset per trunk layer (-1 for layer 0,
+    whose d_in is not formed), one for the dir layer and one for Wapp^T."""
     hid = cfg.hidden_dim
     parts, offs, n = [], [-1], 0
-    names = [f"w{i}" for i in range(1, packed.num_layers)] + ["wdir"]
-    for name in names:
-        t = packed.mat(name)[:, :hid].t().contiguous().reshape(-1)
+    blocks = [packed.mat(f"w{i}")[:, :hid] for i in range(1, packed.num_layers)]
+    blocks += [packed.mat("wdir")[:, :hid], packed.mat("wapp")]
+    for w in blocks:
+        t = w.t().contiguous().reshape(-1)
         offs.append(n)
         parts.append(t)
         n += t.numel()
@@ -358,6 +388,237 @@ def unpack_grads(grads: PackedGrads, model) -> Dict[str, torch.Tensor]:
             g = g[:p.shape[0]]
         out[name] = g.to(p.dtype).reshape(p.shape)
     return out
+
+
+def module_params(model):
+    """(names, tensors) of the module's parameters, as the autograd
+    Functions take them."""
+    named = list(model.named_parameters())
+    return tuple(n for n, _ in named), tuple(p for _, p in named)
+
+
+# ---------------------------------------------------------------- launching
+
+def _check_kernel_cfg(cfg: NeRFConfig, t) -> None:
+    if not cfg.use_bf16:
+        raise NotImplementedError("use_bf16=False is not yet ported to the CUDA kernels")
+    if cfg.use_time or t is not None:
+        raise NotImplementedError("use_time is not yet ported to the CUDA kernels: their "
+                                  "has_time variants (the encoded time at the input and at "
+                                  "each skip) are missing")
+
+
+def _f32(x: torch.Tensor, device) -> torch.Tensor:
+    if x.device != device:
+        raise ValueError(f"tensor on {x.device}, expected {device}")
+    return x.to(torch.float32).contiguous()
+
+
+def _f32_opt(t):
+    return None if t is None else t.float()
+
+
+def _meta(packed: PackedParams, cfg: NeRFConfig):
+    m = kernel_meta(packed, cfg)
+    return (ctypes.c_longlong * len(m))(*m), len(m)
+
+
+def _check_packed(packed: PackedParams, device) -> None:
+    if packed.device != device or packed.mats.dtype != torch.bfloat16:
+        raise ValueError(f"packed params must be bf16 on {device}; got "
+                         f"{packed.mats.dtype} on {packed.device}")
+
+
+def _arg(x):
+    """A C argument: a tensor's pointer, None (a null pointer) or an int."""
+    return x.data_ptr() if isinstance(x, torch.Tensor) else x
+
+
+def _route(x) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def _launch_bwd(name: str, packed: PackedParams, cfg: NeRFConfig, r: int, s_tile: int,
+                inputs, outputs) -> PackedGrads:
+    """Launch backward kernel ``name`` on the current stream, whose C entry
+    takes ``inputs``, the zeroed gradient buffers, ``outputs``, and then
+    what every backward entry takes: the weights and their layout records,
+    the transposed weights, and the scratch that holds the residuals of one
+    pass (sized by the library for r rays of s_tile samples a tile row, or
+    r rows for s_tile = ROW_TILES).  Returns the gradients (PackedGrads,
+    summed over the rays)."""
+    dev = packed.device
+    lib = _build.load(name)
+    meta, n_meta = _meta(packed, cfg)
+    mats_t, offs_t = transposed_mats(packed, cfg)
+    meta_t = (ctypes.c_longlong * len(offs_t))(*offs_t)
+    n_vecs = packed.vecs.numel()
+    nbytes = lib.danerf_bwd_scratch_bytes(meta, n_meta, r, s_tile, n_vecs)
+    if nbytes < 0:
+        _build.check(lib, int(nbytes), "backward scratch size")
+    scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=dev)
+    grads = PackedGrads.zeros(packed)
+    code = getattr(lib, f"danerf_{name}")(
+        *(_arg(x) for x in inputs), grads.mats.data_ptr(), grads.vecs.data_ptr(),
+        *(_arg(x) for x in outputs), packed.mats.data_ptr(), packed.vecs.data_ptr(), meta,
+        n_meta, mats_t.data_ptr(), meta_t, len(offs_t), scratch.data_ptr(), scratch.numel(),
+        n_vecs, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return grads
+
+
+# ---------------------------------------------------------------- K1, K8
+
+def _encode_points(cfg: NeRFConfig, x, d, t):
+    """(enc_x, enc_d) of flat points x, directions d (N,3) [and times t
+    (N,1), appended to enc_x]: the JAX kernel's ``_encode`` of each."""
+    enc_x = encode_plain(x, cfg.pos_enc_levels)
+    if t is not None:
+        enc_x = torch.cat([enc_x, encode_plain(t, cfg.time_enc_levels)], dim=-1)
+    return enc_x, encode_plain(d, cfg.dir_enc_levels)
+
+
+def fused_fwd_plain(packed: PackedParams, cfg: NeRFConfig, x, d, emb, t=None):
+    """Plain version of K1 (``_forward_tile``): rgb (N,3), sigma (N,1) of
+    flat points x, directions d (N,3) and embeddings emb (N,E)."""
+    return field_from_enc_plain(cfg, *_encode_points(cfg, x, d, t), emb, packed)
+
+
+def fused_bwd_plain(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_sigma, t=None):
+    """Plain version of K8 (``_bwd_kernel``): recompute the field at the
+    rows, then the transposed chain under g_rgb (N,3) and g_sigma (N,1) or
+    (N,).  Returns (PackedGrads summed over the N rows, demb (N,E) per
+    row)."""
+    enc_x, enc_d = _encode_points(cfg, x, d, t)
+    _, _, res = field_from_enc_plain(cfg, enc_x, enc_d, emb, packed, want_res=True)
+    return field_bwd_plain(cfg, packed, res, emb, g_rgb, g_sigma.reshape(-1, 1))
+
+
+def _rows_f32(dev, n_cols, **tensors):
+    """The kernels' per-row inputs: f32, contiguous, on ``dev``, each (N,
+    n_cols[name]) with one N."""
+    out = [_f32(x, dev) for x in tensors.values()]
+    n = out[0].shape[0]
+    for (name, _), x in zip(tensors.items(), out):
+        if tuple(x.shape) != (n, n_cols[name]):
+            raise ValueError(f"{name} of shape {tuple(x.shape)}, expected {(n, n_cols[name])}")
+    return out
+
+
+def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb):
+    """Launch K1 on the current stream; outputs as fused_fwd_plain's."""
+    _check_kernel_cfg(cfg, None)
+    dev = x.device
+    _check_packed(packed, dev)
+    x, d, emb = _rows_f32(dev, {"x": 3, "d": 3, "emb": cfg.appearance_dim}, x=x, d=d, emb=emb)
+    n = x.shape[0]
+    lib = _build.load("mlp_fwd")
+    rgb = torch.empty(n, 3, device=dev)
+    sigma = torch.empty(n, 1, device=dev)
+    meta, n_meta = _meta(packed, cfg)
+    code = lib.danerf_mlp_fwd(
+        x.data_ptr(), d.data_ptr(), emb.data_ptr(), n, emb.shape[-1], rgb.data_ptr(),
+        sigma.data_ptr(), packed.mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "mlp_fwd")
+    LAUNCHES["mlp_fwd"] += 1
+    return rgb, sigma
+
+
+def fused_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_sigma):
+    """Launch K8 on the current stream; outputs as fused_bwd_plain's."""
+    _check_kernel_cfg(cfg, None)
+    dev = x.device
+    _check_packed(packed, dev)
+    e = cfg.appearance_dim
+    x, d, emb, g_rgb, g_sigma = _rows_f32(
+        dev, {"x": 3, "d": 3, "emb": e, "g_rgb": 3, "g_sigma": 1},
+        x=x, d=d, emb=emb, g_rgb=g_rgb, g_sigma=g_sigma.reshape(-1, 1))
+    n = x.shape[0]
+    demb = torch.empty(n, e, device=dev)
+    grads = _launch_bwd("mlp_bwd", packed, cfg, n, ROW_TILES,
+                        (x, d, emb, n, e, g_rgb, g_sigma), (demb,))
+    return grads, demb
+
+
+def _field_fwd(packed, cfg, x, d, emb, t):
+    if _route(x) == "cuda":
+        _check_kernel_cfg(cfg, t)
+        return fused_fwd_cuda(packed, cfg, x, d, emb)
+    return fused_fwd_plain(packed, cfg, x.float(), d.float(), emb.float(), _f32_opt(t))
+
+
+def _field_bwd(packed, cfg, x, d, emb, t, g_rgb, g_sigma):
+    if _route(x) == "cuda":
+        _check_kernel_cfg(cfg, t)
+        return fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sigma)
+    return fused_bwd_plain(packed, cfg, x.float(), d.float(), emb.float(), g_rgb.float(),
+                           g_sigma.float(), _f32_opt(t))
+
+
+class FieldFn(torch.autograd.Function):
+    """K1 forward, K8 backward: the counterpart of ``_fused_apply``'s custom
+    VJP.  The module's parameters are explicit inputs (``*params``, in
+    ``model.named_parameters()`` order with their ``names``) so that
+    autograd routes the gradients to them; ``packed`` is the detached kernel
+    copy of the same weights.  Outputs rgb (N,3) and sigma (N,1); the
+    points, directions and times are data and get no gradient, the
+    embedding gets demb (N,E)."""
+
+    @staticmethod
+    def forward(ctx, cfg, packed, names, x, d, emb, t, *params):
+        rgb, sigma = _field_fwd(packed, cfg, x, d, emb, t)
+        ctx.cfg, ctx.packed, ctx.names = cfg, packed, names
+        ctx.save_for_backward(x, d, emb, t, *params)
+        return rgb, sigma
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_sigma):
+        x, d, emb, t, *params = ctx.saved_tensors
+        grads, demb = _field_bwd(ctx.packed, ctx.cfg, x, d, emb, t, g_rgb, g_sigma)
+        by_name = unpack_grads(grads, zip(ctx.names, params))
+        return (None, None, None, None, None, demb, None, *(by_name[n] for n in ctx.names))
+
+
+def fused_nerf_apply(model, cfg: NeRFConfig, x, d, appearance_embedding=None, t=None,
+                     packed: Optional[PackedParams] = None):
+    """Drop-in for the module's forward on points (counterpart of
+    danerf_tpu's ``fused_nerf_apply``): K1, and K8 under autograd, on CUDA
+    tensors; their plain versions on CPU tensors.
+
+    x: (..., 3); d (..., 3) and appearance_embedding (..., E) are broadcast
+    to x's leading shape; without an embedding the projection is packed as
+    zeros (the module skips the term).  t: (..., 1) when ``cfg.use_time``.
+    ``model`` is the ``NeRF`` module; ``packed`` its pack_params output, to
+    reuse across calls.  Returns rgb (..., 3), sigma (...).
+    """
+    if cfg.use_time and t is None:
+        raise ValueError("cfg.use_time=True requires a time input t")
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, 3).float()
+    df = d.expand(x.shape).reshape(-1, 3).float()
+    if appearance_embedding is None:
+        ef = torch.zeros(xf.shape[0], cfg.appearance_dim, device=x.device)
+    else:
+        e = appearance_embedding.shape[-1]
+        ef = appearance_embedding.expand(lead + (e,)).reshape(-1, e).float()
+    tf = t.expand(lead + (1,)).reshape(-1, 1).float() if cfg.use_time else None
+    if packed is None:
+        packed = pack_params(model, cfg, appearance=appearance_embedding is not None,
+                             device=x.device)
+    if appearance_embedding is None and packed.has_appearance:
+        raise ValueError("params were packed with appearance=True but no "
+                         "appearance_embedding was given")
+    if torch.is_grad_enabled() and (ef.requires_grad
+                                    or any(p.requires_grad for p in model.parameters())):
+        names, tensors = module_params(model)
+        rgb, sigma = FieldFn.apply(cfg, packed, names, xf, df, ef, tf, *tensors)
+    else:
+        rgb, sigma = _field_fwd(packed, cfg, xf, df, ef, tf)
+    return rgb.reshape(*lead, 3), sigma.reshape(lead)
 
 
 def params_from_jax_module(params: dict, cfg: NeRFConfig, device="cpu"):

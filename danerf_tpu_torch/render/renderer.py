@@ -1,15 +1,17 @@
 """Volume renderer (counterpart of danerf_tpu/render/renderer.py):
 stratified coarse pass, inverse-CDF importance pass, alpha compositing.
 
-``render_rays`` has the two routes of the JAX function:
-- the reference route (``fused_composite=False``): the module's forward at
-  every sample, ``composite``, and ``combine_z``'s sorted union for the fine
-  pass;
-- the kernel route (``fused_composite=True``): K2 marches the coarse samples
+``render_rays`` has the routes of the JAX function:
+- the fused route (``fused_composite=True``): K2 marches the coarse samples
   and returns their field, ``sample_pdf`` draws the importance depths, and K5
   evaluates the field only there and composites the rank-merged union (the
   plain versions on CPU tensors).  Under autograd the backward runs K6 for
-  the fine pass and K3 for the coarse one (K3 alone without a fine pass).
+  the fine pass and K3 for the coarse one (K3 alone without a fine pass);
+- the per-sample route (``fused_composite=False``): the field at every
+  sample, ``composite``, and ``combine_z``'s sorted union for the fine pass.
+  With ``cfg.use_kernels`` the field is ``fused_nerf_apply`` (K1, and K8
+  under autograd; the JAX package's ``use_pallas``), the weights packed once
+  for both passes; without, the module's forward (the reference route).
 
 ``render_frame`` renders a whole frame as a Python loop over chunks of rays;
 the last chunk may be short (the kernels mask the ragged tile).
@@ -23,20 +25,25 @@ import torch
 
 from danerf_tpu_torch import resolve_device
 from danerf_tpu_torch.config import NeRFConfig
+from danerf_tpu_torch.kernels.fused_mlp import fused_nerf_apply, pack_params
 from danerf_tpu_torch.ops.composite import composite
 from danerf_tpu_torch.ops.rays import generate_rays
 from danerf_tpu_torch.ops.sampling import (combine_z, ray_aabb_bounds,
                                            sample_pdf, sample_stratified)
 
 
-def _eval_field(model, pts, rays_d, appearance_embedding, t):
-    """The module's forward on (R, S, 3) points with per-ray dirs/embeddings."""
+def _eval_field(model, cfg: NeRFConfig, pts, rays_d, appearance_embedding, t, packed):
+    """The field on (R, S, 3) points with per-ray dirs/embeddings: K1
+    (``fused_nerf_apply``, with the weights ``packed``) under
+    ``cfg.use_kernels``, else the module's forward."""
     dirs = rays_d[..., None, :].expand(pts.shape)
     emb = None
     if appearance_embedding is not None:
         emb = appearance_embedding[..., None, :].expand(
             pts.shape[:-1] + (appearance_embedding.shape[-1],))
     tt = None if t is None else t[..., None, :].expand(pts.shape[:-1] + (t.shape[-1],))
+    if cfg.use_kernels:
+        return fused_nerf_apply(model, cfg, pts, dirs, emb, tt, packed)
     return model(pts, dirs, emb, tt)
 
 
@@ -57,8 +64,9 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
         perturb: jitter the stratified bins and the importance uniforms,
             drawn from ``generator``.
         background_color: optional (3,).
-        fused_composite: take the kernel route.
-        packed: ``pack_params`` output to reuse across calls (kernel route).
+        fused_composite: take the fused route.
+        packed: ``pack_params`` output to reuse across calls (the fused
+            route, and the per-sample route under ``cfg.use_kernels``).
         draws: optional (stratified, importance) jitter tensors of U[0,1)
             draws, (R, n_samples) and (R, n_importance), used instead of
             drawing from ``generator``.
@@ -115,7 +123,10 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
         fine["coarse_depth"] = coarse["depth"]
         return fine
 
-    rgb, sigma = _eval_field(model, pts, rays_d, appearance_embedding, t)
+    if cfg.use_kernels and packed is None:
+        packed = pack_params(model, cfg, appearance=appearance_embedding is not None,
+                             device=rays_o.device)
+    rgb, sigma = _eval_field(model, cfg, pts, rays_d, appearance_embedding, t, packed)
     coarse = composite(rgb, sigma, z_coarse, bg)
     if n_importance <= 0:
         coarse["z_vals"] = z_coarse
@@ -124,7 +135,7 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
     z_fine = sample_pdf(z_coarse, coarse["weights"].detach(), n_importance,
                         perturb=perturb, rand=r_imp)
     z_all, pts_all = combine_z(rays_o, rays_d, z_coarse, z_fine.detach())
-    rgb, sigma = _eval_field(model, pts_all, rays_d, appearance_embedding, t)
+    rgb, sigma = _eval_field(model, cfg, pts_all, rays_d, appearance_embedding, t, packed)
     fine = composite(rgb, sigma, z_all, bg)
     fine["z_vals"] = z_all
     fine["coarse_rgb"] = coarse["rgb"]
@@ -146,8 +157,6 @@ def render_frame(model, cfg: NeRFConfig, c2w, height: int, width: int, focal,
     packed once for the frame.  Returns (rgb [H,W,3] in [0,1], depth [H,W],
     acc [H,W]) on ``device``.
     """
-    from danerf_tpu_torch.kernels.fused_mlp import pack_params
-
     dev = resolve_device(device)
     model = model.to(dev)
     if n_samples is None:

@@ -12,12 +12,14 @@ JAX package's does:
   depths, K4 computes the fine MSE with its whole backward, and K3 runs the
   coarse backward, fed K4's coarse-field cotangent plus the coarse MSE's.
   Without (``num_importance=0``), ``_onepass_loss_grads``: one K7 launch.
-- otherwise ``loss_fn`` and autograd.  On the kernel route
+- otherwise ``loss_fn`` and autograd.  On the fused kernel route
   (``use_kernels``, e.g. with a white background) ``render_rays`` runs K2,
   ``sample_pdf`` and K5 forward, and the backward K6 and then K3 (K2/K3
-  alone without importance samples); on the reference route
-  (``--no_pallas``) the module's forward at every sample and
-  ``composite``.
+  alone without importance samples); on the per-sample kernel route
+  (``use_kernels`` with ``use_fused_train=False``) K1 at the coarse samples,
+  ``composite``, ``sample_pdf``, K1 at the sorted union, ``composite``, and
+  K8 for both K1 calls in the backward; on the reference route
+  (``--no_pallas``) the module's forward at every sample and ``composite``.
 On CPU tensors the kernels' plain versions run in their place.
 
 Random draws (batch, stratified jitter, importance jitter, in that order)
@@ -90,16 +92,18 @@ def _embedding(table, cfg: NeRFConfig, batch):
 
 def loss_fn(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):
     """MSE of the rendered rgb against the target, plus coarse_loss_weight x
-    the coarse MSE when a fine pass runs; ``render_rays`` takes the kernel
-    route when ``cfg.use_kernels`` (its backward K6/K3), else the reference
-    route.  Differentiated by autograd."""
+    the coarse MSE when a fine pass runs; ``render_rays`` takes the fused
+    route when ``cfg.use_kernels and cfg.use_fused_train`` (its backward
+    K6/K3), else the per-sample route (K1/K8 under ``cfg.use_kernels``, the
+    module's forward without).  Differentiated by autograd."""
     from danerf_tpu_torch.render.renderer import render_rays
 
     emb = _embedding(table, cfg, batch)
     bg = (1.0, 1.0, 1.0) if cfg.white_background else None
     out = render_rays(model, cfg, batch["rays_o"], batch["rays_d"], appearance_embedding=emb,
                       t=batch.get("t"), perturb=True, background_color=bg,
-                      fused_composite=cfg.use_kernels, generator=generator, draws=draws)
+                      fused_composite=cfg.use_kernels and cfg.use_fused_train,
+                      generator=generator, draws=draws)
     loss = torch.mean((out["rgb"] - batch["rgb"]) ** 2)
     aux = {"mse": loss}
     if "coarse_rgb" in out and cfg.coarse_loss_weight > 0:
@@ -183,8 +187,11 @@ def use_onepass(cfg: NeRFConfig) -> bool:
 
     A white background takes ``loss_fn``'s route instead (K2, K5 forward;
     K6, K3 backward): the one-pass kernels form the MSE in the kernel
-    against the raw composite, with no background fill for acc < 1."""
-    return cfg.use_kernels and not cfg.use_time and not cfg.white_background
+    against the raw composite, with no background fill for acc < 1.
+    ``use_fused_train=False`` takes ``loss_fn``'s per-sample route (K1,
+    K8)."""
+    return (cfg.use_kernels and cfg.use_fused_train and not cfg.use_time
+            and not cfg.white_background)
 
 
 def compute_loss_and_grads(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):

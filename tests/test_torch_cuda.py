@@ -1,6 +1,7 @@
-"""The CUDA kernels (K2, K5, the backward kernels K3, K6 and the one-pass
-training kernels K4, K7) against their plain versions, on the card, and the
-kernel launches of each training path.
+"""The CUDA kernels (K2, K5, the backward kernels K3, K6, the one-pass
+training kernels K4, K7, and the per-sample field K1 with its backward K8)
+against their plain versions, on the card, and the kernel launches of each
+training path.
 
 These need a GPU with ``nvcc``: on a host without CUDA each test skips
 (decided in the fixture, not at import).  On the card, whose machine has no
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from danerf_tpu_torch.config import NeRFConfig
+from danerf_tpu_torch.kernels import fused_mlp as fm
 from danerf_tpu_torch.kernels import fused_render as fr
 from danerf_tpu_torch.kernels.fused_mlp import pack_params
 from danerf_tpu_torch.models.nerf import NeRF
@@ -102,7 +104,7 @@ def test_kernel_route_counts_launches(dev):
                                  40.0, chunk=500, device=dev)
     # 1200 rays in chunks of 500; rendering launches no backward kernel
     assert fr.LAUNCHES == {"march": 3, "merged": 3, "march_bwd": 0, "merged_train": 0,
-                           "march_train": 0, "merged_bwd": 0}
+                           "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0}
     assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
 
 
@@ -152,8 +154,9 @@ def test_merged_train_kernel_matches_plain(dev):
 @pytest.mark.parametrize("over,want", [
     ({}, {"march": 1, "march_bwd": 1, "merged_train": 1}),
     ({"num_importance": 0}, {"march_train": 1}),
-    ({"white_background": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1})],
-    ids=["hier", "coarse_only", "white_background"])
+    ({"white_background": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
+    ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2})],
+    ids=["hier", "coarse_only", "white_background", "per_sample"])
 def test_train_step_launches_each_kernel_once(dev, over, want):
     """One step of each training path launches exactly its kernels."""
     from danerf_tpu_torch.data.dataset import RayDataset
@@ -237,3 +240,79 @@ def test_backward_kernels_at_other_sample_counts(dev, sc, sf):
     _close_grads(gk, gp, model)
     assert float((dk - dp).abs().max()) <= TOL["demb_k4"]
     assert float((fk - fp).abs().max()) <= TOL["g_field"]
+
+
+def _rows(n, cfg, dev, seed=0):
+    """Flat points along seeded rays (their stratified samples), per-row
+    directions and embeddings: the rows the per-sample route feeds K1."""
+    _, _, o, d, emb, z, g = _inputs(dev, n=-(-n // cfg.num_samples), seed=seed)
+    pts = (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3)[:n]
+    rep = lambda t: t[:, None, :].expand(-1, cfg.num_samples, -1).reshape(-1, t.shape[-1])[:n]
+    return pts.contiguous(), rep(d).contiguous(), rep(emb).contiguous(), g
+
+
+@pytest.mark.parametrize("appearance", [True, False], ids=["emb", "emb_none"])
+def test_mlp_fwd_kernel_matches_plain(dev, appearance):
+    """K1 at 4,093 rows (a ragged last tile), with and without the
+    appearance projection (packed as zeros, a zero embedding)."""
+    cfg, model, *_ = _inputs(dev)
+    x, d, emb, _ = _rows(4093, cfg, dev)
+    packed = pack_params(model, cfg, appearance=appearance)
+    emb = emb if appearance else torch.zeros_like(emb)
+    rk, sk = fm.fused_fwd_cuda(packed, cfg, x, d, emb)
+    rp, sp = fm.fused_fwd_plain(packed, cfg, x, d, emb)
+    assert float((rk - rp).abs().max()) <= TOL["field_rgb"]
+    assert float(((sk - sp) / sp.abs().clamp_min(1.0)).abs().max()) <= TOL["field_sigma"]
+
+
+def test_mlp_bwd_kernel_matches_plain(dev):
+    """K8 at 2,400 rows (19 tiles, the last ragged: a lost or doubled tile
+    moves every summed gradient by several percent), seeded cotangents; two
+    calls agree bit for bit."""
+    cfg, model, *_ = _inputs(dev)
+    x, d, emb, g = _rows(2400, cfg, dev)
+    packed = pack_params(model, cfg)
+    g_rgb = torch.randn(2400, 3, generator=g, device=dev)
+    g_sig = torch.randn(2400, 1, generator=g, device=dev)
+    gk, dk = fm.fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sig)
+    gk2, dk2 = fm.fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sig)
+    gp, dp = fm.fused_bwd_plain(packed, cfg, x, d, emb, g_rgb, g_sig)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k8"]
+    assert torch.equal(gk.mats, gk2.mats) and torch.equal(gk.vecs, gk2.vecs)
+    assert torch.equal(dk, dk2)
+
+
+def test_per_sample_step_matches_plain(dev, monkeypatch):
+    """One step of the per-sample route at 256 rays: through K1/K8 and
+    through their plain versions (the route's dispatch pointed at them),
+    same module, table, batch and draws."""
+    from danerf_tpu_torch.train.trainer import compute_loss_and_grads
+
+    cfg = NeRFConfig(density_bias_init=0.5, use_fused_train=False)
+    n = 256
+    _, _, o, d, _, _, g = _inputs(dev, n=n, seed=3)
+    batch = {"rays_o": o, "rays_d": d, "rgb": torch.rand(n, 3, generator=g, device=dev),
+             "img_idx": torch.randint(0, 4, (n,), generator=g, device=dev)}
+    draws = (torch.rand(n, cfg.num_samples, generator=g, device=dev),
+             torch.rand(n, cfg.num_importance, generator=g, device=dev))
+    table0 = torch.randn(4, cfg.appearance_dim, generator=g, device=dev)
+    runs = []
+    for plain in (False, True):
+        model = NeRF(cfg, torch.Generator().manual_seed(0)).to(dev)
+        table = torch.nn.Parameter(table0.clone())
+        if plain:
+            monkeypatch.setattr(fm, "_field_fwd", lambda pk, c, x, d, e, t:
+                                fm.fused_fwd_plain(pk, c, x, d, e))
+            monkeypatch.setattr(fm, "_field_bwd", lambda pk, c, x, d, e, t, gr, gs:
+                                fm.fused_bwd_plain(pk, c, x, d, e, gr, gs))
+        fr.reset_launch_counts()
+        loss, _ = compute_loss_and_grads(model, table, cfg, batch, draws=draws)
+        runs.append((float(loss), [p.grad for p in model.parameters()] + [table.grad],
+                     dict(fr.LAUNCHES)))
+    (lk, gk, nk), (lp, gp, np_) = runs
+    assert nk == {k: {"mlp_fwd": 2, "mlp_bwd": 2}.get(k, 0) for k in nk}
+    assert not any(np_.values())
+    assert abs(lk - lp) <= TOL["loss"]
+    for a, b in zip(gk, gp):
+        assert float((a - b).norm() / b.norm()) <= TOL["grad_rel"]

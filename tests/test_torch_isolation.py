@@ -1,6 +1,6 @@
 """danerf_tpu_torch stands alone: it imports neither JAX nor danerf_tpu
-(it renders a frame and takes a 64 + 64 and a coarse-only training step
-with both blocked), and
+(it renders a frame and takes a 64 + 64, a coarse-only and a per-sample
+training step with both blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
 
@@ -66,6 +66,13 @@ opt, sched = make_optimizer(coarse, list(model.parameters()) + [table])
 m = train_step(model, table, opt, sched, ds.device_arrays(), coarse, 6, 5, 6.0, 4,
                torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(m["loss"])) and set(m) == {"loss", "psnr", "mse"}
+# and one step of the per-sample route (the plain K1/K8)
+per_sample = cfg.replace(use_fused_train=False)
+model, table = init_model(per_sample, 2, 0, "cpu")
+opt, sched = make_optimizer(per_sample, list(model.parameters()) + [table])
+m = train_step(model, table, opt, sched, ds.device_arrays(), per_sample, 6, 5, 6.0, 4,
+               torch.Generator().manual_seed(0))
+assert bool(torch.isfinite(m["loss"])) and "coarse_mse" in m
 assert not any(k.split(".")[0] in ("jax", "danerf_tpu") for k in sys.modules)
 print("ISOLATED-OK")
 '''

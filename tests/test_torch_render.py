@@ -1,5 +1,5 @@
 """The port's rendering slice end to end against danerf_tpu on the CPU:
-render_rays on both routes, render_frame with a ragged last chunk, the
+render_rays on its three routes, render_frame with a ragged last chunk, the
 render CLI writing its files, and the viridis table and PNG writer.
 
 The JAX side's kernel route runs its Pallas kernels in interpret mode.
@@ -53,10 +53,20 @@ def _rays(n, cfg, seed=1):
     return o, d, emb
 
 
-@pytest.mark.parametrize("fused", [True, False], ids=["kernel_route", "reference_route"])
+# route: (fused_composite, the port's use_kernels, JAX use_pallas).  The
+# fused route runs the ray-march kernels whatever use_pallas says; the
+# per-sample route runs K1 under use_kernels / use_pallas and the module's
+# forward (nerf_apply) without.
+ROUTES = {"kernel_route": (True, True, False), "reference_route": (False, False, False),
+          "per_sample_kernel_route": (False, True, True)}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("bg", [None, (1.0, 1.0, 1.0)], ids=["black", "white"])
-def test_render_rays_matches(fused, bg):
+def test_render_rays_matches(route, bg):
+    fused, use_kernels, use_pallas = ROUTES[route]
     jcfg, cfg, params, model = _setup()
+    jcfg, cfg = jcfg.replace(use_pallas=use_pallas), cfg.replace(use_kernels=use_kernels)
     o, d, emb = _rays(24, cfg)
     want = j_render_rays(params, jcfg, jax.random.key(0), jnp.asarray(o), jnp.asarray(d),
                          jnp.asarray(emb), perturb=False, background_color=bg,

@@ -6,7 +6,9 @@
   the embedding;
 - K4's plain version against ``fused_hier_train_loss_grads``;
 - one whole kernel-route step (``_onepass_hier_loss_grads``) against the
-  JAX one, and the reference route against ``jax.value_and_grad(loss_fn)``;
+  JAX one, and the reference route and the per-sample kernel route (K1/K8's
+  plain versions; hierarchical, coarse-only, white background) against
+  ``jax.value_and_grad(loss_fn)``;
 - torch Adam + StepLR against optax's flattened Adam over the same
   gradients.
 
@@ -146,27 +148,37 @@ def _batch(cfg, rng, n=R, n_images=5):
             "img_idx": img.astype(np.int32)}
 
 
-def _step_pair(use_bf16, kernel_route):
+# route: (JAX use_pallas, JAX use_fused_train, the port's use_kernels,
+# use_fused_train).  "onepass" is the fused kernel route (K2/K4/K3), whose
+# JAX side is _onepass_hier_loss_grads; "per_sample" the per-sample kernel
+# route (K1/K8), and "reference" the module's forward, both differentiated
+# by jax.value_and_grad(loss_fn) on the JAX side.
+STEP_ROUTES = {"onepass": (True, True, True, True), "reference": (False, False, False, True),
+               "per_sample": (True, False, True, False)}
+
+
+def _step_pair(use_bf16, route, **over):
     from danerf_tpu.train.trainer import _onepass_hier_loss_grads as j_onepass
     from danerf_tpu.train.trainer import loss_fn as j_loss_fn
     from danerf_tpu_torch.train.trainer import compute_loss_and_grads
 
-    over = dict(num_samples=SC, num_importance=SF)
+    over = {"num_samples": SC, "num_importance": SF, **over}
     jcfg, cfg, params, model, *_, rng = _setup(use_bf16, **over)
-    jcfg = jcfg.replace(use_pallas=kernel_route, use_fused_train=kernel_route)
-    cfg = cfg.replace(use_kernels=kernel_route)
+    use_pallas, j_fused_train, use_kernels, fused_train = STEP_ROUTES[route]
+    jcfg = jcfg.replace(use_pallas=use_pallas, use_fused_train=j_fused_train)
+    cfg = cfg.replace(use_kernels=use_kernels, use_fused_train=fused_train)
     table = np.asarray(j_init_app(jax.random.key(1), 5, cfg.appearance_dim))
     jparams = {"model": params, "appearance": jnp.asarray(table)}
     batch = _batch(cfg, rng)
     key = jax.random.key(13)
-    if kernel_route:
+    if route == "onepass":
         (j_loss, j_aux), j_grads = j_onepass(jparams, jcfg, key, batch)
     else:
         (j_loss, j_aux), j_grads = jax.value_and_grad(j_loss_fn, has_aux=True)(
             jparams, jcfg, key, batch)
     k_strat, k_imp = jax.random.split(key)
     draws = (torch.tensor(np.asarray(jax.random.uniform(k_strat, (R, SC)))),
-             torch.tensor(np.asarray(jax.random.uniform(k_imp, (R, SF)))))
+             torch.tensor(np.asarray(jax.random.uniform(k_imp, (R, cfg.num_importance)))))
     t_table = torch.nn.Parameter(torch.tensor(table))
     t_batch = {k: torch.tensor(v) for k, v in batch.items()}
     t_batch["img_idx"] = t_batch["img_idx"].long()
@@ -178,7 +190,7 @@ def _step_pair(use_bf16, kernel_route):
 def test_onepass_hier_step_matches_jax(use_bf16):
     """The kernel-route step at Sc = 16, Sf = 8: loss, mse, coarse_mse and
     every gradient leaf, the appearance table's scatter-add included."""
-    (j_loss, j_aux, j_grads), (loss, aux, grads, g_table) = _step_pair(use_bf16, True)
+    (j_loss, j_aux, j_grads), (loss, aux, grads, g_table) = _step_pair(use_bf16, "onepass")
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
     for k in ("mse", "coarse_mse"):
         np.testing.assert_allclose(float(aux[k]), float(j_aux[k]), rtol=1e-5, err_msg=k)
@@ -190,11 +202,29 @@ def test_onepass_hier_step_matches_jax(use_bf16):
 def test_reference_route_matches_jax_value_and_grad():
     """The reference route (module forward + composite + autograd) against
     jax.value_and_grad(loss_fn), f32."""
-    (j_loss, j_aux, j_grads), (loss, aux, grads, g_table) = _step_pair(False, False)
+    (j_loss, j_aux, j_grads), (loss, aux, grads, g_table) = _step_pair(False, "reference")
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
     np.testing.assert_allclose(float(aux["coarse_mse"]), float(j_aux["coarse_mse"]), rtol=1e-5)
     _assert_grads(grads, j_grads["model"], False, "reference model grads")
     _assert_grads([g_table.numpy()], [j_grads["appearance"]], False, "reference table grad")
+
+
+@pytest.mark.parametrize("over", [{}, {"num_importance": 0}, {"white_background": True}],
+                         ids=["hier", "coarse_only", "white_background"])
+def test_per_sample_route_matches_jax_value_and_grad(over):
+    """The per-sample kernel route (use_kernels, use_fused_train=False: K1's
+    and K8's plain versions, composite, the sorted union for the fine pass)
+    against jax.value_and_grad(loss_fn) under use_pallas with
+    use_fused_train=False (K1/K8 in interpret mode), f32, same params, batch
+    and draws."""
+    (j_loss, j_aux, j_grads), (loss, aux, grads, g_table) = _step_pair(False, "per_sample",
+                                                                       **over)
+    np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
+    assert set(aux) == set(j_aux)
+    for k in aux:
+        np.testing.assert_allclose(float(aux[k]), float(j_aux[k]), rtol=1e-5, err_msg=k)
+    _assert_grads(grads, j_grads["model"], False, "per-sample model grads")
+    _assert_grads([g_table.numpy()], [j_grads["appearance"]], False, "per-sample table grad")
 
 
 def test_adam_steplr_matches_optax():
