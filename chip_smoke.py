@@ -28,12 +28,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             Per-ray (per-row) outputs and the loss by max abs error, each
             parameter gradient by relative Frobenius error; K3, K7 and K8
             twice, which must agree bit for bit.
+4b. time_kernels  the has_time variants (use_time, 6 time levels: the
+            encoded time at the first and the skip layers, kx = 80) on a
+            model of their own, each ray's (row's) time uniform in [0, 1]:
+            K2 (want_field) and K5 at 4093 rays and on a 65,536-ray chunk,
+            K3 and K6 (every cotangent; K6 with a coarse/fine tie) at 37
+            rays and at B = 1024, K4 and K7 at 37 rays, K1 at 130,976 rows
+            and K8 at 2,400 rows, against their plain versions.
 5. step     one training step at B = 1024 on each training path (64 + 64;
             coarse only, num_importance=0; 64 + 64 on a white background;
-            64 + 64 per sample, use_fused_train=False), each built twice
-            from the same module, table, batch and draws: through the
-            kernels and through their plain versions; the launches, loss,
-            every gradient and the parameters after one Adam step compared.
+            64 + 64 per sample, use_fused_train=False; 64 + 64 with
+            use_time), each built twice from the same module, table, batch
+            and draws: through the kernels and through their plain
+            versions; the launches, loss, every gradient and the parameters
+            after one Adam step compared.
 6. render   the serving path: a seeded full-width model saved as a
             reference-format .pt, rendered by `cli.main render` (two
             400x400 medium frames, then one preview frame); launch counts
@@ -47,7 +55,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             K5, K6 and K3 a step); then 100 steps of the per-sample route,
             which has no CLI flag (nor has the JAX CLI): train() with
             use_fused_train=False (two K1 and two K8 a step and nothing
-            else); finite losses and a rising PSNR.
+            else); 100 steps of `--use_time` on the time-varying scene (one
+            K2, K5, K6 and K3 a step, the has_time variants; then `render
+            --use_time --animate_time` of its checkpoint, two 400x400 medium
+            frames); finite losses and a rising PSNR.
 8. timing   CUDA-event times of every kernel and its plain version, each
             beside its bound: K2 (want_field) and K5 on a 65,536-ray chunk,
             K3, K4, K6 and K7 on a chunk and at B = 1024 (plain versions at
@@ -57,10 +68,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             frame); the training step of each path at B = 1024 (median of 50
             synchronised steps) with its rays/s and its kernels' share, and
             the device time by kernel over 10 steps (torch.profiler) of the
-            64 + 64, the coarse-only and the per-sample step.
+            64 + 64, the coarse-only and the per-sample step; then the same
+            for use_time: the has_time K2/K5 on the chunk, K3-K7 at B = 1024
+            and K1/K8 at 131,072 rows with their plain versions, an 800x800
+            medium frame at t = 0.5, and the use_time step, profiled.
 
 Before the last line it prints the card's name and power limit and the
-{"kernels": [...]} record; the last line is the ok record.  Exits non-zero,
+{"kernels": [...]} record (each kernel with its has_time variant's numbers
+under "has_time"); the last line is the ok record.  Exits non-zero,
 printing no result, when CUDA is unavailable.
 """
 
@@ -92,13 +107,15 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 
 def field_macs(cfg):
     """(MACs per sample, MACs per ray) of the field: the per-ray part is the
-    appearance projection, which depends only on the ray's embedding."""
+    appearance projection, which depends only on the ray's embedding.  With
+    use_time the encoded time enters the first and the skip layers."""
     h, half = cfg.hidden_dim, cfg.hidden_dim // 2
     per_sample = 0
-    k = cfg.pos_enc_dim
+    pos_in = cfg.pos_enc_dim + (cfg.time_enc_dim if cfg.use_time else 0)
+    k = pos_in
     for i in range(cfg.num_layers):
         if i in cfg.skip_connect_layers and i > 0:
-            k = h + cfg.pos_enc_dim
+            k = h + pos_in
         per_sample += k * h
         k = h
     per_sample += h + (h + cfg.dir_enc_dim) * half + half * 3
@@ -285,7 +302,7 @@ def phase_kernels(cfg, model, device):
                 ["rgb", "depth", "acc", "weights", "z_vals"])
         mean_acc = float(want_f["acc"].mean())
         del want_f, got_f, want, got, want_m, got_m
-        chunk = (o, d, emb, z, z_f)
+        chunk = (o, d, emb, z, z_f, None)
 
     # K1 on flat points: the samples of 4093 rays x 32 (130,976 rows, a
     # ragged tile), and the coarse (65,536) and fine (131,072) evaluations
@@ -363,6 +380,30 @@ def _tie(z, z_f):
     return torch.sort(z_f, dim=-1).values
 
 
+def checks(errs, grad_rel, failures, model):
+    """(check, check_grads): record a max abs error (in ``errs``) or each
+    parameter gradient's relative Frobenius error against the kernel's plain
+    version (the worst in ``grad_rel``) and append to ``failures`` what is
+    over its limit or not finite."""
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    limit_g = fr.PLAIN_TOL["grad_rel"]
+
+    def check(name, err, limit):
+        errs[name] = err
+        if not math.isfinite(err) or err > limit:
+            failures.append(f"{name}: {err} > {limit}")
+
+    def check_grads(tag, got, want):
+        rel = fr.grad_rel_errors(got, want, model)
+        worst = max(rel, key=rel.get)
+        grad_rel[tag] = {"worst": rel[worst], "param": worst}
+        if not math.isfinite(rel[worst]) or rel[worst] > limit_g:
+            failures.append(f"{tag}.grad_rel {worst}: {rel[worst]} > {limit_g}")
+
+    return check, check_grads
+
+
 def phase_bwd(cfg, model, device):
     """The backward and training kernels against their plain versions at 37
     rays and at the 1024-ray batch: K3 (every cotangent seeded, want_field on
@@ -382,18 +423,7 @@ def phase_bwd(cfg, model, device):
     packed = pack_params(model, cfg)
     sa = cfg.num_samples + cfg.num_importance
     errs, grad_rel, failures, deterministic, drop = {}, {}, [], {"K3": True, "K7": True}, {}
-
-    def check(name, err, limit):
-        errs[name] = err
-        if not math.isfinite(err) or err > limit:
-            failures.append(f"{name}: {err} > {limit}")
-
-    def check_grads(tag, got, want):
-        rel = fr.grad_rel_errors(got, want, model)
-        worst = max(rel, key=rel.get)
-        grad_rel[tag] = {"worst": rel[worst], "param": worst}
-        if not math.isfinite(rel[worst]) or rel[worst] > tol["grad_rel"]:
-            failures.append(f"{tag}.grad_rel {worst}: {rel[worst]} > {tol['grad_rel']}")
+    check, check_grads = checks(errs, grad_rel, failures, model)
 
     def same(a, b):
         return bool(torch.equal(a.mats, b.mats) and torch.equal(a.vecs, b.vecs))
@@ -513,6 +543,130 @@ def phase_bwd(cfg, model, device):
             for kern in ("K3", "K4", "K6", "K7", "K8")}
 
 
+def phase_time_kernels(cfg, model, device):
+    """The has_time variants (use_time: the encoded time at the first and
+    the skip layers, kx = 80) against their plain versions, each ray's (each
+    row's) time uniform in [0, 1]: K2 with want_field and K5 (z_f from
+    sample_pdf) at 4093 rays and on one 65,536-ray chunk; K3 (every
+    cotangent, g_field) and K6 (every cotangent, a coarse/fine tie) at 37
+    rays and at the 1024-ray batch; K4 and K7 (seeded targets) at 37 rays;
+    K1 at 4093 x 32 = 130,976 rows (ragged) and K8 at 2,400 rows (19
+    tiles).  Returns the worst abs error per kernel and the chunk's inputs
+    (with t) for the timing phase."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_mlp as fm
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import sample_pdf
+
+    tol = fr.PLAIN_TOL
+    packed = pack_params(model, cfg)
+    errs, grad_rel, failures = {}, {}, []
+    check, check_grads = checks(errs, grad_rel, failures, model)
+
+    def times(n, seed):
+        return torch.rand(n, 1, generator=torch.Generator(device=device).manual_seed(seed),
+                          device=device)
+
+    chunk = None
+    for n, seed in ((4093, 41), (cfg.render_chunk, 44)):
+        o, d, emb, z = make_rays(n, cfg, seed=seed, device=device)
+        t = times(n, seed + 1)
+        want_f = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=True)
+        got_f = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True)
+        torch.cuda.synchronize()
+        compare(errs, failures, f"K2t_field@{n}", got_f, want_f,
+                ["rgb", "depth", "acc", "weights", "field"])
+        g = torch.Generator(device=device).manual_seed(seed + 2)
+        z_f = sample_pdf(z, want_f["weights"], cfg.num_importance, True, rand=g)
+        want_m = fr.merged_plain(packed, cfg, o, d, emb, z, want_f["field"], z_f, t)
+        got_m = fr.merged_cuda(packed, cfg, o, d, emb, z, want_f["field"], z_f, t)
+        torch.cuda.synchronize()
+        compare(errs, failures, f"K5t@{n}", got_m, want_m,
+                ["rgb", "depth", "acc", "weights", "z_vals"])
+        del want_f, got_f, want_m, got_m
+        chunk = (o, d, emb, z, z_f, t)
+
+    for n, seed in ((37, 51), (cfg.batch_size, 52)):
+        o, d, emb, z = make_rays(n, cfg, seed=seed, device=device)
+        t = times(n, seed + 1)
+        g = torch.Generator(device=device).manual_seed(seed + 100)
+        *cot, g_field = _cotangents(n, cfg.num_samples, g, device)
+        gk, dk = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field, t=t)
+        gp, dp = fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field, t=t)
+        torch.cuda.synchronize()
+        check_grads(f"K3t_field@{n}", gk, gp)
+        check(f"K3t_field@{n}.demb", max_err(dk, dp), tol["demb"])
+        coarse = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True)
+        z_f = sample_pdf(z, coarse["weights"], cfg.num_importance, True, rand=g)
+        z_t = _tie(z, z_f)
+        c6 = (torch.randn(n, 3, generator=g, device=device),
+              torch.randn(n, generator=g, device=device),
+              torch.randn(n, generator=g, device=device),
+              0.1 * torch.randn(n, cfg.num_samples + cfg.num_importance, generator=g,
+                                device=device))
+        gk, dk, fk = fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, coarse["field"], z_t, *c6,
+                                        t=t)
+        gp, dp, fp = fr.merged_bwd_plain(packed, cfg, o, d, emb, z, coarse["field"], z_t, *c6,
+                                         t=t)
+        torch.cuda.synchronize()
+        check_grads(f"K6t@{n}", gk, gp)
+        check(f"K6t@{n}.demb", max_err(dk, dp), tol["demb"])
+        check(f"K6t@{n}.g_field", max_err(fk, fp), tol["g_field_k6"])
+        if n == 37:
+            # K4 and K7 take t too, though no route of either package reaches them with it
+            target = torch.rand(n, 3, generator=g, device=device)
+            lk, gk, dk, fk = fr.merged_train_cuda(packed, cfg, o, d, emb, z, coarse["field"],
+                                                  z_f, target, t)
+            lp, gp, dp, fp = fr.merged_train_plain(packed, cfg, o, d, emb, z, coarse["field"],
+                                                   z_f, target, t)
+            torch.cuda.synchronize()
+            check_grads(f"K4t@{n}", gk, gp)
+            check(f"K4t@{n}.loss", abs(float(lk) - float(lp)), tol["loss"])
+            check(f"K4t@{n}.demb", max_err(dk, dp), tol["demb_k4"])
+            check(f"K4t@{n}.g_field", max_err(fk, fp), tol["g_field"])
+            lk, gk, dk = fr.march_train_cuda(packed, cfg, o, d, emb, z, target, t)
+            lp, gp, dp = fr.march_train_plain(packed, cfg, o, d, emb, z, target, t)
+            torch.cuda.synchronize()
+            check_grads(f"K7t@{n}", gk, gp)
+            check(f"K7t@{n}.loss", abs(float(lk) - float(lp)), tol["loss"])
+            check(f"K7t@{n}.demb", max_err(dk, dp), tol["demb_k4"])
+        del coarse
+
+    # K1 on the samples of 4093 rays x 32 (130,976 rows, a ragged tile), K8
+    # at 2,400 rows (19 tiles), each row with its own time
+    x, dr, er = sample_rows(4093, cfg, 61, device, 32)
+    t = times(x.shape[0], 62)
+    rk, sk = fm.fused_fwd_cuda(packed, cfg, x, dr, er, t)
+    rp, sp = fm.fused_fwd_plain(packed, cfg, x, dr, er, t)
+    torch.cuda.synchronize()
+    check(f"K1t@{x.shape[0]}.field_rgb", max_err(rk, rp), tol["field_rgb"])
+    check(f"K1t@{x.shape[0]}.field_sigma", max_err((sk - sp) / sp.abs().clamp_min(1.0), 0 * sp),
+          tol["field_sigma"])
+    n = 2400
+    x, dr, er, t = x[:n], dr[:n], er[:n], t[:n]
+    g = torch.Generator(device=device).manual_seed(63)
+    g_rgb = torch.randn(n, 3, generator=g, device=device)
+    g_sig = torch.randn(n, 1, generator=g, device=device)
+    gk, dk = fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig, t)
+    gp, dp = fm.fused_bwd_plain(packed, cfg, x, dr, er, g_rgb, g_sig, t)
+    torch.cuda.synchronize()
+    check_grads(f"K8t@{n}", gk, gp)
+    check(f"K8t@{n}.demb", max_err(dk, dp), tol["demb_k8"])
+    emit({"phase": "time_kernels", "time_enc_levels": cfg.time_enc_levels,
+          "rays": [4093, cfg.render_chunk, 37, cfg.batch_size], "k1_rows": 4093 * 32,
+          "k8_rows": n, "max_abs_err": errs, "grad_rel": grad_rel, "failures": failures})
+    if failures:
+        raise AssertionError("has_time kernel disagrees with its plain version: "
+                             + "; ".join(failures))
+    # the kernels record takes absolute errors (field_sigma's is relative)
+    worst = {kern: max(v for k, v in errs.items()
+                       if k.startswith(kern + "t") and not k.endswith("field_sigma"))
+             for kern in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")}
+    return worst, chunk
+
+
 @contextlib.contextmanager
 def plain_route():
     """Route the autograd Functions through the plain versions on the card
@@ -551,6 +705,7 @@ PATHS = {
     "white": ({"white_background": True},
               {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
     "per_sample": ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2}),
+    "time": ({"use_time": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
 }
 
 
@@ -562,11 +717,11 @@ def launches_of(per_step, steps=1):
 
 def phase_step(cfg, model, device):
     """One training step at B = 1024 on each training path (64 + 64; coarse
-    only; 64 + 64 on a white background; 64 + 64 per sample, K1/K8), each
-    built twice from the same
-    module, table, batch and draws: through the kernels and through their
-    plain versions; loss, every gradient and the parameters after one Adam
-    step compared."""
+    only; 64 + 64 on a white background; 64 + 64 per sample, K1/K8; 64 + 64
+    with use_time, the has_time K2/K5/K6/K3 on a model of its own and the
+    batch's per-ray times), each built twice from the same module, table,
+    batch and draws: through the kernels and through their plain versions;
+    loss, every gradient and the parameters after one Adam step compared."""
     import copy
 
     import torch
@@ -582,15 +737,19 @@ def phase_step(cfg, model, device):
     draws = (torch.rand(n, cfg.num_samples, generator=g, device=device),
              torch.rand(n, cfg.num_importance, generator=g, device=device))
     table0 = torch.randn(n_img, cfg.appearance_dim, generator=g, device=device)
+    times = torch.rand(n, 1, generator=g, device=device)
     names = [nm for nm, _ in model.named_parameters()] + ["appearance"]
     tol = fr.PLAIN_TOL
     report, failures = {}, []
     for path, (over, per_step) in PATHS.items():
         pcfg = cfg.replace(**over)
         pdraws = draws if pcfg.num_importance > 0 else draws[:1]
+        base, pbatch = model, batch
+        if pcfg.use_time:
+            base, pbatch = make_model(pcfg, seed=0, device=device), {**batch, "t": times}
         runs = {}
         for route in ("kernel", "plain"):
-            m = copy.deepcopy(model).requires_grad_(True)
+            m = copy.deepcopy(base).requires_grad_(True)
             table = torch.nn.Parameter(table0.clone())
             params = list(m.parameters()) + [table]
             opt, sched = make_optimizer(pcfg, params)
@@ -598,7 +757,7 @@ def phase_step(cfg, model, device):
             fr.reset_launch_counts()
             with plain_route() if route == "plain" else contextlib.nullcontext():
                 opt.zero_grad(set_to_none=True)
-                loss, aux = compute_loss_and_grads(m, table, pcfg, batch, draws=pdraws)
+                loss, aux = compute_loss_and_grads(m, table, pcfg, pbatch, draws=pdraws)
                 grads = [p.grad.detach().clone() for p in params]
                 opt.step()
                 sched.step()
@@ -682,7 +841,7 @@ def phase_render(cfg, model, out_dir):
 
 
 TRAIN_FLAGS = {"hier": [], "coarse": ["--num_importance", "0"], "white": ["--white_background"],
-               "per_sample": []}
+               "per_sample": [], "time": ["--use_time"]}
 
 
 def train_per_sample(argv):
@@ -704,9 +863,11 @@ def train_per_sample(argv):
 def phase_train(out_dir, path, iters, render):
     """A training path through its entry point: `cli.main train` (for the
     per-sample route ``train_per_sample``) for ``iters`` steps on the
-    procedural scene, with exactly the path's kernel launches per step,
-    finite losses and a rising PSNR; then, when ``render``, `render` of the
-    final checkpoint."""
+    procedural scene (its time-varying form under --use_time), with exactly
+    the path's kernel launches per step, finite losses and a rising PSNR;
+    then, when ``render``, `render` of the final checkpoint: a 100x100
+    preview frame, or for the time path two 400x400 medium frames with
+    --use_time --animate_time (t = 0, then 1)."""
     import shutil
 
     import numpy as np
@@ -746,21 +907,38 @@ def phase_train(out_dir, path, iters, render):
     ckpt = os.path.join(save, "checkpoint_final.pt")
     if not os.path.exists(ckpt):
         raise AssertionError(f"train {path}: checkpoint_final.pt was not written")
+    rendered = None
     if render:
         render_dir = os.path.join(out_dir, f"render_trained_{path}")
+        if path == "time":
+            size, frames, flags = 400, 2, ["--quality", "medium", "--use_time", "--animate_time"]
+        else:
+            size, frames, flags = 100, 1, ["--quality", "preview"]
+        fr.reset_launch_counts()
         written = cli_main(["render", "--checkpoint", ckpt, "--output_dir", render_dir,
-                            "--quality", "preview", "--frames", "1", "--width", "100",
-                            "--height", "100", "--device", "cuda", "--dataset_path", no_scene])
-        if len(written) != 1 or not os.path.exists(written[0]):
-            raise AssertionError("render of the trained checkpoint wrote no frame")
+                            "--frames", str(frames), "--width", str(size), "--height",
+                            str(size), "--device", "cuda", "--dataset_path", no_scene, *flags])
+        torch.cuda.synchronize()
+        if len(written) != frames or not all(os.path.exists(w) for w in written):
+            raise AssertionError(f"render of the trained {path} checkpoint wrote {written}")
+        if path == "time" and min(fr.LAUNCHES["march"], fr.LAUNCHES["merged"]) < 3 * frames:
+            raise AssertionError(f"time render: launches {fr.LAUNCHES}, expected 3 K2 and 3 "
+                                 "K5 a frame")
+        rendered = {"frames": written, "size": size, "flags": flags,
+                    "launches": dict(fr.LAUNCHES)}
     emit({"phase": "train", "path": path, "flags": TRAIN_FLAGS[path], "iters": iters,
           "seconds_incl_scene": secs, "launches": counts,
           "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
-          "psnr_mean_first20_after_warmup": first, "psnr_mean_last20": last})
+          "psnr_mean_first20_after_warmup": first, "psnr_mean_last20": last,
+          "render": rendered})
     return counts
 
 
-def phase_timing(cfg, model, device, chunk):
+def phase_timing(cfg, model, device, chunk, frame_t=None):
+    """K2 (want_field) and K5 on the 65,536-ray chunk and their plain
+    versions, each beside its bound, and one 800x800 medium frame (median of
+    three after a warm-up frame); with use_time the chunk carries each ray's
+    time and the frame renders at ``frame_t``."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_render as fr
@@ -770,19 +948,19 @@ def phase_timing(cfg, model, device, chunk):
 
     R, S = cfg.render_chunk, cfg.num_samples
     packed = pack_params(model, cfg)
-    o, d, emb, z, z_f = chunk
-    field = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)["field"]
+    o, d, emb, z, z_f, t = chunk
+    field = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True)["field"]
 
-    k2 = cuda_ms(lambda: fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True), 5, 2)
-    k5 = cuda_ms(lambda: fr.merged_cuda(packed, cfg, o, d, emb, z, field, z_f), 5, 2)
-    k2_plain = cuda_ms(lambda: fr.march_plain(packed, cfg, o, d, emb, z, want_field=True), 3)
-    k5_plain = cuda_ms(lambda: fr.merged_plain(packed, cfg, o, d, emb, z, field, z_f), 3)
+    k2 = cuda_ms(lambda: fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True), 5, 2)
+    k5 = cuda_ms(lambda: fr.merged_cuda(packed, cfg, o, d, emb, z, field, z_f, t), 5, 2)
+    k2_plain = cuda_ms(lambda: fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=True), 3)
+    k5_plain = cuda_ms(lambda: fr.merged_plain(packed, cfg, o, d, emb, z, field, z_f, t), 3)
 
     w_bytes = packed.mats.numel() * 2 + packed.vecs.numel() * 4
-    e = cfg.appearance_dim
-    k2_bytes = 4 * R * (3 + 3 + e + S) + 4 * R * (3 + 1 + 1 + S + 4 * S) + w_bytes
+    e, nt = cfg.appearance_dim, int(t is not None)
+    k2_bytes = 4 * R * (3 + 3 + e + S + nt) + 4 * R * (3 + 1 + 1 + S + 4 * S) + w_bytes
     sa = S + cfg.num_importance
-    k5_bytes = (4 * R * (3 + 3 + e + S + 4 * S + cfg.num_importance)
+    k5_bytes = (4 * R * (3 + 3 + e + S + 4 * S + cfg.num_importance + nt)
                 + 4 * R * (3 + 1 + 1 + sa + sa) + w_bytes)
     k2_bound, k2_by = bound(cfg, R, S, k2_bytes)
     k5_bound, k5_by = bound(cfg, R, cfg.num_importance, k5_bytes)
@@ -795,7 +973,7 @@ def phase_timing(cfg, model, device, chunk):
     def frame():
         gen = torch.Generator(device=device).manual_seed(6)
         return render_frame(model, cfg, c2w, side, side, focal, appearance_embedding=emb0,
-                            perturb=True, generator=gen, device=device)
+                            perturb=True, t=frame_t, generator=gen, device=device)
 
     frame()
     torch.cuda.synchronize()
@@ -816,7 +994,7 @@ def phase_timing(cfg, model, device, chunk):
               "frame_800_medium_each_ms": frame_ms,
               "frame_800_medium_launches": frame_launches,
               "frame_800_medium_bound_ms": chunks * (k2_bound + k5_bound)}
-    emit({"phase": "timing", **timing})
+    emit({"phase": "timing", "use_time": cfg.use_time, "frame_t": frame_t, **timing})
     return timing, (k2_by, k5_by)
 
 
@@ -854,41 +1032,47 @@ def phase_train_timing(cfg, model, device, chunk):
     per-sample route's rows of a batch (K1 also on the chunk's), with their
     plain versions; and the training step of each path at B = 1024 (median
     of 50 synchronised steps) with a torch.profiler breakdown of the 64 +
-    64, the coarse-only and the per-sample step."""
-    import numpy as np
+    64, the coarse-only and the per-sample step.  With use_time (the
+    has_time variants, each ray's or row's time uniform in [0, 1]): every
+    kernel at the batch (K1/K8 at 131,072 rows) and the use_time step,
+    profiled."""
     import torch
 
-    from danerf_tpu_torch.data.dataset import RayDataset
     from danerf_tpu_torch.kernels import fused_mlp as fm
     from danerf_tpu_torch.kernels import fused_render as fr
     from danerf_tpu_torch.kernels.fused_mlp import pack_params
     from danerf_tpu_torch.ops.sampling import sample_pdf
-    from danerf_tpu_torch.train.trainer import init_model, make_optimizer, train_step
-    from danerf_tpu_torch.viz.paths import camera_path
 
     packed = pack_params(model, cfg)
     sc, sf, e = cfg.num_samples, cfg.num_importance, cfg.appearance_dim
-    sa = sc + sf
+    sa, nt = sc + sf, int(cfg.use_time)
     w_bytes = packed.mats.numel() * 2 + packed.vecs.numel() * 4
     g_bytes = (packed.mats.numel() + packed.vecs.numel()) * 4
     # bytes each kernel must move: inputs read once, outputs written once
     ray_bytes = {
-        "k3": lambda n: 4 * n * (3 + 3 + e + sc + 3 + 1 + 1 + sc + 4 * sc) + 4 * n * e,
-        "k4": lambda n: 4 * n * (3 + 3 + e + sc + 4 * sc + sf + 3) + 4 * n * (e + 4 * sc) + 4,
-        "k6": lambda n: (4 * n * (3 + 3 + e + sc + 4 * sc + sf + 3 + 1 + 1 + sa)
+        "k3": lambda n: 4 * n * (3 + 3 + e + sc + nt + 3 + 1 + 1 + sc + 4 * sc) + 4 * n * e,
+        "k4": lambda n: (4 * n * (3 + 3 + e + sc + 4 * sc + sf + 3 + nt) + 4 * n * (e + 4 * sc)
+                         + 4),
+        "k6": lambda n: (4 * n * (3 + 3 + e + sc + 4 * sc + sf + nt + 3 + 1 + 1 + sa)
                          + 4 * n * (e + 4 * sc)),
-        "k7": lambda n: 4 * n * (3 + 3 + e + sc + 3) + 4 * n * e + 4,
+        "k7": lambda n: 4 * n * (3 + 3 + e + sc + 3 + nt) + 4 * n * e + 4,
     }
     fine = {"k3": False, "k4": True, "k6": True, "k7": False}   # field at Sf, else Sc
 
     out, bound_by = {}, {}
     g = torch.Generator(device=device).manual_seed(31)
-    shapes = (("chunk", chunk),
-              ("batch", make_rays(cfg.batch_size, cfg, seed=32, device=device) + (None,)))
-    for tag, (o, d, emb, z, z_f) in shapes:
+
+    def times(n):
+        return torch.rand(n, 1, generator=g, device=device) if cfg.use_time else None
+
+    shapes = [("batch", make_rays(cfg.batch_size, cfg, seed=32, device=device)
+               + (None, times(cfg.batch_size)))]
+    if not cfg.use_time:
+        shapes.insert(0, ("chunk", chunk))
+    for tag, (o, d, emb, z, z_f, t) in shapes:
         n = o.shape[0]
         *cot, g_field = _cotangents(n, sc, g, device)
-        coarse = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
+        coarse = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True)
         if z_f is None:
             z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
         field = coarse["field"]
@@ -896,14 +1080,17 @@ def phase_train_timing(cfg, model, device, chunk):
         c6 = (cot[0], cot[1], cot[2], 0.1 * torch.randn(n, sa, generator=g, device=device))
         del coarse
         calls = {
-            "k3": (lambda: fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field),
-                   lambda: fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field)),
-            "k4": (lambda: fr.merged_train_cuda(packed, cfg, o, d, emb, z, field, z_f, target),
-                   lambda: fr.merged_train_plain(packed, cfg, o, d, emb, z, field, z_f, target)),
-            "k6": (lambda: fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, field, z_f, *c6),
-                   lambda: fr.merged_bwd_plain(packed, cfg, o, d, emb, z, field, z_f, *c6)),
-            "k7": (lambda: fr.march_train_cuda(packed, cfg, o, d, emb, z, target),
-                   lambda: fr.march_train_plain(packed, cfg, o, d, emb, z, target)),
+            "k3": (lambda: fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field, t=t),
+                   lambda: fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field, t=t)),
+            "k4": (lambda: fr.merged_train_cuda(packed, cfg, o, d, emb, z, field, z_f, target,
+                                                t),
+                   lambda: fr.merged_train_plain(packed, cfg, o, d, emb, z, field, z_f, target,
+                                                 t)),
+            "k6": (lambda: fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, field, z_f, *c6, t=t),
+                   lambda: fr.merged_bwd_plain(packed, cfg, o, d, emb, z, field, z_f, *c6,
+                                               t=t)),
+            "k7": (lambda: fr.march_train_cuda(packed, cfg, o, d, emb, z, target, t),
+                   lambda: fr.march_train_plain(packed, cfg, o, d, emb, z, target, t)),
         }
         iters = 3 if tag == "chunk" else 20
         for k, (kern, plain) in calls.items():
@@ -915,84 +1102,106 @@ def phase_train_timing(cfg, model, device, chunk):
                 out[f"{k}_batch_plain_ms"] = cuda_ms(plain, 5)
         if tag == "batch":
             out["k2_batch_ms"] = cuda_ms(
-                lambda: fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True), iters)
+                lambda: fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True), iters)
             out["k5_batch_ms"] = cuda_ms(
-                lambda: fr.merged_cuda(packed, cfg, o, d, emb, z, field, z_f), iters)
-            k2_bytes = 4 * n * (3 + 3 + e + sc) + 4 * n * (3 + 1 + 1 + sc + 4 * sc) + w_bytes
-            out["k2_batch_bound_ms"], _ = bound(cfg, n, sc, k2_bytes)
-            k5_bytes = (4 * n * (3 + 3 + e + sc + 4 * sc + sf) + 4 * n * (3 + 1 + 1 + sa + sa)
+                lambda: fr.merged_cuda(packed, cfg, o, d, emb, z, field, z_f, t), iters)
+            k2_bytes = (4 * n * (3 + 3 + e + sc + nt) + 4 * n * (3 + 1 + 1 + sc + 4 * sc)
                         + w_bytes)
+            out["k2_batch_bound_ms"], _ = bound(cfg, n, sc, k2_bytes)
+            k5_bytes = (4 * n * (3 + 3 + e + sc + 4 * sc + sf + nt)
+                        + 4 * n * (3 + 1 + 1 + sa + sa) + w_bytes)
             out["k5_batch_bound_ms"], _ = bound(cfg, n, sf, k5_bytes)
         del cot, g_field, field, target, c6, calls
 
     # K1 and K8 at the rows of a 1024-ray batch's coarse (65,536) and fine
     # (131,072) evaluations, and K1 on a render chunk's sample rows
     # (65,536 rays x 64 = 4,194,304); bytes: inputs once, outputs once
-    k1_bytes = lambda n: 4 * n * (3 + 3 + e) + 4 * n * (3 + 1) + w_bytes
-    k8_bytes = lambda n: 4 * n * (3 + 3 + e + 3 + 1) + 4 * n * e + w_bytes + g_bytes
-    row_sets = {"65536": sample_rows(cfg.batch_size, cfg, 33, device, sc),
-                "131072": sample_rows(cfg.batch_size, cfg, 34, device, sc + sf),
-                "chunk": sample_rows(cfg.render_chunk, cfg, 35, device, sc)}
+    k1_bytes = lambda n: 4 * n * (3 + 3 + e + nt) + 4 * n * (3 + 1) + w_bytes
+    k8_bytes = lambda n: 4 * n * (3 + 3 + e + nt + 3 + 1) + 4 * n * e + w_bytes + g_bytes
+    row_sets = {"131072": sample_rows(cfg.batch_size, cfg, 34, device, sc + sf)}
+    if not cfg.use_time:
+        row_sets = {"65536": sample_rows(cfg.batch_size, cfg, 33, device, sc), **row_sets,
+                    "chunk": sample_rows(cfg.render_chunk, cfg, 35, device, sc)}
     for tag, (x, dr, er) in row_sets.items():
         n = x.shape[0]
-        out[f"k1_{tag}_ms"] = cuda_ms(lambda: fm.fused_fwd_cuda(packed, cfg, x, dr, er),
+        t = times(n)
+        out[f"k1_{tag}_ms"] = cuda_ms(lambda: fm.fused_fwd_cuda(packed, cfg, x, dr, er, t),
                                       3 if tag == "chunk" else 20)
-        out[f"k1_{tag}_plain_ms"] = cuda_ms(lambda: fm.fused_fwd_plain(packed, cfg, x, dr, er),
+        out[f"k1_{tag}_plain_ms"] = cuda_ms(lambda: fm.fused_fwd_plain(packed, cfg, x, dr, er,
+                                                                       t),
                                             2 if tag == "chunk" else 5)
         out[f"k1_{tag}_bound_ms"], bound_by["k1"] = bound(cfg, n, 1, k1_bytes(n))
         if tag != "chunk":
             g_rgb = torch.randn(n, 3, generator=g, device=device)
             g_sig = torch.randn(n, 1, generator=g, device=device)
             out[f"k8_{tag}_ms"] = cuda_ms(
-                lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig), 10)
+                lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig, t), 10)
             out[f"k8_{tag}_plain_ms"] = cuda_ms(
-                lambda: fm.fused_bwd_plain(packed, cfg, x, dr, er, g_rgb, g_sig), 3)
+                lambda: fm.fused_bwd_plain(packed, cfg, x, dr, er, g_rgb, g_sig, t), 3)
             out[f"k8_{tag}_bound_ms"], bound_by["k8"] = bound(cfg, n, 1, k8_bytes(n),
                                                               backward=True)
         del x, dr, er
     del row_sets
 
-    # the training step at B = 1024 on a pool of 20 random 100x100 images
+    # the kernels of a step, and their bound, at B = 1024
+    white = ("k2_batch", "k5_batch", "k6_batch", "k3_batch")
+    step_kernels = ({"time": white} if cfg.use_time else
+                    {"hier": ("k2_batch", "k3_batch", "k4_batch"), "coarse": ("k7_batch",),
+                     "white": white,
+                     "per_sample": ("k1_65536", "k1_131072", "k8_65536", "k8_131072")})
+    steps = {path: step_timing(cfg.replace(**PATHS[path][0]), device, out, kerns,
+                               profile=path in ("hier", "coarse", "per_sample", "time"))
+             for path, kerns in step_kernels.items()}
+    emit({"phase": "train_timing", "use_time": cfg.use_time, "batch": cfg.batch_size,
+          "chunk_rays": chunk[0].shape[0], **out, "steps": steps})
+    return out, bound_by
+
+
+def step_timing(cfg, device, kernel_ms, kernels, profile):
+    """The training step of ``cfg`` at B = 1024 on a pool of 20 random
+    100x100 images (with capture times 0..1 under use_time): the median of
+    50 synchronised steps after 5 warm-up steps, its rays/s, the share of
+    ``kernels`` (keys of ``kernel_ms``, the step's kernels timed alone) and
+    their summed bound; with ``profile`` a torch.profiler window of 10
+    steps."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.data.dataset import RayDataset
+    from danerf_tpu_torch.train.trainer import init_model, make_optimizer, train_step
+    from danerf_tpu_torch.viz.paths import camera_path
+
     rng = np.random.default_rng(0)
     imgs = rng.integers(0, 256, size=(20, 100, 100, 3), dtype=np.uint8)
     c2ws = np.stack([np.asarray(c, np.float32) for c in camera_path("circle", 20, cfg.scene)])
-    ds = RayDataset(imgs, imgs[..., 0], c2ws, 138.9, cfg.near, cfg.far)
-    # the kernels of a step, and their bound, at B = 1024
-    step_kernels = {"hier": ("k2_batch", "k3_batch", "k4_batch"), "coarse": ("k7_batch",),
-                    "white": ("k2_batch", "k5_batch", "k6_batch", "k3_batch"),
-                    "per_sample": ("k1_65536", "k1_131072", "k8_65536", "k8_131072")}
-    steps = {}
-    for path, (over, _) in PATHS.items():
-        pcfg = cfg.replace(**over)
-        model_t, table = init_model(pcfg, 20, 0, device)
-        opt, sched = make_optimizer(pcfg, list(model_t.parameters()) + [table])
-        pool = ds.device_arrays(pcfg.white_background, device=device)
-        gen = torch.Generator(device=device).manual_seed(0)
+    ds = RayDataset(imgs, imgs[..., 0], c2ws, 138.9, cfg.near, cfg.far,
+                    times=np.linspace(0.0, 1.0, 20, dtype=np.float32) if cfg.use_time else None)
+    model, table = init_model(cfg, 20, 0, device)
+    opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
+    pool = ds.device_arrays(cfg.white_background, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
 
-        def step():
-            return train_step(model_t, table, opt, sched, pool, pcfg, 100, 100, ds.focal, None,
-                              gen)
+    def step():
+        return train_step(model, table, opt, sched, pool, cfg, 100, 100, ds.focal, None, gen)
 
-        for _ in range(5):
-            step()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        step()
         torch.cuda.synchronize()
-        times = []
-        for _ in range(50):
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        step_ms = float(np.median(times))
-        kern_ms = sum(out[f"{k}_ms"] for k in step_kernels[path])
-        steps[path] = {"step_ms_median": step_ms, "step_ms_min": min(times),
-                       "step_ms_max": max(times), "rays_per_s": cfg.batch_size / (step_ms / 1e3),
-                       "kernels": step_kernels[path], "kernel_share": kern_ms / step_ms,
-                       "step_bound_ms": sum(out[f"{k}_bound_ms"] for k in step_kernels[path])}
-        if path in ("hier", "coarse", "per_sample"):
-            steps[path].update(profile_steps(step))
-    emit({"phase": "train_timing", "batch": cfg.batch_size, "chunk_rays": chunk[0].shape[0],
-          **out, "steps": steps})
-    return out, bound_by
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(times))
+    kern_ms = sum(kernel_ms[f"{k}_ms"] for k in kernels)
+    out = {"step_ms_median": step_ms, "step_ms_min": min(times), "step_ms_max": max(times),
+           "rays_per_s": cfg.batch_size / (step_ms / 1e3), "kernels": kernels,
+           "kernel_share": kern_ms / step_ms,
+           "step_bound_ms": sum(kernel_ms[f"{k}_bound_ms"] for k in kernels)}
+    if profile:
+        out.update(profile_steps(step))
+    return out
 
 
 def main(argv=None):
@@ -1024,14 +1233,21 @@ def main(argv=None):
     model = make_model(cfg, seed=0, device=device)
     errs, chunk = phase_kernels(cfg, model, device)
     errs.update(phase_bwd(cfg, model, device))
+    # the time-conditioned model (use_time, 6 time levels): the has_time variants
+    cfg_t = cfg.replace(use_time=True)
+    model_t = make_model(cfg_t, seed=0, device=device)
+    errs_t, chunk_t = phase_time_kernels(cfg_t, model_t, device)
     phase_step(cfg, model, device)
     launches = phase_render(cfg, model, args.out)
     train_launches = {"hier": phase_train(args.out, "hier", 200, render=True),
                       "coarse": phase_train(args.out, "coarse", 100, render=False),
                       "white": phase_train(args.out, "white", 100, render=False),
-                      "per_sample": phase_train(args.out, "per_sample", 100, render=False)}
+                      "per_sample": phase_train(args.out, "per_sample", 100, render=False),
+                      "time": phase_train(args.out, "time", 100, render=True)}
     timing, bound_by = phase_timing(cfg, model, device, chunk)
     tt, tt_bound_by = phase_train_timing(cfg, model, device, chunk)
+    timing_t, bound_by_t = phase_timing(cfg_t, model_t, device, chunk_t, frame_t=0.5)
+    tt_t, tt_bound_by_t = phase_train_timing(cfg_t, model_t, device, chunk_t)
 
     def train_kernel(name, key, source, replaces, path, counter):
         # a training kernel at the batch (B = 1024 rays, 64 + 64), its
@@ -1079,6 +1295,26 @@ def main(argv=None):
                         "plain_ms": tt[f"{key}_131072_plain_ms"],
                         "bound_ms": tt[f"{key}_131072_bound_ms"], "bound_by": tt_bound_by[key],
                         "library_ms": None})
+    # the has_time variant of each kernel: K2/K5 on the chunk, the others at
+    # the batch (K1/K8 at 131,072 rows); launches from the use_time training
+    # run, which no K1, K4, K7 or K8 serves (K4 and K7: no route of either
+    # package; K1 and K8: the per-sample route with time, not driven here)
+    for rec, key in zip(kernels, ("k2", "k5", "k3", "k4", "k6", "k7", "k1", "k8")):
+        counter = {"k2": "march", "k5": "merged", "k3": "march_bwd", "k4": "merged_train",
+                   "k6": "merged_bwd", "k7": "march_train", "k1": "mlp_fwd",
+                   "k8": "mlp_bwd"}[key]
+        if key in ("k2", "k5"):
+            at = {"ms": timing_t[f"{key}_ms"], "plain_ms": timing_t[f"{key}_plain_ms"],
+                  "bound_ms": timing_t[f"{key}_bound_ms"],
+                  "bound_by": bound_by_t[0 if key == "k2" else 1], "at": "65,536-ray chunk"}
+        else:
+            shape = "131072" if key in ("k1", "k8") else "batch"
+            at = {"ms": tt_t[f"{key}_{shape}_ms"], "plain_ms": tt_t[f"{key}_{shape}_plain_ms"],
+                  "bound_ms": tt_t[f"{key}_{shape}_bound_ms"], "bound_by": tt_bound_by_t[key],
+                  "at": "131,072 rows" if shape == "131072" else "1024-ray batch"}
+        rec["variants_held"] = ["without time", "has_time"]
+        rec["has_time"] = {"launches": train_launches["time"][counter],
+                           "max_abs_err": errs_t[key.upper()], **at}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

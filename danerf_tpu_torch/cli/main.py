@@ -7,12 +7,16 @@
 flags plus ``--device`` and ``--seed``; ``--checkpoint`` is a
 reference-format ``.pt`` (such as ``<save_dir>/checkpoint_final.pt``).
 Flags whose machinery is not yet ported raise instead of being ignored.
+``--use_time`` trains and renders the time-conditioned variant; ``render``
+warns when ``--time`` or ``--animate_time`` come without it (the JAX CLI
+ignores them silently).
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import warnings
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,7 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="take the reference route (autograd) instead of the kernels")
     t.add_argument("--white_background", action="store_true",
                    help="composite RGBA targets over white")
-    t.add_argument("--use_time", action="store_true", help="(not yet ported)")
+    t.add_argument("--use_time", action="store_true",
+                   help="train the time-conditioned variant; needs per-image times, which "
+                        "the procedural time-varying scene supplies when no Blender data "
+                        "is present")
     t.add_argument("--coordinator_address", type=str, default=None, help="(not yet ported)")
     t.add_argument("--num_processes", type=int, default=None, help="(not yet ported)")
     t.add_argument("--process_id", type=int, default=None, help="(not yet ported)")
@@ -81,9 +88,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-device frame sharding (not yet ported; must be 1)")
     r.add_argument("--white_background", action="store_true",
                    help="fill acc<1 rays with white")
-    r.add_argument("--use_time", action="store_true", help="(not yet ported)")
-    r.add_argument("--time", type=float, default=None, help="(not yet ported)")
-    r.add_argument("--animate_time", action="store_true", help="(not yet ported)")
+    r.add_argument("--use_time", action="store_true",
+                   help="render a time-conditioned checkpoint")
+    r.add_argument("--time", type=float, default=None,
+                   help="fixed frame time in [0, 1] for --use_time renders (default 0)")
+    r.add_argument("--animate_time", action="store_true",
+                   help="sweep t from 0 to 1 across the rendered frames (--use_time)")
     r.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     r.add_argument("--seed", type=int, default=0,
                    help="seeds the per-frame sampling generators")
@@ -101,15 +111,14 @@ def _train_not_ported(args) -> list:
     if (args.coordinator_address is not None or args.num_processes is not None
             or args.process_id is not None):
         bad.append("--coordinator_address/--num_processes/--process_id")
-    if args.use_time:
-        bad.append("--use_time")
     return bad
 
 
 def _train_config(args):
     from danerf_tpu_torch.config import NeRFConfig
 
-    over = {"use_kernels": not args.no_pallas, "white_background": args.white_background}
+    over = {"use_kernels": not args.no_pallas, "white_background": args.white_background,
+            "use_time": args.use_time}
     if args.batch_size:
         over["batch_size"] = args.batch_size
     if args.no_appearance:
@@ -141,18 +150,19 @@ def cmd_train(args):
 
     # Start-up smoke test before committing to training (reference
     # run.py:327-344): 10 random points through the model, with and without
-    # an appearance embedding.
+    # an appearance embedding (at t = 0.5 under --use_time).
     g = torch.Generator().manual_seed(0)
     model = NeRF(cfg, g).to(device)
     x = torch.randn(10, 3, generator=g).to(device)
     d = torch.randn(10, 3, generator=g).to(device)
     d = d / d.norm(dim=-1, keepdim=True)
+    tt = torch.full((10, 1), 0.5, device=device) if cfg.use_time else None
     with torch.no_grad():
-        rgb, sigma = model(x, d)
+        rgb, sigma = model(x, d, t=tt)
         assert rgb.shape == (10, 3) and sigma.shape == (10,)
         if cfg.use_appearance:
             emb = torch.randn(10, cfg.appearance_dim, generator=g).to(device)
-            rgb, sigma = model(x, d, emb)
+            rgb, sigma = model(x, d, emb, tt)
             assert rgb.shape == (10, 3)
     print(f"model smoke test passed: rgb={tuple(rgb.shape)}, sigma={tuple(sigma.shape)}")
     del model
@@ -168,8 +178,6 @@ def _not_ported(args) -> list:
     bad = []
     if args.effect is not None:
         bad.append("--effect")
-    if args.use_time or args.animate_time or args.time is not None:
-        bad.append("--use_time/--animate_time/--time")
     if args.mesh_data != 1:
         bad.append("--mesh_data != 1")
     if args.create_video:
@@ -181,18 +189,14 @@ def _not_ported(args) -> list:
 
 def _load_model(args, cfg, device):
     """NeRF module + appearance embedding 0 from a reference .pt."""
-    from danerf_tpu_torch.models.nerf import NeRF
-    from danerf_tpu_torch.utils.convert import load_reference_checkpoint
+    from danerf_tpu_torch.utils.checkpoint import load_model
 
-    sd, emb_table, meta = load_reference_checkpoint(args.checkpoint)
-    cfg = cfg.replace(use_appearance="appearance_projection.weight" in sd)
-    model = NeRF(cfg)
-    model.load_state_dict(sd)
+    model, emb_table, meta, cfg = load_model(args.checkpoint, cfg, device)
     emb = None
     if cfg.use_appearance and emb_table is not None:
         emb = emb_table[0]  # the reference renders with embedding 0
     print(f"Imported reference checkpoint (iteration {meta.get('iteration')})")
-    return model.to(device).eval().requires_grad_(False), emb, cfg
+    return model.eval().requires_grad_(False), emb, cfg
 
 
 def cmd_render(args):
@@ -207,9 +211,12 @@ def cmd_render(args):
     if args.checkpoint is None:
         raise SystemExit("pass --checkpoint <reference-format .pt>")
     device = resolve_device(args.device)
+    if not args.use_time and (args.time is not None or args.animate_time):
+        warnings.warn("--time/--animate_time have no effect without --use_time (a model "
+                      "without the time input); rendering without a time", stacklevel=2)
     cfg = NeRFConfig(scene=args.scene, dataset_path=args.dataset_path,
                      white_background=args.white_background,
-                     use_kernels=not args.no_pallas)
+                     use_kernels=not args.no_pallas, use_time=args.use_time)
     ds = scene_intrinsics(cfg, "train")
     model, emb, cfg = _load_model(args, cfg, device)
     return render_path(model, cfg, args.output_dir, appearance_embedding=emb,
@@ -221,7 +228,8 @@ def cmd_render(args):
                        height_range=tuple(args.height_range),
                        save_depth=args.save_depth, raw_output=args.raw_output,
                        dataset_width=ds.width, focal=ds.focal, seed=args.seed,
-                       chunk=args.chunk, device=device)
+                       chunk=args.chunk, time=args.time if args.use_time else None,
+                       animate_time=args.use_time and args.animate_time, device=device)
 
 
 def main(argv=None):

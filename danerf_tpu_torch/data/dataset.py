@@ -1,12 +1,15 @@
 """Scene data (counterpart of danerf_tpu/data/dataset.py).
 
 - ``RayDataset``: images, alphas and camera matrices of one split, decoded
-  once; ``device_arrays`` uploads the pixel pool to the device once as
-  (N*H*W, 3) f32, composited over white when asked.
+  once, and each image's capture time where the scene has one;
+  ``device_arrays`` uploads the pixel pool to the device once as (N*H*W, 3)
+  f32, composited over white when asked.
 - ``sample_ray_batch``: one training batch drawn on the device -- one image
-  per batch, pixels with replacement, then ``rays_for_pixels``.
+  per batch, pixels with replacement, then ``rays_for_pixels``; each ray's
+  time is its image's.
 - ``load_dataset``: the Blender scene when ``transforms_{split}.json``
-  exists, otherwise the procedural scene.
+  exists, otherwise the procedural scene (its time-varying form under
+  ``use_time``).
 - ``scene_intrinsics``: what ``render`` needs of a scene (its width and
   focal length), read from the ``transforms`` header and the first frame's
   PNG header without decoding any image.
@@ -31,8 +34,8 @@ SYNTHETIC_WIDTH = 100
 @dataclasses.dataclass
 class RayDataset:
     """images (N, H, W, 3) uint8; alphas (N, H, W) uint8; c2ws (N, 4, 4)
-    f32; focal in pixels; near/far bounds; times (N,) for the
-    time-conditioned variant, whose data path is not yet ported."""
+    f32; focal in pixels; near/far bounds; times (N,) f32 capture times in
+    [0, 1] for the time-conditioned variant (``use_time``), else None."""
 
     images: np.ndarray
     alphas: np.ndarray
@@ -60,13 +63,17 @@ class RayDataset:
 
     def device_arrays(self, white_background: bool = False, device="cpu") -> dict:
         """The pool on ``device``: images (N*H*W, 3) f32 in [0, 1] (over
-        white when asked), c2ws (N, 4, 4) f32."""
+        white when asked), c2ws (N, 4, 4) f32, and times (N,) f32 when the
+        scene has them."""
         imgs = self.images.astype(np.float32) / 255.0
         if white_background:
             a = self.alphas.astype(np.float32)[..., None] / 255.0
             imgs = imgs * a + (1.0 - a)
-        return {"images": torch.from_numpy(imgs.reshape(-1, 3)).to(device),
+        pool = {"images": torch.from_numpy(imgs.reshape(-1, 3)).to(device),
                 "c2ws": torch.from_numpy(np.asarray(self.c2ws, np.float32)).to(device)}
+        if self.times is not None:
+            pool["times"] = torch.from_numpy(np.asarray(self.times, np.float32)).to(device)
+        return pool
 
 
 def sample_ray_batch(pool: dict, cfg: NeRFConfig, height: int, width: int, focal,
@@ -80,7 +87,8 @@ def sample_ray_batch(pool: dict, cfg: NeRFConfig, height: int, width: int, focal
     ``img_idx`` (a scalar or (B,)) and ``pix_idx`` (B,) replace the draws
     from ``generator`` when given.
 
-    Returns dict rays_o, rays_d (B, 3), rgb (B, 3), img_idx (B,) int64.
+    Returns dict rays_o, rays_d (B, 3), rgb (B, 3), img_idx (B,) int64,
+    and t (B, 1), each ray's image time, when the pool has times.
     """
     from danerf_tpu_torch.ops.rays import rays_for_pixels
 
@@ -97,27 +105,30 @@ def sample_ray_batch(pool: dict, cfg: NeRFConfig, height: int, width: int, focal
     pix_idx = torch.as_tensor(pix_idx, device=dev).to(torch.int64)
     rays_o, rays_d = rays_for_pixels(pix_idx, pool["c2ws"][img_idx], height, width, focal)
     rgb = pool["images"][img_idx * (height * width) + pix_idx]
-    return {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb, "img_idx": img_idx}
+    batch = {"rays_o": rays_o, "rays_d": rays_d, "rgb": rgb, "img_idx": img_idx}
+    if "times" in pool:
+        batch["t"] = pool["times"][img_idx][:, None]
+    return batch
 
 
 def load_dataset(cfg: NeRFConfig, split: str = "train") -> RayDataset:
     """The Blender scene under ``dataset_path/scene`` when its transforms
-    file exists, otherwise the procedural scene (seed 0)."""
+    file exists, otherwise the procedural scene (seed 0): under
+    ``cfg.use_time`` its time-varying form, which carries per-image times (a
+    Blender scene has none)."""
     if cfg.dataset_type != "nerf_synthetic":
         raise NotImplementedError(
             f"dataset_type {cfg.dataset_type!r} (the custom loader) is not yet ported to "
             "danerf_tpu_torch (only nerf_synthetic and the procedural scene)")
-    if cfg.use_time:
-        raise NotImplementedError("use_time data (the time-varying procedural scene) is not "
-                                  "yet ported to danerf_tpu_torch")
     scene_dir = os.path.join(cfg.dataset_path, cfg.scene)
     if os.path.exists(os.path.join(scene_dir, f"transforms_{split}.json")):
         from danerf_tpu_torch.data.blender import load_blender_scene
 
         return load_blender_scene(scene_dir, split=split, near=cfg.near, far=cfg.far)
-    from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene, make_time_varying_scene
 
-    return make_synthetic_scene(split=split, near=cfg.near, far=cfg.far, seed=0)
+    make = make_time_varying_scene if cfg.use_time else make_synthetic_scene
+    return make(split=split, near=cfg.near, far=cfg.far, seed=0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,18 +26,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # C signatures (csrc/*.cu); every pointer, the stream included, is a
-# c_void_p so ctypes does not cut it to 32 bits.  The tail of the backward
+# c_void_p so ctypes does not cut it to 32 bits; the time input t (null
+# without use_time) follows the other data inputs.  The tail of the backward
 # entry points: transposed weights, their layout record, scratch, n_vecs.
 _BWD_TAIL = [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P]
 _SIGNATURES = {
-    "march": ("danerf_march", [_P] * 4 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
-    "merged": ("danerf_merged", [_P] * 6 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _I, _P]),
-    "march_bwd": ("danerf_march_bwd", [_P] * 4 + [_I] * 3 + [_P] * 5 + [_P] * 3 + _BWD_TAIL),
-    "merged_train": ("danerf_merged_train", [_P] * 7 + [_I] * 4 + [_P] * 5 + _BWD_TAIL),
-    "march_train": ("danerf_march_train", [_P] * 5 + [_I] * 3 + [_P] * 4 + _BWD_TAIL),
-    "merged_bwd": ("danerf_merged_bwd", [_P] * 6 + [_I] * 4 + [_P] * 4 + [_P] * 4 + _BWD_TAIL),
-    "mlp_fwd": ("danerf_mlp_fwd", [_P] * 3 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
-    "mlp_bwd": ("danerf_mlp_bwd", [_P] * 3 + [_I] * 2 + [_P] * 2 + [_P] * 3 + _BWD_TAIL),
+    "march": ("danerf_march", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
+    "merged": ("danerf_merged", [_P] * 7 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _I, _P]),
+    "march_bwd": ("danerf_march_bwd", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P] * 3 + _BWD_TAIL),
+    "merged_train": ("danerf_merged_train", [_P] * 8 + [_I] * 4 + [_P] * 5 + _BWD_TAIL),
+    "march_train": ("danerf_march_train", [_P] * 6 + [_I] * 3 + [_P] * 4 + _BWD_TAIL),
+    "merged_bwd": ("danerf_merged_bwd", [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P] * 4 + _BWD_TAIL),
+    "mlp_fwd": ("danerf_mlp_fwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
+    "mlp_bwd": ("danerf_mlp_bwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P] * 3 + _BWD_TAIL),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -13,7 +13,8 @@
 // K7 march_train.cu).  merged_tile: the field at the fine samples, merged
 // with the coarse field by rank, and the un-permute of the cotangents to
 // g_field (R,4,Sc) and the fine rows (K6 merged_bwd.cu, K4 merged_train.cu).
-// Both end in field_bwd.cuh's transposed chain.
+// Both end in field_bwd.cuh's transposed chain.  t (R) is each ray's time
+// with use_time, else null.
 
 #pragma once
 
@@ -73,7 +74,8 @@ template <bool MSE>
 __global__ void __launch_bounds__(THREADS, 1)
 march_tile(const FieldArgs P, const BwdWeights W, const Scratch sc, const float* __restrict__ o,
            const float* __restrict__ d, const float* __restrict__ emb,
-           const float* __restrict__ z, long long R, int S, int rpc, long long ray_base,
+           const float* __restrict__ z, const float* __restrict__ t, long long R, int S, int rpc,
+           long long ray_base,
            const RayCot c, const float* __restrict__ g_field, float* __restrict__ demb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -83,7 +85,7 @@ march_tile(const FieldArgs P, const BwdWeights W, const Scratch sc, const float*
   const long long ray0 = ray_base + (long long)tile * rpc;
   const int nvalid = (int)(R - ray0 < rpc ? R - ray0 : rpc);
 
-  load_rays(sm, o, d, emb, P.emb_dim, ray0, rpc, R);
+  load_rays(sm, o, d, emb, t, P.emb_dim, ray0, rpc, R);
   for (int row = threadIdx.x; row < TILE_M; row += THREADS) {
     const int j = row / S;
     const long long r = ray0 + j;
@@ -133,8 +135,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 merged_tile(const FieldArgs P, const BwdWeights W, const Scratch sc,
             const float* __restrict__ o, const float* __restrict__ d,
             const float* __restrict__ emb, const float* __restrict__ zc,
-            const float* __restrict__ fc, const float* __restrict__ zf, long long R, int Sc,
-            int Sf, int rpc, long long ray_base, const RayCot c, float* __restrict__ demb,
+            const float* __restrict__ fc, const float* __restrict__ zf,
+            const float* __restrict__ t, long long R, int Sc, int Sf, int rpc,
+            long long ray_base, const RayCot c, float* __restrict__ demb,
             float* __restrict__ gfield) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -151,7 +154,7 @@ merged_tile(const FieldArgs P, const BwdWeights W, const Scratch sc,
   const long long ray0 = ray_base + (long long)tile * rpc;
   const int nvalid = (int)(R - ray0 < rpc ? R - ray0 : rpc);
 
-  load_rays(sm, o, d, emb, P.emb_dim, ray0, rpc, R);
+  load_rays(sm, o, d, emb, t, P.emb_dim, ray0, rpc, R);
   for (int row = threadIdx.x; row < TILE_M; row += THREADS) {
     const int j = row / Sf;
     const long long r = ray0 + j;

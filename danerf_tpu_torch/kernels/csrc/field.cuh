@@ -12,11 +12,18 @@
 // summation order.
 //
 // Two ways to fill a tile: rays of s samples (the ray kernels: per-ray
-// origin, direction and embedding in Smem, a depth per row; emb@Wapp once
-// per ray), or 128 independent rows (mlp_fwd.cu, mlp_bwd.cu: a point,
-// direction and embedding per row in RowSmem; emb@Wapp a tensor-core
+// origin, direction, embedding and time in Smem, a depth per row; emb@Wapp
+// once per ray), or 128 independent rows (mlp_fwd.cu, mlp_bwd.cu: a point,
+// direction, embedding and time per row in RowSmem; emb@Wapp a tensor-core
 // product per row).  field_tile<ROWS> takes either; the trunk and heads are
 // one code path.
+//
+// Time (use_time, the JAX kernels' has_time variants): the encoded time
+// [t, sin(2^i t), cos(2^i t), ...] follows the encoded position in the
+// position encoding's columns, so it enters the first layer and every skip
+// layer with it; a null t pointer means a layout without time.  At the
+// default widths that is kx = 80 instead of 64 (63 + 13 columns, padded to
+// 16) and 534,528 MACs a sample instead of 527,872 (+1.3%).
 //
 // Layout: a CTA of 8 warps owns TILE_M = 128 rows (rays x samples).  Its
 // activations live in shared memory (two 128 x 256 bf16 ping-pong buffers
@@ -41,11 +48,12 @@ constexpr int WARPS = THREADS / 32;
 constexpr int M_TILES = TILE_M / 16;
 constexpr int MAX_LAYERS = 16;
 constexpr int MAX_RPC = 8;          // rays per CTA
-constexpr int MAX_KX = 64;          // padded position encoding width
+constexpr int MAX_KX = 80;          // padded position (+ time) encoding width
 constexpr int MAX_KD = 32;          // padded direction encoding width
 constexpr int MAX_E = 64;           // appearance embedding width
 // Row strides in bf16 elements; the +8 shifts consecutive rows by 16 bytes
-// mod 128 so the 8 row addresses of an ldmatrix hit distinct banks.
+// mod 128 so the 8 row addresses of an ldmatrix hit distinct banks (LDX =
+// 88: 176 B a row, rows 0..7 at 0, 48, 96, 16, 64, 112, 32, 80 mod 128).
 constexpr int LDH = HID + 8;
 constexpr int LDX = MAX_KX + 8;
 constexpr int LDD = MAX_KD + 8;
@@ -55,6 +63,8 @@ struct FieldArgs {
   const __nv_bfloat16* mats;   // packed matrices, (out, K_pad) row-major
   const float* vecs;           // biases + density weight
   int num_layers, skip_mask, pos_levels, dir_levels, kx, kd, softplus, emb_dim;
+  int time_levels;             // -1: no time input
+  int nt;                      // time encoding width: 0, or 1 + 2 time_levels
   long long w_off[MAX_LAYERS], b_off[MAX_LAYERS];
   long long wd_off, bd_off, wdir_off, bdir_off, wapp_off, bapp_off, wrgb_off, brgb_off;
 };
@@ -71,6 +81,7 @@ struct Smem {
   float app[MAX_RPC * HALF];   // per-ray emb@Wapp (f32)
   float o[MAX_RPC * 3], d[MAX_RPC * 3];
   float emb[MAX_RPC * MAX_E];
+  float t[MAX_RPC];            // per-ray time (0 without time)
 };
 
 // The per-row inputs of a tile of independent rows (K1, K8), beside Smem;
@@ -79,6 +90,7 @@ struct Smem {
 struct RowSmem {
   float x[TILE_M * 3];
   float d[TILE_M * 3];
+  float t[TILE_M];             // per-row time (0 without time)
   __nv_bfloat16 emb[TILE_M * LDE];
 };
 
@@ -101,12 +113,14 @@ constexpr int ERR_META = -1;      // packed layout record malformed
 constexpr int ERR_SHAPE = -2;     // a width this kernel does not take
 
 // Parse the integer layout record written by kernels/fused_mlp.py
-// kernel_meta().
+// kernel_meta(): a head of META_HEAD values, L weight and L bias offsets, and
+// the 8 offsets of the heads.
+constexpr int META_HEAD = 10;
 inline int parse_meta(const long long* meta, long long n_meta, const void* mats,
                       const float* vecs, long long emb_dim, FieldArgs* a) {
-  if (n_meta < 9) return ERR_META;
+  if (n_meta < META_HEAD) return ERR_META;
   const int L = (int)meta[0];
-  if (L < 1 || L > MAX_LAYERS || n_meta != 9 + 2 * L + 8) return ERR_META;
+  if (L < 1 || L > MAX_LAYERS || n_meta != META_HEAD + 2 * L + 8) return ERR_META;
   a->mats = static_cast<const __nv_bfloat16*>(mats);
   a->vecs = vecs;
   a->num_layers = L;
@@ -118,18 +132,25 @@ inline int parse_meta(const long long* meta, long long n_meta, const void* mats,
   const long long hidden = meta[6];
   a->softplus = (int)meta[7];
   a->emb_dim = (int)meta[8];
+  a->time_levels = (int)meta[9];
+  a->nt = a->time_levels < 0 ? 0 : 1 + 2 * a->time_levels;
   if (hidden != HID || a->emb_dim != emb_dim || a->emb_dim < 1 || a->emb_dim > MAX_E ||
-      a->kx > MAX_KX || a->kd > MAX_KD || a->kx % 16 || a->kd % 16 ||
-      a->kx < 3 * (1 + 2 * a->pos_levels) || a->kd < 3 * (1 + 2 * a->dir_levels))
+      a->kx > MAX_KX || a->kd > MAX_KD || a->kx % 16 || a->kd % 16 || a->time_levels < -1 ||
+      a->kx < 3 * (1 + 2 * a->pos_levels) + a->nt || a->kd < 3 * (1 + 2 * a->dir_levels))
     return ERR_SHAPE;
   for (int i = 0; i < L; ++i) {
-    a->w_off[i] = meta[9 + i];
-    a->b_off[i] = meta[9 + L + i];
+    a->w_off[i] = meta[META_HEAD + i];
+    a->b_off[i] = meta[META_HEAD + L + i];
   }
-  const long long* t = meta + 9 + 2 * L;
+  const long long* t = meta + META_HEAD + 2 * L;
   a->wd_off = t[0]; a->bd_off = t[1]; a->wdir_off = t[2]; a->bdir_off = t[3];
   a->wapp_off = t[4]; a->bapp_off = t[5]; a->wrgb_off = t[6]; a->brgb_off = t[7];
   return 0;
+}
+
+// A time input where the layout has time columns, none where it has not.
+inline int check_time(const FieldArgs& P, const float* t) {
+  return (t != nullptr) == (P.nt > 0) ? 0 : ERR_SHAPE;
 }
 
 // ---------------------------------------------------------------- primitives
@@ -234,13 +255,23 @@ __device__ __forceinline__ void enc_col(int c, int* dim, int* lvl, bool* is_cos)
   }
 }
 
+// Column c of an encoding of a scalar: [v, sin(2^0 v), cos(2^0 v), ...] ->
+// the level and whether it is a cos column (the JAX _encode_consts(levels,
+// dim=1) order).
+__device__ __forceinline__ void enc_col1(int c, int* lvl, bool* is_cos) {
+  const int q = c > 0 ? c - 1 : 0;
+  *lvl = q / 2;
+  *is_cos = c > 0 && (q % 2) == 1;
+}
+
 // Fill sm.encx / sm.encd for the tile: y = pos(row, dim, 2^i), the input
 // column for i = 0, else sin(y + phase) (cos columns carry phase pi/2), the
-// TPU kernel's form; the direction likewise from dir(row, dim) 2^i.
-// Padded columns and rows where valid(row) is false are 0.
-template <class Pos, class Dir, class Valid>
-__device__ __forceinline__ void encode_cols(const FieldArgs& P, Smem& sm, Pos pos, Dir dir,
-                                            Valid valid) {
+// TPU kernel's form; with time, columns nx .. nx + nt of encx likewise from
+// y = tim(row) 2^i; the direction likewise from dir(row, dim) 2^i.  Padded
+// columns and rows where valid(row) is false are 0.
+template <class Pos, class Tim, class Dir, class Valid>
+__device__ __forceinline__ void encode_cols(const FieldArgs& P, Smem& sm, Pos pos, Tim tim,
+                                            Dir dir, Valid valid) {
   const int nx = 3 * (1 + 2 * P.pos_levels);
   const int nd = 3 * (1 + 2 * P.dir_levels);
   const float half_pi = 1.57079637f;
@@ -253,6 +284,12 @@ __device__ __forceinline__ void encode_cols(const FieldArgs& P, Smem& sm, Pos po
       enc_col(c, &dim, &lvl, &is_cos);
       const float y = pos(row, dim, (float)(1 << lvl));
       v = (c < 3) ? y : sinf(is_cos ? __fadd_rn(y, half_pi) : y);
+    } else if (valid(row) && c < nx + P.nt) {
+      int lvl;
+      bool is_cos;
+      enc_col1(c - nx, &lvl, &is_cos);
+      const float y = tim(row) * (float)(1 << lvl);
+      v = (c == nx) ? y : sinf(is_cos ? __fadd_rn(y, half_pi) : y);
     }
     sm.encx[row * LDX + c] = __float2bfloat16_rn(v);
   }
@@ -281,6 +318,7 @@ __device__ void encode_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
         const float b = sm.d[j * 3 + dim] * f;
         return __fadd_rn(a, __fmul_rn(sm.z[row], b));
       },
+      [&](int row) { return sm.t[row / s]; },
       [&](int row, int dim) { return sm.d[(row / s) * 3 + dim]; },
       [&](int row) { return row / s < rpc; });
   // per-ray appearance term emb @ Wapp^T (bf16 inputs, f32 sum); bapp is
@@ -301,6 +339,7 @@ __device__ void encode_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
 __device__ void encode_rows(const FieldArgs& P, Smem& sm, const RowSmem& rs, int nvalid) {
   encode_cols(
       P, sm, [&](int row, int dim, float f) { return rs.x[row * 3 + dim] * f; },
+      [&](int row) { return rs.t[row]; },
       [&](int row, int dim) { return rs.d[row * 3 + dim]; },
       [&](int row) { return row < nvalid; });
 }
@@ -450,31 +489,37 @@ __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rp
   return cur;
 }
 
-// Load a tile's per-ray inputs (zeros past R) into shared memory.
+// Load a tile's per-ray inputs (zeros past R; t may be null) into shared
+// memory.
 __device__ void load_rays(Smem& sm, const float* __restrict__ o, const float* __restrict__ d,
-                          const float* __restrict__ emb, int emb_dim, long long ray0, int rpc,
-                          long long R) {
+                          const float* __restrict__ emb, const float* __restrict__ t,
+                          int emb_dim, long long ray0, int rpc, long long R) {
   for (int idx = threadIdx.x; idx < rpc * 3; idx += THREADS) {
     const long long r = ray0 + idx / 3;
     sm.o[idx] = r < R ? o[r * 3 + idx % 3] : 0.f;
     sm.d[idx] = r < R ? d[r * 3 + idx % 3] : 0.f;
   }
+  for (int j = threadIdx.x; j < rpc; j += THREADS)
+    sm.t[j] = (t != nullptr && ray0 + j < R) ? t[ray0 + j] : 0.f;
   for (int idx = threadIdx.x; idx < rpc * emb_dim; idx += THREADS) {
     const long long r = ray0 + idx / emb_dim;
     sm.emb[idx] = r < R ? emb[r * emb_dim + idx % emb_dim] : 0.f;
   }
 }
 
-// Load a tile's per-row inputs, rows row0 .. row0 + nvalid of x, d (N,3)
-// and emb (N,E), into RowSmem; zeros on the tile's other rows.
+// Load a tile's per-row inputs, rows row0 .. row0 + nvalid of x, d (N,3),
+// emb (N,E) and t (N; may be null), into RowSmem; zeros on the tile's other
+// rows.
 __device__ void load_rows(RowSmem& rs, const float* __restrict__ x, const float* __restrict__ d,
-                          const float* __restrict__ emb, int emb_dim, long long row0,
-                          int nvalid) {
+                          const float* __restrict__ emb, const float* __restrict__ t,
+                          int emb_dim, long long row0, int nvalid) {
   for (int idx = threadIdx.x; idx < TILE_M * 3; idx += THREADS) {
     const bool ok = idx / 3 < nvalid;
     rs.x[idx] = ok ? x[row0 * 3 + idx] : 0.f;
     rs.d[idx] = ok ? d[row0 * 3 + idx] : 0.f;
   }
+  for (int r = threadIdx.x; r < TILE_M; r += THREADS)
+    rs.t[r] = (t != nullptr && r < nvalid) ? t[row0 + r] : 0.f;
   for (int idx = threadIdx.x; idx < TILE_M * emb_dim; idx += THREADS) {
     const int r = idx / emb_dim, k = idx - r * emb_dim;
     rs.emb[r * LDE + k] = __float2bfloat16_rn(r < nvalid ? emb[(row0 + r) * emb_dim + k] : 0.f);

@@ -723,7 +723,7 @@ inline int run_passes(const BwdCall& c, const void* kernel, size_t smem, float* 
 extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n_meta,
                                               long long R, long long s, long long n_vecs) {
   using namespace danerf;
-  if (n_meta < 9) return ERR_META;
+  if (n_meta < META_HEAD) return ERR_META;
   FieldArgs P;
   const int err = parse_meta(meta, n_meta, nullptr, nullptr, meta[8], &P);
   if (err) return err;

@@ -12,7 +12,7 @@
 // per ray composites with a product scan.  HBM sees only per-ray inputs and
 // outputs (+ the (R, 4, S) field when asked for).
 //
-//   in : o, d (R,3), emb (R,E), z (R,S) f32
+//   in : o, d (R,3), emb (R,E), z (R,S) f32 [, t (R) with use_time]
 //   out: rgb (R,3), depth (R), acc (R), w (R,S) [, field (R,4,S) = r,g,b,sigma]
 
 #include "field.cuh"
@@ -21,14 +21,15 @@ using namespace danerf;
 
 __global__ void __launch_bounds__(THREADS, 1)
 march_kernel(const FieldArgs P, const float* __restrict__ o, const float* __restrict__ d,
-             const float* __restrict__ emb, const float* __restrict__ z, long long R, int S,
+             const float* __restrict__ emb, const float* __restrict__ z,
+             const float* __restrict__ t, long long R, int S,
              int rpc, float* __restrict__ rgb, float* __restrict__ depth,
              float* __restrict__ acc, float* __restrict__ w, float* __restrict__ field) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const long long ray0 = (long long)blockIdx.x * rpc;
 
-  load_rays(sm, o, d, emb, P.emb_dim, ray0, rpc, R);
+  load_rays(sm, o, d, emb, t, P.emb_dim, ray0, rpc, R);
   for (int row = threadIdx.x; row < TILE_M; row += THREADS) {
     const int j = row / S;
     const long long r = ray0 + j;
@@ -59,13 +60,14 @@ march_kernel(const FieldArgs P, const float* __restrict__ o, const float* __rest
 }
 
 extern "C" int danerf_march(const float* o, const float* d, const float* emb, const float* z,
-                            long long R, long long S, long long E, float* rgb, float* depth,
-                            float* acc, float* w, float* field, const void* mats,
+                            const float* t, long long R, long long S, long long E, float* rgb,
+                            float* depth, float* acc, float* w, float* field, const void* mats,
                             const float* vecs, const long long* meta, long long n_meta,
                             void* stream) {
   FieldArgs P;
   const int err = parse_meta(meta, n_meta, mats, vecs, E, &P);
   if (err) return err;
+  if (check_time(P, t)) return ERR_SHAPE;
   if (S < 1 || S > TILE_M) return ERR_SHAPE;
   if (R == 0) return 0;
   const int rpc = (int)(TILE_M / S < MAX_RPC ? TILE_M / S : MAX_RPC);
@@ -75,6 +77,6 @@ extern "C" int danerf_march(const float* o, const float* d, const float* emb, co
   if (e != cudaSuccess) return (int)e;
   const long long grid = (R + rpc - 1) / rpc;
   march_kernel<<<(unsigned)grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      P, o, d, emb, z, R, (int)S, rpc, rgb, depth, acc, w, field);
+      P, o, d, emb, z, t, R, (int)S, rpc, rgb, depth, acc, w, field);
   return (int)cudaGetLastError();
 }

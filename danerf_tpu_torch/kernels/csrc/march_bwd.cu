@@ -20,9 +20,9 @@
 // run to run.  The composite transpose runs one warp per ray with a suffix
 // scan.
 //
-//   in : o, d (R,3), emb (R,E), z (R,S) f32; cotangents g_rgb (R,3),
-//        g_depth, g_acc (R), g_w (R,S) [, g_field (R,4,S)]; a null
-//        cotangent reads as zeros
+//   in : o, d (R,3), emb (R,E), z (R,S) f32 [, t (R) with use_time];
+//        cotangents g_rgb (R,3), g_depth, g_acc (R), g_w (R,S)
+//        [, g_field (R,4,S)]; a null cotangent reads as zeros
 //   out: gmats, gvecs (packed-layout f32 gradients, added to), demb (R,E)
 
 #include "field_bwd.cuh"
@@ -31,24 +31,26 @@
 using namespace danerf;
 
 extern "C" int danerf_march_bwd(const float* o, const float* d, const float* emb, const float* z,
-                                long long R, long long S, long long E, const float* g_rgb,
-                                const float* g_depth, const float* g_acc, const float* g_w,
-                                const float* g_field, float* gmats, float* gvecs, float* demb,
-                                const void* mats, const float* vecs, const long long* meta,
+                                const float* t, long long R, long long S, long long E,
+                                const float* g_rgb, const float* g_depth, const float* g_acc,
+                                const float* g_w, const float* g_field, float* gmats,
+                                float* gvecs, float* demb, const void* mats, const float* vecs, const long long* meta,
                                 long long n_meta, const void* mats_t, const long long* meta_t,
                                 long long n_meta_t, void* scratch, long long scratch_bytes,
                                 long long n_vecs, void* stream) {
   BwdCall c;
   const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, S, scratch,
                             scratch_bytes, n_vecs, &c);
-  if (err || R == 0) return err;
+  if (err) return err;
+  if (check_time(c.P, t)) return ERR_SHAPE;
+  if (R == 0) return 0;
   const size_t smem = bwd_smem_bytes((int)S);
   const RayCot cot{nullptr, 0.f, g_rgb, g_depth, g_acc, g_w};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return run_passes(c, reinterpret_cast<const void*>(march_tile<false>), smem, gmats, gvecs,
                     nullptr, (int)n_vecs, st, [&](int nt, long long ray_base) {
                       march_tile<false><<<nt, THREADS, smem, st>>>(
-                          c.P, c.W, c.sc, o, d, emb, z, R, (int)S, c.rpc, ray_base, cot, g_field,
-                          demb);
+                          c.P, c.W, c.sc, o, d, emb, z, t, R, (int)S, c.rpc, ray_base, cot,
+                          g_field, demb);
                     });
 }

@@ -21,7 +21,7 @@
 // masks the ragged edge by processing only rays < R; it is summed per tile
 // and then in tile order, so loss and gradients are deterministic.
 //
-//   in : o, d (R,3), emb (R,E), z (R,S), target (R,3) f32
+//   in : o, d (R,3), emb (R,E), z (R,S), target (R,3) f32 [, t (R) with use_time]
 //   out: gmats, gvecs (added to), demb (R,E), loss (added to)
 
 #include "field_bwd.cuh"
@@ -30,7 +30,8 @@
 using namespace danerf;
 
 extern "C" int danerf_march_train(const float* o, const float* d, const float* emb,
-                                  const float* z, const float* target, long long R, long long S,
+                                  const float* z, const float* target, const float* t,
+                                  long long R, long long S,
                                   long long E, float* gmats, float* gvecs, float* demb,
                                   float* loss, const void* mats, const float* vecs,
                                   const long long* meta, long long n_meta, const void* mats_t,
@@ -39,14 +40,16 @@ extern "C" int danerf_march_train(const float* o, const float* d, const float* e
   BwdCall c;
   const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, S, scratch,
                             scratch_bytes, n_vecs, &c);
-  if (err || R == 0) return err;
+  if (err) return err;
+  if (check_time(c.P, t)) return ERR_SHAPE;
+  if (R == 0) return 0;
   const size_t smem = bwd_smem_bytes((int)S);
   const RayCot cot{target, 1.f / (float)(R * 3.0), nullptr, nullptr, nullptr, nullptr};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return run_passes(c, reinterpret_cast<const void*>(march_tile<true>), smem, gmats, gvecs, loss,
                     (int)n_vecs, st, [&](int nt, long long ray_base) {
                       march_tile<true><<<nt, THREADS, smem, st>>>(
-                          c.P, c.W, c.sc, o, d, emb, z, R, (int)S, c.rpc, ray_base, cot, nullptr,
+                          c.P, c.W, c.sc, o, d, emb, z, t, R, (int)S, c.rpc, ray_base, cot, nullptr,
                           demb);
                     });
 }

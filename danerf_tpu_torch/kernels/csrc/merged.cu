@@ -16,6 +16,7 @@
 // a product scan.
 //
 //   in : o, d (R,3), emb (R,E), z_c (R,Sc), field_c (R,4,Sc), z_f (R,Sf) f32
+//        [, t (R) with use_time]
 //   out: rgb (R,3), depth (R), acc (R), w (R,Sc+Sf), z_all (R,Sc+Sf)
 
 #include "field.cuh"
@@ -25,7 +26,8 @@ using namespace danerf;
 __global__ void __launch_bounds__(THREADS, 1)
 merged_kernel(const FieldArgs P, const float* __restrict__ o, const float* __restrict__ d,
               const float* __restrict__ emb, const float* __restrict__ zc,
-              const float* __restrict__ fc, const float* __restrict__ zf, long long R, int Sc,
+              const float* __restrict__ fc, const float* __restrict__ zf,
+              const float* __restrict__ t, long long R, int Sc,
               int Sf, int rpc, float* __restrict__ rgb, float* __restrict__ depth,
               float* __restrict__ acc, float* __restrict__ w, float* __restrict__ zall) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -37,7 +39,7 @@ merged_kernel(const FieldArgs P, const float* __restrict__ o, const float* __res
   float* mrgb = msig + rpc * Sa;                                      // rpc x Sa x 3
   const long long ray0 = (long long)blockIdx.x * rpc;
 
-  load_rays(sm, o, d, emb, P.emb_dim, ray0, rpc, R);
+  load_rays(sm, o, d, emb, t, P.emb_dim, ray0, rpc, R);
   for (int row = threadIdx.x; row < TILE_M; row += THREADS) {
     const int j = row / Sf;
     const long long r = ray0 + j;
@@ -67,13 +69,15 @@ merged_kernel(const FieldArgs P, const float* __restrict__ o, const float* __res
 }
 
 extern "C" int danerf_merged(const float* o, const float* d, const float* emb, const float* zc,
-                             const float* fc, const float* zf, long long R, long long Sc,
+                             const float* fc, const float* zf, const float* t, long long R,
+                             long long Sc,
                              long long Sf, long long E, float* rgb, float* depth, float* acc,
                              float* w, float* zall, const void* mats, const float* vecs,
                              const long long* meta, long long n_meta, void* stream) {
   FieldArgs P;
   const int err = parse_meta(meta, n_meta, mats, vecs, E, &P);
   if (err) return err;
+  if (check_time(P, t)) return ERR_SHAPE;
   if (Sf < 1 || Sf > TILE_M || Sc < 1 || Sc + Sf > 1024) return ERR_SHAPE;
   if (R == 0) return 0;
   const int rpc = (int)(TILE_M / Sf < MAX_RPC ? TILE_M / Sf : MAX_RPC);
@@ -84,6 +88,6 @@ extern "C" int danerf_merged(const float* o, const float* d, const float* emb, c
   if (e != cudaSuccess) return (int)e;
   const long long grid = (R + rpc - 1) / rpc;
   merged_kernel<<<(unsigned)grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      P, o, d, emb, zc, fc, zf, R, (int)Sc, (int)Sf, rpc, rgb, depth, acc, w, zall);
+      P, o, d, emb, zc, fc, zf, t, R, (int)Sc, (int)Sf, rpc, rgb, depth, acc, w, zall);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,8 @@
 // The ranks of the counting merge are kept, and the un-permute is the
 // inverse gather by them (the TPU's transposed one-hot matmuls).
 //
-//   in : o, d (R,3), emb (R,E), z_c (R,Sc), field_c (R,4,Sc), z_f (R,Sf) f32;
+//   in : o, d (R,3), emb (R,E), z_c (R,Sc), field_c (R,4,Sc), z_f (R,Sf) f32
+//        [, t (R) with use_time];
 //        cotangents g_rgb (R,3), g_depth, g_acc (R), g_w (R,Sc+Sf), each
 //        optional (null reads as zeros)
 //   out: gmats, gvecs (added to), demb (R,E), g_field (R,4,Sc)
@@ -34,7 +35,8 @@
 using namespace danerf;
 
 extern "C" int danerf_merged_bwd(const float* o, const float* d, const float* emb,
-                                 const float* zc, const float* fc, const float* zf, long long R,
+                                 const float* zc, const float* fc, const float* zf,
+                                 const float* t, long long R,
                                  long long Sc, long long Sf, long long E, const float* g_rgb,
                                  const float* g_depth, const float* g_acc, const float* g_w,
                                  float* gmats, float* gvecs, float* demb, float* gfield,
@@ -46,14 +48,16 @@ extern "C" int danerf_merged_bwd(const float* o, const float* d, const float* em
   BwdCall c;
   const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, Sf, scratch,
                             scratch_bytes, n_vecs, &c);
-  if (err || R == 0) return err;
+  if (err) return err;
+  if (check_time(c.P, t)) return ERR_SHAPE;
+  if (R == 0) return 0;
   const size_t smem = merged_smem_bytes((int)Sc, (int)Sf, c.rpc);
   const RayCot cot{nullptr, 0.f, g_rgb, g_depth, g_acc, g_w};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return run_passes(c, reinterpret_cast<const void*>(merged_tile<false>), smem, gmats, gvecs,
                     nullptr, (int)n_vecs, st, [&](int nt, long long ray_base) {
                       merged_tile<false><<<nt, THREADS, smem, st>>>(
-                          c.P, c.W, c.sc, o, d, emb, zc, fc, zf, R, (int)Sc, (int)Sf, c.rpc,
+                          c.P, c.W, c.sc, o, d, emb, zc, fc, zf, t, R, (int)Sc, (int)Sf, c.rpc,
                           ray_base, cot, demb, gfield);
                     });
 }

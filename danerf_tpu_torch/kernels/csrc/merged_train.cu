@@ -26,7 +26,7 @@
 // gradient reduction are field_bwd.cuh's.
 //
 //   in : o, d (R,3), emb (R,E), z_c (R,Sc), field_c (R,4,Sc), z_f (R,Sf),
-//        target (R,3) f32
+//        target (R,3) f32 [, t (R) with use_time]
 //   out: gmats, gvecs (added to), demb (R,E), g_field (R,4,Sc), loss (added to)
 
 #include "field_bwd.cuh"
@@ -36,7 +36,8 @@ using namespace danerf;
 
 extern "C" int danerf_merged_train(const float* o, const float* d, const float* emb,
                                    const float* zc, const float* fc, const float* zf,
-                                   const float* target, long long R, long long Sc, long long Sf,
+                                   const float* target, const float* t, long long R, long long Sc,
+                                   long long Sf,
                                    long long E, float* gmats, float* gvecs, float* demb,
                                    float* gfield, float* loss, const void* mats,
                                    const float* vecs, const long long* meta, long long n_meta,
@@ -47,14 +48,16 @@ extern "C" int danerf_merged_train(const float* o, const float* d, const float* 
   BwdCall c;
   const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, Sf, scratch,
                             scratch_bytes, n_vecs, &c);
-  if (err || R == 0) return err;
+  if (err) return err;
+  if (check_time(c.P, t)) return ERR_SHAPE;
+  if (R == 0) return 0;
   const size_t smem = merged_smem_bytes((int)Sc, (int)Sf, c.rpc);
   const RayCot cot{target, 1.f / (float)(R * 3.0), nullptr, nullptr, nullptr, nullptr};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return run_passes(c, reinterpret_cast<const void*>(merged_tile<true>), smem, gmats, gvecs,
                     loss, (int)n_vecs, st, [&](int nt, long long ray_base) {
                       merged_tile<true><<<nt, THREADS, smem, st>>>(
-                          c.P, c.W, c.sc, o, d, emb, zc, fc, zf, R, (int)Sc, (int)Sf, c.rpc,
+                          c.P, c.W, c.sc, o, d, emb, zc, fc, zf, t, R, (int)Sc, (int)Sf, c.rpc,
                           ray_base, cot, demb, gfield);
                     });
 }

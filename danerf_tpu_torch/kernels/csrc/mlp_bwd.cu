@@ -24,7 +24,8 @@
 // calls on the same inputs give bit-identical gradients.  The passes repeat
 // over slices of at most MAX_TILES_PER_PASS tiles (262,144 rows).
 //
-//   in : x, d (N,3), emb (N,E) f32; cotangents g_rgb (N,3), g_sigma (N)
+//   in : x, d (N,3), emb (N,E) f32 [, t (N) with use_time]; cotangents g_rgb (N,3),
+//        g_sigma (N)
 //   out: gmats, gvecs (packed-layout f32 gradients, added to), demb (N,E)
 
 #include "field_bwd.cuh"
@@ -33,7 +34,8 @@ using namespace danerf;
 
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_bwd_tile(const FieldArgs P, const BwdWeights W, const Scratch sc, const float* __restrict__ x,
-             const float* __restrict__ d, const float* __restrict__ emb, long long N,
+             const float* __restrict__ d, const float* __restrict__ emb,
+             const float* __restrict__ t, long long N,
              long long row_base, const float* __restrict__ g_rgb,
              const float* __restrict__ g_sigma, float* __restrict__ demb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -44,7 +46,7 @@ mlp_bwd_tile(const FieldArgs P, const BwdWeights W, const Scratch sc, const floa
   const long long row0 = row_base + (long long)tile * TILE_M;
   const int nvalid = (int)(N - row0 < TILE_M ? N - row0 : TILE_M);
 
-  load_rows(rs, x, d, emb, P.emb_dim, row0, nvalid);
+  load_rows(rs, x, d, emb, t, P.emb_dim, row0, nvalid);
   for (int r = threadIdx.x; r < TILE_M; r += THREADS) {
     const bool ok = r < nvalid;
     bs.g_rgb[r * 3 + 0] = ok ? g_rgb[(row0 + r) * 3 + 0] : 0.f;
@@ -63,7 +65,8 @@ mlp_bwd_tile(const FieldArgs P, const BwdWeights W, const Scratch sc, const floa
                        demb + row0 * P.emb_dim, rs.emb);
 }
 
-extern "C" int danerf_mlp_bwd(const float* x, const float* d, const float* emb, long long N,
+extern "C" int danerf_mlp_bwd(const float* x, const float* d, const float* emb, const float* t,
+                              long long N,
                               long long E, const float* g_rgb, const float* g_sigma,
                               float* gmats, float* gvecs, float* demb, const void* mats,
                               const float* vecs, const long long* meta, long long n_meta,
@@ -73,13 +76,14 @@ extern "C" int danerf_mlp_bwd(const float* x, const float* d, const float* emb, 
   BwdCall c;
   const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, N, ROW_TILES,
                             scratch, scratch_bytes, n_vecs, &c);
-  if (err || N == 0) return err;
-  if (c.P.emb_dim % 16) return ERR_SHAPE;   // emb @ Wapp^T steps K by 16
+  if (err) return err;
+  if (c.P.emb_dim % 16 || check_time(c.P, t)) return ERR_SHAPE;   // emb @ Wapp^T steps K by 16
+  if (N == 0) return 0;   // emb @ Wapp^T steps K by 16
   const size_t smem = sizeof(Smem) + sizeof(BwdSmem) + sizeof(RowSmem);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return run_passes(c, reinterpret_cast<const void*>(mlp_bwd_tile), smem, gmats, gvecs, nullptr,
                     (int)n_vecs, st, [&](int nt, long long row_base) {
-                      mlp_bwd_tile<<<nt, THREADS, smem, st>>>(c.P, c.W, c.sc, x, d, emb, N,
+                      mlp_bwd_tile<<<nt, THREADS, smem, st>>>(c.P, c.W, c.sc, x, d, emb, t, N,
                                                               row_base, g_rgb, g_sigma, demb);
                     });
 }

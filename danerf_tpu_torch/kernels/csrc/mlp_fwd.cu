@@ -15,7 +15,7 @@
 // beside the dir layer's accumulator and added after its relu (the JAX
 // order).  A ragged last tile is masked, not padded by the caller.
 //
-//   in : x, d (N,3), emb (N,E) f32
+//   in : x, d (N,3), emb (N,E) f32 [, t (N) with use_time]
 //   out: rgb (N,3), sigma (N) f32
 
 #include "field.cuh"
@@ -24,7 +24,8 @@ using namespace danerf;
 
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_fwd_kernel(const FieldArgs P, const float* __restrict__ x, const float* __restrict__ d,
-               const float* __restrict__ emb, long long N, float* __restrict__ rgb,
+               const float* __restrict__ emb, const float* __restrict__ t, long long N,
+               float* __restrict__ rgb,
                float* __restrict__ sigma) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -32,7 +33,7 @@ mlp_fwd_kernel(const FieldArgs P, const float* __restrict__ x, const float* __re
   const long long row0 = (long long)blockIdx.x * TILE_M;
   const int nvalid = (int)(N - row0 < TILE_M ? N - row0 : TILE_M);
 
-  load_rows(rs, x, d, emb, P.emb_dim, row0, nvalid);
+  load_rows(rs, x, d, emb, t, P.emb_dim, row0, nvalid);
   __syncthreads();
   encode_rows(P, sm, rs, nvalid);
   __syncthreads();
@@ -46,14 +47,15 @@ mlp_fwd_kernel(const FieldArgs P, const float* __restrict__ x, const float* __re
   }
 }
 
-extern "C" int danerf_mlp_fwd(const float* x, const float* d, const float* emb, long long N,
+extern "C" int danerf_mlp_fwd(const float* x, const float* d, const float* emb, const float* t,
+                              long long N,
                               long long E, float* rgb, float* sigma, const void* mats,
                               const float* vecs, const long long* meta, long long n_meta,
                               void* stream) {
   FieldArgs P;
   const int err = parse_meta(meta, n_meta, mats, vecs, E, &P);
   if (err) return err;
-  if (P.emb_dim % 16 || N < 0) return ERR_SHAPE;   // emb @ Wapp^T steps K by 16
+  if (P.emb_dim % 16 || N < 0 || check_time(P, t)) return ERR_SHAPE;   // emb @ Wapp^T steps K by 16
   if (N == 0) return 0;
   const size_t smem = sizeof(Smem) + sizeof(RowSmem);
   cudaError_t e = cudaFuncSetAttribute(mlp_fwd_kernel,
@@ -61,6 +63,6 @@ extern "C" int danerf_mlp_fwd(const float* x, const float* d, const float* emb, 
   if (e != cudaSuccess) return (int)e;
   const long long grid = (N + TILE_M - 1) / TILE_M;
   mlp_fwd_kernel<<<(unsigned)grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      P, x, d, emb, N, rgb, sigma);
+      P, x, d, emb, t, N, rgb, sigma);
   return (int)cudaGetLastError();
 }

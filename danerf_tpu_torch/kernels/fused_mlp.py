@@ -164,13 +164,15 @@ def pack_params(model, cfg: NeRFConfig, appearance: bool = True,
 
 def kernel_meta(packed: PackedParams, cfg: NeRFConfig) -> Tuple[int, ...]:
     """The integer layout record the CUDA kernels parse (csrc/field.cuh
-    ``parse_meta``)."""
+    ``parse_meta``): a head of ten values, the trunk layers' weight
+    and bias offsets, and the heads' offsets.  The head's last value is the
+    number of time encoding levels, -1 without ``use_time``."""
     kx, kd = enc_widths(cfg)
     skip_mask = sum(1 << i for i in cfg.skip_connect_layers if 0 < i < packed.num_layers)
     L = packed.num_layers
     head = [L, skip_mask, cfg.pos_enc_levels, cfg.dir_enc_levels, kx, kd,
             cfg.hidden_dim, int(cfg.density_activation == "softplus"),
-            cfg.appearance_dim]
+            cfg.appearance_dim, cfg.time_enc_levels if cfg.use_time else -1]
     w_off = [packed.mat_at[f"w{i}"][0] for i in range(L)]
     b_off = [packed.vec_at[f"b{i}"][0] for i in range(L)]
     tail = [packed.vec_at["wd"][0], packed.vec_at["bd"][0],
@@ -399,13 +401,30 @@ def module_params(model):
 
 # ---------------------------------------------------------------- launching
 
-def _check_kernel_cfg(cfg: NeRFConfig, t) -> None:
+def _check_kernel_cfg(cfg: NeRFConfig) -> None:
     if not cfg.use_bf16:
         raise NotImplementedError("use_bf16=False is not yet ported to the CUDA kernels")
-    if cfg.use_time or t is not None:
-        raise NotImplementedError("use_time is not yet ported to the CUDA kernels: their "
-                                  "has_time variants (the encoded time at the input and at "
-                                  "each skip) are missing")
+
+
+def _check_time(cfg: NeRFConfig, t) -> None:
+    """A time input exactly when the config has time columns."""
+    if cfg.use_time and t is None:
+        raise ValueError("cfg.use_time=True requires a time input t")
+    if t is not None and not cfg.use_time:
+        raise ValueError("a time input t was given, but cfg.use_time is False: the layout "
+                         "has no time columns")
+
+
+def _time_arg(cfg: NeRFConfig, t, n: int, device) -> Optional[torch.Tensor]:
+    """The kernels' time input: None without ``use_time`` (a null pointer),
+    else t (n, 1) or (n,) as a contiguous f32 (n,) tensor."""
+    _check_time(cfg, t)
+    if t is None:
+        return None
+    t = _f32(t, device)
+    if tuple(t.shape) not in ((n,), (n, 1)):
+        raise ValueError(f"t of shape {tuple(t.shape)}, expected {(n, 1)}")
+    return t.reshape(n)
 
 
 def _f32(x: torch.Tensor, device) -> torch.Tensor:
@@ -508,19 +527,20 @@ def _rows_f32(dev, n_cols, **tensors):
     return out
 
 
-def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb):
+def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, t=None):
     """Launch K1 on the current stream; outputs as fused_fwd_plain's."""
-    _check_kernel_cfg(cfg, None)
+    _check_kernel_cfg(cfg)
     dev = x.device
     _check_packed(packed, dev)
     x, d, emb = _rows_f32(dev, {"x": 3, "d": 3, "emb": cfg.appearance_dim}, x=x, d=d, emb=emb)
     n = x.shape[0]
+    t = _time_arg(cfg, t, n, dev)
     lib = _build.load("mlp_fwd")
     rgb = torch.empty(n, 3, device=dev)
     sigma = torch.empty(n, 1, device=dev)
     meta, n_meta = _meta(packed, cfg)
     code = lib.danerf_mlp_fwd(
-        x.data_ptr(), d.data_ptr(), emb.data_ptr(), n, emb.shape[-1], rgb.data_ptr(),
+        x.data_ptr(), d.data_ptr(), emb.data_ptr(), _arg(t), n, emb.shape[-1], rgb.data_ptr(),
         sigma.data_ptr(), packed.mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "mlp_fwd")
@@ -528,9 +548,9 @@ def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb):
     return rgb, sigma
 
 
-def fused_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_sigma):
+def fused_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_sigma, t=None):
     """Launch K8 on the current stream; outputs as fused_bwd_plain's."""
-    _check_kernel_cfg(cfg, None)
+    _check_kernel_cfg(cfg)
     dev = x.device
     _check_packed(packed, dev)
     e = cfg.appearance_dim
@@ -538,23 +558,24 @@ def fused_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_si
         dev, {"x": 3, "d": 3, "emb": e, "g_rgb": 3, "g_sigma": 1},
         x=x, d=d, emb=emb, g_rgb=g_rgb, g_sigma=g_sigma.reshape(-1, 1))
     n = x.shape[0]
+    t = _time_arg(cfg, t, n, dev)
     demb = torch.empty(n, e, device=dev)
     grads = _launch_bwd("mlp_bwd", packed, cfg, n, ROW_TILES,
-                        (x, d, emb, n, e, g_rgb, g_sigma), (demb,))
+                        (x, d, emb, t, n, e, g_rgb, g_sigma), (demb,))
     return grads, demb
 
 
 def _field_fwd(packed, cfg, x, d, emb, t):
+    _check_time(cfg, t)
     if _route(x) == "cuda":
-        _check_kernel_cfg(cfg, t)
-        return fused_fwd_cuda(packed, cfg, x, d, emb)
+        return fused_fwd_cuda(packed, cfg, x, d, emb, t)
     return fused_fwd_plain(packed, cfg, x.float(), d.float(), emb.float(), _f32_opt(t))
 
 
 def _field_bwd(packed, cfg, x, d, emb, t, g_rgb, g_sigma):
+    _check_time(cfg, t)
     if _route(x) == "cuda":
-        _check_kernel_cfg(cfg, t)
-        return fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sigma)
+        return fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sigma, t)
     return fused_bwd_plain(packed, cfg, x.float(), d.float(), emb.float(), g_rgb.float(),
                            g_sigma.float(), _f32_opt(t))
 
@@ -587,7 +608,8 @@ def fused_nerf_apply(model, cfg: NeRFConfig, x, d, appearance_embedding=None, t=
                      packed: Optional[PackedParams] = None):
     """Drop-in for the module's forward on points (counterpart of
     danerf_tpu's ``fused_nerf_apply``): K1, and K8 under autograd, on CUDA
-    tensors; their plain versions on CPU tensors.
+    tensors (their has_time variants with ``cfg.use_time``); their plain
+    versions on CPU tensors.
 
     x: (..., 3); d (..., 3) and appearance_embedding (..., E) are broadcast
     to x's leading shape; without an embedding the projection is packed as

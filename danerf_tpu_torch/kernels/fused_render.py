@@ -28,8 +28,12 @@ Six kernels, each with a plain PyTorch version of the same function:
 The public functions keep the JAX package's signatures and output layouts.
 They dispatch on the device of the rays: CUDA tensors launch the kernel,
 CPU tensors take the plain version; nothing falls back from one to the
-other.  Gradients reach the module's parameters through
-``torch.autograd.Function``s, never through the packed (detached) copy:
+other.  With ``cfg.use_time`` each takes the rays' times ``t`` (R, 1) and
+launches its kernel's has_time variant: the encoded time joins the encoded
+position at the first layer and at each skip (``csrc/field.cuh``); the
+time gets no gradient, as in the JAX package.  Gradients reach the
+module's parameters through ``torch.autograd.Function``s, never through
+the packed (detached) copy:
 ``MarchFn`` (K2 forward, K3 backward), ``MergedFn`` (K5 forward, K6
 backward), and the one-pass losses ``MarchTrainLossFn`` (K7) and
 ``MergedTrainLossFn`` (K4).
@@ -51,8 +55,8 @@ from danerf_tpu_torch.config import NeRFConfig
 from danerf_tpu_torch.kernels import _build
 # LAUNCHES, reset_launch_counts and module_params are also used from here
 from danerf_tpu_torch.kernels.fused_mlp import (  # noqa: F401
-    LAUNCHES, PackedGrads, PackedParams, _arg, _check_kernel_cfg, _check_packed, _f32,
-    _f32_opt, _launch_bwd, _meta, _route, encode_plain, field_bwd_plain,
+    LAUNCHES, PackedGrads, PackedParams, _arg, _check_kernel_cfg, _check_packed, _check_time,
+    _f32, _f32_opt, _launch_bwd, _meta, _route, _time_arg, encode_plain, field_bwd_plain,
     field_from_enc_plain, module_params, pack_params, reset_launch_counts, unpack_grads)
 from danerf_tpu_torch.ops.composite import composite
 
@@ -296,14 +300,15 @@ def _check_field(field_c, r: int, sc: int) -> None:
         raise ValueError(f"field_coarse of shape {tuple(field_c.shape)}, expected {(r, 4, sc)}")
 
 
-def march_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z,
+def march_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, t=None,
                want_field: bool = False) -> dict:
     """Launch K2 on the current stream; outputs as march_plain's."""
-    _check_kernel_cfg(cfg, None)
+    _check_kernel_cfg(cfg)
     dev = z.device
     _check_packed(packed, dev)
     o, d, emb, z = (_f32(x, dev) for x in (o, d, emb, z))
     r, s = z.shape
+    t = _time_arg(cfg, t, r, dev)
     lib = _build.load("march")
     rgb = torch.empty(r, 3, device=dev)
     depth = torch.empty(r, device=dev)
@@ -312,7 +317,7 @@ def march_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z,
     field = torch.empty(r, 4, s, device=dev) if want_field else None
     meta, n_meta = _meta(packed, cfg)
     code = lib.danerf_march(
-        o.data_ptr(), d.data_ptr(), emb.data_ptr(), z.data_ptr(), r, s, emb.shape[-1],
+        o.data_ptr(), d.data_ptr(), emb.data_ptr(), z.data_ptr(), _arg(t), r, s, emb.shape[-1],
         rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(), w.data_ptr(), _arg(field),
         packed.mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -325,15 +330,16 @@ def march_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z,
 
 
 def merged_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c,
-                field_c, z_f) -> dict:
+                field_c, z_f, t=None) -> dict:
     """Launch K5 on the current stream; outputs as merged_plain's."""
-    _check_kernel_cfg(cfg, None)
+    _check_kernel_cfg(cfg)
     dev = z_f.device
     _check_packed(packed, dev)
     o, d, emb, z_c, field_c, z_f = (_f32(x, dev) for x in (o, d, emb, z_c, field_c, z_f))
     r, sc = z_c.shape
     sf = z_f.shape[-1]
     _check_field(field_c, r, sc)
+    t = _time_arg(cfg, t, r, dev)
     lib = _build.load("merged")
     rgb = torch.empty(r, 3, device=dev)
     depth = torch.empty(r, device=dev)
@@ -343,7 +349,7 @@ def merged_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c,
     meta, n_meta = _meta(packed, cfg)
     code = lib.danerf_merged(
         o.data_ptr(), d.data_ptr(), emb.data_ptr(), z_c.data_ptr(), field_c.data_ptr(),
-        z_f.data_ptr(), r, sc, sf, emb.shape[-1],
+        z_f.data_ptr(), _arg(t), r, sc, sf, emb.shape[-1],
         rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(), w.data_ptr(), z_all.data_ptr(),
         packed.mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -364,41 +370,43 @@ def _opt_f32(x: Optional[torch.Tensor], device, shape) -> Optional[torch.Tensor]
 
 
 def march_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, g_rgb, g_depth,
-                   g_acc, g_w, g_field=None):
+                   g_acc, g_w, g_field=None, t=None):
     """Launch K3 on the current stream; outputs as march_bwd_plain's (a None
     cotangent is passed as a null pointer, which the kernel reads as
     zeros)."""
-    _check_kernel_cfg(cfg, None)
+    _check_kernel_cfg(cfg)
     dev = z.device
     _check_packed(packed, dev)
     o, d, emb, z = (_f32(x, dev) for x in (o, d, emb, z))
     r, s = z.shape
+    t = _time_arg(cfg, t, r, dev)
     cot = (_opt_f32(x, dev, sh) for x, sh in zip((g_rgb, g_depth, g_acc, g_w, g_field),
                                                  ((r, 3), (r,), (r,), (r, s), (r, 4, s))))
     demb = torch.empty(r, emb.shape[-1], device=dev)
     grads = _launch_bwd("march_bwd", packed, cfg, r, s,
-                        (o, d, emb, z, r, s, emb.shape[-1], *cot), (demb,))
+                        (o, d, emb, z, t, r, s, emb.shape[-1], *cot), (demb,))
     return grads, demb
 
 
-def march_train_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, target):
+def march_train_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, target, t=None):
     """Launch K7 on the current stream; outputs as march_train_plain's."""
-    _check_kernel_cfg(cfg, None)
+    _check_kernel_cfg(cfg)
     dev = z.device
     _check_packed(packed, dev)
     o, d, emb, z, target = (_f32(x, dev) for x in (o, d, emb, z, target))
     r, s = z.shape
+    t = _time_arg(cfg, t, r, dev)
     demb = torch.empty(r, emb.shape[-1], device=dev)
     loss = torch.zeros((), device=dev)
     grads = _launch_bwd("march_train", packed, cfg, r, s,
-                        (o, d, emb, z, target, r, s, emb.shape[-1]), (demb, loss))
+                        (o, d, emb, z, target, t, r, s, emb.shape[-1]), (demb, loss))
     return loss, grads, demb
 
 
 def merged_train_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, field_c, z_f,
-                      target):
+                      target, t=None):
     """Launch K4 on the current stream; outputs as merged_train_plain's."""
-    _check_kernel_cfg(cfg, None)
+    _check_kernel_cfg(cfg)
     dev = z_f.device
     _check_packed(packed, dev)
     o, d, emb, z_c, field_c, z_f, target = (
@@ -406,33 +414,35 @@ def merged_train_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, fie
     r, sc = z_c.shape
     sf = z_f.shape[-1]
     _check_field(field_c, r, sc)
+    t = _time_arg(cfg, t, r, dev)
     demb = torch.empty(r, emb.shape[-1], device=dev)
     g_field = torch.empty(r, 4, sc, device=dev)
     loss = torch.zeros((), device=dev)
     grads = _launch_bwd("merged_train", packed, cfg, r, sf,
-                        (o, d, emb, z_c, field_c, z_f, target, r, sc, sf, emb.shape[-1]),
+                        (o, d, emb, z_c, field_c, z_f, target, t, r, sc, sf, emb.shape[-1]),
                         (demb, g_field, loss))
     return loss, grads, demb, g_field
 
 
 def merged_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, field_c, z_f,
-                    g_rgb, g_depth, g_acc, g_w):
+                    g_rgb, g_depth, g_acc, g_w, t=None):
     """Launch K6 on the current stream; outputs as merged_bwd_plain's (a
     None cotangent is passed as a null pointer, which the kernel reads as
     zeros)."""
-    _check_kernel_cfg(cfg, None)
+    _check_kernel_cfg(cfg)
     dev = z_f.device
     _check_packed(packed, dev)
     o, d, emb, z_c, field_c, z_f = (_f32(x, dev) for x in (o, d, emb, z_c, field_c, z_f))
     r, sc = z_c.shape
     sf = z_f.shape[-1]
     _check_field(field_c, r, sc)
+    t = _time_arg(cfg, t, r, dev)
     cot = (_opt_f32(x, dev, sh) for x, sh in zip((g_rgb, g_depth, g_acc, g_w),
                                                  ((r, 3), (r,), (r,), (r, sc + sf))))
     demb = torch.empty(r, emb.shape[-1], device=dev)
     g_field = torch.empty(r, 4, sc, device=dev)
     grads = _launch_bwd("merged_bwd", packed, cfg, r, sf,
-                        (o, d, emb, z_c, field_c, z_f, r, sc, sf, emb.shape[-1], *cot),
+                        (o, d, emb, z_c, field_c, z_f, t, r, sc, sf, emb.shape[-1], *cot),
                         (demb, g_field))
     return grads, demb, g_field
 
@@ -440,49 +450,49 @@ def merged_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, field
 # ---------------------------------------------------------------- routes
 
 def _march_fwd(packed, cfg, o, d, emb, z, t, want_field):
+    _check_time(cfg, t)
     if _route(o) == "cuda":
-        _check_kernel_cfg(cfg, t)
-        return march_cuda(packed, cfg, o, d, emb, z, want_field)
+        return march_cuda(packed, cfg, o, d, emb, z, t, want_field)
     return march_plain(packed, cfg, o.float(), d.float(), emb, z.float(), _f32_opt(t),
                        want_field)
 
 
 def _march_bwd(packed, cfg, o, d, emb, z, t, cot):
+    _check_time(cfg, t)
     if _route(o) == "cuda":
-        _check_kernel_cfg(cfg, t)
-        return march_bwd_cuda(packed, cfg, o, d, emb, z, *cot)
+        return march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, t=t)
     return march_bwd_plain(packed, cfg, o.float(), d.float(), emb, z.float(), *cot,
                            t=_f32_opt(t))
 
 
 def _march_train(packed, cfg, o, d, emb, z, target, t):
+    _check_time(cfg, t)
     if _route(o) == "cuda":
-        _check_kernel_cfg(cfg, t)
-        return march_train_cuda(packed, cfg, o, d, emb, z, target)
+        return march_train_cuda(packed, cfg, o, d, emb, z, target, t)
     return march_train_plain(packed, cfg, o.float(), d.float(), emb, z.float(), target.float(),
                              _f32_opt(t))
 
 
 def _merged_fwd(packed, cfg, o, d, emb, z_c, field_c, z_f, t):
+    _check_time(cfg, t)
     if _route(o) == "cuda":
-        _check_kernel_cfg(cfg, t)
-        return merged_cuda(packed, cfg, o, d, emb, z_c, field_c, z_f)
+        return merged_cuda(packed, cfg, o, d, emb, z_c, field_c, z_f, t)
     return merged_plain(packed, cfg, o.float(), d.float(), emb, z_c.float(), field_c.float(),
                         z_f.float(), _f32_opt(t))
 
 
 def _merged_bwd(packed, cfg, o, d, emb, z_c, field_c, z_f, t, cot):
+    _check_time(cfg, t)
     if _route(o) == "cuda":
-        _check_kernel_cfg(cfg, t)
-        return merged_bwd_cuda(packed, cfg, o, d, emb, z_c, field_c, z_f, *cot)
+        return merged_bwd_cuda(packed, cfg, o, d, emb, z_c, field_c, z_f, *cot, t=t)
     return merged_bwd_plain(packed, cfg, o.float(), d.float(), emb, z_c.float(),
                             field_c.float(), z_f.float(), *cot, t=_f32_opt(t))
 
 
 def _merged_train(packed, cfg, o, d, emb, z_c, field_c, z_f, target, t):
+    _check_time(cfg, t)
     if _route(o) == "cuda":
-        _check_kernel_cfg(cfg, t)
-        return merged_train_cuda(packed, cfg, o, d, emb, z_c, field_c, z_f, target)
+        return merged_train_cuda(packed, cfg, o, d, emb, z_c, field_c, z_f, target, t)
     return merged_train_plain(packed, cfg, o.float(), d.float(), emb, z_c.float(),
                               field_c.float(), z_f.float(), target.float(), _f32_opt(t))
 

@@ -4,7 +4,9 @@ output named ``rgb_NNN.png`` / ``depth_NNN.png`` (viridis), and with
 ``save_depth`` the raw depth as ``raw/depth_NNN.npy``.
 
 Random draws come from a ``torch.Generator`` seeded from ``seed`` and the
-frame index, so a frame renders the same whatever frames precede it.
+frame index, so a frame renders the same whatever frames precede it.  A
+time-conditioned model (``cfg.use_time``) renders every frame at ``time``
+(default 0), or with ``animate_time`` frame i of n at t = i / (n - 1).
 """
 
 from __future__ import annotations
@@ -35,10 +37,13 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
                 raw_output: bool = False, dataset_width: Optional[int] = None,
                 focal: Optional[float] = None, seed: int = 0,
                 frame_name: str = "rgb_{:03d}.png", chunk: Optional[int] = None,
+                time: Optional[float] = None, animate_time: bool = False,
                 device="cuda") -> list[str]:
     """Render frames along a parametric path; returns the rgb paths written.
 
     focal: the dataset's focal at ``dataset_width``, rescaled to ``width``.
+    time / animate_time: the frame time of a ``use_time`` model, fixed or
+    swept from 0 to 1 over the path's frames.
     """
     dev = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
@@ -67,10 +72,11 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
         if frame_idx >= end_frame:
             continue
         gen = torch.Generator(device=dev).manual_seed(seed * FRAME_SEED_STRIDE + i)
+        t_frame = i / max(num_frames - 1, 1) if animate_time else time
         rgb, depth, _ = render_frame(
             model, cfg, c2w, height, width, focal,
             appearance_embedding=appearance_embedding, n_samples=n_samples,
-            n_importance=n_importance, perturb=perturb, chunk=chunk,
+            n_importance=n_importance, perturb=perturb, chunk=chunk, t=t_frame,
             generator=gen, device=dev)
         rgb_u8 = (rgb * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()
         depth_np = depth.cpu().numpy()

@@ -13,9 +13,11 @@ JAX package's does:
   coarse backward, fed K4's coarse-field cotangent plus the coarse MSE's.
   Without (``num_importance=0``), ``_onepass_loss_grads``: one K7 launch.
 - otherwise ``loss_fn`` and autograd.  On the fused kernel route
-  (``use_kernels``, e.g. with a white background) ``render_rays`` runs K2,
-  ``sample_pdf`` and K5 forward, and the backward K6 and then K3 (K2/K3
-  alone without importance samples); on the per-sample kernel route
+  (``use_kernels``, with a white background or with ``use_time``)
+  ``render_rays`` runs K2, ``sample_pdf`` and K5 forward, and the backward
+  K6 and then K3 (K2/K3 alone without importance samples); under
+  ``use_time`` the batch's per-ray times ``t`` go to every kernel (their
+  has_time variants); on the per-sample kernel route
   (``use_kernels`` with ``use_fused_train=False``) K1 at the coarse samples,
   ``composite``, ``sample_pdf``, K1 at the sorted union, ``composite``, and
   K8 for both K1 calls in the backward; on the reference route
@@ -95,13 +97,15 @@ def loss_fn(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):
     the coarse MSE when a fine pass runs; ``render_rays`` takes the fused
     route when ``cfg.use_kernels and cfg.use_fused_train`` (its backward
     K6/K3), else the per-sample route (K1/K8 under ``cfg.use_kernels``, the
-    module's forward without).  Differentiated by autograd."""
+    module's forward without); the batch's times go in under
+    ``cfg.use_time`` only.  Differentiated by autograd."""
     from danerf_tpu_torch.render.renderer import render_rays
 
     emb = _embedding(table, cfg, batch)
     bg = (1.0, 1.0, 1.0) if cfg.white_background else None
     out = render_rays(model, cfg, batch["rays_o"], batch["rays_d"], appearance_embedding=emb,
-                      t=batch.get("t"), perturb=True, background_color=bg,
+                      t=batch.get("t") if cfg.use_time else None, perturb=True,
+                      background_color=bg,
                       fused_composite=cfg.use_kernels and cfg.use_fused_train,
                       generator=generator, draws=draws)
     loss = torch.mean((out["rgb"] - batch["rgb"]) ** 2)
@@ -187,22 +191,19 @@ def use_onepass(cfg: NeRFConfig) -> bool:
 
     A white background takes ``loss_fn``'s route instead (K2, K5 forward;
     K6, K3 backward): the one-pass kernels form the MSE in the kernel
-    against the raw composite, with no background fill for acc < 1.
-    ``use_fused_train=False`` takes ``loss_fn``'s per-sample route (K1,
-    K8)."""
+    against the raw composite, with no background fill for acc < 1.  So
+    does ``use_time``, as in the JAX package.  ``use_fused_train=False``
+    takes ``loss_fn``'s per-sample route (K1, K8)."""
     return (cfg.use_kernels and cfg.use_fused_train and not cfg.use_time
             and not cfg.white_background)
 
 
 def compute_loss_and_grads(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):
     """Loss and gradients (left in ``.grad``) by the route the config asks
-    for; returns (loss, aux) as detached device tensors."""
-    if cfg.use_time:
-        if cfg.use_kernels:
-            raise NotImplementedError(
-                "use_time training on the kernel route is not yet ported: it needs the "
-                "has_time variants of K2-K6 (the encoded time at the input and at each skip)")
-        raise NotImplementedError("use_time training is not yet ported (its scene is not)")
+    for; returns (loss, aux) as detached device tensors.  Under
+    ``cfg.use_time`` the batch carries ``t`` (B, 1)."""
+    if cfg.use_time and batch.get("t") is None:
+        raise ValueError("cfg.use_time=True requires the batch's per-ray times (batch['t'])")
     if use_onepass(cfg):
         if cfg.num_importance > 0:
             return _onepass_hier_loss_grads(model, table, cfg, batch, generator, draws)
@@ -250,6 +251,12 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
     Returns (model, table, logger)."""
     from danerf_tpu_torch.utils.checkpoint import save_checkpoint
 
+    if cfg.use_time and dataset.times is None:
+        raise ValueError(
+            "cfg.use_time=True but the dataset has no per-image times: the time-conditioned "
+            "variant needs a time channel (RayDataset.times).  The procedural time-varying "
+            "scene has one (danerf_tpu_torch.data.synthetic.make_time_varying_scene); Blender "
+            "scenes do not.")
     dev = resolve_device(device)
     os.makedirs(save_dir, exist_ok=True)
     n_iters = num_iterations if num_iterations is not None else cfg.num_iterations

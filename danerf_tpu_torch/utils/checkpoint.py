@@ -2,8 +2,8 @@
 ``model_state_dict`` (the reference keys), ``appearance_embeddings``,
 ``optimizer_state_dict``, ``scheduler_state_dict``, ``iteration``, ``loss``
 and ``psnr``, so ``render --checkpoint <file>`` (and the reference's own
-loader) reads it as it is.  Resuming from one waits for the train-loop
-slice."""
+loader) reads it as it is; ``load_model`` builds the module of one.
+Resuming from one waits for the train-loop slice."""
 
 from __future__ import annotations
 
@@ -46,3 +46,28 @@ def latest_checkpoint(save_dir: str) -> Optional[str]:
         if m:
             steps.append((int(m.group(1)), p))
     return max(steps)[1] if steps else None
+
+
+def load_model(path: str, cfg, device="cpu"):
+    """The ``NeRF`` module of a reference-format ``.pt`` on ``device``.
+
+    ``cfg`` gives the architecture; its ``use_appearance`` is taken from the
+    checkpoint.  Its ``use_time`` must match the checkpoint: a
+    time-conditioned model's first and skip layers take ``time_enc_dim``
+    (13 at 6 levels) more input columns.  Returns (model, appearance table or
+    None, metadata, cfg)."""
+    from danerf_tpu_torch.models.nerf import NeRF
+    from danerf_tpu_torch.utils.convert import load_reference_checkpoint
+
+    sd, emb_table, meta = load_reference_checkpoint(path)
+    cfg = cfg.replace(use_appearance="appearance_projection.weight" in sd)
+    width = sd["pts_linears.0.weight"].shape[1]
+    want = cfg.pos_enc_dim + (cfg.time_enc_dim if cfg.use_time else 0)
+    if width != want:
+        timed = width == cfg.pos_enc_dim + cfg.time_enc_dim
+        raise ValueError(f"{path}: the first layer takes {width} inputs, the config "
+                         f"{want} (use_time={cfg.use_time}); the checkpoint is "
+                         f"{'' if timed else 'not '}a time-conditioned model")
+    model = NeRF(cfg)
+    model.load_state_dict(sd)
+    return model.to(device), emb_table, meta, cfg

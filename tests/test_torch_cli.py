@@ -100,11 +100,80 @@ def test_cli_train_paths(scene, tmp_path, flags):
     assert ckpt["iteration"] == 3 and ckpt["appearance_embeddings"].shape == (2, 8)
 
 
-@pytest.mark.parametrize("flag", [["--resume"], ["--use_time"], ["--mesh_data", "2"],
+# --use_time is ported (test_cli_train_use_time_then_render): beside an
+# unported flag, the refusal names only that flag.
+@pytest.mark.parametrize("flag", [["--resume"], ["--use_time", "--resume"], ["--mesh_data", "2"],
                                   ["--profile", "x"], ["--num_processes", "2"]],
                          ids=["resume", "use_time", "mesh", "profile", "multihost"])
 def test_cli_train_refuses_unported_flags(flag):
     from danerf_tpu_torch.cli.main import main
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="not yet ported") as err:
         main(["train", "--device", "cpu", *flag])
+    assert "time" not in str(err.value)
+
+
+@pytest.fixture
+def time_scene(monkeypatch):
+    """The small config, and the procedural time-varying scene at 8x8 (16
+    views, 16 samples a ray) in place of its 64x64 default."""
+    from danerf_tpu_torch.data import synthetic
+
+    monkeypatch.setattr(config_mod, "NeRFConfig", _Small)
+    make = synthetic.make_time_varying_scene
+    monkeypatch.setattr(synthetic, "make_time_varying_scene",
+                        lambda **kw: make(height=8, width=8, n_samples=16, **kw))
+
+
+def test_cli_train_use_time_then_render(time_scene, tmp_path):
+    """train --use_time on the procedural time-varying scene (no Blender
+    data), then render --use_time --animate_time of its checkpoint: two
+    frames at t = 0 and t = 1.  The checkpoint's first layer is the time
+    columns wider, and rendering it without --use_time refuses."""
+    from danerf_tpu_torch.cli.main import main
+
+    save, none = tmp_path / "run", str(tmp_path / "no_data")
+    model, table, _ = main(["train", "--use_time", "--dataset_path", none, "--iters", "3",
+                            "--batch_size", "16", "--save_dir", str(save), "--device", "cpu"])
+    assert model.cfg.use_time and table.shape == (16, 8)
+    rows = [json.loads(line) for line in (save / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2, 3] and all(np.isfinite(r["loss"]) for r in rows)
+    ckpt = str(save / "checkpoint_final.pt")
+    sd = torch.load(ckpt, weights_only=False)["model_state_dict"]
+    cfg = _Small()
+    assert sd["pts_linears.0.weight"].shape[1] == cfg.pos_enc_dim + cfg.time_enc_dim
+    out = tmp_path / "frames"
+    written = main(["render", "--checkpoint", ckpt, "--use_time", "--animate_time",
+                    "--dataset_path", none, "--output_dir", str(out), "--frames", "2",
+                    "--width", "6", "--height", "5", "--quality", "medium", "--device", "cpu"])
+    assert written == [str(out / "rgb_000.png"), str(out / "rgb_001.png")]
+    with pytest.raises(ValueError, match="time-conditioned"):
+        main(["render", "--checkpoint", ckpt, "--dataset_path", none, "--output_dir",
+              str(out), "--frames", "1", "--width", "6", "--height", "5", "--device", "cpu"])
+
+
+def test_cli_render_time_without_use_time_warns(scene, tmp_path):
+    """--time without --use_time warns (the JAX CLI ignores it silently) and
+    renders the model without a time."""
+    from danerf_tpu_torch.cli.main import main
+    from danerf_tpu_torch.models.nerf import NeRF
+
+    ckpt = tmp_path / "m.pt"
+    torch.save({"model_state_dict": NeRF(_Small(), torch.Generator().manual_seed(0)).state_dict(),
+                "iteration": 0}, ckpt)
+    with pytest.warns(UserWarning, match="--use_time"):
+        written = main(["render", "--checkpoint", str(ckpt), "--time", "0.5", "--dataset_path",
+                        str(scene), "--scene", "tiny", "--output_dir", str(tmp_path / "out"),
+                        "--frames", "1", "--width", "6", "--height", "5", "--quality",
+                        "preview", "--device", "cpu"])
+    assert len(written) == 1 and os.path.exists(written[0])
+
+
+def test_cli_train_use_time_needs_times(scene, tmp_path):
+    """train --use_time on a Blender scene, which has no per-image times,
+    raises (as the JAX trainer does)."""
+    from danerf_tpu_torch.cli.main import main
+
+    with pytest.raises(ValueError, match="no per-image times"):
+        main(["train", "--use_time", "--dataset_path", str(scene), "--scene", "tiny", "--iters",
+              "1", "--save_dir", str(tmp_path / "run"), "--device", "cpu"])

@@ -1,7 +1,7 @@
 """The CUDA kernels (K2, K5, the backward kernels K3, K6, the one-pass
-training kernels K4, K7, and the per-sample field K1 with its backward K8)
-against their plain versions, on the card, and the kernel launches of each
-training path.
+training kernels K4, K7, and the per-sample field K1 with its backward K8),
+and their has_time variants (use_time), against their plain versions, on
+the card, and the kernel launches of each training path.
 
 These need a GPU with ``nvcc``: on a host without CUDA each test skips
 (decided in the fixture, not at import).  On the card, whose machine has no
@@ -38,8 +38,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, n=333, seed=0):
-    cfg = NeRFConfig(density_bias_init=0.5)
+def _inputs(dev, n=333, seed=0, **over):
+    cfg = NeRFConfig(density_bias_init=0.5, **over)
     model = NeRF(cfg, torch.Generator().manual_seed(seed)).to(dev).requires_grad_(False)
     g = torch.Generator(device=dev).manual_seed(seed)
     o = torch.randn(n, 3, generator=g, device=dev)
@@ -69,7 +69,7 @@ def _close(got, want, keys):
 def test_march_kernel_matches_plain(dev, want_field):
     cfg, model, o, d, emb, z, _ = _inputs(dev)
     packed = pack_params(model, cfg)
-    got = fr.march_cuda(packed, cfg, o, d, emb, z, want_field)
+    got = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=want_field)
     want = fr.march_plain(packed, cfg, o, d, emb, z, want_field=want_field)
     _close(got, want, ["rgb", "depth", "acc", "weights"] + (["field"] if want_field else []))
 
@@ -155,8 +155,9 @@ def test_merged_train_kernel_matches_plain(dev):
     ({}, {"march": 1, "march_bwd": 1, "merged_train": 1}),
     ({"num_importance": 0}, {"march_train": 1}),
     ({"white_background": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
-    ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2})],
-    ids=["hier", "coarse_only", "white_background", "per_sample"])
+    ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2}),
+    ({"use_time": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1})],
+    ids=["hier", "coarse_only", "white_background", "per_sample", "use_time"])
 def test_train_step_launches_each_kernel_once(dev, over, want):
     """One step of each training path launches exactly its kernels."""
     from danerf_tpu_torch.data.dataset import RayDataset
@@ -167,7 +168,8 @@ def test_train_step_launches_each_kernel_once(dev, over, want):
     imgs = torch.randint(0, 256, (2, 16, 16, 3), generator=rng, dtype=torch.uint8).numpy()
     c2w = torch.eye(4)
     c2w[2, 3] = 4.0
-    ds = RayDataset(imgs, imgs[..., 0], torch.stack([c2w, c2w]).numpy(), 20.0, 2.0, 6.0)
+    ds = RayDataset(imgs, imgs[..., 0], torch.stack([c2w, c2w]).numpy(), 20.0, 2.0, 6.0,
+                    times=torch.tensor([0.0, 1.0]).numpy() if cfg.use_time else None)
     model, table = init_model(cfg, 2, 0, dev)
     opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
     fr.reset_launch_counts()
@@ -316,3 +318,80 @@ def test_per_sample_step_matches_plain(dev, monkeypatch):
     assert abs(lk - lp) <= TOL["loss"]
     for a, b in zip(gk, gp):
         assert float((a - b).norm() / b.norm()) <= TOL["grad_rel"]
+
+
+def _time_inputs(dev, n, seed=0):
+    """_inputs for the time-conditioned model (use_time, kx = 80), with
+    each ray's time uniform in [0, 1]."""
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=n, seed=seed, use_time=True)
+    return cfg, model, o, d, emb, z, torch.rand(n, 1, generator=g, device=dev), g
+
+
+def test_time_march_and_merged_kernels_match_plain(dev):
+    """The has_time K2 (with its field) and K5 at 333 rays."""
+    cfg, model, o, d, emb, z, t, g = _time_inputs(dev, 333)
+    packed = pack_params(model, cfg)
+    got = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True)
+    want = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=True)
+    _close(got, want, ["rgb", "depth", "acc", "weights", "field"])
+    z_f = sample_pdf(z, want["weights"], cfg.num_importance, True, rand=g)
+    _close(fr.merged_cuda(packed, cfg, o, d, emb, z, want["field"], z_f, t),
+           fr.merged_plain(packed, cfg, o, d, emb, z, want["field"], z_f, t),
+           ["rgb", "depth", "acc", "weights", "z_vals"])
+
+
+def test_time_backward_kernels_match_plain(dev):
+    """The has_time K3 (every cotangent, g_field), K6 (every cotangent, a
+    coarse/fine tie), K4 and K7 at 37 rays."""
+    cfg, model, o, d, emb, z, t, g = _time_inputs(dev, 37)
+    packed = pack_params(model, cfg)
+    *cot, g_field = _cotangents(g, 37, cfg.num_samples, dev)
+    gk, dk = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field, t=t)
+    gp, dp = fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field, t=t)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb"]
+    coarse = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], cfg.num_importance, True, rand=g)
+    z_f[:, 5] = z[:, 7]
+    z_f = torch.sort(z_f, dim=-1).values
+    c6 = (cot[0], cot[1], cot[2],
+          0.1 * torch.randn(37, cfg.num_samples + cfg.num_importance, generator=g, device=dev))
+    gk, dk, fk = fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, coarse["field"], z_f, *c6, t=t)
+    gp, dp, fp = fr.merged_bwd_plain(packed, cfg, o, d, emb, z, coarse["field"], z_f, *c6, t=t)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb"]
+    assert float((fk - fp).abs().max()) <= TOL["g_field_k6"]
+    target = torch.rand(37, 3, generator=g, device=dev)
+    lk, gk, dk, fk = fr.merged_train_cuda(packed, cfg, o, d, emb, z, coarse["field"], z_f,
+                                          target, t)
+    lp, gp, dp, fp = fr.merged_train_plain(packed, cfg, o, d, emb, z, coarse["field"], z_f,
+                                           target, t)
+    assert abs(float(lk) - float(lp)) <= TOL["loss"]
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k4"]
+    assert float((fk - fp).abs().max()) <= TOL["g_field"]
+    lk, gk, dk = fr.march_train_cuda(packed, cfg, o, d, emb, z, target, t)
+    lp, gp, dp = fr.march_train_plain(packed, cfg, o, d, emb, z, target, t)
+    assert abs(float(lk) - float(lp)) <= TOL["loss"]
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k4"]
+
+
+def test_time_mlp_kernels_match_plain(dev):
+    """The has_time K1 at 4,093 rows (a ragged tile) and K8 at 2,400 rows
+    (19 tiles), each row with its own time."""
+    cfg, model, *_ = _time_inputs(dev, 8)
+    packed = pack_params(model, cfg)
+    for n in (4093, 2400):
+        x, d, emb, g = _rows(n, NeRFConfig(), dev)
+        t = torch.rand(n, 1, generator=g, device=dev)
+        rk, sk = fm.fused_fwd_cuda(packed, cfg, x, d, emb, t)
+        rp, sp = fm.fused_fwd_plain(packed, cfg, x, d, emb, t)
+        assert float((rk - rp).abs().max()) <= TOL["field_rgb"]
+        assert float(((sk - sp) / sp.abs().clamp_min(1.0)).abs().max()) <= TOL["field_sigma"]
+    g_rgb = torch.randn(n, 3, generator=g, device=dev)
+    g_sig = torch.randn(n, 1, generator=g, device=dev)
+    gk, dk = fm.fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sig, t)
+    gp, dp = fm.fused_bwd_plain(packed, cfg, x, d, emb, g_rgb, g_sig, t)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k8"]

@@ -228,14 +228,18 @@ def test_per_sample_step_routes_through_k1_k8(monkeypatch, n_importance):
 
 
 def test_kernel_wrappers_refuse_use_time():
-    """The K1/K8 wrappers name the missing has_time variant for use_time
-    (before any build or launch)."""
+    """The K1/K8 wrappers launch their has_time variants now (held against
+    JAX in tests/test_torch_time.py); they refuse use_time without a time
+    input, and a time input for a layout without time columns, before any
+    build or launch."""
     _, cfg, _, model = _setup(use_bf16=True)
     packed = fm.pack_params(model, cfg)
     x = torch.zeros(4, 3)
     emb = torch.zeros(4, cfg.appearance_dim)
     tcfg = cfg.replace(use_time=True)
-    with pytest.raises(NotImplementedError, match="has_time"):
+    with pytest.raises(ValueError, match="requires a time input"):
         fm.fused_fwd_cuda(packed, tcfg, x, x, emb)
-    with pytest.raises(NotImplementedError, match="has_time"):
+    with pytest.raises(ValueError, match="requires a time input"):
         fm.fused_bwd_cuda(packed, tcfg, x, x, emb, x, x[:, 0])
+    with pytest.raises(ValueError, match="use_time is False"):
+        fm.fused_fwd_cuda(packed, cfg, x, x, emb, x[:, :1])

@@ -1,5 +1,6 @@
 """danerf_tpu_torch stands alone: it imports neither JAX nor danerf_tpu
-(it renders a frame and takes a 64 + 64, a coarse-only and a per-sample
+(it renders a frame, a frame of a time-conditioned model at two times, and
+takes a 64 + 64, a coarse-only, a per-sample and a time-conditioned
 training step with both blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
@@ -71,6 +72,19 @@ per_sample = cfg.replace(use_fused_train=False)
 model, table = init_model(per_sample, 2, 0, "cpu")
 opt, sched = make_optimizer(per_sample, list(model.parameters()) + [table])
 m = train_step(model, table, opt, sched, ds.device_arrays(), per_sample, 6, 5, 6.0, 4,
+               torch.Generator().manual_seed(0))
+assert bool(torch.isfinite(m["loss"])) and "coarse_mse" in m
+# a use_time render at two times and a use_time step (the plain has_time
+# K2/K5 forward, K6/K3 backward)
+timed = cfg.replace(use_time=True)
+model, table = init_model(timed, 2, 0, "cpu")
+with torch.no_grad():
+    rgb0, _, _ = render_frame(model, timed, c2w, 6, 5, 6.0, t=0.0, device="cpu")
+    rgb1, depth1, _ = render_frame(model, timed, c2w, 6, 5, 6.0, t=1.0, device="cpu")
+assert bool(torch.isfinite(depth1).all()) and not torch.equal(rgb0, rgb1)
+ds.times = np.array([0.0, 1.0], np.float32)
+opt, sched = make_optimizer(timed, list(model.parameters()) + [table])
+m = train_step(model, table, opt, sched, ds.device_arrays(), timed, 6, 5, 6.0, 4,
                torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(m["loss"])) and "coarse_mse" in m
 assert not any(k.split(".")[0] in ("jax", "danerf_tpu") for k in sys.modules)

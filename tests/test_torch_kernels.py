@@ -132,7 +132,9 @@ def test_pack_layout():
     for off, _ in packed.mat_at.values():
         assert off % 64 == 0
     meta = kernel_meta(packed, cfg)
-    assert len(meta) == 9 + 2 * 8 + 8 and meta[1] == 1 << 4 and meta[6] == 256
+    # a head of ten values (the last, the time levels: -1 without use_time)
+    assert len(meta) == 10 + 2 * 8 + 8 and meta[1] == 1 << 4 and meta[6] == 256
+    assert meta[9] == -1
 
     no_app = pack_params(model, cfg, appearance=False)
     assert not no_app.has_appearance

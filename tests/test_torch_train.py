@@ -260,12 +260,15 @@ def test_adam_steplr_matches_optax():
 
 
 def test_kernel_route_refuses_unported_configs():
-    """Coarse-only (K7) and white-background (K6) training run on the kernel
-    route now; use_time still raises, naming the missing has_time kernels."""
-    from danerf_tpu_torch.train.trainer import compute_loss_and_grads
+    """Coarse-only (K7), white-background (K6) and use_time training (the
+    has_time variants, tests/test_torch_time.py) run on the kernel route
+    now; use_time takes loss_fn's route, as in the JAX package, and refuses
+    a batch without per-ray times."""
+    from danerf_tpu_torch.train.trainer import compute_loss_and_grads, use_onepass
 
     _, cfg, _, model, *_ = _setup(False)
-    with pytest.raises(NotImplementedError, match="has_time"):
+    assert use_onepass(cfg) and not use_onepass(cfg.replace(use_time=True))
+    with pytest.raises(ValueError, match="per-ray times"):
         compute_loss_and_grads(model, None, cfg.replace(use_time=True), {})
 
 
