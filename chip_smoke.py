@@ -35,13 +35,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             K3 and K6 (every cotangent; K6 with a coarse/fine tie) at 37
             rays and at B = 1024, K4 and K7 at 37 rays, K1 at 130,976 rows
             and K8 at 2,400 rows, against their plain versions.
+4c. hier_onepass  K9, the one-kernel hierarchical training step, against
+            its plain version at 37 rays and at B = 1024 (seeded targets,
+            uniforms from importance_uniforms), and its has_time variant at
+            37 rays on the time model; both MSEs, every gradient and demb;
+            two calls agree bit for bit.
 5. step     one training step at B = 1024 on each training path (64 + 64;
             coarse only, num_importance=0; 64 + 64 on a white background;
             64 + 64 per sample, use_fused_train=False; 64 + 64 with
-            use_time), each built twice from the same module, table, batch
-            and draws: through the kernels and through their plain
-            versions; the launches, loss, every gradient and the parameters
-            after one Adam step compared.
+            use_time; 64 + 64 in one kernel, use_hier_onepass), each built
+            twice from the same module, table, batch and draws: through the
+            kernels and through their plain versions; the launches, loss,
+            every gradient and the parameters after one Adam step compared;
+            the one-kernel step also against the 64 + 64 step through K2,
+            K4 and K3.
 6. render   the serving path: a seeded full-width model saved as a
             reference-format .pt, rendered by `cli.main render` (two
             400x400 medium frames, then one preview frame); launch counts
@@ -58,20 +65,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             else); 100 steps of `--use_time` on the time-varying scene (one
             K2, K5, K6 and K3 a step, the has_time variants; then `render
             --use_time --animate_time` of its checkpoint, two 400x400 medium
-            frames); finite losses and a rising PSNR.
+            frames); 100 steps of use_hier_onepass, which has no CLI flag
+            either, through train() (one K9 a step and nothing else); finite
+            losses and a rising PSNR.
 8. timing   CUDA-event times of every kernel and its plain version, each
             beside its bound: K2 (want_field) and K5 on a 65,536-ray chunk,
-            K3, K4, K6 and K7 on a chunk and at B = 1024 (plain versions at
-            B = 1024), K1 at 65,536 and 131,072 rows and on a chunk's
-            4,194,304 sample rows, K8 at 65,536 and 131,072 rows; an 800x800
-            medium frame end to end (median of three after a warm-up
-            frame); the training step of each path at B = 1024 (median of 50
-            synchronised steps) with its rays/s and its kernels' share, and
-            the device time by kernel over 10 steps (torch.profiler) of the
-            64 + 64, the coarse-only and the per-sample step; then the same
-            for use_time: the has_time K2/K5 on the chunk, K3-K7 at B = 1024
-            and K1/K8 at 131,072 rows with their plain versions, an 800x800
-            medium frame at t = 0.5, and the use_time step, profiled.
+            K3, K4, K6, K7 and K9 on a chunk and at B = 1024 (plain versions
+            at B = 1024; K9 beside K2 + K4 + K3), K1 at 65,536 and 131,072
+            rows and on a chunk's 4,194,304 sample rows, K8 at 65,536 and
+            131,072 rows; an 800x800 medium frame end to end (median of
+            three after a warm-up frame); the training step of each path at
+            B = 1024 (median of 50 synchronised steps) with its rays/s and
+            its kernels' share, and the device time by kernel over 10 steps
+            (torch.profiler) of the 64 + 64, the coarse-only, the per-sample
+            and the K9 step; then the same for use_time: the has_time K2/K5
+            on the chunk, K3-K7 and K9 at B = 1024 and K1/K8 at 131,072
+            rows with their plain versions, an 800x800 medium frame at
+            t = 0.5, and the use_time step, profiled.
 
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
@@ -667,6 +677,58 @@ def phase_time_kernels(cfg, model, device):
     return worst, chunk
 
 
+def phase_hier_onepass(cfg, model, cfg_t, model_t, device):
+    """K9, the one-kernel hierarchical training step, against its plain
+    version: at 37 rays (19 CTAs, so a lost or doubled CTA shows) and at the
+    1024-ray batch, and its has_time variant at 37 rays on the time model,
+    which no route reaches; seeded targets, uniforms from
+    importance_uniforms (each ray's time uniform in [0, 1]).  Both MSEs,
+    every gradient and demb; two calls on the same inputs must agree bit
+    for bit.  Returns the worst abs error of each variant's per-ray outputs
+    and losses for the kernels record."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import importance_uniforms
+
+    tol = fr.PLAIN_TOL
+    errs, grad_rel, failures, deterministic = {}, {}, [], True
+    for tag, c, m, n, seed in (("K9", cfg, model, 37, 71), ("K9", cfg, model, cfg.batch_size, 72),
+                               ("K9t", cfg_t, model_t, 37, 73)):
+        check, check_grads = checks(errs, grad_rel, failures, m)
+        packed = pack_params(m, c)
+        o, d, emb, z = make_rays(n, c, seed=seed, device=device)
+        g = torch.Generator(device=device).manual_seed(seed + 100)
+        u = importance_uniforms((n,), c.num_importance, True, rand=g, device=device)
+        target = torch.rand(n, 3, generator=g, device=device)
+        t = torch.rand(n, 1, generator=g, device=device) if c.use_time else None
+        args = (packed, c, o, d, emb, z, u, target, t)
+        k, k2 = fr.hier_onepass_cuda(*args), fr.hier_onepass_cuda(*args)
+        p = fr.hier_onepass_plain(*args)
+        torch.cuda.synchronize()
+        flat = lambda r: (r[0], r[1], r[2].mats, r[2].vecs, r[3])  # noqa: E731
+        deterministic &= all(bool(torch.equal(a, b)) for a, b in zip(flat(k), flat(k2)))
+        name = f"{tag}@{n}"
+        check_grads(name, k[2], p[2])
+        check(f"{name}.loss_fine", abs(float(k[0]) - float(p[0])), tol["loss_k9"])
+        check(f"{name}.loss_coarse", abs(float(k[1]) - float(p[1])), tol["loss_k9"])
+        check(f"{name}.demb", max_err(k[3], p[3]), tol["demb_k9"])
+        errs[f"{name}.demb_scale"] = float(p[3].abs().max())
+        errs[f"{name}.loss"] = [float(k[0]), float(k[1])]
+    if not deterministic:
+        failures.append("K9 gave different results on the same inputs")
+    emit({"phase": "hier_onepass", "rays": [37, cfg.batch_size], "time_rays": 37,
+          "max_abs_err": errs, "grad_rel": grad_rel, "deterministic": deterministic,
+          "tolerance": {k: tol[k] for k in ("grad_rel", "loss_k9", "demb_k9")},
+          "failures": failures})
+    if failures:
+        raise AssertionError("K9 disagrees with its plain version: " + "; ".join(failures))
+    return {kern: max(v for key, v in errs.items()
+                      if key.startswith(kern + "@") and not key.endswith(("scale", ".loss")))
+            for kern in ("K9", "K9t")}
+
+
 @contextlib.contextmanager
 def plain_route():
     """Route the autograd Functions through the plain versions on the card
@@ -675,7 +737,7 @@ def plain_route():
     from danerf_tpu_torch.kernels import fused_render as fr
 
     names = ("_march_fwd", "_march_bwd", "_march_train", "_merged_fwd", "_merged_bwd",
-             "_merged_train")
+             "_merged_train", "_hier_onepass")
     saved = {n: getattr(fr, n) for n in names}
     saved_fm = {n: getattr(fm, n) for n in ("_field_fwd", "_field_bwd")}
     fm._field_fwd = lambda pk, c, x, d, e, t: fm.fused_fwd_plain(pk, c, x, d, e, t)
@@ -689,6 +751,7 @@ def plain_route():
     fr._merged_bwd = lambda pk, c, o, d, e, zc, fc, zf, t, cot: fr.merged_bwd_plain(
         pk, c, o, d, e, zc, fc, zf, *cot, t=t)
     fr._merged_train = lambda pk, c, *a: fr.merged_train_plain(pk, c, *a)
+    fr._hier_onepass = lambda pk, c, *a: fr.hier_onepass_plain(pk, c, *a)
     try:
         yield
     finally:
@@ -706,6 +769,7 @@ PATHS = {
               {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
     "per_sample": ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2}),
     "time": ({"use_time": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
+    "hier_onepass": ({"use_hier_onepass": True}, {"hier_onepass": 1}),
 }
 
 
@@ -719,9 +783,11 @@ def phase_step(cfg, model, device):
     """One training step at B = 1024 on each training path (64 + 64; coarse
     only; 64 + 64 on a white background; 64 + 64 per sample, K1/K8; 64 + 64
     with use_time, the has_time K2/K5/K6/K3 on a model of its own and the
-    batch's per-ray times), each built twice from the same module, table,
-    batch and draws: through the kernels and through their plain versions;
-    loss, every gradient and the parameters after one Adam step compared."""
+    batch's per-ray times; 64 + 64 in one kernel, use_hier_onepass, K9),
+    each built twice from the same module, table, batch and draws: through
+    the kernels and through their plain versions; loss, every gradient and
+    the parameters after one Adam step compared.  The K9 step is also held
+    against the 64 + 64 step through K2, K4 and K3 on the same draws."""
     import copy
 
     import torch
@@ -740,7 +806,7 @@ def phase_step(cfg, model, device):
     times = torch.rand(n, 1, generator=g, device=device)
     names = [nm for nm, _ in model.named_parameters()] + ["appearance"]
     tol = fr.PLAIN_TOL
-    report, failures = {}, []
+    report, failures, kernel_runs = {}, [], {}
     for path, (over, per_step) in PATHS.items():
         pcfg = cfg.replace(**over)
         pdraws = draws if pcfg.num_importance > 0 else draws[:1]
@@ -766,34 +832,50 @@ def phase_step(cfg, model, device):
                            "grads": grads, "delta": [p.detach() - b for p, b in zip(params, before)],
                            "launches": dict(fr.LAUNCHES)}
         k, p = runs["kernel"], runs["plain"]
-        grad_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
-                    zip(names, k["grads"], p["grads"]) if float(b.norm()) > 0}
-        upd_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
-                   zip(names, k["delta"], p["delta"]) if float(b.norm()) > 0}
-        param_abs = max(max_err(a, b) for a, b in zip(k["delta"], p["delta"]))
+        kernel_runs[path] = k
         if k["launches"] != launches_of(per_step):
             failures.append(f"{path}: kernel step launches {k['launches']}")
         if any(p["launches"].values()):
             failures.append(f"{path}: plain step launched kernels {p['launches']}")
-        loss_err = abs(k["loss"] - p["loss"])
-        if not math.isfinite(loss_err) or loss_err > tol["loss"]:
-            failures.append(f"{path}: loss: {loss_err} > {tol['loss']}")
-        worst = max(grad_rel, key=grad_rel.get)
-        if not math.isfinite(grad_rel[worst]) or grad_rel[worst] > tol["grad_rel"]:
-            failures.append(f"{path}: grad {worst}: {grad_rel[worst]} > {tol['grad_rel']}")
-        # Adam's first step moves each element by at most lr, so the two runs'
-        # parameters differ by at most 2 lr, reached where a gradient element
-        # near 0 changes sign between them
-        if not math.isfinite(param_abs) or param_abs > 2 * pcfg.learning_rate * (1 + 1e-3):
-            failures.append(f"{path}: parameters after one Adam step: {param_abs}")
-        report[path] = {"loss": [k["loss"], p["loss"]], "loss_err": loss_err,
-                        **{a: [k[a], p[a]] for a in ("mse", "coarse_mse") if a in k},
-                        "grad_rel_worst": {"param": worst, "err": grad_rel[worst]},
-                        "update_rel_worst": max(upd_rel.values()),
-                        "param_max_abs_diff": param_abs, "launches": k["launches"]}
+        loss_tol = tol["loss_k9" if pcfg.use_hier_onepass else "loss"]
+        report[path] = {**step_diff(path, k, p, names, pcfg, loss_tol, failures),
+                        "launches": k["launches"]}
+    # one kernel (K9) against three (K2, K4, K3), the same step and draws
+    report["hier_onepass"]["vs_two_kernel_step"] = step_diff(
+        "hier_onepass vs hier", kernel_runs["hier_onepass"], kernel_runs["hier"], names, cfg,
+        tol["loss_k9"], failures)
     emit({"phase": "step", "rays": n, **report, "failures": failures})
     if failures:
         raise AssertionError("kernel step disagrees with the plain step: " + "; ".join(failures))
+
+
+def step_diff(what, k, p, names, cfg, loss_tol, failures):
+    """Two runs of one step (loss, aux, gradients, parameter updates), the
+    loss held to ``loss_tol``, the gradients to PLAIN_TOL's grad_rel; what
+    is over goes to ``failures``."""
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    tol = fr.PLAIN_TOL
+    grad_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
+                zip(names, k["grads"], p["grads"]) if float(b.norm()) > 0}
+    upd_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
+               zip(names, k["delta"], p["delta"]) if float(b.norm()) > 0}
+    param_abs = max(max_err(a, b) for a, b in zip(k["delta"], p["delta"]))
+    loss_err = abs(k["loss"] - p["loss"])
+    if not math.isfinite(loss_err) or loss_err > loss_tol:
+        failures.append(f"{what}: loss: {loss_err} > {loss_tol}")
+    worst = max(grad_rel, key=grad_rel.get)
+    if not math.isfinite(grad_rel[worst]) or grad_rel[worst] > tol["grad_rel"]:
+        failures.append(f"{what}: grad {worst}: {grad_rel[worst]} > {tol['grad_rel']}")
+    # Adam's first step moves each element by at most lr, so the two runs'
+    # parameters differ by at most 2 lr, reached where a gradient element
+    # near 0 changes sign between them
+    if not math.isfinite(param_abs) or param_abs > 2 * cfg.learning_rate * (1 + 1e-3):
+        failures.append(f"{what}: parameters after one Adam step: {param_abs}")
+    return {"loss": [k["loss"], p["loss"]], "loss_err": loss_err,
+            **{a: [k[a], p[a]] for a in ("mse", "coarse_mse") if a in k},
+            "grad_rel_worst": {"param": worst, "err": grad_rel[worst]},
+            "update_rel_worst": max(upd_rel.values()), "param_max_abs_diff": param_abs}
 
 
 def phase_render(cfg, model, out_dir):
@@ -841,20 +923,22 @@ def phase_render(cfg, model, out_dir):
 
 
 TRAIN_FLAGS = {"hier": [], "coarse": ["--num_importance", "0"], "white": ["--white_background"],
-               "per_sample": [], "time": ["--use_time"]}
+               "per_sample": [], "time": ["--use_time"], "hier_onepass": []}
+# The routes with no CLI flag (nor has the JAX CLI one), trained through train()
+API_PATHS = ("per_sample", "hier_onepass")
 
 
-def train_per_sample(argv):
-    """The per-sample route's entry point, ``train(cfg.replace(
-    use_fused_train=False), dataset)``: it has no CLI flag (the JAX CLI has
-    none), so this builds the config and dataset as `cli.main train` does
-    from ``argv``'s flags."""
+def train_api(argv, over):
+    """A route's entry point where it has no CLI flag (the per-sample route,
+    use_fused_train=False; the one-kernel step, use_hier_onepass=True):
+    ``train(cfg.replace(**over), dataset)``, the config and dataset built as
+    `cli.main train` builds them from ``argv``'s flags."""
     from danerf_tpu_torch.cli.main import _train_config, build_parser
     from danerf_tpu_torch.data.dataset import load_dataset
     from danerf_tpu_torch.train.trainer import train
 
     args = build_parser().parse_args(argv)
-    cfg = _train_config(args).replace(use_fused_train=False)
+    cfg = _train_config(args).replace(**over)
     return train(cfg, load_dataset(cfg, "train"), save_dir=args.save_dir,
                  num_iterations=args.iters, seed=args.seed, device=args.device,
                  log_path=os.path.join(args.save_dir, "metrics.jsonl"))
@@ -862,7 +946,7 @@ def train_per_sample(argv):
 
 def phase_train(out_dir, path, iters, render):
     """A training path through its entry point: `cli.main train` (for the
-    per-sample route ``train_per_sample``) for ``iters`` steps on the
+    routes without a flag ``train_api``) for ``iters`` steps on the
     procedural scene (its time-varying form under --use_time), with exactly
     the path's kernel launches per step, finite losses and a rising PSNR;
     then, when ``render``, `render` of the final checkpoint: a 100x100
@@ -884,8 +968,8 @@ def phase_train(out_dir, path, iters, render):
             "--device", "cuda", "--seed", "0", "--dataset_path", no_scene, *TRAIN_FLAGS[path]]
     fr.reset_launch_counts()
     t0 = time.perf_counter()
-    if path == "per_sample":
-        train_per_sample(argv)
+    if path in API_PATHS:
+        train_api(argv, PATHS[path][0])
     else:
         cli_main(argv)
     torch.cuda.synchronize()
@@ -1027,21 +1111,21 @@ def profile_steps(step, n_prof=10):
 
 
 def phase_train_timing(cfg, model, device, chunk):
-    """The training kernels (K3, K4, K6, K7) on the 65,536-ray chunk and at
-    the 1024-ray batch, their plain versions at the batch; K1 and K8 at the
-    per-sample route's rows of a batch (K1 also on the chunk's), with their
-    plain versions; and the training step of each path at B = 1024 (median
-    of 50 synchronised steps) with a torch.profiler breakdown of the 64 +
-    64, the coarse-only and the per-sample step.  With use_time (the
-    has_time variants, each ray's or row's time uniform in [0, 1]): every
-    kernel at the batch (K1/K8 at 131,072 rows) and the use_time step,
-    profiled."""
+    """The training kernels (K3, K4, K6, K7, K9) on the 65,536-ray chunk and
+    at the 1024-ray batch, their plain versions at the batch; K1 and K8 at
+    the per-sample route's rows of a batch (K1 also on the chunk's), with
+    their plain versions; and the training step of each path at B = 1024
+    (median of 50 synchronised steps) with a torch.profiler breakdown of the
+    64 + 64, the coarse-only, the per-sample and the one-kernel (K9) step.
+    With use_time (the has_time variants, each ray's or row's time uniform
+    in [0, 1]): every kernel at the batch (K1/K8 at 131,072 rows) and the
+    use_time step, profiled."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_mlp as fm
     from danerf_tpu_torch.kernels import fused_render as fr
     from danerf_tpu_torch.kernels.fused_mlp import pack_params
-    from danerf_tpu_torch.ops.sampling import sample_pdf
+    from danerf_tpu_torch.ops.sampling import importance_uniforms, sample_pdf
 
     packed = pack_params(model, cfg)
     sc, sf, e = cfg.num_samples, cfg.num_importance, cfg.appearance_dim
@@ -1056,8 +1140,10 @@ def phase_train_timing(cfg, model, device, chunk):
         "k6": lambda n: (4 * n * (3 + 3 + e + sc + 4 * sc + sf + nt + 3 + 1 + 1 + sa)
                          + 4 * n * (e + 4 * sc)),
         "k7": lambda n: 4 * n * (3 + 3 + e + sc + 3 + nt) + 4 * n * e + 4,
+        "k9": lambda n: 4 * n * (3 + 3 + e + sc + sf + 3 + nt) + 4 * n * e + 8,
     }
-    fine = {"k3": False, "k4": True, "k6": True, "k7": False}   # field at Sf, else Sc
+    # the samples a ray at which each runs the field and its transposed chain
+    samples = {"k3": sc, "k4": sf, "k6": sf, "k7": sc, "k9": sc + sf}
 
     out, bound_by = {}, {}
     g = torch.Generator(device=device).manual_seed(31)
@@ -1078,6 +1164,7 @@ def phase_train_timing(cfg, model, device, chunk):
         field = coarse["field"]
         target = torch.rand(n, 3, generator=g, device=device)
         c6 = (cot[0], cot[1], cot[2], 0.1 * torch.randn(n, sa, generator=g, device=device))
+        u = importance_uniforms((n,), sf, True, rand=g, device=device)
         del coarse
         calls = {
             "k3": (lambda: fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field, t=t),
@@ -1091,13 +1178,14 @@ def phase_train_timing(cfg, model, device, chunk):
                                                t=t)),
             "k7": (lambda: fr.march_train_cuda(packed, cfg, o, d, emb, z, target, t),
                    lambda: fr.march_train_plain(packed, cfg, o, d, emb, z, target, t)),
+            "k9": (lambda: fr.hier_onepass_cuda(packed, cfg, o, d, emb, z, u, target, t),
+                   lambda: fr.hier_onepass_plain(packed, cfg, o, d, emb, z, u, target, t)),
         }
         iters = 3 if tag == "chunk" else 20
         for k, (kern, plain) in calls.items():
             out[f"{k}_{tag}_ms"] = cuda_ms(kern, iters)
             out[f"{k}_{tag}_bound_ms"], bound_by[k] = bound(
-                cfg, n, sf if fine[k] else sc, ray_bytes[k](n) + w_bytes + g_bytes,
-                backward=True)
+                cfg, n, samples[k], ray_bytes[k](n) + w_bytes + g_bytes, backward=True)
             if tag == "batch":
                 out[f"{k}_batch_plain_ms"] = cuda_ms(plain, 5)
         if tag == "batch":
@@ -1111,7 +1199,7 @@ def phase_train_timing(cfg, model, device, chunk):
             k5_bytes = (4 * n * (3 + 3 + e + sc + 4 * sc + sf + nt)
                         + 4 * n * (3 + 1 + 1 + sa + sa) + w_bytes)
             out["k5_batch_bound_ms"], _ = bound(cfg, n, sf, k5_bytes)
-        del cot, g_field, field, target, c6, calls
+        del cot, g_field, field, target, c6, u, calls
 
     # K1 and K8 at the rows of a 1024-ray batch's coarse (65,536) and fine
     # (131,072) evaluations, and K1 on a render chunk's sample rows
@@ -1148,9 +1236,11 @@ def phase_train_timing(cfg, model, device, chunk):
     step_kernels = ({"time": white} if cfg.use_time else
                     {"hier": ("k2_batch", "k3_batch", "k4_batch"), "coarse": ("k7_batch",),
                      "white": white,
-                     "per_sample": ("k1_65536", "k1_131072", "k8_65536", "k8_131072")})
+                     "per_sample": ("k1_65536", "k1_131072", "k8_65536", "k8_131072"),
+                     "hier_onepass": ("k9_batch",)})
     steps = {path: step_timing(cfg.replace(**PATHS[path][0]), device, out, kerns,
-                               profile=path in ("hier", "coarse", "per_sample", "time"))
+                               profile=path in ("hier", "coarse", "per_sample", "time",
+                                                "hier_onepass"))
              for path, kerns in step_kernels.items()}
     emit({"phase": "train_timing", "use_time": cfg.use_time, "batch": cfg.batch_size,
           "chunk_rays": chunk[0].shape[0], **out, "steps": steps})
@@ -1237,13 +1327,15 @@ def main(argv=None):
     cfg_t = cfg.replace(use_time=True)
     model_t = make_model(cfg_t, seed=0, device=device)
     errs_t, chunk_t = phase_time_kernels(cfg_t, model_t, device)
+    errs_k9 = phase_hier_onepass(cfg, model, cfg_t, model_t, device)
     phase_step(cfg, model, device)
     launches = phase_render(cfg, model, args.out)
     train_launches = {"hier": phase_train(args.out, "hier", 200, render=True),
                       "coarse": phase_train(args.out, "coarse", 100, render=False),
                       "white": phase_train(args.out, "white", 100, render=False),
                       "per_sample": phase_train(args.out, "per_sample", 100, render=False),
-                      "time": phase_train(args.out, "time", 100, render=True)}
+                      "time": phase_train(args.out, "time", 100, render=True),
+                      "hier_onepass": phase_train(args.out, "hier_onepass", 100, render=False)}
     timing, bound_by = phase_timing(cfg, model, device, chunk)
     tt, tt_bound_by = phase_train_timing(cfg, model, device, chunk)
     timing_t, bound_by_t = phase_timing(cfg_t, model_t, device, chunk_t, frame_t=0.5)
@@ -1315,6 +1407,29 @@ def main(argv=None):
         rec["variants_held"] = ["without time", "has_time"]
         rec["has_time"] = {"launches": train_launches["time"][counter],
                            "max_abs_err": errs_t[key.upper()], **at}
+    # K9 at the batch, its launches from the use_hier_onepass training run,
+    # beside the three kernels it replaces (K2 + K4 + K3) at the batch and on
+    # the chunk, timed in this call; its has_time variant (reached by no
+    # route, as in the JAX package) at the batch of the time model
+    k9 = {"name": "K9 one-kernel hierarchical training step", "route": "cuda",
+          "source": "danerf_tpu_torch/kernels/csrc/hier_onepass.cu",
+          "replaces": "danerf_tpu/kernels/fused_render.py:1303",
+          "launches": train_launches["hier_onepass"]["hier_onepass"],
+          "max_abs_err": errs_k9["K9"], "ms": tt["k9_batch_ms"],
+          "plain_ms": tt["k9_batch_plain_ms"], "bound_ms": tt["k9_batch_bound_ms"],
+          "bound_by": tt_bound_by["k9"], "library_ms": None,
+          "ms_and_two_kernel_ms": {
+              "batch": [tt["k9_batch_ms"], tt["k2_batch_ms"] + tt["k4_batch_ms"]
+                        + tt["k3_batch_ms"]],
+              "chunk": [tt["k9_chunk_ms"], timing["k2_ms"] + tt["k4_chunk_ms"]
+                        + tt["k3_chunk_ms"]]},
+          "variants_held": ["without time", "has_time"],
+          "has_time": {"launches": train_launches["time"]["hier_onepass"],
+                       "max_abs_err": errs_k9["K9t"], "ms": tt_t["k9_batch_ms"],
+                       "plain_ms": tt_t["k9_batch_plain_ms"],
+                       "bound_ms": tt_t["k9_batch_bound_ms"], "bound_by": tt_bound_by_t["k9"],
+                       "at": "1024-ray batch"}}
+    kernels.append(k9)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

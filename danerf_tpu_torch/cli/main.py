@@ -5,7 +5,9 @@
 ``--checkpoint_every``, and writes reference-format ``.pt`` checkpoints and
 ``metrics.jsonl`` into ``--save_dir``.  ``render`` takes the JAX CLI's
 flags plus ``--device`` and ``--seed``; ``--checkpoint`` is a
-reference-format ``.pt`` (such as ``<save_dir>/checkpoint_final.pt``).
+reference-format ``.pt`` (such as ``<save_dir>/checkpoint_final.pt``), and
+without it ``render`` takes the latest checkpoint of ``checkpoints_<scene>``
+(``train``'s default ``--save_dir``), as the JAX CLI does.
 Flags whose machinery is not yet ported raise instead of being ignored.
 ``--use_time`` trains and renders the time-conditioned variant; ``render``
 warns when ``--time`` or ``--animate_time`` come without it (the JAX CLI
@@ -61,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--scene", type=str, default="hotdog")
     r.add_argument("--dataset_path", type=str, default="data/nerf_synthetic")
     r.add_argument("--checkpoint", type=str, default=None,
-                   help="reference-format .pt checkpoint")
+                   help="reference-format .pt checkpoint (default: the latest in "
+                        "checkpoints_<scene>)")
     r.add_argument("--output_dir", type=str, default="output")
     r.add_argument("--frames", type=int, default=120)
     r.add_argument("--quality", type=str, default="high",
@@ -188,10 +191,18 @@ def _not_ported(args) -> list:
 
 
 def _load_model(args, cfg, device):
-    """NeRF module + appearance embedding 0 from a reference .pt."""
-    from danerf_tpu_torch.utils.checkpoint import load_model
+    """NeRF module + appearance embedding 0 from a reference .pt: the one
+    ``--checkpoint`` names, else the latest of ``checkpoints_<scene>``."""
+    from danerf_tpu_torch.utils.checkpoint import latest_checkpoint, load_model
 
-    model, emb_table, meta, cfg = load_model(args.checkpoint, cfg, device)
+    ckpt = args.checkpoint
+    if not ckpt:
+        default_dir = f"checkpoints_{args.scene}"
+        ckpt = latest_checkpoint(default_dir)
+        if ckpt is None:
+            sys.exit(f"No checkpoint found in {default_dir}; pass --checkpoint")
+        print(f"Using checkpoint: {ckpt}")
+    model, emb_table, meta, cfg = load_model(ckpt, cfg, device)
     emb = None
     if cfg.use_appearance and emb_table is not None:
         emb = emb_table[0]  # the reference renders with embedding 0
@@ -208,8 +219,6 @@ def cmd_render(args):
     bad = _not_ported(args)
     if bad:
         raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
-    if args.checkpoint is None:
-        raise SystemExit("pass --checkpoint <reference-format .pt>")
     device = resolve_device(args.device)
     if not args.use_time and (args.time is not None or args.animate_time):
         warnings.warn("--time/--animate_time have no effect without --use_time (a model "

@@ -1,13 +1,15 @@
 """Frozen configuration: the counterpart of ``danerf_tpu/config.py``.
 
 The fields and defaults equal the JAX package's ``NeRFConfig``, except that
-the TPU knobs ``use_pallas``, ``fused_composite2d`` and ``use_hier_onepass``
-become one switch, ``use_kernels``: route rendering and training through the
-hand-written CUDA kernels (on CUDA tensors; their plain PyTorch versions on
-CPU tensors).  ``use_fused_train`` keeps the JAX meaning: with
-``use_kernels``, training goes through the fused ray-march kernels (K2-K7);
-off, through the per-sample field kernels (K1 forward, K8 backward) with
-plain compositing.
+the TPU knobs ``use_pallas`` and ``fused_composite2d`` become one switch,
+``use_kernels``: route rendering and training through the hand-written CUDA
+kernels (on CUDA tensors; their plain PyTorch versions on CPU tensors).
+``use_fused_train`` keeps the JAX meaning: with ``use_kernels``, training
+goes through the fused ray-march kernels (K2-K7); off, through the
+per-sample field kernels (K1 forward, K8 backward) with plain compositing.
+``use_hier_onepass`` keeps the JAX meaning and default (off): hierarchical
+training in one kernel a step (K9) instead of K2, K4 and K3; like the JAX
+config, it warns when the switch is set where no route takes it.
 """
 
 from __future__ import annotations
@@ -73,6 +75,12 @@ class NeRFConfig:
     # False: the per-sample field kernels K1/K8 with plain compositing
     # (render_rays with fused_composite=False).  Needs use_kernels.
     use_fused_train: bool = True
+    # Hierarchical training as one kernel launch a step (K9: coarse march,
+    # inverse CDF in the kernel, merged fine pass, both MSE terms and the
+    # whole backward, the coarse forward never recomputed) instead of K2, K4
+    # and K3.  Off by default, as in the JAX package; taken only where the
+    # one-pass route serves the config (trainer.use_onepass) with a fine pass.
+    use_hier_onepass: bool = False
     remat: bool = False
     white_background: bool = False
     mesh_data: int = 1
@@ -80,6 +88,20 @@ class NeRFConfig:
 
     # --- rendering ---
     render_chunk: int = 65536    # rays per kernel call when rendering frames
+
+    def __post_init__(self):
+        # use_hier_onepass takes effect only on the one-pass training route
+        # with a fine pass (train.trainer.use_onepass): warn instead of
+        # silently training through other kernels
+        if self.use_hier_onepass and not (
+                self.use_kernels and self.use_fused_train
+                and self.num_importance > 0 and not self.use_time):
+            import warnings
+
+            warnings.warn(
+                "use_hier_onepass=True is ignored: it requires use_kernels, "
+                "use_fused_train, num_importance>0 and use_time=False "
+                "(train/trainer.py use_onepass)", stacklevel=2)
 
     # --- derived dims ---
     @property

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "danerf_tpu_torch"
 SOURCES = ("march", "merged", "march_bwd", "merged_train", "march_train", "merged_bwd",
-           "mlp_fwd", "mlp_bwd")
+           "mlp_fwd", "mlp_bwd", "hier_onepass")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,7 +39,12 @@ _SIGNATURES = {
     "merged_bwd": ("danerf_merged_bwd", [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P] * 4 + _BWD_TAIL),
     "mlp_fwd": ("danerf_mlp_fwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
     "mlp_bwd": ("danerf_mlp_bwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P] * 3 + _BWD_TAIL),
+    "hier_onepass": ("danerf_hier_onepass",
+                     [_P] * 7 + [_I] * 4 + [ctypes.c_double] + [_P] * 4 + _BWD_TAIL),
 }
+# The scratch size of a backward library, (meta, n_meta, R, s, n_vecs) ->
+# bytes: field_bwd.cuh's for one row set a tile, K9's own for its two.
+SCRATCH_FN = {"hier_onepass": "danerf_hier_onepass_scratch_bytes"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -109,9 +114,10 @@ def load(name: str) -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        if hasattr(lib, "danerf_bwd_scratch_bytes"):
-            lib.danerf_bwd_scratch_bytes.argtypes = [_P, _I, _I, _I, _I]
-            lib.danerf_bwd_scratch_bytes.restype = ctypes.c_longlong
+        for size_fn in ("danerf_bwd_scratch_bytes", SCRATCH_FN.get(name)):
+            if size_fn is not None and hasattr(lib, size_fn):
+                getattr(lib, size_fn).argtypes = [_P, _I, _I, _I, _I]
+                getattr(lib, size_fn).restype = ctypes.c_longlong
         lib.danerf_error_string.argtypes = [ctypes.c_int]
         lib.danerf_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

@@ -48,7 +48,7 @@ from danerf_tpu_torch.kernels import _build
 _HALF_PI = torch.tensor(math.pi / 2, dtype=torch.float32).item()  # f32-rounded
 
 LAUNCHES = {"march": 0, "merged": 0, "march_bwd": 0, "merged_train": 0,
-            "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0}
+            "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0, "hier_onepass": 0}
 
 # The s_tile of a backward call whose tiles hold 128 independent rows (K8;
 # csrc/field_bwd.cuh ROW_TILES), not rays of s samples.
@@ -466,15 +466,17 @@ def _launch_bwd(name: str, packed: PackedParams, cfg: NeRFConfig, r: int, s_tile
     what every backward entry takes: the weights and their layout records,
     the transposed weights, and the scratch that holds the residuals of one
     pass (sized by the library for r rays of s_tile samples a tile row, or
-    r rows for s_tile = ROW_TILES).  Returns the gradients (PackedGrads,
-    summed over the rays)."""
+    r rows for s_tile = ROW_TILES; K9: both of its row sets, s_tile =
+    max(Sc, Sf)).  Returns the gradients (PackedGrads, summed over the
+    rays)."""
     dev = packed.device
     lib = _build.load(name)
     meta, n_meta = _meta(packed, cfg)
     mats_t, offs_t = transposed_mats(packed, cfg)
     meta_t = (ctypes.c_longlong * len(offs_t))(*offs_t)
     n_vecs = packed.vecs.numel()
-    nbytes = lib.danerf_bwd_scratch_bytes(meta, n_meta, r, s_tile, n_vecs)
+    size_fn = getattr(lib, _build.SCRATCH_FN.get(name, "danerf_bwd_scratch_bytes"))
+    nbytes = size_fn(meta, n_meta, r, s_tile, n_vecs)
     if nbytes < 0:
         _build.check(lib, int(nbytes), "backward scratch size")
     scratch = torch.empty(max(int(nbytes), 1), dtype=torch.uint8, device=dev)

@@ -1,7 +1,7 @@
 """Fused ray-march, merged-composite and training kernels (counterpart of
 danerf_tpu/kernels/fused_render.py).
 
-Six kernels, each with a plain PyTorch version of the same function:
+Seven kernels, each with a plain PyTorch version of the same function:
 
 - K2, ``csrc/march.cu`` / ``march_plain``: encode o + z*d, run the field and
   composite, per tile of rays; optionally also return the per-sample field
@@ -24,6 +24,13 @@ Six kernels, each with a plain PyTorch version of the same function:
   fine pass of training -- K5's forward, the MSE against the target and
   K6's backward in one call; returns the loss, the fine-side gradients,
   ``demb`` and ``g_field``.
+- K9, ``csrc/hier_onepass.cu`` / ``hier_onepass_plain``: the whole
+  hierarchical training step in one call -- K2's march at the coarse depths
+  keeping its field and residuals, the inverse CDF of its weights at the
+  given uniforms ``u``, K4's fine pass with the fine MSE, and the backward
+  of both passes, the coarse one on the kept residuals (no recompute);
+  returns both MSEs, the gradients of mse_f + coarse_loss_weight x mse_c
+  and ``demb``.
 
 The public functions keep the JAX package's signatures and output layouts.
 They dispatch on the device of the rays: CUDA tensors launch the kernel,
@@ -35,13 +42,13 @@ time gets no gradient, as in the JAX package.  Gradients reach the
 module's parameters through ``torch.autograd.Function``s, never through
 the packed (detached) copy:
 ``MarchFn`` (K2 forward, K3 backward), ``MergedFn`` (K5 forward, K6
-backward), and the one-pass losses ``MarchTrainLossFn`` (K7) and
-``MergedTrainLossFn`` (K4).
+backward), and the one-pass losses ``MarchTrainLossFn`` (K7),
+``MergedTrainLossFn`` (K4) and ``HierOnepassLossFn`` (K9).
 
 ``params`` is the ``NeRF`` module, or its ``pack_params`` output to skip
 re-packing per call (inference only; the differentiable calls take the
 module and, optionally, ``packed``).  ``LAUNCHES`` counts kernel launches
-per kernel, these six and K1/K8 (``fused_mlp``, where it lives with the
+per kernel, these seven and K1/K8 (``fused_mlp``, where it lives with the
 launch helpers these wrappers share).
 """
 
@@ -56,9 +63,10 @@ from danerf_tpu_torch.kernels import _build
 # LAUNCHES, reset_launch_counts and module_params are also used from here
 from danerf_tpu_torch.kernels.fused_mlp import (  # noqa: F401
     LAUNCHES, PackedGrads, PackedParams, _arg, _check_kernel_cfg, _check_packed, _check_time,
-    _f32, _f32_opt, _launch_bwd, _meta, _route, _time_arg, encode_plain, field_bwd_plain,
+    _f32, _f32_opt, _launch_bwd, _meta, _route, _rows_f32, _time_arg, encode_plain, field_bwd_plain,
     field_from_enc_plain, module_params, pack_params, reset_launch_counts, unpack_grads)
 from danerf_tpu_torch.ops.composite import composite
+from danerf_tpu_torch.ops.sampling import sample_pdf
 
 # Max abs error allowed between a kernel and its plain version on the same
 # inputs (field_sigma: relative to max(1, |sigma|)).  Both round to bf16 at the
@@ -87,10 +95,19 @@ from danerf_tpu_torch.ops.composite import composite
 # ~1e-4, and at 131,072 rows some do (2.6e-4 measured; 4e-8 at 2,400
 # rows), how many depending on the data, so the limit is 4e-3, still ~30x
 # below the demb of a lost tile (~0.13).
+#
+# K9 (the one-kernel step): grad_rel, and loss_k9 for each of its two MSEs,
+# demb_k9 for its demb.  Beyond K4's roundings, K9 inverts the CDF of its
+# own coarse weights, which differ from the plain version's by ~1e-5 (the
+# bf16 field, as K2's weights do), so its importance depths and with them
+# the fine MSE move a little further: 8.9e-8 in a loss and 5.7e-8 in demb at
+# 37 rays on the H100, hence 1e-6 and 6e-7; two lost rays of a CTA at 37
+# rays move a loss by ~5e-3 and leave out demb values of ~1e-3.
 PLAIN_TOL = {"rgb": 2e-3, "acc": 2e-3, "weights": 1e-3, "depth": 5e-3,
              "field_rgb": 5e-3, "field_sigma": 5e-3, "z_vals": 0.0,
              "grad_rel": 6e-2, "demb": 3e-4, "demb_k4": 2e-7, "g_field": 1e-8,
-             "g_field_k6": 1e-5, "loss": 3e-7, "demb_k8": 4e-3}
+             "g_field_k6": 1e-5, "loss": 3e-7, "demb_k8": 4e-3, "loss_k9": 1e-6,
+             "demb_k9": 6e-7}
 
 
 def grad_rel_errors(got: PackedGrads, want: PackedGrads, model) -> dict:
@@ -293,6 +310,28 @@ def merged_bwd_plain(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, fiel
     return grads, demb, g_field
 
 
+def hier_onepass_plain(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, u, target,
+                       t=None):
+    """Plain version of K9, the whole hierarchical training step: K2's
+    march at z_c (R, Sc) with its field, ``sample_pdf`` of its weights at the
+    uniforms u (R, Sf), K4's fine pass with the fine MSE and its backward,
+    then K3's backward of the coarse pass under coarse_loss_weight x the
+    coarse MSE's cotangent plus K4's coarse-field cotangent.  It recomputes
+    the coarse forward, which K9 does not.
+
+    Returns (mse_f, mse_c, PackedGrads of mse_f + coarse_loss_weight x
+    mse_c, demb (R,E))."""
+    coarse = march_plain(packed, cfg, o, d, emb, z_c, t, want_field=True)
+    z_f = sample_pdf(z_c, coarse["weights"], u.shape[-1], u=u)
+    mse_f, grads_f, demb_f, g_field = merged_train_plain(packed, cfg, o, d, emb, z_c,
+                                                         coarse["field"], z_f, target, t)
+    g_rgb_c = (2.0 * cfg.coarse_loss_weight / (z_c.shape[0] * 3.0)) * (coarse["rgb"] - target)
+    grads_c, demb_c = march_bwd_plain(packed, cfg, o, d, emb, z_c, g_rgb_c, None, None, None,
+                                      g_field, t=t)
+    grads = PackedGrads(grads_f.mats + grads_c.mats, grads_f.vecs + grads_c.vecs, packed)
+    return mse_f, _mse(coarse["rgb"], target), grads, demb_f + demb_c
+
+
 # ---------------------------------------------------------------- kernels
 
 def _check_field(field_c, r: int, sc: int) -> None:
@@ -447,6 +486,29 @@ def merged_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, field
     return grads, demb, g_field
 
 
+def hier_onepass_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, u, target,
+                      t=None):
+    """Launch K9 on the current stream; outputs as hier_onepass_plain's."""
+    _check_kernel_cfg(cfg)
+    dev = z_c.device
+    _check_packed(packed, dev)
+    o, d, emb, target = _rows_f32(dev, {"o": 3, "d": 3, "emb": cfg.appearance_dim, "target": 3},
+                                  o=o, d=d, emb=emb, target=target)
+    z_c, u = _f32(z_c, dev), _f32(u, dev)
+    r = o.shape[0]
+    if z_c.dim() != 2 or u.dim() != 2 or z_c.shape[0] != r or u.shape[0] != r:
+        raise ValueError(f"z_c of shape {tuple(z_c.shape)} and u of shape {tuple(u.shape)}, "
+                         f"expected ({r}, num_samples) and ({r}, num_importance)")
+    sc, sf = z_c.shape[1], u.shape[1]
+    t = _time_arg(cfg, t, r, dev)
+    demb = torch.empty(r, emb.shape[-1], device=dev)
+    loss = torch.zeros(2, device=dev)
+    grads = _launch_bwd("hier_onepass", packed, cfg, r, max(sc, sf),
+                        (o, d, emb, z_c, u, target, t, r, sc, sf, emb.shape[-1],
+                         float(cfg.coarse_loss_weight)), (demb, loss))
+    return loss[0], loss[1], grads, demb
+
+
 # ---------------------------------------------------------------- routes
 
 def _march_fwd(packed, cfg, o, d, emb, z, t, want_field):
@@ -495,6 +557,14 @@ def _merged_train(packed, cfg, o, d, emb, z_c, field_c, z_f, target, t):
         return merged_train_cuda(packed, cfg, o, d, emb, z_c, field_c, z_f, target, t)
     return merged_train_plain(packed, cfg, o.float(), d.float(), emb, z_c.float(),
                               field_c.float(), z_f.float(), target.float(), _f32_opt(t))
+
+
+def _hier_onepass(packed, cfg, o, d, emb, z_c, u, target, t):
+    _check_time(cfg, t)
+    if _route(o) == "cuda":
+        return hier_onepass_cuda(packed, cfg, o, d, emb, z_c, u, target, t)
+    return hier_onepass_plain(packed, cfg, o.float(), d.float(), emb, z_c.float(), u.float(),
+                              target.float(), _f32_opt(t))
 
 
 class MarchFn(torch.autograd.Function):
@@ -587,6 +657,29 @@ class MarchTrainLossFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (None, None, None, None, None, g * ctx.demb, None, None, None,
+                *(g * ctx.grads[n] for n in ctx.names))
+
+
+class HierOnepassLossFn(torch.autograd.Function):
+    """K9: the loss of hierarchical training, mse_f + coarse_loss_weight x
+    mse_c.  ``forward`` runs the kernel once, which computes both MSEs and
+    all of their gradients, keeps the gradients and returns (the weighted
+    loss, mse_f, mse_c), the last two not differentiable; ``backward(g)``
+    hands out g times the kept gradients for the parameters and ``emb``.
+    The rays, z_c, the uniforms u, the target and t are data."""
+
+    @staticmethod
+    def forward(ctx, cfg, packed, names, o, d, emb, z_c, u, target, t, *params):
+        mse_f, mse_c, grads, demb = _hier_onepass(packed, cfg, o, d, emb, z_c, u, target, t)
+        ctx.names = names
+        ctx.grads = unpack_grads(grads, zip(names, params))
+        ctx.demb = demb
+        ctx.mark_non_differentiable(mse_f, mse_c)
+        return mse_f + cfg.coarse_loss_weight * mse_c, mse_f, mse_c
+
+    @staticmethod
+    def backward(ctx, g, _g_f, _g_c):
+        return (None, None, None, None, None, g * ctx.demb, None, None, None, None,
                 *(g * ctx.grads[n] for n in ctx.names))
 
 
@@ -707,3 +800,20 @@ def fused_hier_train_loss_grads(params, cfg: NeRFConfig, rays_o, rays_d, z_coars
         mse, grads, demb, g_field = _merged_train(packed, cfg, rays_o, rays_d, emb, z_coarse,
                                                   field_coarse, z_fine, target, t)
     return mse, unpack_grads(grads, params), demb, g_field
+
+
+def fused_hier_onepass_train(params, cfg: NeRFConfig, rays_o, rays_d, z_coarse, u, target,
+                             appearance_embedding=None, t=None):
+    """The whole hierarchical training step in one kernel (K9).
+
+    z_coarse (R, Sc) sorted stratified depths; u (R, Sf) the uniforms of
+    ``ops.sampling.importance_uniforms`` (increasing per ray), at which the
+    kernel inverts the coarse weights' CDF; target (R, 3).  Returns
+    (mse_fine, mse_coarse, {parameter name: gradient of mse_fine +
+    coarse_loss_weight x mse_coarse}, demb (R,E)).  ``params`` is the
+    module."""
+    with torch.no_grad():
+        packed, emb = _prepare(params, cfg, rays_o, appearance_embedding)
+        mse_f, mse_c, grads, demb = _hier_onepass(packed, cfg, rays_o, rays_d, emb, z_coarse, u,
+                                                  target, t)
+    return mse_f, mse_c, unpack_grads(grads, params), demb

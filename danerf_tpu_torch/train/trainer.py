@@ -10,8 +10,11 @@ JAX package's does:
   With importance samples, ``_onepass_hier_loss_grads``: K2 marches the
   coarse samples and keeps their field, ``sample_pdf`` draws the importance
   depths, K4 computes the fine MSE with its whole backward, and K3 runs the
-  coarse backward, fed K4's coarse-field cotangent plus the coarse MSE's.
-  Without (``num_importance=0``), ``_onepass_loss_grads``: one K7 launch.
+  coarse backward, fed K4's coarse-field cotangent plus the coarse MSE's;
+  with ``use_hier_onepass``, ``_onepass_hier_fused_loss_grads``: one K9
+  launch, which does all of that and inverts the coarse weights' CDF
+  itself.  Without (``num_importance=0``), ``_onepass_loss_grads``: one K7
+  launch.
 - otherwise ``loss_fn`` and autograd.  On the fused kernel route
   (``use_kernels``, with a white background or with ``use_time``)
   ``render_rays`` runs K2, ``sample_pdf`` and K5 forward, and the backward
@@ -163,6 +166,31 @@ def _onepass_hier_loss_grads(model, table, cfg: NeRFConfig, batch, generator=Non
     return loss.detach(), {"mse": mse_fine.detach(), "coarse_mse": mse_coarse.detach()}
 
 
+def _onepass_hier_fused_loss_grads(model, table, cfg: NeRFConfig, batch, generator=None,
+                                   draws=None):
+    """Hierarchical training in one kernel (K9); leaves the gradients in
+    ``.grad`` and returns (loss, {"mse", "coarse_mse"}).
+
+    The same two draws as ``_onepass_hier_loss_grads``: the importance
+    uniforms u are ``importance_uniforms`` of the second, which is exactly
+    what ``sample_pdf`` inverts the CDF at in the two-kernel step, so the
+    two routes see the same numbers.  The embedding gather's backward
+    scatter-adds demb into the table."""
+    from danerf_tpu_torch.kernels.fused_render import HierOnepassLossFn
+    from danerf_tpu_torch.ops.sampling import importance_uniforms
+
+    rays_o, target = batch["rays_o"], batch["rgb"]
+    n = rays_o.shape[0]
+    u_strat, u_imp = _draws(cfg, n, generator, draws, rays_o.device)
+    rays_d, z_c, emb, packed, (names, params) = _onepass_inputs(model, table, cfg, batch,
+                                                                u_strat)
+    u = importance_uniforms((n,), cfg.num_importance, True, rand=u_imp, device=rays_o.device)
+    loss, mse_f, mse_c = HierOnepassLossFn.apply(cfg, packed, names, rays_o, rays_d, emb, z_c,
+                                                 u, target, None, *params)
+    loss.backward()
+    return loss.detach(), {"mse": mse_f, "coarse_mse": mse_c}
+
+
 def _onepass_loss_grads(model, table, cfg: NeRFConfig, batch, generator=None, draws=None):
     """Coarse-only training in one kernel (K7); leaves the gradients in
     ``.grad`` and returns (mse, {"mse"}).
@@ -206,6 +234,8 @@ def compute_loss_and_grads(model, table, cfg: NeRFConfig, batch, generator=None,
         raise ValueError("cfg.use_time=True requires the batch's per-ray times (batch['t'])")
     if use_onepass(cfg):
         if cfg.num_importance > 0:
+            if cfg.use_hier_onepass:
+                return _onepass_hier_fused_loss_grads(model, table, cfg, batch, generator, draws)
             return _onepass_hier_loss_grads(model, table, cfg, batch, generator, draws)
         return _onepass_loss_grads(model, table, cfg, batch, generator, draws)
     loss, aux = loss_fn(model, table, cfg, batch, generator, draws)

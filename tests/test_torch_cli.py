@@ -177,3 +177,38 @@ def test_cli_train_use_time_needs_times(scene, tmp_path):
     with pytest.raises(ValueError, match="no per-image times"):
         main(["train", "--use_time", "--dataset_path", str(scene), "--scene", "tiny", "--iters",
               "1", "--save_dir", str(tmp_path / "run"), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("final", [True, False], ids=["final", "numbered"])
+def test_cli_render_takes_latest_checkpoint(scene, tmp_path, monkeypatch, capsys, final):
+    """render without --checkpoint takes the latest checkpoint of
+    checkpoints_<scene> (train's default --save_dir), checkpoint_final.pt
+    or else the highest-numbered one, and says which, as the JAX CLI does."""
+    from danerf_tpu_torch.cli.main import main
+
+    monkeypatch.chdir(tmp_path)
+    main(["train", "--dataset_path", str(scene), "--scene", "tiny", "--iters", "2",
+          "--batch_size", "16", "--checkpoint_every", "1", "--device", "cpu"])
+    want = os.path.join("checkpoints_tiny", "checkpoint_final.pt")
+    if not final:
+        os.remove(want)
+        want = os.path.join("checkpoints_tiny", "checkpoint_000002.pt")
+    capsys.readouterr()
+    written = main(["render", "--dataset_path", str(scene), "--scene", "tiny", "--output_dir",
+                    str(tmp_path / "frames"), "--frames", "1", "--width", "6", "--height", "5",
+                    "--quality", "preview", "--device", "cpu"])
+    assert len(written) == 1 and os.path.exists(written[0])
+    assert f"Using checkpoint: {want}" in capsys.readouterr().out
+
+
+def test_cli_render_without_any_checkpoint_exits(scene, tmp_path, monkeypatch):
+    """An empty checkpoints_<scene> and no --checkpoint: render exits with
+    the JAX CLI's message."""
+    from danerf_tpu_torch.cli.main import main
+
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("checkpoints_tiny")
+    with pytest.raises(SystemExit, match="No checkpoint found in checkpoints_tiny; pass "
+                                         "--checkpoint"):
+        main(["render", "--dataset_path", str(scene), "--scene", "tiny", "--output_dir",
+              str(tmp_path / "frames"), "--frames", "1", "--device", "cpu"])

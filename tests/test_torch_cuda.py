@@ -1,7 +1,8 @@
 """The CUDA kernels (K2, K5, the backward kernels K3, K6, the one-pass
-training kernels K4, K7, and the per-sample field K1 with its backward K8),
-and their has_time variants (use_time), against their plain versions, on
-the card, and the kernel launches of each training path.
+training kernels K4, K7, the per-sample field K1 with its backward K8, and
+the one-kernel hierarchical training step K9), and their has_time variants
+(use_time), against their plain versions, on the card, and the kernel
+launches of each training path.
 
 These need a GPU with ``nvcc``: on a host without CUDA each test skips
 (decided in the fixture, not at import).  On the card, whose machine has no
@@ -104,7 +105,8 @@ def test_kernel_route_counts_launches(dev):
                                  40.0, chunk=500, device=dev)
     # 1200 rays in chunks of 500; rendering launches no backward kernel
     assert fr.LAUNCHES == {"march": 3, "merged": 3, "march_bwd": 0, "merged_train": 0,
-                           "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0}
+                           "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
+                           "hier_onepass": 0}
     assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
 
 
@@ -156,8 +158,9 @@ def test_merged_train_kernel_matches_plain(dev):
     ({"num_importance": 0}, {"march_train": 1}),
     ({"white_background": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
     ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2}),
-    ({"use_time": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1})],
-    ids=["hier", "coarse_only", "white_background", "per_sample", "use_time"])
+    ({"use_time": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
+    ({"use_hier_onepass": True}, {"hier_onepass": 1})],
+    ids=["hier", "coarse_only", "white_background", "per_sample", "use_time", "hier_onepass"])
 def test_train_step_launches_each_kernel_once(dev, over, want):
     """One step of each training path launches exactly its kernels."""
     from danerf_tpu_torch.data.dataset import RayDataset
@@ -395,3 +398,71 @@ def test_time_mlp_kernels_match_plain(dev):
     gp, dp = fm.fused_bwd_plain(packed, cfg, x, d, emb, g_rgb, g_sig, t)
     _close_grads(gk, gp, model)
     assert float((dk - dp).abs().max()) <= TOL["demb_k8"]
+
+
+def _hier_inputs(dev, n, use_time=False, seed=0):
+    """K9's inputs: _inputs' rays and depths, uniforms from
+    importance_uniforms, a seeded target and, with use_time, each ray's
+    time."""
+    from danerf_tpu_torch.ops.sampling import importance_uniforms
+
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=n, seed=seed, use_time=use_time)
+    u = importance_uniforms((n,), cfg.num_importance, True, rand=g, device=dev)
+    target = torch.rand(n, 3, generator=g, device=dev)
+    t = torch.rand(n, 1, generator=g, device=dev) if use_time else None
+    return cfg, model, (pack_params(model, cfg), cfg, o, d, emb, z, u, target, t)
+
+
+@pytest.mark.parametrize("n,use_time", [(37, False), (1024, False), (37, True)],
+                         ids=["37", "1024", "37-time"])
+def test_hier_onepass_kernel_matches_plain(dev, n, use_time):
+    """K9 at 37 rays (19 CTAs: a lost or doubled CTA moves every summed
+    gradient by several percent), at the 1024-ray batch, and its has_time
+    variant at 37 rays: both MSEs, every gradient and demb; two calls agree
+    bit for bit."""
+    cfg, model, args = _hier_inputs(dev, n, use_time)
+    k, k2 = fr.hier_onepass_cuda(*args), fr.hier_onepass_cuda(*args)
+    p = fr.hier_onepass_plain(*args)
+    assert abs(float(k[0]) - float(p[0])) <= TOL["loss_k9"]
+    assert abs(float(k[1]) - float(p[1])) <= TOL["loss_k9"]
+    _close_grads(k[2], p[2], model)
+    assert float((k[3] - p[3]).abs().max()) <= TOL["demb_k9"]
+    for a, b in zip((k[0], k[1], k[2].mats, k[2].vecs, k[3]), (k2[0], k2[1], k2[2].mats,
+                                                               k2[2].vecs, k2[3])):
+        assert torch.equal(a, b)
+
+
+def test_hier_onepass_step_matches_plain_and_two_kernel_step(dev, monkeypatch):
+    """One use_hier_onepass step at 256 rays through K9, through its plain
+    version (the route's dispatch pointed at it), and the two-kernel step
+    through K2, K4 and K3, same module, table, batch and draws."""
+    from danerf_tpu_torch.train.trainer import compute_loss_and_grads
+
+    cfg = NeRFConfig(density_bias_init=0.5, use_hier_onepass=True)
+    n = 256
+    _, _, o, d, _, _, g = _inputs(dev, n=n, seed=3)
+    batch = {"rays_o": o, "rays_d": d, "rgb": torch.rand(n, 3, generator=g, device=dev),
+             "img_idx": torch.randint(0, 4, (n,), generator=g, device=dev)}
+    draws = (torch.rand(n, cfg.num_samples, generator=g, device=dev),
+             torch.rand(n, cfg.num_importance, generator=g, device=dev))
+    table0 = torch.randn(4, cfg.appearance_dim, generator=g, device=dev)
+    runs = {}
+    for route in ("kernel", "two_kernel", "plain"):
+        model = NeRF(cfg, torch.Generator().manual_seed(0)).to(dev)
+        table = torch.nn.Parameter(table0.clone())
+        rcfg = cfg.replace(use_hier_onepass=route != "two_kernel")
+        if route == "plain":
+            monkeypatch.setattr(fr, "_hier_onepass",
+                                lambda pk, c, *a: fr.hier_onepass_plain(pk, c, *a))
+        fr.reset_launch_counts()
+        loss, _ = compute_loss_and_grads(model, table, rcfg, batch, draws=draws)
+        runs[route] = (float(loss), [p.grad for p in model.parameters()] + [table.grad],
+                       dict(fr.LAUNCHES))
+    lk, gk, nk = runs["kernel"]
+    assert nk == {k: int(k == "hier_onepass") for k in nk}
+    assert not any(runs["plain"][2].values())
+    for other in ("two_kernel", "plain"):
+        lp, gp, _ = runs[other]
+        assert abs(lk - lp) <= TOL["loss_k9"], other
+        for a, b in zip(gk, gp):
+            assert float((a - b).norm() / b.norm()) <= TOL["grad_rel"], other

@@ -119,12 +119,13 @@ def test_init_distribution():
 
 def test_config_shared_fields_equal():
     """Every field the two configs share has the same default (use_fused_train
-    among them); the TPU knobs are the only JAX fields the port replaces (by
-    use_kernels)."""
+    and use_hier_onepass among them); the TPU knobs are the only JAX fields
+    the port replaces (by use_kernels)."""
     jfields = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     tfields = {f.name: f.default for f in dataclasses.fields(NeRFConfig)}
-    assert "use_fused_train" in set(jfields) & set(tfields)
-    tpu_knobs = {"use_pallas", "fused_composite2d", "use_hier_onepass"}
+    assert {"use_fused_train", "use_hier_onepass"} <= set(jfields) & set(tfields)
+    assert tfields["use_hier_onepass"] is jfields["use_hier_onepass"] is False
+    tpu_knobs = {"use_pallas", "fused_composite2d"}
     assert set(jfields) - set(tfields) == tpu_knobs
     assert set(tfields) - set(jfields) == {"use_kernels"}
     for name in set(jfields) & set(tfields):
