@@ -6,13 +6,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. env      torch / CUDA versions and the card (nvidia-smi name, power limit).
 2. build    compile every kernel from danerf_tpu_torch/kernels/csrc (nvcc,
-            sm_90a, all sources at once); ptxas reports go to DIR/build.log.
+            sm_90a, all sources at once); one line of each kernel's
+            registers, shared memory and spills (-Xptxas -v); the full
+            reports go to DIR/build.log.
 3. kernels  at full width (default NeRFConfig: 8x256, bf16) on seeded inputs,
             each kernel against its plain PyTorch version on the card,
             within fused_render.PLAIN_TOL, at 4093 rays (a ragged tile) and
             at one 65,536-ray chunk: K2 with want_field at 64 samples
             (medium's coarse pass) and without at 32 (preview), K5 at
-            64 + 64 with z_f from sample_pdf of K2's weights; K1 on the
+            64 + 64 with z_f from sample_pdf of K2's weights; at 4093 rays
+            the shapes of csrc/field_sm90.cuh's tile (tile_shapes: K2 at S =
+            32, 48, 64, 100, 128 with and without its field, K5 at 64 + 64,
+            64 + 16, 128 + 128 with and without the appearance projection,
+            two calls bit for bit); K1 on the
             points of 4093 x 32 = 130,976 rows (ragged), and of 65,536 and
             131,072 rows (the coarse and fine evaluations of a 1024-ray
             batch), with and without the appearance projection; and
@@ -32,7 +38,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             encoded time at the first and the skip layers, kx = 80) on a
             model of their own, each ray's (row's) time uniform in [0, 1]:
             K2 (want_field) and K5 at 4093 rays and on a 65,536-ray chunk,
-            K3 and K6 (every cotangent; K6 with a coarse/fine tie) at 37
+            and at tile_shapes' shapes; K3 and K6 (every cotangent; K6 with a coarse/fine tie) at 37
             rays and at B = 1024, K4 and K7 at 37 rays, K1 at 130,976 rows
             and K8 at 2,400 rows, against their plain versions.
 4c. hier_onepass  K9, the one-kernel hierarchical training step, against
@@ -74,7 +80,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             at B = 1024; K9 beside K2 + K4 + K3), K1 at 65,536 and 131,072
             rows and on a chunk's 4,194,304 sample rows, K8 at 65,536 and
             131,072 rows; an 800x800 medium frame end to end (median of
-            three after a warm-up frame); the training step of each path at
+            three after a warm-up frame; exactly 10 K2 and 10 K5 launches a
+            frame and no other kernel); the training step of each path at
             B = 1024 (median of 50 synchronised steps) with its rays/s and
             its kernels' share, and the device time by kernel over 10 steps
             (torch.profiler) of the 64 + 64, the coarse-only, the per-sample
@@ -96,6 +103,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -231,7 +239,23 @@ def phase_env():
     return smi
 
 
+def ptxas_resources(log):
+    """Registers, static shared memory and spills from a source's ``nvcc
+    -Xptxas -v`` output (the most registers and static shared memory of its
+    functions, the spills summed over them)."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = [(int(a), int(b)) for a, b in
+              re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)]
+    return {"registers": max(regs, default=None), "static_smem": max(smem, default=0),
+            "spill_stores": sum(a for a, _ in spills), "spill_loads": sum(b for _, b in spills)}
+
+
 def phase_build(out_dir):
+    """Build every kernel; one line with each one's registers, shared
+    memory and spills (K2 and K5, ``csrc/field_sm90.cuh``, take dynamic
+    shared memory, which ptxas does not report: it is read from the
+    library)."""
     from danerf_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -240,9 +264,10 @@ def phase_build(out_dir):
     with open(os.path.join(out_dir, "build.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"==== {name}.cu\n{log}\n")
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln] for n, log in logs.items()}
-    emit({"phase": "build", "seconds": secs, "built": sorted(logs), "ptxas": ptxas})
+    res = {n: ptxas_resources(log) for n, log in logs.items()}
+    for n in ("march", "merged"):
+        res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
+    emit({"phase": "build", "seconds": secs, "built": sorted(logs), "resources": res})
 
 
 def compare(errs, failures, tag, got, want, keys):
@@ -262,6 +287,54 @@ def compare(errs, failures, tag, got, want, keys):
             errs[f"{tag}.{name}"] = e
             if not math.isfinite(e) or e > PLAIN_TOL[name]:
                 failures.append(f"{tag}.{name}: {e} > {PLAIN_TOL[name]}")
+
+
+def tile_shapes(cfg, model, device, errs, failures, tag, with_time):
+    """K2 and K5 at the shapes field_sm90.cuh's tile takes, against their
+    plain versions at 4093 rays (a ragged last tile): K2 at S = 32, 48, 64,
+    100, 128 (1 to 4 rays a 128-row tile, rays that straddle its two
+    warpgroups or fill both), with and without its field; K5 at Sc + Sf =
+    64 + 64, 64 + 16, 128 + 128 (2, 8 and 1 rays a tile), with the
+    appearance projection and packed as zeros.  ``tag`` is "" or "t" (the
+    time model, each ray's time uniform in [0, 1]).  Two calls must agree
+    bit for bit."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import sample_pdf
+
+    n, same = 4093, True
+    packs = (("", pack_params(model, cfg)), ("_noapp", pack_params(model, cfg, appearance=False)))
+    for s in (32, 48, 64, 100, 128):
+        o, d, emb, z = make_rays(n, cfg, seed=10 + s, device=device, samples=s)
+        t = (torch.rand(n, 1, generator=torch.Generator(device=device).manual_seed(s),
+                        device=device) if with_time else None)
+        for wf in (True, False):
+            args = (packs[0][1], cfg, o, d, emb, z, t)
+            want = fr.march_plain(*args, want_field=wf)
+            got, again = fr.march_cuda(*args, want_field=wf), fr.march_cuda(*args, want_field=wf)
+            torch.cuda.synchronize()
+            compare(errs, failures, f"K2{tag}@{n}x{s}{'_field' if wf else ''}", got, want,
+                    ["rgb", "depth", "acc", "weights"] + (["field"] if wf else []))
+            same &= all(bool(torch.equal(got[k], again[k])) for k in got)
+    for sc, sf in ((64, 64), (64, 16), (128, 128)):
+        o, d, emb, z = make_rays(n, cfg, seed=20 + sf, device=device, samples=sc)
+        g = torch.Generator(device=device).manual_seed(sc + sf)
+        t = torch.rand(n, 1, generator=g, device=device) if with_time else None
+        for app, pk in packs:
+            e = emb if app == "" else torch.zeros_like(emb)
+            coarse = fr.march_plain(pk, cfg, o, d, e, z, t, want_field=True)
+            z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+            args = (pk, cfg, o, d, e, z, coarse["field"], z_f, t)
+            want = fr.merged_plain(*args)
+            got, again = fr.merged_cuda(*args), fr.merged_cuda(*args)
+            torch.cuda.synchronize()
+            compare(errs, failures, f"K5{tag}@{n}x{sc}+{sf}{app}", got, want,
+                    ["rgb", "depth", "acc", "weights", "z_vals"])
+            same &= all(bool(torch.equal(got[k], again[k])) for k in got)
+    if not same:
+        failures.append(f"K2{tag}/K5{tag} gave different results on the same inputs")
 
 
 def phase_kernels(cfg, model, device):
@@ -313,6 +386,7 @@ def phase_kernels(cfg, model, device):
         mean_acc = float(want_f["acc"].mean())
         del want_f, got_f, want, got, want_m, got_m
         chunk = (o, d, emb, z, z_f, None)
+    tile_shapes(cfg, model, device, errs, failures, "", with_time=False)
 
     # K1 on flat points: the samples of 4093 rays x 32 (130,976 rows, a
     # ragged tile), and the coarse (65,536) and fine (131,072) evaluations
@@ -597,6 +671,7 @@ def phase_time_kernels(cfg, model, device):
                 ["rgb", "depth", "acc", "weights", "z_vals"])
         del want_f, got_f, want_m, got_m
         chunk = (o, d, emb, z, z_f, t)
+    tile_shapes(cfg, model, device, errs, failures, "t", with_time=True)
 
     for n, seed in ((37, 51), (cfg.batch_size, 52)):
         o, d, emb, z = make_rays(n, cfg, seed=seed, device=device)
@@ -1071,6 +1146,12 @@ def phase_timing(cfg, model, device, chunk, frame_t=None):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     frame_launches = dict(fr.LAUNCHES)
     chunks = side * side / R
+    # the frame's 640,000 rays in 10 chunks: one K2 and one K5 each, nothing else
+    want_launches = {k: (math.ceil(chunks) if k in ("march", "merged") else 0)
+                     for k in frame_launches}
+    if frame_launches != want_launches:
+        raise AssertionError(f"800x800 medium frame launched {frame_launches}, "
+                             f"expected {want_launches}")
     timing = {"chunk_rays": R, "k2_ms": k2, "k5_ms": k5, "k2_plain_ms": k2_plain,
               "k5_plain_ms": k5_plain, "k2_bound_ms": k2_bound, "k5_bound_ms": k5_bound,
               "frame_800_medium_derived_ms": chunks * (k2 + k5),

@@ -120,6 +120,9 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, size_fn).restype = ctypes.c_longlong
         lib.danerf_error_string.argtypes = [ctypes.c_int]
         lib.danerf_error_string.restype = ctypes.c_char_p
+        if hasattr(lib, "danerf_tile_smem_bytes"):  # K2, K5 (csrc/field_sm90.cuh)
+            lib.danerf_tile_smem_bytes.argtypes = []
+            lib.danerf_tile_smem_bytes.restype = ctypes.c_longlong
         _libs[name] = lib
     return lib
 

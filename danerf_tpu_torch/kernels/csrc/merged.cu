@@ -9,62 +9,107 @@
 // 989 TFLOP/s bf16); the coarse samples' [r,g,b,sigma] come from K2's field
 // output instead of a second MLP evaluation.  Per-ray HBM traffic is ~3.6 KB
 // (field_c in, weights and z_all out), ~0.24 GB per chunk, ~70 us.  The MLP
-// is field.cuh's tensor-core tile; the merge replaces the TPU kernel's
-// one-hot permutation matmuls with per-ray counting in shared memory
-// (field.cuh merge_ray: a stable merge, coarse first on ties; both inputs
-// arrive sorted), then one warp per ray composites the merged samples with
+// is field_sm90.cuh's Hopper tile (persistent CTAs, a TMA weight ring,
+// wgmma); the merge replaces the TPU kernel's one-hot permutation matmuls
+// with per-ray counting (a stable merge, coarse first on ties; both inputs
+// arrive sorted) in the activation buffer, free once both warpgroups have
+// run the heads; then one warp per ray composites the merged samples with
 // a product scan.
 //
 //   in : o, d (R,3), emb (R,E), z_c (R,Sc), field_c (R,4,Sc), z_f (R,Sf) f32
 //        [, t (R) with use_time]
 //   out: rgb (R,3), depth (R), acc (R), w (R,Sc+Sf), z_all (R,Sc+Sf)
 
-#include "field.cuh"
+#include "field_sm90.cuh"
 
 using namespace danerf;
+using namespace danerf::sm90;
 
-__global__ void __launch_bounds__(THREADS, 1)
-merged_kernel(const FieldArgs P, const float* __restrict__ o, const float* __restrict__ d,
-              const float* __restrict__ emb, const float* __restrict__ zc,
-              const float* __restrict__ fc, const float* __restrict__ zf,
-              const float* __restrict__ t, long long R, int Sc,
-              int Sf, int rpc, float* __restrict__ rgb, float* __restrict__ depth,
-              float* __restrict__ acc, float* __restrict__ w, float* __restrict__ zall) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int Sa = Sc + Sf;
-  float* zc_s = reinterpret_cast<float*>(smem_raw + sizeof(Smem));  // rpc x Sc
-  float* mz = zc_s + rpc * Sc;                                        // rpc x Sa
-  float* msig = mz + rpc * Sa;                                        // rpc x Sa
-  float* mrgb = msig + rpc * Sa;                                      // rpc x Sa x 3
-  const long long ray0 = (long long)blockIdx.x * rpc;
+// The merge arrays of a tile: zc (rpc x Sc), then merged z, sigma (rpc x Sa)
+// and rgb (rpc x Sa x 3).  The shapes K5 takes are those whose arrays fit
+// beside field.cuh's tile in 232,448 bytes, as since K5's first design;
+// all of them fit in the activation buffer.
+constexpr size_t MERGE_MAX = 232448 - sizeof(Smem);
+static_assert(MERGE_MAX <= sizeof(Smem90::act), "the merge arrays must fit in sm.act");
 
-  load_rays(sm, o, d, emb, t, P.emb_dim, ray0, rpc, R);
-  for (int row = threadIdx.x; row < TILE_M; row += THREADS) {
-    const int j = row / Sf;
-    const long long r = ray0 + j;
-    sm.z[row] = (j < rpc && r < R) ? zf[r * Sf + (row - j * Sf)] : 0.f;
+// Stable rank merge of one ray's samples by one warp: the sorted coarse
+// depths zc (Sc) with their field fc (the ray's (4, Sc) slice of K2's
+// output) and the sorted fine depths zf (Sf) whose field is the tile's rows
+// row0.. of rgb_s / sig_s.  rank_c = i + #{z_f < z_c[i]}, rank_f = j +
+// #{z_c <= z_f[j]} (field.cuh merge_ray's ranks).
+__device__ void merge_ray90(const float* rgb_s, const float* sig_s, const float* zc, int Sc,
+                            const float* zf, int Sf, const float* __restrict__ fc, int row0,
+                            float* mz, float* msig, float* mrgb) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < Sc; i += 32) {
+    const float zv = zc[i];
+    int cnt = 0;
+    for (int k = 0; k < Sf; ++k) cnt += zf[k] < zv;
+    const int k = i + cnt;
+    mz[k] = zv;
+    mrgb[k * 3 + 0] = fc[i];
+    mrgb[k * 3 + 1] = fc[Sc + i];
+    mrgb[k * 3 + 2] = fc[2 * Sc + i];
+    msig[k] = fc[3 * Sc + i];
   }
-  for (int idx = threadIdx.x; idx < rpc * Sc; idx += THREADS) {
-    const long long r = ray0 + idx / Sc;
-    zc_s[idx] = r < R ? zc[r * Sc + idx % Sc] : 0.f;
+  for (int i = lane; i < Sf; i += 32) {
+    const float zv = zf[i];
+    int cnt = 0;
+    for (int k = 0; k < Sc; ++k) cnt += zc[k] <= zv;
+    const int k = i + cnt;
+    const int row = row0 + i;
+    mz[k] = zv;
+    mrgb[k * 3 + 0] = rgb_s[row * 3 + 0];
+    mrgb[k * 3 + 1] = rgb_s[row * 3 + 1];
+    mrgb[k * 3 + 2] = rgb_s[row * 3 + 2];
+    msig[k] = sig_s[row];
   }
-  __syncthreads();
-  encode_tile(P, sm, Sf, rpc);
-  __syncthreads();
-  field_tile(P, sm, Sf, rpc);
+  __syncwarp();
+}
 
+__global__ void __launch_bounds__(THREADS90, 1)
+merged_kernel(const __grid_constant__ WeightMaps maps, const FieldArgs P, const Rays rays,
+              float* __restrict__ rgb, float* __restrict__ depth, float* __restrict__ acc,
+              float* __restrict__ w, float* __restrict__ zall) {
+  Smem90& sm = smem90();
+  init_ring(sm);
+  if (is_producer()) {
+    produce(maps, P, rays);
+    return;
+  }
+  consumer_regs();
+  const int Sc = rays.pre_n, Sf = rays.s, Sa = Sc + Sf;
+  const int rpc = rays.rpc, tiles = my_tiles(rays.n_tiles);
+  const float* __restrict__ zc = rays.pre_z;
+  const float* __restrict__ fc = rays.pre_f;
+  float* zc_s = reinterpret_cast<float*>(sm.act);  // rpc x Sc
+  float* mz = zc_s + rpc * Sc;                     // rpc x Sa
+  float* msig = mz + rpc * Sa;                     // rpc x Sa
+  float* mrgb = msig + rpc * Sa;                   // rpc x Sa x 3
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int j = warp; j < rpc; j += WARPS) {
-    const long long r = ray0 + j;
-    if (r >= R) break;
-    float* mzj = mz + j * Sa;
-    float* msj = msig + j * Sa;
-    float* mrj = mrgb + j * Sa * 3;
-    merge_ray(sm, zc_s + j * Sc, Sc, sm.z + j * Sf, Sf, fc + r * 4 * Sc, j * Sf, mzj, msj, mrj,
-              nullptr, nullptr);
-    composite_ray(mzj, msj, mrj, Sa, w + r * Sa, rgb + r * 3, depth + r, acc + r);
-    for (int k = lane; k < Sa; k += 32) zall[r * Sa + k] = mzj[k];
+  Pipe pp;
+  float fa[ACC];
+  for (int c = 0; c < tiles; ++c) {
+    const long long ray0 = (blockIdx.x + (long long)c * gridDim.x) * rpc;
+    field_tile90(P, sm, c, Sf, rpc, pp, fa);
+    for (int idx = threadIdx.x; idx < rpc * Sc; idx += CONSUMERS) {
+      const long long r = ray0 + idx / Sc;
+      zc_s[idx] = r < rays.R ? zc[r * Sc + idx % Sc] : 0.f;
+    }
+    consumers_sync();
+    const float* zs = sm.enc[c & 1].z;
+    for (int j = warp; j < rpc; j += CONSUMERS / 32) {
+      const long long r = ray0 + j;
+      if (r >= rays.R) break;
+      float* mzj = mz + j * Sa;
+      float* msj = msig + j * Sa;
+      float* mrj = mrgb + j * Sa * 3;
+      merge_ray90(sm.rgb, sm.sigma, zc_s + j * Sc, Sc, zs + j * Sf, Sf, fc + r * 4 * Sc, j * Sf,
+                  mzj, msj, mrj);
+      composite_ray(mzj, msj, mrj, Sa, w + r * Sa, rgb + r * 3, depth + r, acc + r);
+      for (int k = lane; k < Sa; k += 32) zall[r * Sa + k] = mzj[k];
+    }
+    end_tile(sm, c);
   }
 }
 
@@ -81,13 +126,14 @@ extern "C" int danerf_merged(const float* o, const float* d, const float* emb, c
   if (Sf < 1 || Sf > TILE_M || Sc < 1 || Sc + Sf > 1024) return ERR_SHAPE;
   if (R == 0) return 0;
   const int rpc = (int)(TILE_M / Sf < MAX_RPC ? TILE_M / Sf : MAX_RPC);
-  const size_t smem = sizeof(Smem) + sizeof(float) * rpc * (Sc + 5 * (Sc + Sf));
-  if (smem > 232448) return ERR_SHAPE;
-  cudaError_t e = cudaFuncSetAttribute(merged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long grid = (R + rpc - 1) / rpc;
-  merged_kernel<<<(unsigned)grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      P, o, d, emb, zc, fc, zf, t, R, (int)Sc, (int)Sf, rpc, rgb, depth, acc, w, zall);
+  if (sizeof(float) * rpc * (Sc + 5 * (Sc + Sf)) > MERGE_MAX) return ERR_SHAPE;
+  const long long n_tiles = (R + rpc - 1) / rpc;
+  WeightMaps maps;
+  unsigned grid = 0;
+  const int e = launch_setup(merged_kernel, P, n_tiles, &maps, &grid);
+  if (e) return e;
+  const Rays rays{o, d, emb, t, zf, zc, fc, R, n_tiles, (int)Sf, rpc, (int)Sc};
+  merged_kernel<<<grid, THREADS90, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      maps, P, rays, rgb, depth, acc, w, zall);
   return (int)cudaGetLastError();
 }

@@ -48,17 +48,21 @@ def latest_checkpoint(save_dir: str) -> Optional[str]:
     return max(steps)[1] if steps else None
 
 
-def load_model(path: str, cfg, device="cpu"):
-    """The ``NeRF`` module of a reference-format ``.pt`` on ``device``.
+def load_model(path: str, cfg, device="cuda"):
+    """The ``NeRF`` module of a reference-format ``.pt`` on ``device``: the
+    card unless the caller asks for the CPU (``resolve_device``: raises
+    when CUDA is asked for and absent).
 
     ``cfg`` gives the architecture; its ``use_appearance`` is taken from the
     checkpoint.  Its ``use_time`` must match the checkpoint: a
     time-conditioned model's first and skip layers take ``time_enc_dim``
     (13 at 6 levels) more input columns.  Returns (model, appearance table or
     None, metadata, cfg)."""
+    from danerf_tpu_torch import resolve_device
     from danerf_tpu_torch.models.nerf import NeRF
     from danerf_tpu_torch.utils.convert import load_reference_checkpoint
 
+    device = resolve_device(device)
     sd, emb_table, meta = load_reference_checkpoint(path)
     cfg = cfg.replace(use_appearance="appearance_projection.weight" in sd)
     width = sd["pts_linears.0.weight"].shape[1]

@@ -1,5 +1,5 @@
-"""A/B timing of the port's CUDA kernels (K1-K8, without time) between
-another checkout and this one, on one GPU.
+"""A/B timing of the port's CUDA kernels (K1-K8; K2 and K5 also with time)
+between another checkout and this one, on one GPU.
 
     python3 kernel_ab.py BASE_DIR [--rounds 2] [--out FILE]
 
@@ -8,8 +8,10 @@ with ``git archive``).  Each round runs one process per tree in the order
 base, this, this, base; each process builds its kernels from its own
 sources (``BASE_DIR/build``, ``./build``) and times every kernel with CUDA
 events at chip_smoke.py's shapes and seeds: K2 (want_field) and K5 on a
-65,536-ray chunk, K3 (with g_field), K4, K6 and K7 at the 1024-ray batch,
-K1 and K8 at the 131,072 rows of a batch's fine evaluation.  Prints one
+65,536-ray chunk, K2 also at 32 samples (``preview``) and both with time
+(``use_time``, their has_time variants: ``k2_t``, ``k5_t``), K3 (with
+g_field), K4, K6 and K7 at the 1024-ray batch, K1 and K8 at the 131,072
+rows of a batch's fine evaluation.  Prints one
 JSON line per process and, last, the medians per tree and their ratio
 (this / base) per kernel.  Needs a GPU; exits non-zero without one.
 """
@@ -41,6 +43,9 @@ def _time_kernels(iters):
     cfg = NeRFConfig(density_bias_init=0.5)
     model = NeRF(cfg, torch.Generator().manual_seed(0)).to(dev).requires_grad_(False)
     packed = fm.pack_params(model, cfg)
+    cfg_t = cfg.replace(use_time=True)
+    model_t = NeRF(cfg_t, torch.Generator().manual_seed(0)).to(dev).requires_grad_(False)
+    packed_t = fm.pack_params(model_t, cfg_t)
 
     def rays(n, seed, samples):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -75,6 +80,16 @@ def _time_kernels(iters):
                            max(2, iters // 4))
             out["k5"] = ms(lambda: fr.merged_cuda(packed, cfg, o, d, emb, z, field, z_f),
                            max(2, iters // 4))
+            z32 = z[:, ::2].contiguous()
+            out["k2_s32"] = ms(lambda: fr.march_cuda(packed, cfg, o, d, emb, z32),
+                               max(2, iters // 4))
+            t = torch.rand(n, 1, generator=g, device=dev)
+            coarse_t = fr.march_cuda(packed_t, cfg_t, o, d, emb, z, t, want_field=True)
+            field_t = coarse_t["field"]
+            out["k2_t"] = ms(lambda: fr.march_cuda(packed_t, cfg_t, o, d, emb, z, t,
+                                                   want_field=True), max(2, iters // 4))
+            out["k5_t"] = ms(lambda: fr.merged_cuda(packed_t, cfg_t, o, d, emb, z, field_t, z_f, t),
+                             max(2, iters // 4))
             continue
         cot = (torch.randn(n, 3, generator=g, device=dev), torch.randn(n, generator=g, device=dev),
                torch.randn(n, generator=g, device=dev),

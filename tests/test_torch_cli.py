@@ -169,6 +169,27 @@ def test_cli_render_time_without_use_time_warns(scene, tmp_path):
     assert len(written) == 1 and os.path.exists(written[0])
 
 
+def test_load_model_defaults_to_the_card(tmp_path):
+    """load_model puts the module on the card unless the caller asks for the
+    CPU, as every other entry point does: without CUDA the default raises,
+    and device="cpu" loads."""
+    from danerf_tpu_torch.models.nerf import NeRF
+    from danerf_tpu_torch.utils.checkpoint import load_model
+
+    ckpt = tmp_path / "m.pt"
+    torch.save({"model_state_dict": NeRF(_Small(), torch.Generator().manual_seed(0)).state_dict(),
+                "iteration": 0}, ckpt)
+    if torch.cuda.is_available():
+        model, *_ = load_model(str(ckpt), _Small())
+        assert model.density_head.weight.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load_model(str(ckpt), _Small())
+    model, table, _, cfg = load_model(str(ckpt), _Small(), device="cpu")
+    assert model.density_head.weight.device.type == "cpu" and table is None
+    assert not cfg.use_appearance or "appearance_projection.weight" in model.state_dict()
+
+
 def test_cli_train_use_time_needs_times(scene, tmp_path):
     """train --use_time on a Blender scene, which has no per-image times,
     raises (as the JAX trainer does)."""

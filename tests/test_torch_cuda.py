@@ -66,13 +66,28 @@ def _close(got, want, keys):
             assert err <= TOL[name], f"{name}: {err}"
 
 
+def _ray_inputs(dev, n, s, seed, use_time):
+    """_inputs at s samples a ray, with each ray's time under use_time."""
+    cfg, model, o, d, emb, _, g = _inputs(dev, n=n, seed=seed, use_time=use_time)
+    z, _ = sample_stratified(o, d, cfg.near, cfg.far, s, True, g)
+    t = torch.rand(n, 1, generator=g, device=dev) if use_time else None
+    return cfg, model, o, d, emb, z, t, g
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
 @pytest.mark.parametrize("want_field", [True, False])
-def test_march_kernel_matches_plain(dev, want_field):
-    cfg, model, o, d, emb, z, _ = _inputs(dev)
+@pytest.mark.parametrize("s", [32, 48, 64, 100, 128])
+def test_march_kernel_matches_plain(dev, s, want_field, use_time):
+    """K2 (csrc/field_sm90.cuh's tile) at 1 to 4 rays a 128-row tile, rays
+    that straddle its two warpgroups (48, 100) or fill both (128), 333 rays
+    (a ragged last tile); two calls agree bit for bit."""
+    cfg, model, o, d, emb, z, t, _ = _ray_inputs(dev, 333, s, 0, use_time)
     packed = pack_params(model, cfg)
-    got = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=want_field)
-    want = fr.march_plain(packed, cfg, o, d, emb, z, want_field=want_field)
+    got = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=want_field)
+    again = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=want_field)
+    want = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=want_field)
     _close(got, want, ["rgb", "depth", "acc", "weights"] + (["field"] if want_field else []))
+    assert all(torch.equal(got[k], again[k]) for k in got)
 
 
 def test_march_kernel_preview_samples(dev):
@@ -84,15 +99,40 @@ def test_march_kernel_preview_samples(dev):
            fr.march_plain(packed, cfg, o, d, emb, z32), ["rgb", "depth", "acc", "weights"])
 
 
-def test_merged_kernel_matches_plain(dev):
-    cfg, model, o, d, emb, z, g = _inputs(dev)
-    packed = pack_params(model, cfg, appearance=False)
-    emb0 = torch.zeros_like(emb)
-    coarse = fr.march_plain(packed, cfg, o, d, emb0, z, want_field=True)
-    z_f = sample_pdf(z, coarse["weights"], cfg.num_importance, True, rand=g)
-    got = fr.merged_cuda(packed, cfg, o, d, emb0, z, coarse["field"], z_f)
-    want = fr.merged_plain(packed, cfg, o, d, emb0, z, coarse["field"], z_f)
-    _close(got, want, ["rgb", "depth", "acc", "weights", "z_vals"])
+@pytest.mark.parametrize("appearance", [False, True], ids=["emb_none", "emb"])
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (128, 128)])
+def test_merged_kernel_matches_plain(dev, sc, sf, use_time, appearance):
+    """K5 at 2, 8 and 1 rays a tile (the merge arrays in the activation
+    buffer), with and without time and the appearance projection (packed as
+    zeros without it), at 333 rays; two calls agree bit for bit."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 333, sc, 0, use_time)
+    packed = pack_params(model, cfg, appearance=appearance)
+    if not appearance:
+        emb = torch.zeros_like(emb)
+    coarse = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+    args = (packed, cfg, o, d, emb, z, coarse["field"], z_f, t)
+    got, again = fr.merged_cuda(*args), fr.merged_cuda(*args)
+    _close(got, fr.merged_plain(*args), ["rgb", "depth", "acc", "weights", "z_vals"])
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+def test_merged_kernel_refuses_what_it_always_refused(dev):
+    """The shapes K5 refuses stay refused with the same error: Sf past a
+    tile, Sc + Sf past 1024, merge arrays past their limit (8 rays of Sf =
+    16 at Sc = 400)."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, 64, 9, False)
+    packed = pack_params(model, cfg)
+    field = fr.march_plain(packed, cfg, o, d, emb, z, want_field=True)["field"]
+    for sc, sf in ((64, 129), (960, 128), (400, 16)):
+        zc = torch.sort(torch.rand(37, sc, generator=g, device=dev) * 4 + 2, dim=-1)[0]
+        fc = field[:, :, :1].expand(-1, -1, sc).contiguous()
+        zf = torch.sort(torch.rand(37, sf, generator=g, device=dev) * 4 + 2, dim=-1)[0]
+        with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+            fr.merged_cuda(packed, cfg, o, d, emb, zc, fc, zf)
+    ok = fr.merged_cuda(packed, cfg, o, d, emb, zc[:, :273], fc[:, :, :273], zf)
+    assert ok["rgb"].shape == (37, 3)
 
 
 def test_kernel_route_counts_launches(dev):
