@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. env      torch / CUDA versions and the card (nvidia-smi name, power limit).
 2. build    compile every kernel from danerf_tpu_torch/kernels/csrc (nvcc,
             sm_90a, all sources at once); one line of each kernel's
-            registers, shared memory and spills (-Xptxas -v); the full
-            reports go to DIR/build.log.
+            registers, shared memory and spills (-Xptxas -v; K3/K4's tile
+            and dW pass apart); the full reports go to DIR/build.log.
 3. kernels  at full width (default NeRFConfig: 8x256, bf16) on seeded inputs,
             each kernel against its plain PyTorch version on the card,
             within fused_render.PLAIN_TOL, at 4093 rays (a ragged tile) and
@@ -34,6 +34,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             Per-ray (per-row) outputs and the loss by max abs error, each
             parameter gradient by relative Frobenius error; K3, K7 and K8
             twice, which must agree bit for bit.
+4a. bwd_shapes  K3 and K4 (csrc/field_bwd_sm90.cuh) at every shape their
+            tile takes, at 37 rays, the 1024-ray batch and 4093 rays: K3 at
+            S = 32, 48, 64, 100, 128 with every cotangent and g_field,
+            without g_field, with only g_rgb, and at S = 64 with every
+            cotangent null (exact zeros); K4 at Sc + Sf = 64 + 64, 64 + 16,
+            64 + 48, 128 + 128; both with the appearance projection packed
+            as zeros; two calls bit for bit; run again on the time model
+            after 4b.
 4b. time_kernels  the has_time variants (use_time, 6 time levels: the
             encoded time at the first and the skip layers, kx = 80) on a
             model of their own, each ray's (row's) time uniform in [0, 1]:
@@ -88,7 +96,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             and the K9 step; then the same for use_time: the has_time K2/K5
             on the chunk, K3-K7 and K9 at B = 1024 and K1/K8 at 131,072
             rows with their plain versions, an 800x800 medium frame at
-            t = 0.5, and the use_time step, profiled.
+            t = 0.5, and the use_time step, profiled.  K3 and K4 at the
+            batch are also broken down by kernel (tile, dW pass) beside
+            torch.matmul over the same dW products (dw_cublas_ms, a
+            yardstick only), and each profiled step by part (the K3/K4
+            tile, their dW pass, the rest).
 
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
@@ -251,6 +263,13 @@ def ptxas_resources(log):
             "spill_stores": sum(a for a, _ in spills), "spill_loads": sum(b for _, b in spills)}
 
 
+def function_resources(log, name):
+    """ptxas_resources of the functions of ``log`` whose mangled name holds
+    ``name``."""
+    blocks = re.split(r"(?=ptxas info\s*: Compiling entry function)", log)
+    return ptxas_resources("".join(b for b in blocks if name in b.split("\n", 1)[0]))
+
+
 def phase_build(out_dir):
     """Build every kernel; one line with each one's registers, shared
     memory and spills (K2 and K5, ``csrc/field_sm90.cuh``, take dynamic
@@ -267,6 +286,13 @@ def phase_build(out_dir):
     res = {n: ptxas_resources(log) for n, log in logs.items()}
     for n in ("march", "merged"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
+    # K3 and K4 (csrc/field_bwd_sm90.cuh): the tile kernel and the dW pass
+    # apart, each with its dynamic shared memory
+    for n in ("march_bwd", "merged_train"):
+        lib = _build.load(n)
+        for fn, key, smem in (("bwd_tile90", "tile", lib.danerf_bwd_tile_smem_bytes),
+                              ("dw90_kernel", "dw_pass", lib.danerf_dw90_smem_bytes)):
+            res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
     emit({"phase": "build", "seconds": secs, "built": sorted(logs), "resources": res})
 
 
@@ -335,6 +361,92 @@ def tile_shapes(cfg, model, device, errs, failures, tag, with_time):
             same &= all(bool(torch.equal(got[k], again[k])) for k in got)
     if not same:
         failures.append(f"K2{tag}/K5{tag} gave different results on the same inputs")
+
+
+def phase_bwd_shapes(cfg, model, device, tag):
+    """K3 and K4 at every shape csrc/field_bwd_sm90.cuh's tile takes, against
+    their plain versions at 37 rays (a lost or doubled CTA shows), at the
+    1024-ray batch and at 4093 rays (a ragged last tile): K3 at S = 32, 48,
+    64, 100, 128 with every cotangent and g_field, without g_field, and with
+    only g_rgb (the null ones read as zeros), and at S = 64 with every
+    cotangent null (all outputs exactly zero); K4 at Sc + Sf = 64 + 64,
+    64 + 16, 64 + 48, 128 + 128; both at 64 (+ 64) samples with the
+    appearance projection packed as zeros.  ``tag`` is "" or "t" (the time
+    model, each ray's time uniform in [0, 1]).  Two calls must agree bit for
+    bit.  Returns the worst per-ray abs error of each kernel."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import sample_pdf
+
+    tol = fr.PLAIN_TOL
+    packs = {"": pack_params(model, cfg), "_noapp": pack_params(model, cfg, appearance=False)}
+    errs, grad_rel, failures, same = {}, {}, [], True
+    check, check_grads = checks(errs, grad_rel, failures, model)
+
+    def equal(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    for n in (37, cfg.batch_size, 4093):
+        for s in (32, 48, 64, 100, 128):
+            o, d, emb, z = make_rays(n, cfg, seed=70 + s, device=device, samples=s)
+            g = torch.Generator(device=device).manual_seed(n + s)
+            t = torch.rand(n, 1, generator=g, device=device) if cfg.use_time else None
+            g_rgb, g_depth, g_acc, g_w, g_field = _cotangents(n, s, g, device)
+            cases = {"_field": (g_rgb, g_depth, g_acc, g_w, g_field),
+                     "": (g_rgb, g_depth, g_acc, g_w, None),
+                     "_rgb_only": (g_rgb, None, None, None, None)}
+            if s == 64:
+                cases["_null"] = (None,) * 5
+                cases["_field_noapp"] = cases["_field"]
+            for case, cot in cases.items():
+                pk = packs["_noapp" if case.endswith("noapp") else ""]
+                e = torch.zeros_like(emb) if case.endswith("noapp") else emb
+                name = f"K3{tag}@{n}x{s}{case}"
+                gk, dk = fr.march_bwd_cuda(pk, cfg, o, d, e, z, *cot, t=t)
+                gk2, dk2 = fr.march_bwd_cuda(pk, cfg, o, d, e, z, *cot, t=t)
+                same &= equal((gk.mats, gk.vecs, dk), (gk2.mats, gk2.vecs, dk2))
+                if case == "_null":
+                    torch.cuda.synchronize()
+                    check(f"{name}.zero", max(float(gk.mats.abs().max()),
+                                              float(gk.vecs.abs().max()),
+                                              float(dk.abs().max())), 0.0)
+                    continue
+                gp, dp = fr.march_bwd_plain(pk, cfg, o, d, e, z, *cot, t=t)
+                torch.cuda.synchronize()
+                check_grads(name, gk, gp)
+                check(f"{name}.demb", max_err(dk, dp), tol["demb"])
+        for sc, sf in ((64, 64), (64, 16), (64, 48), (128, 128)):
+            o, d, emb, z = make_rays(n, cfg, seed=80 + sf, device=device, samples=sc)
+            g = torch.Generator(device=device).manual_seed(n + sc + sf)
+            t = torch.rand(n, 1, generator=g, device=device) if cfg.use_time else None
+            target = torch.rand(n, 3, generator=g, device=device)
+            for app in (("", "_noapp") if (sc, sf) == (64, 64) else ("",)):
+                pk = packs[app]
+                e = torch.zeros_like(emb) if app else emb
+                coarse = fr.march_plain(pk, cfg, o, d, e, z, t, want_field=True)
+                z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+                args = (pk, cfg, o, d, e, z, coarse["field"], z_f, target, t)
+                name = f"K4{tag}@{n}x{sc}+{sf}{app}"
+                got, again = fr.merged_train_cuda(*args), fr.merged_train_cuda(*args)
+                lp, gp, dp, fp = fr.merged_train_plain(*args)
+                torch.cuda.synchronize()
+                lk, gk, dk, fk = got
+                same &= equal((lk, gk.mats, gk.vecs, dk, fk),
+                              (again[0], again[1].mats, again[1].vecs, again[2], again[3]))
+                check_grads(name, gk, gp)
+                check(f"{name}.loss", abs(float(lk) - float(lp)), tol["loss"])
+                check(f"{name}.demb", max_err(dk, dp), tol["demb_k4"])
+                check(f"{name}.g_field", max_err(fk, fp), tol["g_field"])
+    if not same:
+        failures.append(f"K3{tag}/K4{tag} gave different results on the same inputs")
+    emit({"phase": "bwd_shapes", "use_time": cfg.use_time, "rays": [37, cfg.batch_size, 4093],
+          "max_abs_err": errs, "grad_rel": grad_rel, "deterministic": same,
+          "failures": failures})
+    if failures:
+        raise AssertionError("K3/K4 disagree with their plain versions: " + "; ".join(failures))
+    return {kern: max(v for k, v in errs.items() if k.startswith(kern)) for kern in ("K3", "K4")}
 
 
 def phase_kernels(cfg, model, device):
@@ -1163,6 +1275,66 @@ def phase_timing(cfg, model, device, chunk, frame_t=None):
     return timing, (k2_by, k5_by)
 
 
+def kernel_part(name):
+    """The part of a step a device kernel belongs to: K3's and K4's tile
+    kernel, their dW pass (the wgmma blocks, the narrow jobs, the
+    reductions), or the rest."""
+    if "bwd_tile90" in name:
+        return "k3_k4_tile"
+    if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
+        return "k3_k4_dw_pass"
+    return "rest"
+
+
+def dw_pass_timing(cfg, packed, device, calls):
+    """K3 and K4 at the batch broken down by torch.profiler (device ms per
+    call of each kernel they launch, and by kernel_part), and torch.matmul
+    over the same d_pre^T @ input products at the batch's 65,536 rows as a
+    yardstick (``dw_cublas_ms``; nothing on any path calls it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from danerf_tpu_torch.kernels.fused_mlp import enc_widths
+
+    out = {}
+    for k in ("k3", "k4"):
+        calls[k][0]()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                calls[k][0]()
+            torch.cuda.synchronize()
+        kern, parts = {}, {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            ms = ev.self_device_time_total / 1e3 / 5
+            kern[ev.key[:60]] = ms
+            parts[kernel_part(ev.key)] = parts.get(kernel_part(ev.key), 0.0) + ms
+        out[k] = {"kernels_ms": kern, "parts_ms": parts}
+    rows = cfg.batch_size * cfg.num_samples
+    kx, kd = enc_widths(cfg)
+    L, hid, half = packed.num_layers, cfg.hidden_dim, cfg.hidden_dim // 2
+    g = torch.Generator(device=device).manual_seed(90)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=device).to(torch.bfloat16)
+
+    dpre, h = rnd(L, rows, hid), rnd(L, rows, hid)
+    ddir, dapp, happ = rnd(rows, half), rnd(rows, half), rnd(rows, half)
+    encx, encd = rnd(rows, kx), rnd(rows, kd)
+    embr, drgb = rnd(rows, cfg.appearance_dim), rnd(rows, 16)
+    skips = [i for i in cfg.skip_connect_layers if 0 < i < L]
+    products = ([(dpre[i], h[i - 1]) for i in range(1, L)] + [(ddir, h[L - 1])]
+                + [(dpre[i], encx) for i in [0] + skips]
+                + [(ddir, encd), (dapp, embr), (drgb, happ)])
+    out["dw_cublas_ms"] = cuda_ms(lambda: [torch.matmul(a.t(), b) for a, b in products], 10)
+    out["dw_cublas_products"] = len(products)
+    del dpre, h, products
+    return out
+
+
 def profile_steps(step, n_prof=10):
     """Device time by kernel over ``n_prof`` steps (torch.profiler, CUPTI):
     the top kernels, the device's busy ms a step and the profiled wall ms a
@@ -1186,7 +1358,11 @@ def profile_steps(step, n_prof=10):
                       and not ev.key.startswith("Optimizer.")),
                      key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
+    breakdown = {}
+    for name, ms, _ in kernels:
+        breakdown[kernel_part(name)] = breakdown.get(kernel_part(name), 0.0) + ms
     return {"profile_ms_per_step": [[k[0][:70], k[1], k[2]] for k in kernels[:14]],
+            "profile_breakdown_ms_per_step": breakdown,
             "profile_device_busy_ms_per_step": busy_ms, "profile_wall_ms_per_step": wall_ms,
             "profile_idle_share": 1.0 - busy_ms / wall_ms}
 
@@ -1280,6 +1456,8 @@ def phase_train_timing(cfg, model, device, chunk):
             k5_bytes = (4 * n * (3 + 3 + e + sc + 4 * sc + sf + nt)
                         + 4 * n * (3 + 1 + 1 + sa + sa) + w_bytes)
             out["k5_batch_bound_ms"], _ = bound(cfg, n, sf, k5_bytes)
+            if not cfg.use_time:
+                out["k3_k4_parts"] = dw_pass_timing(cfg, packed, device, calls)
         del cot, g_field, field, target, c6, u, calls
 
     # K1 and K8 at the rows of a 1024-ray batch's coarse (65,536) and fine
@@ -1404,10 +1582,14 @@ def main(argv=None):
     model = make_model(cfg, seed=0, device=device)
     errs, chunk = phase_kernels(cfg, model, device)
     errs.update(phase_bwd(cfg, model, device))
+    for k, v in phase_bwd_shapes(cfg, model, device, "").items():
+        errs[k] = max(errs[k], v)
     # the time-conditioned model (use_time, 6 time levels): the has_time variants
     cfg_t = cfg.replace(use_time=True)
     model_t = make_model(cfg_t, seed=0, device=device)
     errs_t, chunk_t = phase_time_kernels(cfg_t, model_t, device)
+    for k, v in phase_bwd_shapes(cfg_t, model_t, device, "t").items():
+        errs_t[k] = max(errs_t[k], v)
     errs_k9 = phase_hier_onepass(cfg, model, cfg_t, model_t, device)
     phase_step(cfg, model, device)
     launches = phase_render(cfg, model, args.out)

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from danerf_tpu_torch import resolve_device
 from danerf_tpu_torch.config import NeRFConfig
 
 SYNTHETIC_WIDTH = 100
@@ -61,10 +62,12 @@ class RayDataset:
     def __len__(self) -> int:
         return self.n_images
 
-    def device_arrays(self, white_background: bool = False, device="cpu") -> dict:
-        """The pool on ``device``: images (N*H*W, 3) f32 in [0, 1] (over
-        white when asked), c2ws (N, 4, 4) f32, and times (N,) f32 when the
-        scene has them."""
+    def device_arrays(self, white_background: bool = False, device="cuda") -> dict:
+        """The pool on ``device`` (the card unless the caller asks for the
+        CPU; raises without CUDA, ``resolve_device``): images (N*H*W, 3) f32
+        in [0, 1] (over white when asked), c2ws (N, 4, 4) f32, and times (N,)
+        f32 when the scene has them."""
+        device = resolve_device(device)
         imgs = self.images.astype(np.float32) / 255.0
         if white_background:
             a = self.alphas.astype(np.float32)[..., None] / 255.0

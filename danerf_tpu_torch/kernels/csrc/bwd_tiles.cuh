@@ -1,5 +1,7 @@
-// The tile kernels of the four backward entry points, each a template over
-// where a ray's composite cotangents come from:
+// The tile kernels of the backward entry points on field.cuh's tile, each
+// a template over where a ray's composite cotangents come from, and the
+// per-ray pieces field_bwd_sm90.cuh's tile (K3, K4) shares with them
+// (RayCot, ray_cotangents, store_tile_loss):
 //   MSE = true : formed in the kernel from the MSE against the target over
 //                the R rays, g_rgb = 2 (rgb - target) / (3R) and no depth,
 //                acc or weights cotangent; each ray's loss term is kept and
@@ -9,12 +11,12 @@
 //                g_w (R, n), n the composite's samples a ray; a null pointer
 //                reads as zeros, as autograd hands no cotangent for an
 //                output nothing used (K3, K6).
-// march_tile: the composite over the tile's own samples (K3 march_bwd.cu,
-// K7 march_train.cu).  merged_tile: the field at the fine samples, merged
+// march_tile: the composite over the tile's own samples (K7
+// march_train.cu).  merged_tile: the field at the fine samples, merged
 // with the coarse field by rank, and the un-permute of the cotangents to
-// g_field (R,4,Sc) and the fine rows (K6 merged_bwd.cu, K4 merged_train.cu).
-// Both end in field_bwd.cuh's transposed chain.  t (R) is each ray's time
-// with use_time, else null.
+// g_field (R,4,Sc) and the fine rows (K6 merged_bwd.cu).  Both end in
+// field_bwd.cuh's transposed chain.  t (R) is each ray's time with
+// use_time, else null.
 
 #pragma once
 

@@ -1,7 +1,8 @@
-// Shared code of the backward kernels K3 (march_bwd.cu), K4
-// (merged_train.cu), K6 (merged_bwd.cu) and K7 (march_train.cu), whose
-// tile kernels are bwd_tiles.cuh's, and of K8 (mlp_bwd.cu), whose tile
-// holds 128 independent rows: the composite's transpose for one ray,
+// Shared code of the backward kernels K6 (merged_bwd.cu) and K7
+// (march_train.cu), whose tile kernels are bwd_tiles.cuh's, of K8
+// (mlp_bwd.cu), whose tile holds 128 independent rows, and of K9; K3 and K4
+// (field_bwd_sm90.cuh) take the composite's transpose and the dW pass of
+// the narrow jobs from here: the composite's transpose for one ray,
 // the transposed MLP chain on a tile of 128 rows (the counterpart of
 // danerf_tpu/kernels/fused_mlp.py _field_bwd_from_res and
 // danerf_tpu/kernels/fused_render.py _composite_bwd_lanes), and the two
@@ -527,9 +528,10 @@ __device__ __forceinline__ void load_slab(__nv_bfloat16 (*s)[DW_LD],
 }
 
 // One block: one 64 x 64 tile of one job over the rows of partition
-// blockIdx.y; the tile's partial sum goes to dwpart.  Each warp owns 16
+// blockIdx.y of PARTS; the tile's partial sum goes to dwpart.  Each warp owns 16
 // output rows (m = out) x 64 columns (n = k): A^T and B fragments come from
 // the row-major slabs by ldmatrix.trans (rows are the reduction index).
+template <int PARTS = DW_PARTS>
 __global__ void __launch_bounds__(DW_THREADS)
 dw_kernel(const DwJobs J, float* __restrict__ dwpart, int n_tiles) {
   __shared__ __align__(16) __nv_bfloat16 As[DW_TILE][DW_LD];  // [row][out]
@@ -540,7 +542,7 @@ dw_kernel(const DwJobs J, float* __restrict__ dwpart, int n_tiles) {
   const int out0 = (local / jb.tiles_k) * DW_TILE, k0 = (local % jb.tiles_k) * DW_TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const long long per = (J.rows + DW_PARTS * DW_TILE - 1) / (DW_PARTS * DW_TILE) * DW_TILE;
+  const long long per = (J.rows + PARTS * DW_TILE - 1) / (PARTS * DW_TILE) * DW_TILE;
   const long long r_begin = blockIdx.y * per;
   const long long r_end = r_begin + per < J.rows ? r_begin + per : J.rows;
 
@@ -583,6 +585,7 @@ dw_kernel(const DwJobs J, float* __restrict__ dwpart, int n_tiles) {
 }
 
 // C += the sum of the partitions' partial tiles, in partition order.
+template <int PARTS = DW_PARTS>
 __global__ void dw_reduce(const DwJobs J, const float* __restrict__ dwpart, int n_tiles) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)n_tiles * DW_TILE * DW_TILE) return;
@@ -594,7 +597,7 @@ __global__ void dw_reduce(const DwJobs J, const float* __restrict__ dwpart, int 
   const int n = (local % jb.tiles_k) * DW_TILE + e % DW_TILE;
   if (m >= jb.n_out_store || n >= jb.n_k) return;
   float s = 0.f;
-  for (int p = 0; p < DW_PARTS; ++p) s += dwpart[((long long)p * n_tiles + tile) * DW_TILE * DW_TILE + e];
+  for (int p = 0; p < PARTS; ++p) s += dwpart[((long long)p * n_tiles + tile) * DW_TILE * DW_TILE + e];
   jb.c[(long long)m * jb.ldc + n] += s;
 }
 
@@ -716,21 +719,3 @@ inline int run_passes(const BwdCall& c, const void* kernel, size_t smem, float* 
 }
 
 }  // namespace danerf
-
-// Bytes of scratch a backward call needs for R rays of s samples per tile
-// row group (K3, K7: S; K4, K6: Sf), or R rows for s = ROW_TILES (K8);
-// negative on a malformed layout.
-extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n_meta,
-                                              long long R, long long s, long long n_vecs) {
-  using namespace danerf;
-  if (n_meta < META_HEAD) return ERR_META;
-  FieldArgs P;
-  const int err = parse_meta(meta, n_meta, nullptr, nullptr, meta[8], &P);
-  if (err) return err;
-  if (s < 0 || s > TILE_M || R < 0) return ERR_SHAPE;
-  const int rpc = units_per_tile(s);
-  long long tiles = (R + rpc - 1) / rpc;
-  if (tiles > MAX_TILES_PER_PASS) tiles = MAX_TILES_PER_PASS;
-  Scratch sc;
-  return carve(nullptr, P, tiles, (int)n_vecs, &sc);
-}

@@ -13,22 +13,23 @@
 // written and read back once) adds ~0.6 GB at 1024 x 64, ~0.19 ms at 3.35
 // TB/s.
 //
-// Design (bwd_tiles.cuh march_tile, shared with K7; field_bwd.cuh):
-// residuals that do not fit in shared memory go to a scratch buffer in
-// device memory; parameter gradients are reduced by a separate GEMM pass
-// over fixed row partitions summed in order, so results are deterministic
-// run to run.  The composite transpose runs one warp per ray with a suffix
-// scan.
+// Design (csrc/field_bwd_sm90.cuh): field_sm90.cuh's Hopper tile runs the
+// forward and stashes its residuals (TMA stores of each trunk layer's
+// output, relu gates kept as per-thread bit masks), one warp per ray
+// transposes the composite with a suffix scan, and the transposed chain
+// runs on wgmma through the same TMA weight ring; the dW pass is a wgmma
+// GEMM over fixed row partitions summed in order, so results are
+// deterministic run to run.
 //
 //   in : o, d (R,3), emb (R,E), z (R,S) f32 [, t (R) with use_time];
 //        cotangents g_rgb (R,3), g_depth, g_acc (R), g_w (R,S)
 //        [, g_field (R,4,S)]; a null cotangent reads as zeros
 //   out: gmats, gvecs (packed-layout f32 gradients, added to), demb (R,E)
 
-#include "field_bwd.cuh"
-#include "bwd_tiles.cuh"
+#include "field_bwd_sm90.cuh"
 
 using namespace danerf;
+using namespace danerf::sm90;
 
 extern "C" int danerf_march_bwd(const float* o, const float* d, const float* emb, const float* z,
                                 const float* t, long long R, long long S, long long E,
@@ -38,19 +39,14 @@ extern "C" int danerf_march_bwd(const float* o, const float* d, const float* emb
                                 long long n_meta, const void* mats_t, const long long* meta_t,
                                 long long n_meta_t, void* scratch, long long scratch_bytes,
                                 long long n_vecs, void* stream) {
-  BwdCall c;
-  const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, S, scratch,
-                            scratch_bytes, n_vecs, &c);
+  Bwd90Call c;
+  const int err = bwd90_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, S,
+                              scratch, scratch_bytes, n_vecs, &c);
   if (err) return err;
   if (check_time(c.P, t)) return ERR_SHAPE;
   if (R == 0) return 0;
-  const size_t smem = bwd_smem_bytes((int)S);
-  const RayCot cot{nullptr, 0.f, g_rgb, g_depth, g_acc, g_w};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return run_passes(c, reinterpret_cast<const void*>(march_tile<false>), smem, gmats, gvecs,
-                    nullptr, (int)n_vecs, st, [&](int nt, long long ray_base) {
-                      march_tile<false><<<nt, THREADS, smem, st>>>(
-                          c.P, c.W, c.sc, o, d, emb, z, t, R, (int)S, c.rpc, ray_base, cot,
-                          g_field, demb);
-                    });
+  const MarchComp comp{{nullptr, 0.f, g_rgb, g_depth, g_acc, g_w}, g_field, (int)S};
+  const BwdRays rays{o, d, emb, t, z, R, 0, 0, (int)S, c.rpc};
+  return run_bwd90(c, comp, rays, gmats, gvecs, nullptr, demb, (int)n_vecs,
+                   static_cast<cudaStream_t>(stream));
 }

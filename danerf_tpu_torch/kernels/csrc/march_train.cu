@@ -25,6 +25,7 @@
 //   out: gmats, gvecs (added to), demb (R,E), loss (added to)
 
 #include "field_bwd.cuh"
+#include "bwd_scratch.cuh"
 #include "bwd_tiles.cuh"
 
 using namespace danerf;

@@ -30,6 +30,7 @@
 //   out: gmats, gvecs (added to), demb (R,E), g_field (R,4,Sc)
 
 #include "field_bwd.cuh"
+#include "bwd_scratch.cuh"
 #include "bwd_tiles.cuh"
 
 using namespace danerf;

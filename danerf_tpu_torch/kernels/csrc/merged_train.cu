@@ -14,25 +14,27 @@
 // (g_field); the residual scratch adds ~9.5 KB a fine-sample row
 // (field_bwd.cuh).
 //
-// Design (bwd_tiles.cuh merged_tile, shared with K6 with the cotangents
-// formed from the MSE): the merge is K5's per-ray counting (field.cuh merge_ray: rank_c =
-// i + #{z_f < z_c[i]}, rank_f = j + #{z_c <= z_f[j]}, coarse first on ties),
-// and the ranks are kept so that the un-permute is the inverse gather by
-// them (the TPU's transposed one-hot matmuls are not carried over): coarse
-// ranks give g_field (R,4,Sc), fine ranks the per-row cotangents of the
-// fine field.
-// The loss masks the ragged edge by processing only rays < R; it is summed
-// per tile and then in tile order.  Residuals and the deterministic
-// gradient reduction are field_bwd.cuh's.
+// Design (csrc/field_bwd_sm90.cuh, K3's tile with this composite): the
+// merge is K5's per-ray counting (rank_c = i + #{z_f < z_c[i]}, rank_f = j +
+// #{z_c <= z_f[j]}, coarse first on ties), and the ranks are kept so that
+// the un-permute is the inverse gather by them (the TPU's transposed
+// one-hot matmuls are not carried over): coarse ranks give g_field
+// (R,4,Sc), fine ranks the per-row cotangents of the fine field.  The merge
+// arrays live in the weight ring between the forward and the transposed
+// chain.  The loss masks the ragged edge by processing only rays < R; it is
+// summed per tile and then in tile order.  The shapes K4 takes are those
+// whose merge arrays fit beside field.cuh's tile in 232,448 bytes
+// (bwd_tiles.cuh merged_smem_bytes), as since K4's first design; all of
+// them fit in the ring.
 //
 //   in : o, d (R,3), emb (R,E), z_c (R,Sc), field_c (R,4,Sc), z_f (R,Sf),
 //        target (R,3) f32 [, t (R) with use_time]
 //   out: gmats, gvecs (added to), demb (R,E), g_field (R,4,Sc), loss (added to)
 
-#include "field_bwd.cuh"
-#include "bwd_tiles.cuh"
+#include "field_bwd_sm90.cuh"
 
 using namespace danerf;
+using namespace danerf::sm90;
 
 extern "C" int danerf_merged_train(const float* o, const float* d, const float* emb,
                                    const float* zc, const float* fc, const float* zf,
@@ -45,19 +47,16 @@ extern "C" int danerf_merged_train(const float* o, const float* d, const float* 
                                    long long n_meta_t, void* scratch, long long scratch_bytes,
                                    long long n_vecs, void* stream) {
   if (Sc < 1 || Sc + Sf > 256) return ERR_SHAPE;
-  BwdCall c;
-  const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, Sf, scratch,
-                            scratch_bytes, n_vecs, &c);
+  Bwd90Call c;
+  const int err = bwd90_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, Sf,
+                              scratch, scratch_bytes, n_vecs, &c);
   if (err) return err;
   if (check_time(c.P, t)) return ERR_SHAPE;
   if (R == 0) return 0;
-  const size_t smem = merged_smem_bytes((int)Sc, (int)Sf, c.rpc);
-  const RayCot cot{target, 1.f / (float)(R * 3.0), nullptr, nullptr, nullptr, nullptr};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return run_passes(c, reinterpret_cast<const void*>(merged_tile<true>), smem, gmats, gvecs,
-                    loss, (int)n_vecs, st, [&](int nt, long long ray_base) {
-                      merged_tile<true><<<nt, THREADS, smem, st>>>(
-                          c.P, c.W, c.sc, o, d, emb, zc, fc, zf, t, R, (int)Sc, (int)Sf, c.rpc,
-                          ray_base, cot, demb, gfield);
-                    });
+  if (merged_smem_bytes((int)Sc, (int)Sf, c.rpc) > 232448) return ERR_SHAPE;
+  const MergedComp comp{{target, 1.f / (float)(R * 3.0), nullptr, nullptr, nullptr, nullptr},
+                        zc, fc, gfield, R, (int)Sc, (int)Sf};
+  const BwdRays rays{o, d, emb, t, zf, R, 0, 0, (int)Sf, c.rpc};
+  return run_bwd90(c, comp, rays, gmats, gvecs, loss, demb, (int)n_vecs,
+                   static_cast<cudaStream_t>(stream));
 }

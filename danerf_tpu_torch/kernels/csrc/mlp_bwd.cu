@@ -29,6 +29,7 @@
 //   out: gmats, gvecs (packed-layout f32 gradients, added to), demb (N,E)
 
 #include "field_bwd.cuh"
+#include "bwd_scratch.cuh"
 
 using namespace danerf;
 

@@ -186,7 +186,9 @@ def transposed_mats(packed: PackedParams, cfg: NeRFConfig):
     """The hidden-input block of each trunk layer after the first, and of the
     dir layer, transposed: W[:, :hidden]^T as (hidden, out) row-major bf16,
     which the backward kernels read as the B operand of d_in = d_pre @ W
-    (csrc/field_bwd.cuh); and the appearance projection transposed, (E,
+    (csrc/field_bwd.cuh; csrc/field_bwd_sm90.cuh streams the trunk blocks,
+    which lie one after the other, as one matrix); and the appearance
+    projection transposed, (E,
     half), the B operand of K8's per-row demb = d_happ @ Wapp.  Returns
     (flat tensor, offsets): one offset per trunk layer (-1 for layer 0,
     whose d_in is not formed), one for the dir layer and one for Wapp^T."""
@@ -645,10 +647,15 @@ def fused_nerf_apply(model, cfg: NeRFConfig, x, d, appearance_embedding=None, t=
     return rgb.reshape(*lead, 3), sigma.reshape(lead)
 
 
-def params_from_jax_module(params: dict, cfg: NeRFConfig, device="cpu"):
+def params_from_jax_module(params: dict, cfg: NeRFConfig, device="cuda"):
     """A ``NeRF`` module holding a JAX param pytree (numpy arrays), for
-    running the JAX package's weights through the kernels."""
+    running the JAX package's weights through the kernels; on the card
+    unless the caller asks for the CPU (raises without CUDA,
+    ``resolve_device``)."""
+    from danerf_tpu_torch import resolve_device
     from danerf_tpu_torch.models.nerf import NeRF
+
+    device = resolve_device(device)
     from danerf_tpu_torch.utils.convert import params_from_jax
 
     sd = params_from_jax(params)

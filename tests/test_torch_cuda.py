@@ -193,6 +193,83 @@ def test_merged_train_kernel_matches_plain(dev):
     assert float((fk - fp).abs().max()) <= TOL["g_field"]
 
 
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("cot", ["field", "no_field", "rgb_only"])
+@pytest.mark.parametrize("s", [32, 48, 64, 100, 128])
+def test_march_bwd_kernel_at_every_tile_shape(dev, s, cot, use_time):
+    """K3 (csrc/field_bwd_sm90.cuh) at the sample counts its tile takes (1 to
+    4 rays a 128-row tile), with every cotangent and g_field, without
+    g_field, and with only g_rgb (null cotangents read as zeros); two calls
+    bit for bit."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, s, 20 + s, use_time)
+    packed = pack_params(model, cfg)
+    g_rgb, g_depth, g_acc, g_w, g_field = _cotangents(g, 37, s, dev)
+    cots = {"field": (g_rgb, g_depth, g_acc, g_w, g_field),
+            "no_field": (g_rgb, g_depth, g_acc, g_w, None),
+            "rgb_only": (g_rgb, None, None, None, None)}[cot]
+    gk, dk = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cots, t=t)
+    gk2, dk2 = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cots, t=t)
+    gp, dp = fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cots, t=t)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb"]
+    assert torch.equal(gk.mats, gk2.mats) and torch.equal(gk.vecs, gk2.vecs)
+    assert torch.equal(dk, dk2)
+
+
+def test_march_bwd_kernel_null_cotangents_give_zeros(dev):
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
+    gk, dk = fr.march_bwd_cuda(pack_params(model, cfg), cfg, o, d, emb, z, None, None, None,
+                               None)
+    assert not gk.mats.any() and not gk.vecs.any() and not dk.any()
+
+
+@pytest.mark.parametrize("appearance", [True, False], ids=["emb", "emb_none"])
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (64, 48), (128, 128)])
+def test_merged_train_kernel_at_every_tile_shape(dev, sc, sf, use_time, appearance):
+    """K4 at the Sc + Sf its tile takes (2, 8, 2 and 1 rays a tile), with
+    the appearance projection and packed as zeros; two calls bit for bit."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, sc, 30 + sf, use_time)
+    packed = pack_params(model, cfg, appearance=appearance)
+    emb = emb if appearance else torch.zeros_like(emb)
+    coarse = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+    target = torch.rand(37, 3, generator=g, device=dev)
+    args = (packed, cfg, o, d, emb, z, coarse["field"], z_f, target, t)
+    lk, gk, dk, fk = fr.merged_train_cuda(*args)
+    lk2, gk2, dk2, fk2 = fr.merged_train_cuda(*args)
+    lp, gp, dp, fp = fr.merged_train_plain(*args)
+    assert abs(float(lk) - float(lp)) <= TOL["loss"]
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k4"]
+    assert float((fk - fp).abs().max()) <= TOL["g_field"]
+    assert all(torch.equal(a, b) for a, b in ((lk, lk2), (gk.mats, gk2.mats),
+                                              (gk.vecs, gk2.vecs), (dk, dk2), (fk, fk2)))
+
+
+def test_backward_tile_refuses_what_it_always_refused(dev):
+    """The shapes K3 and K4 refuse stay refused: S or Sf past a tile, Sc +
+    Sf past 256, and K4's merge arrays past their limit (8 rays of Sf = 16
+    at Sc = 126; Sc = 125 is taken)."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, 129, 9, False)
+    packed = pack_params(model, cfg)
+    with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+        fr.march_bwd_cuda(packed, cfg, o, d, emb, z, None, None, None, None)
+    field = fr.march_plain(packed, cfg, o, d, emb, z[:, :64], want_field=True)["field"]
+    target = torch.rand(37, 3, generator=g, device=dev)
+
+    def merged(sc, sf):
+        zc = torch.sort(torch.rand(37, sc, generator=g, device=dev) * 4 + 2, dim=-1)[0]
+        fc = field[:, :, :1].expand(-1, -1, sc).contiguous()
+        zf = torch.sort(torch.rand(37, sf, generator=g, device=dev) * 4 + 2, dim=-1)[0]
+        return fr.merged_train_cuda(packed, cfg, o, d, emb, zc, fc, zf, target)
+
+    for sc, sf in ((64, 129), (200, 64), (126, 16)):
+        with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+            merged(sc, sf)
+    assert merged(125, 16)[3].shape == (37, 4, 125)
+
+
 @pytest.mark.parametrize("over,want", [
     ({}, {"march": 1, "march_bwd": 1, "merged_train": 1}),
     ({"num_importance": 0}, {"march_train": 1}),

@@ -126,7 +126,7 @@ def test_sample_ray_batch_matches_jax_draws():
     jcfg, cfg = JaxConfig(), NeRFConfig()
     jpool = ds.device_arrays(white_background=True)
     t_ds = RayDataset(ds.images, ds.alphas, ds.c2ws, ds.focal, ds.near, ds.far)
-    pool = t_ds.device_arrays(white_background=True)
+    pool = t_ds.device_arrays(white_background=True, device="cpu")
     np.testing.assert_array_equal(pool["images"].numpy(), np.asarray(jpool["images"]))
     key = jax.random.key(5)
     want = j_sample(key, jpool, jcfg, 8, 10, ds.focal, batch_size=16)

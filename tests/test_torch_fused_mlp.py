@@ -48,7 +48,7 @@ def _setup(use_bf16=False, seed=0, **over):
     jcfg = JaxConfig(**SMALL, use_bf16=use_bf16, **over)
     cfg = NeRFConfig(**SMALL, use_bf16=use_bf16, **over)
     params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(seed), jcfg))
-    return jcfg, cfg, params, params_from_jax_module(params, cfg)
+    return jcfg, cfg, params, params_from_jax_module(params, cfg, device="cpu")
 
 
 def _inputs(n, cfg, seed=3):

@@ -67,7 +67,7 @@ def _setup(use_bf16, seed=0, **over):
     jcfg = JaxConfig(**SMALL, use_bf16=use_bf16, **over)
     cfg = NeRFConfig(**SMALL, use_bf16=use_bf16, **over)
     params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(seed), jcfg))
-    return jcfg, cfg, params, params_from_jax_module(params, cfg), np.random.default_rng(seed)
+    return jcfg, cfg, params, params_from_jax_module(params, cfg, device="cpu"), np.random.default_rng(seed)
 
 
 def _rays(rng, n=R):

@@ -57,21 +57,21 @@ ds = RayDataset(np.full((2, 6, 5, 3), 128, np.uint8), np.full((2, 6, 5), 255, np
                 np.stack([np.asarray(camera_path("circle", 2, "lego")[0])] * 2), 6.0, 2.0, 6.0)
 model, table = init_model(cfg, 2, 0, "cpu")
 opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
-m = train_step(model, table, opt, sched, ds.device_arrays(), cfg, 6, 5, 6.0, 4,
+m = train_step(model, table, opt, sched, ds.device_arrays(device="cpu"), cfg, 6, 5, 6.0, 4,
                torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(m["loss"])) and table.grad is not None
 # and one coarse-only step (the plain K7)
 coarse = cfg.replace(num_importance=0)
 model, table = init_model(coarse, 2, 0, "cpu")
 opt, sched = make_optimizer(coarse, list(model.parameters()) + [table])
-m = train_step(model, table, opt, sched, ds.device_arrays(), coarse, 6, 5, 6.0, 4,
+m = train_step(model, table, opt, sched, ds.device_arrays(device="cpu"), coarse, 6, 5, 6.0, 4,
                torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(m["loss"])) and set(m) == {"loss", "psnr", "mse"}
 # and one step of the per-sample route (the plain K1/K8)
 per_sample = cfg.replace(use_fused_train=False)
 model, table = init_model(per_sample, 2, 0, "cpu")
 opt, sched = make_optimizer(per_sample, list(model.parameters()) + [table])
-m = train_step(model, table, opt, sched, ds.device_arrays(), per_sample, 6, 5, 6.0, 4,
+m = train_step(model, table, opt, sched, ds.device_arrays(device="cpu"), per_sample, 6, 5, 6.0, 4,
                torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(m["loss"])) and "coarse_mse" in m
 # a use_time render at two times and a use_time step (the plain has_time
@@ -84,7 +84,7 @@ with torch.no_grad():
 assert bool(torch.isfinite(depth1).all()) and not torch.equal(rgb0, rgb1)
 ds.times = np.array([0.0, 1.0], np.float32)
 opt, sched = make_optimizer(timed, list(model.parameters()) + [table])
-m = train_step(model, table, opt, sched, ds.device_arrays(), timed, 6, 5, 6.0, 4,
+m = train_step(model, table, opt, sched, ds.device_arrays(device="cpu"), timed, 6, 5, 6.0, 4,
                torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(m["loss"])) and "coarse_mse" in m
 assert not any(k.split(".")[0] in ("jax", "danerf_tpu") for k in sys.modules)

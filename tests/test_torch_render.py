@@ -41,7 +41,7 @@ def _setup(seed=0, **over):
     jcfg = JaxConfig(**SMALL, **over)
     cfg = NeRFConfig(**SMALL, **over)
     params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(seed), jcfg))
-    model = params_from_jax_module(params, cfg).requires_grad_(False)
+    model = params_from_jax_module(params, cfg, device="cpu").requires_grad_(False)
     return jcfg, cfg, params, model
 
 

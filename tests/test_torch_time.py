@@ -67,7 +67,7 @@ def _setup(use_bf16, seed=0, **over):
     jcfg = JaxConfig(**SMALL, use_bf16=use_bf16, **over)
     cfg = NeRFConfig(**SMALL, use_bf16=use_bf16, **over)
     params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(seed), jcfg))
-    model = params_from_jax_module(params, cfg)
+    model = params_from_jax_module(params, cfg, device="cpu")
     rng = np.random.default_rng(seed)
     o = (rng.normal(size=(R, 3)) * 0.1 + [0.0, 0.0, 4.0]).astype(np.float32)
     d = (rng.normal(size=(R, 3)) * 0.2 + [0.0, 0.0, -1.0]).astype(np.float32)
@@ -149,7 +149,7 @@ def test_sample_ray_batch_carries_image_time(monkeypatch):
                         lambda **kw: make(height=8, width=8, n_samples=16, **kw))
     ds = ds_mod.load_dataset(NeRFConfig(use_time=True, dataset_path="no_such_dir"))
     assert ds.times is not None and ds.times.shape == (16,)
-    pool = ds.device_arrays()
+    pool = ds.device_arrays(device="cpu")
     cfg = NeRFConfig(use_time=True)
     batch = ds_mod.sample_ray_batch(pool, cfg, 8, 8, ds.focal, batch_size=6, img_idx=5,
                                     pix_idx=torch.arange(6))

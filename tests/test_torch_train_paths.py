@@ -59,7 +59,7 @@ def _setup(use_bf16, seed=0, **over):
     jcfg = JaxConfig(**SMALL, use_bf16=use_bf16, **over)
     cfg = NeRFConfig(**SMALL, use_bf16=use_bf16, **over)
     params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(seed), jcfg))
-    model = params_from_jax_module(params, cfg)
+    model = params_from_jax_module(params, cfg, device="cpu")
     rng = np.random.default_rng(seed)
     o = (rng.normal(size=(R, 3)) * 0.1 + [0.0, 0.0, 4.0]).astype(np.float32)
     d = (rng.normal(size=(R, 3)) * 0.2 + [0.0, 0.0, -1.0]).astype(np.float32)
