@@ -7,8 +7,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. env      torch / CUDA versions and the card (nvidia-smi name, power limit).
 2. build    compile every kernel from danerf_tpu_torch/kernels/csrc (nvcc,
             sm_90a, all sources at once); one line of each kernel's
-            registers, shared memory and spills (-Xptxas -v; K3/K4's tile
-            and dW pass apart); the full reports go to DIR/build.log.
+            registers, shared memory and spills (-Xptxas -v; the tile and
+            dW pass of K3, K4, K6 and K7 apart); the full reports go to
+            DIR/build.log.
 3. kernels  at full width (default NeRFConfig: 8x256, bf16) on seeded inputs,
             each kernel against its plain PyTorch version on the card,
             within fused_render.PLAIN_TOL, at 4093 rays (a ragged tile) and
@@ -34,14 +35,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             Per-ray (per-row) outputs and the loss by max abs error, each
             parameter gradient by relative Frobenius error; K3, K7 and K8
             twice, which must agree bit for bit.
-4a. bwd_shapes  K3 and K4 (csrc/field_bwd_sm90.cuh) at every shape their
-            tile takes, at 37 rays, the 1024-ray batch and 4093 rays: K3 at
-            S = 32, 48, 64, 100, 128 with every cotangent and g_field,
+4a. bwd_shapes  K3, K7, K4 and K6 (csrc/field_bwd_sm90.cuh) at every shape
+            their tile takes, at 37 rays, the 1024-ray batch and 4093 rays:
+            K3 at S = 32, 48, 64, 100, 128 with every cotangent and g_field,
             without g_field, with only g_rgb, and at S = 64 with every
-            cotangent null (exact zeros); K4 at Sc + Sf = 64 + 64, 64 + 16,
-            64 + 48, 128 + 128; both with the appearance projection packed
-            as zeros; two calls bit for bit; run again on the time model
-            after 4b.
+            cotangent null (exact zeros); K7 at the same S, seeded targets;
+            K4 at Sc + Sf = 64 + 64, 64 + 16, 64 + 48, 128 + 128; K6 at the
+            same with a coarse/fine tie under every cotangent, the
+            white-background pattern (g_rgb, g_acc), only g_rgb and none
+            (exact zeros); all with the appearance projection packed as
+            zeros at 64 (+ 64); two calls bit for bit; run again on the
+            time model after 4b.
 4b. time_kernels  the has_time variants (use_time, 6 time levels: the
             encoded time at the first and the skip layers, kx = 80) on a
             model of their own, each ray's (row's) time uniform in [0, 1]:
@@ -92,15 +96,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             frame and no other kernel); the training step of each path at
             B = 1024 (median of 50 synchronised steps) with its rays/s and
             its kernels' share, and the device time by kernel over 10 steps
-            (torch.profiler) of the 64 + 64, the coarse-only, the per-sample
-            and the K9 step; then the same for use_time: the has_time K2/K5
-            on the chunk, K3-K7 and K9 at B = 1024 and K1/K8 at 131,072
-            rows with their plain versions, an 800x800 medium frame at
-            t = 0.5, and the use_time step, profiled.  K3 and K4 at the
-            batch are also broken down by kernel (tile, dW pass) beside
-            torch.matmul over the same dW products (dw_cublas_ms, a
-            yardstick only), and each profiled step by part (the K3/K4
-            tile, their dW pass, the rest).
+            (torch.profiler) of the 64 + 64, the coarse-only, the
+            white-background, the per-sample and the K9 step; then the same
+            for use_time: the has_time K2/K5 on the chunk, K3-K7 and K9 at
+            B = 1024 and K1/K8 at 131,072 rows with their plain versions, an
+            800x800 medium frame at t = 0.5, and the use_time step,
+            profiled.  K3, K4, K6 and K7 at the batch are also broken down
+            by kernel (tile, dW pass) beside torch.matmul over the same dW
+            products (dw_cublas_ms, a yardstick only), and each profiled
+            step by part (their tile, their dW pass, the rest).
 
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
@@ -286,9 +290,9 @@ def phase_build(out_dir):
     res = {n: ptxas_resources(log) for n, log in logs.items()}
     for n in ("march", "merged"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
-    # K3 and K4 (csrc/field_bwd_sm90.cuh): the tile kernel and the dW pass
-    # apart, each with its dynamic shared memory
-    for n in ("march_bwd", "merged_train"):
+    # K3, K4, K6 and K7 (csrc/field_bwd_sm90.cuh): the tile kernel and the dW
+    # pass apart, each with its dynamic shared memory
+    for n in ("march_bwd", "merged_train", "merged_bwd", "march_train"):
         lib = _build.load(n)
         for fn, key, smem in (("bwd_tile90", "tile", lib.danerf_bwd_tile_smem_bytes),
                               ("dw90_kernel", "dw_pass", lib.danerf_dw90_smem_bytes)):
@@ -363,17 +367,62 @@ def tile_shapes(cfg, model, device, errs, failures, tag, with_time):
         failures.append(f"K2{tag}/K5{tag} gave different results on the same inputs")
 
 
+def refusals(cfg, packed, device):
+    """The shapes the backward tile's kernels refuse: K3 and K7 at S = 129;
+    K4 and K6 at Sc + Sf = 64 + 129, 200 + 64 and where the merge arrays
+    pass their limit (126 + 16), as on the old tile, while 125 + 16 is
+    taken; and S or Sf = 0, which the old tile divided by.  Returns what
+    went otherwise."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    n, out = 37, []
+    o, d, emb, z = make_rays(n, cfg, seed=95, device=device, samples=129)
+    g = torch.Generator(device=device).manual_seed(95)
+    target = torch.rand(n, 3, generator=g, device=device)
+    field = fr.march_plain(packed, cfg, o, d, emb, z[:, :64], want_field=True)["field"]
+    calls = {}
+    for s in (0, 129):
+        zs = z[:, :s].contiguous()
+        calls[f"K3@{s}"] = lambda zs=zs: fr.march_bwd_cuda(packed, cfg, o, d, emb, zs, None,
+                                                           None, None, None)
+        calls[f"K7@{s}"] = lambda zs=zs: fr.march_train_cuda(packed, cfg, o, d, emb, zs, target)
+    for sc, sf in ((64, 129), (200, 64), (64, 0), (126, 16), (125, 16)):
+        zc = torch.sort(torch.rand(n, sc, generator=g, device=device) * 4 + 2, dim=-1)[0]
+        fc = field[:, :, :1].expand(-1, -1, sc).contiguous()
+        zf = torch.sort(torch.rand(n, sf, generator=g, device=device) * 4 + 2, dim=-1)[0]
+        args = (packed, cfg, o, d, emb, zc, fc, zf)
+        calls[f"K4@{sc}+{sf}"] = lambda a=args: fr.merged_train_cuda(*a, target)
+        calls[f"K6@{sc}+{sf}"] = lambda a=args: fr.merged_bwd_cuda(*a, target, None, None, None)
+    for name, call in calls.items():
+        taken = name.endswith("125+16")
+        try:
+            call()
+            torch.cuda.synchronize()
+            if not taken:
+                out.append(f"{name} was taken; it must be refused")
+        except RuntimeError as exc:
+            if taken or "a width this kernel does not take" not in str(exc):
+                out.append(f"{name}: {exc}")
+    return out
+
+
 def phase_bwd_shapes(cfg, model, device, tag):
-    """K3 and K4 at every shape csrc/field_bwd_sm90.cuh's tile takes, against
-    their plain versions at 37 rays (a lost or doubled CTA shows), at the
-    1024-ray batch and at 4093 rays (a ragged last tile): K3 at S = 32, 48,
-    64, 100, 128 with every cotangent and g_field, without g_field, and with
-    only g_rgb (the null ones read as zeros), and at S = 64 with every
-    cotangent null (all outputs exactly zero); K4 at Sc + Sf = 64 + 64,
-    64 + 16, 64 + 48, 128 + 128; both at 64 (+ 64) samples with the
+    """K3, K7, K4 and K6 at every shape csrc/field_bwd_sm90.cuh's tile takes,
+    against their plain versions at 37 rays (a lost or doubled CTA shows),
+    at the 1024-ray batch and at 4093 rays (a ragged last tile): K3 at S =
+    32, 48, 64, 100, 128 with every cotangent and g_field, without g_field,
+    and with only g_rgb (the null ones read as zeros), and at S = 64 with
+    every cotangent null (all outputs exactly zero); K7 at the same S with
+    seeded targets; K4 at Sc + Sf = 64 + 64, 64 + 16, 64 + 48, 128 + 128;
+    K6 at the same Sc + Sf with a coarse/fine tie, under every cotangent,
+    the white-background pattern (g_rgb and g_acc), only g_rgb and none
+    (all outputs exactly zero); all four at 64 (+ 64) samples with the
     appearance projection packed as zeros.  ``tag`` is "" or "t" (the time
-    model, each ray's time uniform in [0, 1]).  Two calls must agree bit for
-    bit.  Returns the worst per-ray abs error of each kernel."""
+    model, each ray's time uniform in [0, 1]).  Two calls must agree bit
+    for bit.  Without time, the shapes they refuse (``refusals``).  Returns
+    the worst per-ray abs error of each kernel."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_render as fr
@@ -387,6 +436,9 @@ def phase_bwd_shapes(cfg, model, device, tag):
 
     def equal(a, b):
         return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    def zero(name, *outs):
+        check(f"{name}.zero", max(float(x.abs().max()) for x in outs), 0.0)
 
     for n in (37, cfg.batch_size, 4093):
         for s in (32, 48, 64, 100, 128):
@@ -409,14 +461,27 @@ def phase_bwd_shapes(cfg, model, device, tag):
                 same &= equal((gk.mats, gk.vecs, dk), (gk2.mats, gk2.vecs, dk2))
                 if case == "_null":
                     torch.cuda.synchronize()
-                    check(f"{name}.zero", max(float(gk.mats.abs().max()),
-                                              float(gk.vecs.abs().max()),
-                                              float(dk.abs().max())), 0.0)
+                    zero(name, gk.mats, gk.vecs, dk)
                     continue
                 gp, dp = fr.march_bwd_plain(pk, cfg, o, d, e, z, *cot, t=t)
                 torch.cuda.synchronize()
                 check_grads(name, gk, gp)
                 check(f"{name}.demb", max_err(dk, dp), tol["demb"])
+            target = torch.rand(n, 3, generator=g, device=device)
+            for app in (("", "_noapp") if s == 64 else ("",)):
+                pk = packs[app]
+                e = torch.zeros_like(emb) if app else emb
+                args = (pk, cfg, o, d, e, z, target, t)
+                name = f"K7{tag}@{n}x{s}{app}"
+                got, again = fr.march_train_cuda(*args), fr.march_train_cuda(*args)
+                lp, gp, dp = fr.march_train_plain(*args)
+                torch.cuda.synchronize()
+                lk, gk, dk = got
+                same &= equal((lk, gk.mats, gk.vecs, dk),
+                              (again[0], again[1].mats, again[1].vecs, again[2]))
+                check_grads(name, gk, gp)
+                check(f"{name}.loss", abs(float(lk) - float(lp)), tol["loss"])
+                check(f"{name}.demb", max_err(dk, dp), tol["demb_k4"])
         for sc, sf in ((64, 64), (64, 16), (64, 48), (128, 128)):
             o, d, emb, z = make_rays(n, cfg, seed=80 + sf, device=device, samples=sc)
             g = torch.Generator(device=device).manual_seed(n + sc + sf)
@@ -439,14 +504,39 @@ def phase_bwd_shapes(cfg, model, device, tag):
                 check(f"{name}.loss", abs(float(lk) - float(lp)), tol["loss"])
                 check(f"{name}.demb", max_err(dk, dp), tol["demb_k4"])
                 check(f"{name}.g_field", max_err(fk, fp), tol["g_field"])
+                # K6 on the same coarse field, with a coarse/fine tie
+                z_t = _tie(z, z_f)
+                c6 = _cotangents(n, sc + sf, g, device)[:4]
+                cases = {"": c6, "_white": (c6[0], None, c6[2], None),
+                         "_rgb_only": (c6[0], None, None, None), "_null": (None,) * 4}
+                for case, cot in (cases.items() if not app else [("", c6)]):
+                    name = f"K6{tag}@{n}x{sc}+{sf}{app}{case}"
+                    args = (pk, cfg, o, d, e, z, coarse["field"], z_t, *cot)
+                    gk, dk, fk = fr.merged_bwd_cuda(*args, t=t)
+                    gk2, dk2, fk2 = fr.merged_bwd_cuda(*args, t=t)
+                    same &= equal((gk.mats, gk.vecs, dk, fk), (gk2.mats, gk2.vecs, dk2, fk2))
+                    if case == "_null":
+                        torch.cuda.synchronize()
+                        zero(name, gk.mats, gk.vecs, dk, fk)
+                        continue
+                    gp, dp, fp = fr.merged_bwd_plain(*args, t=t)
+                    torch.cuda.synchronize()
+                    check_grads(name, gk, gp)
+                    check(f"{name}.demb", max_err(dk, dp), tol["demb"])
+                    check(f"{name}.g_field", max_err(fk, fp), tol["g_field_k6"])
     if not same:
-        failures.append(f"K3{tag}/K4{tag} gave different results on the same inputs")
+        failures.append(f"K3{tag}/K7{tag}/K4{tag}/K6{tag} gave different results on the same "
+                        "inputs")
+    if not cfg.use_time:
+        failures += refusals(cfg, packs[""], device)
     emit({"phase": "bwd_shapes", "use_time": cfg.use_time, "rays": [37, cfg.batch_size, 4093],
           "max_abs_err": errs, "grad_rel": grad_rel, "deterministic": same,
           "failures": failures})
     if failures:
-        raise AssertionError("K3/K4 disagree with their plain versions: " + "; ".join(failures))
-    return {kern: max(v for k, v in errs.items() if k.startswith(kern)) for kern in ("K3", "K4")}
+        raise AssertionError("K3/K7/K4/K6 disagree with their plain versions: "
+                             + "; ".join(failures))
+    return {kern: max(v for k, v in errs.items() if k.startswith(kern))
+            for kern in ("K3", "K4", "K6", "K7")}
 
 
 def phase_kernels(cfg, model, device):
@@ -1276,19 +1366,19 @@ def phase_timing(cfg, model, device, chunk, frame_t=None):
 
 
 def kernel_part(name):
-    """The part of a step a device kernel belongs to: K3's and K4's tile
-    kernel, their dW pass (the wgmma blocks, the narrow jobs, the
-    reductions), or the rest."""
+    """The part of a step a device kernel belongs to: the tile kernel of K3,
+    K4, K6 or K7 (csrc/field_bwd_sm90.cuh), their dW pass (the wgmma blocks,
+    the narrow jobs, the reductions), or the rest."""
     if "bwd_tile90" in name:
-        return "k3_k4_tile"
+        return "bwd90_tile"
     if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
-        return "k3_k4_dw_pass"
+        return "bwd90_dw_pass"
     return "rest"
 
 
 def dw_pass_timing(cfg, packed, device, calls):
-    """K3 and K4 at the batch broken down by torch.profiler (device ms per
-    call of each kernel they launch, and by kernel_part), and torch.matmul
+    """K3, K4, K6 and K7 at the batch broken down by torch.profiler (device
+    ms per call of each kernel they launch, and by kernel_part), and torch.matmul
     over the same d_pre^T @ input products at the batch's 65,536 rows as a
     yardstick (``dw_cublas_ms``; nothing on any path calls it)."""
     import torch
@@ -1298,7 +1388,7 @@ def dw_pass_timing(cfg, packed, device, calls):
     from danerf_tpu_torch.kernels.fused_mlp import enc_widths
 
     out = {}
-    for k in ("k3", "k4"):
+    for k in ("k3", "k4", "k6", "k7"):
         calls[k][0]()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1373,7 +1463,8 @@ def phase_train_timing(cfg, model, device, chunk):
     the per-sample route's rows of a batch (K1 also on the chunk's), with
     their plain versions; and the training step of each path at B = 1024
     (median of 50 synchronised steps) with a torch.profiler breakdown of the
-    64 + 64, the coarse-only, the per-sample and the one-kernel (K9) step.
+    64 + 64, the coarse-only, the white-background, the per-sample and the
+    one-kernel (K9) step.
     With use_time (the has_time variants, each ray's or row's time uniform
     in [0, 1]): every kernel at the batch (K1/K8 at 131,072 rows) and the
     use_time step, profiled."""
@@ -1457,7 +1548,7 @@ def phase_train_timing(cfg, model, device, chunk):
                         + 4 * n * (3 + 1 + 1 + sa + sa) + w_bytes)
             out["k5_batch_bound_ms"], _ = bound(cfg, n, sf, k5_bytes)
             if not cfg.use_time:
-                out["k3_k4_parts"] = dw_pass_timing(cfg, packed, device, calls)
+                out["bwd90_parts"] = dw_pass_timing(cfg, packed, device, calls)
         del cot, g_field, field, target, c6, u, calls
 
     # K1 and K8 at the rows of a 1024-ray batch's coarse (65,536) and fine
@@ -1498,8 +1589,8 @@ def phase_train_timing(cfg, model, device, chunk):
                      "per_sample": ("k1_65536", "k1_131072", "k8_65536", "k8_131072"),
                      "hier_onepass": ("k9_batch",)})
     steps = {path: step_timing(cfg.replace(**PATHS[path][0]), device, out, kerns,
-                               profile=path in ("hier", "coarse", "per_sample", "time",
-                                                "hier_onepass"))
+                               profile=path in ("hier", "coarse", "white", "per_sample",
+                                                "time", "hier_onepass"))
              for path, kerns in step_kernels.items()}
     emit({"phase": "train_timing", "use_time": cfg.use_time, "batch": cfg.batch_size,
           "chunk_rays": chunk[0].shape[0], **out, "steps": steps})

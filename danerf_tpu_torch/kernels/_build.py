@@ -43,9 +43,8 @@ _SIGNATURES = {
                      [_P] * 7 + [_I] * 4 + [ctypes.c_double] + [_P] * 4 + _BWD_TAIL),
 }
 # The scratch size of a backward library, (meta, n_meta, R, s, n_vecs) ->
-# bytes, danerf_bwd_scratch_bytes for one row set a tile (K3/K4:
-# field_bwd_sm90.cuh's layout; K6/K7/K8: bwd_scratch.cuh's), K9's own for
-# its two.
+# bytes, danerf_bwd_scratch_bytes for one row set a tile (K3/K4/K6/K7:
+# field_bwd_sm90.cuh's layout; K8: bwd_scratch.cuh's), K9's own for its two.
 SCRATCH_FN = {"hier_onepass": "danerf_hier_onepass_scratch_bytes"}
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,13 +1,13 @@
-// The scratch size of the backward kernels on field_bwd.cuh's layout (K6
-// merged_bwd.cu, K7 march_train.cu, K8 mlp_bwd.cu); K3 and K4 answer
+// The scratch size of K8 (mlp_bwd.cu), the one backward kernel whose
+// library answers field_bwd.cuh's layout; K3, K4, K6 and K7 answer
 // field_bwd_sm90.cuh's, K9 its own.
 
 #pragma once
 
 #include "field_bwd.cuh"
 
-// Bytes of scratch a backward call needs for R rays of s samples per tile
-// row group (K3, K7: S; K4, K6: Sf), or R rows for s = ROW_TILES (K8);
+// Bytes of scratch a call on field_bwd.cuh's layout needs for R rays of s
+// samples per tile row group, or R rows for s = ROW_TILES (K8's call);
 // negative on a malformed layout.
 extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n_meta,
                                               long long R, long long s, long long n_vecs) {

@@ -1,6 +1,5 @@
-// Shared code of the backward kernels K6 (merged_bwd.cu) and K7
-// (march_train.cu), whose tile kernels are bwd_tiles.cuh's, of K8
-// (mlp_bwd.cu), whose tile holds 128 independent rows, and of K9; K3 and K4
+// Shared code of the backward kernels K8 (mlp_bwd.cu), whose tile holds
+// 128 independent rows, and K9 (hier_onepass.cu); K3, K4, K6 and K7
 // (field_bwd_sm90.cuh) take the composite's transpose and the dW pass of
 // the narrow jobs from here: the composite's transpose for one ray,
 // the transposed MLP chain on a tile of 128 rows (the counterpart of
@@ -145,7 +144,7 @@ struct BwdSmem {
   float dsp[TILE_M];           // d_sigma_pre
   float dsum[MAX_RPC * HALF];  // per-ray sums of bf16(d_happ), for demb
   float half_sum[2][2 * HALF]; // bapp / bdir row sums of the two row halves
-  float loss[MAX_RPC];         // per-ray loss terms (K4, K7)
+  float loss[MAX_RPC];         // per-ray loss terms (K4, K7, K9)
 };
 
 inline size_t bwd_smem_bytes(int n_comp) {
@@ -665,10 +664,9 @@ inline int finish_pass(const FieldArgs& P, const Scratch& sc, int tiles, float* 
   return (int)cudaGetLastError();
 }
 
-// What every entry point sets up: the layout records, the shape checks, the
-// scratch of one pass and the pass sizes, for R rays of s_tile samples in a
-// tile's rows (K3, K7: S; K4, K6: Sf), or R rows for s_tile = ROW_TILES
-// (K8).
+// What K8 and K9 set up: the layout records, the shape checks, the scratch
+// of one pass and the pass sizes, for R rays of s_tile samples in a tile's
+// rows (K9: max(Sc, Sf)), or R rows for s_tile = ROW_TILES (K8).
 struct BwdCall {
   FieldArgs P;
   BwdWeights W;

@@ -1,8 +1,12 @@
-// The backward of the NeRF-W field on Hopper (sm_90a) for the two 64 + 64
-// training kernels, K3 (march_bwd.cu) and K4 (merged_train.cu): the same
-// functions as field_bwd.cuh's tile (the forward with its residuals, the
-// composite's transpose, the transposed chain) and its dW pass, redesigned
-// around field_sm90.cuh's tile.  K6, K7, K8 and K9 keep field_bwd.cuh.
+// The backward of the NeRF-W field on Hopper (sm_90a) for the four
+// composite training kernels: K3 (march_bwd.cu) and K7 (march_train.cu), the
+// ray march's backward under the caller's cotangents or the MSE; K4
+// (merged_train.cu) and K6 (merged_bwd.cu), the merged fine pass's under the
+// MSE or the caller's cotangents.  The same functions as field_bwd.cuh's tile
+// (the forward with its residuals, the composite's transpose, the transposed
+// chain) and its dW pass, redesigned around field_sm90.cuh's tile; the tile
+// is a template over the composite (MarchComp<MSE>, MergedComp<MSE>).  K8 and
+// K9 keep field_bwd.cuh.
 //
 // Numerics are field_bwd.cuh's (_field_bwd_from_res): both operands of
 // every product rounded to bf16 and accumulated in f32, d_pre_rgb and the
@@ -19,7 +23,8 @@
 //   swizzled activation buffer to the stash (h).  happ goes to the stash from
 //   the registers, the dir layer's gates (2 x 32 bits) to the gate area.
 // - Composite: one warp per ray (field_bwd.cuh composite_keep /
-//   composite_bwd; K4 merges by rank and un-permutes by the kept ranks).
+//   composite_bwd; K4 and K6 merge by rank and un-permute by the kept
+//   ranks).
 //   Its arrays live in the weight ring, which the producer leaves empty
 //   until the consumers arrive on comp_done.
 // - Chain head (CUDA cores): d_pre_rgb, d_sigma_pre, the density head's row
@@ -93,9 +98,9 @@ struct __align__(1024) SmemBwd {
 };
 constexpr size_t BWD_SMEM_BYTES = sizeof(SmemBwd);
 static_assert(BWD_SMEM_BYTES <= 232448, "the backward tile exceeds the 227 KB a block may use");
-// field_bwd.cuh's composite scratch, and K4's merge arrays, of every shape
-// K3 and K4 take (bwd_smem_bytes / merged_smem_bytes <= 232,448 beside
-// field.cuh's Smem) fit in the ring.
+// field_bwd.cuh's composite scratch, and the merge arrays, of every shape
+// the march (K3, K7) and merged (K4, K6) kernels take (bwd_smem_bytes /
+// merged_smem_bytes <= 232,448 beside field.cuh's Smem) fit in the ring.
 static_assert(232448 - sizeof(Smem) - sizeof(BwdSmem) <= sizeof(SmemBwd::ring),
               "the composite's arrays must fit in the ring");
 
@@ -130,8 +135,8 @@ struct Scratch90 {
   int blocks;       // dW blocks on wgmma: 2 (L - 1) + 1
 };
 
-// The rays of a launch and the depths of each ray's s rows (K3: its
-// samples; K4: its fine samples).
+// The rays of a launch and the depths of each ray's s rows (K3, K7: its
+// samples; K4, K6: its fine samples).
 struct BwdRays {
   const float* o;
   const float* d;
@@ -682,12 +687,14 @@ __device__ __forceinline__ void merge_ray_ranks(const float* rgb_s, const float*
   __syncwarp();
 }
 
-// K3's composite (bwd_tiles.cuh march_tile's): the forward over each ray's
-// own S samples kept, its transpose under the caller's cotangents, plus the
-// field's own cotangent g_field (R, 4, S); one warp per ray, the per-warp
-// alpha / T / w in the ring.
+// The ray march's composite: the forward over each ray's own S samples kept,
+// its transpose under the cotangents of ray_cotangents<MSE> (K3: the
+// caller's, plus the field's own cotangent g_field (R, 4, S), null for none;
+// K7: the MSE's, g_field null); one warp per ray, the per-warp alpha / T / w
+// in the ring.
+template <bool MSE_>
 struct MarchComp {
-  static constexpr bool MSE = false;
+  static constexpr bool MSE = MSE_;
   RayCot cot;
   const float* g_field;
   int S;
@@ -703,10 +710,10 @@ struct MarchComp {
       const float* gw;
       composite_keep(z + j * S, sm.sigma + j * S, sm.rgb + j * S * 3, S, al, al + S, al + 2 * S,
                      out);
-      ray_cotangents<false>(cot, r, S, out, g, &gw, bs.loss + j);
+      ray_cotangents<MSE>(cot, r, S, out, g, &gw, bs.loss + j);
       composite_bwd(z + j * S, sm.rgb + j * S * 3, S, al, al + S, al + 2 * S, out[3], out[4],
                     g[0], g[1], g[2], g[3], g[4], gw, bs.g_rgb + j * S * 3, bs.g_sig + j * S);
-      if (g_field != nullptr) {
+      if (!MSE && g_field != nullptr) {
         __syncwarp();
         const float* gf = g_field + r * 4 * S;
         for (int k = lane; k < S; k += 32) {
@@ -721,13 +728,16 @@ struct MarchComp {
   }
 };
 
-// K4's composite (bwd_tiles.cuh merged_tile's with the MSE cotangents): the
-// fine field merged with the coarse one by rank, the composite over Sc + Sf
-// and its transpose, the un-permute by the kept ranks to g_field (R, 4, Sc)
-// and the fine rows.  Its arrays (the per-warp alpha / T / w, the coarse
-// depths, the merged z / sigma / rgb and the ranks of each ray) in the ring.
+// The merged composite: the fine field merged with the coarse one by rank,
+// the composite over Sc + Sf and its transpose under the cotangents of
+// ray_cotangents<MSE> (K4: the MSE's; K6: the caller's, g_w (R, Sc + Sf) in
+// merged order, the depth cotangent through the merged depth and acc), the
+// un-permute by the kept ranks to g_field (R, 4, Sc) and the fine rows.  Its
+// arrays (the per-warp alpha / T / w, the coarse depths, the merged z /
+// sigma / rgb and the ranks of each ray) in the ring.
+template <bool MSE_>
 struct MergedComp {
-  static constexpr bool MSE = true;
+  static constexpr bool MSE = MSE_;
   RayCot cot;
   const float* zc;
   const float* fc;
@@ -763,7 +773,7 @@ struct MergedComp {
       float out[5], g[5];
       const float* gw;
       composite_keep(mzj, msj, mrj, Sa, al, al + Sa, al + 2 * Sa, out);
-      ray_cotangents<true>(cot, r, Sa, out, g, &gw, bs.loss + j);
+      ray_cotangents<MSE>(cot, r, Sa, out, g, &gw, bs.loss + j);
       // the transpose overwrites the merged rgb / sigma with their cotangents
       composite_bwd(mzj, mrj, Sa, al, al + Sa, al + 2 * Sa, out[3], out[4], g[0], g[1], g[2],
                     g[3], g[4], gw, mrj, msj);
@@ -1200,10 +1210,10 @@ inline int map2d(EncodeTiledFn enc, CUtensorMap* m, const void* p, long long col
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// What K3 and K4 set up: the layout records, the shape checks (those of
-// field_bwd.cuh bwd_setup, and at least one sample a tile row), the
-// scratch of one pass and the pass sizes, for R rays of s_tile samples in a
-// tile's rows (K3: S; K4: Sf).
+// What the kernels on this tile set up: the layout records, the shape checks
+// (those of field_bwd.cuh bwd_setup, and at least one sample a tile row),
+// the scratch of one pass and the pass sizes, for R rays of s_tile samples
+// in a tile's rows (K3, K7: S; K4, K6: Sf).
 struct Bwd90Call {
   FieldArgs P;
   BwdWeights W;
@@ -1280,9 +1290,9 @@ inline int finish90(const Bwd90Call& c, const DwMaps& dm, int nt, int n_sm, floa
   return (int)cudaGetLastError();
 }
 
-// Run the passes of K3 or K4: the tensor maps, then for each slice of at
-// most tiles_pass tiles, clear its row sums, launch the tile kernel on a
-// persistent grid, then passes 2 and 3.
+// Run the passes of K3, K4, K6 or K7: the tensor maps, then for each slice
+// of at most tiles_pass tiles, clear its row sums, launch the tile kernel on
+// a persistent grid, then passes 2 and 3.
 template <class Comp>
 inline int run_bwd90(const Bwd90Call& c, const Comp& comp, BwdRays rays, float* gmats,
                      float* gvecs, float* loss, float* demb, int n_vecs, cudaStream_t stream) {
@@ -1337,9 +1347,9 @@ inline int run_bwd90(const Bwd90Call& c, const Comp& comp, BwdRays rays, float* 
 }  // namespace sm90
 }  // namespace danerf
 
-// Bytes of scratch K3 or K4 needs for R rays of s samples per tile row
-// group (K3: S; K4: Sf); negative on a malformed layout or a shape they do
-// not take.
+// Bytes of scratch K3, K4, K6 or K7 needs for R rays of s samples per tile
+// row group (K3, K7: S; K4, K6: Sf); negative on a malformed layout or a
+// shape they do not take.
 extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n_meta,
                                               long long R, long long s, long long n_vecs) {
   using namespace danerf;

@@ -45,7 +45,7 @@ extern "C" int danerf_march_bwd(const float* o, const float* d, const float* emb
   if (err) return err;
   if (check_time(c.P, t)) return ERR_SHAPE;
   if (R == 0) return 0;
-  const MarchComp comp{{nullptr, 0.f, g_rgb, g_depth, g_acc, g_w}, g_field, (int)S};
+  const MarchComp<false> comp{{nullptr, 0.f, g_rgb, g_depth, g_acc, g_w}, g_field, (int)S};
   const BwdRays rays{o, d, emb, t, z, R, 0, 0, (int)S, c.rpc};
   return run_bwd90(c, comp, rays, gmats, gvecs, nullptr, demb, (int)n_vecs,
                    static_cast<cudaStream_t>(stream));

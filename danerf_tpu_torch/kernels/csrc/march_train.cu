@@ -15,20 +15,23 @@
 // Per-ray HBM traffic is ~0.4 KB in and 0.13 KB out; the residual scratch
 // adds ~9.5 KB a sample row, written and read back once (field_bwd.cuh).
 //
-// Design (bwd_tiles.cuh march_tile, shared with K3): K3's tile, with the
-// rgb cotangent 2 (rgb - target) / (3R) formed by the warp that composites
-// the ray, as K4 forms it, and no depth/acc/weights cotangent.  The loss
-// masks the ragged edge by processing only rays < R; it is summed per tile
-// and then in tile order, so loss and gradients are deterministic.
+// Design (csrc/field_bwd_sm90.cuh, K3's tile with the MSE's cotangents):
+// the persistent wgmma tile runs the forward with its residuals, one warp
+// per ray composites its samples and forms the rgb cotangent
+// 2 (rgb - target) / (3R), as K4 does (no depth, acc or weights
+// cotangent, no g_field), then transposes the composite; the transposed
+// chain runs through the same TMA weight ring, and the wgmma dW pass sums
+// fixed row partitions in order.  The loss masks the ragged edge by
+// processing only rays < R; it is summed per tile and then in tile order,
+// so loss and gradients are deterministic.
 //
 //   in : o, d (R,3), emb (R,E), z (R,S), target (R,3) f32 [, t (R) with use_time]
 //   out: gmats, gvecs (added to), demb (R,E), loss (added to)
 
-#include "field_bwd.cuh"
-#include "bwd_scratch.cuh"
-#include "bwd_tiles.cuh"
+#include "field_bwd_sm90.cuh"
 
 using namespace danerf;
+using namespace danerf::sm90;
 
 extern "C" int danerf_march_train(const float* o, const float* d, const float* emb,
                                   const float* z, const float* target, const float* t,
@@ -38,19 +41,15 @@ extern "C" int danerf_march_train(const float* o, const float* d, const float* e
                                   const long long* meta, long long n_meta, const void* mats_t,
                                   const long long* meta_t, long long n_meta_t, void* scratch,
                                   long long scratch_bytes, long long n_vecs, void* stream) {
-  BwdCall c;
-  const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, S, scratch,
-                            scratch_bytes, n_vecs, &c);
+  Bwd90Call c;
+  const int err = bwd90_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, S,
+                              scratch, scratch_bytes, n_vecs, &c);
   if (err) return err;
   if (check_time(c.P, t)) return ERR_SHAPE;
   if (R == 0) return 0;
-  const size_t smem = bwd_smem_bytes((int)S);
-  const RayCot cot{target, 1.f / (float)(R * 3.0), nullptr, nullptr, nullptr, nullptr};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return run_passes(c, reinterpret_cast<const void*>(march_tile<true>), smem, gmats, gvecs, loss,
-                    (int)n_vecs, st, [&](int nt, long long ray_base) {
-                      march_tile<true><<<nt, THREADS, smem, st>>>(
-                          c.P, c.W, c.sc, o, d, emb, z, t, R, (int)S, c.rpc, ray_base, cot, nullptr,
-                          demb);
-                    });
+  const MarchComp<true> comp{{target, 1.f / (float)(R * 3.0), nullptr, nullptr, nullptr, nullptr},
+                             nullptr, (int)S};
+  const BwdRays rays{o, d, emb, t, z, R, 0, 0, (int)S, c.rpc};
+  return run_bwd90(c, comp, rays, gmats, gvecs, loss, demb, (int)n_vecs,
+                   static_cast<cudaStream_t>(stream));
 }

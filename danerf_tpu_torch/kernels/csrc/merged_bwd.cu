@@ -16,12 +16,21 @@
 // out (g_field); the residual scratch adds ~9.5 KB a fine-sample row
 // (field_bwd.cuh).
 //
-// Design (bwd_tiles.cuh merged_tile, shared with K4): K4's tile with the
-// cotangents read from the inputs instead of formed from an MSE, and no
-// loss.  The depth cotangent uses the recomputed depth and acc of the
-// merged composite; g_w is in merged order, as K5 returns the weights.
-// The ranks of the counting merge are kept, and the un-permute is the
-// inverse gather by them (the TPU's transposed one-hot matmuls).
+// Design (csrc/field_bwd_sm90.cuh, K4's tile and merged composite with the
+// caller's cotangents instead of the MSE's, and no loss): the persistent
+// wgmma tile recomputes the fine forward with its residuals; one warp per
+// ray merges by rank (K5's counting, coarse first on ties), composites
+// over Sc + Sf and transposes it under g_rgb, g_depth, g_acc and g_w (in
+// merged order, as K5 returns the weights, read from global memory), the
+// depth cotangent through the recomputed merged depth and acc; the kept
+// ranks un-permute the cotangents (the inverse gather that replaces the
+// TPU's transposed one-hot matmuls) to g_field and the fine rows.  The
+// merge arrays live in the weight ring until the transposed chain; the
+// wgmma dW pass follows.  A null cotangent reads as zeros (the white
+// background hands only g_rgb and g_acc).  The shapes K6 takes are those
+// whose merge arrays fit beside field.cuh's tile in 232,448 bytes
+// (bwd_tiles.cuh merged_smem_bytes), as since its first design, and
+// Sc >= 1, Sf >= 1, Sc + Sf <= 256.
 //
 //   in : o, d (R,3), emb (R,E), z_c (R,Sc), field_c (R,4,Sc), z_f (R,Sf) f32
 //        [, t (R) with use_time];
@@ -29,11 +38,10 @@
 //        optional (null reads as zeros)
 //   out: gmats, gvecs (added to), demb (R,E), g_field (R,4,Sc)
 
-#include "field_bwd.cuh"
-#include "bwd_scratch.cuh"
-#include "bwd_tiles.cuh"
+#include "field_bwd_sm90.cuh"
 
 using namespace danerf;
+using namespace danerf::sm90;
 
 extern "C" int danerf_merged_bwd(const float* o, const float* d, const float* emb,
                                  const float* zc, const float* fc, const float* zf,
@@ -46,19 +54,16 @@ extern "C" int danerf_merged_bwd(const float* o, const float* d, const float* em
                                  long long n_meta_t, void* scratch, long long scratch_bytes,
                                  long long n_vecs, void* stream) {
   if (Sc < 1 || Sc + Sf > 256) return ERR_SHAPE;
-  BwdCall c;
-  const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, Sf, scratch,
-                            scratch_bytes, n_vecs, &c);
+  Bwd90Call c;
+  const int err = bwd90_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R, Sf,
+                              scratch, scratch_bytes, n_vecs, &c);
   if (err) return err;
   if (check_time(c.P, t)) return ERR_SHAPE;
   if (R == 0) return 0;
-  const size_t smem = merged_smem_bytes((int)Sc, (int)Sf, c.rpc);
-  const RayCot cot{nullptr, 0.f, g_rgb, g_depth, g_acc, g_w};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return run_passes(c, reinterpret_cast<const void*>(merged_tile<false>), smem, gmats, gvecs,
-                    nullptr, (int)n_vecs, st, [&](int nt, long long ray_base) {
-                      merged_tile<false><<<nt, THREADS, smem, st>>>(
-                          c.P, c.W, c.sc, o, d, emb, zc, fc, zf, t, R, (int)Sc, (int)Sf, c.rpc,
-                          ray_base, cot, demb, gfield);
-                    });
+  if (merged_smem_bytes((int)Sc, (int)Sf, c.rpc) > 232448) return ERR_SHAPE;
+  const MergedComp<false> comp{{nullptr, 0.f, g_rgb, g_depth, g_acc, g_w},
+                               zc, fc, gfield, R, (int)Sc, (int)Sf};
+  const BwdRays rays{o, d, emb, t, zf, R, 0, 0, (int)Sf, c.rpc};
+  return run_bwd90(c, comp, rays, gmats, gvecs, nullptr, demb, (int)n_vecs,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -54,7 +54,7 @@ extern "C" int danerf_merged_train(const float* o, const float* d, const float* 
   if (check_time(c.P, t)) return ERR_SHAPE;
   if (R == 0) return 0;
   if (merged_smem_bytes((int)Sc, (int)Sf, c.rpc) > 232448) return ERR_SHAPE;
-  const MergedComp comp{{target, 1.f / (float)(R * 3.0), nullptr, nullptr, nullptr, nullptr},
+  const MergedComp<true> comp{{target, 1.f / (float)(R * 3.0), nullptr, nullptr, nullptr, nullptr},
                         zc, fc, gfield, R, (int)Sc, (int)Sf};
   const BwdRays rays{o, d, emb, t, zf, R, 0, 0, (int)Sf, c.rpc};
   return run_bwd90(c, comp, rays, gmats, gvecs, loss, demb, (int)n_vecs,

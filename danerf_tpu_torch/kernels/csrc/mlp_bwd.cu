@@ -15,7 +15,7 @@
 // row of inputs and outputs.  The residual scratch (~9.5 KB a row, written
 // and read back once, ~1.25 GB at 131,072 rows) adds ~0.75 ms of HBM time.
 //
-// Design: K3's (field_bwd.cuh).  The tile kernel recomputes the forward
+// Design (field_bwd.cuh's mma.sync tile).  The tile kernel recomputes the forward
 // with field_tile<true> (per-row staging, emb @ Wapp^T on the tensor
 // cores), stashes the residuals, and walks the chain back; demb =
 // bf16(d_happ) @ Wapp is one more tensor-core product per row.  Parameter

@@ -1,4 +1,4 @@
-"""A/B timing of the port's CUDA kernels (K1-K8; K2 and K5 also with time)
+"""A/B timing of the port's CUDA kernels (K1-K8; K2, K5, K6 and K7 also with time)
 between another checkout and this one, on one GPU.
 
     python3 kernel_ab.py BASE_DIR [--rounds 2] [--out FILE]
@@ -10,8 +10,9 @@ sources (``BASE_DIR/build``, ``./build``) and times every kernel with CUDA
 events at chip_smoke.py's shapes and seeds: K2 (want_field) and K5 on a
 65,536-ray chunk, K2 also at 32 samples (``preview``) and both with time
 (``use_time``, their has_time variants: ``k2_t``, ``k5_t``), K3 (with
-g_field), K4, K6 and K7 at the 1024-ray batch, K1 and K8 at the 131,072
-rows of a batch's fine evaluation.  Prints one
+g_field), K4, K6 and K7 at the 1024-ray batch, K6 and K7 also with time
+(``k6_t``, ``k7_t``), K1 and K8 at the 131,072 rows of a batch's fine
+evaluation.  Prints one
 JSON line per process and, last, the medians per tree and their ratio
 (this / base) per kernel.  Needs a GPU; exits non-zero without one.
 """
@@ -103,6 +104,12 @@ def _time_kernels(iters):
         out["k6"] = ms(lambda: fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, field, z_f, *c6),
                        iters)
         out["k7"] = ms(lambda: fr.march_train_cuda(packed, cfg, o, d, emb, z, target), iters)
+        t = torch.rand(n, 1, generator=g, device=dev)
+        field_t = fr.march_cuda(packed_t, cfg_t, o, d, emb, z, t, want_field=True)["field"]
+        out["k6_t"] = ms(lambda: fr.merged_bwd_cuda(packed_t, cfg_t, o, d, emb, z, field_t, z_f,
+                                                    *c6, t=t), iters)
+        out["k7_t"] = ms(lambda: fr.march_train_cuda(packed_t, cfg_t, o, d, emb, z, target, t),
+                         iters)
     o, d, emb, z, g = rays(cfg.batch_size, 34, sc + sf)
     rep = lambda t: t[:, None, :].expand(-1, sc + sf, -1).reshape(-1, t.shape[-1]).contiguous()
     x = (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()

@@ -216,6 +216,29 @@ def test_march_bwd_kernel_at_every_tile_shape(dev, s, cot, use_time):
     assert torch.equal(dk, dk2)
 
 
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("s,appearance", [(32, True), (48, True), (64, True), (64, False),
+                                          (100, True), (128, True)],
+                         ids=["32", "48", "64", "64-emb_none", "100", "128"])
+def test_march_train_kernel_at_every_tile_shape(dev, s, appearance, use_time):
+    """K7 (csrc/field_bwd_sm90.cuh's tile with the MSE's cotangents) at the
+    sample counts its tile takes, seeded targets, at 64 samples also with
+    the appearance projection packed as zeros; two calls bit for bit."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, s, 40 + s, use_time)
+    packed = pack_params(model, cfg, appearance=appearance)
+    emb = emb if appearance else torch.zeros_like(emb)
+    target = torch.rand(37, 3, generator=g, device=dev)
+    args = (packed, cfg, o, d, emb, z, target, t)
+    lk, gk, dk = fr.march_train_cuda(*args)
+    lk2, gk2, dk2 = fr.march_train_cuda(*args)
+    lp, gp, dp = fr.march_train_plain(*args)
+    assert abs(float(lk) - float(lp)) <= TOL["loss"]
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb_k4"]
+    assert all(torch.equal(a, b) for a, b in ((lk, lk2), (gk.mats, gk2.mats),
+                                              (gk.vecs, gk2.vecs), (dk, dk2)))
+
+
 def test_march_bwd_kernel_null_cotangents_give_zeros(dev):
     cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
     gk, dk = fr.march_bwd_cuda(pack_params(model, cfg), cfg, o, d, emb, z, None, None, None,
@@ -247,27 +270,72 @@ def test_merged_train_kernel_at_every_tile_shape(dev, sc, sf, use_time, appearan
                                               (gk.vecs, gk2.vecs), (dk, dk2), (fk, fk2)))
 
 
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("cot", ["all", "white", "rgb_only", "null"])
+@pytest.mark.parametrize("sc,sf,appearance", [(64, 64, True), (64, 64, False), (64, 16, True),
+                                              (64, 48, True), (128, 128, True)],
+                         ids=["64-64", "64-64-emb_none", "64-16", "64-48", "128-128"])
+def test_merged_bwd_kernel_at_every_tile_shape(dev, sc, sf, appearance, cot, use_time):
+    """K6 (csrc/field_bwd_sm90.cuh's tile with the caller's cotangents) at
+    the Sc + Sf its tile takes, with a coarse/fine tie, under every
+    cotangent, the white-background pattern (g_rgb and g_acc, the rest
+    null), only g_rgb, and none (all outputs exactly zero); at 64 + 64 also
+    with the appearance projection packed as zeros; two calls bit for
+    bit."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, sc, 50 + sf, use_time)
+    packed = pack_params(model, cfg, appearance=appearance)
+    emb = emb if appearance else torch.zeros_like(emb)
+    field = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=True)
+    z_f = sample_pdf(z, field["weights"], sf, True, rand=g)
+    z_f[:, 5] = z[:, 7]   # a coarse/fine tie: the merge puts the coarse sample first
+    z_f = torch.sort(z_f, dim=-1).values
+    g_rgb, g_depth, g_acc, _, _ = _cotangents(g, 37, sc, dev)
+    g_w = 0.1 * torch.randn(37, sc + sf, generator=g, device=dev)
+    cots = {"all": (g_rgb, g_depth, g_acc, g_w), "white": (g_rgb, None, g_acc, None),
+            "rgb_only": (g_rgb, None, None, None), "null": (None,) * 4}[cot]
+    args = (packed, cfg, o, d, emb, z, field["field"], z_f, *cots)
+    gk, dk, fk = fr.merged_bwd_cuda(*args, t=t)
+    gk2, dk2, fk2 = fr.merged_bwd_cuda(*args, t=t)
+    assert all(torch.equal(a, b) for a, b in ((gk.mats, gk2.mats), (gk.vecs, gk2.vecs),
+                                              (dk, dk2), (fk, fk2)))
+    if cot == "null":
+        assert not (gk.mats.any() or gk.vecs.any() or dk.any() or fk.any())
+        return
+    gp, dp, fp = fr.merged_bwd_plain(*args, t=t)
+    _close_grads(gk, gp, model)
+    assert float((dk - dp).abs().max()) <= TOL["demb"]
+    assert float((fk - fp).abs().max()) <= TOL["g_field_k6"]
+
+
 def test_backward_tile_refuses_what_it_always_refused(dev):
-    """The shapes K3 and K4 refuse stay refused: S or Sf past a tile, Sc +
-    Sf past 256, and K4's merge arrays past their limit (8 rays of Sf = 16
-    at Sc = 126; Sc = 125 is taken)."""
+    """The shapes K3, K7, K4 and K6 refuse stay refused: S or Sf past a tile
+    or below one sample, Sc + Sf past 256, and the merge arrays of K4 and
+    K6 past their limit (8 rays of Sf = 16 at Sc = 126; Sc = 125 is
+    taken)."""
     cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, 129, 9, False)
     packed = pack_params(model, cfg)
-    with pytest.raises(RuntimeError, match="a width this kernel does not take"):
-        fr.march_bwd_cuda(packed, cfg, o, d, emb, z, None, None, None, None)
-    field = fr.march_plain(packed, cfg, o, d, emb, z[:, :64], want_field=True)["field"]
     target = torch.rand(37, 3, generator=g, device=dev)
+    for zs in (z, z[:, :0]):
+        with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+            fr.march_bwd_cuda(packed, cfg, o, d, emb, zs, None, None, None, None)
+        with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+            fr.march_train_cuda(packed, cfg, o, d, emb, zs, target)
+    field = fr.march_plain(packed, cfg, o, d, emb, z[:, :64], want_field=True)["field"]
+    g_rgb = torch.randn(37, 3, generator=g, device=dev)
+    kernels = {"K4": lambda *a: fr.merged_train_cuda(*a, target)[3],
+               "K6": lambda *a: fr.merged_bwd_cuda(*a, g_rgb, None, None, None)[2]}
 
-    def merged(sc, sf):
+    def merged(kern, sc, sf):
         zc = torch.sort(torch.rand(37, sc, generator=g, device=dev) * 4 + 2, dim=-1)[0]
         fc = field[:, :, :1].expand(-1, -1, sc).contiguous()
         zf = torch.sort(torch.rand(37, sf, generator=g, device=dev) * 4 + 2, dim=-1)[0]
-        return fr.merged_train_cuda(packed, cfg, o, d, emb, zc, fc, zf, target)
+        return kernels[kern](packed, cfg, o, d, emb, zc, fc, zf)
 
-    for sc, sf in ((64, 129), (200, 64), (126, 16)):
-        with pytest.raises(RuntimeError, match="a width this kernel does not take"):
-            merged(sc, sf)
-    assert merged(125, 16)[3].shape == (37, 4, 125)
+    for kern in kernels:
+        for sc, sf in ((64, 129), (200, 64), (126, 16), (64, 0)):
+            with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+                merged(kern, sc, sf)
+        assert merged(kern, 125, 16).shape == (37, 4, 125)
 
 
 @pytest.mark.parametrize("over,want", [

@@ -3,10 +3,12 @@ against danerf_tpu on the CPU:
 
 - K7's plain version (``fused_train_loss_grads``) against the JAX package's
   ``fused_train_loss_grads`` (Pallas interpret mode, as tests/test_kernels.py
-  runs it), f32 and bf16, with and without the embedding;
+  runs it), f32 and bf16, with and without the embedding, and at a sample
+  count that does not divide the kernel's tile;
 - K6's plain version (``MergedFn``'s backward) against ``jax.vjp`` of the
-  JAX package's ``fused_render_rays_merged``, every cotangent non-zero and a
-  coarse/fine tie in z;
+  JAX package's ``fused_render_rays_merged``, with a coarse/fine tie in z,
+  under every cotangent non-zero, the white-background pattern (None for
+  depth and the weights) and rgb alone;
 - the coarse-only kernel-route step (``num_importance=0``) against the JAX
   package's ``_onepass_loss_grads``;
 - the white-background kernel-route step, hierarchical and coarse-only,
@@ -55,7 +57,7 @@ DEMB_ATOL = {False: 1e-5, True: 2e-3}        # O(1) cotangents
 DEMB_MSE_ATOL = {False: 1e-7, True: 1e-4}    # the MSE's 2 / (3R)
 
 
-def _setup(use_bf16, seed=0, **over):
+def _setup(use_bf16, seed=0, samples=SC, **over):
     jcfg = JaxConfig(**SMALL, use_bf16=use_bf16, **over)
     cfg = NeRFConfig(**SMALL, use_bf16=use_bf16, **over)
     params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(seed), jcfg))
@@ -65,8 +67,8 @@ def _setup(use_bf16, seed=0, **over):
     d = (rng.normal(size=(R, 3)) * 0.2 + [0.0, 0.0, -1.0]).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     emb = rng.normal(size=(R, cfg.appearance_dim)).astype(np.float32)
-    edges = np.linspace(2.0, 6.0, SC + 1, dtype=np.float32)
-    z = (edges[:-1] + rng.random((R, SC)) * (edges[1] - edges[0])).astype(np.float32)
+    edges = np.linspace(2.0, 6.0, samples + 1, dtype=np.float32)
+    z = (edges[:-1] + rng.random((R, samples)) * (edges[1] - edges[0])).astype(np.float32)
     return jcfg, cfg, params, model, o, d, emb, z, rng
 
 
@@ -92,12 +94,15 @@ def _assert_grads(got, want, use_bf16, what):
                                    err_msg=f"{what} leaf {i}")
 
 
-@pytest.mark.parametrize("use_bf16,with_emb", [(False, True), (False, False), (True, True),
-                                               (True, False)],
-                         ids=["f32-emb", "f32-emb_none", "bf16-emb", "bf16-emb_none"])
-def test_march_train_plain_matches_jax(use_bf16, with_emb):
-    """K7's plain version: the loss, every parameter gradient and demb."""
-    jcfg, cfg, params, model, o, d, emb, z, rng = _setup(use_bf16)
+@pytest.mark.parametrize("use_bf16,with_emb,samples", [
+    (False, True, SC), (False, False, SC), (True, True, SC), (True, False, SC),
+    (False, True, 12), (True, True, 12)],
+    ids=["f32-emb", "f32-emb_none", "bf16-emb", "bf16-emb_none", "f32-emb-s12", "bf16-emb-s12"])
+def test_march_train_plain_matches_jax(use_bf16, with_emb, samples):
+    """K7's plain version: the loss, every parameter gradient and demb; also
+    at 12 samples a ray, which do not divide the kernel's 128-row tile (10
+    rays a tile, 8 rows of no ray)."""
+    jcfg, cfg, params, model, o, d, emb, z, rng = _setup(use_bf16, samples=samples)
     target = rng.random((R, 3)).astype(np.float32)
     e = emb if with_emb else None
     j_mse, j_grads, j_demb = fused_train_loss_grads(params, jcfg, o, d, z, target, e)
@@ -110,11 +115,17 @@ def test_march_train_plain_matches_jax(use_bf16, with_emb):
                                err_msg="demb")
 
 
-@pytest.mark.parametrize("use_bf16", [False, True], ids=["f32", "bf16"])
-def test_merged_bwd_plain_matches_jax_vjp(use_bf16):
+@pytest.mark.parametrize("use_bf16,used", [
+    (False, ("rgb", "depth", "acc", "weights")), (True, ("rgb", "depth", "acc", "weights")),
+    (False, ("rgb", "acc")), (True, ("rgb", "acc")), (False, ("rgb",)), (True, ("rgb",))],
+    ids=["f32", "bf16", "f32-white", "bf16-white", "f32-rgb_only", "bf16-rgb_only"])
+def test_merged_bwd_plain_matches_jax_vjp(use_bf16, used):
     """K6's plain version through MergedFn's backward: the gradients of the
-    parameters, the embedding and the coarse field under non-zero
-    cotangents of rgb, depth, acc and the merged weights."""
+    parameters, the embedding and the coarse field under the cotangents
+    the kernel sees: non-zero ones of rgb, depth, acc and the merged
+    weights; the white-background pattern (only rgb and acc used, so
+    autograd hands None for depth and the weights, against JAX's zeros);
+    and rgb alone."""
     jcfg, cfg, params, model, o, d, emb, z, rng = _setup(use_bf16)
     field = np.asarray(fused_render_rays_coarse_field(params, jcfg, o, d, z, emb)["field"])
     zf = np.sort(rng.uniform(2.0, 6.0, size=(R, SF)).astype(np.float32), axis=-1)
@@ -123,6 +134,7 @@ def test_merged_bwd_plain_matches_jax_vjp(use_bf16):
     cot = {"rgb": rng.normal(size=(R, 3)), "depth": rng.normal(size=R),
            "acc": rng.normal(size=R), "weights": rng.normal(size=(R, SC + SF)) * 0.3}
     cot = {k: v.astype(np.float32) for k, v in cot.items()}
+    cot = {k: v if k in used else np.zeros_like(v) for k, v in cot.items()}
     _, vjp = jax.vjp(lambda p, e, f: fused_render_rays_merged(p, jcfg, o, d, z, f, zf, e),
                      params, jnp.asarray(emb), jnp.asarray(field))
     j_params, j_emb, j_field = vjp({**{k: jnp.asarray(v) for k, v in cot.items()},
@@ -132,7 +144,7 @@ def test_merged_bwd_plain_matches_jax_vjp(use_bf16):
     out = fr.fused_render_rays_merged(model, cfg, torch.tensor(o), torch.tensor(d),
                                       torch.tensor(z), field_t, torch.tensor(zf), emb_t)
     np.testing.assert_array_equal(out["z_vals"].numpy(), np.sort(np.concatenate([z, zf], -1)))
-    sum((out[k] * torch.tensor(v)).sum() for k, v in cot.items()).backward()
+    sum((out[k] * torch.tensor(cot[k])).sum() for k in used).backward()
     _assert_grads(_port_grads(model), j_params, use_bf16, "merged params")
     np.testing.assert_allclose(emb_t.grad.numpy(), np.asarray(j_emb), atol=DEMB_ATOL[use_bf16],
                                err_msg="demb")
