@@ -44,20 +44,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             same with a coarse/fine tie under every cotangent, the
             white-background pattern (g_rgb, g_acc), only g_rgb and none
             (exact zeros); all with the appearance projection packed as
-            zeros at 64 (+ 64); two calls bit for bit; run again on the
-            time model after 4b.
+            zeros at 64 (+ 64); two calls bit for bit; the shapes K3, K4,
+            K6, K7, K8 and K9 refuse; run again on the time model after
+            4b.
 4b. time_kernels  the has_time variants (use_time, 6 time levels: the
             encoded time at the first and the skip layers, kx = 80) on a
             model of their own, each ray's (row's) time uniform in [0, 1]:
             K2 (want_field) and K5 at 4093 rays and on a 65,536-ray chunk,
             and at tile_shapes' shapes; K3 and K6 (every cotangent; K6 with a coarse/fine tie) at 37
             rays and at B = 1024, K4 and K7 at 37 rays, K1 at 130,976 rows
-            and K8 at 2,400 rows, against their plain versions.
-4c. hier_onepass  K9, the one-kernel hierarchical training step, against
-            its plain version at 37 rays and at B = 1024 (seeded targets,
-            uniforms from importance_uniforms), and its has_time variant at
-            37 rays on the time model; both MSEs, every gradient and demb;
-            two calls agree bit for bit.
+            and K8 at 37, 129 and 2,400 rows, against their plain versions.
+4c. hier_onepass  K9, the one-kernel hierarchical training step, and its
+            has_time variant on the time model, against their plain
+            versions at 37 rays and at B = 1024, at Sc + Sf = 64 + 64,
+            64 + 16, 128 + 128, 48 + 32 and 32 + 64 (seeded targets,
+            uniforms from importance_uniforms); both MSEs, every gradient
+            and demb; two calls agree bit for bit.
 5. step     one training step at B = 1024 on each training path (64 + 64;
             coarse only, num_importance=0; 64 + 64 on a white background;
             64 + 64 per sample, use_fused_train=False; 64 + 64 with
@@ -290,11 +292,13 @@ def phase_build(out_dir):
     res = {n: ptxas_resources(log) for n, log in logs.items()}
     for n in ("march", "merged"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
-    # K3, K4, K6 and K7 (csrc/field_bwd_sm90.cuh): the tile kernel and the dW
-    # pass apart, each with its dynamic shared memory
-    for n in ("march_bwd", "merged_train", "merged_bwd", "march_train"):
+    # K3, K4, K6, K7, K8 and K9 (csrc/field_bwd_sm90.cuh): the tile kernel and
+    # the dW pass apart, each with its dynamic shared memory
+    for n in ("march_bwd", "merged_train", "merged_bwd", "march_train", "mlp_bwd",
+              "hier_onepass"):
         lib = _build.load(n)
-        for fn, key, smem in (("bwd_tile90", "tile", lib.danerf_bwd_tile_smem_bytes),
+        tile = "hier_tile90" if n == "hier_onepass" else "bwd_tile90"
+        for fn, key, smem in ((tile, "tile", lib.danerf_bwd_tile_smem_bytes),
                               ("dw90_kernel", "dw_pass", lib.danerf_dw90_smem_bytes)):
             res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
     emit({"phase": "build", "seconds": secs, "built": sorted(logs), "resources": res})
@@ -371,11 +375,16 @@ def refusals(cfg, packed, device):
     """The shapes the backward tile's kernels refuse: K3 and K7 at S = 129;
     K4 and K6 at Sc + Sf = 64 + 129, 200 + 64 and where the merge arrays
     pass their limit (126 + 16), as on the old tile, while 125 + 16 is
-    taken; and S or Sf = 0, which the old tile divided by.  Returns what
-    went otherwise."""
+    taken; and S or Sf = 0, which the old tile divided by; K8 with an
+    embedding of 24 (its appearance product steps K by 16); K9 at Sc + Sf =
+    129 + 64, 64 + 129, 0 + 64 and 64 + 0, as on its first tile.  Returns
+    what went otherwise."""
     import torch
 
+    from danerf_tpu_torch.kernels import fused_mlp as fm
     from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import importance_uniforms
 
     n, out = 37, []
     o, d, emb, z = make_rays(n, cfg, seed=95, device=device, samples=129)
@@ -395,6 +404,15 @@ def refusals(cfg, packed, device):
         args = (packed, cfg, o, d, emb, zc, fc, zf)
         calls[f"K4@{sc}+{sf}"] = lambda a=args: fr.merged_train_cuda(*a, target)
         calls[f"K6@{sc}+{sf}"] = lambda a=args: fr.merged_bwd_cuda(*a, target, None, None, None)
+    cfg24 = cfg.replace(appearance_dim=24)
+    x, dr, _ = sample_rows(1, cfg, 96, device, n)
+    calls["K8@E24"] = lambda: fm.fused_bwd_cuda(
+        pack_params(make_model(cfg24, 0, device), cfg24), cfg24, x, dr,
+        torch.randn(n, 24, generator=g, device=device), target, target[:, :1])
+    for sc, sf in ((129, 64), (64, 129), (0, 64), (64, 0)):
+        u = importance_uniforms((n,), sf, True, rand=g, device=device)
+        calls[f"K9@{sc}+{sf}"] = lambda zc=z[:, :sc].contiguous(), u=u: fr.hier_onepass_cuda(
+            packed, cfg, o, d, emb, zc, u, target)
     for name, call in calls.items():
         taken = name.endswith("125+16")
         try:
@@ -694,8 +712,11 @@ def phase_bwd(cfg, model, device):
     """The backward and training kernels against their plain versions at 37
     rays and at the 1024-ray batch: K3 (every cotangent seeded, want_field on
     and off), K4 and K7 (seeded targets), K6 (every cotangent seeded,
-    weights in merged order, a coarse/fine tie in z); K8 at 2,400 and
-    131,072 rows.  K3, K7 and K8 run twice and must agree bit for bit.
+    weights in merged order, a coarse/fine tie in z); K8 at 37, 129 (one
+    tile and one row), 2,400 (19 tiles, the last ragged), 65,536 and
+    131,072 rows (a 1024-ray batch's coarse and fine rows), with the
+    appearance projection and packed as zeros (a zero embedding).  K3, K7
+    and K8 run twice and must agree bit for bit.
     Returns the max abs error of each kernel's per-ray (per-row) outputs
     (and loss) for the kernels record."""
     import torch
@@ -791,28 +812,33 @@ def phase_bwd(cfg, model, device):
         del coarse
 
     # K8: the per-sample field's backward under seeded per-row cotangents,
-    # at 2,400 rows (19 tiles, the last ragged) and at the 131,072 rows of a
-    # 1024-ray fine pass
+    # at 37 and 129 rows (below one tile, one tile and a row), 2,400 (19
+    # tiles, the last ragged), and the 65,536 and 131,072 rows of a 1024-ray
+    # batch's coarse and fine evaluations; with the appearance projection
+    # and packed as zeros (a zero embedding)
     deterministic["K8"] = True
-    for n, seed in ((2400, 13), (2 * cfg.batch_size * cfg.num_samples, 14)):
+    packed_noapp = pack_params(model, cfg, appearance=False)
+    for n, seed in ((37, 15), (129, 16), (2400, 13), (cfg.batch_size * cfg.num_samples, 17),
+                    (2 * cfg.batch_size * cfg.num_samples, 14)):
         x, dr, er = (t[:n] for t in sample_rows(-(-n // cfg.num_samples), cfg, seed, device,
                                                 cfg.num_samples))
         g = torch.Generator(device=device).manual_seed(seed + 100)
         g_rgb = torch.randn(n, 3, generator=g, device=device)
         g_sig = torch.randn(n, 1, generator=g, device=device)
-        gk, dk = fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig)
-        gk2, dk2 = fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig)
-        gp, dp = fm.fused_bwd_plain(packed, cfg, x, dr, er, g_rgb, g_sig)
-        torch.cuda.synchronize()
-        deterministic["K8"] &= same(gk, gk2) and bool(torch.equal(dk, dk2))
-        check_grads(f"K8@{n}", gk, gp)
-        check(f"K8@{n}.demb", max_err(dk, dp), tol["demb_k8"])
-        errs[f"K8@{n}.demb_scale"] = float(dp.abs().max())
-        if n == 2400:
-            gd, _ = fm.fused_bwd_plain(packed, cfg, x[128:], dr[128:], er[128:], g_rgb[128:],
-                                       g_sig[128:])
-            dropped("K8", gd, gp, first=128, demb=dp)
-        del gk, gk2, gp, dk, dk2, dp
+        for app, pk, e in (("", packed, er), ("_noapp", packed_noapp, torch.zeros_like(er))):
+            gk, dk = fm.fused_bwd_cuda(pk, cfg, x, dr, e, g_rgb, g_sig)
+            gk2, dk2 = fm.fused_bwd_cuda(pk, cfg, x, dr, e, g_rgb, g_sig)
+            gp, dp = fm.fused_bwd_plain(pk, cfg, x, dr, e, g_rgb, g_sig)
+            torch.cuda.synchronize()
+            deterministic["K8"] &= same(gk, gk2) and bool(torch.equal(dk, dk2))
+            check_grads(f"K8@{n}{app}", gk, gp)
+            check(f"K8@{n}{app}.demb", max_err(dk, dp), tol["demb_k8"])
+            errs[f"K8@{n}{app}.demb_scale"] = float(dp.abs().max())
+            if n == 2400 and not app:
+                gd, _ = fm.fused_bwd_plain(pk, cfg, x[128:], dr[128:], e[128:], g_rgb[128:],
+                                           g_sig[128:])
+                dropped("K8", gd, gp, first=128, demb=dp)
+            del gk, gk2, gp, dk, dk2, dp
     for kern, ok in deterministic.items():
         if not ok:
             failures.append(f"{kern} gave different results on the same inputs")
@@ -836,8 +862,8 @@ def phase_time_kernels(cfg, model, device):
     sample_pdf) at 4093 rays and on one 65,536-ray chunk; K3 (every
     cotangent, g_field) and K6 (every cotangent, a coarse/fine tie) at 37
     rays and at the 1024-ray batch; K4 and K7 (seeded targets) at 37 rays;
-    K1 at 4093 x 32 = 130,976 rows (ragged) and K8 at 2,400 rows (19
-    tiles).  Returns the worst abs error per kernel and the chunk's inputs
+    K1 at 4093 x 32 = 130,976 rows (ragged) and K8 at 37, 129 and 2,400
+    rows (19 tiles).  Returns the worst abs error per kernel and the chunk's inputs
     (with t) for the timing phase."""
     import torch
 
@@ -922,7 +948,7 @@ def phase_time_kernels(cfg, model, device):
         del coarse
 
     # K1 on the samples of 4093 rays x 32 (130,976 rows, a ragged tile), K8
-    # at 2,400 rows (19 tiles), each row with its own time
+    # at 37, 129 and 2,400 rows (19 tiles), each row with its own time
     x, dr, er = sample_rows(4093, cfg, 61, device, 32)
     t = times(x.shape[0], 62)
     rk, sk = fm.fused_fwd_cuda(packed, cfg, x, dr, er, t)
@@ -931,19 +957,20 @@ def phase_time_kernels(cfg, model, device):
     check(f"K1t@{x.shape[0]}.field_rgb", max_err(rk, rp), tol["field_rgb"])
     check(f"K1t@{x.shape[0]}.field_sigma", max_err((sk - sp) / sp.abs().clamp_min(1.0), 0 * sp),
           tol["field_sigma"])
-    n = 2400
-    x, dr, er, t = x[:n], dr[:n], er[:n], t[:n]
-    g = torch.Generator(device=device).manual_seed(63)
-    g_rgb = torch.randn(n, 3, generator=g, device=device)
-    g_sig = torch.randn(n, 1, generator=g, device=device)
-    gk, dk = fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig, t)
-    gp, dp = fm.fused_bwd_plain(packed, cfg, x, dr, er, g_rgb, g_sig, t)
-    torch.cuda.synchronize()
-    check_grads(f"K8t@{n}", gk, gp)
-    check(f"K8t@{n}.demb", max_err(dk, dp), tol["demb_k8"])
+    for n, seed in ((37, 64), (129, 65), (2400, 63)):
+        g = torch.Generator(device=device).manual_seed(seed)
+        g_rgb = torch.randn(n, 3, generator=g, device=device)
+        g_sig = torch.randn(n, 1, generator=g, device=device)
+        rows = (x[:n], dr[:n], er[:n], g_rgb, g_sig, t[:n])
+        gk, dk = fm.fused_bwd_cuda(packed, cfg, *rows)
+        gp, dp = fm.fused_bwd_plain(packed, cfg, *rows)
+        torch.cuda.synchronize()
+        check_grads(f"K8t@{n}", gk, gp)
+        check(f"K8t@{n}.demb", max_err(dk, dp), tol["demb_k8"])
     emit({"phase": "time_kernels", "time_enc_levels": cfg.time_enc_levels,
           "rays": [4093, cfg.render_chunk, 37, cfg.batch_size], "k1_rows": 4093 * 32,
-          "k8_rows": n, "max_abs_err": errs, "grad_rel": grad_rel, "failures": failures})
+          "k8_rows": [37, 129, 2400], "max_abs_err": errs, "grad_rel": grad_rel,
+          "failures": failures})
     if failures:
         raise AssertionError("has_time kernel disagrees with its plain version: "
                              + "; ".join(failures))
@@ -955,14 +982,16 @@ def phase_time_kernels(cfg, model, device):
 
 
 def phase_hier_onepass(cfg, model, cfg_t, model_t, device):
-    """K9, the one-kernel hierarchical training step, against its plain
-    version: at 37 rays (19 CTAs, so a lost or doubled CTA shows) and at the
-    1024-ray batch, and its has_time variant at 37 rays on the time model,
-    which no route reaches; seeded targets, uniforms from
-    importance_uniforms (each ray's time uniform in [0, 1]).  Both MSEs,
-    every gradient and demb; two calls on the same inputs must agree bit
-    for bit.  Returns the worst abs error of each variant's per-ray outputs
-    and losses for the kernels record."""
+    """K9, the one-kernel hierarchical training step, and its has_time
+    variant on the time model (which no route reaches) against their plain
+    versions: at 37 rays (19 CTAs at 64 + 64, so a lost or doubled CTA
+    shows) and at the 1024-ray batch, at Sc + Sf = 64 + 64, 64 + 16,
+    128 + 128, 48 + 32 and 32 + 64 (2, 2, 1, 2 and 2 rays a tile: the fine
+    rows fewer than, as many as and more than the coarse ones); seeded
+    targets, uniforms from importance_uniforms (each ray's time uniform in
+    [0, 1]).  Both MSEs, every gradient and demb; two calls on the same
+    inputs must agree bit for bit.  Returns the worst abs error of each
+    variant's per-ray outputs and losses for the kernels record."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_render as fr
@@ -971,8 +1000,14 @@ def phase_hier_onepass(cfg, model, cfg_t, model_t, device):
 
     tol = fr.PLAIN_TOL
     errs, grad_rel, failures, deterministic = {}, {}, [], True
-    for tag, c, m, n, seed in (("K9", cfg, model, 37, 71), ("K9", cfg, model, cfg.batch_size, 72),
-                               ("K9t", cfg_t, model_t, 37, 73)):
+    cases = []
+    for tag, c, m, seed in (("K9", cfg, model, 71), ("K9t", cfg_t, model_t, 73)):
+        for k, (sc, sf) in enumerate(((64, 64), (64, 16), (128, 128), (48, 32), (32, 64))):
+            for n in (37, cfg.batch_size):
+                # 64 + 64 keeps its seeds: 71 and 72 at 37 and 1024 rays, 73 with time
+                s = seed + (n != 37) if k == 0 else 200 + 10 * k + (n != 37) + 5 * (tag == "K9t")
+                cases.append((tag, c.replace(num_samples=sc, num_importance=sf), m, n, s))
+    for tag, c, m, n, seed in cases:
         check, check_grads = checks(errs, grad_rel, failures, m)
         packed = pack_params(m, c)
         o, d, emb, z = make_rays(n, c, seed=seed, device=device)
@@ -986,7 +1021,7 @@ def phase_hier_onepass(cfg, model, cfg_t, model_t, device):
         torch.cuda.synchronize()
         flat = lambda r: (r[0], r[1], r[2].mats, r[2].vecs, r[3])  # noqa: E731
         deterministic &= all(bool(torch.equal(a, b)) for a, b in zip(flat(k), flat(k2)))
-        name = f"{tag}@{n}"
+        name = f"{tag}@{n}x{c.num_samples}+{c.num_importance}"
         check_grads(name, k[2], p[2])
         check(f"{name}.loss_fine", abs(float(k[0]) - float(p[0])), tol["loss_k9"])
         check(f"{name}.loss_coarse", abs(float(k[1]) - float(p[1])), tol["loss_k9"])
@@ -995,7 +1030,8 @@ def phase_hier_onepass(cfg, model, cfg_t, model_t, device):
         errs[f"{name}.loss"] = [float(k[0]), float(k[1])]
     if not deterministic:
         failures.append("K9 gave different results on the same inputs")
-    emit({"phase": "hier_onepass", "rays": [37, cfg.batch_size], "time_rays": 37,
+    emit({"phase": "hier_onepass", "rays": [37, cfg.batch_size],
+          "samples": sorted({f"{c.num_samples}+{c.num_importance}" for _, c, *_ in cases}),
           "max_abs_err": errs, "grad_rel": grad_rel, "deterministic": deterministic,
           "tolerance": {k: tol[k] for k in ("grad_rel", "loss_k9", "demb_k9")},
           "failures": failures})
@@ -1367,9 +1403,9 @@ def phase_timing(cfg, model, device, chunk, frame_t=None):
 
 def kernel_part(name):
     """The part of a step a device kernel belongs to: the tile kernel of K3,
-    K4, K6 or K7 (csrc/field_bwd_sm90.cuh), their dW pass (the wgmma blocks,
-    the narrow jobs, the reductions), or the rest."""
-    if "bwd_tile90" in name:
+    K4, K6, K7, K8 or K9 (csrc/field_bwd_sm90.cuh), their dW pass (the
+    wgmma blocks, the narrow jobs, the reductions), or the rest."""
+    if "bwd_tile90" in name or "hier_tile90" in name:
         return "bwd90_tile"
     if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
         return "bwd90_dw_pass"

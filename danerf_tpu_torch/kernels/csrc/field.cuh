@@ -1,8 +1,9 @@
-// Shared device code of the ray-march (march.cu) and merged-composite
-// (merged.cu) kernels, the per-sample field kernel (mlp_fwd.cu), and the
-// forward half of the backward kernels (field_bwd.cuh): the NeRF-W field on
-// a tile of 128 samples, the counterpart of
-// danerf_tpu/kernels/fused_mlp.py _encode + _field_from_enc.
+// Shared device code of every kernel (the argument record, its parsing, the
+// composite, the error strings) and the per-sample field kernel K1's
+// mma.sync tile (mlp_fwd.cu): the NeRF-W field on a tile of 128 rows, the
+// counterpart of danerf_tpu/kernels/fused_mlp.py _encode + _field_from_enc.
+// The other kernels run the field on field_sm90.cuh's and
+// field_bwd_sm90.cuh's Hopper tiles.
 //
 // Numerics (use_bf16): encodings and activations are held in bf16, every
 // matmul accumulates in f32 on the tensor cores (mma.sync m16n8k16 bf16),
@@ -11,12 +12,8 @@
 // bf16 rgb matmul -- the same roundings as the JAX kernel, in another
 // summation order.
 //
-// Two ways to fill a tile: rays of s samples (the ray kernels: per-ray
-// origin, direction, embedding and time in Smem, a depth per row; emb@Wapp
-// once per ray), or 128 independent rows (mlp_fwd.cu, mlp_bwd.cu: a point,
-// direction, embedding and time per row in RowSmem; emb@Wapp a tensor-core
-// product per row).  field_tile<ROWS> takes either; the trunk and heads are
-// one code path.
+// K1's tile holds 128 independent rows: a point, direction, embedding and
+// time per row in RowSmem; emb@Wapp a tensor-core product per row.
 //
 // Time (use_time, the JAX kernels' has_time variants): the encoded time
 // [t, sin(2^i t), cos(2^i t), ...] follows the encoded position in the
@@ -25,7 +22,7 @@
 // default widths that is kx = 80 instead of 64 (63 + 13 columns, padded to
 // 16) and 534,528 MACs a sample instead of 527,872 (+1.3%).
 //
-// Layout: a CTA of 8 warps owns TILE_M = 128 rows (rays x samples).  Its
+// Layout: a CTA of 8 warps owns TILE_M = 128 rows.  Its
 // activations live in shared memory (two 128 x 256 bf16 ping-pong buffers
 // plus the encodings, ~170 KB).  Weights are not staged: each warp owns a
 // 32-column (16 for the dir layer) slice of every layer's output and reads
@@ -69,6 +66,8 @@ struct FieldArgs {
   long long wd_off, bd_off, wdir_off, bdir_off, wapp_off, bapp_off, wrgb_off, brgb_off;
 };
 
+// K1's shared memory.  Its size (with the per-ray arrays z .. t of the
+// first designs' ray tiles) also states the shapes K4, K5, K6 and K9 take.
 struct Smem {
   __nv_bfloat16 hA[TILE_M * LDH];
   __nv_bfloat16 hB[TILE_M * LDH];
@@ -84,7 +83,7 @@ struct Smem {
   float t[MAX_RPC];            // per-ray time (0 without time)
 };
 
-// The per-row inputs of a tile of independent rows (K1, K8), beside Smem;
+// The per-row inputs of K1's tile of independent rows, beside Smem;
 // zeros past the last row.  The embedding is held in bf16 as the A operand
 // of emb @ Wapp^T.
 struct RowSmem {
@@ -92,20 +91,6 @@ struct RowSmem {
   float d[TILE_M * 3];
   float t[TILE_M];             // per-row time (0 without time)
   __nv_bfloat16 emb[TILE_M * LDE];
-};
-
-// Where the backward kernels (field_bwd.cuh) want field_tile to leave its
-// residuals in device memory: every trunk layer's output, the encodings,
-// happ (bf16) and the dir layer's relu gate, at the tile's rows row0.. of
-// (rows x width) row-major buffers.  The forward kernels pass none.
-struct Stash {
-  __nv_bfloat16* h;            // L x rows x HID, layer stride layer_stride
-  __nv_bfloat16* encx;         // rows x kx
-  __nv_bfloat16* encd;         // rows x kd
-  __nv_bfloat16* happ;         // rows x HALF
-  unsigned char* dirg;         // rows x HALF, 1 where the dir layer's input to relu > 0
-  long long layer_stride;
-  long long row0;
 };
 
 // Error codes below 0 are argument errors; codes >= 0 are cudaError_t.
@@ -226,18 +211,6 @@ __device__ __forceinline__ void gemm_tile(const __nv_bfloat16* seg_a, int lda, i
   }
 }
 
-// Copy a 128-row bf16 tile from shared memory (row stride lds) to device
-// memory (row stride ldg), 16 bytes a thread; cols, lds and ldg are
-// multiples of 8.
-__device__ __forceinline__ void copy_tile_out(const __nv_bfloat16* s, int lds, int cols,
-                                              __nv_bfloat16* g, long long ldg) {
-  const int vec = cols / 8;
-  for (int idx = threadIdx.x; idx < TILE_M * vec; idx += THREADS) {
-    const int r = idx / vec, c = (idx - r * vec) * 8;
-    *reinterpret_cast<uint4*>(g + r * ldg + c) = *reinterpret_cast<const uint4*>(s + r * lds + c);
-  }
-}
-
 // ------------------------------------------------------------- tile stages
 
 // Column c of an encoding of 3-vectors: [v, sin(2^0 v), cos(2^0 v), ...]
@@ -307,35 +280,9 @@ __device__ __forceinline__ void encode_cols(const FieldArgs& P, Smem& sm, Pos po
   }
 }
 
-// A tile of rays: row = ray j * s + sample, the position o + z d encoded as
-// y = 2^i o + z (2^i d), without forming the point.
-__device__ void encode_tile(const FieldArgs& P, Smem& sm, int s, int rpc) {
-  encode_cols(
-      P, sm,
-      [&](int row, int dim, float f) {
-        const int j = row / s;
-        const float a = sm.o[j * 3 + dim] * f;
-        const float b = sm.d[j * 3 + dim] * f;
-        return __fadd_rn(a, __fmul_rn(sm.z[row], b));
-      },
-      [&](int row) { return sm.t[row / s]; },
-      [&](int row, int dim) { return sm.d[(row / s) * 3 + dim]; },
-      [&](int row) { return row / s < rpc; });
-  // per-ray appearance term emb @ Wapp^T (bf16 inputs, f32 sum); bapp is
-  // added after relu(hdir_pre) + this, in the JAX kernel's order
-  const __nv_bfloat16* wapp = P.mats + P.wapp_off;
-  for (int idx = threadIdx.x; idx < rpc * HALF; idx += THREADS) {
-    const int j = idx / HALF, n = idx - j * HALF;
-    float acc = 0.f;
-    for (int k = 0; k < P.emb_dim; ++k)
-      acc += bf16_round(sm.emb[j * P.emb_dim + k]) * __bfloat162float(wapp[n * P.emb_dim + k]);
-    sm.app[j * HALF + n] = acc;
-  }
-}
-
 // A tile of independent rows (after load_rows): y = 2^i x, the encoding of
 // danerf_tpu's _encode(pts); rows from nvalid on are 0.  The appearance
-// term is formed per row inside field_tile<true>.
+// term is formed per row inside field_tile.
 __device__ void encode_rows(const FieldArgs& P, Smem& sm, const RowSmem& rs, int nvalid) {
   encode_cols(
       P, sm, [&](int row, int dim, float f) { return rs.x[row * 3 + dim] * f; },
@@ -344,26 +291,16 @@ __device__ void encode_rows(const FieldArgs& P, Smem& sm, const RowSmem& rs, int
       [&](int row) { return row < nvalid; });
 }
 
-// The field on the tile: needs encode_tile's (encode_rows's for ROWS)
-// output and a __syncthreads after it; leaves sm.rgb (128 x 3), sm.sigma and
-// sm.sigma_pre (128) valid behind a __syncthreads.  Rays: s = samples per
-// ray in the tile's rows, the appearance term from sm.app.  ROWS: the
-// appearance term is embx (128 x E bf16, row stride LDE) @ Wapp^T on the
-// tensor cores, in registers beside the dir layer's accumulator.  Returns
-// the buffer (sm.hA or sm.hB) holding the last trunk layer's output; the
-// other one holds happ.  With a stash, the residuals also go to it.
-template <bool ROWS = false>
-__device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rpc,
-                                     const Stash* st = nullptr,
-                                     const __nv_bfloat16* embx = nullptr) {
+// The field on the tile: needs encode_rows's output and a __syncthreads
+// after it; leaves sm.rgb (128 x 3), sm.sigma and sm.sigma_pre (128) valid
+// behind a __syncthreads.  The appearance term is embx (128 x E bf16, row
+// stride LDE) @ Wapp^T on the tensor cores, in registers beside the dir
+// layer's accumulator.
+__device__ void field_tile(const FieldArgs& P, Smem& sm, const __nv_bfloat16* embx) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   __nv_bfloat16* cur = sm.hA;
   __nv_bfloat16* nxt = sm.hB;
-  if (st != nullptr) {
-    copy_tile_out(sm.encx, LDX, P.kx, st->encx + st->row0 * P.kx, P.kx);
-    copy_tile_out(sm.encd, LDD, P.kd, st->encd + st->row0 * P.kd, P.kd);
-  }
 
   for (int i = 0; i < P.num_layers; ++i) {
     const __nv_bfloat16* W = P.mats + P.w_off[i];
@@ -388,8 +325,6 @@ __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rp
       }
     }
     __syncthreads();
-    if (st != nullptr)
-      copy_tile_out(nxt, LDH, HID, st->h + i * st->layer_stride + st->row0 * HID, HID);
     __nv_bfloat16* t = cur; cur = nxt; nxt = t;
   }
 
@@ -399,8 +334,7 @@ __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rp
     float acc[M_TILES][2][4];
     gemm_tile<2>(cur, LDH, HID, sm.encd, LDD, P.kd, P.mats + P.wdir_off, n_base, acc);
     float app_acc[M_TILES][2][4];
-    if constexpr (ROWS)
-      gemm_tile<2>(embx, LDE, P.emb_dim, embx, LDE, 0, P.mats + P.wapp_off, n_base, app_acc);
+    gemm_tile<2>(embx, LDE, P.emb_dim, embx, LDE, 0, P.mats + P.wapp_off, n_base, app_acc);
     const float* bdir = P.vecs + P.bdir_off;
     const float* bapp = P.vecs + P.bapp_off;
 #pragma unroll
@@ -413,24 +347,11 @@ __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rp
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = mt * 16 + gid + 8 * h;
-          float e0, e1;
-          if constexpr (ROWS) {
-            e0 = app_acc[mt][nt][2 * h];
-            e1 = app_acc[mt][nt][2 * h + 1];
-          } else {
-            const float* app = sm.app + min(row / s, rpc - 1) * HALF;
-            e0 = app[col];
-            e1 = app[col + 1];
-          }
+          const float e0 = app_acc[mt][nt][2 * h], e1 = app_acc[mt][nt][2 * h + 1];
           const float p0 = acc[mt][nt][2 * h] + b0, p1 = acc[mt][nt][2 * h + 1] + b1;
           const float v0 = (fmaxf(p0, 0.f) + e0) + a0;
           const float v1 = (fmaxf(p1, 0.f) + e1) + a1;
           *reinterpret_cast<__nv_bfloat162*>(nxt + row * LDH + col) = __floats2bfloat162_rn(v0, v1);
-          if (st != nullptr) {
-            unsigned char* g = st->dirg + (st->row0 + row) * HALF + col;
-            g[0] = p0 > 0.f;
-            g[1] = p1 > 0.f;
-          }
         }
       }
     }
@@ -461,7 +382,6 @@ __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rp
     }
   }
   __syncthreads();
-  if (st != nullptr) copy_tile_out(nxt, LDH, HALF, st->happ + st->row0 * HALF, HALF);
 
   // rgb head: sigmoid(happ_bf16 @ Wrgb^T + brgb), N = 3
   {
@@ -486,25 +406,6 @@ __device__ __nv_bfloat16* field_tile(const FieldArgs& P, Smem& sm, int s, int rp
     }
   }
   __syncthreads();
-  return cur;
-}
-
-// Load a tile's per-ray inputs (zeros past R; t may be null) into shared
-// memory.
-__device__ void load_rays(Smem& sm, const float* __restrict__ o, const float* __restrict__ d,
-                          const float* __restrict__ emb, const float* __restrict__ t,
-                          int emb_dim, long long ray0, int rpc, long long R) {
-  for (int idx = threadIdx.x; idx < rpc * 3; idx += THREADS) {
-    const long long r = ray0 + idx / 3;
-    sm.o[idx] = r < R ? o[r * 3 + idx % 3] : 0.f;
-    sm.d[idx] = r < R ? d[r * 3 + idx % 3] : 0.f;
-  }
-  for (int j = threadIdx.x; j < rpc; j += THREADS)
-    sm.t[j] = (t != nullptr && ray0 + j < R) ? t[ray0 + j] : 0.f;
-  for (int idx = threadIdx.x; idx < rpc * emb_dim; idx += THREADS) {
-    const long long r = ray0 + idx / emb_dim;
-    sm.emb[idx] = r < R ? emb[r * emb_dim + idx % emb_dim] : 0.f;
-  }
 }
 
 // Load a tile's per-row inputs, rows row0 .. row0 + nvalid of x, d (N,3),
@@ -524,45 +425,6 @@ __device__ void load_rows(RowSmem& rs, const float* __restrict__ x, const float*
     const int r = idx / emb_dim, k = idx - r * emb_dim;
     rs.emb[r * LDE + k] = __float2bfloat16_rn(r < nvalid ? emb[(row0 + r) * emb_dim + k] : 0.f);
   }
-}
-
-// Stable rank merge of one ray's samples by one warp (K5, K4): the sorted
-// coarse depths zc (Sc) with their field fc (the ray's (4, Sc) slice of
-// K2's output) and the sorted fine depths zf (Sf) whose field is the tile's
-// rows row0.. of sm.rgb / sm.sigma.  rank_c = i + #{z_f < z_c[i]}, rank_f =
-// j + #{z_c <= z_f[j]} (coarse first on ties) replaces the TPU kernel's
-// one-hot permutation matmuls.  Writes the merged z, sigma, rgb (Sc + Sf)
-// and, when given, the ranks.
-__device__ void merge_ray(const Smem& sm, const float* zc, int Sc, const float* zf, int Sf,
-                          const float* __restrict__ fc, int row0, float* mz, float* msig,
-                          float* mrgb, int* rank_c, int* rank_f) {
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < Sc; i += 32) {
-    const float zv = zc[i];
-    int cnt = 0;
-    for (int k = 0; k < Sf; ++k) cnt += zf[k] < zv;
-    const int k = i + cnt;
-    if (rank_c != nullptr) rank_c[i] = k;
-    mz[k] = zv;
-    mrgb[k * 3 + 0] = fc[i];
-    mrgb[k * 3 + 1] = fc[Sc + i];
-    mrgb[k * 3 + 2] = fc[2 * Sc + i];
-    msig[k] = fc[3 * Sc + i];
-  }
-  for (int i = lane; i < Sf; i += 32) {
-    const float zv = zf[i];
-    int cnt = 0;
-    for (int k = 0; k < Sc; ++k) cnt += zc[k] <= zv;
-    const int k = i + cnt;
-    const int row = row0 + i;
-    if (rank_f != nullptr) rank_f[i] = k;
-    mz[k] = zv;
-    mrgb[k * 3 + 0] = sm.rgb[row * 3 + 0];
-    mrgb[k * 3 + 1] = sm.rgb[row * 3 + 1];
-    mrgb[k * 3 + 2] = sm.rgb[row * 3 + 2];
-    msig[k] = sm.sigma[row];
-  }
-  __syncwarp();
 }
 
 // Composite one ray with one warp: alpha = 1 - exp(-sigma * dist) (1e-3 tail

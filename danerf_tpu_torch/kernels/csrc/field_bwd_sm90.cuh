@@ -1,15 +1,17 @@
-// The backward of the NeRF-W field on Hopper (sm_90a) for the four
-// composite training kernels: K3 (march_bwd.cu) and K7 (march_train.cu), the
-// ray march's backward under the caller's cotangents or the MSE; K4
-// (merged_train.cu) and K6 (merged_bwd.cu), the merged fine pass's under the
-// MSE or the caller's cotangents.  The same functions as field_bwd.cuh's tile
-// (the forward with its residuals, the composite's transpose, the transposed
-// chain) and its dW pass, redesigned around field_sm90.cuh's tile; the tile
-// is a template over the composite (MarchComp<MSE>, MergedComp<MSE>).  K8 and
-// K9 keep field_bwd.cuh.
+// The backward of the NeRF-W field on Hopper (sm_90a) for the six training
+// kernels: K3 (march_bwd.cu) and K7 (march_train.cu), the ray march's
+// backward under the caller's cotangents or the MSE; K4 (merged_train.cu)
+// and K6 (merged_bwd.cu), the merged fine pass's under the MSE or the
+// caller's cotangents; K8 (mlp_bwd.cu), the per-sample field's under the
+// caller's per-row cotangents; K9 (hier_onepass.cu), the whole 64+64 step.
+// The forward with its residuals, the composite's transpose, the
+// transposed chain and the dW pass, built around field_sm90.cuh's tile; the
+// tile kernel is a template over the composite (MarchComp<MSE>,
+// MergedComp<MSE>, RowComp), and K9's kernel runs the same phases in its
+// own order.
 //
-// Numerics are field_bwd.cuh's (_field_bwd_from_res): both operands of
-// every product rounded to bf16 and accumulated in f32, d_pre_rgb and the
+// Numerics are danerf_tpu's _field_bwd_from_res: both operands of every
+// product rounded to bf16 and accumulated in f32, d_pre_rgb and the
 // density head in f32, the bias gradients sums of the f32 d_pre; only the
 // summation order differs.  Every sum runs in a fixed order, so two calls
 // give bit-identical results.
@@ -24,7 +26,7 @@
 //   the registers, the dir layer's gates (2 x 32 bits) to the gate area.
 // - Composite: one warp per ray (field_bwd.cuh composite_keep /
 //   composite_bwd; K4 and K6 merge by rank and un-permute by the kept
-//   ranks).
+//   ranks; K8 takes the caller's cotangents of each row).
 //   Its arrays live in the weight ring, which the producer leaves empty
 //   until the consumers arrive on comp_done.
 // - Chain head (CUDA cores): d_pre_rgb, d_sigma_pre, the density head's row
@@ -44,9 +46,11 @@
 // buffer, which the consumers hand back after the composite, so the next
 // tile is encoded while this one runs its chain; they also write the
 // encodings and each row's bf16 embedding to the stash.
+// - K8's tile holds 128 independent rows: the appearance term is a wgmma
+//   per row from one more ring stage, and so is demb (mlp_bwd.cu).
 // Shared memory: ring 96 KB, activations 64 KB, one encoding buffer 29 KB,
-// the appearance term, rgb, sigma, sigma_pre, field_bwd.cuh's BwdSmem and the
-// column sums: 219,136 of 232,448 bytes.
+// the appearance term, rgb, sigma, sigma_pre, field_bwd.cuh's BwdSmem, the
+// column sums and K9's HierSmem: 225,280 of 232,448 bytes.
 //
 // dW pass: one CTA owns 128 output rows (two consumer warpgroups of m64) x
 // 256 input columns of one layer's dW over one fixed row partition.  A
@@ -83,6 +87,21 @@ constexpr int DW90_PARTS = 16;       // most row partitions of the dW pass
 // latency; 64 partitions keep it short and the blocks in one wave.
 constexpr int NARROW_PARTS = 64;
 
+// What the tile kernels are: rays of s samples (K3, K4, K6, K7), K8's 128
+// independent rows, K9's two row sets of one tile's rays (coarse, fine).
+enum Kind { RAYS = 0, ROW_TILE = 1, HIER = 2 };
+
+// K9's arrays that outlive a tile's weight stream (rpc rays of Sc coarse
+// samples, rpc Sc <= 128): the coarse field [r, g, b, sigma] and sigma_pre,
+// the coarse field's cotangent from the merged composite, each ray's alpha /
+// T / w of the coarse composite.
+struct HierSmem {
+  float kf[4 * ROWS];   // rpc x 4 x Sc
+  float ksp[ROWS];      // rpc x Sc
+  float gfc[4 * ROWS];  // rpc x 4 x Sc
+  float scr[3 * ROWS];  // rpc x 3 x Sc
+};
+
 struct __align__(1024) SmemBwd {
   unsigned char ring[NST][STAGE_BYTES];  // the composite's arrays between forward and chain
   unsigned char act[4 * BLK];            // activations, then bf16 d_pre in place
@@ -93,8 +112,9 @@ struct __align__(1024) SmemBwd {
   float sigma_pre[ROWS];
   float colsum[2][4][HID];               // per warpgroup, per warp: column sums
   BwdSmem bs;
+  HierSmem hier;
   unsigned long long full[NST], empty[NST];
-  unsigned long long enc_full, enc_empty, app_full, app_empty, comp_done;
+  unsigned long long enc_full, enc_empty, app_full, app_empty, comp_done, zf_ready;
 };
 constexpr size_t BWD_SMEM_BYTES = sizeof(SmemBwd);
 static_assert(BWD_SMEM_BYTES <= 232448, "the backward tile exceeds the 227 KB a block may use");
@@ -120,23 +140,29 @@ struct __align__(64) BwdMaps {
   CUtensorMap w[MAX_LAYERS + 1];
   CUtensorMap wt_trunk, wt_dir;
   CUtensorMap h, dpre;
+  // K8: Wapp (HALF x E, boxes of 64 K x HALF), the stash's bf16 embeddings
+  // (rows x E, boxes of 64 x 128) and Wapp^T (E x HALF, boxes of 64 x 64),
+  // each zero past E
+  CUtensorMap wapp, embr, wt_app;
 };
 
 struct __align__(64) DwMaps {
   CUtensorMap dpre, h, ddir;
 };
 
-// The backward scratch (field_bwd.cuh's Scratch without dirg; part holds 2
-// slots a tile), the per-CTA gate masks and the dW pass's partial blocks.
+// The backward scratch (field_bwd.cuh's Scratch; part holds 2 slots a
+// tile), the per-CTA gate masks and the dW pass's partial blocks.
 struct Scratch90 {
   Scratch s;
-  uint4* gates;     // MAX_CTAS x (L + 1) x CONSUMERS
+  uint4* gates;     // MAX_CTAS x gate sets x (L + 1) x CONSUMERS
   float* dwpart90;  // DW90_PARTS x blocks x 128 x 256
   int blocks;       // dW blocks on wgmma: 2 (L - 1) + 1
 };
 
 // The rays of a launch and the depths of each ray's s rows (K3, K7: its
-// samples; K4, K6: its fine samples).
+// samples; K4, K6: its fine samples; K9: its coarse samples, then s_fine
+// fine ones, whose depths the tile forms).  K8: R rows, o their points,
+// rpc = ROWS, s = 1, no z.
 struct BwdRays {
   const float* o;
   const float* d;
@@ -144,7 +170,7 @@ struct BwdRays {
   const float* t;
   const float* z;
   long long R, ray_base, n_tiles;
-  int s, rpc;
+  int s, rpc, s_fine;
 };
 
 inline int narrow_dw_tiles(const FieldArgs& P) {
@@ -154,10 +180,11 @@ inline int narrow_dw_tiles(const FieldArgs& P) {
   return n + dw_tiles_of(HALF, P.kd) + dw_tiles_of(HALF, P.emb_dim) + dw_tiles_of(DRGB_LD, HALF);
 }
 
-// Lay the scratch out from base (or only measure it, base == nullptr);
-// returns its size in bytes.
+// Lay the scratch out from base (or only measure it, base == nullptr) for
+// `tiles` tiles of rows and gate_sets sets of one tile's gate masks a CTA
+// (K9: 2); returns its size in bytes.
 inline long long carve90(char* base, const FieldArgs& P, long long tiles, int n_vecs,
-                         Scratch90* s) {
+                         Scratch90* s, int gate_sets = 1) {
   const long long rows = tiles * TILE_M;
   long long off = 0;
   auto take = [&](long long bytes) -> char* {
@@ -177,14 +204,13 @@ inline long long carve90(char* base, const FieldArgs& P, long long tiles, int n_
   c.ddir = reinterpret_cast<__nv_bfloat16*>(take(rows * HALF * b));
   c.drgb = reinterpret_cast<__nv_bfloat16*>(take(rows * DRGB_LD * b));
   c.embr = reinterpret_cast<__nv_bfloat16*>(take(rows * P.emb_dim * b));
-  c.dirg = nullptr;
   c.nv = n_vecs + 1;
   c.part = reinterpret_cast<float*>(take(2 * tiles * c.nv * (long long)sizeof(float)));
   c.dw_tiles = narrow_dw_tiles(P);  // the narrow jobs' 64 x 64 tiles (dw_kernel)
   c.dwpart = reinterpret_cast<float*>(
       take((long long)NARROW_PARTS * c.dw_tiles * DW_TILE * DW_TILE * sizeof(float)));
   c.rows = rows;
-  s->gates = reinterpret_cast<uint4*>(take((long long)MAX_CTAS * (L + 1) * GATE_BYTES));
+  s->gates = reinterpret_cast<uint4*>(take((long long)MAX_CTAS * gate_sets * (L + 1) * GATE_BYTES));
   s->blocks = 2 * (L - 1) + 1;
   s->dwpart90 = reinterpret_cast<float*>(
       take((long long)DW90_PARTS * s->blocks * DW90_ROWS * HID * sizeof(float)));
@@ -256,7 +282,41 @@ __device__ __forceinline__ void wgmma_n256_tt(float (&d)[ACC], uint64_t da, uint
       : "l"(da), "l"(db));
 }
 
+// d[64..127] (+)= A (64 x 16) B^T (128 x 16), both K-major: K8's appearance
+// term beside the dir layer's accumulator in d[0..63].
+__device__ __forceinline__ void wgmma_n128_hi(float (&d)[ACC], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DANERF_ACC8(64), DANERF_ACC8(72), DANERF_ACC8(80), DANERF_ACC8(88), DANERF_ACC8(96),
+        DANERF_ACC8(104), DANERF_ACC8(112), DANERF_ACC8(120)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0..31] (+)= A (64 x 16) B^T (64 x 16), both K-major: K8's per-row demb.
+__device__ __forceinline__ void wgmma_n64(float (&d)[ACC], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DANERF_ACC8(0), DANERF_ACC8(8), DANERF_ACC8(16), DANERF_ACC8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 #undef DANERF_ACC8
+
+// Generic-proxy writes to device memory before a TMA load reads them.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 
 // The sum of v[q] (q = 2 jj + e: the thread's partial sum of column
 // 8 (j0 + jj) + cq + e, jj < 4) over the 8 lanes that share lane & 3, as a
@@ -321,7 +381,8 @@ __device__ __forceinline__ SmemBwd& smem_bwd() {
 // enc_full when the encoders have filled the buffer, enc_empty when the
 // consumers are done with it; app_full / app_empty (both warpgroups) the
 // appearance term; comp_done when the consumers no longer use the ring for
-// the composite.
+// the composite; zf_ready (K9) when the consumers have written a tile's
+// fine depths into the buffer.
 __device__ __forceinline__ void init_bwd(SmemBwd& sm) {
   if (threadIdx.x == 0) {
     if (smem_u32(&sm) & 1023) __trap();
@@ -334,6 +395,7 @@ __device__ __forceinline__ void init_bwd(SmemBwd& sm) {
     mbar_init(&sm.app_full, 1);
     mbar_init(&sm.app_empty, 2);
     mbar_init(&sm.comp_done, 1);
+    mbar_init(&sm.zf_ready, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -345,7 +407,12 @@ __device__ __forceinline__ void init_bwd(SmemBwd& sm) {
 // of this CTA, the forward's K slices (field_sm90.cuh stream_weights), then,
 // once the composite is off the ring, the transposed chain's: the dir
 // layer's block (2 slices), then the trunk layers' from the last to layer 1
-// (4 each).
+// (4 each).  K8 takes one more stage after the forward's, once the
+// encoders have stashed the tile's embeddings: Wapp and the rows'
+// embeddings (the appearance product), and one before the chain's: Wapp^T
+// (demb).  K9 streams the forward twice (coarse, fine) and the chain twice
+// (fine, coarse).
+template <int KIND>
 __device__ __forceinline__ void stream_bwd(const BwdMaps& maps, const FieldArgs& P,
                                            long long n_tiles) {
   SmemBwd& sm = smem_bwd();
@@ -353,21 +420,56 @@ __device__ __forceinline__ void stream_bwd(const BwdMaps& maps, const FieldArgs&
   const uint32_t full = ring + offsetof(SmemBwd, full), empty = ring + offsetof(SmemBwd, empty);
   const int tiles = my_tiles(n_tiles);
   Pipe pp;
-  auto load = [&](const CUtensorMap* m, int k0, int row, uint32_t bytes) {
+  auto load = [&](const CUtensorMap* m, int k0, int row, uint32_t at = 0) {
+    tma_load_at(ring + pp.stage * STAGE_BYTES + at, m, k0, row, full + 8 * pp.stage);
+  };
+  auto stage = [&](uint32_t bytes) {  // wait for the stage, expect `bytes`
     mbar_wait_at(empty + 8 * pp.stage, pp.phase ^ 1);
     mbar_expect_tx(full + 8 * pp.stage, bytes);
-    tma_load_at(ring + pp.stage * STAGE_BYTES, m, k0, row, full + 8 * pp.stage);
-    pp.advance();
   };
-  for (int c = 0; c < tiles; ++c) {
+  auto forward = [&]() {
     for (int i = 0; i <= P.num_layers; ++i) {
       const uint32_t bytes = (i == P.num_layers ? HALF : HID) * KS * 2;
-      for (int k0 = 0; k0 < layer_k(P, i); k0 += KS) load(&maps.w[i], k0, 0, bytes);
+      for (int k0 = 0; k0 < layer_k(P, i); k0 += KS) {
+        stage(bytes);
+        load(&maps.w[i], k0, 0);
+        pp.advance();
+      }
     }
-    mbar_wait(&sm.comp_done, c & 1);
-    for (int k0 = 0; k0 < HALF; k0 += KS) load(&maps.wt_dir, k0, 0, STAGE_BYTES);
+  };
+  auto chain = [&]() {
+    for (int k0 = 0; k0 < HALF; k0 += KS) {
+      stage(STAGE_BYTES);
+      load(&maps.wt_dir, k0, 0);
+      pp.advance();
+    }
     for (int i = P.num_layers - 1; i >= 1; --i)
-      for (int k0 = 0; k0 < HID; k0 += KS) load(&maps.wt_trunk, k0, (i - 1) * HID, STAGE_BYTES);
+      for (int k0 = 0; k0 < HID; k0 += KS) {
+        stage(STAGE_BYTES);
+        load(&maps.wt_trunk, k0, (i - 1) * HID);
+        pp.advance();
+      }
+  };
+  for (int c = 0; c < tiles; ++c) {
+    forward();
+    if constexpr (KIND == ROW_TILE) {
+      const int row0 = (int)((blockIdx.x + (long long)c * gridDim.x) * ROWS);
+      mbar_wait(&sm.enc_full, c & 1);  // the tile's embeddings are in the stash
+      stage(2 * HALF * KS * 2);
+      load(&maps.wapp, 0, 0);
+      load(&maps.embr, 0, row0, HALF * KS * 2);
+      pp.advance();
+    }
+    if constexpr (KIND == HIER) forward();
+    mbar_wait(&sm.comp_done, c & 1);
+    if constexpr (KIND == ROW_TILE) {
+      stage(2 * 64 * KS * 2);
+      load(&maps.wt_app, 0, 0);
+      load(&maps.wt_app, KS, 0, 64 * KS * 2);
+      pp.advance();
+    }
+    chain();
+    if constexpr (KIND == HIER) chain();
   }
 }
 
@@ -376,40 +478,52 @@ __device__ __forceinline__ void stream_bwd(const BwdMaps& maps, const FieldArgs&
 // every row (field_sm90.cuh encode_group), publish the buffer, write the
 // encodings and each row's bf16 embedding (zeros past the tile's rays) to
 // the stash; then, once the consumers have read the previous tile's
-// appearance term, form this one's.
+// appearance term, form this one's.  K8: each row's point, direction and
+// time straight from device memory, and the embeddings stashed before the
+// buffer is published (the producer loads them for the appearance
+// product); no per-ray term.  K9: then, once the consumers have written
+// the tile's fine depths into the buffer (after its coarse forward), the
+// fine rows, published and stashed likewise at the tile's second row set.
+template <int KIND>
 __device__ __forceinline__ void encode_bwd(const FieldArgs& P, const BwdRays& rays,
                                            const Scratch& sc) {
   SmemBwd& sm = smem_bwd();
   EncBuf& eb = sm.enc;
   const int et = threadIdx.x - ENC0;
-  const int s = rays.s, rpc = rays.rpc, tiles = my_tiles(rays.n_tiles), E = P.emb_dim;
-  const float inv_s = 1.f / (float)s;
+  const int rpc = rays.rpc, tiles = my_tiles(rays.n_tiles), E = P.emb_dim;
   const EncPitch pt{seg_pitch(min(P.kx, KS)), seg_pitch(P.kx - KS), seg_pitch(P.kd)};
   const int items = ROWS * (P.pos_levels + P.dir_levels + 1);
   const __nv_bfloat16* wapp = P.mats + P.wapp_off;
-  for (int c = 0; c < tiles; ++c) {
-    const long long tile = blockIdx.x + (long long)c * gridDim.x;
-    const long long ray0 = rays.ray_base + tile * rpc, row0 = tile * ROWS;
-    mbar_wait(&sm.enc_empty, (c & 1) ^ 1);
-    for (int idx = et; idx < rpc * 3; idx += ENCODERS) {
-      const long long r = ray0 + idx / 3;
-      eb.o[idx] = r < rays.R ? rays.o[r * 3 + idx % 3] : 0.f;
-      eb.d[idx] = r < rays.R ? rays.d[r * 3 + idx % 3] : 0.f;
-    }
-    for (int j = et; j < rpc; j += ENCODERS)
-      eb.t[j] = (rays.t != nullptr && ray0 + j < rays.R) ? rays.t[ray0 + j] : 0.f;
-    for (int row = et; row < ROWS; row += ENCODERS) {
-      const int j = row / s;
+  // each row's bf16 embedding (its ray's; zeros past the tile's rays) to the
+  // stash rows row0..
+  auto stash_emb = [&](int s, long long ray0, long long row0) {
+    for (int idx = et; idx < ROWS * E; idx += ENCODERS) {
+      const int row = idx / E, k = idx - row * E, j = row / s;
       const long long r = ray0 + j;
-      eb.z[row] = (j < rpc && r < rays.R) ? rays.z[r * s + (row - j * s)] : 0.f;
+      sc.embr[(row0 + row) * E + k] =
+          __float2bfloat16_rn(j < rpc && r < rays.R ? rays.emb[r * E + k] : 0.f);
     }
-    encoders_sync();
+  };
+  // the encodings of the buffer's rows (s samples a ray) into the buffer,
+  // published; then to the stash rows row0..
+  auto encode = [&](int s, long long ray0, long long row0) {
+    const float inv_s = 1.f / (float)s;
     for (int it = et; it < items; it += ENCODERS) {
       const int row = it & (ROWS - 1);
-      const int j = __float2int_rz(((float)row + 0.5f) * inv_s);  // row / s, exactly
-      encode_group(P, eb, pt, row, it >> 7, j, rpc);
+      if constexpr (KIND == ROW_TILE) {
+        const long long r = ray0 + row, rc = r < rays.R ? r : rays.R - 1;
+        encode_group_at(P, eb, pt, row, it >> 7, r < rays.R, rays.o + rc * 3, rays.d + rc * 3,
+                        nullptr, rays.t != nullptr ? rays.t + rc : nullptr);
+      } else {
+        const int j = __float2int_rz(((float)row + 0.5f) * inv_s);  // row / s, exactly
+        encode_group(P, eb, pt, row, it >> 7, j, rpc);
+      }
     }
     fence_proxy_async();
+    if constexpr (KIND == ROW_TILE) {
+      stash_emb(s, ray0, row0);  // which the producer's TMA reads next
+      fence_proxy_async_global();
+    }
     encoders_sync();
     if (et == 0) mbar_arrive(&sm.enc_full);
     // the stash: encx (rows x kx), encd (rows x kd), 16 bytes an item
@@ -428,24 +542,48 @@ __device__ __forceinline__ void encode_bwd(const FieldArgs& P, const BwdRays& ra
       }
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
     }
-    for (int idx = et; idx < ROWS * E; idx += ENCODERS) {
-      const int row = idx / E, k = idx - row * E, j = row / s;
-      const long long r = ray0 + j;
-      sc.embr[(row0 + row) * E + k] =
-          __float2bfloat16_rn(j < rpc && r < rays.R ? rays.emb[r * E + k] : 0.f);
+    if constexpr (KIND != ROW_TILE) stash_emb(s, ray0, row0);
+  };
+  for (int c = 0; c < tiles; ++c) {
+    const long long tile = blockIdx.x + (long long)c * gridDim.x;
+    const long long ray0 = rays.ray_base + tile * rpc;
+    const long long row0 = (KIND == HIER ? 2 * tile : tile) * ROWS;
+    mbar_wait(&sm.enc_empty, (c & 1) ^ 1);
+    if constexpr (KIND != ROW_TILE) {
+      const int s = rays.s;
+      for (int idx = et; idx < rpc * 3; idx += ENCODERS) {
+        const long long r = ray0 + idx / 3;
+        eb.o[idx] = r < rays.R ? rays.o[r * 3 + idx % 3] : 0.f;
+        eb.d[idx] = r < rays.R ? rays.d[r * 3 + idx % 3] : 0.f;
+      }
+      for (int j = et; j < rpc; j += ENCODERS)
+        eb.t[j] = (rays.t != nullptr && ray0 + j < rays.R) ? rays.t[ray0 + j] : 0.f;
+      for (int row = et; row < ROWS; row += ENCODERS) {
+        const int j = row / s;
+        const long long r = ray0 + j;
+        eb.z[row] = (j < rpc && r < rays.R) ? rays.z[r * s + (row - j * s)] : 0.f;
+      }
+      encoders_sync();
     }
-    mbar_wait(&sm.app_empty, (c & 1) ^ 1);
-    for (int idx = et; idx < rpc * HALF; idx += ENCODERS) {
-      const int j = idx / HALF, n = idx - j * HALF;
-      const long long r = ray0 + j;
-      float acc = 0.f;
-      if (r < rays.R)
-        for (int k = 0; k < E; ++k)
-          acc += bf16_round(rays.emb[r * E + k]) * __bfloat162float(wapp[n * E + k]);
-      sm.app[idx] = acc;
+    encode(rays.s, ray0, row0);
+    if constexpr (KIND != ROW_TILE) {
+      mbar_wait(&sm.app_empty, (c & 1) ^ 1);
+      for (int idx = et; idx < rpc * HALF; idx += ENCODERS) {
+        const int j = idx / HALF, n = idx - j * HALF;
+        const long long r = ray0 + j;
+        float acc = 0.f;
+        if (r < rays.R)
+          for (int k = 0; k < E; ++k)
+            acc += bf16_round(rays.emb[r * E + k]) * __bfloat162float(wapp[n * E + k]);
+        sm.app[idx] = acc;
+      }
+      encoders_sync();
+      if (et == 0) mbar_arrive(&sm.app_full);
     }
-    encoders_sync();
-    if (et == 0) mbar_arrive(&sm.app_full);
+    if constexpr (KIND == HIER) {
+      mbar_wait(&sm.zf_ready, c & 1);  // the fine depths are in eb.z
+      encode(rays.s_fine, ray0, row0 + ROWS);
+    }
   }
 }
 
@@ -551,18 +689,23 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[ACC], const floa
 // area (the dir layer's, bit 2 j + e of word h for j < 16, after the trunk
 // layers'), sigma_pre kept, happ written to the stash.  Leaves sm.rgb,
 // sm.sigma, sm.sigma_pre valid behind a consumers_sync, and the last trunk
-// output in sm.act.
+// output in sm.act.  enc_par: the parity of the buffer's fill (K9: 0 for a
+// tile's coarse rows, 1 for its fine ones); app_done: hand the appearance
+// term back (K9: after the fine rows).  K8 (ROW_TILE): the appearance term
+// of each row is emb @ Wapp^T on wgmma from one more ring stage (Wapp, the
+// rows' embeddings), into acc[64..127] beside the dir layer's accumulator.
+template <int KIND>
 __device__ __forceinline__ void forward_tile(const FieldArgs& P, const BwdMaps& maps, SmemBwd& sm,
-                                             const Scratch& sc, uint4* gates, int c,
-                                             long long row0, int s, int rpc, Pipe& pp,
-                                             float (&acc)[ACC]) {
+                                             const Scratch& sc, uint4* gates, int c, int enc_par,
+                                             bool app_done, long long row0, int s, int rpc,
+                                             Pipe& pp, float (&acc)[ACC]) {
   const int g = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31;
   const int r0 = 64 * g + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
   const int cq = 2 * (lane & 3);
   const int L = P.num_layers;
   const EncBuf& eb = sm.enc;
-  mbar_wait(&sm.enc_full, c & 1);
+  mbar_wait(&sm.enc_full, enc_par);
 
   for (int i = 0; i < L; ++i) {
     mma_ring<HID>(acc, sm, (layer_k(P, i) + KS - 1) / KS, g, pp, [&](int sl) -> Seg {
@@ -601,7 +744,24 @@ __device__ __forceinline__ void forward_tile(const FieldArgs& P, const BwdMaps& 
     if (sl < HID / KS) return {smem_u32(sm.act + sl * BLK), 128, KS};
     return {smem_u32(eb.encd), seg_pitch(P.kd), P.kd};
   });
-  mbar_wait(&sm.app_full, c & 1);
+  if constexpr (KIND == ROW_TILE) {
+    // acc[64..127] = the rows' bf16 embeddings (the stage's second half) @
+    // Wapp^T (its first), K = E in k16 steps, zero past E
+    mbar_wait(&sm.full[pp.stage], pp.phase);
+    __syncwarp();
+    const uint32_t st = smem_u32(sm.ring[pp.stage]);
+    const uint64_t da = make_desc(st + HALF * KS * 2 + g * 64 * 128, 128);
+    const uint64_t db = make_desc(st, 128);
+    wgmma_fence();
+    for (int k = 0; k < P.emb_dim / 16; ++k) wgmma_n128_hi(acc, da + 2 * k, db + 2 * k, k != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[pp.stage]);
+    pp.advance();
+  } else {
+    mbar_wait(&sm.app_full, c & 1);
+  }
   {
     const float* bdir = P.vecs + P.bdir_off;
     const float* bapp = P.vecs + P.bapp_off;
@@ -625,16 +785,20 @@ __device__ __forceinline__ void forward_tile(const FieldArgs& P, const BwdMaps& 
       for (int h = 0; h < 2; ++h) {
         const float p0 = acc[4 * j + 2 * h] + bd2.x, p1 = acc[4 * j + 2 * h + 1] + bd2.y;
         dmask[h] |= ((uint32_t)(p0 > 0.f) | ((uint32_t)(p1 > 0.f) << 1)) << (2 * j);
-        const float h0 = bf16_round((fmaxf(p0, 0.f) + app[h][c8]) + ba2.x);
-        const float h1 = bf16_round((fmaxf(p1, 0.f) + app[h][c8 + 1]) + ba2.y);
+        const float e0 = KIND == ROW_TILE ? acc[64 + 4 * j + 2 * h] : app[h][c8];
+        const float e1 = KIND == ROW_TILE ? acc[64 + 4 * j + 2 * h + 1] : app[h][c8 + 1];
+        const float h0 = bf16_round((fmaxf(p0, 0.f) + e0) + ba2.x);
+        const float h1 = bf16_round((fmaxf(p1, 0.f) + e1) + ba2.y);
         *reinterpret_cast<uint32_t*>(sc.happ + (row0 + r0 + 8 * h) * HALF + c8) = bf16x2(h0, h1);
 #pragma unroll
         for (int k = 0; k < 3; ++k) cs[h][k] += h0 * w[k].x + h1 * w[k].y;
       }
     }
     gates[L * CONSUMERS + threadIdx.x] = make_uint4(dmask[0], dmask[1], 0u, 0u);
-    wg_sync(g);  // the warpgroup is done with sm.app
-    if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.app_empty);
+    if (KIND != ROW_TILE && app_done) {
+      wg_sync(g);  // the warpgroup is done with sm.app
+      if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.app_empty);
+    }
     const float* brgb = P.vecs + P.brgb_off;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -651,8 +815,11 @@ __device__ __forceinline__ void forward_tile(const FieldArgs& P, const BwdMaps& 
 }
 
 // Stable rank merge of one ray's samples by one warp, keeping the ranks:
-// field.cuh merge_ray's, with the fine field at rows row0.. of rgb_s /
-// sig_s.
+// the sorted coarse depths zc (Sc) with their field fc ((4, Sc)) and the
+// sorted fine depths zf (Sf) whose field is at rows row0.. of rgb_s /
+// sig_s; rank_c = i + #{z_f < z_c[i]}, rank_f = j + #{z_c <= z_f[j]}
+// (coarse first on ties) replaces the TPU kernel's one-hot permutation
+// matmuls.
 __device__ __forceinline__ void merge_ray_ranks(const float* rgb_s, const float* sig_s,
                                                 const float* zc, int Sc, const float* zf, int Sf,
                                                 const float* __restrict__ fc, int row0, float* mz,
@@ -695,6 +862,7 @@ __device__ __forceinline__ void merge_ray_ranks(const float* rgb_s, const float*
 template <bool MSE_>
 struct MarchComp {
   static constexpr bool MSE = MSE_;
+  static constexpr int KIND = RAYS;
   RayCot cot;
   const float* g_field;
   int S;
@@ -728,16 +896,60 @@ struct MarchComp {
   }
 };
 
-// The merged composite: the fine field merged with the coarse one by rank,
-// the composite over Sc + Sf and its transpose under the cotangents of
+// One ray's merged composite by one warp (K4, K6, K9): the fine rows j Sf..
+// of sm.rgb / sm.sigma (depths zf) merged by rank with the coarse field fc
+// ((4, Sc), depths zc), the composite over Sa = Sc + Sf and its transpose
+// under the cotangents of ray_cotangents<MSE> (the loss term to
+// bs.loss[j]), the un-permute by the kept ranks to the coarse field's
+// cotangent gf ((4, Sc)) and the fine rows' bs.g_rgb / bs.g_sig.  al: the
+// alpha / T / w (3 Sa), m: the merged z, sigma, rgb and the ranks (6 Sa).
+template <bool MSE>
+__device__ __forceinline__ void merged_ray(SmemBwd& sm, const RayCot& cot, long long r, int j,
+                                           const float* zc, int Sc, const float* zf, int Sf,
+                                           const float* fc, float* gf, float* al, float* m) {
+  const int Sa = Sc + Sf, lane = threadIdx.x & 31;
+  float* mz = m;
+  float* msig = mz + Sa;
+  float* mrgb = msig + Sa;
+  int* rank_c = reinterpret_cast<int*>(mrgb + 3 * Sa);
+  int* rank_f = rank_c + Sc;
+  BwdSmem& bs = sm.bs;
+  merge_ray_ranks(sm.rgb, sm.sigma, zc, Sc, zf, Sf, fc, j * Sf, mz, msig, mrgb, rank_c, rank_f);
+  float out[5], g[5];
+  const float* gw;
+  composite_keep(mz, msig, mrgb, Sa, al, al + Sa, al + 2 * Sa, out);
+  ray_cotangents<MSE>(cot, r, Sa, out, g, &gw, bs.loss + j);
+  // the transpose overwrites the merged rgb / sigma with their cotangents
+  composite_bwd(mz, mrgb, Sa, al, al + Sa, al + 2 * Sa, out[3], out[4], g[0], g[1], g[2], g[3],
+                g[4], gw, mrgb, msig);
+  __syncwarp();
+  for (int i = lane; i < Sc; i += 32) {
+    const int k = rank_c[i];
+    gf[i] = mrgb[k * 3 + 0];
+    gf[Sc + i] = mrgb[k * 3 + 1];
+    gf[2 * Sc + i] = mrgb[k * 3 + 2];
+    gf[3 * Sc + i] = msig[k];
+  }
+  for (int i = lane; i < Sf; i += 32) {
+    const int k = rank_f[i];
+    const int row = j * Sf + i;
+    bs.g_rgb[row * 3 + 0] = mrgb[k * 3 + 0];
+    bs.g_rgb[row * 3 + 1] = mrgb[k * 3 + 1];
+    bs.g_rgb[row * 3 + 2] = mrgb[k * 3 + 2];
+    bs.g_sig[row] = msig[k];
+  }
+}
+
+// The merged composite: merged_ray for each ray under the cotangents of
 // ray_cotangents<MSE> (K4: the MSE's; K6: the caller's, g_w (R, Sc + Sf) in
 // merged order, the depth cotangent through the merged depth and acc), the
-// un-permute by the kept ranks to g_field (R, 4, Sc) and the fine rows.  Its
-// arrays (the per-warp alpha / T / w, the coarse depths, the merged z /
-// sigma / rgb and the ranks of each ray) in the ring.
+// coarse field's cotangent to g_field (R, 4, Sc).  Its arrays (the per-warp
+// alpha / T / w, the coarse depths and the merge arrays of each ray) in the
+// ring.
 template <bool MSE_>
 struct MergedComp {
   static constexpr bool MSE = MSE_;
+  static constexpr int KIND = RAYS;
   RayCot cot;
   const float* zc;
   const float* fc;
@@ -748,52 +960,34 @@ struct MergedComp {
     const int Sa = Sc + Sf;
     float* cscr = reinterpret_cast<float*>(sm.ring);
     float* zc_s = cscr + (CONSUMERS / 32) * 3 * Sa;  // rpc x Sc
-    float* mz = zc_s + rpc * Sc;                      // rpc x Sa
-    float* msig = mz + rpc * Sa;                      // rpc x Sa
-    float* mrgb = msig + rpc * Sa;                    // rpc x Sa x 3
-    int* rank_c = reinterpret_cast<int*>(mrgb + rpc * Sa * 3);  // rpc x Sc
-    int* rank_f = rank_c + rpc * Sc;                             // rpc x Sf
-    BwdSmem& bs = sm.bs;
+    float* merge = zc_s + rpc * Sc;                   // rpc x 6 Sa
     for (int idx = threadIdx.x; idx < rpc * Sc; idx += CONSUMERS) {
       const long long r = ray0 + idx / Sc;
       zc_s[idx] = r < R ? zc[r * Sc + idx % Sc] : 0.f;
     }
     consumers_sync();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
     for (int j = warp; j < nvalid; j += CONSUMERS / 32) {
       const long long r = ray0 + j;
-      float* mzj = mz + j * Sa;
-      float* msj = msig + j * Sa;
-      float* mrj = mrgb + j * Sa * 3;
-      int* rcj = rank_c + j * Sc;
-      int* rfj = rank_f + j * Sf;
-      merge_ray_ranks(sm.rgb, sm.sigma, zc_s + j * Sc, Sc, sm.enc.z + j * Sf, Sf, fc + r * 4 * Sc,
-                      j * Sf, mzj, msj, mrj, rcj, rfj);
-      float* al = cscr + warp * 3 * Sa;
-      float out[5], g[5];
-      const float* gw;
-      composite_keep(mzj, msj, mrj, Sa, al, al + Sa, al + 2 * Sa, out);
-      ray_cotangents<MSE>(cot, r, Sa, out, g, &gw, bs.loss + j);
-      // the transpose overwrites the merged rgb / sigma with their cotangents
-      composite_bwd(mzj, mrj, Sa, al, al + Sa, al + 2 * Sa, out[3], out[4], g[0], g[1], g[2],
-                    g[3], g[4], gw, mrj, msj);
-      __syncwarp();
-      float* gf = gfield + r * 4 * Sc;
-      for (int i = lane; i < Sc; i += 32) {
-        const int k = rcj[i];
-        gf[i] = mrj[k * 3 + 0];
-        gf[Sc + i] = mrj[k * 3 + 1];
-        gf[2 * Sc + i] = mrj[k * 3 + 2];
-        gf[3 * Sc + i] = msj[k];
-      }
-      for (int i = lane; i < Sf; i += 32) {
-        const int k = rfj[i];
-        const int row = j * Sf + i;
-        bs.g_rgb[row * 3 + 0] = mrj[k * 3 + 0];
-        bs.g_rgb[row * 3 + 1] = mrj[k * 3 + 1];
-        bs.g_rgb[row * 3 + 2] = mrj[k * 3 + 2];
-        bs.g_sig[row] = msj[k];
-      }
+      merged_ray<MSE>(sm, cot, r, j, zc_s + j * Sc, Sc, sm.enc.z + j * Sf, Sf, fc + r * 4 * Sc,
+                      gfield + r * 4 * Sc, cscr + warp * 3 * Sa, merge + j * 6 * Sa);
+    }
+  }
+};
+
+// K8's "composite": each row's cotangents are the caller's g_rgb (N,3) and
+// g_sigma (N) (rows ray0.., nvalid of them).
+struct RowComp {
+  static constexpr bool MSE = false;
+  static constexpr int KIND = ROW_TILE;
+  const float* g_rgb;
+  const float* g_sigma;
+  __device__ void operator()(SmemBwd& sm, long long ray0, int nvalid, int rpc) const {
+    for (int r = threadIdx.x; r < nvalid; r += CONSUMERS) {
+      sm.bs.g_rgb[r * 3 + 0] = g_rgb[(ray0 + r) * 3 + 0];
+      sm.bs.g_rgb[r * 3 + 1] = g_rgb[(ray0 + r) * 3 + 1];
+      sm.bs.g_rgb[r * 3 + 2] = g_rgb[(ray0 + r) * 3 + 2];
+      sm.bs.g_sig[r] = g_sigma[ray0 + r];
     }
   }
 };
@@ -809,15 +1003,23 @@ __device__ __forceinline__ void colsum_out(const SmemBwd& sm, int g, float* out,
 // The chain's head after the composite (bs.g_rgb / bs.g_sig set for every
 // row, zero on rows of no ray): d_pre_rgb (stashed as bf16) and d_sigma_pre
 // per row, the rgb head's and density head's row sums (wd from the last
-// trunk output in sm.act), then on the dir layer's fragments d_happ =
-// bf16(d_pre_rgb) @ Wrgb and d_hdir_pre = gate ? d_happ : 0, both stashed as
-// bf16 and written into sm.act (blocks 0-1 d_hdir_pre, the A operand of the
-// first transposed product; blocks 2-3 d_happ), with the bapp / bdir row
-// sums; then demb = (the sum over each ray's rows of bf16(d_happ)) @ Wapp.
+// trunk output: in sm.act, or, h_last non-null, the stash's rows at
+// h_last), then on the dir layer's fragments d_happ = bf16(d_pre_rgb) @ Wrgb
+// and d_hdir_pre = gate ? d_happ : 0, both stashed as bf16 and written into
+// sm.act (blocks 0-1 d_hdir_pre, the A operand of the first transposed
+// product; blocks 2-3 d_happ), with the bapp / bdir row sums; then demb =
+// (the sum over each ray's rows of bf16(d_happ)) @ Wapp, added to demb's
+// rows where add_demb (K9's coarse rows).  K8 (ROW_TILE): demb = bf16(d_happ)
+// @ Wapp per row on wgmma, B = Wapp^T from the ring (one stage, zero past
+// E), A = blocks 2-3 of sm.act, into acc[0..31].  row0 / tile: the stash
+// rows and the row-sum slots; ray0: the first ray (K8: row) of demb.
+template <int KIND>
 __device__ __forceinline__ void chain_head(const FieldArgs& P, SmemBwd& sm, const Scratch& sc,
                                            const uint4* gates, long long tile, long long row0,
                                            int s, int nvalid, long long ray0,
-                                           float* __restrict__ demb) {
+                                           float* __restrict__ demb, bool add_demb,
+                                           const __nv_bfloat16* h_last, Pipe& pp,
+                                           float (&acc)[ACC]) {
   const int g = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int E = P.emb_dim;
   BwdSmem& bs = sm.bs;
@@ -853,7 +1055,13 @@ __device__ __forceinline__ void chain_head(const FieldArgs& P, SmemBwd& sm, cons
   {
     const int col = threadIdx.x;  // CONSUMERS == HID
     float a = 0.f;
-    for (int r = 0; r < ROWS; ++r) a += act_at(sm.act, r, col) * bs.dsp[r];
+    if (h_last == nullptr) {
+      for (int r = 0; r < ROWS; ++r) a += act_at(sm.act, r, col) * bs.dsp[r];
+    } else {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(h_last) + col;
+      for (int r = 0; r < ROWS; ++r)
+        a += __uint_as_float((uint32_t)__ldcg(h + (long long)r * HID) << 16) * bs.dsp[r];
+    }
     part0[P.wd_off + col] = a;
   }
   if ((threadIdx.x & 127) == 0) bulk_wait_read();  // the last trunk layer's store
@@ -917,20 +1125,53 @@ __device__ __forceinline__ void chain_head(const FieldArgs& P, SmemBwd& sm, cons
     colsum_out(sm, g, partg + P.bapp_off, 0, HALF);
     colsum_out(sm, g, partg + P.bdir_off, HALF, HALF);
   }
-  consumers_sync();
-  for (int idx = threadIdx.x; idx < nvalid * HALF; idx += CONSUMERS) {
-    const int j = idx / HALF, col = idx - j * HALF;
-    float a = 0.f;
-    for (int r = j * s; r < (j + 1) * s; ++r) a += act_at(sm.act + 2 * BLK, r, col);
-    bs.dsum[idx] = a;
-  }
-  consumers_sync();
-  const __nv_bfloat16* wapp = P.mats + P.wapp_off;
-  for (int idx = threadIdx.x; idx < nvalid * E; idx += CONSUMERS) {
-    const int j = idx / E, e = idx - j * E;
-    float a = 0.f;
-    for (int c = 0; c < HALF; ++c) a += bs.dsum[j * HALF + c] * __bfloat162float(wapp[c * E + e]);
-    demb[(ray0 + j) * E + e] = a;
+  if constexpr (KIND == ROW_TILE) {
+    mbar_wait(&sm.full[pp.stage], pp.phase);
+    __syncwarp();
+    const uint32_t st = smem_u32(sm.ring[pp.stage]);
+    const uint32_t a0 = smem_u32(sm.act + 2 * BLK) + g * 64 * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < 2; ++q)  // K = HALF: two 64-column blocks
+#pragma unroll
+      for (int k = 0; k < KS / 16; ++k)
+        wgmma_n64(acc, make_desc(a0 + q * BLK, 128) + 2 * k,
+                  make_desc(st + q * 64 * KS * 2, 128) + 2 * k, (q | k) != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[pp.stage]);
+    pp.advance();
+    const int cq = 2 * (lane & 3);
+    const int r0 = 64 * g + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, c = 8 * j + cq;
+        if (r < nvalid && c < E) {
+          demb[(ray0 + r) * E + c] = acc[4 * j + 2 * h];
+          demb[(ray0 + r) * E + c + 1] = acc[4 * j + 2 * h + 1];
+        }
+      }
+    consumers_sync();  // every warpgroup's products have read sm.act
+  } else {
+    consumers_sync();
+    for (int idx = threadIdx.x; idx < nvalid * HALF; idx += CONSUMERS) {
+      const int j = idx / HALF, col = idx - j * HALF;
+      float a = 0.f;
+      for (int r = j * s; r < (j + 1) * s; ++r) a += act_at(sm.act + 2 * BLK, r, col);
+      bs.dsum[idx] = a;
+    }
+    consumers_sync();
+    const __nv_bfloat16* wapp = P.mats + P.wapp_off;
+    for (int idx = threadIdx.x; idx < nvalid * E; idx += CONSUMERS) {
+      const int j = idx / E, e = idx - j * E;
+      float a = 0.f;
+      for (int c = 0; c < HALF; ++c) a += bs.dsum[j * HALF + c] * __bfloat162float(wapp[c * E + e]);
+      float* out = demb + (ray0 + j) * E + e;
+      *out = add_demb ? *out + a : a;
+    }
   }
 }
 
@@ -1006,22 +1247,32 @@ __device__ __forceinline__ void chain(const FieldArgs& P, const BwdMaps& maps, S
   }
 }
 
-// The tile kernel (pass 1): for each tile of this CTA, the forward with its
-// residuals, the composite and its transpose (comp), the chain's head and
-// the transposed chain.  gates_all: the per-CTA gate areas.
+// The producer warpgroup of a tile kernel: gives registers up, then its
+// first thread streams the weights and its warps 1-3 encode.
+template <int KIND>
+__device__ __forceinline__ void produce_bwd(const BwdMaps& maps, const FieldArgs& P,
+                                            const BwdRays& rays, const Scratch& sc) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n" ::: "memory");
+  if (threadIdx.x >= ENC0)
+    encode_bwd<KIND>(P, rays, sc);
+  else if (threadIdx.x == CONSUMERS)
+    stream_bwd<KIND>(maps, P, rays.n_tiles);
+}
+
+// The tile kernel (pass 1) of K3, K4, K6, K7 (rays) and K8 (rows): for each
+// tile of this CTA, the forward with its residuals, the composite and its
+// transpose (comp; K8: the caller's per-row cotangents), the chain's head
+// and the transposed chain.  gates_all: the per-CTA gate areas.
 template <class Comp>
 __global__ void __launch_bounds__(THREADS90, 1)
 bwd_tile90(const __grid_constant__ BwdMaps maps, const FieldArgs P, const Scratch sc,
            uint4* __restrict__ gates_all, const BwdRays rays, const Comp comp,
            float* __restrict__ demb) {
+  constexpr int KIND = Comp::KIND;
   SmemBwd& sm = smem_bwd();
   init_bwd(sm);
   if (is_producer()) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n" ::: "memory");
-    if (threadIdx.x >= ENC0)
-      encode_bwd(P, rays, sc);
-    else if (threadIdx.x == CONSUMERS)
-      stream_bwd(maps, P, rays.n_tiles);
+    produce_bwd<KIND>(maps, P, rays, sc);
     return;
   }
   consumer_regs();
@@ -1037,7 +1288,7 @@ bwd_tile90(const __grid_constant__ BwdMaps maps, const FieldArgs P, const Scratc
       sm.bs.g_sig[r] = 0.f;
       sm.bs.g_rgb[r * 3 + 0] = 0.f; sm.bs.g_rgb[r * 3 + 1] = 0.f; sm.bs.g_rgb[r * 3 + 2] = 0.f;
     }
-    forward_tile(P, maps, sm, sc, gates, c, row0, s, rpc, pp, acc);
+    forward_tile<KIND>(P, maps, sm, sc, gates, c, c & 1, true, row0, s, rpc, pp, acc);
     comp(sm, ray0, nvalid, rpc);
     fence_proxy_async();  // the ring's generic writes before the producer's next loads
     consumers_sync();
@@ -1046,7 +1297,8 @@ bwd_tile90(const __grid_constant__ BwdMaps maps, const FieldArgs P, const Scratc
       mbar_arrive(&sm.enc_empty);
     }
     store_tile_loss<Comp::MSE>(sm.bs, sc, (int)(2 * tile), nvalid);
-    chain_head(P, sm, sc, gates, tile, row0, s, nvalid, ray0, demb);
+    chain_head<KIND>(P, sm, sc, gates, tile, row0, s, nvalid, ray0, demb, false, nullptr, pp,
+                     acc);
     chain(P, maps, sm, sc, gates, tile, row0, pp, acc);
   }
   if ((threadIdx.x & 127) == 0) bulk_wait();
@@ -1173,7 +1425,7 @@ __global__ void dw90_reduce(const FieldArgs P, float* gmats, const float* __rest
 
 // gvecs[j] += the sum over the slots of part[slot * nv + j] (the last
 // column: *loss), each of the 8 warps summing every 8th slot in order, then
-// the warps in order: field_bwd.cuh reduce_parts's sums over more threads.
+// the warps in order.
 __global__ void __launch_bounds__(256)
 reduce_slots(const float* __restrict__ part, int slots, int nv, int n_vecs, float* gvecs,
              float* loss) {
@@ -1211,21 +1463,24 @@ inline int map2d(EncodeTiledFn enc, CUtensorMap* m, const void* p, long long col
 }
 
 // What the kernels on this tile set up: the layout records, the shape checks
-// (those of field_bwd.cuh bwd_setup, and at least one sample a tile row),
-// the scratch of one pass and the pass sizes, for R rays of s_tile samples
-// in a tile's rows (K3, K7: S; K4, K6: Sf).
+// (the backward kernels' widths, and at least one sample a tile row), the
+// scratch of one pass and the pass sizes, for R rays of s_tile samples in a
+// tile's rows (K3, K7: S; K4, K6: Sf; K9: max(Sc, Sf), two row sets a tile,
+// vt = 2), or R rows of 128 a tile (rows: K8, s_tile unread).
 struct Bwd90Call {
   FieldArgs P;
   BwdWeights W;
   Scratch90 sc;
-  int rpc, tiles_pass;
+  int rpc, tiles_pass, vt;
+  bool rows;
   long long tiles_total;
 };
 
 inline int bwd90_setup(const long long* meta, long long n_meta, const void* mats,
                        const float* vecs, long long E, const void* mats_t, const long long* meta_t,
                        long long n_meta_t, long long R, long long s_tile, void* scratch,
-                       long long scratch_bytes, long long n_vecs, Bwd90Call* c) {
+                       long long scratch_bytes, long long n_vecs, Bwd90Call* c,
+                       bool rows = false, int vt = 1) {
   int err = parse_meta(meta, n_meta, mats, vecs, E, &c->P);
   if (err) return err;
   err = parse_meta_t(meta_t, n_meta_t, c->P, mats_t, &c->W);
@@ -1234,14 +1489,17 @@ inline int bwd90_setup(const long long* meta, long long n_meta, const void* mats
   // (transposed_mats): one tensor map reads them all
   for (int i = 2; i < c->P.num_layers; ++i)
     if (c->W.wt_off[i] != c->W.wt_off[1] + (long long)(i - 1) * HID * HID) return ERR_META;
-  if (c->P.emb_dim % 8 || 2 * c->P.num_layers + 4 > MAX_JOBS || n_vecs < 1 || s_tile < 1 ||
-      s_tile > TILE_M || R < 0)
+  if (c->P.emb_dim % 8 || 2 * c->P.num_layers + 4 > MAX_JOBS || n_vecs < 1 ||
+      (!rows && (s_tile < 1 || s_tile > TILE_M)) || R < 0)
     return ERR_SHAPE;
-  c->rpc = rays_per_tile(s_tile);
+  c->vt = vt;
+  c->rows = rows;
+  c->rpc = rows ? ROWS : rays_per_tile(s_tile);
   c->tiles_total = (R + c->rpc - 1) / c->rpc;
-  c->tiles_pass = (int)(c->tiles_total < MAX_TILES_PER_PASS ? c->tiles_total : MAX_TILES_PER_PASS);
-  if (carve90(static_cast<char*>(scratch), c->P, c->tiles_pass, (int)n_vecs, &c->sc) >
-      scratch_bytes)
+  const long long cap = MAX_TILES_PER_PASS / vt;
+  c->tiles_pass = (int)(c->tiles_total < cap ? c->tiles_total : cap);
+  if (carve90(static_cast<char*>(scratch), c->P, (long long)vt * c->tiles_pass, (int)n_vecs,
+              &c->sc, vt) > scratch_bytes)
     return ERR_SHAPE;
   return 0;
 }
@@ -1290,18 +1548,20 @@ inline int finish90(const Bwd90Call& c, const DwMaps& dm, int nt, int n_sm, floa
   return (int)cudaGetLastError();
 }
 
-// Run the passes of K3, K4, K6 or K7: the tensor maps, then for each slice
-// of at most tiles_pass tiles, clear its row sums, launch the tile kernel on
-// a persistent grid, then passes 2 and 3.
-template <class Comp>
-inline int run_bwd90(const Bwd90Call& c, const Comp& comp, BwdRays rays, float* gmats,
-                     float* gvecs, float* loss, float* demb, int n_vecs, cudaStream_t stream) {
+// Run the passes of a kernel on this tile: the tensor maps (K8's three for
+// rows), then for each slice of at most tiles_pass tiles, clear its row
+// sums, launch(grid, maps, rays) the tile kernel (`kernel`) on a persistent
+// grid, then passes 2 and 3 over the slice's vt x nt tiles of rows.
+template <class Kernel, class Launch>
+inline int run_passes90(const Bwd90Call& c, Kernel kernel, BwdRays rays, float* gmats,
+                        float* gvecs, float* loss, int n_vecs, cudaStream_t stream,
+                        Launch launch) {
   const FieldArgs& P = c.P;
   const Scratch& sc = c.sc.s;
   const int L = P.num_layers;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  BwdMaps maps;
+  BwdMaps maps{};
   DwMaps dm;
   int err = 0;
   for (int i = 0; i < L && !err; ++i)
@@ -1314,11 +1574,16 @@ inline int run_bwd90(const Bwd90Call& c, const Comp& comp, BwdRays rays, float* 
   if (!err) err = map2d(enc, &maps.h, sc.h, HID, L * sc.rows, 64, 64);
   if (!err) err = map2d(enc, &maps.dpre, sc.dpre, HID, L * sc.rows, 64, 64);
   if (!err) err = map2d(enc, &dm.ddir, sc.ddir, HALF, sc.rows, 64, 64);
+  if (!err && c.rows) {
+    err = weight_map(enc, &maps.wapp, P.mats + P.wapp_off, P.emb_dim, HALF);
+    if (!err) err = map2d(enc, &maps.embr, sc.embr, P.emb_dim, sc.rows, KS, ROWS);
+    if (!err)
+      err = map2d(enc, &maps.wt_app, c.W.mats_t + c.W.wt_off[L + 1], HALF, P.emb_dim, KS, 64);
+  }
   if (err) return err;
   dm.h = maps.h;
   dm.dpre = maps.dpre;
-  cudaError_t e = cudaFuncSetAttribute(bwd_tile90<Comp>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)BWD_SMEM_BYTES);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(dw90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1329,27 +1594,37 @@ inline int run_bwd90(const Bwd90Call& c, const Comp& comp, BwdRays rays, float* 
   if (e != cudaSuccess) return (int)e;
   for (long long t0 = 0; t0 < c.tiles_total; t0 += c.tiles_pass) {
     const int nt = (int)(c.tiles_total - t0 < c.tiles_pass ? c.tiles_total - t0 : c.tiles_pass);
-    e = cudaMemsetAsync(sc.part, 0, sizeof(float) * 2 * nt * sc.nv, stream);
+    e = cudaMemsetAsync(sc.part, 0, sizeof(float) * 2 * c.vt * nt * sc.nv, stream);
     if (e != cudaSuccess) return (int)e;
     rays.ray_base = t0 * c.rpc;
     rays.n_tiles = nt;
     int grid = nt < n_sm ? nt : n_sm;
     if (grid > MAX_CTAS) grid = MAX_CTAS;
-    bwd_tile90<Comp><<<grid, THREADS90, BWD_SMEM_BYTES, stream>>>(maps, P, sc, c.sc.gates, rays,
-                                                                  comp, demb);
+    launch(grid, maps, rays, nt);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    const int ferr = finish90(c, dm, nt, n_sm, gmats, gvecs, loss, n_vecs, stream);
+    const int ferr = finish90(c, dm, c.vt * nt, n_sm, gmats, gvecs, loss, n_vecs, stream);
     if (ferr) return ferr;
   }
   return 0;
 }
 
+// Run the passes of K3, K4, K6, K7 or K8 on bwd_tile90<Comp>.
+template <class Comp>
+inline int run_bwd90(const Bwd90Call& c, const Comp& comp, BwdRays rays, float* gmats,
+                     float* gvecs, float* loss, float* demb, int n_vecs, cudaStream_t stream) {
+  return run_passes90(c, bwd_tile90<Comp>, rays, gmats, gvecs, loss, n_vecs, stream,
+                      [&](int grid, const BwdMaps& maps, const BwdRays& r, int) {
+                        bwd_tile90<Comp><<<grid, THREADS90, BWD_SMEM_BYTES, stream>>>(
+                            maps, c.P, c.sc.s, c.sc.gates, r, comp, demb);
+                      });
+}
+
 }  // namespace sm90
 }  // namespace danerf
 
-// Bytes of scratch K3, K4, K6 or K7 needs for R rays of s samples per tile
-// row group (K3, K7: S; K4, K6: Sf); negative on a malformed layout or a
-// shape they do not take.
+// Bytes of scratch K3, K4, K6, K7 or K8 needs for R rays of s samples per
+// tile row group (K3, K7: S; K4, K6: Sf), or R rows for s = ROW_TILES (K8);
+// negative on a malformed layout or a shape they do not take.
 extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n_meta,
                                               long long R, long long s, long long n_vecs) {
   using namespace danerf;
@@ -1358,8 +1633,8 @@ extern "C" long long danerf_bwd_scratch_bytes(const long long* meta, long long n
   FieldArgs P;
   const int err = parse_meta(meta, n_meta, nullptr, nullptr, meta[8], &P);
   if (err) return err;
-  if (s < 1 || s > TILE_M || R < 0) return ERR_SHAPE;
-  const int rpc = rays_per_tile(s);
+  if (s < 0 || s > TILE_M || R < 0) return ERR_SHAPE;
+  const int rpc = s == ROW_TILES ? ROWS : rays_per_tile(s);
   long long tiles = (R + rpc - 1) / rpc;
   if (tiles > MAX_TILES_PER_PASS) tiles = MAX_TILES_PER_PASS;
   Scratch90 sc;

@@ -1,9 +1,9 @@
 // The forward NeRF-W field on Hopper (sm_90a) for the two serving kernels,
-// K2 (march.cu) and K5 (merged.cu): the same function as field.cuh's
-// field_tile on a tile of 128 (ray, sample) rows, redesigned around the
-// card's asynchronous units.  field.cuh keeps the mma.sync tile of the other
-// kernels; this header takes its argument record, parsing, encoding columns,
-// composite and error strings from it.
+// K2 (march.cu) and K5 (merged.cu), and under field_bwd_sm90.cuh's backward
+// tile: the same function as field.cuh's field_tile on a tile of 128 (ray,
+// sample) rows, redesigned around the card's asynchronous units.  field.cuh
+// keeps K1's mma.sync tile; this header takes its argument record,
+// parsing, composite and error strings from it.
 //
 // Numerics are field.cuh's: encodings y = 2^i o + z (2^i d) and activations
 // held in bf16, every product accumulated in f32 on the tensor cores, bias +
@@ -373,22 +373,23 @@ __device__ __forceinline__ void put_d(EncBuf& eb, const EncPitch& pt, int row, i
 // and sin(y + pi/2) for y = 2^l o + z (2^l d) of each dimension (level 0
 // also the columns 0..2, y itself); group Lp + l is direction level l (y =
 // 2^l d); the last group the time's columns, t and sin / cos of 2^l t,
-// then the zero padding of both encodings.  A row past the tile's rays
-// (j >= rpc) is 0.  Six independent sin evaluations an item keep the
-// encoders' latency hidden.
-__device__ __forceinline__ void encode_group(const FieldArgs& P, EncBuf& eb, const EncPitch& pt,
-                                             int row, int grp, int j, int rpc) {
+// then the zero padding of both encodings.  The row's origin o and
+// direction d (3 floats each), depth *z (null: 0, the rows of K8, whose
+// y = 2^l x) and time *t are read where the caller points; an invalid row
+// is 0.  Six independent sin evaluations an item keep the encoders'
+// latency hidden.
+__device__ __forceinline__ void encode_group_at(const FieldArgs& P, EncBuf& eb, const EncPitch& pt,
+                                                int row, int grp, bool valid, const float* o,
+                                                const float* d, const float* zp, const float* tp) {
   const float half_pi = 1.57079637f;
-  const bool valid = j < rpc;
-  const int jj = valid ? j : 0;
   const int Lp = P.pos_levels, Ld = P.dir_levels;
   if (grp < Lp + Ld) {
     const bool is_dir = grp >= Lp;
     const int lvl = is_dir ? grp - Lp : grp;
     const float f = (float)(1 << lvl);
-    const float z = is_dir ? 0.f : eb.z[row];
-    const float* src = is_dir ? eb.d + jj * 3 : eb.o + jj * 3;
-    const float* dir = eb.d + jj * 3;
+    const float z = (is_dir || zp == nullptr) ? 0.f : *zp;
+    const float* src = is_dir ? d : o;
+    const float* dir = d;
     float y[3], sn[3], cs[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -419,7 +420,7 @@ __device__ __forceinline__ void encode_group(const FieldArgs& P, EncBuf& eb, con
   }
   const int nx = 3 * (1 + 2 * Lp), nd = 3 * (1 + 2 * Ld);
   if (P.nt > 0) {
-    const float t = valid ? eb.t[jj] : 0.f;
+    const float t = valid ? *tp : 0.f;
     put_x(eb, pt, row, nx, t);
     for (int l = 0; l < P.time_levels; ++l) {
       const float y = t * (float)(1 << l);
@@ -429,6 +430,15 @@ __device__ __forceinline__ void encode_group(const FieldArgs& P, EncBuf& eb, con
   }
   for (int c = nx + P.nt; c < P.kx; ++c) put_x(eb, pt, row, c, 0.f);
   for (int c = nd; c < P.kd; ++c) put_d(eb, pt, row, c, 0.f);
+}
+
+// encode_group_at for row `row` of a tile of rays, ray j = row / s of the
+// buffer's rays; a row past the tile's rays (j >= rpc) is 0.
+__device__ __forceinline__ void encode_group(const FieldArgs& P, EncBuf& eb, const EncPitch& pt,
+                                             int row, int grp, int j, int rpc) {
+  const int jj = j < rpc ? j : 0;
+  encode_group_at(P, eb, pt, row, grp, j < rpc, eb.o + jj * 3, eb.d + jj * 3, eb.z + row,
+                  eb.t + jj);
 }
 
 // The encoders (96 threads): for each tile c of this CTA, once the

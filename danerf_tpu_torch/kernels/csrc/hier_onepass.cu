@@ -14,89 +14,62 @@
 // TFLOP/s bf16 dense, where the two-kernel step (K2 + K4 + K3, whose K3
 // recomputes the coarse forward) is bound at 0.48 ms.  Per-ray HBM traffic
 // is ~0.7 KB in and 0.13 KB out; the residual scratch holds the rows of both
-// passes (~9.5 KB a sample row, field_bwd.cuh).
+// passes (~9.5 KB a sample row, field_bwd.cuh Scratch).
 //
-// Design.  A CTA owns rpc rays, rpc = rays_per_tile(max(Sc, Sf)), and two
-// virtual tiles of the scratch: 2b for its coarse rows (rpc x Sc) and 2b + 1
-// for its fine rows (rpc x Sf), since field_bwd_tile indexes the stash rows
-// and the row-sum slot by its tile and assigns both.  Pass 2 (finish_pass)
-// then reduces the dW of both row sets in one deterministic GEMM pass, and
-// hier_losses sums the fine and the coarse loss slots apart, in tile order.
-//   1. Coarse forward: encode, field_tile (stash at tile 2b).  The coarse
-//      rgb / sigma / sigma_pre of the tile's rays are kept in shared memory:
-//      the fine forward overwrites Smem.
+// Design: field_bwd_sm90.cuh's persistent tile (a TMA weight ring, wgmma
+// for the forward and the transposed chain, the wgmma dW pass), its phases
+// in K9's order.  A tile is rpc rays, rpc = rays_per_tile(max(Sc, Sf)), and
+// two virtual tiles of the scratch: 2b for its coarse rows (rpc x Sc) and
+// 2b + 1 for its fine rows (rpc x Sf), each with its stash rows, row-sum
+// slots and set of relu gate masks (the CTA's gate area holds both sets).
+// One dW pass sums both row sets; hier_losses sums the fine and the coarse
+// loss slots apart, in tile order.  Per tile:
+//   1. Coarse forward (stash at 2b).  The coarse field [r, g, b, sigma] and
+//      sigma_pre are kept in shared memory (HierSmem): the fine forward
+//      overwrites the tile's arrays.
 //   2. One warp per ray: the coarse composite, then the inverse CDF of its
 //      weights (inverse_cdf): a warp prefix sum over Sc instead of the TPU's
 //      triangular matmul, and a count #{cdf < u} per uniform for its
-//      bracket, as merge_ray counts ranks instead of the one-hot matmuls.
-//   3. Fine forward at the new depths (stash at tile 2b + 1), merge_ray with
-//      the kept coarse field, composite, the fine MSE, the composite's
-//      transpose, the un-permute (coarse ranks to the coarse field's
-//      cotangent, kept in shared memory; fine ranks to the fine rows), and
-//      the fine rows' transposed chain.
-//   4. Coarse backward on the stashed coarse residuals, no MLP recompute:
-//      the last trunk layer reloaded from the stash, the cheap coarse
-//      composite recomputed from the kept field, its transpose under the
-//      coarse MSE's cotangent times coarse_loss_weight, plus step 3's
-//      coarse-field cotangent; the transposed chain, its demb added to the
+//      bracket, as merge_ray_ranks counts ranks instead of the one-hot
+//      matmuls.  The fine depths go into the encoding buffer, which the
+//      coarse forward is done with, and the consumers signal zf_ready: the
+//      encoders encode the fine rows then, not ahead (they prefetch only the
+//      next tile's coarse rows, during this tile's chains), so the fine
+//      forward waits for one encode (~1/20 of a tile's time).
+//   3. Fine forward at the new depths (stash at 2b + 1).
+//   4. The merged composite in the weight ring (which the producer leaves
+//      empty until comp_done): merge with the kept coarse field, composite,
+//      fine MSE, transpose, un-permute (coarse ranks to the coarse field's
+//      cotangent, kept; fine ranks to the fine rows); the fine chain.
+//   5. Coarse backward on the stashed coarse residuals, no MLP recompute:
+//      the kept field restored, the cheap coarse composite recomputed and
+//      transposed under cw x the coarse MSE's cotangent, plus step 4's
+//      coarse-field cotangent; the chain's head reads the last coarse trunk
+//      layer from the stash; the transposed chain, its demb added to the
 //      fine one.
+// The producer streams the forward's weights twice (coarse, fine), then,
+// after comp_done, the transposed blocks twice (fine chain, coarse chain).
 //
 //   in : o, d (R,3), emb (R,E), z_c (R,Sc), u (R,Sf), target (R,3) f32
 //        [, t (R) with use_time]; cw = coarse_loss_weight
 //   out: gmats, gvecs (packed-layout f32 gradients of mse_f + cw mse_c,
 //        added to), demb (R,E), loss[0] = mse_f, loss[1] = mse_c (added to)
 
-#include "field_bwd.cuh"
-#include "bwd_tiles.cuh"
+#include "field_bwd_sm90.cuh"
 
 using namespace danerf;
+using namespace danerf::sm90;
 
-namespace danerf {
-
-// K9's per-ray arrays in shared memory, after Smem | BwdSmem | the per-warp
-// composite scratch of Sa = Sc + Sf samples.
-struct HierSmem {
-  float* zc;     // rpc x Sc coarse depths
-  float* zf;     // rpc x Sf fine depths (the inverse CDF's output)
-  float* kf;     // rpc x 4 x Sc coarse field [r, g, b, sigma] (K2's field layout)
-  float* ksp;    // rpc x Sc coarse sigma_pre
-  float* gfc;    // rpc x 4 x Sc the coarse field's cotangent from the merged composite
-  float* mz;     // rpc x Sa merged depths
-  float* msig;   // rpc x Sa merged sigma, then its cotangent
-  float* mrgb;   // rpc x Sa x 3 merged rgb, then its cotangent
-  float* dembc;  // rpc x E the coarse pass's demb
-  int* rank_c;   // rpc x Sc
-  int* rank_f;   // rpc x Sf
-};
-
-// Lay the arrays out from base (or only measure them, base == nullptr);
-// returns their bytes (every element is 4 bytes).
-__host__ __device__ inline size_t hier_layout(unsigned char* base, int Sc, int Sf, int rpc, int E,
-                                              HierSmem* h) {
-  const int Sa = Sc + Sf;
-  size_t off = 0;
-  auto take = [&](int n) -> unsigned char* {
-    unsigned char* p = base ? base + off : nullptr;
-    off += 4 * (size_t)n;
-    return p;
-  };
-  h->zc = reinterpret_cast<float*>(take(rpc * Sc));
-  h->zf = reinterpret_cast<float*>(take(rpc * Sf));
-  h->kf = reinterpret_cast<float*>(take(rpc * 4 * Sc));
-  h->ksp = reinterpret_cast<float*>(take(rpc * Sc));
-  h->gfc = reinterpret_cast<float*>(take(rpc * 4 * Sc));
-  h->mz = reinterpret_cast<float*>(take(rpc * Sa));
-  h->msig = reinterpret_cast<float*>(take(rpc * Sa));
-  h->mrgb = reinterpret_cast<float*>(take(rpc * Sa * 3));
-  h->dembc = reinterpret_cast<float*>(take(rpc * E));
-  h->rank_c = reinterpret_cast<int*>(take(rpc * Sc));
-  h->rank_f = reinterpret_cast<int*>(take(rpc * Sf));
-  return off;
-}
-
+// The shapes K9 takes, as since its first design: those whose per-ray
+// arrays fit beside field.cuh's tile and BwdSmem in 232,448 bytes (all of
+// them fit in field_bwd_sm90.cuh's tile): the per-warp composite scratch of
+// Sa = Sc + Sf samples, then, for each of the tile's rays, the coarse and
+// fine depths, the kept coarse field, sigma_pre and field cotangent, the
+// merged depths, sigma and rgb, demb and the ranks (4 bytes each).
 inline size_t hier_smem_bytes(int Sc, int Sf, int rpc, int E) {
-  HierSmem h;
-  return bwd_smem_bytes(Sc + Sf) + hier_layout(nullptr, Sc, Sf, rpc, E, &h);
+  const int Sa = Sc + Sf;
+  return bwd_smem_bytes(Sa) +
+         4 * (size_t)rpc * (Sc + Sf + 4 * Sc + Sc + 4 * Sc + Sa + Sa + 3 * Sa + E + Sc + Sf);
 }
 
 // The inverse CDF of one ray's n weights w at its m uniforms u, by one warp,
@@ -146,193 +119,177 @@ __device__ void inverse_cdf(const float* z, const float* w, int n, const float* 
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-hier_tile(const FieldArgs P, const BwdWeights W, const Scratch sc, const float* __restrict__ o,
-          const float* __restrict__ d, const float* __restrict__ emb,
-          const float* __restrict__ zc, const float* __restrict__ u,
-          const float* __restrict__ target, const float* __restrict__ t, long long R, int Sc,
-          int Sf, int rpc, long long ray_base, float inv_denom, float kc,
-          float* __restrict__ demb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  BwdSmem& bs = *reinterpret_cast<BwdSmem*>(smem_raw + sizeof(Smem));
-  const int Sa = Sc + Sf, E = P.emb_dim;
-  float* cscr = reinterpret_cast<float*>(smem_raw + sizeof(Smem) + sizeof(BwdSmem));
-  HierSmem h;
-  hier_layout(reinterpret_cast<unsigned char*>(cscr + WARPS * 3 * Sa), Sc, Sf, rpc, E, &h);
-  const int tile_c = 2 * blockIdx.x, tile_f = tile_c + 1;  // virtual tiles of the scratch
-  const long long ray0 = ray_base + (long long)blockIdx.x * rpc;
-  const int nvalid = (int)(R - ray0 < rpc ? R - ray0 : rpc);
+// K9's inputs beyond the rays: the coarse depths z_c (R, Sc) (also
+// rays.z), the uniforms u (R, Sf), the target (R,3), 1 / (3R) and
+// cw x 2 / (3R).
+struct HierArgs {
+  const float* zc;
+  const float* u;
+  const float* target;
+  float inv_denom, kc;
+  int Sc, Sf;
+};
+
+__device__ __forceinline__ void zero_cotangents(SmemBwd& sm) {
+  for (int r = threadIdx.x; r < ROWS; r += CONSUMERS) {
+    sm.bs.g_sig[r] = 0.f;
+    sm.bs.g_rgb[r * 3 + 0] = 0.f; sm.bs.g_rgb[r * 3 + 1] = 0.f; sm.bs.g_rgb[r * 3 + 2] = 0.f;
+  }
+}
+
+// The tile kernel: for each tile of this CTA, steps 1-5.
+__global__ void __launch_bounds__(THREADS90, 1)
+hier_tile90(const __grid_constant__ BwdMaps maps, const FieldArgs P, const Scratch sc,
+            uint4* __restrict__ gates_all, const BwdRays rays, const HierArgs ha,
+            float* __restrict__ demb) {
+  SmemBwd& sm = smem_bwd();
+  init_bwd(sm);
+  if (is_producer()) {
+    produce_bwd<HIER>(maps, P, rays, sc);
+    return;
+  }
+  consumer_regs();
+  const int L = P.num_layers, Sc = ha.Sc, Sf = ha.Sf;
+  uint4* gates_c = gates_all + (long long)blockIdx.x * 2 * (L + 1) * CONSUMERS;
+  uint4* gates_f = gates_c + (L + 1) * CONSUMERS;
+  const int rpc = rays.rpc, tiles = my_tiles(rays.n_tiles);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* al = cscr + warp * 3 * Sa;  // the warp's composite scratch: alpha, T, w
+  const int Sa = Sc + Sf;
+  const RayCot cot{ha.target, ha.inv_denom, nullptr, nullptr, nullptr, nullptr};
+  float* ring = reinterpret_cast<float*>(sm.ring);
+  BwdSmem& bs = sm.bs;
+  HierSmem& hs = sm.hier;
+  Pipe pp;
+  float acc[ACC];
+  for (int c = 0; c < tiles; ++c) {
+    const long long tile = blockIdx.x + (long long)c * gridDim.x;
+    const long long vc = 2 * tile, vf = vc + 1;  // the virtual tiles of the scratch
+    const long long ray0 = rays.ray_base + tile * rpc;
+    const int nvalid = (int)(rays.R - ray0 < rpc ? rays.R - ray0 : rpc);
 
-  // 1. the coarse forward, residuals stashed at tile_c; keep the field
-  load_rays(sm, o, d, emb, t, E, ray0, rpc, R);
-  for (int row = threadIdx.x; row < TILE_M; row += THREADS) {
-    const int j = row / Sc;
-    const long long r = ray0 + j;
-    sm.z[row] = (j < rpc && r < R) ? zc[r * Sc + (row - j * Sc)] : 0.f;
-  }
-  for (int idx = threadIdx.x; idx < rpc * Sc; idx += THREADS) {
-    const long long r = ray0 + idx / Sc;
-    h.zc[idx] = r < R ? zc[r * Sc + idx % Sc] : 0.f;
-  }
-  __syncthreads();
-  encode_tile(P, sm, Sc, rpc);
-  __syncthreads();
-  const Stash st_c{sc.h, sc.encx, sc.encd, sc.happ, sc.dirg, sc.rows * HID,
-                   (long long)tile_c * TILE_M};
-  field_tile(P, sm, Sc, rpc, &st_c);
-  for (int idx = threadIdx.x; idx < rpc * Sc; idx += THREADS) {
-    const int j = idx / Sc, i = idx - j * Sc;
-    float* f = h.kf + j * 4 * Sc;
-    f[i] = sm.rgb[idx * 3 + 0];
-    f[Sc + i] = sm.rgb[idx * 3 + 1];
-    f[2 * Sc + i] = sm.rgb[idx * 3 + 2];
-    f[3 * Sc + i] = sm.sigma[idx];
-    h.ksp[idx] = sm.sigma_pre[idx];
-  }
-
-  // 2. the coarse composite and the inverse CDF of its weights
-  for (int j = warp; j < nvalid; j += WARPS) {
-    float out[5];
-    composite_keep(h.zc + j * Sc, sm.sigma + j * Sc, sm.rgb + j * Sc * 3, Sc, al, al + Sa,
-                   al + 2 * Sa, out);
-    __syncwarp();
-    inverse_cdf(h.zc + j * Sc, al + 2 * Sa, Sc, u + (ray0 + j) * Sf, Sf, al, h.zf + j * Sf);
-  }
-  __syncthreads();
-
-  // 3. the fine forward at the new depths (stash at tile_f), the merged
-  //    composite, the fine MSE and its backward
-  for (int row = threadIdx.x; row < TILE_M; row += THREADS) {
-    sm.z[row] = row / Sf < nvalid ? h.zf[row] : 0.f;
-    bs.g_sig[row] = 0.f;
-    bs.g_rgb[row * 3 + 0] = 0.f; bs.g_rgb[row * 3 + 1] = 0.f; bs.g_rgb[row * 3 + 2] = 0.f;
-  }
-  __syncthreads();
-  encode_tile(P, sm, Sf, rpc);
-  __syncthreads();
-  const Stash st_f{sc.h, sc.encx, sc.encd, sc.happ, sc.dirg, sc.rows * HID,
-                   (long long)tile_f * TILE_M};
-  __nv_bfloat16* cur = field_tile(P, sm, Sf, rpc, &st_f);
-  __nv_bfloat16* nxt = cur == sm.hA ? sm.hB : sm.hA;
-  const RayCot cot{target, inv_denom, nullptr, nullptr, nullptr, nullptr};
-  for (int j = warp; j < nvalid; j += WARPS) {
-    const long long r = ray0 + j;
-    float* mzj = h.mz + j * Sa;
-    float* msj = h.msig + j * Sa;
-    float* mrj = h.mrgb + j * Sa * 3;
-    int* rcj = h.rank_c + j * Sc;
-    int* rfj = h.rank_f + j * Sf;
-    merge_ray(sm, h.zc + j * Sc, Sc, sm.z + j * Sf, Sf, h.kf + j * 4 * Sc, j * Sf, mzj, msj, mrj,
-              rcj, rfj);
-    float out[5], g[5];
-    const float* gw;
-    composite_keep(mzj, msj, mrj, Sa, al, al + Sa, al + 2 * Sa, out);
-    ray_cotangents<true>(cot, r, Sa, out, g, &gw, bs.loss + j);
-    // the transpose overwrites the merged rgb / sigma with their cotangents
-    composite_bwd(mzj, mrj, Sa, al, al + Sa, al + 2 * Sa, out[3], out[4], g[0], g[1], g[2],
-                  g[3], g[4], gw, mrj, msj);
-    __syncwarp();
-    // un-permute: the inverse gather by the kept ranks
-    float* gf = h.gfc + j * 4 * Sc;
-    for (int i = lane; i < Sc; i += 32) {
-      const int k = rcj[i];
-      gf[i] = mrj[k * 3 + 0];
-      gf[Sc + i] = mrj[k * 3 + 1];
-      gf[2 * Sc + i] = mrj[k * 3 + 2];
-      gf[3 * Sc + i] = msj[k];
+    // 1. the coarse forward; keep its field
+    forward_tile<HIER>(P, maps, sm, sc, gates_c, c, 0, false, vc * ROWS, Sc, rpc, pp, acc);
+    for (int idx = threadIdx.x; idx < rpc * Sc; idx += CONSUMERS) {
+      const int j = idx / Sc, i = idx - j * Sc;
+      float* f = hs.kf + j * 4 * Sc;
+      f[i] = sm.rgb[idx * 3 + 0];
+      f[Sc + i] = sm.rgb[idx * 3 + 1];
+      f[2 * Sc + i] = sm.rgb[idx * 3 + 2];
+      f[3 * Sc + i] = sm.sigma[idx];
+      hs.ksp[idx] = sm.sigma_pre[idx];
     }
-    for (int i = lane; i < Sf; i += 32) {
-      const int k = rfj[i];
-      const int row = j * Sf + i;
-      bs.g_rgb[row * 3 + 0] = mrj[k * 3 + 0];
-      bs.g_rgb[row * 3 + 1] = mrj[k * 3 + 1];
-      bs.g_rgb[row * 3 + 2] = mrj[k * 3 + 2];
-      bs.g_sig[row] = msj[k];
-    }
-  }
-  __syncthreads();
-  store_tile_loss<true>(bs, sc, tile_f, nvalid);
-  field_bwd_tile(P, W, sm, bs, sc, tile_f, Sf, rpc, nvalid, cur, nxt, demb + ray0 * E);
-  __syncthreads();
 
-  // 4. the coarse backward on the stashed coarse residuals: restore the
-  //    kept field and the last trunk layer's output, recompute the coarse
-  //    composite, transpose it under cw x the coarse MSE's cotangent, add
-  //    the coarse field's cotangent of step 3
-  for (int row = threadIdx.x; row < TILE_M; row += THREADS) {
-    const int j = row / Sc, i = row - j * Sc;
-    const bool ok = j < rpc;
-    const float* f = h.kf + (ok ? j : 0) * 4 * Sc;
-    sm.rgb[row * 3 + 0] = ok ? f[i] : 0.f;
-    sm.rgb[row * 3 + 1] = ok ? f[Sc + i] : 0.f;
-    sm.rgb[row * 3 + 2] = ok ? f[2 * Sc + i] : 0.f;
-    sm.sigma[row] = ok ? f[3 * Sc + i] : 0.f;
-    sm.sigma_pre[row] = ok ? h.ksp[row] : 0.f;
-    bs.g_sig[row] = 0.f;
-    bs.g_rgb[row * 3 + 0] = 0.f; bs.g_rgb[row * 3 + 1] = 0.f; bs.g_rgb[row * 3 + 2] = 0.f;
-  }
-  const __nv_bfloat16* h_last =
-      sc.h + (long long)(P.num_layers - 1) * sc.rows * HID + (long long)tile_c * TILE_M * HID;
-  for (int idx = threadIdx.x; idx < TILE_M * (HID / 8); idx += THREADS) {
-    const int r = idx / (HID / 8), c = (idx - r * (HID / 8)) * 8;
-    *reinterpret_cast<uint4*>(sm.hA + r * LDH + c) =
-        *reinterpret_cast<const uint4*>(h_last + (long long)r * HID + c);
-  }
-  __syncthreads();
-  for (int j = warp; j < nvalid; j += WARPS) {
-    const long long r = ray0 + j;
-    float out[5];
-    composite_keep(h.zc + j * Sc, sm.sigma + j * Sc, sm.rgb + j * Sc * 3, Sc, al, al + Sa,
-                   al + 2 * Sa, out);
-    const float d0 = out[0] - target[r * 3 + 0];
-    const float d1 = out[1] - target[r * 3 + 1];
-    const float d2 = out[2] - target[r * 3 + 2];
-    if (lane == 0) bs.loss[j] = (d0 * d0 + d1 * d1 + d2 * d2) * inv_denom;
-    composite_bwd(h.zc + j * Sc, sm.rgb + j * Sc * 3, Sc, al, al + Sa, al + 2 * Sa, out[3], out[4],
-                  kc * d0, kc * d1, kc * d2, 0.f, 0.f, nullptr, bs.g_rgb + j * Sc * 3,
-                  bs.g_sig + j * Sc);
-    __syncwarp();
-    const float* gf = h.gfc + j * 4 * Sc;
-    for (int s = lane; s < Sc; s += 32) {
-      const int row = j * Sc + s;
-      bs.g_rgb[row * 3 + 0] += gf[s];
-      bs.g_rgb[row * 3 + 1] += gf[Sc + s];
-      bs.g_rgb[row * 3 + 2] += gf[2 * Sc + s];
-      bs.g_sig[row] += gf[3 * Sc + s];
+    // 2. the coarse composite and the inverse CDF of its weights, into the
+    //    encoding buffer's depths (zeros past the valid rays)
+    for (int j = warp; j < rpc; j += CONSUMERS / 32) {
+      const long long r = ray0 + j;
+      float* zf = sm.enc.z + j * Sf;
+      if (j < nvalid) {
+        float* al = hs.scr + j * 3 * Sc;
+        float out[5];
+        composite_keep(ha.zc + r * Sc, sm.sigma + j * Sc, sm.rgb + j * Sc * 3, Sc, al, al + Sc,
+                       al + 2 * Sc, out);
+        __syncwarp();
+        inverse_cdf(ha.zc + r * Sc, al + 2 * Sc, Sc, ha.u + r * Sf, Sf, al, zf);
+      } else {
+        for (int i = lane; i < Sf; i += 32) zf[i] = 0.f;
+      }
     }
+    consumers_sync();
+    if (threadIdx.x == 0) mbar_arrive(&sm.zf_ready);
+
+    // 3. the fine forward at the new depths
+    zero_cotangents(sm);
+    forward_tile<HIER>(P, maps, sm, sc, gates_f, c, 1, true, vf * ROWS, Sf, rpc, pp, acc);
+
+    // 4. the merged composite, the fine MSE and its transpose (merged_ray's
+    //    arrays in the ring: each ray's alpha / T / w, then its merge
+    //    arrays); the fine chain
+    for (int j = warp; j < nvalid; j += CONSUMERS / 32)
+      merged_ray<true>(sm, cot, ray0 + j, j, ha.zc + (ray0 + j) * Sc, Sc, sm.enc.z + j * Sf, Sf,
+                       hs.kf + j * 4 * Sc, hs.gfc + j * 4 * Sc, ring + j * 3 * Sa,
+                       ring + rpc * 3 * Sa + j * 6 * Sa);
+    fence_proxy_async();  // the ring's generic writes before the producer's next loads
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      mbar_arrive(&sm.comp_done);
+      mbar_arrive(&sm.enc_empty);
+    }
+    store_tile_loss<true>(bs, sc, (int)(2 * vf), nvalid);
+    chain_head<HIER>(P, sm, sc, gates_f, vf, vf * ROWS, Sf, nvalid, ray0, demb, false, nullptr,
+                     pp, acc);
+    chain(P, maps, sm, sc, gates_f, vf, vf * ROWS, pp, acc);
+
+    // 5. the coarse backward: the kept field restored, the coarse composite
+    //    recomputed and transposed under cw x the coarse MSE's cotangent,
+    //    plus step 4's coarse-field cotangent; the chain's head reads the
+    //    last coarse trunk layer from the stash, whose stores are complete
+    zero_cotangents(sm);
+    for (int row = threadIdx.x; row < ROWS; row += CONSUMERS) {
+      const int j = row / Sc, i = row - j * Sc;
+      const bool ok = j < rpc;
+      const float* f = hs.kf + (ok ? j : 0) * 4 * Sc;
+      sm.rgb[row * 3 + 0] = ok ? f[i] : 0.f;
+      sm.rgb[row * 3 + 1] = ok ? f[Sc + i] : 0.f;
+      sm.rgb[row * 3 + 2] = ok ? f[2 * Sc + i] : 0.f;
+      sm.sigma[row] = ok ? f[3 * Sc + i] : 0.f;
+      sm.sigma_pre[row] = ok ? hs.ksp[row] : 0.f;
+    }
+    if ((threadIdx.x & 127) == 0) {
+      bulk_wait();
+      fence_proxy_async_global();
+    }
+    consumers_sync();
+    for (int j = warp; j < nvalid; j += CONSUMERS / 32) {
+      const long long r = ray0 + j;
+      const float* zc = ha.zc + r * Sc;
+      float* al = hs.scr + j * 3 * Sc;
+      float out[5];
+      composite_keep(zc, sm.sigma + j * Sc, sm.rgb + j * Sc * 3, Sc, al, al + Sc, al + 2 * Sc,
+                     out);
+      const float d0 = out[0] - ha.target[r * 3 + 0];
+      const float d1 = out[1] - ha.target[r * 3 + 1];
+      const float d2 = out[2] - ha.target[r * 3 + 2];
+      if (lane == 0) bs.loss[j] = (d0 * d0 + d1 * d1 + d2 * d2) * ha.inv_denom;
+      composite_bwd(zc, sm.rgb + j * Sc * 3, Sc, al, al + Sc, al + 2 * Sc, out[3], out[4],
+                    ha.kc * d0, ha.kc * d1, ha.kc * d2, 0.f, 0.f, nullptr, bs.g_rgb + j * Sc * 3,
+                    bs.g_sig + j * Sc);
+      __syncwarp();
+      const float* gf = hs.gfc + j * 4 * Sc;
+      for (int i = lane; i < Sc; i += 32) {
+        const int row = j * Sc + i;
+        bs.g_rgb[row * 3 + 0] += gf[i];
+        bs.g_rgb[row * 3 + 1] += gf[Sc + i];
+        bs.g_rgb[row * 3 + 2] += gf[2 * Sc + i];
+        bs.g_sig[row] += gf[3 * Sc + i];
+      }
+    }
+    consumers_sync();
+    store_tile_loss<true>(bs, sc, (int)(2 * vc), nvalid);
+    chain_head<HIER>(P, sm, sc, gates_c, vc, vc * ROWS, Sc, nvalid, ray0, demb, true,
+                     sc.h + ((L - 1) * sc.rows + vc * ROWS) * HID, pp, acc);
+    chain(P, maps, sm, sc, gates_c, vc, vc * ROWS, pp, acc);
   }
-  __syncthreads();
-  store_tile_loss<true>(bs, sc, tile_c, nvalid);
-  field_bwd_tile(P, W, sm, bs, sc, tile_c, Sc, rpc, nvalid, sm.hA, sm.hB, h.dembc);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < nvalid * E; idx += THREADS)
-    demb[ray0 * E + idx] += h.dembc[idx];
+  if ((threadIdx.x & 127) == 0) bulk_wait();
 }
 
 // The two losses of a pass: loss[0] += the fine slots (odd virtual tiles),
-// loss[1] += the coarse slots (even ones), each summed in tile order.
+// loss[1] += the coarse slots (even ones); a virtual tile's loss is the
+// last column of the first of its two row-sum slots.  Warp k sums loss k,
+// each lane every 32nd of its tiles in order, then the lanes in a fixed
+// tree.
 __global__ void hier_losses(const float* __restrict__ part, int vtiles, int nv,
                             float* __restrict__ loss) {
-  const int k = threadIdx.x;
-  if (k > 1) return;
+  const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float s = 0.f;
-  for (int v = 1 - k; v < vtiles; v += 2) s += part[(long long)v * nv + nv - 1];
-  loss[k] += s;
+  for (int v = 1 - k + 2 * lane; v < vtiles; v += 64) s += part[2LL * v * nv + nv - 1];
+  s = warp_sum(s);
+  if (lane == 0) loss[k] += s;
 }
-
-// Virtual tiles of one pass: two per CTA, within MAX_TILES_PER_PASS.
-inline long long hier_tiles_pass(long long ctas) {
-  return ctas < MAX_TILES_PER_PASS / 2 ? ctas : MAX_TILES_PER_PASS / 2;
-}
-
-}  // namespace danerf
 
 // Bytes of scratch K9 needs for R rays of s = max(Sc, Sf) samples a tile
-// row group: the residuals of both row sets of every CTA of one pass;
-// negative on a malformed layout.
+// row group: the residuals of both row sets of every tile of one pass and
+// two gate-mask sets a CTA; negative on a malformed layout.
 extern "C" long long danerf_hier_onepass_scratch_bytes(const long long* meta, long long n_meta,
                                                        long long R, long long s, long long n_vecs) {
   if (n_meta < META_HEAD) return ERR_META;
@@ -341,8 +298,10 @@ extern "C" long long danerf_hier_onepass_scratch_bytes(const long long* meta, lo
   if (err) return err;
   if (s < 1 || s > TILE_M || R < 0) return ERR_SHAPE;
   const int rpc = rays_per_tile(s);
-  Scratch sc;
-  return carve(nullptr, P, 2 * hier_tiles_pass((R + rpc - 1) / rpc), (int)n_vecs, &sc);
+  long long tiles = (R + rpc - 1) / rpc;
+  if (tiles > MAX_TILES_PER_PASS / 2) tiles = MAX_TILES_PER_PASS / 2;
+  Scratch90 sc;
+  return carve90(nullptr, P, 2 * tiles, (int)n_vecs, &sc, 2);
 }
 
 extern "C" int danerf_hier_onepass(const float* o, const float* d, const float* emb,
@@ -354,37 +313,21 @@ extern "C" int danerf_hier_onepass(const float* o, const float* d, const float* 
                                    const long long* meta_t, long long n_meta_t, void* scratch,
                                    long long scratch_bytes, long long n_vecs, void* stream) {
   if (Sc < 1 || Sf < 1 || Sc > TILE_M || Sf > TILE_M) return ERR_SHAPE;
-  BwdCall c;
-  int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R,
-                      Sc > Sf ? Sc : Sf, scratch, scratch_bytes, n_vecs, &c);
+  Bwd90Call c;
+  const int err = bwd90_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, R,
+                              Sc > Sf ? Sc : Sf, scratch, scratch_bytes, n_vecs, &c, false, 2);
   if (err) return err;
   if (check_time(c.P, t)) return ERR_SHAPE;
   if (R == 0) return 0;
-  c.tiles_pass = (int)hier_tiles_pass(c.tiles_total);
-  if (carve(static_cast<char*>(scratch), c.P, 2LL * c.tiles_pass, (int)n_vecs, &c.sc) >
-      scratch_bytes)
-    return ERR_SHAPE;
-  const size_t smem = hier_smem_bytes((int)Sc, (int)Sf, c.rpc, c.P.emb_dim);
-  if (smem > 232448) return ERR_SHAPE;
-  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(hier_tile),
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if (hier_smem_bytes((int)Sc, (int)Sf, c.rpc, c.P.emb_dim) > 232448) return ERR_SHAPE;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float inv_denom = 1.f / (float)(R * 3.0);
-  const float kc = (float)(2.0 * cw / (R * 3.0));
-  for (long long t0 = 0; t0 < c.tiles_total; t0 += c.tiles_pass) {
-    const int nt = (int)(c.tiles_total - t0 < c.tiles_pass ? c.tiles_total - t0 : c.tiles_pass);
-    e = cudaMemsetAsync(c.sc.part, 0, sizeof(float) * 2 * nt * c.sc.nv, st);
-    if (e != cudaSuccess) return (int)e;
-    hier_tile<<<nt, THREADS, smem, st>>>(c.P, c.W, c.sc, o, d, emb, zc, u, target, t, R, (int)Sc,
-                                         (int)Sf, c.rpc, t0 * c.rpc, inv_denom, kc, demb);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    hier_losses<<<1, 32, 0, st>>>(c.sc.part, 2 * nt, c.sc.nv, loss);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    err = finish_pass(c.P, c.sc, 2 * nt, gmats, gvecs, nullptr, (int)n_vecs, st);
-    if (err) return err;
-  }
-  return 0;
+  const HierArgs ha{zc, u, target, 1.f / (float)(R * 3.0), (float)(2.0 * cw / (R * 3.0)),
+                    (int)Sc, (int)Sf};
+  const BwdRays rays{o, d, emb, t, zc, R, 0, 0, (int)Sc, c.rpc, (int)Sf};
+  return run_passes90(c, hier_tile90, rays, gmats, gvecs, nullptr, (int)n_vecs, st,
+                      [&](int grid, const BwdMaps& maps, const BwdRays& r, int nt) {
+                        hier_tile90<<<grid, THREADS90, BWD_SMEM_BYTES, st>>>(
+                            maps, c.P, c.sc.s, c.sc.gates, r, ha, demb);
+                        hier_losses<<<1, 64, 0, st>>>(c.sc.s.part, 2 * nt, c.sc.s.nv, loss);
+                      });
 }

@@ -36,7 +36,7 @@ static_assert(MERGE_MAX <= sizeof(Smem90::act), "the merge arrays must fit in sm
 // depths zc (Sc) with their field fc (the ray's (4, Sc) slice of K2's
 // output) and the sorted fine depths zf (Sf) whose field is the tile's rows
 // row0.. of rgb_s / sig_s.  rank_c = i + #{z_f < z_c[i]}, rank_f = j +
-// #{z_c <= z_f[j]} (field.cuh merge_ray's ranks).
+// #{z_c <= z_f[j]} (field_bwd_sm90.cuh merge_ray_ranks's ranks).
 __device__ void merge_ray90(const float* rgb_s, const float* sig_s, const float* zc, int Sc,
                             const float* zf, int Sf, const float* __restrict__ fc, int row0,
                             float* mz, float* msig, float* mrgb) {

@@ -15,56 +15,33 @@
 // row of inputs and outputs.  The residual scratch (~9.5 KB a row, written
 // and read back once, ~1.25 GB at 131,072 rows) adds ~0.75 ms of HBM time.
 //
-// Design (field_bwd.cuh's mma.sync tile).  The tile kernel recomputes the forward
-// with field_tile<true> (per-row staging, emb @ Wapp^T on the tensor
-// cores), stashes the residuals, and walks the chain back; demb =
-// bf16(d_happ) @ Wapp is one more tensor-core product per row.  Parameter
-// gradients come from the dW GEMM pass over fixed row partitions summed in
-// order and the per-tile row sums summed in tile order: no atomics, so two
-// calls on the same inputs give bit-identical gradients.  The passes repeat
-// over slices of at most MAX_TILES_PER_PASS tiles (262,144 rows).
+// Design: field_bwd_sm90.cuh's persistent tile (a TMA weight ring, wgmma for
+// the forward and the transposed chain, the wgmma dW pass) with one row a
+// "ray" (RowComp: the caller's cotangents of each row).  What a tile of
+// independent rows needs beyond the rays' tile: the encoders read each
+// row's point, direction and time from device memory (y = 2^i x, the
+// rays' form at z = 0) and stash the rows' bf16 embeddings before they
+// publish the buffer; the producer then loads Wapp and those embeddings
+// into one ring stage, and emb @ Wapp^T is one more wgmma (m64n128, K = E)
+// into the accumulator registers beside the dir layer's (the two together
+// take a trunk layer's m64n256), added after the dir layer's relu in f32
+// (the JAX order).  In the chain's head demb = bf16(d_happ) @ Wapp per row
+// is a wgmma (m64n64, K = HALF) with A = d_happ in the activation buffer and
+// B = Wapp^T from one more ring stage (zero past E).  Parameter gradients
+// come from the dW pass over fixed row partitions summed in order and the
+// per-tile row sums summed in tile order: no atomics, so two calls on the
+// same inputs give bit-identical gradients.  The passes repeat over slices
+// of at most MAX_TILES_PER_PASS tiles (262,144 rows); a ragged last tile is
+// masked (zero cotangents), not padded by the caller.
 //
 //   in : x, d (N,3), emb (N,E) f32 [, t (N) with use_time]; cotangents g_rgb (N,3),
 //        g_sigma (N)
 //   out: gmats, gvecs (packed-layout f32 gradients, added to), demb (N,E)
 
-#include "field_bwd.cuh"
-#include "bwd_scratch.cuh"
+#include "field_bwd_sm90.cuh"
 
 using namespace danerf;
-
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_bwd_tile(const FieldArgs P, const BwdWeights W, const Scratch sc, const float* __restrict__ x,
-             const float* __restrict__ d, const float* __restrict__ emb,
-             const float* __restrict__ t, long long N,
-             long long row_base, const float* __restrict__ g_rgb,
-             const float* __restrict__ g_sigma, float* __restrict__ demb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  BwdSmem& bs = *reinterpret_cast<BwdSmem*>(smem_raw + sizeof(Smem));
-  RowSmem& rs = *reinterpret_cast<RowSmem*>(smem_raw + sizeof(Smem) + sizeof(BwdSmem));
-  const int tile = blockIdx.x;
-  const long long row0 = row_base + (long long)tile * TILE_M;
-  const int nvalid = (int)(N - row0 < TILE_M ? N - row0 : TILE_M);
-
-  load_rows(rs, x, d, emb, t, P.emb_dim, row0, nvalid);
-  for (int r = threadIdx.x; r < TILE_M; r += THREADS) {
-    const bool ok = r < nvalid;
-    bs.g_rgb[r * 3 + 0] = ok ? g_rgb[(row0 + r) * 3 + 0] : 0.f;
-    bs.g_rgb[r * 3 + 1] = ok ? g_rgb[(row0 + r) * 3 + 1] : 0.f;
-    bs.g_rgb[r * 3 + 2] = ok ? g_rgb[(row0 + r) * 3 + 2] : 0.f;
-    bs.g_sig[r] = ok ? g_sigma[row0 + r] : 0.f;
-  }
-  __syncthreads();
-  encode_rows(P, sm, rs, nvalid);
-  __syncthreads();
-  const Stash st{sc.h, sc.encx, sc.encd, sc.happ, sc.dirg, sc.rows * HID,
-                 (long long)tile * TILE_M};
-  __nv_bfloat16* cur = field_tile<true>(P, sm, 1, TILE_M, &st, rs.emb);
-  __nv_bfloat16* nxt = cur == sm.hA ? sm.hB : sm.hA;
-  field_bwd_tile<true>(P, W, sm, bs, sc, tile, 1, TILE_M, nvalid, cur, nxt,
-                       demb + row0 * P.emb_dim, rs.emb);
-}
+using namespace danerf::sm90;
 
 extern "C" int danerf_mlp_bwd(const float* x, const float* d, const float* emb, const float* t,
                               long long N,
@@ -74,17 +51,15 @@ extern "C" int danerf_mlp_bwd(const float* x, const float* d, const float* emb, 
                               const void* mats_t, const long long* meta_t, long long n_meta_t,
                               void* scratch, long long scratch_bytes, long long n_vecs,
                               void* stream) {
-  BwdCall c;
-  const int err = bwd_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, N, ROW_TILES,
-                            scratch, scratch_bytes, n_vecs, &c);
+  Bwd90Call c;
+  const int err = bwd90_setup(meta, n_meta, mats, vecs, E, mats_t, meta_t, n_meta_t, N, ROW_TILES,
+                              scratch, scratch_bytes, n_vecs, &c, true);
   if (err) return err;
-  if (c.P.emb_dim % 16 || check_time(c.P, t)) return ERR_SHAPE;   // emb @ Wapp^T steps K by 16
-  if (N == 0) return 0;   // emb @ Wapp^T steps K by 16
-  const size_t smem = sizeof(Smem) + sizeof(BwdSmem) + sizeof(RowSmem);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return run_passes(c, reinterpret_cast<const void*>(mlp_bwd_tile), smem, gmats, gvecs, nullptr,
-                    (int)n_vecs, st, [&](int nt, long long row_base) {
-                      mlp_bwd_tile<<<nt, THREADS, smem, st>>>(c.P, c.W, c.sc, x, d, emb, t, N,
-                                                              row_base, g_rgb, g_sigma, demb);
-                    });
+  // the appearance product steps K by 16
+  if (c.P.emb_dim % 16 || check_time(c.P, t)) return ERR_SHAPE;
+  if (N == 0) return 0;
+  const RowComp comp{g_rgb, g_sigma};
+  const BwdRays rows{x, d, emb, t, nullptr, N, 0, 0, 1, ROWS, 0};
+  return run_bwd90(c, comp, rows, gmats, gvecs, nullptr, demb, (int)n_vecs,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -37,7 +37,7 @@ mlp_fwd_kernel(const FieldArgs P, const float* __restrict__ x, const float* __re
   __syncthreads();
   encode_rows(P, sm, rs, nvalid);
   __syncthreads();
-  field_tile<true>(P, sm, 1, TILE_M, nullptr, rs.emb);
+  field_tile(P, sm, rs.emb);
 
   for (int r = threadIdx.x; r < nvalid; r += THREADS) {
     rgb[(row0 + r) * 3 + 0] = sm.rgb[r * 3 + 0];

@@ -7,7 +7,8 @@ danerf_tpu/kernels/fused_mlp.py).
   tensor-core loops need no ragged-K handling; biases and the density head's
   weight stay f32.
 - ``encode_plain`` and ``field_from_enc_plain`` are the plain PyTorch
-  versions of the kernels' shared device code (``csrc/field.cuh``), the
+  versions of the kernels' field (``csrc/field_sm90.cuh``, and K1's
+  ``csrc/field.cuh``), the
   counterparts of ``_encode``/``_field_from_enc``: activations held in the
   compute dtype, the density head as an f32 multiply-and-sum over the bf16
   trunk output, and ``happ = relu(hdir_pre) + emb @ Wapp + bapp`` in f32
@@ -186,9 +187,8 @@ def transposed_mats(packed: PackedParams, cfg: NeRFConfig):
     """The hidden-input block of each trunk layer after the first, and of the
     dir layer, transposed: W[:, :hidden]^T as (hidden, out) row-major bf16,
     which the backward kernels read as the B operand of d_in = d_pre @ W
-    (csrc/field_bwd.cuh; csrc/field_bwd_sm90.cuh streams the trunk blocks,
-    which lie one after the other, as one matrix); and the appearance
-    projection transposed, (E,
+    (csrc/field_bwd_sm90.cuh streams the trunk blocks, which lie one after
+    the other, as one matrix); and the appearance projection transposed, (E,
     half), the B operand of K8's per-row demb = d_happ @ Wapp.  Returns
     (flat tensor, offsets): one offset per trunk layer (-1 for layer 0,
     whose d_in is not formed), one for the dir layer and one for Wapp^T."""
@@ -315,8 +315,8 @@ def _dX(g: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
 def field_bwd_plain(cfg: NeRFConfig, packed: PackedParams, res: dict, emb: torch.Tensor,
                     g_rgb: torch.Tensor, g_sigma: torch.Tensor):
     """Transposed MLP chain from ``field_from_enc_plain``'s residuals, step
-    for step ``_field_bwd_from_res`` (the shared device code of the backward
-    kernels, ``csrc/field_bwd.cuh``).
+    for step ``_field_bwd_from_res`` (the backward kernels' tile,
+    ``csrc/field_bwd_sm90.cuh``).
 
     g_rgb (N, 3), g_sigma (N, 1) f32.  Returns (PackedGrads summed over the
     N rows, demb (N, E)).  Upstream cotangents of the data inputs (the

@@ -1,4 +1,4 @@
-"""A/B timing of the port's CUDA kernels (K1-K8; K2, K5, K6 and K7 also with time)
+"""A/B timing of the port's CUDA kernels (K1-K9; K2, K5, K6 and K7 also with time)
 between another checkout and this one, on one GPU.
 
     python3 kernel_ab.py BASE_DIR [--rounds 2] [--out FILE]
@@ -10,9 +10,10 @@ sources (``BASE_DIR/build``, ``./build``) and times every kernel with CUDA
 events at chip_smoke.py's shapes and seeds: K2 (want_field) and K5 on a
 65,536-ray chunk, K2 also at 32 samples (``preview``) and both with time
 (``use_time``, their has_time variants: ``k2_t``, ``k5_t``), K3 (with
-g_field), K4, K6 and K7 at the 1024-ray batch, K6 and K7 also with time
+g_field), K4, K6, K7 and K9 at the 1024-ray batch, K6 and K7 also with time
 (``k6_t``, ``k7_t``), K1 and K8 at the 131,072 rows of a batch's fine
-evaluation.  Prints one
+evaluation, K8 also at the 65,536 rows of its coarse one (``k8_65536``).
+Prints one
 JSON line per process and, last, the medians per tree and their ratio
 (this / base) per kernel.  Needs a GPU; exits non-zero without one.
 """
@@ -38,7 +39,7 @@ def _time_kernels(iters):
     from danerf_tpu_torch.kernels import fused_mlp as fm
     from danerf_tpu_torch.kernels import fused_render as fr
     from danerf_tpu_torch.models.nerf import NeRF
-    from danerf_tpu_torch.ops.sampling import sample_pdf, sample_stratified
+    from danerf_tpu_torch.ops.sampling import importance_uniforms, sample_pdf, sample_stratified
 
     dev = torch.device("cuda")
     cfg = NeRFConfig(density_bias_init=0.5)
@@ -104,21 +105,25 @@ def _time_kernels(iters):
         out["k6"] = ms(lambda: fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, field, z_f, *c6),
                        iters)
         out["k7"] = ms(lambda: fr.march_train_cuda(packed, cfg, o, d, emb, z, target), iters)
+        u = importance_uniforms((n,), sf, True, rand=g, device=dev)
+        out["k9"] = ms(lambda: fr.hier_onepass_cuda(packed, cfg, o, d, emb, z, u, target), iters)
         t = torch.rand(n, 1, generator=g, device=dev)
         field_t = fr.march_cuda(packed_t, cfg_t, o, d, emb, z, t, want_field=True)["field"]
         out["k6_t"] = ms(lambda: fr.merged_bwd_cuda(packed_t, cfg_t, o, d, emb, z, field_t, z_f,
                                                     *c6, t=t), iters)
         out["k7_t"] = ms(lambda: fr.march_train_cuda(packed_t, cfg_t, o, d, emb, z, target, t),
                          iters)
-    o, d, emb, z, g = rays(cfg.batch_size, 34, sc + sf)
-    rep = lambda t: t[:, None, :].expand(-1, sc + sf, -1).reshape(-1, t.shape[-1]).contiguous()
-    x = (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
-    dr, er = rep(d), rep(emb)
-    g_rgb = torch.randn(x.shape[0], 3, generator=g, device=dev)
-    g_sig = torch.randn(x.shape[0], 1, generator=g, device=dev)
-    out["k1"] = ms(lambda: fm.fused_fwd_cuda(packed, cfg, x, dr, er), iters)
-    out["k8"] = ms(lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig),
-                   max(2, iters // 2))
+    for key, seed, s in (("", 34, sc + sf), ("_65536", 33, sc)):
+        o, d, emb, z, g = rays(cfg.batch_size, seed, s)
+        rep = lambda t: t[:, None, :].expand(-1, s, -1).reshape(-1, t.shape[-1]).contiguous()
+        x = (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
+        dr, er = rep(d), rep(emb)
+        g_rgb = torch.randn(x.shape[0], 3, generator=g, device=dev)
+        g_sig = torch.randn(x.shape[0], 1, generator=g, device=dev)
+        if not key:
+            out["k1"] = ms(lambda: fm.fused_fwd_cuda(packed, cfg, x, dr, er), iters)
+        out["k8" + key] = ms(lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig),
+                             max(2, iters // 2))
     return out
 
 

@@ -455,18 +455,27 @@ def test_mlp_fwd_kernel_matches_plain(dev, appearance):
     assert float(((sk - sp) / sp.abs().clamp_min(1.0)).abs().max()) <= TOL["field_sigma"]
 
 
-def test_mlp_bwd_kernel_matches_plain(dev):
-    """K8 at 2,400 rows (19 tiles, the last ragged: a lost or doubled tile
-    moves every summed gradient by several percent), seeded cotangents; two
-    calls agree bit for bit."""
-    cfg, model, *_ = _inputs(dev)
-    x, d, emb, g = _rows(2400, cfg, dev)
-    packed = pack_params(model, cfg)
-    g_rgb = torch.randn(2400, 3, generator=g, device=dev)
-    g_sig = torch.randn(2400, 1, generator=g, device=dev)
-    gk, dk = fm.fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sig)
-    gk2, dk2 = fm.fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sig)
-    gp, dp = fm.fused_bwd_plain(packed, cfg, x, d, emb, g_rgb, g_sig)
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("appearance", [True, False], ids=["emb", "emb_none"])
+@pytest.mark.parametrize("n", [37, 129, 2400, 65536, 131072])
+def test_mlp_bwd_kernel_matches_plain(dev, n, appearance, use_time):
+    """K8 at 37 and 129 rows (below one tile; one tile and a row), 2,400
+    (19 tiles, the last ragged: a lost or doubled tile moves every summed
+    gradient by several percent), and the 65,536 and 131,072 rows of a
+    1024-ray batch's coarse and fine evaluations; with and without the
+    appearance projection (packed as zeros, a zero embedding), with and
+    without each row's time; seeded cotangents; two calls agree bit for
+    bit."""
+    cfg, model, *_ = _inputs(dev, use_time=use_time)
+    x, d, emb, g = _rows(n, cfg, dev)
+    packed = pack_params(model, cfg, appearance=appearance)
+    emb = emb if appearance else torch.zeros_like(emb)
+    g_rgb = torch.randn(n, 3, generator=g, device=dev)
+    g_sig = torch.randn(n, 1, generator=g, device=dev)
+    t = torch.rand(n, 1, generator=g, device=dev) if use_time else None
+    gk, dk = fm.fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sig, t)
+    gk2, dk2 = fm.fused_bwd_cuda(packed, cfg, x, d, emb, g_rgb, g_sig, t)
+    gp, dp = fm.fused_bwd_plain(packed, cfg, x, d, emb, g_rgb, g_sig, t)
     _close_grads(gk, gp, model)
     assert float((dk - dp).abs().max()) <= TOL["demb_k8"]
     assert torch.equal(gk.mats, gk2.mats) and torch.equal(gk.vecs, gk2.vecs)
@@ -585,27 +594,30 @@ def test_time_mlp_kernels_match_plain(dev):
     assert float((dk - dp).abs().max()) <= TOL["demb_k8"]
 
 
-def _hier_inputs(dev, n, use_time=False, seed=0):
+def _hier_inputs(dev, n, use_time=False, seed=0, **over):
     """K9's inputs: _inputs' rays and depths, uniforms from
     importance_uniforms, a seeded target and, with use_time, each ray's
     time."""
     from danerf_tpu_torch.ops.sampling import importance_uniforms
 
-    cfg, model, o, d, emb, z, g = _inputs(dev, n=n, seed=seed, use_time=use_time)
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=n, seed=seed, use_time=use_time, **over)
     u = importance_uniforms((n,), cfg.num_importance, True, rand=g, device=dev)
     target = torch.rand(n, 3, generator=g, device=dev)
     t = torch.rand(n, 1, generator=g, device=dev) if use_time else None
     return cfg, model, (pack_params(model, cfg), cfg, o, d, emb, z, u, target, t)
 
 
-@pytest.mark.parametrize("n,use_time", [(37, False), (1024, False), (37, True)],
-                         ids=["37", "1024", "37-time"])
-def test_hier_onepass_kernel_matches_plain(dev, n, use_time):
-    """K9 at 37 rays (19 CTAs: a lost or doubled CTA moves every summed
-    gradient by several percent), at the 1024-ray batch, and its has_time
-    variant at 37 rays: both MSEs, every gradient and demb; two calls agree
-    bit for bit."""
-    cfg, model, args = _hier_inputs(dev, n, use_time)
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("n", [37, 1024])
+@pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (128, 128), (48, 32), (32, 64)])
+def test_hier_onepass_kernel_matches_plain(dev, sc, sf, n, use_time):
+    """K9 and its has_time variant at 37 rays (19 CTAs at 64 + 64: a lost
+    or doubled CTA moves every summed gradient by several percent) and at
+    the 1024-ray batch, at Sc + Sf = 64 + 64, 64 + 16, 128 + 128, 48 + 32
+    and 32 + 64 (the fine rows fewer than, as many as and more than the
+    coarse ones): both MSEs, every gradient and demb; two calls agree bit
+    for bit."""
+    cfg, model, args = _hier_inputs(dev, n, use_time, num_samples=sc, num_importance=sf)
     k, k2 = fr.hier_onepass_cuda(*args), fr.hier_onepass_cuda(*args)
     p = fr.hier_onepass_plain(*args)
     assert abs(float(k[0]) - float(p[0])) <= TOL["loss_k9"]
@@ -615,6 +627,24 @@ def test_hier_onepass_kernel_matches_plain(dev, n, use_time):
     for a, b in zip((k[0], k[1], k[2].mats, k[2].vecs, k[3]), (k2[0], k2[1], k2[2].mats,
                                                                k2[2].vecs, k2[3])):
         assert torch.equal(a, b)
+
+
+def test_mlp_bwd_and_hier_onepass_refuse_what_they_always_refused(dev):
+    """K8 refuses an embedding width that is not a multiple of 16 (its
+    appearance product steps K by 16); K9 refuses Sc or Sf past a tile or
+    below one sample."""
+    cfg, model, *_ = _inputs(dev, appearance_dim=24)
+    x, d, _, g = _rows(37, cfg, dev)
+    emb = torch.randn(37, 24, generator=g, device=dev)
+    g_rgb = torch.randn(37, 3, generator=g, device=dev)
+    with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+        fm.fused_bwd_cuda(pack_params(model, cfg), cfg, x, d, emb, g_rgb, g_rgb[:, :1])
+    cfg, model, args = _hier_inputs(dev, 37, num_samples=129, num_importance=129)
+    packed, _, o, d, emb, z, u, target, _ = args
+    for sc, sf in ((129, 64), (64, 129), (0, 64), (64, 0)):
+        with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+            fr.hier_onepass_cuda(packed, cfg, o, d, emb, z[:, :sc].contiguous(),
+                                 u[:, :sf].contiguous(), target)
 
 
 def test_hier_onepass_step_matches_plain_and_two_kernel_step(dev, monkeypatch):

@@ -114,16 +114,15 @@ def _port_grads(model):
                           for n, p in model.named_parameters()})
 
 
-@pytest.mark.parametrize("with_emb", [True, False], ids=["emb", "emb_none"])
-def test_fused_bwd_plain_matches_jax_value_and_grad(with_emb):
-    """K8's plain version through autograd (FieldFn) against
+def _bwd_matches_jax(n, with_emb):
+    """K8's plain version through autograd (FieldFn) at n rows against
     jax.value_and_grad of tests/test_kernels.py's loss (MSE + 1e-3 mean
     sigma) through the JAX fused_nerf_apply: every parameter leaf and the
     embedding.  Without an embedding the projection's gradients are exactly
     zero."""
     jcfg, cfg, params, model = _setup()
-    x, d, e, rng = _inputs(N, cfg, seed=5)
-    target = rng.random((N, 3)).astype(np.float32)
+    x, d, e, rng = _inputs(n, cfg, seed=5)
+    target = rng.random((n, 3)).astype(np.float32)
 
     def j_loss(p, emb):
         rgb, sigma = j_fused_nerf_apply(p, jcfg, _j(x), _j(d), emb)
@@ -151,6 +150,21 @@ def test_fused_bwd_plain_matches_jax_value_and_grad(with_emb):
     else:
         proj = model.appearance_projection
         assert not proj.weight.grad.any() and not proj.bias.grad.any()
+
+
+@pytest.mark.parametrize("with_emb", [True, False], ids=["emb", "emb_none"])
+def test_fused_bwd_plain_matches_jax_value_and_grad(with_emb):
+    """K8's plain version at N = 700 rows (a ragged last tile) against the
+    JAX value_and_grad (_bwd_matches_jax)."""
+    _bwd_matches_jax(N, with_emb)
+
+
+@pytest.mark.parametrize("with_emb", [True, False], ids=["emb", "emb_none"])
+def test_fused_bwd_plain_matches_jax_below_one_tile(with_emb):
+    """K8's plain version at 37 rows, fewer than one tile of either
+    package (the CUDA kernel masks 91 of its 128 rows), against the JAX
+    value_and_grad (_bwd_matches_jax)."""
+    _bwd_matches_jax(37, with_emb)
 
 
 @pytest.mark.parametrize("bg", [None, (1.0, 1.0, 1.0)], ids=["black", "white"])

@@ -64,8 +64,8 @@ DEMB_ATOL = {False: 1e-7, True: 1e-4}
 
 
 def _setup(use_bf16, seed=0, **over):
-    jcfg = JaxConfig(**SMALL, use_bf16=use_bf16, **over)
-    cfg = NeRFConfig(**SMALL, use_bf16=use_bf16, **over)
+    jcfg = JaxConfig(**{**SMALL, **over}, use_bf16=use_bf16)
+    cfg = NeRFConfig(**{**SMALL, **over}, use_bf16=use_bf16)
     params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(seed), jcfg))
     return jcfg, cfg, params, params_from_jax_module(params, cfg, device="cpu"), np.random.default_rng(seed)
 
@@ -93,21 +93,20 @@ def _assert_grads(got, want, use_bf16, what):
                                    err_msg=f"{what} leaf {i}")
 
 
-@pytest.mark.parametrize("use_bf16,with_t", [(False, False), (True, False), (False, True),
-                                             (True, True)],
-                         ids=["f32", "bf16", "f32-time", "bf16-time"])
-def test_hier_onepass_plain_matches_jax(use_bf16, with_t):
+def _plain_matches_jax(use_bf16, with_t, sc, sf):
     """K9's plain version against the JAX one-kernel step on the same
-    weights, rays, depths, uniforms and targets (with t: each ray's time,
-    the has_time variant, which no route of either package reaches)."""
-    jcfg, cfg, params, model, rng = _setup(use_bf16, **(TIME if with_t else {}))
+    weights, rays, sc coarse depths, sf uniforms and targets (with t: each
+    ray's time, the has_time variant, which no route of either package
+    reaches)."""
+    over = dict(TIME if with_t else {}, num_samples=sc, num_importance=sf)
+    jcfg, cfg, params, model, rng = _setup(use_bf16, **over)
     o, d = _rays(rng)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     emb = rng.normal(size=(R, cfg.appearance_dim)).astype(np.float32)
-    edges = np.linspace(2.0, 6.0, SC + 1, dtype=np.float32)
-    z = (edges[:-1] + rng.random((R, SC)) * (edges[1] - edges[0])).astype(np.float32)
+    edges = np.linspace(2.0, 6.0, sc + 1, dtype=np.float32)
+    z = (edges[:-1] + rng.random((R, sc)) * (edges[1] - edges[0])).astype(np.float32)
     target = rng.random((R, 3)).astype(np.float32)
-    u = np.asarray(j_importance_uniforms(jax.random.key(5), (R,), SF))
+    u = np.asarray(j_importance_uniforms(jax.random.key(5), (R,), sf))
     t = rng.random((R, 1)).astype(np.float32) if with_t else None
     j_f, j_c, j_grads, j_demb = fused_hier_onepass_train(params, jcfg, o, d, z, u, target, emb,
                                                          t=t)
@@ -120,6 +119,23 @@ def test_hier_onepass_plain_matches_jax(use_bf16, with_t):
     _assert_grads(params_to_jax(grads), j_grads, use_bf16, "K9 params")
     np.testing.assert_allclose(demb.numpy(), np.asarray(j_demb), atol=DEMB_ATOL[use_bf16],
                                err_msg="demb")
+
+
+@pytest.mark.parametrize("use_bf16,with_t", [(False, False), (True, False), (False, True),
+                                             (True, True)],
+                         ids=["f32", "bf16", "f32-time", "bf16-time"])
+def test_hier_onepass_plain_matches_jax(use_bf16, with_t):
+    """K9's plain version at SC + SF = 16 + 8 against the JAX step
+    (_plain_matches_jax)."""
+    _plain_matches_jax(use_bf16, with_t, SC, SF)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True], ids=["f32", "bf16"])
+def test_hier_onepass_plain_matches_jax_fine_wider(use_bf16):
+    """K9's plain version with the fine pass wider than the coarse one (8 +
+    16: the CUDA kernel's fine rows fill a tile its coarse rows half fill)
+    against the JAX step (_plain_matches_jax)."""
+    _plain_matches_jax(use_bf16, False, 8, 16)
 
 
 def _batch(rng, n=R, n_images=5):
