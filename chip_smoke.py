@@ -7,9 +7,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. env      torch / CUDA versions and the card (nvidia-smi name, power limit).
 2. build    compile every kernel from danerf_tpu_torch/kernels/csrc (nvcc,
             sm_90a, all sources at once); one line of each kernel's
-            registers, shared memory and spills (-Xptxas -v; the tile and
-            dW pass of K3, K4, K6 and K7 apart); the full reports go to
-            DIR/build.log.
+            registers, shared memory and spills (-Xptxas -v; K1, K2 and K5
+            with their dynamic shared memory; the tile and dW pass of K3,
+            K4, K6-K9 apart); the full reports go to DIR/build.log.
 3. kernels  at full width (default NeRFConfig: 8x256, bf16) on seeded inputs,
             each kernel against its plain PyTorch version on the card,
             within fused_render.PLAIN_TOL, at 4093 rays (a ragged tile) and
@@ -19,10 +19,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             the shapes of csrc/field_sm90.cuh's tile (tile_shapes: K2 at S =
             32, 48, 64, 100, 128 with and without its field, K5 at 64 + 64,
             64 + 16, 128 + 128 with and without the appearance projection,
-            two calls bit for bit); K1 on the
-            points of 4093 x 32 = 130,976 rows (ragged), and of 65,536 and
-            131,072 rows (the coarse and fine evaluations of a 1024-ray
-            batch), with and without the appearance projection; and
+            two calls bit for bit); K1 (csrc/field_sm90.cuh's row tile) on
+            the points of 4093 x 32 = 130,976 rows (ragged), and of 65,536
+            and 131,072 rows (the coarse and fine evaluations of a 1024-ray
+            batch), with and without the appearance projection, two calls
+            bit for bit, and at 130,976 rows with the softplus density
+            activation (a model of its own); and
             render_rays' fused route against its reference route and its
             per-sample kernel route (K1) on 512 rays.
 4. bwd      the backward and training kernels against their plain versions
@@ -52,8 +54,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             model of their own, each ray's (row's) time uniform in [0, 1]:
             K2 (want_field) and K5 at 4093 rays and on a 65,536-ray chunk,
             and at tile_shapes' shapes; K3 and K6 (every cotangent; K6 with a coarse/fine tie) at 37
-            rays and at B = 1024, K4 and K7 at 37 rays, K1 at 130,976 rows
-            and K8 at 37, 129 and 2,400 rows, against their plain versions.
+            rays and at B = 1024, K4 and K7 at 37 rays, K1 at 4,093 and
+            130,976 rows and K8 at 37, 129 and 2,400 rows, against their
+            plain versions.
 4c. hier_onepass  K9, the one-kernel hierarchical training step, and its
             has_time variant on the time model, against their plain
             versions at 37 rays and at B = 1024, at Sc + Sf = 64 + 64,
@@ -278,7 +281,7 @@ def function_resources(log, name):
 
 def phase_build(out_dir):
     """Build every kernel; one line with each one's registers, shared
-    memory and spills (K2 and K5, ``csrc/field_sm90.cuh``, take dynamic
+    memory and spills (K1, K2 and K5, ``csrc/field_sm90.cuh``, take dynamic
     shared memory, which ptxas does not report: it is read from the
     library)."""
     from danerf_tpu_torch.kernels import _build
@@ -290,7 +293,7 @@ def phase_build(out_dir):
         for name, log in logs.items():
             f.write(f"==== {name}.cu\n{log}\n")
     res = {n: ptxas_resources(log) for n, log in logs.items()}
-    for n in ("march", "merged"):
+    for n in ("march", "merged", "mlp_fwd"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
     # K3, K4, K6, K7, K8 and K9 (csrc/field_bwd_sm90.cuh): the tile kernel and
     # the dW pass apart, each with its dynamic shared memory
@@ -610,14 +613,22 @@ def phase_kernels(cfg, model, device):
 
     # K1 on flat points: the samples of 4093 rays x 32 (130,976 rows, a
     # ragged tile), and the coarse (65,536) and fine (131,072) evaluations
-    # of a 1024-ray batch; with and without the appearance projection
+    # of a 1024-ray batch; with and without the appearance projection; two
+    # calls bit for bit; and at 130,976 rows on a model with the softplus
+    # density activation
     no_app = pack_params(model, cfg, appearance=False)
+    cfg_sp = cfg.replace(density_activation="softplus")
+    packed_sp = pack_params(make_model(cfg_sp, seed=7, device=device), cfg_sp)
     for rays, s_per, seed in ((4093, 32, 1), (1024, 64, 2), (1024, 128, 3)):
         x, dr, er = sample_rows(rays, cfg, seed, device, s_per)
         n = x.shape[0]
-        for tag, pk, e in (("", packed, er), ("_noapp", no_app, torch.zeros_like(er))):
-            rk, sk = fm.fused_fwd_cuda(pk, cfg, x, dr, e)
-            rp, sp = fm.fused_fwd_plain(pk, cfg, x, dr, e)
+        runs = [("", cfg, packed, er), ("_noapp", cfg, no_app, torch.zeros_like(er))]
+        if rays == 4093:
+            runs.append(("_softplus", cfg_sp, packed_sp, er))
+        for tag, c, pk, e in runs:
+            rk, sk = fm.fused_fwd_cuda(pk, c, x, dr, e)
+            rk2, sk2 = fm.fused_fwd_cuda(pk, c, x, dr, e)
+            rp, sp = fm.fused_fwd_plain(pk, c, x, dr, e)
             torch.cuda.synchronize()
             checks = {"field_rgb": max_err(rk, rp),
                       "field_sigma": max_err((sk - sp) / sp.abs().clamp_min(1.0), 0 * sp)}
@@ -626,7 +637,10 @@ def phase_kernels(cfg, model, device):
                 if not math.isfinite(e_) or e_ > fr.PLAIN_TOL[name]:
                     failures.append(f"K1@{n}{tag}.{name}: {e_} > {fr.PLAIN_TOL[name]}")
             errs[f"K1@{n}{tag}.sigma"] = max_err(sk, sp)
-        del x, dr, er, rk, sk, rp, sp
+            if not (torch.equal(rk, rk2) and torch.equal(sk, sk2)):
+                failures.append(f"K1@{n}{tag}: two calls differ")
+        del x, dr, er, rk, sk, rk2, sk2, rp, sp
+    del packed_sp
 
     # the fused route against the reference route (module forward at every
     # sample: nerf_apply's encoding form, sin(2^i (o + z d)) whose f32
@@ -947,16 +961,18 @@ def phase_time_kernels(cfg, model, device):
             check(f"K7t@{n}.demb", max_err(dk, dp), tol["demb_k4"])
         del coarse
 
-    # K1 on the samples of 4093 rays x 32 (130,976 rows, a ragged tile), K8
-    # at 37, 129 and 2,400 rows (19 tiles), each row with its own time
+    # K1 on the samples of 4093 rays x 32 (130,976 rows, a ragged tile) and
+    # on its first 4,093 rows (32 tiles, the last ragged), K8 at 37, 129 and
+    # 2,400 rows (19 tiles), each row with its own time
     x, dr, er = sample_rows(4093, cfg, 61, device, 32)
     t = times(x.shape[0], 62)
-    rk, sk = fm.fused_fwd_cuda(packed, cfg, x, dr, er, t)
-    rp, sp = fm.fused_fwd_plain(packed, cfg, x, dr, er, t)
-    torch.cuda.synchronize()
-    check(f"K1t@{x.shape[0]}.field_rgb", max_err(rk, rp), tol["field_rgb"])
-    check(f"K1t@{x.shape[0]}.field_sigma", max_err((sk - sp) / sp.abs().clamp_min(1.0), 0 * sp),
-          tol["field_sigma"])
+    for n in (4093, x.shape[0]):
+        rk, sk = fm.fused_fwd_cuda(packed, cfg, x[:n], dr[:n], er[:n], t[:n])
+        rp, sp = fm.fused_fwd_plain(packed, cfg, x[:n], dr[:n], er[:n], t[:n])
+        torch.cuda.synchronize()
+        check(f"K1t@{n}.field_rgb", max_err(rk, rp), tol["field_rgb"])
+        check(f"K1t@{n}.field_sigma", max_err((sk - sp) / sp.abs().clamp_min(1.0), 0 * sp),
+              tol["field_sigma"])
     for n, seed in ((37, 64), (129, 65), (2400, 63)):
         g = torch.Generator(device=device).manual_seed(seed)
         g_rgb = torch.randn(n, 3, generator=g, device=device)
@@ -968,7 +984,7 @@ def phase_time_kernels(cfg, model, device):
         check_grads(f"K8t@{n}", gk, gp)
         check(f"K8t@{n}.demb", max_err(dk, dp), tol["demb_k8"])
     emit({"phase": "time_kernels", "time_enc_levels": cfg.time_enc_levels,
-          "rays": [4093, cfg.render_chunk, 37, cfg.batch_size], "k1_rows": 4093 * 32,
+          "rays": [4093, cfg.render_chunk, 37, cfg.batch_size], "k1_rows": [4093, 4093 * 32],
           "k8_rows": [37, 129, 2400], "max_abs_err": errs, "grad_rel": grad_rel,
           "failures": failures})
     if failures:

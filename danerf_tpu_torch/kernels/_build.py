@@ -29,6 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # c_void_p so ctypes does not cut it to 32 bits; the time input t (null
 # without use_time) follows the other data inputs.  The tail of the backward
 # entry points: transposed weights, their layout record, scratch, n_vecs.
+# K1 (mlp_fwd) takes its scratch and its size before the stream.
 _BWD_TAIL = [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P]
 _SIGNATURES = {
     "march": ("danerf_march", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
@@ -37,7 +38,7 @@ _SIGNATURES = {
     "merged_train": ("danerf_merged_train", [_P] * 8 + [_I] * 4 + [_P] * 5 + _BWD_TAIL),
     "march_train": ("danerf_march_train", [_P] * 6 + [_I] * 3 + [_P] * 4 + _BWD_TAIL),
     "merged_bwd": ("danerf_merged_bwd", [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P] * 4 + _BWD_TAIL),
-    "mlp_fwd": ("danerf_mlp_fwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
+    "mlp_fwd": ("danerf_mlp_fwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P, _I, _P]),
     "mlp_bwd": ("danerf_mlp_bwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P] * 3 + _BWD_TAIL),
     "hier_onepass": ("danerf_hier_onepass",
                      [_P] * 7 + [_I] * 4 + [ctypes.c_double] + [_P] * 4 + _BWD_TAIL),
@@ -121,9 +122,12 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, size_fn).restype = ctypes.c_longlong
         lib.danerf_error_string.argtypes = [ctypes.c_int]
         lib.danerf_error_string.restype = ctypes.c_char_p
-        if hasattr(lib, "danerf_tile_smem_bytes"):  # K2, K5 (csrc/field_sm90.cuh)
+        if hasattr(lib, "danerf_tile_smem_bytes"):  # K1, K2, K5 (csrc/field_sm90.cuh)
             lib.danerf_tile_smem_bytes.argtypes = []
             lib.danerf_tile_smem_bytes.restype = ctypes.c_longlong
+        if hasattr(lib, "danerf_mlp_fwd_scratch_bytes"):  # K1: (N, E) -> bytes
+            lib.danerf_mlp_fwd_scratch_bytes.argtypes = [_I, _I]
+            lib.danerf_mlp_fwd_scratch_bytes.restype = ctypes.c_longlong
         _libs[name] = lib
     return lib
 

@@ -67,7 +67,7 @@ __device__ __forceinline__ void store_tile_loss(const BwdSmem& bs, const Scratch
   }
 }
 
-// The merged composite's shared memory on field.cuh's tile: bwd_smem_bytes(Sa),
+// The merged composite's shared memory on the first designs' tile: bwd_smem_bytes(Sa),
 // then the coarse depths, the merged z / sigma / rgb and the ranks of each of
 // the tile's rays.  K4 and K6 take the shapes where it is at most 232,448
 // bytes, as since their first design; field_bwd_sm90.cuh keeps these arrays

@@ -81,10 +81,10 @@ inline int rays_per_tile(long long s) { return (int)(TILE_M / s < MAX_RPC ? TILE
 // The s_tile of the per-row kernel K8: a tile holds 128 independent rows.
 constexpr long long ROW_TILES = 0;
 
-// The backward tile's per-row and per-ray arrays.  With sizeof(Smem), the
-// first designs' shared memory, this struct's size also states the shapes
-// K4, K6 (merged_smem_bytes) and K9 take (half_sum belonged to those
-// designs' chain head).
+// The backward tile's per-row and per-ray arrays.  With SHAPE_TILE_BYTES,
+// the first designs' tile, this struct's size also states the shapes K4,
+// K6 (merged_smem_bytes) and K9 take (half_sum belonged to those designs'
+// chain head).
 struct BwdSmem {
   float g_rgb[TILE_M * 3];     // per-row cotangent of the field's rgb
   float g_sig[TILE_M];         // ... and of its sigma
@@ -95,10 +95,10 @@ struct BwdSmem {
   float loss[MAX_RPC];         // per-ray loss terms (K4, K7, K9)
 };
 
-// The first designs' shared memory for a composite of n_comp samples: Smem |
-// BwdSmem | per-warp composite scratch (alpha, T, w).
+// The first designs' shared memory for a composite of n_comp samples: their
+// tile | BwdSmem | per-warp composite scratch (alpha, T, w).
 inline size_t bwd_smem_bytes(int n_comp) {
-  return sizeof(Smem) + sizeof(BwdSmem) + sizeof(float) * WARPS * 3 * n_comp;
+  return SHAPE_TILE_BYTES + sizeof(BwdSmem) + sizeof(float) * WARPS * 3 * n_comp;
 }
 
 // ------------------------------------------------------------- composite
@@ -214,6 +214,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bflo
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ int find_job(const DwJobs& J, int tile) {

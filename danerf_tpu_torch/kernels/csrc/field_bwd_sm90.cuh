@@ -87,10 +87,6 @@ constexpr int DW90_PARTS = 16;       // most row partitions of the dW pass
 // latency; 64 partitions keep it short and the blocks in one wave.
 constexpr int NARROW_PARTS = 64;
 
-// What the tile kernels are: rays of s samples (K3, K4, K6, K7), K8's 128
-// independent rows, K9's two row sets of one tile's rays (coarse, fine).
-enum Kind { RAYS = 0, ROW_TILE = 1, HIER = 2 };
-
 // K9's arrays that outlive a tile's weight stream (rpc rays of Sc coarse
 // samples, rpc Sc <= 128): the coarse field [r, g, b, sigma] and sigma_pre,
 // the coarse field's cotangent from the merged composite, each ray's alpha /
@@ -120,8 +116,9 @@ constexpr size_t BWD_SMEM_BYTES = sizeof(SmemBwd);
 static_assert(BWD_SMEM_BYTES <= 232448, "the backward tile exceeds the 227 KB a block may use");
 // field_bwd.cuh's composite scratch, and the merge arrays, of every shape
 // the march (K3, K7) and merged (K4, K6) kernels take (bwd_smem_bytes /
-// merged_smem_bytes <= 232,448 beside field.cuh's Smem) fit in the ring.
-static_assert(232448 - sizeof(Smem) - sizeof(BwdSmem) <= sizeof(SmemBwd::ring),
+// merged_smem_bytes <= 232,448 beside field.cuh's SHAPE_TILE_BYTES) fit in
+// the ring.
+static_assert(232448 - SHAPE_TILE_BYTES - sizeof(BwdSmem) <= sizeof(SmemBwd::ring),
               "the composite's arrays must fit in the ring");
 
 struct __align__(1024) SmemDw {
@@ -219,15 +216,6 @@ inline long long carve90(char* base, const FieldArgs& P, long long tiles, int n_
 
 // ---------------------------------------------------------------- primitives
 
-__device__ __forceinline__ void tma_load_at(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
 // The box at (c0, c1) of `map` from shared memory at src (after the writers'
 // fence.proxy.async and a barrier).
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
@@ -282,23 +270,6 @@ __device__ __forceinline__ void wgmma_n256_tt(float (&d)[ACC], uint64_t da, uint
       : "l"(da), "l"(db));
 }
 
-// d[64..127] (+)= A (64 x 16) B^T (128 x 16), both K-major: K8's appearance
-// term beside the dir layer's accumulator in d[0..63].
-__device__ __forceinline__ void wgmma_n128_hi(float (&d)[ACC], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : DANERF_ACC8(64), DANERF_ACC8(72), DANERF_ACC8(80), DANERF_ACC8(88), DANERF_ACC8(96),
-        DANERF_ACC8(104), DANERF_ACC8(112), DANERF_ACC8(120)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 // d[0..31] (+)= A (64 x 16) B^T (64 x 16), both K-major: K8's per-row demb.
 __device__ __forceinline__ void wgmma_n64(float (&d)[ACC], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -312,11 +283,6 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[ACC], uint64_t da, uint64_t
 }
 
 #undef DANERF_ACC8
-
-// Generic-proxy writes to device memory before a TMA load reads them.
-__device__ __forceinline__ void fence_proxy_async_global() {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-}
 
 // The sum of v[q] (q = 2 jj + e: the thread's partial sum of column
 // 8 (j0 + jj) + cq + e, jj < 4) over the 8 lanes that share lane & 3, as a
@@ -358,12 +324,6 @@ __device__ __forceinline__ void st_pair(uint32_t buf, int g, int j, const uint32
   asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
                "r"(v[0][0]), "r"(v[0][1]), "r"(v[1][0]), "r"(v[1][1])
                : "memory");
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  uint32_t v;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(v) : "f"(hi), "f"(lo));
-  return v;
 }
 
 // A bf16 element of the swizzled 128-row buffer at p (64-column blocks).
@@ -745,20 +705,7 @@ __device__ __forceinline__ void forward_tile(const FieldArgs& P, const BwdMaps& 
     return {smem_u32(eb.encd), seg_pitch(P.kd), P.kd};
   });
   if constexpr (KIND == ROW_TILE) {
-    // acc[64..127] = the rows' bf16 embeddings (the stage's second half) @
-    // Wapp^T (its first), K = E in k16 steps, zero past E
-    mbar_wait(&sm.full[pp.stage], pp.phase);
-    __syncwarp();
-    const uint32_t st = smem_u32(sm.ring[pp.stage]);
-    const uint64_t da = make_desc(st + HALF * KS * 2 + g * 64 * 128, 128);
-    const uint64_t db = make_desc(st, 128);
-    wgmma_fence();
-    for (int k = 0; k < P.emb_dim / 16; ++k) wgmma_n128_hi(acc, da + 2 * k, db + 2 * k, k != 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(acc);
-    if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[pp.stage]);
-    pp.advance();
+    app_rows_mma(acc, smem_u32(&sm), sm.full, sm.empty, P.emb_dim, g, pp);
   } else {
     mbar_wait(&sm.app_full, c & 1);
   }
@@ -1446,21 +1393,6 @@ reduce_slots(const float* __restrict__ part, int slots, int nv, int n_vecs, floa
 }
 
 // ------------------------------------------------------------------ host
-
-// The tensor map of a (rows, cols) row-major bf16 matrix at p, boxes of
-// box_c x box_r, 128-byte swizzle.
-inline int map2d(EncodeTiledFn enc, CUtensorMap* m, const void* p, long long cols,
-                 long long rows, int box_c, int box_r) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_c, (cuuint32_t)box_r};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 // What the kernels on this tile set up: the layout records, the shape checks
 // (the backward kernels' widths, and at least one sample a tile row), the

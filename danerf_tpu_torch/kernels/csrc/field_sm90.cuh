@@ -1,9 +1,9 @@
 // The forward NeRF-W field on Hopper (sm_90a) for the two serving kernels,
-// K2 (march.cu) and K5 (merged.cu), and under field_bwd_sm90.cuh's backward
-// tile: the same function as field.cuh's field_tile on a tile of 128 (ray,
-// sample) rows, redesigned around the card's asynchronous units.  field.cuh
-// keeps K1's mma.sync tile; this header takes its argument record,
-// parsing, composite and error strings from it.
+// K2 (march.cu) and K5 (merged.cu), on a tile of 128 (ray, sample) rows;
+// for the per-sample field K1 (mlp_fwd.cu) on a tile of 128 independent
+// rows (Kind ROW_TILE); and under field_bwd_sm90.cuh's backward tile.  The
+// argument record, its parsing, the composite and the error strings come
+// from field.cuh.
 //
 // Numerics are field.cuh's: encodings y = 2^i o + z (2^i d) and activations
 // held in bf16, every product accumulated in f32 on the tensor cores, bias +
@@ -27,6 +27,13 @@
 //   form the per-ray appearance term emb @ Wapp^T (enc_full/enc_empty and
 //   app_full/app_empty mbarriers).  So the encode, ~sin evaluations of 96
 //   columns a row, leaves the tensor cores' critical path.
+//   K1's rows each have their own embedding: the encoders read each row's
+//   point, direction and time from device memory and stash the rows' bf16
+//   embeddings in a device scratch before they publish the buffer; the
+//   producer loads Wapp and those embeddings into one more ring stage after
+//   the dir layer's, and emb @ Wapp^T is one wgmma (m64n128, K = E) into the
+//   accumulators the dir layer's m64n128 leaves free (app_rows_mma, also
+//   K8's).
 // - Warps 0-7 are two consumer warpgroups; warpgroup g owns rows 64g..64g+63
 //   and each layer's whole N: wgmma.mma_async m64n256k16 (m64n128k16 for
 //   the dir layer), A = its rows of the activations in shared memory, B =
@@ -35,15 +42,15 @@
 //   back into the same activation buffer (stmatrix): one 64 KB buffer, not
 //   two.  The density and rgb heads are reduced from the accumulators in
 //   registers (a quad of lanes holds a row).  Then both warpgroups join and
-//   the kernel composites.
+//   the kernel composites (K1: writes the rows' rgb and sigma).
 //   Generic stores that wgmma reads (encode, epilogues) are followed by
 //   fence.proxy.async before the barrier that publishes them.
 // Shared memory: ring 96 KB (three stages), activations 64 KB (128 rows x
 // 256 as four 64-column blocks), two encoding buffers of 29 KB (encx 16 KB
 // + a 4 KB tail for kx = 80 (time), encd 8 KB, the rows' depths, the rays'
-// origins, directions and times), the appearance term 4 KB, rgb and sigma
-// 2 KB: 230,400 of the 232,448 bytes a block may use.  K5's merge arrays
-// live in the activation buffer between tiles.
+// origins, directions and times), the appearance term 4 KB (K1: its tile's
+// points, directions and times), rgb and sigma 2 KB: 230,400 of the 232,448 bytes a block may use.  K5's
+// merge arrays live in the activation buffer between tiles.
 //
 // Swizzled layouts (an A segment of w <= 64 columns, a K slice): row r of a
 // segment with pitch p = 32, 64 or 128 bytes (w = 16, 32, 48..64) sits at
@@ -73,6 +80,10 @@ constexpr int STAGE_BYTES = HID * KS * 2;   // 32 KB
 constexpr int BLK = ROWS * 128;             // one 64-column SW128 block of the tile, 16 KB
 constexpr int ACC = HID / 2;                // f32 accumulators a thread (m64n256)
 
+// What a tile's rows are: rays of s samples (K2-K7), 128 independent rows
+// (K1, K8), K9's two row sets of one tile's rays (coarse, fine).
+enum Kind { RAYS = 0, ROW_TILE = 1, HIER = 2 };
+
 // One tile's encoder output.
 struct __align__(1024) EncBuf {
   unsigned char encx[BLK + ROWS * 32];      // columns 0..63, then a 16-column tail (kx = 80)
@@ -86,7 +97,7 @@ struct __align__(1024) Smem90 {
   unsigned char ring[NST][STAGE_BYTES];     // first: the producer addresses it from the base
   unsigned char act[4 * BLK];               // trunk activations; K5's merge arrays between tiles
   EncBuf enc[2];                            // tile c in enc[c & 1]
-  float app[MAX_RPC * HALF];                // per-ray emb@Wapp (f32)
+  float app[MAX_RPC * HALF];                // per-ray emb@Wapp (f32); K1: its tile's x, d, t
   float rgb[ROWS * 3];
   float sigma[ROWS];
   unsigned long long full[NST], empty[NST];
@@ -106,7 +117,7 @@ struct __align__(64) WeightMaps {
 // The rays of a launch: per-ray inputs, and the depths of each ray's s rows
 // (K2: its samples; K5: its fine samples).  K5's encoders also prefetch the
 // tile's coarse depths and field (pre_z, pre_f; null for K2) into L2 for
-// its merge.
+// its merge.  K1: R rows, o their points, s = 1, rpc = ROWS, no z.
 struct Rays {
   const float* o;
   const float* d;
@@ -117,6 +128,15 @@ struct Rays {
   const float* pre_f;
   long long R, n_tiles;
   int s, rpc, pre_n;  // pre_n: coarse samples a ray
+};
+
+// K1's per-row appearance term: the tensor maps of Wapp (HALF x E, boxes of
+// 64 K x HALF) and of the stash of the rows' bf16 embeddings (rows x E,
+// boxes of 64 x 128), each zero past E, and the stash.  Null for K2, K5.
+struct RowApp {
+  const CUtensorMap* wapp;
+  const CUtensorMap* embr;
+  __nv_bfloat16* stash;
 };
 
 // K of trunk layer i (i == num_layers: the dir layer): layer 0 reads enc_x,
@@ -189,17 +209,31 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* b, int parity) {
   mbar_wait_at(smem_u32(b), parity);
 }
 
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k0,
-                                         uint32_t bar) {
+// The box at (c0, c1) of `map` into shared memory at dst, its bytes counted
+// on the barrier at bar.
+__device__ __forceinline__ void tma_load_at(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(0), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// bf16x2 of (lo, hi): lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t v;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(v) : "f"(hi), "f"(lo));
+  return v;
+}
+
+// Generic-proxy writes to device memory before a TMA load reads them.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -271,6 +305,23 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[ACC], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64..127] (+)= A (64 x 16) B^T (128 x 16), both K-major: the per-row
+// appearance term (K1, K8) beside the dir layer's accumulator in d[0..63].
+__device__ __forceinline__ void wgmma_n128_hi(float (&d)[ACC], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DANERF_ACC8(64), DANERF_ACC8(72), DANERF_ACC8(80), DANERF_ACC8(88), DANERF_ACC8(96),
+        DANERF_ACC8(104), DANERF_ACC8(112), DANERF_ACC8(120)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 #undef DANERF_ACC8
 
 // ------------------------------------------------------------------ setup
@@ -331,10 +382,14 @@ struct Pipe {
 
 // The weight stream (the first thread of the producer warpgroup): every
 // tile of this CTA streams every layer's K slices, in the order the
-// consumers take them.
+// consumers take them.  K1 (ROW_TILE): then, once the encoders have stashed
+// the tile's embeddings, one more stage: Wapp (16 KB) and the tile's 128
+// bf16 embeddings (16 KB), each zero past E.
+template <int KIND>
 __device__ __forceinline__ void stream_weights(const WeightMaps& maps, const FieldArgs& P,
-                                               long long n_tiles) {
-  const uint32_t ring = smem_u32(&smem90());
+                                               long long n_tiles, const RowApp& ra) {
+  Smem90& sm = smem90();
+  const uint32_t ring = smem_u32(&sm);
   const uint32_t full = ring + offsetof(Smem90, full), empty = ring + offsetof(Smem90, empty);
   const int tiles = my_tiles(n_tiles);
   Pipe pp;
@@ -345,9 +400,19 @@ __device__ __forceinline__ void stream_weights(const WeightMaps& maps, const Fie
       for (int k0 = 0; k0 < K; k0 += KS) {
         mbar_wait_at(empty + 8 * pp.stage, pp.phase ^ 1);
         mbar_expect_tx(full + 8 * pp.stage, bytes);
-        tma_load(ring + pp.stage * STAGE_BYTES, &maps.m[i], k0, full + 8 * pp.stage);
+        tma_load_at(ring + pp.stage * STAGE_BYTES, &maps.m[i], k0, 0, full + 8 * pp.stage);
         pp.advance();
       }
+    }
+    if constexpr (KIND == ROW_TILE) {
+      const int row0 = (int)((blockIdx.x + (long long)c * gridDim.x) * ROWS);
+      mbar_wait(&sm.enc_full[c & 1], (c >> 1) & 1);  // the tile's embeddings are in the stash
+      mbar_wait_at(empty + 8 * pp.stage, pp.phase ^ 1);
+      mbar_expect_tx(full + 8 * pp.stage, 2 * HALF * KS * 2);
+      tma_load_at(ring + pp.stage * STAGE_BYTES, ra.wapp, 0, 0, full + 8 * pp.stage);
+      tma_load_at(ring + pp.stage * STAGE_BYTES + HALF * KS * 2, ra.embr, 0, row0,
+                  full + 8 * pp.stage);
+      pp.advance();
     }
   }
 }
@@ -368,16 +433,16 @@ __device__ __forceinline__ void put_d(EncBuf& eb, const EncPitch& pt, int row, i
   *reinterpret_cast<__nv_bfloat16*>(eb.encd + swz(row, col, pt.d)) = __float2bfloat16_rn(v);
 }
 
-// Encode one group of one row into buffer eb, field.cuh encode_cols's
-// values: group l < Lp is position level l, the columns 3 + 6l.. of sin(y)
-// and sin(y + pi/2) for y = 2^l o + z (2^l d) of each dimension (level 0
-// also the columns 0..2, y itself); group Lp + l is direction level l (y =
-// 2^l d); the last group the time's columns, t and sin / cos of 2^l t,
-// then the zero padding of both encodings.  The row's origin o and
-// direction d (3 floats each), depth *z (null: 0, the rows of K8, whose
-// y = 2^l x) and time *t are read where the caller points; an invalid row
-// is 0.  Six independent sin evaluations an item keep the encoders'
-// latency hidden.
+// Encode one group of one row into buffer eb (the JAX _encode's values,
+// in its column order): group l < Lp is position level l, the columns
+// 3 + 6l.. of sin(y) and sin(y + pi/2) for y = 2^l o + z (2^l d) of each
+// dimension (level 0 also the columns 0..2, y itself); group Lp + l is
+// direction level l (y = 2^l d); the last group the time's columns, t and
+// sin / cos of 2^l t, then the zero padding of both encodings.  The row's
+// origin o and direction d (3 floats each), depth *z (null: 0, the rows of
+// K1 and K8, whose y = 2^l x) and time *t are read where the caller points;
+// an invalid row is 0.  Six independent sin evaluations an item keep the
+// encoders' latency hidden.
 __device__ __forceinline__ void encode_group_at(const FieldArgs& P, EncBuf& eb, const EncPitch& pt,
                                                 int row, int grp, bool valid, const float* o,
                                                 const float* d, const float* zp, const float* tp) {
@@ -509,15 +574,74 @@ __device__ __forceinline__ void encode_tiles(const FieldArgs& P, const Rays& ray
   }
 }
 
+// K1's encoders (96 threads): for each tile c of this CTA, once the
+// consumers are done with buffer c & 1, load the tile's 128 points,
+// directions and times (zeros past R) into sm.app, which K1's appearance
+// term does not use, encode every row from there (y = 2^i x, the rays'
+// form at z = 0), stash the rows' bf16 embeddings (zeros past R; 8 a
+// thread, E % 16 == 0 and emb 16-byte aligned) for the producer's TMA, and
+// publish the buffer.
+__device__ __forceinline__ void encode_row_tiles(const FieldArgs& P, const Rays& rows,
+                                                 __nv_bfloat16* __restrict__ stash) {
+  static_assert(7 * ROWS <= MAX_RPC * HALF, "the row tile's inputs must fit in sm.app");
+  Smem90& sm = smem90();
+  float* xs = sm.app;         // 128 x 3
+  float* ds = xs + 3 * ROWS;  // 128 x 3
+  float* ts = ds + 3 * ROWS;  // 128
+  const int et = threadIdx.x - ENC0;
+  const int tiles = my_tiles(rows.n_tiles), q8 = P.emb_dim / 8;
+  const EncPitch pt{seg_pitch(min(P.kx, KS)), seg_pitch(P.kx - KS), seg_pitch(P.kd)};
+  const int items = ROWS * (P.pos_levels + P.dir_levels + 1);
+  for (int c = 0; c < tiles; ++c) {
+    const long long row0 = (blockIdx.x + (long long)c * gridDim.x) * ROWS;
+    EncBuf& eb = sm.enc[c & 1];
+    mbar_wait(&sm.enc_empty[c & 1], ((c >> 1) & 1) ^ 1);
+    for (int i = et; i < 3 * ROWS; i += ENCODERS) {
+      const bool ok = row0 + i / 3 < rows.R;
+      xs[i] = ok ? rows.o[row0 * 3 + i] : 0.f;
+      ds[i] = ok ? rows.d[row0 * 3 + i] : 0.f;
+    }
+    for (int i = et; i < ROWS; i += ENCODERS)
+      ts[i] = (rows.t != nullptr && row0 + i < rows.R) ? rows.t[row0 + i] : 0.f;
+    encoders_sync();
+    // item = group * 128 + row: a warp's lanes take one group of 32 rows
+    for (int it = et; it < items; it += ENCODERS) {
+      const int row = it & (ROWS - 1);
+      encode_group_at(P, eb, pt, row, it >> 7, row0 + row < rows.R, xs + row * 3, ds + row * 3,
+                      nullptr, ts + row);
+    }
+    fence_proxy_async();
+    for (int q = et; q < ROWS * q8; q += ENCODERS) {
+      const long long at = row0 * q8 * 8 + 8LL * q;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + q / q8 < rows.R) {
+        const float4 a = *reinterpret_cast<const float4*>(rows.emb + at);
+        const float4 b = *reinterpret_cast<const float4*>(rows.emb + at + 4);
+        v = make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w), bf16x2(b.x, b.y), bf16x2(b.z, b.w));
+      }
+      *reinterpret_cast<uint4*>(stash + at) = v;
+    }
+    fence_proxy_async_global();  // the producer's TMA reads the stash next
+    encoders_sync();             // also: every encoder is done with xs, ds, ts
+    if (et == 0) mbar_arrive(&sm.enc_full[c & 1]);
+  }
+}
+
 // The producer warpgroup: gives registers up, then its first thread
 // streams the weights and its warps 1-3 encode; the rest of warp 0 is done.
+// K1 (ROW_TILE) takes ra, its per-row appearance inputs.
+template <int KIND = RAYS>
 __device__ __forceinline__ void produce(const WeightMaps& maps, const FieldArgs& P,
-                                        const Rays& rays) {
+                                        const Rays& rays, const RowApp& ra = RowApp{}) {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n" ::: "memory");
-  if (threadIdx.x >= ENC0)
-    encode_tiles(P, rays);
-  else if (threadIdx.x == CONSUMERS)
-    stream_weights(maps, P, rays.n_tiles);
+  if (threadIdx.x >= ENC0) {
+    if constexpr (KIND == ROW_TILE)
+      encode_row_tiles(P, rays, ra.stash);
+    else
+      encode_tiles(P, rays);
+  } else if (threadIdx.x == CONSUMERS) {
+    stream_weights<KIND>(maps, P, rays.n_tiles, ra);
+  }
 }
 
 // ------------------------------------------------------------- tile stages
@@ -576,6 +700,28 @@ __device__ __forceinline__ void mma_layer(float (&acc)[ACC], Smem90& sm, const E
   if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[prev]);
 }
 
+// acc[64..127] = A (the tile's 128 rows' bf16 embeddings, the second half
+// of the ring's current stage) @ B^T (Wapp, its first half), K = E in k16
+// steps, zero past E, for warpgroup g's 64 rows: the per-row appearance
+// term of K1 and K8, beside the dir layer's accumulator in acc[0..63].
+// ring, full, empty: the ring's base and barriers.  Releases the stage.
+__device__ __forceinline__ void app_rows_mma(float (&acc)[ACC], uint32_t ring,
+                                             unsigned long long* full, unsigned long long* empty,
+                                             int E, int g, Pipe& pp) {
+  mbar_wait(&full[pp.stage], pp.phase);
+  __syncwarp();
+  const uint32_t st = ring + pp.stage * STAGE_BYTES;
+  const uint64_t da = make_desc(st + HALF * KS * 2 + g * 64 * 128, 128);
+  const uint64_t db = make_desc(st, 128);
+  wgmma_fence();
+  for (int k = 0; k < E / 16; ++k) wgmma_n128_hi(acc, da + 2 * k, db + 2 * k, k != 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[pp.stage]);
+  pp.advance();
+}
+
 // bf16x2 of (relu(lo), relu(hi)): lo in the low half (the lower column).
 __device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
   uint32_t v;
@@ -626,7 +772,10 @@ __device__ __forceinline__ void trunk_epilogue(const float (&acc)[ACC], const fl
 // layers in place in sm.act, sigma from the last one's accumulators, the
 // dir layer and the rgb head from its accumulators.  Leaves sm.rgb (128 x
 // 3) and sm.sigma (128) valid behind a consumers_sync.  s = samples per ray
-// in the tile's rows.
+// in the tile's rows.  The appearance term: a ray's from sm.app (RAYS, K2
+// and K5), a row's from one more ring stage (ROW_TILE, K1: app_rows_mma; s,
+// rpc unread).
+template <int KIND = RAYS>
 __device__ __forceinline__ void field_tile90(const FieldArgs& P, Smem90& sm, int c, int s,
                                              int rpc, Pipe& pp, float (&acc)[ACC]) {
   const int g = threadIdx.x >> 7;
@@ -667,14 +816,18 @@ __device__ __forceinline__ void field_tile90(const FieldArgs& P, Smem90& sm, int
   // dir branch and rgb head: happ = (relu([h, enc_d] @ Wdir^T + bdir) +
   // emb@Wapp^T) + bapp, rounded to bf16; rgb = sigmoid(happ @ Wrgb^T + brgb)
   mma_layer<HALF>(acc, sm, eb, P, L, g, pp);
-  mbar_wait(&sm.app_full, c & 1);
+  if constexpr (KIND == ROW_TILE)
+    app_rows_mma(acc, smem_u32(&sm), sm.full, sm.empty, P.emb_dim, g, pp);
+  else
+    mbar_wait(&sm.app_full, c & 1);
   {
     const float* bdir = P.vecs + P.bdir_off;
     const float* bapp = P.vecs + P.bapp_off;
     const __nv_bfloat16* wrgb = P.mats + P.wrgb_off;
     const float* app[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) app[h] = sm.app + min((r0 + 8 * h) / s, rpc - 1) * HALF;
+    for (int h = 0; h < 2; ++h)
+      app[h] = KIND == ROW_TILE ? nullptr : sm.app + min((r0 + 8 * h) / s, rpc - 1) * HALF;
     float cs[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
 #pragma unroll
     for (int j = 0; j < HALF / 8; ++j) {
@@ -689,14 +842,18 @@ __device__ __forceinline__ void field_tile90(const FieldArgs& P, Smem90& sm, int
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float p0 = acc[4 * j + 2 * h] + bd2.x, p1 = acc[4 * j + 2 * h + 1] + bd2.y;
-        const float h0 = bf16_round((fmaxf(p0, 0.f) + app[h][c8]) + ba2.x);
-        const float h1 = bf16_round((fmaxf(p1, 0.f) + app[h][c8 + 1]) + ba2.y);
+        const float e0 = KIND == ROW_TILE ? acc[64 + 4 * j + 2 * h] : app[h][c8];
+        const float e1 = KIND == ROW_TILE ? acc[64 + 4 * j + 2 * h + 1] : app[h][c8 + 1];
+        const float h0 = bf16_round((fmaxf(p0, 0.f) + e0) + ba2.x);
+        const float h1 = bf16_round((fmaxf(p1, 0.f) + e1) + ba2.y);
 #pragma unroll
         for (int k = 0; k < 3; ++k) cs[h][k] += h0 * w[k].x + h1 * w[k].y;
       }
     }
-    wg_sync(g);  // the warpgroup is done with sm.app
-    if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.app_empty);
+    if constexpr (KIND != ROW_TILE) {
+      wg_sync(g);  // the warpgroup is done with sm.app
+      if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.app_empty);
+    }
     const float* brgb = P.vecs + P.brgb_off;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -758,7 +915,22 @@ inline int weight_map(EncodeTiledFn enc, CUtensorMap* m, const __nv_bfloat16* w,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Host set-up shared by K2 and K5: the weight maps, the kernel's shared
+// The tensor map of a (rows, cols) row-major bf16 matrix at p, boxes of
+// box_c x box_r, 128-byte swizzle.
+inline int map2d(EncodeTiledFn enc, CUtensorMap* m, const void* p, long long cols,
+                 long long rows, int box_c, int box_r) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_c, (cuuint32_t)box_r};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Host set-up shared by K1, K2 and K5: the weight maps, the kernel's shared
 // memory limit and the persistent grid (one CTA per SM, at most one a tile).
 template <class Kernel>
 inline int launch_setup(Kernel kernel, const FieldArgs& P, long long n_tiles, WeightMaps* maps,
@@ -786,6 +958,6 @@ inline int launch_setup(Kernel kernel, const FieldArgs& P, long long n_tiles, We
 }  // namespace sm90
 }  // namespace danerf
 
-// The dynamic shared memory a CTA of K2 or K5 takes (ptxas -v reports only
-// static shared memory).
+// The dynamic shared memory a CTA of K1, K2 or K5 takes (ptxas -v reports
+// only static shared memory).
 extern "C" long long danerf_tile_smem_bytes() { return (long long)danerf::sm90::SMEM_BYTES; }

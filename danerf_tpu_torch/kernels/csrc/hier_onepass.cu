@@ -61,11 +61,12 @@ using namespace danerf;
 using namespace danerf::sm90;
 
 // The shapes K9 takes, as since its first design: those whose per-ray
-// arrays fit beside field.cuh's tile and BwdSmem in 232,448 bytes (all of
-// them fit in field_bwd_sm90.cuh's tile): the per-warp composite scratch of
-// Sa = Sc + Sf samples, then, for each of the tile's rays, the coarse and
-// fine depths, the kept coarse field, sigma_pre and field cotangent, the
-// merged depths, sigma and rgb, demb and the ranks (4 bytes each).
+// arrays fit beside that design's tile (field.cuh SHAPE_TILE_BYTES) and
+// BwdSmem in 232,448 bytes (all of them fit in field_bwd_sm90.cuh's tile):
+// the per-warp composite scratch of Sa = Sc + Sf samples, then, for each
+// of the tile's rays, the coarse and fine depths, the kept coarse field,
+// sigma_pre and field cotangent, the merged depths, sigma and rgb, demb and
+// the ranks (4 bytes each).
 inline size_t hier_smem_bytes(int Sc, int Sf, int rpc, int E) {
   const int Sa = Sc + Sf;
   return bwd_smem_bytes(Sa) +

@@ -27,9 +27,9 @@ using namespace danerf::sm90;
 
 // The merge arrays of a tile: zc (rpc x Sc), then merged z, sigma (rpc x Sa)
 // and rgb (rpc x Sa x 3).  The shapes K5 takes are those whose arrays fit
-// beside field.cuh's tile in 232,448 bytes, as since K5's first design;
-// all of them fit in the activation buffer.
-constexpr size_t MERGE_MAX = 232448 - sizeof(Smem);
+// beside its first design's tile in 232,448 bytes (field.cuh
+// SHAPE_TILE_BYTES); all of them fit in the activation buffer.
+constexpr size_t MERGE_MAX = 232448 - SHAPE_TILE_BYTES;
 static_assert(MERGE_MAX <= sizeof(Smem90::act), "the merge arrays must fit in sm.act");
 
 // Stable rank merge of one ray's samples by one warp: the sorted coarse

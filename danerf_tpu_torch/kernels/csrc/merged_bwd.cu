@@ -28,7 +28,7 @@
 // merge arrays live in the weight ring until the transposed chain; the
 // wgmma dW pass follows.  A null cotangent reads as zeros (the white
 // background hands only g_rgb and g_acc).  The shapes K6 takes are those
-// whose merge arrays fit beside field.cuh's tile in 232,448 bytes
+// whose merge arrays fit beside the first design's tile in 232,448 bytes
 // (bwd_tiles.cuh merged_smem_bytes), as since its first design, and
 // Sc >= 1, Sf >= 1, Sc + Sf <= 256.
 //

@@ -23,7 +23,7 @@
 // arrays live in the weight ring between the forward and the transposed
 // chain.  The loss masks the ragged edge by processing only rays < R; it is
 // summed per tile and then in tile order.  The shapes K4 takes are those
-// whose merge arrays fit beside field.cuh's tile in 232,448 bytes
+// whose merge arrays fit beside the first design's tile in 232,448 bytes
 // (bwd_tiles.cuh merged_smem_bytes), as since K4's first design; all of
 // them fit in the ring.
 //

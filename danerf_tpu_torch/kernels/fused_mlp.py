@@ -7,8 +7,7 @@ danerf_tpu/kernels/fused_mlp.py).
   tensor-core loops need no ragged-K handling; biases and the density head's
   weight stay f32.
 - ``encode_plain`` and ``field_from_enc_plain`` are the plain PyTorch
-  versions of the kernels' field (``csrc/field_sm90.cuh``, and K1's
-  ``csrc/field.cuh``), the
+  versions of the kernels' field (``csrc/field_sm90.cuh``), the
   counterparts of ``_encode``/``_field_from_enc``: activations held in the
   compute dtype, the density head as an f32 multiply-and-sum over the bf16
   trunk output, and ``happ = relu(hdir_pre) + emb @ Wapp + bapp`` in f32
@@ -239,7 +238,7 @@ def _dot(a: torch.Tensor, w: torch.Tensor, cdt) -> torch.Tensor:
 def field_from_enc_plain(cfg: NeRFConfig, enc_x: torch.Tensor, enc_d: torch.Tensor,
                          emb: torch.Tensor, packed: PackedParams, want_res: bool = False):
     """Trunk + heads on encoded inputs, the plain version of the kernels'
-    ``field_tile``.
+    ``field_tile90``.
 
     enc_x: (N, pos_in), enc_d: (N, dir_enc), emb: (N, E) f32.
     Returns rgb (N, 3) and sigma (N, 1); with ``want_res`` also the
@@ -537,16 +536,22 @@ def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, t=None):
     dev = x.device
     _check_packed(packed, dev)
     x, d, emb = _rows_f32(dev, {"x": 3, "d": 3, "emb": cfg.appearance_dim}, x=x, d=d, emb=emb)
+    if emb.data_ptr() % 16:  # the kernel reads the embeddings 16 bytes at a time
+        emb = emb.clone()
     n = x.shape[0]
     t = _time_arg(cfg, t, n, dev)
     lib = _build.load("mlp_fwd")
     rgb = torch.empty(n, 3, device=dev)
     sigma = torch.empty(n, 1, device=dev)
     meta, n_meta = _meta(packed, cfg)
+    # the rows' bf16 embeddings, which the kernel's encoders stash for its
+    # appearance product
+    scratch = torch.empty(max(lib.danerf_mlp_fwd_scratch_bytes(n, emb.shape[-1]), 1),
+                          dtype=torch.uint8, device=dev)
     code = lib.danerf_mlp_fwd(
         x.data_ptr(), d.data_ptr(), emb.data_ptr(), _arg(t), n, emb.shape[-1], rgb.data_ptr(),
         sigma.data_ptr(), packed.mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
-        torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), scratch.numel(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "mlp_fwd")
     LAUNCHES["mlp_fwd"] += 1
     return rgb, sigma

@@ -1,4 +1,4 @@
-"""A/B timing of the port's CUDA kernels (K1-K9; K2, K5, K6 and K7 also with time)
+"""A/B timing of the port's CUDA kernels (K1-K9; K1, K2, K5, K6 and K7 also with time)
 between another checkout and this one, on one GPU.
 
     python3 kernel_ab.py BASE_DIR [--rounds 2] [--out FILE]
@@ -12,7 +12,8 @@ events at chip_smoke.py's shapes and seeds: K2 (want_field) and K5 on a
 (``use_time``, their has_time variants: ``k2_t``, ``k5_t``), K3 (with
 g_field), K4, K6, K7 and K9 at the 1024-ray batch, K6 and K7 also with time
 (``k6_t``, ``k7_t``), K1 and K8 at the 131,072 rows of a batch's fine
-evaluation, K8 also at the 65,536 rows of its coarse one (``k8_65536``).
+evaluation, K1 also with time (``k1_t``), K1 and K8 also at the 65,536 rows
+of its coarse one (``k1_65536``, ``k8_65536``).
 Prints one
 JSON line per process and, last, the medians per tree and their ratio
 (this / base) per kernel.  Needs a GPU; exits non-zero without one.
@@ -120,8 +121,10 @@ def _time_kernels(iters):
         dr, er = rep(d), rep(emb)
         g_rgb = torch.randn(x.shape[0], 3, generator=g, device=dev)
         g_sig = torch.randn(x.shape[0], 1, generator=g, device=dev)
+        out["k1" + key] = ms(lambda: fm.fused_fwd_cuda(packed, cfg, x, dr, er), iters)
         if not key:
-            out["k1"] = ms(lambda: fm.fused_fwd_cuda(packed, cfg, x, dr, er), iters)
+            t = torch.rand(x.shape[0], 1, generator=g, device=dev)
+            out["k1_t"] = ms(lambda: fm.fused_fwd_cuda(packed_t, cfg_t, x, dr, er, t), iters)
         out["k8" + key] = ms(lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig),
                              max(2, iters // 2))
     return out

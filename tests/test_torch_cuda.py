@@ -441,18 +441,79 @@ def _rows(n, cfg, dev, seed=0):
     return pts.contiguous(), rep(d).contiguous(), rep(emb).contiguous(), g
 
 
+def _close_rows(got, want):
+    (rk, sk), (rp, sp) = got, want
+    assert float((rk - rp).abs().max()) <= TOL["field_rgb"]
+    assert float(((sk - sp) / sp.abs().clamp_min(1.0)).abs().max()) <= TOL["field_sigma"]
+
+
 @pytest.mark.parametrize("appearance", [True, False], ids=["emb", "emb_none"])
 def test_mlp_fwd_kernel_matches_plain(dev, appearance):
-    """K1 at 4,093 rows (a ragged last tile), with and without the
-    appearance projection (packed as zeros, a zero embedding)."""
+    """K1 (csrc/field_sm90.cuh's row tile) at 4,093 rows (a ragged last
+    tile), with and without the appearance projection (packed as zeros, a
+    zero embedding); two calls agree bit for bit."""
     cfg, model, *_ = _inputs(dev)
     x, d, emb, _ = _rows(4093, cfg, dev)
     packed = pack_params(model, cfg, appearance=appearance)
     emb = emb if appearance else torch.zeros_like(emb)
-    rk, sk = fm.fused_fwd_cuda(packed, cfg, x, d, emb)
-    rp, sp = fm.fused_fwd_plain(packed, cfg, x, d, emb)
-    assert float((rk - rp).abs().max()) <= TOL["field_rgb"]
-    assert float(((sk - sp) / sp.abs().clamp_min(1.0)).abs().max()) <= TOL["field_sigma"]
+    got = fm.fused_fwd_cuda(packed, cfg, x, d, emb)
+    again = fm.fused_fwd_cuda(packed, cfg, x, d, emb)
+    _close_rows(got, fm.fused_fwd_plain(packed, cfg, x, d, emb))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("n", [37, 129, 65536, 131072])
+def test_mlp_fwd_kernel_at_every_row_count(dev, n, use_time):
+    """K1 below one tile (37), at one tile and a row (129), and at the
+    65,536 and 131,072 rows of a 1024-ray batch's coarse and fine
+    evaluations (4 and 8 tiles a CTA of the persistent grid), with and
+    without each row's time."""
+    cfg, model, *_ = _inputs(dev, use_time=use_time)
+    x, d, emb, g = _rows(n, cfg, dev, seed=1)
+    t = torch.rand(n, 1, generator=g, device=dev) if use_time else None
+    packed = pack_params(model, cfg)
+    _close_rows(fm.fused_fwd_cuda(packed, cfg, x, d, emb, t),
+                fm.fused_fwd_plain(packed, cfg, x, d, emb, t))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K3", "K8"])
+def test_kernels_at_softplus_match_plain(dev, kernel):
+    """density_activation="softplus" (the softplus branches of
+    field_sm90.cuh's and field_bwd_sm90.cuh's tiles: sigma, and its sigmoid
+    in the backward) through K1 (the row tile), K2 with its field, K5, K3
+    with every cotangent and K8, against their plain versions at 333 rays
+    (K1 4,093 rows, K8 2,400)."""
+    cfg, model, o, d, emb, z, g = _inputs(dev, density_activation="softplus")
+    packed = pack_params(model, cfg)
+    if kernel == "K1":
+        x, dr, er, _ = _rows(4093, cfg, dev)
+        _close_rows(fm.fused_fwd_cuda(packed, cfg, x, dr, er),
+                    fm.fused_fwd_plain(packed, cfg, x, dr, er))
+    elif kernel == "K2":
+        _close(fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True),
+               fr.march_plain(packed, cfg, o, d, emb, z, want_field=True),
+               ["rgb", "depth", "acc", "weights", "field"])
+    elif kernel == "K5":
+        coarse = fr.march_plain(packed, cfg, o, d, emb, z, want_field=True)
+        z_f = sample_pdf(z, coarse["weights"], cfg.num_importance, True, rand=g)
+        args = (packed, cfg, o, d, emb, z, coarse["field"], z_f)
+        _close(fr.merged_cuda(*args), fr.merged_plain(*args),
+               ["rgb", "depth", "acc", "weights", "z_vals"])
+    elif kernel == "K3":
+        *cot, g_field = _cotangents(g, o.shape[0], cfg.num_samples, dev)
+        gk, dk = fr.march_bwd_cuda(packed, cfg, o, d, emb, z, *cot, g_field)
+        gp, dp = fr.march_bwd_plain(packed, cfg, o, d, emb, z, *cot, g_field)
+        _close_grads(gk, gp, model)
+        assert float((dk - dp).abs().max()) <= TOL["demb"]
+    else:
+        x, dr, er, g = _rows(2400, cfg, dev)
+        g_rgb = torch.randn(2400, 3, generator=g, device=dev)
+        g_sig = torch.randn(2400, 1, generator=g, device=dev)
+        gk, dk = fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig)
+        gp, dp = fm.fused_bwd_plain(packed, cfg, x, dr, er, g_rgb, g_sig)
+        _close_grads(gk, gp, model)
+        assert float((dk - dp).abs().max()) <= TOL["demb_k8"]
 
 
 @pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])

@@ -9,7 +9,10 @@ tests/test_torch_train.py, beside the other routes.)
 The JAX side runs its Pallas kernels in interpret mode, as
 tests/test_kernels.py runs them.  Small config (hidden 64, 4 layers, skip
 at 2, appearance 16); params from the JAX init (params_from_jax); points,
-directions, embeddings and targets from seeded numpy.
+directions, embeddings and targets from seeded numpy.  K1's and K8's plain
+versions are also held with the softplus density activation (the JAX
+kernels' softplus branches and their sigmoid in the VJP), at the same
+tolerances.
 
 Tolerances.  f32: the plain versions repeat the Pallas kernels' arithmetic
 (matmul-form encoding, f32 density head, appearance added after the relu)
@@ -68,15 +71,17 @@ def _t(x, grad=False):
     return None if x is None else torch.tensor(x, requires_grad=grad)
 
 
-@pytest.mark.parametrize("use_bf16,app", [(False, "emb"), (False, "emb_none"),
-                                          (False, "no_projection"), (True, "emb")],
-                         ids=["f32-emb", "f32-emb_none", "f32-no_projection", "bf16-emb"])
-def test_fused_fwd_plain_matches_jax(use_bf16, app):
+@pytest.mark.parametrize("use_bf16,app,act", [
+    (False, "emb", "relu"), (False, "emb_none", "relu"), (False, "no_projection", "relu"),
+    (True, "emb", "relu"), (False, "emb", "softplus"), (True, "emb", "softplus")],
+    ids=["f32-emb", "f32-emb_none", "f32-no_projection", "bf16-emb", "f32-emb-softplus",
+         "bf16-emb-softplus"])
+def test_fused_fwd_plain_matches_jax(use_bf16, app, act):
     """K1's plain version at N = 700 rows: with an embedding, without one
     (the projection packed as zeros), and for a model without the
-    projection."""
+    projection; and with the softplus density activation."""
     over = {"use_appearance": False} if app == "no_projection" else {}
-    jcfg, cfg, params, model = _setup(use_bf16, **over)
+    jcfg, cfg, params, model = _setup(use_bf16, density_activation=act, **over)
     x, d, e, _ = _inputs(N, cfg)
     emb = e if app == "emb" else None
     want_rgb, want_sigma = j_fused_nerf_apply(params, jcfg, _j(x), _j(d), _j(emb))
@@ -114,13 +119,13 @@ def _port_grads(model):
                           for n, p in model.named_parameters()})
 
 
-def _bwd_matches_jax(n, with_emb):
+def _bwd_matches_jax(n, with_emb, act="relu"):
     """K8's plain version through autograd (FieldFn) at n rows against
     jax.value_and_grad of tests/test_kernels.py's loss (MSE + 1e-3 mean
     sigma) through the JAX fused_nerf_apply: every parameter leaf and the
     embedding.  Without an embedding the projection's gradients are exactly
-    zero."""
-    jcfg, cfg, params, model = _setup()
+    zero.  act: the density activation."""
+    jcfg, cfg, params, model = _setup(density_activation=act)
     x, d, e, rng = _inputs(n, cfg, seed=5)
     target = rng.random((n, 3)).astype(np.float32)
 
@@ -152,11 +157,13 @@ def _bwd_matches_jax(n, with_emb):
         assert not proj.weight.grad.any() and not proj.bias.grad.any()
 
 
-@pytest.mark.parametrize("with_emb", [True, False], ids=["emb", "emb_none"])
-def test_fused_bwd_plain_matches_jax_value_and_grad(with_emb):
+@pytest.mark.parametrize("with_emb,act", [(True, "relu"), (False, "relu"), (True, "softplus")],
+                         ids=["emb", "emb_none", "emb-softplus"])
+def test_fused_bwd_plain_matches_jax_value_and_grad(with_emb, act):
     """K8's plain version at N = 700 rows (a ragged last tile) against the
-    JAX value_and_grad (_bwd_matches_jax)."""
-    _bwd_matches_jax(N, with_emb)
+    JAX value_and_grad (_bwd_matches_jax), with the relu and the softplus
+    density activation."""
+    _bwd_matches_jax(N, with_emb, act)
 
 
 @pytest.mark.parametrize("with_emb", [True, False], ids=["emb", "emb_none"])

@@ -5,7 +5,8 @@ render CLI writing its files, and the viridis table and PNG writer.
 The JAX side's kernel route runs its Pallas kernels in interpret mode.
 Params come from the JAX package's init (converted with params_from_jax);
 camera and rays from seeded numpy values.  perturb=False throughout, so
-neither side draws random numbers.
+neither side draws random numbers.  render_rays is also held with per-ray
+bounds from a box (cfg.scene_aabb) on each route, at the same tolerance.
 """
 
 import os
@@ -61,11 +62,17 @@ ROUTES = {"kernel_route": (True, True, False), "reference_route": (False, False,
           "per_sample_kernel_route": (False, True, True)}
 
 
+# A box around the origin that the rays from z = 4 enter and leave between
+# the near and far planes (per-ray bounds, cfg.scene_aabb).
+AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+
+
 @pytest.mark.parametrize("route", list(ROUTES))
-@pytest.mark.parametrize("bg", [None, (1.0, 1.0, 1.0)], ids=["black", "white"])
-def test_render_rays_matches(route, bg):
+@pytest.mark.parametrize("bg,aabb", [(None, None), ((1.0, 1.0, 1.0), None), (None, AABB)],
+                         ids=["black", "white", "black-scene_aabb"])
+def test_render_rays_matches(route, bg, aabb):
     fused, use_kernels, use_pallas = ROUTES[route]
-    jcfg, cfg, params, model = _setup()
+    jcfg, cfg, params, model = _setup(scene_aabb=aabb)
     jcfg, cfg = jcfg.replace(use_pallas=use_pallas), cfg.replace(use_kernels=use_kernels)
     o, d, emb = _rays(24, cfg)
     want = j_render_rays(params, jcfg, jax.random.key(0), jnp.asarray(o), jnp.asarray(d),

@@ -6,8 +6,9 @@
   the embedding;
 - K4's plain version against ``fused_hier_train_loss_grads``;
 - one whole kernel-route step (``_onepass_hier_loss_grads``) against the
-  JAX one, and the reference route and the per-sample kernel route (K1/K8's
-  plain versions; hierarchical, coarse-only, white background) against
+  JAX one (also with per-ray bounds from ``scene_aabb``), and the reference
+  route and the per-sample kernel route (K1/K8's plain versions;
+  hierarchical, coarse-only, white background) against
   ``jax.value_and_grad(loss_fn)``;
 - torch Adam + StepLR against optax's flattened Adam over the same
   gradients.
@@ -186,11 +187,16 @@ def _step_pair(use_bf16, route, **over):
     return (j_loss, j_aux, j_grads), (loss, aux, _port_grads(model), t_table.grad)
 
 
-@pytest.mark.parametrize("use_bf16", [False, True], ids=["f32", "bf16"])
-def test_onepass_hier_step_matches_jax(use_bf16):
+@pytest.mark.parametrize("use_bf16,over", [(False, {}), (True, {}),
+                                           (False, {"scene_aabb": (-1.5, -1.5, -1.5,
+                                                                   1.5, 1.5, 1.5)})],
+                         ids=["f32", "bf16", "f32-scene_aabb"])
+def test_onepass_hier_step_matches_jax(use_bf16, over):
     """The kernel-route step at Sc = 16, Sf = 8: loss, mse, coarse_mse and
-    every gradient leaf, the appearance table's scatter-add included."""
-    (j_loss, j_aux, j_grads), (loss, aux, grads, g_table) = _step_pair(use_bf16, "onepass")
+    every gradient leaf, the appearance table's scatter-add included; also
+    with per-ray bounds from a box the rays cross (scene_aabb)."""
+    (j_loss, j_aux, j_grads), (loss, aux, grads, g_table) = _step_pair(use_bf16, "onepass",
+                                                                       **over)
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
     for k in ("mse", "coarse_mse"):
         np.testing.assert_allclose(float(aux[k]), float(j_aux[k]), rtol=1e-5, err_msg=k)
