@@ -76,21 +76,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             reference-format .pt, rendered by `cli.main render` (two
             400x400 medium frames, then one preview frame); launch counts
             are zeroed just before each and read just after.
+6a. chained  several steps a call (make_train_step, steps_per_call=10: the
+            steps captured once as a CUDA graph, one replay a call): for
+            each training path at B = 1024 on a pool of 20 random 100x100
+            images, from one seeded state (5 warm-up steps of 64 rays), 10
+            replayed steps against 10 eager steps, bit for bit: parameters,
+            table, Adam's moments and step counts, the rate, StepLR, each
+            step's metrics and the generator's next draw, with exactly the
+            path's launches per step on both; on 64 + 64 also 3 replays
+            against 30 eager steps with scheduler_step_size=7 (rate changes
+            inside a replay), and train() for 40 steps (a checkpoint every
+            20) against 20 steps, a resume and 20 more (the final
+            checkpoints and the rows of steps 21-40).
 7. train    the training paths through `cli.main train` on the procedural
-            scene (5 warm-up steps of 64 rays, then 1024), launch counts
-            zeroed just before each run: 200 steps of 64 + 64 (exactly one
-            K2, K4 and K3 launch a step; then `render` of the final
-            checkpoint), 100 steps of `--num_importance 0` (one K7 a step
-            and nothing else), 100 steps of `--white_background` (one K2,
-            K5, K6 and K3 a step); then 100 steps of the per-sample route,
-            which has no CLI flag (nor has the JAX CLI): train() with
-            use_fused_train=False (two K1 and two K8 a step and nothing
-            else); 100 steps of `--use_time` on the time-varying scene (one
-            K2, K5, K6 and K3 a step, the has_time variants; then `render
-            --use_time --animate_time` of its checkpoint, two 400x400 medium
-            frames); 100 steps of use_hier_onepass, which has no CLI flag
-            either, through train() (one K9 a step and nothing else); finite
-            losses and a rising PSNR.
+            scene (5 warm-up steps of 64 rays, then 1024, 10 steps a call:
+            one graph replay a full chunk), launch counts zeroed just before
+            each run: 200 steps of 64 + 64 with --checkpoint_every 100
+            (exactly one K2, K4 and K3 launch a step, plus one K2 and one
+            K5 for each checkpoint's validation render; render_000100.png
+            and training_curves.png must decode; then --resume to 250
+            steps, exactly the launches of 50 steps, rows 201-250 appended;
+            then `render` of the final checkpoint), 100 steps of
+            `--num_importance 0` (one K7 a step and nothing else), 100 steps
+            of `--white_background` (one K2, K5, K6 and K3 a step); then 100
+            steps of the per-sample route, which has no CLI flag (nor has
+            the JAX CLI): train() with use_fused_train=False (two K1 and two
+            K8 a step and nothing else); 100 steps of `--use_time` on the
+            time-varying scene (one K2, K5, K6 and K3 a step, the has_time
+            variants; then `render --use_time --animate_time` of its
+            checkpoint, two 400x400 medium frames); 100 steps of
+            use_hier_onepass, which has no CLI flag either, through train()
+            (one K9 a step and nothing else); one metrics.jsonl row a step,
+            finite losses and a rising PSNR.
 8. timing   CUDA-event times of every kernel and its plain version, each
             beside its bound: K2 (want_field) and K5 on a 65,536-ray chunk,
             K3, K4, K6, K7 and K9 on a chunk and at B = 1024 (plain versions
@@ -102,7 +119,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             B = 1024 (median of 50 synchronised steps) with its rays/s and
             its kernels' share, and the device time by kernel over 10 steps
             (torch.profiler) of the 64 + 64, the coarse-only, the
-            white-background, the per-sample and the K9 step; then the same
+            white-background, the per-sample and the K9 step; beside each,
+            the chained step (10 steps a replay: median, min and max of 20
+            synchronised replays over 10, rays/s, a replay's CUDA-event
+            time, the graph's pool, and a torch.profiler window of 3
+            replays with its idle share); then the same
             for use_time: the has_time K2/K5 on the chunk, K3-K7 and K9 at
             B = 1024 and K1/K8 at 131,072 rows with their plain versions, an
             800x800 medium frame at t = 0.5, and the use_time step,
@@ -1207,6 +1228,176 @@ def step_diff(what, k, p, names, cfg, loss_tol, failures):
             "update_rel_worst": max(upd_rel.values()), "param_max_abs_diff": param_abs}
 
 
+def timing_scene(cfg):
+    """The training phases' pool: 20 random 100x100 images on a circle of
+    cameras (capture times 0..1 under use_time)."""
+    import numpy as np
+
+    from danerf_tpu_torch.data.dataset import RayDataset
+    from danerf_tpu_torch.viz.paths import camera_path
+
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, size=(20, 100, 100, 3), dtype=np.uint8)
+    c2ws = np.stack([np.asarray(c, np.float32) for c in camera_path("circle", 20, cfg.scene)])
+    return RayDataset(imgs, imgs[..., 0], c2ws, 138.9, cfg.near, cfg.far,
+                      times=np.linspace(0.0, 1.0, 20, dtype=np.float32) if cfg.use_time else None)
+
+
+def train_state(cfg, ds, device, seed=0):
+    """A fresh training state from ``seed``: module, table, Adam, StepLR,
+    generator and the pool."""
+    import torch
+
+    from danerf_tpu_torch.train.trainer import init_model, make_optimizer
+
+    model, table = init_model(cfg, ds.n_images, seed, device)
+    opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return model, table, opt, sched, gen, ds.device_arrays(cfg.white_background, device=device)
+
+
+def state_diff(a, b):
+    """What differs, bit for bit, between two training states (module,
+    table, Adam's moments and step counts, the rate, StepLR, and the
+    generators' next draw, which this consumes)."""
+    import torch
+
+    (ma, ta, oa, sa, ga), (mb, tb, ob, sb, gb) = a, b
+    diff = [n for (n, p), q in zip(ma.named_parameters(), mb.parameters())
+            if not torch.equal(p, q)]
+    if not torch.equal(ta, tb):
+        diff.append("appearance")
+    pa, pb = list(ma.parameters()) + [ta], list(mb.parameters()) + [tb]
+    for i, (p, q) in enumerate(zip(pa, pb)):
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            if not torch.equal(oa.state[p][k], ob.state[q][k]):
+                diff.append(f"adam[{i}].{k}")
+    if not torch.equal(oa.param_groups[0]["lr"], ob.param_groups[0]["lr"]):
+        diff.append("lr")
+    if sa.last_epoch != sb.last_epoch:
+        diff.append("steplr")
+    if not torch.equal(torch.rand(16, generator=ga, device=ga.device),
+                       torch.rand(16, generator=gb, device=gb.device)):
+        diff.append("generator next draw")
+    return diff
+
+
+def chained_vs_eager(cfg, ds, device, k, calls, per_step):
+    """From one seeded state, 5 warm-up steps of 64 rays (train's), then
+    ``calls`` calls of ``k`` steps as one graph replay (make_train_step,
+    steps_per_call=k) against calls * k eager steps (steps_per_call=1):
+    returns the differences (state_diff, then each step's metrics), the
+    launches of both runs against the path's, and the graph's pool."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.train.trainer import make_train_step
+
+    runs = {}
+    for mode, per_call in (("chained", k), ("eager", 1)):
+        model, table, opt, sched, gen, pool = train_state(cfg, ds, device)
+        warm = make_train_step(model, table, opt, sched, pool, cfg, ds.height, ds.width,
+                               ds.focal, 64, gen, 1)
+        for _ in range(5):
+            warm()
+        step = make_train_step(model, table, opt, sched, pool, cfg, ds.height, ds.width,
+                               ds.focal, None, gen, per_call)
+        fr.reset_launch_counts()
+        out = [step() for _ in range(calls * k // per_call)]
+        torch.cuda.synchronize()
+        runs[mode] = {"state": (model, table, opt, sched, gen), "launches": dict(fr.LAUNCHES),
+                      "metrics": {n: torch.cat([m[n] for m in out]) for n in out[0]},
+                      "pool_bytes": getattr(step, "pool_bytes", None)}
+    c, e = runs["chained"], runs["eager"]
+    diff = state_diff(c["state"], e["state"])
+    diff += [f"metric {n}" for n in e["metrics"]
+             if not torch.equal(c["metrics"][n], e["metrics"][n])]
+    want = launches_of(per_step, calls * k)
+    bad_launches = {m: r["launches"] for m, r in runs.items() if r["launches"] != want}
+    finite = all(bool(torch.isfinite(v).all()) for v in c["metrics"].values())
+    return {"steps": calls * k, "differences": diff, "launches_wrong": bad_launches,
+            "finite": finite, "graph_pool_bytes": c["pool_bytes"],
+            "loss_first_last": [float(c["metrics"]["loss"][0]),
+                                float(c["metrics"]["loss"][-1])]}
+
+
+def resume_vs_straight(cfg, ds, device, out_dir):
+    """train() for 40 steps with a checkpoint every 20 (10 steps a call)
+    against 20 steps, a resume, and 20 more: the final checkpoints bit for
+    bit (module, table, Adam, StepLR, the generator's state) and the rows of
+    steps 21-40."""
+    import shutil
+
+    import torch
+
+    from danerf_tpu_torch.train.trainer import train
+
+    dirs = {m: os.path.join(out_dir, f"chained_resume_{m}") for m in ("straight", "split")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+
+    def run(d, n, resume=False):
+        train(cfg, ds, save_dir=d, num_iterations=n, checkpoint_every=20, device=device,
+              progress=False, resume=resume, log_path=os.path.join(d, "metrics.jsonl"))
+
+    run(dirs["straight"], 40)
+    run(dirs["split"], 20)
+    run(dirs["split"], 40, resume=True)
+    a, b = (torch.load(os.path.join(d, "checkpoint_final.pt"), map_location="cpu",
+                       weights_only=False) for d in dirs.values())
+    diff = [k for k, v in a["model_state_dict"].items()
+            if not torch.equal(v, b["model_state_dict"][k])]
+    for key in ("appearance_embeddings", "generator_state"):
+        if not torch.equal(a[key], b[key]):
+            diff.append(key)
+    sa, sb = a["optimizer_state_dict"], b["optimizer_state_dict"]
+    diff += [f"adam[{i}].{k}" for i, st in sa["state"].items() for k, v in st.items()
+             if not torch.equal(v, sb["state"][i][k])]
+    for key in ("param_groups",):
+        if sa[key] != sb[key]:
+            diff.append(f"adam {key}")
+    if a["scheduler_state_dict"] != b["scheduler_state_dict"]:
+        diff.append("steplr")
+
+    def rows(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [{k: v for k, v in json.loads(line).items() if k != "t"} for line in f]
+
+    ra, rb = rows(dirs["straight"]), rows(dirs["split"])
+    if [r["step"] for r in rb] != list(range(1, 41)) or ra[20:] != rb[20:]:
+        diff.append("rows 21-40")
+    return {"iteration": [a["iteration"], b["iteration"]], "differences": diff}
+
+
+def phase_chained(cfg, device, out_dir, k=10):
+    """Several steps a call on the card: for each training path at B = 1024,
+    from one seeded state, ``k`` steps as one replay of a captured CUDA
+    graph against ``k`` eager steps, bit for bit (parameters and table,
+    Adam's moments and step counts, the rate, StepLR, each step's metrics,
+    the generator's next draw), with exactly the path's launches per step
+    on both; on the 64 + 64 path also 3 replays against 30 eager steps with
+    scheduler_step_size=7 (the rate changes inside a replay), and train()
+    for 40 steps (a checkpoint every 20) against 20, a resume and 20 more."""
+    report, failures = {}, []
+    for path, (over, per_step) in PATHS.items():
+        pcfg = cfg.replace(**over)
+        report[path] = chained_vs_eager(pcfg, timing_scene(pcfg), device, k, 1, per_step)
+    report["rate_boundary"] = chained_vs_eager(cfg.replace(scheduler_step_size=7),
+                                               timing_scene(cfg), device, k, 3,
+                                               PATHS["hier"][1])
+    for name, r in report.items():
+        if r["differences"] or r["launches_wrong"] or not r["finite"]:
+            failures.append(f"{name}: {r['differences']} {r['launches_wrong']} "
+                            f"finite={r['finite']}")
+    report["resume"] = resume_vs_straight(cfg, timing_scene(cfg), device, out_dir)
+    if report["resume"]["differences"] or report["resume"]["iteration"] != [40, 40]:
+        failures.append(f"resume: {report['resume']}")
+    emit({"phase": "chained", "steps_per_call": k, "rays": cfg.batch_size, **report,
+          "failures": failures})
+    if failures:
+        raise AssertionError("chained steps differ from eager steps: " + "; ".join(failures))
+
+
 def phase_render(cfg, model, out_dir):
     import numpy as np
     import torch
@@ -1268,43 +1459,63 @@ def train_api(argv, over):
 
     args = build_parser().parse_args(argv)
     cfg = _train_config(args).replace(**over)
-    return train(cfg, load_dataset(cfg, "train"), save_dir=args.save_dir,
+    return train(cfg, load_dataset(cfg, "train"), save_dir=args.save_dir, resume=args.resume,
                  num_iterations=args.iters, seed=args.seed, device=args.device,
+                 checkpoint_every=args.checkpoint_every,
                  log_path=os.path.join(args.save_dir, "metrics.jsonl"))
 
 
-def phase_train(out_dir, path, iters, render):
+def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
     """A training path through its entry point: `cli.main train` (for the
     routes without a flag ``train_api``) for ``iters`` steps on the
-    procedural scene (its time-varying form under --use_time), with exactly
-    the path's kernel launches per step, finite losses and a rising PSNR;
-    then, when ``render``, `render` of the final checkpoint: a 100x100
-    preview frame, or for the time path two 400x400 medium frames with
-    --use_time --animate_time (t = 0, then 1)."""
+    procedural scene (its time-varying form under --use_time), 10 steps a
+    call (the default steps_per_call: one graph replay a full chunk), with
+    exactly the path's kernel launches per step, one metrics.jsonl row a
+    step, finite losses and a rising PSNR.  With ``every``
+    (--checkpoint_every) each checkpoint's validation render (one K2 and
+    one K5 launch: the 100x100 view is one chunk) is counted too, and
+    render_000100.png and training_curves.png must decode; with
+    ``resume_to`` the run is then resumed (--resume) to that step, with
+    exactly the path's launches for the steps added and their rows
+    appended.  Then, when ``render``, `render` of the final checkpoint: a
+    100x100 preview frame, or for the time path two 400x400 medium frames
+    with --use_time --animate_time (t = 0, then 1)."""
     import shutil
 
     import numpy as np
     import torch
 
     from danerf_tpu_torch.cli.main import main as cli_main
+    from danerf_tpu_torch.data.png import read_png
     from danerf_tpu_torch.kernels import fused_render as fr
 
     warmup = 5
     save = os.path.join(out_dir, f"train_{path}")
     shutil.rmtree(save, ignore_errors=True)          # metrics.jsonl appends
     no_scene = os.path.join(out_dir, "no_scene")     # -> the procedural scene
-    argv = ["train", "--iters", str(iters), "--density_bias_init", "0.5", "--save_dir", save,
-            "--device", "cuda", "--seed", "0", "--dataset_path", no_scene, *TRAIN_FLAGS[path]]
-    fr.reset_launch_counts()
-    t0 = time.perf_counter()
-    if path in API_PATHS:
-        train_api(argv, PATHS[path][0])
-    else:
-        cli_main(argv)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = dict(fr.LAUNCHES)
+    argv = ["train", "--density_bias_init", "0.5", "--save_dir", save, "--device", "cuda",
+            "--seed", "0", "--dataset_path", no_scene, *TRAIN_FLAGS[path]]
+    if every:
+        argv += ["--checkpoint_every", str(every)]
+
+    def run(n, *flags):
+        fr.reset_launch_counts()
+        t0 = time.perf_counter()
+        if path in API_PATHS:
+            train_api([*argv, "--iters", str(n), *flags], PATHS[path][0])
+        else:
+            cli_main([*argv, "--iters", str(n), *flags])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, dict(fr.LAUNCHES)
+
+    def val_renders(first, last):
+        n = sum(1 for s in range(first + 1, last + 1) if every and s % every == 0)
+        return {"march": n, "merged": n if PATHS[path][0].get("num_importance", 1) else 0}
+
+    secs, counts = run(iters)
     want = launches_of(PATHS[path][1], iters)
+    for k, v in val_renders(0, iters).items():
+        want[k] += v
     if counts != want:
         raise AssertionError(f"train {path}: launches {counts}, expected {want}")
     with open(os.path.join(save, "metrics.jsonl")) as f:
@@ -1320,6 +1531,34 @@ def phase_train(out_dir, path, iters, render):
     ckpt = os.path.join(save, "checkpoint_final.pt")
     if not os.path.exists(ckpt):
         raise AssertionError(f"train {path}: checkpoint_final.pt was not written")
+    pngs = {}
+    if every:
+        for name, shape in (("render_000100.png", (100, 200, 3)),
+                            ("training_curves.png", (400, 1000, 3))):
+            img = read_png(os.path.join(save, name))
+            if img.shape != shape or img.std() == 0:
+                raise AssertionError(f"train {path}: {name} decodes to {img.shape}, "
+                                     f"std {img.std()}")
+            pngs[name] = list(img.shape)
+    resumed = None
+    if resume_to:
+        r_secs, r_counts = run(resume_to, "--resume")
+        r_want = launches_of(PATHS[path][1], resume_to - iters)
+        for k, v in val_renders(iters, resume_to).items():
+            r_want[k] += v
+        if r_counts != r_want:
+            raise AssertionError(f"train {path} --resume: launches {r_counts}, "
+                                 f"expected {r_want}")
+        with open(os.path.join(save, "metrics.jsonl")) as f:
+            r_rows = [json.loads(line) for line in f]
+        if [r["step"] for r in r_rows] != list(range(1, resume_to + 1)):
+            raise AssertionError(f"train {path} --resume: the rows are not 1..{resume_to}")
+        it = torch.load(ckpt, map_location="cpu", weights_only=False)["iteration"]
+        if it != resume_to or not all(math.isfinite(r["loss"]) for r in r_rows):
+            raise AssertionError(f"train {path} --resume: final checkpoint at {it}")
+        resumed = {"to": resume_to, "seconds": r_secs, "launches": r_counts,
+                   "loss_last": r_rows[-1]["loss"],
+                   "psnr_mean_last20": float(np.mean([r["psnr"] for r in r_rows[-20:]]))}
     rendered = None
     if render:
         render_dir = os.path.join(out_dir, f"render_trained_{path}")
@@ -1340,10 +1579,10 @@ def phase_train(out_dir, path, iters, render):
         rendered = {"frames": written, "size": size, "flags": flags,
                     "launches": dict(fr.LAUNCHES)}
     emit({"phase": "train", "path": path, "flags": TRAIN_FLAGS[path], "iters": iters,
-          "seconds_incl_scene": secs, "launches": counts,
+          "checkpoint_every": every, "seconds_incl_scene": secs, "launches": counts,
           "loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
           "psnr_mean_first20_after_warmup": first, "psnr_mean_last20": last,
-          "render": rendered})
+          "pngs": pngs, "resumed": resumed, "render": rendered})
     return counts
 
 
@@ -1650,28 +1889,21 @@ def phase_train_timing(cfg, model, device, chunk):
 
 
 def step_timing(cfg, device, kernel_ms, kernels, profile):
-    """The training step of ``cfg`` at B = 1024 on a pool of 20 random
-    100x100 images (with capture times 0..1 under use_time): the median of
-    50 synchronised steps after 5 warm-up steps, its rays/s, the share of
-    ``kernels`` (keys of ``kernel_ms``, the step's kernels timed alone) and
-    their summed bound; with ``profile`` a torch.profiler window of 10
-    steps."""
+    """The training step of ``cfg`` at B = 1024 on timing_scene's pool:
+    the median of 50 synchronised eager steps after 5 warm-up steps, its
+    rays/s, the share of ``kernels`` (keys of ``kernel_ms``, the step's
+    kernels timed alone) and their summed bound; then the chained step (10
+    steps a call, one graph replay): the median, min and max of 20
+    synchronised replays, each over 10, its rays/s, one replay's device time
+    by CUDA events, and the graph's pool; with ``profile`` torch.profiler
+    windows of 10 eager steps and of 3 replays."""
     import numpy as np
     import torch
 
-    from danerf_tpu_torch.data.dataset import RayDataset
-    from danerf_tpu_torch.train.trainer import init_model, make_optimizer, train_step
-    from danerf_tpu_torch.viz.paths import camera_path
+    from danerf_tpu_torch.train.trainer import make_train_step, train_step
 
-    rng = np.random.default_rng(0)
-    imgs = rng.integers(0, 256, size=(20, 100, 100, 3), dtype=np.uint8)
-    c2ws = np.stack([np.asarray(c, np.float32) for c in camera_path("circle", 20, cfg.scene)])
-    ds = RayDataset(imgs, imgs[..., 0], c2ws, 138.9, cfg.near, cfg.far,
-                    times=np.linspace(0.0, 1.0, 20, dtype=np.float32) if cfg.use_time else None)
-    model, table = init_model(cfg, 20, 0, device)
-    opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
-    pool = ds.device_arrays(cfg.white_background, device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
+    ds = timing_scene(cfg)
+    model, table, opt, sched, gen, pool = train_state(cfg, ds, device)
 
     def step():
         return train_step(model, table, opt, sched, pool, cfg, 100, 100, ds.focal, None, gen)
@@ -1693,6 +1925,33 @@ def step_timing(cfg, device, kernel_ms, kernels, profile):
            "step_bound_ms": sum(kernel_ms[f"{k}_bound_ms"] for k in kernels)}
     if profile:
         out.update(profile_steps(step))
+
+    k = 10
+    chained = make_train_step(model, table, opt, sched, pool, cfg, 100, 100, ds.focal, None,
+                              gen, k)
+    chained()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        chained()
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3 / k)
+    chained_ms = float(np.median(reps))
+    out.update({"chained_steps_per_call": k, "chained_ms_per_step_median": chained_ms,
+                "chained_ms_per_step_min": min(reps), "chained_ms_per_step_max": max(reps),
+                "chained_rays_per_s": cfg.batch_size / (chained_ms / 1e3),
+                "chained_replay_event_ms": cuda_ms(chained, 5),
+                "graph_pool_bytes": chained.pool_bytes})
+    if profile:
+        prof = profile_steps(chained, n_prof=3)
+        out.update({"chained_profile_ms_per_replay": prof["profile_ms_per_step"],
+                    "chained_profile_breakdown_ms_per_step": {
+                        n: v / k for n, v in prof["profile_breakdown_ms_per_step"].items()},
+                    "chained_profile_device_busy_ms_per_step":
+                        prof["profile_device_busy_ms_per_step"] / k,
+                    "chained_profile_wall_ms_per_step": prof["profile_wall_ms_per_step"] / k,
+                    "chained_profile_idle_share": prof["profile_idle_share"]})
     return out
 
 
@@ -1736,7 +1995,9 @@ def main(argv=None):
     errs_k9 = phase_hier_onepass(cfg, model, cfg_t, model_t, device)
     phase_step(cfg, model, device)
     launches = phase_render(cfg, model, args.out)
-    train_launches = {"hier": phase_train(args.out, "hier", 200, render=True),
+    phase_chained(cfg, device, args.out)
+    train_launches = {"hier": phase_train(args.out, "hier", 200, render=True, every=100,
+                                          resume_to=250),
                       "coarse": phase_train(args.out, "coarse", 100, render=False),
                       "white": phase_train(args.out, "white", 100, render=False),
                       "per_sample": phase_train(args.out, "per_sample", 100, render=False),

@@ -2,8 +2,11 @@
 ``python -m danerf_tpu_torch.cli.main {train,render} ...``.
 
 ``train`` takes the JAX CLI's flags plus ``--device`` (default cuda) and
-``--checkpoint_every``, and writes reference-format ``.pt`` checkpoints and
-``metrics.jsonl`` into ``--save_dir``.  ``render`` takes the JAX CLI's
+``--checkpoint_every``, and writes reference-format ``.pt`` checkpoints,
+``metrics.jsonl``, a validation render at each checkpoint and
+``training_curves.png`` into ``--save_dir``; ``--resume`` continues from
+the latest checkpoint there, and ``--profile DIR`` first writes a
+``torch.profiler`` trace of 20 steps into DIR.  ``render`` takes the JAX CLI's
 flags plus ``--device`` and ``--seed``; ``--checkpoint`` is a
 reference-format ``.pt`` (such as ``<save_dir>/checkpoint_final.pt``), and
 without it ``render`` takes the latest checkpoint of ``checkpoints_<scene>``
@@ -24,6 +27,13 @@ import warnings
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="danerf-torch",
                                 description="NeRF-W training and rendering on PyTorch/CUDA")
+    try:
+        from importlib.metadata import version
+
+        ver = version("danerf-tpu")
+    except Exception:  # not installed as a package (repo checkout)
+        ver = "dev"
+    p.add_argument("--version", action="version", version=f"danerf-torch {ver}")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     t = sub.add_parser("train", help="train a NeRF-W model")
@@ -32,14 +42,16 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--iters", type=int, default=None)
     t.add_argument("--batch_size", type=int, default=None)
     t.add_argument("--save_dir", type=str, default=None)
-    t.add_argument("--resume", action="store_true", help="(not yet ported)")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint in --save_dir")
     t.add_argument("--no_appearance", action="store_true")
     t.add_argument("--num_importance", type=int, default=None)
     t.add_argument("--mesh_data", type=int, default=1, help="(not yet ported; must be 1)")
     t.add_argument("--mesh_model", type=int, default=1, help="(not yet ported; must be 1)")
     t.add_argument("--seed", type=int, default=0,
                    help="seeds the initial weights and every draw of the run")
-    t.add_argument("--profile", type=str, default=None, help="(not yet ported)")
+    t.add_argument("--profile", type=str, default=None,
+                   help="first write a torch.profiler trace of 20 steps to this dir")
     t.add_argument("--density_activation", type=str, default=None,
                    choices=["relu", "softplus"])
     t.add_argument("--density_bias_init", type=float, default=None,
@@ -105,10 +117,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _train_not_ported(args) -> list:
     bad = []
-    if args.resume:
-        bad.append("--resume")
-    if args.profile is not None:
-        bad.append("--profile")
     if args.mesh_data != 1 or args.mesh_model != 1:
         bad.append("--mesh_data/--mesh_model != 1")
     if (args.coordinator_address is not None or args.num_processes is not None
@@ -172,8 +180,18 @@ def cmd_train(args):
 
     ds = load_dataset(cfg, "train")
     save_dir = args.save_dir or f"checkpoints_{args.scene}"
-    return train(cfg, ds, save_dir=save_dir, num_iterations=args.iters, seed=args.seed,
-                 device=device, checkpoint_every=args.checkpoint_every,
+    if args.profile:
+        # a short profiled run before the real one (the JAX CLI's); its
+        # checkpoint goes into the trace directory, so that --resume never
+        # continues from it
+        from danerf_tpu_torch.utils.profiling import trace
+
+        with trace(args.profile):
+            train(cfg, ds, save_dir=os.path.join(args.profile, "run"), num_iterations=20,
+                  checkpoint_every=0, seed=args.seed, device=device, progress=False)
+        print(f"profiler trace written to {args.profile}")
+    return train(cfg, ds, save_dir=save_dir, resume=args.resume, num_iterations=args.iters,
+                 seed=args.seed, device=device, checkpoint_every=args.checkpoint_every,
                  log_path=os.path.join(save_dir, "metrics.jsonl"))
 
 

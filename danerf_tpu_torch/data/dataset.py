@@ -5,8 +5,9 @@
   ``device_arrays`` uploads the pixel pool to the device once as (N*H*W, 3)
   f32, composited over white when asked.
 - ``sample_ray_batch``: one training batch drawn on the device -- one image
-  per batch, pixels with replacement, then ``rays_for_pixels``; each ray's
-  time is its image's.
+  per batch (or, with ``single_image=False``, an image per ray), pixels
+  with replacement, then ``rays_for_pixels``; each ray's time is its
+  image's.
 - ``load_dataset``: the Blender scene when ``transforms_{split}.json``
   exists, otherwise the procedural scene (its time-varying form under
   ``use_time``).
@@ -83,10 +84,13 @@ def sample_ray_batch(pool: dict, cfg: NeRFConfig, height: int, width: int, focal
                      batch_size: Optional[int] = None,
                      generator: Optional[torch.Generator] = None,
                      img_idx: Optional[torch.Tensor] = None,
-                     pix_idx: Optional[torch.Tensor] = None) -> dict:
+                     pix_idx: Optional[torch.Tensor] = None,
+                     single_image: bool = True) -> dict:
     """A training batch, drawn on the pool's device.
 
-    All rays come from one random image; pixels are drawn with replacement.
+    All rays come from one random image (the reference's sampling,
+    src/dataset.py:250); with ``single_image=False`` each ray draws its own
+    image, which decorrelates batches.  Pixels are drawn with replacement.
     ``img_idx`` (a scalar or (B,)) and ``pix_idx`` (B,) replace the draws
     from ``generator`` when given.
 
@@ -100,7 +104,8 @@ def sample_ray_batch(pool: dict, cfg: NeRFConfig, height: int, width: int, focal
     dev = pool["images"].device
     n_images = pool["c2ws"].shape[0]
     if img_idx is None:
-        img_idx = torch.randint(0, n_images, (), generator=generator, device=dev)
+        img_idx = torch.randint(0, n_images, () if single_image else (batch_size,),
+                                generator=generator, device=dev)
     img_idx = torch.as_tensor(img_idx, device=dev).to(torch.int64).expand(batch_size)
     if pix_idx is None:
         pix_idx = torch.randint(0, height * width, (batch_size,), generator=generator,

@@ -150,9 +150,10 @@ def pack_params(model, cfg: NeRFConfig, appearance: bool = True,
     add_vec("bdir", model.dir_linear.bias)
     app = model.appearance_projection
     use_app = appearance and app is not None
-    add_mat("wapp", app.weight if use_app else torch.zeros(half, cfg.appearance_dim),
+    # zeros made on the device: a captured step packs with no host copy
+    add_mat("wapp", app.weight if use_app else torch.zeros(half, cfg.appearance_dim, device=dev),
             cfg.appearance_dim)
-    add_vec("bapp", app.bias if use_app else torch.zeros(half))
+    add_vec("bapp", app.bias if use_app else torch.zeros(half, device=dev))
     add_mat("wrgb", model.rgb_linear.weight, half)
     add_vec("brgb", model.rgb_linear.bias)
     return PackedParams(

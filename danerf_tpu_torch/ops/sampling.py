@@ -12,6 +12,8 @@ from typing import Optional, Union
 
 import torch
 
+from danerf_tpu_torch.ops.composite import device_vector
+
 Rand = Union[torch.Tensor, torch.Generator, None]
 
 
@@ -28,8 +30,8 @@ def ray_aabb_bounds(rays_o, rays_d, aabb_min, aabb_max, near, far):
     """Tighten per-ray [near, far] to the ray's overlap with an axis-aligned
     box (slab method).  Misses park in a thin band at the far plane so the
     sample count stays fixed.  Returns t_near, t_far of shape (..., 1)."""
-    aabb_min = torch.as_tensor(aabb_min, dtype=rays_o.dtype, device=rays_o.device)
-    aabb_max = torch.as_tensor(aabb_max, dtype=rays_o.dtype, device=rays_o.device)
+    aabb_min = device_vector(aabb_min, rays_o, rays_o.dtype)
+    aabb_max = device_vector(aabb_max, rays_o, rays_o.dtype)
     inv_d = 1.0 / torch.where(rays_d.abs() < 1e-10,
                               torch.full_like(rays_d, 1e-10), rays_d)
     t0 = (aabb_min - rays_o) * inv_d

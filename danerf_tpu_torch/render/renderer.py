@@ -26,7 +26,7 @@ import torch
 from danerf_tpu_torch import resolve_device
 from danerf_tpu_torch.config import NeRFConfig
 from danerf_tpu_torch.kernels.fused_mlp import fused_nerf_apply, pack_params
-from danerf_tpu_torch.ops.composite import composite
+from danerf_tpu_torch.ops.composite import composite, device_vector
 from danerf_tpu_torch.ops.rays import generate_rays
 from danerf_tpu_torch.ops.sampling import (combine_z, ray_aabb_bounds,
                                            sample_pdf, sample_stratified)
@@ -90,8 +90,7 @@ def render_rays(model, cfg: NeRFConfig, rays_o: torch.Tensor, rays_d: torch.Tens
     r_strat, r_imp = (generator, generator) if draws is None else draws
     z_coarse, pts = sample_stratified(rays_o, rays_d, near, far, n_samples,
                                       perturb=perturb, rand=r_strat)
-    bg = (None if background_color is None
-          else torch.as_tensor(background_color, dtype=torch.float32, device=rays_o.device))
+    bg = None if background_color is None else device_vector(background_color, rays_o)
 
     def add_bg(out):
         if bg is not None:

@@ -33,6 +33,13 @@ coarse-only training draws no importance jitter.  The loss functions also
 take the jitter as tensors (``draws``) so the tests can feed in the JAX
 package's draws.  No step synchronises with the host: metrics stay on
 the device and are written every ``LOG_FLUSH`` steps.
+
+``make_train_step`` runs ``steps_per_call`` steps a call, the counterpart of
+the JAX ``fori_loop``: on the card, one replay of a CUDA graph captured from
+those steps (``ChainedStep``); on the CPU, eagerly.  ``train`` chains 10
+steps a call by default, resumes the whole state of a checkpoint
+(``resume``), and writes a validation render at each checkpoint and the
+training curves at the end.
 """
 
 from __future__ import annotations
@@ -62,8 +69,18 @@ def lr_schedule(cfg: NeRFConfig):
 def make_optimizer(cfg: NeRFConfig, params):
     """Adam (beta 0.9/0.999, eps 1e-8) over ``params`` (the module's
     parameters and the dense appearance table) and the StepLR that is
-    stepped after every optimizer step."""
-    opt = torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    stepped after every optimizer step.
+
+    On CUDA parameters Adam is ``capturable`` (its step counts stay on the
+    device, so a captured step can run it) and its rate is a device tensor,
+    which every step sets from Adam's count of earlier steps
+    (``_set_rate``): a rate held as a Python float would be frozen into a
+    captured graph.  On the CPU the rate is the float StepLR keeps."""
+    params = list(params)
+    dev = params[0].device
+    lr = torch.tensor(cfg.learning_rate, device=dev) if dev.type == "cuda" else cfg.learning_rate
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=dev.type == "cuda")
     sched = torch.optim.lr_scheduler.StepLR(opt, step_size=cfg.scheduler_step_size,
                                             gamma=cfg.scheduler_gamma)
     return opt, sched
@@ -243,17 +260,198 @@ def compute_loss_and_grads(model, table, cfg: NeRFConfig, batch, generator=None,
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
+def _set_rate(optimizer, cfg: NeRFConfig) -> None:
+    """Where the rate is a device tensor (CUDA), set it to StepLR's rate for
+    this step, lr * gamma ** (n // step_size) with n Adam's count of earlier
+    steps, on the device: a captured step then reads the rate of the step it
+    replays.  Before the first step (no Adam state) the rate is the initial
+    one already."""
+    group = optimizer.param_groups[0]
+    lr = group["lr"]
+    state = optimizer.state.get(group["params"][0])
+    if not isinstance(lr, torch.Tensor) or not state:
+        return
+    n = torch.div(state["step"], cfg.scheduler_step_size, rounding_mode="floor")
+    torch.mul(torch.pow(cfg.scheduler_gamma, n), cfg.learning_rate, out=lr)
+
+
+def _step_scheduler(optimizer, scheduler, cfg: NeRFConfig, k: int = 1) -> None:
+    """StepLR's host-side step for each of the last ``k`` optimizer steps,
+    then, on the device path, the rate of the next step from Adam's count
+    (``_set_rate``): how StepLR itself updates a tensor rate differs between
+    PyTorch versions, so the optimizer's rate is always the formula's, after
+    eager steps and after a replay alike."""
+    for _ in range(k):
+        scheduler.step()
+    _set_rate(optimizer, cfg)
+
+
+def _step(model, table, optimizer, pool, cfg: NeRFConfig, height: int, width: int, focal,
+          batch_size: Optional[int], generator: Optional[torch.Generator]) -> dict:
+    """One step without StepLR's host-side step: batch draw, loss and
+    gradients, the rate, one Adam step, all on the pool's device.  The
+    gradients are zeroed in place, so that a captured step finds the same
+    ``.grad`` tensors on every replay."""
+    batch = sample_ray_batch(pool, cfg, height, width, focal, batch_size, generator)
+    optimizer.zero_grad(set_to_none=False)
+    loss, aux = compute_loss_and_grads(model, table, cfg, batch, generator)
+    _set_rate(optimizer, cfg)
+    optimizer.step()
+    return {"loss": loss, "psnr": psnr(aux["mse"]), **aux}
+
+
 def train_step(model, table, optimizer, scheduler, pool, cfg: NeRFConfig, height: int,
                width: int, focal, batch_size: Optional[int] = None,
                generator: Optional[torch.Generator] = None) -> dict:
     """Batch draw, loss and gradients, one Adam step, one StepLR step.
-    Returns loss / mse / [coarse_mse] / psnr as device tensors."""
-    batch = sample_ray_batch(pool, cfg, height, width, focal, batch_size, generator)
-    optimizer.zero_grad(set_to_none=True)
-    loss, aux = compute_loss_and_grads(model, table, cfg, batch, generator)
-    optimizer.step()
-    scheduler.step()
-    return {"loss": loss, "psnr": psnr(aux["mse"]), **aux}
+    Returns loss / psnr / mse / [coarse_mse] as device tensors."""
+    metrics = _step(model, table, optimizer, pool, cfg, height, width, focal, batch_size,
+                    generator)
+    _step_scheduler(optimizer, scheduler, cfg)
+    return metrics
+
+
+def _stack(steps):
+    """The metrics of consecutive steps as (names, one (k, n_names) device
+    tensor)."""
+    names = list(steps[0])
+    return names, torch.stack([torch.stack([m[n] for n in names]) for m in steps])
+
+
+def _columns(names, mat) -> dict:
+    """{name: (k,) tensor}: the columns of ``_stack``'s tensor."""
+    return {n: mat[:, j] for j, n in enumerate(names)}
+
+
+def _ready_for_capture(optimizer) -> None:
+    """Allocate before a capture what a captured step must find in place:
+    each parameter's ``.grad`` (zeroed in place by every step) and Adam's
+    state, as Adam's first step creates it (a zero count and zero moments).
+    Created inside the graph instead, both would be created anew on every
+    replay."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+
+def _warm_step(model, table, cfg: NeRFConfig, pool, height: int, width: int, focal,
+               batch_size: Optional[int], generator: Optional[torch.Generator]) -> None:
+    """One training step on copies of the module, the table, a fresh Adam and
+    the generator: it runs what the step runs and leaves the training state
+    as it was."""
+    import copy
+
+    model = copy.deepcopy(model)
+    table = None if table is None else copy.deepcopy(table)
+    params = list(model.parameters()) + ([table] if table is not None else [])
+    optimizer, _ = make_optimizer(cfg, params)
+    gen = torch.Generator(device=pool["images"].device)
+    if generator is not None:
+        gen.set_state(generator.get_state())
+    _step(model, table, optimizer, pool, cfg, height, width, focal, batch_size, gen)
+
+
+class ChainedStep:
+    """``k`` training steps as one CUDA graph: the counterpart of the JAX
+    package's ``fori_loop`` over ``steps_per_call`` steps (one device
+    program, one host dispatch).
+
+    The first call captures the k steps (batch draws, losses and gradients
+    through the path's kernels, rates, Adam), the seeded generator
+    registered with the graph so that every replay advances it as k eager
+    steps would; every call replays the graph, steps StepLR k times on the
+    host (``_step_scheduler``) and returns the k steps' metrics as in
+    ``make_train_step``, copied out of the graph's output by one device op.
+    Before capturing, ``warm`` runs one step on copies (``_warm_step``):
+    whatever initialises on first use (a kernel's library and module, its
+    shared-memory attribute, PyTorch's workspaces) does so outside the
+    capture, and the training state is not touched.  Neither warm-up nor capture counts as launches:
+    the launches the wrappers count while capturing are taken back and
+    added again on every replay (``launches``: per replay).  ``pool_bytes``
+    is the device memory the capture reserved (the graph's private pool:
+    every intermediate and scratch buffer of the k steps).  A failed
+    capture or replay raises; nothing falls back to eager steps."""
+
+    def __init__(self, step, warm, k: int, optimizer, scheduler, generator, cfg: NeRFConfig):
+        self.step, self.warm, self.k, self.cfg = step, warm, k, cfg
+        self.optimizer, self.scheduler, self.generator = optimizer, scheduler, generator
+        self.graph = None
+        self.launches: dict = {}
+        self.pool_bytes = 0
+
+    def capture(self) -> None:
+        from danerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+
+        dev = self.optimizer.param_groups[0]["params"][0].device
+        before = dict(LAUNCHES)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.warm()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        LAUNCHES.update(before)
+        _ready_for_capture(self.optimizer)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        with torch.cuda.graph(graph):
+            self.names, self.out = _stack([self.step() for _ in range(self.k)])
+        self.launches = {n: LAUNCHES[n] - before[n] for n in LAUNCHES}
+        LAUNCHES.update(before)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph = graph
+
+    def __call__(self) -> dict:
+        from danerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        for n, c in self.launches.items():
+            LAUNCHES[n] += c
+        _step_scheduler(self.optimizer, self.scheduler, self.cfg, self.k)
+        return _columns(self.names, self.out.clone())
+
+
+def make_train_step(model, table, optimizer, scheduler, pool, cfg: NeRFConfig, height: int,
+                    width: int, focal, batch_size: Optional[int] = None,
+                    generator: Optional[torch.Generator] = None, steps_per_call: int = 1):
+    """``steps_per_call`` training steps a call (counterpart of the JAX
+    ``make_train_step``).  The returned callable takes no argument and
+    returns the steps' metrics as {name: (steps_per_call,) device tensor},
+    one entry per step, with no host sync.
+
+    On a CUDA pool with ``steps_per_call > 1`` the steps are a
+    ``ChainedStep``: captured on the first call, one graph replay on every
+    call.  Otherwise (the CPU, or ``steps_per_call=1``) they run eagerly as
+    ``train_step`` does."""
+    def step():
+        return _step(model, table, optimizer, pool, cfg, height, width, focal, batch_size,
+                     generator)
+
+    if pool["images"].device.type == "cuda" and steps_per_call > 1:
+        def warm():
+            _warm_step(model, table, cfg, pool, height, width, focal, batch_size, generator)
+
+        return ChainedStep(step, warm, steps_per_call, optimizer, scheduler, generator, cfg)
+
+    def eager():
+        out = []
+        for _ in range(steps_per_call):
+            out.append(step())
+            _step_scheduler(optimizer, scheduler, cfg)
+        return _columns(*_stack(out))
+
+    return eager
 
 
 def init_model(cfg: NeRFConfig, n_images: int, seed: int, device):
@@ -270,16 +468,27 @@ def init_model(cfg: NeRFConfig, n_images: int, seed: int, device):
 
 
 def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
-          num_iterations: Optional[int] = None, seed: int = 0, device="cuda",
-          checkpoint_every: int = 1000, log_path: Optional[str] = None,
-          progress: bool = True):
-    """The training loop (reference ``train_nerf``, src/train.py:13-207):
-    ``warmup_iters`` steps at ``warmup_batch_size`` rays, then
-    ``batch_size``; a checkpoint every ``checkpoint_every`` steps and a
-    final one (``checkpoint_NNNNNN.pt``, ``checkpoint_final.pt``).
+          resume: bool = False, log_path: Optional[str] = None, checkpoint_every: int = 1000,
+          eval_every: int = 1, num_iterations: Optional[int] = None, seed: int = 0,
+          device="cuda", progress: bool = True, steps_per_call: int = 10):
+    """The training loop (reference ``train_nerf``, src/train.py:13-207; the
+    JAX ``train`` without its mesh).
+
+    ``warmup_iters`` steps singly at ``warmup_batch_size`` rays, then
+    ``batch_size`` rays in chunks of ``steps_per_call`` steps
+    (``make_train_step``: one graph replay a chunk on the card), never
+    crossing a checkpoint: a chunk that would is run as single steps.  A
+    checkpoint every ``checkpoint_every`` steps (``checkpoint_NNNNNN.pt``,
+    then ``render_NNNNNN.png`` when ``eval_every``) and a final one
+    (``checkpoint_final.pt``, then ``training_curves.png``).  ``resume``
+    restores the whole state of ``latest_checkpoint(save_dir)`` (module,
+    table, Adam, StepLR, the generator) and continues from its iteration.
+    ``metrics.jsonl`` (``log_path``) gets one row a step, written every
+    ``LOG_FLUSH`` steps or more, a chunk behind the device.
 
     Returns (model, table, logger)."""
-    from danerf_tpu_torch.utils.checkpoint import save_checkpoint
+    from danerf_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_training_state,
+                                                   save_checkpoint)
 
     if cfg.use_time and dataset.times is None:
         raise ValueError(
@@ -294,40 +503,112 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
     params = list(model.parameters()) + ([table] if table is not None else [])
     optimizer, scheduler = make_optimizer(cfg, params)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    start = 0
+    if resume:
+        path = latest_checkpoint(save_dir)
+        if path is not None:
+            start = restore_training_state(path, model, table, optimizer, scheduler, gen)
     pool = dataset.device_arrays(cfg.white_background, dev)
     h, w, focal = dataset.height, dataset.width, dataset.focal
 
-    logger = MetricsLogger(log_path)
-    pending: list = []
-    metrics: dict = {}
+    def maker(k, batch_size=None):
+        return make_train_step(model, table, optimizer, scheduler, pool, cfg, h, w, focal,
+                               batch_size, gen, k)
 
-    def flush():
-        for j, m in pending:
-            logger.log(j, **{k: float(v) for k, v in m.items()})
-        pending.clear()
+    step_full, step_single = maker(steps_per_call), maker(1)
+    step_warm = maker(1, min(cfg.warmup_batch_size, cfg.batch_size))
+
+    logger = MetricsLogger(log_path)
+    pending: list = []   # (step of the first row, {name: (k,) device tensor})
+
+    def flush(keep: int = 0):
+        n = len(pending) - keep
+        for first, m in pending[:n]:
+            for j, row in enumerate(torch.stack(list(m.values()), 1).tolist()):
+                logger.log(first + j, **dict(zip(m, row)))
+        del pending[:n]
 
     def checkpoint(name, step):
         flush()
         last = logger.history[-1] if logger.history else {}
         save_checkpoint(os.path.join(save_dir, name), model, table, optimizer, scheduler,
-                        iteration=step, loss=last.get("loss"), psnr=last.get("psnr"))
+                        iteration=step, loss=last.get("loss"), psnr=last.get("psnr"),
+                        generator=gen)
 
     t0 = time.time()
-    for i in range(n_iters):
-        bs = min(cfg.warmup_batch_size, cfg.batch_size) if i < cfg.warmup_iters else None
-        metrics = train_step(model, table, optimizer, scheduler, pool, cfg, h, w, focal, bs, gen)
-        step = i + 1
-        pending.append((step, metrics))
-        if len(pending) >= LOG_FLUSH:
-            flush()
-        if progress and (step % 1000 == 0 or step == n_iters):
+    i = last_progress = start
+    while i < n_iters:
+        if i < cfg.warmup_iters:
+            pending.append((i + 1, step_warm()))
+            i += 1
+        else:
+            k = min(steps_per_call, n_iters - i)
+            if checkpoint_every:
+                k = min(k, checkpoint_every - i % checkpoint_every)
+            if k == steps_per_call:
+                pending.append((i + 1, step_full()))
+            else:
+                pending.extend((i + 1 + j, step_single()) for j in range(k))
+            i += k
+        # write the rows of all but the newest call, which the device may
+        # still be running: the host waits for the call before it
+        if pending[-1][0] - pending[0][0] >= LOG_FLUSH:
+            flush(keep=1)
+        if progress and (i - last_progress >= 1000 or i == n_iters):
+            last_progress = i
             flush()
             last = logger.history[-1]
-            rays_s = cfg.batch_size * step / max(time.time() - t0, 1e-9)
-            print(f"step {step}/{n_iters} loss={last['loss']:.5f} psnr={last['psnr']:.2f} "
+            rays_s = cfg.batch_size * (i - start) / max(time.time() - t0, 1e-9)
+            print(f"step {i}/{n_iters} loss={last['loss']:.5f} psnr={last['psnr']:.2f} "
                   f"rays/s={rays_s:,.0f}", flush=True)
-        if checkpoint_every and step % checkpoint_every == 0:
-            checkpoint(f"checkpoint_{step:06d}.pt", step)
+        if checkpoint_every and i % checkpoint_every == 0:
+            checkpoint(f"checkpoint_{i:06d}.pt", i)
+            if eval_every:
+                _save_validation_render(model, table, cfg, dataset, save_dir, i, dev)
     checkpoint("checkpoint_final.pt", n_iters)
+    _save_training_curves(logger, save_dir)
     logger.close()
     return model, table, logger
+
+
+def _save_validation_render(model, table, cfg: NeRFConfig, dataset, save_dir: str, step: int,
+                            device, max_size: int = 128) -> None:
+    """``render_{step:06d}.png``: the last view at most ``max_size`` pixels
+    wide, rgb beside its viridis depth (the JAX ``_save_validation_render``;
+    reference src/train.py:127-173 renders a 1000-ray strip).  A failure is
+    printed: an eval render never ends training."""
+    import numpy as np
+
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.viz.depth import colorize_depth
+    from danerf_tpu_torch.viz.png import write_png
+
+    try:
+        scale = max(1, max(dataset.height, dataset.width) // max_size)
+        h, w = dataset.height // scale, dataset.width // scale
+        emb = None
+        if cfg.use_appearance and table is not None:
+            emb = table.detach()[dataset.n_images - 1]
+        rgb, depth, _ = render_frame(model, cfg, dataset.c2ws[-1], h, w, dataset.focal / scale,
+                                     appearance_embedding=emb,
+                                     n_importance=cfg.num_importance, perturb=False,
+                                     device=device)
+        rgb_u8 = np.clip(rgb.cpu().numpy() * 255, 0, 255).astype(np.uint8)
+        strip = np.concatenate([rgb_u8, colorize_depth(depth.cpu().numpy())], axis=1)
+        write_png(os.path.join(save_dir, f"render_{step:06d}.png"), strip)
+    except Exception as e:  # eval renders must never kill training
+        print(f"validation render failed at step {step}: {e}")
+
+
+def _save_training_curves(logger: MetricsLogger, save_dir: str) -> None:
+    """``training_curves.png``: loss and PSNR against the step (reference
+    src/train.py:189-204), drawn by ``viz/curves.py``.  A failure is
+    printed."""
+    if not logger.history:
+        return
+    try:
+        from danerf_tpu_torch.viz.curves import write_training_curves
+
+        write_training_curves(os.path.join(save_dir, "training_curves.png"), logger.history)
+    except Exception as e:
+        print(f"training-curve plot failed: {e}")

@@ -100,17 +100,75 @@ def test_cli_train_paths(scene, tmp_path, flags):
     assert ckpt["iteration"] == 3 and ckpt["appearance_embeddings"].shape == (2, 8)
 
 
-# --use_time is ported (test_cli_train_use_time_then_render): beside an
-# unported flag, the refusal names only that flag.
-@pytest.mark.parametrize("flag", [["--resume"], ["--use_time", "--resume"], ["--mesh_data", "2"],
-                                  ["--profile", "x"], ["--num_processes", "2"]],
-                         ids=["resume", "use_time", "mesh", "profile", "multihost"])
+# --use_time, --resume and --profile are ported (test_cli_train_use_time_then_render,
+# test_cli_train_resume_continues, test_cli_train_profile_writes_a_trace): beside
+# an unported flag, the refusal names only that flag.
+@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--num_processes", "2"]],
+                         ids=["mesh", "multihost"])
 def test_cli_train_refuses_unported_flags(flag):
     from danerf_tpu_torch.cli.main import main
 
     with pytest.raises(NotImplementedError, match="not yet ported") as err:
-        main(["train", "--device", "cpu", *flag])
-    assert "time" not in str(err.value)
+        main(["train", "--device", "cpu", "--resume", "--use_time", *flag])
+    assert "time" not in str(err.value) and "resume" not in str(err.value)
+
+
+def test_cli_train_resume_continues(scene, tmp_path):
+    """train --resume continues a 3-step run to 5: rows 4 and 5 are appended
+    to its metrics.jsonl and the final checkpoint is at step 5."""
+    from danerf_tpu_torch.cli.main import main
+
+    save = tmp_path / "run"
+    argv = ["train", "--dataset_path", str(scene), "--scene", "tiny", "--batch_size", "16",
+            "--save_dir", str(save), "--device", "cpu"]
+    main([*argv, "--iters", "3"])
+    main([*argv, "--iters", "5", "--resume"])
+    rows = [json.loads(line) for line in (save / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2, 3, 4, 5]
+    ckpt = torch.load(save / "checkpoint_final.pt", weights_only=False)
+    assert ckpt["iteration"] == 5 and ckpt["scheduler_state_dict"]["last_epoch"] == 5
+    assert "generator_state" in ckpt
+
+
+def test_cli_train_use_time_resume_continues(time_scene, tmp_path):
+    """The same under --use_time on the time-varying scene."""
+    from danerf_tpu_torch.cli.main import main
+
+    save = tmp_path / "run"
+    argv = ["train", "--use_time", "--dataset_path", str(tmp_path / "no_data"),
+            "--batch_size", "16", "--save_dir", str(save), "--device", "cpu"]
+    main([*argv, "--iters", "3"])
+    model, table, logger = main([*argv, "--iters", "5", "--resume"])
+    assert model.cfg.use_time and [r["step"] for r in logger.history] == [4, 5]
+    rows = [json.loads(line) for line in (save / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2, 3, 4, 5]
+    assert torch.load(save / "checkpoint_final.pt", weights_only=False)["iteration"] == 5
+
+
+def test_cli_train_profile_writes_a_trace(scene, tmp_path):
+    """train --profile DIR writes a torch.profiler trace of 20 steps into
+    DIR (that run's checkpoint under DIR/run), then trains as asked."""
+    from danerf_tpu_torch.cli.main import main
+
+    save, prof = tmp_path / "run", tmp_path / "prof"
+    main(["train", "--dataset_path", str(scene), "--scene", "tiny", "--iters", "2",
+          "--batch_size", "16", "--save_dir", str(save), "--device", "cpu", "--profile",
+          str(prof)])
+    (trace_file,) = prof.glob("trace_*.json")
+    assert "traceEvents" in json.loads(trace_file.read_text())
+    assert torch.load(prof / "run" / "checkpoint_final.pt",
+                      weights_only=False)["iteration"] == 20
+    rows = [json.loads(line) for line in (save / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2]
+
+
+def test_cli_version(capsys):
+    """--version prints the program and its version, and exits 0."""
+    from danerf_tpu_torch.cli.main import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["--version"])
+    assert e.value.code == 0 and capsys.readouterr().out.startswith("danerf-torch ")
 
 
 @pytest.fixture

@@ -742,3 +742,134 @@ def test_hier_onepass_step_matches_plain_and_two_kernel_step(dev, monkeypatch):
         assert abs(lk - lp) <= TOL["loss_k9"], other
         for a, b in zip(gk, gp):
             assert float((a - b).norm() / b.norm()) <= TOL["grad_rel"], other
+
+
+# ---------------------------------------------------------------- chained steps
+
+_PATHS = {"hier": ({}, {"march": 1, "march_bwd": 1, "merged_train": 1}),
+          "coarse_only": ({"num_importance": 0}, {"march_train": 1}),
+          "white_background": ({"white_background": True},
+                               {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
+          "per_sample": ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2}),
+          "use_time": ({"use_time": True},
+                       {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
+          "hier_onepass": ({"use_hier_onepass": True}, {"hier_onepass": 1})}
+
+
+def _chain_scene(cfg):
+    import numpy as np
+
+    from danerf_tpu_torch.data.dataset import RayDataset
+
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, size=(3, 16, 16, 3), dtype=np.uint8)
+    c2ws = np.stack([np.eye(4, dtype=np.float32)] * 3)
+    c2ws[:, 2, 3] = 4.0
+    c2ws[1, 0, 3], c2ws[2, 1, 3] = 0.5, -0.5
+    return RayDataset(imgs, imgs[..., 0], c2ws, 20.0, 2.0, 6.0,
+                      times=np.array([0.0, 0.5, 1.0], np.float32) if cfg.use_time else None)
+
+
+def _chain_run(dev, cfg, per_call, calls, batch=256):
+    """A fresh seeded state, 2 warm-up steps of 64 rays, then ``calls``
+    calls of make_train_step(steps_per_call=per_call); returns the state,
+    each call's launches and the metrics."""
+    from danerf_tpu_torch.train.trainer import init_model, make_optimizer, make_train_step
+
+    ds = _chain_scene(cfg)
+    model, table = init_model(cfg, ds.n_images, 0, dev)
+    opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pool = ds.device_arrays(cfg.white_background, device=dev)
+    warm = make_train_step(model, table, opt, sched, pool, cfg, 16, 16, 20.0, 64, gen, 1)
+    for _ in range(2):
+        warm()
+    step = make_train_step(model, table, opt, sched, pool, cfg, 16, 16, 20.0, batch, gen,
+                           per_call)
+    launches, out = [], []
+    for _ in range(calls):
+        fr.reset_launch_counts()
+        out.append(step())
+        launches.append(dict(fr.LAUNCHES))
+    torch.cuda.synchronize()
+    metrics = {n: torch.cat([m[n] for m in out]) for n in out[0]}
+    return (model, table, opt, sched, gen), launches, metrics, step
+
+
+def _assert_same(a, b):
+    (ma, ta, oa, sa, ga), (mb, tb, ob, sb, gb) = a, b
+    pa, pb = list(ma.parameters()) + [ta], list(mb.parameters()) + [tb]
+    for i, (p, q) in enumerate(zip(pa, pb)):
+        assert torch.equal(p, q), i
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(oa.state[p][k], ob.state[q][k]), (i, k)
+    assert torch.equal(oa.param_groups[0]["lr"], ob.param_groups[0]["lr"])
+    assert sa.last_epoch == sb.last_epoch
+    assert torch.equal(torch.rand(16, generator=ga, device=ga.device),
+                       torch.rand(16, generator=gb, device=gb.device))
+
+
+@pytest.mark.parametrize("path", list(_PATHS))
+def test_chained_steps_equal_eager_steps(dev, path):
+    """10 steps as one graph replay equal 10 eager steps bit for bit: the
+    parameters, table, Adam's moments and counts, the rate, StepLR, each
+    step's metrics and the generator's next draw; each of two replays counts
+    exactly the path's launches of 10 steps."""
+    over, per_step = _PATHS[path]
+    cfg = NeRFConfig(density_bias_init=0.5, **over)
+    chained, launches, m_c, step = _chain_run(dev, cfg, 10, 2)
+    eager, _, m_e, _ = _chain_run(dev, cfg, 1, 20)
+    _assert_same(chained, eager)
+    for n in m_e:
+        assert torch.equal(m_c[n], m_e[n]), n
+    assert launches == [{k: 10 * per_step.get(k, 0) for k in fr.LAUNCHES}] * 2
+    assert step.pool_bytes > 0 and bool(torch.isfinite(m_c["loss"]).all())
+
+
+def test_chained_steps_cross_rate_changes(dev):
+    """With scheduler_step_size=7 the rate changes inside replays: 3 replays
+    of 10 steps equal 30 eager steps bit for bit."""
+    cfg = NeRFConfig(density_bias_init=0.5, scheduler_step_size=7)
+    chained, _, m_c, _ = _chain_run(dev, cfg, 10, 3)
+    eager, _, m_e, _ = _chain_run(dev, cfg, 1, 30)
+    _assert_same(chained, eager)
+    assert torch.equal(m_c["loss"], m_e["loss"])
+    lr = float(chained[2].param_groups[0]["lr"])
+    assert lr == pytest.approx(cfg.learning_rate * cfg.scheduler_gamma ** (32 // 7))
+
+
+def test_chained_resume_equals_straight_run(dev, tmp_path):
+    """train() on the card, 10 steps a call: 24 steps with a checkpoint every
+    12 equal 12 steps, a resume and 12 more, bit for bit."""
+    import json
+    import os
+
+    from danerf_tpu_torch.train.trainer import train
+
+    cfg = NeRFConfig(density_bias_init=0.5, batch_size=256)
+    ds = _chain_scene(cfg)
+
+    def run(d, n, resume=False):
+        train(cfg, ds, save_dir=str(d), num_iterations=n, checkpoint_every=12, device=dev,
+              progress=False, resume=resume, log_path=os.path.join(d, "metrics.jsonl"))
+
+    run(tmp_path / "a", 24)
+    run(tmp_path / "b", 12)
+    run(tmp_path / "b", 24, resume=True)
+    a, b = (torch.load(tmp_path / d / "checkpoint_final.pt", map_location="cpu",
+                       weights_only=False) for d in ("a", "b"))
+    for k, v in a["model_state_dict"].items():
+        assert torch.equal(v, b["model_state_dict"][k]), k
+    for key in ("appearance_embeddings", "generator_state"):
+        assert torch.equal(a[key], b[key]), key
+    for i, st in a["optimizer_state_dict"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v, b["optimizer_state_dict"]["state"][i][k]), (i, k)
+    assert a["scheduler_state_dict"] == b["scheduler_state_dict"]
+
+    def rows(d):
+        with open(tmp_path / d / "metrics.jsonl") as f:
+            return [{k: v for k, v in json.loads(line).items() if k != "t"} for line in f]
+
+    assert [r["step"] for r in rows("b")] == list(range(1, 25))
+    assert rows("a")[12:] == rows("b")[12:]

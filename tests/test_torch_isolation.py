@@ -1,7 +1,8 @@
 """danerf_tpu_torch stands alone: it imports neither JAX nor danerf_tpu
 (it renders a frame, a frame of a time-conditioned model at two times, and
 takes a 64 + 64, a coarse-only, a per-sample and a time-conditioned
-training step with both blocked), and
+training step, runs the training loop with a resume and computes SSIM with
+both blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
 
@@ -87,6 +88,24 @@ opt, sched = make_optimizer(timed, list(model.parameters()) + [table])
 m = train_step(model, table, opt, sched, ds.device_arrays(device="cpu"), timed, 6, 5, 6.0, 4,
                torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(m["loss"])) and "coarse_mse" in m
+# the training loop (2 steps a call, a checkpoint at 2 with its validation
+# render, the curves, a resume to 5) and SSIM on the host and the device
+import os, tempfile
+from danerf_tpu_torch.train.metrics import ssim, ssim_device
+from danerf_tpu_torch.train.trainer import train
+ds.times = None
+loop = cfg.replace(batch_size=4, warmup_iters=1)
+with tempfile.TemporaryDirectory() as tmp:
+    train(loop, ds, save_dir=tmp, num_iterations=4, checkpoint_every=2, device="cpu",
+          progress=False, steps_per_call=2)
+    _, _, log = train(loop, ds, save_dir=tmp, num_iterations=5, device="cpu", progress=False,
+                      resume=True)
+    assert [r["step"] for r in log.history] == [5]
+    assert all(os.path.exists(os.path.join(tmp, f))
+               for f in ("render_000002.png", "training_curves.png"))
+img = torch.rand(12, 12, 3)
+assert abs(ssim(img.numpy(), img.numpy()) - 1) < 1e-9
+assert abs(float(ssim_device(img, img)) - 1) < 1e-5
 assert not any(k.split(".")[0] in ("jax", "danerf_tpu") for k in sys.modules)
 print("ISOLATED-OK")
 '''
