@@ -108,6 +108,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             use_hier_onepass, which has no CLI flag either, through train()
             (one K9 a step and nothing else); one metrics.jsonl row a step,
             finite losses and a rising PSNR.
+7a. fx      the depth-aware effects (danerf_tpu_torch/fx/, plain PyTorch
+            ops, no kernel of their own): each of the 14 with and without
+            depth on a seeded 800x800 frame and depth, on the card against
+            the port on the CPU with the same draws, within
+            fx.effects.levels_apart's tolerance (1 level; 0.1% of the pixels
+            where a threshold decides), under PyTorch's default TF32 flags
+            (restored after); then each effect's CUDA-event ms at 800x800
+            (median of 10 after a warm-up call).  7a-7d run before any
+            torch.profiler window.
+7b. serve_fx  `cli.main render --effect Fog --create_video`, then --effect
+            Hologram: two 400x400 medium frames each from the smoke
+            checkpoint; every file, the AVI read back (frame count, size,
+            pixels against the PNGs), exactly one K2 and one K5 a chunk
+            (launch counts zeroed just before each, read just after).
+7c. spiral_fx  the reference's pipeline through the CLI: `spiral` (12 frames
+            at 200x200, grayscale depth on frames 0 and 10, its AVI; one K2
+            and one K5 a frame), `effects` on its output (all 14: Fog on the
+            2 depth frames, the rest on 12, an AVI each), `preview` (Fog at
+            3 values of fog_start, manifest.json), `video`.
+7d. serve_timing  an 800x800 medium frame: render_frame alone (median of
+            3), the serial frame loop (render, fetch, two PNG encodes, one
+            frame after another), render_path, which overlaps the fetch and
+            the encodes with the next frame, without an effect, with Fog and
+            with Toon Shader (ms a frame over 4 frames after a warm-up
+            call; without an effect also over 12), the aligned spiral's ms
+            a frame, and apply_effect_to_frames' timings (load, device,
+            write) over it.
 8. timing   CUDA-event times of every kernel and its plain version, each
             beside its bound: K2 (want_field) and K5 on a 65,536-ray chunk,
             K3, K4, K6, K7 and K9 on a chunk and at B = 1024 (plain versions
@@ -131,7 +158,6 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             by kernel (tile, dW pass) beside torch.matmul over the same dW
             products (dw_cublas_ms, a yardstick only), and each profiled
             step by part (their tile, their dW pass, the rest).
-
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
 under "has_time"); the last line is the ok record.  Exits non-zero,
@@ -1955,6 +1981,323 @@ def step_timing(cfg, device, kernel_ms, kernels, profile):
     return out
 
 
+# ---------------------------------------------------------------- effects
+
+def fx_inputs(side, seed):
+    """A seeded uint8 frame and a depth map in [0, 1] with smooth structure,
+    a step at a third of the width and a little noise (on the host)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    img = torch.randint(0, 256, (side, side, 3), generator=g, dtype=torch.uint8)
+    yy, xx = torch.meshgrid(torch.arange(side), torch.arange(side), indexing="ij")
+    depth = 0.45 + 0.25 * torch.sin(xx / 7.0) * torch.cos(yy / 5.0)
+    depth = depth + 0.05 * torch.rand(side, side, generator=g) + 0.2 * (xx >= side // 3)
+    return img, depth.clamp(0, 1)
+
+
+def event_ms(fn, iters=10):
+    """Median and each of ``iters`` CUDA-event times of ``fn`` after a
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2], times
+
+
+def phase_fx(device, side=800):
+    """Each of the 14 effects, with and without depth, on a seeded 800x800
+    frame and depth: on the card and, with the same draws, through the port
+    on the CPU, within effects.levels_apart's tolerance, under PyTorch's
+    default TF32 flags (cuDNN on, matmul off; restored after); then each
+    effect's time on the card (with depth, its noise drawn on the card):
+    median of 10 CUDA-event times after a warm-up call."""
+    import torch
+
+    from danerf_tpu_torch.fx.effects import EFFECTS, apply_effect, draw_noise, levels_apart
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        img, depth = fx_inputs(side, 11)
+        img_d, depth_d = img.to(device), depth.to(device)
+        held, failures = {}, []
+        for name in EFFECTS:
+            for tag, dep, dep_d in (("depth", depth, depth_d), ("no_depth", None, None)):
+                draws = draw_noise(name, img.shape, torch.Generator().manual_seed(12), "cpu")
+                want = apply_effect(name, img, dep, draws=draws, device="cpu")
+                got = apply_effect(name, img_d, dep_d, draws=draws)
+                if got.device.type != "cuda" or got.dtype != torch.uint8:
+                    failures.append(f"{name} {tag}: {got.device} {got.dtype}")
+                apart = levels_apart(name, got, want)
+                held[f"{name} / {tag}"] = apart
+                if not apart["ok"]:
+                    failures.append(f"{name} {tag}: {apart}")
+        ms = {}
+        for name in EFFECTS:
+            gen = torch.Generator(device=device).manual_seed(13)
+            ms[name], _ = event_ms(lambda: apply_effect(name, img_d, depth_d, generator=gen))
+        flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                 "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    emit({"phase": "fx", "size": side, "tf32_flags": flags, "held": held, "ms": ms,
+          "failures": failures})
+    if failures:
+        raise AssertionError("effects on the card differ from the CPU: " + "; ".join(failures))
+    return ms
+
+
+def serve_launches(counts, want_k2k5):
+    """The render's launches: exactly ``want_k2k5`` K2 and K5, nothing else."""
+    want = {k: (want_k2k5 if k in ("march", "merged") else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+
+
+def check_video(path, pngs, fps):
+    """The AVI, read with the port's reader: one frame a PNG, each equal
+    to its PNG, at ``fps``."""
+    import numpy as np
+
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.viz.video import read_avi
+
+    frames, got_fps = read_avi(path)
+    want = np.stack([read_png(p) for p in pngs])
+    if frames.shape != want.shape or got_fps != fps or not np.array_equal(frames, want):
+        raise AssertionError(f"{path}: {frames.shape} at {got_fps} fps, expected "
+                             f"{want.shape} at {fps}, equal={np.array_equal(frames, want)}")
+    return list(frames.shape)
+
+
+def phase_serve_fx(cfg, out_dir, device, size=400):
+    """render --effect Fog --create_video, then --effect Hologram, each two
+    400x400 medium frames from the smoke checkpoint: every file, the video
+    read back against the PNGs, and exactly one K2 and one K5 a chunk."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.cli.main import main as cli_main
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    ckpt = os.path.join(out_dir, "smoke_model.pt")
+    frames = 2
+    chunks = -(-size * size // cfg.render_chunk)
+    plain = [read_png(os.path.join(out_dir, "render_medium", f"rgb_{i:03d}.png"))
+             for i in range(frames)]
+    runs = {}
+    for effect in ("Fog", "Hologram"):
+        run_dir = os.path.join(out_dir, f"serve_fx_{effect.lower()}")
+        argv = ["render", "--checkpoint", ckpt, "--output_dir", run_dir, "--frames",
+                str(frames), "--width", str(size), "--height", str(size), "--quality",
+                "medium", "--save_depth", "--effect", effect, "--create_video", "--fps", "24",
+                "--device", str(device), "--seed", "0"]
+        fr.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = cli_main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(fr.LAUNCHES)
+        serve_launches(counts, chunks * frames)
+        for i in range(frames):
+            for name in (f"rgb_{i:03d}.png", f"depth_{i:03d}.png", f"raw/depth_{i:03d}.npy"):
+                if not os.path.exists(os.path.join(run_dir, name)):
+                    raise AssertionError(f"{effect}: {name} was not written")
+        # render's default --scene, hotdog, names the video
+        shape = check_video(os.path.join(run_dir, "hotdog_render.avi"), written, 24)
+        got = [read_png(p) for p in written]
+        if effect == "Fog" and min(int(g.min()) for g in got) < 178:
+            raise AssertionError("Fog: a pixel below 0.7 x 255 (fog lets at most 30% through)")
+        if any(np.array_equal(g, p) for g, p in zip(got, plain)):
+            raise AssertionError(f"{effect}: a frame equals the unaffected render")
+        runs[effect] = {"frames": len(written), "seconds": secs, "launches": counts,
+                        "video": shape}
+    emit({"phase": "serve_fx", "size": size, **runs})
+    return runs
+
+
+def phase_spiral_fx(cfg, out_dir, device, n=12, size=200):
+    """The reference's pipeline through the CLI on the card: spiral (12
+    frames at 200x200, depth on frames 0 and 10, its video), effects on its
+    output (all 14: Fog on the 2 depth frames, the rest on 12, a video
+    each), preview (fog_start at three values), video."""
+    import json as _json
+
+    import torch
+
+    from danerf_tpu_torch.cli.main import main as cli_main
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.fx.effects import EFFECTS
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    ckpt = os.path.abspath(os.path.join(out_dir, "smoke_model.pt"))
+    work = os.path.join(out_dir, "spiral_fx")
+    os.makedirs(work, exist_ok=True)
+    chunks = -(-size * size // cfg.render_chunk)
+    report = {}
+    with contextlib.chdir(work):
+        fr.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = cli_main(["spiral", "--checkpoint", ckpt, "--output_dir", "sp", "--frames",
+                            str(n), "--width", str(size), "--height", str(size), "--fps", "30",
+                            "--device", str(device), "--seed", "0"])
+        torch.cuda.synchronize()
+        report["spiral_seconds"] = time.perf_counter() - t0
+        counts = dict(fr.LAUNCHES)
+        serve_launches(counts, chunks * n)
+        report["spiral_launches"] = counts
+        depth = sorted(f for f in os.listdir("output/sp") if f.startswith("depth_"))
+        if depth != ["depth_0000.png", "depth_0010.png"] or len(written) != n:
+            raise AssertionError(f"spiral wrote {len(written)} frames, depth {depth}")
+        if read_png("output/sp/depth_0000.png").shape != (size, size):
+            raise AssertionError("spiral depth is not a grayscale frame")
+        # spiral's default --scene, chair, names the video
+        report["spiral_video"] = check_video("output/sp/chair_spiral.avi", written, 30)
+
+        t0 = time.perf_counter()
+        names = cli_main(["effects", "--input_dir", "output/sp", "--device", str(device)])
+        report["effects_seconds"] = time.perf_counter() - t0
+        if names != list(EFFECTS):
+            raise AssertionError(f"effects ran {names}")
+        report["effects_frames"] = {}
+        for name in names:
+            slug = name.lower().replace(" ", "_")
+            outs = sorted(os.path.join("output/sp_effects", slug, f)
+                          for f in os.listdir(os.path.join("output/sp_effects", slug)))
+            if len(outs) != (2 if name == "Fog" else n):
+                raise AssertionError(f"effects {name}: {len(outs)} frames")
+            check_video(f"output/sp_effects/{slug}.avi", outs, 60)
+            report["effects_frames"][name] = len(outs)
+
+        with open("spec.json", "w") as f:
+            _json.dump({"effects": [{"name": "Fog", "sweep": {"fog_start": [0.0, 0.2, 0.4]}}]},
+                       f)
+        previews = cli_main(["preview", "--image", "output/sp/frame_0000.png", "--depth",
+                             "output/sp/depth_0000.png", "--spec", "spec.json", "--output_dir",
+                             "pv", "--device", str(device)])
+        with open("pv/manifest.json") as f:
+            manifest = _json.load(f)
+        if len(previews) != 3 or [m["params"]["fog_start"] for m in manifest] != [0.0, 0.2, 0.4]:
+            raise AssertionError(f"preview wrote {previews}, manifest {manifest}")
+        report["previews"] = [os.path.basename(p) for p in previews]
+
+        cli_main(["video", "--input_dir", "output/sp", "--output", "sp.mp4", "--pattern",
+                  "frame_*.png", "--fps", "30"])
+        report["video"] = check_video("sp.avi", written, 30)
+    emit({"phase": "spiral_fx", "frames": n, "size": size, **report})
+    return report
+
+
+def phase_serve_timing(cfg, model, out_dir, device, side=800, frames=4):
+    """One 800x800 medium frame four ways, in one call: render_frame alone
+    (median of 3 after a warm-up frame); the frame loop as it was before
+    the I/O overlap (render, fetch, two PNG encodes, one frame after
+    another: ms a frame over ``frames``); render_path, which overlaps the
+    fetch and the encodes with the next frame (ms a frame over ``frames``
+    after a warm-up call of one frame), without an effect, with Fog and with
+    Toon Shader, and without an effect over 3 x ``frames``; then
+    apply_effect_to_frames' timings (Toon Shader) over an aligned spiral of
+    ``frames`` 800x800 frames."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.fx.batch import apply_effect_to_frames
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.render.frames import render_aligned_spiral, render_path
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.viz.depth import colorize_depth
+    from danerf_tpu_torch.viz.paths import camera_path
+    from danerf_tpu_torch.viz.png import write_png
+
+    emb = torch.randn(cfg.appearance_dim, generator=torch.Generator().manual_seed(3))
+    focal = 0.5 * side / np.tan(0.5 * 0.6911)
+    c2ws = camera_path("circle", frames, cfg.scene)
+    chunks = -(-side * side // cfg.render_chunk)
+    work = os.path.join(out_dir, "serve_timing")
+
+    def frame(i):
+        gen = torch.Generator(device=device).manual_seed(i)
+        return render_frame(model, cfg, c2ws[i % frames], side, side, focal,
+                            appearance_embedding=emb, perturb=True, generator=gen,
+                            device=device)
+
+    frame(0)
+    torch.cuda.synchronize()
+    alone = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        frame(i)
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+
+    serial_dir = os.path.join(work, "serial")
+    os.makedirs(serial_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    for i in range(frames):
+        gen = torch.Generator(device=device).manual_seed(i)
+        rgb, depth, _ = render_frame(model, cfg, c2ws[i], side, side, focal,
+                                     appearance_embedding=emb, perturb=True,
+                                     generator=gen, device=device)
+        rgb_u8 = (rgb * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        depth_np = depth.cpu().numpy()
+        write_png(os.path.join(serial_dir, f"rgb_{i:03d}.png"), rgb_u8)
+        write_png(os.path.join(serial_dir, f"depth_{i:03d}.png"), colorize_depth(depth_np))
+    serial = (time.perf_counter() - t0) * 1e3 / frames
+
+    paths = {}
+    # the last frame's PNGs are written after its render: over ``frames``
+    # frames that tail is part of each frame's ms; 3 x ``frames`` without an
+    # effect shows the steady state
+    for effect, n in ((None, frames), ("Fog", frames), ("Toon Shader", frames),
+                      (None, 3 * frames)):
+        tag = f"{effect or 'none'} x {n}"
+        run_dir = os.path.join(work, tag.lower().replace(" ", "_"))
+        kw = dict(appearance_embedding=emb, quality="medium", width=side, height=side,
+                  effect=effect, device=device)
+        render_path(model, cfg, run_dir + "_warm", num_frames=1, **kw)
+        fr.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = render_path(model, cfg, run_dir, num_frames=n, **kw)
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        counts = dict(fr.LAUNCHES)
+        serve_launches(counts, chunks * n)
+        if len(written) != n:
+            raise AssertionError(f"render_path {tag}: {len(written)} frames")
+        paths[tag] = {"ms_per_frame": ms, "launches": counts}
+
+    spiral_dir = os.path.join(work, "spiral")
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    render_aligned_spiral(model, cfg, spiral_dir, appearance_embedding=emb, num_frames=frames,
+                          height=side, width=side, make_video=False, device=device)
+    spiral_ms = (time.perf_counter() - t0) * 1e3 / frames
+    spiral_launches = dict(fr.LAUNCHES)
+    serve_launches(spiral_launches, chunks * frames)
+    batch = {}
+    apply_effect_to_frames(spiral_dir, os.path.join(work, "batch", "toon_shader"),
+                           "Toon Shader", make_video=False, timings=batch, device=device)
+    if batch["frames"] != frames:
+        raise AssertionError(f"apply_effect_to_frames timed {batch}")
+    report = {"size": side, "frames": frames, "render_frame_ms": sorted(alone)[1],
+              "render_frame_each_ms": alone,
+              "serial_loop_ms_per_frame": serial, "render_path": paths,
+              "spiral_ms_per_frame": spiral_ms, "spiral_launches": spiral_launches,
+              "batch_toon_shader": batch}
+    emit({"phase": "serve_timing", **report})
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2003,6 +2346,13 @@ def main(argv=None):
                       "per_sample": phase_train(args.out, "per_sample", 100, render=False),
                       "time": phase_train(args.out, "time", 100, render=True),
                       "hier_onepass": phase_train(args.out, "hier_onepass", 100, render=False)}
+    # the depth-aware effects and the renders that feed them, timed before
+    # any torch.profiler window (phase_train_timing's): timed after one, the
+    # effects' eager launches have run up to 2.3x slower on the H100
+    phase_fx(device)
+    phase_serve_fx(cfg, args.out, device)
+    phase_spiral_fx(cfg, args.out, device)
+    phase_serve_timing(cfg, model, args.out, device)
     timing, bound_by = phase_timing(cfg, model, device, chunk)
     tt, tt_bound_by = phase_train_timing(cfg, model, device, chunk)
     timing_t, bound_by_t = phase_timing(cfg_t, model_t, device, chunk_t, frame_t=0.5)

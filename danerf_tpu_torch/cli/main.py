@@ -1,5 +1,5 @@
 """Command line of the port (counterpart of danerf_tpu/cli/main.py):
-``python -m danerf_tpu_torch.cli.main {train,render} ...``.
+``python -m danerf_tpu_torch.cli.main {train,render,spiral,effects,preview,video} ...``.
 
 ``train`` takes the JAX CLI's flags plus ``--device`` (default cuda) and
 ``--checkpoint_every``, and writes reference-format ``.pt`` checkpoints,
@@ -10,7 +10,15 @@ the latest checkpoint there, and ``--profile DIR`` first writes a
 flags plus ``--device`` and ``--seed``; ``--checkpoint`` is a
 reference-format ``.pt`` (such as ``<save_dir>/checkpoint_final.pt``), and
 without it ``render`` takes the latest checkpoint of ``checkpoints_<scene>``
-(``train``'s default ``--save_dir``), as the JAX CLI does.
+(``train``'s default ``--save_dir``), as the JAX CLI does.  ``render
+--effect NAME`` applies a depth-aware effect to each frame on the device,
+and ``--create_video`` encodes the frames as an uncompressed AVI.
+``spiral`` renders the aligned spiral (``frame_NNNN.png``, a grayscale
+``depth_NNNN.png`` every 10th frame, a video) into ``output/<--output_dir>``
+(the JAX CLI's prefix), with ``--device`` and ``--seed``; ``effects``
+applies one effect or all of them to such a directory, ``preview`` writes
+parameter-sweep previews from a JSON spec (both with ``--device``), and
+``video`` encodes an image sequence.
 Flags whose machinery is not yet ported raise instead of being ignored.
 ``--use_time`` trains and renders the time-conditioned variant; ``render``
 warns when ``--time`` or ``--animate_time`` come without it (the JAX CLI
@@ -90,10 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--spiral_loops", type=float, default=2.0)
     r.add_argument("--height_range", type=float, nargs=2, default=[-0.5, 0.5])
     r.add_argument("--effect", type=str, default=None,
-                   help="depth-aware effect (not yet ported)")
+                   help="depth-aware effect applied to each frame on the device")
     r.add_argument("--save_depth", action="store_true")
     r.add_argument("--raw_output", action="store_true")
-    r.add_argument("--create_video", action="store_true", help="(not yet ported)")
+    r.add_argument("--create_video", action="store_true",
+                   help="encode the frames as <scene>_render.avi (uncompressed)")
     r.add_argument("--fps", type=int, default=30)
     r.add_argument("--no_pallas", action="store_true",
                    help="take the reference route instead of the kernels")
@@ -111,7 +120,54 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sweep t from 0 to 1 across the rendered frames (--use_time)")
     r.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     r.add_argument("--seed", type=int, default=0,
-                   help="seeds the per-frame sampling generators")
+                   help="seeds the per-frame sampling and effect generators")
+
+    s = sub.add_parser("spiral", help="aligned spiral render + video")
+    s.add_argument("--scene", type=str, default="chair")
+    s.add_argument("--dataset_path", type=str, default="data/nerf_synthetic")
+    s.add_argument("--checkpoint", type=str, default=None,
+                   help="reference-format .pt checkpoint (default: the latest in "
+                        "checkpoints_<scene>)")
+    s.add_argument("--output_dir", type=str, default="spiral_render",
+                   help="written under output/ unless it starts with output/")
+    s.add_argument("--frames", type=int, default=120)
+    s.add_argument("--fps", type=int, default=60)
+    s.add_argument("--loops", type=float, default=2)
+    s.add_argument("--rotation", type=str, default="x", choices=["x", "y", "z", "none"])
+    s.add_argument("--width", type=int, default=800)
+    s.add_argument("--height", type=int, default=800)
+    s.add_argument("--no_pallas", action="store_true",
+                   help="take the reference route instead of the kernels")
+    s.add_argument("--mesh_data", type=int, default=1,
+                   help="multi-device frame sharding (not yet ported; must be 1)")
+    s.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    s.add_argument("--seed", type=int, default=0,
+                   help="seeds the per-frame generators")
+
+    e = sub.add_parser("effects", help="apply effects to rendered frames")
+    e.add_argument("--input_dir", type=str, required=True)
+    e.add_argument("--output_dir", type=str, default=None)
+    e.add_argument("--effect", type=str, default=None, help="one effect; default: all")
+    e.add_argument("--skip_effects", type=str, nargs="+", default=[])
+    e.add_argument("--fog_only", action="store_true")
+    e.add_argument("--fps", type=int, default=60)
+    e.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+
+    pv = sub.add_parser("preview", help="parameter-sweep effect previews")
+    pv.add_argument("--image", type=str, required=True)
+    pv.add_argument("--depth", type=str, default=None)
+    pv.add_argument("--spec", type=str, required=True,
+                    help="JSON spec: {effects: [{name, params?, sweep?}]}")
+    pv.add_argument("--output_dir", type=str, default="previews")
+    pv.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+
+    v = sub.add_parser("video", help="encode an image sequence to video (uncompressed AVI)")
+    v.add_argument("--input_dir", type=str, required=True)
+    v.add_argument("--output", type=str, required=True,
+                   help="a name not ending in .avi becomes <root>.avi")
+    v.add_argument("--pattern", type=str, default="rgb_*.png")
+    v.add_argument("--fps", type=int, default=30)
+    v.add_argument("--resolution", type=int, nargs=2, default=None)
     return p
 
 
@@ -197,12 +253,8 @@ def cmd_train(args):
 
 def _not_ported(args) -> list:
     bad = []
-    if args.effect is not None:
-        bad.append("--effect")
     if args.mesh_data != 1:
         bad.append("--mesh_data != 1")
-    if args.create_video:
-        bad.append("--create_video")
     if args.checkpoint is not None and not args.checkpoint.endswith(".pt"):
         bad.append("a danerf_tpu (Orbax) checkpoint directory; pass a .pt")
     return bad
@@ -252,20 +304,80 @@ def cmd_render(args):
                        start_frame=args.start_frame, end_frame=args.end_frame,
                        camera_path_kind=args.camera_path,
                        spiral_loops=args.spiral_loops,
-                       height_range=tuple(args.height_range),
+                       height_range=tuple(args.height_range), effect=args.effect,
                        save_depth=args.save_depth, raw_output=args.raw_output,
+                       make_video=args.create_video, fps=args.fps,
                        dataset_width=ds.width, focal=ds.focal, seed=args.seed,
                        chunk=args.chunk, time=args.time if args.use_time else None,
                        animate_time=args.use_time and args.animate_time, device=device)
 
 
+def cmd_spiral(args):
+    import os
+
+    from danerf_tpu_torch import resolve_device
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.dataset import scene_intrinsics
+    from danerf_tpu_torch.render.frames import render_aligned_spiral
+
+    bad = _not_ported(args)
+    if bad:
+        raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
+    device = resolve_device(args.device)
+    cfg = NeRFConfig(scene=args.scene, dataset_path=args.dataset_path,
+                     use_kernels=not args.no_pallas)
+    ds = scene_intrinsics(cfg, "train")
+    model, emb, cfg = _load_model(args, cfg, device)
+    out = args.output_dir
+    if not out.startswith("output/"):  # the reference's prefix, as the JAX CLI keeps it
+        out = os.path.join("output", out)
+    return render_aligned_spiral(model, cfg, out, appearance_embedding=emb,
+                                 num_frames=args.frames, fps=args.fps, loops=args.loops,
+                                 rotation_axis=args.rotation, height=args.height,
+                                 width=args.width, focal=ds.focal, seed=args.seed,
+                                 device=device)
+
+
+def cmd_effects(args):
+    import os
+
+    from danerf_tpu_torch.fx.batch import apply_all_effects, apply_effect_to_frames
+
+    out = args.output_dir or args.input_dir + "_effects"
+    if args.effect:
+        return apply_effect_to_frames(args.input_dir,
+                                      os.path.join(out, args.effect.lower().replace(" ", "_")),
+                                      args.effect, fps=args.fps, device=args.device)
+    return apply_all_effects(args.input_dir, out, fog_only=args.fog_only,
+                             skip=args.skip_effects, fps=args.fps, device=args.device)
+
+
+def cmd_preview(args):
+    from danerf_tpu_torch.fx.preview import preview_from_files
+
+    written = preview_from_files(args.image, args.depth, args.spec, args.output_dir,
+                                 device=args.device)
+    print(f"wrote {len(written)} previews to {args.output_dir}")
+    return written
+
+
+def cmd_video(args):
+    from danerf_tpu_torch.viz.video import create_video_from_images
+
+    ok = create_video_from_images(args.input_dir, args.output, args.pattern, args.fps,
+                                  tuple(args.resolution) if args.resolution else None)
+    if not ok:
+        sys.exit(f"no images matching {args.pattern} in {args.input_dir}")
+    return ok
+
+
+COMMANDS = {"train": cmd_train, "render": cmd_render, "spiral": cmd_spiral,
+            "effects": cmd_effects, "preview": cmd_preview, "video": cmd_video}
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.cmd == "train":
-        return cmd_train(args)
-    if args.cmd == "render":
-        return cmd_render(args)
-    raise SystemExit(f"unknown command {args.cmd!r}")
+    return COMMANDS[args.cmd](args)
 
 
 if __name__ == "__main__":

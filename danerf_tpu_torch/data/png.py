@@ -25,17 +25,36 @@ def _chunks(data: bytes):
         pos += 12 + n
 
 
+def _unfilter_rows(ftype: np.ndarray, line: np.ndarray) -> np.ndarray:
+    """Undo None (0), Sub (1) and Up (2) filters a row at a time: Sub is a
+    running sum along the row, Up adds the reconstructed row above."""
+    out = np.empty_like(line)
+    prev = np.zeros_like(line[0])
+    for y, f in enumerate(ftype):
+        cur = line[y]
+        if f == 1:
+            cur = np.cumsum(cur, axis=0)
+        elif f == 2:
+            cur = cur + prev
+        prev = out[y] = cur & 0xFF
+    return out.astype(np.uint8)
+
+
 def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     """Undo the per-scanline filters; raw is (h, 1 + w*bpp) uint8.
 
-    Pixel (y, x) depends on its reconstructed left (a), upper (b) and
-    upper-left (c) neighbours, so the pixels of one anti-diagonal x + y = k
-    are independent: the loop runs over the h + w - 1 anti-diagonals, each
-    step vectorized over its pixels (each row with its own filter)."""
+    Without the Average and Paeth filters (this port's writer uses None on
+    every row) the rows are undone one after another.  Otherwise pixel
+    (y, x) depends on its reconstructed left (a), upper (b) and upper-left
+    (c) neighbours, so the pixels of one anti-diagonal x + y = k are
+    independent: the loop runs over the h + w - 1 anti-diagonals, each step
+    vectorized over its pixels (each row with its own filter)."""
     ftype = raw[:, 0].astype(np.int32)
     if np.any(ftype > 4):
         raise ValueError(f"bad PNG filter type {int(ftype.max())}")
     line = raw[:, 1:].reshape(h, w, bpp).astype(np.int32)
+    if not np.any(ftype > 2):
+        return _unfilter_rows(ftype, line)
     out = np.zeros((h + 1, w + 1, bpp), np.int32)      # a zero row and column before
     for k in range(h + w - 1):
         y = np.arange(max(0, k - w + 1), min(h, k + 1))

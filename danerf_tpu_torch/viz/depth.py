@@ -23,3 +23,9 @@ def colorize_depth(depth: np.ndarray) -> np.ndarray:
     xa[xa == len(_VIRIDIS)] = len(_VIRIDIS) - 1
     idx = np.clip(xa, 0, len(_VIRIDIS) - 1).astype(np.int64)
     return (_VIRIDIS[idx] * 255).astype(np.uint8)
+
+
+def depth_to_gray_u8(depth: np.ndarray) -> np.ndarray:
+    """uint8 (H, W) grayscale depth: the normalised depth times 255,
+    truncated (the aligned spiral's depth_NNNN.png)."""
+    return (normalize_depth(depth) * 255).astype(np.uint8)

@@ -291,3 +291,112 @@ def test_cli_render_without_any_checkpoint_exits(scene, tmp_path, monkeypatch):
                                          "--checkpoint"):
         main(["render", "--dataset_path", str(scene), "--scene", "tiny", "--output_dir",
               str(tmp_path / "frames"), "--frames", "1", "--device", "cpu"])
+
+
+# The subcommands of the depth-aware effects pipeline: the JAX CLI's flags and
+# defaults, plus the port's own (--device; --seed for spiral).
+EXTRA_FLAGS = {"spiral": {"--device": "cuda", "--seed": 0}, "effects": {"--device": "cuda"},
+               "preview": {"--device": "cuda"}, "video": {}}
+
+
+def _flags(parser, cmd):
+    sub = next(a for a in parser._actions if a.dest == "cmd").choices[cmd]
+    return {a.option_strings[0]: a.default for a in sub._actions
+            if a.option_strings and a.option_strings[0] != "-h"}
+
+
+@pytest.mark.parametrize("cmd", list(EXTRA_FLAGS))
+def test_cli_subcommand_flags_match_jax(cmd):
+    from danerf_tpu.cli.main import build_parser as j_build_parser
+    from danerf_tpu_torch.cli.main import build_parser
+
+    assert _flags(build_parser(), cmd) == {**_flags(j_build_parser(), cmd), **EXTRA_FLAGS[cmd]}
+
+
+def _small_checkpoint(tmp_path):
+    from danerf_tpu_torch.models.nerf import NeRF
+
+    ckpt = tmp_path / "m.pt"
+    torch.save({"model_state_dict": NeRF(_Small(), torch.Generator().manual_seed(0)).state_dict(),
+                "appearance_embeddings": torch.randn(2, 8), "iteration": 0}, ckpt)
+    return str(ckpt)
+
+
+def test_cli_spiral_effects_preview_video(scene, tmp_path, monkeypatch, capsys):
+    """spiral -> effects -> preview -> video on the CPU, the reference's
+    pipeline: spiral writes 11 frames under output/ with depth on frames 0
+    and 10 and its video; effects runs all 14 (Fog on the 2 depth frames)
+    with a video each; preview sweeps fog_start; video encodes the frames."""
+    from danerf_tpu_torch.cli.main import main
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.fx import EFFECTS
+    from danerf_tpu_torch.viz.video import read_avi
+
+    ckpt = _small_checkpoint(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    written = main(["spiral", "--checkpoint", ckpt, "--dataset_path", str(scene), "--scene",
+                    "tiny", "--output_dir", "sp", "--frames", "11", "--width", "8", "--height",
+                    "6", "--device", "cpu", "--seed", "1", "--fps", "12"])
+    assert written == [os.path.join("output", "sp", f"frame_{i:04d}.png") for i in range(11)]
+    assert sorted(p.name for p in (tmp_path / "output" / "sp").glob("depth_*")) == [
+        "depth_0000.png", "depth_0010.png"]
+    frames, fps = read_avi("output/sp/tiny_spiral.avi")
+    assert frames.shape == (11, 6, 8, 3) and fps == 12
+
+    names = main(["effects", "--input_dir", "output/sp", "--device", "cpu"])
+    assert names == list(EFFECTS)
+    for name in names:
+        slug = name.lower().replace(" ", "_")
+        outs = sorted(p.name for p in (tmp_path / "output" / "sp_effects" / slug).iterdir())
+        assert outs == (["frame_0000.png", "frame_0010.png"] if name == "Fog" else
+                        [f"frame_{i:04d}.png" for i in range(11)]), name
+        assert read_avi(f"output/sp_effects/{slug}.avi")[0].shape[0] == len(outs)
+    one = main(["effects", "--input_dir", "output/sp", "--effect", "Sepia", "--output_dir",
+                "one", "--device", "cpu"])
+    assert len(one) == 11 and os.path.exists("one/sepia.avi")
+
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"effects": [{"name": "Fog",
+                                             "sweep": {"fog_start": [0.0, 0.2, 0.4]}}]}))
+    capsys.readouterr()
+    previews = main(["preview", "--image", "output/sp/frame_0000.png", "--depth",
+                     "output/sp/depth_0000.png", "--spec", str(spec), "--output_dir", "pv",
+                     "--device", "cpu"])
+    assert [os.path.basename(p) for p in previews] == [
+        f"fog__fog_start={v:g}.png" for v in (0.0, 0.2, 0.4)]
+    assert "wrote 3 previews to pv" in capsys.readouterr().out
+    assert len(json.loads((tmp_path / "pv" / "manifest.json").read_text())) == 3
+    assert read_png(previews[0]).shape == (6, 8, 3)
+
+    assert main(["video", "--input_dir", "output/sp", "--output", "v.mp4", "--pattern",
+                 "frame_*.png", "--fps", "5", "--resolution", "16", "12"])
+    frames, fps = read_avi("v.avi")
+    assert frames.shape == (11, 12, 16, 3) and fps == 5
+    with pytest.raises(SystemExit, match="no images matching"):
+        main(["video", "--input_dir", "output/sp", "--output", "w.avi"])
+
+
+def test_cli_render_effect_and_video(scene, tmp_path):
+    """render --effect Fog --create_video writes the fogged frames and
+    <scene>_render.avi of them; an unknown effect raises the JAX KeyError;
+    --mesh_data 2 is still refused, by render and by spiral."""
+    from danerf_tpu_torch.cli.main import main
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.viz.video import read_avi
+
+    ckpt = _small_checkpoint(tmp_path)
+    out = tmp_path / "frames"
+    argv = ["render", "--checkpoint", ckpt, "--dataset_path", str(scene), "--scene", "tiny",
+            "--output_dir", str(out), "--frames", "2", "--width", "8", "--height", "6",
+            "--quality", "medium", "--device", "cpu"]
+    written = main([*argv, "--effect", "Fog", "--create_video", "--fps", "4"])
+    assert written == [str(out / "rgb_000.png"), str(out / "rgb_001.png")]
+    frames, fps = read_avi(str(out / "tiny_render.avi"))
+    assert fps == 4
+    np.testing.assert_array_equal(frames, np.stack([read_png(p) for p in written]))
+    assert frames.min() >= 178   # fog: at most 30% of the scene shows through
+    with pytest.raises(KeyError, match="unknown effect 'nope'"):
+        main([*argv, "--effect", "nope"])
+    for cmd in (argv, ["spiral", "--checkpoint", ckpt, "--device", "cpu"]):
+        with pytest.raises(NotImplementedError, match="--mesh_data != 1"):
+            main([*cmd, "--mesh_data", "2"])

@@ -2,7 +2,9 @@
 training kernels K4, K7, the per-sample field K1 with its backward K8, and
 the one-kernel hierarchical training step K9), and their has_time variants
 (use_time), against their plain versions, on the card, and the kernel
-launches of each training path.
+launches of each training path; and the depth-aware effects on the card
+against the CPU under PyTorch's default TF32 flags, and ``render --effect``
+with its video.
 
 These need a GPU with ``nvcc``: on a host without CUDA each test skips
 (decided in the fixture, not at import).  On the card, whose machine has no
@@ -873,3 +875,66 @@ def test_chained_resume_equals_straight_run(dev, tmp_path):
 
     assert [r["step"] for r in rows("b")] == list(range(1, 25))
     assert rows("a")[12:] == rows("b")[12:]
+
+
+@pytest.fixture
+def tf32_defaults(dev):
+    """PyTorch's own TF32 flags (cuDNN on, matmul off), which ``dev`` turns
+    off: the effects must hold whatever the global flags say."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    yield dev
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _effect_inputs(h=240, w=320, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    img = torch.randint(0, 256, (h, w, 3), generator=g, dtype=torch.uint8)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    depth = 0.45 + 0.25 * torch.sin(xx / 7.0) * torch.cos(yy / 5.0)
+    depth = (depth + 0.05 * torch.rand(h, w, generator=g) + 0.2 * (xx >= w // 3)).clamp(0, 1)
+    return img, depth
+
+
+@pytest.mark.parametrize("with_depth", [True, False], ids=["depth", "no_depth"])
+@pytest.mark.parametrize("name", ["Original", "Toon Shader", "Color Boost", "Sepia", "Bloom",
+                                  "Vignette", "Night Vision", "Film Grain", "Pencil Sketch",
+                                  "Cross Processing", "Posterize", "Neon Glow", "Hologram",
+                                  "Fog"])
+def test_effect_on_card_matches_cpu(tf32_defaults, name, with_depth):
+    """Each effect on the card against the port on the CPU with the same
+    draws, within effects.levels_apart's tolerance, under PyTorch's default
+    TF32 flags."""
+    from danerf_tpu_torch.fx.effects import apply_effect, draw_noise, levels_apart
+
+    img, depth = _effect_inputs()
+    dep = depth if with_depth else None
+    draws = draw_noise(name, img.shape, torch.Generator().manual_seed(1), "cpu")
+    want = apply_effect(name, img, dep, draws=draws, device="cpu")
+    got = apply_effect(name, img.to(tf32_defaults), None if dep is None else dep.to(tf32_defaults),
+                       draws=draws)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    apart = levels_apart(name, got, want)
+    assert apart["ok"], apart
+
+
+def test_cli_render_effect_on_card(tf32_defaults, tmp_path):
+    """render --effect Hologram --create_video on the card: K2 and K5 a
+    chunk, the video's frames the PNGs."""
+    from danerf_tpu_torch.cli.main import main
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.viz.video import read_avi
+
+    model = NeRF(NeRFConfig(density_bias_init=0.5), torch.Generator().manual_seed(0))
+    ckpt = tmp_path / "m.pt"
+    torch.save({"model_state_dict": model.state_dict(), "iteration": 0}, ckpt)
+    fr.reset_launch_counts()
+    written = main(["render", "--checkpoint", str(ckpt), "--output_dir", str(tmp_path / "out"),
+                    "--frames", "2", "--width", "64", "--height", "64", "--quality", "medium",
+                    "--effect", "Hologram", "--create_video", "--dataset_path",
+                    str(tmp_path / "none")])
+    assert fr.LAUNCHES["march"] == 2 and fr.LAUNCHES["merged"] == 2
+    frames, _ = read_avi(str(tmp_path / "out" / "hotdog_render.avi"))
+    assert frames.shape == (2, 64, 64, 3)
+    for frame, path in zip(frames, written):
+        assert (frame == read_png(path)).all()

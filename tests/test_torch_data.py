@@ -83,6 +83,24 @@ def test_png_decoder_matches_pillow(tmp_path, channels):
         np.testing.assert_array_equal(read_png(path), np.asarray(im))
 
 
+@pytest.mark.parametrize("filters", [[0], [2], [1], [0, 1, 2], [1, 4]],
+                         ids=["none", "up", "sub", "none_sub_up", "sub_paeth"])
+def test_png_decoder_row_filters(tmp_path, filters):
+    """Rows filtered with None, Sub and Up only are undone a row at a time
+    (the port's own writer uses None); with Average or Paeth in the mix,
+    along the anti-diagonals: both give the image back."""
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.viz.png import write_png
+
+    img = np.random.default_rng(7).integers(0, 256, size=(13, 10, 3), dtype=np.uint8)
+    path = os.path.join(tmp_path, "x.png")
+    with open(path, "wb") as f:
+        f.write(_png_bytes(img, filters=filters))
+    np.testing.assert_array_equal(read_png(path), img)
+    write_png(path, img[..., 0])
+    np.testing.assert_array_equal(read_png(path), img[..., 0])
+
+
 def test_png_decoder_refuses_unsupported(tmp_path):
     from danerf_tpu_torch.data.png import read_png
 

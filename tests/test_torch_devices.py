@@ -1,5 +1,6 @@
 """The port's entry points run on the card unless the caller asks for the CPU:
-``RayDataset.device_arrays`` and ``params_from_jax_module`` default to
+``RayDataset.device_arrays``, ``params_from_jax_module`` and, on numpy
+input, ``fx.apply_effect`` and ``fx.apply_effect_to_frames`` default to
 ``"cuda"`` and, without CUDA, raise instead of carrying on on the CPU;
 ``device="cpu"`` puts their tensors on the CPU."""
 
@@ -38,3 +39,35 @@ def test_entry_point_defaults_to_the_card(make):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert make(device="cpu").device.type == "cpu"
+
+
+def _effect(**kw):
+    from danerf_tpu_torch.fx import apply_effect
+
+    img = np.random.default_rng(0).integers(0, 256, (6, 5, 3), dtype=np.uint8)
+    return apply_effect("Toon Shader", img, np.linspace(0, 1, 30).reshape(6, 5), **kw)
+
+
+def _frames(tmp_path, **kw):
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.fx import apply_effect_to_frames
+    from danerf_tpu_torch.viz.png import write_png
+
+    src = tmp_path / "in"
+    src.mkdir(exist_ok=True)
+    write_png(str(src / "frame_0000.png"), np.full((6, 5, 3), 100, np.uint8))
+    (out,) = apply_effect_to_frames(str(src), str(tmp_path / "out" / "x"), "Sepia",
+                                    make_video=False, skip_existing=False, **kw)
+    return torch.from_numpy(read_png(out))
+
+
+@pytest.mark.parametrize("which", ["apply_effect", "apply_effect_to_frames"])
+def test_effects_default_to_the_card(tmp_path, which):
+    run = _effect if which == "apply_effect" else (lambda **kw: _frames(tmp_path, **kw))
+    if torch.cuda.is_available():
+        run()
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    out = run(device="cpu")
+    assert out.dtype == torch.uint8 and out.shape == (6, 5, 3) and out.device.type == "cpu"

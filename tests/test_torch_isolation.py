@@ -1,8 +1,9 @@
-"""danerf_tpu_torch stands alone: it imports neither JAX nor danerf_tpu
-(it renders a frame, a frame of a time-conditioned model at two times, and
-takes a 64 + 64, a coarse-only, a per-sample and a time-conditioned
-training step, runs the training loop with a resume and computes SSIM with
-both blocked), and
+"""danerf_tpu_torch stands alone: it imports neither JAX nor danerf_tpu,
+nor an imaging library (it renders a frame, a frame of a time-conditioned
+model at two times, and takes a 64 + 64, a coarse-only, a per-sample and a
+time-conditioned training step, runs the training loop with a resume,
+computes SSIM, applies an effect and renders an aligned-spiral frame with
+its video with JAX, danerf_tpu, OpenCV, PIL and matplotlib blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
 
@@ -21,7 +22,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "danerf_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "danerf_tpu", "cv2", "PIL", "matplotlib"):
             raise ModuleNotFoundError(f"blocked import of {name}")
         return None
 
@@ -106,7 +107,21 @@ with tempfile.TemporaryDirectory() as tmp:
 img = torch.rand(12, 12, 3)
 assert abs(ssim(img.numpy(), img.numpy()) - 1) < 1e-9
 assert abs(float(ssim_device(img, img)) - 1) < 1e-5
-assert not any(k.split(".")[0] in ("jax", "danerf_tpu") for k in sys.modules)
+# an effect with depth, a spiral frame with its grayscale depth, the AVI writer
+from danerf_tpu_torch.fx import apply_effect
+from danerf_tpu_torch.render.frames import render_aligned_spiral
+from danerf_tpu_torch.viz.video import read_avi
+out = apply_effect("Toon Shader", torch.randint(0, 256, (9, 7, 3), dtype=torch.uint8),
+                   torch.rand(9, 7))
+assert out.dtype == torch.uint8 and out.shape == (9, 7, 3)
+with tempfile.TemporaryDirectory() as tmp:
+    model0 = NeRF(cfg, torch.Generator().manual_seed(0))
+    render_aligned_spiral(model0, cfg, tmp, num_frames=1, height=6, width=5, device="cpu")
+    assert os.path.exists(os.path.join(tmp, "depth_0000.png"))
+    frames, fps = read_avi(os.path.join(tmp, "lego_spiral.avi"))
+    assert frames.shape == (1, 6, 5, 3) and fps == 60
+assert not any(k.split(".")[0] in ("jax", "danerf_tpu", "cv2", "PIL", "matplotlib")
+               for k in sys.modules)
 print("ISOLATED-OK")
 '''
 
@@ -129,6 +144,14 @@ def test_sources_name_no_jax_module():
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+
+
+def test_sources_import_no_imaging_library():
+    """The card's machine has no imaging library: the port reads and writes
+    PNGs and AVIs itself, with no optional import of one either."""
+    pattern = re.compile(r"^\s*(import (cv2|PIL|matplotlib)|from (cv2|PIL|matplotlib)\b)", re.M)
+    files = list((ROOT / "danerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())] == []
 
 
 def test_kernel_sources_present():

@@ -133,18 +133,20 @@ def test_cli_render_writes_frames(tmp_path):
     assert depth.shape == (8, 8) and np.isfinite(depth).all()
 
 
-# The time flags are ported (tests/test_torch_cli.py renders with them):
-# beside an unported flag, the refusal names only that flag.
-@pytest.mark.parametrize("flags", [["--effect", "fog"], ["--use_time", "--effect", "fog"],
-                                   ["--animate_time", "--create_video"],
+# The time flags, --effect and --create_video are ported (tests/test_torch_cli.py
+# renders with them): beside an unported flag, the refusal names only that flag.
+@pytest.mark.parametrize("flags", [["--effect", "fog", "--mesh_data", "2"],
+                                   ["--use_time", "--effect", "fog", "--mesh_data", "2"],
+                                   ["--animate_time", "--create_video", "--mesh_data", "2"],
                                    ["--time", "0.5", "--mesh_data", "2"],
-                                   ["--mesh_data", "2"], ["--create_video"]])
+                                   ["--mesh_data", "2"], ["--create_video", "--mesh_data", "0"]])
 def test_cli_refuses_flags_not_yet_ported(tmp_path, flags):
     from danerf_tpu_torch.cli.main import main
 
     with pytest.raises(NotImplementedError, match="not yet ported") as err:
         main(["render", "--checkpoint", str(tmp_path / "m.pt"), "--device", "cpu", *flags])
-    assert "time" not in str(err.value)
+    for ported in ("time", "effect", "video"):
+        assert ported not in str(err.value)
 
 
 def test_cli_refuses_orbax_checkpoint_dir(tmp_path):
