@@ -108,6 +108,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             use_hier_onepass, which has no CLI flag either, through train()
             (one K9 a step and nothing else); one metrics.jsonl row a step,
             finite losses and a rising PSNR.
+7e. eval    `cli.main eval` on the checkpoints of 7 (64 + 64, white
+            background, use_time; 100x100 procedural views): --max_views 2
+            of --split val with and without --optimize_embeddings (the
+            test-time fit: 50 Adam steps on one appearance embedding, the
+            model frozen, each step K2, K5 forward and K6, K3 backward, one
+            CUDA-graph replay a view), of --split train, and a fit under
+            --num_importance 0 (K2, K3); exactly those launches plus one K2
+            and one K5 a frame chunk (zeroed just before each run, read
+            just after); per view within 0.1 dB PSNR and 0.005 SSIM of the
+            same command with --no_pallas on the card; one view's graph fit
+            equal to its eager fit bit for bit.
+7f. loaders the port's JPEG decoder on the committed fixture
+            (tests/data_torch/frame.jpg) and its Lanczos downscale by 8 of
+            the fixture RGBA PNG, each equal to the sha256 of PIL's output
+            stored beside them, with their host ms; a custom-format scene
+            of those frames through load_dataset.  7e and 7f run before any
+            torch.profiler window.
 7a. fx      the depth-aware effects (danerf_tpu_torch/fx/, plain PyTorch
             ops, no kernel of their own): each of the 14 with and without
             depth on a seeded 800x800 frame and depth, on the card against
@@ -135,6 +152,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             call; without an effect also over 12), the aligned spiral's ms
             a frame, and apply_effect_to_frames' timings (load, device,
             write) over it.
+7g. eval_timing  evaluate() on 2 seeded random 800x800 views (the
+            procedural poses) with the seeded model: ms a view without and
+            with the fit (each call captures the fit once), the fit alone
+            eager and as a graph replay (median of 3), render_frame beside
+            render plus score; then one torch.profiler window of a replayed
+            and of an eager fit (device-busy ms, idle share).
 8. timing   CUDA-event times of every kernel and its plain version, each
             beside its bound: K2 (want_field) and K5 on a 65,536-ray chunk,
             K3, K4, K6, K7 and K9 on a chunk and at B = 1024 (plain versions
@@ -160,7 +183,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             step by part (their tile, their dW pass, the rest).
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
-under "has_time"); the last line is the ok record.  Exits non-zero,
+under "has_time"; K2, K5, K3 and K6 with the launches of 7e's kernel-route
+runs under "eval_launches"); the last line is the ok record.  Exits non-zero,
 printing no result, when CUDA is unavailable.
 """
 
@@ -2298,6 +2322,316 @@ def phase_serve_timing(cfg, model, out_dir, device, side=800, frames=4):
     return report
 
 
+# Each eval run of phase_eval: (checkpoint's training path, flags beyond
+# --checkpoint/--max_views/--device).
+EVAL_RUNS = (("hier", ["--split", "val"]),
+             ("hier", ["--split", "val", "--optimize_embeddings"]),
+             ("hier", ["--split", "train"]),
+             ("hier", ["--split", "val", "--optimize_embeddings", "--num_importance", "0"]),
+             ("white", ["--split", "val", "--white_background"]),
+             ("white", ["--split", "val", "--white_background", "--optimize_embeddings"]),
+             ("white", ["--split", "train", "--white_background"]),
+             ("time", ["--split", "val", "--use_time"]),
+             ("time", ["--split", "val", "--use_time", "--optimize_embeddings"]),
+             ("time", ["--split", "train", "--use_time"]))
+EVAL_VIEWS = 2
+EVAL_OPT_STEPS = 50
+# per view, the kernel route against the plain route (--no_pallas) on the card
+EVAL_TOL = {"psnr_db": 0.1, "ssim": 0.005}
+
+
+def eval_launches(flags, views, size=100):
+    """The launches of `eval` over ``views`` views of size x size: one K2 and
+    one K5 a chunk of the frame (K2 alone under --num_importance 0); with
+    --optimize_embeddings also, a view, EVAL_OPT_STEPS x (K2 + K5 + K6 +
+    K3) of the fit (K2 + K3 under --num_importance 0)."""
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    chunks = -(-size * size // 65536)
+    coarse = "--num_importance" in flags and flags[flags.index("--num_importance") + 1] == "0"
+    frame = {"march": chunks} if coarse else {"march": chunks, "merged": chunks}
+    step = ({"march": 1, "march_bwd": 1} if coarse
+            else {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1})
+    fit = EVAL_OPT_STEPS if "--optimize_embeddings" in flags else 0
+    return {k: views * (frame.get(k, 0) + fit * step.get(k, 0)) for k in fr.LAUNCHES}
+
+
+def phase_eval(out_dir):
+    """`cli.main eval` on the checkpoints phase_train wrote (64 + 64, white
+    background, use_time; the procedural scene, 100x100 views): --max_views
+    2 of --split val with and without --optimize_embeddings (the fit: 50
+    Adam steps a view, one CUDA-graph replay), of --split train (each view
+    its own embedding), and a fit under --num_importance 0.  Each run with
+    exactly its launches (eval_launches; zeroed just before, read just
+    after) and, per view, within EVAL_TOL of the same command with
+    --no_pallas on the card, which launches nothing.  Then one view's
+    graph fit against its eager fit, bit for bit, and the fit's launches
+    per replay."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.cli.main import main as cli_main
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.train.evaluate import EmbeddingFit, _target, left_half_rays, fit_seed
+    from danerf_tpu_torch.utils.checkpoint import load_model
+
+    no_scene = os.path.join(out_dir, "no_scene")
+    runs, totals = [], {k: 0 for k in fr.LAUNCHES}
+    for path, flags in EVAL_RUNS:
+        ckpt = os.path.join(out_dir, f"train_{path}", "checkpoint_final.pt")
+        argv = ["eval", "--checkpoint", ckpt, "--dataset_path", no_scene, "--max_views",
+                str(EVAL_VIEWS), "--device", "cuda", *flags]
+        fr.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = cli_main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(fr.LAUNCHES)
+        want = eval_launches(flags, EVAL_VIEWS)
+        if counts != want:
+            raise AssertionError(f"eval {path} {flags}: launches {counts}, expected {want}")
+        for k, v in counts.items():
+            totals[k] += v
+        fr.reset_launch_counts()
+        plain = cli_main([*argv, "--no_pallas"])
+        torch.cuda.synchronize()
+        if any(fr.LAUNCHES.values()):
+            raise AssertionError(f"eval --no_pallas launched {fr.LAUNCHES}")
+        deltas = []
+        for g, p in zip(got["per_view"], plain["per_view"]):
+            d = {"psnr_db": abs(g["psnr"] - p["psnr"]), "ssim": abs(g["ssim"] - p["ssim"])}
+            if not (np.isfinite(g["psnr"]) and all(d[k] <= EVAL_TOL[k] for k in d)):
+                raise AssertionError(f"eval {path} {flags}: view {g['view']} kernel {g}, "
+                                     f"plain {p}")
+            deltas.append(d)
+        want_protocol = ("left-half-optimized, right-half-scored"
+                         if "--optimize_embeddings" in flags else "full-image")
+        if got["protocol"] != want_protocol or got["n_views"] != EVAL_VIEWS:
+            raise AssertionError(f"eval {path} {flags}: {got['protocol']}, {got['n_views']}")
+        runs.append({"path": path, "flags": flags, "seconds": secs, "launches": counts,
+                     "psnr": [v["psnr"] for v in got["per_view"]],
+                     "ssim": [v["ssim"] for v in got["per_view"]],
+                     "plain_psnr": [v["psnr"] for v in plain["per_view"]],
+                     "plain_ssim": [v["ssim"] for v in plain["per_view"]],
+                     "max_delta": {k: max(d[k] for d in deltas) for k in EVAL_TOL}})
+
+    # one view's fit as a graph replay against the same fit run eagerly
+    cfg = NeRFConfig(dataset_path=no_scene)
+    ds = load_dataset(cfg, "val")
+    model, _, _, cfg = load_model(os.path.join(out_dir, "train_hier", "checkpoint_final.pt"),
+                                  cfg, "cuda")
+    model.requires_grad_(False)
+    dev = torch.device("cuda")
+    rays_o, rays_d = left_half_rays(ds.c2ws[0], ds.height, ds.width, ds.focal, dev)
+    gt = torch.from_numpy(ds.images[0]).to(dev)
+    target = _target(gt, None)[:, :ds.width // 2].reshape(-1, 3)
+    fits = {}
+    for graph in (True, False):
+        fit = EmbeddingFit(model, cfg, rays_o.shape[0], EVAL_OPT_STEPS, device=dev, graph=graph)
+        idx = torch.randint(0, rays_o.shape[0], (EVAL_OPT_STEPS, fit.batch), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(fit_seed(0, 0)))
+        fr.reset_launch_counts()
+        fits[graph] = (fit(rays_o, rays_d, target, idx), fit(rays_o, rays_d, target, idx))
+        torch.cuda.synchronize()
+        fits[f"launches_{graph}"] = dict(fr.LAUNCHES)
+    (g1, g2), (e1, e2) = fits[True], fits[False]
+    if not (torch.equal(g1, e1) and torch.equal(g2, e2) and torch.equal(g1, g2)):
+        raise AssertionError(f"graph fit {g1.tolist()} != eager fit {e1.tolist()}")
+    per_fit = eval_launches(["--optimize_embeddings"], 1, size=0)
+    for graph in (True, False):
+        want = {k: 2 * v for k, v in per_fit.items()}
+        if fits[f"launches_{graph}"] != want:
+            raise AssertionError(f"fit (graph={graph}) launches {fits[f'launches_{graph}']}, "
+                                 f"expected {want}")
+    emit({"phase": "eval", "views": EVAL_VIEWS, "opt_steps": EVAL_OPT_STEPS, "tol": EVAL_TOL,
+          "runs": runs, "launches_total": totals, "graph_fit_equals_eager_fit": True,
+          "fit_embedding_norm": float(g1.norm()), "launches_per_fit": per_fit})
+    return totals
+
+
+def eval_timing_scene(side, views, seed=0):
+    """A RayDataset of ``views`` seeded random side x side images on the
+    procedural scene's first poses (the content does not matter for time)."""
+    import numpy as np
+
+    from danerf_tpu_torch.data.dataset import RayDataset
+    from danerf_tpu_torch.data.synthetic import SYNTHETIC_FOV, make_synthetic_scene
+
+    poses = make_synthetic_scene(split="val", n_images=views, height=8, width=8,
+                                 n_samples=4).c2ws
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (views, side, side, 3), dtype=np.uint8)
+    return RayDataset(imgs, np.full((views, side, side), 255, np.uint8), poses,
+                      float(0.5 * side / np.tan(0.5 * SYNTHETIC_FOV)), 2.0, 6.0, "val")
+
+
+def phase_eval_timing(cfg, model, device, side=800, views=2):
+    """evaluate() at side x side on the seeded model, in one call: ms a view
+    over ``views`` views (after a warm-up call of one view) without and
+    with the embedding fit (each call captures the fit once and replays it
+    a view); the fit alone, eagerly and as a graph replay (median of 3
+    after a warm-up), and a replay's device-busy ms over one torch.profiler
+    window (after the other timings: a window slows later eager launches,
+    PERF.md section 7); render_frame alone and with the score
+    (_score_view) beside it."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.train.evaluate import EmbeddingFit, _score_view, left_half_rays
+    from danerf_tpu_torch.train.evaluate import evaluate
+
+    ds = eval_timing_scene(side, views)
+    table = torch.randn(views, cfg.appearance_dim, generator=torch.Generator().manual_seed(5))
+    chunks = -(-side * side // cfg.render_chunk)
+    per_view = {}
+    for fit in (False, True):
+        evaluate(model, cfg, ds, appearance=table, max_views=1, optimize_embeddings=fit,
+                 device=device)
+        fr.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate(model, cfg, ds, appearance=table, optimize_embeddings=fit,
+                       device=device)
+        ms = (time.perf_counter() - t0) * 1e3 / views
+        want = {k: views * (chunks + (EVAL_OPT_STEPS if fit else 0))
+                if k in ("march", "merged") else
+                views * EVAL_OPT_STEPS if fit and k in ("merged_bwd", "march_bwd") else 0
+                for k in fr.LAUNCHES}
+        if dict(fr.LAUNCHES) != want:
+            raise AssertionError(f"eval_timing fit={fit}: launches {fr.LAUNCHES}, "
+                                 f"expected {want}")
+        per_view["fit" if fit else "no_fit"] = {"ms_per_view": ms, "psnr": res["psnr"],
+                                               "launches": dict(fr.LAUNCHES)}
+
+    dev = torch.device(device)
+    rays_o, rays_d = left_half_rays(ds.c2ws[0], side, side, ds.focal, dev)
+    target = torch.rand(rays_o.shape[0], 3, generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    idx = torch.randint(0, rays_o.shape[0], (EVAL_OPT_STEPS, 1024), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    fit_ms = {}
+    fits = {}
+    for graph in (False, True):
+        fit = EmbeddingFit(model, cfg, rays_o.shape[0], EVAL_OPT_STEPS, device=dev, graph=graph)
+        fits[graph] = fit
+        fit(rays_o, rays_d, target, idx)
+        each = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit(rays_o, rays_d, target, idx)
+            torch.cuda.synchronize()
+            each.append((time.perf_counter() - t0) * 1e3)
+        fit_ms["graph" if graph else "eager"] = {"ms": sorted(each)[1], "each_ms": each}
+
+    c2w = ds.c2ws[0]
+    gt = torch.from_numpy(ds.images[0]).to(dev)
+    emb = table[0].to(dev)
+
+    def frame():
+        return render_frame(model, cfg, c2w, side, side, ds.focal, appearance_embedding=emb,
+                            perturb=False, device=dev)
+
+    def frame_scored():
+        rgb, _, _ = frame()
+        return _score_view(rgb, gt, side // 2, False)
+
+    frame_ms = {}
+    for name, fn in (("render_frame", frame), ("render_and_score", frame_scored)):
+        fn()
+        each = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            each.append((time.perf_counter() - t0) * 1e3)
+        frame_ms[name] = {"ms": sorted(each)[1], "each_ms": each}
+    busy = {name: profile_steps(lambda f=fits[g]: f(rays_o, rays_d, target, idx), n_prof=1)
+            for name, g in (("graph", True), ("eager", False))}
+    report = {"size": side, "views": views, "opt_steps": EVAL_OPT_STEPS, "batch": 1024,
+              "evaluate": per_view, "fit": fit_ms, "frame": frame_ms,
+              "fit_device_busy_ms": {k: v["profile_device_busy_ms_per_step"]
+                                     for k, v in busy.items()},
+              "fit_idle_share": {k: v["profile_idle_share"] for k, v in busy.items()},
+              "fit_profile": {k: v["profile_ms_per_step"][:8] for k, v in busy.items()}}
+    emit({"phase": "eval_timing", **report})
+    return report
+
+
+def phase_loaders(out_dir):
+    """The port's own loaders on the card's host (no imaging library there):
+    the committed fixture JPEG (4:2:0, a restart interval) through
+    data/jpeg.py and the fixture RGBA PNG downscaled by 8 through
+    data/resize.py, each against the sha256 of PIL's output stored beside
+    them (tests/data_torch/pil_digests.json, computed where PIL is); their
+    ms (median of 3); then a custom-format scene of those frames (two JPEGs
+    and a PNG) through load_dataset."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.data.jpeg import read_jpeg
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.data.resize import lanczos_resize
+    from danerf_tpu_torch.viz.png import write_png
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch")
+    with open(os.path.join(data, "pil_digests.json")) as f:
+        stored = json.load(f)
+    jpg, png = os.path.join(data, "frame.jpg"), os.path.join(data, "frame_rgba.png")
+
+    rgba = read_png(png)
+    report = {}
+    for name, key, fn in (
+            ("jpeg_decode", "frame.jpg", lambda: read_jpeg(jpg)),
+            ("png_decode", None, lambda: read_png(png)),
+            ("lanczos_8", "frame_rgba.png lanczos 8",
+             lambda: lanczos_resize(rgba, rgba.shape[1] // 8, rgba.shape[0] // 8))):
+        each = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = np.ascontiguousarray(fn())
+            each.append((time.perf_counter() - t0) * 1e3)
+        got = {"shape": list(out.shape), "sha256": hashlib.sha256(out.tobytes()).hexdigest()}
+        if key is not None and got != stored[key]:
+            raise AssertionError(f"loaders: {key} gives {got}, PIL {stored[key]}")
+        report[name] = {"ms": sorted(each)[1], "each_ms": each, "shape": got["shape"],
+                        "held_against_pil": key is not None}
+    scene = os.path.join(out_dir, "custom_scene")
+    shutil.rmtree(scene, ignore_errors=True)
+    images = os.path.join(scene, "images")
+    os.makedirs(images)
+    shutil.copy(jpg, os.path.join(images, "a.jpg"))
+    shutil.copy(jpg, os.path.join(images, "c.jpg"))
+    rgb = read_jpeg(jpg)[::-1].copy()
+    write_png(os.path.join(images, "b.png"), rgb)
+    frames = [{"file_path": n, "transform_matrix": np.eye(4).tolist()}
+              for n in ("a.jpg", "b.png", "c.jpg")]
+    with open(os.path.join(scene, "transforms.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+    cfg = NeRFConfig(dataset_type="custom", dataset_path=images)
+    t0 = time.perf_counter()
+    train = load_dataset(cfg, "train")
+    val = load_dataset(cfg, "val")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if (train.images.shape != (2,) + tuple(stored["frame.jpg"]["shape"])
+            or not np.array_equal(train.images[1], rgb) or val.n_images != 1
+            or not np.array_equal(val.images[0], train.images[0])
+            or not (train.alphas == 255).all()):
+        raise AssertionError(f"loaders: the custom scene loads as {train.images.shape}")
+    report["custom_scene"] = {"train": list(train.images.shape), "val": list(val.images.shape),
+                              "focal": train.focal, "load_ms": load_ms}
+    emit({"phase": "loaders", **report})
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2346,6 +2680,10 @@ def main(argv=None):
                       "per_sample": phase_train(args.out, "per_sample", 100, render=False),
                       "time": phase_train(args.out, "time", 100, render=True),
                       "hier_onepass": phase_train(args.out, "hier_onepass", 100, render=False)}
+    # evaluation on those checkpoints (K2, K5 a frame chunk; the fit's K2, K5,
+    # K6, K3 a step), before any torch.profiler window
+    eval_counts = phase_eval(args.out)
+    phase_loaders(args.out)
     # the depth-aware effects and the renders that feed them, timed before
     # any torch.profiler window (phase_train_timing's): timed after one, the
     # effects' eager launches have run up to 2.3x slower on the H100
@@ -2353,6 +2691,7 @@ def main(argv=None):
     phase_serve_fx(cfg, args.out, device)
     phase_spiral_fx(cfg, args.out, device)
     phase_serve_timing(cfg, model, args.out, device)
+    phase_eval_timing(cfg, model, device)
     timing, bound_by = phase_timing(cfg, model, device, chunk)
     tt, tt_bound_by = phase_train_timing(cfg, model, device, chunk)
     timing_t, bound_by_t = phase_timing(cfg_t, model_t, device, chunk_t, frame_t=0.5)
@@ -2447,6 +2786,13 @@ def main(argv=None):
                        "bound_ms": tt_t["k9_batch_bound_ms"], "bound_by": tt_bound_by_t["k9"],
                        "at": "1024-ray batch"}}
     kernels.append(k9)
+    # the eval phase's launches (all its kernel-route runs) of the four
+    # kernels the test-time fit and the frame run
+    for rec in kernels:
+        counter = {"K2": "march", "K5": "merged", "K3": "march_bwd",
+                   "K6": "merged_bwd"}.get(rec["name"][:2])
+        if counter:
+            rec["eval_launches"] = eval_counts[counter]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

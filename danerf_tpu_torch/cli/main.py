@@ -1,5 +1,5 @@
 """Command line of the port (counterpart of danerf_tpu/cli/main.py):
-``python -m danerf_tpu_torch.cli.main {train,render,spiral,effects,preview,video} ...``.
+``python -m danerf_tpu_torch.cli.main {train,render,spiral,effects,eval,preview,video} ...``.
 
 ``train`` takes the JAX CLI's flags plus ``--device`` (default cuda) and
 ``--checkpoint_every``, and writes reference-format ``.pt`` checkpoints,
@@ -18,7 +18,13 @@ and ``--create_video`` encodes the frames as an uncompressed AVI.
 (the JAX CLI's prefix), with ``--device`` and ``--seed``; ``effects``
 applies one effect or all of them to such a directory, ``preview`` writes
 parameter-sweep previews from a JSON spec (both with ``--device``), and
-``video`` encodes an image sequence.
+``video`` encodes an image sequence.  ``eval`` renders a split of the scene
+from a ``.pt`` and prints its PSNR/SSIM as one JSON line (``--out``: the
+per-view report), with the JAX CLI's flags plus ``--device``;
+``--optimize_embeddings`` fits each view's appearance embedding on its
+left half and scores the right half.  A ``danerf_tpu`` (Orbax) checkpoint
+directory is converted to a ``.pt`` by ``orbax_to_pt.py`` at the root of
+the repository, where JAX is installed.
 Flags whose machinery is not yet ported raise instead of being ignored.
 ``--use_time`` trains and renders the time-conditioned variant; ``render``
 warns when ``--time`` or ``--animate_time`` come without it (the JAX CLI
@@ -153,6 +159,31 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--fps", type=int, default=60)
     e.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
 
+    ev = sub.add_parser("eval", help="render a split and report PSNR/SSIM")
+    ev.add_argument("--scene", type=str, default="lego")
+    ev.add_argument("--dataset_path", type=str, default="data/nerf_synthetic")
+    ev.add_argument("--checkpoint", type=str, default=None,
+                    help="reference-format .pt checkpoint (default: the latest in "
+                         "checkpoints_<scene>)")
+    ev.add_argument("--split", type=str, default="val")
+    ev.add_argument("--max_views", type=int, default=None)
+    ev.add_argument("--num_importance", type=int, default=None)
+    ev.add_argument("--out", type=str, default=None, help="write JSON report")
+    ev.add_argument("--no_pallas", action="store_true",
+                    help="take the reference route instead of the kernels")
+    ev.add_argument("--optimize_embeddings", action="store_true",
+                    help="NeRF-W held-out protocol: per view, fit a fresh appearance "
+                         "embedding on the left half and score the right half")
+    ev.add_argument("--opt_steps", type=int, default=50,
+                    help="embedding-optimization steps per view")
+    ev.add_argument("--use_time", action="store_true",
+                    help="evaluate a time-conditioned checkpoint (per-view times come "
+                         "from the dataset)")
+    ev.add_argument("--white_background", action="store_true",
+                    help="score against white-composited GT and render with a white "
+                         "background")
+    ev.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+
     pv = sub.add_parser("preview", help="parameter-sweep effect previews")
     pv.add_argument("--image", type=str, required=True)
     pv.add_argument("--depth", type=str, default=None)
@@ -253,16 +284,19 @@ def cmd_train(args):
 
 def _not_ported(args) -> list:
     bad = []
-    if args.mesh_data != 1:
+    if getattr(args, "mesh_data", 1) != 1:
         bad.append("--mesh_data != 1")
     if args.checkpoint is not None and not args.checkpoint.endswith(".pt"):
-        bad.append("a danerf_tpu (Orbax) checkpoint directory; pass a .pt")
+        bad.append("a danerf_tpu (Orbax) checkpoint directory; convert it to a .pt with "
+                   "orbax_to_pt.py (at the repository root, where JAX is installed)")
     return bad
 
 
-def _load_model(args, cfg, device):
+def _load_model(args, cfg, device, want_table: bool = False):
     """NeRF module + appearance embedding 0 from a reference .pt: the one
-    ``--checkpoint`` names, else the latest of ``checkpoints_<scene>``."""
+    ``--checkpoint`` names, else the latest of ``checkpoints_<scene>``.
+    With ``want_table`` the whole appearance table (or None) comes after
+    the embedding."""
     from danerf_tpu_torch.utils.checkpoint import latest_checkpoint, load_model
 
     ckpt = args.checkpoint
@@ -277,7 +311,10 @@ def _load_model(args, cfg, device):
     if cfg.use_appearance and emb_table is not None:
         emb = emb_table[0]  # the reference renders with embedding 0
     print(f"Imported reference checkpoint (iteration {meta.get('iteration')})")
-    return model.eval().requires_grad_(False), emb, cfg
+    model = model.eval().requires_grad_(False)
+    if want_table:
+        return model, emb, emb_table if cfg.use_appearance else None, cfg
+    return model, emb, cfg
 
 
 def cmd_render(args):
@@ -352,6 +389,44 @@ def cmd_effects(args):
                              skip=args.skip_effects, fps=args.fps, device=args.device)
 
 
+def cmd_eval(args):
+    import json
+
+    from danerf_tpu_torch import resolve_device
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.train.evaluate import evaluate
+
+    bad = _not_ported(args)
+    if bad:
+        raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
+    device = resolve_device(args.device)
+    cfg = NeRFConfig(scene=args.scene, dataset_path=args.dataset_path,
+                     white_background=args.white_background,
+                     use_kernels=not args.no_pallas, use_time=args.use_time)
+    if args.num_importance is not None:
+        cfg = cfg.replace(num_importance=args.num_importance)
+    ds = load_dataset(cfg, args.split)
+    model, emb, table, cfg = _load_model(args, cfg, device, want_table=True)
+    appearance = None
+    if cfg.use_appearance:
+        if args.split == "train" and table is not None and table.shape[0] == ds.n_images:
+            appearance = table          # each train view its own embedding
+        elif emb is not None:
+            # held-out views: embedding 0 (the reference's), unless
+            # --optimize_embeddings fits one per view
+            appearance = emb[None].repeat(ds.n_images, 1)
+    res = evaluate(model, cfg, ds, appearance=appearance, max_views=args.max_views,
+                   n_importance=args.num_importance,
+                   optimize_embeddings=args.optimize_embeddings, opt_steps=args.opt_steps,
+                   device=device)
+    print(json.dumps({k: res[k] for k in ("psnr", "ssim", "mse", "n_views", "protocol")}))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    return res
+
+
 def cmd_preview(args):
     from danerf_tpu_torch.fx.preview import preview_from_files
 
@@ -372,7 +447,8 @@ def cmd_video(args):
 
 
 COMMANDS = {"train": cmd_train, "render": cmd_render, "spiral": cmd_spiral,
-            "effects": cmd_effects, "preview": cmd_preview, "video": cmd_video}
+            "effects": cmd_effects, "eval": cmd_eval, "preview": cmd_preview,
+            "video": cmd_video}
 
 
 def main(argv=None):

@@ -81,6 +81,8 @@ class NeRFConfig:
     # and K3.  Off by default, as in the JAX package; taken only where the
     # one-pass route serves the config (trainer.use_onepass) with a fine pass.
     use_hier_onepass: bool = False
+    # Recompute the module's forward in the backward instead of keeping its
+    # activations (torch.utils.checkpoint); the reference route only.
     remat: bool = False
     white_background: bool = False
     mesh_data: int = 1

@@ -8,12 +8,13 @@
   per batch (or, with ``single_image=False``, an image per ray), pixels
   with replacement, then ``rays_for_pixels``; each ray's time is its
   image's.
-- ``load_dataset``: the Blender scene when ``transforms_{split}.json``
-  exists, otherwise the procedural scene (its time-varying form under
-  ``use_time``).
+- ``load_dataset``: the custom scene (``data/custom.py``) when
+  ``dataset_type`` is not ``nerf_synthetic``; else the Blender scene when
+  ``transforms_{split}.json`` exists, otherwise the procedural scene (its
+  time-varying form under ``use_time``).
 - ``scene_intrinsics``: what ``render`` needs of a scene (its width and
   focal length), read from the ``transforms`` header and the first frame's
-  PNG header without decoding any image.
+  PNG (or JPEG) header without decoding any image.
 """
 
 from __future__ import annotations
@@ -120,14 +121,15 @@ def sample_ray_batch(pool: dict, cfg: NeRFConfig, height: int, width: int, focal
 
 
 def load_dataset(cfg: NeRFConfig, split: str = "train") -> RayDataset:
-    """The Blender scene under ``dataset_path/scene`` when its transforms
-    file exists, otherwise the procedural scene (seed 0): under
-    ``cfg.use_time`` its time-varying form, which carries per-image times (a
-    Blender scene has none)."""
+    """The custom scene of ``dataset_path`` when ``cfg.dataset_type`` is not
+    ``nerf_synthetic``; else the Blender scene under ``dataset_path/scene``
+    when its transforms file exists, otherwise the procedural scene (seed
+    0): under ``cfg.use_time`` its time-varying form, which carries
+    per-image times (a Blender scene has none)."""
     if cfg.dataset_type != "nerf_synthetic":
-        raise NotImplementedError(
-            f"dataset_type {cfg.dataset_type!r} (the custom loader) is not yet ported to "
-            "danerf_tpu_torch (only nerf_synthetic and the procedural scene)")
+        from danerf_tpu_torch.data.custom import load_custom_scene
+
+        return load_custom_scene(cfg.dataset_path, split=split, near=cfg.near, far=cfg.far)
     scene_dir = os.path.join(cfg.dataset_path, cfg.scene)
     if os.path.exists(os.path.join(scene_dir, f"transforms_{split}.json")):
         from danerf_tpu_torch.data.blender import load_blender_scene
@@ -158,9 +160,9 @@ def scene_intrinsics(cfg: NeRFConfig, split: str = "train") -> SceneIntrinsics:
     """Width and focal of the scene ``load_dataset`` would load, without
     decoding or rendering its images."""
     if cfg.dataset_type != "nerf_synthetic":
-        raise NotImplementedError(
-            f"dataset_type {cfg.dataset_type!r} is not yet ported to "
-            "danerf_tpu_torch (only nerf_synthetic and the procedural scene)")
+        from danerf_tpu_torch.data.custom import custom_intrinsics
+
+        return SceneIntrinsics(*custom_intrinsics(cfg.dataset_path, split))
     scene_dir = os.path.join(cfg.dataset_path, cfg.scene)
     meta_path = os.path.join(scene_dir, f"transforms_{split}.json")
     if not os.path.exists(meta_path):

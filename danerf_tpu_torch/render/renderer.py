@@ -35,7 +35,10 @@ from danerf_tpu_torch.ops.sampling import (combine_z, ray_aabb_bounds,
 def _eval_field(model, cfg: NeRFConfig, pts, rays_d, appearance_embedding, t, packed):
     """The field on (R, S, 3) points with per-ray dirs/embeddings: K1
     (``fused_nerf_apply``, with the weights ``packed``) under
-    ``cfg.use_kernels``, else the module's forward."""
+    ``cfg.use_kernels``, else the module's forward, which ``cfg.remat``
+    recomputes in the backward instead of keeping its activations (the
+    JAX ``jax.checkpoint`` with nothing saveable; the kernel route ignores
+    it, as the JAX one does)."""
     dirs = rays_d[..., None, :].expand(pts.shape)
     emb = None
     if appearance_embedding is not None:
@@ -44,6 +47,10 @@ def _eval_field(model, cfg: NeRFConfig, pts, rays_d, appearance_embedding, t, pa
     tt = None if t is None else t[..., None, :].expand(pts.shape[:-1] + (t.shape[-1],))
     if cfg.use_kernels:
         return fused_nerf_apply(model, cfg, pts, dirs, emb, tt, packed)
+    if cfg.remat:
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(model, pts, dirs, emb, tt, use_reentrant=False)
     return model(pts, dirs, emb, tt)
 
 

@@ -938,3 +938,70 @@ def test_cli_render_effect_on_card(tf32_defaults, tmp_path):
     assert frames.shape == (2, 64, 64, 3)
     for frame, path in zip(frames, written):
         assert (frame == read_png(path)).all()
+
+
+# ---------------------------------------------------------------- evaluation
+
+def _eval_scene(side=64, views=2, use_time=False):
+    import numpy as np
+
+    from danerf_tpu_torch.data.dataset import RayDataset
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene, make_time_varying_scene
+
+    make = make_time_varying_scene if use_time else make_synthetic_scene
+    ref = make(split="val", n_images=views, height=side, width=side, n_samples=32)
+    return RayDataset(ref.images, ref.alphas, ref.c2ws, ref.focal, ref.near, ref.far, "val",
+                      ref.times)
+
+
+@pytest.mark.parametrize("over", [{}, {"white_background": True}, {"use_time": True},
+                                  {"num_importance": 0}],
+                         ids=["hier", "white", "use_time", "coarse_only"])
+def test_eval_kernel_route_matches_plain_route(dev, over):
+    """``evaluate`` with the fit (10 steps) through the kernels against the
+    same through the plain route (the module's forward, autograd) on the
+    card: per view within 0.1 dB PSNR and 0.005 SSIM, with exactly the
+    fit's and the frame's launches."""
+    from danerf_tpu_torch.train.evaluate import evaluate
+
+    cfg, model, *_ = _inputs(dev, **over)
+    ds = _eval_scene(use_time=cfg.use_time)
+    fr.reset_launch_counts()
+    got = evaluate(model, cfg, ds, optimize_embeddings=True, opt_steps=10, device=dev)
+    coarse = cfg.num_importance == 0
+    step = {"march": 1, "march_bwd": 1} if coarse else {"march": 1, "merged": 1,
+                                                         "merged_bwd": 1, "march_bwd": 1}
+    frame = {"march": 1} if coarse else {"march": 1, "merged": 1}
+    assert fr.LAUNCHES == {k: 2 * (10 * step.get(k, 0) + frame.get(k, 0)) for k in fr.LAUNCHES}
+    plain = evaluate(model, cfg.replace(use_kernels=False), ds, optimize_embeddings=True,
+                     opt_steps=10, device=dev)
+    for g, p in zip(got["per_view"], plain["per_view"]):
+        assert abs(g["psnr"] - p["psnr"]) <= 0.1 and abs(g["ssim"] - p["ssim"]) <= 0.005, (g, p)
+
+
+@pytest.mark.parametrize("over", [{}, {"use_time": True}, {"num_importance": 0}],
+                         ids=["hier", "use_time", "coarse_only"])
+def test_graph_fit_equals_eager_fit(dev, over):
+    from danerf_tpu_torch.train.evaluate import EmbeddingFit, left_half_rays
+
+    cfg, model, *_ = _inputs(dev, **over)
+    ds = _eval_scene(use_time=cfg.use_time)
+    rays_o, rays_d = left_half_rays(ds.c2ws[0], 64, 64, ds.focal, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    target = torch.rand(rays_o.shape[0], 3, generator=g, device=dev)
+    idx = torch.randint(0, rays_o.shape[0], (20, 1024), generator=g, device=dev)
+    fits = [EmbeddingFit(model, cfg, rays_o.shape[0], 20, device=dev, graph=graph)
+            for graph in (True, False)]
+    t = 0.4 if cfg.use_time else None
+    graph, eager = (f(rays_o, rays_d, target, idx, t) for f in fits)
+    assert torch.equal(graph, eager) and float(graph.abs().max()) > 0
+    assert torch.equal(fits[0](rays_o, rays_d, target, idx, t), graph)   # a second replay
+
+
+def test_evaluate_defaults_to_the_card(dev):
+    from danerf_tpu_torch.train.evaluate import evaluate
+
+    cfg, model, *_ = _inputs(dev)
+    res = evaluate(model.cpu(), cfg, _eval_scene(views=1), optimize_embeddings=True,
+                   opt_steps=2)
+    assert next(model.parameters()).device.type == "cuda" and res["n_views"] == 1

@@ -131,8 +131,12 @@ def test_blender_loader_matches_jax(tmp_path, rgba):
     for k in ("images", "alphas", "c2ws"):
         np.testing.assert_array_equal(getattr(got, k), getattr(want, k), err_msg=k)
     assert got.focal == pytest.approx(want.focal, rel=1e-12)
-    with pytest.raises(NotImplementedError, match="downscale"):
-        load_blender_scene(str(tmp_path), downscale=2)
+    # downscale > 1: PIL's Lanczos resize (premultiplied under an alpha)
+    want = j_load(str(tmp_path), split="train", downscale=2)
+    got = load_blender_scene(str(tmp_path), split="train", downscale=2)
+    for k in ("images", "alphas", "c2ws"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k), err_msg=k)
+    assert got.focal == pytest.approx(want.focal, rel=1e-12)
 
 
 def test_sample_ray_batch_matches_jax_draws():
@@ -175,8 +179,8 @@ def test_rays_for_pixels_matches_jax():
 
 
 def test_load_dataset_reads_blender_scene(tmp_path):
-    """load_dataset picks the Blender scene when its transforms file exists;
-    unported loaders raise."""
+    """load_dataset picks the Blender scene when its transforms file exists,
+    and the custom loader for another dataset_type."""
     from danerf_tpu_torch.data.dataset import load_dataset
     from danerf_tpu_torch.viz.png import write_png
 
@@ -190,5 +194,10 @@ def test_load_dataset_reads_blender_scene(tmp_path):
     ds = load_dataset(NeRFConfig(dataset_path=str(tmp_path), scene="tiny"))
     np.testing.assert_array_equal(ds.images[0], img)
     assert (ds.alphas == 255).all() and ds.focal == pytest.approx(2.5 / np.tan(0.35))
-    with pytest.raises(NotImplementedError, match="custom"):
-        load_dataset(NeRFConfig(dataset_type="custom"))
+    # another dataset_type: the custom loader (transforms.json beside the frames)
+    (scene / "train" / "transforms.json").write_text(json.dumps(
+        {"fl_x": 7.0, "frames": [{"file_path": "r_0.png", "transform_matrix": np.eye(4).tolist()}
+                                 for _ in range(2)]}))
+    ds = load_dataset(NeRFConfig(dataset_type="custom", dataset_path=str(scene / "train")))
+    np.testing.assert_array_equal(ds.images, img[None])
+    assert (ds.alphas == 255).all() and ds.focal == 7.0

@@ -1,6 +1,7 @@
 """The port's entry points run on the card unless the caller asks for the CPU:
-``RayDataset.device_arrays``, ``params_from_jax_module`` and, on numpy
-input, ``fx.apply_effect`` and ``fx.apply_effect_to_frames`` default to
+``RayDataset.device_arrays``, ``params_from_jax_module``, ``evaluate``, the
+``eval`` subcommand and, on numpy input, ``fx.apply_effect`` and
+``fx.apply_effect_to_frames`` default to
 ``"cuda"`` and, without CUDA, raise instead of carrying on on the CPU;
 ``device="cpu"`` puts their tensors on the CPU."""
 
@@ -71,3 +72,43 @@ def test_effects_default_to_the_card(tmp_path, which):
             run()
     out = run(device="cpu")
     assert out.dtype == torch.uint8 and out.shape == (6, 5, 3) and out.device.type == "cpu"
+
+
+def _evaluate(tmp_path, **kw):
+    from danerf_tpu_torch.train.evaluate import evaluate
+
+    cfg = SMALL.replace(num_samples=8, num_importance=4)
+    rng = np.random.default_rng(0)
+    c2ws = np.eye(4, dtype=np.float32)[None].copy()
+    c2ws[0, 2, 3] = 4.0
+    ds = RayDataset(rng.integers(0, 256, (1, 6, 8, 3), dtype=np.uint8),
+                    np.full((1, 6, 8), 255, np.uint8), c2ws, 5.0, 2.0, 6.0)
+    model = NeRF(cfg, torch.Generator().manual_seed(0))
+    return evaluate(model, cfg, ds, optimize_embeddings=True, opt_steps=1, **kw)
+
+
+def _eval_cli(tmp_path, **kw):
+    from danerf_tpu_torch.cli.main import main
+    from danerf_tpu_torch.utils.checkpoint import save_checkpoint
+
+    ckpt = str(tmp_path / "m.pt")
+    save_checkpoint(ckpt, NeRF(NeRFConfig(), torch.Generator().manual_seed(0)),
+                    torch.zeros(1, 32))
+    argv = ["eval", "--checkpoint", ckpt, "--dataset_path", str(tmp_path / "none"),
+            "--max_views", "1", "--num_importance", "0"]
+    if "device" in kw:
+        argv += ["--device", kw["device"]]
+    return main(argv)
+
+
+@pytest.mark.parametrize("which", ["evaluate", "eval"])
+def test_evaluation_defaults_to_the_card(tmp_path, which):
+    """``evaluate`` and ``eval`` run on the card unless the CPU is asked for;
+    without CUDA the default raises before any work."""
+    run = _evaluate if which == "evaluate" else _eval_cli
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run(tmp_path)
+    if which == "evaluate":     # (the CLI on the CPU at full width is left to test_torch_eval)
+        out = run(tmp_path, device="cpu")
+        assert out["n_views"] == 1 and np.isfinite(out["psnr"])

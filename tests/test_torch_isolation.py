@@ -2,8 +2,10 @@
 nor an imaging library (it renders a frame, a frame of a time-conditioned
 model at two times, and takes a 64 + 64, a coarse-only, a per-sample and a
 time-conditioned training step, runs the training loop with a resume,
-computes SSIM, applies an effect and renders an aligned-spiral frame with
-its video with JAX, danerf_tpu, OpenCV, PIL and matplotlib blocked), and
+computes SSIM, applies an effect, renders an aligned-spiral frame with
+its video, fits and scores through ``evaluate`` and ``eval``, and loads a
+custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
+8, with JAX, danerf_tpu, OpenCV, PIL and matplotlib blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
 
@@ -120,6 +122,45 @@ with tempfile.TemporaryDirectory() as tmp:
     assert os.path.exists(os.path.join(tmp, "depth_0000.png"))
     frames, fps = read_avi(os.path.join(tmp, "lego_spiral.avi"))
     assert frames.shape == (1, 6, 5, 3) and fps == 60
+# evaluation: the fit (the plain K2/K5 forward, K6/K3 backward) and the
+# score, through evaluate() and `eval`; the loaders: a custom scene of a
+# JPEG and a PNG frame, the Blender loader with a Lanczos downscale
+from danerf_tpu_torch.train.evaluate import evaluate
+ds.times = None
+model0 = NeRF(cfg, torch.Generator().manual_seed(0))
+res = evaluate(model0, cfg, ds, optimize_embeddings=True, opt_steps=2, device="cpu")
+assert res["protocol"].startswith("left-half") and np.isfinite(res["psnr"])
+import json, shutil
+from danerf_tpu_torch.cli.main import main as cli_main
+from danerf_tpu_torch.config import NeRFConfig as Cfg
+from danerf_tpu_torch.data.blender import load_blender_scene
+from danerf_tpu_torch.data.dataset import load_dataset
+from danerf_tpu_torch.viz.png import write_png
+with tempfile.TemporaryDirectory() as tmp:
+    shutil.copy(os.path.join("tests", "data_torch", "frame.jpg"), os.path.join(tmp, "a.jpg"))
+    rgb = np.random.default_rng(0).integers(0, 256, (149, 203, 3), dtype=np.uint8)
+    write_png(os.path.join(tmp, "b.png"), rgb)
+    frames = [{"file_path": n, "transform_matrix": np.eye(4).tolist()}
+              for n in ("a.jpg", "b.png", "a.jpg")]
+    with open(os.path.join(tmp, "transforms.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.7, "frames": frames}, f)
+    custom = load_dataset(Cfg(dataset_type="custom", dataset_path=tmp), "train")
+    assert custom.images.shape == (2, 149, 203, 3)
+    assert np.array_equal(custom.images[1], rgb)
+    os.makedirs(os.path.join(tmp, "blend", "train"))
+    write_png(os.path.join(tmp, "blend", "train", "r_0.png"), rgb)
+    with open(os.path.join(tmp, "blend", "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.7, "frames": [{"file_path": "./train/r_0",
+                                                      "transform_matrix": np.eye(4).tolist()}]}, f)
+    small = load_blender_scene(os.path.join(tmp, "blend"), downscale=8)
+    assert small.images.shape == (1, 18, 25, 3)
+    from danerf_tpu_torch.utils.checkpoint import save_checkpoint
+    save_checkpoint(os.path.join(tmp, "m.pt"), model0, torch.zeros(1, cfg.appearance_dim))
+    import danerf_tpu_torch.config as config_mod
+    config_mod.NeRFConfig = lambda **kw: cfg.replace(**kw)
+    out = cli_main(["eval", "--checkpoint", os.path.join(tmp, "m.pt"), "--dataset_path",
+                    tmp, "--scene", "blend", "--split", "train", "--device", "cpu"])
+    assert out["n_views"] == 1 and np.isfinite(out["psnr"])
 assert not any(k.split(".")[0] in ("jax", "danerf_tpu", "cv2", "PIL", "matplotlib")
                for k in sys.modules)
 print("ISOLATED-OK")

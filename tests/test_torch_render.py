@@ -152,8 +152,9 @@ def test_cli_refuses_flags_not_yet_ported(tmp_path, flags):
 def test_cli_refuses_orbax_checkpoint_dir(tmp_path):
     from danerf_tpu_torch.cli.main import main
 
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(NotImplementedError, match="Orbax") as err:
         main(["render", "--checkpoint", str(tmp_path), "--device", "cpu"])
+    assert "orbax_to_pt.py" in str(err.value)
 
 
 def test_scene_intrinsics_match_load_dataset(tmp_path):
