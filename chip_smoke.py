@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py --cards N     (N cards: only the data-parallel phase)
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -181,10 +182,35 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             by kernel (tile, dW pass) beside torch.matmul over the same dW
             products (dw_cublas_ms, a yardstick only), and each profiled
             step by part (their tile, their dW pass, the rest).
+9. data parallelism (danerf_tpu_torch/parallel/mesh.py), after every
+   profiler window of 8: hier_dp, `cli.main train --coordinator_address
+   auto --mesh_data 0` as torchrun starts one rank (an NCCL group of one,
+   a 1 x 1 mesh; 100 steps of 64 + 64 with --checkpoint_every 100: exactly
+   one K2, K4 and K3 a step plus the validation render's K2 and K5, rising
+   PSNR); dist_step, on a world-size-1 NCCL group of this process: for
+   64 + 64, coarse-only and per sample, 10 chained sharded steps (one
+   replay, the flat all-reduce captured with them) against 10 chained
+   make_train_step steps bit for bit with the path's launches, then the two
+   64 + 64 steps timed in turns (20 replays each) with a profiler window of
+   3 replays each; dist_frame: render_frame(mesh=) of an 800x800 medium
+   frame against render_frame bit for bit (10 K2, 10 K5), and
+   make_sharded_render on a 65,536-ray chunk against render_rays'
+   per-sample route bit for bit (2 K1), with their ms; dist_two_ranks: two
+   processes of this script on the one card on gloo (3 eager sharded
+   64 + 64 steps at a global B = 1024, a 200x200 sharded frame, the
+   --mesh_model 2 module-route forward), each against the same work in one
+   process within TWO_RANK_TOL; a failure in either child fails the run.
+   With --cards N (N > 1) the script runs env, build and only this last
+   phase, as dist_cards: N ranks on NCCL, one card each, the same checks,
+   plus the chained step at B = 1024 and N x 1024 and the 800x800 frame
+   timed against one card, and the tensor-parallel kernel-route step
+   (N/2 x 2 mesh) chained against eager, bit for bit.
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
 under "has_time"; K2, K5, K3 and K6 with the launches of 7e's kernel-route
-runs under "eval_launches"); the last line is the ok record.  Exits non-zero,
+runs under "eval_launches"; K2, K4 and K3 with those of hier_dp under
+"dp_train_launches", K2 and K5 with a sharded frame's, K1 with a sharded
+chunk's); the last line is the ok record.  Exits non-zero,
 printing no result, when CUDA is unavailable.
 """
 
@@ -1493,7 +1519,9 @@ def phase_render(cfg, model, out_dir):
 
 
 TRAIN_FLAGS = {"hier": [], "coarse": ["--num_importance", "0"], "white": ["--white_background"],
-               "per_sample": [], "time": ["--use_time"], "hier_onepass": []}
+               "per_sample": [], "time": ["--use_time"], "hier_onepass": [],
+               # data-parallel 64 + 64 over every rank of a torchrun group
+               "hier_dp": ["--coordinator_address", "auto", "--mesh_data", "0"]}
 # The routes with no CLI flag (nor has the JAX CLI one), trained through train()
 API_PATHS = ("per_sample", "hier_onepass")
 
@@ -1540,6 +1568,7 @@ def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
     from danerf_tpu_torch.kernels import fused_render as fr
 
     warmup = 5
+    kind = path.removesuffix("_dp")   # the launches of a data-parallel step: its path's
     save = os.path.join(out_dir, f"train_{path}")
     shutil.rmtree(save, ignore_errors=True)          # metrics.jsonl appends
     no_scene = os.path.join(out_dir, "no_scene")     # -> the procedural scene
@@ -1552,7 +1581,7 @@ def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
         fr.reset_launch_counts()
         t0 = time.perf_counter()
         if path in API_PATHS:
-            train_api([*argv, "--iters", str(n), *flags], PATHS[path][0])
+            train_api([*argv, "--iters", str(n), *flags], PATHS[kind][0])
         else:
             cli_main([*argv, "--iters", str(n), *flags])
         torch.cuda.synchronize()
@@ -1560,10 +1589,10 @@ def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
 
     def val_renders(first, last):
         n = sum(1 for s in range(first + 1, last + 1) if every and s % every == 0)
-        return {"march": n, "merged": n if PATHS[path][0].get("num_importance", 1) else 0}
+        return {"march": n, "merged": n if PATHS[kind][0].get("num_importance", 1) else 0}
 
     secs, counts = run(iters)
-    want = launches_of(PATHS[path][1], iters)
+    want = launches_of(PATHS[kind][1], iters)
     for k, v in val_renders(0, iters).items():
         want[k] += v
     if counts != want:
@@ -1593,7 +1622,7 @@ def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
     resumed = None
     if resume_to:
         r_secs, r_counts = run(resume_to, "--resume")
-        r_want = launches_of(PATHS[path][1], resume_to - iters)
+        r_want = launches_of(PATHS[kind][1], resume_to - iters)
         for k, v in val_renders(iters, resume_to).items():
             r_want[k] += v
         if r_counts != r_want:
@@ -2632,11 +2661,495 @@ def phase_loaders(out_dir):
     return report
 
 
+# ---------------------------------------------------------------- parallel
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """The environment torchrun gives the one process of a one-card run
+    (world size 1), which `--coordinator_address auto` reads."""
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_vs_single(cfg, ds, device, mesh, k, per_step):
+    """From one seeded state, 5 warm-up steps of 64 rays, then one call of
+    ``k`` steps as one graph replay: make_sharded_train_step over ``mesh``
+    (world size 1) against make_train_step; the differences bit for bit
+    (state_diff, each step's metrics), the launches of both against the
+    path's, and both steps (to time them)."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.parallel import make_sharded_train_step
+    from danerf_tpu_torch.train.trainer import make_train_step
+
+    runs = {}
+    for mode in ("sharded", "single"):
+        model, table, opt, sched, gen, pool = train_state(cfg, ds, device)
+
+        def make(n, bs):
+            if mode == "sharded":
+                return make_sharded_train_step(model, table, opt, sched, pool, cfg, mesh,
+                                               ds.height, ds.width, ds.focal, bs, gen, n)
+            return make_train_step(model, table, opt, sched, pool, cfg, ds.height, ds.width,
+                                   ds.focal, bs, gen, n)
+
+        warm = make(1, 64)
+        for _ in range(5):
+            warm()
+        step = make(k, None)
+        fr.reset_launch_counts()
+        out = step()
+        torch.cuda.synchronize()
+        runs[mode] = {"state": (model, table, opt, sched, gen), "launches": dict(fr.LAUNCHES),
+                      "metrics": out, "step": step}
+    a, b = runs["sharded"], runs["single"]
+    diff = state_diff(a["state"], b["state"])
+    diff += [f"metric {n}" for n in b["metrics"]
+             if not torch.equal(a["metrics"][n], b["metrics"][n])]
+    want = launches_of(per_step, k)
+    bad = {m: r["launches"] for m, r in runs.items() if r["launches"] != want}
+    n_flat = sum(p.numel() for p in a["state"][0].parameters()) + a["state"][1].numel()
+    return {"steps": k, "differences": diff, "launches_wrong": bad,
+            "launches": a["launches"], "flat_allreduce_floats": n_flat + len(a["metrics"]),
+            "loss_first_last": [float(a["metrics"]["loss"][0]),
+                                float(a["metrics"]["loss"][-1])]}, a["step"], b["step"]
+
+
+def phase_dist_step(cfg, device, mesh, k=10):
+    """Data-parallel training on a world-size-1 NCCL group: for the 64 + 64,
+    the coarse-only and the per-sample path, 10 chained sharded steps (one
+    graph replay, the flat all-reduce captured with them) against 10
+    chained make_train_step steps, bit for bit, with exactly the path's
+    launches; then on 64 + 64 both steps timed in turns (20 synchronised
+    replays each, ms a step) and a torch.profiler window of 3 replays each
+    (device busy, idle share): the difference is the all-reduce's cost."""
+    import numpy as np
+    import torch
+
+    report, failures, steps = {}, [], {}
+    for path in ("hier", "coarse", "per_sample"):
+        over, per_step = PATHS[path]
+        pcfg = cfg.replace(**over)
+        report[path], *steps[path] = dp_vs_single(pcfg, timing_scene(pcfg), device, mesh, k,
+                                                  per_step)
+        if report[path]["differences"] or report[path]["launches_wrong"]:
+            failures.append(f"{path}: {report[path]}")
+    sharded, single = steps["hier"]
+    times = {"sharded": [], "single": []}
+    for _ in range(20):
+        for mode, step in (("single", single), ("sharded", sharded)):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3 / k)
+    timing = {}
+    for mode, step in (("single", single), ("sharded", sharded)):
+        prof = profile_steps(step, n_prof=3)
+        timing[mode] = {"ms_per_step_median": float(np.median(times[mode])),
+                        "ms_per_step_min": min(times[mode]),
+                        "ms_per_step_max": max(times[mode]),
+                        "rays_per_s": cfg.batch_size / (float(np.median(times[mode])) / 1e3),
+                        "replay_event_ms": cuda_ms(step, 5),
+                        "device_busy_ms_per_step": prof["profile_device_busy_ms_per_step"] / k,
+                        "idle_share": prof["profile_idle_share"],
+                        "top_kernels_ms_per_replay": prof["profile_ms_per_step"][:8]}
+    timing["sharded_over_single"] = (timing["sharded"]["ms_per_step_median"]
+                                     / timing["single"]["ms_per_step_median"])
+    emit({"phase": "dist_step", "world_size": 1, "backend": "nccl", "steps_per_call": k,
+          "rays": cfg.batch_size, **report, "timing_64_64": timing, "failures": failures})
+    if failures:
+        raise AssertionError("sharded steps differ from make_train_step: " + "; ".join(failures))
+    return report
+
+
+def phase_dist_frame(cfg, model, device, mesh, side=800):
+    """The sharded frame on a world-size-1 NCCL group: render_frame(mesh=)
+    of an 800x800 medium frame (64 + 64, jittered from a seeded generator)
+    against render_frame, bit for bit, with exactly 10 K2 and 10 K5
+    launches; make_sharded_render on one 65,536-ray chunk against
+    render_rays' per-sample route, bit for bit, with exactly 2 K1 launches;
+    the ms of each (median of 3 after a warm-up call, in turns)."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.config import RENDER_PRESETS
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.parallel.mesh import make_sharded_render
+    from danerf_tpu_torch.render.renderer import render_frame, render_rays
+    from danerf_tpu_torch.viz.paths import camera_path
+
+    emb = torch.randn(cfg.appearance_dim, generator=torch.Generator().manual_seed(3))
+    focal = 0.5 * side / np.tan(0.5 * 0.6911)
+    c2w = camera_path("circle", 4, cfg.scene)[1]
+
+    def frame(m):
+        gen = torch.Generator(device=device).manual_seed(7)
+        return render_frame(model, cfg, c2w, side, side, focal, appearance_embedding=emb,
+                            perturb=True, chunk=RENDER_PRESETS["medium"]["chunk"],
+                            generator=gen, device=device, mesh=m)
+
+    failures = []
+    fr.reset_launch_counts()
+    got = frame(mesh)
+    torch.cuda.synchronize()
+    frame_launches = dict(fr.LAUNCHES)
+    want = frame(None)
+    frame_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    n_chunks = -(-side * side // RENDER_PRESETS["medium"]["chunk"])
+    if frame_launches != launches_of({"march": n_chunks, "merged": n_chunks}):
+        failures.append(f"sharded frame launches {frame_launches}")
+    if not frame_equal:
+        failures.append("sharded frame != render_frame: max "
+                        f"{max(max_err(a, b) for a, b in zip(got, want))}")
+    frame_ms = {"sharded": [], "single": []}
+    for _ in range(3):
+        for mode, m in (("single", None), ("sharded", mesh)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame(m)
+            torch.cuda.synchronize()
+            frame_ms[mode].append((time.perf_counter() - t0) * 1e3)
+
+    n = cfg.render_chunk
+    o, d, e, _ = make_rays(n, cfg, seed=31, device=device)
+    render = make_sharded_render(cfg, mesh, 256, 256, cfg.num_samples, cfg.num_importance)
+    with torch.no_grad():
+        fr.reset_launch_counts()
+        got_r = render(model, o, d, e)
+        torch.cuda.synchronize()
+        render_launches = dict(fr.LAUNCHES)
+
+        def plain_route():
+            out = render_rays(model, cfg, o, d, e, perturb=False, fused_composite=False)
+            return out["rgb"], out["depth"], out["acc"]
+
+        want_r = plain_route()
+        render_equal = all(torch.equal(a, b) for a, b in zip(got_r, want_r))
+        render_ms = {"sharded": cuda_ms(lambda: render(model, o, d, e), 3),
+                     "render_rays": cuda_ms(plain_route, 3)}
+    if render_launches != launches_of({"mlp_fwd": 2}):
+        failures.append(f"make_sharded_render launches {render_launches}")
+    if not render_equal:
+        failures.append("make_sharded_render != render_rays: max "
+                        f"{max(max_err(a, b) for a, b in zip(got_r, want_r))}")
+    report = {"frame": {"side": side, "equal": frame_equal, "launches": frame_launches,
+                        "ms_median": {m: float(np.median(v)) for m, v in frame_ms.items()},
+                        "ms": frame_ms},
+              "sharded_render": {"rays": n, "samples": [cfg.num_samples, cfg.num_importance],
+                                 "equal": render_equal, "launches": render_launches,
+                                 "ms": render_ms}}
+    emit({"phase": "dist_frame", "world_size": 1, "backend": "nccl", **report,
+          "failures": failures})
+    if failures:
+        raise AssertionError("the sharded frame disagrees: " + "; ".join(failures))
+    return report
+
+
+# The two-rank phase's bars (gloo on one card, the same f32 work in other
+# sums): the first step's gradients summed over two half batches, per
+# parameter by relative Frobenius error (a sum in place of the mean would be
+# 0.5); each step's loss relatively; the parameters after 3 Adam steps at
+# most 2 lr apart a step (Adam moves an element by at most ~lr, and an
+# element whose gradient is near 0 may change sign between the two); the
+# frame at the JAX sharded frame's bars (tests/test_parallel.py: rgb and
+# acc 1e-5, depth 1e-4): its kernels compute each ray alone on the same
+# jitter, but PyTorch's per-ray reductions (the direction's norm, the CDF's
+# sums) may take another order for half the rays (measured on the H100:
+# 6.2e-6); the tensor-parallel forward (bf16 inputs rounded at the same
+# places, the row-parallel partial sums in another order) at PLAIN_TOL's
+# field limits.
+TWO_RANK_TOL = {"grad_rel": 1e-3, "loss_rel": 1e-4, "frame_rgb_acc": 1e-5, "frame_depth": 1e-4}
+
+
+def two_rank_inputs(cfg, device):
+    """What both ranks and the single-process reference start from: the
+    training state, the frame's model, camera and embedding, the points of
+    the tensor-parallel forward."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.viz.paths import camera_path
+
+    ds = timing_scene(cfg)
+    g = torch.Generator(device=device).manual_seed(41)
+    x = torch.randn(4096, 3, generator=g, device=device)
+    d = torch.randn(4096, 3, generator=g, device=device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    emb = torch.randn(4096, cfg.appearance_dim, generator=g, device=device)
+    return {"ds": ds, "state": train_state(cfg, ds, device), "c2w": camera_path("circle", 4,
+                                                                                cfg.scene)[1],
+            "focal": 0.5 * 200 / np.tan(0.5 * 0.6911), "points": (x, d, emb),
+            "frame_emb": torch.randn(cfg.appearance_dim,
+                                     generator=torch.Generator().manual_seed(3))}
+
+
+def two_rank_work(cfg, device, mesh=None, tp_mesh=None):
+    """3 eager 64 + 64 steps at B = 1024 (sharded over ``mesh`` when given),
+    a 200x200 medium frame, and the module-route forward (tensor-parallel
+    over ``tp_mesh`` when given): losses, the first step's gradients, the
+    parameters after, the frame, rgb/sigma and the wall ms of the steps."""
+    import torch
+
+    from danerf_tpu_torch.parallel import make_sharded_train_step
+    from danerf_tpu_torch.parallel.mesh import TPNeRF
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.train.trainer import make_train_step
+
+    inp = two_rank_inputs(cfg, device)
+    ds = inp["ds"]
+    model, table, opt, sched, gen, pool = inp["state"]
+    if mesh is None:
+        step = make_train_step(model, table, opt, sched, pool, cfg, ds.height, ds.width,
+                               ds.focal, None, gen, 1)
+    else:
+        step = make_sharded_train_step(model, table, opt, sched, pool, cfg, mesh, ds.height,
+                                       ds.width, ds.focal, None, gen, 1)
+    params = list(model.parameters()) + [table]
+    losses, grads = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        losses.append(float(step()["loss"][0]))
+        if i == 0:
+            grads = [p.grad.detach().clone() for p in params]
+    steps_ms = (time.perf_counter() - t0) * 1e3 / 3
+    fmodel = make_model(cfg, seed=0, device=device)
+    gen_f = torch.Generator(device=device).manual_seed(7)
+    frame = render_frame(fmodel, cfg, inp["c2w"], 200, 200, inp["focal"],
+                         appearance_embedding=inp["frame_emb"], perturb=True, chunk=65536,
+                         generator=gen_f, device=device, mesh=mesh)
+    mcfg = cfg.replace(use_kernels=False)
+    net = make_model(mcfg, seed=0, device=device)
+    if tp_mesh is not None:
+        net = TPNeRF(net, tp_mesh)
+    with torch.no_grad():
+        rgb, sigma = net(*inp["points"])
+    return {"losses": losses, "grads": [g.cpu() for g in grads],
+            "params": [p.detach().cpu() for p in params],
+            "frame": [f.cpu() for f in frame], "rgb": rgb.cpu(), "sigma": sigma.cpu(),
+            "steps_ms": steps_ms}
+
+
+def card_timing(cfg, device, mesh, world, side=800):
+    """The chained 64 + 64 step (10 steps a replay; over ``mesh`` when
+    given, else one process) at a global batch of B = 1024 and of world x
+    1024 (each rank's block 1024 rays): the median, min and max ms a step
+    of 20 synchronised replays after the capture, and rays/s; and the
+    800x800 medium frame (median of 3 after a warm-up call)."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.parallel import make_sharded_train_step
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.train.trainer import make_train_step
+
+    out = {}
+    ds = timing_scene(cfg)
+    for b in (cfg.batch_size, world * cfg.batch_size):
+        model, table, opt, sched, gen, pool = train_state(cfg, ds, device)
+        if mesh is None:
+            step = make_train_step(model, table, opt, sched, pool, cfg, ds.height, ds.width,
+                                   ds.focal, b, gen, 10)
+        else:
+            step = make_sharded_train_step(model, table, opt, sched, pool, cfg, mesh, ds.height,
+                                           ds.width, ds.focal, b, gen, 10)
+        step()
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3 / 10)
+        ms = float(np.median(reps))
+        out[f"step_B{b}"] = {"ms_per_step_median": ms, "ms_per_step_min": min(reps),
+                             "ms_per_step_max": max(reps), "rays_per_s": b / (ms / 1e3)}
+    inp = two_rank_inputs(cfg, device)
+    fmodel = make_model(cfg, seed=0, device=device)
+    focal = 0.5 * side / np.tan(0.5 * 0.6911)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_frame(fmodel, cfg, inp["c2w"], side, side, focal,
+                     appearance_embedding=inp["frame_emb"], perturb=True, chunk=65536,
+                     generator=torch.Generator(device=device).manual_seed(7), device=device,
+                     mesh=mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out[f"frame_{side}_medium_ms"] = float(np.median(times[1:]))
+    return out
+
+
+def tp_chained_vs_eager(cfg, device, tp_mesh, k=10):
+    """The tensor-parallel step on the kernel route (the trunk gathered
+    each step, NCCL in the captured graph): one call of ``k`` steps as a
+    graph replay against ``k`` eager steps from one seeded state, bit for
+    bit on this rank's shards (state_diff) and metrics, with the 64 + 64
+    launches; returns this rank's differences."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.parallel import make_sharded_train_step, shard_train_state
+
+    ds = timing_scene(cfg)
+    runs = {}
+    for per_call, calls in ((k, 1), (1, k)):
+        model, table, opt, sched, gen, pool = train_state(cfg, ds, device)
+        model, table, opt, sched = shard_train_state(model, table, opt, sched, gen, tp_mesh,
+                                                     tensor_parallel=True)
+        step = make_sharded_train_step(model, table, opt, sched, pool, cfg, tp_mesh, ds.height,
+                                       ds.width, ds.focal, None, gen, per_call)
+        fr.reset_launch_counts()
+        out = [step() for _ in range(calls)]
+        torch.cuda.synchronize()
+        runs[per_call] = ((model, table, opt, sched, gen), dict(fr.LAUNCHES),
+                          {n: torch.cat([m[n] for m in out]) for n in out[0]})
+    (sa, la, ma), (sb, lb, mb) = runs[k], runs[1]
+    diff = state_diff(sa, sb) + [f"metric {n}" for n in mb if not torch.equal(ma[n], mb[n])]
+    want = launches_of(PATHS["hier"][1], k)
+    if la != want or lb != want:
+        diff.append(f"launches {la} {lb}")
+    return diff
+
+
+def dist_child(rank: int, world: int, port: int, out_dir: str, backend: str) -> int:
+    """One rank of phase_dist_ranks: on gloo every rank shares the one
+    card, on NCCL each takes its own (rank % cards)."""
+    import torch
+    import torch.distributed as dist
+
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend=backend)
+    device = torch.device("cuda")
+    cfg = NeRFConfig(density_bias_init=0.5)
+    mesh = make_mesh(data=world, model=1)
+    tp_mesh = make_mesh(data=world // 2, model=2)
+    got = two_rank_work(cfg, device, mesh=mesh, tp_mesh=tp_mesh)
+    if backend == "nccl":
+        got["timing"] = card_timing(cfg, device, mesh, world)
+        n_diff = torch.tensor([len(tp_chained_vs_eager(cfg, device, tp_mesh))], device=device)
+        dist.all_reduce(n_diff)
+        got["tp_chained_differences_all_ranks"] = int(n_diff)
+    if rank == 0:
+        torch.save(got, os.path.join(out_dir, f"ranks_{world}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist_ranks(cfg, device, out_dir, world=2, backend="gloo"):
+    """``world`` processes of this script, one rank each: on gloo all on
+    the one card (NCCL refuses two ranks on one card; phase dist_two_ranks),
+    on NCCL one card each (phase dist_cards, ``--cards``).  Each rank runs 3
+    eager sharded 64 + 64 steps at a global B = 1024, a 200x200 sharded
+    frame and the --mesh_model 2 module-route forward, held against the
+    same work in this process without a mesh within TWO_RANK_TOL; on NCCL
+    also the chained step's and the 800x800 frame's times (against this
+    process's on one card, timed after the ranks exit) and the
+    tensor-parallel kernel-route step chained against eager, bit for bit.
+    A failure in any rank fails the phase.  Gloo times are no speed figure
+    (the ranks share one card and gloo copies through the host)."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    child_dir = os.path.join(out_dir, f"ranks_{backend}_{world}")
+    os.makedirs(child_dir, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-child",
+                               str(r), str(world), str(port), child_dir, backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    children_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dist ranks: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    got = torch.load(os.path.join(child_dir, f"ranks_{world}.pt"), weights_only=False)
+    want = two_rank_work(cfg, device)
+    names = [n for n, _ in make_model(cfg, 0, "cpu").named_parameters()] + ["appearance"]
+    grad_rel = {n: float((a - b).norm() / b.norm()) for n, a, b in
+                zip(names, got["grads"], want["grads"]) if float(b.norm()) > 0}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    param_abs = max(max_err(a, b) for a, b in zip(got["params"], want["params"]))
+    frame_err = [max_err(a, b) for a, b in zip(got["frame"], want["frame"])]
+    rgb_err = max_err(got["rgb"], want["rgb"])
+    sigma_err = float(((got["sigma"] - want["sigma"]).abs()
+                       / want["sigma"].abs().clamp_min(1.0)).max())
+    tol = fr.PLAIN_TOL
+    checks = {"grad_rel_worst": (max(grad_rel.values()), TWO_RANK_TOL["grad_rel"]),
+              "loss_rel": (loss_rel, TWO_RANK_TOL["loss_rel"]),
+              "param_max_abs": (param_abs, 3 * 2 * cfg.learning_rate * (1 + 1e-3)),
+              "frame_rgb_max_abs": (frame_err[0], TWO_RANK_TOL["frame_rgb_acc"]),
+              "frame_depth_max_abs": (frame_err[1], TWO_RANK_TOL["frame_depth"]),
+              "frame_acc_max_abs": (frame_err[2], TWO_RANK_TOL["frame_rgb_acc"]),
+              "tp_rgb_max_abs": (rgb_err, tol["field_rgb"]),
+              "tp_sigma_rel": (sigma_err, tol["field_sigma"])}
+    failures = [f"{k}: {v} > {lim}" for k, (v, lim) in checks.items()
+                if not (math.isfinite(v) and v <= lim)]
+    report = {"phase": "dist_two_ranks" if backend == "gloo" else "dist_cards",
+              "world_size": world, "backend": backend,
+              "cards": 1 if backend == "gloo" else world,
+              "checks": {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()},
+              "grad_rel_worst_param": max(grad_rel, key=grad_rel.get),
+              "losses": {"ranks": got["losses"], "one_process": want["losses"]},
+              "steps_ms_each_ranks": got["steps_ms"],
+              "steps_ms_each_one_process": want["steps_ms"],
+              "children_s_incl_start": children_s}
+    if backend == "nccl":
+        report["tp_chained_differences_all_ranks"] = got["tp_chained_differences_all_ranks"]
+        if got["tp_chained_differences_all_ranks"]:
+            failures.append("tensor-parallel chained steps differ from eager steps")
+        report["timing_ranks"] = got["timing"]
+        report["timing_one_card"] = card_timing(cfg, device, None, world)
+    report["failures"] = failures
+    emit(report)
+    if failures:
+        raise AssertionError("the ranks disagree with one process: " + "; ".join(failures))
+    return checks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                   "build", "chip_smoke"),
                     help="directory for the build log, checkpoint and frames")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="with N > 1: only the data-parallel phase over N cards on NCCL")
+    # one rank of phase_dist_ranks (the script starts the ranks)
+    ap.add_argument("--dist-child", nargs=5, metavar=("RANK", "WORLD", "PORT", "DIR", "BACKEND"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2645,6 +3158,10 @@ def main(argv=None):
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
         return 2
     import danerf_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    if args.dist_child:
+        rank, world, port, out, backend = args.dist_child
+        return dist_child(int(rank), int(world), int(port), out, backend)
 
     from danerf_tpu_torch.config import NeRFConfig
 
@@ -2658,6 +3175,14 @@ def main(argv=None):
     # Full width, seeded random weights; the density bias is shifted alive so
     # the composite is not vacuous (relu heads can be born dead).
     cfg = NeRFConfig(density_bias_init=0.5)
+    if args.cards > 1:
+        if torch.cuda.device_count() < args.cards:
+            raise AssertionError(f"--cards {args.cards}: {torch.cuda.device_count()} cards")
+        phase_dist_ranks(cfg, device, args.out, args.cards, "nccl")
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     model = make_model(cfg, seed=0, device=device)
     errs, chunk = phase_kernels(cfg, model, device)
     errs.update(phase_bwd(cfg, model, device))
@@ -2696,6 +3221,27 @@ def main(argv=None):
     tt, tt_bound_by = phase_train_timing(cfg, model, device, chunk)
     timing_t, bound_by_t = phase_timing(cfg_t, model_t, device, chunk_t, frame_t=0.5)
     tt_t, tt_bound_by_t = phase_train_timing(cfg_t, model_t, device, chunk_t)
+    # data parallelism (parallel/mesh.py): 64 + 64 through `cli.main train
+    # --coordinator_address auto --mesh_data 0` as torchrun runs one rank
+    # (its NCCL group of one; one K2, K4, K3 a step and one K2, K5 for the
+    # validation render), then on a world-size-1 NCCL group of this process
+    # the sharded steps and frames against the unsharded ones, then two
+    # ranks on gloo
+    with torchrun_env():
+        train_launches["hier_dp"] = phase_train(args.out, "hier_dp", 100, render=False,
+                                                every=100)
+    import torch.distributed as dist
+
+    from danerf_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    mesh = make_mesh()
+    phase_dist_step(cfg, device, mesh)
+    dist_frame = phase_dist_frame(cfg, model, device, mesh)
+    dist.destroy_process_group()
+    phase_dist_ranks(cfg, device, args.out)
 
     def train_kernel(name, key, source, replaces, path, counter):
         # a training kernel at the batch (B = 1024 rays, 64 + 64), its
@@ -2793,6 +3339,20 @@ def main(argv=None):
                    "K6": "merged_bwd"}.get(rec["name"][:2])
         if counter:
             rec["eval_launches"] = eval_counts[counter]
+    # data parallelism: the launches of the data-parallel training run (K2,
+    # K4, K3), of a sharded 800x800 frame on the one rank (K2, K5) and of
+    # make_sharded_render's 65,536-ray chunk (K1)
+    for rec in kernels:
+        key = rec["name"][:2]
+        counter = {"K2": "march", "K4": "merged_train", "K3": "march_bwd"}.get(key)
+        if counter:
+            rec["dp_train_launches"] = train_launches["hier_dp"][counter]
+        if key in ("K2", "K5"):
+            rec["sharded_frame_launches_per_rank"] = dist_frame["frame"]["launches"][
+                "march" if key == "K2" else "merged"]
+        if key == "K1":
+            rec["sharded_render_launches_per_chunk"] = dist_frame["sharded_render"][
+                "launches"]["mlp_fwd"]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

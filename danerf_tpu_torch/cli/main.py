@@ -25,7 +25,11 @@ per-view report), with the JAX CLI's flags plus ``--device``;
 left half and scores the right half.  A ``danerf_tpu`` (Orbax) checkpoint
 directory is converted to a ``.pt`` by ``orbax_to_pt.py`` at the root of
 the repository, where JAX is installed.
-Flags whose machinery is not yet ported raise instead of being ignored.
+``train``, ``render`` and ``spiral`` take the JAX CLI's ``--mesh_data``
+and ``--mesh_model`` and its multi-process flags (``--coordinator_address
+host:port|auto --num_processes N --process_id i``; ``auto`` under
+``torchrun``): data-parallel training over the ranks, each frame's rays
+sharded over them (``parallel/mesh.py``); rank 0 writes the files.
 ``--use_time`` trains and renders the time-conditioned variant; ``render``
 warns when ``--time`` or ``--animate_time`` come without it (the JAX CLI
 ignores them silently).
@@ -34,8 +38,29 @@ ignores them silently).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import warnings
+
+
+def _add_process_flags(p) -> None:
+    """The multi-process flags (``parallel.initialize_distributed``)."""
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0 (multi-process runs), or auto under torchrun")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total number of processes (ranks)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank in [0, num_processes)")
+
+
+def _add_mesh_flags(p) -> None:
+    """A frame renderer's mesh and multi-process flags."""
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="shard each frame's rays over this many ranks (0 = all ranks)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model axis of the mesh: ranks of one data row render the same "
+                        "rays (the weights stay whole)")
+    _add_process_flags(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,8 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue from the latest checkpoint in --save_dir")
     t.add_argument("--no_appearance", action="store_true")
     t.add_argument("--num_importance", type=int, default=None)
-    t.add_argument("--mesh_data", type=int, default=1, help="(not yet ported; must be 1)")
-    t.add_argument("--mesh_model", type=int, default=1, help="(not yet ported; must be 1)")
+    t.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel axis size over the ranks (0 = ranks // mesh_model)")
+    t.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor-parallel axis size (the trunk's weights sharded; capability, "
+                        "not speed)")
     t.add_argument("--seed", type=int, default=0,
                    help="seeds the initial weights and every draw of the run")
     t.add_argument("--profile", type=str, default=None,
@@ -78,9 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train the time-conditioned variant; needs per-image times, which "
                         "the procedural time-varying scene supplies when no Blender data "
                         "is present")
-    t.add_argument("--coordinator_address", type=str, default=None, help="(not yet ported)")
-    t.add_argument("--num_processes", type=int, default=None, help="(not yet ported)")
-    t.add_argument("--process_id", type=int, default=None, help="(not yet ported)")
+    _add_process_flags(t)
     t.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     t.add_argument("--checkpoint_every", type=int, default=1000,
                    help="steps between checkpoints (0: only the final one)")
@@ -114,8 +140,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="take the reference route instead of the kernels")
     r.add_argument("--chunk", type=int, default=None,
                    help="rays per kernel call (default: quality preset)")
-    r.add_argument("--mesh_data", type=int, default=1,
-                   help="multi-device frame sharding (not yet ported; must be 1)")
+    _add_mesh_flags(r)
     r.add_argument("--white_background", action="store_true",
                    help="fill acc<1 rays with white")
     r.add_argument("--use_time", action="store_true",
@@ -144,8 +169,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--height", type=int, default=800)
     s.add_argument("--no_pallas", action="store_true",
                    help="take the reference route instead of the kernels")
-    s.add_argument("--mesh_data", type=int, default=1,
-                   help="multi-device frame sharding (not yet ported; must be 1)")
+    _add_mesh_flags(s)
     s.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     s.add_argument("--seed", type=int, default=0,
                    help="seeds the per-frame generators")
@@ -202,14 +226,51 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _train_not_ported(args) -> list:
-    bad = []
-    if args.mesh_data != 1 or args.mesh_model != 1:
-        bad.append("--mesh_data/--mesh_model != 1")
-    if (args.coordinator_address is not None or args.num_processes is not None
-            or args.process_id is not None):
-        bad.append("--coordinator_address/--num_processes/--process_id")
-    return bad
+@contextlib.contextmanager
+def _process_group(args, device):
+    """Join the process group the multi-process flags describe
+    (``initialize_distributed``: NCCL on the card, gloo on the CPU) for the
+    command, and leave it after."""
+    from danerf_tpu_torch.parallel import initialize_distributed
+
+    joined = initialize_distributed(args.coordinator_address, args.num_processes,
+                                    args.process_id, device=device)
+    if joined:
+        import torch.distributed as dist
+
+        print(f"distributed: process {dist.get_rank()}/{dist.get_world_size()}, "
+              f"{dist.get_backend()}")
+    try:
+        yield
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _make_mesh(args, device, render: bool):
+    """The (data, model) mesh of ``--mesh_data``/``--mesh_model`` over the
+    ranks of the process group, or None: for axes of 1, or without a process
+    group (one rank is the unsharded path), or when the axes exceed the
+    ranks, where ``train`` stays on one rank and ``render``/``spiral`` say
+    so, as the JAX CLI does."""
+    if args.mesh_data == 1 and args.mesh_model == 1:
+        return None
+    import torch.distributed as dist
+
+    from danerf_tpu_torch.parallel import make_mesh
+    from danerf_tpu_torch.parallel.mesh import _rank_world
+
+    world = _rank_world()[1]
+    data = args.mesh_data or world // args.mesh_model
+    if data * args.mesh_model > world:
+        if render:
+            print(f"--mesh_data {data} > {world} devices; rendering single-device")
+        return None
+    if not dist.is_initialized():
+        return None
+    return make_mesh(data=data, model=args.mesh_model, device=device)
 
 
 def _train_config(args):
@@ -231,19 +292,22 @@ def _train_config(args):
 
 
 def cmd_train(args):
+    from danerf_tpu_torch import resolve_device
+
+    device = resolve_device(args.device)
+    with _process_group(args, device):
+        return _train(args, device)
+
+
+def _train(args, device):
     import os
 
     import torch
 
-    from danerf_tpu_torch import resolve_device
     from danerf_tpu_torch.data.dataset import load_dataset
     from danerf_tpu_torch.models.nerf import NeRF
     from danerf_tpu_torch.train.trainer import train
 
-    bad = _train_not_ported(args)
-    if bad:
-        raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
-    device = resolve_device(args.device)
     cfg = _train_config(args)
 
     # Start-up smoke test before committing to training (reference
@@ -266,6 +330,9 @@ def cmd_train(args):
     del model
 
     ds = load_dataset(cfg, "train")
+    mesh = _make_mesh(args, device, render=False)
+    if mesh is not None:
+        cfg = cfg.replace(mesh_data=mesh.data, mesh_model=mesh.model)
     save_dir = args.save_dir or f"checkpoints_{args.scene}"
     if args.profile:
         # a short profiled run before the real one (the JAX CLI's); its
@@ -275,17 +342,15 @@ def cmd_train(args):
 
         with trace(args.profile):
             train(cfg, ds, save_dir=os.path.join(args.profile, "run"), num_iterations=20,
-                  checkpoint_every=0, seed=args.seed, device=device, progress=False)
+                  checkpoint_every=0, seed=args.seed, device=device, progress=False, mesh=mesh)
         print(f"profiler trace written to {args.profile}")
     return train(cfg, ds, save_dir=save_dir, resume=args.resume, num_iterations=args.iters,
                  seed=args.seed, device=device, checkpoint_every=args.checkpoint_every,
-                 log_path=os.path.join(save_dir, "metrics.jsonl"))
+                 log_path=os.path.join(save_dir, "metrics.jsonl"), mesh=mesh)
 
 
 def _not_ported(args) -> list:
     bad = []
-    if getattr(args, "mesh_data", 1) != 1:
-        bad.append("--mesh_data != 1")
     if args.checkpoint is not None and not args.checkpoint.endswith(".pt"):
         bad.append("a danerf_tpu (Orbax) checkpoint directory; convert it to a .pt with "
                    "orbax_to_pt.py (at the repository root, where JAX is installed)")
@@ -319,14 +384,20 @@ def _load_model(args, cfg, device, want_table: bool = False):
 
 def cmd_render(args):
     from danerf_tpu_torch import resolve_device
-    from danerf_tpu_torch.config import NeRFConfig
-    from danerf_tpu_torch.data.dataset import scene_intrinsics
-    from danerf_tpu_torch.render.frames import render_path
 
     bad = _not_ported(args)
     if bad:
         raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
     device = resolve_device(args.device)
+    with _process_group(args, device):
+        return _render(args, device)
+
+
+def _render(args, device):
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.dataset import scene_intrinsics
+    from danerf_tpu_torch.render.frames import render_path
+
     if not args.use_time and (args.time is not None or args.animate_time):
         warnings.warn("--time/--animate_time have no effect without --use_time (a model "
                       "without the time input); rendering without a time", stacklevel=2)
@@ -346,21 +417,28 @@ def cmd_render(args):
                        make_video=args.create_video, fps=args.fps,
                        dataset_width=ds.width, focal=ds.focal, seed=args.seed,
                        chunk=args.chunk, time=args.time if args.use_time else None,
-                       animate_time=args.use_time and args.animate_time, device=device)
+                       animate_time=args.use_time and args.animate_time, device=device,
+                       mesh=_make_mesh(args, device, render=True))
 
 
 def cmd_spiral(args):
-    import os
-
     from danerf_tpu_torch import resolve_device
-    from danerf_tpu_torch.config import NeRFConfig
-    from danerf_tpu_torch.data.dataset import scene_intrinsics
-    from danerf_tpu_torch.render.frames import render_aligned_spiral
 
     bad = _not_ported(args)
     if bad:
         raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
     device = resolve_device(args.device)
+    with _process_group(args, device):
+        return _spiral(args, device)
+
+
+def _spiral(args, device):
+    import os
+
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.dataset import scene_intrinsics
+    from danerf_tpu_torch.render.frames import render_aligned_spiral
+
     cfg = NeRFConfig(scene=args.scene, dataset_path=args.dataset_path,
                      use_kernels=not args.no_pallas)
     ds = scene_intrinsics(cfg, "train")
@@ -372,7 +450,7 @@ def cmd_spiral(args):
                                  num_frames=args.frames, fps=args.fps, loops=args.loops,
                                  rotation_axis=args.rotation, height=args.height,
                                  width=args.width, focal=ds.focal, seed=args.seed,
-                                 device=device)
+                                 device=device, mesh=_make_mesh(args, device, render=True))
 
 
 def cmd_effects(args):

@@ -84,12 +84,7 @@ class NeRF(nn.Module):
                 raise ValueError("cfg.use_time=True requires a time input t")
             enc_x = torch.cat([enc_x, positional_encoding(t, cfg.time_enc_levels)], dim=-1)
 
-        h = enc_x
-        for i, layer in enumerate(self.pts_linears):
-            if i in cfg.skip_connect_layers and i > 0:
-                h = torch.cat([h, enc_x], dim=-1)
-            h = F.relu(_linear(layer, h, cdt))
-
+        h = self._trunk(enc_x, cdt)
         act = F.softplus if cfg.density_activation == "softplus" else F.relu
         sigma = act(_linear(self.density_head, h, cdt))[..., 0]
 
@@ -98,6 +93,16 @@ class NeRF(nn.Module):
             h_dir = h_dir + _linear(self.appearance_projection, appearance_embedding, cdt)
         rgb = torch.sigmoid(_linear(self.rgb_linear, h_dir, cdt))
         return rgb, sigma
+
+    def _trunk(self, enc_x: torch.Tensor, cdt) -> torch.Tensor:
+        """The ReLU trunk on the encoded input, which re-enters at each skip
+        layer."""
+        h = enc_x
+        for i, layer in enumerate(self.pts_linears):
+            if i in self.cfg.skip_connect_layers and i > 0:
+                h = torch.cat([h, enc_x], dim=-1)
+            h = F.relu(_linear(layer, h, cdt))
+        return h
 
 
 def init_appearance_embeddings(num_images: int, appearance_dim: int,

@@ -10,6 +10,10 @@ colour is quantised and the depth normalised as (d - min) / (max - min +
 1e-6) on the device, and the effect's noise comes from a generator of the
 frame's own.
 
+Both take a ``mesh`` (``parallel/mesh.py``): each frame's rays shard over
+its data axis and rank 0 writes the frame; with several ranks and no mesh,
+each rank renders and writes its ``process_slice`` of the frames.
+
 Both drivers double-buffer the host I/O against the device: frame k + 1 is
 dispatched before frame k is fetched and encoded, the fetch (an event-waited
 copy, ``utils/hostio.py``) and the PNG encodes run on two worker threads,
@@ -82,6 +86,31 @@ class _Pipeline:
         return [[fut.result() for fut in futs][0] for futs in self.frames]
 
 
+def _frames_of_rank(num_frames: int, mesh):
+    """(the frame indices this rank renders, whether it writes them): every
+    frame, and rank 0 writes, under a mesh; with several ranks and no mesh,
+    its ``process_slice``, which it writes; alone, every frame."""
+    from danerf_tpu_torch.parallel.mesh import process_slice
+
+    ids = list(range(num_frames))
+    if mesh is not None:
+        return ids, mesh.rank == 0
+    return ids[process_slice(num_frames)], True
+
+
+def _video_writer(mesh) -> bool:
+    """True on the rank that encodes the video: rank 0, once every rank's
+    frames are on disk (a barrier when there are several ranks)."""
+    from danerf_tpu_torch.parallel.mesh import _rank_world
+
+    rank, world = _rank_world()
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+    return rank == 0
+
+
 def render_path(model, cfg: NeRFConfig, output_dir: str,
                 appearance_embedding=None, num_frames: int = 120,
                 quality: str = "high", width: int = 800, height: int = 800,
@@ -93,7 +122,7 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
                 dataset_width: Optional[int] = None, focal: Optional[float] = None,
                 seed: int = 0, frame_name: str = "rgb_{:03d}.png",
                 chunk: Optional[int] = None, time: Optional[float] = None,
-                animate_time: bool = False, device="cuda") -> list[str]:
+                animate_time: bool = False, device="cuda", mesh=None) -> list[str]:
     """Render frames along a parametric path; returns the rgb paths written.
 
     focal: the dataset's focal at ``dataset_width``, rescaled to ``width``.
@@ -101,10 +130,15 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
     with ``raw_output``, as in the JAX package).  make_video: encode the
     frames as ``{scene}_render.avi`` at ``fps``.  time / animate_time: the
     frame time of a ``use_time`` model, fixed or swept from 0 to 1 over the
-    path's frames.
+    path's frames.  mesh: each frame's rays shard over its data axis
+    (``render_frame``) and rank 0 writes; with several ranks and no mesh
+    each renders and writes its ``process_slice`` of the frames, and rank 0
+    encodes the video once all are written.
     """
     dev = resolve_device(device)
-    os.makedirs(output_dir, exist_ok=True)
+    frame_ids, writes = _frames_of_rank(num_frames, mesh)
+    if writes:
+        os.makedirs(output_dir, exist_ok=True)
     preset = RENDER_PRESETS[quality]
     n_samples = max(int(cfg.num_samples * preset["samples_scale"]), 1)
     n_importance = cfg.num_importance if preset["importance"] else 0
@@ -121,7 +155,7 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
     if end_frame is None:
         end_frame = num_frames
     raw_dir = os.path.join(output_dir, "raw")
-    if raw_output or save_depth:
+    if writes and (raw_output or save_depth):
         os.makedirs(raw_dir, exist_ok=True)
 
     def write_rgb(frame_idx, fetch):
@@ -142,7 +176,8 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
                   colorize_depth(depth_np))
 
     with _Pipeline() as pipe:
-        for i, c2w in enumerate(c2ws):
+        for i in frame_ids:
+            c2w = c2ws[i]
             frame_idx = start_frame + i
             if frame_idx >= end_frame:
                 continue
@@ -152,7 +187,9 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
                 model, cfg, c2w, height, width, focal,
                 appearance_embedding=appearance_embedding, n_samples=n_samples,
                 n_importance=n_importance, perturb=perturb, chunk=chunk, t=t_frame,
-                generator=gen, device=dev)
+                generator=gen, device=dev, mesh=mesh)
+            if not writes:
+                continue
             rgb_u8 = _quantize(rgb)
             if effect is not None and not raw_output:
                 depth_norm = (depth - depth.min()) / (depth.max() - depth.min() + 1e-6)
@@ -164,7 +201,7 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
                         (write_depth, frame_idx, fetch_async(depth)))
         written = pipe.results()
 
-    if make_video and written:
+    if make_video and _video_writer(mesh) and written:
         create_video_from_images(output_dir, os.path.join(output_dir, f"{cfg.scene}_render.avi"),
                                  pattern=frame_name.replace("{:03d}", "*"), fps=fps)
     return written
@@ -175,12 +212,15 @@ def render_aligned_spiral(model, cfg: NeRFConfig, output_dir: str,
                           fps: int = 60, loops: float = 2.0, rotation_axis: str = "x",
                           height: int = 800, width: int = 800,
                           focal: Optional[float] = None, make_video: bool = True,
-                          seed: int = 0, device="cuda") -> list[str]:
+                          seed: int = 0, device="cuda", mesh=None) -> list[str]:
     """Aligned spiral render: ``frame_NNNN.png``, a grayscale
     ``depth_NNNN.png`` every 10th frame, the config's samples without
-    jitter, and ``{scene}_spiral.avi`` at ``fps``; returns the frame paths."""
+    jitter, and ``{scene}_spiral.avi`` at ``fps``; returns the frame paths.
+    ``mesh`` and several ranks as in ``render_path``."""
     dev = resolve_device(device)
-    os.makedirs(output_dir, exist_ok=True)
+    frame_ids, writes = _frames_of_rank(num_frames, mesh)
+    if writes:
+        os.makedirs(output_dir, exist_ok=True)
     if focal is None:
         focal = 0.5 * width / np.tan(0.5 * 0.6911)
     c2ws = aligned_spiral_path(num_frames, loops, rotation_axis, cfg.scene)
@@ -194,18 +234,20 @@ def render_aligned_spiral(model, cfg: NeRFConfig, output_dir: str,
         write_png(os.path.join(output_dir, f"depth_{i:04d}.png"), depth_to_gray_u8(fetch()))
 
     with _Pipeline() as pipe:
-        for i, c2w in enumerate(c2ws):
+        for i in frame_ids:
             gen = torch.Generator(device=dev).manual_seed(seed * FRAME_SEED_STRIDE + i)
-            rgb, depth, _ = render_frame(model, cfg, c2w, height, width, focal,
+            rgb, depth, _ = render_frame(model, cfg, c2ws[i], height, width, focal,
                                          appearance_embedding=appearance_embedding,
-                                         perturb=False, generator=gen, device=dev)
+                                         perturb=False, generator=gen, device=dev, mesh=mesh)
+            if not writes:
+                continue
             tasks = [(write_rgb, i, fetch_async(_quantize(rgb)))]
             if i % 10 == 0:   # a depth map every 10th frame
                 tasks.append((write_depth, i, fetch_async(depth)))
             pipe.submit(*tasks)
         written = pipe.results()
 
-    if make_video:
+    if make_video and _video_writer(mesh):
         create_video_from_images(output_dir, os.path.join(output_dir, f"{cfg.scene}_spiral.avi"),
                                  pattern="frame_*.png", fps=fps)
     return written

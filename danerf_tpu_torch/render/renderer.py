@@ -14,7 +14,8 @@ stratified coarse pass, inverse-CDF importance pass, alpha compositing.
   for both passes; without, the module's forward (the reference route).
 
 ``render_frame`` renders a whole frame as a Python loop over chunks of rays;
-the last chunk may be short (the kernels mask the ragged tile).
+the last chunk may be short (the kernels mask the ragged tile).  With a
+mesh, each rank renders its share of every chunk (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -154,14 +155,19 @@ def render_frame(model, cfg: NeRFConfig, c2w, height: int, width: int, focal,
                  appearance_embedding=None, n_samples: Optional[int] = None,
                  n_importance: Optional[int] = None, perturb: bool = False,
                  chunk: Optional[int] = None, t=None,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda", mesh=None):
     """Render a (height, width) frame from camera matrix ``c2w``.
 
     The model and embedding are moved to ``device`` (CUDA unless the caller
     asks for the CPU; CUDA on a host without it raises).  With
     ``cfg.use_kernels`` the chunks take the kernel route, with the weights
-    packed once for the frame.  Returns (rgb [H,W,3] in [0,1], depth [H,W],
-    acc [H,W]) on ``device``.
+    packed once for the frame.  With ``mesh`` (``parallel.make_mesh``) the
+    chunk is rounded up to a multiple of the data axis and each rank
+    renders its contiguous share of every chunk; under ``perturb`` every
+    rank draws the whole chunk's jitter from ``generator``, in the order a
+    single process draws it, and takes its share's; the frame is gathered
+    on every rank.  Returns (rgb [H,W,3] in [0,1], depth [H,W], acc [H,W])
+    on ``device``.
     """
     dev = resolve_device(device)
     model = model.to(dev)
@@ -172,6 +178,8 @@ def render_frame(model, cfg: NeRFConfig, c2w, height: int, width: int, focal,
     if chunk is None:
         chunk = cfg.render_chunk
     n_rays = height * width
+    if mesh is not None:
+        chunk = -(-min(chunk, n_rays) // mesh.data) * mesh.data
 
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
     rays_o, rays_d = generate_rays(height, width, focal, c2w)
@@ -187,18 +195,39 @@ def render_frame(model, cfg: NeRFConfig, c2w, height: int, width: int, focal,
               if cfg.use_kernels else None)
 
     rgb, depth, acc = [], [], []
+    frame = None if mesh is None else torch.zeros(n_rays, 5, device=dev)
     for start in range(0, n_rays, chunk):
-        ro, rd = rays_o[start:start + chunk], rays_d[start:start + chunk]
+        lo, hi = start, min(start + chunk, n_rays)
+        draws = None
+        if mesh is not None:
+            if perturb:
+                u_strat = torch.rand(hi - lo, n_samples, generator=generator, device=dev)
+                u_imp = (torch.rand(hi - lo, n_importance, generator=generator, device=dev)
+                         if n_importance > 0 else None)
+            share = mesh.share(chunk)
+            lo, hi = min(start + share.start, hi), min(start + share.stop, hi)
+            if hi == lo:
+                continue
+            if perturb:
+                sl = slice(lo - start, hi - start)
+                draws = (u_strat[sl], None if u_imp is None else u_imp[sl])
+        ro, rd = rays_o[lo:hi], rays_d[lo:hi]
         n = ro.shape[0]
         e = None if emb is None else emb.expand(n, -1)
         tt = None if t is None else torch.full((n, 1), float(t), device=dev)
         out = render_rays(model, cfg, ro, rd, e, t=tt, n_samples=n_samples,
                           n_importance=n_importance, perturb=perturb,
                           background_color=bg, fused_composite=cfg.use_kernels,
-                          generator=generator, packed=packed)
-        rgb.append(out["rgb"])
-        depth.append(out["depth"])
-        acc.append(out["acc"])
+                          generator=generator, packed=packed, draws=draws)
+        if frame is None:
+            rgb.append(out["rgb"])
+            depth.append(out["depth"])
+            acc.append(out["acc"])
+        else:
+            frame[lo:hi] = torch.cat([out["rgb"], out["depth"][:, None], out["acc"][:, None]], -1)
+    if frame is not None:
+        mesh.sum_data(frame)
+        rgb, depth, acc = [frame[:, :3]], [frame[:, 3]], [frame[:, 4]]
     return (torch.cat(rgb).reshape(height, width, 3),
             torch.cat(depth).reshape(height, width),
             torch.cat(acc).reshape(height, width))

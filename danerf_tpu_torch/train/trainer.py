@@ -340,11 +340,11 @@ def _ready_for_capture(optimizer) -> None:
                 state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
-def _warm_step(model, table, cfg: NeRFConfig, pool, height: int, width: int, focal,
-               batch_size: Optional[int], generator: Optional[torch.Generator]) -> None:
-    """One training step on copies of the module, the table, a fresh Adam and
-    the generator: it runs what the step runs and leaves the training state
-    as it was."""
+def _warm_step(model, table, cfg: NeRFConfig, pool, generator: Optional[torch.Generator],
+               run) -> None:
+    """One training step, ``run(model, table, optimizer, generator)``, on
+    copies of the module, the table, a fresh Adam and the generator: it runs
+    what the step runs and leaves the training state as it was."""
     import copy
 
     model = copy.deepcopy(model)
@@ -354,7 +354,7 @@ def _warm_step(model, table, cfg: NeRFConfig, pool, height: int, width: int, foc
     gen = torch.Generator(device=pool["images"].device)
     if generator is not None:
         gen.set_state(generator.get_state())
-    _step(model, table, optimizer, pool, cfg, height, width, focal, batch_size, gen)
+    run(model, table, optimizer, gen)
 
 
 class ChainedStep:
@@ -403,7 +403,9 @@ class ChainedStep:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        with torch.cuda.graph(graph):
+        # thread_local: only this thread's calls are checked while capturing
+        # (a data-parallel step's NCCL watchdog thread queries events then)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.names, self.out = _stack([self.step() for _ in range(self.k)])
         self.launches = {n: LAUNCHES[n] - before[n] for n in LAUNCHES}
         LAUNCHES.update(before)
@@ -422,6 +424,26 @@ class ChainedStep:
         return _columns(self.names, self.out.clone())
 
 
+def chain_steps(step, warm, steps_per_call: int, optimizer, scheduler, generator, cfg: NeRFConfig,
+                on_cuda: bool):
+    """``steps_per_call`` calls of ``step`` (one training step without
+    StepLR's host-side step) a call, returning their metrics as
+    {name: (steps_per_call,) device tensor}: on CUDA with ``steps_per_call >
+    1`` a ``ChainedStep`` (``warm`` runs one step on copies before the
+    capture), otherwise eagerly, StepLR stepped after each step."""
+    if on_cuda and steps_per_call > 1:
+        return ChainedStep(step, warm, steps_per_call, optimizer, scheduler, generator, cfg)
+
+    def eager():
+        out = []
+        for _ in range(steps_per_call):
+            out.append(step())
+            _step_scheduler(optimizer, scheduler, cfg)
+        return _columns(*_stack(out))
+
+    return eager
+
+
 def make_train_step(model, table, optimizer, scheduler, pool, cfg: NeRFConfig, height: int,
                     width: int, focal, batch_size: Optional[int] = None,
                     generator: Optional[torch.Generator] = None, steps_per_call: int = 1):
@@ -434,24 +456,13 @@ def make_train_step(model, table, optimizer, scheduler, pool, cfg: NeRFConfig, h
     ``ChainedStep``: captured on the first call, one graph replay on every
     call.  Otherwise (the CPU, or ``steps_per_call=1``) they run eagerly as
     ``train_step`` does."""
-    def step():
-        return _step(model, table, optimizer, pool, cfg, height, width, focal, batch_size,
-                     generator)
+    def run(m, t, opt, gen):
+        return _step(m, t, opt, pool, cfg, height, width, focal, batch_size, gen)
 
-    if pool["images"].device.type == "cuda" and steps_per_call > 1:
-        def warm():
-            _warm_step(model, table, cfg, pool, height, width, focal, batch_size, generator)
-
-        return ChainedStep(step, warm, steps_per_call, optimizer, scheduler, generator, cfg)
-
-    def eager():
-        out = []
-        for _ in range(steps_per_call):
-            out.append(step())
-            _step_scheduler(optimizer, scheduler, cfg)
-        return _columns(*_stack(out))
-
-    return eager
+    return chain_steps(lambda: run(model, table, optimizer, generator),
+                       lambda: _warm_step(model, table, cfg, pool, generator, run),
+                       steps_per_call, optimizer, scheduler, generator, cfg,
+                       pool["images"].device.type == "cuda")
 
 
 def init_model(cfg: NeRFConfig, n_images: int, seed: int, device):
@@ -470,9 +481,9 @@ def init_model(cfg: NeRFConfig, n_images: int, seed: int, device):
 def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
           resume: bool = False, log_path: Optional[str] = None, checkpoint_every: int = 1000,
           eval_every: int = 1, num_iterations: Optional[int] = None, seed: int = 0,
-          device="cuda", progress: bool = True, steps_per_call: int = 10):
+          device="cuda", progress: bool = True, steps_per_call: int = 10, mesh=None):
     """The training loop (reference ``train_nerf``, src/train.py:13-207; the
-    JAX ``train`` without its mesh).
+    JAX ``train``).
 
     ``warmup_iters`` steps singly at ``warmup_batch_size`` rays, then
     ``batch_size`` rays in chunks of ``steps_per_call`` steps
@@ -486,7 +497,18 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
     ``metrics.jsonl`` (``log_path``) gets one row a step, written every
     ``LOG_FLUSH`` steps or more, a chunk behind the device.
 
-    Returns (model, table, logger)."""
+    With ``mesh`` (``parallel.make_mesh``) every rank runs this loop: the
+    state is checked equal on every rank and placed on the mesh
+    (``shard_train_state``: tensor-parallel when its model axis is > 1), the
+    pool checked equal (``replicate_pool``), and each step is a
+    ``make_sharded_train_step`` over the global batch.  Whenever several
+    ranks run, rank 0 alone writes ``metrics.jsonl``, the checkpoints (of
+    the whole model), the validation renders and the curves, and prints
+    progress; under a mesh the others wait at a barrier after each
+    checkpoint.  ``resume`` restores the same file on every rank.
+
+    Returns (model, table, logger): a ``TPNeRF`` under tensor parallelism."""
+    from danerf_tpu_torch.parallel.mesh import _rank_world
     from danerf_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_training_state,
                                                    save_checkpoint)
 
@@ -497,7 +519,9 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
             "scene has one (danerf_tpu_torch.data.synthetic.make_time_varying_scene); Blender "
             "scenes do not.")
     dev = resolve_device(device)
-    os.makedirs(save_dir, exist_ok=True)
+    writer = _rank_world()[0] == 0
+    if writer:
+        os.makedirs(save_dir, exist_ok=True)
     n_iters = num_iterations if num_iterations is not None else cfg.num_iterations
     model, table = init_model(cfg, dataset.n_images, seed, dev)
     params = list(model.parameters()) + ([table] if table is not None else [])
@@ -510,15 +534,26 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
             start = restore_training_state(path, model, table, optimizer, scheduler, gen)
     pool = dataset.device_arrays(cfg.white_background, dev)
     h, w, focal = dataset.height, dataset.width, dataset.focal
+    if mesh is None:
+        def maker(k, batch_size=None):
+            return make_train_step(model, table, optimizer, scheduler, pool, cfg, h, w, focal,
+                                   batch_size, gen, k)
+    else:
+        from danerf_tpu_torch.parallel.mesh import (make_sharded_train_step, replicate_pool,
+                                                    shard_train_state)
 
-    def maker(k, batch_size=None):
-        return make_train_step(model, table, optimizer, scheduler, pool, cfg, h, w, focal,
-                               batch_size, gen, k)
+        pool = replicate_pool(pool, mesh)
+        model, table, optimizer, scheduler = shard_train_state(
+            model, table, optimizer, scheduler, gen, mesh, tensor_parallel=mesh.model > 1)
+
+        def maker(k, batch_size=None):
+            return make_sharded_train_step(model, table, optimizer, scheduler, pool, cfg, mesh,
+                                           h, w, focal, batch_size, gen, k)
 
     step_full, step_single = maker(steps_per_call), maker(1)
     step_warm = maker(1, min(cfg.warmup_batch_size, cfg.batch_size))
 
-    logger = MetricsLogger(log_path)
+    logger = MetricsLogger(log_path if writer else None)
     pending: list = []   # (step of the first row, {name: (k,) device tensor})
 
     def flush(keep: int = 0):
@@ -528,12 +563,24 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
                 logger.log(first + j, **dict(zip(m, row)))
         del pending[:n]
 
-    def checkpoint(name, step):
+    def checkpoint(name, step, render=False):
+        """Write a checkpoint (and, with ``render``, its validation render)
+        on rank 0; the whole model is gathered on every rank first."""
+        from danerf_tpu_torch.parallel.mesh import gather_train_state
+
         flush()
         last = logger.history[-1] if logger.history else {}
-        save_checkpoint(os.path.join(save_dir, name), model, table, optimizer, scheduler,
-                        iteration=step, loss=last.get("loss"), psnr=last.get("psnr"),
-                        generator=gen)
+        full, full_opt = gather_train_state(model, table, optimizer)
+        if writer:
+            save_checkpoint(os.path.join(save_dir, name), full, table, full_opt, scheduler,
+                            iteration=step, loss=last.get("loss"), psnr=last.get("psnr"),
+                            generator=gen)
+            if render:
+                _save_validation_render(full, table, cfg, dataset, save_dir, step, dev)
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     t0 = time.time()
     i = last_progress = start
@@ -554,7 +601,7 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
         # still be running: the host waits for the call before it
         if pending[-1][0] - pending[0][0] >= LOG_FLUSH:
             flush(keep=1)
-        if progress and (i - last_progress >= 1000 or i == n_iters):
+        if progress and writer and (i - last_progress >= 1000 or i == n_iters):
             last_progress = i
             flush()
             last = logger.history[-1]
@@ -562,11 +609,10 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
             print(f"step {i}/{n_iters} loss={last['loss']:.5f} psnr={last['psnr']:.2f} "
                   f"rays/s={rays_s:,.0f}", flush=True)
         if checkpoint_every and i % checkpoint_every == 0:
-            checkpoint(f"checkpoint_{i:06d}.pt", i)
-            if eval_every:
-                _save_validation_render(model, table, cfg, dataset, save_dir, i, dev)
+            checkpoint(f"checkpoint_{i:06d}.pt", i, render=bool(eval_every))
     checkpoint("checkpoint_final.pt", n_iters)
-    _save_training_curves(logger, save_dir)
+    if writer:
+        _save_training_curves(logger, save_dir)
     logger.close()
     return model, table, logger
 

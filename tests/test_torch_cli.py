@@ -100,17 +100,28 @@ def test_cli_train_paths(scene, tmp_path, flags):
     assert ckpt["iteration"] == 3 and ckpt["appearance_embeddings"].shape == (2, 8)
 
 
-# --use_time, --resume and --profile are ported (test_cli_train_use_time_then_render,
-# test_cli_train_resume_continues, test_cli_train_profile_writes_a_trace): beside
-# an unported flag, the refusal names only that flag.
+# --use_time, --resume, --profile and the mesh and multi-process flags are
+# ported (tests/test_torch_parallel.py trains in 2 processes): without a
+# process group --mesh_data 2 trains on one rank, as the JAX CLI does with
+# more axis than devices, and a partial set of the multi-process flags
+# raises before any work, naming the missing ones.
 @pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--num_processes", "2"]],
                          ids=["mesh", "multihost"])
-def test_cli_train_refuses_unported_flags(flag):
+def test_cli_train_refuses_unported_flags(scene, tmp_path, flag):
     from danerf_tpu_torch.cli.main import main
 
-    with pytest.raises(NotImplementedError, match="not yet ported") as err:
-        main(["train", "--device", "cpu", "--resume", "--use_time", *flag])
-    assert "time" not in str(err.value) and "resume" not in str(err.value)
+    save = tmp_path / "run"
+    argv = ["train", "--dataset_path", str(scene), "--scene", "tiny", "--iters", "2",
+            "--batch_size", "16", "--save_dir", str(save), "--device", "cpu", *flag]
+    if "--mesh_data" in flag:
+        main(argv)
+        ckpt = torch.load(save / "checkpoint_final.pt", weights_only=False)
+        assert ckpt["iteration"] == 2
+    else:
+        with pytest.raises(ValueError, match="coordinator_address, num_processes and "
+                                             "process_id are needed together"):
+            main(argv)
+        assert not save.exists()
 
 
 def test_cli_train_resume_continues(scene, tmp_path):
@@ -294,8 +305,12 @@ def test_cli_render_without_any_checkpoint_exits(scene, tmp_path, monkeypatch):
 
 
 # The subcommands of the depth-aware effects pipeline: the JAX CLI's flags and
-# defaults, plus the port's own (--device; --seed for spiral).
-EXTRA_FLAGS = {"spiral": {"--device": "cuda", "--seed": 0}, "effects": {"--device": "cuda"},
+# defaults, plus the port's own (--device; for spiral --seed, and the model
+# axis and multi-process flags that render and train take too).
+EXTRA_FLAGS = {"spiral": {"--device": "cuda", "--seed": 0, "--mesh_model": 1,
+                          "--coordinator_address": None, "--num_processes": None,
+                          "--process_id": None},
+               "effects": {"--device": "cuda"},
                "preview": {"--device": "cuda"}, "video": {}}
 
 
@@ -376,10 +391,11 @@ def test_cli_spiral_effects_preview_video(scene, tmp_path, monkeypatch, capsys):
         main(["video", "--input_dir", "output/sp", "--output", "w.avi"])
 
 
-def test_cli_render_effect_and_video(scene, tmp_path):
+def test_cli_render_effect_and_video(scene, tmp_path, capsys):
     """render --effect Fog --create_video writes the fogged frames and
     <scene>_render.avi of them; an unknown effect raises the JAX KeyError;
-    --mesh_data 2 is still refused, by render and by spiral."""
+    --mesh_data 2 without a process group renders single-device with the
+    JAX CLI's message, by render and by spiral."""
     from danerf_tpu_torch.cli.main import main
     from danerf_tpu_torch.data.png import read_png
     from danerf_tpu_torch.viz.video import read_avi
@@ -397,6 +413,10 @@ def test_cli_render_effect_and_video(scene, tmp_path):
     assert frames.min() >= 178   # fog: at most 30% of the scene shows through
     with pytest.raises(KeyError, match="unknown effect 'nope'"):
         main([*argv, "--effect", "nope"])
-    for cmd in (argv, ["spiral", "--checkpoint", ckpt, "--device", "cpu"]):
-        with pytest.raises(NotImplementedError, match="--mesh_data != 1"):
-            main([*cmd, "--mesh_data", "2"])
+    spiral = ["spiral", "--checkpoint", ckpt, "--dataset_path", str(scene), "--scene", "tiny",
+              "--device", "cpu", "--frames", "1", "--width", "8", "--height", "6",
+              "--output_dir", str(tmp_path / "output" / "sp")]
+    for cmd in (argv, spiral):
+        capsys.readouterr()
+        assert len(main([*cmd, "--mesh_data", "2"])) >= 1
+        assert "--mesh_data 2 > 1 devices; rendering single-device" in capsys.readouterr().out

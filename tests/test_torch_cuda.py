@@ -772,10 +772,12 @@ def _chain_scene(cfg):
                       times=np.array([0.0, 0.5, 1.0], np.float32) if cfg.use_time else None)
 
 
-def _chain_run(dev, cfg, per_call, calls, batch=256):
+def _chain_run(dev, cfg, per_call, calls, batch=256, mesh=None):
     """A fresh seeded state, 2 warm-up steps of 64 rays, then ``calls``
-    calls of make_train_step(steps_per_call=per_call); returns the state,
-    each call's launches and the metrics."""
+    calls of make_train_step(steps_per_call=per_call) (with ``mesh``,
+    make_sharded_train_step over it); returns the state, each call's
+    launches and the metrics."""
+    from danerf_tpu_torch.parallel import make_sharded_train_step
     from danerf_tpu_torch.train.trainer import init_model, make_optimizer, make_train_step
 
     ds = _chain_scene(cfg)
@@ -783,11 +785,17 @@ def _chain_run(dev, cfg, per_call, calls, batch=256):
     opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
     gen = torch.Generator(device=dev).manual_seed(0)
     pool = ds.device_arrays(cfg.white_background, device=dev)
-    warm = make_train_step(model, table, opt, sched, pool, cfg, 16, 16, 20.0, 64, gen, 1)
+
+    def make(b, k):
+        if mesh is None:
+            return make_train_step(model, table, opt, sched, pool, cfg, 16, 16, 20.0, b, gen, k)
+        return make_sharded_train_step(model, table, opt, sched, pool, cfg, mesh, 16, 16, 20.0,
+                                       b, gen, k)
+
+    warm = make(64, 1)
     for _ in range(2):
         warm()
-    step = make_train_step(model, table, opt, sched, pool, cfg, 16, 16, 20.0, batch, gen,
-                           per_call)
+    step = make(batch, per_call)
     launches, out = [], []
     for _ in range(calls):
         fr.reset_launch_counts()
@@ -1005,3 +1013,82 @@ def test_evaluate_defaults_to_the_card(dev):
     res = evaluate(model.cpu(), cfg, _eval_scene(views=1), optimize_embeddings=True,
                    opt_steps=2)
     assert next(model.parameters()).device.type == "cuda" and res["n_views"] == 1
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world-size-1 NCCL group on the card and its 1 x 1 mesh (decided
+    here, not at import: the CPU host skips)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from danerf_tpu_torch.parallel import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("path", ["hier", "coarse_only", "per_sample"])
+def test_sharded_chained_step_equals_make_train_step(dev, nccl_mesh, path):
+    """parallel/mesh.py at world size 1: 10 sharded steps as one graph
+    replay (the flat all-reduce captured with them) equal 10 chained
+    make_train_step steps bit for bit, with the path's launches."""
+    over, per_step = _PATHS[path]
+    cfg = NeRFConfig(density_bias_init=0.5, **over)
+    sharded, launches, m_s, step = _chain_run(dev, cfg, 10, 2, mesh=nccl_mesh)
+    single, _, m_1, _ = _chain_run(dev, cfg, 10, 2)
+    _assert_same(sharded, single)
+    for n in m_1:
+        assert torch.equal(m_s[n], m_1[n]), n
+    assert launches == [{k: 10 * per_step.get(k, 0) for k in fr.LAUNCHES}] * 2
+
+
+def test_sharded_frame_equals_render_frame(dev, nccl_mesh):
+    """render_frame(mesh=) of a jittered 200x200 medium frame at world size
+    1 equals render_frame bit for bit (K2, K5 a chunk); make_sharded_render
+    equals render_rays' per-sample route (K1)."""
+    from danerf_tpu_torch.parallel.mesh import make_sharded_render
+    from danerf_tpu_torch.render.renderer import render_frame, render_rays
+
+    cfg, model, o, d, emb, _, _ = _inputs(dev, n=4093)
+    c2w = torch.eye(4)
+    c2w[2, 3] = 4.0
+    frames = [render_frame(model, cfg, c2w, 200, 200, 240.0, appearance_embedding=emb[0],
+                           perturb=True, generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev, mesh=m) for m in (nccl_mesh, None)]
+    assert all(torch.equal(a, b) for a, b in zip(*frames))
+    fr.reset_launch_counts()
+    with torch.no_grad():
+        got = make_sharded_render(cfg, nccl_mesh, 0, 0, 64, 64)(model, o, d, emb)
+    assert fr.LAUNCHES["mlp_fwd"] == 2 and sum(fr.LAUNCHES.values()) == 2
+    out = render_rays(model, cfg, o, d, emb, perturb=False, fused_composite=False)
+    assert all(torch.equal(a, out[k]) for a, k in zip(got, ("rgb", "depth", "acc")))
+
+
+def test_gloo_group_on_the_card_refuses_a_captured_step(dev, nccl_mesh):
+    """A gloo collective cannot join a CUDA graph: make_sharded_train_step
+    with steps_per_call > 1 over a gloo data group on the card raises."""
+    import copy
+
+    import torch.distributed as dist
+
+    from danerf_tpu_torch.parallel import make_sharded_train_step
+    from danerf_tpu_torch.train.trainer import init_model, make_optimizer
+
+    cfg = NeRFConfig()
+    mesh = copy.copy(nccl_mesh)
+    mesh.data_group = dist.new_group([0], backend="gloo")
+    ds = _chain_scene(cfg)
+    model, table = init_model(cfg, ds.n_images, 0, dev)
+    opt, sched = make_optimizer(cfg, list(model.parameters()) + [table])
+    with pytest.raises(ValueError, match="gloo backend cannot join"):
+        make_sharded_train_step(model, table, opt, sched, ds.device_arrays(device=dev), cfg,
+                                mesh, 16, 16, 20.0, None, None, 10)

@@ -1,6 +1,7 @@
 """The port's entry points run on the card unless the caller asks for the CPU:
 ``RayDataset.device_arrays``, ``params_from_jax_module``, ``evaluate``, the
-``eval`` subcommand and, on numpy input, ``fx.apply_effect`` and
+``eval`` subcommand, ``parallel.initialize_distributed`` and
+``parallel.make_mesh`` and, on numpy input, ``fx.apply_effect`` and
 ``fx.apply_effect_to_frames`` default to
 ``"cuda"`` and, without CUDA, raise instead of carrying on on the CPU;
 ``device="cpu"`` puts their tensors on the CPU."""
@@ -112,3 +113,30 @@ def test_evaluation_defaults_to_the_card(tmp_path, which):
     if which == "evaluate":     # (the CLI on the CPU at full width is left to test_torch_eval)
         out = run(tmp_path, device="cpu")
         assert out["n_views"] == 1 and np.isfinite(out["psnr"])
+
+
+@pytest.mark.parametrize("which", ["initialize_distributed", "make_mesh"])
+def test_parallel_defaults_to_the_card(monkeypatch, which):
+    """Without CUDA, ``initialize_distributed`` (a multi-process call) and
+    ``make_mesh`` raise before joining or using any group; with
+    ``device="cpu"`` the first joins gloo, and the second then asks for a
+    process group."""
+    import torch.distributed as dist
+
+    from danerf_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **kw: calls.append(a))
+    run = {"initialize_distributed": lambda **kw: initialize_distributed("127.0.0.1:1", 2, 0,
+                                                                         **kw),
+           "make_mesh": lambda **kw: make_mesh(**kw)}[which]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run()
+    assert calls == []
+    if which == "initialize_distributed":
+        assert run(device="cpu") is True and calls == [("gloo",)]
+    else:
+        with pytest.raises(RuntimeError, match="initialized process group"):
+            run(device="cpu")

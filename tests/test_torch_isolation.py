@@ -3,9 +3,11 @@ nor an imaging library (it renders a frame, a frame of a time-conditioned
 model at two times, and takes a 64 + 64, a coarse-only, a per-sample and a
 time-conditioned training step, runs the training loop with a resume,
 computes SSIM, applies an effect, renders an aligned-spiral frame with
-its video, fits and scores through ``evaluate`` and ``eval``, and loads a
+its video, fits and scores through ``evaluate`` and ``eval``, loads a
 custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
-8, with JAX, danerf_tpu, OpenCV, PIL and matplotlib blocked), and
+8, and in a one-rank gloo group renders a sharded frame and trains on a
+mesh (``parallel/``), with JAX, danerf_tpu, OpenCV, PIL and matplotlib
+blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
 
@@ -161,6 +163,25 @@ with tempfile.TemporaryDirectory() as tmp:
     out = cli_main(["eval", "--checkpoint", os.path.join(tmp, "m.pt"), "--dataset_path",
                     tmp, "--scene", "blend", "--split", "train", "--device", "cpu"])
     assert out["n_views"] == 1 and np.isfinite(out["psnr"])
+# parallel/: a one-rank gloo group, the sharded frame against the unsharded
+# one, and train(mesh=) for 2 steps
+import socket
+import torch.distributed as dist
+from danerf_tpu_torch.parallel import make_mesh, process_slice
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+mesh = make_mesh(device="cpu")
+assert mesh.shape == {"data": 1, "model": 1} and process_slice(5) == slice(0, 5)
+a = render_frame(model0, cfg, c2w, 6, 5, 6.0, device="cpu", mesh=mesh)
+b = render_frame(model0, cfg, c2w, 6, 5, 6.0, device="cpu")
+assert all(torch.equal(x, y) for x, y in zip(a, b))
+with tempfile.TemporaryDirectory() as tmp:
+    _, _, log = train(loop, ds, save_dir=tmp, num_iterations=2, device="cpu", progress=False,
+                      mesh=mesh)
+    assert [r["step"] for r in log.history] == [1, 2]
+dist.destroy_process_group()
 assert not any(k.split(".")[0] in ("jax", "danerf_tpu", "cv2", "PIL", "matplotlib")
                for k in sys.modules)
 print("ISOLATED-OK")

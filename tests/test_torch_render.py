@@ -133,8 +133,9 @@ def test_cli_render_writes_frames(tmp_path):
     assert depth.shape == (8, 8) and np.isfinite(depth).all()
 
 
-# The time flags, --effect and --create_video are ported (tests/test_torch_cli.py
-# renders with them): beside an unported flag, the refusal names only that flag.
+# The time flags, --effect, --create_video and the mesh flags are ported
+# (tests/test_torch_cli.py renders with them): beside what is still refused,
+# a danerf_tpu (Orbax) checkpoint directory, the refusal names only that.
 @pytest.mark.parametrize("flags", [["--effect", "fog", "--mesh_data", "2"],
                                    ["--use_time", "--effect", "fog", "--mesh_data", "2"],
                                    ["--animate_time", "--create_video", "--mesh_data", "2"],
@@ -144,8 +145,8 @@ def test_cli_refuses_flags_not_yet_ported(tmp_path, flags):
     from danerf_tpu_torch.cli.main import main
 
     with pytest.raises(NotImplementedError, match="not yet ported") as err:
-        main(["render", "--checkpoint", str(tmp_path / "m.pt"), "--device", "cpu", *flags])
-    for ported in ("time", "effect", "video"):
+        main(["render", "--checkpoint", str(tmp_path), "--device", "cpu", *flags])
+    for ported in ("time", "effect", "video", "mesh"):
         assert ported not in str(err.value)
 
 
