@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py [--out DIR]
-    python3 chip_smoke.py --cards N     (N cards: only the data-parallel phase)
+    python3 chip_smoke.py --cards N
+                                        (N cards: only the multi-card phases)
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -64,6 +65,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             64 + 16, 128 + 128, 48 + 32 and 32 + 64 (seeded targets,
             uniforms from importance_uniforms); both MSEs, every gradient
             and demb; two calls agree bit for bit.
+4d. f32_kernels  the f32 configuration (use_bf16=False) of the forward
+            kernels, K2, K5 and K1 on csrc/field_f32.cuh (FFMA), with and
+            without time, against their f32 plain versions (TF32 off, the
+            flags printed) within fused_render.PLAIN_TOL_F32 at the shapes
+            tile_shapes takes and up to a 65,536-ray chunk and 131,072 rows;
+            beside each the bf16 kernel's error against the same f32 plain
+            outputs, at least F32_GAIN = 16 times the f32 kernel's.
+4e. f32_path  an 800x800 medium frame of render_path with use_bf16=False
+            (exactly 10 f32 K2 and 10 f32 K5 launches, its ms, beside the
+            bf16 frame), render_rays' per-sample route on a chunk (2 f32
+            K1), both again on the time model at t = 0.5 (the has_time
+            variants), and the f32 kernels' and plain versions' ms at
+            FP32's bound (67 TFLOP/s) on a chunk (K1 at 131,072 rows), with
+            and without time.
 5. step     one training step at B = 1024 on each training path (64 + 64;
             coarse only, num_importance=0; 64 + 64 on a white background;
             64 + 64 per sample, use_fused_train=False; 64 + 64 with
@@ -120,6 +135,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             just after); per view within 0.1 dB PSNR and 0.005 SSIM of the
             same command with --no_pallas on the card; one view's graph fit
             equal to its eager fit bit for bit.
+7h. native  (after 7f) whether the native shader tool builds on this host
+            (danerf_tpu_torch/native ensure_built into build/shader_processor/)
+            and runs, and why not (cmake, a build tool, a compiler, libpng,
+            libjpeg: what was found, the configure's last words; with all of
+            them present a failed build fails the phase); if it runs, the
+            three default shaders on a 200x200 K2/K5 frame and its depth;
+            the fx fallback on the card against the CPU within
+            fx.effects.levels_apart.
 7f. loaders the port's JPEG decoder on the committed fixture
             (tests/data_torch/frame.jpg) and its Lanczos downscale by 8 of
             the fixture RGBA PNG, each equal to the sha256 of PIL's output
@@ -204,13 +227,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    phase, as dist_cards: N ranks on NCCL, one card each, the same checks,
    plus the chained step at B = 1024 and N x 1024 and the 800x800 frame
    timed against one card, and the tensor-parallel kernel-route step
-   (N/2 x 2 mesh) chained against eager, bit for bit.
+   (N/2 x 2 mesh) chained against eager, bit for bit; then (N > 2)
+   render_subset: `cli.main render --mesh_data 2` on N NCCL ranks (the
+   mesh over the first 2, the others idle) against one process, the rgb
+   PNGs within 1 level, the raw depth within TWO_RANK_TOL (the viridis
+   depth PNGs within one colormap step), only rank 0 writing.
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
 under "has_time"; K2, K5, K3 and K6 with the launches of 7e's kernel-route
 runs under "eval_launches"; K2, K4 and K3 with those of hier_dp under
 "dp_train_launches", K2 and K5 with a sharded frame's, K1 with a sharded
-chunk's); the last line is the ok record.  Exits non-zero,
+chunk's; the f32 variants of K2, K5 and K1 after the nine, with the
+launches of 4e's f32 frames and per-sample routes, the has_time variants'
+from the time model's); the last line is the ok
+record.  Exits non-zero,
 printing no result, when CUDA is unavailable.
 """
 
@@ -238,6 +268,7 @@ def max_err(a, b) -> float:
 # ---------------------------------------------------------------- bounds
 
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+PEAK_FP32 = 67e12      # H100 SXM FP32 FLOP/s outside the tensor cores (the f32 kernels' FFMA)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 
 
@@ -270,8 +301,8 @@ def bwd_macs(cfg):
     return d_w + d_in
 
 
-def bound_ms(flop, bytes_moved):
-    t_ops, t_bytes = flop / PEAK_BF16, bytes_moved / PEAK_BYTES
+def bound_ms(flop, bytes_moved, peak=PEAK_BF16):
+    t_ops, t_bytes = flop / peak, bytes_moved / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -279,12 +310,14 @@ def bound(cfg, rays, samples, bytes_moved, backward=False):
     """The least time for a kernel over rays x samples: the forward field,
     plus the transposed chain when ``backward`` (K3 recomputes the forward,
     K4 runs it once; both then run the chain: ~3 forward units), and demb's
-    per-ray E x half MACs."""
+    per-ray E x half MACs; at the bf16 tensor-core rate, or with
+    ``cfg.use_bf16`` off at FP32's (the f32 kernels multiply on the CUDA
+    cores)."""
     per_sample, per_ray = field_macs(cfg)
     macs = per_sample * rays * samples + per_ray * rays
     if backward:
         macs += bwd_macs(cfg) * rays * samples + per_ray * rays
-    return bound_ms(2.0 * macs, bytes_moved)
+    return bound_ms(2.0 * macs, bytes_moved, PEAK_BF16 if cfg.use_bf16 else PEAK_FP32)
 
 
 def cuda_ms(fn, iters, warmup=1):
@@ -390,7 +423,7 @@ def phase_build(out_dir):
         for name, log in logs.items():
             f.write(f"==== {name}.cu\n{log}\n")
     res = {n: ptxas_resources(log) for n, log in logs.items()}
-    for n in ("march", "merged", "mlp_fwd"):
+    for n in ("march", "merged", "mlp_fwd", "march_f32", "merged_f32", "mlp_fwd_f32"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
     # K3, K4, K6, K7, K8 and K9 (csrc/field_bwd_sm90.cuh): the tile kernel and
     # the dW pass apart, each with its dynamic shared memory
@@ -404,23 +437,29 @@ def phase_build(out_dir):
     emit({"phase": "build", "seconds": secs, "built": sorted(logs), "resources": res})
 
 
-def compare(errs, failures, tag, got, want, keys):
-    """Record the max abs error of each output against PLAIN_TOL."""
-    from danerf_tpu_torch.kernels.fused_render import PLAIN_TOL
-
+def output_errs(got, want, keys):
+    """{output: max abs error} of ``keys`` ("field": its rgb, and its
+    sigma, which is unbounded, relative to max(1, |sigma|))."""
+    out = {}
     for k in keys:
         if k == "field":
-            pairs = {"field_rgb": (got[k][:, :3], want[k][:, :3]),
-                     # sigma is unbounded: its error is taken relative to max(1, |sigma|)
-                     "field_sigma": ((got[k][:, 3] - want[k][:, 3])
-                                     / want[k][:, 3].abs().clamp_min(1.0), 0 * want[k][:, 3])}
+            out["field_rgb"] = max_err(got[k][:, :3], want[k][:, :3])
+            out["field_sigma"] = float(((got[k][:, 3] - want[k][:, 3])
+                                        / want[k][:, 3].abs().clamp_min(1.0)).abs().max())
         else:
-            pairs = {k: (got[k], want[k])}
-        for name, (a, b) in pairs.items():
-            e = max_err(a, b)
-            errs[f"{tag}.{name}"] = e
-            if not math.isfinite(e) or e > PLAIN_TOL[name]:
-                failures.append(f"{tag}.{name}: {e} > {PLAIN_TOL[name]}")
+            out[k] = max_err(got[k], want[k])
+    return out
+
+
+def compare(errs, failures, tag, got, want, keys, tol=None):
+    """Record the max abs error of each output against ``tol`` (PLAIN_TOL)."""
+    from danerf_tpu_torch.kernels.fused_render import PLAIN_TOL
+
+    tol = PLAIN_TOL if tol is None else tol
+    for name, e in output_errs(got, want, keys).items():
+        errs[f"{tag}.{name}"] = e
+        if not math.isfinite(e) or e > tol[name]:
+            failures.append(f"{tag}.{name}: {e} > {tol[name]}")
 
 
 def tile_shapes(cfg, model, device, errs, failures, tag, with_time):
@@ -1153,6 +1192,469 @@ def phase_hier_onepass(cfg, model, cfg_t, model_t, device):
     return {kern: max(v for key, v in errs.items()
                       if key.startswith(kern + "@") and not key.endswith(("scale", ".loss")))
             for kern in ("K9", "K9t")}
+
+
+# The least factor by which the f32 kernels' error against the f32 plain
+# versions must undercut the bf16 kernels' against the same outputs (max abs
+# over rgb, weights, depth and the field, at each shape): a tile that rounds
+# to bf16 or to one TF32 pass (~8x finer than bf16) somewhere does not reach it.
+F32_GAIN = 16.0
+
+
+def phase_f32_kernels(cfg, model, cfg_t, model_t, device):
+    """The f32 variants (use_bf16=False, csrc/field_f32.cuh) of K2, K5 and
+    K1, without and with time, against their f32 plain versions on the card
+    (TF32 off, the flags printed) within fused_render.PLAIN_TOL_F32, at the
+    shapes tile_shapes holds the bf16 kernels to and up to a chunk: K2 at 37
+    rays x 64 and 4093 rays x S = 32, 48, 64, 100, 128 with and without its
+    field, and on a 65,536-ray chunk (64 with the field, medium's coarse
+    pass; 32, preview); K5 at 37 rays x 64 + 64, 4093 x 64 + 64, 64 + 16,
+    128 + 128 with and without the appearance projection, and the chunk's
+    64 + 64 (z_f from sample_pdf of the plain coarse weights); K1 at 37,
+    4093 x 32 = 130,976, 65,536 and 131,072 rows, with and without the
+    appearance projection.  Beside each, the bf16 kernel's error against
+    the same f32 plain outputs; the f32 one must be at least F32_GAIN times
+    smaller.  Two calls agree bit for bit.  Returns the worst abs error of
+    each kernel and variant, and the worst ratio."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_mlp as fm
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import sample_pdf
+
+    tol = fr.PLAIN_TOL_F32
+    flags = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if flags["matmul.allow_tf32"] or flags["float32_matmul_precision"] != "highest":
+        raise AssertionError(f"the f32 plain versions must run in full f32: {flags}")
+    errs, bf16_errs, ratios, failures, same = {}, {}, {}, [], True
+    R = cfg.render_chunk
+
+    def held(name, keys, want, got, got16, again):
+        nonlocal same
+        torch.cuda.synchronize()
+        compare(errs, failures, name, got, want, keys, tol)
+        e16 = output_errs(got16, want, keys)
+        bf16_errs.update({f"{name}.{k}": v for k, v in e16.items()})
+        ratio_keys = [k for k in e16 if k not in ("acc", "z_vals")]
+        worst32 = max(errs[f"{name}.{k}"] for k in ratio_keys)
+        worst16 = max(e16[k] for k in ratio_keys)
+        ratios[name] = worst16 / worst32 if worst32 > 0 else math.inf
+        if not ratios[name] >= F32_GAIN:
+            failures.append(f"{name}: f32 error {worst32} only {ratios[name]}x below the bf16 "
+                            f"kernel's {worst16}")
+        if again is not None:
+            same &= all(bool(torch.equal(got[k], again[k])) for k in got)
+
+    for tag, c16, m in (("", cfg, model), ("t", cfg_t, model_t)):
+        c = c16.replace(use_bf16=False)
+        packs = {"": (pack_params(m, c), pack_params(m, c16)),
+                 "_noapp": (pack_params(m, c, appearance=False),
+                            pack_params(m, c16, appearance=False))}
+        pk, pk16 = packs[""]
+
+        def rays(n, s, seed):
+            o, d, emb, z = make_rays(n, c, seed=seed, device=device, samples=s)
+            t = (torch.rand(n, 1, generator=torch.Generator(device=device).manual_seed(seed + 7),
+                            device=device) if c.use_time else None)
+            return o, d, emb, z, t
+
+        k2_shapes = [(37, 64, (True, False)), (4093, 32, (True, False)),
+                     (4093, 48, (True, False)), (4093, 64, (True, False)),
+                     (4093, 100, (True, False)), (4093, 128, (True, False)),
+                     (R, 64, (True,)), (R, 32, (False,))]
+        for n, s, fields in k2_shapes:
+            o, d, emb, z, t = rays(n, s, 300 + s + (n == R))
+            for wf in fields:
+                want = fr.march_plain(pk, c, o, d, emb, z, t, want_field=wf)
+                got = fr.march_cuda(pk, c, o, d, emb, z, t, want_field=wf)
+                got16 = fr.march_cuda(pk16, c16, o, d, emb, z, t, want_field=wf)
+                again = fr.march_cuda(pk, c, o, d, emb, z, t, want_field=wf) if n == 4093 else None
+                held(f"K2f32{tag}@{n}x{s}{'_field' if wf else ''}",
+                     ["rgb", "depth", "acc", "weights"] + (["field"] if wf else []),
+                     want, got, got16, again)
+                del want, got, got16, again
+        for n, sc, sf, apps in ((37, 64, 64, ("",)), (4093, 64, 64, ("", "_noapp")),
+                                (4093, 64, 16, ("", "_noapp")), (4093, 128, 128, ("", "_noapp")),
+                                (R, 64, 64, ("",))):
+            o, d, emb, z, t = rays(n, sc, 400 + sc + sf + (n == R))
+            g = torch.Generator(device=device).manual_seed(sc + sf)
+            for app in apps:
+                p32, p16 = packs[app]
+                e = emb if app == "" else torch.zeros_like(emb)
+                coarse = fr.march_plain(p32, c, o, d, e, z, t, want_field=True)
+                z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+                args = (o, d, e, z, coarse["field"], z_f, t)
+                want = fr.merged_plain(p32, c, *args)
+                got = fr.merged_cuda(p32, c, *args)
+                got16 = fr.merged_cuda(p16, c16, *args)
+                again = fr.merged_cuda(p32, c, *args) if n == 4093 else None
+                held(f"K5f32{tag}@{n}x{sc}+{sf}{app}",
+                     ["rgb", "depth", "acc", "weights", "z_vals"], want, got, got16, again)
+                del coarse, want, got, got16, again
+        for n_rays, s_per, seed in ((37, 1, 500), (4093, 32, 501), (1024, 64, 502),
+                                    (1024, 128, 503)):
+            x, dr, er = sample_rows(n_rays, c, seed, device, s_per)
+            n = x.shape[0]
+            t = (torch.rand(n, 1, generator=torch.Generator(device=device).manual_seed(seed),
+                            device=device) if c.use_time else None)
+            for app in ("", "_noapp"):
+                p32, p16 = packs[app]
+                e = er if app == "" else torch.zeros_like(er)
+                out = {}
+                for key, (pp, cc) in {"want": (p32, c), "got": (p32, c), "got16": (p16, c16),
+                                      "again": (p32, c)}.items():
+                    fn = fm.fused_fwd_plain if key == "want" else fm.fused_fwd_cuda
+                    rgb, sigma = fn(pp, cc, x, dr, e, t)
+                    out[key] = {"field": torch.cat([rgb, sigma], dim=-1)[:, :, None]}
+                held(f"K1f32{tag}@{n}{app}", ["field"], out["want"], out["got"],
+                     out["got16"], out["again"])
+                del out
+    if not same:
+        failures.append("an f32 kernel gave different results on the same inputs")
+    worst = {f"{k}{tag}": max(v for key, v in errs.items()
+                              if key.startswith(f"{k}f32{tag}@")
+                              and not key.endswith("field_sigma"))
+             for k in ("K1", "K2", "K5") for tag in ("", "t")}
+    emit({"phase": "f32_kernels", "flags": flags, "max_abs_err": errs,
+          "bf16_kernel_max_abs_err_vs_f32_plain": bf16_errs,
+          "bf16_over_f32_error_ratio": ratios, "worst_ratio": min(ratios.values()),
+          "tolerance": tol, "least_ratio": F32_GAIN, "deterministic": same,
+          "failures": failures})
+    if failures:
+        raise AssertionError("f32 kernel disagrees with its plain version: "
+                             + "; ".join(failures))
+    return worst, min(ratios.values())
+
+
+def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
+    """The f32 serving path on the card, through the library entry point
+    (no CLI flag reaches use_bf16 in either package): one 800x800 medium
+    frame of render_path with use_bf16=False, launch counts zeroed just
+    before and read just after (exactly 10 f32 K2 and 10 f32 K5 launches,
+    nothing else), its ms, and its rgb and raw depth beside the bf16
+    frame's (another numeric, so a loose bound: the field's bf16 rounding
+    and the importance samples it moves); then render_rays' per-sample
+    route on a 65,536-ray chunk with use_bf16=False (exactly 2 f32 K1
+    launches, make_sharded_render's route), within PLAIN_TOL's render_rays
+    bound of the fused f32 route on the same rays.  The same two runs on
+    the time model at t = 0.5 drive the has_time variants (the frame: 10
+    + 10, each launch counted apart; the route: 2 K1).  Then CUDA-event times
+    of the f32 kernels and their plain versions beside their FP32 bounds:
+    K2 (want_field) and K5 on a chunk, K1 at 131,072 rows, without and with
+    time."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.config import RENDER_PRESETS
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.kernels import fused_mlp as fm
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import sample_pdf
+    from danerf_tpu_torch.render.frames import render_path
+    from danerf_tpu_torch.render.renderer import render_rays
+
+    c32 = cfg.replace(use_bf16=False)
+    emb0 = torch.randn(cfg.appearance_dim, generator=torch.Generator().manual_seed(3))
+    runs = {}
+    for name, m, c, t_frame in (("f32", model, c32, None), ("bf16", model, cfg, None),
+                                ("f32_time", model_t, cfg_t.replace(use_bf16=False), 0.5)):
+        run_dir = os.path.join(out_dir, f"f32_frame_{name}")
+        fr.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = render_path(m, c, run_dir, appearance_embedding=emb0, num_frames=1,
+                              quality="medium", width=side, height=side, raw_output=True,
+                              save_depth=True, seed=0, time=t_frame, device=device)
+        torch.cuda.synchronize()
+        runs[name] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": dict(fr.LAUNCHES),
+                      "rgb": read_png(written[0]).astype(np.int32),
+                      "depth": np.load(os.path.join(run_dir, "raw", "depth_000.npy"))}
+    chunks = math.ceil(side * side / RENDER_PRESETS["medium"]["chunk"])
+    want = {k: chunks if k in ("march_f32", "merged_f32") else 0 for k in fr.LAUNCHES}
+    for name in ("f32", "f32_time"):
+        if runs[name]["launches"] != want:
+            raise AssertionError(f"{name} frame launches {runs[name]['launches']}, "
+                                 f"expected {want}")
+        depth = runs[name]["depth"]
+        if depth.shape != (side, side) or not np.isfinite(depth).all():
+            raise AssertionError(f"{name} frame depth {depth.shape} not finite")
+    depth = runs["f32"]["depth"]
+    vs_bf16 = {"rgb_max_levels": int(np.abs(runs["f32"]["rgb"] - runs["bf16"]["rgb"]).max()),
+               "rgb_mean_levels": float(np.abs(runs["f32"]["rgb"] - runs["bf16"]["rgb"]).mean()),
+               "depth_max_abs": float(np.abs(depth - runs["bf16"]["depth"]).max())}
+    # the bf16 field's rgb differs by <= 1.5e-3 (f32_kernels); importance
+    # samples placed by its coarse weights move a pixel further
+    if vs_bf16["rgb_mean_levels"] > 0.5 or vs_bf16["rgb_max_levels"] > 16:
+        raise AssertionError(f"the f32 frame is far from the bf16 frame: {vs_bf16}")
+
+    # the per-sample route (K1 f32 at the coarse samples and at the union),
+    # without and with time
+    n = cfg.render_chunk
+    k1_launches, route_err = {}, {}
+    route_tol = {"rgb": 5e-3, "acc": 5e-3, "depth": 2e-2}   # phase_kernels' slice_tol
+    for tag, m, c in (("", model, c32), ("t", model_t, cfg_t.replace(use_bf16=False))):
+        o, d, emb, _ = make_rays(n, c, seed=600, device=device)
+        t = torch.full((n, 1), 0.5, device=device) if c.use_time else None
+        with torch.no_grad():
+            fused = render_rays(m, c, o, d, emb, t=t, perturb=False, fused_composite=True)
+            fr.reset_launch_counts()
+            per_sample = render_rays(m, c, o, d, emb, t=t, perturb=False,
+                                     fused_composite=False)
+            torch.cuda.synchronize()
+        k1_launches[tag] = dict(fr.LAUNCHES)
+        want = {k: 2 if k == "mlp_fwd_f32" else 0 for k in fr.LAUNCHES}
+        if k1_launches[tag] != want:
+            raise AssertionError(f"per-sample f32 route{tag} launches {k1_launches[tag]}, "
+                                 f"expected {want}")
+        route_err[tag] = {k: max_err(per_sample[k], fused[k]) for k in ("rgb", "acc", "depth")}
+        bad = [k for k, v in route_err[tag].items() if not v <= route_tol[k]]
+        if bad:
+            raise AssertionError(f"per-sample f32 route{tag} vs fused f32 route: "
+                                 f"{route_err[tag]}")
+        del fused, per_sample, o, d, emb, t
+
+    timing, bound_by = {}, {}
+    for tag, c16, m in (("", cfg, model), ("t", cfg_t, model_t)):
+        c = c16.replace(use_bf16=False)
+        pk = pack_params(m, c)
+        R, S, Sf = c.render_chunk, c.num_samples, c.num_importance
+        o, d, emb, z = make_rays(R, c, seed=610, device=device)
+        t = torch.rand(R, 1, device=device) if c.use_time else None
+        field = fr.march_plain(pk, c, o, d, emb, z, t, want_field=True)
+        z_f = sample_pdf(z, field["weights"], Sf, True,
+                         rand=torch.Generator(device=device).manual_seed(611))
+        field = field["field"]
+        w_bytes = pk.mats.numel() * 4 + pk.vecs.numel() * 4
+        e, nt = c.appearance_dim, int(t is not None)
+        k2_bytes = 4 * R * (3 + 3 + e + S + nt) + 4 * R * (3 + 1 + 1 + S + 4 * S) + w_bytes
+        k5_bytes = (4 * R * (3 + 3 + e + S + 4 * S + Sf + nt)
+                    + 4 * R * (3 + 1 + 1 + 2 * (S + Sf)) + w_bytes)
+        timing[f"k2{tag}_ms"] = cuda_ms(
+            lambda: fr.march_cuda(pk, c, o, d, emb, z, t, want_field=True), 3)
+        timing[f"k2{tag}_plain_ms"] = cuda_ms(
+            lambda: fr.march_plain(pk, c, o, d, emb, z, t, want_field=True), 3)
+        timing[f"k2{tag}_bound_ms"], bound_by[f"k2{tag}"] = bound(c, R, S, k2_bytes)
+        timing[f"k5{tag}_ms"] = cuda_ms(
+            lambda: fr.merged_cuda(pk, c, o, d, emb, z, field, z_f, t), 3)
+        timing[f"k5{tag}_plain_ms"] = cuda_ms(
+            lambda: fr.merged_plain(pk, c, o, d, emb, z, field, z_f, t), 3)
+        timing[f"k5{tag}_bound_ms"], bound_by[f"k5{tag}"] = bound(c, R, Sf, k5_bytes)
+        del o, d, emb, z, field, z_f
+        x, dr, er = sample_rows(c.batch_size, c, 612, device, S + Sf)
+        rows = x.shape[0]
+        tr = torch.rand(rows, 1, device=device) if c.use_time else None
+        timing[f"k1{tag}_131072_ms"] = cuda_ms(lambda: fm.fused_fwd_cuda(pk, c, x, dr, er, tr), 10)
+        timing[f"k1{tag}_131072_plain_ms"] = cuda_ms(
+            lambda: fm.fused_fwd_plain(pk, c, x, dr, er, tr), 5)
+        k1_bytes = 4 * rows * (3 + 3 + e + nt) + 4 * rows * (3 + 1) + w_bytes
+        timing[f"k1{tag}_131072_bound_ms"], bound_by[f"k1{tag}"] = bound(c, rows, 1, k1_bytes)
+        del x, dr, er
+    report = {"phase": "f32_path", "frame": {
+        "side": side, "quality": "medium", "render_path_ms": runs["f32"]["ms"],
+        "launches": runs["f32"]["launches"], "bf16_render_path_ms": runs["bf16"]["ms"],
+        "bf16_launches": runs["bf16"]["launches"], "vs_bf16_frame": vs_bf16,
+        "derived_ms": chunks * (timing["k2_ms"] + timing["k5_ms"]),
+        "bound_ms": chunks * (timing["k2_bound_ms"] + timing["k5_bound_ms"])},
+        "time_frame": {"t": 0.5, "render_path_ms": runs["f32_time"]["ms"],
+                       "launches": runs["f32_time"]["launches"],
+                       "derived_ms": chunks * (timing["k2t_ms"] + timing["k5t_ms"]),
+                       "bound_ms": chunks * (timing["k2t_bound_ms"] + timing["k5t_bound_ms"])},
+        "per_sample_route": {"rays": n, "launches": k1_launches[""],
+                             "vs_fused_f32_route": route_err[""]},
+        "per_sample_route_time": {"rays": n, "t": 0.5, "launches": k1_launches["t"],
+                                  "vs_fused_f32_route": route_err["t"]},
+        "timing": timing, "bound_by": bound_by}
+    emit(report)
+    return {"frame_launches": runs["f32"]["launches"], "k1_launches": k1_launches[""],
+            "time_frame_launches": runs["f32_time"]["launches"],
+            "time_k1_launches": k1_launches["t"], "timing": timing, "bound_by": bound_by}
+
+
+def native_tools():
+    """What the native tool's build needs, as found on this host: cmake, a
+    build tool, a C++ compiler, libpng and libjpeg (header and library)."""
+    import ctypes.util
+    import shutil
+
+    return {"cmake": shutil.which("cmake"),
+            "build_tool": shutil.which("ninja") or shutil.which("make"),
+            "c++": shutil.which("c++") or shutil.which("g++") or shutil.which("clang++"),
+            "libpng": (ctypes.util.find_library("png") if os.path.exists("/usr/include/png.h")
+                       else None),
+            "libjpeg": (ctypes.util.find_library("jpeg")
+                        if os.path.exists("/usr/include/jpeglib.h") else None)}
+
+
+def phase_native(cfg, model, out_dir, device, side=200):
+    """The native shader bridge (danerf_tpu_torch/native/bridge.py) on the
+    card's host: whether the tool builds here (ensure_built into
+    build/shader_processor/) and, if not, why (the tools and libraries
+    found, the configure's last words); a failed build with cmake, a build
+    tool, a compiler and both libraries present fails the phase.  If it
+    builds, the three default shaders run on a 200x200 medium frame of
+    K2/K5 and its depth (passthrough returns the frame).  Either way the fx
+    fallback runs on the card, each default shader on that frame held to
+    the same fallback on the CPU within fx.effects.levels_apart."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.fx.effects import levels_apart
+    from danerf_tpu_torch.native import bridge as nb
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.viz.paths import camera_path
+
+    tools = native_tools()
+    failures = []
+    t0 = time.perf_counter()
+    binary = nb.ensure_built(os.path.join(nb.BUILD_DIR, "shader_processor"))
+    report = {"phase": "native", "tools": tools, "built": binary is not None,
+              "build_s": time.perf_counter() - t0}
+    report["missing"] = [k for k, v in tools.items() if v is None]
+    if binary is not None:
+        # a binary built elsewhere may not load here (its libraries missing)
+        probe = subprocess.run([binary, "--list-effects"], capture_output=True, text=True,
+                               timeout=60)
+        report["runs"] = probe.returncode == 0
+        if not report["runs"]:
+            report["run_error"] = (probe.stdout + probe.stderr)[-1500:]
+            binary = None
+    elif tools["cmake"]:
+        probe = subprocess.run(["cmake", "-S", nb._NATIVE_DIR, "-B",
+                                os.path.join(out_dir, "native_probe")],
+                               capture_output=True, text=True, timeout=300)
+        report["configure_exit"] = probe.returncode
+        report["configure_tail"] = (probe.stdout + probe.stderr)[-1500:]
+    if binary is None and not report["missing"]:
+        failures.append("cmake, a build tool, a compiler, libpng and libjpeg are present, "
+                        "but the native tool did not build and run")
+
+    c2w = camera_path("circle", 2, cfg.scene)[0]
+    rgb, depth, _ = render_frame(model, cfg, c2w, side, side, 0.5 * side / math.tan(0.5 * 0.6911),
+                                 perturb=False, device=device)
+    img = (rgb.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    depth = depth.cpu().numpy()
+    d01 = (depth - depth.min()) / (depth.max() - depth.min() + 1e-6)
+    shaders = {"default.frag": "Original", "toon.frag": "Toon Shader", "fog.frag": "Fog"}
+    if binary is not None:
+        import warnings
+
+        bridge = nb.ShaderBridge(binary_path=binary, shader_dir=os.path.join(out_dir, "shaders"),
+                                 auto_build=False, device=device)
+        native = {}
+        for name in shaders:
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = bridge.apply_shader(img, depth, name)
+            if caught:   # the bridge fell back: the tool did not run
+                failures.append(f"native {name}: {caught[0].message}")
+            native[name] = {"ms": (time.perf_counter() - t0) * 1e3, "shape": list(out.shape),
+                            "levels_from_input": int(np.abs(out[..., :3].astype(int)
+                                                            - img).max())}
+            if out.dtype != np.uint8 or out.shape[:2] != img.shape[:2]:
+                failures.append(f"native {name}: {out.dtype} {out.shape}")
+        if native["default.frag"]["levels_from_input"] != 0:
+            failures.append("native passthrough changed the frame")
+        report["native"] = native
+    fallback = {}
+    bridges = [nb.ShaderBridge(binary_path=os.path.join(out_dir, "no_binary"),
+                               shader_dir=os.path.join(out_dir, f"shaders_fallback{i}"),
+                               auto_build=False, device=dev) for i, dev in enumerate((device,
+                                                                                      "cpu"))]
+    for name, fx in shaders.items():
+        got = bridges[0].apply_shader(img, d01, name)
+        want = bridges[1].apply_shader(img, d01, name)
+        fallback[name] = levels_apart(fx, got, want)
+        if not fallback[name]["ok"]:
+            failures.append(f"fallback {name} on the card vs the CPU: {fallback[name]}")
+    report.update({"fallback_cuda_vs_cpu": fallback, "failures": failures})
+    emit(report)
+    if failures:
+        raise AssertionError("native: " + "; ".join(failures))
+    return report
+
+
+def phase_render_subset(cfg, model, out_dir, world=4, data=2, side=200, device="cuda"):
+    """`cli.main render --mesh_data 2` on ``world`` NCCL ranks, one card
+    each: the mesh lies over the first 2 ranks (the JAX CLI renders on the
+    first D devices), the others take no share and write nothing.  Held to
+    the same command in this process on one card: the rgb PNGs within 1
+    level, the raw depth within TWO_RANK_TOL, and the viridis depth PNGs
+    within one step of the colormap (a depth that differs by TWO_RANK_TOL
+    can cross into the next of its 256 entries); only rank 0's directory
+    exists."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.cli.main import main as cli_main
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.viz.depth import _VIRIDIS
+
+    ckpt = os.path.join(out_dir, "subset_model.pt")
+    table = torch.randn(4, cfg.appearance_dim, generator=torch.Generator().manual_seed(3))
+    torch.save({"model_state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                "appearance_embeddings": table, "iteration": 0}, ckpt)
+    argv = ["render", "--checkpoint", ckpt, "--frames", "2", "--width", str(side), "--height",
+            str(side), "--quality", "medium", "--save_depth", "--device", str(device), "--seed",
+            "0"]
+    dirs = [os.path.join(out_dir, f"subset_rank{r}") for r in range(world)]
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "danerf_tpu_torch.cli.main", *argv,
+                               "--output_dir", dirs[r], "--coordinator_address",
+                               f"127.0.0.1:{port}", "--num_processes", str(world),
+                               "--process_id", str(r), "--mesh_data", str(data)],
+                              cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    children_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"render --mesh_data {data}: rank {r} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    one = os.path.join(out_dir, "subset_one")
+    cli_main(argv + ["--output_dir", one])
+    failures = [f"rank {r} wrote {dirs[r]}" for r in range(1, world) if os.path.exists(dirs[r])]
+    names = sorted(os.listdir(one))
+    if sorted(os.listdir(dirs[0])) != names:
+        failures.append(f"rank 0 wrote {sorted(os.listdir(dirs[0]))}, one process {names}")
+    levels, depth_err = {"rgb": 0, "depth": 0}, 0.0
+    for i in range(2):
+        for kind in levels:
+            name = f"{kind}_{i:03d}.png"
+            levels[kind] = max(levels[kind], int(np.abs(
+                read_png(os.path.join(dirs[0], name)).astype(int)
+                - read_png(os.path.join(one, name)).astype(int)).max()))
+        depth_err = max(depth_err, float(np.abs(
+            np.load(os.path.join(dirs[0], "raw", f"depth_{i:03d}.npy"))
+            - np.load(os.path.join(one, "raw", f"depth_{i:03d}.npy"))).max()))
+    colormap_step = int(np.abs(np.diff((_VIRIDIS * 255).astype(np.uint8).astype(int),
+                                       axis=0)).max())
+    if levels["rgb"] > 1:
+        failures.append(f"rgb PNGs {levels['rgb']} levels from one process's")
+    if levels["depth"] > colormap_step:
+        failures.append(f"depth PNGs {levels['depth']} levels from one process's, more than "
+                        f"one colormap step ({colormap_step})")
+    if not depth_err <= TWO_RANK_TOL["frame_depth"]:
+        failures.append(f"raw depth {depth_err} > {TWO_RANK_TOL['frame_depth']}")
+    emit({"phase": "render_subset", "world_size": world, "mesh_data": data,
+          "device": str(device), "png_max_levels": levels, "colormap_step": colormap_step,
+          "depth_max_abs": depth_err, "depth_limit": TWO_RANK_TOL["frame_depth"],
+          "children_s_incl_start": children_s, "failures": failures})
+    if failures:
+        raise AssertionError("render --mesh_data below the ranks: " + "; ".join(failures))
 
 
 @contextlib.contextmanager
@@ -3146,7 +3648,7 @@ def main(argv=None):
                                                   "build", "chip_smoke"),
                     help="directory for the build log, checkpoint and frames")
     ap.add_argument("--cards", type=int, default=1,
-                    help="with N > 1: only the data-parallel phase over N cards on NCCL")
+                    help="with N > 1: only the multi-card phases over N cards on NCCL")
     # one rank of phase_dist_ranks (the script starts the ranks)
     ap.add_argument("--dist-child", nargs=5, metavar=("RANK", "WORLD", "PORT", "DIR", "BACKEND"),
                     help=argparse.SUPPRESS)
@@ -3179,6 +3681,9 @@ def main(argv=None):
         if torch.cuda.device_count() < args.cards:
             raise AssertionError(f"--cards {args.cards}: {torch.cuda.device_count()} cards")
         phase_dist_ranks(cfg, device, args.out, args.cards, "nccl")
+        if args.cards > 2:
+            phase_render_subset(cfg, make_model(cfg, seed=0, device=device), args.out,
+                                args.cards)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -3195,6 +3700,10 @@ def main(argv=None):
     for k, v in phase_bwd_shapes(cfg_t, model_t, device, "t").items():
         errs_t[k] = max(errs_t[k], v)
     errs_k9 = phase_hier_onepass(cfg, model, cfg_t, model_t, device)
+    # the f32 configuration (use_bf16=False) of the forward kernels, and its
+    # serving path, timed before any profiler window
+    errs_f32, f32_ratio = phase_f32_kernels(cfg, model, cfg_t, model_t, device)
+    f32 = phase_f32_path(cfg, model, cfg_t, model_t, args.out, device)
     phase_step(cfg, model, device)
     launches = phase_render(cfg, model, args.out)
     phase_chained(cfg, device, args.out)
@@ -3209,6 +3718,7 @@ def main(argv=None):
     # K6, K3 a step), before any torch.profiler window
     eval_counts = phase_eval(args.out)
     phase_loaders(args.out)
+    phase_native(cfg, model, args.out, device)
     # the depth-aware effects and the renders that feed them, timed before
     # any torch.profiler window (phase_train_timing's): timed after one, the
     # effects' eager launches have run up to 2.3x slower on the H100
@@ -3353,6 +3863,32 @@ def main(argv=None):
         if key == "K1":
             rec["sharded_render_launches_per_chunk"] = dist_frame["sharded_render"][
                 "launches"]["mlp_fwd"]
+    # the f32 variants (use_bf16=False) of K2, K5 and K1: launches from the
+    # f32 800x800 frames (K2, K5) and the f32 per-sample routes (K1), without
+    # and with time; times on a chunk (K1 at 131,072 rows) at FP32's bound
+    for name, key, source, line, counter, path, path_t in (
+            ("K2 ray march (want_field), f32", "k2", "march_f32.cu",
+             "fused_render.py:155", "march_f32", "frame_launches", "time_frame_launches"),
+            ("K5 merged composite, f32", "k5", "merged_f32.cu", "fused_render.py:757",
+             "merged_f32", "frame_launches", "time_frame_launches"),
+            ("K1 per-sample field, f32", "k1", "mlp_fwd_f32.cu", "fused_mlp.py:231",
+             "mlp_fwd_f32", "k1_launches", "time_k1_launches")):
+        tm = f32["timing"]
+        at = "_131072" if key == "k1" else ""
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"danerf_tpu_torch/kernels/csrc/{source}",
+            "replaces": f"danerf_tpu/kernels/{line}", "launches": f32[path][counter],
+            "max_abs_err": errs_f32[key.upper()], "ms": tm[f"{key}{at}_ms"],
+            "plain_ms": tm[f"{key}{at}_plain_ms"], "bound_ms": tm[f"{key}{at}_bound_ms"],
+            "bound_by": f32["bound_by"][key], "library_ms": None,
+            "config": "use_bf16=False", "bf16_over_f32_error_ratio_worst": f32_ratio,
+            "variants_held": ["without time", "has_time"],
+            "has_time": {"launches": f32[path_t][counter],
+                         "max_abs_err": errs_f32[key.upper() + "t"],
+                         "ms": tm[f"{key}t{at}_ms"], "plain_ms": tm[f"{key}t{at}_plain_ms"],
+                         "bound_ms": tm[f"{key}t{at}_bound_ms"],
+                         "bound_by": f32["bound_by"][key + "t"],
+                         "at": "131,072 rows" if key == "k1" else "65,536-ray chunk"}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

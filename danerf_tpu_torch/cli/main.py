@@ -254,7 +254,10 @@ def _make_mesh(args, device, render: bool):
     ranks of the process group, or None: for axes of 1, or without a process
     group (one rank is the unsharded path), or when the axes exceed the
     ranks, where ``train`` stays on one rank and ``render``/``spiral`` say
-    so, as the JAX CLI does."""
+    so, as the JAX CLI does.  ``render``/``spiral`` lay the mesh over the
+    first data x model ranks when there are more (the JAX CLI renders on the
+    first D devices; the others wait and write nothing); ``train`` refuses
+    a mesh smaller than the ranks, as JAX's ``make_mesh`` does."""
     if args.mesh_data == 1 and args.mesh_model == 1:
         return None
     import torch.distributed as dist
@@ -270,7 +273,7 @@ def _make_mesh(args, device, render: bool):
         return None
     if not dist.is_initialized():
         return None
-    return make_mesh(data=data, model=args.mesh_model, device=device)
+    return make_mesh(data=data, model=args.mesh_model, device=device, subset=render)
 
 
 def _train_config(args):

@@ -5,6 +5,8 @@
 decoded once, by the port's own PNG decoder; ``downscale > 1`` shrinks each
 to (W // k, H // k) with ``data/resize.lanczos_resize`` (PIL's LANCZOS, an
 alpha channel resized premultiplied) and divides ``fl_x`` by k.
+``save_blender_scene`` writes a dataset in that layout (RGBA PNGs through
+the port's own PNG writer).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 from danerf_tpu_torch.data.dataset import RayDataset
 from danerf_tpu_torch.data.png import read_png
 from danerf_tpu_torch.data.resize import lanczos_resize
+from danerf_tpu_torch.viz.png import write_png
 
 
 def load_blender_scene(scene_dir: str, split: str = "train", near: float = 2.0,
@@ -53,3 +56,26 @@ def load_blender_scene(scene_dir: str, split: str = "train", near: float = 2.0,
         focal = width / (2 * np.tan(np.radians(55) / 2))
     return RayDataset(images=images, alphas=np.stack(alphas), c2ws=np.stack(c2ws),
                       focal=float(focal), near=near, far=far, split=split)
+
+
+def save_blender_scene(dataset: RayDataset, out_dir: str, split: str | None = None) -> str:
+    """Write ``dataset`` in the nerf_synthetic layout: ``{split}/r_{i}.png``
+    (RGBA: its images with their alphas) and ``transforms_{split}.json``
+    (``camera_angle_x`` from the focal, each frame's ``file_path`` and
+    ``transform_matrix``), which ``load_blender_scene`` reads back; returns
+    the JSON's path."""
+    split = split or dataset.split
+    img_dir = os.path.join(out_dir, split)
+    os.makedirs(img_dir, exist_ok=True)
+    camera_angle_x = 2.0 * np.arctan(0.5 * dataset.width / dataset.focal)
+    frames = []
+    for i in range(dataset.n_images):
+        rgba = np.concatenate([dataset.images[i], dataset.alphas[i][..., None]], axis=-1)
+        name = f"r_{i}"
+        write_png(os.path.join(img_dir, name + ".png"), rgba.astype(np.uint8))
+        frames.append({"file_path": f"./{split}/{name}",
+                       "transform_matrix": np.asarray(dataset.c2ws[i], np.float64).tolist()})
+    path = os.path.join(out_dir, f"transforms_{split}.json")
+    with open(path, "w") as f:
+        json.dump({"camera_angle_x": float(camera_angle_x), "frames": frames}, f)
+    return path

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "danerf_tpu_torch"
 SOURCES = ("march", "merged", "march_bwd", "merged_train", "march_train", "merged_bwd",
-           "mlp_fwd", "mlp_bwd", "hier_onepass")
+           "mlp_fwd", "mlp_bwd", "hier_onepass", "march_f32", "merged_f32", "mlp_fwd_f32")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -29,7 +29,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # c_void_p so ctypes does not cut it to 32 bits; the time input t (null
 # without use_time) follows the other data inputs.  The tail of the backward
 # entry points: transposed weights, their layout record, scratch, n_vecs.
-# K1 (mlp_fwd) takes its scratch and its size before the stream.
+# K1 (mlp_fwd) takes its scratch and its size before the stream.  The f32
+# variants of K2, K5 and K1 take their bf16 kernels' arguments, the weights
+# transposed in f32 in place of the packed bf16 ones, and K1's none of its
+# scratch.
 _BWD_TAIL = [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P]
 _SIGNATURES = {
     "march": ("danerf_march", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
@@ -42,6 +45,9 @@ _SIGNATURES = {
     "mlp_bwd": ("danerf_mlp_bwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P] * 3 + _BWD_TAIL),
     "hier_onepass": ("danerf_hier_onepass",
                      [_P] * 7 + [_I] * 4 + [ctypes.c_double] + [_P] * 4 + _BWD_TAIL),
+    "march_f32": ("danerf_march_f32", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
+    "merged_f32": ("danerf_merged_f32", [_P] * 7 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _I, _P]),
+    "mlp_fwd_f32": ("danerf_mlp_fwd_f32", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
 }
 # The scratch size of a backward library, (meta, n_meta, R, s, n_vecs) ->
 # bytes: danerf_bwd_scratch_bytes for one row set a tile (K3/K4/K6/K7/K8,
@@ -122,7 +128,7 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, size_fn).restype = ctypes.c_longlong
         lib.danerf_error_string.argtypes = [ctypes.c_int]
         lib.danerf_error_string.restype = ctypes.c_char_p
-        if hasattr(lib, "danerf_tile_smem_bytes"):  # K1, K2, K5 (csrc/field_sm90.cuh)
+        if hasattr(lib, "danerf_tile_smem_bytes"):  # K1, K2, K5 (field_sm90.cuh, field_f32.cuh)
             lib.danerf_tile_smem_bytes.argtypes = []
             lib.danerf_tile_smem_bytes.restype = ctypes.c_longlong
         if hasattr(lib, "danerf_mlp_fwd_scratch_bytes"):  # K1: (N, E) -> bytes

@@ -113,6 +113,73 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Encode one group of one row (the JAX _encode's values, in its column
+// order) through a sink that stores column col of row row: put.x for the
+// position (+ time) encoding, put.d for the direction's (field_sm90.cuh
+// SwzSink: bf16 in wgmma's swizzled layouts; field_f32.cuh: f32).  Group
+// l < Lp is position level l, the columns 3 + 6l.. of sin(y) and sin(y +
+// pi/2) for y = 2^l o + z (2^l d) of each dimension (level 0 also the
+// columns 0..2, y itself); group Lp + l is direction level l (y = 2^l d);
+// the last group the time's columns, t and sin / cos of 2^l t, then the
+// zero padding of both encodings.  The row's origin o and direction d (3
+// floats each), depth *z (null: 0, the rows of K1 and K8, whose y = 2^l x)
+// and time *t are read where the caller points; an invalid row is 0.  Six
+// independent sin evaluations an item keep the encoders' latency hidden.
+template <class Sink>
+__device__ __forceinline__ void encode_cols(const FieldArgs& P, Sink& put, int row, int grp,
+                                            bool valid, const float* o, const float* d,
+                                            const float* zp, const float* tp) {
+  const float half_pi = 1.57079637f;
+  const int Lp = P.pos_levels, Ld = P.dir_levels;
+  if (grp < Lp + Ld) {
+    const bool is_dir = grp >= Lp;
+    const int lvl = is_dir ? grp - Lp : grp;
+    const float f = (float)(1 << lvl);
+    const float z = (is_dir || zp == nullptr) ? 0.f : *zp;
+    const float* src = is_dir ? d : o;
+    const float* dir = d;
+    float y[3], sn[3], cs[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float a = src[k] * f;
+      const float b = (is_dir ? 0.f : dir[k]) * f;
+      y[k] = __fadd_rn(a, __fmul_rn(z, b));
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sn[k] = valid ? sinf(y[k]) : 0.f;
+      cs[k] = valid ? sinf(__fadd_rn(y[k], half_pi)) : 0.f;
+      if (!valid) y[k] = 0.f;
+    }
+    const int c0 = 3 + 6 * lvl;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (is_dir) {
+        put.d(row, c0 + k, sn[k]);
+        put.d(row, c0 + 3 + k, cs[k]);
+        if (lvl == 0) put.d(row, k, y[k]);
+      } else {
+        put.x(row, c0 + k, sn[k]);
+        put.x(row, c0 + 3 + k, cs[k]);
+        if (lvl == 0) put.x(row, k, y[k]);
+      }
+    }
+    return;
+  }
+  const int nx = 3 * (1 + 2 * Lp), nd = 3 * (1 + 2 * Ld);
+  if (P.nt > 0) {
+    const float t = valid ? *tp : 0.f;
+    put.x(row, nx, t);
+    for (int l = 0; l < P.time_levels; ++l) {
+      const float y = t * (float)(1 << l);
+      put.x(row, nx + 1 + 2 * l, valid ? sinf(y) : 0.f);
+      put.x(row, nx + 2 + 2 * l, valid ? sinf(__fadd_rn(y, half_pi)) : 0.f);
+    }
+  }
+  for (int c = nx + P.nt; c < P.kx; ++c) put.x(row, c, 0.f);
+  for (int c = nd; c < P.kd; ++c) put.d(row, c, 0.f);
+}
+
 // Composite one ray with one warp: alpha = 1 - exp(-sigma * dist) (1e-3 tail
 // distance), T = exclusive product of (1 - alpha + 1e-10) as a warp scan
 // over per-lane chunks (the TPU kernel's triangular matmul becomes a scan),
@@ -158,6 +225,55 @@ __device__ void composite_ray(const float* z, const float* sig, const float* rgb
     *depth_out = wz / (acc + 1e-10f);
     *acc_out = acc;
   }
+}
+
+// The merge arrays of a K5 tile: zc (rpc x Sc), then merged z, sigma (rpc x
+// Sa) and rgb (rpc x Sa x 3).  The shapes K5 takes are those whose arrays
+// fit beside its first design's tile in 232,448 bytes (SHAPE_TILE_BYTES);
+// they live in the activation buffer of its tile (merged.cu) and of its f32
+// tile (merged_f32.cu).
+constexpr size_t MERGE_MAX = 232448 - SHAPE_TILE_BYTES;
+
+// K5's rays a 128-row tile at Sc + Sf samples, or 0 for a shape it refuses.
+inline int merged_rpc(long long Sc, long long Sf) {
+  if (Sf < 1 || Sf > TILE_M || Sc < 1 || Sc + Sf > 1024) return 0;
+  const int rpc = (int)(TILE_M / Sf < MAX_RPC ? TILE_M / Sf : MAX_RPC);
+  return sizeof(float) * rpc * (Sc + 5 * (Sc + Sf)) > MERGE_MAX ? 0 : rpc;
+}
+
+// Stable rank merge of one ray's samples by one warp: the sorted coarse
+// depths zc (Sc) with their field fc (the ray's (4, Sc) slice of K2's
+// output) and the sorted fine depths zf (Sf) whose field is the tile's rows
+// row0.. of rgb_s / sig_s.  rank_c = i + #{z_f < z_c[i]}, rank_f = j +
+// #{z_c <= z_f[j]} (field_bwd_sm90.cuh merge_ray_ranks's ranks).
+__device__ void merge_ray(const float* rgb_s, const float* sig_s, const float* zc, int Sc,
+                          const float* zf, int Sf, const float* __restrict__ fc, int row0,
+                          float* mz, float* msig, float* mrgb) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < Sc; i += 32) {
+    const float zv = zc[i];
+    int cnt = 0;
+    for (int k = 0; k < Sf; ++k) cnt += zf[k] < zv;
+    const int k = i + cnt;
+    mz[k] = zv;
+    mrgb[k * 3 + 0] = fc[i];
+    mrgb[k * 3 + 1] = fc[Sc + i];
+    mrgb[k * 3 + 2] = fc[2 * Sc + i];
+    msig[k] = fc[3 * Sc + i];
+  }
+  for (int i = lane; i < Sf; i += 32) {
+    const float zv = zf[i];
+    int cnt = 0;
+    for (int k = 0; k < Sc; ++k) cnt += zc[k] <= zv;
+    const int k = i + cnt;
+    const int row = row0 + i;
+    mz[k] = zv;
+    mrgb[k * 3 + 0] = rgb_s[row * 3 + 0];
+    mrgb[k * 3 + 1] = rgb_s[row * 3 + 1];
+    mrgb[k * 3 + 2] = rgb_s[row * 3 + 2];
+    msig[k] = sig_s[row];
+  }
+  __syncwarp();
 }
 
 }  // namespace danerf

@@ -433,68 +433,20 @@ __device__ __forceinline__ void put_d(EncBuf& eb, const EncPitch& pt, int row, i
   *reinterpret_cast<__nv_bfloat16*>(eb.encd + swz(row, col, pt.d)) = __float2bfloat16_rn(v);
 }
 
-// Encode one group of one row into buffer eb (the JAX _encode's values,
-// in its column order): group l < Lp is position level l, the columns
-// 3 + 6l.. of sin(y) and sin(y + pi/2) for y = 2^l o + z (2^l d) of each
-// dimension (level 0 also the columns 0..2, y itself); group Lp + l is
-// direction level l (y = 2^l d); the last group the time's columns, t and
-// sin / cos of 2^l t, then the zero padding of both encodings.  The row's
-// origin o and direction d (3 floats each), depth *z (null: 0, the rows of
-// K1 and K8, whose y = 2^l x) and time *t are read where the caller points;
-// an invalid row is 0.  Six independent sin evaluations an item keep the
-// encoders' latency hidden.
+// Encode one group of one row into buffer eb in bf16, in the swizzled
+// layouts wgmma reads (field.cuh encode_cols).
+struct SwzSink {
+  EncBuf& eb;
+  const EncPitch& pt;
+  __device__ __forceinline__ void x(int row, int col, float v) { put_x(eb, pt, row, col, v); }
+  __device__ __forceinline__ void d(int row, int col, float v) { put_d(eb, pt, row, col, v); }
+};
+
 __device__ __forceinline__ void encode_group_at(const FieldArgs& P, EncBuf& eb, const EncPitch& pt,
                                                 int row, int grp, bool valid, const float* o,
                                                 const float* d, const float* zp, const float* tp) {
-  const float half_pi = 1.57079637f;
-  const int Lp = P.pos_levels, Ld = P.dir_levels;
-  if (grp < Lp + Ld) {
-    const bool is_dir = grp >= Lp;
-    const int lvl = is_dir ? grp - Lp : grp;
-    const float f = (float)(1 << lvl);
-    const float z = (is_dir || zp == nullptr) ? 0.f : *zp;
-    const float* src = is_dir ? d : o;
-    const float* dir = d;
-    float y[3], sn[3], cs[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float a = src[k] * f;
-      const float b = (is_dir ? 0.f : dir[k]) * f;
-      y[k] = __fadd_rn(a, __fmul_rn(z, b));
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      sn[k] = valid ? sinf(y[k]) : 0.f;
-      cs[k] = valid ? sinf(__fadd_rn(y[k], half_pi)) : 0.f;
-      if (!valid) y[k] = 0.f;
-    }
-    const int c0 = 3 + 6 * lvl;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      if (is_dir) {
-        put_d(eb, pt, row, c0 + k, sn[k]);
-        put_d(eb, pt, row, c0 + 3 + k, cs[k]);
-        if (lvl == 0) put_d(eb, pt, row, k, y[k]);
-      } else {
-        put_x(eb, pt, row, c0 + k, sn[k]);
-        put_x(eb, pt, row, c0 + 3 + k, cs[k]);
-        if (lvl == 0) put_x(eb, pt, row, k, y[k]);
-      }
-    }
-    return;
-  }
-  const int nx = 3 * (1 + 2 * Lp), nd = 3 * (1 + 2 * Ld);
-  if (P.nt > 0) {
-    const float t = valid ? *tp : 0.f;
-    put_x(eb, pt, row, nx, t);
-    for (int l = 0; l < P.time_levels; ++l) {
-      const float y = t * (float)(1 << l);
-      put_x(eb, pt, row, nx + 1 + 2 * l, valid ? sinf(y) : 0.f);
-      put_x(eb, pt, row, nx + 2 + 2 * l, valid ? sinf(__fadd_rn(y, half_pi)) : 0.f);
-    }
-  }
-  for (int c = nx + P.nt; c < P.kx; ++c) put_x(eb, pt, row, c, 0.f);
-  for (int c = nd; c < P.kd; ++c) put_d(eb, pt, row, c, 0.f);
+  SwzSink sink{eb, pt};
+  encode_cols(P, sink, row, grp, valid, o, d, zp, tp);
 }
 
 // encode_group_at for row `row` of a tile of rays, ray j = row / s of the

@@ -25,47 +25,8 @@
 using namespace danerf;
 using namespace danerf::sm90;
 
-// The merge arrays of a tile: zc (rpc x Sc), then merged z, sigma (rpc x Sa)
-// and rgb (rpc x Sa x 3).  The shapes K5 takes are those whose arrays fit
-// beside its first design's tile in 232,448 bytes (field.cuh
-// SHAPE_TILE_BYTES); all of them fit in the activation buffer.
-constexpr size_t MERGE_MAX = 232448 - SHAPE_TILE_BYTES;
+// The merge arrays (field.cuh merged_rpc) live in the activation buffer.
 static_assert(MERGE_MAX <= sizeof(Smem90::act), "the merge arrays must fit in sm.act");
-
-// Stable rank merge of one ray's samples by one warp: the sorted coarse
-// depths zc (Sc) with their field fc (the ray's (4, Sc) slice of K2's
-// output) and the sorted fine depths zf (Sf) whose field is the tile's rows
-// row0.. of rgb_s / sig_s.  rank_c = i + #{z_f < z_c[i]}, rank_f = j +
-// #{z_c <= z_f[j]} (field_bwd_sm90.cuh merge_ray_ranks's ranks).
-__device__ void merge_ray90(const float* rgb_s, const float* sig_s, const float* zc, int Sc,
-                            const float* zf, int Sf, const float* __restrict__ fc, int row0,
-                            float* mz, float* msig, float* mrgb) {
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < Sc; i += 32) {
-    const float zv = zc[i];
-    int cnt = 0;
-    for (int k = 0; k < Sf; ++k) cnt += zf[k] < zv;
-    const int k = i + cnt;
-    mz[k] = zv;
-    mrgb[k * 3 + 0] = fc[i];
-    mrgb[k * 3 + 1] = fc[Sc + i];
-    mrgb[k * 3 + 2] = fc[2 * Sc + i];
-    msig[k] = fc[3 * Sc + i];
-  }
-  for (int i = lane; i < Sf; i += 32) {
-    const float zv = zf[i];
-    int cnt = 0;
-    for (int k = 0; k < Sc; ++k) cnt += zc[k] <= zv;
-    const int k = i + cnt;
-    const int row = row0 + i;
-    mz[k] = zv;
-    mrgb[k * 3 + 0] = rgb_s[row * 3 + 0];
-    mrgb[k * 3 + 1] = rgb_s[row * 3 + 1];
-    mrgb[k * 3 + 2] = rgb_s[row * 3 + 2];
-    msig[k] = sig_s[row];
-  }
-  __syncwarp();
-}
 
 __global__ void __launch_bounds__(THREADS90, 1)
 merged_kernel(const __grid_constant__ WeightMaps maps, const FieldArgs P, const Rays rays,
@@ -104,7 +65,7 @@ merged_kernel(const __grid_constant__ WeightMaps maps, const FieldArgs P, const 
       float* mzj = mz + j * Sa;
       float* msj = msig + j * Sa;
       float* mrj = mrgb + j * Sa * 3;
-      merge_ray90(sm.rgb, sm.sigma, zc_s + j * Sc, Sc, zs + j * Sf, Sf, fc + r * 4 * Sc, j * Sf,
+      merge_ray(sm.rgb, sm.sigma, zc_s + j * Sc, Sc, zs + j * Sf, Sf, fc + r * 4 * Sc, j * Sf,
                   mzj, msj, mrj);
       composite_ray(mzj, msj, mrj, Sa, w + r * Sa, rgb + r * 3, depth + r, acc + r);
       for (int k = lane; k < Sa; k += 32) zall[r * Sa + k] = mzj[k];
@@ -123,10 +84,9 @@ extern "C" int danerf_merged(const float* o, const float* d, const float* emb, c
   const int err = parse_meta(meta, n_meta, mats, vecs, E, &P);
   if (err) return err;
   if (check_time(P, t)) return ERR_SHAPE;
-  if (Sf < 1 || Sf > TILE_M || Sc < 1 || Sc + Sf > 1024) return ERR_SHAPE;
+  const int rpc = merged_rpc(Sc, Sf);
+  if (rpc == 0) return ERR_SHAPE;
   if (R == 0) return 0;
-  const int rpc = (int)(TILE_M / Sf < MAX_RPC ? TILE_M / Sf : MAX_RPC);
-  if (sizeof(float) * rpc * (Sc + 5 * (Sc + Sf)) > MERGE_MAX) return ERR_SHAPE;
   const long long n_tiles = (R + rpc - 1) / rpc;
   WeightMaps maps;
   unsigned grid = 0;

@@ -23,6 +23,13 @@ danerf_tpu/kernels/fused_mlp.py).
   backward).  CUDA tensors launch the kernels, CPU tensors take the plain
   versions.
 
+Both configurations of the JAX kernels: bf16 (``use_bf16``, the default)
+and f32.  The forward kernels K1, K2 and K5 take f32 through variants of
+their own on ``csrc/field_f32.cuh`` (``mlp_fwd_f32.cu``, ``march_f32.cu``,
+``merged_f32.cu``), which read the weights transposed
+(``PackedParams.mats_kn``); the backward kernels refuse it
+(``_check_bwd_cfg``).
+
 The encoding here is the kernels' form, ``y = 2^i o + z (2^i d)`` then
 ``sin(y + phase)``, not ``nerf_apply``'s ``sin(2^i (o + z d))``: the two
 differ by f32 rounding that sin amplifies at 2^9.  (K1 encodes its points
@@ -48,7 +55,8 @@ from danerf_tpu_torch.kernels import _build
 _HALF_PI = torch.tensor(math.pi / 2, dtype=torch.float32).item()  # f32-rounded
 
 LAUNCHES = {"march": 0, "merged": 0, "march_bwd": 0, "merged_train": 0,
-            "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0, "hier_onepass": 0}
+            "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0, "hier_onepass": 0,
+            "march_f32": 0, "merged_f32": 0, "mlp_fwd_f32": 0}
 
 # The s_tile of a backward call whose tiles hold 128 independent rows (K8;
 # csrc/field_bwd.cuh ROW_TILES), not rays of s samples.
@@ -75,6 +83,10 @@ class PackedParams:
     mats: 1-D, compute dtype; each matrix (out, K padded to 16) row-major.
     vecs: 1-D f32; biases and the density head's (hidden,) weight.
     mat_at / vec_at: name -> (offset, shape).
+    mats_kn: without ``use_bf16``, the f32 kernels' weights
+    (``csrc/field_f32.cuh``): each matrix transposed, W^T (K, out) row-major
+    at W's own offset, so that a K slice of it is one contiguous run; None
+    under ``use_bf16``.
     """
     mats: torch.Tensor
     vecs: torch.Tensor
@@ -82,6 +94,7 @@ class PackedParams:
     vec_at: Dict[str, Tuple[int, Tuple[int, ...]]]
     num_layers: int
     has_appearance: bool
+    mats_kn: Optional[torch.Tensor] = None
 
     def mat(self, name: str) -> torch.Tensor:
         off, shape = self.mat_at[name]
@@ -156,11 +169,16 @@ def pack_params(model, cfg: NeRFConfig, appearance: bool = True,
     add_vec("bapp", app.bias if use_app else torch.zeros(half, device=dev))
     add_mat("wrgb", model.rgb_linear.weight, half)
     add_vec("brgb", model.rgb_linear.bias)
+    flat = torch.cat([m.to(dev) for m in mats])
+    kn = None
+    if not cfg.use_bf16:
+        kn = torch.zeros_like(flat)
+        for off, (n, k) in mat_at.values():
+            kn[off:off + n * k].view(k, n).copy_(flat[off:off + n * k].view(n, k).t())
     return PackedParams(
-        mats=torch.cat([m.to(dev) for m in mats]).to(cdt),
-        vecs=torch.cat([v.to(dev) for v in vecs]),
+        mats=flat.to(cdt), vecs=torch.cat([v.to(dev) for v in vecs]),
         mat_at=mat_at, vec_at=vec_at, num_layers=len(model.pts_linears),
-        has_appearance=use_app)
+        has_appearance=use_app, mats_kn=kn)
 
 
 def kernel_meta(packed: PackedParams, cfg: NeRFConfig) -> Tuple[int, ...]:
@@ -403,9 +421,13 @@ def module_params(model):
 
 # ---------------------------------------------------------------- launching
 
-def _check_kernel_cfg(cfg: NeRFConfig) -> None:
+def _check_bwd_cfg(cfg: NeRFConfig) -> None:
+    """The backward kernels (K3, K4, K6-K9) take only bf16 (``use_bf16``);
+    the forward kernels (K1, K2, K5) take both configurations."""
     if not cfg.use_bf16:
-        raise NotImplementedError("use_bf16=False is not yet ported to the CUDA kernels")
+        raise NotImplementedError(
+            "use_bf16=False is not yet ported to the backward CUDA kernels (K3, K4, K6-K9): "
+            "their f32 tile is the next item of ROADMAP.md section 2 (the f32 backward tile)")
 
 
 def _check_time(cfg: NeRFConfig, t) -> None:
@@ -444,10 +466,22 @@ def _meta(packed: PackedParams, cfg: NeRFConfig):
     return (ctypes.c_longlong * len(m))(*m), len(m)
 
 
-def _check_packed(packed: PackedParams, device) -> None:
-    if packed.device != device or packed.mats.dtype != torch.bfloat16:
-        raise ValueError(f"packed params must be bf16 on {device}; got "
-                         f"{packed.mats.dtype} on {packed.device}")
+def _check_packed(packed: PackedParams, device, cfg: NeRFConfig) -> None:
+    """Weights packed on ``device`` in the compute dtype ``cfg`` implies:
+    bf16 under ``use_bf16``, else f32."""
+    want = torch.bfloat16 if cfg.use_bf16 else torch.float32
+    if packed.device != device or packed.mats.dtype != want:
+        raise ValueError(f"packed params must be {want} on {device} (use_bf16="
+                         f"{cfg.use_bf16}); got {packed.mats.dtype} on {packed.device}")
+
+
+def fwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
+    """(library name, its weights) of forward kernel ``name``: the bf16
+    kernel on the packed weights, or without ``use_bf16`` its f32 variant
+    on them transposed (``mats_kn``)."""
+    if cfg.use_bf16:
+        return name, packed.mats
+    return f"{name}_f32", packed.mats_kn
 
 
 def _arg(x):
@@ -532,19 +566,28 @@ def _rows_f32(dev, n_cols, **tensors):
 
 
 def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, t=None):
-    """Launch K1 on the current stream; outputs as fused_fwd_plain's."""
-    _check_kernel_cfg(cfg)
+    """Launch K1 on the current stream (its f32 variant without
+    ``cfg.use_bf16``); outputs as fused_fwd_plain's."""
     dev = x.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     x, d, emb = _rows_f32(dev, {"x": 3, "d": 3, "emb": cfg.appearance_dim}, x=x, d=d, emb=emb)
-    if emb.data_ptr() % 16:  # the kernel reads the embeddings 16 bytes at a time
-        emb = emb.clone()
     n = x.shape[0]
     t = _time_arg(cfg, t, n, dev)
-    lib = _build.load("mlp_fwd")
     rgb = torch.empty(n, 3, device=dev)
     sigma = torch.empty(n, 1, device=dev)
     meta, n_meta = _meta(packed, cfg)
+    if not cfg.use_bf16:
+        lib = _build.load("mlp_fwd_f32")
+        code = lib.danerf_mlp_fwd_f32(
+            x.data_ptr(), d.data_ptr(), emb.data_ptr(), _arg(t), n, emb.shape[-1],
+            rgb.data_ptr(), sigma.data_ptr(), packed.mats_kn.data_ptr(),
+            packed.vecs.data_ptr(), meta, n_meta, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, code, "mlp_fwd_f32")
+        LAUNCHES["mlp_fwd_f32"] += 1
+        return rgb, sigma
+    if emb.data_ptr() % 16:  # the kernel reads the embeddings 16 bytes at a time
+        emb = emb.clone()
+    lib = _build.load("mlp_fwd")
     # the rows' bf16 embeddings, which the kernel's encoders stash for its
     # appearance product
     scratch = torch.empty(max(lib.danerf_mlp_fwd_scratch_bytes(n, emb.shape[-1]), 1),
@@ -560,9 +603,9 @@ def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, t=None):
 
 def fused_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_sigma, t=None):
     """Launch K8 on the current stream; outputs as fused_bwd_plain's."""
-    _check_kernel_cfg(cfg)
+    _check_bwd_cfg(cfg)
     dev = x.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     e = cfg.appearance_dim
     x, d, emb, g_rgb, g_sigma = _rows_f32(
         dev, {"x": 3, "d": 3, "emb": e, "g_rgb": 3, "g_sigma": 1},

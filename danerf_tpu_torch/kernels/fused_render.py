@@ -24,6 +24,11 @@ Seven kernels, each with a plain PyTorch version of the same function:
   fine pass of training -- K5's forward, the MSE against the target and
   K6's backward in one call; returns the loss, the fine-side gradients,
   ``demb`` and ``g_field``.
+- K2 and K5 in f32 (``use_bf16=False``): ``csrc/march_f32.cu`` and
+  ``csrc/merged_f32.cu`` on ``csrc/field_f32.cuh``'s FFMA tile, the same
+  functions with every product in f32; ``march_cuda`` and ``merged_cuda``
+  launch them when ``cfg.use_bf16`` is off (held to ``PLAIN_TOL_F32``).
+  The backward and training kernels take bf16 only.
 - K9, ``csrc/hier_onepass.cu`` / ``hier_onepass_plain``: the whole
   hierarchical training step in one call -- K2's march at the coarse depths
   keeping its field and residuals, the inverse CDF of its weights at the
@@ -62,9 +67,10 @@ from danerf_tpu_torch.config import NeRFConfig
 from danerf_tpu_torch.kernels import _build
 # LAUNCHES, reset_launch_counts and module_params are also used from here
 from danerf_tpu_torch.kernels.fused_mlp import (  # noqa: F401
-    LAUNCHES, PackedGrads, PackedParams, _arg, _check_kernel_cfg, _check_packed, _check_time,
-    _f32, _f32_opt, _launch_bwd, _meta, _route, _rows_f32, _time_arg, encode_plain, field_bwd_plain,
-    field_from_enc_plain, module_params, pack_params, reset_launch_counts, unpack_grads)
+    LAUNCHES, PackedGrads, PackedParams, _arg, _check_bwd_cfg, _check_packed, _check_time, _f32,
+    _f32_opt, _launch_bwd, _meta, _route, _rows_f32, _time_arg, encode_plain, field_bwd_plain,
+    field_from_enc_plain, fwd_weights, module_params, pack_params, reset_launch_counts,
+    unpack_grads)
 from danerf_tpu_torch.ops.composite import composite
 from danerf_tpu_torch.ops.sampling import sample_pdf
 
@@ -108,6 +114,22 @@ PLAIN_TOL = {"rgb": 2e-3, "acc": 2e-3, "weights": 1e-3, "depth": 5e-3,
              "grad_rel": 6e-2, "demb": 3e-4, "demb_k4": 2e-7, "g_field": 1e-8,
              "g_field_k6": 1e-5, "loss": 3e-7, "demb_k8": 4e-3, "loss_k9": 1e-6,
              "demb_k9": 6e-7}
+
+# The f32 variants of K2, K5 and K1 (use_bf16=False, csrc/field_f32.cuh)
+# against their plain versions in f32 on the same inputs, with TF32 off on
+# the card (torch.backends.cuda.matmul.allow_tf32 = False: the plain
+# version's matmuls in full f32).  Nothing rounds below f32 in either; the
+# sums run in another order (one FFMA chain a thread over K, against the
+# library's blocked products), ~1 ulp a sum: on the H100 at every shape up
+# to a 65,536-ray chunk and 131,072 rows, with and without time, rgb 4.5e-7,
+# acc 8.9e-7, weights 1.2e-7, depth 1.2e-6 (divided by acc), the field's rgb
+# 2.4e-7 and sigma 6e-8.  Each limit is 5-17x that, and the bf16 kernels'
+# errors against the same f32 plain outputs pass the rgb, depth and field
+# limits at every shape (at least 2.2e-5, 2.3e-5 and 8.3e-5), so a tile that
+# rounds to bf16 anywhere fails (chip_smoke.py also asks the f32 error to
+# be 16x below the bf16 kernel's: F32_GAIN).
+PLAIN_TOL_F32 = {"rgb": 3e-6, "acc": 5e-6, "weights": 1e-6, "depth": 1e-5,
+                 "field_rgb": 3e-6, "field_sigma": 1e-6, "z_vals": 0.0}
 
 
 def grad_rel_errors(got: PackedGrads, want: PackedGrads, model) -> dict:
@@ -341,27 +363,28 @@ def _check_field(field_c, r: int, sc: int) -> None:
 
 def march_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, t=None,
                want_field: bool = False) -> dict:
-    """Launch K2 on the current stream; outputs as march_plain's."""
-    _check_kernel_cfg(cfg)
+    """Launch K2 on the current stream (its f32 variant without
+    ``cfg.use_bf16``); outputs as march_plain's."""
     dev = z.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     o, d, emb, z = (_f32(x, dev) for x in (o, d, emb, z))
     r, s = z.shape
     t = _time_arg(cfg, t, r, dev)
-    lib = _build.load("march")
+    name, mats = fwd_weights(packed, cfg, "march")
+    lib = _build.load(name)
     rgb = torch.empty(r, 3, device=dev)
     depth = torch.empty(r, device=dev)
     acc = torch.empty(r, device=dev)
     w = torch.empty(r, s, device=dev)
     field = torch.empty(r, 4, s, device=dev) if want_field else None
     meta, n_meta = _meta(packed, cfg)
-    code = lib.danerf_march(
+    code = getattr(lib, f"danerf_{name}")(
         o.data_ptr(), d.data_ptr(), emb.data_ptr(), z.data_ptr(), _arg(t), r, s, emb.shape[-1],
         rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(), w.data_ptr(), _arg(field),
-        packed.mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
+        mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "march")
-    LAUNCHES["march"] += 1
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
     out = {"rgb": rgb, "depth": depth, "acc": acc, "weights": w}
     if want_field:
         out["field"] = field
@@ -370,30 +393,31 @@ def march_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, t=None,
 
 def merged_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c,
                 field_c, z_f, t=None) -> dict:
-    """Launch K5 on the current stream; outputs as merged_plain's."""
-    _check_kernel_cfg(cfg)
+    """Launch K5 on the current stream (its f32 variant without
+    ``cfg.use_bf16``); outputs as merged_plain's."""
     dev = z_f.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     o, d, emb, z_c, field_c, z_f = (_f32(x, dev) for x in (o, d, emb, z_c, field_c, z_f))
     r, sc = z_c.shape
     sf = z_f.shape[-1]
     _check_field(field_c, r, sc)
     t = _time_arg(cfg, t, r, dev)
-    lib = _build.load("merged")
+    name, mats = fwd_weights(packed, cfg, "merged")
+    lib = _build.load(name)
     rgb = torch.empty(r, 3, device=dev)
     depth = torch.empty(r, device=dev)
     acc = torch.empty(r, device=dev)
     w = torch.empty(r, sc + sf, device=dev)
     z_all = torch.empty(r, sc + sf, device=dev)
     meta, n_meta = _meta(packed, cfg)
-    code = lib.danerf_merged(
+    code = getattr(lib, f"danerf_{name}")(
         o.data_ptr(), d.data_ptr(), emb.data_ptr(), z_c.data_ptr(), field_c.data_ptr(),
         z_f.data_ptr(), _arg(t), r, sc, sf, emb.shape[-1],
         rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(), w.data_ptr(), z_all.data_ptr(),
-        packed.mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
+        mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "merged")
-    LAUNCHES["merged"] += 1
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
     return {"rgb": rgb, "depth": depth, "acc": acc, "weights": w, "z_vals": z_all}
 
 
@@ -413,9 +437,9 @@ def march_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, g_rgb, g
     """Launch K3 on the current stream; outputs as march_bwd_plain's (a None
     cotangent is passed as a null pointer, which the kernel reads as
     zeros)."""
-    _check_kernel_cfg(cfg)
+    _check_bwd_cfg(cfg)
     dev = z.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     o, d, emb, z = (_f32(x, dev) for x in (o, d, emb, z))
     r, s = z.shape
     t = _time_arg(cfg, t, r, dev)
@@ -429,9 +453,9 @@ def march_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, g_rgb, g
 
 def march_train_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, target, t=None):
     """Launch K7 on the current stream; outputs as march_train_plain's."""
-    _check_kernel_cfg(cfg)
+    _check_bwd_cfg(cfg)
     dev = z.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     o, d, emb, z, target = (_f32(x, dev) for x in (o, d, emb, z, target))
     r, s = z.shape
     t = _time_arg(cfg, t, r, dev)
@@ -445,9 +469,9 @@ def march_train_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, target
 def merged_train_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, field_c, z_f,
                       target, t=None):
     """Launch K4 on the current stream; outputs as merged_train_plain's."""
-    _check_kernel_cfg(cfg)
+    _check_bwd_cfg(cfg)
     dev = z_f.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     o, d, emb, z_c, field_c, z_f, target = (
         _f32(x, dev) for x in (o, d, emb, z_c, field_c, z_f, target))
     r, sc = z_c.shape
@@ -468,9 +492,9 @@ def merged_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, field
     """Launch K6 on the current stream; outputs as merged_bwd_plain's (a
     None cotangent is passed as a null pointer, which the kernel reads as
     zeros)."""
-    _check_kernel_cfg(cfg)
+    _check_bwd_cfg(cfg)
     dev = z_f.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     o, d, emb, z_c, field_c, z_f = (_f32(x, dev) for x in (o, d, emb, z_c, field_c, z_f))
     r, sc = z_c.shape
     sf = z_f.shape[-1]
@@ -489,9 +513,9 @@ def merged_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, field
 def hier_onepass_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, u, target,
                       t=None):
     """Launch K9 on the current stream; outputs as hier_onepass_plain's."""
-    _check_kernel_cfg(cfg)
+    _check_bwd_cfg(cfg)
     dev = z_c.device
-    _check_packed(packed, dev)
+    _check_packed(packed, dev, cfg)
     o, d, emb, target = _rows_f32(dev, {"o": 3, "d": 3, "emb": cfg.appearance_dim, "target": 3},
                                   o=o, d=d, emb=emb, target=target)
     z_c, u = _f32(z_c, dev), _f32(u, dev)

@@ -111,3 +111,8 @@ def init_appearance_embeddings(num_images: int, appearance_dim: int,
     """Per-image N(0, 1) appearance embeddings, an (N, E) f32 table
     (reference src/dataset.py:81-83)."""
     return torch.randn(num_images, appearance_dim, generator=generator, device=device)
+
+
+def nerf_param_count(model: nn.Module) -> int:
+    """The number of parameters of ``model`` (a ``NeRF`` module)."""
+    return sum(p.numel() for p in model.parameters())

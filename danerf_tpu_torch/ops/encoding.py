@@ -10,6 +10,11 @@ from __future__ import annotations
 import torch
 
 
+def encoding_output_dim(input_dim: int, num_frequencies: int, include_input: bool = True) -> int:
+    """The width of ``positional_encoding``'s output: D (2L + include_input)."""
+    return input_dim * (2 * num_frequencies + int(include_input))
+
+
 def positional_encoding(x: torch.Tensor, num_frequencies: int,
                         include_input: bool = True) -> torch.Tensor:
     """Encode ``x`` of shape (..., D) to (..., D * (2L + include_input));

@@ -125,18 +125,23 @@ def process_slice(n_items: int) -> slice:
 
 
 class Mesh:
-    """The ``(data, model)`` layout over every rank of the process group:
+    """The ``(data, model)`` layout over the first data x model ranks of the
+    process group (every rank, but for a renderer's mesh: ``make_mesh``):
     rank r at ``(data_index, model_index) = (r // model, r % model)``.
     ``data_group`` holds the ranks of r's model column (the replicas whose
     gradients and rays are combined), ``model_group`` those of r's data row
-    (the shards of one tensor-parallel layer).  ``device`` is where the
-    tensors its collectives carry lie.  A copy is the same mesh (its process
-    groups are handles)."""
+    (the shards of one tensor-parallel layer); a rank past the mesh
+    (``member`` False) has neither and takes no share of any work.
+    ``device`` is where the tensors its collectives carry lie.  A copy is
+    the same mesh (its process groups are handles)."""
 
     def __init__(self, data: int, model: int, device: torch.device):
         self.data, self.model, self.device = data, model, device
         self.rank = dist.get_rank()
-        self.data_index, self.model_index = divmod(self.rank, model)
+        self.member = self.rank < data * model
+        self.data_index, self.model_index = (divmod(self.rank, model) if self.member
+                                             else (None, None))
+        self.model_group = self.data_group = None
         # every rank creates every group, in the same order
         for i in range(data):
             group = dist.new_group([i * model + j for j in range(model)])
@@ -154,21 +159,33 @@ class Mesh:
     def __deepcopy__(self, memo):
         return self
 
+    def _check_member(self) -> None:
+        if not self.member:
+            raise ValueError(f"rank {self.rank} lies outside the {self.data}x{self.model} mesh "
+                             f"(its first {self.data * self.model} ranks)")
+
     def share(self, n_items: int) -> slice:
         """This rank's contiguous share of ``n_items`` rays along ``data``."""
+        self._check_member()
         return _share(n_items, self.data_index, self.data)
 
     def sum_data(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed in place over the data group."""
+        self._check_member()
         dist.all_reduce(t, group=self.data_group)
         return t
 
 
-def make_mesh(data: Optional[int] = None, model: int = 1, device="cuda") -> Mesh:
+def make_mesh(data: Optional[int] = None, model: int = 1, device="cuda",
+              subset: bool = False) -> Mesh:
     """A (data, model) mesh over all ranks of the process group
     (``initialize_distributed``, or ``torch.distributed.init_process_group``)
     for tensors on ``device``: the card unless the caller asks for the CPU
-    (raises without CUDA).  ``data`` defaults to ranks // model."""
+    (raises without CUDA).  ``data`` defaults to ranks // model.  With
+    ``subset`` (a renderer's mesh) it may lie over the first data x model
+    ranks only, as the JAX CLI renders on ``jax.devices()[:data]``; the
+    ranks past it are outside (``Mesh.member``).  Training takes every
+    rank, as JAX's ``make_mesh`` asserts."""
     dev = resolve_device(device)
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_mesh needs an initialized process group "
@@ -176,7 +193,7 @@ def make_mesh(data: Optional[int] = None, model: int = 1, device="cuda") -> Mesh
     world = dist.get_world_size()
     if data is None:
         data = world // model
-    if data * model != world:
+    if data * model != world and not (subset and data * model < world):
         raise ValueError(f"mesh {data}x{model} != {world} ranks")
     return Mesh(data, model, dev)
 

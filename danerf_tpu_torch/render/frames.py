@@ -11,8 +11,9 @@ colour is quantised and the depth normalised as (d - min) / (max - min +
 frame's own.
 
 Both take a ``mesh`` (``parallel/mesh.py``): each frame's rays shard over
-its data axis and rank 0 writes the frame; with several ranks and no mesh,
-each rank renders and writes its ``process_slice`` of the frames.
+its data axis and rank 0 writes the frame (a rank past a mesh smaller than
+the process group renders nothing); with several ranks and no mesh, each
+rank renders and writes its ``process_slice`` of the frames.
 
 Both drivers double-buffer the host I/O against the device: frame k + 1 is
 dispatched before frame k is fetched and encoded, the fetch (an event-waited
@@ -88,13 +89,14 @@ class _Pipeline:
 
 def _frames_of_rank(num_frames: int, mesh):
     """(the frame indices this rank renders, whether it writes them): every
-    frame, and rank 0 writes, under a mesh; with several ranks and no mesh,
-    its ``process_slice``, which it writes; alone, every frame."""
+    frame, and rank 0 writes, under a mesh (none on a rank outside it, which
+    only waits at ``_video_writer``'s barrier); with several ranks and no
+    mesh, its ``process_slice``, which it writes; alone, every frame."""
     from danerf_tpu_torch.parallel.mesh import process_slice
 
     ids = list(range(num_frames))
     if mesh is not None:
-        return ids, mesh.rank == 0
+        return (ids if mesh.member else []), mesh.rank == 0
     return ids[process_slice(num_frames)], True
 
 

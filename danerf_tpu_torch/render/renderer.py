@@ -166,7 +166,8 @@ def render_frame(model, cfg: NeRFConfig, c2w, height: int, width: int, focal,
     renders its contiguous share of every chunk; under ``perturb`` every
     rank draws the whole chunk's jitter from ``generator``, in the order a
     single process draws it, and takes its share's; the frame is gathered
-    on every rank.  Returns (rgb [H,W,3] in [0,1], depth [H,W], acc [H,W])
+    on every rank of the mesh, within its data group (a rank outside the
+    mesh raises).  Returns (rgb [H,W,3] in [0,1], depth [H,W], acc [H,W])
     on ``device``.
     """
     dev = resolve_device(device)

@@ -17,7 +17,12 @@ the plain versions round to bf16 at the same places and sum in f32 in
 another order, so an activation next to a bf16 rounding boundary can round
 apart by one bf16 ulp.  The limits are ``fused_render.PLAIN_TOL``, the ones
 chip_smoke.py holds the kernels to (the comment there gives their reasons);
-gradients are compared by relative Frobenius error per parameter.
+gradients are compared by relative Frobenius error per parameter.  The f32
+variants of K2, K5 and K1 (``use_bf16=False``) are held to
+``fused_render.PLAIN_TOL_F32`` against their plain versions with TF32 off
+(the ``dev`` fixture turns it off); the backward kernels refuse f32.  The
+native bridge's fx fallback on the card is held to its CPU run within
+``fx.effects.levels_apart``.
 """
 
 import pytest
@@ -148,7 +153,8 @@ def test_kernel_route_counts_launches(dev):
     # 1200 rays in chunks of 500; rendering launches no backward kernel
     assert fr.LAUNCHES == {"march": 3, "merged": 3, "march_bwd": 0, "merged_train": 0,
                            "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
-                           "hier_onepass": 0}
+                           "hier_onepass": 0, "march_f32": 0, "merged_f32": 0,
+                           "mlp_fwd_f32": 0}
     assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
 
 
@@ -1092,3 +1098,144 @@ def test_gloo_group_on_the_card_refuses_a_captured_step(dev, nccl_mesh):
     with pytest.raises(ValueError, match="gloo backend cannot join"):
         make_sharded_train_step(model, table, opt, sched, ds.device_arrays(device=dev), cfg,
                                 mesh, 16, 16, 20.0, None, None, 10)
+
+
+# ---------------------------------------------------------------- f32
+
+TOL32 = fr.PLAIN_TOL_F32
+
+
+def _close32(got, want, keys):
+    for k in keys:
+        if k == "field":
+            a, b = got[k], want[k]
+            pairs = {"field_rgb": ((a - b)[:, :3]),
+                     "field_sigma": (a - b)[:, 3] / b[:, 3].abs().clamp_min(1.0)}
+        else:
+            pairs = {k: got[k] - want[k]}
+        for name, diff in pairs.items():
+            err = float(diff.abs().max())
+            assert err <= TOL32[name], f"{name}: {err}"
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("want_field", [True, False])
+@pytest.mark.parametrize("s", [32, 48, 64, 100, 128])
+def test_march_f32_kernel_matches_plain(dev, s, want_field, use_time):
+    """K2's f32 variant (csrc/march_f32.cu) at 1 to 4 rays a 128-row tile
+    (two 64-row blocks), 333 rays (a ragged last tile): within
+    PLAIN_TOL_F32 of its f32 plain version, two calls bit for bit, one f32
+    launch a call and no bf16 one."""
+    cfg, model, o, d, emb, z, t, _ = _ray_inputs(dev, 333, s, 0, use_time)
+    cfg = cfg.replace(use_bf16=False)
+    packed = pack_params(model, cfg)
+    fr.reset_launch_counts()
+    got = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=want_field)
+    again = fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=want_field)
+    assert fr.LAUNCHES["march_f32"] == 2 and sum(fr.LAUNCHES.values()) == 2
+    want = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=want_field)
+    _close32(got, want, ["rgb", "depth", "acc", "weights"] + (["field"] if want_field else []))
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+@pytest.mark.parametrize("appearance", [False, True], ids=["emb_none", "emb"])
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (128, 128)])
+def test_merged_f32_kernel_matches_plain(dev, sc, sf, use_time, appearance):
+    """K5's f32 variant (csrc/merged_f32.cu) at 2, 8 and 1 rays a tile, the
+    coarse field and z_f from its plain version: the merged depths exact,
+    the rest within PLAIN_TOL_F32; it refuses what K5 refuses."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 333, sc, 3, use_time)
+    cfg = cfg.replace(use_bf16=False)
+    packed = pack_params(model, cfg, appearance=appearance)
+    emb = emb if appearance else torch.zeros_like(emb)
+    coarse = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+    args = (packed, cfg, o, d, emb, z, coarse["field"], z_f, t)
+    fr.reset_launch_counts()
+    got, again = fr.merged_cuda(*args), fr.merged_cuda(*args)
+    assert fr.LAUNCHES["merged_f32"] == 2 and sum(fr.LAUNCHES.values()) == 2
+    _close32(got, fr.merged_plain(*args), ["rgb", "depth", "acc", "weights", "z_vals"])
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    zf129 = torch.sort(torch.rand(333, 129, generator=g, device=dev) * 4 + 2, dim=-1)[0]
+    with pytest.raises(RuntimeError, match="a width this kernel does not take"):
+        fr.merged_cuda(packed, cfg, o, d, emb, z, coarse["field"], zf129, t)
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("n", [37, 129, 65536, 131072])
+def test_mlp_fwd_f32_kernel_matches_plain(dev, n, use_time):
+    """K1's f32 variant (csrc/mlp_fwd_f32.cu, 64-row blocks) below one
+    block, a block and a row past it, and at the coarse and fine row counts
+    of a 1024-ray batch; the appearance projection packed as zeros at 129."""
+    cfg, model, *_ = _inputs(dev, use_time=use_time)
+    cfg = cfg.replace(use_bf16=False)
+    x, d, emb, g = _rows(n, cfg, dev)
+    t = torch.rand(n, 1, generator=g, device=dev) if use_time else None
+    packed = pack_params(model, cfg, appearance=n != 129)
+    emb = emb if n != 129 else torch.zeros_like(emb)
+    fr.reset_launch_counts()
+    rk, sk = fm.fused_fwd_cuda(packed, cfg, x, d, emb, t)
+    assert fr.LAUNCHES["mlp_fwd_f32"] == 1 and sum(fr.LAUNCHES.values()) == 1
+    rp, sp = fm.fused_fwd_plain(packed, cfg, x, d, emb, t)
+    assert float((rk - rp).abs().max()) <= TOL32["field_rgb"]
+    assert float(((sk - sp) / sp.abs().clamp_min(1.0)).abs().max()) <= TOL32["field_sigma"]
+
+
+def test_f32_frame_launches_only_f32_kernels(dev):
+    """render_frame with use_bf16=False: the f32 K2 and K5 a chunk, no bf16
+    kernel; the frame is finite."""
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.viz.paths import camera_path
+
+    cfg, model, *_ = _inputs(dev)
+    fr.reset_launch_counts()
+    rgb, depth, _ = render_frame(model, cfg.replace(use_bf16=False),
+                                 camera_path("circle", 2, "lego")[0], 40, 30, 40.0, chunk=500,
+                                 device=dev)
+    assert fr.LAUNCHES == {k: 3 if k in ("march_f32", "merged_f32") else 0 for k in fr.LAUNCHES}
+    assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
+
+
+def test_backward_kernels_refuse_f32(dev):
+    """K3, K4, K6, K7, K8 and K9 take bf16 only: in f32 each refuses before
+    it launches, naming the f32 backward tile; weights packed in the other
+    dtype than the config's are refused too."""
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
+    c32 = cfg.replace(use_bf16=False)
+    pk = pack_params(model, c32)
+    target = torch.rand(37, 3, generator=g, device=dev)
+    field = fr.march_plain(pk, c32, o, d, emb, z, want_field=True)["field"]
+    zeros = torch.zeros(37, 3, device=dev)
+    calls = [lambda: fr.march_bwd_cuda(pk, c32, o, d, emb, z, zeros, None, None, None),
+             lambda: fr.march_train_cuda(pk, c32, o, d, emb, z, target),
+             lambda: fr.merged_train_cuda(pk, c32, o, d, emb, z, field, z, target),
+             lambda: fr.merged_bwd_cuda(pk, c32, o, d, emb, z, field, z, zeros, None, None,
+                                        None),
+             lambda: fm.fused_bwd_cuda(pk, c32, o, d, emb, zeros, zeros[:, :1]),
+             lambda: fr.hier_onepass_cuda(pk, c32, o, d, emb, z, z, target)]
+    fr.reset_launch_counts()
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="f32 backward tile"):
+            call()
+    assert not any(fr.LAUNCHES.values())
+    with pytest.raises(ValueError, match="packed params must be torch.float32"):
+        fr.march_cuda(pack_params(model, cfg), c32, o, d, emb, z)
+    with pytest.raises(ValueError, match="packed params must be torch.bfloat16"):
+        fr.march_cuda(pk, cfg, o, d, emb, z)
+
+
+@pytest.mark.parametrize("shader", ["default.frag", "toon.frag", "fog.frag"])
+def test_native_fallback_on_the_card(dev, tmp_path, shader):
+    """The native bridge without its binary takes the fx fallback on the
+    card: within levels_apart of the same fallback on the CPU."""
+    from danerf_tpu_torch.fx.effects import levels_apart
+    from danerf_tpu_torch.native import ShaderBridge
+
+    img, depth = _effect_inputs(96, 128, 5)
+    bridges = [ShaderBridge(binary_path=str(tmp_path / "none"), shader_dir=str(tmp_path / dv),
+                            auto_build=False, device=dv) for dv in ("cuda", "cpu")]
+    got, want = (b.apply_shader(img.numpy(), depth.numpy(), shader) for b in bridges)
+    name = {"default.frag": "Original", "toon.frag": "Toon Shader", "fog.frag": "Fog"}[shader]
+    assert levels_apart(name, got, want)["ok"]
+

@@ -201,3 +201,39 @@ def test_load_dataset_reads_blender_scene(tmp_path):
     ds = load_dataset(NeRFConfig(dataset_type="custom", dataset_path=str(scene / "train")))
     np.testing.assert_array_equal(ds.images, img[None])
     assert (ds.alphas == 255).all() and ds.focal == 7.0
+
+
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_save_blender_scene_matches_jax(tmp_path, split):
+    """The port's writer against the JAX package's (PIL) on the same scene:
+    the same files, PNGs that decode (by PIL and by the port's decoder) to
+    the same RGBA pixels, the same transforms JSON; and the port's loader
+    reads its scene back exactly."""
+    Image = pytest.importorskip("PIL.Image")
+    from danerf_tpu.data.blender import save_blender_scene as j_save
+    from danerf_tpu.data.synthetic import make_synthetic_scene as j_make
+    from danerf_tpu_torch.data.blender import load_blender_scene, save_blender_scene
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+
+    kw = dict(n_images=3, height=12, width=16, n_samples=16)
+    ds = make_synthetic_scene(split=split, **kw)
+    want_json = j_save(j_make(split=split, **kw), str(tmp_path / "jax"))
+    got_json = save_blender_scene(ds, str(tmp_path / "port"))
+    assert os.path.basename(got_json) == os.path.basename(want_json) == f"transforms_{split}.json"
+    with open(got_json) as f, open(want_json) as g:
+        assert json.load(f) == json.load(g)
+    names = sorted(os.listdir(tmp_path / "jax" / split))
+    assert sorted(os.listdir(tmp_path / "port" / split)) == names == ["r_0.png", "r_1.png",
+                                                                     "r_2.png"]
+    for name in names:
+        with Image.open(tmp_path / "port" / split / name) as a, \
+                Image.open(tmp_path / "jax" / split / name) as b:
+            assert a.mode == b.mode == "RGBA"
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
+        np.testing.assert_array_equal(read_png(str(tmp_path / "port" / split / name)),
+                                      read_png(str(tmp_path / "jax" / split / name)))
+    back = load_blender_scene(str(tmp_path / "port"), split=split)
+    for k in ("images", "alphas", "c2ws"):
+        np.testing.assert_array_equal(getattr(back, k), getattr(ds, k), err_msg=k)
+    assert back.focal == pytest.approx(ds.focal, rel=1e-6)

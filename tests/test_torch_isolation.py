@@ -2,7 +2,8 @@
 nor an imaging library (it renders a frame, a frame of a time-conditioned
 model at two times, and takes a 64 + 64, a coarse-only, a per-sample and a
 time-conditioned training step, runs the training loop with a resume,
-computes SSIM, applies an effect, renders an aligned-spiral frame with
+computes SSIM, applies an effect (and one through the native shader
+bridge), renders an aligned-spiral frame with
 its video, fits and scores through ``evaluate`` and ``eval``, loads a
 custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
 8, and in a one-rank gloo group renders a sharded frame and trains on a
@@ -118,6 +119,16 @@ from danerf_tpu_torch.viz.video import read_avi
 out = apply_effect("Toon Shader", torch.randint(0, 256, (9, 7, 3), dtype=torch.uint8),
                    torch.rand(9, 7))
 assert out.dtype == torch.uint8 and out.shape == (9, 7, 3)
+# the native bridge: its fx fallback on the CPU, and the tool where it is
+# built (its PNGs through the port's own writer and decoder)
+from danerf_tpu_torch.native import ShaderBridge
+with tempfile.TemporaryDirectory() as tmp:
+    for binary in (os.path.join(tmp, "none"), None):
+        sb = ShaderBridge(binary_path=binary, shader_dir=os.path.join(tmp, "shaders"),
+                          auto_build=False, device="cpu")
+        out = sb.apply_shader(torch.randint(0, 256, (9, 7, 3), dtype=torch.uint8),
+                              torch.rand(9, 7), "toon.frag")
+        assert out.dtype == "uint8" and out.shape == (9, 7, 3)
 with tempfile.TemporaryDirectory() as tmp:
     model0 = NeRF(cfg, torch.Generator().manual_seed(0))
     render_aligned_spiral(model0, cfg, tmp, num_frames=1, height=6, width=5, device="cpu")

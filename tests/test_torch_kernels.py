@@ -154,3 +154,85 @@ def test_kernel_route_is_inference_only():
                                   _t(emb).requires_grad_(True))
     with torch.no_grad(), pytest.raises(ValueError, match="appearance"):
         fr.fused_render_rays_eval(packed, cfg, _t(o), _t(d), _t(z), None)
+
+
+@pytest.mark.parametrize("use_bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
+    """The forward kernels (K1, K2, K5) take both configurations, each on
+    its own library and weights; the backward kernels refuse f32, naming
+    the f32 backward tile of ROADMAP.md."""
+    from danerf_tpu_torch.kernels.fused_mlp import _check_bwd_cfg, fwd_weights
+    from danerf_tpu_torch.models.nerf import NeRF
+
+    cfg = NeRFConfig(**SMALL, use_bf16=use_bf16)
+    if backward and not use_bf16:
+        with pytest.raises(NotImplementedError, match="f32 backward tile"):
+            _check_bwd_cfg(cfg)
+    elif backward:
+        _check_bwd_cfg(cfg)
+    else:
+        torch.manual_seed(0)
+        packed = pack_params(NeRF(cfg), cfg)
+        for name in ("march", "merged", "mlp_fwd"):
+            lib, mats = fwd_weights(packed, cfg, name)
+            assert lib == (name if use_bf16 else f"{name}_f32")
+            assert mats is (packed.mats if use_bf16 else packed.mats_kn)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K6", "K7", "K8", "K9"])
+def test_backward_wrappers_refuse_f32_before_anything(kernel):
+    """Each backward kernel's wrapper refuses use_bf16=False first thing,
+    before it looks at the device or builds a kernel (here, on the CPU)."""
+    from danerf_tpu_torch.kernels import fused_mlp as fm
+
+    _, cfg, _, model, o, d, emb, z, zf = _setup(False)
+    packed = pack_params(model, cfg)
+    o, d, emb, z, zf = (torch.tensor(x) for x in (o, d, emb, z, zf))
+    field = fr.march_plain(packed, cfg, o, d, emb, z, want_field=True)["field"]
+    target = torch.zeros(R, 3)
+    call = {"K3": lambda: fr.march_bwd_cuda(packed, cfg, o, d, emb, z, target, None, None, None),
+            "K4": lambda: fr.merged_train_cuda(packed, cfg, o, d, emb, z, field, zf, target),
+            "K6": lambda: fr.merged_bwd_cuda(packed, cfg, o, d, emb, z, field, zf, target, None,
+                                             None, None),
+            "K7": lambda: fr.march_train_cuda(packed, cfg, o, d, emb, z, target),
+            "K8": lambda: fm.fused_bwd_cuda(packed, cfg, o, d, emb, target, target[:, :1]),
+            "K9": lambda: fr.hier_onepass_cuda(packed, cfg, o, d, emb, z, zf, target)}[kernel]
+    fr.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="use_bf16=False is not yet ported to the "
+                                                  "backward CUDA kernels"):
+        call()
+    assert not any(fr.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+def test_f32_kernels_take_the_weights_transposed(use_time):
+    """The f32 kernels' weights (mats_kn, packed once with the weights):
+    each packed matrix W (out, K) as W^T (K, out) row-major at W's own
+    offset, zeros between; bf16 packing has none."""
+    from danerf_tpu_torch.kernels.fused_mlp import _check_packed
+
+    over = dict(use_time=True, time_enc_levels=3) if use_time else {}
+    cfg = NeRFConfig(**SMALL, use_bf16=False, **over)
+    torch.manual_seed(0)
+    from danerf_tpu_torch.models.nerf import NeRF
+
+    model = NeRF(cfg)
+    packed = pack_params(model, cfg)
+    kn = packed.mats_kn
+    assert kn.dtype == torch.float32 and kn.shape == packed.mats.shape
+    covered = torch.zeros(kn.numel(), dtype=torch.bool)
+    for name, (off, (n, k)) in packed.mat_at.items():
+        np.testing.assert_array_equal(kn[off:off + n * k].view(k, n).numpy(),
+                                      packed.mat(name).t().numpy(), err_msg=name)
+        covered[off:off + n * k] = True
+    assert not bool(kn[~covered].any())
+    cfg16 = cfg.replace(use_bf16=True)
+    packed16 = pack_params(model, cfg16)
+    assert packed16.mats_kn is None
+    _check_packed(packed, torch.device("cpu"), cfg)
+    _check_packed(packed16, torch.device("cpu"), cfg16)
+    with pytest.raises(ValueError, match="packed params must be torch.bfloat16"):
+        _check_packed(packed, torch.device("cpu"), cfg16)
+    with pytest.raises(ValueError, match="packed params must be torch.float32"):
+        _check_packed(packed16, torch.device("cpu"), cfg)

@@ -136,3 +136,16 @@ def test_config_shared_fields_equal():
     from danerf_tpu.config import RENDER_PRESETS as JP
     from danerf_tpu_torch.config import RENDER_PRESETS as TP
     assert JP == TP
+
+
+@pytest.mark.parametrize("over", [{}, dict(use_appearance=False), dict(use_time=True),
+                                  dict(SMALL)], ids=["default", "no_app", "time", "small"])
+def test_nerf_param_count_matches_jax(over):
+    """nerf_param_count of the port's module against the JAX package's
+    count of its param tree, for the same config."""
+    from danerf_tpu.models.nerf import nerf_param_count as j_count
+    from danerf_tpu_torch.models import nerf_param_count
+
+    got = nerf_param_count(NeRF(NeRFConfig(**over)))
+    assert got == j_count(init_nerf_params(jax.random.key(0), JaxConfig(**over)))
+    assert got > 0

@@ -147,3 +147,16 @@ def test_ray_aabb_bounds_matches():
     n_t, f_t = tops.ray_aabb_bounds(_t(o), _t(d), box[:3], box[3:], 2.0, 6.0)
     np.testing.assert_allclose(n_t.numpy(), np.asarray(n_j), atol=1e-6)
     np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), atol=1e-6)
+
+
+@pytest.mark.parametrize("dim,levels,include", [(3, 10, True), (3, 4, True), (1, 6, True),
+                                                (3, 0, True), (3, 5, False), (2, 0, False)])
+def test_encoding_output_dim_matches_jax(dim, levels, include):
+    """encoding_output_dim against the JAX package's, and the width
+    positional_encoding gives."""
+    from danerf_tpu.ops.encoding import encoding_output_dim as j_dim
+    from danerf_tpu_torch.ops import encoding_output_dim, positional_encoding
+
+    got = encoding_output_dim(dim, levels, include)
+    assert got == j_dim(dim, levels, include)
+    assert positional_encoding(torch.zeros(5, dim), levels, include).shape == (5, got)

@@ -10,7 +10,8 @@ worker processes (tests/torch_parallel_worker.py) that join a gloo group
 through ``initialize_distributed`` and import only torch and
 danerf_tpu_torch: 2 ranks for data parallelism, 4 for the 2 x 2 mesh.  The
 CLI runs as 2 processes on a tiny Blender scene beside one single-process
-run.  All processes start at once and the cases read their results.
+run, and ``render --mesh_data 2`` on 4 ranks beside one single-process
+render.  All processes start at once and the cases read their results.
 
 Tolerances.  The sharded steps are held to the JAX bar of
 tests/test_parallel.py, loss rtol 1e-4 and parameters atol 1e-5 after the
@@ -27,7 +28,9 @@ forward: atol 1e-5 (rgb) / 1e-4 (sigma), the JAX bar.  The kernel routes
 compare the port's plain versions with the JAX kernels in interpret mode.  Frames: atol 1e-5 (rgb, acc) and 1e-4 (depth), as
 tests/test_parallel.py holds the JAX sharded frame.  The CLI's 2-rank
 checkpoint against the single-process one: atol 1e-5 (the same f32 steps,
-the gradient summed over two half batches).
+the gradient summed over two half batches).  The 4-rank render against the
+single-process one: the PNGs within 1 level, the raw depth within
+chip_smoke.py's TWO_RANK_TOL (a frame gathered over two ranks).
 """
 
 import json
@@ -57,7 +60,9 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_parallel_worker.py")
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from torch_parallel_worker import FRAME, SOURCE, STEPS, TIME, TINY  # noqa: E402
+sys.path.insert(0, ROOT)
+from chip_smoke import TWO_RANK_TOL  # noqa: E402
+from torch_parallel_worker import FRAME, SMALL, SOURCE, STEPS, TIME, TINY  # noqa: E402
 
 TIMEOUT = 300
 CASES = {"module": (TINY, {}), "kernel": (TINY, {"use_pallas": True}), "time": (TIME, {})}
@@ -107,6 +112,17 @@ def _tiny_blender(root):
         frames.append({"file_path": f"./train/r_{i}", "transform_matrix": c2w.tolist()})
     (root / "tiny" / "transforms_train.json").write_text(
         json.dumps({"camera_angle_x": 0.69, "frames": frames}))
+
+
+def _small_checkpoint(path):
+    """A seeded model of the CLI runs' config and a 2-view table, as a
+    reference-format checkpoint for ``render``."""
+    from danerf_tpu_torch.models.nerf import NeRF
+    from danerf_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = NeRF(NeRFConfig(**SMALL), torch.Generator().manual_seed(0))
+    table = torch.randn(2, SMALL["appearance_dim"], generator=torch.Generator().manual_seed(1))
+    return save_checkpoint(str(path), model, table)
 
 
 def _jax_steps(ref, want, case, scene, time_scene):
@@ -212,6 +228,15 @@ def runs(tmp_path_factory):
                      f"127.0.0.1:{port}", "--num_processes", 2, "--process_id", i,
                      "--mesh_data", 2]) for i in range(2)]
     procs.append(_spawn(["cli", *cli, "--save_dir", d / "cli_single"]))
+    # render --mesh_data 2 on 4 ranks (2 outside the mesh) and in one process
+    render = ["render", "--checkpoint", _small_checkpoint(d / "small.pt"), "--frames", 2,
+              "--width", 8, "--height", 6, "--quality", "medium", "--save_depth", "--seed", 3,
+              "--device", "cpu"]
+    port = _free_port()
+    procs += [_spawn(["cli", *render, "--output_dir", d / f"render4_rank{i}",
+                      "--coordinator_address", f"127.0.0.1:{port}", "--num_processes", 4,
+                      "--process_id", i, "--mesh_data", 2]) for i in range(4)]
+    procs.append(_spawn(["cli", *render, "--output_dir", d / "render_single"]))
     for case, world in (("dp", 2), ("tp", 4)):
         port = _free_port()
         procs += [_spawn([case, r, world, port, d]) for r in range(world)]
@@ -341,6 +366,64 @@ def test_render_frame_with_mesh_matches_jax(runs):
             np.testing.assert_allclose(got[r][f"frame/{k}"], np.asarray(w), atol=atol,
                                        err_msg=f"{k}, rank {r}")
         assert float(got[r]["frame/perturb_max_err"]) < 1e-5
+
+
+def test_render_mesh_data_below_ranks(runs):
+    """`render --mesh_data 2` on 4 gloo ranks renders on the first 2 (the
+    JAX CLI renders on the first D devices) what one process renders:
+    rank 0's PNGs within 1 level and its raw depth within TWO_RANK_TOL of
+    the single-process run's; the other ranks write nothing."""
+    from danerf_tpu_torch.data.png import read_png
+
+    _, _, d = runs
+    one, four = d / "render_single", d / "render4_rank0"
+    names = sorted(os.listdir(one))
+    assert names == ["depth_000.png", "depth_001.png", "raw", "rgb_000.png", "rgb_001.png"]
+    assert sorted(os.listdir(four)) == names
+    assert sorted(os.listdir(four / "raw")) == sorted(os.listdir(one / "raw"))
+    for i in (1, 2, 3):
+        assert not (d / f"render4_rank{i}").exists(), f"rank {i} wrote files"
+    for name in names[:2] + names[3:]:
+        diff = np.abs(read_png(str(four / name)).astype(int) - read_png(str(one / name)).astype(int))
+        assert diff.max() <= 1, (name, diff.max())
+    for name in os.listdir(one / "raw"):
+        np.testing.assert_allclose(np.load(four / "raw" / name), np.load(one / "raw" / name),
+                                   atol=TWO_RANK_TOL["frame_depth"], err_msg=name)
+
+
+def test_mesh_smaller_than_ranks(monkeypatch):
+    """Over 4 ranks a renderer's 2 x 1 mesh (``subset``) lies over ranks 0
+    and 1: every rank creates every group, rank 3 is outside (no share, no
+    sum); ``train``'s mesh refuses, as JAX's make_mesh asserts data x model
+    == devices, and ``render``'s CLI mesh is the subset one."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from danerf_tpu_torch.cli.main import _make_mesh
+    from danerf_tpu_torch.parallel import make_mesh
+
+    groups = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 4)
+    monkeypatch.setattr(dist, "get_rank", lambda: 3)
+    monkeypatch.setattr(dist, "new_group", lambda ranks: groups.append(ranks) or tuple(ranks))
+    with pytest.raises(ValueError, match="mesh 2x1 != 4 ranks"):
+        make_mesh(data=2, device="cpu")
+    with pytest.raises(ValueError, match="mesh 2x1 != 4 ranks"):
+        _make_mesh(argparse.Namespace(mesh_data=2, mesh_model=1), "cpu", render=False)
+    assert groups == []
+    mesh = _make_mesh(argparse.Namespace(mesh_data=2, mesh_model=1), "cpu", render=True)
+    assert groups == [[0], [1], [0, 1]]
+    assert not mesh.member and mesh.data_group is None and mesh.model_group is None
+    with pytest.raises(ValueError, match="outside the 2x1 mesh"):
+        mesh.share(10)
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    mesh = make_mesh(data=2, device="cpu", subset=True)
+    assert mesh.member and (mesh.data_index, mesh.model_index) == (1, 0)
+    assert mesh.data_group == (0, 1) and mesh.share(10) == slice(5, 10)
+    with pytest.raises(ValueError, match="mesh 4x2 != 4 ranks"):
+        make_mesh(data=4, model=2, device="cpu", subset=True)
 
 
 def test_make_sharded_render_matches_jax(runs):
