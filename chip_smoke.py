@@ -11,7 +11,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             sm_90a, all sources at once); one line of each kernel's
             registers, shared memory and spills (-Xptxas -v; K1, K2 and K5
             with their dynamic shared memory; the tile and dW pass of K3,
-            K4, K6-K9 apart); the full reports go to DIR/build.log.
+            K4, K6-K9 and of their f32 variants K3, K4, K6, K7 apart); the
+            full reports go to DIR/build.log.
 3. kernels  at full width (default NeRFConfig: 8x256, bf16) on seeded inputs,
             each kernel against its plain PyTorch version on the card,
             within fused_render.PLAIN_TOL, at 4093 rays (a ragged tile) and
@@ -79,6 +80,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             variants), and the f32 kernels' and plain versions' ms at
             FP32's bound (67 TFLOP/s) on a chunk (K1 at 131,072 rows), with
             and without time.
+4f. f32_bwd  the f32 configuration of the backward and training kernels,
+            K3, K7, K4 and K6 on csrc/field_bwd_f32.cuh (FFMA, f32
+            residuals), against their f32 plain versions (TF32 off) within
+            fused_render.PLAIN_TOL_F32_BWD at 37 rays, B = 1024 and 4093
+            rays: K3 and K7 at S = 32, 48, 64, 100, 128 (K3 with every
+            cotangent and g_field, without g_field, and every cotangent
+            null: exact zeros), K4 and K6 at 64 + 64, 64 + 16, 64 + 48,
+            128 + 128 (K6 with a coarse/fine tie under every cotangent and
+            the white-background pattern); the has_time variants on the
+            time model at 37 rays and B = 1024; two calls bit for bit;
+            beside each the bf16 kernel's error against the same f32 plain
+            outputs, at least F32_GAIN times the f32 kernel's; K8 and K9 in
+            f32 refuse before any launch; the four's ms at B = 1024 (also
+            with time) and at 8,192 rays x 64 beside the FP32 bound and the
+            plain versions' ms.
+4g. f32_train  f32 training through the library entry points (no CLI
+            flag, as in the JAX CLI): one f32 step of 64 + 64, coarse-only,
+            white background and use_time at B = 1024 through the kernels
+            against the plain step (exactly the f32 launches, none of a bf16
+            kernel; the loss and gradients within PLAIN_TOL_F32_BWD's loss
+            and step_grad_rel, the parameters after one Adam step); 10
+            chained f32 steps against 10
+            eager ones bit for bit on 64 + 64 and coarse-only; train() for
+            100 f32 steps of 64 + 64 (one f32 K2, K4, K3 a step, a rising
+            PSNR, a checkpoint); evaluate() with the embedding fit on its
+            checkpoint (2 100x100 views, each fit step an f32 K2, K5, K6,
+            K3), each view within 0.1 dB PSNR of the plain route on the card.
 5. step     one training step at B = 1024 on each training path (64 + 64;
             coarse only, num_importance=0; 64 + 64 on a white background;
             64 + 64 per sample, use_fused_train=False; 64 + 64 with
@@ -201,7 +229,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             for use_time: the has_time K2/K5 on the chunk, K3-K7 and K9 at
             B = 1024 and K1/K8 at 131,072 rows with their plain versions, an
             800x800 medium frame at t = 0.5, and the use_time step,
-            profiled.  K3, K4, K6 and K7 at the batch are also broken down
+            profiled; then (f32_step_timing) the f32 64 + 64 step beside
+            the bf16 one, eager and chained, each with its profiler windows
+            (device busy, idle share).  K3, K4, K6 and K7 at the batch are
+            also broken down
             by kernel (tile, dW pass) beside torch.matmul over the same dW
             products (dw_cublas_ms, a yardstick only), and each profiled
             step by part (their tile, their dW pass, the rest).
@@ -213,7 +244,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    PSNR); dist_step, on a world-size-1 NCCL group of this process: for
    64 + 64, coarse-only and per sample, 10 chained sharded steps (one
    replay, the flat all-reduce captured with them) against 10 chained
-   make_train_step steps bit for bit with the path's launches, then the two
+   make_train_step steps bit for bit with the path's launches, one f32
+   64 + 64 sharded step against one f32 make_train_step step, then the two
    64 + 64 steps timed in turns (20 replays each) with a profiler window of
    3 replays each; dist_frame: render_frame(mesh=) of an 800x800 medium
    frame against render_frame bit for bit (10 K2, 10 K5), and
@@ -239,8 +271,10 @@ runs under "eval_launches"; K2, K4 and K3 with those of hier_dp under
 "dp_train_launches", K2 and K5 with a sharded frame's, K1 with a sharded
 chunk's; the f32 variants of K2, K5 and K1 after the nine, with the
 launches of 4e's f32 frames and per-sample routes, the has_time variants'
-from the time model's); the last line is the ok
-record.  Exits non-zero,
+from the time model's; then those of K3, K4, K6 and K7, with the launches
+of 4g's f32 train() run (K3, K4), evaluate fit (K6) and coarse-only chained
+run (K7), the has_time variants' from its f32 use_time step); the last line
+is the ok record.  Exits non-zero,
 printing no result, when CUDA is unavailable.
 """
 
@@ -434,6 +468,12 @@ def phase_build(out_dir):
         for fn, key, smem in ((tile, "tile", lib.danerf_bwd_tile_smem_bytes),
                               ("dw90_kernel", "dw_pass", lib.danerf_dw90_smem_bytes)):
             res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
+    # their f32 variants (csrc/field_bwd_f32.cuh): the tile kernel (dynamic
+    # shared memory) and the dW pass (static) apart
+    for n in ("march_bwd_f32", "merged_train_f32", "merged_bwd_f32", "march_train_f32"):
+        res[n]["tile"] = {**function_resources(logs[n], "bwd32_tile"),
+                          "dynamic_smem": int(_build.load(n).danerf_bwd_tile_smem_bytes())}
+        res[n]["dw_pass"] = function_resources(logs[n], "dw32_kernel")
     emit({"phase": "build", "seconds": secs, "built": sorted(logs), "resources": res})
 
 
@@ -1474,6 +1514,389 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
             "time_k1_launches": k1_launches["t"], "timing": timing, "bound_by": bound_by}
 
 
+def f32_bwd_bytes(cfg, packed, n, sc, sf):
+    """Bytes K3, K4, K6 and K7 must move for n rays (sc coarse or march
+    samples, sf fine ones): inputs read once, outputs written once, the f32
+    weights read (transposed and as packed) and the f32 gradients written
+    once."""
+    e, nt, sa = cfg.appearance_dim, int(cfg.use_time), sc + sf
+    wg = 4 * (3 * packed.mats.numel() + 2 * packed.vecs.numel())
+    return {"k3": 4 * n * (3 + 3 + e + sc + nt + 3 + 1 + 1 + sc + 4 * sc) + 4 * n * e + wg,
+            "k4": 4 * n * (3 + 3 + e + sc + 4 * sc + sf + 3 + nt) + 4 * n * (e + 4 * sc) + 4 + wg,
+            "k6": (4 * n * (3 + 3 + e + sc + 4 * sc + sf + nt + 3 + 1 + 1 + sa)
+                   + 4 * n * (e + 4 * sc) + wg),
+            "k7": 4 * n * (3 + 3 + e + sc + 3 + nt) + 4 * n * e + 4 + wg}
+
+
+def cpu_referee(fn, packed_cpu, cfg, device, *args, **kw):
+    """A plain version run on the CPU (another f32 summation order) on CPU
+    copies of the card's inputs, its outputs back on the card: the second
+    f32 evaluation an f32 kernel is held to where a relu gate of the first
+    lies on a rounding boundary (PLAIN_TOL_F32_BWD's comment)."""
+    import torch
+
+    from danerf_tpu_torch.kernels.fused_mlp import PackedGrads
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def back(x):
+        if isinstance(x, PackedGrads):
+            return PackedGrads(x.mats.to(device), x.vecs.to(device), x.packed)
+        if isinstance(x, (tuple, list)):
+            return type(x)(back(v) for v in x)
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+
+    return back(fn(packed_cpu, cfg, *(cpu(a) for a in args),
+                   **{k: cpu(v) for k, v in kw.items()}))
+
+
+def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
+    """The f32 variants (use_bf16=False, csrc/field_bwd_f32.cuh) of K3, K7,
+    K4 and K6 against their f32 plain versions on the card (TF32 off)
+    within fused_render.PLAIN_TOL_F32_BWD, at 37 rays (a lost block shows),
+    the 1024-ray batch and 4093 rays (a ragged last tile), at every shape
+    the tile takes: K3 and K7 at S = 32, 48, 64, 100, 128 (K3 with every
+    cotangent and g_field, without g_field, and at S = 64 with every
+    cotangent null: exact zeros); K4 and K6 at Sc + Sf = 64 + 64, 64 + 16,
+    64 + 48, 128 + 128 (K6 with a coarse/fine tie under every cotangent and
+    the white-background pattern, g_rgb and g_acc); the has_time variants
+    on the time model at 37 rays and the batch (S = 64, 64 + 64).  Two
+    calls agree bit for bit.  Beside each, the bf16 kernel's error against
+    the same f32 plain outputs (each gradient's relative Frobenius error,
+    and demb): the f32 kernel's must be at least F32_GAIN times smaller.
+    Where the kernel's gradients are off the card's plain version by more
+    than the limit, the plain version also runs on the CPU (cpu_referee)
+    and the kernel is held to that evaluation instead; both gaps and the
+    two plain runs' own are reported (a relu gate on an f32 rounding
+    boundary flips between summation orders).
+    Then CUDA-event times of the four at B = 1024 and at 8,192 rays x 64
+    beside their FP32 bound and their plain versions'; K8 and K9 in f32
+    refuse before any launch.  Returns (worst abs error of each kernel and
+    variant, the worst ratio, the times, their bound_by)."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_mlp as fm
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.sampling import importance_uniforms, sample_pdf
+
+    tol = fr.PLAIN_TOL_F32_BWD
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("the f32 plain versions must run in full f32")
+    errs, grad_rel, bf16, ratios, failures, same = {}, {}, {}, {}, [], True
+    referee = {}
+
+    def rel(got, want, m):
+        r = fr.grad_rel_errors(got, want, m)
+        return max(r.values()) if r else 0.0
+
+    def held(name, m, got, again, got16, want, keys, want_cpu):
+        """got/again/got16/want: (grads, *per-ray outputs) in ``keys``
+        order; the f32 kernel against want within tol (or, past it, against
+        want_cpu(), the plain version on the CPU), bit for bit against
+        again, its worst error F32_GAIN below the bf16 kernel's."""
+        nonlocal same
+        torch.cuda.synchronize()
+        same &= all(bool(torch.equal(getattr(a, "mats", a), getattr(b, "mats", b)))
+                    and bool(torch.equal(getattr(a, "vecs", a), getattr(b, "vecs", b)))
+                    for a, b in zip(got, again))
+        g32 = rel(got[0], want[0], m)
+        if g32 > tol["grad_rel"]:
+            w2 = want_cpu()
+            referee[name] = {"card_plain": g32, "cpu_plain": rel(got[0], w2[0], m),
+                             "plain_vs_plain": rel(w2[0], want[0], m)}
+            want = w2
+            g32 = referee[name]["cpu_plain"]
+        g16 = rel(got16[0], want[0], m)
+        grad_rel[name], bf16[f"{name}.grad_rel"] = g32, g16
+        if not math.isfinite(g32) or g32 > tol["grad_rel"]:
+            failures.append(f"{name}.grad_rel: {g32} > {tol['grad_rel']}")
+        pairs = [(g32, g16)]
+        for key, a, a16, w in zip(keys, got[1:], got16[1:], want[1:]):
+            e, e16 = max_err(a, w), max_err(a16, w)
+            errs[f"{name}.{key}"], bf16[f"{name}.{key}"] = e, e16
+            limit = tol[key]
+            if not math.isfinite(e) or e > limit:
+                failures.append(f"{name}.{key}: {e} > {limit}")
+            if key.startswith("demb"):
+                pairs.append((e, e16))
+        worst32, worst16 = max(a for a, _ in pairs), max(b for _, b in pairs)
+        ratios[name] = worst16 / worst32 if worst32 > 0 else math.inf
+        if not ratios[name] >= F32_GAIN:
+            failures.append(f"{name}: f32 error {worst32} only {ratios[name]}x below the bf16 "
+                            f"kernel's {worst16}")
+
+    def zero(name, *outs):
+        torch.cuda.synchronize()
+        e = max(float(x.abs().max()) for x in outs)
+        errs[f"{name}.zero"] = e
+        if e != 0.0:
+            failures.append(f"{name}: every cotangent null, an output {e} != 0")
+
+    for tag, c16, m in (("", cfg, model), ("t", cfg_t, model_t)):
+        c = c16.replace(use_bf16=False)
+        p32, p16 = pack_params(m, c), pack_params(m, c16)
+        pcpu = pack_params(m, c, device="cpu")
+        sizes = (37, c.batch_size, 4093) if tag == "" else (37, c.batch_size)
+        march_s = (32, 48, 64, 100, 128) if tag == "" else (64,)
+        merged_s = ((64, 64), (64, 16), (64, 48), (128, 128)) if tag == "" else ((64, 64),)
+        for n in sizes:
+            for s in march_s:
+                o, d, emb, z = make_rays(n, c, seed=700 + s, device=device, samples=s)
+                g = torch.Generator(device=device).manual_seed(n + s + 700)
+                t = torch.rand(n, 1, generator=g, device=device) if c.use_time else None
+                *cot, g_field = _cotangents(n, s, g, device)
+                cases = {"_field": (*cot, g_field), "": (*cot, None)}
+                for case, ct in cases.items():
+                    name = f"K3f32{tag}@{n}x{s}{case}"
+
+                    def k3(pk, cc, ct=ct):
+                        return fr.march_bwd_cuda(pk, cc, o, d, emb, z, *ct, t=t)
+                    held(name, m, k3(p32, c), k3(p32, c), k3(p16, c16),
+                         fr.march_bwd_plain(p32, c, o, d, emb, z, *ct, t=t), ["demb"],
+                         lambda ct=ct: cpu_referee(fr.march_bwd_plain, pcpu, c, device, o, d,
+                                                   emb, z, *ct, t=t))
+                if s == 64:
+                    name = f"K3f32{tag}@{n}x{s}_null"
+                    gk, dk = fr.march_bwd_cuda(p32, c, o, d, emb, z, None, None, None, None,
+                                               t=t)
+                    zero(name, gk.mats, gk.vecs, dk)
+                target = torch.rand(n, 3, generator=g, device=device)
+                name = f"K7f32{tag}@{n}x{s}"
+
+                def k7(pk, cc):
+                    lk, gk, dk = fr.march_train_cuda(pk, cc, o, d, emb, z, target, t)
+                    return gk, lk, dk
+                lp, gp, dp = fr.march_train_plain(p32, c, o, d, emb, z, target, t)
+
+                def k7_cpu():
+                    lc, gc, dc = cpu_referee(fr.march_train_plain, pcpu, c, device, o, d, emb,
+                                             z, target, t)
+                    return gc, lc, dc
+                held(name, m, k7(p32, c), k7(p32, c), k7(p16, c16), (gp, lp, dp),
+                     ["loss", "demb_k4"], k7_cpu)
+                del o, d, emb, z, cot, g_field
+            for sc, sf in merged_s:
+                o, d, emb, z = make_rays(n, c, seed=800 + sc + sf, device=device, samples=sc)
+                g = torch.Generator(device=device).manual_seed(n + sc + sf + 800)
+                t = torch.rand(n, 1, generator=g, device=device) if c.use_time else None
+                target = torch.rand(n, 3, generator=g, device=device)
+                coarse = fr.march_plain(p32, c, o, d, emb, z, t, want_field=True)
+                z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+                field = coarse["field"]
+                name = f"K4f32{tag}@{n}x{sc}+{sf}"
+
+                def k4(pk, cc):
+                    lk, gk, dk, fk = fr.merged_train_cuda(pk, cc, o, d, emb, z, field, z_f,
+                                                          target, t)
+                    return gk, lk, dk, fk
+                lp, gp, dp, fp = fr.merged_train_plain(p32, c, o, d, emb, z, field, z_f,
+                                                       target, t)
+
+                def k4_cpu():
+                    lc, gc, dc, fc = cpu_referee(fr.merged_train_plain, pcpu, c, device, o, d,
+                                                 emb, z, field, z_f, target, t)
+                    return gc, lc, dc, fc
+                held(name, m, k4(p32, c), k4(p32, c), k4(p16, c16), (gp, lp, dp, fp),
+                     ["loss", "demb_k4", "g_field"], k4_cpu)
+                z_t = _tie(z, z_f)
+                c6 = _cotangents(n, sc + sf, g, device)[:4]
+                for case, ct in {"": c6, "_white": (c6[0], None, c6[2], None)}.items():
+                    name = f"K6f32{tag}@{n}x{sc}+{sf}{case}"
+
+                    def k6(pk, cc, ct=ct):
+                        return fr.merged_bwd_cuda(pk, cc, o, d, emb, z, field, z_t, *ct, t=t)
+                    held(name, m, k6(p32, c), k6(p32, c), k6(p16, c16),
+                         fr.merged_bwd_plain(p32, c, o, d, emb, z, field, z_t, *ct, t=t),
+                         ["demb", "g_field_k6"],
+                         lambda ct=ct: cpu_referee(fr.merged_bwd_plain, pcpu, c, device, o, d,
+                                                   emb, z, field, z_t, *ct, t=t))
+                del o, d, emb, z, coarse, field, z_f, z_t, c6
+
+    # K8 and K9 in f32 refuse before any launch
+    c = cfg.replace(use_bf16=False)
+    p32 = pack_params(model, c)
+    o, d, emb, z = make_rays(37, c, seed=790, device=device)
+    u = importance_uniforms((37,), c.num_importance, True, device=device)
+    fr.reset_launch_counts()
+    for kern, call in (("K8", lambda: fm.fused_bwd_cuda(p32, c, o, d, emb, o, o[:, :1])),
+                       ("K9", lambda: fr.hier_onepass_cuda(p32, c, o, d, emb, z, u, o))):
+        try:
+            call()
+            failures.append(f"{kern} took use_bf16=False")
+        except NotImplementedError as exc:
+            if "the f32 K8 and K9" not in str(exc):
+                failures.append(f"{kern}: {exc}")
+    if any(fr.LAUNCHES.values()):
+        failures.append(f"K8/K9 in f32 launched {fr.LAUNCHES}")
+    if not same:
+        failures.append("an f32 backward kernel gave different results on the same inputs")
+
+    # times at B = 1024 and at 8,192 rays (the has_time variants at B =
+    # 1024), beside the FP32 bound
+    timing, bound_by = {}, {}
+    sc, sf = c.num_samples, c.num_importance
+    for tag, c16, m, sizes in (("", cfg, model, (c.batch_size, 8192)),
+                               ("t", cfg_t, model_t, (c.batch_size,))):
+        c = c16.replace(use_bf16=False)
+        p32 = pack_params(m, c)
+        for n in sizes:
+            o, d, emb, z = make_rays(n, c, seed=795, device=device)
+            g = torch.Generator(device=device).manual_seed(796)
+            t = torch.rand(n, 1, generator=g, device=device) if c.use_time else None
+            *cot, g_field = _cotangents(n, sc, g, device)
+            target = torch.rand(n, 3, generator=g, device=device)
+            coarse = fr.march_cuda(p32, c, o, d, emb, z, t, want_field=True)
+            z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+            field = coarse["field"]
+            c6 = (cot[0], cot[1], cot[2],
+                  0.1 * torch.randn(n, sc + sf, generator=g, device=device))
+            del coarse
+            calls = {
+                "k3": (lambda: fr.march_bwd_cuda(p32, c, o, d, emb, z, *cot, g_field, t=t),
+                       lambda: fr.march_bwd_plain(p32, c, o, d, emb, z, *cot, g_field, t=t)),
+                "k4": (lambda: fr.merged_train_cuda(p32, c, o, d, emb, z, field, z_f, target, t),
+                       lambda: fr.merged_train_plain(p32, c, o, d, emb, z, field, z_f, target,
+                                                     t)),
+                "k6": (lambda: fr.merged_bwd_cuda(p32, c, o, d, emb, z, field, z_f, *c6, t=t),
+                       lambda: fr.merged_bwd_plain(p32, c, o, d, emb, z, field, z_f, *c6, t=t)),
+                "k7": (lambda: fr.march_train_cuda(p32, c, o, d, emb, z, target, t),
+                       lambda: fr.march_train_plain(p32, c, o, d, emb, z, target, t)),
+            }
+            nbytes = f32_bwd_bytes(c, p32, n, sc, sf)
+            samples = {"k3": sc, "k4": sf, "k6": sf, "k7": sc}
+            for k, (kern, plain) in calls.items():
+                timing[f"{k}{tag}_{n}_ms"] = cuda_ms(kern, 5 if n == 8192 else 10)
+                timing[f"{k}{tag}_{n}_plain_ms"] = cuda_ms(plain, 2 if n == 8192 else 5)
+                timing[f"{k}{tag}_{n}_bound_ms"], bound_by[k + tag] = bound(
+                    c, n, samples[k], nbytes[k], backward=True)
+            # K2 f32 at the batch, the rest of the 64 + 64 step's kernels
+            timing[f"k2{tag}_{n}_ms"] = cuda_ms(
+                lambda: fr.march_cuda(p32, c, o, d, emb, z, t, want_field=True), 10)
+            e = c.appearance_dim
+            timing[f"k2{tag}_{n}_bound_ms"], _ = bound(
+                c, n, sc, 4 * n * (3 + 3 + e + sc) + 4 * n * (3 + 1 + 1 + 5 * sc)
+                + 8 * p32.mats.numel())
+            del o, d, emb, z, cot, g_field, target, field, z_f, c6, calls
+    worst = {f"{k}{tag}": max(v for key, v in errs.items()
+                              if key.startswith(f"{k}f32{tag}@") and not key.endswith(".zero"))
+             for k in ("K3", "K4", "K6", "K7") for tag in ("", "t")}
+    emit({"phase": "f32_bwd", "rays": [37, cfg.batch_size, 4093], "max_abs_err": errs,
+          "grad_rel": grad_rel, "bf16_kernel_err_vs_f32_plain": bf16,
+          "bf16_over_f32_error_ratio": ratios, "worst_ratio": min(ratios.values()),
+          "tolerance": tol, "least_ratio": F32_GAIN, "deterministic": same,
+          "cpu_referee": referee, "timing": timing, "bound_by": bound_by,
+          "failures": failures})
+    if failures:
+        raise AssertionError("f32 backward kernel disagrees with its plain version: "
+                             + "; ".join(failures))
+    return worst, min(ratios.values()), timing, bound_by
+
+
+def phase_f32_train(cfg, model, out_dir, device):
+    """f32 training on the card (use_bf16=False; no CLI flag reaches it in
+    either package, the library entry points do): one step of 64 + 64,
+    coarse-only, white background and use_time at B = 1024 through the
+    kernels against the same step through their plain versions
+    (step_runs: exactly the f32 launches and none of a bf16 kernel; the
+    loss within PLAIN_TOL_F32_BWD's loss, the gradients within its
+    step_grad_rel, the parameters after one Adam step);
+    10 chained f32 steps against 10 eager ones bit for bit on 64 + 64 and
+    coarse-only; train() for 100 f32 steps of 64 + 64 on the procedural
+    scene (phase_train: one f32 K2, K4, K3 a step, finite losses, a rising
+    PSNR, a checkpoint); then evaluate() with the embedding fit on its
+    checkpoint (100x100 views, 2 views; 50 fit steps a view, each an f32 K2,
+    K5, K6 and K3), exactly those launches, each view within EVAL_TOL of
+    the same call on the plain route (use_kernels=False) on the card.
+    Returns the launches of each run."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.train.evaluate import evaluate
+    from danerf_tpu_torch.utils.checkpoint import load_model
+
+    tol = fr.PLAIN_TOL_F32_BWD
+    failures = []
+    steps, _, _ = step_runs(cfg, model, device, F32_PATHS, lambda c: tol["loss"],
+                            tol["step_grad_rel"], failures)
+    chained = {}
+    for path in ("hier_f32", "coarse_f32"):
+        over, per_step = F32_PATHS[path]
+        pcfg = cfg.replace(**over)
+        chained[path] = chained_vs_eager(pcfg, timing_scene(pcfg), device, 10, 1, per_step)
+        r = chained[path]
+        if r["differences"] or r["launches_wrong"] or not r["finite"]:
+            failures.append(f"chained {path}: {r['differences']} {r['launches_wrong']} "
+                            f"finite={r['finite']}")
+    if failures:
+        emit({"phase": "f32_train", "steps": steps, "chained": chained, "failures": failures})
+        raise AssertionError("f32 training disagrees: " + "; ".join(failures))
+    train_launches = phase_train(out_dir, "hier_f32", 100, render=False)
+
+    no_scene = os.path.join(out_dir, "no_scene")
+    c32 = NeRFConfig(dataset_path=no_scene, use_bf16=False)
+    ds = load_dataset(c32, "val")
+    m, _, _, c32 = load_model(os.path.join(out_dir, "train_hier_f32", "checkpoint_final.pt"),
+                              c32, "cuda")
+    m.requires_grad_(False)
+    evals = {}
+    for route, c in (("kernel", c32), ("plain", c32.replace(use_kernels=False))):
+        fr.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = evaluate(m, c, ds, max_views=EVAL_VIEWS, optimize_embeddings=True,
+                       opt_steps=EVAL_OPT_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        evals[route] = {"seconds": time.perf_counter() - t0, "launches": dict(fr.LAUNCHES),
+                        "psnr": [v["psnr"] for v in res["per_view"]],
+                        "ssim": [v["ssim"] for v in res["per_view"]]}
+    fit = {"march_f32": 1, "merged_f32": 1, "merged_bwd_f32": 1, "march_bwd_f32": 1}
+    want = {k: EVAL_VIEWS * (EVAL_OPT_STEPS * fit.get(k, 0)
+                             + (1 if k in ("march_f32", "merged_f32") else 0))
+            for k in fr.LAUNCHES}
+    if evals["kernel"]["launches"] != want:
+        failures.append(f"f32 evaluate launches {evals['kernel']['launches']}, expected {want}")
+    if any(evals["plain"]["launches"].values()):
+        failures.append(f"f32 evaluate on the plain route launched {evals['plain']['launches']}")
+    delta = {"psnr_db": max(abs(a - b) for a, b in zip(evals["kernel"]["psnr"],
+                                                        evals["plain"]["psnr"])),
+             "ssim": max(abs(a - b) for a, b in zip(evals["kernel"]["ssim"],
+                                                     evals["plain"]["ssim"]))}
+    if not (all(np.isfinite(evals["kernel"]["psnr"]))
+            and all(delta[k] <= EVAL_TOL[k] for k in delta)):
+        failures.append(f"f32 evaluate: kernel {evals['kernel']}, plain {evals['plain']}")
+    emit({"phase": "f32_train", "rays": cfg.batch_size, "steps": steps, "chained": chained,
+          "train_launches": train_launches, "evaluate": evals, "evaluate_max_delta": delta,
+          "tolerance": {"loss": tol["loss"], "step_grad_rel": tol["step_grad_rel"],
+                        "eval": EVAL_TOL},
+          "failures": failures})
+    if failures:
+        raise AssertionError("f32 training disagrees: " + "; ".join(failures))
+    return {"train": train_launches, "eval": evals["kernel"]["launches"],
+            "coarse_chained": launches_of(F32_PATHS["coarse_f32"][1], 10),
+            "time_step": steps["time_f32"]["launches"]}
+
+
+def phase_f32_step_timing(cfg, device, f32_timing, tt):
+    """The f32 64 + 64 step (use_bf16=False) at B = 1024 beside the bf16
+    one, both through step_timing (eager and chained, 10 steps a replay,
+    each with its torch.profiler windows: device busy, idle share), with
+    the f32 kernels' times and bound from phase_f32_bwd (K2, K3, K4 at the
+    batch) and the bf16 ones' from phase_train_timing."""
+    steps = {"hier_f32": step_timing(cfg.replace(**F32_PATHS["hier_f32"][0]), device, f32_timing,
+                                     ("k2_1024", "k3_1024", "k4_1024"), profile=True),
+             "hier": step_timing(cfg, device, tt, ("k2_batch", "k3_batch", "k4_batch"),
+                                 profile=True)}
+    keys = ("chained_ms_per_step_median", "chained_profile_device_busy_ms_per_step",
+            "chained_profile_idle_share", "step_ms_median", "step_bound_ms")
+    emit({"phase": "f32_step_timing", "rays": cfg.batch_size, "steps": steps,
+          "f32_over_bf16": {k: steps["hier_f32"][k] / steps["hier"][k] for k in keys
+                            if k != "chained_profile_idle_share"}})
+
+
 def native_tools():
     """What the native tool's build needs, as found on this host: cmake, a
     build tool, a C++ compiler, libpng and libjpeg (header and library)."""
@@ -1701,21 +2124,34 @@ PATHS = {
 }
 
 
+# The f32 configuration (use_bf16=False) of four of them: config changes and
+# the launches of one step (the f32 variants of K2, K5, K3, K4, K6, K7).
+F32_PATHS = {
+    "hier_f32": ({"use_bf16": False}, {"march_f32": 1, "march_bwd_f32": 1,
+                                        "merged_train_f32": 1}),
+    "coarse_f32": ({"use_bf16": False, "num_importance": 0}, {"march_train_f32": 1}),
+    "white_f32": ({"use_bf16": False, "white_background": True},
+                  {"march_f32": 1, "merged_f32": 1, "merged_bwd_f32": 1, "march_bwd_f32": 1}),
+    "time_f32": ({"use_bf16": False, "use_time": True},
+                 {"march_f32": 1, "merged_f32": 1, "merged_bwd_f32": 1, "march_bwd_f32": 1}),
+}
+ALL_PATHS = {**PATHS, **F32_PATHS}
+
+
 def launches_of(per_step, steps=1):
     from danerf_tpu_torch.kernels import fused_render as fr
 
     return {k: per_step.get(k, 0) * steps for k in fr.LAUNCHES}
 
 
-def phase_step(cfg, model, device):
-    """One training step at B = 1024 on each training path (64 + 64; coarse
-    only; 64 + 64 on a white background; 64 + 64 per sample, K1/K8; 64 + 64
-    with use_time, the has_time K2/K5/K6/K3 on a model of its own and the
-    batch's per-ray times; 64 + 64 in one kernel, use_hier_onepass, K9),
-    each built twice from the same module, table, batch and draws: through
-    the kernels and through their plain versions; loss, every gradient and
-    the parameters after one Adam step compared.  The K9 step is also held
-    against the 64 + 64 step through K2, K4 and K3 on the same draws."""
+def step_runs(cfg, model, device, paths, loss_tol, grad_tol, failures):
+    """One training step at B = 1024 on each of ``paths`` (name: (config
+    changes, launches a step)), each built twice from the same module,
+    table, batch and draws: through the kernels and through their plain
+    versions; launches, loss (``loss_tol(cfg)``), every gradient
+    (``grad_tol``) and the parameters after one Adam step compared (the
+    use_time paths on a model of their own and the batch's per-ray times).
+    Returns the report and each path's kernel run."""
     import copy
 
     import torch
@@ -1733,9 +2169,8 @@ def phase_step(cfg, model, device):
     table0 = torch.randn(n_img, cfg.appearance_dim, generator=g, device=device)
     times = torch.rand(n, 1, generator=g, device=device)
     names = [nm for nm, _ in model.named_parameters()] + ["appearance"]
-    tol = fr.PLAIN_TOL
-    report, failures, kernel_runs = {}, [], {}
-    for path, (over, per_step) in PATHS.items():
+    report, kernel_runs = {}, {}
+    for path, (over, per_step) in paths.items():
         pcfg = cfg.replace(**over)
         pdraws = draws if pcfg.num_importance > 0 else draws[:1]
         base, pbatch = model, batch
@@ -1765,25 +2200,43 @@ def phase_step(cfg, model, device):
             failures.append(f"{path}: kernel step launches {k['launches']}")
         if any(p["launches"].values()):
             failures.append(f"{path}: plain step launched kernels {p['launches']}")
-        loss_tol = tol["loss_k9" if pcfg.use_hier_onepass else "loss"]
-        report[path] = {**step_diff(path, k, p, names, pcfg, loss_tol, failures),
+        report[path] = {**step_diff(path, k, p, names, pcfg, loss_tol(pcfg), failures,
+                                    grad_tol),
                         "launches": k["launches"]}
+    return report, kernel_runs, names
+
+
+def phase_step(cfg, model, device):
+    """One training step at B = 1024 on each training path (64 + 64; coarse
+    only; 64 + 64 on a white background; 64 + 64 per sample, K1/K8; 64 + 64
+    with use_time, the has_time K2/K5/K6/K3 on a model of its own and the
+    batch's per-ray times; 64 + 64 in one kernel, use_hier_onepass, K9),
+    through the kernels and through their plain versions (step_runs).  The
+    K9 step is also held against the 64 + 64 step through K2, K4 and K3 on
+    the same draws."""
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    tol = fr.PLAIN_TOL
+    failures = []
+    report, kernel_runs, names = step_runs(
+        cfg, model, device, PATHS,
+        lambda c: tol["loss_k9" if c.use_hier_onepass else "loss"], tol["grad_rel"], failures)
     # one kernel (K9) against three (K2, K4, K3), the same step and draws
     report["hier_onepass"]["vs_two_kernel_step"] = step_diff(
         "hier_onepass vs hier", kernel_runs["hier_onepass"], kernel_runs["hier"], names, cfg,
         tol["loss_k9"], failures)
-    emit({"phase": "step", "rays": n, **report, "failures": failures})
+    emit({"phase": "step", "rays": cfg.batch_size, **report, "failures": failures})
     if failures:
         raise AssertionError("kernel step disagrees with the plain step: " + "; ".join(failures))
 
 
-def step_diff(what, k, p, names, cfg, loss_tol, failures):
+def step_diff(what, k, p, names, cfg, loss_tol, failures, grad_tol=None):
     """Two runs of one step (loss, aux, gradients, parameter updates), the
-    loss held to ``loss_tol``, the gradients to PLAIN_TOL's grad_rel; what
-    is over goes to ``failures``."""
+    loss held to ``loss_tol``, the gradients to ``grad_tol`` (PLAIN_TOL's
+    grad_rel by default); what is over goes to ``failures``."""
     from danerf_tpu_torch.kernels import fused_render as fr
 
-    tol = fr.PLAIN_TOL
+    grad_tol = fr.PLAIN_TOL["grad_rel"] if grad_tol is None else grad_tol
     grad_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
                 zip(names, k["grads"], p["grads"]) if float(b.norm()) > 0}
     upd_rel = {nm: float((a - b).norm() / b.norm()) for nm, a, b in
@@ -1793,8 +2246,8 @@ def step_diff(what, k, p, names, cfg, loss_tol, failures):
     if not math.isfinite(loss_err) or loss_err > loss_tol:
         failures.append(f"{what}: loss: {loss_err} > {loss_tol}")
     worst = max(grad_rel, key=grad_rel.get)
-    if not math.isfinite(grad_rel[worst]) or grad_rel[worst] > tol["grad_rel"]:
-        failures.append(f"{what}: grad {worst}: {grad_rel[worst]} > {tol['grad_rel']}")
+    if not math.isfinite(grad_rel[worst]) or grad_rel[worst] > grad_tol:
+        failures.append(f"{what}: grad {worst}: {grad_rel[worst]} > {grad_tol}")
     # Adam's first step moves each element by at most lr, so the two runs'
     # parameters differ by at most 2 lr, reached where a gradient element
     # near 0 changes sign between them
@@ -2021,16 +2474,17 @@ def phase_render(cfg, model, out_dir):
 
 
 TRAIN_FLAGS = {"hier": [], "coarse": ["--num_importance", "0"], "white": ["--white_background"],
-               "per_sample": [], "time": ["--use_time"], "hier_onepass": [],
+               "per_sample": [], "time": ["--use_time"], "hier_onepass": [], "hier_f32": [],
                # data-parallel 64 + 64 over every rank of a torchrun group
                "hier_dp": ["--coordinator_address", "auto", "--mesh_data", "0"]}
 # The routes with no CLI flag (nor has the JAX CLI one), trained through train()
-API_PATHS = ("per_sample", "hier_onepass")
+API_PATHS = ("per_sample", "hier_onepass", "hier_f32")
 
 
 def train_api(argv, over):
     """A route's entry point where it has no CLI flag (the per-sample route,
-    use_fused_train=False; the one-kernel step, use_hier_onepass=True):
+    use_fused_train=False; the one-kernel step, use_hier_onepass=True; the
+    f32 configuration, use_bf16=False):
     ``train(cfg.replace(**over), dataset)``, the config and dataset built as
     `cli.main train` builds them from ``argv``'s flags."""
     from danerf_tpu_torch.cli.main import _train_config, build_parser
@@ -2083,18 +2537,21 @@ def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
         fr.reset_launch_counts()
         t0 = time.perf_counter()
         if path in API_PATHS:
-            train_api([*argv, "--iters", str(n), *flags], PATHS[kind][0])
+            train_api([*argv, "--iters", str(n), *flags], over)
         else:
             cli_main([*argv, "--iters", str(n), *flags])
         torch.cuda.synchronize()
         return time.perf_counter() - t0, dict(fr.LAUNCHES)
 
+    over, per_step = ALL_PATHS[kind]
+
     def val_renders(first, last):
         n = sum(1 for s in range(first + 1, last + 1) if every and s % every == 0)
-        return {"march": n, "merged": n if PATHS[kind][0].get("num_importance", 1) else 0}
+        f32 = "" if over.get("use_bf16", True) else "_f32"
+        return {f"march{f32}": n, f"merged{f32}": n if over.get("num_importance", 1) else 0}
 
     secs, counts = run(iters)
-    want = launches_of(PATHS[kind][1], iters)
+    want = launches_of(per_step, iters)
     for k, v in val_renders(0, iters).items():
         want[k] += v
     if counts != want:
@@ -2124,7 +2581,7 @@ def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
     resumed = None
     if resume_to:
         r_secs, r_counts = run(resume_to, "--resume")
-        r_want = launches_of(PATHS[kind][1], resume_to - iters)
+        r_want = launches_of(per_step, resume_to - iters)
         for k, v in val_renders(iters, resume_to).items():
             r_want[k] += v
         if r_counts != r_want:
@@ -2240,11 +2697,16 @@ def phase_timing(cfg, model, device, chunk, frame_t=None):
 def kernel_part(name):
     """The part of a step a device kernel belongs to: the tile kernel of K3,
     K4, K6, K7, K8 or K9 (csrc/field_bwd_sm90.cuh), their dW pass (the
-    wgmma blocks, the narrow jobs, the reductions), or the rest."""
+    wgmma blocks, the narrow jobs, the reductions), the same two of the f32
+    K3, K4, K6, K7 (csrc/field_bwd_f32.cuh), or the rest."""
     if "bwd_tile90" in name or "hier_tile90" in name:
         return "bwd90_tile"
     if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
         return "bwd90_dw_pass"
+    if "bwd32_tile" in name:
+        return "bwd32_tile"
+    if any(k in name for k in ("dw32_", "sum_slots32")):
+        return "bwd32_dw_pass"
     return "rest"
 
 
@@ -3241,17 +3703,18 @@ def phase_dist_step(cfg, device, mesh, k=10):
     the coarse-only and the per-sample path, 10 chained sharded steps (one
     graph replay, the flat all-reduce captured with them) against 10
     chained make_train_step steps, bit for bit, with exactly the path's
-    launches; then on 64 + 64 both steps timed in turns (20 synchronised
+    launches, and one f32 (use_bf16=False) 64 + 64 sharded step against one
+    f32 make_train_step step; then on 64 + 64 both steps timed in turns (20 synchronised
     replays each, ms a step) and a torch.profiler window of 3 replays each
     (device busy, idle share): the difference is the all-reduce's cost."""
     import numpy as np
     import torch
 
     report, failures, steps = {}, [], {}
-    for path in ("hier", "coarse", "per_sample"):
-        over, per_step = PATHS[path]
+    for path, kk in (("hier", k), ("coarse", k), ("per_sample", k), ("hier_f32", 1)):
+        over, per_step = ALL_PATHS[path]
         pcfg = cfg.replace(**over)
-        report[path], *steps[path] = dp_vs_single(pcfg, timing_scene(pcfg), device, mesh, k,
+        report[path], *steps[path] = dp_vs_single(pcfg, timing_scene(pcfg), device, mesh, kk,
                                                   per_step)
         if report[path]["differences"] or report[path]["launches_wrong"]:
             failures.append(f"{path}: {report[path]}")
@@ -3704,6 +4167,11 @@ def main(argv=None):
     # serving path, timed before any profiler window
     errs_f32, f32_ratio = phase_f32_kernels(cfg, model, cfg_t, model_t, device)
     f32 = phase_f32_path(cfg, model, cfg_t, model_t, args.out, device)
+    # f32 training: the backward kernels K3, K4, K6, K7 in f32, then the
+    # training paths and evaluate's fit through them
+    errs_f32b, f32b_ratio, f32b_timing, f32b_bound_by = phase_f32_bwd(cfg, model, cfg_t,
+                                                                      model_t, device)
+    f32_train = phase_f32_train(cfg, model, args.out, device)
     phase_step(cfg, model, device)
     launches = phase_render(cfg, model, args.out)
     phase_chained(cfg, device, args.out)
@@ -3731,6 +4199,7 @@ def main(argv=None):
     tt, tt_bound_by = phase_train_timing(cfg, model, device, chunk)
     timing_t, bound_by_t = phase_timing(cfg_t, model_t, device, chunk_t, frame_t=0.5)
     tt_t, tt_bound_by_t = phase_train_timing(cfg_t, model_t, device, chunk_t)
+    phase_f32_step_timing(cfg, device, f32b_timing, tt)
     # data parallelism (parallel/mesh.py): 64 + 64 through `cli.main train
     # --coordinator_address auto --mesh_data 0` as torchrun runs one rank
     # (its NCCL group of one; one K2, K4, K3 a step and one K2, K5 for the
@@ -3889,6 +4358,37 @@ def main(argv=None):
                          "bound_ms": tm[f"{key}t{at}_bound_ms"],
                          "bound_by": f32["bound_by"][key + "t"],
                          "at": "131,072 rows" if key == "k1" else "65,536-ray chunk"}})
+    # the f32 variants (use_bf16=False) of K3, K4, K6 and K7: launches from
+    # the f32 train() run (K3, K4), the f32 evaluate fit (K6) and the f32
+    # coarse-only chained run (K7); the has_time variants' from the f32
+    # use_time step (K4 and K7: no route reaches them with time); times at
+    # B = 1024 and at 8,192 rays at FP32's bound
+    for name, key, source, line, counter, launches in (
+            ("K3 ray-march backward (want_field), f32", "k3", "march_bwd_f32.cu", 212,
+             "march_bwd_f32", f32_train["train"]),
+            ("K4 merged fine pass + MSE + backward, f32", "k4", "merged_train_f32.cu", 831,
+             "merged_train_f32", f32_train["train"]),
+            ("K6 merged-composite backward, f32", "k6", "merged_bwd_f32.cu", 779,
+             "merged_bwd_f32", f32_train["eval"]),
+            ("K7 coarse march + MSE + backward, f32", "k7", "march_train_f32.cu", 449,
+             "march_train_f32", f32_train["coarse_chained"])):
+        tm = f32b_timing
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"danerf_tpu_torch/kernels/csrc/{source}",
+            "replaces": f"danerf_tpu/kernels/fused_render.py:{line}",
+            "launches": launches[counter], "max_abs_err": errs_f32b[key.upper()],
+            "ms": tm[f"{key}_1024_ms"], "plain_ms": tm[f"{key}_1024_plain_ms"],
+            "bound_ms": tm[f"{key}_1024_bound_ms"], "bound_by": f32b_bound_by[key],
+            "library_ms": None, "config": "use_bf16=False", "at": "1024-ray batch",
+            "bf16_over_f32_error_ratio_worst": f32b_ratio,
+            "at_8192_rays": {"ms": tm[f"{key}_8192_ms"], "plain_ms": tm[f"{key}_8192_plain_ms"],
+                             "bound_ms": tm[f"{key}_8192_bound_ms"]},
+            "variants_held": ["without time", "has_time"],
+            "has_time": {"launches": f32_train["time_step"][counter],
+                         "max_abs_err": errs_f32b[key.upper() + "t"],
+                         "ms": tm[f"{key}t_1024_ms"], "plain_ms": tm[f"{key}t_1024_plain_ms"],
+                         "bound_ms": tm[f"{key}t_1024_bound_ms"],
+                         "bound_by": f32b_bound_by[key + "t"], "at": "1024-ray batch"}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "danerf_tpu_torch"
 SOURCES = ("march", "merged", "march_bwd", "merged_train", "march_train", "merged_bwd",
-           "mlp_fwd", "mlp_bwd", "hier_onepass", "march_f32", "merged_f32", "mlp_fwd_f32")
+           "mlp_fwd", "mlp_bwd", "hier_onepass", "march_f32", "merged_f32", "mlp_fwd_f32",
+           "march_bwd_f32", "merged_train_f32", "march_train_f32", "merged_bwd_f32")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -32,7 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # K1 (mlp_fwd) takes its scratch and its size before the stream.  The f32
 # variants of K2, K5 and K1 take their bf16 kernels' arguments, the weights
 # transposed in f32 in place of the packed bf16 ones, and K1's none of its
-# scratch.
+# scratch; those of K3, K4, K6 and K7 take their bf16 kernels' arguments
+# (fused_mlp.bwd_weights: the weights each reads).
 _BWD_TAIL = [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P]
 _SIGNATURES = {
     "march": ("danerf_march", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
@@ -49,10 +51,15 @@ _SIGNATURES = {
     "merged_f32": ("danerf_merged_f32", [_P] * 7 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _I, _P]),
     "mlp_fwd_f32": ("danerf_mlp_fwd_f32", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
 }
+for _name in ("march_bwd", "merged_train", "march_train", "merged_bwd"):
+    _SIGNATURES[f"{_name}_f32"] = (f"danerf_{_name}_f32", _SIGNATURES[_name][1])
 # The scratch size of a backward library, (meta, n_meta, R, s, n_vecs) ->
 # bytes: danerf_bwd_scratch_bytes for one row set a tile (K3/K4/K6/K7/K8,
-# field_bwd_sm90.cuh's layout), K9's own for its two.
-SCRATCH_FN = {"hier_onepass": "danerf_hier_onepass_scratch_bytes"}
+# field_bwd_sm90.cuh's layout), K9's own for its two, the f32 K3/K4/K6/K7's
+# their f32 stash (field_bwd_f32.cuh).
+SCRATCH_FN = {"hier_onepass": "danerf_hier_onepass_scratch_bytes",
+              **{f"{n}_f32": "danerf_bwd_f32_scratch_bytes"
+                 for n in ("march_bwd", "merged_train", "march_train", "merged_bwd")}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

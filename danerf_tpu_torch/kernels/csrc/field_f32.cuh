@@ -4,7 +4,9 @@
 // danerf_tpu/kernels/fused_mlp.py _field_from_enc with cdt = float32, as
 // _render_kernel, _merged_kernel and _fwd_kernel run it when cfg.use_bf16
 // is off.  The argument record, its parsing, the encoder (encode_cols), the
-// merge and the composite come from field.cuh.
+// merge and the composite come from field.cuh.  The f32 backward tile
+// (field_bwd_f32.cuh) runs the same block with a stash hook (field_block's
+// Stash) and its transposed chain on the same FFMA slice (ffma_slice).
 //
 // Numerics: the JAX f32 configuration's.  Encodings, activations, the
 // appearance term and every product are f32; every product is an f32
@@ -162,6 +164,27 @@ struct Stream {
   }
 };
 
+// acc += one K slice's products for the thread's 8 rows and NJ columns
+// (lane + 32 j): A column-major at a (the thread's rows, pitch AP), the
+// slice's kw rows of B at b (the lane's column, pitch 32 NJ).
+template <int NJ>
+__device__ __forceinline__ void ffma_slice(float (&acc)[8][NJ], const float* a, const float* b,
+                                           int kw) {
+#pragma unroll 4
+  for (int k = 0; k < kw; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + k * AP);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + k * AP + 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float bv[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) bv[j] = b[k * 32 * NJ + 32 * j];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
+  }
+}
+
 // acc (+)= A @ W_m^T for the thread's 8 rows and NJ columns (lane + 32 j)
 // over matrix m's slices: wait for a slice, one barrier (it has landed for
 // every thread, and every thread is done with the other stage), start the
@@ -176,22 +199,7 @@ __device__ __forceinline__ void mma_mat(float (&acc)[8][NJ], Stream& st, int m) 
     cp_async_wait_all();
     __syncthreads();
     st.load();
-    const float* a = a_of(P, st.sm, m, k0) + w8;
-    const float* b = st.sm.w[stage] + lane;
-    const int kw = min(KSF, K - k0);
-#pragma unroll 4
-    for (int k = 0; k < kw; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(a + k * AP);
-      const float4 a1 = *reinterpret_cast<const float4*>(a + k * AP + 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float bv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) bv[j] = b[k * 32 * NJ + 32 * j];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
-    }
+    ffma_slice<NJ>(acc, a_of(P, st.sm, m, k0) + w8, st.sm.w[stage] + lane, min(KSF, K - k0));
   }
 }
 
@@ -203,13 +211,26 @@ struct F32Sink {
   __device__ __forceinline__ void d(int row, int col, float v) { ds[col * AP + row] = v; }
 };
 
+// What the forward keeps for a backward pass: nothing (the forward kernels);
+// field_bwd_f32.cuh's StashRes keeps each trunk layer's output, sigma_pre,
+// relu(hdir_pre) and happ.  trunk: the thread's 8 rows (w8..) of trunk layer
+// m's output column c; sigma_pre: row's; head: relu(hdir_pre) and happ of
+// row, column c.
+struct NoStash {
+  __device__ __forceinline__ void trunk(int, int, int, const float (&)[8]) const {}
+  __device__ __forceinline__ void sigma_pre(int, float) const {}
+  __device__ __forceinline__ void head(int, int, float, float) const {}
+};
+
 // The field of one block of MB rows.  enc(sm) fills sm.encx, sm.encd and
 // sm.emb for the block's rows (every thread calls it); the rows' rgb and
-// sigma go to rgb_out[r * 3 + k], sig_out[r] for r < MB.  The first slice
-// streams in while the block encodes.
-template <class Enc>
+// sigma go to rgb_out[r * 3 + k], sig_out[r] for r < MB; stash keeps the
+// residuals a backward pass needs.  The first slice streams in while the
+// block encodes.
+template <class Enc, class Stash = NoStash>
 __device__ __forceinline__ void field_block(const FieldArgs& P, const float* wt, Smem& sm,
-                                            const Enc& enc, float* rgb_out, float* sig_out) {
+                                            const Enc& enc, float* rgb_out, float* sig_out,
+                                            const Stash& stash = Stash()) {
   const int w8 = (threadIdx.x >> 5) * 8, lane = threadIdx.x & 31;
   const int L = P.num_layers;
   __syncthreads();  // every thread is done with the last block's buffers
@@ -235,6 +256,7 @@ __device__ __forceinline__ void field_block(const FieldArgs& P, const float* wt,
       float h[8];
 #pragma unroll
       for (int r = 0; r < 8; ++r) h[r] = fmaxf(acc[r][j] + b, 0.f);
+      stash.trunk(m, c, w8, h);
       *reinterpret_cast<float4*>(sm.act + c * AP + w8) = make_float4(h[0], h[1], h[2], h[3]);
       *reinterpret_cast<float4*>(sm.act + c * AP + w8 + 4) = make_float4(h[4], h[5], h[6], h[7]);
       if (m == L - 1) {
@@ -248,8 +270,10 @@ __device__ __forceinline__ void field_block(const FieldArgs& P, const float* wt,
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const float v = warp_sum(dsum[r]) + bd;
-    if (lane == 0)
+    if (lane == 0) {
       sig_out[w8 + r] = P.softplus ? fmaxf(v, 0.f) + log1pf(expf(-fabsf(v))) : fmaxf(v, 0.f);
+      stash.sigma_pre(w8 + r, v);
+    }
   }
 
   // dir branch and rgb head: happ = (relu([h, enc_d] @ Wdir^T + bdir) +
@@ -273,7 +297,9 @@ __device__ __forceinline__ void field_block(const FieldArgs& P, const float* wt,
                 w2 = __ldg(wrgb + c * 3 + 2);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      const float happ = (fmaxf(hd[r][j] + bdir, 0.f) + ha[r][j]) + bapp;
+      const float hdir = fmaxf(hd[r][j] + bdir, 0.f);
+      const float happ = (hdir + ha[r][j]) + bapp;
+      stash.head(w8 + r, c, hdir, happ);
       cs[r][0] = fmaf(happ, w0, cs[r][0]);
       cs[r][1] = fmaf(happ, w1, cs[r][1]);
       cs[r][2] = fmaf(happ, w2, cs[r][2]);
@@ -344,18 +370,19 @@ __device__ __forceinline__ void field_rays(const FieldArgs& P, const float* wt, 
 // ------------------------------------------------------------------ host
 
 // Host set-up shared by the f32 kernels: the kernel's shared memory limit
-// and the grid (the blocks that fit on the card at once, at most one a
-// tile).
+// (smem bytes a block) and the grid (the blocks that fit on the card at
+// once, at most one a tile).
 template <class Kernel>
-inline int launch_setup(Kernel kernel, long long n_tiles, unsigned* grid) {
+inline int launch_setup(Kernel kernel, long long n_tiles, unsigned* grid,
+                        size_t smem = SMEM_BYTES) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_BYTES);
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, n_sm = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM_BYTES);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
   if (e != cudaSuccess) return (int)e;
   const long long most = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
   *grid = (unsigned)(n_tiles < most ? n_tiles : most);

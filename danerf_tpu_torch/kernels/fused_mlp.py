@@ -27,7 +27,11 @@ Both configurations of the JAX kernels: bf16 (``use_bf16``, the default)
 and f32.  The forward kernels K1, K2 and K5 take f32 through variants of
 their own on ``csrc/field_f32.cuh`` (``mlp_fwd_f32.cu``, ``march_f32.cu``,
 ``merged_f32.cu``), which read the weights transposed
-(``PackedParams.mats_kn``); the backward kernels refuse it
+(``PackedParams.mats_kn``, ``fwd_weights``); the backward kernels K3, K4, K6
+and K7 through theirs on ``csrc/field_bwd_f32.cuh`` (``march_bwd_f32.cu``,
+``merged_train_f32.cu``, ``merged_bwd_f32.cu``, ``march_train_f32.cu``),
+which read them transposed for the forward and as packed, (out, K) f32, for
+the transposed chain (``bwd_weights``).  K8 and K9 refuse f32
 (``_check_bwd_cfg``).
 
 The encoding here is the kernels' form, ``y = 2^i o + z (2^i d)`` then
@@ -56,7 +60,8 @@ _HALF_PI = torch.tensor(math.pi / 2, dtype=torch.float32).item()  # f32-rounded
 
 LAUNCHES = {"march": 0, "merged": 0, "march_bwd": 0, "merged_train": 0,
             "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0, "hier_onepass": 0,
-            "march_f32": 0, "merged_f32": 0, "mlp_fwd_f32": 0}
+            "march_f32": 0, "merged_f32": 0, "mlp_fwd_f32": 0, "march_bwd_f32": 0,
+            "merged_train_f32": 0, "march_train_f32": 0, "merged_bwd_f32": 0}
 
 # The s_tile of a backward call whose tiles hold 128 independent rows (K8;
 # csrc/field_bwd.cuh ROW_TILES), not rays of s samples.
@@ -421,13 +426,17 @@ def module_params(model):
 
 # ---------------------------------------------------------------- launching
 
-def _check_bwd_cfg(cfg: NeRFConfig) -> None:
-    """The backward kernels (K3, K4, K6-K9) take only bf16 (``use_bf16``);
-    the forward kernels (K1, K2, K5) take both configurations."""
-    if not cfg.use_bf16:
+# The backward kernels without an f32 variant: K8 and K9.
+_BF16_ONLY = {"mlp_bwd": "K8", "hier_onepass": "K9"}
+
+
+def _check_bwd_cfg(cfg: NeRFConfig, name: str) -> None:
+    """Backward kernel ``name`` takes ``cfg``: K3, K4, K6 and K7 take both
+    configurations, K8 (``mlp_bwd``) and K9 (``hier_onepass``) only bf16."""
+    if not cfg.use_bf16 and name in _BF16_ONLY:
         raise NotImplementedError(
-            "use_bf16=False is not yet ported to the backward CUDA kernels (K3, K4, K6-K9): "
-            "their f32 tile is the next item of ROADMAP.md section 2 (the f32 backward tile)")
+            f"use_bf16=False is not yet ported to {_BF16_ONLY[name]} ({name}.cu): its f32 "
+            "tile is the first item of ROADMAP.md section 2 (the f32 K8 and K9)")
 
 
 def _check_time(cfg: NeRFConfig, t) -> None:
@@ -484,6 +493,21 @@ def fwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
     return f"{name}_f32", packed.mats_kn
 
 
+def bwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
+    """(library name, weights, chain weights, their offsets) of backward
+    kernel ``name``: the bf16 kernel on the packed weights and their
+    transposed hidden blocks (``transposed_mats``), or without ``use_bf16``
+    its f32 variant on the weights transposed (``mats_kn``, the forward's)
+    and as packed, W (out, K) f32, whose rows are the B operand of the
+    transposed chain; the offsets are then each block's own (-1 for layer
+    0, the trunk layers 1.., the dir layer, the appearance projection)."""
+    if cfg.use_bf16:
+        return (name, packed.mats, *transposed_mats(packed, cfg))
+    offs = ((-1,) + tuple(packed.mat_at[f"w{i}"][0] for i in range(1, packed.num_layers))
+            + (packed.mat_at["wdir"][0], packed.mat_at["wapp"][0]))
+    return f"{name}_f32", packed.mats_kn, packed.mats, offs
+
+
 def _arg(x):
     """A C argument: a tensor's pointer, None (a null pointer) or an int."""
     return x.data_ptr() if isinstance(x, torch.Tensor) else x
@@ -497,18 +521,19 @@ def _route(x) -> str:
 
 def _launch_bwd(name: str, packed: PackedParams, cfg: NeRFConfig, r: int, s_tile: int,
                 inputs, outputs) -> PackedGrads:
-    """Launch backward kernel ``name`` on the current stream, whose C entry
-    takes ``inputs``, the zeroed gradient buffers, ``outputs``, and then
-    what every backward entry takes: the weights and their layout records,
-    the transposed weights, and the scratch that holds the residuals of one
-    pass (sized by the library for r rays of s_tile samples a tile row, or
-    r rows for s_tile = ROW_TILES; K9: both of its row sets, s_tile =
+    """Launch backward kernel ``name`` (its f32 variant without
+    ``cfg.use_bf16``) on the current stream, whose C entry takes
+    ``inputs``, the zeroed gradient buffers, ``outputs``, and then what every
+    backward entry takes: the weights and their layout records, the chain's
+    weights (``bwd_weights``), and the scratch that holds the residuals of
+    one pass (sized by the library for r rays of s_tile samples a tile row,
+    or r rows for s_tile = ROW_TILES; K9: both of its row sets, s_tile =
     max(Sc, Sf)).  Returns the gradients (PackedGrads, summed over the
     rays)."""
     dev = packed.device
+    name, mats, mats_t, offs_t = bwd_weights(packed, cfg, name)
     lib = _build.load(name)
     meta, n_meta = _meta(packed, cfg)
-    mats_t, offs_t = transposed_mats(packed, cfg)
     meta_t = (ctypes.c_longlong * len(offs_t))(*offs_t)
     n_vecs = packed.vecs.numel()
     size_fn = getattr(lib, _build.SCRATCH_FN.get(name, "danerf_bwd_scratch_bytes"))
@@ -519,7 +544,7 @@ def _launch_bwd(name: str, packed: PackedParams, cfg: NeRFConfig, r: int, s_tile
     grads = PackedGrads.zeros(packed)
     code = getattr(lib, f"danerf_{name}")(
         *(_arg(x) for x in inputs), grads.mats.data_ptr(), grads.vecs.data_ptr(),
-        *(_arg(x) for x in outputs), packed.mats.data_ptr(), packed.vecs.data_ptr(), meta,
+        *(_arg(x) for x in outputs), mats.data_ptr(), packed.vecs.data_ptr(), meta,
         n_meta, mats_t.data_ptr(), meta_t, len(offs_t), scratch.data_ptr(), scratch.numel(),
         n_vecs, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, name)
@@ -603,7 +628,7 @@ def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, t=None):
 
 def fused_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_sigma, t=None):
     """Launch K8 on the current stream; outputs as fused_bwd_plain's."""
-    _check_bwd_cfg(cfg)
+    _check_bwd_cfg(cfg, "mlp_bwd")
     dev = x.device
     _check_packed(packed, dev, cfg)
     e = cfg.appearance_dim

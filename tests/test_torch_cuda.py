@@ -20,7 +20,9 @@ chip_smoke.py holds the kernels to (the comment there gives their reasons);
 gradients are compared by relative Frobenius error per parameter.  The f32
 variants of K2, K5 and K1 (``use_bf16=False``) are held to
 ``fused_render.PLAIN_TOL_F32`` against their plain versions with TF32 off
-(the ``dev`` fixture turns it off); the backward kernels refuse f32.  The
+(the ``dev`` fixture turns it off), those of K3, K4, K6 and K7 to
+``fused_render.PLAIN_TOL_F32_BWD`` and at least 16x below the bf16 kernel's
+error against the same f32 outputs; K8 and K9 refuse f32.  The
 native bridge's fx fallback on the card is held to its CPU run within
 ``fx.effects.levels_apart``.
 """
@@ -154,7 +156,8 @@ def test_kernel_route_counts_launches(dev):
     assert fr.LAUNCHES == {"march": 3, "merged": 3, "march_bwd": 0, "merged_train": 0,
                            "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
                            "hier_onepass": 0, "march_f32": 0, "merged_f32": 0,
-                           "mlp_fwd_f32": 0}
+                           "mlp_fwd_f32": 0, "march_bwd_f32": 0, "merged_train_f32": 0,
+                           "march_train_f32": 0, "merged_bwd_f32": 0}
     assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
 
 
@@ -761,7 +764,11 @@ _PATHS = {"hier": ({}, {"march": 1, "march_bwd": 1, "merged_train": 1}),
           "per_sample": ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2}),
           "use_time": ({"use_time": True},
                        {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
-          "hier_onepass": ({"use_hier_onepass": True}, {"hier_onepass": 1})}
+          "hier_onepass": ({"use_hier_onepass": True}, {"hier_onepass": 1}),
+          "hier_f32": ({"use_bf16": False},
+                       {"march_f32": 1, "march_bwd_f32": 1, "merged_train_f32": 1}),
+          "coarse_only_f32": ({"use_bf16": False, "num_importance": 0},
+                              {"march_train_f32": 1})}
 
 
 def _chain_scene(cfg):
@@ -1197,32 +1204,188 @@ def test_f32_frame_launches_only_f32_kernels(dev):
     assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
 
 
-def test_backward_kernels_refuse_f32(dev):
-    """K3, K4, K6, K7, K8 and K9 take bf16 only: in f32 each refuses before
-    it launches, naming the f32 backward tile; weights packed in the other
-    dtype than the config's are refused too."""
+TOL32B = fr.PLAIN_TOL_F32_BWD
+F32_GAIN = 16.0   # as chip_smoke.py: the bf16 kernel's error over the f32 kernel's, at least
+
+
+def _cpu_plain(fn, model, c32, *args, **kw):
+    """The plain version ``fn`` on the CPU (another f32 summation order) on
+    CPU copies of the inputs, its outputs back on the card."""
+    dev = next(model.parameters()).device
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    def back(x):
+        if isinstance(x, fm.PackedGrads):
+            return fm.PackedGrads(x.mats.to(dev), x.vecs.to(dev), x.packed)
+        if isinstance(x, tuple):
+            return tuple(back(v) for v in x)
+        return x.to(dev)
+
+    return back(fn(pack_params(model, c32, device="cpu"), c32, *(cpu(a) for a in args),
+                   **{k: cpu(v) for k, v in kw.items()}))
+
+
+def _held32(model, got, again, got16, want, keys, want_cpu):
+    """An f32 backward kernel's (grads, *outputs in ``keys``) against its f32
+    plain version within PLAIN_TOL_F32_BWD, bit for bit over two calls;
+    its worst error (grad_rel, demb) at least F32_GAIN below the bf16
+    kernel's against the same plain outputs.  A relu gate on an f32
+    rounding boundary can flip between two f32 evaluations: where the
+    gradients are off the card's plain version by more than the limit, the
+    kernel is held to the plain version on the CPU (``want_cpu()``)."""
+    def rel(a, b):
+        return max(fr.grad_rel_errors(a, b, model).values())
+
+    g32 = rel(got[0], want[0])
+    if g32 > TOL32B["grad_rel"]:
+        want = want_cpu()
+        g32 = rel(got[0], want[0])
+    g16 = rel(got16[0], want[0])
+    assert g32 <= TOL32B["grad_rel"], g32
+    worst32, worst16 = [g32], [g16]
+    for key, a, a16, w in zip(keys, got[1:], got16[1:], want[1:]):
+        err = float((a - w).abs().max())
+        assert err <= TOL32B[key], f"{key}: {err}"
+        if key.startswith("demb"):
+            worst32.append(err)
+            worst16.append(float((a16 - w).abs().max()))
+    assert max(worst16) >= F32_GAIN * max(worst32), (worst16, worst32)
+    for a, b in zip(got, again):
+        assert torch.equal(getattr(a, "mats", a), getattr(b, "mats", b))
+        assert torch.equal(getattr(a, "vecs", a), getattr(b, "vecs", b))
+
+
+def _packs32(cfg, model):
+    c32 = cfg.replace(use_bf16=False)
+    return c32, pack_params(model, c32), pack_params(model, cfg)
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("cot", ["field", "no_field"])
+@pytest.mark.parametrize("s", [32, 48, 64, 100, 128])
+def test_march_bwd_f32_kernel_matches_plain(dev, s, cot, use_time):
+    """K3's f32 variant (csrc/march_bwd_f32.cu on field_bwd_f32.cuh) at 37
+    rays of 1 to 4 a 128-row tile, with and without g_field."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, s, 120 + s, use_time)
+    c32, pk, pk16 = _packs32(cfg, model)
+    *cots, g_field = _cotangents(g, 37, s, dev)
+    cots = (*cots, g_field if cot == "field" else None)
+
+    def k3(p, c):
+        return fr.march_bwd_cuda(p, c, o, d, emb, z, *cots, t=t)
+    _held32(model, k3(pk, c32), k3(pk, c32), k3(pk16, cfg),
+            fr.march_bwd_plain(pk, c32, o, d, emb, z, *cots, t=t), ["demb"],
+            lambda: _cpu_plain(fr.march_bwd_plain, model, c32, o, d, emb, z, *cots, t=t))
+
+
+def test_march_bwd_f32_kernel_null_cotangents_give_zeros(dev):
+    cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
+    c32, pk, _ = _packs32(cfg, model)
+    gk, dk = fr.march_bwd_cuda(pk, c32, o, d, emb, z, None, None, None, None)
+    assert not gk.mats.any() and not gk.vecs.any() and not dk.any()
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("s", [32, 48, 64, 100, 128])
+def test_march_train_f32_kernel_matches_plain(dev, s, use_time):
+    """K7's f32 variant at 37 rays, seeded targets."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, s, 140 + s, use_time)
+    c32, pk, pk16 = _packs32(cfg, model)
+    target = torch.rand(37, 3, generator=g, device=dev)
+
+    def k7(p, c):
+        lk, gk, dk = fr.march_train_cuda(p, c, o, d, emb, z, target, t)
+        return gk, lk, dk
+    def plain(out):
+        lp, gp, dp = out
+        return gp, lp, dp
+    _held32(model, k7(pk, c32), k7(pk, c32), k7(pk16, cfg),
+            plain(fr.march_train_plain(pk, c32, o, d, emb, z, target, t)), ["loss", "demb_k4"],
+            lambda: plain(_cpu_plain(fr.march_train_plain, model, c32, o, d, emb, z, target,
+                                     t)))
+
+
+def _merged32(dev, sc, sf, seed, use_time):
+    """37 rays of sc coarse depths with the f32 plain coarse field and sf
+    fine depths drawn from its weights."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, sc, seed, use_time)
+    c32, pk, pk16 = _packs32(cfg, model)
+    coarse = fr.march_plain(pk, c32, o, d, emb, z, t, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+    return cfg, model, c32, pk, pk16, (o, d, emb, z, coarse["field"], z_f), t, g
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (64, 48), (128, 128)])
+def test_merged_train_f32_kernel_matches_plain(dev, sc, sf, use_time):
+    """K4's f32 variant at 37 rays at each merged shape, seeded targets."""
+    cfg, model, c32, pk, pk16, args, t, g = _merged32(dev, sc, sf, 160 + sf, use_time)
+    target = torch.rand(37, 3, generator=g, device=dev)
+
+    def k4(p, c):
+        lk, gk, dk, fk = fr.merged_train_cuda(p, c, *args, target, t)
+        return gk, lk, dk, fk
+    def plain(out):
+        lp, gp, dp, fp = out
+        return gp, lp, dp, fp
+    _held32(model, k4(pk, c32), k4(pk, c32), k4(pk16, cfg),
+            plain(fr.merged_train_plain(pk, c32, *args, target, t)),
+            ["loss", "demb_k4", "g_field"],
+            lambda: plain(_cpu_plain(fr.merged_train_plain, model, c32, *args, target, t)))
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("cot", ["all", "white"])
+@pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (64, 48), (128, 128)])
+def test_merged_bwd_f32_kernel_matches_plain(dev, sc, sf, cot, use_time):
+    """K6's f32 variant at 37 rays at each merged shape with a coarse/fine
+    tie, under every cotangent and the white-background pattern (g_rgb,
+    g_acc)."""
+    cfg, model, c32, pk, pk16, (o, d, emb, z, field, z_f), t, g = _merged32(
+        dev, sc, sf, 180 + sf, use_time)
+    z_f = z_f.clone()
+    z_f[:, 5] = z[:, 7]
+    z_f = torch.sort(z_f, dim=-1).values
+    c6 = _cotangents(g, 37, sc + sf, dev)[:4]
+    cots = c6 if cot == "all" else (c6[0], None, c6[2], None)
+
+    def k6(p, c):
+        return fr.merged_bwd_cuda(p, c, o, d, emb, z, field, z_f, *cots, t=t)
+    _held32(model, k6(pk, c32), k6(pk, c32), k6(pk16, cfg),
+            fr.merged_bwd_plain(pk, c32, o, d, emb, z, field, z_f, *cots, t=t),
+            ["demb", "g_field_k6"],
+            lambda: _cpu_plain(fr.merged_bwd_plain, model, c32, o, d, emb, z, field, z_f, *cots,
+                               t=t))
+
+
+def test_k8_k9_refuse_f32_and_packed_dtype_refusals(dev):
+    """K8 and K9 take bf16 only: in f32 each refuses before it launches,
+    naming the f32 K8 and K9 of ROADMAP.md; weights packed in the other
+    dtype than the config's are refused by every kernel."""
+    from danerf_tpu_torch.ops.sampling import importance_uniforms
+
     cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
     c32 = cfg.replace(use_bf16=False)
     pk = pack_params(model, c32)
     target = torch.rand(37, 3, generator=g, device=dev)
-    field = fr.march_plain(pk, c32, o, d, emb, z, want_field=True)["field"]
     zeros = torch.zeros(37, 3, device=dev)
-    calls = [lambda: fr.march_bwd_cuda(pk, c32, o, d, emb, z, zeros, None, None, None),
-             lambda: fr.march_train_cuda(pk, c32, o, d, emb, z, target),
-             lambda: fr.merged_train_cuda(pk, c32, o, d, emb, z, field, z, target),
-             lambda: fr.merged_bwd_cuda(pk, c32, o, d, emb, z, field, z, zeros, None, None,
-                                        None),
-             lambda: fm.fused_bwd_cuda(pk, c32, o, d, emb, zeros, zeros[:, :1]),
-             lambda: fr.hier_onepass_cuda(pk, c32, o, d, emb, z, z, target)]
+    u = importance_uniforms((37,), cfg.num_importance, True, device=dev)
     fr.reset_launch_counts()
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="f32 backward tile"):
-            call()
+    with pytest.raises(NotImplementedError, match="K8 .*the f32 K8 and K9"):
+        fm.fused_bwd_cuda(pk, c32, o, d, emb, zeros, zeros[:, :1])
+    with pytest.raises(NotImplementedError, match="K9 .*the f32 K8 and K9"):
+        fr.hier_onepass_cuda(pk, c32, o, d, emb, z, u, target)
     assert not any(fr.LAUNCHES.values())
     with pytest.raises(ValueError, match="packed params must be torch.float32"):
         fr.march_cuda(pack_params(model, cfg), c32, o, d, emb, z)
     with pytest.raises(ValueError, match="packed params must be torch.bfloat16"):
         fr.march_cuda(pk, cfg, o, d, emb, z)
+    with pytest.raises(ValueError, match="packed params must be torch.float32"):
+        fr.march_bwd_cuda(pack_params(model, cfg), c32, o, d, emb, z, zeros, None, None, None)
+    with pytest.raises(ValueError, match="packed params must be torch.bfloat16"):
+        fr.march_train_cuda(pk, cfg, o, d, emb, z, target)
 
 
 @pytest.mark.parametrize("shader", ["default.frag", "toon.frag", "fog.frag"])

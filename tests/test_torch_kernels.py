@@ -159,31 +159,52 @@ def test_kernel_route_is_inference_only():
 @pytest.mark.parametrize("use_bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
-    """The forward kernels (K1, K2, K5) take both configurations, each on
-    its own library and weights; the backward kernels refuse f32, naming
-    the f32 backward tile of ROADMAP.md."""
-    from danerf_tpu_torch.kernels.fused_mlp import _check_bwd_cfg, fwd_weights
+    """The forward kernels (K1, K2, K5) and the backward kernels K3, K4, K6
+    and K7 take both configurations, each on its own library and weights:
+    without use_bf16 the f32 backward kernels read the weights transposed
+    for the forward and as packed, (out, K) f32, for the transposed chain,
+    with each chain block's own offset.  K8 and K9 refuse f32, naming their
+    item of ROADMAP.md."""
+    from danerf_tpu_torch.kernels.fused_mlp import (_check_bwd_cfg, bwd_weights, fwd_weights,
+                                                    transposed_mats)
     from danerf_tpu_torch.models.nerf import NeRF
 
     cfg = NeRFConfig(**SMALL, use_bf16=use_bf16)
-    if backward and not use_bf16:
-        with pytest.raises(NotImplementedError, match="f32 backward tile"):
-            _check_bwd_cfg(cfg)
-    elif backward:
-        _check_bwd_cfg(cfg)
-    else:
-        torch.manual_seed(0)
-        packed = pack_params(NeRF(cfg), cfg)
+    torch.manual_seed(0)
+    packed = pack_params(NeRF(cfg), cfg)
+    if not backward:
         for name in ("march", "merged", "mlp_fwd"):
             lib, mats = fwd_weights(packed, cfg, name)
             assert lib == (name if use_bf16 else f"{name}_f32")
             assert mats is (packed.mats if use_bf16 else packed.mats_kn)
+        return
+    for name in ("march_bwd", "merged_train", "merged_bwd", "march_train"):
+        _check_bwd_cfg(cfg, name)
+        lib, mats, mats_t, offs = bwd_weights(packed, cfg, name)
+        assert lib == (name if use_bf16 else f"{name}_f32")
+        if use_bf16:
+            want_t, want_offs = transposed_mats(packed, cfg)
+            assert mats is packed.mats and torch.equal(mats_t, want_t) and offs == want_offs
+        else:
+            assert mats is packed.mats_kn and mats_t is packed.mats
+            assert mats_t.dtype == torch.float32
+            assert offs == (-1, *(packed.mat_at[f"w{i}"][0] for i in range(1, cfg.num_layers)),
+                            packed.mat_at["wdir"][0], packed.mat_at["wapp"][0])
+    for name, kern in (("mlp_bwd", "K8"), ("hier_onepass", "K9")):
+        if use_bf16:
+            _check_bwd_cfg(cfg, name)
+        else:
+            with pytest.raises(NotImplementedError, match=f"{kern} .*the f32 K8 and K9"):
+                _check_bwd_cfg(cfg, name)
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K4", "K6", "K7", "K8", "K9"])
-def test_backward_wrappers_refuse_f32_before_anything(kernel):
-    """Each backward kernel's wrapper refuses use_bf16=False first thing,
-    before it looks at the device or builds a kernel (here, on the CPU)."""
+def test_backward_wrappers_refuse_f32_before_anything(kernel, monkeypatch):
+    """With use_bf16=False, K8's and K9's wrappers refuse first thing, before
+    they look at the device or build a kernel (here, on the CPU), naming the
+    f32 K8 and K9 of ROADMAP.md; K3's, K4's, K6's and K7's go for their f32
+    library (the build is stopped here)."""
+    from danerf_tpu_torch.kernels import _build
     from danerf_tpu_torch.kernels import fused_mlp as fm
 
     _, cfg, _, model, o, d, emb, z, zf = _setup(False)
@@ -198,10 +219,28 @@ def test_backward_wrappers_refuse_f32_before_anything(kernel):
             "K7": lambda: fr.march_train_cuda(packed, cfg, o, d, emb, z, target),
             "K8": lambda: fm.fused_bwd_cuda(packed, cfg, o, d, emb, target, target[:, :1]),
             "K9": lambda: fr.hier_onepass_cuda(packed, cfg, o, d, emb, z, zf, target)}[kernel]
+    loaded = []
+
+    class Stop(Exception):
+        pass
+
+    def load(name):
+        loaded.append(name)
+        raise Stop(name)
+
+    monkeypatch.setattr(_build, "load", load)
     fr.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="use_bf16=False is not yet ported to the "
-                                                  "backward CUDA kernels"):
-        call()
+    if kernel in ("K8", "K9"):
+        with pytest.raises(NotImplementedError, match=f"use_bf16=False is not yet ported to "
+                                                      f"{kernel} .*the f32 K8 and K9"):
+            call()
+        assert loaded == []
+    else:
+        with pytest.raises(Stop):
+            call()
+        lib = {"K3": "march_bwd", "K4": "merged_train", "K6": "merged_bwd",
+               "K7": "march_train"}[kernel]
+        assert loaded == [f"{lib}_f32"]
     assert not any(fr.LAUNCHES.values())
 
 

@@ -77,13 +77,17 @@ def _assert_same_state(a, b):
     assert a["iteration"] == b["iteration"]
 
 
-@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "use_time"])
-def test_resume_equals_the_straight_run(tmp_path, use_time):
+@pytest.mark.parametrize("use_time,use_bf16", [(False, True), (True, True), (False, False),
+                                               (True, False)],
+                         ids=["no_time", "use_time", "f32_no_time", "f32_use_time"])
+def test_resume_equals_the_straight_run(tmp_path, use_time, use_bf16):
     """12 steps straight equal 8 steps, then resume=True to 12, bit for bit:
     the module, table, Adam's moments and counts, StepLR (its step size 5,
     so both runs cross two rate changes), the generator, and the rows of
-    steps 9-12; the resumed run's first row is step 9."""
-    cfg = NeRFConfig(**SMALL, use_time=use_time)
+    steps 9-12; the resumed run's first row is step 9.  In both kernel
+    configurations (use_bf16=False: the f32 plain versions of K2, K4, K3,
+    and of K5, K6 under use_time)."""
+    cfg = NeRFConfig(**SMALL, use_time=use_time, use_bf16=use_bf16)
     ds = _scene(use_time)
     straight, split = tmp_path / "straight", tmp_path / "split"
     _train(straight, ds, cfg, num_iterations=12, checkpoint_every=4)
@@ -102,12 +106,11 @@ def test_resume_equals_the_straight_run(tmp_path, use_time):
         assert torch.equal(v, a["model_state_dict"][k]), k
 
 
-def test_steps_per_call_gives_the_same_run(tmp_path):
+def _steps_per_call_runs(tmp_path, cfg):
     """steps_per_call 1, 3 and 10 over 23 steps with a checkpoint every 7
     (chunks never cross one, so 3 and 10 run short chunks singly): the same
     parameters, table and Adam state bit for bit, and the same rows, one a
     step."""
-    cfg = NeRFConfig(**SMALL)
     ds = _scene()
     runs = {}
     for k in (1, 3, 10):
@@ -122,6 +125,19 @@ def test_steps_per_call_gives_the_same_run(tmp_path):
         assert sorted(p.name for p in runs[k].glob("checkpoint_*.pt")) == [
             "checkpoint_000007.pt", "checkpoint_000014.pt", "checkpoint_000021.pt",
             "checkpoint_final.pt"]
+
+
+def test_steps_per_call_gives_the_same_run(tmp_path):
+    """_steps_per_call_runs on the default (bf16) configuration."""
+    _steps_per_call_runs(tmp_path, NeRFConfig(**SMALL))
+
+
+@pytest.mark.parametrize("over", [{}, {"num_importance": 0}],
+                         ids=["hier", "coarse_only"])
+def test_steps_per_call_gives_the_same_run_f32(tmp_path, over):
+    """_steps_per_call_runs with use_bf16=False (the f32 plain versions of
+    K2, K4, K3; coarse-only: of K7)."""
+    _steps_per_call_runs(tmp_path, NeRFConfig(**{**SMALL, **over}, use_bf16=False))
 
 
 def test_make_train_step_rows(tmp_path):
