@@ -11,8 +11,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             sm_90a, all sources at once); one line of each kernel's
             registers, shared memory and spills (-Xptxas -v; K1, K2 and K5
             with their dynamic shared memory; the tile and dW pass of K3,
-            K4, K6-K9 and of their f32 variants K3, K4, K6, K7 apart); the
-            full reports go to DIR/build.log.
+            K4, K6-K9 and of their f32 variants apart); the full reports go
+            to DIR/build.log.
 3. kernels  at full width (default NeRFConfig: 8x256, bf16) on seeded inputs,
             each kernel against its plain PyTorch version on the card,
             within fused_render.PLAIN_TOL, at 4093 rays (a ragged tile) and
@@ -91,18 +91,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             the white-background pattern); the has_time variants on the
             time model at 37 rays and B = 1024; two calls bit for bit;
             beside each the bf16 kernel's error against the same f32 plain
-            outputs, at least F32_GAIN times the f32 kernel's; K8 and K9 in
-            f32 refuse before any launch; the four's ms at B = 1024 (also
-            with time) and at 8,192 rays x 64 beside the FP32 bound and the
-            plain versions' ms.
+            outputs, at least F32_GAIN times the f32 kernel's; then K8
+            (csrc/mlp_bwd_f32.cu) at 37, 4,093, 65,536 and 131,072 rows and
+            K9 (csrc/hier_onepass_f32.cu) at Sc + Sf = 64 + 64, 64 + 16,
+            128 + 128, 48 + 32 and 32 + 64 at 37 rays and B = 1024, with
+            and without time, the same way (K9's gradients within
+            grad_rel_k9, its losses and demb within the tight keys); the
+            four's ms at B = 1024 (also with time) and at 8,192 rays x 64,
+            K1 and K8 at 65,536 and 131,072 rows and K9 at B = 1024 (also
+            with time) beside the FP32 bound and the plain versions' ms.
 4g. f32_train  f32 training through the library entry points (no CLI
             flag, as in the JAX CLI): one f32 step of 64 + 64, coarse-only,
-            white background and use_time at B = 1024 through the kernels
-            against the plain step (exactly the f32 launches, none of a bf16
-            kernel; the loss and gradients within PLAIN_TOL_F32_BWD's loss
-            and step_grad_rel, the parameters after one Adam step); 10
-            chained f32 steps against 10
-            eager ones bit for bit on 64 + 64 and coarse-only; train() for
+            white background, use_time, per sample (two f32 K1, two f32
+            K8) and in one kernel (one f32 K9) at B = 1024 through the
+            kernels against the plain step (exactly the f32 launches, none
+            of a bf16 kernel; the loss and gradients within
+            PLAIN_TOL_F32_BWD's loss and step_grad_rel, the parameters after
+            one Adam step); 10 chained f32 steps against 10 eager ones bit
+            for bit on 64 + 64, coarse-only, per sample and in one kernel;
+            train() for
             100 f32 steps of 64 + 64 (one f32 K2, K4, K3 a step, a rising
             PSNR, a checkpoint); evaluate() with the embedding fit on its
             checkpoint (2 100x100 views, each fit step an f32 K2, K5, K6,
@@ -229,9 +236,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             for use_time: the has_time K2/K5 on the chunk, K3-K7 and K9 at
             B = 1024 and K1/K8 at 131,072 rows with their plain versions, an
             800x800 medium frame at t = 0.5, and the use_time step,
-            profiled; then (f32_step_timing) the f32 64 + 64 step beside
-            the bf16 one, eager and chained, each with its profiler windows
-            (device busy, idle share).  K3, K4, K6 and K7 at the batch are
+            profiled; then (f32_step_timing) the f32 64 + 64, per-sample and
+            one-kernel steps beside the bf16 64 + 64 one, eager and chained,
+            each with its profiler windows (device busy, idle share).  K3, K4, K6 and K7 at the batch are
             also broken down
             by kernel (tile, dW pass) beside torch.matmul over the same dW
             products (dw_cublas_ms, a yardstick only), and each profiled
@@ -273,7 +280,9 @@ chunk's; the f32 variants of K2, K5 and K1 after the nine, with the
 launches of 4e's f32 frames and per-sample routes, the has_time variants'
 from the time model's; then those of K3, K4, K6 and K7, with the launches
 of 4g's f32 train() run (K3, K4), evaluate fit (K6) and coarse-only chained
-run (K7), the has_time variants' from its f32 use_time step); the last line
+run (K7), the has_time variants' from its f32 use_time step; then those of K8
+and K9, with the launches of 4g's f32 per-sample and one-kernel chained runs,
+their has_time variants held and timed but driven by no run); the last line
 is the ok record.  Exits non-zero,
 printing no result, when CUDA is unavailable.
 """
@@ -469,10 +478,13 @@ def phase_build(out_dir):
                               ("dw90_kernel", "dw_pass", lib.danerf_dw90_smem_bytes)):
             res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
     # their f32 variants (csrc/field_bwd_f32.cuh): the tile kernel (dynamic
-    # shared memory) and the dW pass (static) apart
-    for n in ("march_bwd_f32", "merged_train_f32", "merged_bwd_f32", "march_train_f32"):
-        res[n]["tile"] = {**function_resources(logs[n], "bwd32_tile"),
-                          "dynamic_smem": int(_build.load(n).danerf_bwd_tile_smem_bytes())}
+    # shared memory) and the dW pass (static) apart; K9's its own tile
+    for n in ("march_bwd_f32", "merged_train_f32", "merged_bwd_f32", "march_train_f32",
+              "mlp_bwd_f32", "hier_onepass_f32"):
+        lib = _build.load(n)
+        tile, smem = (("hier32_tile", lib.danerf_hier_tile_smem_bytes) if n == "hier_onepass_f32"
+                      else ("bwd32_tile", lib.danerf_bwd_tile_smem_bytes))
+        res[n]["tile"] = {**function_resources(logs[n], tile), "dynamic_smem": int(smem())}
         res[n]["dw_pass"] = function_resources(logs[n], "dw32_kernel")
     emit({"phase": "build", "seconds": secs, "built": sorted(logs), "resources": res})
 
@@ -1561,8 +1573,13 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
     cotangent null: exact zeros); K4 and K6 at Sc + Sf = 64 + 64, 64 + 16,
     64 + 48, 128 + 128 (K6 with a coarse/fine tie under every cotangent and
     the white-background pattern, g_rgb and g_acc); the has_time variants
-    on the time model at 37 rays and the batch (S = 64, 64 + 64).  Two
-    calls agree bit for bit.  Beside each, the bf16 kernel's error against
+    on the time model at 37 rays and the batch (S = 64, 64 + 64).  K8 at
+    37, 4,093, 65,536 and 131,072 rows and K9 at Sc + Sf = 64 + 64, 64 + 16,
+    128 + 128, 48 + 32 and 32 + 64 at 37 rays and the batch, both with and
+    without time: K9's gradients within grad_rel_k9 (it draws its
+    importance depths from its own f32 coarse weights), its two losses
+    within the loss key and its demb within demb_k4.  Two calls agree bit
+    for bit.  Beside each, the bf16 kernel's error against
     the same f32 plain outputs (each gradient's relative Frobenius error,
     and demb): the f32 kernel's must be at least F32_GAIN times smaller.
     Where the kernel's gradients are off the card's plain version by more
@@ -1571,9 +1588,10 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
     two plain runs' own are reported (a relu gate on an f32 rounding
     boundary flips between summation orders).
     Then CUDA-event times of the four at B = 1024 and at 8,192 rays x 64
-    beside their FP32 bound and their plain versions'; K8 and K9 in f32
-    refuse before any launch.  Returns (worst abs error of each kernel and
-    variant, the worst ratio, the times, their bound_by)."""
+    beside their FP32 bound and their plain versions'; of K1 and K8 at the
+    batch's 65,536 and 131,072 rows and of K9 at the batch (the has_time
+    variants at 131,072 rows and the batch).  Returns (worst abs error of
+    each kernel and variant, the worst ratio, the times, their bound_by)."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_mlp as fm
@@ -1591,18 +1609,20 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
         r = fr.grad_rel_errors(got, want, m)
         return max(r.values()) if r else 0.0
 
-    def held(name, m, got, again, got16, want, keys, want_cpu):
+    def held(name, m, got, again, got16, want, keys, want_cpu, grad_key="grad_rel"):
         """got/again/got16/want: (grads, *per-ray outputs) in ``keys``
-        order; the f32 kernel against want within tol (or, past it, against
-        want_cpu(), the plain version on the CPU), bit for bit against
-        again, its worst error F32_GAIN below the bf16 kernel's."""
+        order (each key a tolerance key, or (label, tolerance key)); the f32
+        kernel against want within tol (the gradients within
+        tol[grad_key]; past it, against want_cpu(), the plain version on
+        the CPU), bit for bit against again, its worst error F32_GAIN
+        below the bf16 kernel's."""
         nonlocal same
         torch.cuda.synchronize()
         same &= all(bool(torch.equal(getattr(a, "mats", a), getattr(b, "mats", b)))
                     and bool(torch.equal(getattr(a, "vecs", a), getattr(b, "vecs", b)))
                     for a, b in zip(got, again))
-        g32 = rel(got[0], want[0], m)
-        if g32 > tol["grad_rel"]:
+        g32, glim = rel(got[0], want[0], m), tol[grad_key]
+        if g32 > glim:
             w2 = want_cpu()
             referee[name] = {"card_plain": g32, "cpu_plain": rel(got[0], w2[0], m),
                              "plain_vs_plain": rel(w2[0], want[0], m)}
@@ -1610,15 +1630,16 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
             g32 = referee[name]["cpu_plain"]
         g16 = rel(got16[0], want[0], m)
         grad_rel[name], bf16[f"{name}.grad_rel"] = g32, g16
-        if not math.isfinite(g32) or g32 > tol["grad_rel"]:
-            failures.append(f"{name}.grad_rel: {g32} > {tol['grad_rel']}")
+        if not math.isfinite(g32) or g32 > glim:
+            failures.append(f"{name}.grad_rel: {g32} > {glim}")
         pairs = [(g32, g16)]
         for key, a, a16, w in zip(keys, got[1:], got16[1:], want[1:]):
+            label, key = key if isinstance(key, tuple) else (key, key)
             e, e16 = max_err(a, w), max_err(a16, w)
-            errs[f"{name}.{key}"], bf16[f"{name}.{key}"] = e, e16
+            errs[f"{name}.{label}"], bf16[f"{name}.{label}"] = e, e16
             limit = tol[key]
             if not math.isfinite(e) or e > limit:
-                failures.append(f"{name}.{key}: {e} > {limit}")
+                failures.append(f"{name}.{label}: {e} > {limit}")
             if key.startswith("demb"):
                 pairs.append((e, e16))
         worst32, worst16 = max(a for a, _ in pairs), max(b for _, b in pairs)
@@ -1714,22 +1735,54 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
                                                    emb, z, field, z_t, *ct, t=t))
                 del o, d, emb, z, coarse, field, z_f, z_t, c6
 
-    # K8 and K9 in f32 refuse before any launch
-    c = cfg.replace(use_bf16=False)
-    p32 = pack_params(model, c)
-    o, d, emb, z = make_rays(37, c, seed=790, device=device)
-    u = importance_uniforms((37,), c.num_importance, True, device=device)
-    fr.reset_launch_counts()
-    for kern, call in (("K8", lambda: fm.fused_bwd_cuda(p32, c, o, d, emb, o, o[:, :1])),
-                       ("K9", lambda: fr.hier_onepass_cuda(p32, c, o, d, emb, z, u, o))):
-        try:
-            call()
-            failures.append(f"{kern} took use_bf16=False")
-        except NotImplementedError as exc:
-            if "the f32 K8 and K9" not in str(exc):
-                failures.append(f"{kern}: {exc}")
-    if any(fr.LAUNCHES.values()):
-        failures.append(f"K8/K9 in f32 launched {fr.LAUNCHES}")
+    # K8 in f32 (independent rows, each with its cotangents; demb per row)
+    # and K9 in f32 (the one-kernel 64 + 64 step and four other shapes; its
+    # gradients within grad_rel_k9: it draws its importance depths from its
+    # own f32 coarse weights), with and without time
+    for tag, c16, m in (("", cfg, model), ("t", cfg_t, model_t)):
+        c = c16.replace(use_bf16=False)
+        p32, p16 = pack_params(m, c), pack_params(m, c16)
+        pcpu = pack_params(m, c, device="cpu")
+        for n in (37, 4093, 65536, 131072):
+            x, dr, er = (v[:n].contiguous() for v in sample_rows(-(-n // 64), c, 830 + n % 97,
+                                                                 device, 64))
+            g = torch.Generator(device=device).manual_seed(n + 830)
+            g_rgb = torch.randn(n, 3, generator=g, device=device)
+            g_sig = torch.randn(n, 1, generator=g, device=device)
+            t = torch.rand(n, 1, generator=g, device=device) if c.use_time else None
+
+            def k8(pk, cc):
+                return fm.fused_bwd_cuda(pk, cc, x, dr, er, g_rgb, g_sig, t)
+            held(f"K8f32{tag}@{n}", m, k8(p32, c), k8(p32, c), k8(p16, c16),
+                 fm.fused_bwd_plain(p32, c, x, dr, er, g_rgb, g_sig, t), ["demb"],
+                 lambda: cpu_referee(fm.fused_bwd_plain, pcpu, c, device, x, dr, er, g_rgb,
+                                     g_sig, t))
+            del x, dr, er, g_rgb, g_sig
+        for k, (sc, sf) in enumerate(((64, 64), (64, 16), (128, 128), (48, 32), (32, 64))):
+            cs = c.replace(num_samples=sc, num_importance=sf)
+            for n in (37, c.batch_size):
+                o, d, emb, z = make_rays(n, cs, seed=850 + 10 * k + (n != 37), device=device)
+                g = torch.Generator(device=device).manual_seed(860 + 10 * k + n)
+                u = importance_uniforms((n,), sf, True, rand=g, device=device)
+                target = torch.rand(n, 3, generator=g, device=device)
+                t = torch.rand(n, 1, generator=g, device=device) if c.use_time else None
+                args = (o, d, emb, z, u, target, t)
+
+                def k9(pk, cc):
+                    lf, lc, gk, dk = fr.hier_onepass_cuda(pk, cc, *args)
+                    return gk, lf, lc, dk
+
+                def k9_plain(out):
+                    lf, lc, gk, dk = out
+                    return gk, lf, lc, dk
+                held(f"K9f32{tag}@{n}x{sc}+{sf}", m, k9(p32, cs), k9(p32, cs),
+                     k9(p16, cs.replace(use_bf16=True)),
+                     k9_plain(fr.hier_onepass_plain(p32, cs, *args)),
+                     [("loss_fine", "loss"), ("loss_coarse", "loss"), ("demb", "demb_k4")],
+                     lambda: k9_plain(cpu_referee(fr.hier_onepass_plain, pcpu, cs, device,
+                                                  *args)),
+                     grad_key="grad_rel_k9")
+                del o, d, emb, z, u, target
     if not same:
         failures.append("an f32 backward kernel gave different results on the same inputs")
 
@@ -1779,9 +1832,46 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
                 c, n, sc, 4 * n * (3 + 3 + e + sc) + 4 * n * (3 + 1 + 1 + 5 * sc)
                 + 8 * p32.mats.numel())
             del o, d, emb, z, cot, g_field, target, field, z_f, c6, calls
+        # K1 and K8 at the rows of the batch's coarse and fine evaluations
+        # (the f32 per-sample step's), K9 at the batch (the f32 one-kernel
+        # step's)
+        n = c.batch_size
+        e, nt = c.appearance_dim, int(c.use_time)
+        wg = 4 * (3 * p32.mats.numel() + 2 * p32.vecs.numel())
+        for rows in ((n * sc, n * (sc + sf)) if tag == "" else (n * (sc + sf),)):
+            x, dr, er = sample_rows(n, c, 797, device, rows // n)
+            g = torch.Generator(device=device).manual_seed(798)
+            g_rgb = torch.randn(rows, 3, generator=g, device=device)
+            g_sig = torch.randn(rows, 1, generator=g, device=device)
+            t = torch.rand(rows, 1, generator=g, device=device) if c.use_time else None
+            timing[f"k1{tag}_{rows}_ms"] = cuda_ms(
+                lambda: fm.fused_fwd_cuda(p32, c, x, dr, er, t), 10)
+            timing[f"k1{tag}_{rows}_bound_ms"], _ = bound(
+                c, rows, 1, 4 * rows * (3 + 3 + e + nt) + 4 * rows * 4 + 4 * p32.mats.numel())
+            timing[f"k8{tag}_{rows}_ms"] = cuda_ms(
+                lambda: fm.fused_bwd_cuda(p32, c, x, dr, er, g_rgb, g_sig, t), 10)
+            timing[f"k8{tag}_{rows}_plain_ms"] = cuda_ms(
+                lambda: fm.fused_bwd_plain(p32, c, x, dr, er, g_rgb, g_sig, t), 3)
+            timing[f"k8{tag}_{rows}_bound_ms"], bound_by["k8" + tag] = bound(
+                c, rows, 1, 4 * rows * (3 + 3 + e + nt + 3 + 1) + 4 * rows * e + wg,
+                backward=True)
+            del x, dr, er, g_rgb, g_sig
+        o, d, emb, z = make_rays(n, c, seed=799, device=device)
+        g = torch.Generator(device=device).manual_seed(800)
+        u = importance_uniforms((n,), sf, True, rand=g, device=device)
+        target = torch.rand(n, 3, generator=g, device=device)
+        t = torch.rand(n, 1, generator=g, device=device) if c.use_time else None
+        timing[f"k9{tag}_{n}_ms"] = cuda_ms(
+            lambda: fr.hier_onepass_cuda(p32, c, o, d, emb, z, u, target, t), 10)
+        timing[f"k9{tag}_{n}_plain_ms"] = cuda_ms(
+            lambda: fr.hier_onepass_plain(p32, c, o, d, emb, z, u, target, t), 3)
+        timing[f"k9{tag}_{n}_bound_ms"], bound_by["k9" + tag] = bound(
+            c, n, sc + sf, 4 * n * (3 + 3 + e + sc + sf + 3 + nt) + 4 * n * e + 8 + wg,
+            backward=True)
+        del o, d, emb, z, u, target
     worst = {f"{k}{tag}": max(v for key, v in errs.items()
                               if key.startswith(f"{k}f32{tag}@") and not key.endswith(".zero"))
-             for k in ("K3", "K4", "K6", "K7") for tag in ("", "t")}
+             for k in ("K3", "K4", "K6", "K7", "K8", "K9") for tag in ("", "t")}
     emit({"phase": "f32_bwd", "rays": [37, cfg.batch_size, 4093], "max_abs_err": errs,
           "grad_rel": grad_rel, "bf16_kernel_err_vs_f32_plain": bf16,
           "bf16_over_f32_error_ratio": ratios, "worst_ratio": min(ratios.values()),
@@ -1797,13 +1887,14 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
 def phase_f32_train(cfg, model, out_dir, device):
     """f32 training on the card (use_bf16=False; no CLI flag reaches it in
     either package, the library entry points do): one step of 64 + 64,
-    coarse-only, white background and use_time at B = 1024 through the
-    kernels against the same step through their plain versions
-    (step_runs: exactly the f32 launches and none of a bf16 kernel; the
-    loss within PLAIN_TOL_F32_BWD's loss, the gradients within its
-    step_grad_rel, the parameters after one Adam step);
-    10 chained f32 steps against 10 eager ones bit for bit on 64 + 64 and
-    coarse-only; train() for 100 f32 steps of 64 + 64 on the procedural
+    coarse-only, white background, use_time, per sample (two f32 K1 and two
+    f32 K8) and in one kernel (one f32 K9) at B = 1024 through the kernels
+    against the same step through their plain versions (step_runs: exactly
+    the f32 launches and none of a bf16 kernel; the loss within
+    PLAIN_TOL_F32_BWD's loss, the gradients within its step_grad_rel, the
+    parameters after one Adam step);
+    10 chained f32 steps against 10 eager ones bit for bit on 64 + 64,
+    coarse-only, per sample and in one kernel; train() for 100 f32 steps of 64 + 64 on the procedural
     scene (phase_train: one f32 K2, K4, K3 a step, finite losses, a rising
     PSNR, a checkpoint); then evaluate() with the embedding fit on its
     checkpoint (100x100 views, 2 views; 50 fit steps a view, each an f32 K2,
@@ -1824,7 +1915,7 @@ def phase_f32_train(cfg, model, out_dir, device):
     steps, _, _ = step_runs(cfg, model, device, F32_PATHS, lambda c: tol["loss"],
                             tol["step_grad_rel"], failures)
     chained = {}
-    for path in ("hier_f32", "coarse_f32"):
+    for path in ("hier_f32", "coarse_f32", "per_sample_f32", "hier_onepass_f32"):
         over, per_step = F32_PATHS[path]
         pcfg = cfg.replace(**over)
         chained[path] = chained_vs_eager(pcfg, timing_scene(pcfg), device, 10, 1, per_step)
@@ -1876,20 +1967,28 @@ def phase_f32_train(cfg, model, out_dir, device):
     if failures:
         raise AssertionError("f32 training disagrees: " + "; ".join(failures))
     return {"train": train_launches, "eval": evals["kernel"]["launches"],
-            "coarse_chained": launches_of(F32_PATHS["coarse_f32"][1], 10),
+            **{f"{p}_chained": launches_of(F32_PATHS[f"{p}_f32"][1], 10)
+               for p in ("coarse", "per_sample", "hier_onepass")},
             "time_step": steps["time_f32"]["launches"]}
 
 
 def phase_f32_step_timing(cfg, device, f32_timing, tt):
-    """The f32 64 + 64 step (use_bf16=False) at B = 1024 beside the bf16
-    one, both through step_timing (eager and chained, 10 steps a replay,
-    each with its torch.profiler windows: device busy, idle share), with
-    the f32 kernels' times and bound from phase_f32_bwd (K2, K3, K4 at the
-    batch) and the bf16 ones' from phase_train_timing."""
-    steps = {"hier_f32": step_timing(cfg.replace(**F32_PATHS["hier_f32"][0]), device, f32_timing,
-                                     ("k2_1024", "k3_1024", "k4_1024"), profile=True),
-             "hier": step_timing(cfg, device, tt, ("k2_batch", "k3_batch", "k4_batch"),
-                                 profile=True)}
+    """The f32 64 + 64, per-sample and one-kernel steps (use_bf16=False) at
+    B = 1024 beside the bf16 64 + 64 step, each through step_timing (eager
+    and chained, 10 steps a replay, each with its torch.profiler windows:
+    device busy, idle share), with the f32 kernels' times and bound from
+    phase_f32_bwd (K2, K3, K4 at the batch; K1 and K8 at its 65,536 and
+    131,072 rows; K9 at the batch) and the bf16 ones' from
+    phase_train_timing."""
+    n = cfg.batch_size
+    rows = (n * cfg.num_samples, n * (cfg.num_samples + cfg.num_importance))
+    f32_kernels = {"hier_f32": ("k2_1024", "k3_1024", "k4_1024"),
+                   "per_sample_f32": tuple(f"k{k}_{r}" for k in (1, 8) for r in rows),
+                   "hier_onepass_f32": (f"k9_{n}",)}
+    steps = {path: step_timing(cfg.replace(**F32_PATHS[path][0]), device, f32_timing, kerns,
+                               profile=True) for path, kerns in f32_kernels.items()}
+    steps["hier"] = step_timing(cfg, device, tt, ("k2_batch", "k3_batch", "k4_batch"),
+                                profile=True)
     keys = ("chained_ms_per_step_median", "chained_profile_device_busy_ms_per_step",
             "chained_profile_idle_share", "step_ms_median", "step_bound_ms")
     emit({"phase": "f32_step_timing", "rays": cfg.batch_size, "steps": steps,
@@ -2124,8 +2223,9 @@ PATHS = {
 }
 
 
-# The f32 configuration (use_bf16=False) of four of them: config changes and
-# the launches of one step (the f32 variants of K2, K5, K3, K4, K6, K7).
+# The f32 configuration (use_bf16=False) of six of them: config changes and
+# the launches of one step (the f32 variants of K2, K5, K3, K4, K6, K7; K1
+# and K8; K9).
 F32_PATHS = {
     "hier_f32": ({"use_bf16": False}, {"march_f32": 1, "march_bwd_f32": 1,
                                         "merged_train_f32": 1}),
@@ -2134,6 +2234,10 @@ F32_PATHS = {
                   {"march_f32": 1, "merged_f32": 1, "merged_bwd_f32": 1, "march_bwd_f32": 1}),
     "time_f32": ({"use_bf16": False, "use_time": True},
                  {"march_f32": 1, "merged_f32": 1, "merged_bwd_f32": 1, "march_bwd_f32": 1}),
+    "per_sample_f32": ({"use_bf16": False, "use_fused_train": False},
+                       {"mlp_fwd_f32": 2, "mlp_bwd_f32": 2}),
+    "hier_onepass_f32": ({"use_bf16": False, "use_hier_onepass": True},
+                         {"hier_onepass_f32": 1}),
 }
 ALL_PATHS = {**PATHS, **F32_PATHS}
 
@@ -2697,13 +2801,13 @@ def phase_timing(cfg, model, device, chunk, frame_t=None):
 def kernel_part(name):
     """The part of a step a device kernel belongs to: the tile kernel of K3,
     K4, K6, K7, K8 or K9 (csrc/field_bwd_sm90.cuh), their dW pass (the
-    wgmma blocks, the narrow jobs, the reductions), the same two of the f32
-    K3, K4, K6, K7 (csrc/field_bwd_f32.cuh), or the rest."""
+    wgmma blocks, the narrow jobs, the reductions), the same two of their
+    f32 variants (csrc/field_bwd_f32.cuh), or the rest."""
     if "bwd_tile90" in name or "hier_tile90" in name:
         return "bwd90_tile"
     if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
         return "bwd90_dw_pass"
-    if "bwd32_tile" in name:
+    if "bwd32_tile" in name or "hier32_tile" in name:
         return "bwd32_tile"
     if any(k in name for k in ("dw32_", "sum_slots32")):
         return "bwd32_dw_pass"
@@ -4389,6 +4493,36 @@ def main(argv=None):
                          "ms": tm[f"{key}t_1024_ms"], "plain_ms": tm[f"{key}t_1024_plain_ms"],
                          "bound_ms": tm[f"{key}t_1024_bound_ms"],
                          "bound_by": f32b_bound_by[key + "t"], "at": "1024-ray batch"}})
+    # the f32 variants of K8 and K9: launches from the f32 per-sample and
+    # one-kernel chained runs (10 steps each); K8 at the 131,072 rows of the
+    # per-sample step's fine evaluation (also at its 65,536 coarse rows), K9
+    # at B = 1024; their has_time variants are held and timed, and no run
+    # here drives them (K8's: the per-sample route with time; K9's: no
+    # route, as in the JAX package)
+    n = cfg.batch_size
+    for name, key, source, line, counter, at, run in (
+            ("K8 per-sample field backward, f32", "k8", "mlp_bwd_f32.cu", "fused_mlp.py:249",
+             "mlp_bwd_f32", "131072", "per_sample_chained"),
+            ("K9 one-kernel hierarchical training step, f32", "k9", "hier_onepass_f32.cu",
+             "fused_render.py:1303", "hier_onepass_f32", str(n), "hier_onepass_chained")):
+        tm = f32b_timing
+        rec = {"name": name, "route": "cuda", "source": f"danerf_tpu_torch/kernels/csrc/{source}",
+               "replaces": f"danerf_tpu/kernels/{line}", "launches": f32_train[run][counter],
+               "max_abs_err": errs_f32b[key.upper()], "ms": tm[f"{key}_{at}_ms"],
+               "plain_ms": tm[f"{key}_{at}_plain_ms"], "bound_ms": tm[f"{key}_{at}_bound_ms"],
+               "bound_by": f32b_bound_by[key], "library_ms": None, "config": "use_bf16=False",
+               "at": "131,072 rows" if key == "k8" else "1024-ray batch",
+               "bf16_over_f32_error_ratio_worst": f32b_ratio,
+               "variants_held": ["without time", "has_time"],
+               "has_time": {"launches": 0, "max_abs_err": errs_f32b[key.upper() + "t"],
+                            "ms": tm[f"{key}t_{at}_ms"], "plain_ms": tm[f"{key}t_{at}_plain_ms"],
+                            "bound_ms": tm[f"{key}t_{at}_bound_ms"],
+                            "bound_by": f32b_bound_by[key + "t"],
+                            "at": "131,072 rows" if key == "k8" else "1024-ray batch"}}
+        if key == "k8":
+            rec["at_65536_rows"] = {"ms": tm["k8_65536_ms"], "plain_ms": tm["k8_65536_plain_ms"],
+                                    "bound_ms": tm["k8_65536_bound_ms"]}
+        kernels.append(rec)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

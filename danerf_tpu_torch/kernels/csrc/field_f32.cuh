@@ -341,6 +341,48 @@ struct RayEnc {
   }
 };
 
+// The encoder of a block of independent rows row0.. (n valid; K1 and K8):
+// the rows' inputs from sm.rows (x, d, t; load_rows), their embeddings from
+// device memory.
+struct RowEnc {
+  const FieldArgs& P;
+  const float* emb;
+  long long row0;
+  int n;
+
+  __device__ __forceinline__ void operator()(Smem& sm) const {
+    const float* xs = sm.rows;
+    const float* ds = xs + 3 * MB;
+    const float* ts = ds + 3 * MB;
+    F32Sink sink{sm.encx, sm.encd};
+    const int groups = P.pos_levels + P.dir_levels + 1, E = P.emb_dim;
+    for (int it = threadIdx.x; it < MB * groups; it += THREADS) {
+      const int r = it & (MB - 1);
+      encode_cols(P, sink, r, it / MB, r < n, xs + r * 3, ds + r * 3, nullptr, ts + r);
+    }
+    for (int i = threadIdx.x; i < MB * E; i += THREADS) {
+      const int r = i & (MB - 1), k = i / MB;
+      sm.emb[k * AP + r] = r < n ? emb[(row0 + r) * E + k] : 0.f;
+    }
+  }
+};
+
+// Load the points, directions and times of the n rows row0.. (zeros past n)
+// into sm.rows for RowEnc; the next field_block's first barrier publishes
+// them.  sm.rows is read only by RowEnc, so the last block's field_block is
+// done with it once any thread returns from it.
+__device__ __forceinline__ void load_rows(Smem& sm, const Rays32& rows, long long row0, int n) {
+  float* xs = sm.rows;
+  float* ds = xs + 3 * MB;
+  float* ts = ds + 3 * MB;
+  for (int i = threadIdx.x; i < 3 * MB; i += THREADS) {
+    xs[i] = i / 3 < n ? rows.o[row0 * 3 + i] : 0.f;
+    ds[i] = i / 3 < n ? rows.d[row0 * 3 + i] : 0.f;
+  }
+  for (int i = threadIdx.x; i < MB; i += THREADS)
+    ts[i] = (rows.t != nullptr && i < n) ? rows.t[row0 + i] : 0.f;
+}
+
 // Load tile c's rays: origins, directions, times (zeros past R) and each
 // row's depth z[r * s + sample] (zeros past the tile's valid rays).
 __device__ __forceinline__ void load_rays(Smem& sm, const Rays32& rays, long long ray0,

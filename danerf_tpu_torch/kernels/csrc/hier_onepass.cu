@@ -60,77 +60,6 @@
 using namespace danerf;
 using namespace danerf::sm90;
 
-// The shapes K9 takes, as since its first design: those whose per-ray
-// arrays fit beside that design's tile (field.cuh SHAPE_TILE_BYTES) and
-// BwdSmem in 232,448 bytes (all of them fit in field_bwd_sm90.cuh's tile):
-// the per-warp composite scratch of Sa = Sc + Sf samples, then, for each
-// of the tile's rays, the coarse and fine depths, the kept coarse field,
-// sigma_pre and field cotangent, the merged depths, sigma and rgb, demb and
-// the ranks (4 bytes each).
-inline size_t hier_smem_bytes(int Sc, int Sf, int rpc, int E) {
-  const int Sa = Sc + Sf;
-  return bwd_smem_bytes(Sa) +
-         4 * (size_t)rpc * (Sc + Sf + 4 * Sc + Sc + 4 * Sc + Sa + Sa + 3 * Sa + E + Sc + Sf);
-}
-
-// The inverse CDF of one ray's n weights w at its m uniforms u, by one warp,
-// with ops/sampling.sample_pdf's arithmetic: wn = (w + 1e-5) / sum(w + 1e-5);
-// cdf = [0, inclusive prefix sum of wn] (n + 1 values into cdf; a scan over
-// the lanes' chunks); the bracket of u is inds = #{cdf < u} (searchsorted,
-// right=False); cdf_above is +max-float past the end, z_above clamped into
-// range, and a bracket narrower than 1e-5 gets a denominator of 1.  Writes
-// z_out (m), sorted when u is increasing.
-__device__ void inverse_cdf(const float* z, const float* w, int n, const float* __restrict__ u,
-                            int m, float* cdf, float* z_out) {
-  const int lane = threadIdx.x & 31;
-  const int chunk = (n + 31) / 32;
-  const int s0 = min(n, lane * chunk), s1 = min(n, s0 + chunk);
-  float part = 0.f;
-  for (int s = s0; s < s1; ++s) part += w[s] + 1e-5f;
-  const float total = warp_sum(part);
-  float run = 0.f;
-  for (int s = s0; s < s1; ++s) run += (w[s] + 1e-5f) / total;
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
-  }
-  float c = incl - run;  // the sum over the samples of earlier lanes
-  if (lane == 0) cdf[0] = 0.f;
-  for (int s = s0; s < s1; ++s) {
-    c += (w[s] + 1e-5f) / total;
-    cdf[s + 1] = c;
-  }
-  __syncwarp();
-  const float big = 3.402823466e38f;  // f32 max
-  for (int i = lane; i < m; i += 32) {
-    const float ui = u[i];
-    int inds = 0;
-    for (int k = 0; k <= n; ++k) inds += cdf[k] < ui;
-    const float below = cdf[max(inds - 1, 0)];
-    const float above = inds <= n ? cdf[inds] : big;
-    const float zb = z[max(min(inds, n) - 1, 0)];
-    const float za = z[min(inds, n - 1)];
-    float denom = above - below;
-    if (denom < 1e-5f) denom = 1.f;
-    const float tt = (ui - below) / denom;
-    z_out[i] = zb + tt * (za - zb);
-  }
-  __syncwarp();
-}
-
-// K9's inputs beyond the rays: the coarse depths z_c (R, Sc) (also
-// rays.z), the uniforms u (R, Sf), the target (R,3), 1 / (3R) and
-// cw x 2 / (3R).
-struct HierArgs {
-  const float* zc;
-  const float* u;
-  const float* target;
-  float inv_denom, kc;
-  int Sc, Sf;
-};
-
 __device__ __forceinline__ void zero_cotangents(SmemBwd& sm) {
   for (int r = threadIdx.x; r < ROWS; r += CONSUMERS) {
     sm.bs.g_sig[r] = 0.f;
@@ -272,20 +201,6 @@ hier_tile90(const __grid_constant__ BwdMaps maps, const FieldArgs P, const Scrat
     chain(P, maps, sm, sc, gates_c, vc, vc * ROWS, pp, acc);
   }
   if ((threadIdx.x & 127) == 0) bulk_wait();
-}
-
-// The two losses of a pass: loss[0] += the fine slots (odd virtual tiles),
-// loss[1] += the coarse slots (even ones); a virtual tile's loss is the
-// last column of the first of its two row-sum slots.  Warp k sums loss k,
-// each lane every 32nd of its tiles in order, then the lanes in a fixed
-// tree.
-__global__ void hier_losses(const float* __restrict__ part, int vtiles, int nv,
-                            float* __restrict__ loss) {
-  const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float s = 0.f;
-  for (int v = 1 - k + 2 * lane; v < vtiles; v += 64) s += part[2LL * v * nv + nv - 1];
-  s = warp_sum(s);
-  if (lane == 0) loss[k] += s;
 }
 
 // Bytes of scratch K9 needs for R rays of s = max(Sc, Sf) samples a tile

@@ -24,48 +24,15 @@
 using namespace danerf;
 using namespace danerf::f32;
 
-// The encoder of a block of independent rows row0.. (n valid): the rows'
-// inputs from sm.rows (x, d, t), their embeddings from device memory.
-struct RowEnc {
-  const FieldArgs& P;
-  const float* emb;
-  long long row0;
-  int n;
-
-  __device__ __forceinline__ void operator()(Smem& sm) const {
-    const float* xs = sm.rows;
-    const float* ds = xs + 3 * MB;
-    const float* ts = ds + 3 * MB;
-    F32Sink sink{sm.encx, sm.encd};
-    const int groups = P.pos_levels + P.dir_levels + 1, E = P.emb_dim;
-    for (int it = threadIdx.x; it < MB * groups; it += THREADS) {
-      const int r = it & (MB - 1);
-      encode_cols(P, sink, r, it / MB, r < n, xs + r * 3, ds + r * 3, nullptr, ts + r);
-    }
-    for (int i = threadIdx.x; i < MB * E; i += THREADS) {
-      const int r = i & (MB - 1), k = i / MB;
-      sm.emb[k * AP + r] = r < n ? emb[(row0 + r) * E + k] : 0.f;
-    }
-  }
-};
-
 __global__ void __launch_bounds__(THREADS)
 mlp_fwd_f32_kernel(const FieldArgs P, const float* __restrict__ wt, const Rays32 rows,
                    float* __restrict__ rgb, float* __restrict__ sigma) {
   Smem& sm = smem_f32();
-  float* xs = sm.rows;
-  float* ds = xs + 3 * MB;
-  float* ts = ds + 3 * MB;
   for (long long tile = blockIdx.x; tile < rows.n_tiles; tile += gridDim.x) {
     const long long row0 = tile * MB;
     const int n = (int)(rows.R - row0 < MB ? rows.R - row0 : MB);
     __syncthreads();  // every thread is done with the last block's rows
-    for (int i = threadIdx.x; i < 3 * MB; i += THREADS) {
-      xs[i] = i / 3 < n ? rows.o[row0 * 3 + i] : 0.f;
-      ds[i] = i / 3 < n ? rows.d[row0 * 3 + i] : 0.f;
-    }
-    for (int i = threadIdx.x; i < MB; i += THREADS)
-      ts[i] = (rows.t != nullptr && i < n) ? rows.t[row0 + i] : 0.f;
+    load_rows(sm, rows, row0, n);
     field_block(P, wt, sm, RowEnc{P, rows.emb, row0, n}, sm.rgb, sm.sigma);
     __syncthreads();
     for (int i = threadIdx.x; i < 3 * n; i += THREADS) rgb[row0 * 3 + i] = sm.rgb[i];

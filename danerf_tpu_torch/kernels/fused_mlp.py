@@ -27,12 +27,12 @@ Both configurations of the JAX kernels: bf16 (``use_bf16``, the default)
 and f32.  The forward kernels K1, K2 and K5 take f32 through variants of
 their own on ``csrc/field_f32.cuh`` (``mlp_fwd_f32.cu``, ``march_f32.cu``,
 ``merged_f32.cu``), which read the weights transposed
-(``PackedParams.mats_kn``, ``fwd_weights``); the backward kernels K3, K4, K6
-and K7 through theirs on ``csrc/field_bwd_f32.cuh`` (``march_bwd_f32.cu``,
-``merged_train_f32.cu``, ``merged_bwd_f32.cu``, ``march_train_f32.cu``),
-which read them transposed for the forward and as packed, (out, K) f32, for
-the transposed chain (``bwd_weights``).  K8 and K9 refuse f32
-(``_check_bwd_cfg``).
+(``PackedParams.mats_kn``, ``fwd_weights``); the backward kernels K3, K4,
+K6, K7, K8 and K9 through theirs on ``csrc/field_bwd_f32.cuh``
+(``march_bwd_f32.cu``, ``merged_train_f32.cu``, ``merged_bwd_f32.cu``,
+``march_train_f32.cu``, ``mlp_bwd_f32.cu``, ``hier_onepass_f32.cu``), which
+read them transposed for the forward and as packed, (out, K) f32, for the
+transposed chain (``bwd_weights``).
 
 The encoding here is the kernels' form, ``y = 2^i o + z (2^i d)`` then
 ``sin(y + phase)``, not ``nerf_apply``'s ``sin(2^i (o + z d))``: the two
@@ -61,10 +61,11 @@ _HALF_PI = torch.tensor(math.pi / 2, dtype=torch.float32).item()  # f32-rounded
 LAUNCHES = {"march": 0, "merged": 0, "march_bwd": 0, "merged_train": 0,
             "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0, "hier_onepass": 0,
             "march_f32": 0, "merged_f32": 0, "mlp_fwd_f32": 0, "march_bwd_f32": 0,
-            "merged_train_f32": 0, "march_train_f32": 0, "merged_bwd_f32": 0}
+            "merged_train_f32": 0, "march_train_f32": 0, "merged_bwd_f32": 0,
+            "mlp_bwd_f32": 0, "hier_onepass_f32": 0}
 
-# The s_tile of a backward call whose tiles hold 128 independent rows (K8;
-# csrc/field_bwd.cuh ROW_TILES), not rays of s samples.
+# The s_tile of a backward call whose tiles hold 128 independent rows (K8
+# and its f32 variant; csrc/field_bwd.cuh ROW_TILES), not rays of s samples.
 ROW_TILES = 0
 
 
@@ -426,19 +427,6 @@ def module_params(model):
 
 # ---------------------------------------------------------------- launching
 
-# The backward kernels without an f32 variant: K8 and K9.
-_BF16_ONLY = {"mlp_bwd": "K8", "hier_onepass": "K9"}
-
-
-def _check_bwd_cfg(cfg: NeRFConfig, name: str) -> None:
-    """Backward kernel ``name`` takes ``cfg``: K3, K4, K6 and K7 take both
-    configurations, K8 (``mlp_bwd``) and K9 (``hier_onepass``) only bf16."""
-    if not cfg.use_bf16 and name in _BF16_ONLY:
-        raise NotImplementedError(
-            f"use_bf16=False is not yet ported to {_BF16_ONLY[name]} ({name}.cu): its f32 "
-            "tile is the first item of ROADMAP.md section 2 (the f32 K8 and K9)")
-
-
 def _check_time(cfg: NeRFConfig, t) -> None:
     """A time input exactly when the config has time columns."""
     if cfg.use_time and t is None:
@@ -627,8 +615,8 @@ def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, t=None):
 
 
 def fused_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_sigma, t=None):
-    """Launch K8 on the current stream; outputs as fused_bwd_plain's."""
-    _check_bwd_cfg(cfg, "mlp_bwd")
+    """Launch K8 on the current stream (its f32 variant without
+    ``cfg.use_bf16``); outputs as fused_bwd_plain's."""
     dev = x.device
     _check_packed(packed, dev, cfg)
     e = cfg.appearance_dim

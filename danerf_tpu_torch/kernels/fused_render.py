@@ -34,7 +34,8 @@ Seven kernels, each with a plain PyTorch version of the same function:
   residuals, the transposed chain and the dW pass in f32);
   ``march_bwd_cuda``, ``march_train_cuda``, ``merged_train_cuda`` and
   ``merged_bwd_cuda`` launch them when ``cfg.use_bf16`` is off (held to
-  ``PLAIN_TOL_F32_BWD``).  K9 takes bf16 only.
+  ``PLAIN_TOL_F32_BWD``); so does ``hier_onepass_cuda`` with K9's,
+  ``csrc/hier_onepass_f32.cu``.
 - K9, ``csrc/hier_onepass.cu`` / ``hier_onepass_plain``: the whole
   hierarchical training step in one call -- K2's march at the coarse depths
   keeping its field and residuals, the inverse CDF of its weights at the
@@ -73,7 +74,7 @@ from danerf_tpu_torch.config import NeRFConfig
 from danerf_tpu_torch.kernels import _build
 # LAUNCHES, reset_launch_counts and module_params are also used from here
 from danerf_tpu_torch.kernels.fused_mlp import (  # noqa: F401
-    LAUNCHES, PackedGrads, PackedParams, _arg, _check_bwd_cfg, _check_packed, _check_time, _f32,
+    LAUNCHES, PackedGrads, PackedParams, _arg, _check_packed, _check_time, _f32,
     _f32_opt, _launch_bwd, _meta, _route, _rows_f32, _time_arg, encode_plain, field_bwd_plain,
     field_from_enc_plain, fwd_weights, module_params, pack_params, reset_launch_counts,
     unpack_grads)
@@ -172,8 +173,24 @@ PLAIN_TOL_F32 = {"rgb": 3e-6, "acc": 5e-6, "weights": 1e-6, "depth": 1e-5,
 # 1.9e-3 on the H100 (64 + 64, white background, use_time; coarse-only, which
 # draws none, 3.6e-7).  1e-2 keeps 5x above that; the bf16 kernels against
 # the same f32 plain outputs sit at 2e-2 to 1.4e-1.
+#
+# K8's f32 variant takes grad_rel and demb (its per-row demb under O(1)
+# cotangents, values up to ~0.17): on the H100 5.7e-7 to 1.1e-5 and up to
+# 8.9e-8 from 37 to 131,072 rows, with and without time.  K9's f32 variant
+# takes loss for both MSEs (up to 1.5e-8) and demb_k4 for its demb under
+# the MSE's 2 / (3R) (up to 6.4e-10), but its gradients grad_rel_k9: like
+# the f32 hierarchical step, it draws its importance depths from its own
+# f32 coarse weights, and the first layer's gradient moved by up to 1.6e-3
+# from the card's plain version at 37 rays and 2.3e-3 from the CPU's, which
+# are themselves 2.6e-3 apart (2.1e-4 to 5.8e-4 at 1024 rays).  1e-2,
+# step_grad_rel's limit for the same cause, keeps 4x above that; a lost ray
+# of 37 moves a gradient by ~3e-2.  It does not separate the bf16 K9, whose
+# gradients sit 9.1e-3 to 8.4e-2 from the same f32 plain outputs: its demb
+# (9.9e-8 to 2.8e-6) fails demb_k4, and F32_GAIN asks the f32 error to be 16x
+# below it (38x measured).
 PLAIN_TOL_F32_BWD = {"grad_rel": 1e-4, "demb": 1e-5, "demb_k4": 3e-9, "g_field": 3e-9,
-                     "g_field_k6": 3e-6, "loss": 1e-7, "step_grad_rel": 1e-2}
+                     "g_field_k6": 3e-6, "loss": 1e-7, "step_grad_rel": 1e-2,
+                     "grad_rel_k9": 1e-2}
 
 
 def grad_rel_errors(got: PackedGrads, want: PackedGrads, model) -> dict:
@@ -554,9 +571,8 @@ def merged_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, field
 
 def hier_onepass_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c, u, target,
                       t=None):
-    """Launch K9 on the current stream (bf16 only: use_bf16=False raises
-    NotImplementedError); outputs as hier_onepass_plain's."""
-    _check_bwd_cfg(cfg, "hier_onepass")
+    """Launch K9 on the current stream (its f32 variant without
+    ``cfg.use_bf16``); outputs as hier_onepass_plain's."""
     dev = z_c.device
     _check_packed(packed, dev, cfg)
     o, d, emb, target = _rows_f32(dev, {"o": 3, "d": 3, "emb": cfg.appearance_dim, "target": 3},

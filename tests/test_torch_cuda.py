@@ -20,9 +20,10 @@ chip_smoke.py holds the kernels to (the comment there gives their reasons);
 gradients are compared by relative Frobenius error per parameter.  The f32
 variants of K2, K5 and K1 (``use_bf16=False``) are held to
 ``fused_render.PLAIN_TOL_F32`` against their plain versions with TF32 off
-(the ``dev`` fixture turns it off), those of K3, K4, K6 and K7 to
-``fused_render.PLAIN_TOL_F32_BWD`` and at least 16x below the bf16 kernel's
-error against the same f32 outputs; K8 and K9 refuse f32.  The
+(the ``dev`` fixture turns it off), those of K3, K4, K6, K7, K8 and K9 to
+``fused_render.PLAIN_TOL_F32_BWD`` (K9's gradients to its ``grad_rel_k9``)
+and at least 16x below the bf16 kernel's error against the same f32
+outputs.  The
 native bridge's fx fallback on the card is held to its CPU run within
 ``fx.effects.levels_apart``.
 """
@@ -157,7 +158,8 @@ def test_kernel_route_counts_launches(dev):
                            "march_train": 0, "merged_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
                            "hier_onepass": 0, "march_f32": 0, "merged_f32": 0,
                            "mlp_fwd_f32": 0, "march_bwd_f32": 0, "merged_train_f32": 0,
-                           "march_train_f32": 0, "merged_bwd_f32": 0}
+                           "march_train_f32": 0, "merged_bwd_f32": 0, "mlp_bwd_f32": 0,
+                           "hier_onepass_f32": 0}
     assert bool(torch.isfinite(depth).all()) and rgb.shape == (40, 30, 3)
 
 
@@ -355,8 +357,11 @@ def test_backward_tile_refuses_what_it_always_refused(dev):
     ({"white_background": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
     ({"use_fused_train": False}, {"mlp_fwd": 2, "mlp_bwd": 2}),
     ({"use_time": True}, {"march": 1, "merged": 1, "merged_bwd": 1, "march_bwd": 1}),
-    ({"use_hier_onepass": True}, {"hier_onepass": 1})],
-    ids=["hier", "coarse_only", "white_background", "per_sample", "use_time", "hier_onepass"])
+    ({"use_hier_onepass": True}, {"hier_onepass": 1}),
+    ({"use_bf16": False, "use_fused_train": False}, {"mlp_fwd_f32": 2, "mlp_bwd_f32": 2}),
+    ({"use_bf16": False, "use_hier_onepass": True}, {"hier_onepass_f32": 1})],
+    ids=["hier", "coarse_only", "white_background", "per_sample", "use_time", "hier_onepass",
+         "per_sample_f32", "hier_onepass_f32"])
 def test_train_step_launches_each_kernel_once(dev, over, want):
     """One step of each training path launches exactly its kernels."""
     from danerf_tpu_torch.data.dataset import RayDataset
@@ -768,7 +773,11 @@ _PATHS = {"hier": ({}, {"march": 1, "march_bwd": 1, "merged_train": 1}),
           "hier_f32": ({"use_bf16": False},
                        {"march_f32": 1, "march_bwd_f32": 1, "merged_train_f32": 1}),
           "coarse_only_f32": ({"use_bf16": False, "num_importance": 0},
-                              {"march_train_f32": 1})}
+                              {"march_train_f32": 1}),
+          "per_sample_f32": ({"use_bf16": False, "use_fused_train": False},
+                             {"mlp_fwd_f32": 2, "mlp_bwd_f32": 2}),
+          "hier_onepass_f32": ({"use_bf16": False, "use_hier_onepass": True},
+                               {"hier_onepass_f32": 1})}
 
 
 def _chain_scene(cfg):
@@ -1227,23 +1236,24 @@ def _cpu_plain(fn, model, c32, *args, **kw):
                    **{k: cpu(v) for k, v in kw.items()}))
 
 
-def _held32(model, got, again, got16, want, keys, want_cpu):
+def _held32(model, got, again, got16, want, keys, want_cpu, grad_key="grad_rel"):
     """An f32 backward kernel's (grads, *outputs in ``keys``) against its f32
-    plain version within PLAIN_TOL_F32_BWD, bit for bit over two calls;
-    its worst error (grad_rel, demb) at least F32_GAIN below the bf16
-    kernel's against the same plain outputs.  A relu gate on an f32
-    rounding boundary can flip between two f32 evaluations: where the
-    gradients are off the card's plain version by more than the limit, the
-    kernel is held to the plain version on the CPU (``want_cpu()``)."""
+    plain version within PLAIN_TOL_F32_BWD (the gradients within
+    ``grad_key``'s limit), bit for bit over two calls; its worst error
+    (grad_rel, demb) at least F32_GAIN below the bf16 kernel's against the
+    same plain outputs.  A relu gate on an f32 rounding boundary can flip
+    between two f32 evaluations: where the gradients are off the card's
+    plain version by more than the limit, the kernel is held to the plain
+    version on the CPU (``want_cpu()``)."""
     def rel(a, b):
         return max(fr.grad_rel_errors(a, b, model).values())
 
     g32 = rel(got[0], want[0])
-    if g32 > TOL32B["grad_rel"]:
+    if g32 > TOL32B[grad_key]:
         want = want_cpu()
         g32 = rel(got[0], want[0])
     g16 = rel(got16[0], want[0])
-    assert g32 <= TOL32B["grad_rel"], g32
+    assert g32 <= TOL32B[grad_key], g32
     worst32, worst16 = [g32], [g16]
     for key, a, a16, w in zip(keys, got[1:], got16[1:], want[1:]):
         err = float((a - w).abs().max())
@@ -1360,10 +1370,9 @@ def test_merged_bwd_f32_kernel_matches_plain(dev, sc, sf, cot, use_time):
                                t=t))
 
 
-def test_k8_k9_refuse_f32_and_packed_dtype_refusals(dev):
-    """K8 and K9 take bf16 only: in f32 each refuses before it launches,
-    naming the f32 K8 and K9 of ROADMAP.md; weights packed in the other
-    dtype than the config's are refused by every kernel."""
+def test_packed_dtype_refusals(dev):
+    """Weights packed in the other dtype than the config's are refused by
+    every kernel, K8 and K9 included, before anything launches."""
     from danerf_tpu_torch.ops.sampling import importance_uniforms
 
     cfg, model, o, d, emb, z, g = _inputs(dev, n=37)
@@ -1373,11 +1382,6 @@ def test_k8_k9_refuse_f32_and_packed_dtype_refusals(dev):
     zeros = torch.zeros(37, 3, device=dev)
     u = importance_uniforms((37,), cfg.num_importance, True, device=dev)
     fr.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="K8 .*the f32 K8 and K9"):
-        fm.fused_bwd_cuda(pk, c32, o, d, emb, zeros, zeros[:, :1])
-    with pytest.raises(NotImplementedError, match="K9 .*the f32 K8 and K9"):
-        fr.hier_onepass_cuda(pk, c32, o, d, emb, z, u, target)
-    assert not any(fr.LAUNCHES.values())
     with pytest.raises(ValueError, match="packed params must be torch.float32"):
         fr.march_cuda(pack_params(model, cfg), c32, o, d, emb, z)
     with pytest.raises(ValueError, match="packed params must be torch.bfloat16"):
@@ -1386,6 +1390,102 @@ def test_k8_k9_refuse_f32_and_packed_dtype_refusals(dev):
         fr.march_bwd_cuda(pack_params(model, cfg), c32, o, d, emb, z, zeros, None, None, None)
     with pytest.raises(ValueError, match="packed params must be torch.bfloat16"):
         fr.march_train_cuda(pk, cfg, o, d, emb, z, target)
+    with pytest.raises(ValueError, match="packed params must be torch.float32"):
+        fm.fused_bwd_cuda(pack_params(model, cfg), c32, o, d, emb, zeros, zeros[:, :1])
+    with pytest.raises(ValueError, match="packed params must be torch.bfloat16"):
+        fr.hier_onepass_cuda(pk, cfg, o, d, emb, z, u, target)
+    assert not any(fr.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("n", [37, 4093, 65536, 131072])
+def test_mlp_bwd_f32_kernel_matches_plain(dev, n, use_time):
+    """K8's f32 variant (csrc/mlp_bwd_f32.cu on field_bwd_f32.cuh) below one
+    tile (37 rows), at 4,093 rows (a ragged last tile) and at the 65,536 and
+    131,072 rows of a 1024-ray batch's coarse and fine evaluations, with and
+    without each row's time; seeded cotangents; two calls bit for bit."""
+    cfg, model, *_ = _inputs(dev, use_time=use_time)
+    c32, pk, pk16 = _packs32(cfg, model)
+    x, d, emb, g = _rows(n, cfg, dev, seed=2)
+    g_rgb = torch.randn(n, 3, generator=g, device=dev)
+    g_sig = torch.randn(n, 1, generator=g, device=dev)
+    t = torch.rand(n, 1, generator=g, device=dev) if use_time else None
+
+    def k8(p, c):
+        return fm.fused_bwd_cuda(p, c, x, d, emb, g_rgb, g_sig, t)
+    _held32(model, k8(pk, c32), k8(pk, c32), k8(pk16, cfg),
+            fm.fused_bwd_plain(pk, c32, x, d, emb, g_rgb, g_sig, t), ["demb"],
+            lambda: _cpu_plain(fm.fused_bwd_plain, model, c32, x, d, emb, g_rgb, g_sig, t))
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+@pytest.mark.parametrize("n", [37, 1024])
+@pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (128, 128), (48, 32), (32, 64)])
+def test_hier_onepass_f32_kernel_matches_plain(dev, sc, sf, n, use_time):
+    """K9's f32 variant (csrc/hier_onepass_f32.cu) at 37 rays and the
+    1024-ray batch, at Sc + Sf = 64 + 64, 64 + 16, 128 + 128, 48 + 32 and
+    32 + 64, with and without time: both MSEs within the loss key, demb
+    within demb_k4, every gradient within grad_rel_k9 (it draws its
+    importance depths from its own f32 coarse weights); two calls bit for
+    bit."""
+    cfg, model, args = _hier_inputs(dev, n, use_time, num_samples=sc, num_importance=sf)
+    c32, pk, pk16 = _packs32(cfg, model)
+    rays = args[2:]
+
+    def k9(p, c):
+        lf, lc, gk, dk = fr.hier_onepass_cuda(p, c, *rays)
+        return gk, lf, lc, dk
+    def plain(out):
+        lf, lc, gk, dk = out
+        return gk, lf, lc, dk
+    _held32(model, k9(pk, c32), k9(pk, c32), k9(pk16, cfg),
+            plain(fr.hier_onepass_plain(pk, c32, *rays)), ["loss", "loss", "demb_k4"],
+            lambda: plain(_cpu_plain(fr.hier_onepass_plain, model, c32, *rays)),
+            grad_key="grad_rel_k9")
+
+
+@pytest.mark.parametrize("path", ["per_sample", "hier_onepass"])
+def test_f32_k8_k9_step_matches_plain(dev, monkeypatch, path):
+    """One f32 step (use_bf16=False) at 256 rays of the per-sample route
+    (exactly two f32 K1 and two f32 K8) and of the one-kernel route
+    (exactly one f32 K9), no bf16 kernel, against the same step through the
+    plain versions (the route's dispatch pointed at them): the loss within
+    PLAIN_TOL_F32_BWD's loss, every gradient within its step_grad_rel."""
+    from danerf_tpu_torch.train.trainer import compute_loss_and_grads
+
+    over = {"per_sample": {"use_fused_train": False},
+            "hier_onepass": {"use_hier_onepass": True}}[path]
+    cfg = NeRFConfig(density_bias_init=0.5, use_bf16=False, **over)
+    n = 256
+    _, _, o, d, _, _, g = _inputs(dev, n=n, seed=4)
+    batch = {"rays_o": o, "rays_d": d, "rgb": torch.rand(n, 3, generator=g, device=dev),
+             "img_idx": torch.randint(0, 4, (n,), generator=g, device=dev)}
+    draws = (torch.rand(n, cfg.num_samples, generator=g, device=dev),
+             torch.rand(n, cfg.num_importance, generator=g, device=dev))
+    table0 = torch.randn(4, cfg.appearance_dim, generator=g, device=dev)
+    runs = []
+    for plain in (False, True):
+        model = NeRF(cfg, torch.Generator().manual_seed(0)).to(dev)
+        table = torch.nn.Parameter(table0.clone())
+        if plain:
+            monkeypatch.setattr(fm, "_field_fwd", lambda pk, c, x, d, e, t:
+                                fm.fused_fwd_plain(pk, c, x, d, e))
+            monkeypatch.setattr(fm, "_field_bwd", lambda pk, c, x, d, e, t, gr, gs:
+                                fm.fused_bwd_plain(pk, c, x, d, e, gr, gs))
+            monkeypatch.setattr(fr, "_hier_onepass",
+                                lambda pk, c, *a: fr.hier_onepass_plain(pk, c, *a))
+        fr.reset_launch_counts()
+        loss, _ = compute_loss_and_grads(model, table, cfg, batch, draws=draws)
+        runs.append((float(loss), [p.grad for p in model.parameters()] + [table.grad],
+                     dict(fr.LAUNCHES)))
+    (lk, gk, nk), (lp, gp, np_) = runs
+    want = {"per_sample": {"mlp_fwd_f32": 2, "mlp_bwd_f32": 2},
+            "hier_onepass": {"hier_onepass_f32": 1}}[path]
+    assert nk == {k: want.get(k, 0) for k in nk}
+    assert not any(np_.values())
+    assert abs(lk - lp) <= TOL32B["loss"]
+    for a, b in zip(gk, gp):
+        assert float((a - b).norm() / b.norm()) <= TOL32B["step_grad_rel"]
 
 
 @pytest.mark.parametrize("shader", ["default.frag", "toon.frag", "fog.frag"])

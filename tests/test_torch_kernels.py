@@ -159,14 +159,13 @@ def test_kernel_route_is_inference_only():
 @pytest.mark.parametrize("use_bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
-    """The forward kernels (K1, K2, K5) and the backward kernels K3, K4, K6
-    and K7 take both configurations, each on its own library and weights:
-    without use_bf16 the f32 backward kernels read the weights transposed
-    for the forward and as packed, (out, K) f32, for the transposed chain,
-    with each chain block's own offset.  K8 and K9 refuse f32, naming their
-    item of ROADMAP.md."""
-    from danerf_tpu_torch.kernels.fused_mlp import (_check_bwd_cfg, bwd_weights, fwd_weights,
-                                                    transposed_mats)
+    """The forward kernels (K1, K2, K5) and the backward kernels (K3, K4,
+    K6, K7, K8, K9) take both configurations, each on its own library and
+    weights: without use_bf16 the f32 backward kernels read the weights
+    transposed for the forward and as packed, (out, K) f32, for the
+    transposed chain, with each chain block's own offset."""
+    from danerf_tpu_torch.kernels import _build
+    from danerf_tpu_torch.kernels.fused_mlp import bwd_weights, fwd_weights, transposed_mats
     from danerf_tpu_torch.models.nerf import NeRF
 
     cfg = NeRFConfig(**SMALL, use_bf16=use_bf16)
@@ -178,8 +177,8 @@ def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
             assert lib == (name if use_bf16 else f"{name}_f32")
             assert mats is (packed.mats if use_bf16 else packed.mats_kn)
         return
-    for name in ("march_bwd", "merged_train", "merged_bwd", "march_train"):
-        _check_bwd_cfg(cfg, name)
+    for name in ("march_bwd", "merged_train", "merged_bwd", "march_train", "mlp_bwd",
+                 "hier_onepass"):
         lib, mats, mats_t, offs = bwd_weights(packed, cfg, name)
         assert lib == (name if use_bf16 else f"{name}_f32")
         if use_bf16:
@@ -190,20 +189,18 @@ def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
             assert mats_t.dtype == torch.float32
             assert offs == (-1, *(packed.mat_at[f"w{i}"][0] for i in range(1, cfg.num_layers)),
                             packed.mat_at["wdir"][0], packed.mat_at["wapp"][0])
-    for name, kern in (("mlp_bwd", "K8"), ("hier_onepass", "K9")):
-        if use_bf16:
-            _check_bwd_cfg(cfg, name)
-        else:
-            with pytest.raises(NotImplementedError, match=f"{kern} .*the f32 K8 and K9"):
-                _check_bwd_cfg(cfg, name)
+        assert lib in _build.SOURCES and lib in _build._SIGNATURES and lib in fr.LAUNCHES
+        if not use_bf16:  # the f32 stash's size; K9's holds two row sets a tile
+            assert _build.SCRATCH_FN[lib] == ("danerf_hier_onepass_f32_scratch_bytes"
+                                              if name == "hier_onepass"
+                                              else "danerf_bwd_f32_scratch_bytes")
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K4", "K6", "K7", "K8", "K9"])
-def test_backward_wrappers_refuse_f32_before_anything(kernel, monkeypatch):
-    """With use_bf16=False, K8's and K9's wrappers refuse first thing, before
-    they look at the device or build a kernel (here, on the CPU), naming the
-    f32 K8 and K9 of ROADMAP.md; K3's, K4's, K6's and K7's go for their f32
-    library (the build is stopped here)."""
+def test_backward_wrappers_go_for_their_f32_library(kernel, monkeypatch):
+    """With use_bf16=False, every backward wrapper (K3, K4, K6, K7, K8, K9)
+    goes for its f32 library, before anything launches (the build is
+    stopped here, on the CPU): no backward kernel refuses f32."""
     from danerf_tpu_torch.kernels import _build
     from danerf_tpu_torch.kernels import fused_mlp as fm
 
@@ -230,17 +227,11 @@ def test_backward_wrappers_refuse_f32_before_anything(kernel, monkeypatch):
 
     monkeypatch.setattr(_build, "load", load)
     fr.reset_launch_counts()
-    if kernel in ("K8", "K9"):
-        with pytest.raises(NotImplementedError, match=f"use_bf16=False is not yet ported to "
-                                                      f"{kernel} .*the f32 K8 and K9"):
-            call()
-        assert loaded == []
-    else:
-        with pytest.raises(Stop):
-            call()
-        lib = {"K3": "march_bwd", "K4": "merged_train", "K6": "merged_bwd",
-               "K7": "march_train"}[kernel]
-        assert loaded == [f"{lib}_f32"]
+    with pytest.raises(Stop):
+        call()
+    lib = {"K3": "march_bwd", "K4": "merged_train", "K6": "merged_bwd", "K7": "march_train",
+           "K8": "mlp_bwd", "K9": "hier_onepass"}[kernel]
+    assert loaded == [f"{lib}_f32"]
     assert not any(fr.LAUNCHES.values())
 
 
@@ -275,3 +266,55 @@ def test_f32_kernels_take_the_weights_transposed(use_time):
         _check_packed(packed, torch.device("cpu"), cfg16)
     with pytest.raises(ValueError, match="packed params must be torch.float32"):
         _check_packed(packed16, torch.device("cpu"), cfg)
+
+
+@pytest.mark.parametrize("path", ["per_sample", "hier_onepass"])
+def test_f32_k8_k9_steps_on_cpu_take_the_plain_versions(path, monkeypatch):
+    """An f32 step (use_bf16=False) on CPU tensors of the per-sample route
+    (K1 and K8 at the coarse samples and at the union) and of the one-kernel
+    route (K9) takes K8's and K9's plain versions, builds nothing and
+    launches nothing; the loss is finite and every parameter gets a
+    gradient."""
+    from danerf_tpu_torch.kernels import _build
+    from danerf_tpu_torch.kernels import fused_mlp as fm
+    from danerf_tpu_torch.models.nerf import NeRF
+    from danerf_tpu_torch.train.trainer import compute_loss_and_grads
+
+    over = {"per_sample": {"use_fused_train": False},
+            "hier_onepass": {"use_hier_onepass": True}}[path]
+    cfg = NeRFConfig(**SMALL, use_bf16=False, num_samples=SC, num_importance=SF, **over)
+    torch.manual_seed(0)
+    model = NeRF(cfg)
+    calls = {"fused_bwd_plain": 0, "hier_onepass_plain": 0}
+    for module, name in ((fm, "fused_bwd_plain"), (fr, "hier_onepass_plain")):
+        def spy(*a, _f=getattr(module, name), _n=name, **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(module, name, spy)
+
+    def load(name):
+        raise AssertionError(f"built {name} for CPU tensors")
+    monkeypatch.setattr(_build, "load", load)
+    rng = np.random.default_rng(5)
+    o = rng.normal(size=(R, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o / 4.0 + 0.3 * rng.normal(size=(R, 3))
+    batch = {"rays_o": torch.tensor(o, dtype=torch.float32),
+             "rays_d": torch.tensor(d / np.linalg.norm(d, axis=-1, keepdims=True),
+                                    dtype=torch.float32),
+             "rgb": torch.tensor(rng.random((R, 3)), dtype=torch.float32),
+             "img_idx": torch.tensor(rng.integers(0, 3, size=R))}
+    draws = (torch.tensor(rng.random((R, SC)), dtype=torch.float32),
+             torch.tensor(rng.random((R, SF)), dtype=torch.float32))
+    table = torch.nn.Parameter(torch.tensor(rng.normal(size=(3, cfg.appearance_dim)),
+                                            dtype=torch.float32))
+    fr.reset_launch_counts()
+    loss, aux = compute_loss_and_grads(model, table, cfg, batch, draws=draws)
+    want = {"per_sample": {"fused_bwd_plain": 2, "hier_onepass_plain": 0},
+            "hier_onepass": {"fused_bwd_plain": 0, "hier_onepass_plain": 1}}[path]
+    assert calls == want
+    assert not any(fr.LAUNCHES.values())
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(aux["coarse_mse"]))
+    assert table.grad is not None and bool(table.grad.abs().sum() > 0)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
