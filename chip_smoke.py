@@ -67,7 +67,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             uniforms from importance_uniforms); both MSEs, every gradient
             and demb; two calls agree bit for bit.
 4d. f32_kernels  the f32 configuration (use_bf16=False) of the forward
-            kernels, K2, K5 and K1 on csrc/field_f32.cuh (FFMA), with and
+            kernels, K2 and K5 on csrc/field_f32_sm90.cuh (3xTF32 wgmma)
+            and K1 on csrc/field_f32.cuh (FFMA), with and
             without time, against their f32 plain versions (TF32 off, the
             flags printed) within fused_render.PLAIN_TOL_F32 at the shapes
             tile_shapes takes and up to a 65,536-ray chunk and 131,072 rows;
@@ -77,9 +78,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             (exactly 10 f32 K2 and 10 f32 K5 launches, its ms, beside the
             bf16 frame), render_rays' per-sample route on a chunk (2 f32
             K1), both again on the time model at t = 0.5 (the has_time
-            variants), and the f32 kernels' and plain versions' ms at
-            FP32's bound (67 TFLOP/s) on a chunk (K1 at 131,072 rows), with
-            and without time.
+            variants), and the f32 kernels' and plain versions' ms on a
+            chunk (K1 at 131,072 rows), with and without time, beside their
+            bounds: K2 and K5 at TF32's dense rate, three products a MAC
+            (also FP32's FFMA bound and the GB of weights each streams from
+            L2), K1 at FP32's 67 TFLOP/s; then where the f32 and bf16
+            frames' time goes outside the kernels: render_frame alone (its
+            host issue time and its ms to the device's end), the PNG and
+            npy writes render_path adds, pack_params, and the host time of
+            one K2 and one K5 launch.
 4f. f32_bwd  the f32 configuration of the backward and training kernels,
             K3, K7, K4 and K6 on csrc/field_bwd_f32.cuh (FFMA, f32
             residuals), against their f32 plain versions (TF32 off) within
@@ -271,6 +278,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    mesh over the first 2, the others idle) against one process, the rgb
    PNGs within 1 level, the raw depth within TWO_RANK_TOL (the viridis
    depth PNGs within one colormap step), only rank 0 writing.
+10. frame_profile  the last profiler window: 4e's 800x800 medium frame,
+   f32 and bf16, render_frame under torch.profiler (device busy ms, the
+   window's ms, idle share, device ms by kernel).
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
 under "has_time"; K2, K5, K3 and K6 with the launches of 7e's kernel-route
@@ -295,6 +305,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -312,6 +323,7 @@ def max_err(a, b) -> float:
 
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12      # H100 SXM FP32 FLOP/s outside the tensor cores (the f32 kernels' FFMA)
+PEAK_TF32 = 495e12     # H100 SXM dense TF32 FLOP/s (the f32 K2 and K5: 3xTF32 wgmma)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 
 
@@ -355,12 +367,37 @@ def bound(cfg, rays, samples, bytes_moved, backward=False):
     K4 runs it once; both then run the chain: ~3 forward units), and demb's
     per-ray E x half MACs; at the bf16 tensor-core rate, or with
     ``cfg.use_bf16`` off at FP32's (the f32 kernels multiply on the CUDA
-    cores)."""
+    cores; tf32x3_bound is the f32 K2 and K5's)."""
     per_sample, per_ray = field_macs(cfg)
     macs = per_sample * rays * samples + per_ray * rays
     if backward:
         macs += bwd_macs(cfg) * rays * samples + per_ray * rays
     return bound_ms(2.0 * macs, bytes_moved, PEAK_BF16 if cfg.use_bf16 else PEAK_FP32)
+
+
+def tf32x3_bound(cfg, rays, samples, bytes_moved):
+    """The least time of the f32 K2 or K5 over rays x samples: the trunk and
+    dir-layer MACs three TF32 tensor-core products each (3xTF32) at TF32's
+    dense rate, the heads' and the appearance term's on the CUDA cores at
+    FP32's, or the bytes at HBM's, whichever is longest."""
+    h, half = cfg.hidden_dim, cfg.hidden_dim // 2
+    per_sample, per_ray = field_macs(cfg)
+    heads = h + 3 * half
+    t_tc = 3 * 2.0 * (per_sample - heads) * rays * samples / PEAK_TF32
+    t_cc = 2.0 * (heads * rays * samples + per_ray * rays) / PEAK_FP32
+    t_bytes = bytes_moved / PEAK_BYTES
+    return (max(t_tc, t_cc, t_bytes) * 1e3,
+            "bytes" if t_bytes >= max(t_tc, t_cc) else "operations")
+
+
+def weight_stream_gb(packed, tiles):
+    """The GB the f32 K2/K5 stream from L2 into their weight ring: every
+    trunk and dir-layer weight's TF32 hi and lo (8 bytes) once a tile.  No
+    L2 rate is measured, so no bound is drawn from it; kernel_ab.py
+    --ablate weight_stream times the tile without it."""
+    n_w = sum(n * k for name, (_, (n, k)) in packed.mat_at.items()
+              if name not in ("wapp", "wrgb"))
+    return tiles * 8 * n_w / 1e9
 
 
 def cuda_ms(fn, iters, warmup=1):
@@ -468,6 +505,16 @@ def phase_build(out_dir):
     res = {n: ptxas_resources(log) for n, log in logs.items()}
     for n in ("march", "merged", "mlp_fwd", "march_f32", "merged_f32", "mlp_fwd_f32"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
+    # the f32 K2 and K5 (csrc/field_f32_sm90.cuh): their TF32 wgmma in SASS
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for n in ("march_f32", "merged_f32"):
+        if os.path.exists(cuobjdump):
+            sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(n))],
+                                  capture_output=True, text=True, timeout=120).stdout
+            ops = re.findall(r"HGMMA\.(\w+)\.F32\.TF32", sass)
+            res[n]["hgmma_tf32"] = {"count": len(ops), "shapes": sorted(set(ops))}
+        else:
+            res[n]["hgmma_tf32"] = "no cuobjdump on this host"
     # K3, K4, K6, K7, K8 and K9 (csrc/field_bwd_sm90.cuh): the tile kernel and
     # the dW pass apart, each with its dynamic shared memory
     for n in ("march_bwd", "merged_train", "merged_bwd", "march_train", "mlp_bwd",
@@ -1254,8 +1301,8 @@ F32_GAIN = 16.0
 
 
 def phase_f32_kernels(cfg, model, cfg_t, model_t, device):
-    """The f32 variants (use_bf16=False, csrc/field_f32.cuh) of K2, K5 and
-    K1, without and with time, against their f32 plain versions on the card
+    """The f32 variants (use_bf16=False) of K2 and K5 (csrc/field_f32_sm90.cuh,
+    3xTF32) and K1 (csrc/field_f32.cuh), without and with time, against their f32 plain versions on the card
     (TF32 off, the flags printed) within fused_render.PLAIN_TOL_F32, at the
     shapes tile_shapes holds the bf16 kernels to and up to a chunk: K2 at 37
     rays x 64 and 4093 rays x S = 32, 48, 64, 100, 128 with and without its
@@ -1381,6 +1428,72 @@ def phase_f32_kernels(cfg, model, cfg_t, model_t, device):
     return worst, min(ratios.values())
 
 
+def frame_call(model, cfg, emb, side, device, quality="medium"):
+    """render_frame as render_path calls it for frame 0 of a one-frame
+    circle path at ``quality`` (seed 0): a function of no arguments."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.config import RENDER_PRESETS
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.viz.paths import camera_path
+
+    preset = RENDER_PRESETS[quality]
+    c2w = camera_path("circle", 1, cfg.scene, 2.0, (-0.5, 0.5))[0]
+    focal = 0.5 * side / np.tan(0.5 * 0.6911)
+    n_samples = max(int(cfg.num_samples * preset["samples_scale"]), 1)
+    n_importance = cfg.num_importance if preset["importance"] else 0
+    return lambda: render_frame(
+        model, cfg, c2w, side, side, focal, appearance_embedding=emb, n_samples=n_samples,
+        n_importance=n_importance, perturb=preset["perturb"], chunk=preset["chunk"],
+        generator=torch.Generator(device=device).manual_seed(0), device=device)
+
+
+def frame_breakdown(model, cfg, emb, side, device, path_ms, rays, reps=3):
+    """Where one medium render_path frame's time goes outside its kernels,
+    with no profiler window open (best of ``reps`` each): render_frame
+    alone (frame_call), its host time until it returns (issue_ms) and until
+    the device is done (frame_ms); pack_params, which it runs once a frame
+    (synchronised); the host time of one K2 (want_field) and one K5 launch
+    on ``rays`` (o, d, emb, z, field, z_f of a chunk) while the device is
+    busy, 10 back to back with no wait; and ``path_ms`` - frame_ms, what
+    render_path adds to it: the copy back and the PNG and npy writes of the
+    one frame, which no next frame hides."""
+    import torch
+
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+
+    frame = frame_call(model, cfg, emb, side, device)
+    issue, whole, pack = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        pk = pack_params(model, cfg, appearance=True)
+        torch.cuda.synchronize()
+        pack.append((time.perf_counter() - t0) * 1e3)
+    o, d, e, z, field, z_f = rays
+    host = {}
+    for name, launch in (
+            ("k2", lambda: fr.march_cuda(pk, cfg, o, d, e, z, want_field=True)),
+            ("k5", lambda: fr.merged_cuda(pk, cfg, o, d, e, z, field, z_f))):
+        launch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            launch()
+        host[name] = (time.perf_counter() - t0) * 1e3 / 10
+        torch.cuda.synchronize()
+    return {"render_frame_issue_ms": min(issue), "render_frame_ms": min(whole),
+            "render_path_minus_frame_ms": path_ms - min(whole), "pack_params_ms": min(pack),
+            "host_ms_per_launch": host}
+
+
 def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
     """The f32 serving path on the card, through the library entry point
     (no CLI flag reaches use_bf16 in either package): one 800x800 medium
@@ -1394,9 +1507,11 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
     bound of the fused f32 route on the same rays.  The same two runs on
     the time model at t = 0.5 drive the has_time variants (the frame: 10
     + 10, each launch counted apart; the route: 2 K1).  Then CUDA-event times
-    of the f32 kernels and their plain versions beside their FP32 bounds:
-    K2 (want_field) and K5 on a chunk, K1 at 131,072 rows, without and with
-    time."""
+    of the f32 kernels and their plain versions beside their bounds: K2
+    (want_field) and K5 on a chunk at TF32's rate (tf32x3_bound; also FP32's
+    FFMA bound and the GB of their weight stream, weight_stream_gb), K1 at
+    131,072 rows at FP32's, without and with time.  Last, where the f32 and
+    bf16 frames' time goes outside the kernels (frame_breakdown)."""
     import numpy as np
     import torch
 
@@ -1481,20 +1596,27 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
                          rand=torch.Generator(device=device).manual_seed(611))
         field = field["field"]
         w_bytes = pk.mats.numel() * 4 + pk.vecs.numel() * 4
+        w_split = w_bytes + pk.mats_tf32.numel() * 4   # K2, K5: also the TF32 halves
         e, nt = c.appearance_dim, int(t is not None)
-        k2_bytes = 4 * R * (3 + 3 + e + S + nt) + 4 * R * (3 + 1 + 1 + S + 4 * S) + w_bytes
+        k2_bytes = 4 * R * (3 + 3 + e + S + nt) + 4 * R * (3 + 1 + 1 + S + 4 * S) + w_split
         k5_bytes = (4 * R * (3 + 3 + e + S + 4 * S + Sf + nt)
-                    + 4 * R * (3 + 1 + 1 + 2 * (S + Sf)) + w_bytes)
+                    + 4 * R * (3 + 1 + 1 + 2 * (S + Sf)) + w_split)
         timing[f"k2{tag}_ms"] = cuda_ms(
             lambda: fr.march_cuda(pk, c, o, d, emb, z, t, want_field=True), 3)
         timing[f"k2{tag}_plain_ms"] = cuda_ms(
             lambda: fr.march_plain(pk, c, o, d, emb, z, t, want_field=True), 3)
-        timing[f"k2{tag}_bound_ms"], bound_by[f"k2{tag}"] = bound(c, R, S, k2_bytes)
+        # K2 and K5: 3xTF32 on the tensor cores; beside it FP32's FFMA bound
+        # (the tile before this one's) and the GB of the weight stream
+        timing[f"k2{tag}_bound_ms"], bound_by[f"k2{tag}"] = tf32x3_bound(c, R, S, k2_bytes)
+        timing[f"k2{tag}_ffma_bound_ms"], _ = bound(c, R, S, k2_bytes)
+        timing[f"k2{tag}_weight_stream_gb"] = weight_stream_gb(pk, math.ceil(R / min(128 // S, 8)))
         timing[f"k5{tag}_ms"] = cuda_ms(
             lambda: fr.merged_cuda(pk, c, o, d, emb, z, field, z_f, t), 3)
         timing[f"k5{tag}_plain_ms"] = cuda_ms(
             lambda: fr.merged_plain(pk, c, o, d, emb, z, field, z_f, t), 3)
-        timing[f"k5{tag}_bound_ms"], bound_by[f"k5{tag}"] = bound(c, R, Sf, k5_bytes)
+        timing[f"k5{tag}_bound_ms"], bound_by[f"k5{tag}"] = tf32x3_bound(c, R, Sf, k5_bytes)
+        timing[f"k5{tag}_ffma_bound_ms"], _ = bound(c, R, Sf, k5_bytes)
+        timing[f"k5{tag}_weight_stream_gb"] = weight_stream_gb(pk, math.ceil(R / min(128 // Sf, 8)))
         del o, d, emb, z, field, z_f
         x, dr, er = sample_rows(c.batch_size, c, 612, device, S + Sf)
         rows = x.shape[0]
@@ -1505,12 +1627,29 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
         k1_bytes = 4 * rows * (3 + 3 + e + nt) + 4 * rows * (3 + 1) + w_bytes
         timing[f"k1{tag}_131072_bound_ms"], bound_by[f"k1{tag}"] = bound(c, rows, 1, k1_bytes)
         del x, dr, er
+
+    # where each frame's time goes outside its 10 + 10 kernels
+    breakdown = {}
+    for name, c in (("f32", c32), ("bf16", cfg)):
+        R = c.render_chunk
+        o, d, emb, z = make_rays(R, c, seed=610, device=device)
+        pk = pack_params(model, c)
+        coarse = fr.march_cuda(pk, c, o, d, emb, z, want_field=True)
+        field = coarse["field"]
+        z_f = sample_pdf(z, coarse["weights"], c.num_importance, True,
+                         rand=torch.Generator(device=device).manual_seed(611))
+        breakdown[name] = frame_breakdown(model, c, emb0, side, device, runs[name]["ms"],
+                                          (o, d, emb, z, field, z_f))
+        del o, d, emb, z, coarse, field, z_f
+    breakdown["f32"]["kernels_ms"] = chunks * (timing["k2_ms"] + timing["k5_ms"])
     report = {"phase": "f32_path", "frame": {
         "side": side, "quality": "medium", "render_path_ms": runs["f32"]["ms"],
         "launches": runs["f32"]["launches"], "bf16_render_path_ms": runs["bf16"]["ms"],
         "bf16_launches": runs["bf16"]["launches"], "vs_bf16_frame": vs_bf16,
         "derived_ms": chunks * (timing["k2_ms"] + timing["k5_ms"]),
-        "bound_ms": chunks * (timing["k2_bound_ms"] + timing["k5_bound_ms"])},
+        "bound_ms": chunks * (timing["k2_bound_ms"] + timing["k5_bound_ms"]),
+        "ffma_bound_ms": chunks * (timing["k2_ffma_bound_ms"] + timing["k5_ffma_bound_ms"]),
+        "outside_kernels": breakdown},
         "time_frame": {"t": 0.5, "render_path_ms": runs["f32_time"]["ms"],
                        "launches": runs["f32_time"]["launches"],
                        "derived_ms": chunks * (timing["k2t_ms"] + timing["k5t_ms"]),
@@ -1787,7 +1926,7 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
         failures.append("an f32 backward kernel gave different results on the same inputs")
 
     # times at B = 1024 and at 8,192 rays (the has_time variants at B =
-    # 1024), beside the FP32 bound
+    # 1024), beside the FP32 bound (K2's: tf32x3_bound)
     timing, bound_by = {}, {}
     sc, sf = c.num_samples, c.num_importance
     for tag, c16, m, sizes in (("", cfg, model, (c.batch_size, 8192)),
@@ -1828,9 +1967,9 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
             timing[f"k2{tag}_{n}_ms"] = cuda_ms(
                 lambda: fr.march_cuda(p32, c, o, d, emb, z, t, want_field=True), 10)
             e = c.appearance_dim
-            timing[f"k2{tag}_{n}_bound_ms"], _ = bound(
+            timing[f"k2{tag}_{n}_bound_ms"], _ = tf32x3_bound(
                 c, n, sc, 4 * n * (3 + 3 + e + sc) + 4 * n * (3 + 1 + 1 + 5 * sc)
-                + 8 * p32.mats.numel())
+                + 12 * p32.mats.numel())
             del o, d, emb, z, cot, g_field, target, field, z_f, c6, calls
         # K1 and K8 at the rows of the batch's coarse and fine evaluations
         # (the f32 per-sample step's), K9 at the batch (the f32 one-kernel
@@ -2893,6 +3032,30 @@ def profile_steps(step, n_prof=10):
             "profile_breakdown_ms_per_step": breakdown,
             "profile_device_busy_ms_per_step": busy_ms, "profile_wall_ms_per_step": wall_ms,
             "profile_idle_share": 1.0 - busy_ms / wall_ms}
+
+
+def phase_frame_profile(cfg, model, device, side=800):
+    """One 800x800 medium frame's render_frame (frame_call), f32 and bf16,
+    under torch.profiler after a warm call: the device's busy ms, the
+    frame's ms in the window and its idle share, and the device ms by
+    kernel.  The last profiler window of the run, so it slows no timing
+    after it (PERF.md §7); f32_path's frame_breakdown times the same frames
+    without one."""
+    import torch
+
+    emb0 = torch.randn(cfg.appearance_dim, generator=torch.Generator().manual_seed(3))
+    report = {"phase": "frame_profile", "side": side, "quality": "medium"}
+    for name, c in (("f32", cfg.replace(use_bf16=False)), ("bf16", cfg)):
+        frame = frame_call(model, c, emb0, side, device)
+        frame()
+        torch.cuda.synchronize()
+        prof = profile_steps(frame, n_prof=1)
+        report[name] = {"device_busy_ms": prof["profile_device_busy_ms_per_step"],
+                        "wall_ms": prof["profile_wall_ms_per_step"],
+                        "idle_share": prof["profile_idle_share"],
+                        "device_ms_by_kernel": prof["profile_ms_per_step"]}
+    emit(report)
+    return report
 
 
 def phase_train_timing(cfg, model, device, chunk):
@@ -4325,6 +4488,8 @@ def main(argv=None):
     dist_frame = phase_dist_frame(cfg, model, device, mesh)
     dist.destroy_process_group()
     phase_dist_ranks(cfg, device, args.out)
+    # the last profiler window: the f32 and bf16 frames, device busy and idle
+    phase_frame_profile(cfg, model, device)
 
     def train_kernel(name, key, source, replaces, path, counter):
         # a training kernel at the batch (B = 1024 rays, 64 + 64), its
@@ -4438,7 +4603,8 @@ def main(argv=None):
                 "launches"]["mlp_fwd"]
     # the f32 variants (use_bf16=False) of K2, K5 and K1: launches from the
     # f32 800x800 frames (K2, K5) and the f32 per-sample routes (K1), without
-    # and with time; times on a chunk (K1 at 131,072 rows) at FP32's bound
+    # and with time; times on a chunk (K1 at 131,072 rows) beside their bounds
+    # (K2, K5: 3xTF32's; K1: FP32's)
     for name, key, source, line, counter, path, path_t in (
             ("K2 ray march (want_field), f32", "k2", "march_f32.cu",
              "fused_render.py:155", "march_f32", "frame_launches", "time_frame_launches"),
@@ -4448,12 +4614,14 @@ def main(argv=None):
              "mlp_fwd_f32", "k1_launches", "time_k1_launches")):
         tm = f32["timing"]
         at = "_131072" if key == "k1" else ""
+        # K2 and K5 (3xTF32): beside the bound, FP32's FFMA bound
+        extra = {} if key == "k1" else {"ffma_bound_ms": tm[f"{key}_ffma_bound_ms"]}
         kernels.append({
             "name": name, "route": "cuda", "source": f"danerf_tpu_torch/kernels/csrc/{source}",
             "replaces": f"danerf_tpu/kernels/{line}", "launches": f32[path][counter],
             "max_abs_err": errs_f32[key.upper()], "ms": tm[f"{key}{at}_ms"],
             "plain_ms": tm[f"{key}{at}_plain_ms"], "bound_ms": tm[f"{key}{at}_bound_ms"],
-            "bound_by": f32["bound_by"][key], "library_ms": None,
+            "bound_by": f32["bound_by"][key], "library_ms": None, **extra,
             "config": "use_bf16=False", "bf16_over_f32_error_ratio_worst": f32_ratio,
             "variants_held": ["without time", "has_time"],
             "has_time": {"launches": f32[path_t][counter],

@@ -32,10 +32,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # without use_time) follows the other data inputs.  The tail of the backward
 # entry points: transposed weights, their layout record, scratch, n_vecs.
 # K1 (mlp_fwd) takes its scratch and its size before the stream.  The f32
-# variants of K2, K5 and K1 take their bf16 kernels' arguments, the weights
-# transposed in f32 in place of the packed bf16 ones, and K1's none of its
+# variants of K2 and K5 take their bf16 kernels' arguments with three weight
+# pointers in place of the packed bf16 ones (the packed f32 weights and their
+# TF32 hi and lo halves), K1's the weights transposed in f32 and none of its
 # scratch; those of K3, K4, K6, K7, K8 and K9 take their bf16 kernels'
-# arguments (fused_mlp.bwd_weights: the weights each reads).
+# arguments (fused_mlp.fwd_weights, bwd_weights: the weights each reads).
 _BWD_TAIL = [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P]
 _SIGNATURES = {
     "march": ("danerf_march", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
@@ -48,8 +49,10 @@ _SIGNATURES = {
     "mlp_bwd": ("danerf_mlp_bwd", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P] * 3 + _BWD_TAIL),
     "hier_onepass": ("danerf_hier_onepass",
                      [_P] * 7 + [_I] * 4 + [ctypes.c_double] + [_P] * 4 + _BWD_TAIL),
-    "march_f32": ("danerf_march_f32", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
-    "merged_f32": ("danerf_merged_f32", [_P] * 7 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _I, _P]),
+    "march_f32": ("danerf_march_f32",
+                  [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _P, _P, _I, _P]),
+    "merged_f32": ("danerf_merged_f32",
+                   [_P] * 7 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _P, _P, _I, _P]),
     "mlp_fwd_f32": ("danerf_mlp_fwd_f32", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
 }
 for _name in ("march_bwd", "merged_train", "march_train", "merged_bwd", "mlp_bwd",
@@ -138,7 +141,7 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, size_fn).restype = ctypes.c_longlong
         lib.danerf_error_string.argtypes = [ctypes.c_int]
         lib.danerf_error_string.restype = ctypes.c_char_p
-        if hasattr(lib, "danerf_tile_smem_bytes"):  # K1, K2, K5 (field_sm90.cuh, field_f32.cuh)
+        if hasattr(lib, "danerf_tile_smem_bytes"):  # K1, K2, K5 and their f32 variants
             lib.danerf_tile_smem_bytes.argtypes = []
             lib.danerf_tile_smem_bytes.restype = ctypes.c_longlong
         if hasattr(lib, "danerf_mlp_fwd_scratch_bytes"):  # K1: (N, E) -> bytes

@@ -25,9 +25,12 @@ danerf_tpu/kernels/fused_mlp.py).
 
 Both configurations of the JAX kernels: bf16 (``use_bf16``, the default)
 and f32.  The forward kernels K1, K2 and K5 take f32 through variants of
-their own on ``csrc/field_f32.cuh`` (``mlp_fwd_f32.cu``, ``march_f32.cu``,
-``merged_f32.cu``), which read the weights transposed
-(``PackedParams.mats_kn``, ``fwd_weights``); the backward kernels K3, K4,
+their own: K2 and K5 (``march_f32.cu``, ``merged_f32.cu``) on
+``csrc/field_f32_sm90.cuh``'s tensor-core tile, which reads the weights
+split into TF32 halves (``split_tf32``, ``PackedParams.mats_tf32``) and, for
+its heads, as packed; K1 (``mlp_fwd_f32.cu``) on ``csrc/field_f32.cuh``,
+which reads them transposed (``PackedParams.mats_kn``; ``fwd_weights``
+names each one's); the backward kernels K3, K4,
 K6, K7, K8 and K9 through theirs on ``csrc/field_bwd_f32.cuh``
 (``march_bwd_f32.cu``, ``merged_train_f32.cu``, ``merged_bwd_f32.cu``,
 ``march_train_f32.cu``, ``mlp_bwd_f32.cu``, ``hier_onepass_f32.cu``), which
@@ -89,10 +92,14 @@ class PackedParams:
     mats: 1-D, compute dtype; each matrix (out, K padded to 16) row-major.
     vecs: 1-D f32; biases and the density head's (hidden,) weight.
     mat_at / vec_at: name -> (offset, shape).
-    mats_kn: without ``use_bf16``, the f32 kernels' weights
-    (``csrc/field_f32.cuh``): each matrix transposed, W^T (K, out) row-major
-    at W's own offset, so that a K slice of it is one contiguous run; None
-    under ``use_bf16``.
+    mats_kn: without ``use_bf16``, the weights of the f32 kernels on
+    ``csrc/field_f32.cuh`` (K1 and the backward tile): each matrix
+    transposed, W^T (K, out) row-major at W's own offset, so that a K slice
+    of it is one contiguous run; None under ``use_bf16``.
+    mats_tf32: without ``use_bf16``, the f32 K2 and K5's weights
+    (``csrc/field_f32_sm90.cuh``): (2, mats.numel()), ``mats`` split by
+    ``split_tf32`` into hi (row 0) and lo (row 1), each in ``mats``' layout;
+    None under ``use_bf16``.
     """
     mats: torch.Tensor
     vecs: torch.Tensor
@@ -101,6 +108,7 @@ class PackedParams:
     num_layers: int
     has_appearance: bool
     mats_kn: Optional[torch.Tensor] = None
+    mats_tf32: Optional[torch.Tensor] = None
 
     def mat(self, name: str) -> torch.Tensor:
         off, shape = self.mat_at[name]
@@ -113,6 +121,20 @@ class PackedParams:
     @property
     def device(self) -> torch.device:
         return self.mats.device
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of f32 ``x`` for 3xTF32 products: hi rounds x to TF32 as
+    ``cvt.rna.tf32.f32`` does (to nearest on the bit pattern, ties away from
+    zero: the low 13 mantissa bits become zero), lo rounds x - hi, which is
+    exact in f32, the same way; |x - hi - lo| <= 2^-22 |x| for |x| >=
+    2^-100.  Device ops only, so a captured step splits in its graph."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def enc_widths(cfg: NeRFConfig) -> Tuple[int, int]:
@@ -176,15 +198,16 @@ def pack_params(model, cfg: NeRFConfig, appearance: bool = True,
     add_mat("wrgb", model.rgb_linear.weight, half)
     add_vec("brgb", model.rgb_linear.bias)
     flat = torch.cat([m.to(dev) for m in mats])
-    kn = None
+    kn = split = None
     if not cfg.use_bf16:
         kn = torch.zeros_like(flat)
         for off, (n, k) in mat_at.values():
             kn[off:off + n * k].view(k, n).copy_(flat[off:off + n * k].view(n, k).t())
+        split = torch.stack(split_tf32(flat))
     return PackedParams(
         mats=flat.to(cdt), vecs=torch.cat([v.to(dev) for v in vecs]),
         mat_at=mat_at, vec_at=vec_at, num_layers=len(model.pts_linears),
-        has_appearance=use_app, mats_kn=kn)
+        has_appearance=use_app, mats_kn=kn, mats_tf32=split)
 
 
 def kernel_meta(packed: PackedParams, cfg: NeRFConfig) -> Tuple[int, ...]:
@@ -473,12 +496,16 @@ def _check_packed(packed: PackedParams, device, cfg: NeRFConfig) -> None:
 
 
 def fwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
-    """(library name, its weights) of forward kernel ``name``: the bf16
-    kernel on the packed weights, or without ``use_bf16`` its f32 variant
-    on them transposed (``mats_kn``)."""
+    """(library name, its weight tensors in the order its C entry takes
+    them) of forward kernel ``name``: the bf16 kernel on the packed weights;
+    without ``use_bf16`` its f32 variant: K2 and K5 on the packed f32
+    weights and their TF32 halves (``mats_tf32``: hi, lo), K1 on them
+    transposed (``mats_kn``)."""
     if cfg.use_bf16:
-        return name, packed.mats
-    return f"{name}_f32", packed.mats_kn
+        return name, (packed.mats,)
+    if name == "mlp_fwd":
+        return f"{name}_f32", (packed.mats_kn,)
+    return f"{name}_f32", (packed.mats, packed.mats_tf32[0], packed.mats_tf32[1])
 
 
 def bwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):

@@ -25,9 +25,11 @@ Seven kernels, each with a plain PyTorch version of the same function:
   K6's backward in one call; returns the loss, the fine-side gradients,
   ``demb`` and ``g_field``.
 - K2 and K5 in f32 (``use_bf16=False``): ``csrc/march_f32.cu`` and
-  ``csrc/merged_f32.cu`` on ``csrc/field_f32.cuh``'s FFMA tile, the same
-  functions with every product in f32; ``march_cuda`` and ``merged_cuda``
-  launch them when ``cfg.use_bf16`` is off (held to ``PLAIN_TOL_F32``).
+  ``csrc/merged_f32.cu`` on ``csrc/field_f32_sm90.cuh``'s tensor-core tile,
+  the same functions with every product formed to f32 accuracy by 3xTF32
+  (the operands split into TF32 halves, ``fused_mlp.split_tf32``);
+  ``march_cuda`` and ``merged_cuda`` launch them when ``cfg.use_bf16`` is
+  off (held to ``PLAIN_TOL_F32``).
 - K3, K7, K4 and K6 in f32: ``csrc/march_bwd_f32.cu``,
   ``csrc/march_train_f32.cu``, ``csrc/merged_train_f32.cu`` and
   ``csrc/merged_bwd_f32.cu`` on ``csrc/field_bwd_f32.cuh``'s FFMA tile (f32
@@ -431,7 +433,7 @@ def march_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, t=None,
     o, d, emb, z = (_f32(x, dev) for x in (o, d, emb, z))
     r, s = z.shape
     t = _time_arg(cfg, t, r, dev)
-    name, mats = fwd_weights(packed, cfg, "march")
+    name, weights = fwd_weights(packed, cfg, "march")
     lib = _build.load(name)
     rgb = torch.empty(r, 3, device=dev)
     depth = torch.empty(r, device=dev)
@@ -442,7 +444,7 @@ def march_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z, t=None,
     code = getattr(lib, f"danerf_{name}")(
         o.data_ptr(), d.data_ptr(), emb.data_ptr(), z.data_ptr(), _arg(t), r, s, emb.shape[-1],
         rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(), w.data_ptr(), _arg(field),
-        mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
+        *(x.data_ptr() for x in weights), packed.vecs.data_ptr(), meta, n_meta,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, name)
     LAUNCHES[name] += 1
@@ -463,7 +465,7 @@ def merged_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c,
     sf = z_f.shape[-1]
     _check_field(field_c, r, sc)
     t = _time_arg(cfg, t, r, dev)
-    name, mats = fwd_weights(packed, cfg, "merged")
+    name, weights = fwd_weights(packed, cfg, "merged")
     lib = _build.load(name)
     rgb = torch.empty(r, 3, device=dev)
     depth = torch.empty(r, device=dev)
@@ -475,7 +477,7 @@ def merged_cuda(packed: PackedParams, cfg: NeRFConfig, o, d, emb, z_c,
         o.data_ptr(), d.data_ptr(), emb.data_ptr(), z_c.data_ptr(), field_c.data_ptr(),
         z_f.data_ptr(), _arg(t), r, sc, sf, emb.shape[-1],
         rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(), w.data_ptr(), z_all.data_ptr(),
-        mats.data_ptr(), packed.vecs.data_ptr(), meta, n_meta,
+        *(x.data_ptr() for x in weights), packed.vecs.data_ptr(), meta, n_meta,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, name)
     LAUNCHES[name] += 1

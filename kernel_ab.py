@@ -13,7 +13,19 @@ events at chip_smoke.py's shapes and seeds: K2 (want_field) and K5 on a
 g_field), K4, K6, K7 and K9 at the 1024-ray batch, K6 and K7 also with time
 (``k6_t``, ``k7_t``), K1 and K8 at the 131,072 rows of a batch's fine
 evaluation, K1 also with time (``k1_t``), K1 and K8 also at the 65,536 rows
-of its coarse one (``k1_65536``, ``k8_65536``).
+of its coarse one (``k1_65536``, ``k8_65536``); the f32 configuration
+(use_bf16=False) of K2 (want_field) and K5 on the chunk (``k2_f32``,
+``k5_f32``) and of K2 at the 1024-ray batch (``k2_f32_1024``), each also
+with time (``..._t``).
+
+    python3 kernel_ab.py --ablate {weight_stream,products} [--rounds 1]
+
+times this tree against a copy of it (``build/ablate_NAME``) whose f32 K2/K5
+tile (``csrc/field_f32_sm90.cuh``) lacks one part: ``weight_stream``, the
+TMA loads of the weight ring (each stage is released to the consumers
+unloaded), or ``products``, the tensor-core products (each slice's fence,
+commit and wait stay).  The copy's f32 outputs are wrong; only its times
+mean something: how far that part holds the tile.
 Prints one
 JSON line per process and, last, the medians per tree and their ratio
 (this / base) per kernel.  Needs a GPU; exits non-zero without one.
@@ -25,10 +37,46 @@ import argparse
 import json
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# --ablate: (the text of csrc/field_f32_sm90.cuh taken out, what replaces it)
+ABLATIONS = {
+    "weight_stream": (
+        """        mbar_expect_tx(full + 8 * pp.stage, 2 * n * ROW_BYTES);
+        tma_load3(ring + pp.stage * STAGE_BYTES, &maps.m[i], k0, full + 8 * pp.stage);
+""",
+        """        mbar_arrive(&sm.full[pp.stage]);
+"""),
+    "products": (
+        """  wgmma_tf32<N>(acc, f.lo, dh, !first);
+  wgmma_tf32<N>(acc, f.hi, dl, 1);
+  wgmma_tf32<N>(acc, f.hi, dh, 1);
+""",
+        ""),
+}
+
+
+def ablated_tree(name):
+    """A copy of this tree's package under build/ablate_NAME with the f32
+    K2/K5 tile's part ``name`` taken out (ABLATIONS); returns its root."""
+    root = os.path.join(HERE, "build", f"ablate_{name}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(HERE, "danerf_tpu_torch"),
+                    os.path.join(root, "danerf_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    header = os.path.join(root, "danerf_tpu_torch", "kernels", "csrc", "field_f32_sm90.cuh")
+    with open(header) as f:
+        text = f.read()
+    old, new = ABLATIONS[name]
+    if text.count(old) != 1:
+        raise RuntimeError(f"--ablate {name}: its text is not in field_f32_sm90.cuh once")
+    with open(header, "w") as f:
+        f.write(text.replace(old, new))
+    return root
 
 
 def _time_kernels(iters):
@@ -49,6 +97,8 @@ def _time_kernels(iters):
     cfg_t = cfg.replace(use_time=True)
     model_t = NeRF(cfg_t, torch.Generator().manual_seed(0)).to(dev).requires_grad_(False)
     packed_t = fm.pack_params(model_t, cfg_t)
+    c32, c32_t = cfg.replace(use_bf16=False), cfg_t.replace(use_bf16=False)
+    p32, p32_t = fm.pack_params(model, c32), fm.pack_params(model_t, c32_t)
 
     def rays(n, seed, samples):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -93,6 +143,13 @@ def _time_kernels(iters):
                                                    want_field=True), max(2, iters // 4))
             out["k5_t"] = ms(lambda: fr.merged_cuda(packed_t, cfg_t, o, d, emb, z, field_t, z_f, t),
                              max(2, iters // 4))
+            # the f32 K2 and K5, without and with time
+            for key, cc, pp, tt in (("", c32, p32, None), ("_t", c32_t, p32_t, t)):
+                f32_field = fr.march_cuda(pp, cc, o, d, emb, z, tt, want_field=True)["field"]
+                out["k2_f32" + key] = ms(lambda: fr.march_cuda(pp, cc, o, d, emb, z, tt,
+                                                               want_field=True), max(2, iters // 8))
+                out["k5_f32" + key] = ms(lambda: fr.merged_cuda(pp, cc, o, d, emb, z, f32_field,
+                                                                z_f, tt), max(2, iters // 8))
             continue
         cot = (torch.randn(n, 3, generator=g, device=dev), torch.randn(n, generator=g, device=dev),
                torch.randn(n, generator=g, device=dev),
@@ -114,6 +171,10 @@ def _time_kernels(iters):
                                                     *c6, t=t), iters)
         out["k7_t"] = ms(lambda: fr.march_train_cuda(packed_t, cfg_t, o, d, emb, z, target, t),
                          iters)
+        out["k2_f32_1024"] = ms(lambda: fr.march_cuda(p32, c32, o, d, emb, z, want_field=True),
+                                iters)
+        out["k2_f32_1024_t"] = ms(lambda: fr.march_cuda(p32_t, c32_t, o, d, emb, z, t,
+                                                        want_field=True), iters)
     for key, seed, s in (("", 34, sc + sf), ("_65536", 33, sc)):
         o, d, emb, z, g = rays(cfg.batch_size, seed, s)
         rep = lambda t: t[:, None, :].expand(-1, s, -1).reshape(-1, t.shape[-1]).contiguous()
@@ -153,6 +214,8 @@ def _worker(tree, iters):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("base", nargs="?", help="the other checkout")
+    ap.add_argument("--ablate", choices=sorted(ABLATIONS), default=None,
+                    help="time against this tree with a part of the f32 K2/K5 tile taken out")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
@@ -160,9 +223,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.worker is not None:
         return _worker(args.worker, args.iters)
-    if args.base is None:
-        ap.error("BASE_DIR is required")
-    trees = {"base": os.path.abspath(args.base), "this": HERE}
+    if (args.base is None) == (args.ablate is None):
+        ap.error("give BASE_DIR or --ablate, not both")
+    base = ablated_tree(args.ablate) if args.ablate else os.path.abspath(args.base)
+    trees = {"base": base, "this": HERE}
     runs = {"base": [], "this": []}
     lines = []
     for _ in range(args.rounds):

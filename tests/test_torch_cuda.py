@@ -1138,8 +1138,8 @@ def _close32(got, want, keys):
 @pytest.mark.parametrize("want_field", [True, False])
 @pytest.mark.parametrize("s", [32, 48, 64, 100, 128])
 def test_march_f32_kernel_matches_plain(dev, s, want_field, use_time):
-    """K2's f32 variant (csrc/march_f32.cu) at 1 to 4 rays a 128-row tile
-    (two 64-row blocks), 333 rays (a ragged last tile): within
+    """K2's f32 variant (csrc/march_f32.cu on field_f32_sm90.cuh) at 1 to 4
+    rays a 128-row tile, 333 rays (a ragged last tile): within
     PLAIN_TOL_F32 of its f32 plain version, two calls bit for bit, one f32
     launch a call and no bf16 one."""
     cfg, model, o, d, emb, z, t, _ = _ray_inputs(dev, 333, s, 0, use_time)
@@ -1176,6 +1176,45 @@ def test_merged_f32_kernel_matches_plain(dev, sc, sf, use_time, appearance):
     zf129 = torch.sort(torch.rand(333, 129, generator=g, device=dev) * 4 + 2, dim=-1)[0]
     with pytest.raises(RuntimeError, match="a width this kernel does not take"):
         fr.merged_cuda(packed, cfg, o, d, emb, z, coarse["field"], zf129, t)
+
+
+@pytest.mark.parametrize("n,s", [(37, 128), (4093, 100)])
+def test_f32_serving_kernels_on_ragged_grids(dev, n, s):
+    """The f32 K2 and K5 (csrc/field_f32_sm90.cuh's persistent tile) where
+    the grid is ragged: 37 rays of 128 samples (37 one-ray tiles, fewer
+    than the card's SMs: a CTA a tile and SMs with none) and 4093 rays of
+    100 (4093 tiles over every SM, some CTAs a tile more than others); K5
+    at 128 + 128 (one ray a tile) on the same rays.  Within PLAIN_TOL_F32
+    of their f32 plain versions, the merged depths exact."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, n, s, 6, False)
+    cfg = cfg.replace(use_bf16=False)
+    packed = pack_params(model, cfg)
+    want = fr.march_plain(packed, cfg, o, d, emb, z, t, want_field=True)
+    _close32(fr.march_cuda(packed, cfg, o, d, emb, z, t, want_field=True), want,
+             ["rgb", "depth", "acc", "weights", "field"])
+    zc = z[:, :128].contiguous() if s >= 128 else torch.sort(
+        torch.cat([z, z[:, :128 - s] + 1e-3], dim=-1), dim=-1)[0]
+    coarse = fr.march_plain(packed, cfg, o, d, emb, zc, t, want_field=True)
+    z_f = sample_pdf(zc, coarse["weights"], 128, True, rand=g)
+    args = (packed, cfg, o, d, emb, zc, coarse["field"], z_f, t)
+    _close32(fr.merged_cuda(*args), fr.merged_plain(*args),
+             ["rgb", "depth", "acc", "weights", "z_vals"])
+
+
+def test_f32_serving_kernels_agree_bit_for_bit_on_a_chunk(dev):
+    """Two launches of the f32 K2 (with its field) and of the f32 K5 on a
+    65,536-ray chunk (S = 64, 64 + 64) agree bit for bit: no output of
+    either is summed with atomics."""
+    cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 65536, 64, 7, False)
+    cfg = cfg.replace(use_bf16=False)
+    packed = pack_params(model, cfg)
+    a = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
+    b = fr.march_cuda(packed, cfg, o, d, emb, z, want_field=True)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    z_f = sample_pdf(z, a["weights"], 64, True, rand=g)
+    args = (packed, cfg, o, d, emb, z, a["field"], z_f)
+    a5, b5 = fr.merged_cuda(*args), fr.merged_cuda(*args)
+    assert all(torch.equal(a5[k], b5[k]) for k in a5)
 
 
 @pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
