@@ -88,10 +88,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             npy writes render_path adds, pack_params, and the host time of
             one K2 and one K5 launch.
 4f. f32_bwd  the f32 configuration of the backward and training kernels,
-            K3, K7, K4 and K6 on csrc/field_bwd_f32.cuh (FFMA, f32
-            residuals), against their f32 plain versions (TF32 off) within
+            K3 and K4 on csrc/field_bwd_f32_sm90.cuh (3xTF32 wgmma), K7
+            and K6 on csrc/field_bwd_f32.cuh (FFMA), f32 residuals, against
+            their f32 plain versions (TF32 off) within
             fused_render.PLAIN_TOL_F32_BWD at 37 rays, B = 1024 and 4093
-            rays: K3 and K7 at S = 32, 48, 64, 100, 128 (K3 with every
+            rays (where a relu gate flips: the plain version on the CPU,
+            cpu_referee): K3 and K7 at S = 32, 48, 64, 100, 128 (K3 with every
             cotangent and g_field, without g_field, and every cotangent
             null: exact zeros), K4 and K6 at 64 + 64, 64 + 16, 64 + 48,
             128 + 128 (K6 with a coarse/fine tie under every cotangent and
@@ -106,7 +108,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             grad_rel_k9, its losses and demb within the tight keys); the
             four's ms at B = 1024 (also with time) and at 8,192 rays x 64,
             K1 and K8 at 65,536 and 131,072 rows and K9 at B = 1024 (also
-            with time) beside the FP32 bound and the plain versions' ms.
+            with time) beside their bounds (K3 and K4 at 3xTF32's,
+            tf32x3_bwd_bound, the others at FP32's, each with the other
+            beside) and the plain versions' ms.
 4g. f32_train  f32 training through the library entry points (no CLI
             flag, as in the JAX CLI): one f32 step of 64 + 64, coarse-only,
             white background, use_time, per sample (two f32 K1, two f32
@@ -390,6 +394,29 @@ def tf32x3_bound(cfg, rays, samples, bytes_moved):
             "bytes" if t_bytes >= max(t_tc, t_cc) else "operations")
 
 
+def tf32x3_bwd_bound(cfg, rays, samples, bytes_moved, gate_pass=False):
+    """The least time of the f32 K3 or K4 (or, as a yardstick, any f32
+    backward kernel) over rays x samples: ``bound(backward=True)``'s MACs
+    (the forward field, then the transposed chain: field_macs + bwd_macs,
+    demb per ray) with the trunk and dir-layer products, their transposes
+    and their dW three TF32 tensor-core products each (3xTF32) at TF32's
+    dense rate, the heads' and the appearance term's (forward, dW and d_in)
+    on the CUDA cores at FP32's, or the bytes at HBM's, whichever is
+    longest.  gate_pass (K3, K4): the CUDA cores also run the forward field
+    once in f32 FFMA for the relu gates (csrc/field_bwd_f32_sm90.cuh)."""
+    h, half = cfg.hidden_dim, cfg.hidden_dim // 2
+    per_sample, per_ray = field_macs(cfg)
+    heads = h + 3 * half
+    rows = rays * samples
+    tc = 2 * (per_sample - heads) + (cfg.num_layers - 1) * h * h + half * h
+    cc = (bwd_macs(cfg) + per_sample) - tc + (per_sample if gate_pass else 0)
+    t_tc = 3 * 2.0 * tc * rows / PEAK_TF32
+    t_cc = 2.0 * (cc * rows + (3 if gate_pass else 2) * per_ray * rays) / PEAK_FP32
+    t_bytes = bytes_moved / PEAK_BYTES
+    return (max(t_tc, t_cc, t_bytes) * 1e3,
+            "bytes" if t_bytes >= max(t_tc, t_cc) else "operations")
+
+
 def weight_stream_gb(packed, tiles):
     """The GB the f32 K2/K5 stream from L2 into their weight ring: every
     trunk and dir-layer weight's TF32 hi and lo (8 bytes) once a tile.  No
@@ -489,6 +516,40 @@ def function_resources(log, name):
     return ptxas_resources("".join(b for b in blocks if name in b.split("\n", 1)[0]))
 
 
+def shared_fragment_sets(sass):
+    """The pipelined loops in ``cuobjdump -sass`` output whose two A
+    fragment sets are one register set: consecutive HGMMA commit groups
+    (each ended by the HGMMA marked gsb0) of a function that read the same
+    A registers, the second followed by ``WARPGROUP.DEPBAR.LE gsb0, 0x1``
+    (the first still in flight), so the next slice's fragment loads
+    overwrite registers the tensor cores are still reading
+    (csrc/field_f32_sm90.cuh mma_slices).  Returns [(function, address)]."""
+    found, func, groups, cur = [], None, [], set()
+    pending = None  # (function, address, the group's A registers) until its wait
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func, groups, cur, pending = m.group(1), [], set(), None
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not m or func is None:
+            continue
+        addr, ins = m.groups()
+        if "HGMMA" in ins:
+            regs = re.findall(r"\bR(\d+)\b", ins)
+            if len(regs) >= 3:   # an A operand in registers (acc, A, ..., acc)
+                cur.add(int(regs[1]))
+            if "gsb0" in ins:
+                groups.append(frozenset(cur))
+                pending = (func, addr, groups[-2] == groups[-1]) if len(groups) > 1 else None
+                cur = set()
+        elif "WARPGROUP.DEPBAR" in ins and pending is not None:
+            if pending[2] and re.search(r"gsb0,\s*0x1\b", ins):
+                found.append(pending[:2])
+            pending = None
+    return found
+
+
 def phase_build(out_dir):
     """Build every kernel; one line with each one's registers, shared
     memory and spills (K1, K2 and K5, ``csrc/field_sm90.cuh``, take dynamic
@@ -505,14 +566,20 @@ def phase_build(out_dir):
     res = {n: ptxas_resources(log) for n, log in logs.items()}
     for n in ("march", "merged", "mlp_fwd", "march_f32", "merged_f32", "mlp_fwd_f32"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
-    # the f32 K2 and K5 (csrc/field_f32_sm90.cuh): their TF32 wgmma in SASS
+    # the f32 K2, K5 (csrc/field_f32_sm90.cuh), K3 and K4 (csrc/
+    # field_bwd_f32_sm90.cuh): their TF32 wgmma in SASS
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for n in ("march_f32", "merged_f32"):
+    for n in ("march_f32", "merged_f32", "march_bwd_f32", "merged_train_f32"):
         if os.path.exists(cuobjdump):
             sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(n))],
                                   capture_output=True, text=True, timeout=120).stdout
             ops = re.findall(r"HGMMA\.(\w+)\.F32\.TF32", sass)
             res[n]["hgmma_tf32"] = {"count": len(ops), "shapes": sorted(set(ops))}
+            shared = shared_fragment_sets(sass)
+            res[n]["pipelined_loops_sharing_a_fragment_set"] = len(shared)
+            if shared:
+                raise AssertionError(f"{n}: a pipelined wgmma loop reads one fragment set in "
+                                     f"flight and rewrites it: {shared}")
         else:
             res[n]["hgmma_tf32"] = "no cuobjdump on this host"
     # K3, K4, K6, K7, K8 and K9 (csrc/field_bwd_sm90.cuh): the tile kernel and
@@ -524,10 +591,20 @@ def phase_build(out_dir):
         for fn, key, smem in ((tile, "tile", lib.danerf_bwd_tile_smem_bytes),
                               ("dw90_kernel", "dw_pass", lib.danerf_dw90_smem_bytes)):
             res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
-    # their f32 variants (csrc/field_bwd_f32.cuh): the tile kernel (dynamic
-    # shared memory) and the dW pass (static) apart; K9's its own tile
-    for n in ("march_bwd_f32", "merged_train_f32", "merged_bwd_f32", "march_train_f32",
-              "mlp_bwd_f32", "hier_onepass_f32"):
+    # the f32 K3 and K4 (csrc/field_bwd_f32_sm90.cuh): the tile kernel, the
+    # wgmma dW pass and the gate pass (dynamic shared memory) and the narrow
+    # jobs' FFMA pass (static) apart
+    for n in ("march_bwd_f32", "merged_train_f32"):
+        lib = _build.load(n)
+        for fn, key, smem in (("bwd_tile32", "tile", lib.danerf_bwd_tf32_tile_smem_bytes),
+                              ("dw_t32_kernel", "dw_pass", lib.danerf_bwd_tf32_dw_smem_bytes)):
+            res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
+        res[n]["narrow_dw_pass"] = function_resources(logs[n], "dw32_kernel")
+        res[n]["gate_pass"] = {**function_resources(logs[n], "gate_pass32"),
+                               "dynamic_smem": int(lib.danerf_bwd_tf32_gate_smem_bytes())}
+    # the other f32 variants (csrc/field_bwd_f32.cuh): the tile kernel
+    # (dynamic shared memory) and the dW pass (static) apart; K9's its own tile
+    for n in ("merged_bwd_f32", "march_train_f32", "mlp_bwd_f32", "hier_onepass_f32"):
         lib = _build.load(n)
         tile, smem = (("hier32_tile", lib.danerf_hier_tile_smem_bytes) if n == "hier_onepass_f32"
                       else ("bwd32_tile", lib.danerf_bwd_tile_smem_bytes))
@@ -1703,8 +1780,9 @@ def cpu_referee(fn, packed_cpu, cfg, device, *args, **kw):
 
 
 def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
-    """The f32 variants (use_bf16=False, csrc/field_bwd_f32.cuh) of K3, K7,
-    K4 and K6 against their f32 plain versions on the card (TF32 off)
+    """The f32 variants (use_bf16=False; K3 and K4 on
+    csrc/field_bwd_f32_sm90.cuh, K7 and K6 on csrc/field_bwd_f32.cuh) of K3,
+    K7, K4 and K6 against their f32 plain versions on the card (TF32 off)
     within fused_render.PLAIN_TOL_F32_BWD, at 37 rays (a lost block shows),
     the 1024-ray batch and 4093 rays (a ragged last tile), at every shape
     the tile takes: K3 and K7 at S = 32, 48, 64, 100, 128 (K3 with every
@@ -1727,8 +1805,10 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
     two plain runs' own are reported (a relu gate on an f32 rounding
     boundary flips between summation orders).
     Then CUDA-event times of the four at B = 1024 and at 8,192 rays x 64
-    beside their FP32 bound and their plain versions'; of K1 and K8 at the
-    batch's 65,536 and 131,072 rows and of K9 at the batch (the has_time
+    beside their bounds (K3 and K4: 3xTF32's, tf32x3_bwd_bound, with FP32's
+    FFMA bound beside; K6 and K7: FFMA's, with 3xTF32's beside) and their
+    plain versions'; of K1 and K8 at the batch's 65,536 and 131,072 rows and
+    of K9 at the batch, with 3xTF32's bound beside FFMA's (the has_time
     variants at 131,072 rows and the batch).  Returns (worst abs error of
     each kernel and variant, the worst ratio, the times, their bound_by)."""
     import torch
@@ -1961,8 +2041,15 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
             for k, (kern, plain) in calls.items():
                 timing[f"{k}{tag}_{n}_ms"] = cuda_ms(kern, 5 if n == 8192 else 10)
                 timing[f"{k}{tag}_{n}_plain_ms"] = cuda_ms(plain, 2 if n == 8192 else 5)
-                timing[f"{k}{tag}_{n}_bound_ms"], bound_by[k + tag] = bound(
-                    c, n, samples[k], nbytes[k], backward=True)
+                ffma = bound(c, n, samples[k], nbytes[k], backward=True)
+                tf32 = tf32x3_bwd_bound(c, n, samples[k], nbytes[k],
+                                        gate_pass=k in ("k3", "k4"))
+                # K3 and K4 run on the tensor cores (3xTF32): their bound is
+                # 3xTF32's, FFMA's beside it; K6 and K7 (FFMA) the reverse
+                main, other = (tf32, ffma) if k in ("k3", "k4") else (ffma, tf32)
+                timing[f"{k}{tag}_{n}_bound_ms"], bound_by[k + tag] = main
+                timing[f"{k}{tag}_{n}_{'ffma' if main is tf32 else 'tf32x3'}_bound_ms"] = \
+                    other[0]
             # K2 f32 at the batch, the rest of the 64 + 64 step's kernels
             timing[f"k2{tag}_{n}_ms"] = cuda_ms(
                 lambda: fr.march_cuda(p32, c, o, d, emb, z, t, want_field=True), 10)
@@ -1985,15 +2072,17 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
             t = torch.rand(rows, 1, generator=g, device=device) if c.use_time else None
             timing[f"k1{tag}_{rows}_ms"] = cuda_ms(
                 lambda: fm.fused_fwd_cuda(p32, c, x, dr, er, t), 10)
-            timing[f"k1{tag}_{rows}_bound_ms"], _ = bound(
-                c, rows, 1, 4 * rows * (3 + 3 + e + nt) + 4 * rows * 4 + 4 * p32.mats.numel())
+            k1_bytes = 4 * rows * (3 + 3 + e + nt) + 4 * rows * 4 + 4 * p32.mats.numel()
+            timing[f"k1{tag}_{rows}_bound_ms"], _ = bound(c, rows, 1, k1_bytes)
+            timing[f"k1{tag}_{rows}_tf32x3_bound_ms"] = tf32x3_bound(c, rows, 1, k1_bytes)[0]
             timing[f"k8{tag}_{rows}_ms"] = cuda_ms(
                 lambda: fm.fused_bwd_cuda(p32, c, x, dr, er, g_rgb, g_sig, t), 10)
             timing[f"k8{tag}_{rows}_plain_ms"] = cuda_ms(
                 lambda: fm.fused_bwd_plain(p32, c, x, dr, er, g_rgb, g_sig, t), 3)
+            k8_bytes = 4 * rows * (3 + 3 + e + nt + 3 + 1) + 4 * rows * e + wg
             timing[f"k8{tag}_{rows}_bound_ms"], bound_by["k8" + tag] = bound(
-                c, rows, 1, 4 * rows * (3 + 3 + e + nt + 3 + 1) + 4 * rows * e + wg,
-                backward=True)
+                c, rows, 1, k8_bytes, backward=True)
+            timing[f"k8{tag}_{rows}_tf32x3_bound_ms"] = tf32x3_bwd_bound(c, rows, 1, k8_bytes)[0]
             del x, dr, er, g_rgb, g_sig
         o, d, emb, z = make_rays(n, c, seed=799, device=device)
         g = torch.Generator(device=device).manual_seed(800)
@@ -2004,9 +2093,10 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
             lambda: fr.hier_onepass_cuda(p32, c, o, d, emb, z, u, target, t), 10)
         timing[f"k9{tag}_{n}_plain_ms"] = cuda_ms(
             lambda: fr.hier_onepass_plain(p32, c, o, d, emb, z, u, target, t), 3)
+        k9_bytes = 4 * n * (3 + 3 + e + sc + sf + 3 + nt) + 4 * n * e + 8 + wg
         timing[f"k9{tag}_{n}_bound_ms"], bound_by["k9" + tag] = bound(
-            c, n, sc + sf, 4 * n * (3 + 3 + e + sc + sf + 3 + nt) + 4 * n * e + 8 + wg,
-            backward=True)
+            c, n, sc + sf, k9_bytes, backward=True)
+        timing[f"k9{tag}_{n}_tf32x3_bound_ms"] = tf32x3_bwd_bound(c, n, sc + sf, k9_bytes)[0]
         del o, d, emb, z, u, target
     worst = {f"{k}{tag}": max(v for key, v in errs.items()
                               if key.startswith(f"{k}f32{tag}@") and not key.endswith(".zero"))
@@ -2115,10 +2205,13 @@ def phase_f32_step_timing(cfg, device, f32_timing, tt):
     """The f32 64 + 64, per-sample and one-kernel steps (use_bf16=False) at
     B = 1024 beside the bf16 64 + 64 step, each through step_timing (eager
     and chained, 10 steps a replay, each with its torch.profiler windows:
-    device busy, idle share), with the f32 kernels' times and bound from
-    phase_f32_bwd (K2, K3, K4 at the batch; K1 and K8 at its 65,536 and
-    131,072 rows; K9 at the batch) and the bf16 ones' from
-    phase_train_timing."""
+    device busy, idle share, and kernel_part's breakdown: the f32 64 + 64
+    step's K3 and K4 tiles, t32_tile, apart from their gate passes,
+    t32_gate_pass, their wgmma dW passes, t32_dw_pass, and their narrow
+    jobs and row sums, bwd32_dw_pass), with
+    the f32 kernels' times and bound from phase_f32_bwd (K2, K3, K4 at the
+    batch; K1 and K8 at its 65,536 and 131,072 rows; K9 at the batch) and
+    the bf16 ones' from phase_train_timing."""
     n = cfg.batch_size
     rows = (n * cfg.num_samples, n * (cfg.num_samples + cfg.num_importance))
     f32_kernels = {"hier_f32": ("k2_1024", "k3_1024", "k4_1024"),
@@ -2130,7 +2223,13 @@ def phase_f32_step_timing(cfg, device, f32_timing, tt):
                                 profile=True)
     keys = ("chained_ms_per_step_median", "chained_profile_device_busy_ms_per_step",
             "chained_profile_idle_share", "step_ms_median", "step_bound_ms")
+    hier = steps["hier_f32"]["chained_profile_breakdown_ms_per_step"]
+    split = {"gate_pass_ms": hier.get("t32_gate_pass", 0.0),
+             "tile_ms": hier.get("t32_tile", 0.0),
+             "dw_ms": hier.get("t32_dw_pass", 0.0) + hier.get("bwd32_dw_pass", 0.0),
+             "rest_ms": hier.get("rest", 0.0)}
     emit({"phase": "f32_step_timing", "rays": cfg.batch_size, "steps": steps,
+          "hier_f32_chained_split_ms_per_step": split,
           "f32_over_bf16": {k: steps["hier_f32"][k] / steps["hier"][k] for k in keys
                             if k != "chained_profile_idle_share"}})
 
@@ -2940,12 +3039,22 @@ def phase_timing(cfg, model, device, chunk, frame_t=None):
 def kernel_part(name):
     """The part of a step a device kernel belongs to: the tile kernel of K3,
     K4, K6, K7, K8 or K9 (csrc/field_bwd_sm90.cuh), their dW pass (the
-    wgmma blocks, the narrow jobs, the reductions), the same two of their
-    f32 variants (csrc/field_bwd_f32.cuh), or the rest."""
+    wgmma blocks, the narrow jobs, the reductions), the tile and the wgmma
+    dW pass and the gate pass of the f32 K3 and K4
+    (csrc/field_bwd_f32_sm90.cuh), the tile of the other f32 variants
+    (csrc/field_bwd_f32.cuh) and the FFMA dW pass (the whole dW of those,
+    the narrow jobs and row sums of the f32 K3 and K4: bwd_f32_parts.cuh),
+    or the rest."""
     if "bwd_tile90" in name or "hier_tile90" in name:
         return "bwd90_tile"
     if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
         return "bwd90_dw_pass"
+    if "bwd_tile32" in name:
+        return "t32_tile"
+    if "dw_t32_" in name:
+        return "t32_dw_pass"
+    if "gate_pass32" in name:
+        return "t32_gate_pass"
     if "bwd32_tile" in name or "hier32_tile" in name:
         return "bwd32_tile"
     if any(k in name for k in ("dw32_", "sum_slots32")):
@@ -4614,8 +4723,10 @@ def main(argv=None):
              "mlp_fwd_f32", "k1_launches", "time_k1_launches")):
         tm = f32["timing"]
         at = "_131072" if key == "k1" else ""
-        # K2 and K5 (3xTF32): beside the bound, FP32's FFMA bound
-        extra = {} if key == "k1" else {"ffma_bound_ms": tm[f"{key}_ffma_bound_ms"]}
+        # K2 and K5 (3xTF32): beside the bound, FP32's FFMA bound; K1 (FFMA):
+        # 3xTF32's (f32_bwd's timing)
+        extra = ({"tf32x3_bound_ms": f32b_timing["k1_131072_tf32x3_bound_ms"]} if key == "k1"
+                 else {"ffma_bound_ms": tm[f"{key}_ffma_bound_ms"]})
         kernels.append({
             "name": name, "route": "cuda", "source": f"danerf_tpu_torch/kernels/csrc/{source}",
             "replaces": f"danerf_tpu/kernels/{line}", "launches": f32[path][counter],
@@ -4634,7 +4745,9 @@ def main(argv=None):
     # the f32 train() run (K3, K4), the f32 evaluate fit (K6) and the f32
     # coarse-only chained run (K7); the has_time variants' from the f32
     # use_time step (K4 and K7: no route reaches them with time); times at
-    # B = 1024 and at 8,192 rays at FP32's bound
+    # B = 1024 and at 8,192 rays beside their bound: K3 and K4 (3xTF32,
+    # csrc/field_bwd_f32_sm90.cuh) at 3xTF32's with FP32's FFMA bound beside,
+    # K6 and K7 (FFMA) at FP32's with 3xTF32's beside
     for name, key, source, line, counter, launches in (
             ("K3 ray-march backward (want_field), f32", "k3", "march_bwd_f32.cu", 212,
              "march_bwd_f32", f32_train["train"]),
@@ -4645,21 +4758,25 @@ def main(argv=None):
             ("K7 coarse march + MSE + backward, f32", "k7", "march_train_f32.cu", 449,
              "march_train_f32", f32_train["coarse_chained"])):
         tm = f32b_timing
+        beside = "ffma" if key in ("k3", "k4") else "tf32x3"
         kernels.append({
             "name": name, "route": "cuda", "source": f"danerf_tpu_torch/kernels/csrc/{source}",
             "replaces": f"danerf_tpu/kernels/fused_render.py:{line}",
             "launches": launches[counter], "max_abs_err": errs_f32b[key.upper()],
             "ms": tm[f"{key}_1024_ms"], "plain_ms": tm[f"{key}_1024_plain_ms"],
             "bound_ms": tm[f"{key}_1024_bound_ms"], "bound_by": f32b_bound_by[key],
+            f"{beside}_bound_ms": tm[f"{key}_1024_{beside}_bound_ms"],
             "library_ms": None, "config": "use_bf16=False", "at": "1024-ray batch",
             "bf16_over_f32_error_ratio_worst": f32b_ratio,
             "at_8192_rays": {"ms": tm[f"{key}_8192_ms"], "plain_ms": tm[f"{key}_8192_plain_ms"],
-                             "bound_ms": tm[f"{key}_8192_bound_ms"]},
+                             "bound_ms": tm[f"{key}_8192_bound_ms"],
+                             f"{beside}_bound_ms": tm[f"{key}_8192_{beside}_bound_ms"]},
             "variants_held": ["without time", "has_time"],
             "has_time": {"launches": f32_train["time_step"][counter],
                          "max_abs_err": errs_f32b[key.upper() + "t"],
                          "ms": tm[f"{key}t_1024_ms"], "plain_ms": tm[f"{key}t_1024_plain_ms"],
                          "bound_ms": tm[f"{key}t_1024_bound_ms"],
+                         f"{beside}_bound_ms": tm[f"{key}t_1024_{beside}_bound_ms"],
                          "bound_by": f32b_bound_by[key + "t"], "at": "1024-ray batch"}})
     # the f32 variants of K8 and K9: launches from the f32 per-sample and
     # one-kernel chained runs (10 steps each); K8 at the 131,072 rows of the
@@ -4678,7 +4795,9 @@ def main(argv=None):
                "replaces": f"danerf_tpu/kernels/{line}", "launches": f32_train[run][counter],
                "max_abs_err": errs_f32b[key.upper()], "ms": tm[f"{key}_{at}_ms"],
                "plain_ms": tm[f"{key}_{at}_plain_ms"], "bound_ms": tm[f"{key}_{at}_bound_ms"],
-               "bound_by": f32b_bound_by[key], "library_ms": None, "config": "use_bf16=False",
+               "bound_by": f32b_bound_by[key],
+               "tf32x3_bound_ms": tm[f"{key}_{at}_tf32x3_bound_ms"], "library_ms": None,
+               "config": "use_bf16=False",
                "at": "131,072 rows" if key == "k8" else "1024-ray batch",
                "bf16_over_f32_error_ratio_worst": f32b_ratio,
                "variants_held": ["without time", "has_time"],

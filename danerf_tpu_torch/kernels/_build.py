@@ -35,8 +35,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # variants of K2 and K5 take their bf16 kernels' arguments with three weight
 # pointers in place of the packed bf16 ones (the packed f32 weights and their
 # TF32 hi and lo halves), K1's the weights transposed in f32 and none of its
-# scratch; those of K3, K4, K6, K7, K8 and K9 take their bf16 kernels'
-# arguments (fused_mlp.fwd_weights, bwd_weights: the weights each reads).
+# scratch; those of K6, K7, K8 and K9 take their bf16 kernels' arguments,
+# those of K3 and K4 theirs with four forward and two chain weight
+# pointers (fused_mlp.fwd_weights, bwd_weights: the weights each reads).
 _BWD_TAIL = [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P]
 _SIGNATURES = {
     "march": ("danerf_march", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
@@ -55,17 +56,26 @@ _SIGNATURES = {
                    [_P] * 7 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _P, _P, _I, _P]),
     "mlp_fwd_f32": ("danerf_mlp_fwd_f32", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
 }
-for _name in ("march_bwd", "merged_train", "march_train", "merged_bwd", "mlp_bwd",
-              "hier_onepass"):
+for _name in ("march_train", "merged_bwd", "mlp_bwd", "hier_onepass"):
     _SIGNATURES[f"{_name}_f32"] = (f"danerf_{_name}_f32", _SIGNATURES[_name][1])
+# the f32 K3 and K4 (csrc/field_bwd_f32_sm90.cuh): three more weight
+# pointers after the packed f32 weights (their TF32 hi and lo, the weights
+# transposed) and one more after the chain's (its hi, then lo)
+_TF32_TAIL = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P]
+for _name in ("march_bwd", "merged_train"):
+    _SIGNATURES[f"{_name}_f32"] = (f"danerf_{_name}_f32",
+                                   _SIGNATURES[_name][1][:-len(_BWD_TAIL)] + _TF32_TAIL)
 # The scratch size of a backward library, (meta, n_meta, R, s, n_vecs) ->
 # bytes: danerf_bwd_scratch_bytes for one row set a tile (K3/K4/K6/K7/K8,
 # field_bwd_sm90.cuh's layout), K9's own for its two; the f32 variants'
-# their f32 stash (field_bwd_f32.cuh), K9's again its own.
+# their f32 stash: K3's and K4's field_bwd_f32_sm90.cuh's, the others'
+# field_bwd_f32.cuh's, K9's again its own.
 SCRATCH_FN = {"hier_onepass": "danerf_hier_onepass_scratch_bytes",
               "hier_onepass_f32": "danerf_hier_onepass_f32_scratch_bytes",
               **{f"{n}_f32": "danerf_bwd_f32_scratch_bytes"
-                 for n in ("march_bwd", "merged_train", "march_train", "merged_bwd", "mlp_bwd")}}
+                 for n in ("march_train", "merged_bwd", "mlp_bwd")},
+              **{f"{n}_f32": "danerf_bwd_tf32_scratch_bytes"
+                 for n in ("march_bwd", "merged_train")}}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

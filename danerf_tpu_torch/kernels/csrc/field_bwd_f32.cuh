@@ -1,14 +1,16 @@
-// The backward of the NeRF-W field in f32 (use_bf16=False) for the f32
-// variants of the training kernels: K3 (march_bwd_f32.cu) and K7
-// (march_train_f32.cu), the ray march's backward under the caller's
-// cotangents or the MSE; K4 (merged_train_f32.cu) and K6
-// (merged_bwd_f32.cu), the merged fine pass's under the MSE or the caller's
+// The backward of the NeRF-W field in f32 (use_bf16=False) on the CUDA
+// cores for the f32 variants of the training kernels K7
+// (march_train_f32.cu), the ray march's backward under the MSE; K6
+// (merged_bwd_f32.cu), the merged fine pass's under the caller's
 // cotangents; K8 (mlp_bwd_f32.cu), the per-sample field's under each row's
 // cotangents (RowComp32: tiles of 128 independent rows, demb per row); and
 // K9 (hier_onepass_f32.cu), whose own tile kernel runs the coarse and the
-// fine row sets of a tile on these pieces (SmemH32).  The counterpart of
-// danerf_tpu/kernels/fused_mlp.py _field_bwd_from_res with cdt = float32,
-// as the JAX kernels run it when cfg.use_bf16 is off.
+// fine row sets of a tile on these pieces (SmemH32).  (K3 and K4 ran on it
+// too; they run on field_bwd_f32_sm90.cuh's tensor-core tile.)  The
+// counterpart of danerf_tpu/kernels/fused_mlp.py _field_bwd_from_res with
+// cdt = float32, as the JAX kernels run it when cfg.use_bf16 is off.  The
+// composites, demb, the dW pass and the row sums come from
+// bwd_f32_parts.cuh.
 //
 // Numerics: the JAX f32 configuration's.  Every residual is stashed in f32,
 // every product is an f32 FFMA on the CUDA cores, every sum is an f32 sum;
@@ -20,8 +22,8 @@
 // results.
 //
 // Tile kernel (bwd32_tile, one block an SM, 256 threads): for each tile of
-// rpc rays of s samples (field.cuh's shapes: rpc = min(128 / s, 8); K8: 128
-// rows, each loaded by load_rows and encoded by RowEnc),
+// rpc rays of s samples (field.cuh's shapes: rpc = min(128 / s, 8); K8: 128 rows, each
+// loaded by load_rows and encoded by RowEnc),
 // - Forward with residuals: field_f32.cuh's field_block on each 64-row block
 //   of the tile (FFMA, 8 x 8 accumulators a thread, 32-deep K slices
 //   streamed by cp.async through two stages, activations column-major at
@@ -74,18 +76,11 @@
 #include <stddef.h>
 
 #include "field_f32.cuh"
-#include "bwd_tiles.cuh"
+#include "bwd_f32_parts.cuh"
 
 namespace danerf {
 namespace f32 {
 
-constexpr int MAX_TILES_PASS32 = MAX_TILES_PER_PASS / 2;  // 131,072 rows of residuals
-constexpr int DRGB32 = 4;          // d_pre_rgb row: 3 used, 16 bytes
-constexpr int DW32_TILE = 64;      // dW output tile edge
-constexpr int DW32_SLAB = 32;      // rows a step of the dW pass
-constexpr int DW32_PARTS = 16;     // most row partitions of the dW pass
-constexpr int DW32_PART_ROWS = 4096;  // a partition's rows at least, where there are enough
-constexpr int MAX_JOBS32 = 40;
 
 // One pass's stash, rows = tiles * TILE_M, row-major f32; the row sums (2
 // slots a tile x nv, the vecs layout and the loss) and the dW pass's
@@ -158,6 +153,9 @@ constexpr bool hier32_fits() {
   return true;
 }
 static_assert(hier32_fits(), "a K9 shape's arrays do not fit its f32 tile");
+
+static_assert(THREADS == COMP_THREADS && THREADS == DW32_THREADS,
+              "bwd_f32_parts.cuh's composites and dW pass run on this tile's threads");
 
 __device__ __forceinline__ SmemB32& smem_b32() {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -238,144 +236,6 @@ __device__ __forceinline__ void zero_rows(const FieldArgs& P, const Scratch32& s
 
 // ---------------------------------------------------------------- composite
 
-// The ranks of field.cuh merge_ray's stable merge, by one warp: rank_c[i] =
-// i + #{z_f < z_c[i]}, rank_f[j] = j + #{z_c <= z_f[j]} (coarse first on
-// ties).
-__device__ __forceinline__ void merge_ranks(const float* zc, int Sc, const float* zf, int Sf,
-                                            int* rank_c, int* rank_f) {
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < Sc; i += 32) {
-    int cnt = 0;
-    for (int k = 0; k < Sf; ++k) cnt += zf[k] < zc[i];
-    rank_c[i] = i + cnt;
-  }
-  for (int i = lane; i < Sf; i += 32) {
-    int cnt = 0;
-    for (int k = 0; k < Sc; ++k) cnt += zc[k] <= zf[i];
-    rank_f[i] = i + cnt;
-  }
-  __syncwarp();
-}
-
-// The ray march's composite: the forward over each ray's own S samples
-// kept, its transpose under the cotangents of ray_cotangents<MSE> (K3: the
-// caller's, plus the field's own cotangent g_field (R, 4, S), null for
-// none; K7: the MSE's); one warp per ray, the per-warp alpha / T / w in
-// the weight stages.
-template <bool MSE_>
-struct MarchComp32 {
-  static constexpr bool MSE = MSE_;
-  static constexpr bool ROWS = false;
-  RayCot cot;
-  const float* g_field;
-  int S;
-  __device__ void operator()(SmemB32& sb, long long ray0, int nvalid, int) const {
-    Smem& sm = sb.f;
-    BwdSmem& bs = sb.bs;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int j = warp; j < nvalid; j += THREADS / 32) {
-      const long long r = ray0 + j;
-      float* al = sm.w[0] + warp * 3 * S;
-      float out[5], g[5];
-      const float* gw;
-      composite_keep(sm.z + j * S, sm.sigma + j * S, sm.rgb + j * S * 3, S, al, al + S,
-                     al + 2 * S, out);
-      ray_cotangents<MSE>(cot, r, S, out, g, &gw, bs.loss + j);
-      composite_bwd(sm.z + j * S, sm.rgb + j * S * 3, S, al, al + S, al + 2 * S, out[3], out[4],
-                    g[0], g[1], g[2], g[3], g[4], gw, bs.g_rgb + j * S * 3, bs.g_sig + j * S);
-      if (!MSE && g_field != nullptr) {
-        __syncwarp();
-        const float* gf = g_field + r * 4 * S;
-        for (int k = lane; k < S; k += 32) {
-          const int row = j * S + k;
-          bs.g_rgb[row * 3 + 0] += gf[k];
-          bs.g_rgb[row * 3 + 1] += gf[S + k];
-          bs.g_rgb[row * 3 + 2] += gf[2 * S + k];
-          bs.g_sig[row] += gf[3 * S + k];
-        }
-      }
-    }
-  }
-};
-
-// One ray's merged composite by one warp (K4, K6, K9): the fine rows j Sf..
-// of sm.rgb / sm.sigma (depths zf) merged by rank with the coarse field fc
-// ((4, Sc), depths zc), the composite over Sa = Sc + Sf and its transpose
-// under the cotangents of ray_cotangents<MSE> (the loss term to
-// bs.loss[j]), the un-permute by the ranks to the coarse field's cotangent
-// gf ((4, Sc)) and the fine rows' bs.g_rgb / bs.g_sig.  al: the alpha / T /
-// w (3 Sa), m: the merged z, sigma, rgb and the ranks (6 Sa).
-template <bool MSE>
-__device__ __forceinline__ void merged_ray32(SmemB32& sb, const RayCot& cot, long long r, int j,
-                                             const float* zc, int Sc, const float* zf, int Sf,
-                                             const float* fc, float* gf, float* al, float* m) {
-  Smem& sm = sb.f;
-  BwdSmem& bs = sb.bs;
-  const int Sa = Sc + Sf, lane = threadIdx.x & 31;
-  float* mz = m;
-  float* msig = mz + Sa;
-  float* mrgb = msig + Sa;
-  int* rank_c = reinterpret_cast<int*>(mrgb + 3 * Sa);
-  int* rank_f = rank_c + Sc;
-  merge_ray(sm.rgb, sm.sigma, zc, Sc, zf, Sf, fc, j * Sf, mz, msig, mrgb);
-  merge_ranks(zc, Sc, zf, Sf, rank_c, rank_f);
-  float out[5], g[5];
-  const float* gw;
-  composite_keep(mz, msig, mrgb, Sa, al, al + Sa, al + 2 * Sa, out);
-  ray_cotangents<MSE>(cot, r, Sa, out, g, &gw, bs.loss + j);
-  // the transpose overwrites the merged rgb / sigma with their cotangents
-  composite_bwd(mz, mrgb, Sa, al, al + Sa, al + 2 * Sa, out[3], out[4], g[0], g[1], g[2], g[3],
-                g[4], gw, mrgb, msig);
-  __syncwarp();
-  for (int i = lane; i < Sc; i += 32) {
-    const int k = rank_c[i];
-    gf[i] = mrgb[k * 3 + 0];
-    gf[Sc + i] = mrgb[k * 3 + 1];
-    gf[2 * Sc + i] = mrgb[k * 3 + 2];
-    gf[3 * Sc + i] = msig[k];
-  }
-  for (int i = lane; i < Sf; i += 32) {
-    const int k = rank_f[i], row = j * Sf + i;
-    bs.g_rgb[row * 3 + 0] = mrgb[k * 3 + 0];
-    bs.g_rgb[row * 3 + 1] = mrgb[k * 3 + 1];
-    bs.g_rgb[row * 3 + 2] = mrgb[k * 3 + 2];
-    bs.g_sig[row] = msig[k];
-  }
-}
-
-// The merged composite (K4: under the MSE's cotangents; K6: the caller's,
-// g_w (R, Sc + Sf) in merged order): merged_ray32 for each ray with the
-// coarse field fc (R, 4, Sc) at depths zc, its cotangent to g_field (R, 4,
-// Sc).  Its arrays (the per-warp alpha / T / w, the coarse depths and each
-// ray's merged z, sigma, rgb and ranks) in the weight stages.
-template <bool MSE_>
-struct MergedComp32 {
-  static constexpr bool MSE = MSE_;
-  static constexpr bool ROWS = false;
-  RayCot cot;
-  const float* zc;
-  const float* fc;
-  float* gfield;
-  long long R;
-  int Sc, Sf;
-  __device__ void operator()(SmemB32& sb, long long ray0, int nvalid, int rpc) const {
-    Smem& sm = sb.f;
-    const int Sa = Sc + Sf, warp = threadIdx.x >> 5;
-    float* zc_s = sm.w[0] + (THREADS / 32) * 3 * Sa;  // rpc x Sc
-    float* merge = zc_s + rpc * Sc;                    // rpc x 6 Sa
-    for (int idx = threadIdx.x; idx < rpc * Sc; idx += THREADS) {
-      const long long r = ray0 + idx / Sc;
-      zc_s[idx] = r < R ? zc[r * Sc + idx % Sc] : 0.f;
-    }
-    __syncthreads();
-    for (int j = warp; j < nvalid; j += THREADS / 32) {
-      const long long r = ray0 + j;
-      merged_ray32<MSE>(sb, cot, r, j, zc_s + j * Sc, Sc, sm.z + j * Sf, Sf, fc + r * 4 * Sc,
-                        gfield + r * 4 * Sc, sm.w[0] + warp * 3 * Sa, merge + j * 6 * Sa);
-    }
-  }
-};
-
 // K8's "composite": each of the tile's rows (row0.., nvalid of them) takes
 // the caller's cotangents g_rgb (N,3) and g_sigma (N).
 struct RowComp32 {
@@ -383,8 +243,9 @@ struct RowComp32 {
   static constexpr bool ROWS = true;
   const float* g_rgb;
   const float* g_sigma;
-  __device__ void operator()(SmemB32& sb, long long row0, int nvalid, int) const {
-    BwdSmem& bs = sb.bs;
+  template <class Sync>
+  __device__ void operator()(const CompTile<Sync>& tl, long long row0, int nvalid, int) const {
+    BwdSmem& bs = tl.bs;
     for (int r = threadIdx.x; r < nvalid; r += THREADS) {
       bs.g_rgb[r * 3 + 0] = g_rgb[(row0 + r) * 3 + 0];
       bs.g_rgb[r * 3 + 1] = g_rgb[(row0 + r) * 3 + 1];
@@ -648,21 +509,7 @@ __device__ __forceinline__ void chain_blocks(const FieldArgs& P, const float* w,
   }
 }
 
-// Each of the tile's n rays' demb = (its rows' d_happ summed in bs.dsum) @
-// Wapp, after a barrier.
-__device__ __forceinline__ void ray_demb(const FieldArgs& P, const float* w, const BwdSmem& bs,
-                                         long long ray0, int n, float* __restrict__ demb) {
-  const float* wapp = w + P.wapp_off;  // (HALF, E)
-  const int E = P.emb_dim;
-  for (int idx = threadIdx.x; idx < n * E; idx += THREADS) {
-    const int j = idx / E, e = idx - j * E;
-    float a = 0.f;
-    for (int c = 0; c < HALF; ++c) a += bs.dsum[j * HALF + c] * wapp[c * E + e];
-    demb[(ray0 + j) * E + e] = a;
-  }
-}
-
-// The tile kernel (pass 1) of K3, K4, K6, K7 and K8: for each tile of rpc
+// The tile kernel (pass 1) of K6, K7 and K8: for each tile of rpc
 // rays (ray_base + tile rpc.., stash rows tile TILE_M..; K8, Comp::ROWS:
 // 128 rows), the forward with its residuals, the composite and its
 // transpose (comp), then per block the chain's head and the transposed
@@ -687,7 +534,7 @@ bwd32_tile(const FieldArgs P, const float* __restrict__ wt, const float* __restr
     }
     zero_cotangents32(bs);
     forward_set<Comp::ROWS>(P, wt, sb, sc, rays, ray0, n_rays, s, gt);
-    comp(sb, ray0, n_rays, rpc);
+    comp(CompTile<BlockSync>{sm.z, sm.sigma, sm.rgb, bs, sm.w[0], {}}, ray0, n_rays, rpc);
     __syncthreads();
     {
       Scratch sums{};  // store_tile_loss reads part and nv only
@@ -706,137 +553,7 @@ bwd32_tile(const FieldArgs P, const float* __restrict__ wt, const float* __restr
 
 // ------------------------------------------------------------- pass 2: dW
 
-// C[n_out_store x n_k] (row stride ldc) += A^T B over the pass's rows, A
-// (rows x lda) and B (rows x ldb) f32 row-major.
-struct Dw32Job {
-  const float* a;
-  const float* b;
-  float* c;
-  int lda, n_out, n_out_store, ldb, n_k, ldc, tiles_k, tile0;
-};
-
-struct Dw32Jobs {
-  Dw32Job job[MAX_JOBS32];
-  int n;
-  long long rows;
-};
-
-__device__ __forceinline__ int find_job32(const Dw32Jobs& J, int tile) {
-  int ji = 0;
-  while (ji + 1 < J.n && J.job[ji + 1].tile0 <= tile) ++ji;
-  return ji;
-}
-
-// One block: one 64 x 64 tile of one job over the rows of partition
-// blockIdx.y; thread (ty, tx) owns outputs 4 ty.. x 4 tx..; each 32-row
-// slab of A and B lies in shared memory as in the stash, so a step reads
-// one 16-byte A value (broadcast) and one B value; the partial tile goes to
-// dwpart.
-__global__ void __launch_bounds__(THREADS)
-dw32_kernel(const Dw32Jobs J, float* __restrict__ dwpart, int n_tiles) {
-  __shared__ __align__(16) float As[DW32_SLAB][DW32_TILE];  // [row][out]
-  __shared__ __align__(16) float Bs[DW32_SLAB][DW32_TILE];  // [row][k]
-  const int tile = blockIdx.x;
-  const Dw32Job& jb = J.job[find_job32(J, tile)];
-  const int local = tile - jb.tile0;
-  const int out0 = (local / jb.tiles_k) * DW32_TILE, k0 = (local % jb.tiles_k) * DW32_TILE;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long per =
-      (J.rows + gridDim.y * (long long)DW32_SLAB - 1) / (gridDim.y * (long long)DW32_SLAB) * DW32_SLAB;
-  const long long r_begin = blockIdx.y * per;
-  const long long r_end = r_begin + per < J.rows ? r_begin + per : J.rows;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (long long r0 = r_begin; r0 < r_end; r0 += DW32_SLAB) {
-    for (int idx = threadIdx.x; idx < DW32_SLAB * (DW32_TILE / 4); idx += THREADS) {
-      const int r = idx / (DW32_TILE / 4), c = (idx % (DW32_TILE / 4)) * 4;
-      const bool in = r0 + r < r_end;
-      float4 va = make_float4(0.f, 0.f, 0.f, 0.f), vb = va;
-      if (in && out0 + c < jb.n_out)
-        va = *reinterpret_cast<const float4*>(jb.a + (r0 + r) * jb.lda + out0 + c);
-      if (in && k0 + c < jb.n_k)
-        vb = *reinterpret_cast<const float4*>(jb.b + (r0 + r) * jb.ldb + k0 + c);
-      *reinterpret_cast<float4*>(&As[r][c]) = va;
-      *reinterpret_cast<float4*>(&Bs[r][c]) = vb;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < DW32_SLAB; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = dwpart + ((long long)blockIdx.y * n_tiles + tile) * DW32_TILE * DW32_TILE;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(out + (4 * ty + i) * DW32_TILE + 4 * tx) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-}
-
-// C += the sum of the partitions' partial tiles, in partition order.
-__global__ void dw32_reduce(const Dw32Jobs J, const float* __restrict__ dwpart, int n_tiles,
-                            int parts) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n_tiles * DW32_TILE * DW32_TILE) return;
-  const int tile = (int)(idx / (DW32_TILE * DW32_TILE));
-  const int e = (int)(idx - (long long)tile * DW32_TILE * DW32_TILE);
-  const Dw32Job& jb = J.job[find_job32(J, tile)];
-  const int local = tile - jb.tile0;
-  const int m = (local / jb.tiles_k) * DW32_TILE + e / DW32_TILE;
-  const int n = (local % jb.tiles_k) * DW32_TILE + e % DW32_TILE;
-  if (m >= jb.n_out_store || n >= jb.n_k) return;
-  float s = 0.f;
-  for (int p = 0; p < parts; ++p)
-    s += dwpart[((long long)p * n_tiles + tile) * DW32_TILE * DW32_TILE + e];
-  jb.c[(long long)m * jb.ldc + n] += s;
-}
-
-// gvecs[j] += the sum over the slots of part[slot * nv + j] (the last
-// column: *loss), each of the 8 warps summing every 8th slot in order, then
-// the warps in order (field_bwd_sm90.cuh reduce_slots' order).
-__global__ void __launch_bounds__(256)
-sum_slots32(const float* __restrict__ part, int slots, int nv, int n_vecs, float* gvecs,
-            float* loss) {
-  __shared__ float ws[8][32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int j = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (j < nv)
-    for (int t = w; t < slots; t += 8) s += part[(long long)t * nv + j];
-  ws[w][lane] = s;
-  __syncthreads();
-  if (w == 0 && j < nv) {
-    float a = 0.f;
-    for (int k = 0; k < 8; ++k) a += ws[k][lane];
-    if (j < n_vecs) gvecs[j] += a;
-    else if (loss != nullptr) *loss += a;
-  }
-}
-
 // ------------------------------------------------------------------ host
-
-inline int dw32_tiles_of(int n_out, int n_k) {
-  return ((n_out + DW32_TILE - 1) / DW32_TILE) * ((n_k + DW32_TILE - 1) / DW32_TILE);
-}
-
-inline void add_job32(Dw32Jobs& J, int& tiles, const float* a, int lda, int n_out,
-                      int n_out_store, const float* b, int ldb, int n_k, float* c, int ldc) {
-  Dw32Job& j = J.job[J.n++];
-  j.a = a; j.lda = lda; j.n_out = n_out; j.n_out_store = n_out_store;
-  j.b = b; j.ldb = ldb; j.n_k = n_k; j.c = c; j.ldc = ldc;
-  j.tiles_k = (n_k + DW32_TILE - 1) / DW32_TILE;
-  j.tile0 = tiles;
-  tiles += ((n_out + DW32_TILE - 1) / DW32_TILE) * j.tiles_k;
-}
 
 // The dW jobs of a pass over `rows` stash rows (gmats: null to count the
 // tiles only): every trunk layer, its enc_x part at layer 0 and the skips,
@@ -968,7 +685,7 @@ inline int finish32(const Bwd32Call& c, int nt, float* gmats, float* gvecs, floa
   if (n != sc.dw_tiles) return ERR_META;
   long long parts = rows / DW32_PART_ROWS;
   parts = parts < 1 ? 1 : (parts > DW32_PARTS ? DW32_PARTS : parts);
-  dw32_kernel<<<dim3(n, (unsigned)parts), THREADS, 0, stream>>>(J, sc.dwpart, n);
+  dw32_kernel<<<dim3(n, (unsigned)parts), DW32_THREADS, 0, stream>>>(J, sc.dwpart, n);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long n_el = (long long)n * DW32_TILE * DW32_TILE;
@@ -978,7 +695,7 @@ inline int finish32(const Bwd32Call& c, int nt, float* gmats, float* gvecs, floa
   return (int)cudaGetLastError();
 }
 
-// Run the passes of K3, K4, K6 or K7 on bwd32_tile<Comp>: for each slice of
+// Run the passes of K6 or K7 on bwd32_tile<Comp>: for each slice of
 // at most tiles_pass tiles, clear its row sums, launch the tile kernel on
 // the blocks that fit on the card at once, then passes 2 and 3.
 template <class Comp>
@@ -1005,8 +722,8 @@ inline int run_bwd32(const Bwd32Call& c, const Comp& comp, Rays32 rays, float* g
 }  // namespace f32
 }  // namespace danerf
 
-// Bytes of stash K3, K4, K6, K7 or K8 in f32 needs for R rays of s samples
-// a tile row group (K3, K7: S; K4, K6: Sf), or R rows (K8, s = ROW_TILES);
+// Bytes of stash K6, K7 or K8 in f32 needs for R rays of s samples a tile
+// row group (K7: S; K6: Sf), or R rows (K8, s = ROW_TILES);
 // negative on a malformed layout or a shape they do not take.
 extern "C" long long danerf_bwd_f32_scratch_bytes(const long long* meta, long long n_meta,
                                                   long long R, long long s, long long n_vecs) {

@@ -433,6 +433,3 @@ inline int launch_setup(Kernel kernel, long long n_tiles, unsigned* grid,
 
 }  // namespace f32
 }  // namespace danerf
-
-// The dynamic shared memory a block of an f32 kernel takes.
-extern "C" long long danerf_tile_smem_bytes() { return (long long)danerf::f32::SMEM_BYTES; }

@@ -5,6 +5,10 @@
 // run it when cfg.use_bf16 is off.  The argument record, the encoding
 // (encode_cols' values), the merge and the composite come from field.cuh;
 // the TMA, mbarrier, wgmma and tensor-map helpers from field_sm90.cuh.
+// field_bwd_f32_sm90.cuh builds the f32 K3 and K4's tile from these
+// pieces: field_tile and load_tiles with stash hooks (NoResStash,
+// NoEncStash here; the backward's also gives field_tile its relu gates),
+// stream_tile, mma_slices.
 //
 // Numerics: 3xTF32.  Encodings, activations, the appearance term and the
 // heads stay f32.  Every trunk and dir-layer product a.b is formed on the
@@ -66,8 +70,9 @@
 #include <cuda.h>
 #include <cstddef>
 
-// field_sm90.cuh exports the bf16 tile's danerf_tile_smem_bytes; this
-// header exports the f32 tile's under that name (the build phase reads it).
+// field_sm90.cuh exports the bf16 tile's danerf_tile_smem_bytes; the f32
+// K2 and K5 (march_f32.cu, merged_f32.cu) export their tile's under that
+// name (the build phase reads it).
 #define danerf_tile_smem_bytes danerf_bf16_tile_smem_bytes
 #include "field_sm90.cuh"
 #undef danerf_tile_smem_bytes
@@ -300,35 +305,46 @@ __device__ __forceinline__ void init32(Smem32& sm) {
 
 // The weight stream (the first thread of the producer warpgroup): every
 // tile of this CTA streams every layer's K slices, hi and lo, in the order
-// the consumers take them.
-__device__ __forceinline__ void stream_weights(const SplitMaps& maps, const FieldArgs& P,
-                                               long long n_tiles) {
-  Smem32& sm = smem32();
-  const uint32_t ring = smem_u32(&sm);
+// the consumers take them (stream_tile: one tile's).
+__device__ __forceinline__ void stream_tile(const SplitMaps& maps, const FieldArgs& P, Pipe& pp) {
+  const uint32_t ring = smem_u32(&smem32());
   const uint32_t full = ring + offsetof(Smem32, full), empty = ring + offsetof(Smem32, empty);
-  const int tiles = my_tiles(n_tiles);
-  Pipe pp;
-  for (int c = 0; c < tiles; ++c) {
-    for (int i = 0; i <= P.num_layers; ++i) {
-      const int K = layer_k(P, i), n = i == P.num_layers ? HALF : HID;
-      for (int k0 = 0; k0 < K; k0 += KS) {
-        mbar_wait_at(empty + 8 * pp.stage, pp.phase ^ 1);
-        mbar_expect_tx(full + 8 * pp.stage, 2 * n * ROW_BYTES);
-        tma_load3(ring + pp.stage * STAGE_BYTES, &maps.m[i], k0, full + 8 * pp.stage);
-        pp.advance();
-      }
+  for (int i = 0; i <= P.num_layers; ++i) {
+    const int K = layer_k(P, i), n = i == P.num_layers ? HALF : HID;
+    for (int k0 = 0; k0 < K; k0 += KS) {
+      mbar_wait_at(empty + 8 * pp.stage, pp.phase ^ 1);
+      mbar_expect_tx(full + 8 * pp.stage, 2 * n * ROW_BYTES);
+      tma_load3(ring + pp.stage * STAGE_BYTES, &maps.m[i], k0, full + 8 * pp.stage);
+      pp.advance();
     }
   }
 }
 
+__device__ __forceinline__ void stream_weights(const SplitMaps& maps, const FieldArgs& P,
+                                               long long n_tiles) {
+  const int tiles = my_tiles(n_tiles);
+  Pipe pp;
+  for (int c = 0; c < tiles; ++c) stream_tile(maps, P, pp);
+}
+
+// What the encoders do with a tile's rays once they are published: nothing
+// (K2, K5); field_bwd_f32_sm90.cuh's StashEnc writes the tile's encodings
+// and embeddings to the backward's stash.
+struct NoEncStash {
+  __device__ __forceinline__ void operator()(const TileRays&, int, long long) const {}
+};
+
 // The encoders (96 threads): for each tile c of this CTA, once the
 // consumers have composited tile c - 2, load its rays (zeros past R) and
 // each row's depth (row = ray j * s + sample; zeros past the tile's rays)
-// and publish them; prefetch K5's coarse inputs of the tile into L2; then,
-// once the consumers have read the previous tile's appearance term, form
-// this one's in f32 (W: the packed f32 weights).
+// and publish them, then hand them to stash (tile c, its first ray);
+// prefetch K5's coarse inputs of the tile into L2; then, once the consumers
+// have read the previous tile's appearance term, form this one's in f32 (W:
+// the packed f32 weights).
+template <class EncStash = NoEncStash>
 __device__ __forceinline__ void load_tiles(const FieldArgs& P, const float* __restrict__ W,
-                                           const Rays& rays) {
+                                           const Rays& rays,
+                                           const EncStash& stash = EncStash()) {
   Smem32& sm = smem32();
   const int et = threadIdx.x - ENC0;
   const int s = rays.s, rpc = rays.rpc, tiles = my_tiles(rays.n_tiles);
@@ -351,6 +367,7 @@ __device__ __forceinline__ void load_tiles(const FieldArgs& P, const float* __re
     }
     sm90::encoders_sync();
     if (et == 0) mbar_arrive(&sm.tr_full[c & 1]);
+    stash(tr, c, ray0);
     if (rays.pre_f != nullptr) {
       // K5's merge reads the tile's coarse depths and field: start them on
       // their way from HBM to L2
@@ -415,20 +432,31 @@ __device__ __forceinline__ void fence_frag(AFrag& f) {
 // skip layer) or the direction's (the dir layer).
 enum Src { ACT = 0, ENC_X = 1, ENC_D = 2 };
 
-// The thread's fragment of k8 step k0 of source src: rows row0 (= 64 g +
-// ra) and row0 + 8, columns k0 + t and k0 + t + 4, split.
+// The thread's values of k8 step k0 of the activations: rows row0 (= 64 g
+// + ra) and row0 + 8, columns k0 + t and k0 + t + 4.
+__device__ __forceinline__ void act_vals(float (&v)[4], const Smem32& sm, int k0, int row0, int t) {
+  const int sw = ((row0 >> 1) & 3) << 2, kb = (k0 >> 4) * ROWS * 16, kin = k0 & 15;
+  const float* p0 = sm.act + kb + row0 * 16;
+  const float* p1 = p0 + 8 * 16;
+  v[0] = p0[(kin + t) ^ sw];
+  v[1] = p1[(kin + t) ^ sw];
+  v[2] = p0[(kin + t + 4) ^ sw];
+  v[3] = p1[(kin + t + 4) ^ sw];
+}
+
+__device__ __forceinline__ void split_frag(AFrag& f, const float (&v)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(v[q], f.hi[q], f.lo[q]);
+}
+
+// The thread's fragment of k8 step k0 of source src (act_vals' rows and
+// columns), split.
 __device__ __forceinline__ void load_frag(AFrag& f, const Smem32& sm, const TileRays& tr,
                                           const RowIn& in, const FieldArgs& P, int src, int k0,
                                           int row0, int t) {
   float v[4];
   if (src == ACT) {
-    const int sw = ((row0 >> 1) & 3) << 2, kb = (k0 >> 4) * ROWS * 16, kin = k0 & 15;
-    const float* p0 = sm.act + kb + row0 * 16;
-    const float* p1 = p0 + 8 * 16;
-    v[0] = p0[(kin + t) ^ sw];
-    v[1] = p1[(kin + t) ^ sw];
-    v[2] = p0[(kin + t + 4) ^ sw];
-    v[3] = p1[(kin + t + 4) ^ sw];
+    act_vals(v, sm, k0, row0, t);
   } else {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -440,8 +468,7 @@ __device__ __forceinline__ void load_frag(AFrag& f, const Smem32& sm, const Tile
                             : enc_d_at(P, col, d);
     }
   }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) split_tf32(v[q], f.hi[q], f.lo[q]);
+  split_frag(f, v);
 }
 
 // One slice: acc (+)= A_lo B_hi + A_hi B_lo + A_hi B_hi over its k8 step,
@@ -463,42 +490,67 @@ __device__ __forceinline__ void release(Smem32& sm, int stage) {
   if ((threadIdx.x & 127) == 0) mbar_arrive(&sm.empty[stage]);
 }
 
-// acc = A @ W_i^T over layer i's K slices for the calling warpgroup's 64
-// rows (N = 256 trunk, 128 dir).  Two fragment sets alternate, so a slice's
-// loads and splits overlap the slice before's products; each stage is
-// released as soon as its products are done.
-template <int N>
-__device__ __forceinline__ void mma_layer(float (&acc)[ACC], Smem32& sm, const TileRays& tr,
-                                          const RowIn& in, const FieldArgs& P, int i, Pipe& pp) {
-  const int n_slices = layer_k(P, i) / KS, hs = HID / KS;
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int row0 = (threadIdx.x >> 7) * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-  const int enc = i == P.num_layers ? ENC_D : ENC_X;
+// acc = A @ B^T over n_slices K slices of the ring for the calling
+// warpgroup's 64 rows, frag(f, s) loading slice s's A fragment.  Two
+// fragment sets alternate, so a slice's loads and splits overlap the slice
+// before's products; each stage is released as soon as its products are
+// done.  The tensor cores read a set's registers until the wait that
+// retires its products, which the compiler does not know: a set must stay
+// in registers of its own.  One loop body picks a set by s & 1 (the
+// forward's: its two branches load different sources, and the SASS keeps
+// two sets, which chip_smoke.py's build phase checks); where both
+// branches would load the same way, the compiler hoists the two loads
+// into one register set, which the next slice's loads overwrite under the
+// products still reading it (the transposed chain's, wrong run to run on
+// the H100), so X2 loads, uses and fences each set in straight-line code
+// of its own half of a loop unrolled twice.  (The forward on X2 read 4-6%
+// slower in the f32 K2.)
+template <int N, bool X2 = false, class Frag>
+__device__ __forceinline__ void mma_slices(float (&acc)[ACC], Smem32& sm, int n_slices, Pipe& pp,
+                                           Frag frag) {
   AFrag f0, f1;
   int prev = -1;
-  for (int s = 0; s < n_slices; ++s) {
-    const bool act = i > 0 && s < hs;
-    const int src = act ? ACT : enc, k0 = KS * (act || i == 0 ? s : s - hs);
+  auto slice = [&](AFrag& f, AFrag& other, int s) {
     const uint32_t b = smem_u32(sm.ring[pp.stage]);
-    if (s & 1) {
-      load_frag(f1, sm, tr, in, P, src, k0, row0, t);
-      mbar_wait(&sm.full[pp.stage], pp.phase);
-      mma_slice<N>(acc, f1, b, false);
-    } else {
-      load_frag(f0, sm, tr, in, P, src, k0, row0, t);
-      mbar_wait(&sm.full[pp.stage], pp.phase);
-      mma_slice<N>(acc, f0, b, s == 0);
-    }
+    frag(f, s);
+    mbar_wait(&sm.full[pp.stage], pp.phase);
+    mma_slice<N>(acc, f, b, s == 0);
     if (prev >= 0) {
       sm90::wgmma_wait<1>();  // the slice before is done: its stage and fragment set are free
-      if (s & 1)
-        fence_frag(f0);
-      else
-        fence_frag(f1);
+      fence_frag(other);
       release(sm, prev);
     }
     prev = pp.stage;
     pp.advance();
+  };
+  if constexpr (X2) {
+    for (int s = 0; s < n_slices; s += 2) {
+      slice(f0, f1, s);
+      if (s + 1 < n_slices) slice(f1, f0, s + 1);
+    }
+  } else {
+    for (int s = 0; s < n_slices; ++s) {
+      const uint32_t b = smem_u32(sm.ring[pp.stage]);
+      if (s & 1) {
+        frag(f1, s);
+        mbar_wait(&sm.full[pp.stage], pp.phase);
+        mma_slice<N>(acc, f1, b, false);
+      } else {
+        frag(f0, s);
+        mbar_wait(&sm.full[pp.stage], pp.phase);
+        mma_slice<N>(acc, f0, b, s == 0);
+      }
+      if (prev >= 0) {
+        sm90::wgmma_wait<1>();  // the slice before is done: its stage and fragment set are free
+        if (s & 1)
+          fence_frag(f0);
+        else
+          fence_frag(f1);
+        release(sm, prev);
+      }
+      prev = pp.stage;
+      pp.advance();
+    }
   }
   sm90::wgmma_wait<0>();
   fence_frag(f0);
@@ -507,15 +559,56 @@ __device__ __forceinline__ void mma_layer(float (&acc)[ACC], Smem32& sm, const T
   release(sm, prev);
 }
 
+// acc = A @ W_i^T over layer i's K slices (N = 256 trunk, 128 dir): A the
+// activations, then the layer's encoding.
+template <int N>
+__device__ __forceinline__ void mma_layer(float (&acc)[ACC], Smem32& sm, const TileRays& tr,
+                                          const RowIn& in, const FieldArgs& P, int i, Pipe& pp) {
+  const int hs = HID / KS;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int row0 = (threadIdx.x >> 7) * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int enc = i == P.num_layers ? ENC_D : ENC_X;
+  mma_slices<N>(acc, sm, layer_k(P, i) / KS, pp, [&](AFrag& f, int s) {
+    const bool act = i > 0 && s < hs;
+    load_frag(f, sm, tr, in, P, act ? ACT : enc, KS * (act || i == 0 ? s : s - hs), row0, t);
+  });
+}
+
+// What the forward keeps for a backward pass, and the relu gates it takes:
+// nothing, and each value's own sign (K2, K5); field_bwd_f32_sm90.cuh's
+// StashRes keeps each trunk layer's output, sigma_pre and happ, and takes
+// the gates of an f32 evaluation on the CUDA cores.  begin: before layer
+// i's products (i = L: the dir layer's); relu / relu_dir: the outputs of
+// pre-activations x0, x1 at the thread's row row0 + 8 h, columns 8 j + 2 t
+// and + 1; relu_sigma: sigma of sigma_pre v at row0 + 8 h under relu;
+// trunk: layer i's outputs at those places; sigma_pre: row's (lanes t = 0);
+// dir: relu(hdir_pre) and happ at the same places (j < 16).
+struct NoResStash {
+  __device__ __forceinline__ void begin(int) {}
+  __device__ __forceinline__ float2 relu(int, int, float x0, float x1) const {
+    return make_float2(fmaxf(x0, 0.f), fmaxf(x1, 0.f));
+  }
+  __device__ __forceinline__ float2 relu_dir(int h, int j, float x0, float x1) const {
+    return relu(h, j, x0, x1);
+  }
+  __device__ __forceinline__ float relu_sigma(int, float v) const { return fmaxf(v, 0.f); }
+  __device__ __forceinline__ void trunk(int, int, int, float, float) {}
+  __device__ __forceinline__ void sigma_pre(int, float) {}
+  __device__ __forceinline__ void dir(int, int, float, float, float, float) {}
+};
+
 // The field on tile c (the c-th of this CTA) for the calling consumer
 // warpgroup's rows, once the encoders have loaded its rays: the trunk
 // layers in place in sm.act, sigma from the last one's accumulators, the
 // dir layer and the rgb head from its accumulators.  Leaves sm.rgb (128 x
 // 3) and sm.sigma (128) valid, and the tile's appearance term released,
-// behind a consumers' barrier.  s = samples per ray in the tile's rows.
+// behind a consumers' barrier; the last trunk layer's output stays in
+// sm.act.  s = samples per ray in the tile's rows; stash keeps the
+// residuals a backward pass needs and gives the relu gates.
+template <class Stash = NoResStash>
 __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __restrict__ W,
                                            Smem32& sm, int c, int s, int rpc, Pipe& pp,
-                                           float (&acc)[ACC]) {
+                                           float (&acc)[ACC], Stash&& stash = Stash()) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int row0 = (threadIdx.x >> 7) * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
   const int L = P.num_layers;
@@ -524,6 +617,7 @@ __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __re
   const RowIn in = row_inputs(tr, row0, s, rpc);
 
   for (int i = 0; i < L; ++i) {
+    stash.begin(i);
     mma_layer<HID>(acc, sm, tr, in, P, i, pp);
     // the warp's own rows: relu(acc + bias) over the layer's input
     const float* bias = P.vecs + P.b_off[i];
@@ -537,9 +631,10 @@ __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __re
                             : make_float2(0.f, 0.f);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float v0 = fmaxf(acc[4 * j + 2 * h] + b.x, 0.f);
-        const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b.y, 0.f);
-        *reinterpret_cast<float2*>(sm.act + off32(row0 + 8 * h, col)) = make_float2(v0, v1);
+        const float2 v = stash.relu(h, j, acc[4 * j + 2 * h] + b.x, acc[4 * j + 2 * h + 1] + b.y);
+        const float v0 = v.x, v1 = v.y;
+        *reinterpret_cast<float2*>(sm.act + off32(row0 + 8 * h, col)) = v;
+        stash.trunk(i, h, j, v0, v1);
         dsum[h] = fmaf(v1, w.y, fmaf(v0, w.x, dsum[h]));
       }
     }
@@ -551,9 +646,11 @@ __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __re
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
         v += bd;
-        if (t == 0)
+        if (t == 0) {
           sm.sigma[row0 + 8 * h] = P.softplus ? fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)))
-                                              : fmaxf(v, 0.f);
+                                              : stash.relu_sigma(h, v);
+          stash.sigma_pre(row0 + 8 * h, v);
+        }
       }
     }
     __syncwarp();  // the warp's rows are in place before its lanes read them
@@ -561,6 +658,7 @@ __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __re
 
   // dir branch and rgb head: happ = (relu([h, enc_d] @ Wdir^T + bdir) +
   // emb@Wapp^T) + bapp; rgb = sigmoid(happ @ Wrgb^T + brgb)
+  stash.begin(L);
   mma_layer<HALF>(acc, sm, tr, in, P, L, pp);
   mbar_wait(&sm.app_full, c & 1);
   {
@@ -581,8 +679,12 @@ __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __re
       for (int k = 0; k < 3; ++k) w[k] = __ldg(reinterpret_cast<const float2*>(wrgb + k * HALF + col));
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float h0 = (fmaxf(acc[4 * j + 2 * h] + bd2.x, 0.f) + app[h][col]) + ba2.x;
-        const float h1 = (fmaxf(acc[4 * j + 2 * h + 1] + bd2.y, 0.f) + app[h][col + 1]) + ba2.y;
+        const float2 a = stash.relu_dir(h, j, acc[4 * j + 2 * h] + bd2.x,
+                                        acc[4 * j + 2 * h + 1] + bd2.y);
+        const float a0 = a.x, a1 = a.y;
+        const float h0 = (a0 + app[h][col]) + ba2.x;
+        const float h1 = (a1 + app[h][col + 1]) + ba2.y;
+        stash.dir(h, j, a0, a1, h0, h1);
 #pragma unroll
         for (int k = 0; k < 3; ++k) cs[h][k] = fmaf(h1, w[k].y, fmaf(h0, w[k].x, cs[h][k]));
       }
@@ -657,7 +759,3 @@ inline int launch_setup(Kernel kernel, const FieldArgs& P, const float* hi, cons
 
 }  // namespace tf32
 }  // namespace danerf
-
-// The dynamic shared memory a CTA of the f32 K2 or K5 takes (ptxas -v
-// reports only static shared memory).
-extern "C" long long danerf_tile_smem_bytes() { return (long long)danerf::tf32::SMEM_BYTES; }

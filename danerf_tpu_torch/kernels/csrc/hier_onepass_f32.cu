@@ -125,9 +125,9 @@ hier32_tile(const FieldArgs P, const float* __restrict__ wt, const float* __rest
     {
       float* merge = sm.w[0] + (THREADS / 32) * 3 * Sa;  // rpc x 6 Sa
       for (int j = warp; j < n_rays; j += THREADS / 32)
-        merged_ray32<true>(sb, cot, ray0 + j, j, hs.zc + j * Sc, Sc, sm.z + j * Sf, Sf,
-                           hs.kf + j * 4 * Sc, hs.gfc + j * 4 * Sc, sm.w[0] + warp * 3 * Sa,
-                           merge + j * 6 * Sa);
+        merged_ray32<true>(sm.rgb, sm.sigma, bs, cot, ray0 + j, j, hs.zc + j * Sc, Sc,
+                           sm.z + j * Sf, Sf, hs.kf + j * 4 * Sc, hs.gfc + j * 4 * Sc,
+                           sm.w[0] + warp * 3 * Sa, merge + j * 6 * Sa);
     }
     __syncthreads();
     store_tile_loss<true>(bs, sums, (int)(2 * vf), n_rays);

@@ -87,3 +87,7 @@ extern "C" int danerf_march_f32(const float* o, const float* d, const float* emb
       maps, P, mats, rays, rgb, depth, acc, w, field);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory a CTA takes (ptxas -v reports only static
+// shared memory).
+extern "C" long long danerf_tile_smem_bytes() { return (long long)danerf::tf32::SMEM_BYTES; }

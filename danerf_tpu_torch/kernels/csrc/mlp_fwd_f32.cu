@@ -58,3 +58,6 @@ extern "C" int danerf_mlp_fwd_f32(const float* x, const float* d, const float* e
       P, wt, rows, rgb, sigma);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory a block takes.
+extern "C" long long danerf_tile_smem_bytes() { return (long long)danerf::f32::SMEM_BYTES; }

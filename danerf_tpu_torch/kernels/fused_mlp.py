@@ -30,12 +30,16 @@ their own: K2 and K5 (``march_f32.cu``, ``merged_f32.cu``) on
 split into TF32 halves (``split_tf32``, ``PackedParams.mats_tf32``) and, for
 its heads, as packed; K1 (``mlp_fwd_f32.cu``) on ``csrc/field_f32.cuh``,
 which reads them transposed (``PackedParams.mats_kn``; ``fwd_weights``
-names each one's); the backward kernels K3, K4,
-K6, K7, K8 and K9 through theirs on ``csrc/field_bwd_f32.cuh``
-(``march_bwd_f32.cu``, ``merged_train_f32.cu``, ``merged_bwd_f32.cu``,
-``march_train_f32.cu``, ``mlp_bwd_f32.cu``, ``hier_onepass_f32.cu``), which
-read them transposed for the forward and as packed, (out, K) f32, for the
-transposed chain (``bwd_weights``).
+names each one's); the backward kernels K3 and K4
+through theirs on ``csrc/field_bwd_f32_sm90.cuh``'s tensor-core tile
+(``march_bwd_f32.cu``, ``merged_train_f32.cu``), which read the forward's
+split weights, the transposed chain's (``mats_kn`` split,
+``PackedParams.mats_kn_tf32``) and, for the relu gates of an f32 forward on
+the CUDA cores, ``mats_kn``; K6, K7, K8 and K9 through theirs on
+``csrc/field_bwd_f32.cuh`` (``merged_bwd_f32.cu``, ``march_train_f32.cu``,
+``mlp_bwd_f32.cu``, ``hier_onepass_f32.cu``), which read them transposed for
+the forward and as packed, (out, K) f32, for the transposed chain
+(``bwd_weights``).
 
 The encoding here is the kernels' form, ``y = 2^i o + z (2^i d)`` then
 ``sin(y + phase)``, not ``nerf_apply``'s ``sin(2^i (o + z d))``: the two
@@ -96,9 +100,13 @@ class PackedParams:
     ``csrc/field_f32.cuh`` (K1 and the backward tile): each matrix
     transposed, W^T (K, out) row-major at W's own offset, so that a K slice
     of it is one contiguous run; None under ``use_bf16``.
-    mats_tf32: without ``use_bf16``, the f32 K2 and K5's weights
-    (``csrc/field_f32_sm90.cuh``): (2, mats.numel()), ``mats`` split by
-    ``split_tf32`` into hi (row 0) and lo (row 1), each in ``mats``' layout;
+    mats_tf32: without ``use_bf16``, the weights of the f32 kernels on the
+    tensor cores (K2 and K5, ``csrc/field_f32_sm90.cuh``; the forward of
+    K3 and K4, ``csrc/field_bwd_f32_sm90.cuh``): (2, mats.numel()),
+    ``mats`` split by ``split_tf32`` into hi (row 0) and lo (row 1), each in
+    ``mats``' layout; None under ``use_bf16``.
+    mats_kn_tf32: without ``use_bf16``, the transposed chain's weights of
+    the f32 K3 and K4: ``mats_kn`` split the same way, (2, mats.numel());
     None under ``use_bf16``.
     """
     mats: torch.Tensor
@@ -109,6 +117,7 @@ class PackedParams:
     has_appearance: bool
     mats_kn: Optional[torch.Tensor] = None
     mats_tf32: Optional[torch.Tensor] = None
+    mats_kn_tf32: Optional[torch.Tensor] = None
 
     def mat(self, name: str) -> torch.Tensor:
         off, shape = self.mat_at[name]
@@ -198,16 +207,17 @@ def pack_params(model, cfg: NeRFConfig, appearance: bool = True,
     add_mat("wrgb", model.rgb_linear.weight, half)
     add_vec("brgb", model.rgb_linear.bias)
     flat = torch.cat([m.to(dev) for m in mats])
-    kn = split = None
+    kn = split = split_kn = None
     if not cfg.use_bf16:
         kn = torch.zeros_like(flat)
         for off, (n, k) in mat_at.values():
             kn[off:off + n * k].view(k, n).copy_(flat[off:off + n * k].view(n, k).t())
         split = torch.stack(split_tf32(flat))
+        split_kn = torch.stack(split_tf32(kn))
     return PackedParams(
         mats=flat.to(cdt), vecs=torch.cat([v.to(dev) for v in vecs]),
         mat_at=mat_at, vec_at=vec_at, num_layers=len(model.pts_linears),
-        has_appearance=use_app, mats_kn=kn, mats_tf32=split)
+        has_appearance=use_app, mats_kn=kn, mats_tf32=split, mats_kn_tf32=split_kn)
 
 
 def kernel_meta(packed: PackedParams, cfg: NeRFConfig) -> Tuple[int, ...]:
@@ -508,19 +518,34 @@ def fwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
     return f"{name}_f32", (packed.mats, packed.mats_tf32[0], packed.mats_tf32[1])
 
 
+# The backward kernels whose f32 variants run on the tensor cores by
+# 3xTF32 (csrc/field_bwd_f32_sm90.cuh): K3 and K4.
+TF32_BWD = ("march_bwd", "merged_train")
+
+
 def bwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
     """(library name, weights, chain weights, their offsets) of backward
-    kernel ``name``: the bf16 kernel on the packed weights and their
-    transposed hidden blocks (``transposed_mats``), or without ``use_bf16``
-    its f32 variant on the weights transposed (``mats_kn``, the forward's)
-    and as packed, W (out, K) f32, whose rows are the B operand of the
-    transposed chain; the offsets are then each block's own (-1 for layer
-    0, the trunk layers 1.., the dir layer, the appearance projection)."""
+    kernel ``name``, the weights and chain weights as tuples of tensors in
+    the order its C entry takes them: the bf16 kernel on the packed weights
+    and their transposed hidden blocks (``transposed_mats``); without
+    ``use_bf16`` its f32 variant: K3 and K4 (``TF32_BWD``) on the packed f32
+    weights, their TF32 halves (``mats_tf32``: hi, lo) and the weights
+    transposed (``mats_kn``, their gate pass's), the chain on
+    ``mats_kn_tf32``'s (hi, lo); the others on the weights transposed
+    (``mats_kn``, the forward's) and as packed, W (out, K) f32, whose rows
+    are the B operand of their transposed chain.  Without ``use_bf16`` the
+    offsets are each block's own (-1 for layer 0, the trunk layers 1.., the
+    dir layer, the appearance projection)."""
     if cfg.use_bf16:
-        return (name, packed.mats, *transposed_mats(packed, cfg))
+        flat, offs = transposed_mats(packed, cfg)
+        return name, (packed.mats,), (flat,), offs
     offs = ((-1,) + tuple(packed.mat_at[f"w{i}"][0] for i in range(1, packed.num_layers))
             + (packed.mat_at["wdir"][0], packed.mat_at["wapp"][0]))
-    return f"{name}_f32", packed.mats_kn, packed.mats, offs
+    if name in TF32_BWD:
+        return (f"{name}_f32",
+                (packed.mats, packed.mats_tf32[0], packed.mats_tf32[1], packed.mats_kn),
+                (packed.mats_kn_tf32[0], packed.mats_kn_tf32[1]), offs)
+    return f"{name}_f32", (packed.mats_kn,), (packed.mats,), offs
 
 
 def _arg(x):
@@ -559,9 +584,9 @@ def _launch_bwd(name: str, packed: PackedParams, cfg: NeRFConfig, r: int, s_tile
     grads = PackedGrads.zeros(packed)
     code = getattr(lib, f"danerf_{name}")(
         *(_arg(x) for x in inputs), grads.mats.data_ptr(), grads.vecs.data_ptr(),
-        *(_arg(x) for x in outputs), mats.data_ptr(), packed.vecs.data_ptr(), meta,
-        n_meta, mats_t.data_ptr(), meta_t, len(offs_t), scratch.data_ptr(), scratch.numel(),
-        n_vecs, torch.cuda.current_stream(dev).cuda_stream)
+        *(_arg(x) for x in outputs), *(m.data_ptr() for m in mats), packed.vecs.data_ptr(),
+        meta, n_meta, *(m.data_ptr() for m in mats_t), meta_t, len(offs_t), scratch.data_ptr(),
+        scratch.numel(), n_vecs, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, name)
     LAUNCHES[name] += 1
     return grads

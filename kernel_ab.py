@@ -16,16 +16,24 @@ evaluation, K1 also with time (``k1_t``), K1 and K8 also at the 65,536 rows
 of its coarse one (``k1_65536``, ``k8_65536``); the f32 configuration
 (use_bf16=False) of K2 (want_field) and K5 on the chunk (``k2_f32``,
 ``k5_f32``) and of K2 at the 1024-ray batch (``k2_f32_1024``), each also
-with time (``..._t``).
+with time (``..._t``); of K3 (with g_field) and K4 at the batch
+(``k3_f32``, ``k4_f32``; with time ``..._t``) and at 8,192 rays
+(``k3_f32_8192``, ``k4_f32_8192``); and the f32 64 + 64 training step at
+the batch, chained as ``train`` runs it (``step_f32_hier``: ms a step, the
+median of 20 replays of 10 steps, chip_smoke.py's step_timing).
 
-    python3 kernel_ab.py --ablate {weight_stream,products} [--rounds 1]
+    python3 kernel_ab.py --ablate NAME [--rounds 1]
 
-times this tree against a copy of it (``build/ablate_NAME``) whose f32 K2/K5
-tile (``csrc/field_f32_sm90.cuh``) lacks one part: ``weight_stream``, the
-TMA loads of the weight ring (each stage is released to the consumers
-unloaded), or ``products``, the tensor-core products (each slice's fence,
-commit and wait stay).  The copy's f32 outputs are wrong; only its times
-mean something: how far that part holds the tile.
+times this tree against a copy of it (``build/ablate_NAME``) with one part
+of an f32 tensor-core tile taken out: ``weight_stream``, the TMA loads of
+the forward's weight ring (``csrc/field_f32_sm90.cuh``; each stage is
+released to the consumers unloaded), ``products``, its tensor-core products
+(each slice's fence, commit and wait stay; also the f32 K3 and K4 tile's
+forward and transposed chain, which take the same slices), and, of the f32
+K3 and K4 (``csrc/field_bwd_f32_sm90.cuh``), ``chain_stream``, the TMA
+loads of the transposed chain's weights, or ``dw_products``, the tensor-core
+products of their wgmma dW pass.  The copy's f32 outputs are wrong; only
+its times mean something: how far that part holds the tile.
 Prints one
 JSON line per process and, last, the medians per tree and their ratio
 (this / base) per kernel.  Needs a GPU; exits non-zero without one.
@@ -43,37 +51,55 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# --ablate: (the text of csrc/field_f32_sm90.cuh taken out, what replaces it)
+# --ablate: (the header of csrc/, the text taken out, what replaces it)
 ABLATIONS = {
     "weight_stream": (
-        """        mbar_expect_tx(full + 8 * pp.stage, 2 * n * ROW_BYTES);
-        tma_load3(ring + pp.stage * STAGE_BYTES, &maps.m[i], k0, full + 8 * pp.stage);
+        "field_f32_sm90.cuh",
+        """      mbar_expect_tx(full + 8 * pp.stage, 2 * n * ROW_BYTES);
+      tma_load3(ring + pp.stage * STAGE_BYTES, &maps.m[i], k0, full + 8 * pp.stage);
 """,
-        """        mbar_arrive(&sm.full[pp.stage]);
+        """      mbar_arrive(&smem32().full[pp.stage]);
 """),
     "products": (
+        "field_f32_sm90.cuh",
         """  wgmma_tf32<N>(acc, f.lo, dh, !first);
   wgmma_tf32<N>(acc, f.hi, dl, 1);
   wgmma_tf32<N>(acc, f.hi, dh, 1);
+""",
+        ""),
+    "chain_stream": (
+        "field_bwd_f32_sm90.cuh",
+        """    mbar_expect_tx(full + 8 * pp.stage, STAGE_BYTES);
+    tma_load3_at(ring + pp.stage * STAGE_BYTES, m, k0, row, 0, full + 8 * pp.stage);
+""",
+        """    mbar_arrive(&sm.f.full[pp.stage]);
+"""),
+    "dw_products": (
+        "field_bwd_f32_sm90.cuh",
+        """  wgmma_tf32<HID>(acc, f.lo, dh, 1);
+  wgmma_tf32<HID>(acc, f.hi, dl, 1);
+  wgmma_tf32<HID>(acc, f.hi, dh, 1);
 """,
         ""),
 }
 
 
 def ablated_tree(name):
-    """A copy of this tree's package under build/ablate_NAME with the f32
-    K2/K5 tile's part ``name`` taken out (ABLATIONS); returns its root."""
+    """A copy of this tree's package (and chip_smoke.py, which the step's
+    timing takes) under build/ablate_NAME with the part ``name`` of an f32
+    tile taken out (ABLATIONS); returns its root."""
     root = os.path.join(HERE, "build", f"ablate_{name}")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(HERE, "danerf_tpu_torch"),
                     os.path.join(root, "danerf_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    header = os.path.join(root, "danerf_tpu_torch", "kernels", "csrc", "field_f32_sm90.cuh")
+    shutil.copy(os.path.join(HERE, "chip_smoke.py"), root)
+    file, old, new = ABLATIONS[name]
+    header = os.path.join(root, "danerf_tpu_torch", "kernels", "csrc", file)
     with open(header) as f:
         text = f.read()
-    old, new = ABLATIONS[name]
     if text.count(old) != 1:
-        raise RuntimeError(f"--ablate {name}: its text is not in field_f32_sm90.cuh once")
+        raise RuntimeError(f"--ablate {name}: its text is not in {file} once")
     with open(header, "w") as f:
         f.write(text.replace(old, new))
     return root
@@ -175,6 +201,31 @@ def _time_kernels(iters):
                                 iters)
         out["k2_f32_1024_t"] = ms(lambda: fr.march_cuda(p32_t, c32_t, o, d, emb, z, t,
                                                         want_field=True), iters)
+        # the f32 K3 and K4, without and with time, at their f32 K2's field
+        # and fine depths
+        for key, cc, pp, tt in (("", c32, p32, None), ("_t", c32_t, p32_t, t)):
+            f32_coarse = fr.march_cuda(pp, cc, o, d, emb, z, tt, want_field=True)
+            zf32 = sample_pdf(z, f32_coarse["weights"], sf, True, rand=g)
+            out["k3_f32" + key] = ms(lambda: fr.march_bwd_cuda(pp, cc, o, d, emb, z, *cot, g_field,
+                                                               t=tt), iters)
+            out["k4_f32" + key] = ms(lambda: fr.merged_train_cuda(
+                pp, cc, o, d, emb, z, f32_coarse["field"], zf32, target, tt), iters)
+    # the f32 K3 and K4 at 8,192 rays
+    n = 8192
+    o, d, emb, z, g = rays(n, 35, sc)
+    f32_coarse = fr.march_cuda(p32, c32, o, d, emb, z, want_field=True)
+    zf32 = sample_pdf(z, f32_coarse["weights"], sf, True, rand=g)
+    cot = (torch.randn(n, 3, generator=g, device=dev), torch.randn(n, generator=g, device=dev),
+           torch.randn(n, generator=g, device=dev),
+           0.1 * torch.randn(n, sc, generator=g, device=dev),
+           0.1 * torch.randn(n, 4, sc, generator=g, device=dev))
+    target = torch.rand(n, 3, generator=g, device=dev)
+    out["k3_f32_8192"] = ms(lambda: fr.march_bwd_cuda(p32, c32, o, d, emb, z, *cot),
+                            max(2, iters // 4))
+    out["k4_f32_8192"] = ms(lambda: fr.merged_train_cuda(p32, c32, o, d, emb, z,
+                                                         f32_coarse["field"], zf32, target),
+                            max(2, iters // 4))
+    del o, d, emb, z, cot, target, f32_coarse, zf32
     for key, seed, s in (("", 34, sc + sf), ("_65536", 33, sc)):
         o, d, emb, z, g = rays(cfg.batch_size, seed, s)
         rep = lambda t: t[:, None, :].expand(-1, s, -1).reshape(-1, t.shape[-1]).contiguous()
@@ -188,6 +239,11 @@ def _time_kernels(iters):
             out["k1_t"] = ms(lambda: fm.fused_fwd_cuda(packed_t, cfg_t, x, dr, er, t), iters)
         out["k8" + key] = ms(lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig),
                              max(2, iters // 2))
+    # the f32 64 + 64 step at the batch, chained (the tree's chip_smoke.py)
+    import chip_smoke
+
+    out["step_f32_hier"] = chip_smoke.step_timing(c32, dev, {}, (), profile=False)[
+        "chained_ms_per_step_median"]
     return out
 
 

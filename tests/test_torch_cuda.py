@@ -28,6 +28,8 @@ native bridge's fx fallback on the card is held to its CPU run within
 ``fx.effects.levels_apart``.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -1315,8 +1317,8 @@ def _packs32(cfg, model):
 @pytest.mark.parametrize("cot", ["field", "no_field"])
 @pytest.mark.parametrize("s", [32, 48, 64, 100, 128])
 def test_march_bwd_f32_kernel_matches_plain(dev, s, cot, use_time):
-    """K3's f32 variant (csrc/march_bwd_f32.cu on field_bwd_f32.cuh) at 37
-    rays of 1 to 4 a 128-row tile, with and without g_field."""
+    """K3's f32 variant (csrc/march_bwd_f32.cu on field_bwd_f32_sm90.cuh) at
+    37 rays of 1 to 4 a 128-row tile, with and without g_field."""
     cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, s, 120 + s, use_time)
     c32, pk, pk16 = _packs32(cfg, model)
     *cots, g_field = _cotangents(g, 37, s, dev)
@@ -1383,6 +1385,67 @@ def test_merged_train_f32_kernel_matches_plain(dev, sc, sf, use_time):
             plain(fr.merged_train_plain(pk, c32, *args, target, t)),
             ["loss", "demb_k4", "g_field"],
             lambda: plain(_cpu_plain(fr.merged_train_plain, model, c32, *args, target, t)))
+
+
+@pytest.mark.parametrize("n", [4093, 8192])
+def test_tf32_k3_k4_agree_bit_for_bit_over_passes(dev, n):
+    """The f32 K3 and K4 (field_bwd_f32_sm90.cuh) at 4,093 rays of 64 + 64
+    (two passes of the stash, the last tile ragged) and 8,192 (four passes):
+    two calls give bit-identical gradients, demb, K4's loss and g_field,
+    and the loss and g_field stay within PLAIN_TOL_F32_BWD of the plain
+    version's (the gradients are held at 37 to 1024 rays above)."""
+    cfg = NeRFConfig(density_bias_init=0.5)
+    c32 = cfg.replace(use_bf16=False)
+    model = NeRF(c32, torch.Generator().manual_seed(7)).to(dev).requires_grad_(False)
+    pk = pack_params(model, c32)
+    _, _, o, d, emb, z, g = _inputs(dev, n=n, seed=11)
+    *cots, g_field = _cotangents(g, n, z.shape[-1], dev)
+    k3 = [fr.march_bwd_cuda(pk, c32, o, d, emb, z, *cots, g_field) for _ in range(2)]
+    coarse = fr.march_cuda(pk, c32, o, d, emb, z, want_field=True)
+    z_f = sample_pdf(z, coarse["weights"], 64, True, rand=g)
+    target = torch.rand(n, 3, generator=g, device=dev)
+    k4 = [fr.merged_train_cuda(pk, c32, o, d, emb, z, coarse["field"], z_f, target)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in ((k3[0][0], k3[1][0]), (k4[0][1], k4[1][1])):
+        assert torch.equal(a.mats, b.mats) and torch.equal(a.vecs, b.vecs)
+    assert torch.equal(k3[0][1], k3[1][1])
+    for a, b in zip(k4[0][::2], k4[1][::2]):
+        assert torch.equal(a, b)
+    lp, _, _, fp = fr.merged_train_plain(pk, c32, o, d, emb, z, coarse["field"], z_f, target)
+    assert abs(float(k4[0][0]) - float(lp)) <= TOL32B["loss"]
+    assert float((k4[0][3] - fp).abs().max()) <= TOL32B["g_field"]
+
+
+def test_f32_hier_step_launches_k2_k4_k3_once(dev, monkeypatch):
+    """One f32 step of 64 + 64 (use_bf16=False, compute_loss_and_grads)
+    launches the f32 K2, K4 and K3 once each and nothing else of the port's
+    kernels; no plain field or backward runs (they raise here)."""
+    from danerf_tpu_torch.train.trainer import compute_loss_and_grads
+
+    cfg = NeRFConfig(density_bias_init=0.5, use_bf16=False)
+    n = 256
+    _, _, o, d, _, _, g = _inputs(dev, n=n, seed=5)
+    batch = {"rays_o": o, "rays_d": d, "rgb": torch.rand(n, 3, generator=g, device=dev),
+             "img_idx": torch.randint(0, 4, (n,), generator=g, device=dev)}
+    draws = (torch.rand(n, cfg.num_samples, generator=g, device=dev),
+             torch.rand(n, cfg.num_importance, generator=g, device=dev))
+    model = NeRF(cfg, torch.Generator().manual_seed(0)).to(dev)
+    table = torch.nn.Parameter(torch.randn(4, cfg.appearance_dim, generator=g, device=dev))
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran in the f32 kernel step")
+    for mod, name in ((fm, "field_from_enc_plain"), (fm, "field_bwd_plain"),
+                      (fr, "field_from_enc_plain"), (fr, "field_bwd_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    fr.reset_launch_counts()
+    loss, _ = compute_loss_and_grads(model, table, cfg, batch, draws=draws)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(loss))
+    want = {"march_f32": 1, "merged_train_f32": 1, "march_bwd_f32": 1}
+    assert fr.LAUNCHES == {k: want.get(k, 0) for k in fr.LAUNCHES}
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
 
 
 @pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
