@@ -550,6 +550,10 @@ def shared_fragment_sets(sass):
     return found
 
 
+# The f32 backward libraries on csrc/field_bwd_f32_sm90.cuh's 3xTF32 tile.
+TF32_BWD_LIBS = ("march_bwd_f32", "merged_train_f32", "mlp_bwd_f32", "hier_onepass_f32")
+
+
 def phase_build(out_dir):
     """Build every kernel; one line with each one's registers, shared
     memory and spills (K1, K2 and K5, ``csrc/field_sm90.cuh``, take dynamic
@@ -566,10 +570,10 @@ def phase_build(out_dir):
     res = {n: ptxas_resources(log) for n, log in logs.items()}
     for n in ("march", "merged", "mlp_fwd", "march_f32", "merged_f32", "mlp_fwd_f32"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
-    # the f32 K2, K5 (csrc/field_f32_sm90.cuh), K3 and K4 (csrc/
+    # the f32 K2, K5 (csrc/field_f32_sm90.cuh), K3, K4, K8 and K9 (csrc/
     # field_bwd_f32_sm90.cuh): their TF32 wgmma in SASS
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for n in ("march_f32", "merged_f32", "march_bwd_f32", "merged_train_f32"):
+    for n in ("march_f32", "merged_f32") + TF32_BWD_LIBS:
         if os.path.exists(cuobjdump):
             sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(n))],
                                   capture_output=True, text=True, timeout=120).stdout
@@ -591,24 +595,27 @@ def phase_build(out_dir):
         for fn, key, smem in ((tile, "tile", lib.danerf_bwd_tile_smem_bytes),
                               ("dw90_kernel", "dw_pass", lib.danerf_dw90_smem_bytes)):
             res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
-    # the f32 K3 and K4 (csrc/field_bwd_f32_sm90.cuh): the tile kernel, the
-    # wgmma dW pass and the gate pass (dynamic shared memory) and the narrow
-    # jobs' FFMA pass (static) apart
-    for n in ("march_bwd_f32", "merged_train_f32"):
+    # the f32 K3, K4, K8 and K9 (csrc/field_bwd_f32_sm90.cuh): the tile
+    # kernel (K9: its fine row set's and both chains', and its coarse row
+    # set's), the wgmma dW pass and the gate pass (dynamic shared memory) and
+    # the narrow jobs' FFMA pass (static) apart
+    for n in TF32_BWD_LIBS:
         lib = _build.load(n)
-        for fn, key, smem in (("bwd_tile32", "tile", lib.danerf_bwd_tf32_tile_smem_bytes),
-                              ("dw_t32_kernel", "dw_pass", lib.danerf_bwd_tf32_dw_smem_bytes)):
+        tiles = ((("hier_fine32", "tile"), ("hier_coarse32", "coarse_tile"))
+                 if n == "hier_onepass_f32" else (("bwd_tile32", "tile"),))
+        for fn, key, smem in tuple((fn, key, lib.danerf_bwd_tf32_tile_smem_bytes)
+                                   for fn, key in tiles) + (
+                ("dw_t32_kernel", "dw_pass", lib.danerf_bwd_tf32_dw_smem_bytes),):
             res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
         res[n]["narrow_dw_pass"] = function_resources(logs[n], "dw32_kernel")
         res[n]["gate_pass"] = {**function_resources(logs[n], "gate_pass32"),
                                "dynamic_smem": int(lib.danerf_bwd_tf32_gate_smem_bytes())}
     # the other f32 variants (csrc/field_bwd_f32.cuh): the tile kernel
-    # (dynamic shared memory) and the dW pass (static) apart; K9's its own tile
-    for n in ("merged_bwd_f32", "march_train_f32", "mlp_bwd_f32", "hier_onepass_f32"):
+    # (dynamic shared memory) and the dW pass (static) apart
+    for n in ("merged_bwd_f32", "march_train_f32"):
         lib = _build.load(n)
-        tile, smem = (("hier32_tile", lib.danerf_hier_tile_smem_bytes) if n == "hier_onepass_f32"
-                      else ("bwd32_tile", lib.danerf_bwd_tile_smem_bytes))
-        res[n]["tile"] = {**function_resources(logs[n], tile), "dynamic_smem": int(smem())}
+        res[n]["tile"] = {**function_resources(logs[n], "bwd32_tile"),
+                          "dynamic_smem": int(lib.danerf_bwd_tile_smem_bytes())}
         res[n]["dw_pass"] = function_resources(logs[n], "dw32_kernel")
     emit({"phase": "build", "seconds": secs, "built": sorted(logs), "resources": res})
 
@@ -1793,7 +1800,9 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
     on the time model at 37 rays and the batch (S = 64, 64 + 64).  K8 at
     37, 4,093, 65,536 and 131,072 rows and K9 at Sc + Sf = 64 + 64, 64 + 16,
     128 + 128, 48 + 32 and 32 + 64 at 37 rays and the batch, both with and
-    without time: K9's gradients within grad_rel_k9 (it draws its
+    without time (K8 also with an embedding of 24 at 37 and 4,093 rows,
+    which the bf16 K8 refuses: the bf16 plain version's error beside it):
+    K9's gradients within grad_rel_k9 (it draws its
     importance depths from its own f32 coarse weights), its two losses
     within the loss key and its demb within demb_k4.  Two calls agree bit
     for bit.  Beside each, the bf16 kernel's error against
@@ -1808,8 +1817,9 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
     beside their bounds (K3 and K4: 3xTF32's, tf32x3_bwd_bound, with FP32's
     FFMA bound beside; K6 and K7: FFMA's, with 3xTF32's beside) and their
     plain versions'; of K1 and K8 at the batch's 65,536 and 131,072 rows and
-    of K9 at the batch, with 3xTF32's bound beside FFMA's (the has_time
-    variants at 131,072 rows and the batch).  Returns (worst abs error of
+    of K9 at the batch (K8 and K9 at 3xTF32's bound with their gate passes,
+    FFMA's beside; K1 at FFMA's, 3xTF32's beside; the has_time variants at
+    131,072 rows and the batch).  Returns (worst abs error of
     each kernel and variant, the worst ratio, the times, their bound_by)."""
     import torch
 
@@ -1977,6 +1987,28 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
                  lambda: cpu_referee(fm.fused_bwd_plain, pcpu, c, device, x, dr, er, g_rgb,
                                      g_sig, t))
             del x, dr, er, g_rgb, g_sig
+        if tag == "":
+            # an embedding of 24, which the bf16 K8 refuses (its appearance
+            # product steps K by 16) and the f32 tile takes (row_app4 steps
+            # by 4): the bf16 plain version's error beside
+            c24 = c.replace(appearance_dim=24)
+            m24 = make_model(c24, 0, device)
+            p24, p24_16 = pack_params(m24, c24), pack_params(m24, c24.replace(use_bf16=True))
+            for n in (37, 4093):
+                x, dr, _ = (v[:n].contiguous() for v in sample_rows(-(-n // 64), c24, 880 + n % 97,
+                                                                    device, 64))
+                g = torch.Generator(device=device).manual_seed(n + 880)
+                er = torch.randn(n, 24, generator=g, device=device)
+                g_rgb = torch.randn(n, 3, generator=g, device=device)
+                g_sig = torch.randn(n, 1, generator=g, device=device)
+                args = (x, dr, er, g_rgb, g_sig)
+                held(f"K8f32@E24@{n}", m24, fm.fused_bwd_cuda(p24, c24, *args),
+                     fm.fused_bwd_cuda(p24, c24, *args),
+                     fm.fused_bwd_plain(p24_16, c24.replace(use_bf16=True), *args),
+                     fm.fused_bwd_plain(p24, c24, *args), ["demb"],
+                     lambda: cpu_referee(fm.fused_bwd_plain, pack_params(m24, c24, device="cpu"),
+                                         c24, device, *args))
+            del x, dr, er, g_rgb, g_sig, m24, p24, p24_16
         for k, (sc, sf) in enumerate(((64, 64), (64, 16), (128, 128), (48, 32), (32, 64))):
             cs = c.replace(num_samples=sc, num_importance=sf)
             for n in (37, c.batch_size):
@@ -2080,9 +2112,10 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
             timing[f"k8{tag}_{rows}_plain_ms"] = cuda_ms(
                 lambda: fm.fused_bwd_plain(p32, c, x, dr, er, g_rgb, g_sig, t), 3)
             k8_bytes = 4 * rows * (3 + 3 + e + nt + 3 + 1) + 4 * rows * e + wg
-            timing[f"k8{tag}_{rows}_bound_ms"], bound_by["k8" + tag] = bound(
-                c, rows, 1, k8_bytes, backward=True)
-            timing[f"k8{tag}_{rows}_tf32x3_bound_ms"] = tf32x3_bwd_bound(c, rows, 1, k8_bytes)[0]
+            timing[f"k8{tag}_{rows}_bound_ms"], bound_by["k8" + tag] = tf32x3_bwd_bound(
+                c, rows, 1, k8_bytes, gate_pass=True)
+            timing[f"k8{tag}_{rows}_ffma_bound_ms"] = bound(c, rows, 1, k8_bytes,
+                                                            backward=True)[0]
             del x, dr, er, g_rgb, g_sig
         o, d, emb, z = make_rays(n, c, seed=799, device=device)
         g = torch.Generator(device=device).manual_seed(800)
@@ -2094,9 +2127,9 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
         timing[f"k9{tag}_{n}_plain_ms"] = cuda_ms(
             lambda: fr.hier_onepass_plain(p32, c, o, d, emb, z, u, target, t), 3)
         k9_bytes = 4 * n * (3 + 3 + e + sc + sf + 3 + nt) + 4 * n * e + 8 + wg
-        timing[f"k9{tag}_{n}_bound_ms"], bound_by["k9" + tag] = bound(
-            c, n, sc + sf, k9_bytes, backward=True)
-        timing[f"k9{tag}_{n}_tf32x3_bound_ms"] = tf32x3_bwd_bound(c, n, sc + sf, k9_bytes)[0]
+        timing[f"k9{tag}_{n}_bound_ms"], bound_by["k9" + tag] = tf32x3_bwd_bound(
+            c, n, sc + sf, k9_bytes, gate_pass=True)
+        timing[f"k9{tag}_{n}_ffma_bound_ms"] = bound(c, n, sc + sf, k9_bytes, backward=True)[0]
         del o, d, emb, z, u, target
     worst = {f"{k}{tag}": max(v for key, v in errs.items()
                               if key.startswith(f"{k}f32{tag}@") and not key.endswith(".zero"))
@@ -2205,8 +2238,9 @@ def phase_f32_step_timing(cfg, device, f32_timing, tt):
     """The f32 64 + 64, per-sample and one-kernel steps (use_bf16=False) at
     B = 1024 beside the bf16 64 + 64 step, each through step_timing (eager
     and chained, 10 steps a replay, each with its torch.profiler windows:
-    device busy, idle share, and kernel_part's breakdown: the f32 64 + 64
-    step's K3 and K4 tiles, t32_tile, apart from their gate passes,
+    device busy, idle share, and kernel_part's breakdown: each f32 step's
+    3xTF32 tiles, t32_tile (the 64 + 64 step's K3 and K4, the per-sample
+    step's K8, the one-kernel step's K9), apart from their gate passes,
     t32_gate_pass, their wgmma dW passes, t32_dw_pass, and their narrow
     jobs and row sums, bwd32_dw_pass), with
     the f32 kernels' times and bound from phase_f32_bwd (K2, K3, K4 at the
@@ -2223,13 +2257,15 @@ def phase_f32_step_timing(cfg, device, f32_timing, tt):
                                 profile=True)
     keys = ("chained_ms_per_step_median", "chained_profile_device_busy_ms_per_step",
             "chained_profile_idle_share", "step_ms_median", "step_bound_ms")
-    hier = steps["hier_f32"]["chained_profile_breakdown_ms_per_step"]
-    split = {"gate_pass_ms": hier.get("t32_gate_pass", 0.0),
-             "tile_ms": hier.get("t32_tile", 0.0),
-             "dw_ms": hier.get("t32_dw_pass", 0.0) + hier.get("bwd32_dw_pass", 0.0),
-             "rest_ms": hier.get("rest", 0.0)}
+    split = {}
+    for path in f32_kernels:
+        parts = steps[path]["chained_profile_breakdown_ms_per_step"]
+        split[path] = {"gate_pass_ms": parts.get("t32_gate_pass", 0.0),
+                       "tile_ms": parts.get("t32_tile", 0.0),
+                       "dw_ms": parts.get("t32_dw_pass", 0.0) + parts.get("bwd32_dw_pass", 0.0),
+                       "rest_ms": parts.get("rest", 0.0)}
     emit({"phase": "f32_step_timing", "rays": cfg.batch_size, "steps": steps,
-          "hier_f32_chained_split_ms_per_step": split,
+          "f32_chained_split_ms_per_step": split,
           "f32_over_bf16": {k: steps["hier_f32"][k] / steps["hier"][k] for k in keys
                             if k != "chained_profile_idle_share"}})
 
@@ -3039,23 +3075,23 @@ def phase_timing(cfg, model, device, chunk, frame_t=None):
 def kernel_part(name):
     """The part of a step a device kernel belongs to: the tile kernel of K3,
     K4, K6, K7, K8 or K9 (csrc/field_bwd_sm90.cuh), their dW pass (the
-    wgmma blocks, the narrow jobs, the reductions), the tile and the wgmma
-    dW pass and the gate pass of the f32 K3 and K4
-    (csrc/field_bwd_f32_sm90.cuh), the tile of the other f32 variants
+    wgmma blocks, the narrow jobs, the reductions), the tile (K9's two tile
+    kernels) and the wgmma dW pass and the gate pass of the f32 K3, K4, K8
+    and K9 (csrc/field_bwd_f32_sm90.cuh), the tile of the f32 K6 and K7
     (csrc/field_bwd_f32.cuh) and the FFMA dW pass (the whole dW of those,
-    the narrow jobs and row sums of the f32 K3 and K4: bwd_f32_parts.cuh),
-    or the rest."""
+    the narrow jobs and row sums of the others: bwd_f32_parts.cuh), or the
+    rest."""
     if "bwd_tile90" in name or "hier_tile90" in name:
         return "bwd90_tile"
     if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
         return "bwd90_dw_pass"
-    if "bwd_tile32" in name:
+    if any(k in name for k in ("bwd_tile32", "hier_coarse32", "hier_fine32")):
         return "t32_tile"
     if "dw_t32_" in name:
         return "t32_dw_pass"
     if "gate_pass32" in name:
         return "t32_gate_pass"
-    if "bwd32_tile" in name or "hier32_tile" in name:
+    if "bwd32_tile" in name:
         return "bwd32_tile"
     if any(k in name for k in ("dw32_", "sum_slots32")):
         return "bwd32_dw_pass"
@@ -4778,12 +4814,13 @@ def main(argv=None):
                          "bound_ms": tm[f"{key}t_1024_bound_ms"],
                          f"{beside}_bound_ms": tm[f"{key}t_1024_{beside}_bound_ms"],
                          "bound_by": f32b_bound_by[key + "t"], "at": "1024-ray batch"}})
-    # the f32 variants of K8 and K9: launches from the f32 per-sample and
-    # one-kernel chained runs (10 steps each); K8 at the 131,072 rows of the
-    # per-sample step's fine evaluation (also at its 65,536 coarse rows), K9
-    # at B = 1024; their has_time variants are held and timed, and no run
-    # here drives them (K8's: the per-sample route with time; K9's: no
-    # route, as in the JAX package)
+    # the f32 variants of K8 and K9 (3xTF32, csrc/field_bwd_f32_sm90.cuh):
+    # launches from the f32 per-sample and one-kernel chained runs (10 steps
+    # each); K8 at the 131,072 rows of the per-sample step's fine evaluation
+    # (also at its 65,536 coarse rows), K9 at B = 1024, beside 3xTF32's
+    # bound and FP32's FFMA bound; their has_time variants are held and
+    # timed, and no run here drives them (K8's: the per-sample route with
+    # time; K9's: no route, as in the JAX package)
     n = cfg.batch_size
     for name, key, source, line, counter, at, run in (
             ("K8 per-sample field backward, f32", "k8", "mlp_bwd_f32.cu", "fused_mlp.py:249",
@@ -4796,7 +4833,7 @@ def main(argv=None):
                "max_abs_err": errs_f32b[key.upper()], "ms": tm[f"{key}_{at}_ms"],
                "plain_ms": tm[f"{key}_{at}_plain_ms"], "bound_ms": tm[f"{key}_{at}_bound_ms"],
                "bound_by": f32b_bound_by[key],
-               "tf32x3_bound_ms": tm[f"{key}_{at}_tf32x3_bound_ms"], "library_ms": None,
+               "ffma_bound_ms": tm[f"{key}_{at}_ffma_bound_ms"], "library_ms": None,
                "config": "use_bf16=False",
                "at": "131,072 rows" if key == "k8" else "1024-ray batch",
                "bf16_over_f32_error_ratio_worst": f32b_ratio,
@@ -4808,7 +4845,8 @@ def main(argv=None):
                             "at": "131,072 rows" if key == "k8" else "1024-ray batch"}}
         if key == "k8":
             rec["at_65536_rows"] = {"ms": tm["k8_65536_ms"], "plain_ms": tm["k8_65536_plain_ms"],
-                                    "bound_ms": tm["k8_65536_bound_ms"]}
+                                    "bound_ms": tm["k8_65536_bound_ms"],
+                                    "ffma_bound_ms": tm["k8_65536_ffma_bound_ms"]}
         kernels.append(rec)
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -1,9 +1,10 @@
-// What the two f32 backward tiles share: field_bwd_f32.cuh's FFMA tile (K3,
-// K4, K6, K7, K8, K9 with use_bf16=False before field_bwd_f32_sm90.cuh; K6,
-// K7, K8, K9 since) and field_bwd_f32_sm90.cuh's 3xTF32 tile (K3, K4).
+// What the two f32 backward tiles share: field_bwd_f32.cuh's FFMA tile (K6
+// and K7 with use_bf16=False) and field_bwd_f32_sm90.cuh's 3xTF32 tile (K3,
+// K4, K8, K9).
 // - The composites of a tile's rays and their transposes (MarchComp32,
 //   MergedComp32, merged_ray32 with merge_ranks), one warp per ray over the
-//   tile's rows as CompTile points to them, and demb per ray (ray_demb).
+//   tile's rows as CompTile points to them, K8's per-row cotangents
+//   (RowComp32), and demb per ray (ray_demb).
 // - The FFMA dW pass (dw32_kernel over fixed row partitions, summed in
 //   order by dw32_reduce) and the row sums' reduction (sum_slots32).
 // Every sum runs in a fixed order, so two calls give bit-identical results.
@@ -102,6 +103,25 @@ struct MarchComp32 {
           bs.g_sig[row] += gf[3 * S + k];
         }
       }
+    }
+  }
+};
+
+// K8's "composite": each of a row tile's rows (row0.., nvalid of them) takes
+// the caller's cotangents g_rgb (N,3) and g_sigma (N).
+struct RowComp32 {
+  static constexpr bool MSE = false;
+  static constexpr bool ROWS = true;
+  const float* g_rgb;
+  const float* g_sigma;
+  template <class Sync>
+  __device__ void operator()(const CompTile<Sync>& tl, long long row0, int nvalid, int) const {
+    BwdSmem& bs = tl.bs;
+    for (int r = threadIdx.x; r < nvalid; r += COMP_THREADS) {
+      bs.g_rgb[r * 3 + 0] = g_rgb[(row0 + r) * 3 + 0];
+      bs.g_rgb[r * 3 + 1] = g_rgb[(row0 + r) * 3 + 1];
+      bs.g_rgb[r * 3 + 2] = g_rgb[(row0 + r) * 3 + 2];
+      bs.g_sig[r] = g_sigma[row0 + r];
     }
   }
 };

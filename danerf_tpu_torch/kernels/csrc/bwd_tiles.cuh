@@ -155,16 +155,23 @@ struct HierArgs {
 
 // The two losses of a pass: loss[0] += the fine slots (odd virtual tiles),
 // loss[1] += the coarse slots (even ones); a virtual tile's loss is the
-// last column of the first of its two row-sum slots.  Warp k sums loss k,
-// each lane every 32nd of its tiles in order, then the lanes in a fixed
-// tree.
-__global__ void hier_losses(const float* __restrict__ part, int vtiles, int nv,
-                            float* __restrict__ loss) {
+// last column of the first of its `slots` row-sum slots (2 on the bf16 and
+// FFMA tiles; field_bwd_f32_sm90.cuh's SLOTS on the f32 K9's).  Warp k sums
+// loss k, each lane every 32nd of its tiles in order, then the lanes in a
+// fixed tree.
+__device__ __forceinline__ void hier_losses_of(const float* __restrict__ part, int vtiles,
+                                               int nv, int slots, float* __restrict__ loss) {
   const int k = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float s = 0.f;
-  for (int v = 1 - k + 2 * lane; v < vtiles; v += 64) s += part[2LL * v * nv + nv - 1];
+  for (int v = 1 - k + 2 * lane; v < vtiles; v += 64)
+    s += part[(long long)slots * v * nv + nv - 1];
   s = warp_sum(s);
   if (lane == 0) loss[k] += s;
+}
+
+__global__ void hier_losses(const float* __restrict__ part, int vtiles, int nv,
+                            float* __restrict__ loss) {
+  hier_losses_of(part, vtiles, nv, 2, loss);
 }
 
 }  // namespace danerf

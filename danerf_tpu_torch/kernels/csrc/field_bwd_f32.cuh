@@ -1,16 +1,12 @@
 // The backward of the NeRF-W field in f32 (use_bf16=False) on the CUDA
 // cores for the f32 variants of the training kernels K7
-// (march_train_f32.cu), the ray march's backward under the MSE; K6
+// (march_train_f32.cu), the ray march's backward under the MSE, and K6
 // (merged_bwd_f32.cu), the merged fine pass's under the caller's
-// cotangents; K8 (mlp_bwd_f32.cu), the per-sample field's under each row's
-// cotangents (RowComp32: tiles of 128 independent rows, demb per row); and
-// K9 (hier_onepass_f32.cu), whose own tile kernel runs the coarse and the
-// fine row sets of a tile on these pieces (SmemH32).  (K3 and K4 ran on it
-// too; they run on field_bwd_f32_sm90.cuh's tensor-core tile.)  The
-// counterpart of danerf_tpu/kernels/fused_mlp.py _field_bwd_from_res with
-// cdt = float32, as the JAX kernels run it when cfg.use_bf16 is off.  The
-// composites, demb, the dW pass and the row sums come from
-// bwd_f32_parts.cuh.
+// cotangents; K3, K4, K8 and K9 run on field_bwd_f32_sm90.cuh's
+// tensor-core tile.  The counterpart of
+// danerf_tpu/kernels/fused_mlp.py _field_bwd_from_res with cdt = float32,
+// as the JAX kernels run it when cfg.use_bf16 is off.  The composites,
+// demb, the dW pass and the row sums come from bwd_f32_parts.cuh.
 //
 // Numerics: the JAX f32 configuration's.  Every residual is stashed in f32,
 // every product is an f32 FFMA on the CUDA cores, every sum is an f32 sum;
@@ -22,8 +18,7 @@
 // results.
 //
 // Tile kernel (bwd32_tile, one block an SM, 256 threads): for each tile of
-// rpc rays of s samples (field.cuh's shapes: rpc = min(128 / s, 8); K8: 128 rows, each
-// loaded by load_rows and encoded by RowEnc),
+// rpc rays of s samples (field.cuh's shapes: rpc = min(128 / s, 8)),
 // - Forward with residuals: field_f32.cuh's field_block on each 64-row block
 //   of the tile (FFMA, 8 x 8 accumulators a thread, 32-deep K slices
 //   streamed by cp.async through two stages, activations column-major at
@@ -40,8 +35,7 @@
 //   density heads' row sums, d_happ = d_pre_rgb @ Wrgb and d_hdir_pre, in
 //   f32, each stashed; d_hdir_pre into the activation buffer as the first
 //   product's A; each ray's sum of d_happ over its rows (demb after the
-//   tile's blocks: that sum @ Wapp; K8: each row's d_happ @ Wapp, from the
-//   block's d_happ in shared memory).
+//   tile's blocks: that sum @ Wapp).
 // - Transposed chain: d_in = d_pre @ W[:, :HID] on the forward's FFMA
 //   slice (ffma_slice), A = the activation buffer, B = W's own rows: in
 //   f32, PackedParams.mats holds W (out, K) row-major, so a 32-deep slice
@@ -51,8 +45,7 @@
 //   its bias sums go to the block's slot of the tile's row sums (2 slots a
 //   tile, summed in slot order by sum_slots32).
 // Shared memory: field_f32.cuh's Smem (187,616 bytes), sigma_pre and
-// field_bwd.cuh's BwdSmem: 198,400 of 232,448 bytes; K9's tile adds
-// HierSmem32 (5,120 bytes).
+// field_bwd.cuh's BwdSmem: 198,400 of 232,448 bytes.
 //
 // dW pass (dw32_kernel): dW = d_pre^T @ input over every stashed row, one
 // 64 x 64 output tile of one job a block over one of `parts` fixed row
@@ -67,9 +60,7 @@
 // d_hdir_pre, d_pre_rgb and the embedding.  A pass holds at most
 // MAX_TILES_PASS32 tiles, half the bf16 tile's, so the stash stays at
 // ~2.4 GB (131,072 rows), as the bf16 stash of a full pass; ~1.2 GB at a
-// 1024-ray batch of 64 samples.  K9 keeps two row sets a tile (vt = 2
-// virtual tiles of the stash), so its pass holds half as many tiles and
-// the same 131,072 rows.
+// 1024-ray batch of 64 samples.
 
 #pragma once
 
@@ -118,42 +109,6 @@ static_assert(232448 - SHAPE_TILE_BYTES - sizeof(BwdSmem) <= sizeof(Smem::w),
 constexpr int SPARE = (int)((offsetof(Smem, rgb) - offsetof(Smem, encx)) / sizeof(float));
 static_assert(SPARE >= MB * HALF && SPARE >= (THREADS / 32) * HID, "the spare buffer is too small");
 
-// K9 (hier_onepass_f32.cu): what must outlive the fine forward, which
-// streams its weights through the stages that hold the composites'
-// arrays: each ray's coarse depths, its coarse field [r, g, b, sigma]
-// ((4, Sc) a ray, the layout merged_ray32 reads) and sigma_pre, and the
-// merge's cotangent of that field.  rpc x max(Sc, Sf) <= TILE_M rows at
-// every shape (rays_per_tile).  The fine depths live in sm.z.
-struct HierSmem32 {
-  float zc[TILE_M];
-  float kf[4 * TILE_M];
-  float ksp[TILE_M];
-  float gfc[4 * TILE_M];
-};
-
-struct SmemH32 {
-  SmemB32 b;
-  HierSmem32 h;
-};
-constexpr size_t HIER32_SMEM_BYTES = sizeof(SmemH32);
-static_assert(HIER32_SMEM_BYTES <= 232448, "K9's f32 tile exceeds the 227 KB a block may use");
-
-// Every shape K9 takes (Sc, Sf in 1..128, rpc = rays_per_tile(max(Sc, Sf))):
-// its kept arrays fit in HierSmem32's TILE_M rows, and its composites'
-// arrays in the weight stages: the merged composite's per-warp alpha / T /
-// w and each ray's merge arrays (the coarse one's per-warp alpha / T / w,
-// also the inverse CDF's cdf, take less).  The largest Sa at s = max(Sc,
-// Sf) is 2s.
-constexpr bool hier32_fits() {
-  for (int s = 1; s <= TILE_M; ++s) {
-    const int rpc = TILE_M / s < MAX_RPC ? TILE_M / s : MAX_RPC, sa = 2 * s;
-    if (rpc * s > TILE_M) return false;
-    if ((THREADS / 32) * 3 * sa + rpc * 6 * sa > 2 * KSF * HID) return false;
-  }
-  return true;
-}
-static_assert(hier32_fits(), "a K9 shape's arrays do not fit its f32 tile");
-
 static_assert(THREADS == COMP_THREADS && THREADS == DW32_THREADS,
               "bwd_f32_parts.cuh's composites and dW pass run on this tile's threads");
 
@@ -170,9 +125,8 @@ __device__ __forceinline__ void fill0(float* p, long long n) {
 
 // ---------------------------------------------------------------- forward
 
-// The encoder of a block's rows (field_f32.cuh RayEnc, or RowEnc for K8's
-// independent rows) that also writes the encodings and each row's
-// embedding to the stash rows g0..
+// The encoder of a block's rows (field_f32.cuh RayEnc) that also writes the
+// encodings and each row's embedding to the stash rows g0..
 template <class Enc>
 struct StashEnc {
   Enc enc;
@@ -233,27 +187,6 @@ __device__ __forceinline__ void zero_rows(const FieldArgs& P, const Scratch32& s
   fill0(sc.drgb + g0 * DRGB32, (long long)MB * DRGB32);
   fill0(sc.embr + g0 * P.emb_dim, (long long)MB * P.emb_dim);
 }
-
-// ---------------------------------------------------------------- composite
-
-// K8's "composite": each of the tile's rows (row0.., nvalid of them) takes
-// the caller's cotangents g_rgb (N,3) and g_sigma (N).
-struct RowComp32 {
-  static constexpr bool MSE = false;
-  static constexpr bool ROWS = true;
-  const float* g_rgb;
-  const float* g_sigma;
-  template <class Sync>
-  __device__ void operator()(const CompTile<Sync>& tl, long long row0, int nvalid, int) const {
-    BwdSmem& bs = tl.bs;
-    for (int r = threadIdx.x; r < nvalid; r += THREADS) {
-      bs.g_rgb[r * 3 + 0] = g_rgb[(row0 + r) * 3 + 0];
-      bs.g_rgb[r * 3 + 1] = g_rgb[(row0 + r) * 3 + 1];
-      bs.g_rgb[r * 3 + 2] = g_rgb[(row0 + r) * 3 + 2];
-      bs.g_sig[r] = g_sigma[row0 + r];
-    }
-  }
-};
 
 // ---------------------------------------------------------------- chain
 
@@ -322,12 +255,10 @@ __device__ __forceinline__ void mma_chain(float (&acc)[8][8], ChainStream& st, i
 // slot `part`; d_happ = d_pre_rgb @ Wrgb and d_hdir_pre = (relu(hdir_pre) >
 // 0) ? d_happ : 0, stashed, d_hdir_pre into sm.act (the first product's
 // A), the bapp / bdir row sums; each of the tile's nvalid rays (s rows
-// each) adds its rows' d_happ to bs.dsum.  K8 (demb_rows non-null: the
-// tile's nvalid independent rows, demb of its first): each row's demb =
-// d_happ @ Wapp instead, a thread an output, in c order.
+// each) adds its rows' d_happ to bs.dsum.
 __device__ __forceinline__ void chain_head(const FieldArgs& P, const float* w, SmemB32& sb,
                                            const Scratch32& sc, long long g0, int rb, int s,
-                                           int nvalid, float* part, float* demb_rows) {
+                                           int nvalid, float* part) {
   Smem& sm = sb.f;
   BwdSmem& bs = sb.bs;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -391,17 +322,6 @@ __device__ __forceinline__ void chain_head(const FieldArgs& P, const float* w, S
       part[P.bdir_off + c] = a;
     }
   }
-  if (demb_rows != nullptr) {
-    const float* wapp = w + P.wapp_off;  // (HALF, E)
-    const int E = P.emb_dim, n = min(MB, nvalid - rb);
-    for (int idx = tid; idx < n * E; idx += THREADS) {
-      const int r = idx / E, e = idx - r * E;
-      float a = 0.f;
-      for (int c = 0; c < HALF; ++c) a += dap[r * HALF + c] * wapp[c * E + e];
-      demb_rows[(long long)(rb + r) * E + e] = a;
-    }
-    return;
-  }
   const int j0 = rb / s, j1 = min(nvalid, (rb + MB + s - 1) / s);
   for (int idx = tid; idx < (j1 - j0) * HALF; idx += THREADS) {
     const int j = j0 + idx / HALF, c = idx % HALF;
@@ -460,11 +380,9 @@ __device__ __forceinline__ void zero_cotangents32(BwdSmem& bs) {
   }
 }
 
-// The forward of one row set of a tile (n rays of s samples, the depths in
-// sm.z; ROWS: n independent rows, s = 1), its residuals to the stash rows
-// g0.. (the blocks past its rows zeroed there), rgb, sigma and sigma_pre to
-// the tile's rows, behind a barrier.
-template <bool ROWS>
+// The forward of a tile's rows (n rays of s samples, the depths in sm.z),
+// its residuals to the stash rows g0.. (the blocks past its rows zeroed
+// there), rgb, sigma and sigma_pre to the tile's rows, behind a barrier.
 __device__ __forceinline__ void forward_set(const FieldArgs& P, const float* wt, SmemB32& sb,
                                             const Scratch32& sc, const Rays32& rays,
                                             long long ray0, int n, int s, long long g0) {
@@ -473,34 +391,25 @@ __device__ __forceinline__ void forward_set(const FieldArgs& P, const float* wt,
   for (int b = 0; b < blocks; ++b) {
     const long long gb = g0 + b * MB;
     const StashRes res{sc.h, sc.ddir, sc.happ, sb.sigma_pre + b * MB, sc.rows, gb};
-    if constexpr (ROWS) {
-      const int nb = min(MB, n - b * MB);
-      load_rows(sm, rays, ray0 + b * MB, nb);
-      field_block(P, wt, sm, StashEnc<RowEnc>{RowEnc{P, rays.emb, ray0 + b * MB, nb}, sc.encx,
-                                              sc.encd, sc.embr, gb},
-                  sm.rgb + b * MB * 3, sm.sigma + b * MB, res);
-    } else {
-      field_block(P, wt, sm, StashEnc<RayEnc>{RayEnc{P, rays.emb, ray0, b * MB, s, n}, sc.encx,
-                                              sc.encd, sc.embr, gb},
-                  sm.rgb + b * MB * 3, sm.sigma + b * MB, res);
-    }
+    field_block(P, wt, sm, StashEnc<RayEnc>{RayEnc{P, rays.emb, ray0, b * MB, s, n}, sc.encx,
+                                            sc.encd, sc.embr, gb},
+                sm.rgb + b * MB * 3, sm.sigma + b * MB, res);
   }
   for (int b = blocks; b < TILE_M / MB; ++b) zero_rows(P, sc, g0 + b * MB);
   __syncthreads();
 }
 
-// The chain of a row set's blocks (stash rows g0.., tile rows 0.., each
-// ray s rows, nvalid rays; K8: rows): per block its head and the
-// transposed chain, the block's row sums to slot b of part.
+// The chain of a tile's blocks (stash rows g0.., tile rows 0.., each ray s
+// rows, nvalid rays): per block its head and the transposed chain, the
+// block's row sums to slot b of part.
 __device__ __forceinline__ void chain_blocks(const FieldArgs& P, const float* w, SmemB32& sb,
                                              const Scratch32& sc, long long g0, int blocks,
-                                             int s, int nvalid, float* part,
-                                             float* demb_rows) {
+                                             int s, int nvalid, float* part) {
   const int L = P.num_layers;
   for (int b = 0; b < blocks; ++b) {
     ChainStream cs{P, w, sb.f};
     cs.load();  // the first slice streams in while the head runs
-    chain_head(P, w, sb, sc, g0 + b * MB, b * MB, s, nvalid, part + b * sc.nv, demb_rows);
+    chain_head(P, w, sb, sc, g0 + b * MB, b * MB, s, nvalid, part + b * sc.nv);
     for (int q = 0; q < L; ++q) {
       float acc[8][8];
       mma_chain(acc, cs, q);
@@ -509,31 +418,29 @@ __device__ __forceinline__ void chain_blocks(const FieldArgs& P, const float* w,
   }
 }
 
-// The tile kernel (pass 1) of K6, K7 and K8: for each tile of rpc
-// rays (ray_base + tile rpc.., stash rows tile TILE_M..; K8, Comp::ROWS:
-// 128 rows), the forward with its residuals, the composite and its
-// transpose (comp), then per block the chain's head and the transposed
-// chain, then each ray's demb (K8: each row's, in the chain's head).
+// The tile kernel (pass 1) of K6 and K7: for each tile of rpc rays
+// (ray_base + tile rpc.., stash rows tile TILE_M..), the forward with its
+// residuals, the composite and its transpose (comp), then per block the
+// chain's head and the transposed chain, then each ray's demb.
 template <class Comp>
 __global__ void __launch_bounds__(THREADS)
 bwd32_tile(const FieldArgs P, const float* __restrict__ wt, const float* __restrict__ w,
            const Scratch32 sc, const Rays32 rays, long long ray_base, const Comp comp,
            float* __restrict__ demb) {
+  static_assert(!Comp::ROWS, "row tiles run on field_bwd_f32_sm90.cuh");
   SmemB32& sb = smem_b32();
   Smem& sm = sb.f;
   BwdSmem& bs = sb.bs;
-  const int s = rays.s, rpc = rays.rpc, E = P.emb_dim;
+  const int s = rays.s, rpc = rays.rpc;
   for (long long tile = blockIdx.x; tile < rays.n_tiles; tile += gridDim.x) {
     const long long ray0 = ray_base + tile * rpc, gt = tile * TILE_M;
     const int n_rays = (int)(rays.R - ray0 < rpc ? rays.R - ray0 : rpc);
     const int blocks = (n_rays * s + MB - 1) / MB;
     __syncthreads();  // every thread is done with the last tile
-    if constexpr (!Comp::ROWS) {
-      load_rays(sm, rays, ray0, n_rays);
-      for (int i = threadIdx.x; i < rpc * HALF; i += THREADS) bs.dsum[i] = 0.f;
-    }
+    load_rays(sm, rays, ray0, n_rays);
+    for (int i = threadIdx.x; i < rpc * HALF; i += THREADS) bs.dsum[i] = 0.f;
     zero_cotangents32(bs);
-    forward_set<Comp::ROWS>(P, wt, sb, sc, rays, ray0, n_rays, s, gt);
+    forward_set(P, wt, sb, sc, rays, ray0, n_rays, s, gt);
     comp(CompTile<BlockSync>{sm.z, sm.sigma, sm.rgb, bs, sm.w[0], {}}, ray0, n_rays, rpc);
     __syncthreads();
     {
@@ -542,12 +449,9 @@ bwd32_tile(const FieldArgs P, const float* __restrict__ wt, const float* __restr
       sums.nv = sc.nv;
       store_tile_loss<Comp::MSE>(bs, sums, (int)(2 * tile), n_rays);
     }
-    chain_blocks(P, w, sb, sc, gt, blocks, s, n_rays, sc.part + 2 * tile * sc.nv,
-                 Comp::ROWS ? demb + ray0 * E : nullptr);
-    if constexpr (!Comp::ROWS) {
-      __syncthreads();
-      ray_demb(P, w, bs, ray0, n_rays, demb);
-    }
+    chain_blocks(P, w, sb, sc, gt, blocks, s, n_rays, sc.part + 2 * tile * sc.nv);
+    __syncthreads();
+    ray_demb(P, w, bs, ray0, n_rays, demb);
   }
 }
 
@@ -616,10 +520,8 @@ inline long long carve32(char* base, const FieldArgs& P, long long tiles, int n_
 // What the kernels on this tile set up: the layout records (meta_t: where
 // the chain's blocks lie in w, f32 W (out, K) at the packed offsets: -1,
 // w_off[1..L-1], wdir_off, wapp_off), the shape checks (the backward
-// kernels' widths, 1..128 samples a tile row; K8, rows: s = ROW_TILES), the
-// stash of one pass and the pass sizes, for R rays of s samples in a tile's
-// rows (K3, K7: S; K4, K6: Sf; K9: max(Sc, Sf)) or R rows; vt virtual
-// tiles of the stash a tile (K9: 2, its coarse and fine row sets).
+// kernels' widths, 1..128 samples a tile row), the stash of one pass and
+// the pass sizes, for R rays of s samples in a tile's rows (K7: S; K6: Sf).
 struct Bwd32Call {
   FieldArgs P;
   const float* wt;  // the forward's weights, transposed (mats_kn)
@@ -629,28 +531,19 @@ struct Bwd32Call {
   long long tiles_total;
 };
 
-// The tiles of a tile's rows: rows for K8 (s = ROW_TILES), else
-// rays_per_tile; 0 for a shape the kernels do not take.
-inline int tile_units32(long long s, bool rows) {
-  if (rows) return s == ROW_TILES ? TILE_M : 0;
-  return (s < 1 || s > TILE_M) ? 0 : rays_per_tile(s);
-}
-
-// The stash bytes of one pass over R rays (rows) in tiles of `units`, vt
-// virtual tiles each.
-inline long long scratch32_bytes(const FieldArgs& P, long long R, int units, int vt,
+// The stash bytes of one pass over R rays of s samples a tile row.
+inline long long scratch32_bytes(const FieldArgs& P, long long R, long long s,
                                  long long n_vecs) {
-  long long tiles = (R + units - 1) / units;
-  if (tiles > MAX_TILES_PASS32 / vt) tiles = MAX_TILES_PASS32 / vt;
+  long long tiles = (R + rays_per_tile(s) - 1) / rays_per_tile(s);
+  if (tiles > MAX_TILES_PASS32) tiles = MAX_TILES_PASS32;
   Scratch32 sc;
-  return carve32(nullptr, P, vt * tiles, (int)n_vecs, &sc);
+  return carve32(nullptr, P, tiles, (int)n_vecs, &sc);
 }
 
 inline int bwd32_setup(const long long* meta, long long n_meta, const void* wt,
                        const float* vecs, long long E, const void* w, const long long* meta_t,
                        long long n_meta_t, long long R, long long s, void* scratch,
-                       long long scratch_bytes, long long n_vecs, Bwd32Call* c,
-                       bool rows = false, int vt = 1) {
+                       long long scratch_bytes, long long n_vecs, Bwd32Call* c) {
   int err = parse_meta(meta, n_meta, nullptr, vecs, E, &c->P);
   if (err) return err;
   const FieldArgs& P = c->P;
@@ -658,22 +551,20 @@ inline int bwd32_setup(const long long* meta, long long n_meta, const void* wt,
   if (n_meta_t != L + 2 || meta_t[L] != P.wdir_off || meta_t[L + 1] != P.wapp_off) return ERR_META;
   for (int i = 1; i < L; ++i)
     if (meta_t[i] != P.w_off[i]) return ERR_META;
-  const int units = tile_units32(s, rows);
-  if (P.emb_dim % 4 || 2 * L + 4 > MAX_JOBS32 || n_vecs < 1 || units == 0 || R < 0)
+  if (P.emb_dim % 4 || 2 * L + 4 > MAX_JOBS32 || n_vecs < 1 || s < 1 || s > TILE_M || R < 0)
     return ERR_SHAPE;
   c->wt = static_cast<const float*>(wt);
   c->w = static_cast<const float*>(w);
-  c->rpc = units;
+  c->rpc = rays_per_tile(s);
   c->tiles_total = (R + c->rpc - 1) / c->rpc;
-  const long long cap = MAX_TILES_PASS32 / vt;
-  c->tiles_pass = (int)(c->tiles_total < cap ? c->tiles_total : cap);
-  if (carve32(static_cast<char*>(scratch), P, (long long)vt * c->tiles_pass, (int)n_vecs,
-              &c->sc) > scratch_bytes)
+  c->tiles_pass = (int)(c->tiles_total < MAX_TILES_PASS32 ? c->tiles_total : MAX_TILES_PASS32);
+  if (carve32(static_cast<char*>(scratch), P, c->tiles_pass, (int)n_vecs, &c->sc) >
+      scratch_bytes)
     return ERR_SHAPE;
   return 0;
 }
 
-// Passes 2 and 3 for the nt (virtual) tiles of one pass: the dW jobs over
+// Passes 2 and 3 for the nt tiles of one pass: the dW jobs over
 // fixed row partitions, their sum in partition order, the row sums (2
 // slots a tile; loss null: the loss column is not summed).
 inline int finish32(const Bwd32Call& c, int nt, float* gmats, float* gvecs, float* loss,
@@ -722,9 +613,9 @@ inline int run_bwd32(const Bwd32Call& c, const Comp& comp, Rays32 rays, float* g
 }  // namespace f32
 }  // namespace danerf
 
-// Bytes of stash K6, K7 or K8 in f32 needs for R rays of s samples a tile
-// row group (K7: S; K6: Sf), or R rows (K8, s = ROW_TILES);
-// negative on a malformed layout or a shape they do not take.
+// Bytes of stash K6 or K7 in f32 needs for R rays of s samples a tile row
+// group (K7: S; K6: Sf); negative on a malformed layout or a shape they do
+// not take.
 extern "C" long long danerf_bwd_f32_scratch_bytes(const long long* meta, long long n_meta,
                                                   long long R, long long s, long long n_vecs) {
   using namespace danerf;
@@ -733,9 +624,8 @@ extern "C" long long danerf_bwd_f32_scratch_bytes(const long long* meta, long lo
   FieldArgs P;
   const int err = parse_meta(meta, n_meta, nullptr, nullptr, meta[8], &P);
   if (err) return err;
-  const int units = tile_units32(s, s == ROW_TILES);
-  if (units == 0 || R < 0) return ERR_SHAPE;
-  return scratch32_bytes(P, R, units, 1, n_vecs);
+  if (s < 1 || s > TILE_M || R < 0) return ERR_SHAPE;
+  return scratch32_bytes(P, R, s, n_vecs);
 }
 
 // The dynamic shared memory of a block of the tile kernel (ptxas -v

@@ -1,12 +1,15 @@
 // The backward of the NeRF-W field in f32 (use_bf16=False) on Hopper's
 // tensor cores for K3 (march_bwd_f32.cu), the ray march's backward under
-// the caller's cotangents, and K4 (merged_train_f32.cu), the merged fine
-// pass's under the MSE: the counterpart of danerf_tpu/kernels/fused_mlp.py
-// _field_bwd_from_res with cdt = float32, as _march_bwd_kernel and
-// _merged_train_kernel run it when cfg.use_bf16 is off.  It is to
-// field_f32_sm90.cuh what field_bwd_sm90.cuh is to field_sm90.cuh; the
-// composites, demb, the narrow dW jobs and the row sums' reduction come
-// from bwd_f32_parts.cuh.
+// the caller's cotangents, K4 (merged_train_f32.cu), the merged fine pass's
+// under the MSE, K8 (mlp_bwd_f32.cu), the per-sample field's under each
+// row's cotangents (row tiles, ROW_TILE), and K9 (hier_onepass_f32.cu),
+// whose own two tile kernels run its coarse and fine row sets on these
+// pieces: the counterpart of danerf_tpu/kernels/fused_mlp.py
+// _field_bwd_from_res with cdt = float32, as _march_bwd_kernel,
+// _merged_train_kernel, _bwd_kernel and _hier_onepass_kernel run it when
+// cfg.use_bf16 is off.  It is to field_f32_sm90.cuh what field_bwd_sm90.cuh
+// is to field_sm90.cuh; the composites, demb, the narrow dW jobs and the
+// row sums' reduction come from bwd_f32_parts.cuh.
 //
 // Numerics: 3xTF32, as field_f32_sm90.cuh's.  Every trunk, dir-layer,
 // transposed-chain and dW product a.b is formed on the tensor cores from
@@ -36,10 +39,12 @@
 //
 // Gate pass (gate_pass32, before the tile kernel): field_f32.cuh's
 // field_block on each tile's rows (two 64-row blocks; the tile kernel's
-// tiles) with GateStash as its hook, which gathers each relu's sign by warp
-// ballots into the words the tile kernel's threads read: a record of 4
-// words a consumer thread a layer, the gates of its accumulator fragment
-// (GateRec).  It costs a forward on the CUDA cores (FP32's 67 TFLOP/s).
+// tiles: rays through load_rays / RayEnc, a row tile's rows through
+// load_rows / RowEnc) with GateStash as its hook, which gathers each relu's
+// sign by warp ballots into the words the tile kernel's threads read: a
+// record of 4 words a consumer thread a layer, the gates of its accumulator
+// fragment (GateRec).  It costs a forward on the CUDA cores (FP32's 67
+// TFLOP/s).
 //
 // Tile kernel (bwd_tile32: a persistent CTA per SM, field_f32_sm90.cuh's 3
 // warpgroups and its 5-stage TMA ring of split weights), per tile of 128
@@ -55,7 +60,8 @@
 // - Chain head (CUDA cores, f32): d_pre_rgb, d_sigma_pre, the heads' row
 //   sums; d_happ = d_pre_rgb @ Wrgb and d_hdir_pre on the dir layer's
 //   fragments, into sm.act (d_hdir_pre the first product's A) and the stash;
-//   each ray's d_happ summed over its rows, demb.
+//   each ray's d_happ summed over its rows, demb (a row tile: each row's
+//   demb = d_happ @ Wapp).
 // - Transposed chain: d_in = d_pre @ W[:, :HID] by 3xTF32 on wgmma
 //   m64n256k8, A = d_pre split in registers from sm.act (a warpgroup reads
 //   and writes only its own rows), B = W^T (in, out) row-major split on the
@@ -311,24 +317,39 @@ struct GateStash {
 
 // The gate pass of one pass's tiles: each tile's rays (field_f32.cuh
 // load_rays: zeros past R), its two 64-row blocks through field_block (wt:
-// the weights transposed, PackedParams.mats_kn), the gates to their records.
+// the weights transposed, PackedParams.mats_kn), the gates to their records
+// (tile c's at virtual tile c vt of gates: K9 keeps two row sets a tile).
 // Rows of rays past R take zero encodings here and the tile kernel's
-// encodings of a zero ray there; no cotangent reaches them.
+// encodings of a zero ray there; no cotangent reaches them.  A row tile
+// (ROW_TILE, K8: rays.o the points, rpc = 128) loads each block's rows
+// (load_rows) and encodes them at z = 0 (RowEnc), zeros past R as the tile
+// kernel's.
+template <int KIND>
 __global__ void __launch_bounds__(f32::THREADS)
 gate_pass32(const FieldArgs P, const float* __restrict__ wt, const f32::Rays32 rays,
-            uint4* __restrict__ gates) {
+            uint4* __restrict__ gates, int vt) {
   f32::Smem& sm = f32::smem_f32();
   const int L = P.num_layers;
   for (long long c = blockIdx.x; c < rays.n_tiles; c += gridDim.x) {
     const long long ray0 = c * rays.rpc;
     const int n = (int)(rays.R - ray0 < rays.rpc ? rays.R - ray0 : rays.rpc);
-    __syncthreads();  // every thread is done with the last tile's rays
-    f32::load_rays(sm, rays, ray0, n);
-    uint32_t* rec = reinterpret_cast<uint32_t*>(gates + c * (L + 1) * CONSUMERS);
-    for (int b = 0; b < ROWS / f32::MB; ++b)
-      f32::field_block(P, wt, sm, f32::RayEnc{P, rays.emb, ray0, b * f32::MB, rays.s, n},
-                       sm.rgb + b * f32::MB * 3, sm.sigma + b * f32::MB,
-                       GateStash{rec, b, L});
+    uint32_t* rec = reinterpret_cast<uint32_t*>(gates + c * vt * (L + 1) * CONSUMERS);
+    if constexpr (KIND == ROW_TILE) {
+      for (int b = 0; b < ROWS / f32::MB; ++b) {
+        const int nb = min(max(n - b * f32::MB, 0), f32::MB);
+        f32::load_rows(sm, rays, ray0 + b * f32::MB, nb);
+        f32::field_block(P, wt, sm, f32::RowEnc{P, rays.emb, ray0 + b * f32::MB, nb},
+                         sm.rgb + b * f32::MB * 3, sm.sigma + b * f32::MB,
+                         GateStash{rec, b, L});
+      }
+    } else {
+      __syncthreads();  // every thread is done with the last tile's rays
+      f32::load_rays(sm, rays, ray0, n);
+      for (int b = 0; b < ROWS / f32::MB; ++b)
+        f32::field_block(P, wt, sm, f32::RayEnc{P, rays.emb, ray0, b * f32::MB, rays.s, n},
+                         sm.rgb + b * f32::MB * 3, sm.sigma + b * f32::MB,
+                         GateStash{rec, b, L});
+    }
   }
 }
 
@@ -389,17 +410,39 @@ struct StashRes {
 // load_tiles' stash hook (the encoders): tile c's encodings, as the forward
 // forms them (field_f32_sm90.cuh enc_x_at, enc_d_at; zeros past the tile's
 // rays), and each row's embedding (zeros past R), to the stash rows of the
-// tile.
+// tile: those of virtual tile tile vt + v0 (K9: vt = 2, v0 its coarse 0 or
+// fine 1 row set).  A row tile's (load_row_tiles): each row's at z = 0,
+// zeros past its rows.
 struct StashEnc {
   const FieldArgs& P;
   const ScratchT32& sc;
   const float* emb;
   long long R;
-  int s, rpc;
+  int s, rpc, vt = 1, v0 = 0;
 
+  __device__ __forceinline__ long long stash_row(int c) const {
+    return ((blockIdx.x + (long long)c * gridDim.x) * vt + v0) * ROWS;
+  }
+  __device__ __forceinline__ void operator()(const TileRows& rw, int c, long long row0) const {
+    const int et = threadIdx.x - sm90::ENC0, kx = P.kx, kd = P.kd, E = P.emb_dim, n = rw.n;
+    const long long g0 = stash_row(c);
+    for (int idx = et; idx < ROWS * kx; idx += sm90::ENCODERS) {
+      const int row = idx / kx, col = idx - row * kx;
+      sc.encx[g0 * kx + idx] =
+          row < n ? enc_x_at(P, col, rw.x + 3 * row, rw.d + 3 * row, 0.f, rw.t[row]) : 0.f;
+    }
+    for (int idx = et; idx < ROWS * kd; idx += sm90::ENCODERS) {
+      const int row = idx / kd, col = idx - row * kd;
+      sc.encd[g0 * kd + idx] = row < n ? enc_d_at(P, col, rw.d + 3 * row) : 0.f;
+    }
+    for (int idx = et; idx < ROWS * E; idx += sm90::ENCODERS) {
+      const int row = idx / E;
+      sc.embr[g0 * E + idx] = row < n ? emb[row0 * E + idx] : 0.f;
+    }
+  }
   __device__ __forceinline__ void operator()(const TileRays& tr, int c, long long ray0) const {
     const int et = threadIdx.x - sm90::ENC0, kx = P.kx, kd = P.kd, E = P.emb_dim;
-    const long long g0 = (blockIdx.x + (long long)c * gridDim.x) * ROWS;
+    const long long g0 = stash_row(c);
     for (int idx = et; idx < ROWS * kx; idx += sm90::ENCODERS) {
       const int row = idx / kx, col = idx - row * kx, j = row / s;
       sc.encx[g0 * kx + idx] =
@@ -420,11 +463,12 @@ struct StashEnc {
 
 // The weight stream (the producer warpgroup's first thread): for every tile
 // of this CTA, the forward's K slices (field_f32_sm90.cuh stream_tile),
-// then, once the composite is off the ring, the transposed chain's: the dir
-// layer's (HALF / KS slices), then the trunk layers' from the last to layer
-// 1 (HID / KS each), all 256 inputs a stage.
+// then, once the composite is off the ring, the transposed chain's `chains`
+// times (K9: the fine row set's, then the coarse one's): the dir layer's
+// (HALF / KS slices), then the trunk layers' from the last to layer 1 (HID /
+// KS each), all 256 inputs a stage.
 __device__ __forceinline__ void stream_bwd(const BwdMapsT32& maps, const FieldArgs& P,
-                                           long long n_tiles) {
+                                           long long n_tiles, int chains) {
   SmemT32& sm = smem_t32();
   const uint32_t ring = smem_u32(&sm);
   const uint32_t full = ring + offsetof(Smem32, full), empty = ring + offsetof(Smem32, empty);
@@ -439,38 +483,72 @@ __device__ __forceinline__ void stream_bwd(const BwdMapsT32& maps, const FieldAr
   for (int c = 0; c < tiles; ++c) {
     stream_tile(maps.fwd, P, pp);
     mbar_wait(&sm.comp_done, c & 1);
-    for (int k0 = 0; k0 < HALF; k0 += KS) chain_slice(&maps.dir, k0, 0);
-    for (int i = P.num_layers - 1; i >= 1; --i)
-      for (int k0 = 0; k0 < HID; k0 += KS) chain_slice(&maps.trunk, k0, (int)(P.w_off[i] / HID));
+    for (int q = 0; q < chains; ++q) {
+      for (int k0 = 0; k0 < HALF; k0 += KS) chain_slice(&maps.dir, k0, 0);
+      for (int i = P.num_layers - 1; i >= 1; --i)
+        for (int k0 = 0; k0 < HID; k0 += KS)
+          chain_slice(&maps.trunk, k0, (int)(P.w_off[i] / HID));
+    }
   }
 }
 
 // The producer warpgroup: gives registers up (field_f32_sm90.cuh produce's
-// split), then its first thread streams the weights and its warps 1-3 load
-// the tiles' rays, stash their encodings and form their appearance terms.
+// split), then its first thread streams the weights (the forward's, then
+// `chains` transposed chains a tile; chains = 0: the forward's only) and
+// its warps 1-3 load the tiles' rays (rows), stash their encodings as
+// stash does and form their appearance terms (rays).
+template <int KIND = RAYS>
 __device__ __forceinline__ void produce_bwd(const BwdMapsT32& maps, const FieldArgs& P,
                                             const float* W, const Rays& rays,
-                                            const ScratchT32& sc) {
+                                            const StashEnc& stash, int chains = 1) {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
-  if (threadIdx.x >= sm90::ENC0)
-    load_tiles(P, W, rays, StashEnc{P, sc, rays.emb, rays.R, rays.s, rays.rpc});
-  else if (threadIdx.x == CONSUMERS)
-    stream_bwd(maps, P, rays.n_tiles);
+  if (threadIdx.x >= sm90::ENC0) {
+    if constexpr (KIND == ROW_TILE)
+      load_row_tiles(rays, stash);
+    else
+      load_tiles(P, W, rays, stash);
+  } else if (threadIdx.x == CONSUMERS) {
+    if (chains == 0)
+      stream_weights(maps.fwd, P, rays.n_tiles);
+    else
+      stream_bwd(maps, P, rays.n_tiles, chains);
+  }
 }
 
 // ---------------------------------------------------------------- chain
+
+// What the chain's head does with the rows' d_happ: each ray's sum over its
+// s rows into bs.dsum, then the rays' demb (K3, K4: DEMB_RAYS); the sums
+// only (K9's fine row set: DEMB_KEEP); the sums added to bs.dsum, then the
+// rays' demb (K9's coarse row set, after its fine one: DEMB_ADD); each
+// row's demb = d_happ @ Wapp (K8's row tile: DEMB_ROWS).
+enum DembMode { DEMB_RAYS = 0, DEMB_KEEP = 1, DEMB_ADD = 2, DEMB_ROWS = 3 };
+
+// Trunk layer i's output at (row, col) and (row, col + 1) of the tile at
+// stash row g0 read back from its split in the stash, hi + lo: within 2^-22
+// of the f32 value, as the dW pass's B operand reads it.
+__device__ __forceinline__ float2 stashed_out(const ScratchT32& sc, int i, long long g0, int row,
+                                              int col) {
+  const long long plane = sc.rows * HID;
+  const uint32_t* p = sc.hs + 2 * i * plane + (((g0 + row) >> 3) * HID + col) * 8 + (row & 7);
+  return make_float2(__uint_as_float(p[0]) + __uint_as_float(p[plane]),
+                     __uint_as_float(p[8]) + __uint_as_float(p[plane + 8]));
+}
 
 // The chain's head after the composite (bs.g_rgb / bs.g_sig set for every
 // row, zero on rows of no ray), on the consumers' accumulator fragments
 // (rows row0, row0 + 8 a thread; each row's 4 lanes hold its values):
 // d_pre_rgb (stashed) and d_sigma_pre per row; the rgb and density heads'
-// row sums and wd's (over the last trunk output, still in sm.act) into the
-// warp's slot; d_happ = d_pre_rgb @ Wrgb and d_hdir_pre = gate ? d_happ :
-// 0, both stashed, written into sm.act (columns 0.. d_hdir_pre, the first
-// product's A; HALF.. d_happ) with the bapp / bdir row sums; then each
-// ray's d_happ summed over its s rows (bs.dsum) and its demb (rays ray0..,
-// nvalid of them).  W: the packed f32 weights; md: the thread's dir-layer
-// gate record (the dir gates, sigma's under relu).
+// row sums and wd's (over the last trunk output, still in sm.act, or with
+// H_STASH read back from the stash: K9's coarse row set, whose forward ran
+// before the fine one's) into the warp's slot; d_happ = d_pre_rgb @ Wrgb
+// and d_hdir_pre = gate ? d_happ : 0, both stashed, written into sm.act
+// (columns 0.. d_hdir_pre, the first product's A; HALF.. d_happ) with the
+// bapp / bdir row sums; then demb as MODE says (DembMode; rays ray0..,
+// nvalid of them, or a row tile's rows ray0..).  W: the packed f32
+// weights; md: the thread's dir-layer gate record (the dir gates, sigma's
+// under relu).
+template <int MODE = DEMB_RAYS, bool H_STASH = false>
 __device__ __forceinline__ void chain_head(const FieldArgs& P, const float* __restrict__ W,
                                            SmemT32& sm, const ScratchT32& sc, long long g0,
                                            float* slot, const uint4 md, int s,
@@ -519,8 +597,14 @@ __device__ __forceinline__ void chain_head(const FieldArgs& P, const float* __re
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int col = 8 * (j0 + jj) + 2 * t;
-      const float2 x0 = *reinterpret_cast<const float2*>(act + off32(row0, col));
-      const float2 x1 = *reinterpret_cast<const float2*>(act + off32(row0 + 8, col));
+      float2 x0, x1;
+      if constexpr (H_STASH) {
+        x0 = stashed_out(sc, P.num_layers - 1, g0, row0, col);
+        x1 = stashed_out(sc, P.num_layers - 1, g0, row0 + 8, col);
+      } else {
+        x0 = *reinterpret_cast<const float2*>(act + off32(row0, col));
+        x1 = *reinterpret_cast<const float2*>(act + off32(row0 + 8, col));
+      }
       cs[2 * jj] = x0.x * ds[0] + x1.x * ds[1];
       cs[2 * jj + 1] = x0.y * ds[0] + x1.y * ds[1];
     }
@@ -561,14 +645,37 @@ __device__ __forceinline__ void chain_head(const FieldArgs& P, const float* __re
     slot[P.bdir_off + col] = sum8(sd);
   }
   consumers_sync();  // every row's d_happ is in sm.act
-  for (int idx = threadIdx.x; idx < nvalid * HALF; idx += CONSUMERS) {
-    const int j = idx / HALF, col = idx - j * HALF;
-    float a = 0.f;
-    for (int r = j * s; r < (j + 1) * s; ++r) a += act[off32(r, HALF + col)];
-    bs.dsum[idx] = a;
+  if constexpr (MODE == DEMB_ROWS) {
+    // each row's demb (4 outputs a thread), summed over c in order
+    const float* wapp = W + P.wapp_off;  // (HALF, E)
+    const int E = P.emb_dim, q4 = E / 4;
+    for (int idx = threadIdx.x; idx < nvalid * q4; idx += CONSUMERS) {
+      const int r = idx / q4, e0 = 4 * (idx - r * q4);
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      for (int c = 0; c < HALF; ++c) {
+        const float dh = act[off32(r, HALF + c)];
+        const float4 w = __ldg(reinterpret_cast<const float4*>(wapp + c * E + e0));
+        a0 += dh * w.x;
+        a1 += dh * w.y;
+        a2 += dh * w.z;
+        a3 += dh * w.w;
+      }
+      *reinterpret_cast<float4*>(demb + (ray0 + r) * E + e0) = make_float4(a0, a1, a2, a3);
+    }
+    consumers_sync();  // every read of d_happ in sm.act
+  } else {
+    for (int idx = threadIdx.x; idx < nvalid * HALF; idx += CONSUMERS) {
+      const int j = idx / HALF, col = idx - j * HALF;
+      float a = 0.f;
+      for (int r = j * s; r < (j + 1) * s; ++r) a += act[off32(r, HALF + col)];
+      if constexpr (MODE == DEMB_ADD)
+        bs.dsum[idx] += a;
+      else
+        bs.dsum[idx] = a;
+    }
+    consumers_sync();  // the sums are done, and every read of d_happ in sm.act
+    if constexpr (MODE != DEMB_KEEP) f32::ray_demb(P, W, bs, ray0, nvalid, demb);
   }
-  consumers_sync();  // the sums are done, and every read of d_happ in sm.act
-  f32::ray_demb(P, W, bs, ray0, nvalid, demb);
 }
 
 // A transposed product's epilogue: d_pre_i = gate ? acc (+ d_sigma_pre wd
@@ -641,22 +748,23 @@ __device__ __forceinline__ void chain(const FieldArgs& P, SmemT32& sm, const Scr
 
 // ---------------------------------------------------------------- tile
 
-// The tile kernel (pass 1) of K3 and K4: for each tile of this CTA (rays
-// ray_base + tile rpc.. of the launch, stash rows tile ROWS..; rays: the
-// pass's, its pointers and R from ray_base on), the forward with its
-// residuals, the composite and its transpose (comp, on absolute ray
-// indices), the chain's head and the transposed chain, on the gate
-// pass's gates (sc.gates).
+// The tile kernel (pass 1) of K3, K4 and K8: for each tile of this CTA
+// (rays ray_base + tile rpc.. of the launch, stash rows tile ROWS..; rays:
+// the pass's, its pointers and R from ray_base on; K8, Comp::ROWS: rows, a
+// row tile's 128 each, s = 1), the forward with its residuals, the
+// composite and its transpose (comp, on absolute ray indices), the chain's
+// head and the transposed chain, on the gate pass's gates (sc.gates).
 template <class Comp>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_tile32(const __grid_constant__ BwdMapsT32 maps, const FieldArgs P, const float* __restrict__ W,
            const ScratchT32 sc, const Rays rays, long long ray_base, const Comp comp,
            float* __restrict__ demb) {
+  constexpr int KIND = Comp::ROWS ? ROW_TILE : RAYS;
   SmemT32& sm = smem_t32();
   if (threadIdx.x == 0) mbar_init(&sm.comp_done, 1);
   init32(sm.f);
   if (threadIdx.x >= CONSUMERS) {
-    produce_bwd(maps, P, W, rays, sc);
+    produce_bwd<KIND>(maps, P, W, rays, StashEnc{P, sc, rays.emb, rays.R, rays.s, rays.rpc});
     return;
   }
   consumer_regs();
@@ -679,20 +787,21 @@ bwd_tile32(const __grid_constant__ BwdMapsT32 maps, const FieldArgs P, const flo
     }
     const uint4* gin = sc.gates + tile * (P.num_layers + 1) * CONSUMERS;
     StashRes res{sc.hs, sc.happ, gin, sm.sigma_pre, g0, sc.rows * HID, P.num_layers};
-    field_tile(P, W, sm.f, c, s, rpc, pp, acc, res);
+    field_tile<KIND>(P, W, sm.f, c, s, rpc, pp, acc, res, rays.emb + ray0 * P.emb_dim);
     dead_acc(acc);
-    comp(CompTile<ConsumerSync>{sm.f.tr[c & 1].z, sm.f.sigma, sm.f.rgb, sm.bs,
-                                reinterpret_cast<float*>(sm.f.ring), {}},
+    comp(CompTile<ConsumerSync>{KIND == ROW_TILE ? nullptr : sm.f.tr[c & 1].z, sm.f.sigma,
+                                sm.f.rgb, sm.bs, reinterpret_cast<float*>(sm.f.ring), {}},
          ray_base + ray0, nvalid, rpc);
     fence_proxy_async();  // the ring's generic writes before the producer's next loads
     consumers_sync();
     if (threadIdx.x == 0) {
       mbar_arrive(&sm.comp_done);
-      mbar_arrive(&sm.f.tr_empty[c & 1]);
+      mbar_arrive(&sm.f.tr_empty[in_buf<KIND>(c)]);
     }
     store_tile_loss<Comp::MSE>(sm.bs, sums, (int)(SLOTS * tile), nvalid);
     float* slot = sc.part + (SLOTS * tile + warp) * sc.nv;
-    chain_head(P, W, sm, sc, g0, slot, res.md, s, nvalid, ray_base + ray0, demb);
+    chain_head<KIND == ROW_TILE ? DEMB_ROWS : DEMB_RAYS>(P, W, sm, sc, g0, slot, res.md, s,
+                                                          nvalid, ray_base + ray0, demb);
     chain(P, sm, sc, gin, g0, slot, pp, acc);
   }
 }
@@ -918,11 +1027,14 @@ inline int map_f32(sm90::EncodeTiledFn enc, CUtensorMap* m, const void* p, int r
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// What K3 and K4 set up: the layout records (meta_t: where the chain's
-// blocks lie in mats_kn, at the packed offsets: -1, w_off[1..L-1],
-// wdir_off, wapp_off), the shape checks (1..128 samples a tile row), the
-// stash of one pass and the pass sizes for R rays of s samples in a tile's
-// rows (K3: S; K4: Sf).
+// What K3, K4, K8 and K9 set up: the layout records (meta_t: where the
+// chain's blocks lie in mats_kn, at the packed offsets: -1, w_off[1..L-1],
+// wdir_off, wapp_off), the shape checks (1..128 samples a tile row; K8,
+// rows: s = ROW_TILES), the stash of one pass and the pass sizes for R rays
+// of s samples in a tile's rows (K3: S; K4: Sf; K9: max(Sc, Sf)) or R rows;
+// vt virtual tiles of the stash a tile (K9: 2, its coarse and fine row
+// sets); extra bytes of the scratch past the stash (K9's kept arrays: at
+// extra, a pointer into the scratch).
 struct BwdT32Call {
   FieldArgs P;
   const float* w;               // the packed f32 weights (the heads, Wapp)
@@ -936,12 +1048,32 @@ struct BwdT32Call {
   long long tiles_total;
 };
 
+// The tiles of a tile's rows: 128 rows for a row tile (s = ROW_TILES),
+// else rays_per_tile; 0 for a shape the kernels do not take.
+inline int tile_units_t32(long long s, bool rows) {
+  if (rows) return s == ROW_TILES ? ROWS : 0;
+  return (s < 1 || s > TILE_M) ? 0 : rays_per_tile(s);
+}
+
+// The stash of one pass over R rays (rows) in tiles of `units`, vt virtual
+// tiles each: its tiles and bytes.
+inline long long stash_t32_bytes(const FieldArgs& P, long long R, int units, int vt,
+                                 long long n_vecs, long long* tiles_pass = nullptr) {
+  long long tiles = (R + units - 1) / units;
+  if (tiles > MAX_TILES_PASS32 / vt) tiles = MAX_TILES_PASS32 / vt;
+  if (tiles_pass != nullptr) *tiles_pass = tiles;
+  ScratchT32 sc;
+  return carve_t32(nullptr, P, vt * tiles, (int)n_vecs, &sc);
+}
+
 inline int bwd_t32_setup(const long long* meta, long long n_meta, const float* w,
                          const float* w_hi, const float* w_lo, const float* wt,
                          const float* vecs, long long E,
                          const float* wt_hi, const float* wt_lo, const long long* meta_t,
                          long long n_meta_t, long long R, long long s, void* scratch,
-                         long long scratch_bytes, long long n_vecs, BwdT32Call* c) {
+                         long long scratch_bytes, long long n_vecs, BwdT32Call* c,
+                         bool rows = false, int vt = 1, long long extra = 0,
+                         char** extra_at = nullptr) {
   int err = parse_meta(meta, n_meta, nullptr, vecs, E, &c->P);
   if (err) return err;
   const FieldArgs& P = c->P;
@@ -950,8 +1082,8 @@ inline int bwd_t32_setup(const long long* meta, long long n_meta, const float* w
   for (int i = 1; i < L; ++i)
     if (meta_t[i] != P.w_off[i] || P.w_off[i] % HID) return ERR_META;
   if (P.wdir_off % HID) return ERR_META;
-  if (P.emb_dim % 4 || 2 * L + 4 > f32::MAX_JOBS32 || n_vecs < 1 || s < 1 || s > TILE_M ||
-      R < 0)
+  const int units = tile_units_t32(s, rows);
+  if (P.emb_dim % 4 || 2 * L + 4 > f32::MAX_JOBS32 || n_vecs < 1 || units == 0 || R < 0)
     return ERR_SHAPE;
   c->w = w;
   c->w_hi = w_hi;
@@ -959,12 +1091,14 @@ inline int bwd_t32_setup(const long long* meta, long long n_meta, const float* w
   c->wt = wt;
   c->wt_hi = wt_hi;
   c->wt_lo = wt_lo;
-  c->rpc = rays_per_tile(s);
+  c->rpc = units;
   c->tiles_total = (R + c->rpc - 1) / c->rpc;
-  c->tiles_pass = (int)(c->tiles_total < MAX_TILES_PASS32 ? c->tiles_total : MAX_TILES_PASS32);
-  if (carve_t32(static_cast<char*>(scratch), P, c->tiles_pass, (int)n_vecs, &c->sc) >
-      scratch_bytes)
-    return ERR_SHAPE;
+  long long tiles = 0;
+  const long long bytes = stash_t32_bytes(P, R, units, vt, n_vecs, &tiles);
+  c->tiles_pass = (int)tiles;
+  if (bytes + extra > scratch_bytes) return ERR_SHAPE;
+  carve_t32(static_cast<char*>(scratch), P, vt * tiles, (int)n_vecs, &c->sc);
+  if (extra_at != nullptr) *extra_at = static_cast<char*>(scratch) + bytes;
   return 0;
 }
 
@@ -1000,21 +1134,16 @@ inline int finish_t32(const BwdT32Call& c, const DwMapsT32& dm, int nt, float* g
   return (int)cudaGetLastError();
 }
 
-// Run the passes of K3 or K4 on bwd_tile32<Comp>: the tensor maps, then for
-// each slice of at most tiles_pass tiles, clear its row sums, launch the
-// gate pass and the tile kernel (on a persistent grid) with the rays'
-// pointers from the slice's first ray on, then passes 2 and 3.  rays: the
-// launch's (R its rays, s the samples a tile row, rpc rays a tile).
-template <class Comp>
-inline int run_bwd_t32(const BwdT32Call& c, const Comp& comp, Rays rays, float* gmats,
-                       float* gvecs, float* loss, float* demb, int n_vecs, cudaStream_t stream) {
+// The tensor maps of a call's tile kernels and dW pass (their weights' and
+// its stash's), the dW pass's shared memory limit, and the card's SMs.
+inline int t32_maps(const BwdT32Call& c, BwdMapsT32* pm, DwMapsT32* pdm, int* n_sm) {
   const FieldArgs& P = c.P;
   const ScratchT32& sc = c.sc;
   const int L = P.num_layers;
   const sm90::EncodeTiledFn enc = sm90::encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  BwdMapsT32 maps{};
-  DwMapsT32 dm{};
+  BwdMapsT32& maps = *pm;
+  DwMapsT32& dm = *pdm;
   const long long fstride = (long long)(c.w_lo - c.w_hi) * 4;
   const long long tstride = (long long)(c.wt_lo - c.wt_hi) * 4;
   if (fstride <= 0 || fstride % 16 || tstride <= 0 || tstride % 16) return ERR_SHAPE;
@@ -1039,44 +1168,75 @@ inline int run_bwd_t32(const BwdT32Call& c, const Comp& comp, Rays rays, float* 
   if (!err)
     err = map_f32(enc, &dm.ddir, sc.ddir, 2, HALF, sc.rows, 1, HALF * 4, 0, 32, KS, 1, sw128);
   if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(dw_t32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)DWT_SMEM_BYTES);
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+
+// The pass of rays (rows) rb.. of a launch's: its pointers from there on,
+// R the rays left, nt tiles (a row tile's rays have no depths).
+inline Rays pass_rays(Rays rays, long long rb, int nt, long long E) {
+  rays.o += 3 * rb;
+  rays.d += 3 * rb;
+  rays.emb += E * rb;
+  if (rays.t != nullptr) rays.t += rb;
+  if (rays.z != nullptr) rays.z += rays.s * rb;
+  rays.R -= rb;
+  rays.n_tiles = nt;
+  return rays;
+}
+
+// Launch the gate pass of KIND over a pass's rays (tile c's records at
+// virtual tile c vt of gates), on at most the blocks that fit at once.
+template <int KIND>
+inline int launch_gates(const BwdT32Call& c, const Rays& rp, uint4* gates, int vt,
+                        cudaStream_t stream) {
+  unsigned grid = 0;
+  const int err = f32::launch_setup(gate_pass32<KIND>, c.tiles_pass, &grid);
+  if (err) return err;
+  const f32::Rays32 gr{rp.o, rp.d, rp.emb, rp.t, rp.z, nullptr, nullptr, rp.R, rp.n_tiles,
+                       rp.s, rp.rpc, 0};
+  const unsigned nt = (unsigned)rp.n_tiles;
+  gate_pass32<KIND><<<grid < nt ? grid : nt, f32::THREADS, f32::SMEM_BYTES, stream>>>(
+      c.P, c.wt, gr, gates, vt);
+  return (int)cudaGetLastError();
+}
+
+// Run the passes of K3, K4 or K8 on bwd_tile32<Comp>: the tensor maps, then
+// for each slice of at most tiles_pass tiles, clear its row sums, launch
+// the gate pass and the tile kernel (on a persistent grid) with the rays'
+// pointers from the slice's first ray on, then passes 2 and 3.  rays: the
+// launch's (R its rays, s the samples a tile row, rpc rays a tile; K8: R
+// rows, s = 1, rpc = 128).
+template <class Comp>
+inline int run_bwd_t32(const BwdT32Call& c, const Comp& comp, Rays rays, float* gmats,
+                       float* gvecs, float* loss, float* demb, int n_vecs, cudaStream_t stream) {
+  constexpr int KIND = Comp::ROWS ? ROW_TILE : RAYS;
+  const ScratchT32& sc = c.sc;
+  BwdMapsT32 maps{};
+  DwMapsT32 dm{};
+  int n_sm = 0;
+  int err = t32_maps(c, &maps, &dm, &n_sm);
+  if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(bwd_tile32<Comp>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)T32_SMEM_BYTES);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dw_t32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DWT_SMEM_BYTES);
-  int dev = 0, n_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  unsigned ggrid = 0;  // the gate pass's: the blocks that fit on the card at once
-  const int gerr = f32::launch_setup(gate_pass32, c.tiles_pass, &ggrid);
-  if (gerr) return gerr;
-  const long long R = rays.R, E = P.emb_dim;
   for (long long t0 = 0; t0 < c.tiles_total; t0 += c.tiles_pass) {
     const int nt = (int)(c.tiles_total - t0 < c.tiles_pass ? c.tiles_total - t0 : c.tiles_pass);
     e = cudaMemsetAsync(sc.part, 0, sizeof(float) * SLOTS * nt * sc.nv, stream);
     if (e != cudaSuccess) return (int)e;
     const long long rb = t0 * c.rpc;
-    Rays rp = rays;
-    rp.o += 3 * rb;
-    rp.d += 3 * rb;
-    rp.emb += E * rb;
-    if (rp.t != nullptr) rp.t += rb;
-    rp.z += rays.s * rb;
-    rp.R = R - rb;
-    rp.n_tiles = nt;
-    const f32::Rays32 gr{rp.o, rp.d, rp.emb, rp.t, rp.z, nullptr, nullptr, rp.R, nt, rays.s,
-                         c.rpc, 0};
-    gate_pass32<<<ggrid < (unsigned)nt ? ggrid : (unsigned)nt, f32::THREADS, f32::SMEM_BYTES,
-                  stream>>>(P, c.wt, gr, sc.gates);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const Rays rp = pass_rays(rays, rb, nt, c.P.emb_dim);
+    if ((err = launch_gates<KIND>(c, rp, sc.gates, 1, stream))) return err;
     const int grid = nt < n_sm ? nt : n_sm;
-    bwd_tile32<Comp><<<grid, THREADS, T32_SMEM_BYTES, stream>>>(maps, P, c.w, sc, rp, rb, comp,
+    bwd_tile32<Comp><<<grid, THREADS, T32_SMEM_BYTES, stream>>>(maps, c.P, c.w, sc, rp, rb, comp,
                                                                 demb);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    const int ferr = finish_t32(c, dm, nt, gmats, gvecs, loss, n_vecs, stream);
-    if (ferr) return ferr;
+    if ((err = finish_t32(c, dm, nt, gmats, gvecs, loss, n_vecs, stream))) return err;
   }
   return 0;
 }
@@ -1084,9 +1244,9 @@ inline int run_bwd_t32(const BwdT32Call& c, const Comp& comp, Rays rays, float* 
 }  // namespace tf32
 }  // namespace danerf
 
-// Bytes of stash K3 or K4 in f32 needs for R rays of s samples a tile row
-// (K3: S; K4: Sf); negative on a malformed layout or a shape they do not
-// take.
+// Bytes of stash K3, K4 or K8 in f32 needs for R rays of s samples a tile
+// row (K3: S; K4: Sf) or R rows (K8: s = ROW_TILES); negative on a
+// malformed layout or a shape they do not take.
 extern "C" long long danerf_bwd_tf32_scratch_bytes(const long long* meta, long long n_meta,
                                                    long long R, long long s, long long n_vecs) {
   using namespace danerf;
@@ -1094,11 +1254,9 @@ extern "C" long long danerf_bwd_tf32_scratch_bytes(const long long* meta, long l
   FieldArgs P;
   const int err = parse_meta(meta, n_meta, nullptr, nullptr, meta[8], &P);
   if (err) return err;
-  if (s < 1 || s > TILE_M || R < 0) return ERR_SHAPE;
-  long long tiles = (R + rays_per_tile(s) - 1) / rays_per_tile(s);
-  if (tiles > f32::MAX_TILES_PASS32) tiles = f32::MAX_TILES_PASS32;
-  tf32::ScratchT32 sc;
-  return tf32::carve_t32(nullptr, P, tiles, (int)n_vecs, &sc);
+  const int units = tf32::tile_units_t32(s, s == ROW_TILES);
+  if (units == 0 || R < 0) return ERR_SHAPE;
+  return tf32::stash_t32_bytes(P, R, units, 1, n_vecs);
 }
 
 // The dynamic shared memory of a CTA of the tile kernel, of the dW pass and

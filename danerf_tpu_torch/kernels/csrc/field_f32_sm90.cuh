@@ -5,10 +5,13 @@
 // run it when cfg.use_bf16 is off.  The argument record, the encoding
 // (encode_cols' values), the merge and the composite come from field.cuh;
 // the TMA, mbarrier, wgmma and tensor-map helpers from field_sm90.cuh.
-// field_bwd_f32_sm90.cuh builds the f32 K3 and K4's tile from these
-// pieces: field_tile and load_tiles with stash hooks (NoResStash,
+// field_bwd_f32_sm90.cuh builds the f32 K3, K4, K8 and K9's tile from
+// these pieces: field_tile and load_tiles with stash hooks (NoResStash,
 // NoEncStash here; the backward's also gives field_tile its relu gates),
-// stream_tile, mma_slices.
+// stream_tile, mma_slices.  Two row layouts (sm90::Kind): RAYS, a tile of
+// rpc rays of s samples (K2-K4, K9), and ROW_TILE, 128 independent rows
+// (K8; K1 in f32 can take it), each its own point encoded at z = 0 (y =
+// 2^i x, field_f32.cuh RowEnc's values) with its own appearance term.
 //
 // Numerics: 3xTF32.  Encodings, activations, the appearance term and the
 // heads stay f32.  Every trunk and dir-layer product a.b is formed on the
@@ -21,8 +24,9 @@
 // the density head (an f32 sum of h . wd over the trunk's last output),
 // happ = (relu(hdir_pre) + emb@Wapp) + bapp and rgb = sigmoid(happ@Wrgb +
 // brgb) run in f32 in the JAX order; the appearance term emb@Wapp^T is an
-// f32 FMA chain once a ray.  Only the summation order differs from the
-// plain version's.
+// f32 FMA chain over k in order, once a ray by the encoders (RAYS) or once
+// a row by the consumers in the dir layer's epilogue (ROW_TILE: row_app4).
+// Only the summation order differs from the plain version's.
 //
 // Bound on an H100: operations.  The field is 527,872 MACs a sample
 // (534,528 with time); 3xTF32 runs three tensor-core products for each, so
@@ -58,7 +62,10 @@
 // Shared memory: ring 80 KB (five stages), activations 128 KB, the tile's
 // depths and rays twice, the appearance term 4 KB, rgb and sigma 2 KB:
 // 220,736 of the 232,448 bytes a block may use.  K5's merge arrays live in
-// the activation buffer between tiles.
+// the activation buffer between tiles.  A row tile's points, directions and
+// times (3.5 KB) take the rays' two buffers and the appearance term's place
+// (tile_rows), one buffer: the backward releases it after its composite, so
+// the next tile's rows load behind the transposed chain.
 //
 // Layout of the f32 activations: 16-column blocks of 128 rows, element
 // (row, col) at ((col >> 4) * 128 + row) * 16 + ((col & 15) ^ (((row >> 1)
@@ -83,6 +90,8 @@ namespace tf32 {
 using sm90::CONSUMERS;
 using sm90::ENC0;
 using sm90::ENCODERS;
+using sm90::RAYS;
+using sm90::ROW_TILE;
 using sm90::Rays;
 using sm90::layer_k;
 using sm90::make_desc;
@@ -108,11 +117,19 @@ struct TileRays {                           // one tile's rows and rays
   float t[MAX_RPC];
 };
 
+// A row tile's inputs (ROW_TILE): each row's point, direction and time
+// (zeros past the launch's rows) and how many of its rows are valid.
+struct TileRows {
+  float x[ROWS * 3], d[ROWS * 3];
+  float t[ROWS];
+  int n;
+};
+
 struct Smem32 {
   unsigned char ring[NST][STAGE_BYTES];     // first: 1024-aligned (init32 checks)
   float act[HID * ROWS];                    // trunk activations; K5's merge arrays between tiles
-  TileRays tr[2];                           // tile c in tr[c & 1]
-  float app[MAX_RPC * HALF];                // the tile's per-ray emb @ Wapp^T
+  TileRays tr[2];                           // tile c in tr[c & 1]; a row tile's inputs here
+  float app[MAX_RPC * HALF];                // the tile's per-ray emb @ Wapp^T; ... and here
   float rgb[ROWS * 3];
   float sigma[ROWS];
   unsigned long long full[NST], empty[NST];
@@ -121,6 +138,21 @@ struct Smem32 {
 constexpr size_t SMEM_BYTES = sizeof(Smem32);
 static_assert(SMEM_BYTES <= 232448, "the f32 Hopper tile exceeds the 227 KB a block may use");
 static_assert(MERGE_MAX <= sizeof(Smem32::act), "the merge arrays must fit in sm.act");
+static_assert(offsetof(Smem32, app) == offsetof(Smem32, tr) + sizeof(Smem32::tr) &&
+                  sizeof(TileRows) <= sizeof(Smem32::tr) + sizeof(Smem32::app) &&
+                  offsetof(Smem32, tr) % 16 == 0,
+              "a row tile's inputs must fit in the rays' buffers and the appearance term");
+
+// Tile c's input buffer and the parity of its use: rays alternate between
+// two (tr[c & 1]), rows have one (tile_rows, on barrier 0).
+template <int KIND>
+__device__ __forceinline__ int in_buf(int c) {
+  return KIND == ROW_TILE ? 0 : c & 1;
+}
+template <int KIND>
+__device__ __forceinline__ int in_phase(int c) {
+  return KIND == ROW_TILE ? c & 1 : (c >> 1) & 1;
+}
 
 // One tensor map a layer (the trunk's, then the dir layer's) over the split
 // weights: dims (K, N, {hi, lo}), boxes of 8 K x N x 2.
@@ -144,6 +176,15 @@ struct Pipe {
 __device__ __forceinline__ Smem32& smem32() {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   return *reinterpret_cast<Smem32*>(smem_raw);
+}
+
+// A row tile's inputs, over the rays' buffers and the appearance term,
+// which a row tile does not use.
+__device__ __forceinline__ TileRows& tile_rows(Smem32& sm) {
+  return *reinterpret_cast<TileRows*>(sm.tr);
+}
+__device__ __forceinline__ const TileRows& tile_rows(const Smem32& sm) {
+  return *reinterpret_cast<const TileRows*>(sm.tr);
 }
 
 // The box at (c0, 0, 0) of a 3-d `map` into shared memory at dst, its bytes
@@ -278,6 +319,22 @@ __device__ __forceinline__ RowIn row_inputs(const TileRays& tr, int row0, int s,
   return in;
 }
 
+// The same for a row tile: each row is its own "ray" (its point and
+// direction at index row) at z = 0, valid below the tile's rows (the rest
+// encode as zeros, as field_f32.cuh RowEnc's do).
+__device__ __forceinline__ RowIn row_inputs(const TileRows& rw, int row0) {
+  RowIn in;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    in.valid[h] = row < rw.n;
+    in.ray[h] = row;
+    in.z[h] = 0.f;
+    in.t[h] = rw.t[row];
+  }
+  return in;
+}
+
 // ------------------------------------------------------------------ setup
 
 // Barriers: full[s] completes when the producer's load lands, empty[s] when
@@ -327,12 +384,40 @@ __device__ __forceinline__ void stream_weights(const SplitMaps& maps, const Fiel
   for (int c = 0; c < tiles; ++c) stream_tile(maps, P, pp);
 }
 
-// What the encoders do with a tile's rays once they are published: nothing
-// (K2, K5); field_bwd_f32_sm90.cuh's StashEnc writes the tile's encodings
-// and embeddings to the backward's stash.
+// What the encoders do with a tile's rays (or rows) once they are
+// published: nothing (K2, K5); field_bwd_f32_sm90.cuh's StashEnc writes the
+// tile's encodings and embeddings to the backward's stash.
 struct NoEncStash {
-  __device__ __forceinline__ void operator()(const TileRays&, int, long long) const {}
+  template <class In>
+  __device__ __forceinline__ void operator()(const In&, int, long long) const {}
 };
+
+// The encoders of a row tile (ROW_TILE): for each tile c of this CTA, once
+// the consumers are done with the one buffer, load its 128 rows' points,
+// directions and times (zeros past R) and its count of valid rows, publish
+// them, then hand them to stash (tile c, its first row).  No appearance
+// term: the consumers form each row's.
+template <class EncStash>
+__device__ __forceinline__ void load_row_tiles(const Rays& rows, const EncStash& stash) {
+  Smem32& sm = smem32();
+  TileRows& rw = tile_rows(sm);
+  const int et = threadIdx.x - ENC0, tiles = my_tiles(rows.n_tiles);
+  for (int c = 0; c < tiles; ++c) {
+    const long long row0 = (blockIdx.x + (long long)c * gridDim.x) * ROWS;
+    mbar_wait(&sm.tr_empty[0], (c & 1) ^ 1);
+    for (int i = et; i < 3 * ROWS; i += ENCODERS) {
+      const bool ok = row0 + i / 3 < rows.R;
+      rw.x[i] = ok ? rows.o[row0 * 3 + i] : 0.f;
+      rw.d[i] = ok ? rows.d[row0 * 3 + i] : 0.f;
+    }
+    for (int i = et; i < ROWS; i += ENCODERS)
+      rw.t[i] = (rows.t != nullptr && row0 + i < rows.R) ? rows.t[row0 + i] : 0.f;
+    if (et == 0) rw.n = (int)(rows.R - row0 < ROWS ? rows.R - row0 : ROWS);
+    sm90::encoders_sync();
+    if (et == 0) mbar_arrive(&sm.tr_full[0]);
+    stash(rw, c, row0);
+  }
+}
 
 // The encoders (96 threads): for each tile c of this CTA, once the
 // consumers have composited tile c - 2, load its rays (zeros past R) and
@@ -450,10 +535,11 @@ __device__ __forceinline__ void split_frag(AFrag& f, const float (&v)[4]) {
 }
 
 // The thread's fragment of k8 step k0 of source src (act_vals' rows and
-// columns), split.
-__device__ __forceinline__ void load_frag(AFrag& f, const Smem32& sm, const TileRays& tr,
-                                          const RowIn& in, const FieldArgs& P, int src, int k0,
-                                          int row0, int t) {
+// columns), split; the encodings from the tile's origins (or points) os and
+// directions ds, 3 a ray (row) at in.ray.
+__device__ __forceinline__ void load_frag(AFrag& f, const Smem32& sm, const float* os,
+                                          const float* ds, const RowIn& in, const FieldArgs& P,
+                                          int src, int k0, int row0, int t) {
   float v[4];
   if (src == ACT) {
     act_vals(v, sm, k0, row0, t);
@@ -461,8 +547,8 @@ __device__ __forceinline__ void load_frag(AFrag& f, const Smem32& sm, const Tile
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int h = q & 1, col = k0 + t + 4 * (q >> 1);
-      const float* o = tr.o + 3 * in.ray[h];
-      const float* d = tr.d + 3 * in.ray[h];
+      const float* o = os + 3 * in.ray[h];
+      const float* d = ds + 3 * in.ray[h];
       v[q] = !in.valid[h] ? 0.f
              : src == ENC_X ? enc_x_at(P, col, o, d, in.z[h], in.t[h])
                             : enc_d_at(P, col, d);
@@ -560,17 +646,19 @@ __device__ __forceinline__ void mma_slices(float (&acc)[ACC], Smem32& sm, int n_
 }
 
 // acc = A @ W_i^T over layer i's K slices (N = 256 trunk, 128 dir): A the
-// activations, then the layer's encoding.
+// activations, then the layer's encoding (of os, ds: load_frag's).
 template <int N>
-__device__ __forceinline__ void mma_layer(float (&acc)[ACC], Smem32& sm, const TileRays& tr,
-                                          const RowIn& in, const FieldArgs& P, int i, Pipe& pp) {
+__device__ __forceinline__ void mma_layer(float (&acc)[ACC], Smem32& sm, const float* os,
+                                          const float* ds, const RowIn& in, const FieldArgs& P,
+                                          int i, Pipe& pp) {
   const int hs = HID / KS;
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int row0 = (threadIdx.x >> 7) * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
   const int enc = i == P.num_layers ? ENC_D : ENC_X;
   mma_slices<N>(acc, sm, layer_k(P, i) / KS, pp, [&](AFrag& f, int s) {
     const bool act = i > 0 && s < hs;
-    load_frag(f, sm, tr, in, P, act ? ACT : enc, KS * (act || i == 0 ? s : s - hs), row0, t);
+    load_frag(f, sm, os, ds, in, P, act ? ACT : enc, KS * (act || i == 0 ? s : s - hs), row0,
+              t);
   });
 }
 
@@ -597,28 +685,87 @@ struct NoResStash {
   __device__ __forceinline__ void dir(int, int, float, float, float, float) {}
 };
 
+// The appearance term of the thread's two rows of a row tile (rows row0,
+// row0 + 8: in.valid; zero past the tile's rows) at the columns of its
+// fragment's j = j0..j0 + 3 (8 j + 2 t and + 1), a[jj][h][e]: emb @
+// Wapp^T, each an f32 FMA chain over k in order (the sums load_tiles forms
+// for a ray's and the gate pass's field_block for a row's).  emb0: the
+// embedding of the tile's first row (E a row, 16-byte aligned); W: the
+// packed f32 weights, Wapp (HALF, E).
+__device__ __forceinline__ void row_app4(float (&a)[4][2][2], const FieldArgs& P,
+                                         const float* __restrict__ W,
+                                         const float* __restrict__ emb0, const RowIn& in,
+                                         int row0, int j0, int t) {
+  const int E = P.emb_dim;
+  const float* wapp = W + P.wapp_off + (long long)(8 * j0 + 2 * t) * E;
+  const float* e[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) e[h] = emb0 + (long long)(in.valid[h] ? row0 + 8 * h : 0) * E;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) a[jj][h][0] = a[jj][h][1] = 0.f;
+  for (int k = 0; k < E; k += 4) {
+    const float4 x0 = __ldg(reinterpret_cast<const float4*>(e[0] + k));
+    const float4 x1 = __ldg(reinterpret_cast<const float4*>(e[1] + k));
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float4 w = __ldg(reinterpret_cast<const float4*>(wapp + (8 * jj + q) * E + k));
+        float& a0 = a[jj][0][q];
+        float& a1 = a[jj][1][q];
+        a0 = fmaf(x0.x, w.x, a0); a0 = fmaf(x0.y, w.y, a0);
+        a0 = fmaf(x0.z, w.z, a0); a0 = fmaf(x0.w, w.w, a0);
+        a1 = fmaf(x1.x, w.x, a1); a1 = fmaf(x1.y, w.y, a1);
+        a1 = fmaf(x1.z, w.z, a1); a1 = fmaf(x1.w, w.w, a1);
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!in.valid[h]) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) a[jj][h][0] = a[jj][h][1] = 0.f;
+    }
+  }
+}
+
 // The field on tile c (the c-th of this CTA) for the calling consumer
-// warpgroup's rows, once the encoders have loaded its rays: the trunk
-// layers in place in sm.act, sigma from the last one's accumulators, the
-// dir layer and the rgb head from its accumulators.  Leaves sm.rgb (128 x
-// 3) and sm.sigma (128) valid, and the tile's appearance term released,
-// behind a consumers' barrier; the last trunk layer's output stays in
-// sm.act.  s = samples per ray in the tile's rows; stash keeps the
-// residuals a backward pass needs and gives the relu gates.
-template <class Stash = NoResStash>
+// warpgroup's rows, once the encoders have loaded its rays (KIND RAYS) or
+// rows (ROW_TILE): the trunk layers in place in sm.act, sigma from the last
+// one's accumulators, the dir layer and the rgb head from its
+// accumulators.  Leaves sm.rgb (128 x 3) and sm.sigma (128) valid, and the
+// tile's appearance term released, behind a consumers' barrier; the last
+// trunk layer's output stays in sm.act.  s = samples per ray in the tile's
+// rows; stash keeps the residuals a backward pass needs and gives the relu
+// gates; emb0 (ROW_TILE): the embedding of the tile's first row, for each
+// row's appearance term (row_app4).
+template <int KIND = RAYS, class Stash = NoResStash>
 __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __restrict__ W,
                                            Smem32& sm, int c, int s, int rpc, Pipe& pp,
-                                           float (&acc)[ACC], Stash&& stash = Stash()) {
+                                           float (&acc)[ACC], Stash&& stash = Stash(),
+                                           const float* __restrict__ emb0 = nullptr) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int row0 = (threadIdx.x >> 7) * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
   const int L = P.num_layers;
-  const TileRays& tr = sm.tr[c & 1];
-  mbar_wait(&sm.tr_full[c & 1], (c >> 1) & 1);
-  const RowIn in = row_inputs(tr, row0, s, rpc);
+  mbar_wait(&sm.tr_full[in_buf<KIND>(c)], in_phase<KIND>(c));
+  const float *os, *ds;
+  RowIn in;
+  if constexpr (KIND == ROW_TILE) {
+    const TileRows& rw = tile_rows(sm);
+    os = rw.x;
+    ds = rw.d;
+    in = row_inputs(rw, row0);
+  } else {
+    const TileRays& tr = sm.tr[c & 1];
+    os = tr.o;
+    ds = tr.d;
+    in = row_inputs(tr, row0, s, rpc);
+  }
 
   for (int i = 0; i < L; ++i) {
     stash.begin(i);
-    mma_layer<HID>(acc, sm, tr, in, P, i, pp);
+    mma_layer<HID>(acc, sm, os, ds, in, P, i, pp);
     // the warp's own rows: relu(acc + bias) over the layer's input
     const float* bias = P.vecs + P.b_off[i];
     const bool last = i == L - 1;
@@ -659,34 +806,50 @@ __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __re
   // dir branch and rgb head: happ = (relu([h, enc_d] @ Wdir^T + bdir) +
   // emb@Wapp^T) + bapp; rgb = sigmoid(happ @ Wrgb^T + brgb)
   stash.begin(L);
-  mma_layer<HALF>(acc, sm, tr, in, P, L, pp);
-  mbar_wait(&sm.app_full, c & 1);
+  mma_layer<HALF>(acc, sm, os, ds, in, P, L, pp);
+  if constexpr (KIND != ROW_TILE) mbar_wait(&sm.app_full, c & 1);
   {
     const float* bdir = P.vecs + P.bdir_off;
     const float* bapp = P.vecs + P.bapp_off;
     const float* wrgb = W + P.wrgb_off;  // (3, HALF)
-    const float* app[2];
+    const float* app[2] = {sm.app, sm.app};  // RAYS: the rows' rays' appearance terms
+    if constexpr (KIND != ROW_TILE) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) app[h] = sm.app + min((row0 + 8 * h) / s, rpc - 1) * HALF;
+      for (int h = 0; h < 2; ++h) app[h] = sm.app + min((row0 + 8 * h) / s, rpc - 1) * HALF;
+    }
     float cs[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int j = 0; j < HALF / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      const float2 bd2 = __ldg(reinterpret_cast<const float2*>(bdir + col));
-      const float2 ba2 = __ldg(reinterpret_cast<const float2*>(bapp + col));
-      float2 w[3];
+    for (int j0 = 0; j0 < HALF / 8; j0 += 4) {
+      float ra[4][2][2];  // ROW_TILE: the rows' appearance terms at j0..j0 + 3
+      if constexpr (KIND == ROW_TILE) row_app4(ra, P, W, emb0, in, row0, j0, t);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) w[k] = __ldg(reinterpret_cast<const float2*>(wrgb + k * HALF + col));
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = j0 + jj, col = 8 * j + 2 * t;
+        const float2 bd2 = __ldg(reinterpret_cast<const float2*>(bdir + col));
+        const float2 ba2 = __ldg(reinterpret_cast<const float2*>(bapp + col));
+        float2 w[3];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 a = stash.relu_dir(h, j, acc[4 * j + 2 * h] + bd2.x,
-                                        acc[4 * j + 2 * h + 1] + bd2.y);
-        const float a0 = a.x, a1 = a.y;
-        const float h0 = (a0 + app[h][col]) + ba2.x;
-        const float h1 = (a1 + app[h][col + 1]) + ba2.y;
-        stash.dir(h, j, a0, a1, h0, h1);
+        for (int k = 0; k < 3; ++k)
+          w[k] = __ldg(reinterpret_cast<const float2*>(wrgb + k * HALF + col));
 #pragma unroll
-        for (int k = 0; k < 3; ++k) cs[h][k] = fmaf(h1, w[k].y, fmaf(h0, w[k].x, cs[h][k]));
+        for (int h = 0; h < 2; ++h) {
+          const float2 a = stash.relu_dir(h, j, acc[4 * j + 2 * h] + bd2.x,
+                                          acc[4 * j + 2 * h + 1] + bd2.y);
+          const float a0 = a.x, a1 = a.y;
+          float e0, e1;
+          if constexpr (KIND == ROW_TILE) {
+            e0 = ra[jj][h][0];
+            e1 = ra[jj][h][1];
+          } else {
+            e0 = app[h][col];
+            e1 = app[h][col + 1];
+          }
+          const float h0 = (a0 + e0) + ba2.x;
+          const float h1 = (a1 + e1) + ba2.y;
+          stash.dir(h, j, a0, a1, h0, h1);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) cs[h][k] = fmaf(h1, w[k].y, fmaf(h0, w[k].x, cs[h][k]));
+        }
       }
     }
     const float* brgb = P.vecs + P.brgb_off;
@@ -701,15 +864,16 @@ __device__ __forceinline__ void field_tile(const FieldArgs& P, const float* __re
       }
   }
   sm90::consumers_sync();  // every row's rgb and sigma; every read of sm.app
-  if (threadIdx.x == 0) mbar_arrive(&sm.app_empty);
+  if (KIND != ROW_TILE && threadIdx.x == 0) mbar_arrive(&sm.app_empty);
 }
 
 // The end of tile c for the consumers: once every consumer is done with
-// its rays, depths, sm.rgb, sm.sigma and sm.act, hand the rays' buffer
-// back.
+// its rays (rows), depths, sm.rgb, sm.sigma and sm.act, hand the input
+// buffer back.
+template <int KIND = RAYS>
 __device__ __forceinline__ void end_tile(Smem32& sm, int c) {
   sm90::consumers_sync();
-  if (threadIdx.x == 0) mbar_arrive(&sm.tr_empty[c & 1]);
+  if (threadIdx.x == 0) mbar_arrive(&sm.tr_empty[in_buf<KIND>(c)]);
 }
 
 // ------------------------------------------------------------------ host

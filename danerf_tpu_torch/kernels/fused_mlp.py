@@ -30,16 +30,15 @@ their own: K2 and K5 (``march_f32.cu``, ``merged_f32.cu``) on
 split into TF32 halves (``split_tf32``, ``PackedParams.mats_tf32``) and, for
 its heads, as packed; K1 (``mlp_fwd_f32.cu``) on ``csrc/field_f32.cuh``,
 which reads them transposed (``PackedParams.mats_kn``; ``fwd_weights``
-names each one's); the backward kernels K3 and K4
+names each one's); the backward kernels K3, K4, K8 and K9
 through theirs on ``csrc/field_bwd_f32_sm90.cuh``'s tensor-core tile
-(``march_bwd_f32.cu``, ``merged_train_f32.cu``), which read the forward's
-split weights, the transposed chain's (``mats_kn`` split,
-``PackedParams.mats_kn_tf32``) and, for the relu gates of an f32 forward on
-the CUDA cores, ``mats_kn``; K6, K7, K8 and K9 through theirs on
-``csrc/field_bwd_f32.cuh`` (``merged_bwd_f32.cu``, ``march_train_f32.cu``,
-``mlp_bwd_f32.cu``, ``hier_onepass_f32.cu``), which read them transposed for
-the forward and as packed, (out, K) f32, for the transposed chain
-(``bwd_weights``).
+(``march_bwd_f32.cu``, ``merged_train_f32.cu``, ``mlp_bwd_f32.cu``,
+``hier_onepass_f32.cu``), which read the forward's split weights, the
+transposed chain's (``mats_kn`` split, ``PackedParams.mats_kn_tf32``) and,
+for the relu gates of an f32 forward on the CUDA cores, ``mats_kn``; K6 and
+K7 through theirs on ``csrc/field_bwd_f32.cuh`` (``merged_bwd_f32.cu``,
+``march_train_f32.cu``), which read them transposed for the forward and as
+packed, (out, K) f32, for the transposed chain (``bwd_weights``).
 
 The encoding here is the kernels' form, ``y = 2^i o + z (2^i d)`` then
 ``sin(y + phase)``, not ``nerf_apply``'s ``sin(2^i (o + z d))``: the two
@@ -519,8 +518,8 @@ def fwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
 
 
 # The backward kernels whose f32 variants run on the tensor cores by
-# 3xTF32 (csrc/field_bwd_f32_sm90.cuh): K3 and K4.
-TF32_BWD = ("march_bwd", "merged_train")
+# 3xTF32 (csrc/field_bwd_f32_sm90.cuh): K3, K4, K8 and K9.
+TF32_BWD = ("march_bwd", "merged_train", "mlp_bwd", "hier_onepass")
 
 
 def bwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
@@ -528,10 +527,10 @@ def bwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
     kernel ``name``, the weights and chain weights as tuples of tensors in
     the order its C entry takes them: the bf16 kernel on the packed weights
     and their transposed hidden blocks (``transposed_mats``); without
-    ``use_bf16`` its f32 variant: K3 and K4 (``TF32_BWD``) on the packed f32
-    weights, their TF32 halves (``mats_tf32``: hi, lo) and the weights
-    transposed (``mats_kn``, their gate pass's), the chain on
-    ``mats_kn_tf32``'s (hi, lo); the others on the weights transposed
+    ``use_bf16`` its f32 variant: K3, K4, K8 and K9 (``TF32_BWD``) on the
+    packed f32 weights, their TF32 halves (``mats_tf32``: hi, lo) and the
+    weights transposed (``mats_kn``, their gate pass's), the chain on
+    ``mats_kn_tf32``'s (hi, lo); K6 and K7 on the weights transposed
     (``mats_kn``, the forward's) and as packed, W (out, K) f32, whose rows
     are the B operand of their transposed chain.  Without ``use_bf16`` the
     offsets are each block's own (-1 for layer 0, the trunk layers 1.., the
@@ -677,6 +676,8 @@ def fused_bwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, g_rgb, g_si
         x=x, d=d, emb=emb, g_rgb=g_rgb, g_sigma=g_sigma.reshape(-1, 1))
     n = x.shape[0]
     t = _time_arg(cfg, t, n, dev)
+    if not cfg.use_bf16 and emb.data_ptr() % 16:  # the f32 tile reads each row's 16 bytes at a time
+        emb = emb.clone()
     demb = torch.empty(n, e, device=dev)
     grads = _launch_bwd("mlp_bwd", packed, cfg, n, ROW_TILES,
                         (x, d, emb, t, n, e, g_rgb, g_sigma), (demb,))

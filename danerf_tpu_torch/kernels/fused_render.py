@@ -30,14 +30,17 @@ Seven kernels, each with a plain PyTorch version of the same function:
   (the operands split into TF32 halves, ``fused_mlp.split_tf32``);
   ``march_cuda`` and ``merged_cuda`` launch them when ``cfg.use_bf16`` is
   off (held to ``PLAIN_TOL_F32``).
-- K3, K7, K4 and K6 in f32: ``csrc/march_bwd_f32.cu``,
-  ``csrc/march_train_f32.cu``, ``csrc/merged_train_f32.cu`` and
-  ``csrc/merged_bwd_f32.cu`` on ``csrc/field_bwd_f32.cuh``'s FFMA tile (f32
-  residuals, the transposed chain and the dW pass in f32);
-  ``march_bwd_cuda``, ``march_train_cuda``, ``merged_train_cuda`` and
-  ``merged_bwd_cuda`` launch them when ``cfg.use_bf16`` is off (held to
-  ``PLAIN_TOL_F32_BWD``); so does ``hier_onepass_cuda`` with K9's,
-  ``csrc/hier_onepass_f32.cu``.
+- K3, K7, K4 and K6 in f32: ``csrc/march_bwd_f32.cu`` and
+  ``csrc/merged_train_f32.cu`` on ``csrc/field_bwd_f32_sm90.cuh``'s
+  tensor-core tile (3xTF32 products on the relu gates of an f32 gate pass),
+  ``csrc/march_train_f32.cu`` and ``csrc/merged_bwd_f32.cu`` on
+  ``csrc/field_bwd_f32.cuh``'s FFMA tile (f32 residuals, the transposed
+  chain and the dW pass in f32); ``march_bwd_cuda``, ``march_train_cuda``,
+  ``merged_train_cuda`` and ``merged_bwd_cuda`` launch them when
+  ``cfg.use_bf16`` is off (held to ``PLAIN_TOL_F32_BWD``); so does
+  ``hier_onepass_cuda`` with K9's, ``csrc/hier_onepass_f32.cu``, on the
+  tensor-core tile too (its coarse and fine row sets in launches of their
+  own, each row set's gates from its own gate pass).
 - K9, ``csrc/hier_onepass.cu`` / ``hier_onepass_plain``: the whole
   hierarchical training step in one call -- K2's march at the coarse depths
   keeping its field and residuals, the inverse CDF of its weights at the

@@ -18,9 +18,13 @@ of its coarse one (``k1_65536``, ``k8_65536``); the f32 configuration
 ``k5_f32``) and of K2 at the 1024-ray batch (``k2_f32_1024``), each also
 with time (``..._t``); of K3 (with g_field) and K4 at the batch
 (``k3_f32``, ``k4_f32``; with time ``..._t``) and at 8,192 rays
-(``k3_f32_8192``, ``k4_f32_8192``); and the f32 64 + 64 training step at
-the batch, chained as ``train`` runs it (``step_f32_hier``: ms a step, the
-median of 20 replays of 10 steps, chip_smoke.py's step_timing).
+(``k3_f32_8192``, ``k4_f32_8192``); of K8 at the 131,072 and 65,536 rows
+(``k8_f32``, ``k8_f32_65536``) and K9 at the batch (``k9_f32``), each also
+with time (``..._t``); and the f32 training steps at the batch, chained as
+``train`` runs them (ms a step, the median of 20 replays of 10 steps,
+chip_smoke.py's step_timing): 64 + 64 (``step_f32_hier``), per sample
+(``step_f32_per_sample``: two K1 and two K8) and in one kernel
+(``step_f32_onepass``: one K9).
 
     python3 kernel_ab.py --ablate NAME [--rounds 1]
 
@@ -202,7 +206,7 @@ def _time_kernels(iters):
         out["k2_f32_1024_t"] = ms(lambda: fr.march_cuda(p32_t, c32_t, o, d, emb, z, t,
                                                         want_field=True), iters)
         # the f32 K3 and K4, without and with time, at their f32 K2's field
-        # and fine depths
+        # and fine depths; the f32 K9
         for key, cc, pp, tt in (("", c32, p32, None), ("_t", c32_t, p32_t, t)):
             f32_coarse = fr.march_cuda(pp, cc, o, d, emb, z, tt, want_field=True)
             zf32 = sample_pdf(z, f32_coarse["weights"], sf, True, rand=g)
@@ -210,6 +214,8 @@ def _time_kernels(iters):
                                                                t=tt), iters)
             out["k4_f32" + key] = ms(lambda: fr.merged_train_cuda(
                 pp, cc, o, d, emb, z, f32_coarse["field"], zf32, target, tt), iters)
+            out["k9_f32" + key] = ms(lambda: fr.hier_onepass_cuda(pp, cc, o, d, emb, z, u, target,
+                                                                  tt), iters)
     # the f32 K3 and K4 at 8,192 rays
     n = 8192
     o, d, emb, z, g = rays(n, 35, sc)
@@ -239,11 +245,20 @@ def _time_kernels(iters):
             out["k1_t"] = ms(lambda: fm.fused_fwd_cuda(packed_t, cfg_t, x, dr, er, t), iters)
         out["k8" + key] = ms(lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig),
                              max(2, iters // 2))
-    # the f32 64 + 64 step at the batch, chained (the tree's chip_smoke.py)
+        # the f32 K8, without and with time
+        t = torch.rand(x.shape[0], 1, generator=g, device=dev)
+        for tag, cc, pp, tt in (("", c32, p32, None), ("_t", c32_t, p32_t, t)):
+            out["k8_f32" + key + tag] = ms(lambda: fm.fused_bwd_cuda(pp, cc, x, dr, er, g_rgb,
+                                                                     g_sig, tt),
+                                           max(2, iters // 2))
+        del x, dr, er, g_rgb, g_sig, t
+    # the f32 steps at the batch, chained (the tree's chip_smoke.py)
     import chip_smoke
 
-    out["step_f32_hier"] = chip_smoke.step_timing(c32, dev, {}, (), profile=False)[
-        "chained_ms_per_step_median"]
+    for key, over in (("step_f32_hier", {}), ("step_f32_per_sample", {"use_fused_train": False}),
+                      ("step_f32_onepass", {"use_hier_onepass": True})):
+        out[key] = chip_smoke.step_timing(c32.replace(**over), dev, {}, (), profile=False)[
+            "chained_ms_per_step_median"]
     return out
 
 

@@ -1502,10 +1502,10 @@ def test_packed_dtype_refusals(dev):
 @pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
 @pytest.mark.parametrize("n", [37, 4093, 65536, 131072])
 def test_mlp_bwd_f32_kernel_matches_plain(dev, n, use_time):
-    """K8's f32 variant (csrc/mlp_bwd_f32.cu on field_bwd_f32.cuh) below one
-    tile (37 rows), at 4,093 rows (a ragged last tile) and at the 65,536 and
-    131,072 rows of a 1024-ray batch's coarse and fine evaluations, with and
-    without each row's time; seeded cotangents; two calls bit for bit."""
+    """K8's f32 variant (csrc/mlp_bwd_f32.cu on field_bwd_f32_sm90.cuh) below
+    one tile (37 rows), at 4,093 rows (a ragged last tile) and at the 65,536
+    and 131,072 rows of a 1024-ray batch's coarse and fine evaluations, with
+    and without each row's time; seeded cotangents; two calls bit for bit."""
     cfg, model, *_ = _inputs(dev, use_time=use_time)
     c32, pk, pk16 = _packs32(cfg, model)
     x, d, emb, g = _rows(n, cfg, dev, seed=2)
@@ -1524,12 +1524,12 @@ def test_mlp_bwd_f32_kernel_matches_plain(dev, n, use_time):
 @pytest.mark.parametrize("n", [37, 1024])
 @pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (128, 128), (48, 32), (32, 64)])
 def test_hier_onepass_f32_kernel_matches_plain(dev, sc, sf, n, use_time):
-    """K9's f32 variant (csrc/hier_onepass_f32.cu) at 37 rays and the
-    1024-ray batch, at Sc + Sf = 64 + 64, 64 + 16, 128 + 128, 48 + 32 and
-    32 + 64, with and without time: both MSEs within the loss key, demb
-    within demb_k4, every gradient within grad_rel_k9 (it draws its
-    importance depths from its own f32 coarse weights); two calls bit for
-    bit."""
+    """K9's f32 variant (csrc/hier_onepass_f32.cu on field_bwd_f32_sm90.cuh)
+    at 37 rays and the 1024-ray batch, at Sc + Sf = 64 + 64, 64 + 16, 128 +
+    128, 48 + 32 and 32 + 64, with and without time: both MSEs within the
+    loss key, demb within demb_k4, every gradient within grad_rel_k9 (it
+    draws its importance depths from its own f32 coarse weights); two calls
+    bit for bit."""
     cfg, model, args = _hier_inputs(dev, n, use_time, num_samples=sc, num_importance=sf)
     c32, pk, pk16 = _packs32(cfg, model)
     rays = args[2:]
@@ -1537,6 +1537,44 @@ def test_hier_onepass_f32_kernel_matches_plain(dev, sc, sf, n, use_time):
     def k9(p, c):
         lf, lc, gk, dk = fr.hier_onepass_cuda(p, c, *rays)
         return gk, lf, lc, dk
+    def plain(out):
+        lf, lc, gk, dk = out
+        return gk, lf, lc, dk
+    _held32(model, k9(pk, c32), k9(pk, c32), k9(pk16, cfg),
+            plain(fr.hier_onepass_plain(pk, c32, *rays)), ["loss", "loss", "demb_k4"],
+            lambda: plain(_cpu_plain(fr.hier_onepass_plain, model, c32, *rays)),
+            grad_key="grad_rel_k9")
+
+
+@pytest.mark.parametrize("kernel", ["K8", "K9"])
+def test_tf32_k8_k9_hold_across_passes(dev, kernel):
+    """The f32 K8 and K9 (field_bwd_f32_sm90.cuh) past one pass of the
+    stash: K8 at 135,165 rows (131,072, a whole pass, and a ragged 4,093),
+    K9 at 2,437 rays of 64 + 64 (three passes of 512 tiles, the last one
+    ragged); held to their plain versions as above (_held32: two calls bit
+    for bit)."""
+    cfg, model, *_ = _inputs(dev)
+    c32, pk, pk16 = _packs32(cfg, model)
+    if kernel == "K8":
+        n = 131072 + 4093
+        x, d, emb, g = _rows(n, cfg, dev, seed=3)
+        g_rgb = torch.randn(n, 3, generator=g, device=dev)
+        g_sig = torch.randn(n, 1, generator=g, device=dev)
+
+        def k8(p, c):
+            return fm.fused_bwd_cuda(p, c, x, d, emb, g_rgb, g_sig)
+        _held32(model, k8(pk, c32), k8(pk, c32), k8(pk16, cfg),
+                fm.fused_bwd_plain(pk, c32, x, d, emb, g_rgb, g_sig), ["demb"],
+                lambda: _cpu_plain(fm.fused_bwd_plain, model, c32, x, d, emb, g_rgb, g_sig))
+        return
+    cfg, model, args = _hier_inputs(dev, 2437, seed=5)
+    c32, pk, pk16 = _packs32(cfg, model)
+    rays = args[2:]
+
+    def k9(p, c):
+        lf, lc, gk, dk = fr.hier_onepass_cuda(p, c, *rays)
+        return gk, lf, lc, dk
+
     def plain(out):
         lf, lc, gk, dk = out
         return gk, lf, lc, dk

@@ -162,13 +162,12 @@ def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
     """The forward kernels (K1, K2, K5) and the backward kernels (K3, K4,
     K6, K7, K8, K9) take both configurations, each on its own library and
     weights: without use_bf16 the f32 K2 and K5 read the packed f32 weights
-    and their TF32 halves, the f32 K1 the weights transposed, the f32 K3
-    and K4 the packed f32 weights with their TF32 halves for the forward,
-    the weights transposed for their gate pass and the transposed weights'
-    TF32 halves for the chain, and the other f32
-    backward kernels the weights transposed for the forward and as packed,
-    (out, K) f32, for the transposed chain, with each chain block's own
-    offset."""
+    and their TF32 halves, the f32 K1 the weights transposed, the f32 K3,
+    K4, K8 and K9 the packed f32 weights with their TF32 halves for the
+    forward, the weights transposed for their gate pass and the transposed
+    weights' TF32 halves for the chain, and the f32 K6 and K7 the weights
+    transposed for the forward and as packed, (out, K) f32, for the
+    transposed chain, with each chain block's own offset."""
     from danerf_tpu_torch.kernels import _build
     from danerf_tpu_torch.kernels.fused_mlp import bwd_weights, fwd_weights, transposed_mats
     from danerf_tpu_torch.models.nerf import NeRF
@@ -193,7 +192,7 @@ def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
                  "hier_onepass"):
         lib, mats, mats_t, offs = bwd_weights(packed, cfg, name)
         assert lib == (name if use_bf16 else f"{name}_f32")
-        tf32 = not use_bf16 and name in ("march_bwd", "merged_train")
+        tf32 = not use_bf16 and name in ("march_bwd", "merged_train", "mlp_bwd", "hier_onepass")
         if use_bf16:
             want_t, want_offs = transposed_mats(packed, cfg)
             assert len(mats) == 1 and len(mats_t) == 1

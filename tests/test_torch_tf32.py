@@ -4,8 +4,9 @@ The f32 serving kernels (``csrc/march_f32.cu``, ``csrc/merged_f32.cu`` on
 ``csrc/field_f32_sm90.cuh``) form every trunk and dir-layer product from
 operands split into two TF32 halves, hi = rna_tf32(x) and lo =
 rna_tf32(x - hi), as a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 sums; so
-do the f32 K3 and K4 (``csrc/march_bwd_f32.cu``,
-``csrc/merged_train_f32.cu`` on ``csrc/field_bwd_f32_sm90.cuh``) for the
+do the f32 K3, K4, K8 and K9 (``csrc/march_bwd_f32.cu``,
+``csrc/merged_train_f32.cu``, ``csrc/mlp_bwd_f32.cu``,
+``csrc/hier_onepass_f32.cu`` on ``csrc/field_bwd_f32_sm90.cuh``) for the
 forward, the transposed chain's d_pre @ W[:, :hidden] and the dW of each
 layer's hidden input.  The weights are split on the host
 (``fused_mlp.split_tf32``, into ``PackedParams.mats_tf32`` and, for the
@@ -26,7 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from danerf_tpu.config import NeRFConfig as JaxConfig
-from danerf_tpu.kernels.fused_render import (fused_hier_train_loss_grads,
+from danerf_tpu.kernels import fused_nerf_apply as j_fused_nerf_apply
+from danerf_tpu.kernels.fused_render import (fused_hier_onepass_train,
+                                             fused_hier_train_loss_grads,
                                              fused_render_rays_coarse_field)
 from danerf_tpu.models import init_nerf_params
 from danerf_tpu_torch.config import NeRFConfig
@@ -36,7 +39,7 @@ from danerf_tpu_torch.kernels.fused_mlp import (PackedGrads, pack_params,
                                                 params_from_jax_module, split_tf32,
                                                 unpack_grads)
 from danerf_tpu_torch.models.nerf import NeRF
-from danerf_tpu_torch.ops.sampling import sample_pdf, sample_stratified
+from danerf_tpu_torch.ops.sampling import importance_uniforms, sample_pdf, sample_stratified
 from danerf_tpu_torch.utils.convert import params_to_jax
 
 torch.set_num_threads(2)
@@ -281,13 +284,15 @@ def _field_bwd_3xtf32(cfg, packed, res, emb, g_rgb, g_sigma):
 
 
 def _emulate_3xtf32(monkeypatch, packed):
-    """Route the plain versions' field and backward through the f32 K3/K4
-    tile's numerics: the forward's trunk and dir-layer products by 3xTF32
-    (_field_3xtf32), the backward (_field_bwd_3xtf32) on the relu gates of
-    an f32 forward of the same rows (the tile's gate pass; the sigma gate
-    under relu too), which the forward's outputs here do not take (they
-    differ from the tile's only where a gate lies within the 3xTF32 error
-    of 0, by that much).  Returns the list of 3xTF32 forward products."""
+    """Route the plain versions' field and backward through the f32 K3, K4,
+    K8 and K9 tile's numerics: the forward's trunk and dir-layer products by
+    3xTF32 (_field_3xtf32), the backward (_field_bwd_3xtf32) on the relu
+    gates of an f32 forward of the same rows (the tile's gate pass; the
+    sigma gate under relu too), which the forward's outputs here do not take
+    (they differ from the tile's only where a gate lies within the 3xTF32
+    error of 0, by that much).  K9's plain version draws its importance
+    depths from the emulated coarse weights, as the kernel draws them from
+    its own.  Returns the list of 3xTF32 forward products."""
     mats = [packed.mat(f"w{i}") for i in range(packed.num_layers)] + [packed.mat("wdir")]
     calls = []
     dot, f32_dot = _field_3xtf32(mats), fm._dot
@@ -311,6 +316,7 @@ def _emulate_3xtf32(monkeypatch, packed):
         return _field_bwd_3xtf32(cfg, pk, res, emb, *rest)
     monkeypatch.setattr(fm, "_dot", dot_)
     monkeypatch.setattr(fr, "field_bwd_plain", bwd)
+    monkeypatch.setattr(fm, "field_bwd_plain", bwd)
     return calls
 
 
@@ -326,22 +332,34 @@ def _bwd_inputs(cfg, n, s, seed):
     return o, d, emb, z, t, g
 
 
+def _rows_of(o, d, emb, z, t):
+    """The per-sample rows of rays: points o + z d, each ray's direction,
+    embedding and time repeated over its samples."""
+    s = z.shape[-1]
+
+    def rep(v):
+        return None if v is None else v[:, None].expand(-1, s, -1).reshape(-1, v.shape[-1])
+    x = (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3)
+    return x, rep(d), rep(emb), rep(t)
+
+
 @pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
-@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K8", "K9"])
 def test_3xtf32_backward_predicts_f32_accuracy(monkeypatch, kernel, use_time):
-    """A CPU prediction of the f32 K3 and K4's numerics: their plain versions
-    with every forward, chain and dW product the tile forms on the tensor
-    cores formed by 3xTF32 (``_emulate_3xtf32``), at the kernels' width (8 x
-    256, 16 rays of 64 samples; K4 at 64 + 64), land within
-    PLAIN_TOL_F32_BWD of the f32 plain versions (each gradient's relative
-    error; K3's demb; K4's loss, demb and g_field), and the bf16 plain
-    versions' error against the same outputs is at least F32_GAIN times
-    larger (gradients and demb, as tests/test_torch_cuda.py _held32 takes
-    it).  The relu gates are an f32 forward's, as the tile's gate pass
-    gives them; here that forward sums in the plain version's own order, so
-    no gate lies on the other side, where the card's gate pass (the FFMA
-    tile's sums) may disagree with the card's plain version at an f32
-    rounding (the card check's CPU referee).  It leaves out the tensor
+    """A CPU prediction of the f32 K3, K4, K8 and K9's numerics: their
+    plain versions with every forward, chain and dW product the tile forms
+    on the tensor cores formed by 3xTF32 (``_emulate_3xtf32``), at the
+    kernels' width (8 x 256, 16 rays of 64 samples; K4 and K9 at 64 + 64; K8
+    at their 1,024 rows), land within PLAIN_TOL_F32_BWD of the f32 plain
+    versions (each gradient's relative error, K9's within grad_rel_k9; K3's
+    and K8's demb; K4's loss, demb and g_field; K9's two losses and demb),
+    and the bf16 plain versions' error against the same outputs is at least
+    F32_GAIN times larger (gradients and demb, as tests/test_torch_cuda.py
+    _held32 takes it).  The relu gates are an f32 forward's, as the tile's
+    gate pass gives them; here that forward sums in the plain version's own
+    order, so no gate lies on the other side, where the card's gate pass
+    (the FFMA tile's sums) may disagree with the card's plain version at an
+    f32 rounding (the card check's CPU referee).  It leaves out the tensor
     cores' own summation order, which the card check covers."""
     tol = fr.PLAIN_TOL_F32_BWD
     cfg16 = NeRFConfig(density_bias_init=0.5, use_time=use_time)
@@ -350,7 +368,24 @@ def test_3xtf32_backward_predicts_f32_accuracy(monkeypatch, kernel, use_time):
     pk, pk16 = pack_params(model, cfg), pack_params(model, cfg16)
     n, sc, sf = 16, 64, 64
     o, d, emb, z, t, g = _bwd_inputs(cfg, n, sc, 4)
-    if kernel == "K3":
+    grad_key, forwards = "grad_rel", 1
+    if kernel == "K8":
+        x, dr, er, tr = _rows_of(o, d, emb, z, t)
+        g_rgb = torch.randn(x.shape[0], 3, generator=g)
+        g_sig = torch.randn(x.shape[0], 1, generator=g)
+
+        def run(p, c):
+            grads, demb = fm.fused_bwd_plain(p, c, x, dr, er, g_rgb, g_sig, tr)
+            return grads, {"demb": demb}
+    elif kernel == "K9":
+        u = importance_uniforms((n,), sf, True, rand=g)
+        target = torch.rand(n, 3, generator=g)
+        grad_key, forwards = "grad_rel_k9", 3   # the coarse march, the fine pass, K3's recompute
+
+        def run(p, c):
+            loss_f, loss_c, grads, demb = fr.hier_onepass_plain(p, c, o, d, emb, z, u, target, t)
+            return grads, {"loss": torch.stack([loss_f, loss_c]), "demb_k4": demb}
+    elif kernel == "K3":
         cot = (torch.randn(n, 3, generator=g), torch.randn(n, generator=g),
                torch.randn(n, generator=g), 0.1 * torch.randn(n, sc, generator=g),
                0.1 * torch.randn(n, 4, sc, generator=g))
@@ -371,13 +406,14 @@ def test_3xtf32_backward_predicts_f32_accuracy(monkeypatch, kernel, use_time):
     calls = _emulate_3xtf32(monkeypatch, pk)
     got = run(pk, cfg)
     monkeypatch.undo()
-    assert len(calls) == cfg.num_layers + 3   # the trunk, dir, appearance and rgb products
+    # the trunk, dir, appearance and rgb products of each forward
+    assert len(calls) == forwards * (cfg.num_layers + 3)
 
     def rel(a, b):
         return max(fr.grad_rel_errors(a, b, model).values())
     g32 = rel(got[0], want[0])
     g16 = rel(want16[0], want[0])
-    assert g32 <= tol["grad_rel"], g32
+    assert g32 <= tol[grad_key], g32
     worst32, worst16 = [g32], [g16]
     for key, w in want[1].items():
         err = float((got[1][key] - w).abs().max())
@@ -401,20 +437,27 @@ def _assert_leaves(got, want, what):
         np.testing.assert_allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=f"{what} {i}")
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K8", "K8_time", "K9", "K9_time"])
 def test_3xtf32_backward_matches_jax(monkeypatch, kernel):
-    """The 3xTF32-emulated backward of K3 and K4 (as above) against the JAX
-    package's f32 kernels in interpret mode: K3 against jax.vjp of
-    fused_render_rays_coarse_field (``_march_bwd_call``, want_field, every
-    cotangent non-zero), K4 against fused_hier_train_loss_grads
-    (``_merged_train_pallas``), use_bf16=False, at a small size (hidden 64,
-    4 layers, skip at 2, 20 rays of 16 + 8 samples, seeded numpy inputs).
-    Each gradient leaf within rtol 1e-4 + atol 2e-5 (the f32 limits of
+    """The 3xTF32-emulated backward of K3, K4, K8 and K9 (as above)
+    against the JAX package's f32 kernels in interpret mode: K3 against
+    jax.vjp of fused_render_rays_coarse_field (``_march_bwd_call``,
+    want_field, every cotangent non-zero), K4 against
+    fused_hier_train_loss_grads (``_merged_train_pallas``), K8 against
+    jax.vjp of fused_nerf_apply (``_fused_vjp_bwd``) at the rays' 20 x 16
+    sample rows under random cotangents of rgb and sigma, K9 against
+    fused_hier_onepass_train (``_hier_onepass_pallas``, which draws its
+    importance depths from its own coarse weights), K8 and K9 also with time
+    (3 time levels), use_bf16=False, at a small size (hidden 64, 4 layers,
+    skip at 2, 20 rays of 16 + 8 samples, seeded numpy inputs).  Each
+    gradient leaf within rtol 1e-4 + atol 2e-5 (the f32 limits of
     tests/test_torch_train.py: the two packages sum in other orders), demb
-    and g_field within 2e-5, the loss within 1e-6 relative."""
+    and g_field within 2e-5, the losses within 1e-6 relative."""
     n, sc, sf = 20, 16, 8
-    jcfg = JaxConfig(**SMALL, use_bf16=False)
-    cfg = NeRFConfig(**SMALL, use_bf16=False)
+    over = dict(use_time=True, time_enc_levels=3) if kernel.endswith("_time") else {}
+    kernel = kernel.split("_")[0]
+    jcfg = JaxConfig(**SMALL, use_bf16=False, **over)
+    cfg = NeRFConfig(**SMALL, use_bf16=False, **over)
     params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(5), jcfg))
     model = params_from_jax_module(params, cfg, device="cpu").requires_grad_(False)
     rng = np.random.default_rng(5)
@@ -424,10 +467,33 @@ def test_3xtf32_backward_matches_jax(monkeypatch, kernel):
     emb = rng.normal(size=(n, cfg.appearance_dim)).astype(np.float32)
     edges = np.linspace(2.0, 6.0, sc + 1, dtype=np.float32)
     z = (edges[:-1] + rng.random((n, sc)) * (edges[1] - edges[0])).astype(np.float32)
+    t = rng.random((n, 1)).astype(np.float32) if cfg.use_time else None
     pk = pack_params(model, cfg)
     tt = [torch.tensor(x) for x in (o, d, emb, z)]
     _emulate_3xtf32(monkeypatch, pk)
-    if kernel == "K3":
+    if kernel == "K8":
+        x, dr, er, tr = (None if v is None else v.numpy() for v in
+                         _rows_of(*tt, None if t is None else torch.tensor(t)))
+        g_rgb = rng.normal(size=(x.shape[0], 3)).astype(np.float32)
+        g_sig = rng.normal(size=x.shape[0]).astype(np.float32)
+        _, vjp = jax.vjp(lambda p, e: j_fused_nerf_apply(p, jcfg, x, dr, e,
+                                                         t=None if tr is None else jnp.asarray(tr)),
+                         params, jnp.asarray(er))
+        j_grads, j_demb = vjp((jnp.asarray(g_rgb), jnp.asarray(g_sig)))
+        grads, demb = fm.fused_bwd_plain(pk, cfg, *(torch.tensor(v) for v in (x, dr, er, g_rgb,
+                                                                             g_sig)),
+                                         None if tr is None else torch.tensor(tr))
+    elif kernel == "K9":
+        u = np.sort(rng.random((n, sf)), axis=-1).astype(np.float32)
+        target = rng.random((n, 3)).astype(np.float32)
+        j_f, j_c, j_grads, j_demb = fused_hier_onepass_train(params, jcfg, o, d, z, u, target,
+                                                             emb, t=t)
+        loss_f, loss_c, grads, demb = fr.hier_onepass_plain(
+            pk, cfg, *tt, torch.tensor(u), torch.tensor(target),
+            None if t is None else torch.tensor(t))
+        np.testing.assert_allclose(float(loss_f), float(j_f), rtol=1e-6)
+        np.testing.assert_allclose(float(loss_c), float(j_c), rtol=1e-6)
+    elif kernel == "K3":
         cot = {"rgb": rng.normal(size=(n, 3)), "depth": rng.normal(size=n),
                "acc": rng.normal(size=n), "weights": rng.normal(size=(n, sc)) * 0.3,
                "field": rng.normal(size=(n, 4, sc)) * 0.3}
