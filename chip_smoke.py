@@ -88,8 +88,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             npy writes render_path adds, pack_params, and the host time of
             one K2 and one K5 launch.
 4f. f32_bwd  the f32 configuration of the backward and training kernels,
-            K3 and K4 on csrc/field_bwd_f32_sm90.cuh (3xTF32 wgmma), K7
-            and K6 on csrc/field_bwd_f32.cuh (FFMA), f32 residuals, against
+            K3, K7, K4 and K6 on csrc/field_bwd_f32_sm90.cuh (3xTF32
+            wgmma, relu gates from an FFMA gate pass), against
             their f32 plain versions (TF32 off) within
             fused_render.PLAIN_TOL_F32_BWD at 37 rays, B = 1024 and 4093
             rays (where a relu gate flips: the plain version on the CPU,
@@ -100,7 +100,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             the white-background pattern); the has_time variants on the
             time model at 37 rays and B = 1024; two calls bit for bit;
             beside each the bf16 kernel's error against the same f32 plain
-            outputs, at least F32_GAIN times the f32 kernel's; then K8
+            outputs, at least F32_GAIN times the f32 kernel's; the shapes
+            the bf16 kernels refuse refused in f32 too; then K8
             (csrc/mlp_bwd_f32.cu) at 37, 4,093, 65,536 and 131,072 rows and
             K9 (csrc/hier_onepass_f32.cu) at Sc + Sf = 64 + 64, 64 + 16,
             128 + 128, 48 + 32 and 32 + 64 at 37 rays and B = 1024, with
@@ -108,8 +109,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             grad_rel_k9, its losses and demb within the tight keys); the
             four's ms at B = 1024 (also with time) and at 8,192 rays x 64,
             K1 and K8 at 65,536 and 131,072 rows and K9 at B = 1024 (also
-            with time) beside their bounds (K3 and K4 at 3xTF32's,
-            tf32x3_bwd_bound, the others at FP32's, each with the other
+            with time) beside their bounds (the backward kernels at
+            3xTF32's, tf32x3_bwd_bound, K1 at FP32's, each with the other
             beside) and the plain versions' ms.
 4g. f32_train  f32 training through the library entry points (no CLI
             flag, as in the JAX CLI): one f32 step of 64 + 64, coarse-only,
@@ -119,7 +120,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             of a bf16 kernel; the loss and gradients within
             PLAIN_TOL_F32_BWD's loss and step_grad_rel, the parameters after
             one Adam step); 10 chained f32 steps against 10 eager ones bit
-            for bit on 64 + 64, coarse-only, per sample and in one kernel;
+            for bit on 64 + 64, coarse-only, white background, per sample
+            and in one kernel;
             train() for
             100 f32 steps of 64 + 64 (one f32 K2, K4, K3 a step, a rising
             PSNR, a checkpoint); evaluate() with the embedding fit on its
@@ -247,8 +249,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             for use_time: the has_time K2/K5 on the chunk, K3-K7 and K9 at
             B = 1024 and K1/K8 at 131,072 rows with their plain versions, an
             800x800 medium frame at t = 0.5, and the use_time step,
-            profiled; then (f32_step_timing) the f32 64 + 64, per-sample and
-            one-kernel steps beside the bf16 64 + 64 one, eager and chained,
+            profiled; then (f32_step_timing) the f32 64 + 64, coarse-only,
+            white-background, per-sample and one-kernel steps beside the
+            bf16 64 + 64 one, eager and chained,
             each with its profiler windows (device busy, idle share).  K3, K4, K6 and K7 at the batch are
             also broken down
             by kernel (tile, dW pass) beside torch.matmul over the same dW
@@ -315,7 +318,14 @@ import sys
 import time
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets the seconds since the
+    script started (wall_s), so each phase's share of the run shows."""
+    if "phase" in obj:
+        obj = {**obj, "wall_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -550,8 +560,9 @@ def shared_fragment_sets(sass):
     return found
 
 
-# The f32 backward libraries on csrc/field_bwd_f32_sm90.cuh's 3xTF32 tile.
-TF32_BWD_LIBS = ("march_bwd_f32", "merged_train_f32", "mlp_bwd_f32", "hier_onepass_f32")
+# The f32 backward libraries, all on csrc/field_bwd_f32_sm90.cuh's 3xTF32 tile.
+TF32_BWD_LIBS = ("march_bwd_f32", "merged_train_f32", "merged_bwd_f32", "march_train_f32",
+                 "mlp_bwd_f32", "hier_onepass_f32")
 
 
 def phase_build(out_dir):
@@ -570,7 +581,7 @@ def phase_build(out_dir):
     res = {n: ptxas_resources(log) for n, log in logs.items()}
     for n in ("march", "merged", "mlp_fwd", "march_f32", "merged_f32", "mlp_fwd_f32"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
-    # the f32 K2, K5 (csrc/field_f32_sm90.cuh), K3, K4, K8 and K9 (csrc/
+    # the f32 K2, K5 (csrc/field_f32_sm90.cuh), K3, K4, K6-K9 (csrc/
     # field_bwd_f32_sm90.cuh): their TF32 wgmma in SASS
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for n in ("march_f32", "merged_f32") + TF32_BWD_LIBS:
@@ -595,7 +606,7 @@ def phase_build(out_dir):
         for fn, key, smem in ((tile, "tile", lib.danerf_bwd_tile_smem_bytes),
                               ("dw90_kernel", "dw_pass", lib.danerf_dw90_smem_bytes)):
             res[n][key] = {**function_resources(logs[n], fn), "dynamic_smem": int(smem())}
-    # the f32 K3, K4, K8 and K9 (csrc/field_bwd_f32_sm90.cuh): the tile
+    # the f32 K3, K4, K6-K9 (csrc/field_bwd_f32_sm90.cuh): the tile
     # kernel (K9: its fine row set's and both chains', and its coarse row
     # set's), the wgmma dW pass and the gate pass (dynamic shared memory) and
     # the narrow jobs' FFMA pass (static) apart
@@ -610,13 +621,6 @@ def phase_build(out_dir):
         res[n]["narrow_dw_pass"] = function_resources(logs[n], "dw32_kernel")
         res[n]["gate_pass"] = {**function_resources(logs[n], "gate_pass32"),
                                "dynamic_smem": int(lib.danerf_bwd_tf32_gate_smem_bytes())}
-    # the other f32 variants (csrc/field_bwd_f32.cuh): the tile kernel
-    # (dynamic shared memory) and the dW pass (static) apart
-    for n in ("merged_bwd_f32", "march_train_f32"):
-        lib = _build.load(n)
-        res[n]["tile"] = {**function_resources(logs[n], "bwd32_tile"),
-                          "dynamic_smem": int(lib.danerf_bwd_tile_smem_bytes())}
-        res[n]["dw_pass"] = function_resources(logs[n], "dw32_kernel")
     emit({"phase": "build", "seconds": secs, "built": sorted(logs), "resources": res})
 
 
@@ -698,9 +702,10 @@ def refusals(cfg, packed, device):
     K4 and K6 at Sc + Sf = 64 + 129, 200 + 64 and where the merge arrays
     pass their limit (126 + 16), as on the old tile, while 125 + 16 is
     taken; and S or Sf = 0, which the old tile divided by; K8 with an
-    embedding of 24 (its appearance product steps K by 16); K9 at Sc + Sf =
-    129 + 64, 64 + 129, 0 + 64 and 64 + 0, as on its first tile.  Returns
-    what went otherwise."""
+    embedding of 24 (its appearance product steps K by 16; the f32 K8,
+    row_app4, takes it); K9 at Sc + Sf = 129 + 64, 64 + 129, 0 + 64 and
+    64 + 0, as on its first tile.  In f32 (cfg.use_bf16 off) the same, on
+    the f32 kernels.  Returns what went otherwise."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_mlp as fm
@@ -736,7 +741,7 @@ def refusals(cfg, packed, device):
         calls[f"K9@{sc}+{sf}"] = lambda zc=z[:, :sc].contiguous(), u=u: fr.hier_onepass_cuda(
             packed, cfg, o, d, emb, zc, u, target)
     for name, call in calls.items():
-        taken = name.endswith("125+16")
+        taken = name.endswith("125+16") or (name == "K8@E24" and not cfg.use_bf16)
         try:
             call()
             torch.cuda.synchronize()
@@ -1787,9 +1792,8 @@ def cpu_referee(fn, packed_cpu, cfg, device, *args, **kw):
 
 
 def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
-    """The f32 variants (use_bf16=False; K3 and K4 on
-    csrc/field_bwd_f32_sm90.cuh, K7 and K6 on csrc/field_bwd_f32.cuh) of K3,
-    K7, K4 and K6 against their f32 plain versions on the card (TF32 off)
+    """The f32 variants (use_bf16=False, csrc/field_bwd_f32_sm90.cuh) of
+    K3, K7, K4 and K6 against their f32 plain versions on the card (TF32 off)
     within fused_render.PLAIN_TOL_F32_BWD, at 37 rays (a lost block shows),
     the 1024-ray batch and 4093 rays (a ragged last tile), at every shape
     the tile takes: K3 and K7 at S = 32, 48, 64, 100, 128 (K3 with every
@@ -1797,7 +1801,9 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
     cotangent null: exact zeros); K4 and K6 at Sc + Sf = 64 + 64, 64 + 16,
     64 + 48, 128 + 128 (K6 with a coarse/fine tie under every cotangent and
     the white-background pattern, g_rgb and g_acc); the has_time variants
-    on the time model at 37 rays and the batch (S = 64, 64 + 64).  K8 at
+    on the time model at 37 rays and the batch (S = 64, 64 + 64); the
+    shapes the bf16 kernels refuse (refusals) refused by the f32 kernels
+    too.  K8 at
     37, 4,093, 65,536 and 131,072 rows and K9 at Sc + Sf = 64 + 64, 64 + 16,
     128 + 128, 48 + 32 and 32 + 64 at 37 rays and the batch, both with and
     without time (K8 also with an embedding of 24 at 37 and 4,093 rows,
@@ -1814,9 +1820,10 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
     two plain runs' own are reported (a relu gate on an f32 rounding
     boundary flips between summation orders).
     Then CUDA-event times of the four at B = 1024 and at 8,192 rays x 64
-    beside their bounds (K3 and K4: 3xTF32's, tf32x3_bwd_bound, with FP32's
-    FFMA bound beside; K6 and K7: FFMA's, with 3xTF32's beside) and their
-    plain versions'; of K1 and K8 at the batch's 65,536 and 131,072 rows and
+    beside their bounds (3xTF32's with the gate pass, tf32x3_bwd_bound, and
+    FP32's FFMA bound beside) and their plain versions', with K2 and K5 f32
+    at the batch (the rest of the f32 steps' kernels); of K1 and K8 at the
+    batch's 65,536 and 131,072 rows and
     of K9 at the batch (K8 and K9 at 3xTF32's bound with their gate passes,
     FFMA's beside; K1 at FFMA's, 3xTF32's beside; the has_time variants at
     131,072 rows and the batch).  Returns (worst abs error of
@@ -1963,6 +1970,8 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
                          lambda ct=ct: cpu_referee(fr.merged_bwd_plain, pcpu, c, device, o, d,
                                                    emb, z, field, z_t, *ct, t=t))
                 del o, d, emb, z, coarse, field, z_f, z_t, c6
+        if tag == "":
+            failures += [f"f32 {f}" for f in refusals(c, p32, device)]
 
     # K8 in f32 (independent rows, each with its cotangents; demb per row)
     # and K9 in f32 (the one-kernel 64 + 64 step and four other shapes; its
@@ -2073,22 +2082,25 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
             for k, (kern, plain) in calls.items():
                 timing[f"{k}{tag}_{n}_ms"] = cuda_ms(kern, 5 if n == 8192 else 10)
                 timing[f"{k}{tag}_{n}_plain_ms"] = cuda_ms(plain, 2 if n == 8192 else 5)
-                ffma = bound(c, n, samples[k], nbytes[k], backward=True)
-                tf32 = tf32x3_bwd_bound(c, n, samples[k], nbytes[k],
-                                        gate_pass=k in ("k3", "k4"))
-                # K3 and K4 run on the tensor cores (3xTF32): their bound is
-                # 3xTF32's, FFMA's beside it; K6 and K7 (FFMA) the reverse
-                main, other = (tf32, ffma) if k in ("k3", "k4") else (ffma, tf32)
-                timing[f"{k}{tag}_{n}_bound_ms"], bound_by[k + tag] = main
-                timing[f"{k}{tag}_{n}_{'ffma' if main is tf32 else 'tf32x3'}_bound_ms"] = \
-                    other[0]
-            # K2 f32 at the batch, the rest of the 64 + 64 step's kernels
+                # on the tensor cores (3xTF32) with the gate pass's FFMA
+                # forward; FP32's FFMA bound beside
+                timing[f"{k}{tag}_{n}_bound_ms"], bound_by[k + tag] = tf32x3_bwd_bound(
+                    c, n, samples[k], nbytes[k], gate_pass=True)
+                timing[f"{k}{tag}_{n}_ffma_bound_ms"] = bound(c, n, samples[k], nbytes[k],
+                                                              backward=True)[0]
+            # K2 and K5 f32 at the batch, the rest of the 64 + 64 and white
+            # steps' kernels
+            e = c.appearance_dim
             timing[f"k2{tag}_{n}_ms"] = cuda_ms(
                 lambda: fr.march_cuda(p32, c, o, d, emb, z, t, want_field=True), 10)
-            e = c.appearance_dim
             timing[f"k2{tag}_{n}_bound_ms"], _ = tf32x3_bound(
                 c, n, sc, 4 * n * (3 + 3 + e + sc) + 4 * n * (3 + 1 + 1 + 5 * sc)
                 + 12 * p32.mats.numel())
+            timing[f"k5{tag}_{n}_ms"] = cuda_ms(
+                lambda: fr.merged_cuda(p32, c, o, d, emb, z, field, z_f, t), 10)
+            timing[f"k5{tag}_{n}_bound_ms"], _ = tf32x3_bound(
+                c, n, sf, 4 * n * (3 + 3 + e + 5 * sc + sf + int(c.use_time))
+                + 4 * n * (3 + 1 + 1 + 2 * (sc + sf)) + 12 * p32.mats.numel())
             del o, d, emb, z, cot, g_field, target, field, z_f, c6, calls
         # K1 and K8 at the rows of the batch's coarse and fine evaluations
         # (the f32 per-sample step's), K9 at the batch (the f32 one-kernel
@@ -2156,7 +2168,8 @@ def phase_f32_train(cfg, model, out_dir, device):
     PLAIN_TOL_F32_BWD's loss, the gradients within its step_grad_rel, the
     parameters after one Adam step);
     10 chained f32 steps against 10 eager ones bit for bit on 64 + 64,
-    coarse-only, per sample and in one kernel; train() for 100 f32 steps of 64 + 64 on the procedural
+    coarse-only, white background, per sample and in one kernel; train()
+    for 100 f32 steps of 64 + 64 on the procedural
     scene (phase_train: one f32 K2, K4, K3 a step, finite losses, a rising
     PSNR, a checkpoint); then evaluate() with the embedding fit on its
     checkpoint (100x100 views, 2 views; 50 fit steps a view, each an f32 K2,
@@ -2177,7 +2190,7 @@ def phase_f32_train(cfg, model, out_dir, device):
     steps, _, _ = step_runs(cfg, model, device, F32_PATHS, lambda c: tol["loss"],
                             tol["step_grad_rel"], failures)
     chained = {}
-    for path in ("hier_f32", "coarse_f32", "per_sample_f32", "hier_onepass_f32"):
+    for path in ("hier_f32", "coarse_f32", "white_f32", "per_sample_f32", "hier_onepass_f32"):
         over, per_step = F32_PATHS[path]
         pcfg = cfg.replace(**over)
         chained[path] = chained_vs_eager(pcfg, timing_scene(pcfg), device, 10, 1, per_step)
@@ -2235,20 +2248,23 @@ def phase_f32_train(cfg, model, out_dir, device):
 
 
 def phase_f32_step_timing(cfg, device, f32_timing, tt):
-    """The f32 64 + 64, per-sample and one-kernel steps (use_bf16=False) at
-    B = 1024 beside the bf16 64 + 64 step, each through step_timing (eager
-    and chained, 10 steps a replay, each with its torch.profiler windows:
-    device busy, idle share, and kernel_part's breakdown: each f32 step's
-    3xTF32 tiles, t32_tile (the 64 + 64 step's K3 and K4, the per-sample
-    step's K8, the one-kernel step's K9), apart from their gate passes,
-    t32_gate_pass, their wgmma dW passes, t32_dw_pass, and their narrow
-    jobs and row sums, bwd32_dw_pass), with
-    the f32 kernels' times and bound from phase_f32_bwd (K2, K3, K4 at the
-    batch; K1 and K8 at its 65,536 and 131,072 rows; K9 at the batch) and
-    the bf16 ones' from phase_train_timing."""
+    """The f32 64 + 64, coarse-only, white-background, per-sample and
+    one-kernel steps (use_bf16=False) at B = 1024 beside the bf16 64 + 64
+    step, each through step_timing (eager and chained, 10 steps a replay,
+    each with its torch.profiler windows: device busy, idle share, and
+    kernel_part's breakdown: each f32 step's 3xTF32 tiles, t32_tile (the
+    64 + 64 step's K3 and K4, the coarse-only step's K7, the white step's
+    K6 and K3, the per-sample step's K8, the one-kernel step's K9), apart
+    from their gate passes, t32_gate_pass, their wgmma dW passes,
+    t32_dw_pass, and their narrow jobs and row sums, bwd32_dw_pass), with
+    the f32 kernels' times and bound from phase_f32_bwd (K2, K3, K4, K5,
+    K6, K7 at the batch; K1 and K8 at its 65,536 and 131,072 rows; K9 at
+    the batch) and the bf16 ones' from phase_train_timing."""
     n = cfg.batch_size
     rows = (n * cfg.num_samples, n * (cfg.num_samples + cfg.num_importance))
     f32_kernels = {"hier_f32": ("k2_1024", "k3_1024", "k4_1024"),
+                   "coarse_f32": ("k7_1024",),
+                   "white_f32": ("k2_1024", "k5_1024", "k6_1024", "k3_1024"),
                    "per_sample_f32": tuple(f"k{k}_{r}" for k in (1, 8) for r in rows),
                    "hier_onepass_f32": (f"k9_{n}",)}
     steps = {path: step_timing(cfg.replace(**F32_PATHS[path][0]), device, f32_timing, kerns,
@@ -3076,11 +3092,9 @@ def kernel_part(name):
     """The part of a step a device kernel belongs to: the tile kernel of K3,
     K4, K6, K7, K8 or K9 (csrc/field_bwd_sm90.cuh), their dW pass (the
     wgmma blocks, the narrow jobs, the reductions), the tile (K9's two tile
-    kernels) and the wgmma dW pass and the gate pass of the f32 K3, K4, K8
-    and K9 (csrc/field_bwd_f32_sm90.cuh), the tile of the f32 K6 and K7
-    (csrc/field_bwd_f32.cuh) and the FFMA dW pass (the whole dW of those,
-    the narrow jobs and row sums of the others: bwd_f32_parts.cuh), or the
-    rest."""
+    kernels), the wgmma dW pass and the gate pass of the f32 K3, K4, K6-K9
+    (csrc/field_bwd_f32_sm90.cuh) and their narrow dW jobs' FFMA pass and
+    row sums (bwd_f32_parts.cuh), or the rest."""
     if "bwd_tile90" in name or "hier_tile90" in name:
         return "bwd90_tile"
     if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
@@ -3091,8 +3105,6 @@ def kernel_part(name):
         return "t32_dw_pass"
     if "gate_pass32" in name:
         return "t32_gate_pass"
-    if "bwd32_tile" in name:
-        return "bwd32_tile"
     if any(k in name for k in ("dw32_", "sum_slots32")):
         return "bwd32_dw_pass"
     return "rest"
@@ -4781,9 +4793,8 @@ def main(argv=None):
     # the f32 train() run (K3, K4), the f32 evaluate fit (K6) and the f32
     # coarse-only chained run (K7); the has_time variants' from the f32
     # use_time step (K4 and K7: no route reaches them with time); times at
-    # B = 1024 and at 8,192 rays beside their bound: K3 and K4 (3xTF32,
-    # csrc/field_bwd_f32_sm90.cuh) at 3xTF32's with FP32's FFMA bound beside,
-    # K6 and K7 (FFMA) at FP32's with 3xTF32's beside
+    # B = 1024 and at 8,192 rays beside their bound (3xTF32,
+    # csrc/field_bwd_f32_sm90.cuh) at 3xTF32's with FP32's FFMA bound beside
     for name, key, source, line, counter, launches in (
             ("K3 ray-march backward (want_field), f32", "k3", "march_bwd_f32.cu", 212,
              "march_bwd_f32", f32_train["train"]),
@@ -4794,25 +4805,24 @@ def main(argv=None):
             ("K7 coarse march + MSE + backward, f32", "k7", "march_train_f32.cu", 449,
              "march_train_f32", f32_train["coarse_chained"])):
         tm = f32b_timing
-        beside = "ffma" if key in ("k3", "k4") else "tf32x3"
         kernels.append({
             "name": name, "route": "cuda", "source": f"danerf_tpu_torch/kernels/csrc/{source}",
             "replaces": f"danerf_tpu/kernels/fused_render.py:{line}",
             "launches": launches[counter], "max_abs_err": errs_f32b[key.upper()],
             "ms": tm[f"{key}_1024_ms"], "plain_ms": tm[f"{key}_1024_plain_ms"],
             "bound_ms": tm[f"{key}_1024_bound_ms"], "bound_by": f32b_bound_by[key],
-            f"{beside}_bound_ms": tm[f"{key}_1024_{beside}_bound_ms"],
+            "ffma_bound_ms": tm[f"{key}_1024_ffma_bound_ms"],
             "library_ms": None, "config": "use_bf16=False", "at": "1024-ray batch",
             "bf16_over_f32_error_ratio_worst": f32b_ratio,
             "at_8192_rays": {"ms": tm[f"{key}_8192_ms"], "plain_ms": tm[f"{key}_8192_plain_ms"],
                              "bound_ms": tm[f"{key}_8192_bound_ms"],
-                             f"{beside}_bound_ms": tm[f"{key}_8192_{beside}_bound_ms"]},
+                             "ffma_bound_ms": tm[f"{key}_8192_ffma_bound_ms"]},
             "variants_held": ["without time", "has_time"],
             "has_time": {"launches": f32_train["time_step"][counter],
                          "max_abs_err": errs_f32b[key.upper() + "t"],
                          "ms": tm[f"{key}t_1024_ms"], "plain_ms": tm[f"{key}t_1024_plain_ms"],
                          "bound_ms": tm[f"{key}t_1024_bound_ms"],
-                         f"{beside}_bound_ms": tm[f"{key}t_1024_{beside}_bound_ms"],
+                         "ffma_bound_ms": tm[f"{key}t_1024_ffma_bound_ms"],
                          "bound_by": f32b_bound_by[key + "t"], "at": "1024-ray batch"}})
     # the f32 variants of K8 and K9 (3xTF32, csrc/field_bwd_f32_sm90.cuh):
     # launches from the f32 per-sample and one-kernel chained runs (10 steps

@@ -1,12 +1,12 @@
-// What the two f32 backward tiles share: field_bwd_f32.cuh's FFMA tile (K6
-// and K7 with use_bf16=False) and field_bwd_f32_sm90.cuh's 3xTF32 tile (K3,
-// K4, K8, K9).
+// What the f32 backward tile, field_bwd_f32_sm90.cuh's 3xTF32 tile (K3, K4,
+// K6, K7, K8 and K9 with use_bf16=False), takes from the CUDA cores:
 // - The composites of a tile's rays and their transposes (MarchComp32,
 //   MergedComp32, merged_ray32 with merge_ranks), one warp per ray over the
 //   tile's rows as CompTile points to them, K8's per-row cotangents
 //   (RowComp32), and demb per ray (ray_demb).
-// - The FFMA dW pass (dw32_kernel over fixed row partitions, summed in
-//   order by dw32_reduce) and the row sums' reduction (sum_slots32).
+// - The narrow dW jobs' FFMA pass (dw32_kernel over fixed row partitions,
+//   summed in order by dw32_reduce) and the row sums' reduction
+//   (sum_slots32).
 // Every sum runs in a fixed order, so two calls give bit-identical results.
 
 #pragma once
@@ -25,10 +25,6 @@ constexpr int DW32_PART_ROWS = 4096;  // a partition's rows at least, where ther
 constexpr int MAX_JOBS32 = 40;
 constexpr int DW32_THREADS = 256;  // a block of dw32_kernel
 constexpr int COMP_THREADS = 256;  // the threads that run a tile's composite: 8 warps
-// A barrier over every thread of the block (the FFMA tile's composite).
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
 
 // Where a backward tile's composite reads the tile's rows (the depths z,
 // the field's sigma and rgb, row j s + sample for ray j) and writes their
@@ -336,10 +332,6 @@ sum_slots32(const float* __restrict__ part, int slots, int nv, int n_vecs, float
     if (j < n_vecs) gvecs[j] += a;
     else if (loss != nullptr) *loss += a;
   }
-}
-
-inline int dw32_tiles_of(int n_out, int n_k) {
-  return ((n_out + DW32_TILE - 1) / DW32_TILE) * ((n_k + DW32_TILE - 1) / DW32_TILE);
 }
 
 inline void add_job32(Dw32Jobs& J, int& tiles, const float* a, int lda, int n_out,

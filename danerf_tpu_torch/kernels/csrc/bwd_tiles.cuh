@@ -9,7 +9,7 @@
 //                g_w (R, n), n the composite's samples a ray; a null pointer
 //                reads as zeros, as autograd hands no cotangent for an
 //                output nothing used (K3, K6).
-// field_bwd_sm90.cuh's composites (K3, K4, K6, K7), field_bwd_f32.cuh's and
+// field_bwd_sm90.cuh's composites (K3, K4, K6, K7), bwd_f32_parts.cuh's and
 // both K9s use them; merged_smem_bytes states the shapes the merged kernels
 // (K4, K6) take.  Then what both K9s (hier_onepass.cu, hier_onepass_f32.cu)
 // share: the shapes they take, the inverse CDF of a ray's coarse weights,
@@ -84,7 +84,7 @@ inline size_t merged_smem_bytes(int Sc, int Sf, int rpc) {
 // The shapes K9 takes (hier_onepass.cu and its f32 variant), as since its
 // first design: those whose per-ray arrays fit beside that design's tile
 // (field.cuh SHAPE_TILE_BYTES) and BwdSmem in 232,448 bytes (all of them fit
-// in field_bwd_sm90.cuh's tile and in field_bwd_f32.cuh's SmemH32):
+// in field_bwd_sm90.cuh's tile and in field_bwd_f32_sm90.cuh's):
 // the per-warp composite scratch of Sa = Sc + Sf samples, then, for each
 // of the tile's rays, the coarse and fine depths, the kept coarse field,
 // sigma_pre and field cotangent, the merged depths, sigma and rgb, demb and
@@ -155,8 +155,8 @@ struct HierArgs {
 
 // The two losses of a pass: loss[0] += the fine slots (odd virtual tiles),
 // loss[1] += the coarse slots (even ones); a virtual tile's loss is the
-// last column of the first of its `slots` row-sum slots (2 on the bf16 and
-// FFMA tiles; field_bwd_f32_sm90.cuh's SLOTS on the f32 K9's).  Warp k sums
+// last column of the first of its `slots` row-sum slots
+// (field_bwd_f32_sm90.cuh's SLOTS on the f32 K9's tile).  Warp k sums
 // loss k, each lane every 32nd of its tiles in order, then the lanes in a
 // fixed tree.
 __device__ __forceinline__ void hier_losses_of(const float* __restrict__ part, int vtiles,

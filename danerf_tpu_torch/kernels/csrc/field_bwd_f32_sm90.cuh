@@ -1,12 +1,14 @@
 // The backward of the NeRF-W field in f32 (use_bf16=False) on Hopper's
-// tensor cores for K3 (march_bwd_f32.cu), the ray march's backward under
-// the caller's cotangents, K4 (merged_train_f32.cu), the merged fine pass's
-// under the MSE, K8 (mlp_bwd_f32.cu), the per-sample field's under each
-// row's cotangents (row tiles, ROW_TILE), and K9 (hier_onepass_f32.cu),
-// whose own two tile kernels run its coarse and fine row sets on these
-// pieces: the counterpart of danerf_tpu/kernels/fused_mlp.py
-// _field_bwd_from_res with cdt = float32, as _march_bwd_kernel,
-// _merged_train_kernel, _bwd_kernel and _hier_onepass_kernel run it when
+// tensor cores for K3 (march_bwd_f32.cu) and K7 (march_train_f32.cu), the
+// ray march's backward under the caller's cotangents or the MSE, K4
+// (merged_train_f32.cu) and K6 (merged_bwd_f32.cu), the merged fine pass's
+// under the MSE or the caller's, K8 (mlp_bwd_f32.cu), the per-sample
+// field's under each row's cotangents (row tiles, ROW_TILE), and K9
+// (hier_onepass_f32.cu), whose own two tile kernels run its coarse and fine
+// row sets on these pieces: the counterpart of
+// danerf_tpu/kernels/fused_mlp.py _field_bwd_from_res with cdt = float32,
+// as _march_bwd_kernel, _train_kernel, _merged_train_kernel,
+// _merged_bwd_kernel, _bwd_kernel and _hier_onepass_kernel run it when
 // cfg.use_bf16 is off.  It is to field_f32_sm90.cuh what field_bwd_sm90.cuh
 // is to field_sm90.cuh; the composites, demb, the narrow dW jobs and the
 // row sums' reduction come from bwd_f32_parts.cuh.
@@ -24,7 +26,7 @@
 // evaluation's ~15x more often than two f32 evaluations disagree (59 gates
 // against 4 at 1024 x 64 on the H100), and one such gate moves a gradient
 // by ~1e-3.  They are those of an f32 forward on the CUDA cores (the gate
-// pass, field_f32.cuh's field_block: the FFMA tile's sums, term for term),
+// pass, field_f32.cuh's field_block: the FFMA forward's sums),
 // so the tile's backward sees the gates an f32 evaluation sees; the forward
 // takes them too (a gated output is its tensor-core pre-activation, an
 // ungated one 0).
@@ -32,7 +34,7 @@
 // Bound on an H100: operations.  1,552,000 MACs a sample (the forward
 // 527,872, the chain and dW 1,024,128), three TF32 products each: 1.23 ms
 // for a 1024-ray batch of 64 samples at TF32's 494.7 TFLOP/s (FFMA's bound,
-// 3.04 ms at FP32's 67, is what the FFMA tile before this one could not
+// 3.04 ms at FP32's 67, is what the FFMA tiles before this one could not
 // beat).  The stash (~26 KB a row: each trunk output split, hi and lo, and
 // each d_pre in f32) is written and read back once, ~1.7 GB at that batch,
 // ~0.5 ms at 3.35 TB/s, which the tile and the dW pass must hide.
@@ -148,7 +150,7 @@ struct SmemT32 {  // at the 1024-aligned start of dynamic shared memory
 };
 constexpr size_t T32_SMEM_BYTES = sizeof(SmemT32);
 static_assert(T32_SMEM_BYTES <= 232448, "the f32 backward tile exceeds the 227 KB a block may use");
-// The composite's arrays of every shape K3 and K4 take (bwd_smem_bytes /
+// The composite's arrays of every shape K3, K4, K6 and K7 take (bwd_smem_bytes /
 // merged_smem_bytes <= 232,448 beside field.cuh's SHAPE_TILE_BYTES) fit in
 // the ring.
 static_assert(232448 - SHAPE_TILE_BYTES - sizeof(BwdSmem) <= sizeof(Smem32::ring),
@@ -518,7 +520,7 @@ __device__ __forceinline__ void produce_bwd(const BwdMapsT32& maps, const FieldA
 // ---------------------------------------------------------------- chain
 
 // What the chain's head does with the rows' d_happ: each ray's sum over its
-// s rows into bs.dsum, then the rays' demb (K3, K4: DEMB_RAYS); the sums
+// s rows into bs.dsum, then the rays' demb (K3, K4, K6, K7: DEMB_RAYS); the sums
 // only (K9's fine row set: DEMB_KEEP); the sums added to bs.dsum, then the
 // rays' demb (K9's coarse row set, after its fine one: DEMB_ADD); each
 // row's demb = d_happ @ Wapp (K8's row tile: DEMB_ROWS).
@@ -748,8 +750,8 @@ __device__ __forceinline__ void chain(const FieldArgs& P, SmemT32& sm, const Scr
 
 // ---------------------------------------------------------------- tile
 
-// The tile kernel (pass 1) of K3, K4 and K8: for each tile of this CTA
-// (rays ray_base + tile rpc.. of the launch, stash rows tile ROWS..; rays:
+// The tile kernel (pass 1) of K3, K4, K6, K7 and K8: for each tile of this
+// CTA (rays ray_base + tile rpc.. of the launch, stash rows tile ROWS..; rays:
 // the pass's, its pointers and R from ray_base on; K8, Comp::ROWS: rows, a
 // row tile's 128 each, s = 1), the forward with its residuals, the
 // composite and its transpose (comp, on absolute ray indices), the chain's
@@ -1027,11 +1029,11 @@ inline int map_f32(sm90::EncodeTiledFn enc, CUtensorMap* m, const void* p, int r
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// What K3, K4, K8 and K9 set up: the layout records (meta_t: where the
+// What K3, K4, K6-K9 set up: the layout records (meta_t: where the
 // chain's blocks lie in mats_kn, at the packed offsets: -1, w_off[1..L-1],
 // wdir_off, wapp_off), the shape checks (1..128 samples a tile row; K8,
 // rows: s = ROW_TILES), the stash of one pass and the pass sizes for R rays
-// of s samples in a tile's rows (K3: S; K4: Sf; K9: max(Sc, Sf)) or R rows;
+// of s samples in a tile's rows (K3, K7: S; K4, K6: Sf; K9: max(Sc, Sf)) or R rows;
 // vt virtual tiles of the stash a tile (K9: 2, its coarse and fine row
 // sets); extra bytes of the scratch past the stash (K9's kept arrays: at
 // extra, a pointer into the scratch).
@@ -1205,12 +1207,12 @@ inline int launch_gates(const BwdT32Call& c, const Rays& rp, uint4* gates, int v
   return (int)cudaGetLastError();
 }
 
-// Run the passes of K3, K4 or K8 on bwd_tile32<Comp>: the tensor maps, then
-// for each slice of at most tiles_pass tiles, clear its row sums, launch
-// the gate pass and the tile kernel (on a persistent grid) with the rays'
-// pointers from the slice's first ray on, then passes 2 and 3.  rays: the
-// launch's (R its rays, s the samples a tile row, rpc rays a tile; K8: R
-// rows, s = 1, rpc = 128).
+// Run the passes of K3, K4, K6, K7 or K8 on bwd_tile32<Comp>: the tensor
+// maps, then for each slice of at most tiles_pass tiles, clear its row
+// sums, launch the gate pass and the tile kernel (on a persistent grid)
+// with the rays' pointers from the slice's first ray on, then passes 2 and
+// 3.  rays: the launch's (R its rays, s the samples a tile row, rpc rays a
+// tile; K8: R rows, s = 1, rpc = 128).
 template <class Comp>
 inline int run_bwd_t32(const BwdT32Call& c, const Comp& comp, Rays rays, float* gmats,
                        float* gvecs, float* loss, float* demb, int n_vecs, cudaStream_t stream) {
@@ -1244,9 +1246,9 @@ inline int run_bwd_t32(const BwdT32Call& c, const Comp& comp, Rays rays, float* 
 }  // namespace tf32
 }  // namespace danerf
 
-// Bytes of stash K3, K4 or K8 in f32 needs for R rays of s samples a tile
-// row (K3: S; K4: Sf) or R rows (K8: s = ROW_TILES); negative on a
-// malformed layout or a shape they do not take.
+// Bytes of stash K3, K4, K6, K7 or K8 in f32 needs for R rays of s samples
+// a tile row (K3, K7: S; K4, K6: Sf) or R rows (K8: s = ROW_TILES);
+// negative on a malformed layout or a shape they do not take.
 extern "C" long long danerf_bwd_tf32_scratch_bytes(const long long* meta, long long n_meta,
                                                    long long R, long long s, long long n_vecs) {
   using namespace danerf;

@@ -4,9 +4,9 @@
 // danerf_tpu/kernels/fused_mlp.py _field_from_enc with cdt = float32, as
 // _render_kernel, _merged_kernel and _fwd_kernel run it when cfg.use_bf16
 // is off.  The argument record, its parsing, the encoder (encode_cols), the
-// merge and the composite come from field.cuh.  The f32 backward tile
-// (field_bwd_f32.cuh) runs the same block with a stash hook (field_block's
-// Stash) and its transposed chain on the same FFMA slice (ffma_slice).
+// merge and the composite come from field.cuh.  The f32 backward tile's
+// gate pass (field_bwd_f32_sm90.cuh gate_pass32) runs the same block with a
+// stash hook (field_block's Stash) that keeps each relu gate's sign.
 //
 // Numerics: the JAX f32 configuration's.  Encodings, activations, the
 // appearance term and every product are f32; every product is an f32
@@ -212,10 +212,10 @@ struct F32Sink {
 };
 
 // What the forward keeps for a backward pass: nothing (the forward kernels);
-// field_bwd_f32.cuh's StashRes keeps each trunk layer's output, sigma_pre,
-// relu(hdir_pre) and happ.  trunk: the thread's 8 rows (w8..) of trunk layer
-// m's output column c; sigma_pre: row's; head: relu(hdir_pre) and happ of
-// row, column c.
+// field_bwd_f32_sm90.cuh's GateStash keeps the signs of each trunk layer's
+// output, sigma_pre and relu(hdir_pre).  trunk: the thread's 8 rows (w8..)
+// of trunk layer m's output column c; sigma_pre: row's; head:
+// relu(hdir_pre) and happ of row, column c.
 struct NoStash {
   __device__ __forceinline__ void trunk(int, int, int, const float (&)[8]) const {}
   __device__ __forceinline__ void sigma_pre(int, float) const {}

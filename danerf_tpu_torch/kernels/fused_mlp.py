@@ -30,15 +30,13 @@ their own: K2 and K5 (``march_f32.cu``, ``merged_f32.cu``) on
 split into TF32 halves (``split_tf32``, ``PackedParams.mats_tf32``) and, for
 its heads, as packed; K1 (``mlp_fwd_f32.cu``) on ``csrc/field_f32.cuh``,
 which reads them transposed (``PackedParams.mats_kn``; ``fwd_weights``
-names each one's); the backward kernels K3, K4, K8 and K9
+names each one's); the backward kernels K3, K4, K6, K7, K8 and K9
 through theirs on ``csrc/field_bwd_f32_sm90.cuh``'s tensor-core tile
-(``march_bwd_f32.cu``, ``merged_train_f32.cu``, ``mlp_bwd_f32.cu``,
-``hier_onepass_f32.cu``), which read the forward's split weights, the
-transposed chain's (``mats_kn`` split, ``PackedParams.mats_kn_tf32``) and,
-for the relu gates of an f32 forward on the CUDA cores, ``mats_kn``; K6 and
-K7 through theirs on ``csrc/field_bwd_f32.cuh`` (``merged_bwd_f32.cu``,
-``march_train_f32.cu``), which read them transposed for the forward and as
-packed, (out, K) f32, for the transposed chain (``bwd_weights``).
+(``march_bwd_f32.cu``, ``merged_train_f32.cu``, ``merged_bwd_f32.cu``,
+``march_train_f32.cu``, ``mlp_bwd_f32.cu``, ``hier_onepass_f32.cu``),
+which read the forward's split weights, the transposed chain's
+(``mats_kn`` split, ``PackedParams.mats_kn_tf32``) and, for the relu gates
+of an f32 forward on the CUDA cores, ``mats_kn`` (``bwd_weights``).
 
 The encoding here is the kernels' form, ``y = 2^i o + z (2^i d)`` then
 ``sin(y + phase)``, not ``nerf_apply``'s ``sin(2^i (o + z d))``: the two
@@ -518,8 +516,9 @@ def fwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
 
 
 # The backward kernels whose f32 variants run on the tensor cores by
-# 3xTF32 (csrc/field_bwd_f32_sm90.cuh): K3, K4, K8 and K9.
-TF32_BWD = ("march_bwd", "merged_train", "mlp_bwd", "hier_onepass")
+# 3xTF32 (csrc/field_bwd_f32_sm90.cuh): all six, K3, K4, K6, K7, K8 and K9.
+TF32_BWD = ("march_bwd", "merged_train", "merged_bwd", "march_train", "mlp_bwd",
+            "hier_onepass")
 
 
 def bwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
@@ -527,24 +526,21 @@ def bwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
     kernel ``name``, the weights and chain weights as tuples of tensors in
     the order its C entry takes them: the bf16 kernel on the packed weights
     and their transposed hidden blocks (``transposed_mats``); without
-    ``use_bf16`` its f32 variant: K3, K4, K8 and K9 (``TF32_BWD``) on the
-    packed f32 weights, their TF32 halves (``mats_tf32``: hi, lo) and the
-    weights transposed (``mats_kn``, their gate pass's), the chain on
-    ``mats_kn_tf32``'s (hi, lo); K6 and K7 on the weights transposed
-    (``mats_kn``, the forward's) and as packed, W (out, K) f32, whose rows
-    are the B operand of their transposed chain.  Without ``use_bf16`` the
-    offsets are each block's own (-1 for layer 0, the trunk layers 1.., the
-    dir layer, the appearance projection)."""
+    ``use_bf16`` its f32 variant (every backward kernel, ``TF32_BWD``) on
+    the packed f32 weights, their TF32 halves (``mats_tf32``: hi, lo) and
+    the weights transposed (``mats_kn``, their gate pass's), the chain on
+    ``mats_kn_tf32``'s (hi, lo), each block at its own offset (-1 for layer
+    0, the trunk layers 1.., the dir layer, the appearance projection)."""
     if cfg.use_bf16:
         flat, offs = transposed_mats(packed, cfg)
         return name, (packed.mats,), (flat,), offs
+    if name not in TF32_BWD:
+        raise ValueError(f"no backward kernel {name!r}")
     offs = ((-1,) + tuple(packed.mat_at[f"w{i}"][0] for i in range(1, packed.num_layers))
             + (packed.mat_at["wdir"][0], packed.mat_at["wapp"][0]))
-    if name in TF32_BWD:
-        return (f"{name}_f32",
-                (packed.mats, packed.mats_tf32[0], packed.mats_tf32[1], packed.mats_kn),
-                (packed.mats_kn_tf32[0], packed.mats_kn_tf32[1]), offs)
-    return f"{name}_f32", (packed.mats_kn,), (packed.mats,), offs
+    return (f"{name}_f32",
+            (packed.mats, packed.mats_tf32[0], packed.mats_tf32[1], packed.mats_kn),
+            (packed.mats_kn_tf32[0], packed.mats_kn_tf32[1]), offs)
 
 
 def _arg(x):

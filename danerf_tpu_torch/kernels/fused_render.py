@@ -30,12 +30,11 @@ Seven kernels, each with a plain PyTorch version of the same function:
   (the operands split into TF32 halves, ``fused_mlp.split_tf32``);
   ``march_cuda`` and ``merged_cuda`` launch them when ``cfg.use_bf16`` is
   off (held to ``PLAIN_TOL_F32``).
-- K3, K7, K4 and K6 in f32: ``csrc/march_bwd_f32.cu`` and
-  ``csrc/merged_train_f32.cu`` on ``csrc/field_bwd_f32_sm90.cuh``'s
-  tensor-core tile (3xTF32 products on the relu gates of an f32 gate pass),
-  ``csrc/march_train_f32.cu`` and ``csrc/merged_bwd_f32.cu`` on
-  ``csrc/field_bwd_f32.cuh``'s FFMA tile (f32 residuals, the transposed
-  chain and the dW pass in f32); ``march_bwd_cuda``, ``march_train_cuda``,
+- K3, K7, K4 and K6 in f32: ``csrc/march_bwd_f32.cu``,
+  ``csrc/march_train_f32.cu``, ``csrc/merged_train_f32.cu`` and
+  ``csrc/merged_bwd_f32.cu`` on ``csrc/field_bwd_f32_sm90.cuh``'s
+  tensor-core tile (3xTF32 products on the relu gates of an f32 gate
+  pass); ``march_bwd_cuda``, ``march_train_cuda``,
   ``merged_train_cuda`` and ``merged_bwd_cuda`` launch them when
   ``cfg.use_bf16`` is off (held to ``PLAIN_TOL_F32_BWD``); so does
   ``hier_onepass_cuda`` with K9's, ``csrc/hier_onepass_f32.cu``, on the
@@ -144,12 +143,13 @@ PLAIN_TOL_F32 = {"rgb": 3e-6, "acc": 5e-6, "weights": 1e-6, "depth": 1e-5,
                  "field_rgb": 3e-6, "field_sigma": 1e-6, "z_vals": 0.0}
 
 # The f32 variants of K3, K4, K6 and K7 (use_bf16=False,
-# csrc/field_bwd_f32.cuh) against their plain versions in f32 on the same
-# inputs, TF32 off on the card; keys as PLAIN_TOL's.  Nothing rounds below
-# f32 in either: the gradients differ by the order of their f32 sums (over
-# up to 65,536 rows here) and by the forward's ~1-ulp differences
-# (PLAIN_TOL_F32), which a relu gate or the composite can carry into a
-# row's cotangents.  Expected: each gradient's relative Frobenius error
+# csrc/field_bwd_f32_sm90.cuh: 3xTF32 products on the relu gates of an f32
+# gate pass) against their plain versions in f32 on the same inputs, TF32
+# off on the card; keys as PLAIN_TOL's.  Nothing rounds below f32 in either
+# (3xTF32 keeps each product to ~2^-22): the gradients differ by the order
+# of their f32 sums (over up to 65,536 rows here) and by the forward's
+# ~1-ulp differences (PLAIN_TOL_F32), which a relu gate or the composite
+# can carry into a row's cotangents.  Expected: each gradient's relative Frobenius error
 # near 1e-6 (limit 1e-4), demb under O(1) cotangents (values up to ~1) near
 # 1e-7 (1e-5), K6's g_field (values up to ~0.3) near 3e-8 (3e-6); under the
 # MSE's 2 / (3 R) (values near 1e-5 at R = 1024, 1e-3 at 37 rays) demb and
@@ -158,9 +158,12 @@ PLAIN_TOL_F32 = {"rgb": 3e-6, "acc": 5e-6, "weights": 1e-6, "depth": 1e-5,
 # bf16 kernels' errors against the same f32 plain outputs (grad_rel ~1e-3 to
 # 1e-2, PLAIN_TOL) stay far above them, and chip_smoke.py asks each f32
 # kernel's error to be F32_GAIN (16) times below the bf16 kernel's.  On the
-# H100 the four sit at grad_rel 6e-7 to 1.3e-5, demb 7.5e-8, K6's g_field
-# 8.1e-8, demb and g_field under the MSE 1.1e-10, the loss 1.5e-8.  One
-# thing the limits do not cover: a relu gate whose pre-activation is within
+# H100 the four sat on their first, FFMA tile at grad_rel 6e-7 to 1.3e-5,
+# demb 7.5e-8, K6's g_field 8.1e-8, demb and g_field under the MSE 1.1e-10,
+# the loss 1.5e-8; on the 3xTF32 tile (the tensor cores' truncating sums)
+# K3 and K4 at grad_rel 1.3e-5 to 8.6e-5, K6 and K7 at 1.2e-5 to 2.0e-5,
+# K6's demb 4.5e-8 and g_field 1.4e-7, K7's demb 2.3e-10 and loss 6.7e-8.
+# One thing the limits do not cover: a relu gate whose pre-activation is within
 # an f32 rounding of 0 flips between two f32 evaluations of the same
 # function, and moves a 37-ray batch's gradients by up to ~5e-3 (the time
 # model at 37 rays on the H100: the plain version on the card against the

@@ -16,15 +16,17 @@ evaluation, K1 also with time (``k1_t``), K1 and K8 also at the 65,536 rows
 of its coarse one (``k1_65536``, ``k8_65536``); the f32 configuration
 (use_bf16=False) of K2 (want_field) and K5 on the chunk (``k2_f32``,
 ``k5_f32``) and of K2 at the 1024-ray batch (``k2_f32_1024``), each also
-with time (``..._t``); of K3 (with g_field) and K4 at the batch
-(``k3_f32``, ``k4_f32``; with time ``..._t``) and at 8,192 rays
-(``k3_f32_8192``, ``k4_f32_8192``); of K8 at the 131,072 and 65,536 rows
+with time (``..._t``); of K3 (with g_field), K4, K6 (every cotangent) and
+K7 at the batch (``k3_f32``, ``k4_f32``, ``k6_f32``, ``k7_f32``; with time
+``..._t``) and at 8,192 rays (``k3_f32_8192``, ``k4_f32_8192``,
+``k6_f32_8192``, ``k7_f32_8192``); of K8 at the 131,072 and 65,536 rows
 (``k8_f32``, ``k8_f32_65536``) and K9 at the batch (``k9_f32``), each also
 with time (``..._t``); and the f32 training steps at the batch, chained as
 ``train`` runs them (ms a step, the median of 20 replays of 10 steps,
-chip_smoke.py's step_timing): 64 + 64 (``step_f32_hier``), per sample
-(``step_f32_per_sample``: two K1 and two K8) and in one kernel
-(``step_f32_onepass``: one K9).
+chip_smoke.py's step_timing): 64 + 64 (``step_f32_hier``), coarse-only
+(``step_f32_coarse``: one K7), white background (``step_f32_white``: K2,
+K5, K6, K3), per sample (``step_f32_per_sample``: two K1 and two K8) and
+in one kernel (``step_f32_onepass``: one K9).
 
     python3 kernel_ab.py --ablate NAME [--rounds 1]
 
@@ -37,7 +39,8 @@ forward and transposed chain, which take the same slices), and, of the f32
 K3 and K4 (``csrc/field_bwd_f32_sm90.cuh``), ``chain_stream``, the TMA
 loads of the transposed chain's weights, or ``dw_products``, the tensor-core
 products of their wgmma dW pass.  The copy's f32 outputs are wrong; only
-its times mean something: how far that part holds the tile.
+its times mean something: how far that part holds the tile (the f32 K6
+and K7 run on the same tiles as K3 and K4).
 Prints one
 JSON line per process and, last, the medians per tree and their ratio
 (this / base) per kernel.  Needs a GPU; exits non-zero without one.
@@ -205,8 +208,8 @@ def _time_kernels(iters):
                                 iters)
         out["k2_f32_1024_t"] = ms(lambda: fr.march_cuda(p32_t, c32_t, o, d, emb, z, t,
                                                         want_field=True), iters)
-        # the f32 K3 and K4, without and with time, at their f32 K2's field
-        # and fine depths; the f32 K9
+        # the f32 K3, K4, K6 and K7, without and with time, at their f32
+        # K2's field and fine depths; the f32 K9
         for key, cc, pp, tt in (("", c32, p32, None), ("_t", c32_t, p32_t, t)):
             f32_coarse = fr.march_cuda(pp, cc, o, d, emb, z, tt, want_field=True)
             zf32 = sample_pdf(z, f32_coarse["weights"], sf, True, rand=g)
@@ -214,9 +217,13 @@ def _time_kernels(iters):
                                                                t=tt), iters)
             out["k4_f32" + key] = ms(lambda: fr.merged_train_cuda(
                 pp, cc, o, d, emb, z, f32_coarse["field"], zf32, target, tt), iters)
+            out["k6_f32" + key] = ms(lambda: fr.merged_bwd_cuda(
+                pp, cc, o, d, emb, z, f32_coarse["field"], zf32, *c6, t=tt), iters)
+            out["k7_f32" + key] = ms(lambda: fr.march_train_cuda(pp, cc, o, d, emb, z, target, tt),
+                                     iters)
             out["k9_f32" + key] = ms(lambda: fr.hier_onepass_cuda(pp, cc, o, d, emb, z, u, target,
                                                                   tt), iters)
-    # the f32 K3 and K4 at 8,192 rays
+    # the f32 K3, K4, K6 and K7 at 8,192 rays
     n = 8192
     o, d, emb, z, g = rays(n, 35, sc)
     f32_coarse = fr.march_cuda(p32, c32, o, d, emb, z, want_field=True)
@@ -231,7 +238,13 @@ def _time_kernels(iters):
     out["k4_f32_8192"] = ms(lambda: fr.merged_train_cuda(p32, c32, o, d, emb, z,
                                                          f32_coarse["field"], zf32, target),
                             max(2, iters // 4))
-    del o, d, emb, z, cot, target, f32_coarse, zf32
+    c6 = cot[:3] + (0.1 * torch.randn(n, sc + sf, generator=g, device=dev),)
+    out["k6_f32_8192"] = ms(lambda: fr.merged_bwd_cuda(p32, c32, o, d, emb, z,
+                                                       f32_coarse["field"], zf32, *c6),
+                            max(2, iters // 4))
+    out["k7_f32_8192"] = ms(lambda: fr.march_train_cuda(p32, c32, o, d, emb, z, target),
+                            max(2, iters // 4))
+    del o, d, emb, z, cot, c6, target, f32_coarse, zf32
     for key, seed, s in (("", 34, sc + sf), ("_65536", 33, sc)):
         o, d, emb, z, g = rays(cfg.batch_size, seed, s)
         rep = lambda t: t[:, None, :].expand(-1, s, -1).reshape(-1, t.shape[-1]).contiguous()
@@ -255,7 +268,9 @@ def _time_kernels(iters):
     # the f32 steps at the batch, chained (the tree's chip_smoke.py)
     import chip_smoke
 
-    for key, over in (("step_f32_hier", {}), ("step_f32_per_sample", {"use_fused_train": False}),
+    for key, over in (("step_f32_hier", {}), ("step_f32_coarse", {"num_importance": 0}),
+                      ("step_f32_white", {"white_background": True}),
+                      ("step_f32_per_sample", {"use_fused_train": False}),
                       ("step_f32_onepass", {"use_hier_onepass": True})):
         out[key] = chip_smoke.step_timing(c32.replace(**over), dev, {}, (), profile=False)[
             "chained_ms_per_step_median"]

@@ -322,12 +322,9 @@ def test_merged_bwd_kernel_at_every_tile_shape(dev, sc, sf, appearance, cot, use
     assert float((fk - fp).abs().max()) <= TOL["g_field_k6"]
 
 
-def test_backward_tile_refuses_what_it_always_refused(dev):
-    """The shapes K3, K7, K4 and K6 refuse stay refused: S or Sf past a tile
-    or below one sample, Sc + Sf past 256, and the merge arrays of K4 and
-    K6 past their limit (8 rays of Sf = 16 at Sc = 126; Sc = 125 is
-    taken)."""
+def _refuses_what_it_always_refused(dev, use_bf16):
     cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, 129, 9, False)
+    cfg = cfg.replace(use_bf16=use_bf16)
     packed = pack_params(model, cfg)
     target = torch.rand(37, 3, generator=g, device=dev)
     for zs in (z, z[:, :0]):
@@ -351,6 +348,20 @@ def test_backward_tile_refuses_what_it_always_refused(dev):
             with pytest.raises(RuntimeError, match="a width this kernel does not take"):
                 merged(kern, sc, sf)
         assert merged(kern, 125, 16).shape == (37, 4, 125)
+
+
+def test_backward_tile_refuses_what_it_always_refused(dev):
+    """The shapes K3, K7, K4 and K6 refuse stay refused: S or Sf past a tile
+    or below one sample, Sc + Sf past 256, and the merge arrays of K4 and
+    K6 past their limit (8 rays of Sf = 16 at Sc = 126; Sc = 125 is
+    taken)."""
+    _refuses_what_it_always_refused(dev, True)
+
+
+def test_f32_backward_tile_refuses_what_it_always_refused(dev):
+    """The f32 K3, K7, K4 and K6 (field_bwd_f32_sm90.cuh) refuse the shapes
+    their bf16 kernels refuse, and take Sc = 125 at Sf = 16."""
+    _refuses_what_it_always_refused(dev, False)
 
 
 @pytest.mark.parametrize("over,want", [
@@ -1341,7 +1352,8 @@ def test_march_bwd_f32_kernel_null_cotangents_give_zeros(dev):
 @pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
 @pytest.mark.parametrize("s", [32, 48, 64, 100, 128])
 def test_march_train_f32_kernel_matches_plain(dev, s, use_time):
-    """K7's f32 variant at 37 rays, seeded targets."""
+    """K7's f32 variant (csrc/march_train_f32.cu on field_bwd_f32_sm90.cuh)
+    at 37 rays of 1 to 4 a 128-row tile, seeded targets."""
     cfg, model, o, d, emb, z, t, g = _ray_inputs(dev, 37, s, 140 + s, use_time)
     c32, pk, pk16 = _packs32(cfg, model)
     target = torch.rand(37, 3, generator=g, device=dev)
@@ -1387,34 +1399,50 @@ def test_merged_train_f32_kernel_matches_plain(dev, sc, sf, use_time):
             lambda: plain(_cpu_plain(fr.merged_train_plain, model, c32, *args, target, t)))
 
 
+@pytest.mark.parametrize("pair", ["K3_K4", "K7_K6"])
 @pytest.mark.parametrize("n", [4093, 8192])
-def test_tf32_k3_k4_agree_bit_for_bit_over_passes(dev, n):
-    """The f32 K3 and K4 (field_bwd_f32_sm90.cuh) at 4,093 rays of 64 + 64
-    (two passes of the stash, the last tile ragged) and 8,192 (four passes):
-    two calls give bit-identical gradients, demb, K4's loss and g_field,
-    and the loss and g_field stay within PLAIN_TOL_F32_BWD of the plain
-    version's (the gradients are held at 37 to 1024 rays above)."""
+def test_tf32_k3_k4_agree_bit_for_bit_over_passes(dev, n, pair):
+    """The f32 K3 and K4, and K7 and K6 (field_bwd_f32_sm90.cuh), at 4,093
+    rays of 64 + 64 (two passes of the stash, the last tile ragged) and
+    8,192 (four passes): two calls give bit-identical gradients, demb, the
+    loss (K4, K7) and g_field (K4, K6), and the loss and g_field stay
+    within PLAIN_TOL_F32_BWD of the plain version's (the gradients are held
+    at 37 to 1024 rays above)."""
     cfg = NeRFConfig(density_bias_init=0.5)
     c32 = cfg.replace(use_bf16=False)
     model = NeRF(c32, torch.Generator().manual_seed(7)).to(dev).requires_grad_(False)
     pk = pack_params(model, c32)
     _, _, o, d, emb, z, g = _inputs(dev, n=n, seed=11)
     *cots, g_field = _cotangents(g, n, z.shape[-1], dev)
-    k3 = [fr.march_bwd_cuda(pk, c32, o, d, emb, z, *cots, g_field) for _ in range(2)]
     coarse = fr.march_cuda(pk, c32, o, d, emb, z, want_field=True)
     z_f = sample_pdf(z, coarse["weights"], 64, True, rand=g)
     target = torch.rand(n, 3, generator=g, device=dev)
-    k4 = [fr.merged_train_cuda(pk, c32, o, d, emb, z, coarse["field"], z_f, target)
-          for _ in range(2)]
+    if pair == "K3_K4":
+        merged = (o, d, emb, z, coarse["field"], z_f, target)
+
+        def run():  # grads, demb; loss, grads, demb, g_field
+            return (*fr.march_bwd_cuda(pk, c32, o, d, emb, z, *cots, g_field),
+                    *fr.merged_train_cuda(pk, c32, *merged))
+        loss_p, _, _, field_p = fr.merged_train_plain(pk, c32, *merged)
+        at_loss, field_tol = 2, TOL32B["g_field"]
+    else:
+        merged = (o, d, emb, z, coarse["field"], z_f, *cots[:3],
+                  0.1 * torch.randn(n, 128, generator=g, device=dev))
+
+        def run():  # loss, grads, demb; grads, demb, g_field
+            return (*fr.march_train_cuda(pk, c32, o, d, emb, z, target),
+                    *fr.merged_bwd_cuda(pk, c32, *merged))
+        loss_p = fr.march_train_plain(pk, c32, o, d, emb, z, target)[0]
+        field_p = fr.merged_bwd_plain(pk, c32, *merged)[2]
+        at_loss, field_tol = 0, TOL32B["g_field_k6"]
+
+    def flat(outs):
+        return [t for x in outs for t in ((x.mats, x.vecs) if hasattr(x, "mats") else (x,))]
+    a, b = run(), run()
     torch.cuda.synchronize()
-    for a, b in ((k3[0][0], k3[1][0]), (k4[0][1], k4[1][1])):
-        assert torch.equal(a.mats, b.mats) and torch.equal(a.vecs, b.vecs)
-    assert torch.equal(k3[0][1], k3[1][1])
-    for a, b in zip(k4[0][::2], k4[1][::2]):
-        assert torch.equal(a, b)
-    lp, _, _, fp = fr.merged_train_plain(pk, c32, o, d, emb, z, coarse["field"], z_f, target)
-    assert abs(float(k4[0][0]) - float(lp)) <= TOL32B["loss"]
-    assert float((k4[0][3] - fp).abs().max()) <= TOL32B["g_field"]
+    assert all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+    assert abs(float(a[at_loss]) - float(loss_p)) <= TOL32B["loss"]
+    assert float((a[5] - field_p).abs().max()) <= field_tol
 
 
 def test_f32_hier_step_launches_k2_k4_k3_once(dev, monkeypatch):
@@ -1452,9 +1480,10 @@ def test_f32_hier_step_launches_k2_k4_k3_once(dev, monkeypatch):
 @pytest.mark.parametrize("cot", ["all", "white"])
 @pytest.mark.parametrize("sc,sf", [(64, 64), (64, 16), (64, 48), (128, 128)])
 def test_merged_bwd_f32_kernel_matches_plain(dev, sc, sf, cot, use_time):
-    """K6's f32 variant at 37 rays at each merged shape with a coarse/fine
-    tie, under every cotangent and the white-background pattern (g_rgb,
-    g_acc)."""
+    """K6's f32 variant (csrc/merged_bwd_f32.cu on field_bwd_f32_sm90.cuh)
+    at 37 rays at each merged shape with a coarse/fine tie, under every
+    cotangent (g_w in merged order) and the white-background pattern
+    (g_rgb, g_acc)."""
     cfg, model, c32, pk, pk16, (o, d, emb, z, field, z_f), t, g = _merged32(
         dev, sc, sf, 180 + sf, use_time)
     z_f = z_f.clone()

@@ -162,12 +162,11 @@ def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
     """The forward kernels (K1, K2, K5) and the backward kernels (K3, K4,
     K6, K7, K8, K9) take both configurations, each on its own library and
     weights: without use_bf16 the f32 K2 and K5 read the packed f32 weights
-    and their TF32 halves, the f32 K1 the weights transposed, the f32 K3,
-    K4, K8 and K9 the packed f32 weights with their TF32 halves for the
-    forward, the weights transposed for their gate pass and the transposed
-    weights' TF32 halves for the chain, and the f32 K6 and K7 the weights
-    transposed for the forward and as packed, (out, K) f32, for the
-    transposed chain, with each chain block's own offset."""
+    and their TF32 halves, the f32 K1 the weights transposed, and every
+    f32 backward kernel (K3, K4, K6, K7, K8, K9) the packed f32 weights
+    with their TF32 halves for the forward, the weights transposed for its
+    gate pass and the transposed weights' TF32 halves for the chain, with
+    each chain block's own offset."""
     from danerf_tpu_torch.kernels import _build
     from danerf_tpu_torch.kernels.fused_mlp import bwd_weights, fwd_weights, transposed_mats
     from danerf_tpu_torch.models.nerf import NeRF
@@ -192,20 +191,19 @@ def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
                  "hier_onepass"):
         lib, mats, mats_t, offs = bwd_weights(packed, cfg, name)
         assert lib == (name if use_bf16 else f"{name}_f32")
-        tf32 = not use_bf16 and name in ("march_bwd", "merged_train", "mlp_bwd", "hier_onepass")
+        tf32 = not use_bf16 and name in ("march_bwd", "merged_train", "merged_bwd",
+                                         "march_train", "mlp_bwd", "hier_onepass")
         if use_bf16:
             want_t, want_offs = transposed_mats(packed, cfg)
             assert len(mats) == 1 and len(mats_t) == 1
             assert mats[0] is packed.mats and torch.equal(mats_t[0], want_t)
             assert offs == want_offs
-        elif tf32:
+        else:
+            assert tf32
             assert mats[0] is packed.mats and mats[0].dtype == torch.float32
             assert [m.data_ptr() for m in mats[1:3]] == [h.data_ptr() for h in packed.mats_tf32]
             assert len(mats) == 4 and mats[3] is packed.mats_kn
             assert [m.data_ptr() for m in mats_t] == [h.data_ptr() for h in packed.mats_kn_tf32]
-        else:
-            assert mats == (packed.mats_kn,) and mats_t == (packed.mats,)
-            assert mats_t[0].dtype == torch.float32
         if not use_bf16:
             assert offs == (-1, *(packed.mat_at[f"w{i}"][0] for i in range(1, cfg.num_layers)),
                             packed.mat_at["wdir"][0], packed.mat_at["wapp"][0])
@@ -216,8 +214,7 @@ def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
         if not use_bf16:  # the f32 stash's size; K9's holds two row sets a tile
             assert _build.SCRATCH_FN[lib] == ("danerf_hier_onepass_f32_scratch_bytes"
                                               if name == "hier_onepass"
-                                              else "danerf_bwd_tf32_scratch_bytes" if tf32
-                                              else "danerf_bwd_f32_scratch_bytes")
+                                              else "danerf_bwd_tf32_scratch_bytes")
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K4", "K6", "K7", "K8", "K9"])

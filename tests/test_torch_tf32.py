@@ -4,8 +4,9 @@ The f32 serving kernels (``csrc/march_f32.cu``, ``csrc/merged_f32.cu`` on
 ``csrc/field_f32_sm90.cuh``) form every trunk and dir-layer product from
 operands split into two TF32 halves, hi = rna_tf32(x) and lo =
 rna_tf32(x - hi), as a_lo b_hi + a_hi b_lo + a_hi b_hi with f32 sums; so
-do the f32 K3, K4, K8 and K9 (``csrc/march_bwd_f32.cu``,
-``csrc/merged_train_f32.cu``, ``csrc/mlp_bwd_f32.cu``,
+do the f32 K3, K4, K6, K7, K8 and K9 (``csrc/march_bwd_f32.cu``,
+``csrc/merged_train_f32.cu``, ``csrc/merged_bwd_f32.cu``,
+``csrc/march_train_f32.cu``, ``csrc/mlp_bwd_f32.cu``,
 ``csrc/hier_onepass_f32.cu`` on ``csrc/field_bwd_f32_sm90.cuh``) for the
 forward, the transposed chain's d_pre @ W[:, :hidden] and the dW of each
 layer's hidden input.  The weights are split on the host
@@ -30,7 +31,8 @@ from danerf_tpu.config import NeRFConfig as JaxConfig
 from danerf_tpu.kernels import fused_nerf_apply as j_fused_nerf_apply
 from danerf_tpu.kernels.fused_render import (fused_hier_onepass_train,
                                              fused_hier_train_loss_grads,
-                                             fused_render_rays_coarse_field)
+                                             fused_render_rays_coarse_field,
+                                             fused_render_rays_merged, fused_train_loss_grads)
 from danerf_tpu.models import init_nerf_params
 from danerf_tpu_torch.config import NeRFConfig
 from danerf_tpu_torch.kernels import fused_mlp as fm
@@ -284,8 +286,8 @@ def _field_bwd_3xtf32(cfg, packed, res, emb, g_rgb, g_sigma):
 
 
 def _emulate_3xtf32(monkeypatch, packed):
-    """Route the plain versions' field and backward through the f32 K3, K4,
-    K8 and K9 tile's numerics: the forward's trunk and dir-layer products by
+    """Route the plain versions' field and backward through the f32
+    backward tile's numerics (K3, K4, K6-K9): the forward's trunk and dir-layer products by
     3xTF32 (_field_3xtf32), the backward (_field_bwd_3xtf32) on the relu
     gates of an f32 forward of the same rows (the tile's gate pass; the
     sigma gate under relu too), which the forward's outputs here do not take
@@ -344,15 +346,17 @@ def _rows_of(o, d, emb, z, t):
 
 
 @pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
-@pytest.mark.parametrize("kernel", ["K3", "K4", "K8", "K9"])
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K6", "K7", "K8", "K9"])
 def test_3xtf32_backward_predicts_f32_accuracy(monkeypatch, kernel, use_time):
-    """A CPU prediction of the f32 K3, K4, K8 and K9's numerics: their
-    plain versions with every forward, chain and dW product the tile forms
-    on the tensor cores formed by 3xTF32 (``_emulate_3xtf32``), at the
-    kernels' width (8 x 256, 16 rays of 64 samples; K4 and K9 at 64 + 64; K8
-    at their 1,024 rows), land within PLAIN_TOL_F32_BWD of the f32 plain
-    versions (each gradient's relative error, K9's within grad_rel_k9; K3's
-    and K8's demb; K4's loss, demb and g_field; K9's two losses and demb),
+    """A CPU prediction of the f32 K3, K4, K6, K7, K8 and K9's numerics:
+    their plain versions with every forward, chain and dW product the tile
+    forms on the tensor cores formed by 3xTF32 (``_emulate_3xtf32``), at
+    the kernels' width (8 x 256, 16 rays of 64 samples; K4, K6 and K9 at 64
+    + 64; K8 at their 1,024 rows), land within PLAIN_TOL_F32_BWD of the f32
+    plain versions (each gradient's relative error, K9's within
+    grad_rel_k9; K3's and K8's demb; K4's loss, demb and g_field; K6's demb
+    and g_field under every cotangent, g_w included; K7's loss and demb;
+    K9's two losses and demb),
     and the bf16 plain versions' error against the same outputs is at least
     F32_GAIN times larger (gradients and demb, as tests/test_torch_cuda.py
     _held32 takes it).  The relu gates are an f32 forward's, as the tile's
@@ -393,6 +397,22 @@ def test_3xtf32_backward_predicts_f32_accuracy(monkeypatch, kernel, use_time):
         def run(p, c):
             grads, demb = fr.march_bwd_plain(p, c, o, d, emb, z, *cot, t=t)
             return grads, {"demb": demb}
+    elif kernel == "K7":
+        target = torch.rand(n, 3, generator=g)
+
+        def run(p, c):
+            loss, grads, demb = fr.march_train_plain(p, c, o, d, emb, z, target, t)
+            return grads, {"loss": loss, "demb_k4": demb}
+    elif kernel == "K6":
+        coarse = fr.march_plain(pk, cfg, o, d, emb, z, t, want_field=True)
+        z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
+        cot = (torch.randn(n, 3, generator=g), torch.randn(n, generator=g),
+               torch.randn(n, generator=g), 0.1 * torch.randn(n, sc + sf, generator=g))
+        args = (o, d, emb, z, coarse["field"], z_f, *cot)
+
+        def run(p, c):
+            grads, demb, g_field = fr.merged_bwd_plain(p, c, *args, t=t)
+            return grads, {"demb": demb, "g_field_k6": g_field}
     else:
         coarse = fr.march_plain(pk, cfg, o, d, emb, z, t, want_field=True)
         z_f = sample_pdf(z, coarse["weights"], sf, True, rand=g)
@@ -437,18 +457,23 @@ def _assert_leaves(got, want, what):
         np.testing.assert_allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=f"{what} {i}")
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K4", "K8", "K8_time", "K9", "K9_time"])
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K6", "K6_time", "K7", "K8", "K8_time", "K9",
+                                    "K9_time"])
 def test_3xtf32_backward_matches_jax(monkeypatch, kernel):
-    """The 3xTF32-emulated backward of K3, K4, K8 and K9 (as above)
-    against the JAX package's f32 kernels in interpret mode: K3 against
-    jax.vjp of fused_render_rays_coarse_field (``_march_bwd_call``,
+    """The 3xTF32-emulated backward of K3, K4, K6, K7, K8 and K9 (as
+    above) against the JAX package's f32 kernels in interpret mode: K3
+    against jax.vjp of fused_render_rays_coarse_field (``_march_bwd_call``,
     want_field, every cotangent non-zero), K4 against
-    fused_hier_train_loss_grads (``_merged_train_pallas``), K8 against
+    fused_hier_train_loss_grads (``_merged_train_pallas``), K6 against
+    jax.vjp of fused_render_rays_merged (``_hier_vjp_bwd``) under non-zero
+    cotangents of rgb, depth, acc and the merged weights, with g_field as
+    the coarse field's cotangent, K7 against fused_train_loss_grads
+    (``_train_pallas``), K8 against
     jax.vjp of fused_nerf_apply (``_fused_vjp_bwd``) at the rays' 20 x 16
     sample rows under random cotangents of rgb and sigma, K9 against
     fused_hier_onepass_train (``_hier_onepass_pallas``, which draws its
-    importance depths from its own coarse weights), K8 and K9 also with time
-    (3 time levels), use_bf16=False, at a small size (hidden 64, 4 layers,
+    importance depths from its own coarse weights), K6, K8 and K9 also with
+    time (3 time levels), use_bf16=False, at a small size (hidden 64, 4 layers,
     skip at 2, 20 rays of 16 + 8 samples, seeded numpy inputs).  Each
     gradient leaf within rtol 1e-4 + atol 2e-5 (the f32 limits of
     tests/test_torch_train.py: the two packages sum in other orders), demb
@@ -493,6 +518,29 @@ def test_3xtf32_backward_matches_jax(monkeypatch, kernel):
             None if t is None else torch.tensor(t))
         np.testing.assert_allclose(float(loss_f), float(j_f), rtol=1e-6)
         np.testing.assert_allclose(float(loss_c), float(j_c), rtol=1e-6)
+    elif kernel == "K7":
+        target = rng.random((n, 3)).astype(np.float32)
+        j_loss, j_grads, j_demb = fused_train_loss_grads(params, jcfg, o, d, z, target, emb)
+        loss, grads, demb = fr.march_train_plain(pk, cfg, *tt, torch.tensor(target))
+        np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-6)
+    elif kernel == "K6":
+        jt = None if t is None else jnp.asarray(t)
+        field = np.asarray(fused_render_rays_coarse_field(params, jcfg, o, d, z, emb,
+                                                          t=jt)["field"])
+        zf = np.sort(rng.uniform(2.0, 6.0, size=(n, sf)).astype(np.float32), axis=-1)
+        cot = {"rgb": rng.normal(size=(n, 3)), "depth": rng.normal(size=n),
+               "acc": rng.normal(size=n), "weights": rng.normal(size=(n, sc + sf)) * 0.3,
+               "z_vals": np.zeros((n, sc + sf))}
+        cot = {k: v.astype(np.float32) for k, v in cot.items()}
+        _, vjp = jax.vjp(lambda p, e, f: fused_render_rays_merged(p, jcfg, o, d, z, f, zf, e,
+                                                                  t=jt),
+                         params, jnp.asarray(emb), jnp.asarray(field))
+        j_grads, j_demb, j_gf = vjp({k: jnp.asarray(v) for k, v in cot.items()})
+        grads, demb, gf = fr.merged_bwd_plain(
+            pk, cfg, *tt, torch.tensor(field), torch.tensor(zf),
+            *(torch.tensor(cot[k]) for k in ("rgb", "depth", "acc", "weights")),
+            t=None if t is None else torch.tensor(t))
+        np.testing.assert_allclose(gf.numpy(), np.asarray(j_gf), atol=GRAD_ATOL, rtol=0)
     elif kernel == "K3":
         cot = {"rgb": rng.normal(size=(n, 3)), "depth": rng.normal(size=n),
                "acc": rng.normal(size=n), "weights": rng.normal(size=(n, sc)) * 0.3,
