@@ -67,9 +67,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             uniforms from importance_uniforms); both MSEs, every gradient
             and demb; two calls agree bit for bit.
 4d. f32_kernels  the f32 configuration (use_bf16=False) of the forward
-            kernels, K2 and K5 on csrc/field_f32_sm90.cuh (3xTF32 wgmma)
-            and K1 on csrc/field_f32.cuh (FFMA), with and
-            without time, against their f32 plain versions (TF32 off, the
+            kernels, K2, K5 and K1 on csrc/field_f32_sm90.cuh (3xTF32
+            wgmma; K1 on its row tiles), with and without time, against their f32 plain versions (TF32 off, the
             flags printed) within fused_render.PLAIN_TOL_F32 at the shapes
             tile_shapes takes and up to a 65,536-ray chunk and 131,072 rows;
             beside each the bf16 kernel's error against the same f32 plain
@@ -82,7 +81,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             chunk (K1 at 131,072 rows), with and without time, beside their
             bounds: K2 and K5 at TF32's dense rate, three products a MAC
             (also FP32's FFMA bound and the GB of weights each streams from
-            L2), K1 at FP32's 67 TFLOP/s; then where the f32 and bf16
+            L2), K1 at the same two; then where the f32 and bf16
             frames' time goes outside the kernels: render_frame alone (its
             host issue time and its ms to the device's end), the PNG and
             npy writes render_path adds, pack_params, and the host time of
@@ -121,12 +120,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             PLAIN_TOL_F32_BWD's loss and step_grad_rel, the parameters after
             one Adam step); 10 chained f32 steps against 10 eager ones bit
             for bit on 64 + 64, coarse-only, white background, per sample
-            and in one kernel;
-            train() for
-            100 f32 steps of 64 + 64 (one f32 K2, K4, K3 a step, a rising
-            PSNR, a checkpoint); evaluate() with the embedding fit on its
-            checkpoint (2 100x100 views, each fit step an f32 K2, K5, K6,
-            K3), each view within 0.1 dB PSNR of the plain route on the card.
+            and in one kernel; train() for 100 f32 steps of 64 + 64 (one
+            f32 K2, K4, K3 a step) and 100 per sample (two f32 K1, two f32
+            K8 a step), each with a rising PSNR and a checkpoint;
+            evaluate() with the embedding fit on the 64 + 64 checkpoint
+            (2 100x100 views, each fit step an f32 K2, K5, K6, K3), each
+            view within 0.1 dB PSNR of the plain route on the card.
 5. step     one training step at B = 1024 on each training path (64 + 64;
             coarse only, num_importance=0; 64 + 64 on a white background;
             64 + 64 per sample, use_fused_train=False; 64 + 64 with
@@ -153,7 +152,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             20) against 20 steps, a resume and 20 more (the final
             checkpoints and the rows of steps 21-40).
 7. train    the training paths through `cli.main train` on the procedural
-            scene (5 warm-up steps of 64 rays, then 1024, 10 steps a call:
+            scene (its static form rendered once and loaded from the PNGs
+            of its nerf_synthetic layout, scene_path; the time-varying
+            form rendered by each run; 5 warm-up steps of 64 rays, then
+            1024, 10 steps a call:
             one graph replay a full chunk), launch counts zeroed just before
             each run: 200 steps of 64 + 64 with --checkpoint_every 100
             (exactly one K2, K4 and K3 launch a step, plus one K2 and one
@@ -581,10 +583,10 @@ def phase_build(out_dir):
     res = {n: ptxas_resources(log) for n, log in logs.items()}
     for n in ("march", "merged", "mlp_fwd", "march_f32", "merged_f32", "mlp_fwd_f32"):
         res[n]["dynamic_smem"] = int(_build.load(n).danerf_tile_smem_bytes())
-    # the f32 K2, K5 (csrc/field_f32_sm90.cuh), K3, K4, K6-K9 (csrc/
+    # the f32 K1, K2, K5 (csrc/field_f32_sm90.cuh), K3, K4, K6-K9 (csrc/
     # field_bwd_f32_sm90.cuh): their TF32 wgmma in SASS
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for n in ("march_f32", "merged_f32") + TF32_BWD_LIBS:
+    for n in ("march_f32", "merged_f32", "mlp_fwd_f32") + TF32_BWD_LIBS:
         if os.path.exists(cuobjdump):
             sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(n))],
                                   capture_output=True, text=True, timeout=120).stdout
@@ -701,11 +703,12 @@ def refusals(cfg, packed, device):
     """The shapes the backward tile's kernels refuse: K3 and K7 at S = 129;
     K4 and K6 at Sc + Sf = 64 + 129, 200 + 64 and where the merge arrays
     pass their limit (126 + 16), as on the old tile, while 125 + 16 is
-    taken; and S or Sf = 0, which the old tile divided by; K8 with an
-    embedding of 24 (its appearance product steps K by 16; the f32 K8,
-    row_app4, takes it); K9 at Sc + Sf = 129 + 64, 64 + 129, 0 + 64 and
-    64 + 0, as on its first tile.  In f32 (cfg.use_bf16 off) the same, on
-    the f32 kernels.  Returns what went otherwise."""
+    taken; and S or Sf = 0, which the old tile divided by; K8 and K1 with
+    an embedding of 24 (their appearance products step K by 16; the f32
+    K8 and K1, row_app4, take it) and of 6 (row_app4 steps K by 4); K9 at
+    Sc + Sf = 129 + 64, 64 + 129, 0 + 64 and 64 + 0, as on its first tile.
+    In f32 (cfg.use_bf16 off) the same, on the f32 kernels.  Returns what
+    went otherwise."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_mlp as fm
@@ -731,17 +734,21 @@ def refusals(cfg, packed, device):
         args = (packed, cfg, o, d, emb, zc, fc, zf)
         calls[f"K4@{sc}+{sf}"] = lambda a=args: fr.merged_train_cuda(*a, target)
         calls[f"K6@{sc}+{sf}"] = lambda a=args: fr.merged_bwd_cuda(*a, target, None, None, None)
-    cfg24 = cfg.replace(appearance_dim=24)
     x, dr, _ = sample_rows(1, cfg, 96, device, n)
-    calls["K8@E24"] = lambda: fm.fused_bwd_cuda(
-        pack_params(make_model(cfg24, 0, device), cfg24), cfg24, x, dr,
-        torch.randn(n, 24, generator=g, device=device), target, target[:, :1])
+    for e in (24, 6):
+        ce = cfg.replace(appearance_dim=e)
+        pe, emb_e = pack_params(make_model(ce, 0, device), ce), torch.randn(
+            n, e, generator=g, device=device)
+        calls[f"K8@E{e}"] = lambda ce=ce, pe=pe, emb_e=emb_e: fm.fused_bwd_cuda(
+            pe, ce, x, dr, emb_e, target, target[:, :1])
+        calls[f"K1@E{e}"] = lambda ce=ce, pe=pe, emb_e=emb_e: fm.fused_fwd_cuda(
+            pe, ce, x, dr, emb_e)
     for sc, sf in ((129, 64), (64, 129), (0, 64), (64, 0)):
         u = importance_uniforms((n,), sf, True, rand=g, device=device)
         calls[f"K9@{sc}+{sf}"] = lambda zc=z[:, :sc].contiguous(), u=u: fr.hier_onepass_cuda(
             packed, cfg, o, d, emb, zc, u, target)
     for name, call in calls.items():
-        taken = name.endswith("125+16") or (name == "K8@E24" and not cfg.use_bf16)
+        taken = name.endswith("125+16") or (name.endswith("@E24") and not cfg.use_bf16)
         try:
             call()
             torch.cuda.synchronize()
@@ -1390,8 +1397,8 @@ F32_GAIN = 16.0
 
 
 def phase_f32_kernels(cfg, model, cfg_t, model_t, device):
-    """The f32 variants (use_bf16=False) of K2 and K5 (csrc/field_f32_sm90.cuh,
-    3xTF32) and K1 (csrc/field_f32.cuh), without and with time, against their f32 plain versions on the card
+    """The f32 variants (use_bf16=False) of K2, K5 and K1 (csrc/field_f32_sm90.cuh,
+    3xTF32), without and with time, against their f32 plain versions on the card
     (TF32 off, the flags printed) within fused_render.PLAIN_TOL_F32, at the
     shapes tile_shapes holds the bf16 kernels to and up to a chunk: K2 at 37
     rays x 64 and 4093 rays x S = 32, 48, 64, 100, 128 with and without its
@@ -1399,11 +1406,13 @@ def phase_f32_kernels(cfg, model, cfg_t, model_t, device):
     pass; 32, preview); K5 at 37 rays x 64 + 64, 4093 x 64 + 64, 64 + 16,
     128 + 128 with and without the appearance projection, and the chunk's
     64 + 64 (z_f from sample_pdf of the plain coarse weights); K1 at 37,
-    4093 x 32 = 130,976, 65,536 and 131,072 rows, with and without the
-    appearance projection.  Beside each, the bf16 kernel's error against
-    the same f32 plain outputs; the f32 one must be at least F32_GAIN times
-    smaller.  Two calls agree bit for bit.  Returns the worst abs error of
-    each kernel and variant, and the worst ratio."""
+    128, 129, 4093 x 32 = 130,976, 65,536 and 131,072 rows, with and
+    without the appearance projection, and rows 5..133 of the 131,072 alone
+    (other tiles, another grid) bit for bit as in the whole call.  Beside
+    each, the bf16 kernel's error against the same f32 plain outputs; the
+    f32 one must be at least F32_GAIN times smaller.  Two calls agree bit
+    for bit.  Returns the worst abs error of each kernel and variant, and
+    the worst ratio."""
     import torch
 
     from danerf_tpu_torch.kernels import fused_mlp as fm
@@ -1482,8 +1491,8 @@ def phase_f32_kernels(cfg, model, cfg_t, model_t, device):
                 held(f"K5f32{tag}@{n}x{sc}+{sf}{app}",
                      ["rgb", "depth", "acc", "weights", "z_vals"], want, got, got16, again)
                 del coarse, want, got, got16, again
-        for n_rays, s_per, seed in ((37, 1, 500), (4093, 32, 501), (1024, 64, 502),
-                                    (1024, 128, 503)):
+        for n_rays, s_per, seed in ((37, 1, 500), (128, 1, 504), (129, 1, 505),
+                                    (4093, 32, 501), (1024, 64, 502), (1024, 128, 503)):
             x, dr, er = sample_rows(n_rays, c, seed, device, s_per)
             n = x.shape[0]
             t = (torch.rand(n, 1, generator=torch.Generator(device=device).manual_seed(seed),
@@ -1499,6 +1508,12 @@ def phase_f32_kernels(cfg, model, cfg_t, model_t, device):
                     out[key] = {"field": torch.cat([rgb, sigma], dim=-1)[:, :, None]}
                 held(f"K1f32{tag}@{n}{app}", ["field"], out["want"], out["got"],
                      out["got16"], out["again"])
+                if n == 131072 and app == "":
+                    part = slice(5, 134)
+                    rgb, sigma = fm.fused_fwd_cuda(p32, c, x[part], dr[part], e[part],
+                                                   None if t is None else t[part])
+                    same &= bool(torch.equal(torch.cat([rgb, sigma], dim=-1)[:, :, None],
+                                             out["got"]["field"][part]))
                 del out
     if not same:
         failures.append("an f32 kernel gave different results on the same inputs")
@@ -1599,8 +1614,8 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
     of the f32 kernels and their plain versions beside their bounds: K2
     (want_field) and K5 on a chunk at TF32's rate (tf32x3_bound; also FP32's
     FFMA bound and the GB of their weight stream, weight_stream_gb), K1 at
-    131,072 rows at FP32's, without and with time.  Last, where the f32 and
-    bf16 frames' time goes outside the kernels (frame_breakdown)."""
+    131,072 rows at the same two, without and with time.  Last, where the
+    f32 and bf16 frames' time goes outside the kernels (frame_breakdown)."""
     import numpy as np
     import torch
 
@@ -1685,7 +1700,7 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
                          rand=torch.Generator(device=device).manual_seed(611))
         field = field["field"]
         w_bytes = pk.mats.numel() * 4 + pk.vecs.numel() * 4
-        w_split = w_bytes + pk.mats_tf32.numel() * 4   # K2, K5: also the TF32 halves
+        w_split = w_bytes + pk.mats_tf32.numel() * 4   # K1, K2, K5: also the TF32 halves
         e, nt = c.appearance_dim, int(t is not None)
         k2_bytes = 4 * R * (3 + 3 + e + S + nt) + 4 * R * (3 + 1 + 1 + S + 4 * S) + w_split
         k5_bytes = (4 * R * (3 + 3 + e + S + 4 * S + Sf + nt)
@@ -1713,8 +1728,11 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
         timing[f"k1{tag}_131072_ms"] = cuda_ms(lambda: fm.fused_fwd_cuda(pk, c, x, dr, er, tr), 10)
         timing[f"k1{tag}_131072_plain_ms"] = cuda_ms(
             lambda: fm.fused_fwd_plain(pk, c, x, dr, er, tr), 5)
-        k1_bytes = 4 * rows * (3 + 3 + e + nt) + 4 * rows * (3 + 1) + w_bytes
-        timing[f"k1{tag}_131072_bound_ms"], bound_by[f"k1{tag}"] = bound(c, rows, 1, k1_bytes)
+        # K1 as K2 and K5: 3xTF32, FP32's FFMA bound beside
+        k1_bytes = 4 * rows * (3 + 3 + e + nt) + 4 * rows * (3 + 1) + w_split
+        timing[f"k1{tag}_131072_bound_ms"], bound_by[f"k1{tag}"] = tf32x3_bound(c, rows, 1,
+                                                                                k1_bytes)
+        timing[f"k1{tag}_131072_ffma_bound_ms"], _ = bound(c, rows, 1, k1_bytes)
         del x, dr, er
 
     # where each frame's time goes outside its 10 + 10 kernels
@@ -1825,7 +1843,7 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
     at the batch (the rest of the f32 steps' kernels); of K1 and K8 at the
     batch's 65,536 and 131,072 rows and
     of K9 at the batch (K8 and K9 at 3xTF32's bound with their gate passes,
-    FFMA's beside; K1 at FFMA's, 3xTF32's beside; the has_time variants at
+    K1 at 3xTF32's, FFMA's beside each; the has_time variants at
     131,072 rows and the batch).  Returns (worst abs error of
     each kernel and variant, the worst ratio, the times, their bound_by)."""
     import torch
@@ -2116,9 +2134,13 @@ def phase_f32_bwd(cfg, model, cfg_t, model_t, device):
             t = torch.rand(rows, 1, generator=g, device=device) if c.use_time else None
             timing[f"k1{tag}_{rows}_ms"] = cuda_ms(
                 lambda: fm.fused_fwd_cuda(p32, c, x, dr, er, t), 10)
-            k1_bytes = 4 * rows * (3 + 3 + e + nt) + 4 * rows * 4 + 4 * p32.mats.numel()
-            timing[f"k1{tag}_{rows}_bound_ms"], _ = bound(c, rows, 1, k1_bytes)
-            timing[f"k1{tag}_{rows}_tf32x3_bound_ms"] = tf32x3_bound(c, rows, 1, k1_bytes)[0]
+            # 3xTF32 (csrc/field_f32_sm90.cuh): the packed weights and their
+            # split halves read, 12 bytes a weight, as K5's; FFMA's bound beside
+            k1_bytes = (4 * rows * (3 + 3 + e + nt) + 4 * rows * 4 + 12 * p32.mats.numel()
+                        + 4 * p32.vecs.numel())
+            timing[f"k1{tag}_{rows}_bound_ms"], bound_by["k1" + tag] = tf32x3_bound(
+                c, rows, 1, k1_bytes)
+            timing[f"k1{tag}_{rows}_ffma_bound_ms"] = bound(c, rows, 1, k1_bytes)[0]
             timing[f"k8{tag}_{rows}_ms"] = cuda_ms(
                 lambda: fm.fused_bwd_cuda(p32, c, x, dr, er, g_rgb, g_sig, t), 10)
             timing[f"k8{tag}_{rows}_plain_ms"] = cuda_ms(
@@ -2169,12 +2191,13 @@ def phase_f32_train(cfg, model, out_dir, device):
     parameters after one Adam step);
     10 chained f32 steps against 10 eager ones bit for bit on 64 + 64,
     coarse-only, white background, per sample and in one kernel; train()
-    for 100 f32 steps of 64 + 64 on the procedural
-    scene (phase_train: one f32 K2, K4, K3 a step, finite losses, a rising
-    PSNR, a checkpoint); then evaluate() with the embedding fit on its
-    checkpoint (100x100 views, 2 views; 50 fit steps a view, each an f32 K2,
-    K5, K6 and K3), exactly those launches, each view within EVAL_TOL of
-    the same call on the plain route (use_kernels=False) on the card.
+    for 100 f32 steps of 64 + 64 and 100 per sample on the procedural
+    scene (phase_train: one f32 K2, K4, K3 a step, or two f32 K1 and two
+    f32 K8; finite losses, a rising PSNR, a checkpoint); then evaluate()
+    with the embedding fit on the 64 + 64 checkpoint (100x100 views, 2
+    views; 50 fit steps a view, each an f32 K2, K5, K6 and K3), exactly
+    those launches, each view within EVAL_TOL of the same call on the plain
+    route (use_kernels=False) on the card.
     Returns the launches of each run."""
     import numpy as np
     import torch
@@ -2202,9 +2225,9 @@ def phase_f32_train(cfg, model, out_dir, device):
         emit({"phase": "f32_train", "steps": steps, "chained": chained, "failures": failures})
         raise AssertionError("f32 training disagrees: " + "; ".join(failures))
     train_launches = phase_train(out_dir, "hier_f32", 100, render=False)
+    per_sample_launches = phase_train(out_dir, "per_sample_f32", 100, render=False)
 
-    no_scene = os.path.join(out_dir, "no_scene")
-    c32 = NeRFConfig(dataset_path=no_scene, use_bf16=False)
+    c32 = NeRFConfig(dataset_path=scene_path(out_dir), use_bf16=False)
     ds = load_dataset(c32, "val")
     m, _, _, c32 = load_model(os.path.join(out_dir, "train_hier_f32", "checkpoint_final.pt"),
                               c32, "cuda")
@@ -2241,7 +2264,8 @@ def phase_f32_train(cfg, model, out_dir, device):
           "failures": failures})
     if failures:
         raise AssertionError("f32 training disagrees: " + "; ".join(failures))
-    return {"train": train_launches, "eval": evals["kernel"]["launches"],
+    return {"train": train_launches, "per_sample_train": per_sample_launches,
+            "eval": evals["kernel"]["launches"],
             **{f"{p}_chained": launches_of(F32_PATHS[f"{p}_f32"][1], 10)
                for p in ("coarse", "per_sample", "hier_onepass")},
             "time_step": steps["time_f32"]["launches"]}
@@ -2256,8 +2280,8 @@ def phase_f32_step_timing(cfg, device, f32_timing, tt):
     64 + 64 step's K3 and K4, the coarse-only step's K7, the white step's
     K6 and K3, the per-sample step's K8, the one-kernel step's K9), apart
     from their gate passes, t32_gate_pass, their wgmma dW passes,
-    t32_dw_pass, and their narrow jobs and row sums, bwd32_dw_pass), with
-    the f32 kernels' times and bound from phase_f32_bwd (K2, K3, K4, K5,
+    t32_dw_pass, and their narrow jobs and row sums, bwd32_dw_pass; the
+    per-sample step's two f32 K1, k1_f32), with the f32 kernels' times and bound from phase_f32_bwd (K2, K3, K4, K5,
     K6, K7 at the batch; K1 and K8 at its 65,536 and 131,072 rows; K9 at
     the batch) and the bf16 ones' from phase_train_timing."""
     n = cfg.batch_size
@@ -2279,7 +2303,7 @@ def phase_f32_step_timing(cfg, device, f32_timing, tt):
         split[path] = {"gate_pass_ms": parts.get("t32_gate_pass", 0.0),
                        "tile_ms": parts.get("t32_tile", 0.0),
                        "dw_ms": parts.get("t32_dw_pass", 0.0) + parts.get("bwd32_dw_pass", 0.0),
-                       "rest_ms": parts.get("rest", 0.0)}
+                       "k1_ms": parts.get("k1_f32", 0.0), "rest_ms": parts.get("rest", 0.0)}
     emit({"phase": "f32_step_timing", "rays": cfg.batch_size, "steps": steps,
           "f32_chained_split_ms_per_step": split,
           "f32_over_bf16": {k: steps["hier_f32"][k] / steps["hier"][k] for k in keys
@@ -2869,10 +2893,34 @@ def phase_render(cfg, model, out_dir):
 
 TRAIN_FLAGS = {"hier": [], "coarse": ["--num_importance", "0"], "white": ["--white_background"],
                "per_sample": [], "time": ["--use_time"], "hier_onepass": [], "hier_f32": [],
+               "per_sample_f32": [],
                # data-parallel 64 + 64 over every rank of a torchrun group
                "hier_dp": ["--coordinator_address", "auto", "--mesh_data", "0"]}
 # The routes with no CLI flag (nor has the JAX CLI one), trained through train()
-API_PATHS = ("per_sample", "hier_onepass", "hier_f32")
+API_PATHS = ("per_sample", "hier_onepass", "hier_f32", "per_sample_f32")
+
+
+def scene_path(out_dir, timed=False):
+    """The --dataset_path of the runs on the procedural scene.  Its static
+    form is rendered once on the host (its 20 train views ~20 s) and
+    written in the nerf_synthetic layout (save_blender_scene: the uint8
+    images and alphas as RGBA PNGs, so they load back exactly), which every
+    later run loads; the time-varying form (use_time), whose per-view times
+    that layout does not carry, is a path that holds no scene, which
+    load_dataset renders anew (its 16 views ~4 s)."""
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.blender import save_blender_scene
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+
+    if timed:
+        return os.path.join(out_dir, "no_scene")
+    cfg, root = NeRFConfig(), os.path.join(out_dir, "scene_png")
+    scene = os.path.join(root, cfg.scene)
+    for split in ("train", "val"):
+        if not os.path.exists(os.path.join(scene, f"transforms_{split}.json")):
+            save_blender_scene(make_synthetic_scene(split, near=cfg.near, far=cfg.far, seed=0),
+                               scene, split)
+    return root
 
 
 def train_api(argv, over):
@@ -2921,9 +2969,9 @@ def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
     kind = path.removesuffix("_dp")   # the launches of a data-parallel step: its path's
     save = os.path.join(out_dir, f"train_{path}")
     shutil.rmtree(save, ignore_errors=True)          # metrics.jsonl appends
-    no_scene = os.path.join(out_dir, "no_scene")     # -> the procedural scene
+    scene = scene_path(out_dir, path == "time")
     argv = ["train", "--density_bias_init", "0.5", "--save_dir", save, "--device", "cuda",
-            "--seed", "0", "--dataset_path", no_scene, *TRAIN_FLAGS[path]]
+            "--seed", "0", "--dataset_path", scene, *TRAIN_FLAGS[path]]
     if every:
         argv += ["--checkpoint_every", str(every)]
 
@@ -3001,7 +3049,7 @@ def phase_train(out_dir, path, iters, render, every=None, resume_to=None):
         fr.reset_launch_counts()
         written = cli_main(["render", "--checkpoint", ckpt, "--output_dir", render_dir,
                             "--frames", str(frames), "--width", str(size), "--height",
-                            str(size), "--device", "cuda", "--dataset_path", no_scene, *flags])
+                            str(size), "--device", "cuda", "--dataset_path", scene, *flags])
         torch.cuda.synchronize()
         if len(written) != frames or not all(os.path.exists(w) for w in written):
             raise AssertionError(f"render of the trained {path} checkpoint wrote {written}")
@@ -3094,7 +3142,10 @@ def kernel_part(name):
     wgmma blocks, the narrow jobs, the reductions), the tile (K9's two tile
     kernels), the wgmma dW pass and the gate pass of the f32 K3, K4, K6-K9
     (csrc/field_bwd_f32_sm90.cuh) and their narrow dW jobs' FFMA pass and
-    row sums (bwd_f32_parts.cuh), or the rest."""
+    row sums (bwd_f32_parts.cuh), the f32 K1 (csrc/mlp_fwd_f32.cu), or the
+    rest."""
+    if "mlp_fwd_f32" in name:
+        return "k1_f32"
     if "bwd_tile90" in name or "hier_tile90" in name:
         return "bwd90_tile"
     if any(k in name for k in ("dw90_", "dw_kernel<64>", "dw_reduce<64>", "reduce_slots")):
@@ -3794,11 +3845,11 @@ def phase_eval(out_dir):
     from danerf_tpu_torch.train.evaluate import EmbeddingFit, _target, left_half_rays, fit_seed
     from danerf_tpu_torch.utils.checkpoint import load_model
 
-    no_scene = os.path.join(out_dir, "no_scene")
     runs, totals = [], {k: 0 for k in fr.LAUNCHES}
     for path, flags in EVAL_RUNS:
         ckpt = os.path.join(out_dir, f"train_{path}", "checkpoint_final.pt")
-        argv = ["eval", "--checkpoint", ckpt, "--dataset_path", no_scene, "--max_views",
+        argv = ["eval", "--checkpoint", ckpt, "--dataset_path",
+                scene_path(out_dir, path == "time"), "--max_views",
                 str(EVAL_VIEWS), "--device", "cuda", *flags]
         fr.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3835,7 +3886,7 @@ def phase_eval(out_dir):
                      "max_delta": {k: max(d[k] for d in deltas) for k in EVAL_TOL}})
 
     # one view's fit as a graph replay against the same fit run eagerly
-    cfg = NeRFConfig(dataset_path=no_scene)
+    cfg = NeRFConfig(dataset_path=scene_path(out_dir))
     ds = load_dataset(cfg, "val")
     model, _, _, cfg = load_model(os.path.join(out_dir, "train_hier", "checkpoint_final.pt"),
                                   cfg, "cuda")
@@ -4760,8 +4811,9 @@ def main(argv=None):
                 "launches"]["mlp_fwd"]
     # the f32 variants (use_bf16=False) of K2, K5 and K1: launches from the
     # f32 800x800 frames (K2, K5) and the f32 per-sample routes (K1), without
-    # and with time; times on a chunk (K1 at 131,072 rows) beside their bounds
-    # (K2, K5: 3xTF32's; K1: FP32's)
+    # and with time; times on a chunk (K1 at 131,072 rows, also at 65,536)
+    # beside their bounds at 3xTF32's (csrc/field_f32_sm90.cuh) with FP32's
+    # FFMA bound beside
     for name, key, source, line, counter, path, path_t in (
             ("K2 ray march (want_field), f32", "k2", "march_f32.cu",
              "fused_render.py:155", "march_f32", "frame_launches", "time_frame_launches"),
@@ -4771,10 +4823,10 @@ def main(argv=None):
              "mlp_fwd_f32", "k1_launches", "time_k1_launches")):
         tm = f32["timing"]
         at = "_131072" if key == "k1" else ""
-        # K2 and K5 (3xTF32): beside the bound, FP32's FFMA bound; K1 (FFMA):
-        # 3xTF32's (f32_bwd's timing)
-        extra = ({"tf32x3_bound_ms": f32b_timing["k1_131072_tf32x3_bound_ms"]} if key == "k1"
-                 else {"ffma_bound_ms": tm[f"{key}_ffma_bound_ms"]})
+        extra = {"ffma_bound_ms": tm[f"{key}{at}_ffma_bound_ms"]}
+        if key == "k1":
+            extra["at_65536_rows"] = {k: f32b_timing[f"k1_65536_{k}"]
+                                      for k in ("ms", "bound_ms", "ffma_bound_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": f"danerf_tpu_torch/kernels/csrc/{source}",
             "replaces": f"danerf_tpu/kernels/{line}", "launches": f32[path][counter],

@@ -32,12 +32,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_longlong
 # without use_time) follows the other data inputs.  The tail of the backward
 # entry points: transposed weights, their layout record, scratch, n_vecs.
 # K1 (mlp_fwd) takes its scratch and its size before the stream.  The f32
-# variants of K2 and K5 take their bf16 kernels' arguments with three weight
-# pointers in place of the packed bf16 ones (the packed f32 weights and their
-# TF32 hi and lo halves), K1's the weights transposed in f32 and none of its
-# scratch; those of K3, K4, K6-K9 their bf16 kernels' with four forward and
-# two chain weight pointers (fused_mlp.fwd_weights, bwd_weights: the weights
-# each reads).
+# variants of K1, K2 and K5 take their bf16 kernels' arguments with three
+# weight pointers in place of the packed bf16 ones (the packed f32 weights
+# and their TF32 hi and lo halves), K1's without its scratch; those of K3,
+# K4, K6-K9 their bf16 kernels' with four forward and two chain weight
+# pointers (fused_mlp.fwd_weights, bwd_weights: the weights each reads).
 _BWD_TAIL = [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _P]
 _SIGNATURES = {
     "march": ("danerf_march", [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _I, _P]),
@@ -54,7 +53,8 @@ _SIGNATURES = {
                   [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P, _P, _P, _P, _P, _I, _P]),
     "merged_f32": ("danerf_merged_f32",
                    [_P] * 7 + [_I] * 4 + [_P] * 5 + [_P, _P, _P, _P, _P, _I, _P]),
-    "mlp_fwd_f32": ("danerf_mlp_fwd_f32", [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _I, _P]),
+    "mlp_fwd_f32": ("danerf_mlp_fwd_f32",
+                    [_P] * 4 + [_I] * 2 + [_P] * 2 + [_P, _P, _P, _P, _P, _I, _P]),
 }
 # the f32 K3, K4, K6-K9 (csrc/field_bwd_f32_sm90.cuh): three more weight
 # pointers after the packed f32 weights (their TF32 hi and lo, the weights

@@ -1199,8 +1199,7 @@ inline int launch_gates(const BwdT32Call& c, const Rays& rp, uint4* gates, int v
   unsigned grid = 0;
   const int err = f32::launch_setup(gate_pass32<KIND>, c.tiles_pass, &grid);
   if (err) return err;
-  const f32::Rays32 gr{rp.o, rp.d, rp.emb, rp.t, rp.z, nullptr, nullptr, rp.R, rp.n_tiles,
-                       rp.s, rp.rpc, 0};
+  const f32::Rays32 gr{rp.o, rp.d, rp.emb, rp.t, rp.z, rp.R, rp.n_tiles, rp.s, rp.rpc};
   const unsigned nt = (unsigned)rp.n_tiles;
   gate_pass32<KIND><<<grid < nt ? grid : nt, f32::THREADS, f32::SMEM_BYTES, stream>>>(
       c.P, c.wt, gr, gates, vt);

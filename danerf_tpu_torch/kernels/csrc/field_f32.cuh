@@ -1,55 +1,47 @@
-// The forward NeRF-W field in f32 (use_bf16=False) for the f32 variants of
-// the serving kernels, K2 (march_f32.cu) and K5 (merged_f32.cu), and of the
-// per-sample field K1 (mlp_fwd_f32.cu): the counterpart of
-// danerf_tpu/kernels/fused_mlp.py _field_from_enc with cdt = float32, as
-// _render_kernel, _merged_kernel and _fwd_kernel run it when cfg.use_bf16
-// is off.  The argument record, its parsing, the encoder (encode_cols), the
-// merge and the composite come from field.cuh.  The f32 backward tile's
-// gate pass (field_bwd_f32_sm90.cuh gate_pass32) runs the same block with a
-// stash hook (field_block's Stash) that keeps each relu gate's sign.
+// The gate pass of the f32 backward tile (field_bwd_f32_sm90.cuh
+// gate_pass32, before each pass of the f32 K3, K4, K6-K9): the forward
+// NeRF-W field in f32 (use_bf16=False) on the CUDA cores, the counterpart
+// of danerf_tpu/kernels/fused_mlp.py _field_from_enc with cdt = float32,
+// run for the signs of its relu gates (field_block's Stash hook keeps
+// them).  The argument record, its parsing and the encoder (encode_cols)
+// come from field.cuh.
 //
 // Numerics: the JAX f32 configuration's.  Encodings, activations, the
 // appearance term and every product are f32; every product is an f32
-// fused multiply-add on the CUDA cores (FFMA), so nothing rounds below f32
-// (a TF32 tensor-core pass would keep ~3 decimal digits).  The order of
-// the sums differs from the plain version's (one FFMA chain a thread over
-// each 32-deep K slice, in K order; the heads summed over the lanes by a
-// butterfly).  happ = (relu(hdir_pre) + emb@Wapp) + bapp, rgb =
-// sigmoid(happ@Wrgb + brgb), sigma = relu or softplus of h@wd + bd, as in
-// the JAX order.
+// fused multiply-add on the CUDA cores (FFMA), so nothing rounds below f32:
+// the tensor cores' truncating sums would put some gates on the other side
+// of 0 from an f32 evaluation.  The order of the sums differs from the
+// plain version's (one FFMA chain a thread over each 32-deep K slice, in K
+// order; the heads summed over the lanes by a butterfly).  happ =
+// (relu(hdir_pre) + emb@Wapp) + bapp, rgb = sigmoid(happ@Wrgb + brgb),
+// sigma = relu or softplus of h@wd + bd, as in the JAX order.
 //
-// Bound on an H100: operations, at FP32's 67 TFLOP/s (no tensor core).
-// 527,872 MACs a sample (534,528 with time), so K2's 65,536-ray x
-// 64-sample chunk is 4.43 TFLOP, 66.1 ms; K1's 131,072 rows 0.14 TFLOP,
-// 2.1 ms.
+// Bound on an H100: operations, at FP32's 67 TFLOP/s (no tensor core):
+// 531,968 MACs a row, so the 131,072 rows of a 1024-ray fine evaluation
+// are 0.14 TFLOP, 2.1 ms.
 //
-// Design: a simple SIMT tile, right first (making it fast is later work).
-// A block of 256 threads (8 warps) runs the field on MB = 64 rows at a
-// time: warp w owns rows 8w..8w+7 and lane l the output columns l + 32j,
-// so a thread keeps an 8 x 8 block of accumulators (8 x 4 on the N = 128
-// dir layer and appearance projection), reads its 8 rows of A as two
-// broadcast 16-byte loads and 8 weights a K step with no bank conflict:
-// 64 FFMA to 10 shared loads.  A is column-major in shared memory (column
-// c at c * AP, AP = 68 floats, so the epilogue's 16-byte stores of a
-// thread's rows are conflict-free too): the trunk activations in place
+// Design: a SIMT tile.  A block of 256 threads (8 warps) runs the field on
+// MB = 64 rows at a time: warp w owns rows 8w..8w+7 and lane l the output
+// columns l + 32j, so a thread keeps an 8 x 8 block of accumulators (8 x 4
+// on the N = 128 dir layer and appearance projection), reads its 8 rows of
+// A as two broadcast 16-byte loads and 8 weights a K step with no bank
+// conflict: 64 FFMA to 10 shared loads.  A is column-major in shared memory
+// (column c at c * AP, AP = 68 floats, so the epilogue's 16-byte stores of
+// a thread's rows are conflict-free too): the trunk activations in place
 // (each layer's output overwrites its input after a block barrier), the
 // encodings beside them, each row's embedding.  The weights stream in
 // 32-deep K slices of one matrix's whole N through two shared-memory
 // stages with cp.async, the next slice (across layer boundaries) in flight
 // while the block computes on the current one; the wrapper hands the
-// matrices transposed, (K, N) row-major at the packed offsets, so a slice
-// is one contiguous 32 KB run.  One barrier a slice.  Shared memory: the
-// stages 64 KB, activations 68 KB, encodings 29.75 KB, embeddings 17 KB,
-// the tile's rows and rays 2.7 KB, K1's rows 1.75 KB: 187,616 bytes, one
-// block an SM.
+// matrices transposed, (K, N) row-major at the packed offsets
+// (PackedParams.mats_kn), so a slice is one contiguous 32 KB run.  One
+// barrier a slice.  Shared memory: the stages 64 KB, activations 68 KB,
+// encodings 29.75 KB, embeddings 17 KB, a tile's rows and rays 2.7 KB, a
+// block's rows 1.75 KB: 187,616 bytes, one block an SM.
 //
-// Tiles: K2 and K5 keep the bf16 kernels' shapes, a tile of rpc rays of s
-// samples (rpc = min(128 / s, 8), up to 128 rows), whose rows run through
-// the field as two 64-row blocks (one when they fill 64 or fewer) before
-// one warp a ray composites (and K5 merges, its merge arrays in the
-// activation buffer); K1's tile is one block of 64 independent rows.  The
-// grid strides over the tiles, at most the blocks that fit on the card at
-// once.
+// Tiles: the backward tile's, 128 rows, as two 64-row blocks: a tile of
+// rpc rays of s samples (K3, K4, K6, K7, K9; load_rays, RayEnc) or of 128
+// independent rows (K8; load_rows, RowEnc, each block's rows at z = 0).
 
 #pragma once
 
@@ -65,30 +57,27 @@ constexpr int AP = MB + 4;        // column pitch (floats) of the column-major A
 
 struct Smem {
   float w[2][KSF * HID];          // weight stages: row k of a slice at k * N
-  float act[HID * AP];            // trunk activations; K5's merge arrays between tiles
+  float act[HID * AP];            // trunk activations
   float encx[MAX_KX * AP];        // position (+ time) encoding
   float encd[MAX_KD * AP];        // direction encoding
   float emb[MAX_E * AP];          // each row's embedding
   float rgb[TILE_M * 3], sigma[TILE_M], z[TILE_M];  // the tile's rows
-  float o[MAX_RPC * 3], d[MAX_RPC * 3], t[MAX_RPC];  // its rays (K1: unused)
-  float rows[MB * 7];             // K1: the block's points, directions and times
+  float o[MAX_RPC * 3], d[MAX_RPC * 3], t[MAX_RPC];  // its rays
+  float rows[MB * 7];             // a row block's points, directions and times
 };
 constexpr size_t SMEM_BYTES = sizeof(Smem);
 static_assert(SMEM_BYTES <= 232448, "the f32 tile exceeds the 227 KB a block may use");
-static_assert(MERGE_MAX <= sizeof(Smem::act), "the merge arrays must fit in sm.act");
 
-// The rays (K2: samples z; K5: its fine samples z and the coarse pre_z,
-// pre_f) or, for K1, the rows (o the points, s = 1, no z) of a launch.
+// The rays of a pass (samples z) or, for K8, its rows (o the points, s = 1,
+// no z).
 struct Rays32 {
   const float* o;
   const float* d;
   const float* emb;
   const float* t;
   const float* z;
-  const float* pre_z;
-  const float* pre_f;
   long long R, n_tiles;
-  int s, rpc, pre_n;
+  int s, rpc;
 };
 
 // ---------------------------------------------------------------- primitives
@@ -211,26 +200,17 @@ struct F32Sink {
   __device__ __forceinline__ void d(int row, int col, float v) { ds[col * AP + row] = v; }
 };
 
-// What the forward keeps for a backward pass: nothing (the forward kernels);
-// field_bwd_f32_sm90.cuh's GateStash keeps the signs of each trunk layer's
-// output, sigma_pre and relu(hdir_pre).  trunk: the thread's 8 rows (w8..)
-// of trunk layer m's output column c; sigma_pre: row's; head:
-// relu(hdir_pre) and happ of row, column c.
-struct NoStash {
-  __device__ __forceinline__ void trunk(int, int, int, const float (&)[8]) const {}
-  __device__ __forceinline__ void sigma_pre(int, float) const {}
-  __device__ __forceinline__ void head(int, int, float, float) const {}
-};
-
 // The field of one block of MB rows.  enc(sm) fills sm.encx, sm.encd and
 // sm.emb for the block's rows (every thread calls it); the rows' rgb and
-// sigma go to rgb_out[r * 3 + k], sig_out[r] for r < MB; stash keeps the
-// residuals a backward pass needs.  The first slice streams in while the
-// block encodes.
-template <class Enc, class Stash = NoStash>
+// sigma go to rgb_out[r * 3 + k], sig_out[r] for r < MB; stash takes the
+// values whose signs are the relu gates (field_bwd_f32_sm90.cuh GateStash):
+// trunk, the thread's 8 rows (w8..) of trunk layer m's output column c;
+// sigma_pre, row's; head, relu(hdir_pre) and happ of row, column c.  The
+// first slice streams in while the block encodes.
+template <class Enc, class Stash>
 __device__ __forceinline__ void field_block(const FieldArgs& P, const float* wt, Smem& sm,
                                             const Enc& enc, float* rgb_out, float* sig_out,
-                                            const Stash& stash = Stash()) {
+                                            const Stash& stash) {
   const int w8 = (threadIdx.x >> 5) * 8, lane = threadIdx.x & 31;
   const int L = P.num_layers;
   __syncthreads();  // every thread is done with the last block's buffers
@@ -341,7 +321,7 @@ struct RayEnc {
   }
 };
 
-// The encoder of a block of independent rows row0.. (n valid; K1 and K8):
+// The encoder of a block of independent rows row0.. (n valid; K8):
 // the rows' inputs from sm.rows (x, d, t; load_rows), their embeddings from
 // device memory.
 struct RowEnc {
@@ -398,33 +378,20 @@ __device__ __forceinline__ void load_rays(Smem& sm, const Rays32& rays, long lon
     sm.z[row] = row < n_rays * rays.s ? rays.z[ray0 * rays.s + row] : 0.f;
 }
 
-// The field at every row of tile c of rays (its rays loaded by load_rays):
-// sm.rgb and sm.sigma of the tile's rows, valid behind a barrier.
-__device__ __forceinline__ void field_rays(const FieldArgs& P, const float* wt, Smem& sm,
-                                           const Rays32& rays, long long ray0, int n_rays) {
-  const int rows = n_rays * rays.s;
-  for (int row0 = 0; row0 < rows; row0 += MB)
-    field_block(P, wt, sm, RayEnc{P, rays.emb, ray0, row0, rays.s, n_rays}, sm.rgb + row0 * 3,
-                sm.sigma + row0);
-  __syncthreads();
-}
-
 // ------------------------------------------------------------------ host
 
-// Host set-up shared by the f32 kernels: the kernel's shared memory limit
-// (smem bytes a block) and the grid (the blocks that fit on the card at
-// once, at most one a tile).
+// Host set-up of the gate pass: the kernel's shared memory limit and the
+// grid (the blocks that fit on the card at once, at most one a tile).
 template <class Kernel>
-inline int launch_setup(Kernel kernel, long long n_tiles, unsigned* grid,
-                        size_t smem = SMEM_BYTES) {
+inline int launch_setup(Kernel kernel, long long n_tiles, unsigned* grid) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+                                       (int)SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, n_sm = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   const long long most = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
   *grid = (unsigned)(n_tiles < most ? n_tiles : most);

@@ -1,17 +1,18 @@
 // The forward NeRF-W field in f32 (use_bf16=False) on Hopper's tensor
-// cores for the f32 serving kernels, K2 (march_f32.cu) and K5
-// (merged_f32.cu): the counterpart of danerf_tpu/kernels/fused_mlp.py
-// _field_from_enc with cdt = float32, as _render_kernel and _merged_kernel
-// run it when cfg.use_bf16 is off.  The argument record, the encoding
-// (encode_cols' values), the merge and the composite come from field.cuh;
-// the TMA, mbarrier, wgmma and tensor-map helpers from field_sm90.cuh.
-// field_bwd_f32_sm90.cuh builds the f32 K3, K4, K8 and K9's tile from
-// these pieces: field_tile and load_tiles with stash hooks (NoResStash,
-// NoEncStash here; the backward's also gives field_tile its relu gates),
-// stream_tile, mma_slices.  Two row layouts (sm90::Kind): RAYS, a tile of
-// rpc rays of s samples (K2-K4, K9), and ROW_TILE, 128 independent rows
-// (K8; K1 in f32 can take it), each its own point encoded at z = 0 (y =
-// 2^i x, field_f32.cuh RowEnc's values) with its own appearance term.
+// cores for the f32 forward kernels, K2 (march_f32.cu), K5 (merged_f32.cu)
+// and the per-sample field K1 (mlp_fwd_f32.cu): the counterpart of
+// danerf_tpu/kernels/fused_mlp.py _field_from_enc with cdt = float32, as
+// _render_kernel, _merged_kernel and _fwd_kernel run it when cfg.use_bf16
+// is off.  The argument record, the encoding (encode_cols' values), the
+// merge and the composite come from field.cuh; the TMA, mbarrier, wgmma and
+// tensor-map helpers from field_sm90.cuh.  field_bwd_f32_sm90.cuh builds
+// the f32 K3, K4, K6-K9's tile from these pieces: field_tile and
+// load_tiles with stash hooks (NoResStash, NoEncStash here; the backward's
+// also gives field_tile its relu gates), stream_tile, mma_slices.  Two row
+// layouts (sm90::Kind): RAYS, a tile of rpc rays of s samples (K2-K7, K9),
+// and ROW_TILE, 128 independent rows (K1, K8), each its own point encoded
+// at z = 0 (y = 2^i x, field_f32.cuh RowEnc's values) with its own
+// appearance term.
 //
 // Numerics: 3xTF32.  Encodings, activations, the appearance term and the
 // heads stay f32.  Every trunk and dir-layer product a.b is formed on the
@@ -77,12 +78,7 @@
 #include <cuda.h>
 #include <cstddef>
 
-// field_sm90.cuh exports the bf16 tile's danerf_tile_smem_bytes; the f32
-// K2 and K5 (march_f32.cu, merged_f32.cu) export their tile's under that
-// name (the build phase reads it).
-#define danerf_tile_smem_bytes danerf_bf16_tile_smem_bytes
 #include "field_sm90.cuh"
-#undef danerf_tile_smem_bytes
 
 namespace danerf {
 namespace tf32 {
@@ -481,15 +477,20 @@ __device__ __forceinline__ void load_tiles(const FieldArgs& P, const float* __re
 }
 
 // The producer warpgroup: gives registers up, then its first thread
-// streams the weights and its warps 1-3 load the tiles' rays; the rest of
-// warp 0 is done.
+// streams the weights and its warps 1-3 load the tiles' rays (KIND RAYS:
+// K2, K5) or rows (ROW_TILE: K1); the rest of warp 0 is done.
+template <int KIND = RAYS>
 __device__ __forceinline__ void produce(const SplitMaps& maps, const FieldArgs& P,
                                         const float* W, const Rays& rays) {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
-  if (threadIdx.x >= ENC0)
-    load_tiles(P, W, rays);
-  else if (threadIdx.x == CONSUMERS)
+  if (threadIdx.x >= ENC0) {
+    if constexpr (KIND == ROW_TILE)
+      load_row_tiles(rays, NoEncStash());
+    else
+      load_tiles(P, W, rays);
+  } else if (threadIdx.x == CONSUMERS) {
     stream_weights(maps, P, rays.n_tiles);
+  }
 }
 
 // The consumers take the registers the producer warpgroup gives up: 128 x
@@ -690,8 +691,8 @@ struct NoResStash {
 // fragment's j = j0..j0 + 3 (8 j + 2 t and + 1), a[jj][h][e]: emb @
 // Wapp^T, each an f32 FMA chain over k in order (the sums load_tiles forms
 // for a ray's and the gate pass's field_block for a row's).  emb0: the
-// embedding of the tile's first row (E a row, 16-byte aligned); W: the
-// packed f32 weights, Wapp (HALF, E).
+// embedding of the tile's first row (E a row, E % 4 == 0, 16-byte
+// aligned); W: the packed f32 weights, Wapp (HALF, E).
 __device__ __forceinline__ void row_app4(float (&a)[4][2][2], const FieldArgs& P,
                                          const float* __restrict__ W,
                                          const float* __restrict__ emb0, const RowIn& in,
@@ -894,7 +895,7 @@ inline int split_map(sm90::EncodeTiledFn enc, CUtensorMap* m, const float* hi,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Host set-up shared by K2 and K5 in f32: the split weights' maps (hi, lo:
+// Host set-up shared by K1, K2 and K5 in f32: the split weights' maps (hi, lo:
 // the packed layout twice, lo past hi), the kernel's shared memory limit
 // and the persistent grid (one CTA per SM, at most one a tile).
 template <class Kernel>

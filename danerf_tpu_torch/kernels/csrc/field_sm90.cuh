@@ -909,7 +909,3 @@ inline int launch_setup(Kernel kernel, const FieldArgs& P, long long n_tiles, We
 
 }  // namespace sm90
 }  // namespace danerf
-
-// The dynamic shared memory a CTA of K1, K2 or K5 takes (ptxas -v reports
-// only static shared memory).
-extern "C" long long danerf_tile_smem_bytes() { return (long long)danerf::sm90::SMEM_BYTES; }

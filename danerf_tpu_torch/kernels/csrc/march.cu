@@ -83,3 +83,7 @@ extern "C" int danerf_march(const float* o, const float* d, const float* emb, co
       maps, P, rays, rgb, depth, acc, w, field);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory a CTA takes (ptxas -v reports only static
+// shared memory).
+extern "C" long long danerf_tile_smem_bytes() { return (long long)danerf::sm90::SMEM_BYTES; }

@@ -23,7 +23,7 @@
 // Design (csrc/field_bwd_f32_sm90.cuh, K3's f32 tile on row tiles,
 // ROW_TILE): a gate pass forms the relu gates by an f32 forward on the CUDA
 // cores (field_f32.cuh's field_block on each tile's two 64-row blocks,
-// loaded by load_rows and encoded by K1's RowEnc), then the tile kernel's
+// loaded by load_rows and encoded by RowEnc at z = 0), then the tile kernel's
 // forward (field_f32_sm90.cuh field_tile<ROW_TILE>: each row's point,
 // direction and time in the rays' buffers, encoded in the consumers at z =
 // 0, y = 2^i x, and its appearance term an f32 FMA chain a row in the dir

@@ -99,3 +99,7 @@ extern "C" int danerf_mlp_fwd(const float* x, const float* d, const float* emb, 
       maps, P, rows, stash, rgb, sigma);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory a CTA takes (ptxas -v reports only static
+// shared memory).
+extern "C" long long danerf_tile_smem_bytes() { return (long long)danerf::sm90::SMEM_BYTES; }

@@ -25,18 +25,18 @@ danerf_tpu/kernels/fused_mlp.py).
 
 Both configurations of the JAX kernels: bf16 (``use_bf16``, the default)
 and f32.  The forward kernels K1, K2 and K5 take f32 through variants of
-their own: K2 and K5 (``march_f32.cu``, ``merged_f32.cu``) on
+their own (``mlp_fwd_f32.cu``, ``march_f32.cu``, ``merged_f32.cu``) on
 ``csrc/field_f32_sm90.cuh``'s tensor-core tile, which reads the weights
 split into TF32 halves (``split_tf32``, ``PackedParams.mats_tf32``) and, for
-its heads, as packed; K1 (``mlp_fwd_f32.cu``) on ``csrc/field_f32.cuh``,
-which reads them transposed (``PackedParams.mats_kn``; ``fwd_weights``
-names each one's); the backward kernels K3, K4, K6, K7, K8 and K9
-through theirs on ``csrc/field_bwd_f32_sm90.cuh``'s tensor-core tile
+its heads and the appearance term, as packed (``fwd_weights``); the
+backward kernels K3, K4, K6, K7, K8 and K9 through theirs on
+``csrc/field_bwd_f32_sm90.cuh``'s tensor-core tile
 (``march_bwd_f32.cu``, ``merged_train_f32.cu``, ``merged_bwd_f32.cu``,
 ``march_train_f32.cu``, ``mlp_bwd_f32.cu``, ``hier_onepass_f32.cu``),
 which read the forward's split weights, the transposed chain's
 (``mats_kn`` split, ``PackedParams.mats_kn_tf32``) and, for the relu gates
-of an f32 forward on the CUDA cores, ``mats_kn`` (``bwd_weights``).
+of an f32 forward on the CUDA cores (their gate pass, ``csrc/field_f32.cuh``),
+``mats_kn`` (``bwd_weights``).
 
 The encoding here is the kernels' form, ``y = 2^i o + z (2^i d)`` then
 ``sin(y + phase)``, not ``nerf_apply``'s ``sin(2^i (o + z d))``: the two
@@ -93,18 +93,18 @@ class PackedParams:
     mats: 1-D, compute dtype; each matrix (out, K padded to 16) row-major.
     vecs: 1-D f32; biases and the density head's (hidden,) weight.
     mat_at / vec_at: name -> (offset, shape).
-    mats_kn: without ``use_bf16``, the weights of the f32 kernels on
-    ``csrc/field_f32.cuh`` (K1 and the backward tile): each matrix
-    transposed, W^T (K, out) row-major at W's own offset, so that a K slice
-    of it is one contiguous run; None under ``use_bf16``.
+    mats_kn: without ``use_bf16``, the weights of the f32 backward
+    kernels' gate pass on ``csrc/field_f32.cuh``: each matrix transposed,
+    W^T (K, out) row-major at W's own offset, so that a K slice of it is
+    one contiguous run; None under ``use_bf16``.
     mats_tf32: without ``use_bf16``, the weights of the f32 kernels on the
-    tensor cores (K2 and K5, ``csrc/field_f32_sm90.cuh``; the forward of
-    K3 and K4, ``csrc/field_bwd_f32_sm90.cuh``): (2, mats.numel()),
-    ``mats`` split by ``split_tf32`` into hi (row 0) and lo (row 1), each in
-    ``mats``' layout; None under ``use_bf16``.
+    tensor cores (K1, K2 and K5, ``csrc/field_f32_sm90.cuh``; the forward
+    of K3, K4 and K6-K9, ``csrc/field_bwd_f32_sm90.cuh``): (2,
+    mats.numel()), ``mats`` split by ``split_tf32`` into hi (row 0) and lo
+    (row 1), each in ``mats``' layout; None under ``use_bf16``.
     mats_kn_tf32: without ``use_bf16``, the transposed chain's weights of
-    the f32 K3 and K4: ``mats_kn`` split the same way, (2, mats.numel());
-    None under ``use_bf16``.
+    the f32 K3, K4 and K6-K9: ``mats_kn`` split the same way, (2,
+    mats.numel()); None under ``use_bf16``.
     """
     mats: torch.Tensor
     vecs: torch.Tensor
@@ -505,13 +505,10 @@ def _check_packed(packed: PackedParams, device, cfg: NeRFConfig) -> None:
 def fwd_weights(packed: PackedParams, cfg: NeRFConfig, name: str):
     """(library name, its weight tensors in the order its C entry takes
     them) of forward kernel ``name``: the bf16 kernel on the packed weights;
-    without ``use_bf16`` its f32 variant: K2 and K5 on the packed f32
-    weights and their TF32 halves (``mats_tf32``: hi, lo), K1 on them
-    transposed (``mats_kn``)."""
+    without ``use_bf16`` its f32 variant (K1, K2 and K5) on the packed f32
+    weights and their TF32 halves (``mats_tf32``: hi, lo)."""
     if cfg.use_bf16:
         return name, (packed.mats,)
-    if name == "mlp_fwd":
-        return f"{name}_f32", (packed.mats_kn,)
     return f"{name}_f32", (packed.mats, packed.mats_tf32[0], packed.mats_tf32[1])
 
 
@@ -636,17 +633,18 @@ def fused_fwd_cuda(packed: PackedParams, cfg: NeRFConfig, x, d, emb, t=None):
     rgb = torch.empty(n, 3, device=dev)
     sigma = torch.empty(n, 1, device=dev)
     meta, n_meta = _meta(packed, cfg)
-    if not cfg.use_bf16:
-        lib = _build.load("mlp_fwd_f32")
-        code = lib.danerf_mlp_fwd_f32(
-            x.data_ptr(), d.data_ptr(), emb.data_ptr(), _arg(t), n, emb.shape[-1],
-            rgb.data_ptr(), sigma.data_ptr(), packed.mats_kn.data_ptr(),
-            packed.vecs.data_ptr(), meta, n_meta, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, code, "mlp_fwd_f32")
-        LAUNCHES["mlp_fwd_f32"] += 1
-        return rgb, sigma
-    if emb.data_ptr() % 16:  # the kernel reads the embeddings 16 bytes at a time
+    if emb.data_ptr() % 16:  # both kernels read the embeddings 16 bytes at a time
         emb = emb.clone()
+    if not cfg.use_bf16:
+        name, weights = fwd_weights(packed, cfg, "mlp_fwd")
+        lib = _build.load(name)
+        code = getattr(lib, f"danerf_{name}")(
+            x.data_ptr(), d.data_ptr(), emb.data_ptr(), _arg(t), n, emb.shape[-1],
+            rgb.data_ptr(), sigma.data_ptr(), *(w.data_ptr() for w in weights),
+            packed.vecs.data_ptr(), meta, n_meta, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, code, name)
+        LAUNCHES[name] += 1
+        return rgb, sigma
     lib = _build.load("mlp_fwd")
     # the rows' bf16 embeddings, which the kernel's encoders stash for its
     # appearance product

@@ -21,9 +21,11 @@ K7 at the batch (``k3_f32``, ``k4_f32``, ``k6_f32``, ``k7_f32``; with time
 ``..._t``) and at 8,192 rays (``k3_f32_8192``, ``k4_f32_8192``,
 ``k6_f32_8192``, ``k7_f32_8192``); of K8 at the 131,072 and 65,536 rows
 (``k8_f32``, ``k8_f32_65536``) and K9 at the batch (``k9_f32``), each also
-with time (``..._t``); and the f32 training steps at the batch, chained as
-``train`` runs them (ms a step, the median of 20 replays of 10 steps,
-chip_smoke.py's step_timing): 64 + 64 (``step_f32_hier``), coarse-only
+with time (``..._t``); of K1 at the same rows (``k1_f32``,
+``k1_f32_65536``; with time at 131,072, ``k1_f32_t``); and the f32
+training steps at the batch, chained as ``train`` runs them (ms a step,
+the median of 20 replays of 10 steps, chip_smoke.py's step_timing): 64 +
+64 (``step_f32_hier``), coarse-only
 (``step_f32_coarse``: one K7), white background (``step_f32_white``: K2,
 K5, K6, K3), per sample (``step_f32_per_sample``: two K1 and two K8) and
 in one kernel (``step_f32_onepass``: one K9).
@@ -253,9 +255,11 @@ def _time_kernels(iters):
         g_rgb = torch.randn(x.shape[0], 3, generator=g, device=dev)
         g_sig = torch.randn(x.shape[0], 1, generator=g, device=dev)
         out["k1" + key] = ms(lambda: fm.fused_fwd_cuda(packed, cfg, x, dr, er), iters)
+        out["k1_f32" + key] = ms(lambda: fm.fused_fwd_cuda(p32, c32, x, dr, er), iters)
         if not key:
             t = torch.rand(x.shape[0], 1, generator=g, device=dev)
             out["k1_t"] = ms(lambda: fm.fused_fwd_cuda(packed_t, cfg_t, x, dr, er, t), iters)
+            out["k1_f32_t"] = ms(lambda: fm.fused_fwd_cuda(p32_t, c32_t, x, dr, er, t), iters)
         out["k8" + key] = ms(lambda: fm.fused_bwd_cuda(packed, cfg, x, dr, er, g_rgb, g_sig),
                              max(2, iters // 2))
         # the f32 K8, without and with time

@@ -1231,23 +1231,42 @@ def test_f32_serving_kernels_agree_bit_for_bit_on_a_chunk(dev):
 
 
 @pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
-@pytest.mark.parametrize("n", [37, 129, 65536, 131072])
+@pytest.mark.parametrize("n", [37, 128, 129, 65536, 131072])
 def test_mlp_fwd_f32_kernel_matches_plain(dev, n, use_time):
-    """K1's f32 variant (csrc/mlp_fwd_f32.cu, 64-row blocks) below one
-    block, a block and a row past it, and at the coarse and fine row counts
-    of a 1024-ray batch; the appearance projection packed as zeros at 129."""
-    cfg, model, *_ = _inputs(dev, use_time=use_time)
-    cfg = cfg.replace(use_bf16=False)
+    """K1's f32 variant (csrc/mlp_fwd_f32.cu on field_f32_sm90.cuh's
+    3xTF32 tile, 128-row tiles) below one tile, exactly one, a row past it,
+    and at the coarse and fine row counts of a 1024-ray batch; the
+    appearance projection packed as zeros at 129.  Within PLAIN_TOL_F32 of
+    its f32 plain version, two calls bit for bit, one f32 launch a call and
+    no bf16 one; rows 5..133 alone (other tiles, another grid) bit for bit
+    as in the whole call; the bf16 K1's error against the same f32 outputs
+    at least F32_GAIN times larger."""
+    cfg16, model, *_ = _inputs(dev, use_time=use_time)
+    cfg = cfg16.replace(use_bf16=False)
     x, d, emb, g = _rows(n, cfg, dev)
     t = torch.rand(n, 1, generator=g, device=dev) if use_time else None
     packed = pack_params(model, cfg, appearance=n != 129)
     emb = emb if n != 129 else torch.zeros_like(emb)
     fr.reset_launch_counts()
     rk, sk = fm.fused_fwd_cuda(packed, cfg, x, d, emb, t)
-    assert fr.LAUNCHES["mlp_fwd_f32"] == 1 and sum(fr.LAUNCHES.values()) == 1
+    rk2, sk2 = fm.fused_fwd_cuda(packed, cfg, x, d, emb, t)
+    assert fr.LAUNCHES["mlp_fwd_f32"] == 2 and sum(fr.LAUNCHES.values()) == 2
+    assert torch.equal(rk, rk2) and torch.equal(sk, sk2)
+    if n > 133:
+        part = slice(5, 134)
+        rs, ss = fm.fused_fwd_cuda(packed, cfg, x[part], d[part], emb[part],
+                                   None if t is None else t[part])
+        assert torch.equal(rs, rk[part]) and torch.equal(ss, sk[part])
     rp, sp = fm.fused_fwd_plain(packed, cfg, x, d, emb, t)
-    assert float((rk - rp).abs().max()) <= TOL32["field_rgb"]
-    assert float(((sk - sp) / sp.abs().clamp_min(1.0)).abs().max()) <= TOL32["field_sigma"]
+
+    def errs(rgb, sigma):
+        return (float((rgb - rp).abs().max()),
+                float(((sigma - sp) / sp.abs().clamp_min(1.0)).abs().max()))
+    e32 = errs(rk, sk)
+    assert e32[0] <= TOL32["field_rgb"] and e32[1] <= TOL32["field_sigma"], e32
+    e16 = errs(*fm.fused_fwd_cuda(pack_params(model, cfg16, appearance=n != 129), cfg16, x, d,
+                                  emb, t))
+    assert max(e16) >= F32_GAIN * max(e32), (e16, e32)
 
 
 def test_f32_frame_launches_only_f32_kernels(dev):

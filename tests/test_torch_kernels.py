@@ -161,12 +161,12 @@ def test_kernel_route_is_inference_only():
 def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
     """The forward kernels (K1, K2, K5) and the backward kernels (K3, K4,
     K6, K7, K8, K9) take both configurations, each on its own library and
-    weights: without use_bf16 the f32 K2 and K5 read the packed f32 weights
-    and their TF32 halves, the f32 K1 the weights transposed, and every
-    f32 backward kernel (K3, K4, K6, K7, K8, K9) the packed f32 weights
-    with their TF32 halves for the forward, the weights transposed for its
-    gate pass and the transposed weights' TF32 halves for the chain, with
-    each chain block's own offset."""
+    weights: without use_bf16 the f32 K1, K2 and K5 read the packed f32
+    weights and their TF32 halves, and every f32 backward kernel (K3, K4,
+    K6, K7, K8, K9) the packed f32 weights with their TF32 halves for the
+    forward, the weights transposed for its gate pass and the transposed
+    weights' TF32 halves for the chain, with each chain block's own
+    offset."""
     from danerf_tpu_torch.kernels import _build
     from danerf_tpu_torch.kernels.fused_mlp import bwd_weights, fwd_weights, transposed_mats
     from danerf_tpu_torch.models.nerf import NeRF
@@ -178,9 +178,8 @@ def test_check_kernel_cfg_forward_backward_split(use_bf16, backward):
         for name in ("march", "merged", "mlp_fwd"):
             lib, weights = fwd_weights(packed, cfg, name)
             assert lib == (name if use_bf16 else f"{name}_f32")
-            if use_bf16 or name == "mlp_fwd":
-                assert len(weights) == 1
-                assert weights[0] is (packed.mats if use_bf16 else packed.mats_kn)
+            if use_bf16:
+                assert len(weights) == 1 and weights[0] is packed.mats
             else:
                 mats, hi, lo = weights
                 assert mats is packed.mats and mats.dtype == torch.float32

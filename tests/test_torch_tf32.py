@@ -231,6 +231,92 @@ def test_3xtf32_field_predicts_f32_accuracy(monkeypatch, use_time):
         assert e32.get("z_vals", 0.0) == 0.0
 
 
+def _row_errs(got, want):
+    """The per-sample field's errors as chip_smoke.py takes K1's: rgb
+    absolute, sigma relative to max(1, |sigma|)."""
+    (rgb, sigma), (rgb_w, sigma_w) = got, want
+    return {"field_rgb": float((rgb - rgb_w).abs().max()),
+            "field_sigma": float(((sigma - sigma_w) / sigma_w.abs().clamp_min(1.0))
+                                 .abs().max())}
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+def test_3xtf32_k1_predicts_f32_accuracy(monkeypatch, use_time):
+    """A CPU prediction of the f32 K1's numerics (csrc/mlp_fwd_f32.cu on
+    the 3xTF32 row tile): its plain version, fused_fwd_plain, with the
+    trunk and dir-layer products formed by 3xTF32 (``_field_3xtf32``; the
+    appearance term an unsplit f32 product, as row_app4 forms it) at the
+    kernel's width (8 x 256) on the per-sample rows of 16 rays of 64
+    samples (``_rows_of``: 1,024 rows), lands within PLAIN_TOL_F32's
+    field_rgb and field_sigma of the f32 plain outputs, and the bf16 plain
+    version's error against the same outputs is at least F32_GAIN times
+    larger.  Measured here, without and with time: rgb and sigma within
+    6.0e-8 of the f32 plain outputs (PLAIN_TOL_F32: 3e-6, 1e-6), the bf16
+    error 8.2e-4 to 9.3e-4, ~14,000x larger.  It leaves out the tensor
+    cores' own summation order, which the card check covers."""
+    cfg16 = NeRFConfig(density_bias_init=0.5, use_time=use_time)
+    cfg = cfg16.replace(use_bf16=False)
+    model = NeRF(cfg, torch.Generator().manual_seed(6)).requires_grad_(False)
+    pk, pk16 = pack_params(model, cfg), pack_params(model, cfg16)
+    x, dr, er, tr = _rows_of(*_bwd_inputs(cfg, 16, 64, 7)[:5])
+    want = fm.fused_fwd_plain(pk, cfg, x, dr, er, tr)
+    e16 = _row_errs(fm.fused_fwd_plain(pk16, cfg16, x, dr, er, tr), want)
+    calls = []
+    dot = _field_3xtf32([pk.mat(f"w{i}") for i in range(cfg.num_layers)] + [pk.mat("wdir")])
+    monkeypatch.setattr(fm, "_dot", lambda a, w, cdt: calls.append(w.shape) or dot(a, w, cdt))
+    e32 = _row_errs(fm.fused_fwd_plain(pk, cfg, x, dr, er, tr), want)
+    monkeypatch.undo()
+    assert len(calls) == cfg.num_layers + 3   # the trunk, dir, appearance and rgb products
+    for k, v in e32.items():
+        assert v <= fr.PLAIN_TOL_F32[k], (k, v)
+    assert max(e16.values()) >= F32_GAIN * max(e32.values()), (e16, e32)
+
+
+# The 3xTF32-emulated K1 against the JAX f32 K1: the two packages sum in
+# other orders and the emulation splits its products' operands into TF32
+# halves; measured 1.2e-7 (rgb) and 6.0e-8 (sigma) at this size, the
+# limit ~10x above.
+K1_JAX_TOL = {"field_rgb": 1e-6, "field_sigma": 1e-6}
+
+
+@pytest.mark.parametrize("use_time", [False, True], ids=["no_time", "time"])
+def test_3xtf32_k1_matches_jax(monkeypatch, use_time):
+    """The 3xTF32-emulated K1 (as above) against the JAX package's f32 K1,
+    fused_nerf_apply with use_bf16=False (``_fused_fwd_call``'s Pallas
+    kernel in interpret mode), at a small size (hidden 64, 4 layers, skip
+    at 2; with time 3 levels) on the per-sample rows of 20 rays of 16
+    seeded numpy samples, the weights from the JAX initialiser through
+    params_from_jax: within K1_JAX_TOL (rgb absolute, sigma relative to
+    max(1, |sigma|))."""
+    n, s = 20, 16
+    over = dict(use_time=True, time_enc_levels=3) if use_time else {}
+    jcfg = JaxConfig(**SMALL, use_bf16=False, **over)
+    cfg = NeRFConfig(**SMALL, use_bf16=False, **over)
+    params = jax.tree.map(np.asarray, init_nerf_params(jax.random.key(8), jcfg))
+    model = params_from_jax_module(params, cfg, device="cpu").requires_grad_(False)
+    rng = np.random.default_rng(8)
+    o = (rng.normal(size=(n, 3)) * 0.1 + [0.0, 0.0, 4.0]).astype(np.float32)
+    d = (rng.normal(size=(n, 3)) * 0.2 + [0.0, 0.0, -1.0]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    emb = rng.normal(size=(n, cfg.appearance_dim)).astype(np.float32)
+    edges = np.linspace(2.0, 6.0, s + 1, dtype=np.float32)
+    z = (edges[:-1] + rng.random((n, s)) * (edges[1] - edges[0])).astype(np.float32)
+    t = rng.random((n, 1)).astype(np.float32) if use_time else None
+    x, dr, er, tr = _rows_of(*(torch.tensor(v) for v in (o, d, emb, z)),
+                             None if t is None else torch.tensor(t))
+    j_rgb, j_sigma = j_fused_nerf_apply(params, jcfg, x.numpy(), dr.numpy(), er.numpy(),
+                                        t=None if tr is None else jnp.asarray(tr.numpy()))
+    pk = pack_params(model, cfg)
+    dot = _field_3xtf32([pk.mat(f"w{i}") for i in range(cfg.num_layers)] + [pk.mat("wdir")])
+    monkeypatch.setattr(fm, "_dot", dot)
+    rgb, sigma = fm.fused_fwd_plain(pk, cfg, x, dr, er, tr)
+    monkeypatch.undo()
+    errs = _row_errs((rgb, sigma[:, 0]), (torch.tensor(np.asarray(j_rgb)),
+                                          torch.tensor(np.asarray(j_sigma))))
+    for k, v in errs.items():
+        assert v <= K1_JAX_TOL[k], (k, v)
+
+
 # ---------------------------------------------------------------- backward
 
 def _x3(a, b):
