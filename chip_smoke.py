@@ -193,12 +193,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             three default shaders on a 200x200 K2/K5 frame and its depth;
             the fx fallback on the card against the CPU within
             fx.effects.levels_apart.
-7f. loaders the port's JPEG decoder on the committed fixture
-            (tests/data_torch/frame.jpg) and its Lanczos downscale by 8 of
-            the fixture RGBA PNG, each equal to the sha256 of PIL's output
-            stored beside them, with their host ms; a custom-format scene
-            of those frames through load_dataset.  7e and 7f run before any
-            torch.profiler window.
+7f. loaders the port's decoders on the committed fixtures
+            (tests/data_torch/, README.md there), each equal to the sha256
+            of PIL's output stored beside them, with their host ms (median
+            of 3): the baseline frame.jpg and the Lanczos downscale by 8 of
+            the fixture RGBA PNG; progressive JPEGs (frame.jpg's pixels,
+            4:2:0 with restarts; gray); an 800x800 picture baseline and
+            progressive, side by side; a 4-bit palette PNG with tRNS, a
+            16-bit RGBA, an Adam7 RGB and a 2-bit gray PNG (read_png, and
+            read_rgb against PIL's convert("RGB")); a custom-format scene of
+            frame.jpg and a PNG through load_dataset.  Then, at full width:
+            train() (no CLI has a dataset-type flag) for 50 steps on a
+            custom scene of the progressive JPEGs and the palette and Adam7
+            PNGs (exactly one K2, K4, K3 a step, a rising PSNR), evaluate()
+            of its checkpoint on the val view with the embedding fit (one K2
+            and K5 for the view, K2, K5, K6, K3 a fit step), within EVAL_TOL
+            of use_kernels off; `cli.main train` for 30 steps on a Blender
+            scene of the 16-bit RGBA, Adam7 and palette PNGs (PIL's alphas
+            in the dataset, one K2, K4, K3 a step).  7e and 7f run before
+            any torch.profiler window.
 7a. fx      the depth-aware effects (danerf_tpu_torch/fx/, plain PyTorch
             ops, no kernel of their own): each of the 14 with and without
             depth on a seeded 800x800 frame and depth, on the card against
@@ -293,7 +306,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
 under "has_time"; K2, K5, K3 and K6 with the launches of 7e's kernel-route
-runs under "eval_launches"; K2, K4 and K3 with those of hier_dp under
+runs under "eval_launches"; K2-K6 with those of 7f's fixture scenes under
+"loaders_launches"; K2, K4 and K3 with those of hier_dp under
 "dp_train_launches", K2 and K5 with a sharded frame's, K1 with a sharded
 chunk's; the f32 variants of K2, K5 and K1 after the nine, with the
 launches of 4e's f32 frames and per-sample routes, the has_time variants'
@@ -4030,30 +4044,118 @@ def phase_eval_timing(cfg, model, device, side=800, views=2):
     return report
 
 
-def phase_loaders(out_dir):
-    """The port's own loaders on the card's host (no imaging library there):
-    the committed fixture JPEG (4:2:0, a restart interval) through
-    data/jpeg.py and the fixture RGBA PNG downscaled by 8 through
-    data/resize.py, each against the sha256 of PIL's output stored beside
-    them (tests/data_torch/pil_digests.json, computed where PIL is); their
-    ms (median of 3); then a custom-format scene of those frames (two JPEGs
-    and a PNG) through load_dataset."""
+# The fixtures of the loaders phase beside frame.jpg / frame_rgba.png, each
+# with the digests of PIL's pixels (tests/data_torch/README.md says how each
+# was made): what read_png or read_jpeg gives under its own name, and a PNG's
+# convert("RGB") (read_rgb) under "NAME rgb"
+LOADER_FIXTURES = ("frame_progressive.jpg", "gray_progressive.jpg", "picture_800.jpg",
+                   "picture_800_progressive.jpg", "palette_trns.png", "rgba16.png",
+                   "adam7_rgb.png", "gray2.png")
+# the custom scene (three frames to train on, the last to validate on) and the
+# Blender scene of the fixtures
+LOADER_CUSTOM = ("frame_progressive.jpg", "palette_trns.png", "gray_progressive.jpg",
+                 "adam7_rgb.png")
+LOADER_BLENDER = ("rgba16.png", "adam7_rgb.png", "palette_trns.png")
+LOADER_TRAIN_ITERS = {"custom": 50, "blender": 30}
+
+
+def _digest(a):
     import hashlib
-    import shutil
 
     import numpy as np
 
+    a = np.ascontiguousarray(a)
+    return {"shape": list(a.shape), "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+
+def _median_ms(fn, reps=3):
+    each = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        each.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(each)[reps // 2], each
+
+
+def _loader_rows(save, iters, warmup=5):
+    """metrics.jsonl of a run: one row a step, finite losses; the PSNR means
+    of the first and last quarter after the warm-up."""
+    import numpy as np
+
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["step"] for r in rows] != list(range(1, iters + 1)):
+        raise AssertionError(f"loaders: {save}/metrics.jsonl does not hold one row a step")
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"loaders: a logged loss of {save} is not finite")
+    q = (iters - warmup) // 4
+    return {"loss_first": rows[0]["loss"], "loss_last": rows[-1]["loss"],
+            "psnr_first": float(np.mean([r["psnr"] for r in rows[warmup:warmup + q]])),
+            "psnr_last": float(np.mean([r["psnr"] for r in rows[-q:]]))}
+
+
+def _fixture_scene_poses(n):
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+
+    return make_synthetic_scene(split="train", n_images=n, height=8, width=8,
+                                n_samples=4).c2ws
+
+
+def phase_loaders(out_dir):
+    """The port's own loaders on the card's host (no imaging library there).
+
+    Each committed fixture (tests/data_torch/) decoded and held against the
+    sha256 of PIL's pixels stored beside it (pil_digests.json, computed
+    where PIL is), with its ms (median of 3): the baseline frame.jpg (4:2:0,
+    a restart interval), the fixture RGBA PNG and its Lanczos downscale by
+    8, and LOADER_FIXTURES: progressive JPEGs (frame.jpg's pixels, 4:2:0
+    with restarts; gray), an 800x800 picture baseline and progressive (the
+    two decodes side by side), a 4-bit palette PNG with tRNS, a 16-bit
+    RGBA, an Adam7 RGB and a 2-bit gray PNG (read_png, and read_rgb against
+    PIL's convert("RGB")).  A custom scene of frame.jpg and a PNG through
+    load_dataset, as before.  Then two entry points at full width on
+    scenes of those files (the procedural scene's poses):
+
+    - the library's train() (neither CLI has a dataset-type flag) on a
+      custom scene of the progressive JPEGs and the palette and Adam7 PNGs
+      (dataset_type="custom"; its images equal PIL's digests), 50 steps of
+      64 + 64: exactly one K2, K4 and K3 launch a step, finite losses, a
+      rising PSNR; then evaluate() of its checkpoint on the val view with
+      the embedding fit (one K2 and one K5 for the view, K2, K5, K6 and K3
+      a fit step), within EVAL_TOL of the same call with use_kernels off;
+    - `cli.main train` on a Blender scene (transforms_train.json) of the
+      16-bit RGBA, Adam7 and palette + tRNS PNGs, 30 steps: the frames'
+      alphas in the dataset (PIL's), exactly one K2, K4 and K3 a step,
+      finite losses.
+
+    Returns the launches of the three runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.cli.main import main as cli_main
     from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.custom import read_rgb
     from danerf_tpu_torch.data.dataset import load_dataset
     from danerf_tpu_torch.data.jpeg import read_jpeg
     from danerf_tpu_torch.data.png import read_png
     from danerf_tpu_torch.data.resize import lanczos_resize
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.train.evaluate import evaluate
+    from danerf_tpu_torch.train.trainer import train
+    from danerf_tpu_torch.utils.checkpoint import load_model
     from danerf_tpu_torch.viz.png import write_png
 
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch")
     with open(os.path.join(data, "pil_digests.json")) as f:
         stored = json.load(f)
     jpg, png = os.path.join(data, "frame.jpg"), os.path.join(data, "frame_rgba.png")
+
+    def held(key, out):
+        got = _digest(out)
+        if got != stored[key]:
+            raise AssertionError(f"loaders: {key} gives {got}, PIL {stored[key]}")
 
     rgba = read_png(png)
     report = {}
@@ -4062,16 +4164,26 @@ def phase_loaders(out_dir):
             ("png_decode", None, lambda: read_png(png)),
             ("lanczos_8", "frame_rgba.png lanczos 8",
              lambda: lanczos_resize(rgba, rgba.shape[1] // 8, rgba.shape[0] // 8))):
-        each = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            out = np.ascontiguousarray(fn())
-            each.append((time.perf_counter() - t0) * 1e3)
-        got = {"shape": list(out.shape), "sha256": hashlib.sha256(out.tobytes()).hexdigest()}
-        if key is not None and got != stored[key]:
-            raise AssertionError(f"loaders: {key} gives {got}, PIL {stored[key]}")
-        report[name] = {"ms": sorted(each)[1], "each_ms": each, "shape": got["shape"],
+        out, ms, each = _median_ms(fn)
+        if key is not None:
+            held(key, out)
+        report[name] = {"ms": ms, "each_ms": each, "shape": list(out.shape),
                         "held_against_pil": key is not None}
+    fixtures = {}
+    for name in LOADER_FIXTURES:
+        path = os.path.join(data, name)
+        read = read_jpeg if name.endswith(".jpg") else read_png
+        out, ms, each = _median_ms(lambda: read(path))
+        held(name, out)
+        fixtures[name] = {"ms": ms, "each_ms": each, "shape": list(out.shape),
+                          "dtype": str(out.dtype)}
+        if name.endswith(".png"):
+            held(f"{name} rgb", read_rgb(path))
+    report["fixtures"] = fixtures
+    base, prog = (fixtures[f"picture_800{s}.jpg"]["ms"] for s in ("", "_progressive"))
+    report["decode_800x800"] = {"baseline_ms": base, "progressive_ms": prog,
+                                "progressive_over_baseline": prog / base}
+
     scene = os.path.join(out_dir, "custom_scene")
     shutil.rmtree(scene, ignore_errors=True)
     images = os.path.join(scene, "images")
@@ -4086,18 +4198,123 @@ def phase_loaders(out_dir):
         json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
     cfg = NeRFConfig(dataset_type="custom", dataset_path=images)
     t0 = time.perf_counter()
-    train = load_dataset(cfg, "train")
+    train_ds = load_dataset(cfg, "train")
     val = load_dataset(cfg, "val")
     load_ms = (time.perf_counter() - t0) * 1e3
-    if (train.images.shape != (2,) + tuple(stored["frame.jpg"]["shape"])
-            or not np.array_equal(train.images[1], rgb) or val.n_images != 1
-            or not np.array_equal(val.images[0], train.images[0])
-            or not (train.alphas == 255).all()):
-        raise AssertionError(f"loaders: the custom scene loads as {train.images.shape}")
-    report["custom_scene"] = {"train": list(train.images.shape), "val": list(val.images.shape),
-                              "focal": train.focal, "load_ms": load_ms}
+    if (train_ds.images.shape != (2,) + tuple(stored["frame.jpg"]["shape"])
+            or not np.array_equal(train_ds.images[1], rgb) or val.n_images != 1
+            or not np.array_equal(val.images[0], train_ds.images[0])
+            or not (train_ds.alphas == 255).all()):
+        raise AssertionError(f"loaders: the custom scene loads as {train_ds.images.shape}")
+    report["custom_scene"] = {"train": list(train_ds.images.shape),
+                              "val": list(val.images.shape), "focal": train_ds.focal,
+                              "load_ms": load_ms}
+
+    per_step = PATHS["hier"][1]
+    launches = {}
+    # the library's train() on a custom scene of the progressive JPEGs and
+    # the palette and Adam7 PNGs, then evaluate() with the fit
+    scene = os.path.join(out_dir, "custom_fixture_scene")
+    shutil.rmtree(scene, ignore_errors=True)
+    images = os.path.join(scene, "images")
+    os.makedirs(images)
+    poses = _fixture_scene_poses(len(LOADER_CUSTOM))
+    frames = []
+    for name, c2w in zip(LOADER_CUSTOM, poses):
+        shutil.copy(os.path.join(data, name), os.path.join(images, name))
+        frames.append({"file_path": name, "transform_matrix": np.asarray(c2w).tolist()})
+    with open(os.path.join(scene, "transforms.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+    cfg = NeRFConfig(dataset_type="custom", dataset_path=images, density_bias_init=0.5)
+    t0 = time.perf_counter()
+    ds, val = load_dataset(cfg, "train"), load_dataset(cfg, "val")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    for img, name in zip([*ds.images, *val.images], LOADER_CUSTOM):
+        held(name if name.endswith(".jpg") else f"{name} rgb", img)
+    iters = LOADER_TRAIN_ITERS["custom"]
+    save = os.path.join(out_dir, "train_custom_fixtures")
+    shutil.rmtree(save, ignore_errors=True)
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    train(cfg, ds, save_dir=save, num_iterations=iters, seed=0, device="cuda",
+          log_path=os.path.join(save, "metrics.jsonl"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["custom_train"] = dict(fr.LAUNCHES)
+    if launches["custom_train"] != launches_of(per_step, iters):
+        raise AssertionError(f"loaders: custom train() launches {launches['custom_train']}, "
+                             f"expected {launches_of(per_step, iters)}")
+    rows = _loader_rows(save, iters)
+    if not rows["psnr_last"] > rows["psnr_first"]:
+        raise AssertionError(f"loaders: custom train() PSNR did not rise {rows}")
+    model, _, _, mcfg = load_model(os.path.join(save, "checkpoint_final.pt"), cfg, "cuda")
+    model.requires_grad_(False)
+    evals = {}
+    for route, c in (("kernel", mcfg), ("plain", mcfg.replace(use_kernels=False))):
+        fr.reset_launch_counts()
+        res = evaluate(model, c, val, max_views=1, optimize_embeddings=True,
+                       opt_steps=EVAL_OPT_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        evals[route] = {"launches": dict(fr.LAUNCHES), "psnr": res["per_view"][0]["psnr"],
+                        "ssim": res["per_view"][0]["ssim"], "protocol": res["protocol"]}
+    chunks = -(-val.height * val.width // mcfg.render_chunk)
+    want = {k: v + (chunks if k in ("march", "merged") else 0)
+            for k, v in eval_launches(["--optimize_embeddings"], 1, size=0).items()}
+    launches["custom_eval"] = evals["kernel"]["launches"]
+    delta = {k: abs(evals["kernel"][k.split("_")[0]] - evals["plain"][k.split("_")[0]])
+             for k in EVAL_TOL}
+    if (launches["custom_eval"] != want or any(evals["plain"]["launches"].values())
+            or not math.isfinite(evals["kernel"]["psnr"])
+            or not all(delta[k] <= EVAL_TOL[k] for k in EVAL_TOL)):
+        raise AssertionError(f"loaders: evaluate on the custom scene {evals}, expected "
+                             f"launches {want}, within {EVAL_TOL}")
+    report["custom_train"] = {"frames": list(LOADER_CUSTOM), "load_ms": load_ms,
+                              "shape": list(ds.images.shape), "iters": iters,
+                              "seconds": secs, "launches": launches["custom_train"], **rows,
+                              "evaluate": evals, "evaluate_delta": delta, "tol": EVAL_TOL}
+
+    # `cli.main train` on a Blender scene of the 16-bit RGBA, Adam7 and
+    # palette + tRNS PNGs
+    root = os.path.join(out_dir, "blender_fixture_scene")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "fixtures", "train"))
+    frames = []
+    for i, (name, c2w) in enumerate(zip(LOADER_BLENDER, _fixture_scene_poses(3))):
+        shutil.copy(os.path.join(data, name), os.path.join(root, "fixtures", "train",
+                                                           f"r_{i}.png"))
+        frames.append({"file_path": f"./train/r_{i}",
+                       "transform_matrix": np.asarray(c2w).tolist()})
+    with open(os.path.join(root, "fixtures", "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+    ds = load_dataset(NeRFConfig(dataset_path=root, scene="fixtures"), "train")
+    for i, name in enumerate(LOADER_BLENDER):
+        want_px = read_png(os.path.join(data, name))
+        held(name, np.concatenate([ds.images[i], ds.alphas[i][..., None]], -1)
+             if want_px.shape[-1] == 4 else ds.images[i])
+        if want_px.shape[-1] != 4 and not (ds.alphas[i] == 255).all():
+            raise AssertionError(f"loaders: Blender frame {name} has alphas below 255")
+    if not (ds.alphas < 255).any():
+        raise AssertionError("loaders: no alpha of the Blender scene reached the dataset")
+    iters = LOADER_TRAIN_ITERS["blender"]
+    save = os.path.join(out_dir, "train_blender_fixtures")
+    shutil.rmtree(save, ignore_errors=True)
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_main(["train", "--dataset_path", root, "--scene", "fixtures", "--iters", str(iters),
+              "--save_dir", save, "--device", "cuda", "--seed", "0", "--density_bias_init",
+              "0.5"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["blender_train"] = dict(fr.LAUNCHES)
+    if launches["blender_train"] != launches_of(per_step, iters):
+        raise AssertionError(f"loaders: Blender train launches {launches['blender_train']}, "
+                             f"expected {launches_of(per_step, iters)}")
+    report["blender_train"] = {"frames": list(LOADER_BLENDER), "iters": iters,
+                               "seconds": secs, "launches": launches["blender_train"],
+                               "alpha_below_255_share": float((ds.alphas < 255).mean()),
+                               **_loader_rows(save, iters)}
     emit({"phase": "loaders", **report})
-    return report
+    return launches
 
 
 # ---------------------------------------------------------------- parallel
@@ -4660,7 +4877,7 @@ def main(argv=None):
     # evaluation on those checkpoints (K2, K5 a frame chunk; the fit's K2, K5,
     # K6, K3 a step), before any torch.profiler window
     eval_counts = phase_eval(args.out)
-    phase_loaders(args.out)
+    loader_counts = phase_loaders(args.out)
     phase_native(cfg, model, args.out, device)
     # the depth-aware effects and the renders that feed them, timed before
     # any torch.profiler window (phase_train_timing's): timed after one, the
@@ -4795,6 +5012,14 @@ def main(argv=None):
                    "K6": "merged_bwd"}.get(rec["name"][:2])
         if counter:
             rec["eval_launches"] = eval_counts[counter]
+    # the loaders phase's runs on the fixture scenes: train() on the custom
+    # scene and `cli.main train` on the Blender scene (K2, K4, K3), evaluate()
+    # with the fit on the custom scene's val view (K2, K5, K6, K3)
+    for rec in kernels:
+        counter = {"K2": "march", "K3": "march_bwd", "K4": "merged_train", "K5": "merged",
+                   "K6": "merged_bwd"}.get(rec["name"][:2])
+        if counter:
+            rec["loaders_launches"] = {run: c[counter] for run, c in loader_counts.items()}
     # data parallelism: the launches of the data-parallel training run (K2,
     # K4, K3), of a sharded 800x800 frame on the one rank (K2, K5) and of
     # make_sharded_render's 65,536-ray chunk (K1)

@@ -2,9 +2,16 @@
 ``transforms_{split}.json`` with per-frame ``file_path`` and
 ``transform_matrix``, focal from ``camera_angle_x`` (else ``fl_x``, else a
 55-degree field of view), RGBA frames with the alpha split off.  Images are
-decoded once, by the port's own PNG decoder; ``downscale > 1`` shrinks each
-to (W // k, H // k) with ``data/resize.lanczos_resize`` (PIL's LANCZOS, an
-alpha channel resized premultiplied) and divides ``fl_x`` by k.
+decoded once, by the port's own PNG decoder (``data/png.py``), to the
+array of the mode PIL opens, as the JAX loader's ``np.asarray`` takes it:
+gray, gray + alpha, RGB or RGBA, 16-bit colour as its high byte, any
+interlacing.  Where PIL's array is not pixels, the port differs from the
+JAX loader: a palette is expanded to RGB (RGBA with tRNS) where JAX takes
+the indices, a 1-bit frame is 0/255 (``convert("L")``) where JAX takes a
+bool array, and a 16-bit gray frame raises ValueError where JAX takes
+uint16 samples as 8-bit ones.  ``downscale > 1`` shrinks each to (W // k,
+H // k) with ``data/resize.lanczos_resize`` (PIL's LANCZOS, an alpha
+channel resized premultiplied) and divides ``fl_x`` by k.
 ``save_blender_scene`` writes a dataset in that layout (RGBA PNGs through
 the port's own PNG writer).
 """
@@ -34,7 +41,11 @@ def load_blender_scene(scene_dir: str, split: str = "train", near: float = 2.0,
         fp = frame["file_path"]
         if fp.startswith("./"):
             fp = fp[2:]
-        arr = read_png(os.path.join(scene_dir, fp + ".png"))
+        path = os.path.join(scene_dir, fp + ".png")
+        arr = read_png(path)
+        if arr.dtype != np.uint8:
+            raise ValueError(f"{path}: a 16-bit gray frame (PIL mode I;16) is not an 8-bit "
+                             "image; save it as 8-bit or 16-bit RGB(A)")
         if downscale > 1:
             arr = lanczos_resize(arr, arr.shape[1] // downscale, arr.shape[0] // downscale)
         if arr.ndim == 2:

@@ -6,8 +6,8 @@
 val/test split the last frame; alphas are all 255.
 
 Each image is read by its signature, as ``Image.open(...).convert("RGB")``
-reads it: a PNG by ``data/png.py`` (gray expanded to RGB, an alpha channel
-dropped), a JPEG by ``data/jpeg.py``.
+reads it (``read_rgb``): a PNG by ``data/png.py``, a JPEG, sequential or
+progressive, by ``data/jpeg.py``.
 """
 
 from __future__ import annotations
@@ -33,7 +33,10 @@ def _split_frames(meta: dict, split: str) -> list:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """A PNG or JPEG file as (H, W, 3) uint8 RGB."""
+    """A PNG or JPEG file as (H, W, 3) uint8 RGB, as PIL's
+    ``Image.open(path).convert("RGB")`` gives it: gray repeated, an alpha
+    channel dropped (also a palette's tRNS), 16-bit gray clipped at 255 (PIL
+    clips mode I;16, it does not scale it)."""
     from danerf_tpu_torch.data.jpeg import read_jpeg
     from danerf_tpu_torch.data.png import read_png
 
@@ -45,7 +48,7 @@ def read_rgb(path: str) -> np.ndarray:
         raise ValueError(f"{path}: neither a PNG nor a JPEG file")
     arr = read_png(path)
     if arr.ndim == 2:
-        arr = arr[..., None]
+        arr = np.minimum(arr, 255).astype(np.uint8)[..., None]
     if arr.shape[-1] <= 2:                              # gray [+ alpha]
         return np.repeat(arr[..., :1], 3, axis=-1)
     return np.ascontiguousarray(arr[..., :3])

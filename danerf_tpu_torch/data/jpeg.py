@@ -1,16 +1,27 @@
-"""Baseline JPEG decoder in numpy, for the custom loader (``data/custom.py``),
-which the JAX package reads with PIL.
+"""JPEG decoder in numpy, for the custom loader (``data/custom.py``), which
+the JAX package reads with PIL.
 
-Decodes what a baseline libjpeg build decodes for it: SOF0/SOF1 frames of
-8-bit samples, Huffman-coded, one component (gray, expanded to RGB as
-``Image.convert("RGB")`` does) or three (YCbCr, or RGB under an Adobe
-transform of 0 or component ids R, G, B), chroma sampled 4:4:4, 4:2:2 or
-4:2:0, interleaved or one scan a component, restart intervals
-(DRI/RSTn), stuffed 0xFF00 bytes, and any size (the partial MCUs at the
-right and bottom edges are cropped).  Progressive (SOF2), lossless and
-hierarchical frames, arithmetic coding, 12-bit samples and four
-components (CMYK, YCCK) raise ``ValueError`` naming the feature, as do
-other chroma samplings (4:4:0, 4:1:1).
+Decodes what libjpeg decodes for PIL: sequential (SOF0/SOF1) and
+progressive (SOF2) frames of 8-bit samples, Huffman-coded, one component
+(gray, expanded to RGB as ``Image.convert("RGB")`` does) or three (YCbCr,
+or RGB under an Adobe transform of 0 or component ids R, G, B), chroma
+sampled 4:4:4, 4:2:2 or 4:2:0, interleaved or one scan a component,
+restart intervals (DRI/RSTn), stuffed 0xFF00 bytes, Huffman tables defined
+between scans, and any size (the partial MCUs at the right and bottom
+edges are cropped).  Each component's quantization table is latched at its
+first scan, as libjpeg latches it.  Lossless and hierarchical frames,
+arithmetic coding, 12-bit samples and four components (CMYK, YCCK) raise
+``ValueError`` naming the feature, as do other chroma samplings (4:4:0,
+4:1:1) and truncated or corrupt files.
+
+Progressive scans are decoded as libjpeg's ``jdphuff.c`` decodes them
+(DC first and refine, AC first with end-of-band runs, AC refine with its
+correction bits) into the coefficients a sequential frame gives.  libjpeg
+smooths the blocks of a progressive image whose low AC coefficients
+(zigzag 1-9 of any component) were never sent or not refined to their
+last bit (``jdcoefct.c``, block smoothing); such a file raises
+``ValueError`` instead.  Every script that refines every band to its last
+bit, which PIL's writer always does, decodes to PIL's pixels.
 
 To give PIL's pixels (libjpeg-turbo with its defaults) the decoder copies
 libjpeg's integer arithmetic: the slow integer IDCT (``jidctint.c``,
@@ -21,8 +32,11 @@ planes at most 2 samples wide), and the fixed-point YCbCr to RGB tables
 of ``jdcolor.c`` (16 fractional bits).
 
 The Huffman decode is serial: one 16-bit peek and one table lookup a
-symbol over the de-stuffed bytes of each restart interval.  Dequantizing,
-the IDCT, upsampling and colour conversion are vectorised over all blocks.
+symbol over the de-stuffed bytes of each restart interval.  A refinement
+scan walks only the coefficients that were non-zero when it began (found
+with numpy) and reads their correction bits from the unpacked segment
+afterwards.  Dequantizing, the IDCT, upsampling and colour conversion are
+vectorised over all blocks.
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ _ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-_SOF_NAMES = {0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+_SOF_NAMES = {0xC3: "lossless JPEG (SOF3)",
               0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
               0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic coding (SOF9)",
               0xCA: "arithmetic coding (SOF10)", 0xCB: "arithmetic coding (SOF11)",
@@ -117,6 +131,144 @@ def _decode_segment(seg: bytes, units, pos, val):
                 break
         if p > limit:
             raise ValueError("corrupt JPEG data: the scan ends early")
+
+
+def _dc_first(seg: bytes, blocks, tabs, al, pos, val):
+    """A progressive DC first scan's restart interval: each block's DC
+    difference, its predictor's sum shifted left by ``al``.  ``blocks``:
+    (flat index of coefficient 0, component) in scan order; ``tabs``: each
+    component's DC table."""
+    w = _windows(seg)
+    p = 0
+    pred = {}
+    for base, ci in blocks:
+        look = tabs[ci][(w[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        if not look:
+            raise ValueError("corrupt JPEG data: bad Huffman code")
+        p += look >> 8
+        s = look & 0xFF
+        diff = 0
+        if s:
+            v = (w[p >> 3] >> (32 - (p & 7) - s)) & ((1 << s) - 1)
+            p += s
+            diff = v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+        dcv = pred.get(ci, 0) + diff
+        pred[ci] = dcv
+        if dcv:
+            pos.append(base)
+            val.append(dcv << al)
+    return p
+
+
+def _ac_first(seg: bytes, bases, tab, ss, se, al, pos, val):
+    """A progressive AC first scan's restart interval over one component's
+    blocks (``bases``): the band ``ss..se`` of each, shifted left by
+    ``al``, with end-of-band runs (EOBn) that skip whole blocks."""
+    w = _windows(seg)
+    p = 0
+    eobrun = 0
+    i, n = 0, len(bases)
+    while i < n:
+        if eobrun:
+            skip = min(eobrun, n - i)
+            i += skip
+            eobrun -= skip
+            continue
+        base = bases[i]
+        i += 1
+        k = ss
+        while k <= se:
+            look = tab[(w[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+            if not look:
+                raise ValueError("corrupt JPEG data: bad Huffman code")
+            p += look >> 8
+            rs = look & 0xFF
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                if k > se:
+                    raise ValueError("corrupt JPEG data: coefficient index past the band")
+                v = (w[p >> 3] >> (32 - (p & 7) - s)) & ((1 << s) - 1)
+                p += s
+                pos.append(base + k)
+                val.append((v - (1 << s) + 1 if v < (1 << (s - 1)) else v) << al)
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += (w[p >> 3] >> (32 - (p & 7) - r)) & ((1 << r) - 1)
+                    p += r
+                eobrun -= 1
+                break
+    return p
+
+
+def _ac_refine(seg: bytes, bases, nzk, off, tab, ss, se, al, pos, val, cp, cj):
+    """A progressive AC refinement scan's restart interval over one
+    component's blocks, as ``jdphuff.c`` decode_mcu_AC_refine: new
+    coefficients of +-(1 << al) placed among the zeros, and one correction
+    bit for each coefficient that was non-zero when the scan began, also in
+    end-of-band runs.  Block i's non-zero band positions at the scan's
+    start are ``nzk[off[i]:off[i + 1]]``; the correction bits are not read
+    here: ``cp`` collects each one's bit offset in ``seg`` and ``cj`` its
+    index into ``nzk``."""
+    w = _windows(seg)
+    p = 0
+    eobrun = 0
+    p1 = 1 << al
+    for i, base in enumerate(bases):
+        j, b = off[i], off[i + 1]
+        k = ss
+        if not eobrun:
+            while k <= se:
+                look = tab[(w[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                if not look:
+                    raise ValueError("corrupt JPEG data: bad Huffman code")
+                p += look >> 8
+                rs = look & 0xFF
+                r = rs >> 4
+                if rs & 15:
+                    newv = p1 if (w[p >> 3] >> (31 - (p & 7))) & 1 else -p1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (w[p >> 3] >> (32 - (p & 7) - r)) & ((1 << r) - 1)
+                        p += r
+                    break
+                else:
+                    newv = 0
+                # pass over r zeros and the non-zero coefficients among them
+                # (a correction bit each) to the zero that takes newv
+                while True:
+                    nxt = nzk[j] if j < b else se + 1
+                    if r < nxt - k:
+                        k += r
+                        break
+                    r -= nxt - k
+                    k = nxt
+                    if k > se:
+                        break
+                    cp.append(p)
+                    cj.append(j)
+                    p += 1
+                    k += 1
+                    j += 1
+                if newv:
+                    if k > se:
+                        raise ValueError("corrupt JPEG data: coefficient index past the band")
+                    pos.append(base + k)
+                    val.append(newv)
+                k += 1
+        if eobrun:
+            if b > j:
+                cp.extend(range(p, p + b - j))
+                cj.extend(range(j, b))
+                p += b - j
+            eobrun -= 1
+    return p
 
 
 def _split_scan(data: bytes, start: int):
@@ -236,7 +388,8 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """The (H, W, 3) uint8 RGB pixels of a baseline JPEG file's bytes."""
+    """The (H, W, 3) uint8 RGB pixels of a JPEG file's bytes, sequential or
+    progressive."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qts, dc_tabs, ac_tabs = {}, {}, {}
@@ -250,7 +403,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         while i < len(data) and data[i] == 0xFF and i + 1 < len(data) and data[i + 1] == 0xFF:
             i += 1                                           # fill bytes
         if i + 2 > len(data) or data[i] != 0xFF:
-            raise ValueError("corrupt JPEG data: marker expected")
+            raise ValueError("corrupt JPEG data: marker expected (truncated file?)")
         m = data[i + 1]
         if m == 0xD9:                                        # EOI
             break
@@ -258,10 +411,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             raise ValueError("corrupt JPEG data: truncated marker")
         length = struct.unpack(">H", data[i + 2:i + 4])[0]
         body = data[i + 4:i + 2 + length]
+        if len(body) < length - 2:
+            raise ValueError("corrupt JPEG data: truncated marker segment")
         i += 2 + length
         if m in _SOF_NAMES:
             raise ValueError(f"unsupported JPEG: {_SOF_NAMES[m]}")
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
             prec, h, w, nc = struct.unpack(">BHHB", body[:6])
             if prec != 8:
                 raise ValueError(f"unsupported JPEG: {prec}-bit samples (8-bit only)")
@@ -273,8 +428,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             comps = []
             for c in range(nc):
                 cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
-                comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
-            frame = {"h": h, "w": w, "comps": comps}
+                comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq, "qt": None,
+                              "bits": [-1] * 64})
+            frame = {"h": h, "w": w, "comps": comps, "progressive": m == 0xC2}
             hmax = max(c["h"] for c in comps)
             vmax = max(c["v"] for c in comps)
             frame.update(hmax=hmax, vmax=vmax, mx=-(-w // (8 * hmax)), my=-(-h // (8 * vmax)))
@@ -319,71 +475,183 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 ci = next((j for j, cc in enumerate(frame["comps"]) if cc["id"] == cs), None)
                 if ci is None:
                     raise ValueError(f"corrupt JPEG data: scan of unknown component {cs}")
+                comp = frame["comps"][ci]
+                if comp["qt"] is None:                       # latched at the first scan
+                    if comp["tq"] not in qts:
+                        raise ValueError(f"corrupt JPEG data: no quantization table {comp['tq']}")
+                    comp["qt"] = qts[comp["tq"]]
                 sel.append((ci, t >> 4, t & 15))
             ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
-            if (ss, se, a) != (0, 63, 0):
-                raise ValueError("unsupported JPEG: progressive scan parameters")
+            if not frame["progressive"] and (ss, se, a) != (0, 63, 0):
+                raise ValueError("unsupported JPEG: spectral selection or successive "
+                                 "approximation in a sequential frame")
             segs, i = _split_scan(data, i)
-            _decode_scan(frame, sel, segs, restart, dc_tabs, ac_tabs, coefs)
+            try:
+                if frame["progressive"]:
+                    _progressive_scan(frame, sel, ss, se, a >> 4, a & 15, segs, restart,
+                                      dc_tabs, ac_tabs, coefs)
+                else:
+                    _decode_scan(frame, sel, segs, restart, dc_tabs, ac_tabs, coefs)
+            except (IndexError, KeyError) as e:
+                raise ValueError(f"corrupt JPEG data: {type(e).__name__} {e} in a scan") from None
         elif m == 0xDC:
             raise ValueError("unsupported JPEG: DNL marker")
         # other APPn, COM: skipped
     if frame is None:
         raise ValueError("corrupt JPEG data: no frame")
-    return _reconstruct(frame, coefs, qts, adobe, jfif)
+    if frame["progressive"]:
+        for ci, c in enumerate(frame["comps"]):
+            if c["bits"][0] < 0:
+                raise ValueError(f"corrupt JPEG data: no DC scan of component {ci}")
+            if any(c["bits"][1:10]):
+                raise ValueError(
+                    "unsupported JPEG: progressive scans leave AC coefficients 1-9 of "
+                    f"component {ci} unsent or unrefined (libjpeg smooths such blocks)")
+    return _reconstruct(frame, coefs, adobe, jfif)
 
 
-def _decode_scan(frame, sel, segs, restart, dc_tabs, ac_tabs, coefs):
-    """Huffman-decode one scan into ``coefs``: the zigzag coefficients of
-    every component's MCU-padded block grid, one flat array, component c's
-    from ``frame["offsets"][c]`` on."""
+def _scan_blocks(frame, sel):
+    """The MCUs of a scan, each a list of (flat index of a block's
+    coefficient 0, component): with one component its own blocks in raster
+    order (ceil(width / 8) a row, not the MCU-padded count), else the
+    interleaved MCUs of the padded grid."""
     comps, mx, my, off = frame["comps"], frame["mx"], frame["my"], frame["offsets"]
-    units = []
-    if len(sel) == 1:           # non-interleaved: the component's own blocks, in raster order
-        ci, td, ta = sel[0]
+    if len(sel) == 1:
+        ci = sel[0][0]
         c = comps[ci]
         cw = -(-frame["w"] * c["h"] // frame["hmax"])
         chh = -(-frame["h"] * c["v"] // frame["vmax"])
-        bw, bh = -(-cw // 8), -(-chh // 8)
         stride = mx * c["h"]
-        for by in range(bh):
-            for bx in range(bw):
-                units.append([(off[ci] + (by * stride + bx) * 64, dc_tabs[td], ac_tabs[ta],
-                               ci)])
-    else:
-        for y in range(my):
-            for x in range(mx):
-                mcu = []
-                for ci, td, ta in sel:
-                    c = comps[ci]
-                    stride = mx * c["h"]
-                    for v in range(c["v"]):
-                        for u in range(c["h"]):
-                            b = (y * c["v"] + v) * stride + x * c["h"] + u
-                            mcu.append((off[ci] + b * 64, dc_tabs[td], ac_tabs[ta], ci))
-                units.append(mcu)
-    per = restart or len(units)
-    n_seg = -(-len(units) // per)
+        return [[(off[ci] + (by * stride + bx) * 64, ci)]
+                for by in range(-(-chh // 8)) for bx in range(-(-cw // 8))]
+    mcus = []
+    for y in range(my):
+        for x in range(mx):
+            mcu = []
+            for ci, _, _ in sel:
+                c = comps[ci]
+                stride = mx * c["h"]
+                for v in range(c["v"]):
+                    for u in range(c["h"]):
+                        mcu.append((off[ci] + ((y * c["v"] + v) * stride + x * c["h"] + u) * 64,
+                                    ci))
+            mcus.append(mcu)
+    return mcus
+
+
+def _segments(mcus, segs, restart):
+    """The blocks of each restart interval, in scan order, with its bytes."""
+    per = restart or len(mcus)
+    n_seg = -(-len(mcus) // per)
     if len(segs) < n_seg:
         raise ValueError(f"corrupt JPEG data: {len(segs)} restart intervals, "
                          f"{n_seg} expected")
-    for j in range(n_seg):
+    return [([u for mcu in mcus[j * per:(j + 1) * per] for u in mcu], segs[j])
+            for j in range(n_seg)]
+
+
+def _decode_scan(frame, sel, segs, restart, dc_tabs, ac_tabs, coefs):
+    """Huffman-decode one sequential scan into ``coefs``: the zigzag
+    coefficients of every component's MCU-padded block grid, one flat
+    array, component c's from ``frame["offsets"][c]`` on."""
+    tabs = {ci: (dc_tabs[td], ac_tabs[ta]) for ci, td, ta in sel}
+    for blocks, seg in _segments(_scan_blocks(frame, sel), segs, restart):
         pos, val = [], []
-        _decode_segment(segs[j], [u for mcu in units[j * per:(j + 1) * per] for u in mcu],
-                        pos, val)
+        _decode_segment(seg, [(base, *tabs[ci], ci) for base, ci in blocks], pos, val)
         if pos:
             coefs[np.asarray(pos, np.int64)] = np.asarray(val, np.int32)
 
 
-def _reconstruct(frame, coefs, qts, adobe, jfif):
+def _progressive_scan(frame, sel, ss, se, ah, al, segs, restart, dc_tabs, ac_tabs, coefs):
+    """Decode one progressive scan into ``coefs``: DC first (Ah = 0) or
+    refine (one bit a block) of one or more components, or an AC band
+    ``ss..se``, first or refine, of one component."""
+    if (se != 0 if ss == 0 else (se < ss or se > 63 or len(sel) != 1)) or (
+            ah and al != ah - 1) or al > 13:
+        raise ValueError(f"corrupt JPEG data: bad progression parameters Ss={ss} Se={se} "
+                         f"Ah={ah} Al={al} over {len(sel)} components")
+    for ci, _, _ in sel:
+        bits = frame["comps"][ci]["bits"]
+        if ss and bits[0] < 0:
+            raise ValueError(f"corrupt JPEG data: an AC scan of component {ci} before its DC")
+        for k in range(ss, se + 1):
+            if ah != max(bits[k], 0):
+                raise ValueError(f"corrupt JPEG data: bogus progression (component {ci}, "
+                                 f"coefficient {k}: Ah={ah} after Al={bits[k]})")
+            bits[k] = al
+    parts = _segments(_scan_blocks(frame, sel), segs, restart)
+    if ss == 0 and ah:                         # DC refine: one raw bit a block
+        for blocks, seg in parts:
+            if len(blocks) > 8 * len(seg):
+                raise ValueError("corrupt JPEG data: the scan ends early")
+            bases = np.asarray([base for base, _ in blocks], np.int64)
+            bits = np.unpackbits(np.frombuffer(seg, np.uint8))[:len(bases)]
+            coefs[bases[bits == 1]] |= 1 << al
+        return
+    if ss and ah:
+        _refine_scan(parts, ac_tabs[sel[0][2]], ss, se, al, coefs)
+        return
+    for blocks, seg in parts:
+        pos, val = [], []
+        if ss == 0:
+            p = _dc_first(seg, blocks, {ci: dc_tabs[td] for ci, td, _ in sel}, al, pos, val)
+        else:
+            p = _ac_first(seg, [base for base, _ in blocks], ac_tabs[sel[0][2]], ss, se, al,
+                          pos, val)
+        if p > len(seg) * 8 + 16:
+            raise ValueError("corrupt JPEG data: the scan ends early")
+        if pos:
+            coefs[np.asarray(pos, np.int64)] = np.asarray(val, np.int32)
+
+
+def _refine_scan(parts, tab, ss, se, al, coefs):
+    """An AC refinement scan: the band's non-zero coefficients at its start
+    found with numpy, ``_ac_refine`` over each restart interval, then every
+    correction bit read at once from the unpacked intervals and applied
+    (+-(1 << al) away from zero where that bit is not already set) with the
+    new coefficients."""
+    bases = np.asarray([base for blocks, _ in parts for base, _ in blocks], np.int64)
+    rows, cols = np.nonzero(coefs[bases[:, None] + np.arange(ss, se + 1)])
+    nzk = (cols + ss).tolist()
+    off = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=len(bases)))]).tolist()
+    base_list = bases.tolist()
+    pos, val, cp, cj = [], [], [], []
+    counts, shifts, b0, bit0 = [], [], 0, 0
+    for blocks, seg in parts:
+        n = len(blocks)
+        first = len(cp)
+        p = _ac_refine(seg, base_list[b0:b0 + n], nzk, off[b0:b0 + n + 1], tab, ss, se, al,
+                       pos, val, cp, cj)
+        if p > len(seg) * 8 + 16:
+            raise ValueError("corrupt JPEG data: the scan ends early")
+        counts.append(len(cp) - first)
+        shifts.append(bit0)
+        b0 += n
+        bit0 += 8 * (len(seg) + 8)                   # each interval zero-filled past its end
+    if cp:
+        stream = np.unpackbits(np.frombuffer(b"".join(seg + b"\0" * 8 for _, seg in parts),
+                                             np.uint8))
+        at = np.asarray(cp, np.int64) + np.repeat(np.asarray(shifts, np.int64), counts)
+        hit = np.asarray(cj, np.int64)[stream[at] == 1]
+        flat = bases[rows[hit]] + cols[hit] + ss
+        cur = coefs[flat]
+        grow = (cur & (1 << al)) == 0
+        coefs[flat[grow]] += np.where(cur[grow] >= 0, 1 << al, -(1 << al)).astype(np.int32)
+    if pos:
+        coefs[np.asarray(pos, np.int64)] = np.asarray(val, np.int32)
+
+
+def _reconstruct(frame, coefs, adobe, jfif):
     h, w, comps = frame["h"], frame["w"], frame["comps"]
     planes = []
     for ci, c in enumerate(comps):
+        if c["qt"] is None:
+            raise ValueError(f"corrupt JPEG data: no scan of component {ci}")
         cf = coefs[frame["offsets"][ci]:frame["offsets"][ci + 1]]
         bh, bw = frame["my"] * c["v"], frame["mx"] * c["h"]
         nat = np.zeros((bh * bw, 64), np.int32)
         nat[:, _ZIGZAG] = cf.reshape(-1, 64)
-        blocks = _idct_islow(nat, qts[c["tq"]])
+        blocks = _idct_islow(nat, c["qt"])
         plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
         ch = -(-h * c["v"] // frame["vmax"])
         cw = -(-w * c["h"] // frame["hmax"])
@@ -420,6 +688,6 @@ def jpeg_size(data: bytes):
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """The (H, W, 3) uint8 RGB pixels of a baseline JPEG file."""
+    """The (H, W, 3) uint8 RGB pixels of a JPEG file (``decode_jpeg``)."""
     with open(path, "rb") as f:
         return decode_jpeg(f.read())

@@ -22,11 +22,12 @@ import numpy as np
 import torch
 
 from danerf_tpu_torch import resolve_device
+from danerf_tpu_torch.data.custom import read_rgb
 from danerf_tpu_torch.data.png import read_png
 from danerf_tpu_torch.fx.effects import EFFECTS, apply_effect
 from danerf_tpu_torch.utils.hostio import fetch_async
 from danerf_tpu_torch.viz.png import write_png
-from danerf_tpu_torch.viz.video import create_video_from_images, load_rgb
+from danerf_tpu_torch.viz.video import create_video_from_images
 
 
 def find_frames_with_depth(input_dir: str):
@@ -95,7 +96,7 @@ def apply_effect_to_frames(input_dir: str, output_dir: str, effect: str,
                 results.append(out_path)
                 continue
             t0 = time.perf_counter()
-            rgb = load_rgb(os.path.join(input_dir, f))
+            rgb = read_rgb(os.path.join(input_dir, f))
             num = re.fullmatch(r"frame_(\d+)\.png", f).group(1)
             depth = None
             if num in depth_nums:

@@ -22,10 +22,10 @@ from typing import Optional
 import numpy as np
 
 from danerf_tpu_torch import resolve_device
+from danerf_tpu_torch.data.custom import read_rgb
 from danerf_tpu_torch.fx.batch import load_depth
 from danerf_tpu_torch.fx.effects import EFFECTS, apply_effect, default_params
 from danerf_tpu_torch.viz.png import write_png
-from danerf_tpu_torch.viz.video import load_rgb
 
 
 def _slug(name: str, params: dict) -> str:
@@ -74,7 +74,7 @@ def render_previews(image: np.ndarray, depth: Optional[np.ndarray], spec: dict,
 
 def preview_from_files(image_path: str, depth_path: Optional[str], spec_path: str,
                        output_dir: str, device="cuda") -> list[str]:
-    image = load_rgb(image_path)
+    image = read_rgb(image_path)
     depth = load_depth(depth_path) if depth_path else None
     with open(spec_path) as f:
         spec = json.load(f)

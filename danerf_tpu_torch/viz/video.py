@@ -25,21 +25,11 @@ from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
-from danerf_tpu_torch.data.png import read_png
+from danerf_tpu_torch.data.custom import read_rgb
 
 _AVIF_HASINDEX = 0x10
 _AVIIF_KEYFRAME = 0x10
 _RIFF_MAX = 0xFFFFFFFF
-
-
-def load_rgb(path: str) -> np.ndarray:
-    """A PNG as uint8 (H, W, 3) RGB: gray is repeated, alpha dropped."""
-    img = read_png(path)
-    if img.ndim == 2:
-        img = img[..., None]
-    if img.shape[2] in (1, 2):
-        return np.repeat(img[..., :1], 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
 
 
 def _axis(n_out: int, n_in: int):
@@ -129,7 +119,7 @@ def create_video_from_images(image_dir: str, output_path: str,
     if resolution:
         width, height = resolution
     else:
-        height, width = load_rgb(images[0]).shape[:2]
+        height, width = read_rgb(images[0]).shape[:2]
 
     root, ext = os.path.splitext(output_path)
     if ext.lower() != ".avi":
@@ -140,7 +130,7 @@ def create_video_from_images(image_dir: str, output_path: str,
 
     def frames():
         for path in images:
-            img = load_rgb(path)
+            img = read_rgb(path)
             yield resize_bilinear(img, (width, height)) if resolution else img
 
     write_avi(output_path, frames(), len(images), width, height, fps)

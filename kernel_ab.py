@@ -43,9 +43,19 @@ loads of the transposed chain's weights, or ``dw_products``, the tensor-core
 products of their wgmma dW pass.  The copy's f32 outputs are wrong; only
 its times mean something: how far that part holds the tile (the f32 K6
 and K7 run on the same tiles as K3 and K4).
+
+    python3 kernel_ab.py BASE_DIR --decode [--rounds 3]
+
+times the port's image decoders instead, on the host (no GPU, nothing
+built): each process decodes every JPEG and PNG of this tree's
+tests/data_torch/ with its own tree's ``data/jpeg.py`` and ``data/png.py``
+(ms, median of --iters decodes after one warm-up); a file that tree
+refuses (the base's refusals) is left out of its record.
+
 Prints one
 JSON line per process and, last, the medians per tree and their ratio
-(this / base) per kernel.  Needs a GPU; exits non-zero without one.
+(this / base) per kernel.  Needs a GPU, except with --decode; exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -281,10 +291,45 @@ def _time_kernels(iters):
     return out
 
 
-def _worker(tree, iters):
+def _time_decodes(iters):
+    """ms (median of ``iters`` after a warm-up) of each fixture decode of
+    this tree's tests/data_torch/ with the imported tree's decoders."""
+    import time
+
+    from danerf_tpu_torch.data.jpeg import read_jpeg
+    from danerf_tpu_torch.data.png import read_png
+
+    data = os.path.join(HERE, "tests", "data_torch")
+    ms = {}
+    for name in sorted(os.listdir(data)):
+        read = {".jpg": read_jpeg, ".png": read_png}.get(os.path.splitext(name)[1])
+        if read is None:
+            continue
+        try:
+            read(os.path.join(data, name))
+        except ValueError:
+            continue                                  # a format this tree refuses
+        each = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            read(os.path.join(data, name))
+            each.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(each)
+    return ms
+
+
+def _worker(tree, iters, decode=False):
     here = os.path.realpath(HERE)
     sys.path[:] = [p for p in sys.path if os.path.realpath(p or ".") != here]
     sys.path.insert(0, tree)
+    if decode:
+        from danerf_tpu_torch.data import jpeg
+
+        if os.path.realpath(os.path.dirname(jpeg.__file__)) != os.path.realpath(
+                os.path.join(tree, "danerf_tpu_torch", "data")):
+            raise RuntimeError(f"imported {jpeg.__file__}, not the tree {tree}")
+        print(json.dumps({"tree": tree, "ms": _time_decodes(iters)}), flush=True)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -309,10 +354,12 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    ap.add_argument("--decode", action="store_true",
+                    help="time the image decoders on the host instead of the kernels")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker is not None:
-        return _worker(args.worker, args.iters)
+        return _worker(args.worker, args.iters, args.decode)
     if (args.base is None) == (args.ablate is None):
         ap.error("give BASE_DIR or --ablate, not both")
     base = ablated_tree(args.ablate) if args.ablate else os.path.abspath(args.base)
@@ -322,7 +369,8 @@ def main(argv=None):
     for _ in range(args.rounds):
         for side in ("base", "this", "this", "base"):
             proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                                   trees[side], "--iters", str(args.iters)],
+                                   trees[side], "--iters", str(args.iters),
+                                   *(["--decode"] if args.decode else [])],
                                   capture_output=True, text=True, timeout=900, cwd=trees[side])
             if proc.returncode != 0:
                 sys.stderr.write(proc.stderr[-4000:])
@@ -334,11 +382,10 @@ def main(argv=None):
     med = {side: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
            for side, rs in runs.items()}
     summary = {"median_ms": med,
-               "ratio_this_over_base": {k: med["this"][k] / med["base"][k] for k in med["base"]},
-               "spread_base": {k: (min(r[k] for r in runs["base"]), max(r[k] for r in runs["base"]))
-                               for k in med["base"]},
-               "spread_this": {k: (min(r[k] for r in runs["this"]), max(r[k] for r in runs["this"]))
-                               for k in med["this"]}}
+               "ratio_this_over_base": {k: med["this"][k] / med["base"][k]
+                                        for k in med["base"] if k in med["this"]},
+               **{f"spread_{side}": {k: (min(r[k] for r in rs), max(r[k] for r in rs))
+                                     for k in med[side]} for side, rs in runs.items()}}
     lines.append(json.dumps(summary))
     print(lines[-1], flush=True)
     if args.out:

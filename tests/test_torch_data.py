@@ -105,7 +105,7 @@ def test_png_decoder_refuses_unsupported(tmp_path):
     from danerf_tpu_torch.data.png import read_png
 
     data = bytearray(_png_bytes(np.zeros((2, 2, 3), np.uint8), [0]))
-    data[24] = 16                                       # bit depth byte of IHDR
+    data[24] = 3                                        # bit depth byte of IHDR: no such depth
     path = os.path.join(tmp_path, "x.png")
     with open(path, "wb") as f:
         f.write(bytes(data))
