@@ -212,6 +212,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             scene of the 16-bit RGBA, Adam7 and palette PNGs (PIL's alphas
             in the dataset, one K2, K4, K3 a step).  7e and 7f run before
             any torch.profiler window.
+7h. jax_checkpoint  the JAX package's own checkpoint directory, read on
+            the card's host without JAX (tests/data_torch/jax_run/: Orbax,
+            OCDBT + zarr v2 + zstd, the default widths after 3 steps):
+            read_jax_checkpoint's every leaf against the JAX
+            restore_checkpoint's sha256 and its read time (median of 3,
+            warm cache, with the card's name and power limit); `cli.main
+            render --checkpoint <dir>` of one 800x800 medium frame (exactly
+            10 K2 and 10 K5); a 200x200 frame of it, the kernel route
+            against the plain route within SLICE_TOL; `cli.main train
+            --resume` in a copy of its save directory, 20 more steps
+            (exactly 20 K2, K4 and K3; iteration 23, a finite loss, Adam's
+            count continued).  After 7f, before any timing phase.
 7a. fx      the depth-aware effects (danerf_tpu_torch/fx/, plain PyTorch
             ops, no kernel of their own): each of the 14 with and without
             depth on a seeded 800x800 frame and depth, on the card against
@@ -307,7 +319,8 @@ Before the last line it prints the card's name and power limit and the
 {"kernels": [...]} record (each kernel with its has_time variant's numbers
 under "has_time"; K2, K5, K3 and K6 with the launches of 7e's kernel-route
 runs under "eval_launches"; K2-K6 with those of 7f's fixture scenes under
-"loaders_launches"; K2, K4 and K3 with those of hier_dp under
+"loaders_launches"; K2-K5 with those of 7h's frame and resumed training
+under "jax_checkpoint_launches"; K2, K4 and K3 with those of hier_dp under
 "dp_train_launches", K2 and K5 with a sharded frame's, K1 with a sharded
 chunk's; the f32 variants of K2, K5 and K1 after the nine, with the
 launches of 4e's f32 frames and per-sample routes, the has_time variants'
@@ -355,6 +368,10 @@ PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12      # H100 SXM FP32 FLOP/s outside the tensor cores (the f32 kernels' FFMA)
 PEAK_TF32 = 495e12     # H100 SXM dense TF32 FLOP/s (the f32 K2 and K5: 3xTF32 wgmma)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
+
+# the kernel route of a whole render_rays against the plain route, max abs
+# error of each output (phase_kernels, the f32 per-sample route, jax_checkpoint)
+SLICE_TOL = {"rgb": 5e-3, "acc": 5e-3, "depth": 2e-2}
 
 
 def field_macs(cfg):
@@ -1000,9 +1017,8 @@ def phase_kernels(cfg, model, device):
                   "render_rays_per_sample": render_rays(model, cfg, o, d, emb, perturb=False,
                                                         fused_composite=False)}
     torch.cuda.synchronize()
-    slice_tol = {"rgb": 5e-3, "acc": 5e-3, "depth": 2e-2}
     for route, ref in routes.items():
-        for k, t in slice_tol.items():
+        for k, t in SLICE_TOL.items():
             e = max_err(ker[k], ref[k])
             errs[f"{route}.{k}"] = e
             if not math.isfinite(e) or e > t:
@@ -1010,7 +1026,7 @@ def phase_kernels(cfg, model, device):
 
     emit({"phase": "kernels", "rays": [4093, cfg.render_chunk],
           "k1_rows": [4093 * 32, 65536, 131072], "max_abs_err": errs,
-          "tolerance": {**fr.PLAIN_TOL, **{f"render_rays.{k}": v for k, v in slice_tol.items()}},
+          "tolerance": {**fr.PLAIN_TOL, **{f"render_rays.{k}": v for k, v in SLICE_TOL.items()}},
           "mean_acc": mean_acc, "failures": failures})
     if failures:
         raise AssertionError("kernel disagrees with its plain version: " + "; ".join(failures))
@@ -1680,7 +1696,6 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
     # without and with time
     n = cfg.render_chunk
     k1_launches, route_err = {}, {}
-    route_tol = {"rgb": 5e-3, "acc": 5e-3, "depth": 2e-2}   # phase_kernels' slice_tol
     for tag, m, c in (("", model, c32), ("t", model_t, cfg_t.replace(use_bf16=False))):
         o, d, emb, _ = make_rays(n, c, seed=600, device=device)
         t = torch.full((n, 1), 0.5, device=device) if c.use_time else None
@@ -1696,7 +1711,7 @@ def phase_f32_path(cfg, model, cfg_t, model_t, out_dir, device, side=800):
             raise AssertionError(f"per-sample f32 route{tag} launches {k1_launches[tag]}, "
                                  f"expected {want}")
         route_err[tag] = {k: max_err(per_sample[k], fused[k]) for k in ("rgb", "acc", "depth")}
-        bad = [k for k, v in route_err[tag].items() if not v <= route_tol[k]]
+        bad = [k for k, v in route_err[tag].items() if not v <= SLICE_TOL[k]]
         if bad:
             raise AssertionError(f"per-sample f32 route{tag} vs fused f32 route: "
                                  f"{route_err[tag]}")
@@ -4317,6 +4332,167 @@ def phase_loaders(out_dir):
     return launches
 
 
+# ---------------------------------------------------------------- JAX checkpoint
+
+JAX_CHECKPOINT = os.path.join("tests", "data_torch", "jax_run", "checkpoint_000003")
+JAX_RESUME_STEPS = 20
+
+
+def phase_jax_checkpoint(out_dir, smi):
+    """The JAX package's own checkpoint directory on the card's host, which
+    has no JAX, orbax, tensorstore, zstd or msgpack library: the committed
+    full-width fixture (JAX_CHECKPOINT: Orbax, an OCDBT store of zarr v2
+    arrays with zstd chunks, 3 steps of the default widths; written by
+    tests/data_torch/write_jax_checkpoint.py).
+
+    - read_jax_checkpoint: every leaf held bit for bit against the sha256
+      the JAX restore_checkpoint gave (jax_checkpoint_digests.json), the
+      read timed (median of 3, warm file cache, on the card's host);
+    - `cli.main render --checkpoint <dir>`: one 800x800 medium frame,
+      exactly 10 K2 and 10 K5 and nothing else;
+    - a 200x200 frame of the same model (render_frame), the kernel route
+      against the plain route within SLICE_TOL;
+    - `cli.main train --resume` in a copy of the fixture's save directory
+      on its scene (make_synthetic_scene, 5 views at 16x16, written as a
+      Blender scene): JAX_RESUME_STEPS more steps (the 2 warm-up steps of
+      64 rays left, then 18 of B = 1024; 64 + 64), exactly one K2, K4 and
+      K3 a step; its checkpoint at iteration 3 + 20, a finite loss, Adam's
+      step count continued from the fixture's count."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.cli.main import main as cli_main
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.blender import save_blender_scene
+    from danerf_tpu_torch.data.dataset import scene_intrinsics
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.utils.checkpoint import load_model, read_jax_checkpoint
+    from danerf_tpu_torch.viz.paths import camera_path
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(root, JAX_CHECKPOINT)
+    with open(os.path.join(root, "tests", "data_torch", "jax_checkpoint_digests.json")) as f:
+        digests = json.load(f)
+    (tree, meta), read_ms, each = _median_ms(lambda: read_jax_checkpoint(fixture))
+    leaves = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, prefix + [str(k)])
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, prefix + [str(i)])
+        else:
+            leaves[".".join(prefix)] = np.asarray(node)
+
+    walk(tree, [])
+    wrong = [name for name, d in digests["leaves"].items()
+             if name not in leaves or leaves[name].dtype.name != d["dtype"]
+             or list(leaves[name].shape) != d["shape"]
+             or hashlib.sha256(leaves[name].tobytes()).hexdigest() != d["sha256"]]
+    if wrong or sorted(leaves) != sorted(digests["leaves"]) or meta != digests["meta"]:
+        raise AssertionError(f"jax_checkpoint: leaves {wrong} (of {len(leaves)}) differ from "
+                             "the JAX restore_checkpoint's digests")
+    store = os.path.join(fixture, "state")
+    file_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(store)
+                     for f in fs)
+    report = {"read": {"ms": read_ms, "each_ms": each, "leaves": len(leaves),
+                       "decoded_bytes": sum(x.nbytes for x in leaves.values()),
+                       "file_bytes": file_bytes, "held_bit_for_bit": True, "card": smi}}
+
+    # one 800x800 medium frame through `cli.main render --checkpoint <dir>`
+    side = 800
+    run_dir = os.path.join(out_dir, "jax_render")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    written = cli_main(["render", "--checkpoint", fixture, "--output_dir", run_dir,
+                        "--frames", "1", "--width", str(side), "--height", str(side),
+                        "--quality", "medium", "--save_depth", "--device", "cuda", "--seed", "0",
+                        "--dataset_path", os.path.join(out_dir, "no_scene")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(fr.LAUNCHES)
+    want = launches_of({"march": 10, "merged": 10})
+    depth = np.load(os.path.join(run_dir, "raw", "depth_000.npy"))
+    if counts != want or len(written) != 1 or depth.shape != (side, side) \
+            or not np.isfinite(depth).all():
+        raise AssertionError(f"jax_checkpoint render: launches {counts} (expected {want}), "
+                             f"{written}, depth {depth.shape}")
+    report["render_800"] = {"seconds": secs, "launches": counts, "quality": "medium"}
+
+    # a 200x200 frame of the same model: the kernel route against the plain one
+    cfg = NeRFConfig()
+    model, table, _, cfg = load_model(fixture, cfg, "cuda")
+    model.requires_grad_(False)
+    intr = scene_intrinsics(cfg.replace(dataset_path=os.path.join(out_dir, "no_scene")))
+    c2w = camera_path("circle", 1, cfg.scene)[0]
+    frames = {}
+    for route, c in (("kernel", cfg), ("plain", cfg.replace(use_kernels=False))):
+        fr.reset_launch_counts()
+        with torch.no_grad():
+            rgb, dep, acc = render_frame(model, c, c2w, 200, 200, intr.focal * 200 / intr.width,
+                                         appearance_embedding=table[0], device="cuda")
+        torch.cuda.synchronize()
+        frames[route] = ({"rgb": rgb, "depth": dep, "acc": acc}, dict(fr.LAUNCHES))
+    errs = {k: max_err(frames["kernel"][0][k], frames["plain"][0][k]) for k in SLICE_TOL}
+    mean_acc = float(frames["kernel"][0]["acc"].mean())
+    if (not all(math.isfinite(errs[k]) and errs[k] <= t for k, t in SLICE_TOL.items())
+            or any(frames["plain"][1].values()) or not frames["kernel"][1]["march"]
+            or not mean_acc > 0.01):
+        raise AssertionError(f"jax_checkpoint frame: kernel against plain {errs} > {SLICE_TOL}"
+                             f", launches {frames['kernel'][1]} / {frames['plain'][1]}, "
+                             f"mean acc {mean_acc}")
+    report["frame_200"] = {"max_abs_err": errs, "tolerance": SLICE_TOL, "mean_acc": mean_acc,
+                           "launches": frames["kernel"][1]}
+
+    # `cli.main train --resume` in a copy of the fixture's save directory
+    scene = os.path.join(out_dir, "jax_scene")
+    shutil.rmtree(scene, ignore_errors=True)
+    spec = digests["scene"]
+    save_blender_scene(make_synthetic_scene("train", n_images=spec["n_images"],
+                                            height=spec["height"], width=spec["width"],
+                                            near=cfg.near, far=cfg.far, seed=0),
+                       os.path.join(scene, "fixture"), "train")
+    save = os.path.join(out_dir, "jax_resume")
+    shutil.rmtree(save, ignore_errors=True)
+    shutil.copytree(os.path.dirname(fixture), save)
+    steps = digests["steps"]
+    iters = steps + JAX_RESUME_STEPS
+    count = int(np.asarray(tree["opt_state"][0]["count"]))
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_main(["train", "--dataset_path", scene, "--scene", "fixture", "--iters", str(iters),
+              "--resume", "--save_dir", save, "--checkpoint_every", "0", "--device", "cuda",
+              "--seed", "0", "--density_bias_init", str(digests["config"]["density_bias_init"])])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(fr.LAUNCHES)
+    want = launches_of(PATHS["hier"][1], JAX_RESUME_STEPS)
+    ckpt = torch.load(os.path.join(save, "checkpoint_final.pt"), map_location="cpu",
+                      weights_only=False)
+    adam = sorted({float(s["step"]) for s in ckpt["optimizer_state_dict"]["state"].values()})
+    rows = [json.loads(line) for line in open(os.path.join(save, "metrics.jsonl"))]
+    if (counts != want or ckpt["iteration"] != iters or adam != [count + JAX_RESUME_STEPS]
+            or [r["step"] for r in rows] != list(range(steps + 1, iters + 1))
+            or not all(math.isfinite(r["loss"]) for r in rows)):
+        raise AssertionError(f"jax_checkpoint resume: launches {counts} (expected {want}), "
+                             f"iteration {ckpt['iteration']}, Adam steps {adam} (expected "
+                             f"{count} + {JAX_RESUME_STEPS}), steps {[r['step'] for r in rows]}")
+    report["resume"] = {"from_iteration": steps, "to_iteration": ckpt["iteration"],
+                        "adam_count_from": count, "adam_count_to": adam[0], "seconds": secs,
+                        "launches": counts, "loss_first_last": [rows[0]["loss"],
+                                                                rows[-1]["loss"]],
+                        "warmup_steps_of_64_rays": max(0, 5 - steps)}
+    emit({"phase": "jax_checkpoint", **report})
+    return {"render_800": report["render_800"]["launches"], "resume": counts}
+
+
 # ---------------------------------------------------------------- parallel
 
 def free_port() -> int:
@@ -4878,6 +5054,8 @@ def main(argv=None):
     # K6, K3 a step), before any torch.profiler window
     eval_counts = phase_eval(args.out)
     loader_counts = phase_loaders(args.out)
+    # the JAX package's checkpoint directory: read, rendered, resumed
+    jax_counts = phase_jax_checkpoint(args.out, smi)
     phase_native(cfg, model, args.out, device)
     # the depth-aware effects and the renders that feed them, timed before
     # any torch.profiler window (phase_train_timing's): timed after one, the
@@ -5020,6 +5198,14 @@ def main(argv=None):
                    "K6": "merged_bwd"}.get(rec["name"][:2])
         if counter:
             rec["loaders_launches"] = {run: c[counter] for run, c in loader_counts.items()}
+    # the jax_checkpoint phase's runs from the JAX package's checkpoint
+    # directory: the 800x800 frame (K2, K5) and the resumed training (K2, K4,
+    # K3)
+    for rec in kernels:
+        counter = {"K2": "march", "K3": "march_bwd", "K4": "merged_train",
+                   "K5": "merged"}.get(rec["name"][:2])
+        if counter and "f32" not in rec["name"]:
+            rec["jax_checkpoint_launches"] = {run: c[counter] for run, c in jax_counts.items()}
     # data parallelism: the launches of the data-parallel training run (K2,
     # K4, K3), of a sharded 800x800 frame on the one rank (K2, K5) and of
     # make_sharded_render's 65,536-ray chunk (K1)

@@ -5,12 +5,16 @@
 ``--checkpoint_every``, and writes reference-format ``.pt`` checkpoints,
 ``metrics.jsonl``, a validation render at each checkpoint and
 ``training_curves.png`` into ``--save_dir``; ``--resume`` continues from
-the latest checkpoint there, and ``--profile DIR`` first writes a
-``torch.profiler`` trace of 20 steps into DIR.  ``render`` takes the JAX CLI's
+the latest checkpoint there, a ``.pt`` or a JAX checkpoint directory (the
+JAX PRNG key has no torch counterpart: the generator is seeded from
+``--seed``), and ``--profile DIR`` first writes a ``torch.profiler`` trace
+of 20 steps into DIR.  ``render`` takes the JAX CLI's
 flags plus ``--device`` and ``--seed``; ``--checkpoint`` is a
-reference-format ``.pt`` (such as ``<save_dir>/checkpoint_final.pt``), and
-without it ``render`` takes the latest checkpoint of ``checkpoints_<scene>``
-(``train``'s default ``--save_dir``), as the JAX CLI does.  ``render
+reference-format ``.pt`` (such as ``<save_dir>/checkpoint_final.pt``) or a
+JAX checkpoint directory (``checkpoint_NNNNNN/`` or ``checkpoint_final/``,
+Orbax, read without JAX), and without it ``render`` takes the
+latest checkpoint of either kind in ``checkpoints_<scene>`` (``train``'s
+default ``--save_dir``), as the JAX CLI does.  ``render
 --effect NAME`` applies a depth-aware effect to each frame on the device,
 and ``--create_video`` encodes the frames as an uncompressed AVI.
 ``spiral`` renders the aligned spiral (``frame_NNNN.png``, a grayscale
@@ -19,12 +23,11 @@ and ``--create_video`` encodes the frames as an uncompressed AVI.
 applies one effect or all of them to such a directory, ``preview`` writes
 parameter-sweep previews from a JSON spec (both with ``--device``), and
 ``video`` encodes an image sequence.  ``eval`` renders a split of the scene
-from a ``.pt`` and prints its PSNR/SSIM as one JSON line (``--out``: the
-per-view report), with the JAX CLI's flags plus ``--device``;
+from a checkpoint (``.pt`` or JAX directory) and prints its PSNR/SSIM as
+one JSON line (``--out``: the per-view report), with the JAX CLI's flags
+plus ``--device``;
 ``--optimize_embeddings`` fits each view's appearance embedding on its
-left half and scores the right half.  A ``danerf_tpu`` (Orbax) checkpoint
-directory is converted to a ``.pt`` by ``orbax_to_pt.py`` at the root of
-the repository, where JAX is installed.
+left half and scores the right half.
 ``train``, ``render`` and ``spiral`` take the JAX CLI's ``--mesh_data``
 and ``--mesh_model`` and its multi-process flags (``--coordinator_address
 host:port|auto --num_processes N --process_id i``; ``auto`` under
@@ -82,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--batch_size", type=int, default=None)
     t.add_argument("--save_dir", type=str, default=None)
     t.add_argument("--resume", action="store_true",
-                   help="continue from the latest checkpoint in --save_dir")
+                   help="continue from the latest checkpoint in --save_dir (.pt or JAX "
+                        "checkpoint directory)")
     t.add_argument("--no_appearance", action="store_true")
     t.add_argument("--num_importance", type=int, default=None)
     t.add_argument("--mesh_data", type=int, default=1,
@@ -115,8 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--scene", type=str, default="hotdog")
     r.add_argument("--dataset_path", type=str, default="data/nerf_synthetic")
     r.add_argument("--checkpoint", type=str, default=None,
-                   help="reference-format .pt checkpoint (default: the latest in "
-                        "checkpoints_<scene>)")
+                   help="a reference-format .pt or a JAX checkpoint directory "
+                        "(default: the latest in checkpoints_<scene>)")
     r.add_argument("--output_dir", type=str, default="output")
     r.add_argument("--frames", type=int, default=120)
     r.add_argument("--quality", type=str, default="high",
@@ -157,8 +161,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--scene", type=str, default="chair")
     s.add_argument("--dataset_path", type=str, default="data/nerf_synthetic")
     s.add_argument("--checkpoint", type=str, default=None,
-                   help="reference-format .pt checkpoint (default: the latest in "
-                        "checkpoints_<scene>)")
+                   help="a reference-format .pt or a JAX checkpoint directory "
+                        "(default: the latest in checkpoints_<scene>)")
     s.add_argument("--output_dir", type=str, default="spiral_render",
                    help="written under output/ unless it starts with output/")
     s.add_argument("--frames", type=int, default=120)
@@ -187,8 +191,8 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--scene", type=str, default="lego")
     ev.add_argument("--dataset_path", type=str, default="data/nerf_synthetic")
     ev.add_argument("--checkpoint", type=str, default=None,
-                    help="reference-format .pt checkpoint (default: the latest in "
-                         "checkpoints_<scene>)")
+                    help="a reference-format .pt or a JAX checkpoint directory "
+                         "(default: the latest in checkpoints_<scene>)")
     ev.add_argument("--split", type=str, default="val")
     ev.add_argument("--max_views", type=int, default=None)
     ev.add_argument("--num_importance", type=int, default=None)
@@ -352,19 +356,14 @@ def _train(args, device):
                  log_path=os.path.join(save_dir, "metrics.jsonl"), mesh=mesh)
 
 
-def _not_ported(args) -> list:
-    bad = []
-    if args.checkpoint is not None and not args.checkpoint.endswith(".pt"):
-        bad.append("a danerf_tpu (Orbax) checkpoint directory; convert it to a .pt with "
-                   "orbax_to_pt.py (at the repository root, where JAX is installed)")
-    return bad
-
-
 def _load_model(args, cfg, device, want_table: bool = False):
-    """NeRF module + appearance embedding 0 from a reference .pt: the one
-    ``--checkpoint`` names, else the latest of ``checkpoints_<scene>``.
+    """NeRF module + appearance embedding 0 from a reference .pt or a JAX
+    checkpoint directory: the one ``--checkpoint`` names, else the latest
+    of ``checkpoints_<scene>``.
     With ``want_table`` the whole appearance table (or None) comes after
     the embedding."""
+    import os
+
     from danerf_tpu_torch.utils.checkpoint import latest_checkpoint, load_model
 
     ckpt = args.checkpoint
@@ -378,7 +377,8 @@ def _load_model(args, cfg, device, want_table: bool = False):
     emb = None
     if cfg.use_appearance and emb_table is not None:
         emb = emb_table[0]  # the reference renders with embedding 0
-    print(f"Imported reference checkpoint (iteration {meta.get('iteration')})")
+    kind = "JAX" if os.path.isdir(ckpt) else "reference"
+    print(f"Imported {kind} checkpoint (iteration {meta.get('iteration')})")
     model = model.eval().requires_grad_(False)
     if want_table:
         return model, emb, emb_table if cfg.use_appearance else None, cfg
@@ -388,9 +388,6 @@ def _load_model(args, cfg, device, want_table: bool = False):
 def cmd_render(args):
     from danerf_tpu_torch import resolve_device
 
-    bad = _not_ported(args)
-    if bad:
-        raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
     device = resolve_device(args.device)
     with _process_group(args, device):
         return _render(args, device)
@@ -427,9 +424,6 @@ def _render(args, device):
 def cmd_spiral(args):
     from danerf_tpu_torch import resolve_device
 
-    bad = _not_ported(args)
-    if bad:
-        raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
     device = resolve_device(args.device)
     with _process_group(args, device):
         return _spiral(args, device)
@@ -478,9 +472,6 @@ def cmd_eval(args):
     from danerf_tpu_torch.data.dataset import load_dataset
     from danerf_tpu_torch.train.evaluate import evaluate
 
-    bad = _not_ported(args)
-    if bad:
-        raise NotImplementedError("not yet ported to danerf_tpu_torch: " + ", ".join(bad))
     device = resolve_device(args.device)
     cfg = NeRFConfig(scene=args.scene, dataset_path=args.dataset_path,
                      white_background=args.white_background,

@@ -58,6 +58,50 @@ def params_to_jax(state_dict: dict) -> dict:
     return out
 
 
+def jax_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists in JAX's tree order
+    (``jax.tree_util.tree_leaves``): dict keys sorted, sequences by index."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in jax_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in jax_leaves(v)]
+    return [tree]
+
+
+def unflatten_like(flat, tree):
+    """A flat vector (optax.flatten's state) in the shapes of ``tree``'s
+    leaves, in JAX's tree order: a tree of the same structure."""
+    flat = np.asarray(flat)
+    leaves = jax_leaves(tree)
+    sizes = [int(np.size(x)) for x in leaves]
+    if sum(sizes) != flat.size:
+        raise ValueError(f"a flat optimizer state of {flat.size} values does not fit "
+                         f"parameters of {sum(sizes)}")
+    parts = iter(np.split(flat, np.cumsum(sizes)[:-1]))
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return next(parts).reshape(np.shape(node))
+
+    return build(tree)
+
+
+def jax_moments(flat, params: dict, names, with_table: bool) -> list:
+    """One of Adam's moments, optax's flat vector over the JAX ``params``
+    (``{"model", "appearance"?}``), as the port's optimizer holds it: a
+    tensor per module parameter ``names`` (transposed like
+    ``params_from_jax``), then the table's when ``with_table``."""
+    tree = unflatten_like(flat, params)
+    sd = params_from_jax(tree["model"])
+    out = [sd[n].clone() for n in names]
+    if with_table:
+        out.append(torch.tensor(np.asarray(tree["appearance"], np.float32)))
+    return out
+
+
 def load_reference_checkpoint(path: str) -> Tuple[dict, Optional[torch.Tensor], dict]:
     """Load a reference-format ``.pt`` checkpoint.
 

@@ -1,11 +1,15 @@
 """Convert a danerf_tpu checkpoint directory (Orbax, or its msgpack
-fallback) into the reference-format ``.pt`` that the PyTorch port reads.
+fallback) into a reference-format ``.pt``.
 
     python orbax_to_pt.py CHECKPOINT_DIR OUT.pt [--scene S --dataset_path P
         | --n_images N] [--no_appearance] [--use_time]
 
-Runs where JAX is installed (it imports ``danerf_tpu``; the port itself
-never does).  The architecture flags are the JAX CLI's (the default
+The port reads an Orbax directory itself (``danerf_tpu_torch.utils.
+checkpoint.read_jax_checkpoint``, without JAX); this script restores it
+through the JAX package instead, and so is the JAX-side referee of the
+port's reader (``tests/test_torch_jax_checkpoint.py``), or gives a ``.pt``
+for a reader of the reference's format.  Runs where JAX is installed (it
+imports ``danerf_tpu``; the port itself never does).  The architecture flags are the JAX CLI's (the default
 ``NeRFConfig``, ``--no_appearance``, ``--use_time``); the number of
 appearance rows comes from ``--n_images`` or from the scene's train split,
 as the JAX CLI sizes its template.  The file holds:

@@ -262,11 +262,30 @@ def test_cli_eval_from_a_train_checkpoint(tmp_path, monkeypatch, capsys, flags):
     assert line["psnr"] == want["psnr"] and line["ssim"] == want["ssim"]
 
 
-def test_cli_eval_refuses_orbax_directory(tmp_path):
-    from danerf_tpu_torch.cli.main import main
+def test_cli_eval_refuses_orbax_directory(tmp_path, capsys):
+    """eval reads the committed full-width JAX (Orbax) checkpoint directory
+    and scores it as evaluate() does on load_model of it."""
+    import os
 
-    with pytest.raises(NotImplementedError, match="orbax_to_pt.py"):
-        main(["eval", "--checkpoint", str(tmp_path), "--device", "cpu"])
+    from danerf_tpu_torch.cli.main import main
+    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.train.evaluate import evaluate
+    from danerf_tpu_torch.utils.checkpoint import load_model
+
+    fixture = os.path.join(os.path.dirname(__file__), "data_torch", "jax_run",
+                           "checkpoint_000003")
+    data = _tiny_scene(tmp_path / "data")
+    res = main(["eval", "--checkpoint", fixture, "--dataset_path", data, "--scene", "tiny",
+                "--max_views", "1", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg = NeRFConfig(dataset_path=data, scene="tiny")
+    ds = load_dataset(cfg, "val")
+    model, table, meta, cfg = load_model(fixture, cfg, "cpu")
+    assert meta["iteration"] == 3 and table.shape == (5, 32)
+    want = evaluate(model.requires_grad_(False), cfg, ds,
+                    appearance=table[:1].repeat(ds.n_images, 1), max_views=1, device="cpu")
+    assert line["n_views"] == 1 and np.isfinite(line["psnr"])
+    assert res["psnr"] == want["psnr"] and res["ssim"] == want["ssim"]
 
 
 def _remat_pair(remat):

@@ -1,5 +1,6 @@
 """danerf_tpu_torch stands alone: it imports neither JAX nor danerf_tpu,
-nor an imaging library (it renders a frame, a frame of a time-conditioned
+nor an imaging library, nor a checkpoint library (it reads the committed
+JAX checkpoint directory and renders from it, renders a frame, a frame of a time-conditioned
 model at two times, and takes a 64 + 64, a coarse-only, a per-sample and a
 time-conditioned training step, runs the training loop with a resume,
 computes SSIM, applies an effect (and one through the native shader
@@ -7,8 +8,8 @@ bridge), renders an aligned-spiral frame with
 its video, fits and scores through ``evaluate`` and ``eval``, loads a
 custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
 8, and in a one-rank gloo group renders a sharded frame and trains on a
-mesh (``parallel/``), with JAX, danerf_tpu, OpenCV, PIL and matplotlib
-blocked), and
+mesh (``parallel/``), with JAX, danerf_tpu, OpenCV, PIL, matplotlib,
+tensorstore, orbax, zstandard, msgpack and flax blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
 
@@ -25,9 +26,12 @@ ROOT = Path(__file__).resolve().parents[1]
 _CHILD = r'''
 import importlib, importlib.abc, pkgutil, sys
 
+BLOCKED = ("jax", "jaxlib", "danerf_tpu", "cv2", "PIL", "matplotlib", "tensorstore", "orbax",
+           "zstandard", "msgpack", "flax")
+
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "danerf_tpu", "cv2", "PIL", "matplotlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ModuleNotFoundError(f"blocked import of {name}")
         return None
 
@@ -56,6 +60,18 @@ except RuntimeError as e:
     assert "CUDA is not available" in str(e), e
 else:
     raise AssertionError("device='cuda' did not raise on a host without CUDA")
+# the committed JAX (Orbax: OCDBT, zarr, zstd) checkpoint, read and rendered
+import os, tempfile
+from danerf_tpu_torch.cli.main import main as cli_main
+from danerf_tpu_torch.utils.checkpoint import read_jax_checkpoint
+fixture = os.path.join("tests", "data_torch", "jax_run", "checkpoint_000003")
+tree, meta = read_jax_checkpoint(fixture)
+assert tree["params"]["model"]["trunk"][1]["w"].shape == (256, 256) and meta["step"] == 3
+with tempfile.TemporaryDirectory() as tmp:
+    written = cli_main(["render", "--checkpoint", fixture, "--output_dir", tmp, "--frames", "1",
+                        "--width", "6", "--height", "5", "--quality", "preview",
+                        "--device", "cpu", "--dataset_path", os.path.join(tmp, "none")])
+    assert len(written) == 1 and os.path.getsize(written[0]) > 0
 # one training step on the kernel route (the plain K2/K3/K4 on the CPU)
 from danerf_tpu_torch.data.dataset import RayDataset
 from danerf_tpu_torch.train.trainer import init_model, make_optimizer, train_step
@@ -193,8 +209,7 @@ with tempfile.TemporaryDirectory() as tmp:
                       mesh=mesh)
     assert [r["step"] for r in log.history] == [1, 2]
 dist.destroy_process_group()
-assert not any(k.split(".")[0] in ("jax", "danerf_tpu", "cv2", "PIL", "matplotlib")
-               for k in sys.modules)
+assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print("ISOLATED-OK")
 '''
 
@@ -223,6 +238,15 @@ def test_sources_import_no_imaging_library():
     """The card's machine has no imaging library: the port reads and writes
     PNGs and AVIs itself, with no optional import of one either."""
     pattern = re.compile(r"^\s*(import (cv2|PIL|matplotlib)|from (cv2|PIL|matplotlib)\b)", re.M)
+    files = list((ROOT / "danerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())] == []
+
+
+def test_sources_import_no_checkpoint_library():
+    """The card's machine has none of tensorstore, orbax, zstandard, msgpack
+    or flax: the port reads the JAX checkpoints with its own decoders."""
+    pattern = re.compile(r"^\s*(import (tensorstore|orbax|zstandard|msgpack|flax)\b"
+                         r"|from (tensorstore|orbax|zstandard|msgpack|flax)\b)", re.M)
     files = list((ROOT / "danerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())] == []
 

@@ -134,8 +134,9 @@ def test_cli_render_writes_frames(tmp_path):
 
 
 # The time flags, --effect, --create_video and the mesh flags are ported
-# (tests/test_torch_cli.py renders with them): beside what is still refused,
-# a danerf_tpu (Orbax) checkpoint directory, the refusal names only that.
+# (tests/test_torch_cli.py renders with them), and so are the JAX package's
+# checkpoint directories: a directory that is not one (no meta.json) is
+# refused for that alone, whatever the flags.
 @pytest.mark.parametrize("flags", [["--effect", "fog", "--mesh_data", "2"],
                                    ["--use_time", "--effect", "fog", "--mesh_data", "2"],
                                    ["--animate_time", "--create_video", "--mesh_data", "2"],
@@ -144,18 +145,33 @@ def test_cli_render_writes_frames(tmp_path):
 def test_cli_refuses_flags_not_yet_ported(tmp_path, flags):
     from danerf_tpu_torch.cli.main import main
 
-    with pytest.raises(NotImplementedError, match="not yet ported") as err:
+    with pytest.raises(ValueError, match="no meta.json") as err:
         main(["render", "--checkpoint", str(tmp_path), "--device", "cpu", *flags])
     for ported in ("time", "effect", "video", "mesh"):
         assert ported not in str(err.value)
 
 
-def test_cli_refuses_orbax_checkpoint_dir(tmp_path):
+def test_cli_refuses_orbax_checkpoint_dir(tmp_path, capsys):
+    """render reads the committed JAX (Orbax) checkpoint directory: the
+    same frame as from the .pt that orbax_to_pt.py, restoring it through
+    the JAX package, converts it to."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import orbax_to_pt
     from danerf_tpu_torch.cli.main import main
 
-    with pytest.raises(NotImplementedError, match="Orbax") as err:
-        main(["render", "--checkpoint", str(tmp_path), "--device", "cpu"])
-    assert "orbax_to_pt.py" in str(err.value)
+    fixture = os.path.join(os.path.dirname(__file__), "data_torch", "jax_run",
+                           "checkpoint_000003")
+    pt = orbax_to_pt.convert(fixture, str(tmp_path / "same.pt"), JaxConfig(), 5)
+    frames = {}
+    for name, ckpt in (("dir", fixture), ("pt", pt)):
+        written = main(["render", "--checkpoint", ckpt, "--output_dir", str(tmp_path / name),
+                        "--frames", "1", "--width", "8", "--height", "6", "--quality",
+                        "preview", "--device", "cpu", "--dataset_path", str(tmp_path / "none")])
+        frames[name] = open(written[0], "rb").read()
+    assert "Imported JAX checkpoint (iteration 3)" in capsys.readouterr().out
+    assert frames["dir"] == frames["pt"] and frames["dir"][:8] == b"\x89PNG\r\n\x1a\n"
 
 
 def test_scene_intrinsics_match_load_dataset(tmp_path):
