@@ -4071,16 +4071,35 @@ LOADER_FIXTURES = ("frame_progressive.jpg", "gray_progressive.jpg", "picture_800
 LOADER_CUSTOM = ("frame_progressive.jpg", "palette_trns.png", "gray_progressive.jpg",
                  "adam7_rgb.png")
 LOADER_BLENDER = ("rgba16.png", "adam7_rgb.png", "palette_trns.png")
-LOADER_TRAIN_ITERS = {"custom": 50, "blender": 30}
+LOADER_TRAIN_ITERS = {"custom": 50, "blender": 30, "formats": 50}
+# tests/data_torch/formats/: BMP, Netpbm, TIFF, GIF and lossless WebP files,
+# each with the digests (dtype, shape, sha256) of PIL's opened array under its
+# name, of its convert("RGB") under "NAME rgb" and, for a depth map, of the
+# JAX preview's depth array under "NAME depth" (tests/test_torch_images.py
+# format_fixture_bytes says how each was made); the 800x800 picture as LZW +
+# predictor TIFF, GIF and lossless WebP is timed beside picture_800.jpg
+FORMATS_DIR = os.path.join("tests", "data_torch", "formats")
+FORMAT_FIXTURES = ("frame.bmp", "frame_rle8.bmp", "frame_565.bmp", "frame.ppm", "gray16.pgm",
+                   "frame_lzw.tif", "frame_tiled.tif", "gray16_mm.tif", "frame.gif",
+                   "frame_interlaced.gif", "frame.webp", "frame_rgba.webp",
+                   "picture_800_lzw.tif", "picture_800.gif", "picture_800.webp")
+FORMAT_DEPTHS = ("depth.jpg", "depth_palette.png", "depth_1bit.png", "depth.gif")
+# the custom scene of the new formats (four frames to train on, the last to
+# validate on) and the picture the depth maps go with
+FORMAT_CUSTOM = ("frame_rle8.bmp", "frame_tiled.tif", "frame_interlaced.gif", "frame.ppm",
+                 "frame.webp")
+FORMAT_PICTURE = "frame.bmp"
 
 
-def _digest(a):
+def _digest(a, typed=False):
+    """{shape, sha256} of an array's bytes (with ``typed``, its dtype too)."""
     import hashlib
 
     import numpy as np
 
     a = np.ascontiguousarray(a)
-    return {"shape": list(a.shape), "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    d = {"shape": list(a.shape), "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    return {"dtype": a.dtype.str, **d} if typed else d
 
 
 def _median_ms(fn, reps=3):
@@ -4138,12 +4157,19 @@ def phase_loaders(out_dir):
       rising PSNR; then evaluate() of its checkpoint on the val view with
       the embedding fit (one K2 and one K5 for the view, K2, K5, K6 and K3
       a fit step), within EVAL_TOL of the same call with use_kernels off;
+    - the same train() and evaluate() on a custom scene of an RLE8 BMP, a
+      tiled planar Deflate TIFF, an interlaced GIF, a PPM and a lossless
+      WebP (``_format_loaders``, which first decodes every fixture of
+      tests/data_torch/formats/ through the one reader against PIL's
+      digests with its ms, and afterwards loads a JPEG, a palette PNG, a
+      1-bit PNG and a GIF depth map to the JAX preview's depth arrays and
+      runs `preview` on the card with each);
     - `cli.main train` on a Blender scene (transforms_train.json) of the
       16-bit RGBA, Adam7 and palette + tRNS PNGs, 30 steps: the frames'
       alphas in the dataset (PIL's), exactly one K2, K4 and K3 a step,
       finite losses.
 
-    Returns the launches of the three runs."""
+    Returns the launches of the five runs."""
     import shutil
 
     import numpy as np
@@ -4157,9 +4183,6 @@ def phase_loaders(out_dir):
     from danerf_tpu_torch.data.png import read_png
     from danerf_tpu_torch.data.resize import lanczos_resize
     from danerf_tpu_torch.kernels import fused_render as fr
-    from danerf_tpu_torch.train.evaluate import evaluate
-    from danerf_tpu_torch.train.trainer import train
-    from danerf_tpu_torch.utils.checkpoint import load_model
     from danerf_tpu_torch.viz.png import write_png
 
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data_torch")
@@ -4229,64 +4252,16 @@ def phase_loaders(out_dir):
     launches = {}
     # the library's train() on a custom scene of the progressive JPEGs and
     # the palette and Adam7 PNGs, then evaluate() with the fit
-    scene = os.path.join(out_dir, "custom_fixture_scene")
-    shutil.rmtree(scene, ignore_errors=True)
-    images = os.path.join(scene, "images")
-    os.makedirs(images)
-    poses = _fixture_scene_poses(len(LOADER_CUSTOM))
-    frames = []
-    for name, c2w in zip(LOADER_CUSTOM, poses):
-        shutil.copy(os.path.join(data, name), os.path.join(images, name))
-        frames.append({"file_path": name, "transform_matrix": np.asarray(c2w).tolist()})
-    with open(os.path.join(scene, "transforms.json"), "w") as f:
-        json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
-    cfg = NeRFConfig(dataset_type="custom", dataset_path=images, density_bias_init=0.5)
-    t0 = time.perf_counter()
-    ds, val = load_dataset(cfg, "train"), load_dataset(cfg, "val")
-    load_ms = (time.perf_counter() - t0) * 1e3
-    for img, name in zip([*ds.images, *val.images], LOADER_CUSTOM):
-        held(name if name.endswith(".jpg") else f"{name} rgb", img)
-    iters = LOADER_TRAIN_ITERS["custom"]
-    save = os.path.join(out_dir, "train_custom_fixtures")
-    shutil.rmtree(save, ignore_errors=True)
-    fr.reset_launch_counts()
-    t0 = time.perf_counter()
-    train(cfg, ds, save_dir=save, num_iterations=iters, seed=0, device="cuda",
-          log_path=os.path.join(save, "metrics.jsonl"))
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches["custom_train"] = dict(fr.LAUNCHES)
-    if launches["custom_train"] != launches_of(per_step, iters):
-        raise AssertionError(f"loaders: custom train() launches {launches['custom_train']}, "
-                             f"expected {launches_of(per_step, iters)}")
-    rows = _loader_rows(save, iters)
-    if not rows["psnr_last"] > rows["psnr_first"]:
-        raise AssertionError(f"loaders: custom train() PSNR did not rise {rows}")
-    model, _, _, mcfg = load_model(os.path.join(save, "checkpoint_final.pt"), cfg, "cuda")
-    model.requires_grad_(False)
-    evals = {}
-    for route, c in (("kernel", mcfg), ("plain", mcfg.replace(use_kernels=False))):
-        fr.reset_launch_counts()
-        res = evaluate(model, c, val, max_views=1, optimize_embeddings=True,
-                       opt_steps=EVAL_OPT_STEPS, device="cuda")
-        torch.cuda.synchronize()
-        evals[route] = {"launches": dict(fr.LAUNCHES), "psnr": res["per_view"][0]["psnr"],
-                        "ssim": res["per_view"][0]["ssim"], "protocol": res["protocol"]}
-    chunks = -(-val.height * val.width // mcfg.render_chunk)
-    want = {k: v + (chunks if k in ("march", "merged") else 0)
-            for k, v in eval_launches(["--optimize_embeddings"], 1, size=0).items()}
-    launches["custom_eval"] = evals["kernel"]["launches"]
-    delta = {k: abs(evals["kernel"][k.split("_")[0]] - evals["plain"][k.split("_")[0]])
-             for k in EVAL_TOL}
-    if (launches["custom_eval"] != want or any(evals["plain"]["launches"].values())
-            or not math.isfinite(evals["kernel"]["psnr"])
-            or not all(delta[k] <= EVAL_TOL[k] for k in EVAL_TOL)):
-        raise AssertionError(f"loaders: evaluate on the custom scene {evals}, expected "
-                             f"launches {want}, within {EVAL_TOL}")
-    report["custom_train"] = {"frames": list(LOADER_CUSTOM), "load_ms": load_ms,
-                              "shape": list(ds.images.shape), "iters": iters,
-                              "seconds": secs, "launches": launches["custom_train"], **rows,
-                              "evaluate": evals, "evaluate_delta": delta, "tol": EVAL_TOL}
+    report["custom_train"], launches["custom_train"], launches["custom_eval"] = \
+        _train_custom_scene(data, LOADER_CUSTOM, os.path.join(out_dir, "custom_fixture"),
+                            LOADER_TRAIN_ITERS["custom"],
+                            lambda name, img: held(name if name.endswith(".jpg")
+                                                   else f"{name} rgb", img))
+    # the same on a custom scene of BMP, TIFF, GIF, PPM and lossless WebP
+    # frames; every new fixture decoded on this host against PIL's digests;
+    # the depth maps the JAX preview reads through PIL, through `preview`
+    report["formats"], fmt_launches = _format_loaders(out_dir)
+    launches.update(fmt_launches)
 
     # `cli.main train` on a Blender scene of the 16-bit RGBA, Adam7 and
     # palette + tRNS PNGs
@@ -4330,6 +4305,156 @@ def phase_loaders(out_dir):
                                **_loader_rows(save, iters)}
     emit({"phase": "loaders", **report})
     return launches
+
+
+def _train_custom_scene(data, names, root, iters, held):
+    """The library's train() (neither CLI has a dataset-type flag) on a
+    custom scene of the fixtures ``names`` in ``data`` (the procedural
+    scene's poses; the last frame validates), 64 + 64 at full width:
+    exactly one K2, K4 and K3 launch a step, finite losses, a rising PSNR;
+    then evaluate() of its checkpoint on the val view with the embedding
+    fit (one K2 and one K5 for the view, K2, K5, K6 and K3 a fit step),
+    within EVAL_TOL of the same call with use_kernels off.  ``held(name,
+    image)`` checks each loaded frame.  Returns (report, train launches,
+    evaluate launches)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.dataset import load_dataset
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.train.evaluate import evaluate
+    from danerf_tpu_torch.train.trainer import train
+    from danerf_tpu_torch.utils.checkpoint import load_model
+
+    per_step = PATHS["hier"][1]
+    shutil.rmtree(root, ignore_errors=True)
+    images = os.path.join(root, "scene", "images")
+    os.makedirs(images)
+    frames = []
+    for name, c2w in zip(names, _fixture_scene_poses(len(names))):
+        shutil.copy(os.path.join(data, name), os.path.join(images, name))
+        frames.append({"file_path": name, "transform_matrix": np.asarray(c2w).tolist()})
+    with open(os.path.join(root, "scene", "transforms.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+    cfg = NeRFConfig(dataset_type="custom", dataset_path=images, density_bias_init=0.5)
+    t0 = time.perf_counter()
+    ds, val = load_dataset(cfg, "train"), load_dataset(cfg, "val")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    for img, name in zip([*ds.images, *val.images], names):
+        held(name, img)
+    save = os.path.join(root, "train")
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    train(cfg, ds, save_dir=save, num_iterations=iters, seed=0, device="cuda",
+          log_path=os.path.join(save, "metrics.jsonl"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    train_launches = dict(fr.LAUNCHES)
+    if train_launches != launches_of(per_step, iters):
+        raise AssertionError(f"loaders: custom train() on {names} launches {train_launches}, "
+                             f"expected {launches_of(per_step, iters)}")
+    rows = _loader_rows(save, iters)
+    if not rows["psnr_last"] > rows["psnr_first"]:
+        raise AssertionError(f"loaders: custom train() on {names}: PSNR did not rise {rows}")
+    model, _, _, mcfg = load_model(os.path.join(save, "checkpoint_final.pt"), cfg, "cuda")
+    model.requires_grad_(False)
+    evals = {}
+    for route, c in (("kernel", mcfg), ("plain", mcfg.replace(use_kernels=False))):
+        fr.reset_launch_counts()
+        res = evaluate(model, c, val, max_views=1, optimize_embeddings=True,
+                       opt_steps=EVAL_OPT_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        evals[route] = {"launches": dict(fr.LAUNCHES), "psnr": res["per_view"][0]["psnr"],
+                        "ssim": res["per_view"][0]["ssim"], "protocol": res["protocol"]}
+    chunks = -(-val.height * val.width // mcfg.render_chunk)
+    want = {k: v + (chunks if k in ("march", "merged") else 0)
+            for k, v in eval_launches(["--optimize_embeddings"], 1, size=0).items()}
+    delta = {k: abs(evals["kernel"][k.split("_")[0]] - evals["plain"][k.split("_")[0]])
+             for k in EVAL_TOL}
+    if (evals["kernel"]["launches"] != want or any(evals["plain"]["launches"].values())
+            or not math.isfinite(evals["kernel"]["psnr"])
+            or not all(delta[k] <= EVAL_TOL[k] for k in EVAL_TOL)):
+        raise AssertionError(f"loaders: evaluate on the custom scene of {names}: {evals}, "
+                             f"expected launches {want}, within {EVAL_TOL}")
+    report = {"frames": list(names), "load_ms": load_ms, "shape": list(ds.images.shape),
+              "iters": iters, "seconds": secs, "launches": train_launches, **rows,
+              "evaluate": evals, "evaluate_delta": delta, "tol": EVAL_TOL}
+    return report, train_launches, evals["kernel"]["launches"]
+
+
+def _format_loaders(out_dir):
+    """The one image reader (data/images.py) on this host, which has no
+    imaging library: every fixture of FORMATS_DIR through read_array and
+    read_rgb against PIL's digests (dtype included), read_array's ms (median
+    of 3) beside the 800x800 JPEG's; the custom scene of FORMAT_CUSTOM
+    through train() and evaluate() (``_train_custom_scene``); each of the
+    FORMAT_DEPTHS depth maps through load_depth against the JAX preview's
+    depth array and through `preview` on the card with Fog (depth-aware).
+    Returns (report, launches)."""
+    import shutil
+
+    from danerf_tpu_torch.cli.main import main as cli_main
+    from danerf_tpu_torch.data.images import read_array, read_rgb
+    from danerf_tpu_torch.data.jpeg import read_jpeg
+    from danerf_tpu_torch.fx.batch import load_depth
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(root, FORMATS_DIR)
+    with open(os.path.join(data, "pil_digests.json")) as f:
+        stored = json.load(f)
+
+    def held(key, out):
+        got = _digest(out, typed=True)
+        if got != stored[key]:
+            raise AssertionError(f"loaders: {key} gives {got}, PIL {stored[key]}")
+
+    report, decodes = {}, {}
+    for name in FORMAT_FIXTURES + FORMAT_DEPTHS:
+        path = os.path.join(data, name)
+        out, ms, each = _median_ms(lambda: read_array(path))
+        held(name, out)
+        held(f"{name} rgb", read_rgb(path))
+        decodes[name] = {"ms": ms, "each_ms": each, "shape": list(out.shape),
+                         "dtype": str(out.dtype)}
+    report["decodes"] = decodes
+    jpg = os.path.join(root, "tests", "data_torch", "picture_800.jpg")
+    _, jpeg_ms, _ = _median_ms(lambda: read_jpeg(jpg))
+    report["decode_800x800"] = {"jpeg_baseline_ms": jpeg_ms, **{
+        name: {"ms": decodes[name]["ms"], "over_jpeg": decodes[name]["ms"] / jpeg_ms}
+        for name in ("picture_800_lzw.tif", "picture_800.gif", "picture_800.webp")}}
+
+    launches = {}
+    report["custom_train"], launches["formats_train"], launches["formats_eval"] = \
+        _train_custom_scene(data, FORMAT_CUSTOM, os.path.join(out_dir, "custom_formats"),
+                            LOADER_TRAIN_ITERS["formats"],
+                            lambda name, img: held(f"{name} rgb", img))
+
+    prev = os.path.join(out_dir, "preview_depths")
+    shutil.rmtree(prev, ignore_errors=True)
+    os.makedirs(prev)
+    spec = os.path.join(prev, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"effects": [{"name": "Fog", "sweep": {"fog_start": [0.0, 0.4]}}]}, f)
+    depths = {}
+    for name in FORMAT_DEPTHS:
+        path = os.path.join(data, name)
+        d = load_depth(path)
+        held(f"{name} depth", d)
+        out = os.path.join(prev, name.replace(".", "_"))
+        t0 = time.perf_counter()
+        cli_main(["preview", "--image", os.path.join(data, FORMAT_PICTURE), "--depth", path,
+                  "--spec", spec, "--output_dir", out, "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        if len(pngs) != 2:
+            raise AssertionError(f"loaders: preview with the depth map {name} wrote {pngs}")
+        depths[name] = {"min": float(d.min()), "max": float(d.max()), "shape": list(d.shape),
+                        "preview_s": secs, "previews": pngs}
+    report["depths"] = depths
+    return report, launches
 
 
 # ---------------------------------------------------------------- JAX checkpoint

@@ -6,8 +6,8 @@
 val/test split the last frame; alphas are all 255.
 
 Each image is read by its signature, as ``Image.open(...).convert("RGB")``
-reads it (``read_rgb``): a PNG by ``data/png.py``, a JPEG, sequential or
-progressive, by ``data/jpeg.py``.
+reads it (``read_rgb``, on ``data/images.py``): PNG, JPEG (sequential or
+progressive), BMP, Netpbm, TIFF, GIF and lossless WebP.
 """
 
 from __future__ import annotations
@@ -33,37 +33,18 @@ def _split_frames(meta: dict, split: str) -> list:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """A PNG or JPEG file as (H, W, 3) uint8 RGB, as PIL's
-    ``Image.open(path).convert("RGB")`` gives it: gray repeated, an alpha
-    channel dropped (also a palette's tRNS), 16-bit gray clipped at 255 (PIL
-    clips mode I;16, it does not scale it)."""
-    from danerf_tpu_torch.data.jpeg import read_jpeg
-    from danerf_tpu_torch.data.png import read_png
+    """Any image file the port reads, as (H, W, 3) uint8 RGB, as PIL's
+    ``Image.open(path).convert("RGB")`` gives it (``data/images.py``)."""
+    from danerf_tpu_torch.data.images import read_rgb as read
 
-    with open(path, "rb") as f:
-        head = f.read(8)
-    if head.startswith(b"\xff\xd8"):
-        return read_jpeg(path)
-    if head != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
-    arr = read_png(path)
-    if arr.ndim == 2:
-        arr = np.minimum(arr, 255).astype(np.uint8)[..., None]
-    if arr.shape[-1] <= 2:                              # gray [+ alpha]
-        return np.repeat(arr[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(arr[..., :3])
+    return read(path)
 
 
 def image_width(path: str) -> int:
-    """A PNG's or JPEG's width from its header, without decoding it."""
-    from danerf_tpu_torch.data.dataset import _png_width
-    from danerf_tpu_torch.data.jpeg import jpeg_size
+    """An image file's width from its header, without decoding it."""
+    from danerf_tpu_torch.data.images import image_size
 
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:2] == b"\xff\xd8":
-        return jpeg_size(data)[1]
-    return _png_width(path)
+    return image_size(path)[0]
 
 
 def focal_from_meta(meta: dict, width: int) -> float:

@@ -672,6 +672,11 @@ def _reconstruct(frame, coefs, adobe, jfif):
 
 def jpeg_size(data: bytes):
     """(height, width) from a JPEG's frame header, without decoding."""
+    return jpeg_header(data)[:2]
+
+
+def jpeg_header(data: bytes):
+    """(height, width, components) from a JPEG's frame header."""
     i = 2
     while i + 4 <= len(data):
         if data[i] != 0xFF:
@@ -682,7 +687,7 @@ def jpeg_size(data: bytes):
             continue
         length = struct.unpack(">H", data[i + 2:i + 4])[0]
         if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
-            return struct.unpack(">HH", data[i + 5:i + 9])
+            return struct.unpack(">HHB", data[i + 5:i + 10])
         i += 2 + length
     raise ValueError("corrupt JPEG data: no frame header")
 

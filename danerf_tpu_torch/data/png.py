@@ -7,7 +7,8 @@ and 8; non-interlaced or Adam7 (seven passes, each unfiltered on its own,
 then scattered); any of the five scanline filters (None, Sub, Up, Average,
 Paeth).  ``read_png`` gives what ``np.asarray(Image.open(path))`` gives for
 the mode PIL opens, with two exceptions where PIL's array is not pixels (a
-palette, a 1-bit image).  Other bit depths and colour types, and other
+palette, a 1-bit image); ``decode_png_opened`` gives PIL's array in those
+two cases too, and the palette.  Other bit depths and colour types, and other
 compression, filter or interlace methods, raise ValueError.
 """
 
@@ -118,21 +119,9 @@ def _pixels(raw: np.ndarray, h: int, w: int, ch: int, depth: int, interlace: int
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """The pixels of a PNG file's bytes, as PIL opens them:
-
-    - gray: uint8 (H, W), 2- and 4-bit samples scaled to 8 bits (x85, x17);
-      1-bit as 0/255 (``Image.convert("L")``; PIL's own array of mode "1"
-      is bool); 16-bit as uint16 (H, W) (mode "I;16");
-    - gray + alpha: uint8 (H, W, 2); at 16 bits (H, W, 4), the gray high
-      byte repeated, as PIL opens it as RGBA;
-    - RGB, RGBA: uint8 (H, W, 3|4), 16-bit samples as their high byte;
-    - palette: the palette's colours, (H, W, 3), or (H, W, 4) with the
-      alpha of tRNS (255 past its end) where the file has one (PIL's array
-      of mode "P" is the indices); an index past PLTE is black, as PIL
-      pads its palette.
-
-    A tRNS of gray or RGB is ignored, as in PIL's array."""
+def _decode(data: bytes):
+    """(samples (H, W, C) as ``_pixels`` gives them, colour type, bit depth,
+    the palette as PIL pads it (256 RGBA entries) or None)."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     ihdr, plte, trns, idat = None, None, None, []
@@ -157,8 +146,8 @@ def decode_png(data: bytes) -> np.ndarray:
         raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as e:
         raise ValueError(f"corrupt PNG image data: {e}") from None
-    ch = _CHANNELS[ctype]
-    img = _pixels(raw, h, w, ch, depth, interlace)
+    img = _pixels(raw, h, w, _CHANNELS[ctype], depth, interlace)
+    lut = None
     if ctype == 3:
         if plte is None or len(plte) % 3 or len(plte) > 768:
             raise ValueError("palette PNG without a valid PLTE chunk")
@@ -166,10 +155,33 @@ def decode_png(data: bytes) -> np.ndarray:
         lut = np.zeros((256, 4), np.uint8)
         lut[:len(plte) // 3, :3] = np.frombuffer(plte, np.uint8).reshape(-1, 3)
         lut[:, 3] = 255
-        if trns is None:
-            return lut[img[..., 0], :3]
-        lut[:min(256, len(trns)), 3] = np.frombuffer(trns[:256], np.uint8)
-        return lut[img[..., 0]]
+        if trns is not None:
+            lut[:min(256, len(trns)), 3] = np.frombuffer(trns[:256], np.uint8)
+    return img, ctype, depth, lut, trns is not None
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The pixels of a PNG file's bytes, as PIL opens them:
+
+    - gray: uint8 (H, W), 2- and 4-bit samples scaled to 8 bits (x85, x17);
+      1-bit as 0/255 (``Image.convert("L")``; PIL's own array of mode "1"
+      is bool); 16-bit as uint16 (H, W) (mode "I;16");
+    - gray + alpha: uint8 (H, W, 2); at 16 bits (H, W, 4), the gray high
+      byte repeated, as PIL opens it as RGBA;
+    - RGB, RGBA: uint8 (H, W, 3|4), 16-bit samples as their high byte;
+    - palette: the palette's colours, (H, W, 3), or (H, W, 4) with the
+      alpha of tRNS (255 past its end) where the file has one (PIL's array
+      of mode "P" is the indices); an index past PLTE is black, as PIL
+      pads its palette.
+
+    A tRNS of gray or RGB is ignored, as in PIL's array.  ``decode_png_opened``
+    gives PIL's array where it is not pixels (mode "P" and "1")."""
+    return _as_pixels(*_decode(data))
+
+
+def _as_pixels(img, ctype, depth, lut, has_trns):
+    if ctype == 3:
+        return lut[img[..., 0]] if has_trns else lut[img[..., 0], :3]
     if depth == 16:
         if ctype == 0:
             return img[..., 0]
@@ -180,6 +192,19 @@ def decode_png(data: bytes) -> np.ndarray:
     if ctype == 0:
         return img[..., 0] * np.uint8({1: 255, 2: 85, 4: 17, 8: 1}[depth])
     return img
+
+
+def decode_png_opened(data: bytes):
+    """``(array, palette)``: exactly ``np.asarray(Image.open(...))`` (a
+    palette image's indices, a 1-bit gray image's bool array, else
+    ``decode_png``) and, for a palette image, its (256, 3) palette (black
+    past PLTE; tRNS is not part of ``convert("RGB")``); None otherwise."""
+    img, ctype, depth, lut, has_trns = _decode(data)
+    if ctype == 3:
+        return np.ascontiguousarray(img[..., 0]), np.ascontiguousarray(lut[:, :3])
+    if ctype == 0 and depth == 1:
+        return (img[..., 0] * np.uint8(255)).view(bool), None   # PIL's True is the byte 255
+    return _as_pixels(img, ctype, depth, lut, has_trns), None
 
 
 def read_png(path: str) -> np.ndarray:

@@ -4,9 +4,9 @@ effects across a directory of rendered frames.
 Frames and depth maps pair by name, ``frame_NNNN.png`` with the grayscale
 ``depth_NNNN.png`` that the aligned spiral writes every 10th frame; each
 effect gets its own output directory and a video beside it, both skipped
-where they exist; Fog runs only on the frames that have a depth map.  PNGs
-are read with the port's decoder (``data/png.py``), which refuses palette
-and 16-bit images.
+where they exist; Fog runs only on the frames that have a depth map.
+Frames are read as ``convert("RGB")`` and depth maps as PIL's opened array
+(``data/images.py``), as the JAX driver reads them through PIL.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 
 from danerf_tpu_torch import resolve_device
 from danerf_tpu_torch.data.custom import read_rgb
-from danerf_tpu_torch.data.png import read_png
+from danerf_tpu_torch.data.images import read_array
 from danerf_tpu_torch.fx.effects import EFFECTS, apply_effect
 from danerf_tpu_torch.utils.hostio import fetch_async
 from danerf_tpu_torch.viz.png import write_png
@@ -41,8 +41,11 @@ def find_frames_with_depth(input_dir: str):
 
 
 def load_depth(path: str) -> np.ndarray:
-    """A grayscale depth PNG as float32 (H, W) in [0, 1]."""
-    d = read_png(path).astype(np.float32)
+    """A depth map as float32 (H, W), by the JAX rule: PIL's opened array
+    (``np.asarray(Image.open(path))``: a palette image's indices, a 1-bit
+    image's bool, 16-bit samples as they are) as float32, its first channel
+    where it has several, over 255."""
+    d = read_array(path).astype(np.float32)
     if d.ndim == 3:
         d = d[..., 0]
     return d / 255.0

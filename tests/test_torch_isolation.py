@@ -7,7 +7,8 @@ computes SSIM, applies an effect (and one through the native shader
 bridge), renders an aligned-spiral frame with
 its video, fits and scores through ``evaluate`` and ``eval``, loads a
 custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
-8, and in a one-rank gloo group renders a sharded frame and trains on a
+8, reads a BMP, a PGM, a TIFF, a GIF, a lossless WebP and a GIF depth map
+through the one image reader, and in a one-rank gloo group renders a sharded frame and trains on a
 mesh (``parallel/``), with JAX, danerf_tpu, OpenCV, PIL, matplotlib,
 tensorstore, orbax, zstandard, msgpack and flax blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
@@ -176,6 +177,23 @@ with tempfile.TemporaryDirectory() as tmp:
     custom = load_dataset(Cfg(dataset_type="custom", dataset_path=tmp), "train")
     assert custom.images.shape == (2, 149, 203, 3)
     assert np.array_equal(custom.images[1], rgb)
+    # the one reader on a committed fixture of each format it added beside
+    # PNG and JPEG, and a depth map, against PIL's digests
+    import hashlib
+    from danerf_tpu_torch.data.images import read_array, read_rgb
+    from danerf_tpu_torch.fx.batch import load_depth
+    fmts = os.path.join("tests", "data_torch", "formats")
+    with open(os.path.join(fmts, "pil_digests.json")) as f:
+        digests = json.load(f)
+    def sha(a):
+        a = np.ascontiguousarray(a)
+        return {"dtype": a.dtype.str, "shape": list(a.shape),
+                "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    for name in ("frame_rle8.bmp", "gray16.pgm", "frame_tiled.tif", "frame_interlaced.gif",
+                 "frame_rgba.webp"):
+        assert sha(read_array(os.path.join(fmts, name))) == digests[name], name
+        assert sha(read_rgb(os.path.join(fmts, name))) == digests[name + " rgb"], name
+    assert sha(load_depth(os.path.join(fmts, "depth.gif"))) == digests["depth.gif depth"]
     os.makedirs(os.path.join(tmp, "blend", "train"))
     write_png(os.path.join(tmp, "blend", "train", "r_0.png"), rgb)
     with open(os.path.join(tmp, "blend", "transforms_train.json"), "w") as f:

@@ -614,3 +614,60 @@ def test_render_path_two_ranks(runs, tmp_path):
     for i in range(2):
         np.testing.assert_array_equal(read_png(str(d / f"render_slices{i}" / f"rgb_00{i}.png")),
                                       single[f"rgb_00{i}.png"])
+
+
+def _orbax_leaves(tree, prefix=()):
+    """{orbax name: array} of the port's tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _orbax_leaves(sub, prefix + (key,)).items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _orbax_leaves(sub, prefix + (str(i),)).items()}
+    return {".".join(map(str, prefix)): np.asarray(tree)}
+
+
+@pytest.mark.parametrize("mesh_data,mesh_model", [(2, 1), (2, 2), (1, 2)],
+                         ids=["mesh_data2", "mesh_data2_model2", "mesh_model2"])
+def test_checkpoint_of_a_sharded_state_reads_as_jax_restores(tmp_path, mesh_data, mesh_model):
+    """The JAX ``save_checkpoint`` of a train state on a mesh of the fake CPU
+    devices (``shard_train_state``, ``tensor_parallel`` where the model axis
+    is 2: the trunk split over it), after one sharded step so that Adam's
+    moments are laid out as the parameters: ``read_jax_checkpoint`` equals
+    the JAX ``restore_checkpoint`` leaf for leaf, bit for bit.  The JAX
+    writer gathers every leaf to one host array before Orbax sees it
+    (``_to_host``), so the store has the one-device layout."""
+    from danerf_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from danerf_tpu_torch.utils.checkpoint import read_jax_checkpoint
+
+    cfg = JaxConfig(**TINY)
+    sc = make_synthetic_scene("train", n_images=4, height=8, width=8)
+    st = create_train_state(jax.random.key(0), cfg, sc.n_images)
+    mesh = make_mesh(data=mesh_data, model=mesh_model,
+                     devices=jax.devices()[:mesh_data * mesh_model])
+    tp = mesh_model > 1
+    st = shard_train_state(st, mesh, tensor_parallel=tp)
+    st, _ = make_sharded_train_step(cfg, mesh, sc.height, sc.width, sc.focal,
+                                    tensor_parallel=tp)(st, replicate_pool(sc.device_arrays(),
+                                                                           mesh))
+    w0 = st.params["model"]["trunk"][0]["w"]
+    assert len(w0.sharding.device_set) == mesh_data * mesh_model
+    assert w0.sharding.is_fully_replicated != tp
+    save_checkpoint(str(tmp_path), "checkpoint_000001", st, {"step": 1})
+    path = str(tmp_path / "checkpoint_000001")
+    restored, meta = restore_checkpoint(path, create_train_state(jax.random.key(1), cfg,
+                                                                 sc.n_images))
+    tree, got_meta = read_jax_checkpoint(path)
+    assert got_meta == meta
+    want = {}
+    for p, x in jax.tree_util.tree_leaves_with_path(restored):
+        if jax.dtypes.issubdtype(x.dtype, jax.dtypes.prng_key):
+            x = jax.random.key_data(x)
+        want[".".join(str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", None))))
+                      for k in p)] = np.asarray(x)
+    got = _orbax_leaves(tree)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        assert got[k].tobytes() == w.tobytes(), k
+    assert any(np.abs(v).max() > 0 for k, v in want.items() if k.endswith(".mu"))

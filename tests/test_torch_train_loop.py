@@ -7,17 +7,18 @@ warm-up steps) on the procedural scene at 12x10 (its time-varying form at
 8x8 under use_time).
 
 Tolerances.  Resume and chunking compare one package with itself on the
-same arithmetic: bit for bit.  SSIM: the host versions are the same float64
-formula, so 1e-12; the device versions sum the f32 window products in
-another order (a matmul against JAX's stacked slices), so 1e-5.  The
-validation render runs both packages' reference route (f32 module forward,
-perturb off, JAX params carried across): rgb within 1e-4 before the u8
-cast, so at most 1 u8 level apart after it (2 allowed); the depth half is
-viridis of the min-max normalised depth, where a depth within 1e-4 of a
-colour-bin edge can land one bin over, so 99% of its pixels must be
-identical.
+same arithmetic: bit for bit, each run on one thread (``_one_thread``).
+SSIM: the host versions are the same float64 formula, so 1e-12; the device
+versions sum the f32 window products in another order (a matmul against
+JAX's stacked slices), so 1e-5.  The validation render runs both
+packages' reference route (f32 module forward, perturb off, JAX params
+carried across): rgb within 1e-4 before the u8 cast, so at most 1 u8 level
+apart after it (2 allowed); the depth half is viridis of the min-max
+normalised depth, where a depth within 1e-4 of a colour-bin edge can land
+one bin over, so 99% of its pixels must be identical.
 """
 
+import contextlib
 import json
 import os
 
@@ -58,6 +59,26 @@ def _rows(save, first=1):
     return [{k: v for k, v in r.items() if k != "t"} for r in rows if r["step"] >= first]
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """Run the block on one intra-op thread.  PyTorch computes sin and the
+    like on the CPU through MKL's vector math, split across its OpenMP
+    threads, and the first such call in a process, made from two threads at
+    once, can take another MKL code path for one thread's share: the first
+    training run of a fresh process then differs from a second one in the
+    last bits from step 1 (``[no_time]`` failed in 2 of 169 fresh worker
+    processes on a loaded 8-core host; the encoding of its first step,
+    recomputed in a fresh process, differed in 9 of 200 on two threads, 0
+    of 200 on one, 0 of 200 with ``MKL_CBWR=COMPATIBLE``).  On one thread
+    every call agrees."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _state(ckpt):
     return torch.load(ckpt, map_location="cpu", weights_only=False)
 
@@ -90,10 +111,11 @@ def test_resume_equals_the_straight_run(tmp_path, use_time, use_bf16):
     cfg = NeRFConfig(**SMALL, use_time=use_time, use_bf16=use_bf16)
     ds = _scene(use_time)
     straight, split = tmp_path / "straight", tmp_path / "split"
-    _train(straight, ds, cfg, num_iterations=12, checkpoint_every=4)
-    _train(split, ds, cfg, num_iterations=8, checkpoint_every=4)
-    model, table, logger = _train(split, ds, cfg, num_iterations=12, checkpoint_every=4,
-                                  resume=True)
+    with _one_thread():
+        _train(straight, ds, cfg, num_iterations=12, checkpoint_every=4)
+        _train(split, ds, cfg, num_iterations=8, checkpoint_every=4)
+        model, table, logger = _train(split, ds, cfg, num_iterations=12, checkpoint_every=4,
+                                      resume=True)
     assert logger.history[0]["step"] == 9
     assert [r["step"] for r in _rows(split)] == list(range(1, 13))
     assert _rows(split, 9) == _rows(straight, 9)
@@ -114,8 +136,9 @@ def _steps_per_call_runs(tmp_path, cfg):
     ds = _scene()
     runs = {}
     for k in (1, 3, 10):
-        _train(tmp_path / f"k{k}", ds, cfg, num_iterations=23, checkpoint_every=7,
-               steps_per_call=k, eval_every=0)
+        with _one_thread():
+            _train(tmp_path / f"k{k}", ds, cfg, num_iterations=23, checkpoint_every=7,
+                   steps_per_call=k, eval_every=0)
         runs[k] = tmp_path / f"k{k}"
     assert [r["step"] for r in _rows(runs[1])] == list(range(1, 24))
     for k in (3, 10):
