@@ -4072,22 +4072,28 @@ LOADER_CUSTOM = ("frame_progressive.jpg", "palette_trns.png", "gray_progressive.
                  "adam7_rgb.png")
 LOADER_BLENDER = ("rgba16.png", "adam7_rgb.png", "palette_trns.png")
 LOADER_TRAIN_ITERS = {"custom": 50, "blender": 30, "formats": 50}
-# tests/data_torch/formats/: BMP, Netpbm, TIFF, GIF and lossless WebP files,
-# each with the digests (dtype, shape, sha256) of PIL's opened array under its
-# name, of its convert("RGB") under "NAME rgb" and, for a depth map, of the
-# JAX preview's depth array under "NAME depth" (tests/test_torch_images.py
-# format_fixture_bytes says how each was made); the 800x800 picture as LZW +
-# predictor TIFF, GIF and lossless WebP is timed beside picture_800.jpg
+# tests/data_torch/formats/: BMP, Netpbm, TIFF, GIF and WebP (lossless, and
+# lossy with and without ALPH) files, each with the digests (dtype, shape,
+# sha256) of PIL's opened array under its name, of its convert("RGB") under
+# "NAME rgb" and, for a depth map, of the JAX preview's depth array under
+# "NAME depth" (tests/test_torch_images.py format_fixture_bytes says how each
+# was made); the 800x800 picture as LZW + predictor TIFF, GIF and lossless
+# WebP, and picture_800.jpg's pixels as lossy WebP, are timed beside
+# picture_800.jpg
 FORMATS_DIR = os.path.join("tests", "data_torch", "formats")
 FORMAT_FIXTURES = ("frame.bmp", "frame_rle8.bmp", "frame_565.bmp", "frame.ppm", "gray16.pgm",
                    "frame_lzw.tif", "frame_tiled.tif", "gray16_mm.tif", "frame.gif",
                    "frame_interlaced.gif", "frame.webp", "frame_rgba.webp",
-                   "picture_800_lzw.tif", "picture_800.gif", "picture_800.webp")
-FORMAT_DEPTHS = ("depth.jpg", "depth_palette.png", "depth_1bit.png", "depth.gif")
-# the custom scene of the new formats (four frames to train on, the last to
+                   "picture_800_lzw.tif", "picture_800.gif", "picture_800.webp",
+                   "frame_lossy.webp", "frame_lossy_rgba.webp", "picture_800_lossy.webp")
+FORMAT_DEPTHS = ("depth.jpg", "depth_palette.png", "depth_1bit.png", "depth.gif",
+                 "depth_lossy.webp")
+FORMAT_800 = ("picture_800_lzw.tif", "picture_800.gif", "picture_800.webp",
+              "picture_800_lossy.webp")
+# the custom scene of the new formats (six frames to train on, the last to
 # validate on) and the picture the depth maps go with
 FORMAT_CUSTOM = ("frame_rle8.bmp", "frame_tiled.tif", "frame_interlaced.gif", "frame.ppm",
-                 "frame.webp")
+                 "frame_lossy.webp", "frame_lossy_rgba.webp", "frame.webp")
 FORMAT_PICTURE = "frame.bmp"
 
 
@@ -4158,12 +4164,13 @@ def phase_loaders(out_dir):
       the embedding fit (one K2 and one K5 for the view, K2, K5, K6 and K3
       a fit step), within EVAL_TOL of the same call with use_kernels off;
     - the same train() and evaluate() on a custom scene of an RLE8 BMP, a
-      tiled planar Deflate TIFF, an interlaced GIF, a PPM and a lossless
-      WebP (``_format_loaders``, which first decodes every fixture of
-      tests/data_torch/formats/ through the one reader against PIL's
-      digests with its ms, and afterwards loads a JPEG, a palette PNG, a
-      1-bit PNG and a GIF depth map to the JAX preview's depth arrays and
-      runs `preview` on the card with each);
+      tiled planar Deflate TIFF, an interlaced GIF, a PPM, a lossy RGB and
+      a lossy RGBA WebP and a lossless WebP (``_format_loaders``, which
+      first decodes every fixture of tests/data_torch/formats/ through the
+      one reader against PIL's digests with its ms, and afterwards loads a
+      JPEG, a palette PNG, a 1-bit PNG, a GIF and a lossy WebP depth map to
+      the JAX preview's depth arrays and runs `preview` on the card with
+      each);
     - `cli.main train` on a Blender scene (transforms_train.json) of the
       16-bit RGBA, Adam7 and palette + tRNS PNGs, 30 steps: the frames'
       alphas in the dataset (PIL's), exactly one K2, K4 and K3 a step,
@@ -4257,7 +4264,7 @@ def phase_loaders(out_dir):
                             LOADER_TRAIN_ITERS["custom"],
                             lambda name, img: held(name if name.endswith(".jpg")
                                                    else f"{name} rgb", img))
-    # the same on a custom scene of BMP, TIFF, GIF, PPM and lossless WebP
+    # the same on a custom scene of BMP, TIFF, GIF, PPM, lossy and lossless WebP
     # frames; every new fixture decoded on this host against PIL's digests;
     # the depth maps the JAX preview reads through PIL, through `preview`
     report["formats"], fmt_launches = _format_loaders(out_dir)
@@ -4424,7 +4431,7 @@ def _format_loaders(out_dir):
     _, jpeg_ms, _ = _median_ms(lambda: read_jpeg(jpg))
     report["decode_800x800"] = {"jpeg_baseline_ms": jpeg_ms, **{
         name: {"ms": decodes[name]["ms"], "over_jpeg": decodes[name]["ms"] / jpeg_ms}
-        for name in ("picture_800_lzw.tif", "picture_800.gif", "picture_800.webp")}}
+        for name in FORMAT_800}}
 
     launches = {}
     report["custom_train"], launches["formats_train"], launches["formats_eval"] = \

@@ -7,7 +7,7 @@ val/test split the last frame; alphas are all 255.
 
 Each image is read by its signature, as ``Image.open(...).convert("RGB")``
 reads it (``read_rgb``, on ``data/images.py``): PNG, JPEG (sequential or
-progressive), BMP, Netpbm, TIFF, GIF and lossless WebP.
+progressive), BMP, Netpbm, TIFF, GIF and WebP (lossless or lossy).
 """
 
 from __future__ import annotations

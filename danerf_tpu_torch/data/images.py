@@ -11,7 +11,8 @@ The format is told by the file's signature, never by its name:
   (``data/jpeg.py``);
 - BMP (``data/bmp.py``), Netpbm P1-P6 and PFM (``data/netpbm.py``), TIFF
   and BigTIFF (``data/tiff.py``), GIF (``data/gif.py``, the first frame),
-  lossless WebP (``data/webp.py``).
+  WebP (``data/webp.py``), lossless or lossy (``data/vp8.py``), with or
+  without alpha.
 
 ``read_array`` gives each mode's dtype and shape as PIL's array does: the
 palette indices of "P", ``bool`` for "1", ``uint16`` for "I;16" (big-endian
@@ -22,7 +23,7 @@ for "I;16B"), ``int32`` for "I", ``float32`` for "F", and the channels of
 byte 255, and so does the port's), "I;16" and "I" clipped to 0..255,
 "F" clipped and truncated.
 
-Lossy WebP, and formats PIL opens that the port does not (JPEG 2000,
+Animated WebP, and formats PIL opens that the port does not (JPEG 2000,
 AVIF/HEIF, PSD, QOI, ICO, DDS and others with a known signature), raise
 ValueError naming the format; a file with no known signature (TGA has
 none) raises "unknown image format".

@@ -1,17 +1,27 @@
-"""Lossless WebP (VP8L) decoder in Python and numpy, giving what PIL 12
-opens: ``np.asarray(Image.open(path))``, mode "RGBA" where the file says it
-uses alpha, else "RGB" (PIL asks libwebp for its features and drops the
-alpha channel of an image without it).
+"""WebP decoder in Python and numpy, giving what PIL 12 opens:
+``np.asarray(Image.open(path))``, mode "RGBA" where libwebp reports alpha,
+else "RGB" (PIL asks libwebp for its features and drops the alpha channel
+of an image without it).
 
-The container is RIFF/WEBP with a bare ``VP8L`` chunk, or a ``VP8X``
-header before it (extended format: ICC, EXIF and XMP chunks are skipped).
-The bitstream is the one of RFC 9649: the four transforms (predictor with
+The container is RIFF/WEBP with a bare ``VP8L`` or ``VP8 `` chunk, or a
+``VP8X`` header before it (extended format: ICC, EXIF and XMP chunks are
+skipped), read as libwebp's demuxer reads a still image: an ``ALPH`` chunk
+only in a VP8X file and right before its ``VP8 `` chunk, its plane used
+only where the VP8X alpha flag is set (the image is RGBA, alpha 255, where
+either is there without the other), the frame's size equal to the canvas.
+
+Lossless: the bitstream of RFC 9649: the four transforms (predictor with
 its 14 modes, cross-colour, subtract-green, colour indexing with pixel
 bundling), each a sub-image of its own; prefix codes, simple and normal,
 with the code-length code; meta prefix codes (an entropy image choosing a
 group of five codes per block); the colour cache; LZ77 backward
-references with the 120-entry distance map.  Lossy WebP (a ``VP8 `` chunk,
-also with ``ALPH``) and animated WebP raise ValueError naming them.
+references with the 120-entry distance map.  Lossy: the VP8 key frame
+(``data/vp8.py``) and the ALPH plane: its header byte (compression 0 raw
+or 1, a VP8L image stream without its header whose green channel is the
+alpha; the filter; the preprocessing bits, read and ignored), then
+libwebp's unfilter (none, horizontal, vertical, gradient).  Animated WebP,
+and what libwebp refuses (a bad ALPH header, a VP8 frame that is not a key
+frame, a truncated partition), raise ValueError naming it.
 
 Speed.  The entropy-coded pixels are sequential by nature (each code's
 length, a backward reference's target and the colour cache depend on all
@@ -21,14 +31,19 @@ code tables (8 bits at the root).  A backward reference copies its run as
 one list slice; the colour cache takes the pixels since its last use only
 when a cache code asks for one.  The transforms are numpy: the predictor
 runs along anti-diagonals x + 2y (each pixel's left, top, top-left and
-top-right neighbours lie on earlier ones), the others at once.
+top-right neighbours lie on earlier ones), the others at once; so do the
+alpha planes' gradient unfilter (along x + y) and the other unfilters
+(running sums).
 """
 
 from __future__ import annotations
 
 import struct
+from typing import NamedTuple, Optional
 
 import numpy as np
+
+from danerf_tpu_torch.data.vp8 import decode_vp8, vp8_frame_size
 
 _CODE_TO_PLANE = (                  # (dy << 4) | (8 - dx) of the 120 short distances
     0x18, 0x07, 0x17, 0x19, 0x28, 0x06, 0x27, 0x29, 0x16, 0x1a, 0x26, 0x2a, 0x38, 0x05, 0x37,
@@ -416,30 +431,60 @@ def _inverse_color_indexing(px: np.ndarray, w: int, h: int, bits: int, table: np
 
 
 def webp_size(data: bytes):
-    """(width, height) from the VP8L (or VP8X) header."""
-    vp8l, _ = _chunks(data)
-    return _vp8l_header(vp8l)[:2]
+    """(width, height) as PIL gives it: the VP8X canvas, else the VP8L or
+    VP8 header's."""
+    img = _chunks(data)
+    if img.canvas is not None:
+        return img.canvas
+    if img.tag == b"VP8L":
+        return _vp8l_header(img.body)[:2]
+    return vp8_frame_size(img.body)
 
 
-def _chunks(data: bytes):
-    """The VP8L chunk's bytes and the VP8X flags (None without VP8X)."""
+class _Image(NamedTuple):
+    """The chunks of a still WebP that libwebp's demuxer hands its decoder."""
+
+    tag: bytes                      # b"VP8L" or b"VP8 "
+    body: bytes
+    flags: Optional[int]            # of the VP8X header
+    canvas: Optional[tuple]         # (width, height) of the VP8X header
+    alph: Optional[bytes]
+
+
+def _chunks(data: bytes) -> _Image:
+    """The image chunk (``VP8L``, or ``VP8 `` with the padding byte after
+    it), the VP8X flags and canvas (None without VP8X) and the ALPH payload
+    (None without one).  As libwebp's demuxer: ALPH only in a VP8X file and
+    right before its ``VP8 `` chunk; animation refused."""
     if data[:4] != b"RIFF" or data[8:12] != b"WEBP":
         raise ValueError("not a WebP file")
-    pos, flags = 12, None
+    pos, flags, canvas, alph = 12, None, None, None
     while pos + 8 <= len(data):
         tag = data[pos:pos + 4]
         n = struct.unpack("<I", data[pos + 4:pos + 8])[0]
         body = data[pos + 8:pos + 8 + n]
+        if alph is not None and tag != b"VP8 ":
+            raise ValueError("corrupt WebP file: an ALPH chunk not followed by its VP8 chunk")
         if tag == b"VP8X":
+            if len(body) < 10:
+                raise ValueError("truncated WebP file: a short VP8X chunk")
             flags = body[0]
+            canvas = (1 + int.from_bytes(body[4:7], "little"),
+                      1 + int.from_bytes(body[7:10], "little"))
             if flags & 0x02:
                 raise ValueError("unsupported WebP: animated WebP")
         elif tag in (b"ANIM", b"ANMF"):
             raise ValueError("unsupported WebP: animated WebP")
-        elif tag in (b"VP8 ", b"ALPH"):
-            raise ValueError("unsupported WebP: lossy WebP (VP8)")
+        elif tag == b"ALPH":
+            if flags is None:
+                raise ValueError("corrupt WebP file: an ALPH chunk without a VP8X header")
+            alph = body
         elif tag == b"VP8L":
-            return body, flags
+            return _Image(tag, body, flags, canvas, None)
+        elif tag == b"VP8 ":
+            if len(body) < n:
+                raise ValueError("truncated WebP file: the VP8 chunk is cut short")
+            return _Image(tag, data[pos + 8:pos + 8 + n + (n & 1)], flags, canvas, alph)
         pos += 8 + n + (n & 1)
     raise ValueError("corrupt WebP file: no image chunk")
 
@@ -453,13 +498,9 @@ def _vp8l_header(chunk: bytes):
     return (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1, (v >> 28) & 1
 
 
-def decode_webp(data: bytes):
-    """``(array, None)``: (H, W, 4) RGBA uint8 where the image uses alpha,
-    else (H, W, 3) RGB, as PIL opens a lossless WebP."""
-    chunk, _ = _chunks(data)
-    w, h, has_alpha = _vp8l_header(chunk)
-    br = _Bits(chunk)
-    br.pos = 40
+def _image_stream(br: _Bits, w: int, h: int) -> np.ndarray:
+    """A VP8L image stream (transforms, then the entropy-coded pixels) as
+    uint32 ARGB (h * w,)."""
     xsize = w
     transforms, seen = [], set()
     while br.read(1):
@@ -490,5 +531,80 @@ def decode_webp(data: bytes):
             px = _inverse_subtract_green(px)
         else:
             px = _inverse_color_indexing(px, tw, h, bits, extra)
-    ch = _channels(px).reshape(h, w, 4)[..., [1, 2, 3, 0]].astype(np.uint8)
-    return np.ascontiguousarray(ch if has_alpha else ch[..., :3]), None
+    return px
+
+
+def _unfilter(d: np.ndarray, method: int) -> np.ndarray:
+    """libwebp's ``WebPUnfilters`` over an (h, w) plane of filtered alpha:
+    0 none; 1 horizontal, 2 vertical, 3 gradient, each predicting the
+    first row from the left (0 before the first pixel) and, below it, the
+    first column from above.  The gradient (left + top - top-left,
+    clipped) runs along the anti-diagonals x + y."""
+    d = d.astype(np.int64)
+    if method == 0:
+        return d.astype(np.uint8)
+    out = np.empty_like(d)
+    out[0] = np.cumsum(d[0])
+    out[1:, 0] = out[0, 0] + np.cumsum(d[1:, 0])
+    if method == 1:
+        out[1:, 1:] = out[:-1, :1] + np.cumsum(d[1:], axis=1)[:, 1:]
+    elif method == 2:
+        out[1:, 1:] = out[0, 1:] + np.cumsum(d[1:, 1:], axis=0)
+    else:
+        h, w = d.shape
+        out &= 0xFF
+        for s in range(2, w + h - 1):
+            ys = np.arange(max(1, s - w + 1), min(h - 1, s - 1) + 1)
+            xs = s - ys
+            pred = np.clip(out[ys, xs - 1] + out[ys - 1, xs] - out[ys - 1, xs - 1], 0, 255)
+            out[ys, xs] = (pred + d[ys, xs]) & 0xFF
+    return (out & 0xFF).astype(np.uint8)
+
+
+def _alpha_plane(alph: bytes, w: int, h: int) -> np.ndarray:
+    """(h, w) uint8 alpha of an ALPH payload, as libwebp's ``ALPHInit`` and
+    ``ALPHDecode``: the header byte (compression 0 raw or 1 VP8L, filter,
+    preprocessing 0 or 1 (ignored), reserved bits 0), then the data."""
+    if len(alph) <= 1:
+        raise ValueError("corrupt lossy WebP: an empty ALPH chunk")
+    head = alph[0]
+    method, filt, pre = head & 3, (head >> 2) & 3, (head >> 4) & 3
+    if method > 1 or pre > 1 or head >> 6:
+        raise ValueError(f"corrupt lossy WebP: ALPH header {head:#04x} (compression {method}, "
+                         f"preprocessing {pre}, reserved {head >> 6})")
+    if method == 0:
+        if len(alph) - 1 < w * h:
+            raise ValueError("truncated lossy WebP: raw ALPH data shorter than the image")
+        plane = np.frombuffer(alph, np.uint8, w * h, 1).reshape(h, w)
+    else:
+        plane = ((_image_stream(_Bits(alph[1:]), w, h) >> 8) & 0xFF).reshape(h, w)
+    return _unfilter(plane, filt)
+
+
+def decode_webp(data: bytes):
+    """``(array, None)``: (H, W, 4) RGBA uint8 where PIL opens the file as
+    RGBA, else (H, W, 3) RGB.  Lossless: RGBA where the VP8L header says
+    the image uses alpha.  Lossy: RGBA where the VP8X header says alpha or
+    an ALPH chunk is there; the ALPH plane is used only with both (else
+    alpha 255, as libwebp's demuxer drops it)."""
+    img = _chunks(data)
+    if img.tag == b"VP8L":
+        w, h, has_alpha = _vp8l_header(img.body)
+        br = _Bits(img.body)
+        br.pos = 40
+        ch = _channels(_image_stream(br, w, h)).reshape(h, w, 4)[..., [1, 2, 3, 0]]
+        ch = ch.astype(np.uint8)
+        return np.ascontiguousarray(ch if has_alpha else ch[..., :3]), None
+    w, h = vp8_frame_size(img.body)
+    if img.canvas is not None and img.canvas != (w, h):
+        raise ValueError(f"corrupt WebP file: a {w}x{h} frame on a {img.canvas[0]}x"
+                         f"{img.canvas[1]} canvas")
+    flagged = img.flags is not None and bool(img.flags & 0x10)
+    rgb = decode_vp8(img.body)
+    if not flagged and img.alph is None:
+        return rgb, None
+    if flagged and img.alph is not None:
+        alpha = _alpha_plane(img.alph, w, h)
+    else:
+        alpha = np.full((h, w), 255, np.uint8)
+    return np.concatenate([rgb, alpha[..., None]], axis=-1), None

@@ -5,14 +5,15 @@ Every case writes a file here, with PIL where PIL writes the variant and
 by hand where it cannot (RLE BMPs, bitfields and V4/V5 headers; TIFFs that
 are tiled, planar, BigTIFF, big-endian, 16-bit colour or with associated
 alpha; plain and odd-maxval Netpbm; GIFs with local tables, offsets,
-interlacing and a deferred clear; lossless WebPs in a VP8X container), and
+interlacing and a deferred clear; lossless WebPs in a VP8X container; the
+lossy WebPs are in ``test_torch_webp_lossy.py``), and
 holds ``read_array`` against ``np.asarray(Image.open(p))`` (dtype, shape
 and every value), ``read_rgb`` against ``convert("RGB")`` and
 ``image_size`` against ``Image.open(p).size``.  Refusals name their
 format.  A custom scene of these formats loads as the JAX
 ``load_custom_scene`` loads it, and the port's ``load_depth`` gives the
 depth array of the JAX ``preview_from_files`` for JPEG, palette, 1-bit,
-16-bit, GIF and RGB depth maps.  The committed fixtures of
+16-bit, GIF, RGB and lossy WebP depth maps.  The committed fixtures of
 ``tests/data_torch/formats/`` (``chip_smoke.py``'s loaders phase decodes
 them on the card's host) match their PIL digests.
 
@@ -617,6 +618,18 @@ def test_image_size_of_an_oriented_tiff_is_swapped(tmp_path):
     assert tuple(image_size(str(path))) == (23, 37)
 
 
+def _inter_frame(data: bytes) -> bytes:
+    """A lossy WebP whose frame tag says inter frame (no referee decodes it)."""
+    at = data.index(b"VP8 ") + 8
+    return data[:at] + bytes([data[at] | 1]) + data[at + 1:]
+
+
+def _alph_header(data: bytes, head: int) -> bytes:
+    """A lossy RGBA WebP with its ALPH header byte replaced."""
+    at = data.index(b"ALPH") + 8
+    return data[:at] + bytes([head]) + data[at + 1:]
+
+
 def _animated_webp():
     frames = [Image.fromarray(PIC), Image.fromarray(PIC[::-1].copy())]
     buf = io.BytesIO()
@@ -625,8 +638,9 @@ def _animated_webp():
 
 
 REFUSALS = {
-    "webp_lossy": (lambda: _pil(PIC, "WEBP", quality=80), "lossy WebP"),
-    "webp_lossy_alpha": (lambda: _pil(RGBA, "WEBP", quality=80), "lossy WebP"),
+    "webp_lossy": (lambda: _inter_frame(_pil(PIC, "WEBP", quality=80)), "not a key frame"),
+    "webp_lossy_alpha": (lambda: _alph_header(_pil(RGBA, "WEBP", quality=80), 0x02),
+                         "ALPH header 0x02"),
     "webp_animated": (_animated_webp, "animated WebP"),
     "tiff_jpeg": (lambda: _pil_tiff(PIC, compression="jpeg"), "JPEG compression"),
     "tiff_ccitt_group4": (lambda: _pil_tiff(PIC, "1", compression="group4"), "CCITT"),
@@ -719,6 +733,7 @@ def _depth_maps():
         "rgb_png": _pil(_natural(29, 41, seed=4), "PNG"),
         "16bit_tiff_mm": _tiff(g.astype(np.uint16) * 251, 1, 16, bo=">"),
         "pgm_16bit": _pil(Image.fromarray(g.astype(np.uint16) * 257), "PPM"),
+        "webp_lossy": _pil(g, "WEBP", quality=90),
     }
 
 
@@ -831,10 +846,16 @@ def _picture_800(h=800, w=800, seed=7, octaves=6):
     return np.clip(img.transpose(1, 2, 0), 0, 255).astype(np.uint8) & 0xF0
 
 
+def _picture_800_jpeg():
+    with Image.open(os.path.join(os.path.dirname(FORMATS), "picture_800.jpg")) as im:
+        return np.asarray(im.convert("RGB"))
+
+
 def format_fixture_bytes(name: str) -> bytes:
     """How each file of tests/data_torch/formats/ was made (Pillow 12.1.0
     with libtiff and libwebp; the hand-written variants by this module's
-    writers).  The frames are frame.jpg's pixels (149x203)."""
+    writers).  The frames are frame.jpg's pixels (149x203); the lossy
+    800x800 WebP is picture_800.jpg's, at PIL's quality 80 and method 4."""
     frame = _frame()
     gray = np.asarray(Image.fromarray(frame).convert("L"))
     q64 = Image.fromarray(frame).quantize(64)
@@ -866,6 +887,11 @@ def format_fixture_bytes(name: str) -> bytes:
                                                  tiffinfo={317: 2}),
         "picture_800.gif": lambda: _pil(_picture_800(), "GIF"),
         "picture_800.webp": lambda: _pil(_picture_800(), "WEBP", lossless=True),
+        "frame_lossy.webp": lambda: _pil(frame, "WEBP", quality=80),
+        "frame_lossy_rgba.webp": lambda: _pil(rgba, "WEBP", quality=80),
+        "picture_800_lossy.webp": lambda: _pil(_picture_800_jpeg(), "WEBP", quality=80,
+                                               method=4),
+        "depth_lossy.webp": lambda: _pil(gray, "WEBP", quality=90),
         "depth.jpg": lambda: _pil(gray, "JPEG", quality=90),
         "depth_palette.png": lambda: _pil(q64, "PNG"),
         "depth_1bit.png": lambda: _pil(gray, "PNG", "1"),
@@ -878,8 +904,10 @@ FORMAT_FIXTURES = ("frame.bmp", "frame_rle8.bmp", "frame_565.bmp", "frame.ppm", 
                    "frame_lzw.tif", "frame_tiled.tif", "gray16_mm.tif", "frame.gif",
                    "frame_interlaced.gif", "frame.webp", "frame_rgba.webp",
                    "picture_800_lzw.tif", "picture_800.gif", "picture_800.webp", "depth.jpg",
-                   "depth_palette.png", "depth_1bit.png", "depth.gif")
-DEPTH_FIXTURES = ("depth.jpg", "depth_palette.png", "depth_1bit.png", "depth.gif")
+                   "depth_palette.png", "depth_1bit.png", "depth.gif", "frame_lossy.webp",
+                   "frame_lossy_rgba.webp", "picture_800_lossy.webp", "depth_lossy.webp")
+DEPTH_FIXTURES = ("depth.jpg", "depth_palette.png", "depth_1bit.png", "depth.gif",
+                  "depth_lossy.webp")
 
 
 def _digest(a):

@@ -7,7 +7,7 @@ computes SSIM, applies an effect (and one through the native shader
 bridge), renders an aligned-spiral frame with
 its video, fits and scores through ``evaluate`` and ``eval``, loads a
 custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
-8, reads a BMP, a PGM, a TIFF, a GIF, a lossless WebP and a GIF depth map
+8, reads a BMP, a PGM, a TIFF, a GIF, a lossless and a lossy RGBA WebP and a GIF depth map
 through the one image reader, and in a one-rank gloo group renders a sharded frame and trains on a
 mesh (``parallel/``), with JAX, danerf_tpu, OpenCV, PIL, matplotlib,
 tensorstore, orbax, zstandard, msgpack and flax blocked), and
@@ -190,7 +190,7 @@ with tempfile.TemporaryDirectory() as tmp:
         return {"dtype": a.dtype.str, "shape": list(a.shape),
                 "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
     for name in ("frame_rle8.bmp", "gray16.pgm", "frame_tiled.tif", "frame_interlaced.gif",
-                 "frame_rgba.webp"):
+                 "frame_rgba.webp", "frame_lossy_rgba.webp"):
         assert sha(read_array(os.path.join(fmts, name))) == digests[name], name
         assert sha(read_rgb(os.path.join(fmts, name))) == digests[name + " rgb"], name
     assert sha(load_depth(os.path.join(fmts, "depth.gif"))) == digests["depth.gif depth"]

@@ -46,6 +46,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from test_torch_orbax import SMALL, _jax_checkpoint, _port_cfg
+from test_torch_train_loop import _one_thread
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import orbax_to_pt  # noqa: E402
@@ -322,10 +323,11 @@ def test_restore_matches_orbax_to_pt(tmp_path, jax_ckpt, over):
 
     tds = make_synthetic_scene(n_images=3, height=12, width=12, n_samples=16)
     steps = []
-    for it, model, table, opt, sched in (a, b):
-        m = train_step(model, table, opt, sched, tds.device_arrays(device="cpu"), tcfg,
-                       tds.height, tds.width, tds.focal, 16, torch.Generator().manual_seed(0))
-        steps.append((m, model.state_dict(), opt.state_dict()))
+    with _one_thread():          # the two runs compared bit for bit (``_one_thread``'s reason)
+        for it, model, table, opt, sched in (a, b):
+            m = train_step(model, table, opt, sched, tds.device_arrays(device="cpu"), tcfg,
+                           tds.height, tds.width, tds.focal, 16, torch.Generator().manual_seed(0))
+            steps.append((m, model.state_dict(), opt.state_dict()))
     (ma, pa, oa), (mb, pb, ob) = steps
     assert {k: float(v) for k, v in ma.items()} == {k: float(v) for k, v in mb.items()}
     assert np.isfinite(float(ma["loss"]))
@@ -605,3 +607,44 @@ def test_backend_other_than_orbax_refused(tmp_path, backend):
         read_jax_checkpoint(str(tmp_path))
     with pytest.raises(ValueError, match="msgpack fallback cannot write"):
         load_model(str(tmp_path), NeRFConfig(), "cpu")
+
+
+# ------------------------------------------------- two processes, one checkpoint
+
+FIXTURE_2PROC = os.path.join(DATA, "jax_run_2proc", "checkpoint_000006")
+
+
+def test_read_two_process_checkpoint_matches_jax_restore():
+    """The directory that two ``jax.distributed`` processes saved together
+    (``write_jax_checkpoint_2proc.py``: ``tests/mp_worker.py``'s sharded
+    train state over 4 devices in 2 processes; Orbax writes the leaves from
+    the primary process alone, ``ocdbt.process_0/`` under the root
+    manifest): ``read_jax_checkpoint`` against the JAX
+    ``restore_checkpoint`` into a single-process template, every leaf bit
+    for bit, dtype included, and the metadata."""
+    from danerf_tpu.config import NeRFConfig
+    from danerf_tpu.train.trainer import create_train_state
+    from danerf_tpu.utils.checkpoint import restore_checkpoint
+    from danerf_tpu_torch.utils.checkpoint import read_jax_checkpoint
+
+    state_dir = os.path.join(FIXTURE_2PROC, "state")
+    assert sorted(d for d in os.listdir(state_dir) if d.startswith("ocdbt.")) == \
+        ["ocdbt.process_0"]
+    cfg = NeRFConfig(hidden_dim=32, num_layers=2, skip_connect_layers=(), num_samples=8,
+                     num_importance=0, batch_size=16, use_bf16=False, use_pallas=False,
+                     appearance_dim=4, pos_enc_levels=4, dir_enc_levels=2)
+    restored, meta = restore_checkpoint(FIXTURE_2PROC,
+                                        create_train_state(jax.random.key(1), cfg, 2))
+    tree, got_meta = read_jax_checkpoint(FIXTURE_2PROC)
+    assert got_meta == meta
+    assert meta["process_count"] == 2 and meta["step"] == 6 and meta["backend"] == "orbax"
+    want = _jax_leaves(restored)
+    _assert_bit_equal(_leaves(tree), want)
+    assert int(want["step"]) == 6
+    assert any(np.abs(v).max() > 0 for k, v in want.items() if k.endswith(".mu"))
+
+
+def test_two_process_fixture_within_its_size_budget():
+    root = os.path.join(DATA, "jax_run_2proc")
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    assert size < 60_000, size
