@@ -235,14 +235,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             torch.profiler window.
 7b. serve_fx  `cli.main render --effect Fog --create_video`, then --effect
             Hologram: two 400x400 medium frames each from the smoke
-            checkpoint; every file, the AVI read back (frame count, size,
-            pixels against the PNGs), exactly one K2 and one K5 a chunk
-            (launch counts zeroed just before each, read just after).
+            checkpoint; every file, the video (hotdog_render.mp4, MPEG-4
+            Part 2) read back by check_video (frame count, rate, I-VOP
+            every 12th frame, every plane equal to the encoder's
+            reconstruction of the PNGs, each plane's mean PSNR against
+            the PNGs' own 4:2:0 planes 35 dB or more), exactly one K2 and
+            one K5 a chunk (launch counts zeroed
+            just before each, read just after).
 7c. spiral_fx  the reference's pipeline through the CLI: `spiral` (12 frames
-            at 200x200, grayscale depth on frames 0 and 10, its AVI; one K2
-            and one K5 a frame), `effects` on its output (all 14: Fog on the
-            2 depth frames, the rest on 12, an AVI each), `preview` (Fog at
-            3 values of fog_start, manifest.json), `video`.
+            at 200x200, grayscale depth on frames 0 and 10, chair_spiral.mp4;
+            one K2 and one K5 a frame), `effects` on its output (all 14: Fog
+            on the 2 depth frames, the rest on 12, an <effect>.mp4 each),
+            `preview` (Fog at 3 values of fog_start, manifest.json), `video`
+            into sp.mp4 and sp.avi (XVID); every video through check_video.
+7c'. video  the video encoder on the card's host: a 26-frame 800x800
+            aligned spiral rendered by the smoke model, create_video_from_
+            images of its PNGs (ms a frame with the PNG reads), the encoder
+            alone (ms a frame, I-VOPs and P-VOPs apart), where its time goes
+            (cProfile), the .mp4 through check_video; a line of its ms a
+            frame with the card's name and power limit.
 7d. serve_timing  an 800x800 medium frame: render_frame alone (median of
             3), the serial frame loop (render, fetch, two PNG encodes, one
             frame after another), render_path, which overlaps the fetch and
@@ -3585,20 +3596,52 @@ def serve_launches(counts, want_k2k5):
         raise AssertionError(f"launches {counts}, expected {want}")
 
 
+# dB, each decoded plane against the PNGs' own Y, Cb, Cr (the colour format's
+# loss apart: saturated scanlines lose ~6 dB of RGB PSNR to 4:2:0 alone)
+VIDEO_PSNR_FLOOR = 35.0
+
+
 def check_video(path, pngs, fps):
-    """The AVI, read with the port's reader: one frame a PNG, each equal
-    to its PNG, at ``fps``."""
+    """A video the port wrote (MPEG-4 Part 2), decoded with the port's
+    reader: one frame a PNG at ``fps``, every plane equal to the encoder's
+    reconstruction of the PNGs (encoded again here), an I-VOP every 12th
+    frame and P-VOPs between, and each plane's mean PSNR against the PNGs'
+    own 4:2:0 planes at least VIDEO_PSNR_FLOOR; the RGB PSNR against the
+    PNGs, and that of the 4:2:0 conversion alone, are reported."""
     import numpy as np
 
     from danerf_tpu_torch.data.png import read_png
-    from danerf_tpu_torch.viz.video import read_avi
+    from danerf_tpu_torch.viz import mpeg4
+    from danerf_tpu_torch.viz.video import decode_video, idct_for
 
-    frames, got_fps = read_avi(path)
-    want = np.stack([read_png(p) for p in pngs])
-    if frames.shape != want.shape or got_fps != fps or not np.array_equal(frames, want):
-        raise AssertionError(f"{path}: {frames.shape} at {got_fps} fps, expected "
-                             f"{want.shape} at {fps}, equal={np.array_equal(frames, want)}")
-    return list(frames.shape)
+    def psnr(a, b):
+        err = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+        return float(10 * np.log10(255.0 ** 2 / max(err, 1e-12)))
+
+    planes, keys, got_fps = decode_video(path)
+    want = [read_png(p) for p in pngs]
+    if len(planes) != len(want) or got_fps != fps:
+        raise AssertionError(f"{path}: {len(planes)} frames at {got_fps} fps, expected "
+                             f"{len(want)} at {fps}")
+    if keys != [i % mpeg4.GOP == 0 for i in range(len(want))]:
+        raise AssertionError(f"{path}: I-VOPs at {[i for i, k in enumerate(keys) if k]}")
+    enc = mpeg4.Encoder(want[0].shape[1], want[0].shape[0], fps, idct=idct_for(path))
+    per_plane, rgb, fmt = [], [], []
+    for i, (got, png) in enumerate(zip(planes, want)):
+        enc.encode(png)
+        if not all(np.array_equal(a, b) for a, b in zip(got, enc.reconstruction())):
+            raise AssertionError(f"{path}: frame {i} is not the encoder's reconstruction")
+        own = mpeg4.rgb_to_yuv420(png)
+        per_plane.append([psnr(a, b) for a, b in zip(got, own)])
+        rgb.append(psnr(mpeg4.yuv420_to_rgb(*got), png))
+        fmt.append(psnr(mpeg4.yuv420_to_rgb(*own), png))
+    planes_db = np.mean(per_plane, axis=0)
+    if planes_db.min() < VIDEO_PSNR_FLOOR:
+        raise AssertionError(f"{path}: mean PSNR of Y, Cb, Cr {planes_db.round(2).tolist()} dB "
+                             f"against the PNGs' planes, below {VIDEO_PSNR_FLOOR}")
+    return {"shape": [len(want), *want[0].shape], "psnr_yuv_db": planes_db.tolist(),
+            "psnr_rgb_db": float(np.mean(rgb)), "psnr_rgb_420_alone_db": float(np.mean(fmt)),
+            "bytes": os.path.getsize(path)}
 
 
 def phase_serve_fx(cfg, out_dir, device, size=400):
@@ -3636,7 +3679,7 @@ def phase_serve_fx(cfg, out_dir, device, size=400):
                 if not os.path.exists(os.path.join(run_dir, name)):
                     raise AssertionError(f"{effect}: {name} was not written")
         # render's default --scene, hotdog, names the video
-        shape = check_video(os.path.join(run_dir, "hotdog_render.avi"), written, 24)
+        shape = check_video(os.path.join(run_dir, "hotdog_render.mp4"), written, 24)
         got = [read_png(p) for p in written]
         if effect == "Fog" and min(int(g.min()) for g in got) < 178:
             raise AssertionError("Fog: a pixel below 0.7 x 255 (fog lets at most 30% through)")
@@ -3684,7 +3727,7 @@ def phase_spiral_fx(cfg, out_dir, device, n=12, size=200):
         if read_png("output/sp/depth_0000.png").shape != (size, size):
             raise AssertionError("spiral depth is not a grayscale frame")
         # spiral's default --scene, chair, names the video
-        report["spiral_video"] = check_video("output/sp/chair_spiral.avi", written, 30)
+        report["spiral_video"] = check_video("output/sp/chair_spiral.mp4", written, 30)
 
         t0 = time.perf_counter()
         names = cli_main(["effects", "--input_dir", "output/sp", "--device", str(device)])
@@ -3698,7 +3741,7 @@ def phase_spiral_fx(cfg, out_dir, device, n=12, size=200):
                           for f in os.listdir(os.path.join("output/sp_effects", slug)))
             if len(outs) != (2 if name == "Fog" else n):
                 raise AssertionError(f"effects {name}: {len(outs)} frames")
-            check_video(f"output/sp_effects/{slug}.avi", outs, 60)
+            check_video(f"output/sp_effects/{slug}.mp4", outs, 60)
             report["effects_frames"][name] = len(outs)
 
         with open("spec.json", "w") as f:
@@ -3715,8 +3758,72 @@ def phase_spiral_fx(cfg, out_dir, device, n=12, size=200):
 
         cli_main(["video", "--input_dir", "output/sp", "--output", "sp.mp4", "--pattern",
                   "frame_*.png", "--fps", "30"])
-        report["video"] = check_video("sp.avi", written, 30)
+        report["video"] = check_video("sp.mp4", written, 30)
+        cli_main(["video", "--input_dir", "output/sp", "--output", "sp.avi", "--pattern",
+                  "frame_*.png", "--fps", "30"])
+        report["video_avi"] = check_video("sp.avi", written, 30)
     emit({"phase": "spiral_fx", "frames": n, "size": size, **report})
+    return report
+
+
+def phase_video(cfg, model, out_dir, device, smi, side=800, frames=26):
+    """The video encoder on the card's host at 800x800: an aligned spiral
+    of ``frames`` (26: an I-VOP at 0, 12 and 24) rendered by the model,
+    then create_video_from_images of its PNGs into an .mp4 (ms a frame,
+    the PNG reads included), the encoder alone on the decoded frames (ms
+    a frame, the I-VOPs and P-VOPs apart), where its time goes (cProfile
+    over a second pass, the functions above 2% of it), and the file checked
+    by ``check_video``."""
+    import cProfile
+    import pstats
+
+    import numpy as np
+
+    from danerf_tpu_torch.data.png import read_png
+    from danerf_tpu_torch.render.frames import render_aligned_spiral
+    from danerf_tpu_torch.viz import mpeg4
+    from danerf_tpu_torch.viz.video import create_video_from_images
+
+    work = os.path.join(out_dir, "video")
+    t0 = time.perf_counter()
+    written = render_aligned_spiral(model, cfg, work, num_frames=frames, height=side,
+                                    width=side, make_video=False, device=device)
+    render_ms = (time.perf_counter() - t0) * 1e3 / frames
+    path = os.path.join(work, "spiral.mp4")
+    t0 = time.perf_counter()
+    create_video_from_images(work, path, pattern="frame_*.png", fps=30)
+    video_ms = (time.perf_counter() - t0) * 1e3 / frames
+    imgs = [read_png(p) for p in written]
+    enc = mpeg4.Encoder(side, side, 30)
+    each = []
+    for img in imgs:
+        t0 = time.perf_counter()
+        enc.encode(img)
+        each.append((time.perf_counter() - t0) * 1e3)
+    keys = [i % mpeg4.GOP == 0 for i in range(frames)]
+    prof = cProfile.Profile()
+    enc = mpeg4.Encoder(side, side, 30)
+    prof.enable()
+    for img in imgs:
+        enc.encode(img)
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(tt for _, _, tt, _, _ in stats.values())
+    where = {f"{name}:{line}": round(ct * 1e3 / frames, 3)
+             for (fname, line, name), (_, _, _, ct, _) in stats.items()
+             if fname.endswith("mpeg4.py") and ct > 0.02 * total}
+    check = check_video(path, written, 30)
+    report = {"size": side, "frames": frames, "card": smi,
+              "render_ms_per_frame": render_ms,
+              "create_video_ms_per_frame": video_ms,
+              "encode_ms_per_frame": float(np.mean(each)),
+              "encode_i_vop_ms": float(np.mean([e for e, k in zip(each, keys) if k])),
+              "encode_p_vop_ms": float(np.mean([e for e, k in zip(each, keys) if not k])),
+              "encode_ms_each": each, "profile_ms_per_frame": where, "file": check}
+    emit({"phase": "video", **report})
+    print(f"video encoder {side}x{side}: {report['encode_ms_per_frame']:.3f} ms a frame "
+          f"(I-VOP {report['encode_i_vop_ms']:.3f}, P-VOP {report['encode_p_vop_ms']:.3f}; "
+          f"with the PNG reads {video_ms:.3f}) on the host of {smi}", flush=True)
     return report
 
 
@@ -5195,6 +5302,7 @@ def main(argv=None):
     phase_fx(device)
     phase_serve_fx(cfg, args.out, device)
     phase_spiral_fx(cfg, args.out, device)
+    phase_video(cfg, model, args.out, device, smi)
     phase_serve_timing(cfg, model, args.out, device)
     phase_eval_timing(cfg, model, device)
     timing, bound_by = phase_timing(cfg, model, device, chunk)

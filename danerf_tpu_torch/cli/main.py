@@ -16,7 +16,8 @@ Orbax, read without JAX), and without it ``render`` takes the
 latest checkpoint of either kind in ``checkpoints_<scene>`` (``train``'s
 default ``--save_dir``), as the JAX CLI does.  ``render
 --effect NAME`` applies a depth-aware effect to each frame on the device,
-and ``--create_video`` encodes the frames as an uncompressed AVI.
+and ``--create_video`` encodes the frames as ``<scene>_render.mp4``
+(MPEG-4 Part 2, as the JAX CLI writes it).
 ``spiral`` renders the aligned spiral (``frame_NNNN.png``, a grayscale
 ``depth_NNNN.png`` every 10th frame, a video) into ``output/<--output_dir>``
 (the JAX CLI's prefix), with ``--device`` and ``--seed``; ``effects``
@@ -138,7 +139,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--save_depth", action="store_true")
     r.add_argument("--raw_output", action="store_true")
     r.add_argument("--create_video", action="store_true",
-                   help="encode the frames as <scene>_render.avi (uncompressed)")
+                   help="encode the frames as <scene>_render.mp4 (MPEG-4 Part 2)")
     r.add_argument("--fps", type=int, default=30)
     r.add_argument("--no_pallas", action="store_true",
                    help="take the reference route instead of the kernels")
@@ -220,10 +221,11 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--output_dir", type=str, default="previews")
     pv.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
 
-    v = sub.add_parser("video", help="encode an image sequence to video (uncompressed AVI)")
+    v = sub.add_parser("video", help="encode an image sequence to video (MPEG-4 Part 2)")
     v.add_argument("--input_dir", type=str, required=True)
     v.add_argument("--output", type=str, required=True,
-                   help="a name not ending in .avi becomes <root>.avi")
+                   help=".mp4, .mov, .mkv (mp4v) or .avi (XVID); any other name "
+                        "becomes <root>.mp4")
     v.add_argument("--pattern", type=str, default="rgb_*.png")
     v.add_argument("--fps", type=int, default=30)
     v.add_argument("--resolution", type=int, nargs=2, default=None)

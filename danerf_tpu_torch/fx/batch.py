@@ -124,7 +124,7 @@ def apply_effect_to_frames(input_dir: str, output_dir: str, effect: str,
 
     if make_video and written:
         video = os.path.join(os.path.dirname(output_dir.rstrip("/")) or ".",
-                             f"{effect.lower().replace(' ', '_')}.avi")
+                             f"{effect.lower().replace(' ', '_')}.mp4")
         if not (skip_existing and os.path.exists(video)):
             create_video_from_images(output_dir, video, pattern="frame_*.png", fps=fps)
     return written

@@ -130,7 +130,7 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
     focal: the dataset's focal at ``dataset_width``, rescaled to ``width``.
     effect: a depth-aware effect applied to each frame on the device (not
     with ``raw_output``, as in the JAX package).  make_video: encode the
-    frames as ``{scene}_render.avi`` at ``fps``.  time / animate_time: the
+    frames as ``{scene}_render.mp4`` (MPEG-4 Part 2) at ``fps``.  time / animate_time: the
     frame time of a ``use_time`` model, fixed or swept from 0 to 1 over the
     path's frames.  mesh: each frame's rays shard over its data axis
     (``render_frame``) and rank 0 writes; with several ranks and no mesh
@@ -204,7 +204,7 @@ def render_path(model, cfg: NeRFConfig, output_dir: str,
         written = pipe.results()
 
     if make_video and _video_writer(mesh) and written:
-        create_video_from_images(output_dir, os.path.join(output_dir, f"{cfg.scene}_render.avi"),
+        create_video_from_images(output_dir, os.path.join(output_dir, f"{cfg.scene}_render.mp4"),
                                  pattern=frame_name.replace("{:03d}", "*"), fps=fps)
     return written
 
@@ -217,7 +217,7 @@ def render_aligned_spiral(model, cfg: NeRFConfig, output_dir: str,
                           seed: int = 0, device="cuda", mesh=None) -> list[str]:
     """Aligned spiral render: ``frame_NNNN.png``, a grayscale
     ``depth_NNNN.png`` every 10th frame, the config's samples without
-    jitter, and ``{scene}_spiral.avi`` at ``fps``; returns the frame paths.
+    jitter, and ``{scene}_spiral.mp4`` at ``fps``; returns the frame paths.
     ``mesh`` and several ranks as in ``render_path``."""
     dev = resolve_device(device)
     frame_ids, writes = _frames_of_rank(num_frames, mesh)
@@ -250,6 +250,6 @@ def render_aligned_spiral(model, cfg: NeRFConfig, output_dir: str,
         written = pipe.results()
 
     if make_video and _video_writer(mesh):
-        create_video_from_images(output_dir, os.path.join(output_dir, f"{cfg.scene}_spiral.avi"),
+        create_video_from_images(output_dir, os.path.join(output_dir, f"{cfg.scene}_spiral.mp4"),
                                  pattern="frame_*.png", fps=fps)
     return written

@@ -1,35 +1,39 @@
-"""Video from an image sequence (counterpart of danerf_tpu/viz/video.py's
-``create_video_from_images``): glob pattern, sorted, optional resize, fps.
+"""Video from an image sequence, the counterpart of danerf_tpu/viz/video.py's
+``create_video_from_images``: glob pattern, sorted, optional resize, fps.
 
-The JAX package writes through OpenCV's VideoWriter (mp4v or XVID).  The
-port uses no imaging library, so it writes the container itself: a RIFF AVI
-of uncompressed 24-bit ``DIB `` frames (BGR, each row padded to 4 bytes)
-with an ``idx1`` index, which FFmpeg-based players and OpenCV read.  The
-rows are stored top-down (a negative ``biHeight``, which BITMAPINFOHEADER
-allows for uncompressed RGB): OpenCV 5.0's FFmpeg reader corrupts its heap
-on the bottom-up layout, whose frames FFmpeg hands over with a negative
-line size.  A ``.mp4``, ``.mov`` or ``.mkv`` name (any name not ending
-in ``.avi``) becomes ``<root>.avi``; the function prints the path it wrote.
-It raises before the file would pass RIFF's 32-bit size field (4 GiB).
-``resolution`` resizes bilinearly as ``cv2.resize``'s default INTER_LINEAR
-does (half-pixel centres, no antialiasing).  ``read_avi`` reads such a
-file back.
+The JAX package writes through OpenCV's VideoWriter: MPEG-4 Part 2 as
+``mp4v`` in ``.mp4``, ``.mov`` and ``.mkv`` and as ``XVID`` in ``.avi``,
+any other name becoming ``<root>.mp4``.  The port writes the same files
+with no imaging or media library: the codec is ``viz/mpeg4.py``, the
+containers ``viz/mux.py``.  Frames are read as ``cv2.imread`` reads them
+(``data/images.read_cv2``): a file cv2 cannot read is skipped, and if it is
+the first the function returns False.  ``resolution`` resizes bilinearly as
+``cv2.resize``'s default INTER_LINEAR does (half-pixel centres, no
+antialiasing).  ``read_video`` decodes such a file back.
 """
 
 from __future__ import annotations
 
 import glob
 import os
-import struct
-from typing import Iterable, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-from danerf_tpu_torch.data.custom import read_rgb
+from danerf_tpu_torch.data.images import read_cv2
+from danerf_tpu_torch.viz import mpeg4
+from danerf_tpu_torch.viz.mux import demux, open_writer
 
-_AVIF_HASINDEX = 0x10
-_AVIIF_KEYFRAME = 0x10
-_RIFF_MAX = 0xFFFFFFFF
+EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv")
+# fourccs FFmpeg decodes with the XviD IDCT when the stream names no encoder
+_XVID_TAGS = (b"XVID", b"XVIX", b"RMP4", b"ZMP4", b"SIPP")
+
+
+def idct_for(path: str) -> str:
+    """The inverse transform FFmpeg decodes the port's file at ``path``
+    with: XviD's for an ``.avi`` (the XVID fourcc), the simple IDCT for
+    the others."""
+    return "xvid" if os.path.splitext(path)[1].lower() == ".avi" else "simple"
 
 
 def _axis(n_out: int, n_in: int):
@@ -57,121 +61,89 @@ def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return np.clip(np.rint(top * (1 - fy) + bottom * fy), 0, 255).astype(np.uint8)
 
 
-def _chunk_header(tag: bytes, size: int) -> bytes:
-    return tag + struct.pack("<I", size)
+def video_path(output_path: str) -> str:
+    """The name the JAX package writes: ``output_path`` when it ends in one
+    of ``EXTENSIONS`` (any case), else ``<root>.mp4``."""
+    root, ext = os.path.splitext(output_path)
+    return output_path if ext.lower() in EXTENSIONS else root + ".mp4"
 
 
-def write_avi(path: str, frames: Iterable[np.ndarray], n_frames: int, width: int,
-              height: int, fps: int) -> None:
-    """Write ``n_frames`` uint8 (height, width, 3) RGB frames as an
-    uncompressed AVI.  The sizes are checked before ``frames`` is read."""
-    stride = (3 * width + 3) & ~3
-    frame_bytes = stride * height
-    strl = 4 + (8 + 56) + (8 + 40)
-    hdrl = 4 + (8 + 56) + (8 + strl)
-    movi = 4 + n_frames * (8 + frame_bytes)
-    idx1 = 16 * n_frames
-    riff = 4 + (8 + hdrl) + (8 + movi) + (8 + idx1)
-    if riff > _RIFF_MAX:
-        raise ValueError(f"{n_frames} frames of {width}x{height} need {riff + 8} bytes; a RIFF "
-                         "AVI holds at most 4 GiB: write fewer frames or pass a smaller "
-                         "resolution")
-    usec = int(round(1e6 / fps))
-    avih = struct.pack("<14I", usec, min(frame_bytes * int(fps), _RIFF_MAX), 0, _AVIF_HASINDEX,
-                       n_frames, 0, 1, frame_bytes, width, height, 0, 0, 0, 0)
-    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids", b"DIB ", 0, 0, 0, 0, 1, int(fps), 0,
-                       n_frames, frame_bytes, 0xFFFFFFFF, 0, 0, 0, width, height)
-    strf = struct.pack("<IiiHHIIiiII", 40, width, -height, 1, 24, 0, frame_bytes, 0, 0, 0, 0)
-    header = (_chunk_header(b"RIFF", riff) + b"AVI "
-              + _chunk_header(b"LIST", hdrl) + b"hdrl" + _chunk_header(b"avih", 56) + avih
-              + _chunk_header(b"LIST", strl) + b"strl" + _chunk_header(b"strh", 56) + strh
-              + _chunk_header(b"strf", 40) + strf
-              + _chunk_header(b"LIST", movi) + b"movi")
-    row = np.zeros((height, stride), np.uint8)
-    index = []
-    with open(path, "wb") as f:
-        f.write(header)
-        n = 0
-        for img in frames:
-            if img.shape != (height, width, 3) or img.dtype != np.uint8:
-                raise ValueError(f"frame {n} is {img.dtype} {img.shape}, expected uint8 "
-                                 f"{(height, width, 3)}")
-            row[:, :3 * width] = img[:, :, ::-1].reshape(height, 3 * width)
-            index.append(struct.pack("<4sIII", b"00db", _AVIIF_KEYFRAME,
-                                     4 + n * (8 + frame_bytes), frame_bytes))
-            f.write(_chunk_header(b"00db", frame_bytes))
-            f.write(row.tobytes())
-            n += 1
-        if n != n_frames:
-            raise ValueError(f"got {n} frames, expected {n_frames}")
-        f.write(_chunk_header(b"idx1", idx1) + b"".join(index))
+class VideoWriter:
+    """MPEG-4 Part 2 frames into the container of ``path``'s extension.
+    ``write`` takes uint8 (height, width, 3) RGB; ``close`` writes the
+    index.  On an exception inside a ``with`` block the file is removed."""
+
+    def __init__(self, path: str, width: int, height: int, fps=30):
+        self.encoder = mpeg4.Encoder(width, height, fps, idct=idct_for(path))
+        self.mux = open_writer(path, self.encoder.headers, width, height, fps)
+        self.frames = 0
+
+    def write(self, rgb: np.ndarray):
+        packet, key = self.encoder.encode(rgb)
+        self.mux.add(packet, key)
+        self.frames += 1
+
+    def close(self):
+        self.mux.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, value, tb):
+        self.mux.__exit__(kind, value, tb)
 
 
 def create_video_from_images(image_dir: str, output_path: str,
                              pattern: str = "rgb_*.png", fps: int = 30,
                              resolution: Optional[Tuple[int, int]] = None) -> bool:
-    """Encode the images of ``image_dir`` matching ``pattern`` (sorted) as an
-    AVI at ``fps``; ``resolution`` = (width, height) resizes each frame.
-    Returns False when no image matches."""
+    """Encode the images of ``image_dir`` matching ``pattern`` (sorted) at
+    ``fps``; ``resolution`` = (width, height) resizes each frame.  Returns
+    False when no image matches or the first cannot be read."""
     images = sorted(glob.glob(os.path.join(image_dir, pattern)))
     if not images:
+        return False
+    first = read_cv2(images[0])
+    if first is None:
         return False
     if resolution:
         width, height = resolution
     else:
-        height, width = read_rgb(images[0]).shape[:2]
+        height, width = first.shape[:2]
 
-    root, ext = os.path.splitext(output_path)
-    if ext.lower() != ".avi":
-        output_path = root + ".avi"
+    output_path = video_path(output_path)
     out_dir = os.path.dirname(output_path)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-
-    def frames():
+    with VideoWriter(output_path, width, height, fps) as video:
         for path in images:
-            img = read_rgb(path)
-            yield resize_bilinear(img, (width, height)) if resolution else img
-
-    write_avi(output_path, frames(), len(images), width, height, fps)
-    print(f"wrote {output_path}: {len(images)} frames, {width}x{height}, {fps} fps, "
-          "uncompressed AVI")
+            img = first if path == images[0] else read_cv2(path)
+            if img is None:
+                continue
+            if resolution:
+                img = resize_bilinear(img, (width, height))
+            if img.shape[:2] != (height, width):
+                raise ValueError(f"{path} is {img.shape[1]}x{img.shape[0]}, the video "
+                                 f"{width}x{height}: pass a resolution")
+            video.write(img)
+    print(f"wrote {output_path}: {video.frames} frames, {width}x{height}, {fps} fps, "
+          "MPEG-4 Part 2")
     return True
 
 
-def read_avi(path: str):
-    """The frames of an uncompressed 24-bit AVI as uint8 (N, H, W, 3) RGB,
-    and its frame rate."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
-        raise ValueError(f"{path} is not a RIFF AVI file")
-    info, frames = {}, []
+def decode_video(path: str):
+    """(Y, Cb, Cr planes of each frame as FFmpeg shows them, I-VOP flags,
+    frames per second) of a video this module writes."""
+    headers, packets, _, fps, tag = demux(path)
+    first = packets[0] if packets else b""
+    head = headers or first[:first.find(b"\x00\x00\x01\xb6")]
+    idct = "xvid" if tag.upper() in _XVID_TAGS and b"\x00\x00\x01\xb2" not in head else "simple"
+    _, planes, keys = mpeg4.decode_stream(headers, packets, idct)
+    return planes, keys, fps
 
-    def walk(pos, end):
-        while pos + 8 <= end:
-            tag, size = data[pos:pos + 4], struct.unpack("<I", data[pos + 4:pos + 8])[0]
-            body = pos + 8
-            if tag == b"LIST":
-                walk(body + 4, body + size)
-            elif tag == b"strh":
-                info["scale"], info["rate"] = struct.unpack("<II", data[body + 20:body + 28])
-            elif tag == b"strf":
-                w, h, _, bits, comp = struct.unpack("<iiHHI", data[body + 4:body + 20])
-                if bits != 24 or comp != 0:
-                    raise ValueError(f"{path}: {bits}-bit frames, compression {comp}; only "
-                                     "uncompressed 24-bit frames are read")
-                info["w"], info["h"] = w, h
-            elif tag[2:] in (b"db", b"dc"):
-                frames.append(data[body:body + size])
-            pos = body + size + (size & 1)
 
-    walk(12, len(data))
-    w, h = info["w"], abs(info["h"])
-    stride = (3 * w + 3) & ~3
-    out = np.empty((len(frames), h, w, 3), np.uint8)
-    for i, raw in enumerate(frames):
-        img = np.frombuffer(raw, np.uint8, stride * h).reshape(h, stride)[:, :3 * w]
-        img = img.reshape(h, w, 3)[..., ::-1]
-        out[i] = img[::-1] if info["h"] > 0 else img
-    return out, info["rate"] / info["scale"]
+def read_video(path: str):
+    """The frames of a video this module writes as uint8 (N, H, W, 3) RGB
+    (BT.601 limited range, chroma repeated over 2x2), and its frame rate."""
+    planes, _, fps = decode_video(path)
+    frames = np.stack([mpeg4.yuv420_to_rgb(*p) for p in planes])
+    return frames, float(fps)

@@ -341,11 +341,14 @@ def test_cli_spiral_effects_preview_video(scene, tmp_path, monkeypatch, capsys):
     """spiral -> effects -> preview -> video on the CPU, the reference's
     pipeline: spiral writes 11 frames under output/ with depth on frames 0
     and 10 and its video; effects runs all 14 (Fog on the 2 depth frames)
-    with a video each; preview sweeps fog_start; video encodes the frames."""
+    with a video each; preview sweeps fog_start; video encodes the frames.
+    The videos carry the JAX names (<scene>_spiral.mp4, <effect>.mp4, the
+    --output as given) and decode to the encoder's reconstruction."""
     from danerf_tpu_torch.cli.main import main
     from danerf_tpu_torch.data.png import read_png
     from danerf_tpu_torch.fx import EFFECTS
-    from danerf_tpu_torch.viz.video import read_avi
+    from danerf_tpu_torch.viz import mpeg4
+    from danerf_tpu_torch.viz.video import read_video, resize_bilinear
 
     ckpt = _small_checkpoint(tmp_path)
     monkeypatch.chdir(tmp_path)
@@ -355,8 +358,12 @@ def test_cli_spiral_effects_preview_video(scene, tmp_path, monkeypatch, capsys):
     assert written == [os.path.join("output", "sp", f"frame_{i:04d}.png") for i in range(11)]
     assert sorted(p.name for p in (tmp_path / "output" / "sp").glob("depth_*")) == [
         "depth_0000.png", "depth_0010.png"]
-    frames, fps = read_avi("output/sp/tiny_spiral.avi")
+    frames, fps = read_video("output/sp/tiny_spiral.mp4")
     assert frames.shape == (11, 6, 8, 3) and fps == 12
+    enc = mpeg4.Encoder(8, 6, 12)
+    for frame, path in zip(frames, written):
+        enc.encode(read_png(path))
+        np.testing.assert_array_equal(frame, mpeg4.yuv420_to_rgb(*enc.reconstruction()))
 
     names = main(["effects", "--input_dir", "output/sp", "--device", "cpu"])
     assert names == list(EFFECTS)
@@ -365,10 +372,10 @@ def test_cli_spiral_effects_preview_video(scene, tmp_path, monkeypatch, capsys):
         outs = sorted(p.name for p in (tmp_path / "output" / "sp_effects" / slug).iterdir())
         assert outs == (["frame_0000.png", "frame_0010.png"] if name == "Fog" else
                         [f"frame_{i:04d}.png" for i in range(11)]), name
-        assert read_avi(f"output/sp_effects/{slug}.avi")[0].shape[0] == len(outs)
+        assert read_video(f"output/sp_effects/{slug}.mp4")[0].shape[0] == len(outs)
     one = main(["effects", "--input_dir", "output/sp", "--effect", "Sepia", "--output_dir",
                 "one", "--device", "cpu"])
-    assert len(one) == 11 and os.path.exists("one/sepia.avi")
+    assert len(one) == 11 and os.path.exists("one/sepia.mp4")
 
     spec = tmp_path / "spec.json"
     spec.write_text(json.dumps({"effects": [{"name": "Fog",
@@ -385,20 +392,25 @@ def test_cli_spiral_effects_preview_video(scene, tmp_path, monkeypatch, capsys):
 
     assert main(["video", "--input_dir", "output/sp", "--output", "v.mp4", "--pattern",
                  "frame_*.png", "--fps", "5", "--resolution", "16", "12"])
-    frames, fps = read_avi("v.avi")
+    frames, fps = read_video("v.mp4")
     assert frames.shape == (11, 12, 16, 3) and fps == 5
+    enc = mpeg4.Encoder(16, 12, 5)
+    for frame, path in zip(frames, written):
+        enc.encode(resize_bilinear(read_png(path), (16, 12)))
+        np.testing.assert_array_equal(frame, mpeg4.yuv420_to_rgb(*enc.reconstruction()))
     with pytest.raises(SystemExit, match="no images matching"):
         main(["video", "--input_dir", "output/sp", "--output", "w.avi"])
 
 
 def test_cli_render_effect_and_video(scene, tmp_path, capsys):
     """render --effect Fog --create_video writes the fogged frames and
-    <scene>_render.avi of them; an unknown effect raises the JAX KeyError;
+    <scene>_render.mp4 of them; an unknown effect raises the JAX KeyError;
     --mesh_data 2 without a process group renders single-device with the
     JAX CLI's message, by render and by spiral."""
     from danerf_tpu_torch.cli.main import main
     from danerf_tpu_torch.data.png import read_png
-    from danerf_tpu_torch.viz.video import read_avi
+    from danerf_tpu_torch.viz import mpeg4
+    from danerf_tpu_torch.viz.video import read_video
 
     ckpt = _small_checkpoint(tmp_path)
     out = tmp_path / "frames"
@@ -407,10 +419,14 @@ def test_cli_render_effect_and_video(scene, tmp_path, capsys):
             "--quality", "medium", "--device", "cpu"]
     written = main([*argv, "--effect", "Fog", "--create_video", "--fps", "4"])
     assert written == [str(out / "rgb_000.png"), str(out / "rgb_001.png")]
-    frames, fps = read_avi(str(out / "tiny_render.avi"))
+    frames, fps = read_video(str(out / "tiny_render.mp4"))
     assert fps == 4
-    np.testing.assert_array_equal(frames, np.stack([read_png(p) for p in written]))
-    assert frames.min() >= 178   # fog: at most 30% of the scene shows through
+    pngs = [read_png(p) for p in written]
+    assert np.stack(pngs).min() >= 178   # fog: at most 30% of the scene shows through
+    enc = mpeg4.Encoder(8, 6, 4)
+    for frame, png in zip(frames, pngs):
+        enc.encode(png)
+        np.testing.assert_array_equal(frame, mpeg4.yuv420_to_rgb(*enc.reconstruction()))
     with pytest.raises(KeyError, match="unknown effect 'nope'"):
         main([*argv, "--effect", "nope"])
     spiral = ["spiral", "--checkpoint", ckpt, "--dataset_path", str(scene), "--scene", "tiny",

@@ -963,10 +963,12 @@ def test_effect_on_card_matches_cpu(tf32_defaults, name, with_depth):
 
 def test_cli_render_effect_on_card(tf32_defaults, tmp_path):
     """render --effect Hologram --create_video on the card: K2 and K5 a
-    chunk, the video's frames the PNGs."""
+    chunk, the video (hotdog_render.mp4, the JAX name) the encoding of the
+    PNGs."""
     from danerf_tpu_torch.cli.main import main
     from danerf_tpu_torch.data.png import read_png
-    from danerf_tpu_torch.viz.video import read_avi
+    from danerf_tpu_torch.viz import mpeg4
+    from danerf_tpu_torch.viz.video import read_video
 
     model = NeRF(NeRFConfig(density_bias_init=0.5), torch.Generator().manual_seed(0))
     ckpt = tmp_path / "m.pt"
@@ -977,10 +979,12 @@ def test_cli_render_effect_on_card(tf32_defaults, tmp_path):
                     "--effect", "Hologram", "--create_video", "--dataset_path",
                     str(tmp_path / "none")])
     assert fr.LAUNCHES["march"] == 2 and fr.LAUNCHES["merged"] == 2
-    frames, _ = read_avi(str(tmp_path / "out" / "hotdog_render.avi"))
+    frames, _ = read_video(str(tmp_path / "out" / "hotdog_render.mp4"))
     assert frames.shape == (2, 64, 64, 3)
+    enc = mpeg4.Encoder(64, 64, 30)
     for frame, path in zip(frames, written):
-        assert (frame == read_png(path)).all()
+        enc.encode(read_png(path))
+        assert (frame == mpeg4.yuv420_to_rgb(*enc.reconstruction())).all()
 
 
 # ---------------------------------------------------------------- evaluation

@@ -2,8 +2,11 @@
 the aligned spiral's camera path, ``depth_to_gray_u8``,
 ``render_aligned_spiral`` and ``render_path(effect="Fog",
 quality="preview")`` on a tiny model whose JAX params go through
-``params_from_jax``, and the AVI writer read back by a RIFF parser written
-here, by the port's ``read_avi`` and by OpenCV where it imports.
+``params_from_jax``, and the video writer (MPEG-4 Part 2, the JAX file
+names) read back by a RIFF parser written here, by the port's
+``read_video`` and by OpenCV where it imports: a video holds the encoder's
+reconstruction of its frames (``_reconstruction``), which
+``tests/test_torch_video.py`` holds against FFmpeg's decoding.
 
 The JAX side's kernel route runs its Pallas kernels in interpret mode, the
 port's the kernels' plain versions (f32 both).  Between packages the
@@ -41,6 +44,19 @@ def tiny():
     model = params_from_jax_module(params, cfg, device="cpu").requires_grad_(False)
     emb = np.random.default_rng(2).normal(size=cfg.appearance_dim).astype(np.float32)
     return jcfg, cfg, params, model, emb
+
+
+def _reconstruction(images, fps=30, idct="simple"):
+    """The RGB frames a video of ``images`` decodes to: the encoder's
+    reconstruction, as ``read_video`` converts it."""
+    from danerf_tpu_torch.viz import mpeg4
+
+    enc = mpeg4.Encoder(images[0].shape[1], images[0].shape[0], fps, idct=idct)
+    out = []
+    for img in images:
+        enc.encode(img)
+        out.append(mpeg4.yuv420_to_rgb(*enc.reconstruction()))
+    return np.stack(out)
 
 
 def _levels(got, want, tag):
@@ -84,10 +100,11 @@ def test_depth_to_gray_u8_matches_jax():
 
 def test_render_aligned_spiral_matches_jax(tiny, tmp_path):
     """11 frames at 12x10: frame_NNNN.png, a grayscale depth on frames 0 and
-    10 only, and the port's chair_spiral.avi holding the frames."""
+    10 only, and the port's chair_spiral.mp4 (the JAX name) holding the
+    frames."""
     from danerf_tpu.render.frames import render_aligned_spiral as j_spiral
     from danerf_tpu_torch.render.frames import render_aligned_spiral
-    from danerf_tpu_torch.viz.video import read_avi
+    from danerf_tpu_torch.viz.video import read_video
 
     jcfg, cfg, params, model, emb = tiny
     kw = dict(num_frames=11, height=12, width=10, focal=11.0, loops=1.0)
@@ -97,26 +114,26 @@ def test_render_aligned_spiral_matches_jax(tiny, tmp_path):
                                 fps=24, device="cpu", **kw)
     assert [os.path.basename(p) for p in got] == [os.path.basename(p) for p in want]
     names = sorted(os.listdir(tmp_path / "port"))
-    assert names == sorted(os.listdir(tmp_path / "jax") + ["chair_spiral.avi"])
+    assert names == sorted(os.listdir(tmp_path / "jax") + ["chair_spiral.mp4"])
     assert [n for n in names if n.startswith("depth")] == ["depth_0000.png", "depth_0010.png"]
     for name in (n for n in names if n.endswith(".png")):
         _levels(read_png(str(tmp_path / "port" / name)), read_png(str(tmp_path / "jax" / name)),
                 name)
-    frames, fps = read_avi(str(tmp_path / "port" / "chair_spiral.avi"))
+    frames, fps = read_video(str(tmp_path / "port" / "chair_spiral.mp4"))
     assert fps == 24 and frames.shape == (11, 12, 10, 3)
-    for frame, path in zip(frames, got):
-        np.testing.assert_array_equal(frame, read_png(path))
+    np.testing.assert_array_equal(frames, _reconstruction([read_png(p) for p in got], 24))
 
 
 def test_render_path_fog_matches_jax(tiny, tmp_path):
     """render_path(effect="Fog", quality="preview") against the JAX driver:
     two frames, the same file names, the fogged frames within 1 level, the
     raw depth within 1e-4, and the viridis depth PNG the port's own
-    colouring of its raw depth; the port's video holds the fogged frames."""
+    colouring of its raw depth; the port's video, chair_render.mp4 (the JAX
+    name), holds the fogged frames."""
     from danerf_tpu.render.frames import render_path as j_render_path
     from danerf_tpu_torch.render.frames import render_path
     from danerf_tpu_torch.viz.depth import colorize_depth
-    from danerf_tpu_torch.viz.video import read_avi
+    from danerf_tpu_torch.viz.video import read_video
 
     jcfg, cfg, params, model, emb = tiny
     kw = dict(num_frames=2, quality="preview", width=16, height=16, effect="Fog",
@@ -127,7 +144,7 @@ def test_render_path_fog_matches_jax(tiny, tmp_path):
     assert [os.path.basename(p) for p in got] == ["rgb_000.png", "rgb_001.png"]
     assert [os.path.basename(p) for p in want] == ["rgb_000.png", "rgb_001.png"]
     assert sorted(os.listdir(tmp_path / "port")) == sorted(
-        os.listdir(tmp_path / "jax") + ["chair_render.avi"])
+        os.listdir(tmp_path / "jax") + ["chair_render.mp4"])
     for i in range(2):
         port_rgb = read_png(str(tmp_path / "port" / f"rgb_{i:03d}.png"))
         _levels(port_rgb, read_png(str(tmp_path / "jax" / f"rgb_{i:03d}.png")), f"rgb {i}")
@@ -137,9 +154,9 @@ def test_render_path_fog_matches_jax(tiny, tmp_path):
                                    rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(read_png(str(tmp_path / "port" / f"depth_{i:03d}.png")),
                                       colorize_depth(depth))
-    frames, fps = read_avi(str(tmp_path / "port" / "chair_render.avi"))
+    frames, fps = read_video(str(tmp_path / "port" / "chair_render.mp4"))
     assert fps == 12
-    np.testing.assert_array_equal(frames, np.stack([read_png(p) for p in got]))
+    np.testing.assert_array_equal(frames, _reconstruction([read_png(p) for p in got], 12))
 
 
 def test_render_path_effect_noise_from_the_frame_generator(tiny, tmp_path):
@@ -189,8 +206,8 @@ def _parse_avi(path):
             elif tag == b"strh":
                 out["strh"] = struct.unpack("<4s4sIHHIIIIIIII4h", data[pos + 8:pos + 64])
             elif tag == b"strf":
-                out["strf"] = struct.unpack("<IiiHHIIiiII", data[pos + 8:pos + 48])
-            elif tag == b"00db":
+                out["strf"] = struct.unpack("<IiiHH4sIiiII", data[pos + 8:pos + 48])
+            elif tag == b"00dc":
                 out["frames"].append((pos, data[pos + 8:pos + 8 + size]))
             elif tag == b"idx1":
                 out["idx1"] = [struct.unpack("<4sIII", data[p:p + 16])
@@ -219,37 +236,48 @@ def _write_frames(d, n, size, gray=False):
 
 
 def test_avi_frames_equal_the_pngs(tmp_path, capsys):
-    """An odd width (13: rows padded to 40 bytes) and a grayscale frame: the
-    headers say 24-bit uncompressed top-down DIB frames at the fps, idx1
-    points at each frame chunk, and each frame, BGR, is the PNG's pixels;
-    the port's reader gives them back.  A .mp4 name becomes .avi and the
-    path is printed; no match returns False."""
-    from danerf_tpu_torch.viz.video import create_video_from_images, read_avi
+    """An odd width (13) and a grayscale frame into an .avi: the headers say
+    XVID (MPEG-4 Part 2) frames of 13x11 at the fps, one 00dc chunk a frame
+    holding the encoder's VOP (the stream's headers before the first), idx1
+    pointing at each chunk with the key-frame flag on the I-VOP only, and
+    the port's reader gives the encoder's reconstruction of the PNGs.  A
+    name the JAX package does not know (.webm) becomes .mp4 and the path is
+    printed; no match returns False."""
+    from danerf_tpu_torch.viz import mpeg4
+    from danerf_tpu_torch.viz.video import create_video_from_images, read_video
 
     imgs = _write_frames(str(tmp_path / "in"), 3, (11, 13), gray=True)
-    assert create_video_from_images(str(tmp_path / "in"), str(tmp_path / "v" / "out.mp4"),
-                                    pattern="frame_*.png", fps=7)
     path = tmp_path / "v" / "out.avi"
-    assert not (tmp_path / "v" / "out.mp4").exists() and str(path) in capsys.readouterr().out
+    assert create_video_from_images(str(tmp_path / "in"), str(path), pattern="frame_*.png",
+                                    fps=7)
+    assert str(path) in capsys.readouterr().out
     avi = _parse_avi(str(path))
     assert avi["avih"][4] == 3 and avi["avih"][8:10] == (13, 11)
-    assert avi["strh"][:2] == (b"vids", b"DIB ") and avi["strh"][6:8] == (1, 7)
-    assert avi["strf"][1:6] == (13, -11, 1, 24, 0)
+    assert avi["strh"][:2] == (b"vids", b"XVID") and avi["strh"][6:8] == (1, 7)
+    assert avi["strf"][1:6] == (13, 11, 1, 24, b"XVID")
+    enc = mpeg4.Encoder(13, 11, 7, idct="xvid")
+    vops = [enc.encode(img)[0] for img in imgs]
+    vops[0] = enc.headers + vops[0]
     assert len(avi["frames"]) == 3 and len(avi["idx1"]) == 3
-    for (pos, raw), entry, img in zip(avi["frames"], avi["idx1"], imgs):
-        assert entry[0] == b"00db" and avi["movi"] + entry[2] == pos and entry[3] == 40 * 11
-        rows = np.frombuffer(raw, np.uint8).reshape(11, 40)[:, :39].reshape(11, 13, 3)
-        np.testing.assert_array_equal(rows[:, :, ::-1], img)
-    frames, fps = read_avi(str(path))
+    for (pos, raw), entry, vop, key in zip(avi["frames"], avi["idx1"], vops, (1, 0, 0)):
+        assert entry[0] == b"00dc" and avi["movi"] + entry[2] == pos and entry[3] == len(raw)
+        assert raw == vop and entry[1] == 0x10 * key
+    frames, fps = read_video(str(path))
     assert fps == 7
-    np.testing.assert_array_equal(frames, np.stack(imgs))
+    np.testing.assert_array_equal(frames, _reconstruction(imgs, 7, "xvid"))
+    assert create_video_from_images(str(tmp_path / "in"), str(tmp_path / "v" / "w.webm"),
+                                    pattern="frame_*.png")
+    assert str(tmp_path / "v" / "w.mp4") in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "v")) == ["out.avi", "w.mp4"]
     assert not create_video_from_images(str(tmp_path / "in"), str(tmp_path / "x.avi"),
                                         pattern="nomatch_*.png")
 
 
 def test_avi_reads_in_opencv(tmp_path):
-    """OpenCV's FFmpeg backend decodes the file to the PNGs' pixels."""
+    """OpenCV's FFmpeg backend reads the file: the frame count and rate, and
+    its decoded Y plane is the encoder's reconstruction at every pixel."""
     cv2 = pytest.importorskip("cv2")
+    from danerf_tpu_torch.viz import mpeg4
     from danerf_tpu_torch.viz.video import create_video_from_images
 
     imgs = _write_frames(str(tmp_path / "in"), 4, (16, 20))
@@ -257,41 +285,47 @@ def test_avi_reads_in_opencv(tmp_path):
                              pattern="frame_*.png", fps=10)
     cap = cv2.VideoCapture(str(tmp_path / "v.avi"))
     assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 4 and cap.get(cv2.CAP_PROP_FPS) == 10
-    got = []
-    while True:
-        ok, frame = cap.read()
-        if not ok:
-            break
-        got.append(frame[..., ::-1])
     cap.release()
-    np.testing.assert_array_equal(np.stack(got), np.stack(imgs))
+    cap = cv2.VideoCapture(str(tmp_path / "v.avi"), cv2.CAP_FFMPEG,
+                           [cv2.CAP_PROP_CONVERT_RGB, 0])
+    enc = mpeg4.Encoder(20, 16, 10, idct="xvid")
+    for img in imgs:
+        enc.encode(img)
+        ok, y = cap.read()
+        assert ok
+        np.testing.assert_array_equal(y.reshape(16, 20), enc.reconstruction()[0])
+    assert not cap.read()[0]
+    cap.release()
 
 
 @pytest.mark.parametrize("resolution", [(20, 9), (7, 5), (26, 22)],
                          ids=["up_x_down_y", "down", "up_2x"])
 def test_avi_resize_matches_cv2(tmp_path, resolution):
-    """resolution= resizes as cv2.resize's INTER_LINEAR: within 1 level."""
+    """resolution= resizes as cv2.resize's INTER_LINEAR (within 1 level),
+    and the video holds those resized frames."""
     cv2 = pytest.importorskip("cv2")
-    from danerf_tpu_torch.viz.video import create_video_from_images, read_avi
+    from danerf_tpu_torch.viz.video import create_video_from_images, read_video, resize_bilinear
 
     imgs = _write_frames(str(tmp_path / "in"), 2, (11, 13))
     create_video_from_images(str(tmp_path / "in"), str(tmp_path / "v.avi"),
                              pattern="frame_*.png", resolution=resolution)
-    frames, _ = read_avi(str(tmp_path / "v.avi"))
+    frames, _ = read_video(str(tmp_path / "v.avi"))
     assert frames.shape == (2, resolution[1], resolution[0], 3)
-    for frame, img in zip(frames, imgs):
-        _levels(frame, cv2.resize(img, resolution), f"resize {resolution}")
+    resized = [resize_bilinear(img, resolution) for img in imgs]
+    for got, img in zip(resized, imgs):
+        _levels(got, cv2.resize(img, resolution), f"resize {resolution}")
+    np.testing.assert_array_equal(frames, _reconstruction(resized, 30, "xvid"))
 
 
-def test_avi_refuses_more_than_4gib(tmp_path):
-    """The size is checked before a frame is read or the file opened."""
-    from danerf_tpu_torch.viz.video import write_avi
+def test_avi_refuses_more_than_4gib(tmp_path, monkeypatch):
+    """A frame that would take the AVI past RIFF's 32-bit size (the limit
+    lowered here) is refused by name, and the partial file removed."""
+    from danerf_tpu_torch.viz import mux
+    from danerf_tpu_torch.viz.video import create_video_from_images
 
-    def frames():
-        raise AssertionError("a frame was read")
-        yield
-
+    monkeypatch.setattr(mux, "RIFF_MAX", 3000)
+    _write_frames(str(tmp_path / "in"), 4, (32, 32))
     path = tmp_path / "big.avi"
     with pytest.raises(ValueError, match="4 GiB"):
-        write_avi(str(path), frames(), 90, 4096, 4096, 30)
+        create_video_from_images(str(tmp_path / "in"), str(path), pattern="frame_*.png")
     assert not path.exists()

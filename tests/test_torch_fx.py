@@ -225,13 +225,27 @@ def _decode(path):
     return read_png(path)
 
 
+def _reconstruction(images, fps=30, idct="simple"):
+    """The RGB frames a video of ``images`` decodes to: the encoder's
+    reconstruction, as ``read_video`` converts it."""
+    from danerf_tpu_torch.viz import mpeg4
+
+    enc = mpeg4.Encoder(images[0].shape[1], images[0].shape[0], fps, idct=idct)
+    out = []
+    for img in images:
+        enc.encode(img)
+        out.append(mpeg4.yuv420_to_rgb(*enc.reconstruction()))
+    return np.stack(out)
+
+
 @pytest.mark.parametrize("name", ["Sepia", "Fog", "Toon Shader", "Neon Glow"])
 def test_apply_effect_to_frames_matches_jax(tmp_path, name):
     """Frame for frame against the JAX batch driver; Fog only on the frames
-    with a depth map; the port's video beside the output directory."""
+    with a depth map; the port's video, <effect>.mp4 (the JAX name), beside
+    the output directory, holding the encoding of the frames."""
     from danerf_tpu.fx.batch import apply_effect_to_frames as j_frames
     from danerf_tpu_torch.fx.batch import apply_effect_to_frames, find_frames_with_depth
-    from danerf_tpu_torch.viz.video import read_avi
+    from danerf_tpu_torch.viz.video import read_video
 
     src = str(tmp_path / "in")
     _write_frames(src, 3, with_depth=(0, 2), size=(20, 24))
@@ -242,11 +256,10 @@ def test_apply_effect_to_frames_matches_jax(tmp_path, name):
     assert len(got) == (2 if name == "Fog" else 3)
     for g, w in zip(got, want):
         assert_levels(name, _decode(g), _decode(w), os.path.basename(g))
-    video = tmp_path / "port" / f"{name.lower().replace(' ', '_')}.avi"
-    frames, fps = read_avi(str(video))
+    video = tmp_path / "port" / f"{name.lower().replace(' ', '_')}.mp4"
+    frames, fps = read_video(str(video))
     assert frames.shape == (len(got), 20, 24, 3) and fps == 60
-    for frame, path in zip(frames, got):
-        np.testing.assert_array_equal(frame, _decode(path))
+    np.testing.assert_array_equal(frames, _reconstruction([_decode(p) for p in got], 60))
 
 
 def test_batch_skip_existing_and_timings(tmp_path):
@@ -267,7 +280,7 @@ def test_batch_skip_existing_and_timings(tmp_path):
     assert tm["frames"] == 3 and set(tm) == {"load_s", "device_s", "write_s", "frames"}
     assert tm["load_s"] >= 0 and tm["device_s"] > 0 and tm["write_s"] > 0
     assert not _decode(str(out / "frame_0001.png")).any()   # skipped, not overwritten
-    video = tmp_path / "fx" / "sepia.avi"
+    video = tmp_path / "fx" / "sepia.mp4"
     stamps = {p: os.path.getmtime(p) for p in [video, *out.iterdir()]}
     tm = {}
     apply_effect_to_frames(src, str(out), "Sepia", timings=tm, device="cpu")
@@ -293,7 +306,8 @@ def test_apply_all_effects_matches_jax(tmp_path):
         slug = name.lower().replace(" ", "_")
         got = sorted(os.listdir(tmp_path / "port" / slug))
         assert got == sorted(os.listdir(tmp_path / "jax" / slug))
-        assert (tmp_path / "port" / f"{slug}.avi").exists()
+        assert (tmp_path / "port" / f"{slug}.mp4").exists()
+        assert (tmp_path / "jax" / f"{slug}.mp4").exists()
         for f in got:
             g = _decode(str(tmp_path / "port" / slug / f))
             w = _decode(str(tmp_path / "jax" / slug / f))

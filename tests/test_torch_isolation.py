@@ -4,8 +4,8 @@ JAX checkpoint directory and renders from it, renders a frame, a frame of a time
 model at two times, and takes a 64 + 64, a coarse-only, a per-sample and a
 time-conditioned training step, runs the training loop with a resume,
 computes SSIM, applies an effect (and one through the native shader
-bridge), renders an aligned-spiral frame with
-its video, fits and scores through ``evaluate`` and ``eval``, loads a
+bridge), renders aligned-spiral frames with
+their video (written and decoded in MP4, Matroska and AVI), fits and scores through ``evaluate`` and ``eval``, loads a
 custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
 8, reads a BMP, a PGM, a TIFF, a GIF, a lossless and a lossy RGBA WebP and a GIF depth map
 through the one image reader, and in a one-rank gloo group renders a sharded frame and trains on a
@@ -129,10 +129,11 @@ with tempfile.TemporaryDirectory() as tmp:
 img = torch.rand(12, 12, 3)
 assert abs(ssim(img.numpy(), img.numpy()) - 1) < 1e-9
 assert abs(float(ssim_device(img, img)) - 1) < 1e-5
-# an effect with depth, a spiral frame with its grayscale depth, the AVI writer
+# an effect with depth, spiral frames with a grayscale depth, the video
+# (MPEG-4 Part 2) written and decoded in MP4, Matroska and AVI
 from danerf_tpu_torch.fx import apply_effect
 from danerf_tpu_torch.render.frames import render_aligned_spiral
-from danerf_tpu_torch.viz.video import read_avi
+from danerf_tpu_torch.viz.video import create_video_from_images, read_video
 out = apply_effect("Toon Shader", torch.randint(0, 256, (9, 7, 3), dtype=torch.uint8),
                    torch.rand(9, 7))
 assert out.dtype == torch.uint8 and out.shape == (9, 7, 3)
@@ -148,10 +149,14 @@ with tempfile.TemporaryDirectory() as tmp:
         assert out.dtype == "uint8" and out.shape == (9, 7, 3)
 with tempfile.TemporaryDirectory() as tmp:
     model0 = NeRF(cfg, torch.Generator().manual_seed(0))
-    render_aligned_spiral(model0, cfg, tmp, num_frames=1, height=6, width=5, device="cpu")
+    render_aligned_spiral(model0, cfg, tmp, num_frames=3, height=6, width=5, device="cpu")
     assert os.path.exists(os.path.join(tmp, "depth_0000.png"))
-    frames, fps = read_avi(os.path.join(tmp, "lego_spiral.avi"))
-    assert frames.shape == (1, 6, 5, 3) and fps == 60
+    frames, fps = read_video(os.path.join(tmp, "lego_spiral.mp4"))
+    assert frames.shape == (3, 6, 5, 3) and fps == 60
+    for name in ("v.mkv", "v.avi"):
+        assert create_video_from_images(tmp, os.path.join(tmp, name), pattern="frame_*.png")
+        again, _ = read_video(os.path.join(tmp, name))
+        assert again.shape == (3, 6, 5, 3)
 # evaluation: the fit (the plain K2/K5 forward, K6/K3 backward) and the
 # score, through evaluate() and `eval`; the loaders: a custom scene of a
 # JPEG and a PNG frame, the Blender loader with a Lanczos downscale

@@ -630,9 +630,11 @@ def test_preview_reads_a_jpeg_as_pil(tmp_path, picture):
 
 def test_video_reads_jpeg_frames_as_pil(tmp_path):
     """``create_video_from_images`` over JPEG frames (the JAX encoder reads
-    any ``--pattern`` through ``cv2.imread``), baseline and progressive: the
-    AVI's frames are PIL's pixels."""
-    from danerf_tpu_torch.viz.video import create_video_from_images, read_avi
+    any ``--pattern`` through ``cv2.imread``, which decodes these JPEGs as
+    PIL does), baseline and progressive: the AVI holds the encoding of
+    PIL's pixels."""
+    from danerf_tpu_torch.viz import mpeg4
+    from danerf_tpu_torch.viz.video import create_video_from_images, read_video
 
     datas = [_jpeg(_picture(18, 26, seed=i), quality=80, subsampling=2, progressive=i == 1)
              for i in range(2)]
@@ -640,9 +642,12 @@ def test_video_reads_jpeg_frames_as_pil(tmp_path):
         (tmp_path / f"frame_{i:04d}.jpg").write_bytes(data)
     out = str(tmp_path / "v.avi")
     assert create_video_from_images(str(tmp_path), out, pattern="frame_*.jpg", fps=5)
-    frames, fps = read_avi(out)
+    frames, fps = read_video(out)
     assert fps == 5
-    np.testing.assert_array_equal(frames, np.stack([_pil_rgb(d) for d in datas]))
+    enc = mpeg4.Encoder(26, 18, 5, idct="xvid")
+    for frame, data in zip(frames, datas):
+        enc.encode(_pil_rgb(data))
+        np.testing.assert_array_equal(frame, mpeg4.yuv420_to_rgb(*enc.reconstruction()))
 
 
 def test_sizes_from_headers_of_progressive_and_png_files():
