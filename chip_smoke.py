@@ -224,6 +224,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             --resume` in a copy of its save directory, 20 more steps
             (exactly 20 K2, K4 and K3; iteration 23, a finite loss, Adam's
             count continued).  After 7f, before any timing phase.
+7i. full_scale  the reference-native study's scripts at the scale-down
+            FULL_SCALE_FLAGS (200x200, 10 + 2 views, 2000 steps, 4 frames):
+            one 200x200 view of the device ground truth against the numpy
+            path within one level; `python -m
+            danerf_tpu_torch.examples.full_scale`, then measure_io_overlap
+            on its output; exactly one K2, K4, K3 a step and one K2 + K5 a
+            chunk of the validation renders, eval and the spiral; every
+            numeric key of examples/full_scale_report_v5e.json in the
+            port's report, its val PSNR above FULL_SCALE_PSNR_FLOOR, Adam's
+            rate at each checkpoint StepLR's; the spiral, Fog and Toon
+            Shader mp4s decoded to their frame counts.  After 7h.
 7a. fx      the depth-aware effects (danerf_tpu_torch/fx/, plain PyTorch
             ops, no kernel of their own): each of the 14 with and without
             depth on a seeded 800x800 frame and depth, on the card against
@@ -331,7 +342,8 @@ Before the last line it prints the card's name and power limit and the
 under "has_time"; K2, K5, K3 and K6 with the launches of 7e's kernel-route
 runs under "eval_launches"; K2-K6 with those of 7f's fixture scenes under
 "loaders_launches"; K2-K5 with those of 7h's frame and resumed training
-under "jax_checkpoint_launches"; K2, K4 and K3 with those of hier_dp under
+under "jax_checkpoint_launches"; K2-K5 with those of 7i's study under
+"full_scale_launches"; K2, K4 and K3 with those of hier_dp under
 "dp_train_launches", K2 and K5 with a sharded frame's, K1 with a sharded
 chunk's; the f32 variants of K2, K5 and K1 after the nine, with the
 launches of 4e's f32 frames and per-sample routes, the has_time variants'
@@ -4732,6 +4744,121 @@ def phase_jax_checkpoint(out_dir, smi):
     return {"render_800": report["render_800"]["launches"], "resume": counts}
 
 
+# The full-scale study's scale-down: the JAX package's own
+# (.claude/skills/verify/SKILL.md) through the port's scripts
+FULL_SCALE_FLAGS = ["--size", "200", "--train-views", "10", "--val-views", "2",
+                    "--iters", "2000", "--frames", "4"]
+# below the first run's val PSNR on the card, 26.00 dB (PERF.md gives both)
+FULL_SCALE_PSNR_FLOOR = 24.0
+
+
+def numeric_keys(tree, prefix=()):
+    """The key paths of a report's numbers (a list of numbers counts as one)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from numeric_keys(v, prefix + (k,))
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield prefix
+    elif isinstance(tree, list) and tree and all(isinstance(v, (int, float)) for v in tree):
+        yield prefix
+
+
+def phase_full_scale(out_dir, smi):
+    """The reference-native study's scripts on the card at the scale-down
+    FULL_SCALE_FLAGS (`python -m danerf_tpu_torch.examples.full_scale`,
+    then `measure_io_overlap` on its output):
+
+    - one 200x200 view of the device ground truth (make_synthetic_scene
+      backend="torch") within one level of the float64 numpy path, the
+      pixels a level apart counted;
+    - the launches of each stage, read from zero as phase_train reads them:
+      one K2, K4, K3 a training step and one K2 + K5 a chunk of each
+      validation render (one a checkpoint), of eval and of the spiral;
+    - every numeric key of the committed JAX report
+      (examples/full_scale_report_v5e.json) in the port's, its val PSNR
+      above FULL_SCALE_PSNR_FLOOR, Adam's rate at each checkpoint StepLR's;
+    - the spiral's, Fog's and Toon Shader's mp4s decoded by read_video to
+      their frame counts."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+    from danerf_tpu_torch.examples import full_scale, measure_io_overlap
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.viz.video import read_video
+
+    flags = dict(zip(FULL_SCALE_FLAGS[::2], map(int, FULL_SCALE_FLAGS[1::2])))
+    size, frames, iters = flags["--size"], flags["--frames"], flags["--iters"]
+    views = {}
+    for backend in ("torch", "numpy"):
+        t0 = time.perf_counter()
+        views[backend] = make_synthetic_scene("val", n_images=1, height=size, width=size,
+                                              backend=backend, device="cuda")
+        views[backend + "_s"] = time.perf_counter() - t0
+    gt = {}
+    for k in ("images", "alphas"):
+        d = np.abs(getattr(views["torch"], k).astype(np.int16)
+                   - getattr(views["numpy"], k).astype(np.int16))
+        gt[k] = {"max_levels": int(d.max()), "pixels_apart": int((d > 0).sum()),
+                 "values": int(d.size)}
+    if max(v["max_levels"] for v in gt.values()) > 1:
+        raise AssertionError(f"full_scale: the device ground truth against numpy {gt}")
+
+    run_dir = os.path.join(out_dir, "full_scale")
+    report_path = os.path.join(out_dir, "full_scale_report.json")
+    fr.reset_launch_counts()
+    t0 = time.perf_counter()
+    full_scale.main([*FULL_SCALE_FLAGS, "--out", run_dir, "--report", report_path,
+                     "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(fr.LAUNCHES)
+    t0 = time.perf_counter()
+    measure_io_overlap.main([run_dir, report_path, "--device", "cuda"])
+    remeasure_s = time.perf_counter() - t0
+    with open(report_path) as f:
+        report = json.load(f)
+
+    chunks = -(-size * size // NeRFConfig().render_chunk)
+    renders = iters // full_scale.CHECKPOINT_EVERY
+    want = {"train": launches_of({**PATHS["hier"][1], "march": 1}, iters),
+            "eval": launches_of({"march": chunks, "merged": chunks}, flags["--val-views"]),
+            "spiral": launches_of({"march": chunks, "merged": chunks}, frames)}
+    want["train"]["march"] += renders
+    want["train"]["merged"] += renders
+    want = {k: {n: c for n, c in v.items() if c} for k, v in want.items()}
+    got = {k: report[k]["launches"] for k in want}
+    total = {n: sum(v.get(n, 0) for v in want.values()) for n in fr.LAUNCHES}
+    if got != want or counts != total:
+        raise AssertionError(f"full_scale: launches {got} (in all {counts}), expected {want}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                           "full_scale_report_v5e.json")) as f:
+        have = set(numeric_keys(report))
+        missing = ["/".join(k) for k in numeric_keys(json.load(f)) if k not in have]
+    psnr = report["eval"]["val_psnr"]
+    if missing or not psnr > FULL_SCALE_PSNR_FLOOR \
+            or not report["train"]["lr_at_checkpoints"]["all_match"]:
+        raise AssertionError(f"full_scale: report lacks {missing}, val PSNR {psnr} (floor "
+                             f"{FULL_SCALE_PSNR_FLOOR}), rates "
+                             f"{report['train']['lr_at_checkpoints']}")
+    videos = {}
+    for name, n in (("spiral/lego_spiral.mp4", frames), ("fog.mp4", -(-frames // 10)),
+                    ("toon_shader.mp4", frames)):
+        shape = read_video(os.path.join(run_dir, name))[0].shape
+        if shape != (n, size, size, 3):
+            raise AssertionError(f"full_scale: {name} decodes to {shape}, expected {n} frames")
+        videos[name] = list(shape)
+    emit({"phase": "full_scale", "card": smi, "flags": FULL_SCALE_FLAGS,
+          "ground_truth_200": {"levels_apart": gt, "device_s": views["torch_s"],
+                               "numpy_s": views["numpy_s"]},
+          "seconds": secs, "remeasure_seconds": remeasure_s, "launches": got,
+          "videos": videos, "psnr_floor": FULL_SCALE_PSNR_FLOOR,
+          "report": {k: report[k] for k in ("data", "train", "eval", "spiral", "effects_seconds",
+                                            "effects_breakdown", "io_overlap_remeasure")}})
+    return counts
+
+
 # ---------------------------------------------------------------- parallel
 
 def free_port() -> int:
@@ -5295,6 +5422,9 @@ def main(argv=None):
     loader_counts = phase_loaders(args.out)
     # the JAX package's checkpoint directory: read, rendered, resumed
     jax_counts = phase_jax_checkpoint(args.out, smi)
+    # the full-scale study's scripts at its scale-down (K2, K4, K3 a step;
+    # K2, K5 a chunk of the validation renders, eval and the spiral)
+    full_scale_counts = phase_full_scale(args.out, smi)
     phase_native(cfg, model, args.out, device)
     # the depth-aware effects and the renders that feed them, timed before
     # any torch.profiler window (phase_train_timing's): timed after one, the
@@ -5446,6 +5576,12 @@ def main(argv=None):
                    "K5": "merged"}.get(rec["name"][:2])
         if counter and "f32" not in rec["name"]:
             rec["jax_checkpoint_launches"] = {run: c[counter] for run, c in jax_counts.items()}
+    # the full_scale phase's run of the study's scripts (K2, K4, K3, K5)
+    for rec in kernels:
+        counter = {"K2": "march", "K3": "march_bwd", "K4": "merged_train",
+                   "K5": "merged"}.get(rec["name"][:2])
+        if counter and "f32" not in rec["name"]:
+            rec["full_scale_launches"] = full_scale_counts[counter]
     # data parallelism: the launches of the data-parallel training run (K2,
     # K4, K3), of a sharded 800x800 frame on the one rank (K2, K5) and of
     # make_sharded_render's 65,536-ray chunk (K1)

@@ -8,8 +8,9 @@ bridge), renders aligned-spiral frames with
 their video (written and decoded in MP4, Matroska and AVI), fits and scores through ``evaluate`` and ``eval``, loads a
 custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
 8, reads a BMP, a PGM, a TIFF, a GIF, a lossless and a lossy RGBA WebP and a GIF depth map
-through the one image reader, and in a one-rank gloo group renders a sharded frame and trains on a
-mesh (``parallel/``), with JAX, danerf_tpu, OpenCV, PIL, matplotlib,
+through the one image reader, in a one-rank gloo group renders a sharded frame and trains on a
+mesh (``parallel/``), and renders the procedural scene on the device path and runs the
+full-scale study's scripts at a tiny size (``examples/``), with JAX, danerf_tpu, OpenCV, PIL, matplotlib,
 tensorstore, orbax, zstandard, msgpack and flax blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
@@ -232,6 +233,20 @@ with tempfile.TemporaryDirectory() as tmp:
                       mesh=mesh)
     assert [r["step"] for r in log.history] == [1, 2]
 dist.destroy_process_group()
+# the device ground truth (backend="torch", "jax" its alias) and the example
+# scripts: the full-scale study and its re-measure at a tiny size
+from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+from danerf_tpu_torch.examples import full_scale, measure_io_overlap
+scene = make_synthetic_scene(n_images=1, height=6, width=5, n_samples=16, backend="jax",
+                             device="cpu")
+assert scene.images.shape == (1, 6, 5, 3) and scene.images.dtype == np.uint8
+tiny = cfg.replace(batch_size=8, warmup_batch_size=8, warmup_iters=1, render_chunk=64)
+with tempfile.TemporaryDirectory() as tmp:
+    rep = full_scale.run(tiny, tmp, os.path.join(tmp, "r.json"), iters=2, size=8,
+                         train_views=2, val_views=1, frames=1, checkpoint_every=1, device="cpu")
+    block = measure_io_overlap.run(tmp, os.path.join(tmp, "r.json"), cfg=tiny, device="cpu")
+    assert np.isfinite(rep["eval"]["val_psnr"]) and block["effects"]["Fog"]["frames"] == 1
+    assert read_video(os.path.join(tmp, "spiral", "lego_spiral.mp4"))[0].shape == (1, 8, 8, 3)
 assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print("ISOLATED-OK")
 '''
