@@ -235,6 +235,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             port's report, its val PSNR above FULL_SCALE_PSNR_FLOOR, Adam's
             rate at each checkpoint StepLR's; the spiral, Fog and Toon
             Shader mp4s decoded to their frame counts.  After 7h.
+7j. parity  the parity study (danerf_tpu_torch/examples/parity_study.py)
+            through parity_study.run at PARITY_SEEDS alive seeds x
+            PARITY_ITERS steps of every arm on the 160x160 procedural
+            scene: the launches of each run read from zero (none on the
+            reference arms, whose trainer is plain PyTorch in f32, and on
+            framework_paired_hier_xla32, use_kernels=False; one K7 a step
+            on the coarse arms; one K2, K4, K3 a step on the 64 + 64 arms;
+            the f32 variants on the f32 arms; one K2 (+ K5) a val view),
+            every val PSNR above PARITY_PSNR_FLOOR, the reference init's
+            dead set over seeds 0-11 on the card equal to the JAX study's
+            (examples/parity_runs/dead_rates.json), and the reference
+            trainer on the card against the CPU over PARITY_DRIFT_STEPS
+            steps from one init and stream within PARITY_DRIFT_TOL (its
+            CPU side in a process of its own, beside the arms), and the
+            same run with TF32 on beyond it.  The framework_paired arms
+            are the framework arms' runs (init_model draws the torch
+            init).  After 7i.
 7a. fx      the depth-aware effects (danerf_tpu_torch/fx/, plain PyTorch
             ops, no kernel of their own): each of the 14 with and without
             depth on a seeded 800x800 frame and depth, on the card against
@@ -343,7 +360,8 @@ under "has_time"; K2, K5, K3 and K6 with the launches of 7e's kernel-route
 runs under "eval_launches"; K2-K6 with those of 7f's fixture scenes under
 "loaders_launches"; K2-K5 with those of 7h's frame and resumed training
 under "jax_checkpoint_launches"; K2-K5 with those of 7i's study under
-"full_scale_launches"; K2, K4 and K3 with those of hier_dp under
+"full_scale_launches"; K2-K5, K7 and their f32 variants with those of 7j's
+study under "parity_launches"; K2, K4 and K3 with those of hier_dp under
 "dp_train_launches", K2 and K5 with a sharded frame's, K1 with a sharded
 chunk's; the f32 variants of K2, K5 and K1 after the nine, with the
 launches of 4e's f32 frames and per-sample routes, the has_time variants'
@@ -4859,6 +4877,196 @@ def phase_full_scale(out_dir, smi):
     return counts
 
 
+# The parity study's scale-down (danerf_tpu_torch/examples/parity_study.py):
+# every arm at PARITY_SEEDS alive seeds x PARITY_ITERS steps on the 160x160
+# scene; the reference trainer's card-against-CPU drift over
+# PARITY_DRIFT_STEPS steps, its max relative loss drift held to
+# PARITY_DRIFT_TOL: 10x the sound run's reading and 1/5 of a control run's
+# with TF32 on (parity_tf32_control), 1.9e-6 and 1.09e-4 on an H100 80GB
+# HBM3 at 700 W (PERF.md)
+PARITY_ITERS = 300
+PARITY_SEEDS = 2
+PARITY_DRIFT_STEPS = 50
+PARITY_DRIFT_TOL = 2e-5
+# below every val PSNR the study reaches at 300 steps (a run that never
+# trains stays near 10 dB)
+PARITY_PSNR_FLOOR = 15.0
+# one training step's launches of each arm, and one eval chunk's (a 160x160
+# view is one chunk); the reference arms and xla32 launch nothing
+PARITY_LAUNCHES = {
+    "framework": ({"march_train": 1}, {"march": 1}),
+    "framework_paired": ({"march_train": 1}, {"march": 1}),
+    "framework_f32": ({"march_train_f32": 1}, {"march_f32": 1}),
+    "framework_hier": (PATHS["hier"][1], {"march": 1, "merged": 1}),
+    "framework_paired_hier": (PATHS["hier"][1], {"march": 1, "merged": 1}),
+    "framework_paired_hier_f32p": (F32_PATHS["hier_f32"][1], {"march_f32": 1, "merged_f32": 1}),
+}
+
+
+def parity_tf32_control(drift: dict) -> float:
+    """The control of the drift bound: the reference trainer on the card
+    over the drift run's steps, from its init and numpy stream, with TF32
+    on (the trainer's TF32 check lifted for this run alone); its max
+    relative loss drift against the CPU side at every 10th step
+    (``loss_trace_torch_every10``).  A bound that this reading does not
+    exceed would not see the card's arithmetic change."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.benchmarks import torch_reference
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.blender import load_blender_scene
+    from danerf_tpu_torch.examples.parity_study import SCENE
+
+    ds = load_blender_scene(SCENE, "train")
+    # parity_equivalence.run's configuration of a coarse run
+    cfg = NeRFConfig().replace(num_importance=0, use_kernels=False, use_bf16=False,
+                               near=ds.near, far=ds.far)
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with mock.patch.object(torch_reference, "check_f32_highest", lambda dev: None):
+            _, _, mses = torch_reference.train_reference(
+                cfg, ds.images.astype(np.float32) / 255.0, ds.c2ws, ds.focal, drift["iters"],
+                seed=drift["seed"], log_every=10 ** 9, device="cuda")
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+    cpu = np.asarray(drift["loss_trace_torch_every10"])
+    card = np.asarray(mses[::10])
+    return float(np.max(np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-12)))
+
+
+def phase_parity(out_dir, smi):
+    """The parity study through `parity_study.run`, every arm at PARITY_SEEDS
+    alive seeds x PARITY_ITERS steps on examples/procedural_scene (160x160),
+    from an empty cache:
+
+    - the launches read from zero as phase_train reads them, each run's
+      training and eval apart: none for the reference arms (the reference
+      trainer, plain PyTorch in f32, and its eval with use_kernels=False)
+      and for framework_paired_hier_xla32 (use_kernels=False in f32); one
+      K7 a step for the coarse arms, one K2, K4, K3 a step for the 64 + 64
+      arms (their f32 variants for framework_f32 and _f32p); one K2 (+ K5)
+      a val view in eval; the sum over the runs equal to the phase's count;
+    - every val PSNR above PARITY_PSNR_FLOOR;
+    - the reference init's dead set over seeds 0-11 on the card equal to
+      examples/parity_runs/dead_rates.json's, and the reference arm's dead
+      seeds equal to it over the seeds probed;
+    - the reference trainer on the card against the CPU over
+      PARITY_DRIFT_STEPS steps from one init and numpy stream
+      (benchmarks/parity_equivalence.py in a process of its own, started
+      first so that its CPU side runs beside the arms), the max relative
+      loss drift within PARITY_DRIFT_TOL, and the same run with TF32 on
+      (parity_tf32_control) beyond it.
+
+    The framework_paired arms are the framework arms' runs
+    (parity_study.SAME_AS): their launches are checked and not counted
+    twice."""
+    import torch
+
+    from danerf_tpu_torch.benchmarks import dead_rate_probe
+    from danerf_tpu_torch.examples import parity_study
+    from danerf_tpu_torch.kernels import fused_render as fr
+
+    root = os.path.join(out_dir, "parity")
+    shutil.rmtree(root, ignore_errors=True)
+    runs_dir = os.path.join(root, "runs")
+    drift_path = os.path.join(root, "equivalence_drift.json")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    drift_log = os.path.join(root, "equivalence_drift.log")
+    with open(drift_log, "w") as log:
+        drift_proc = subprocess.Popen(
+            [sys.executable, "-m", "danerf_tpu_torch.benchmarks.parity_equivalence", "--iters",
+             str(PARITY_DRIFT_STEPS), "--out", drift_path, "--device", "cuda"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        fr.reset_launch_counts()
+        report = parity_study.run(iters=PARITY_ITERS, seeds=PARITY_SEEDS,
+                                  hier_seeds=PARITY_SEEDS, f32_seeds=PARITY_SEEDS,
+                                  abl_seeds=PARITY_SEEDS, out=os.path.join(root, "report.json"),
+                                  runs_dir=runs_dir, device="cuda")
+        torch.cuda.synchronize()
+        counts = dict(fr.LAUNCHES)
+        study_s = time.perf_counter() - t0
+        dead = dead_rate_probe.run(12, out=None, device="cuda")
+        drift_proc.wait(timeout=600)
+    finally:
+        if drift_proc.poll() is None:
+            drift_proc.kill()
+            drift_proc.wait()
+    if drift_proc.returncode != 0:
+        with open(drift_log) as f:
+            raise AssertionError(f"parity: the drift run failed:\n{f.read()[-3000:]}")
+    with open(drift_path) as f:
+        drift = json.load(f)
+
+    failures, total, per_arm = [], {}, {}
+    for arm, runs in report["runs"].items():
+        step, chunk = PARITY_LAUNCHES.get(arm, ({}, {}))
+        for r in runs:
+            want = {"train": {k: v * r["steps"] for k, v in step.items()},
+                    "eval": {k: v * len(r["per_view"]) for k, v in chunk.items()}}
+            if r["launches"] != want:
+                failures.append(f"{arm} seed {r['seed']}: launches {r['launches']}, "
+                                f"expected {want}")
+            if arm in parity_study.SAME_AS:
+                continue
+            for part in want.values():
+                for k, v in part.items():
+                    total[k] = total.get(k, 0) + v
+            if not r["val_psnr"] > PARITY_PSNR_FLOOR:
+                failures.append(f"{arm} seed {r['seed']}: val PSNR {r['val_psnr']}")
+        per_arm[arm] = {"n": len(runs), "seeds": [r["seed"] for r in runs],
+                        "dead": report["dead_seeds"][arm],
+                        "psnr": [r["val_psnr"] for r in runs],
+                        "seconds_per_seed": report["seconds_per_seed"].get(arm),
+                        "launches_per_seed": runs[0]["launches"] if runs else None}
+        if len(runs) != PARITY_SEEDS:
+            failures.append(f"{arm}: {len(runs)} alive seeds")
+    if {k: v for k, v in counts.items() if v} != total:
+        failures.append(f"launches in all {counts}, the runs' sum {total}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                           "parity_runs", "dead_rates.json")) as f:
+        jax_dead = json.load(f)["torch_dead_seeds"]
+    if dead["torch_dead_seeds"] != [s for s in jax_dead if s < 12]:
+        failures.append(f"dead set over 0-11 {dead['torch_dead_seeds']}, the JAX study's "
+                        f"{jax_dead}")
+    probed = max(report["dead_seeds"]["reference"] + [r["seed"] for r in
+                                                      report["runs"]["reference"]]) + 1
+    if report["dead_seeds"]["reference"] != [s for s in jax_dead if s < probed]:
+        failures.append(f"reference dead seeds {report['dead_seeds']['reference']}")
+    worst = drift["rel_drift_full"]["max"]
+    if not (math.isfinite(worst) and worst <= PARITY_DRIFT_TOL):
+        failures.append(f"card-against-CPU drift {worst} over {PARITY_DRIFT_STEPS} steps "
+                        f"(bound {PARITY_DRIFT_TOL})")
+    control = parity_tf32_control(drift)
+    if not control > PARITY_DRIFT_TOL:
+        failures.append(f"the TF32 control's drift {control} does not exceed the bound "
+                        f"{PARITY_DRIFT_TOL}")
+    result = {"phase": "parity", "card": smi, "iters": PARITY_ITERS, "study_seconds": study_s,
+              "arms": per_arm, "launches": {k: v for k, v in counts.items() if v},
+              "deltas": {k: {"delta": report[k]["delta"], "ci95": report[k]["ci95"]}
+                         for k in report if k.startswith("delta")},
+              "dead_0_11": dead["torch_dead_seeds"],
+              "drift": {"steps": PARITY_DRIFT_STEPS, "bound": PARITY_DRIFT_TOL,
+                        "rel_drift_full": drift["rel_drift_full"],
+                        "log_mse_correlation_full": drift["log_mse_correlation_full"],
+                        "tf32_control_max_every10": control,
+                        "torch_seconds": drift["torch_seconds"],
+                        "mirror_seconds": drift["mirror_seconds"], "sides": drift["sides"]},
+              "psnr_floor": PARITY_PSNR_FLOOR, "failures": failures}
+    emit(result)
+    if failures:
+        raise AssertionError(f"parity: {failures}")
+    return counts
+
+
 # ---------------------------------------------------------------- parallel
 
 def free_port() -> int:
@@ -5425,6 +5633,9 @@ def main(argv=None):
     # the full-scale study's scripts at its scale-down (K2, K4, K3 a step;
     # K2, K5 a chunk of the validation renders, eval and the spiral)
     full_scale_counts = phase_full_scale(args.out, smi)
+    # the parity study's scale-down: every arm through parity_study.run (K7;
+    # K2, K4, K3; their f32 variants; none on the reference and xla32 arms)
+    parity_counts = phase_parity(args.out, smi)
     phase_native(cfg, model, args.out, device)
     # the depth-aware effects and the renders that feed them, timed before
     # any torch.profiler window (phase_train_timing's): timed after one, the
@@ -5697,6 +5908,13 @@ def main(argv=None):
                                     "bound_ms": tm["k8_65536_bound_ms"],
                                     "ffma_bound_ms": tm["k8_65536_ffma_bound_ms"]}
         kernels.append(rec)
+    # the parity phase's study (K2, K3, K4, K5, K7 and their f32 variants)
+    for rec in kernels:
+        counter = {"K2": "march", "K3": "march_bwd", "K4": "merged_train", "K5": "merged",
+                   "K7": "march_train"}.get(rec["name"][:2])
+        if counter:
+            rec["parity_launches"] = parity_counts.get(
+                counter + ("_f32" if "f32" in rec["name"] else ""), 0)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,11 @@
 (``examples/*.py``, which run the JAX package): the reference-native
 full-scale study (``full_scale``, then ``measure_io_overlap`` on its
 output), the 64 + 64 and coarse-only demos (``hier_demo``,
-``demo_synthetic``) and one model per scene (``multi_scene``).
+``demo_synthetic``), one model per scene (``multi_scene``), and the parity
+studies against the reference's training semantics: the multi-seed study
+(``parity_study``, whose H100 report is ``parity_report_h100.json``) and the
+single-seed same-data run (``parity_chair``), both on the reference trainer
+of ``danerf_tpu_torch/benchmarks/``.
 
 Each module has ``main(argv=None)`` with the JAX script's flags plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions)

@@ -10,7 +10,9 @@ custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
 8, reads a BMP, a PGM, a TIFF, a GIF, a lossless and a lossy RGBA WebP and a GIF depth map
 through the one image reader, in a one-rank gloo group renders a sharded frame and trains on a
 mesh (``parallel/``), and renders the procedural scene on the device path and runs the
-full-scale study's scripts at a tiny size (``examples/``), with JAX, danerf_tpu, OpenCV, PIL, matplotlib,
+full-scale study's scripts at a tiny size (``examples/``), trains the reference semantics and
+runs a tiny parity study (``benchmarks/``, ``examples/parity_study.py``), with JAX, danerf_tpu,
+the repository's ``benchmarks/``, OpenCV, PIL, matplotlib,
 tensorstore, orbax, zstandard, msgpack and flax blocked), and
 asking it for CUDA on a host without CUDA raises instead of falling back to
 the CPU."""
@@ -28,8 +30,8 @@ ROOT = Path(__file__).resolve().parents[1]
 _CHILD = r'''
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "danerf_tpu", "cv2", "PIL", "matplotlib", "tensorstore", "orbax",
-           "zstandard", "msgpack", "flax")
+BLOCKED = ("jax", "jaxlib", "danerf_tpu", "benchmarks", "cv2", "PIL", "matplotlib",
+           "tensorstore", "orbax", "zstandard", "msgpack", "flax")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -247,6 +249,25 @@ with tempfile.TemporaryDirectory() as tmp:
     block = measure_io_overlap.run(tmp, os.path.join(tmp, "r.json"), cfg=tiny, device="cpu")
     assert np.isfinite(rep["eval"]["val_psnr"]) and block["effects"]["Fog"]["frames"] == 1
     assert read_video(os.path.join(tmp, "spiral", "lego_spiral.mp4"))[0].shape == (1, 8, 8, 3)
+# the parity study's slice: the reference init and trainer, the probe, a
+# tiny study of two arms on a 24x24 scene, its statistics
+from danerf_tpu_torch.benchmarks.reference_init import (density_alive_probe,
+                                                        model_from_reference, sample_torch_init)
+from danerf_tpu_torch.benchmarks.torch_reference import train_reference
+from danerf_tpu_torch.data.blender import save_blender_scene
+from danerf_tpu_torch.examples import parity_study
+init = sample_torch_init(cfg, 2, 0)
+_, _, mses = train_reference(cfg.replace(batch_size=8, warmup_iters=0), ds.images / 255.0,
+                             ds.c2ws, 6.0, 2, device="cpu")
+assert len(mses) == 2 and all(np.isfinite(mses))
+with tempfile.TemporaryDirectory() as tmp:
+    for split, n in (("train", 2), ("val", 1)):
+        save_blender_scene(make_synthetic_scene(split, n_images=n, height=24, width=24,
+                                                n_samples=16), tmp, split)
+    rep = parity_study.run(("reference", "framework_paired"), iters=2, seeds=2, scene=tmp,
+                           out=os.path.join(tmp, "r.json"), runs_dir=os.path.join(tmp, "runs"),
+                           device="cpu", base=tiny)
+    assert rep["arms"]["reference"]["n"] == 2 and "delta_paired_coarse" in rep
 assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print("ISOLATED-OK")
 '''
@@ -270,6 +291,15 @@ def test_sources_name_no_jax_module():
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+
+
+def test_sources_import_nothing_of_the_repository_benchmarks():
+    """The parity study's modules keep their own copy of what they need of
+    the repository's ``benchmarks/`` scripts, which the JAX study runs."""
+    pattern = re.compile(r"^\s*(import benchmarks\b|from benchmarks\b)", re.M)
+    files = list((ROOT / "danerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert (ROOT / "danerf_tpu_torch" / "benchmarks" / "torch_reference.py") in files
+    assert [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())] == []
 
 
 def test_sources_import_no_imaging_library():
