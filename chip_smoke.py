@@ -234,7 +234,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             numeric key of examples/full_scale_report_v5e.json in the
             port's report, its val PSNR above FULL_SCALE_PSNR_FLOOR, Adam's
             rate at each checkpoint StepLR's; the spiral, Fog and Toon
-            Shader mp4s decoded to their frame counts.  After 7h.
+            Shader mp4s decoded to their frame counts; the study again from
+            FULL_SCALE_SEED2 (another init digest, a live density head, the
+            same launches, val PSNR above the floor); the JAX run's initial
+            parameters (examples/jax_init_seed0.npz) read without JAX into
+            the default-width model, every leaf equal to the file's, its
+            density probe on the card equal to the CPU's; the scale-down
+            from them (`--init-npz` on 100 training views, the table's
+            rows: the same launches, val PSNR above the floor); of the
+            model it trained, a live probe on the card and the CPU, K2 and
+            K5 at one 200x200 view's rays against their plain versions
+            within TRAINED_TOL_FACTOR x PLAIN_TOL, and the view through
+            exactly one K2 and one K5, its mean accumulation above 0 (its
+            difference from the plain route recorded).  After 7h.
 7j. parity  the parity study (danerf_tpu_torch/examples/parity_study.py)
             through parity_study.run at PARITY_SEEDS alive seeds x
             PARITY_ITERS steps of every arm on the 160x160 procedural
@@ -4768,6 +4780,16 @@ FULL_SCALE_FLAGS = ["--size", "200", "--train-views", "10", "--val-views", "2",
                     "--iters", "2000", "--frames", "4"]
 # below the first run's val PSNR on the card, 26.00 dB (PERF.md gives both)
 FULL_SCALE_PSNR_FLOOR = 24.0
+# the second seed of the scale-down: one whose density head is live on its
+# scene (density_alive_probe; seeds 1, 4 and 7 are born dead there)
+FULL_SCALE_SEED2 = 3
+# K2 and K5 on the model the JAX init trains at the scale-down, against
+# their plain versions: PLAIN_TOL (set on seeded untrained models) times
+# this factor.  The trained field is sharp and bf16 rounding moves its
+# sigma a little further: K2's field_sigma and depth read 1.05x and 1.03x
+# PLAIN_TOL on an H100 80GB HBM3 at 700 W (PERF.md); a kernel that writes
+# zeros or wrong samples errs by orders more
+TRAINED_TOL_FACTOR = 2.0
 
 
 def numeric_keys(tree, prefix=()):
@@ -4796,7 +4818,11 @@ def phase_full_scale(out_dir, smi):
       (examples/full_scale_report_v5e.json) in the port's, its val PSNR
       above FULL_SCALE_PSNR_FLOOR, Adam's rate at each checkpoint StepLR's;
     - the spiral's, Fog's and Toon Shader's mp4s decoded by read_video to
-      their frame counts."""
+      their frame counts;
+    - the study again from FULL_SCALE_SEED2: another init (its digest), a
+      live density head, the same launches, val PSNR above the floor;
+    - the JAX run's initial parameters, and the scale-down from them
+      (phase_full_scale_jax_init)."""
     import numpy as np
     import torch
 
@@ -4867,7 +4893,32 @@ def phase_full_scale(out_dir, smi):
         if shape != (n, size, size, 3):
             raise AssertionError(f"full_scale: {name} decodes to {shape}, expected {n} frames")
         videos[name] = list(shape)
+
+    # a second seed: another init and batch stream, the same launches
+    report2_path = os.path.join(out_dir, "full_scale_report_seed2.json")
+    fr.reset_launch_counts()
+    full_scale.main([*FULL_SCALE_FLAGS, "--seed", str(FULL_SCALE_SEED2), "--out",
+                     os.path.join(out_dir, "full_scale_seed2"), "--report", report2_path,
+                     "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts2 = dict(fr.LAUNCHES)
+    with open(report2_path) as f:
+        report2 = json.load(f)
+    got2 = {k: report2[k]["launches"] for k in want}
+    psnr2 = report2["eval"]["val_psnr"]
+    if (got2 != want or counts2 != total or report2["seed"] != FULL_SCALE_SEED2
+            or report2["init"]["sha256"] == report["init"]["sha256"]
+            or not report2["init"]["density_alive"] > 0.0 or not psnr2 > FULL_SCALE_PSNR_FLOOR):
+        raise AssertionError(f"full_scale seed {FULL_SCALE_SEED2}: launches {got2} (expected "
+                             f"{want}), init {report2['init']} against seed 0's "
+                             f"{report['init']}, val PSNR {psnr2}")
+    jax_init = phase_full_scale_jax_init(out_dir, size, want, total)
     emit({"phase": "full_scale", "card": smi, "flags": FULL_SCALE_FLAGS,
+          "seed2": {"seed": FULL_SCALE_SEED2, "init": report2["init"], "val_psnr": psnr2,
+                    "val_ssim": report2["eval"]["val_ssim"],
+                    "final_train_psnr": report2["train"]["final_train_psnr"],
+                    "seed0": {"init": report["init"], "val_psnr": psnr}},
+          "jax_init": jax_init,
           "ground_truth_200": {"levels_apart": gt, "device_s": views["torch_s"],
                                "numpy_s": views["numpy_s"]},
           "seconds": secs, "remeasure_seconds": remeasure_s, "launches": got,
@@ -4875,6 +4926,148 @@ def phase_full_scale(out_dir, smi):
           "report": {k: report[k] for k in ("data", "train", "eval", "spiral", "effects_seconds",
                                             "effects_breakdown", "io_overlap_remeasure")}})
     return counts
+
+
+def phase_full_scale_jax_init(out_dir, size, want, total):
+    """The JAX run's initial parameters (the committed
+    danerf_tpu_torch/examples/jax_init_seed0.npz) on the card's host, which
+    has no JAX: read with numpy, put into the default-width model (every
+    leaf equal to the file's, the weights transposed), its density probe
+    on a 200x200 scene on the card equal to the CPU's (0.0: the head is
+    born dead on the study's scene, as on the CPU).  Then the scale-down
+    FULL_SCALE_FLAGS from it (`full_scale --init-npz` on the file's 100
+    training views, one an appearance row, as in the full study): seed 0's
+    launches (``want``, in all ``total``), val PSNR above the floor.  On
+    the model it trained: a head the probe reads as live, on the card and
+    on the CPU within 1e-4 relative (they sum the f32 layers in other
+    orders); K2 (with its field) and K5 at one 200x200 view's 40,000 rays,
+    each against its plain version on the same inputs within
+    TRAINED_TOL_FACTOR x PLAIN_TOL (a kernel that wrote zeros would fail); and
+    the view through render_frame, exactly one K2 and one K5, its mean
+    accumulation above 0.  The view's difference from the plain route
+    (module forward at every sample, nerf_apply's encoding form) is
+    recorded, not bounded: on a trained model its depth differs by up to
+    ~0.2 at edge pixels, where the fine depths, drawn from coarse weights
+    that the two routes round apart, land apart."""
+    import numpy as np
+    import torch
+
+    from danerf_tpu_torch.benchmarks.reference_init import density_alive_probe
+    from danerf_tpu_torch.config import NeRFConfig
+    from danerf_tpu_torch.data.synthetic import make_synthetic_scene
+    from danerf_tpu_torch.examples import full_scale
+    from danerf_tpu_torch.kernels import fused_render as fr
+    from danerf_tpu_torch.kernels.fused_mlp import pack_params
+    from danerf_tpu_torch.ops.rays import generate_rays
+    from danerf_tpu_torch.ops.sampling import sample_pdf, sample_stratified
+    from danerf_tpu_torch.render.renderer import render_frame
+    from danerf_tpu_torch.train.trainer import init_model, load_jax_params
+    from danerf_tpu_torch.utils.checkpoint import load_model
+    from danerf_tpu_torch.utils.convert import read_params_npz
+
+    t0 = time.perf_counter()
+    tree = read_params_npz(full_scale.JAX_INIT)
+    read_s = time.perf_counter() - t0
+    if any(m.split(".")[0] in ("jax", "jaxlib", "danerf_tpu") for m in sys.modules):
+        raise AssertionError("full_scale jax_init: JAX or danerf_tpu is imported")
+    cfg = NeRFConfig(use_bf16=True)
+    n_images = tree["appearance"].shape[0]
+    model, table = init_model(cfg, n_images, 0, "cuda")
+    load_jax_params(model, table, tree)
+    sd = model.state_dict()
+    layers = [(f"pts_linears.{i}", layer) for i, layer in enumerate(tree["model"]["trunk"])]
+    layers += [(port, tree["model"][jx]) for jx, port in
+               (("density", "density_head"), ("dir", "dir_linear"), ("rgb", "rgb_linear"),
+                ("appearance_proj", "appearance_projection"))]
+    leaves = [pair for name, layer in layers for pair in
+              ((sd[f"{name}.weight"], layer["w"].T), (sd[f"{name}.bias"], layer["b"]))]
+    leaves.append((table, tree["appearance"]))
+    unequal = sum(not np.array_equal(t.detach().cpu().numpy(), a) for t, a in leaves)
+    scene = make_synthetic_scene("train", n_images=2, height=size, width=size,
+                                 backend="torch", device="cuda")
+
+    def probes(m):
+        card = density_alive_probe(m, cfg, scene.images.shape, scene.c2ws, scene.focal)
+        cpu = density_alive_probe(m.cpu(), cfg, scene.images.shape, scene.c2ws, scene.focal)
+        m.cuda()
+        return {"card": card, "cpu": cpu}
+
+    born = probes(model)
+    if unequal or born["card"] != born["cpu"]:
+        raise AssertionError(f"full_scale jax_init: {unequal} leaves unequal, probe {born}")
+
+    run_dir = os.path.join(out_dir, "full_scale_jax_init")
+    report_path = os.path.join(out_dir, "full_scale_report_jax_init.json")
+    fr.reset_launch_counts()
+    full_scale.main([*FULL_SCALE_FLAGS, "--train-views", str(n_images), "--init-npz",
+                     full_scale.JAX_INIT, "--out", run_dir, "--report", report_path,
+                     "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = dict(fr.LAUNCHES)
+    with open(report_path) as f:
+        report = json.load(f)
+    got = {k: report[k]["launches"] for k in want}
+    psnr = report["eval"]["val_psnr"]
+    if (got != want or counts != total
+            or report["init"]["from"] != os.path.basename(full_scale.JAX_INIT)
+            or not psnr > FULL_SCALE_PSNR_FLOOR):
+        raise AssertionError(f"full_scale jax_init: launches {got} (expected {want}), init "
+                             f"{report['init']}, val PSNR {psnr}")
+
+    model, table, _, cfg = load_model(os.path.join(run_dir, "checkpoints",
+                                                   "checkpoint_final.pt"), cfg, "cuda")
+    model.requires_grad_(False)
+    trained = probes(model)
+    emb = table[0].detach().cuda()
+
+    # K2 and K5 on the same inputs as their plain versions
+    c2w = torch.as_tensor(scene.c2ws[0], dtype=torch.float32, device="cuda")
+    o, d = generate_rays(size, size, scene.focal, c2w)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    embs = emb.reshape(1, -1).expand(o.shape[0], -1).contiguous()
+    z, _ = sample_stratified(o, d, cfg.near, cfg.far, cfg.num_samples, False, None)
+    packed = pack_params(model, cfg)
+    with torch.no_grad():
+        want_f = fr.march_plain(packed, cfg, o, d, embs, z, want_field=True)
+        got_f = fr.march_cuda(packed, cfg, o, d, embs, z, want_field=True)
+        z_f = sample_pdf(z, want_f["weights"], cfg.num_importance, False)
+        want_m = fr.merged_plain(packed, cfg, o, d, embs, z, want_f["field"], z_f)
+        got_m = fr.merged_cuda(packed, cfg, o, d, embs, z, want_f["field"], z_f)
+    torch.cuda.synchronize()
+    errs, failures = {}, []
+    tol = {k: TRAINED_TOL_FACTOR * v for k, v in fr.PLAIN_TOL.items()}
+    compare(errs, failures, "K2", got_f, want_f, ["rgb", "depth", "acc", "weights", "field"], tol)
+    compare(errs, failures, "K5", got_m, want_m, ["rgb", "depth", "acc", "weights", "z_vals"], tol)
+    del want_f, got_f, want_m, got_m
+
+    frames = {}
+    for route, c in (("kernel", cfg), ("plain", cfg.replace(use_kernels=False))):
+        fr.reset_launch_counts()
+        with torch.no_grad():
+            rgb, dep, acc = render_frame(model, c, scene.c2ws[0], size, size, scene.focal,
+                                         appearance_embedding=emb, device="cuda")
+        torch.cuda.synchronize()
+        frames[route] = ({"rgb": rgb, "depth": dep, "acc": acc}, dict(fr.LAUNCHES))
+    route = {k: max_err(frames["kernel"][0][k], frames["plain"][0][k]) for k in SLICE_TOL}
+    route["depth_pixels_beyond_slice_tol"] = int(
+        ((frames["kernel"][0]["depth"] - frames["plain"][0]["depth"]).abs()
+         > SLICE_TOL["depth"]).sum())
+    launched = {k: v for k, v in frames["kernel"][1].items() if v}
+    mean_acc = float(frames["kernel"][0]["acc"].mean())
+    finite = all(bool(torch.isfinite(t).all()) for t in frames["kernel"][0].values())
+    if (failures or not trained["card"] > 0.0
+            or abs(trained["card"] - trained["cpu"]) > 1e-4 * abs(trained["cpu"])
+            or launched != {"march": 1, "merged": 1} or any(frames["plain"][1].values())
+            or not finite or not mean_acc > 0.0):
+        raise AssertionError(f"full_scale jax_init: {failures}, trained probe {trained}, "
+                             f"launches {frames['kernel'][1]} / {frames['plain'][1]}, mean "
+                             f"acc {mean_acc}, kernel route against plain route {route}")
+    return {"npz": os.path.basename(full_scale.JAX_INIT), "read_s": read_s,
+            "values": int(sum(a.size for _, a in leaves)), "leaves": len(leaves),
+            "density_alive": {"born": born, "trained": trained}, "val_psnr": psnr,
+            "final_train_psnr": report["train"]["final_train_psnr"],
+            "launches": launched, "max_abs_err": errs, "tolerance": tol,
+            "kernel_route_against_plain_route": route, "mean_acc": mean_acc}
 
 
 # The parity study's scale-down (danerf_tpu_torch/examples/parity_study.py):

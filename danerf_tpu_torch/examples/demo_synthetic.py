@@ -3,7 +3,7 @@ examples/demo_synthetic.py): train -> eval PSNR -> aligned-spiral render
 with its video -> depth-aware Fog over the frames that have a depth map.
 
     python -m danerf_tpu_torch.examples.demo_synthetic [--iters 3000] [--out build/demo_out]
-        [--size 100] [--frames 24] [--pallas | --no-pallas] [--device cuda]
+        [--size 100] [--frames 24] [--pallas | --no-pallas] [--device cuda] [--seed 0]
 
 Writes OUT/{checkpoints, metrics.jsonl, frames (with lego_spiral.mp4),
 fog_frames, report.json}.
@@ -23,10 +23,12 @@ OUT = os.path.join("build", "demo_out")   # gitignored
 
 
 def run(cfg, iters: int = 3000, out: str = OUT, size: int = 100, frames: int = 24,
-        device="cuda") -> dict:
-    """Train ``cfg`` on 20 views at ``size`` x ``size``, score 4 val views,
-    render ``frames`` spiral frames and their video, apply Fog; write
-    ``out/report.json`` and return the report."""
+        device="cuda", seed: int = 0, scenes=None) -> dict:
+    """Train ``cfg`` on 20 views at ``size`` x ``size`` from ``seed``
+    (``train``'s init and batches), score 4 val views, render ``frames``
+    spiral frames and their video, apply Fog; write ``out/report.json`` and
+    return the report.  ``scenes``, a (train, val) pair made as this
+    function makes them, is used as it is (several seeds on one scene)."""
     from danerf_tpu_torch.data.synthetic import make_synthetic_scene
     from danerf_tpu_torch.fx.batch import apply_effect_to_frames
     from danerf_tpu_torch.render.frames import render_aligned_spiral
@@ -35,13 +37,14 @@ def run(cfg, iters: int = 3000, out: str = OUT, size: int = 100, frames: int = 2
 
     dev = resolve_device(device)
     os.makedirs(out, exist_ok=True)
-    scene = make_synthetic_scene("train", n_images=20, height=size, width=size)
-    val = make_synthetic_scene("val", n_images=4, height=size, width=size)
+    scene, val = scenes or (make_synthetic_scene("train", n_images=20, height=size, width=size),
+                            make_synthetic_scene("val", n_images=4, height=size, width=size))
 
     t0 = time.time()
     model, table, _ = train(cfg, scene, save_dir=os.path.join(out, "checkpoints"),
                             num_iterations=iters, checkpoint_every=0,
-                            log_path=os.path.join(out, "metrics.jsonl"), device=dev)
+                            log_path=os.path.join(out, "metrics.jsonl"), device=dev,
+                            seed=seed)
     sync(dev)
     train_s = time.time() - t0
     table = None if table is None else table.detach()
@@ -63,6 +66,7 @@ def run(cfg, iters: int = 3000, out: str = OUT, size: int = 100, frames: int = 2
 
     report = {
         "iters": iters,
+        "seed": seed,
         "train_seconds": train_s,
         "train_rays_per_sec": iters * cfg.batch_size / train_s,
         "render_seconds_per_frame": render_s / frames,
@@ -90,12 +94,14 @@ def main(argv=None) -> dict:
                          "the card only)")
     ap.add_argument("--no-pallas", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the init's and the batch stream's seed (train's)")
     args = ap.parse_args(argv)
     use_kernels = ((args.pallas or resolve_device(args.device).type == "cuda")
                    and not args.no_pallas)
     cfg = NeRFConfig(num_importance=0, use_bf16=True, use_kernels=use_kernels,
                      render_chunk=args.size * args.size)
-    return run(cfg, args.iters, args.out, args.size, args.frames, args.device)
+    return run(cfg, args.iters, args.out, args.size, args.frames, args.device, args.seed)
 
 
 if __name__ == "__main__":

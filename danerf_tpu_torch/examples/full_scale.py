@@ -19,14 +19,16 @@ procedural scene at the same resolution, view count and step budget:
   5. effects      Fog and Toon Shader over those frames, an mp4 each
 
 The report holds the JAX report's keys ("backend" is the torch device) and
-more: the card's name and power limit ("device"), the seconds the path's
-kernels took to build before anything was timed, the kernel launches of
-each stage, the loss and PSNR per checkpoint interval, the rate Adam took at
-each checkpoint beside StepLR's formula, each validation render's PSNR
-against the ground truth of its view, and any flag set below its default
-("reduced").
+more: the seed and what the run started from ("init": its source, digest
+and density probe), the card's name and power limit ("device"), the
+seconds the path's kernels took to build before anything was timed, the
+kernel launches of each stage, the loss and PSNR per checkpoint interval,
+the rate Adam took at each checkpoint beside StepLR's formula, each
+validation render's PSNR against the ground truth of its view, and any
+flag set below its default ("reduced").
 
-    python -m danerf_tpu_torch.examples.full_scale [--device cuda]
+    python -m danerf_tpu_torch.examples.full_scale [--device cuda] [--seed S]
+        [--init-npz danerf_tpu_torch/examples/jax_init_seed0.npz] [--no-pallas]
     python -m danerf_tpu_torch.examples.measure_io_overlap      (then)
 """
 
@@ -38,16 +40,21 @@ import os
 import re
 import shutil
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from danerf_tpu_torch import resolve_device
 from danerf_tpu_torch.examples import device_block, launches, launches_since, sync
+from danerf_tpu_torch.utils.convert import read_params_npz
 
 DEFAULTS = {"iters": 30000, "size": 800, "train_views": 100, "val_views": 16, "frames": 120}
 OUT = os.path.join("build", "full_scale_out")
 REPORT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "full_scale_report_h100.json")
+# the JAX run's initial parameters (create_train_state(jax.random.key(0), ...),
+# 100 train views), written by tests/data_torch/write_jax_init.py
+JAX_INIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jax_init_seed0.npz")
 CHECKPOINT_EVERY = 1000
 EFFECTS = ("Fog", "Toon Shader")
 
@@ -115,13 +122,49 @@ def _validation_psnr(scene, ckpt_dir: str, dev) -> list:
     return out
 
 
+def init_block(cfg, scene, seed: int, init: Optional[dict], init_npz: Optional[str]) -> dict:
+    """What a run starts from: its seed, the init's source, the sha256 of
+    the init's parameters (the module's state dict in order, then the
+    appearance table; f32 bytes) and ``density_alive_probe``'s max sigma
+    on ``scene`` over its 1024 rays, or as many as a small scene's first
+    two views hold (0.0: zero density at every probe point, read as born
+    dead; a kernel's rounding can still revive such a head).  Drawn on
+    the CPU, as ``train`` draws it."""
+    import hashlib
+
+    from danerf_tpu_torch.benchmarks.reference_init import density_alive_probe
+    from danerf_tpu_torch.train.trainer import init_model, load_jax_params
+
+    pixels = scene.height * scene.width
+    model, table = init_model(cfg, scene.n_images, seed, "cpu")
+    if init is not None:
+        load_jax_params(model, table, init)
+    digest = hashlib.sha256()
+    for t in [*model.state_dict().values(), *([] if table is None else [table])]:
+        digest.update(t.detach().float().contiguous().numpy().tobytes())
+    return {"seed": seed,
+            "from": "init_model" if init_npz is None else os.path.basename(init_npz),
+            "sha256": digest.hexdigest(),
+            "density_alive": density_alive_probe(model, cfg, scene.images.shape, scene.c2ws,
+                                                 scene.focal, n_probe=min(1024, 2 * pixels))}
+
+
 def run(cfg, out: str = OUT, report_path: str = REPORT, iters: int = DEFAULTS["iters"],
         size: int = DEFAULTS["size"], train_views: int = DEFAULTS["train_views"],
         val_views: int = DEFAULTS["val_views"], frames: int = DEFAULTS["frames"],
-        checkpoint_every: int = CHECKPOINT_EVERY, device="cuda") -> dict:
+        checkpoint_every: int = CHECKPOINT_EVERY, device="cuda", seed: int = 0,
+        init_npz: Optional[str] = None, scenes=None) -> dict:
     """The study at ``cfg`` (the default 64 + 64 ``NeRFConfig`` from
     ``main``); writes its outputs under ``out`` and its report to
-    ``report_path``, and returns the report."""
+    ``report_path``, and returns the report.
+
+    ``seed`` seeds ``train``'s init and batch stream (0: the JAX script's
+    ``jax.random.key(0)`` counterpart).  ``init_npz``, a JAX param tree
+    saved by ``tests/data_torch/write_jax_init.py``, is the start in place
+    of the init's draw; the batches still come from ``seed``.  ``scenes``,
+    a (train, val) pair of scenes at this size, is used as it is (several
+    runs on one scene, ``full_scale_arms``): the numpy check view is then
+    not rendered."""
     from danerf_tpu_torch.data.synthetic import make_synthetic_scene, render_view
     from danerf_tpu_torch.fx.batch import apply_effect_to_frames
     from danerf_tpu_torch.render.frames import render_aligned_spiral
@@ -143,25 +186,33 @@ def run(cfg, out: str = OUT, report_path: str = REPORT, iters: int = DEFAULTS["i
         _build.build([n + f32 for n in ("march", "merged", "march_bwd", "merged_train")])
     build_s = time.time() - t0
 
-    t0 = time.time()
-    scene = make_synthetic_scene("train", n_images=train_views, height=size, width=size,
-                                 backend="torch", device=dev)
-    val = make_synthetic_scene("val", n_images=val_views, height=size, width=size,
-                               backend="torch", device=dev)
-    gen_s = time.time() - t0
-    t0 = time.time()
-    image, alpha = render_view(np.asarray(val.c2ws[0], np.float64), size, size, val.focal,
-                               val.near, val.far)
-    numpy_s = time.time() - t0
-    apart = {}
-    for name, ref, got in (("image", image, val.images[0]), ("alpha", alpha, val.alphas[0])):
-        d = np.abs(ref.astype(np.int16) - got.astype(np.int16))
-        apart[name] = {"max_levels": int(d.max()), "pixels_apart": int((d > 0).sum()),
-                       "values": int(d.size)}
+    if scenes is None:
+        t0 = time.time()
+        scene = make_synthetic_scene("train", n_images=train_views, height=size, width=size,
+                                     backend="torch", device=dev)
+        val = make_synthetic_scene("val", n_images=val_views, height=size, width=size,
+                                   backend="torch", device=dev)
+        gen_s = time.time() - t0
+        t0 = time.time()
+        image, alpha = render_view(np.asarray(val.c2ws[0], np.float64), size, size, val.focal,
+                                   val.near, val.far)
+        numpy_s = time.time() - t0
+        apart = {}
+        for name, ref, got in (("image", image, val.images[0]),
+                               ("alpha", alpha, val.alphas[0])):
+            d = np.abs(ref.astype(np.int16) - got.astype(np.int16))
+            apart[name] = {"max_levels": int(d.max()), "pixels_apart": int((d > 0).sum()),
+                           "values": int(d.size)}
+    else:
+        scene, val = scenes
+        gen_s = numpy_s = apart = None
     pool_mb = scene.images.size * 4 / 1e6   # the f32 pool once uploaded
-    print(f"scene: {train_views}+{val_views} views at {size}x{size} in {gen_s:.1f}s on "
-          f"{dev} (pool {pool_mb:.0f} MB); one view by numpy {numpy_s:.1f}s, {apart}",
-          flush=True)
+    print(f"scene: {train_views}+{val_views} views at {size}x{size} "
+          f"{'shared' if scenes else f'in {gen_s:.1f}s'} on {dev} (pool {pool_mb:.0f} MB); "
+          f"numpy check view: {apart}", flush=True)
+    init = None if init_npz is None else read_params_npz(init_npz)
+    start = init_block(cfg, scene, seed, init, init_npz)
+    print(f"init: {start}", flush=True)
 
     ckpt_dir = os.path.join(out, "checkpoints")
     log_path = os.path.join(out, "metrics.jsonl")
@@ -174,7 +225,7 @@ def run(cfg, out: str = OUT, report_path: str = REPORT, iters: int = DEFAULTS["i
     t0 = time.time()
     model, table, logger = train(cfg, scene, save_dir=ckpt_dir, num_iterations=iters,
                                  checkpoint_every=checkpoint_every, log_path=log_path,
-                                 device=dev)
+                                 device=dev, seed=seed, init_params=init)
     sync(dev)
     train_s = time.time() - t0
     train_launches = launches_since(before)
@@ -237,8 +288,10 @@ def run(cfg, out: str = OUT, report_path: str = REPORT, iters: int = DEFAULTS["i
                  "resolution": [size, size], "train_views": train_views,
                  "val_views": val_views, "pool_mb_f32": pool_mb,
                  "generation_seconds": gen_s,
-                 "seconds_per_view": gen_s / (train_views + val_views),
+                 "seconds_per_view": None if gen_s is None else gen_s / (train_views + val_views),
                  "numpy_one_view_seconds": numpy_s, "device_vs_numpy_val_view_0": apart},
+        "seed": seed,
+        "init": start,
         "config": {"samples": [cfg.num_samples, cfg.num_importance],
                    "batch_size": cfg.batch_size, "bf16": cfg.use_bf16,
                    "pallas": cfg.use_kernels, "checkpoint_every": checkpoint_every,
@@ -283,6 +336,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-pallas", action="store_true",
                     help="the plain PyTorch route (use_kernels=False)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the init's and the batch stream's seed (train's)")
+    ap.add_argument("--init-npz", default=None,
+                    help="start from this JAX param tree (tests/data_torch/write_jax_init.py "
+                         "writes the JAX run's, jax_init_seed0.npz here) in place of the "
+                         "init's draw")
     return ap
 
 
@@ -294,7 +353,8 @@ def main(argv=None) -> dict:
     if (cfg.num_samples, cfg.num_importance) != (64, 64):
         raise ValueError("the full-scale study runs the default 64 + 64 configuration")
     return run(cfg, args.out, args.report, args.iters, args.size, args.train_views,
-               args.val_views, args.frames, device=args.device)
+               args.val_views, args.frames, device=args.device, seed=args.seed,
+               init_npz=args.init_npz)
 
 
 if __name__ == "__main__":

@@ -478,10 +478,29 @@ def init_model(cfg: NeRFConfig, n_images: int, seed: int, device):
     return model, table
 
 
+def load_jax_params(model, table, params: dict) -> None:
+    """Put a JAX param tree (numpy arrays, ``{"model": ..., "appearance":
+    ...}``) into the module and the appearance table in place; every
+    shape must match."""
+    from danerf_tpu_torch.utils.convert import params_from_jax
+
+    model.load_state_dict(params_from_jax(params["model"]))
+    if (table is None) != ("appearance" not in params):
+        raise ValueError("the param tree and the config disagree on the appearance table")
+    if table is not None:
+        app = torch.tensor(params["appearance"])
+        if app.shape != table.shape:
+            raise ValueError(f"appearance table {tuple(app.shape)}, the model's "
+                             f"{tuple(table.shape)}")
+        with torch.no_grad():
+            table.copy_(app)
+
+
 def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
           resume: bool = False, log_path: Optional[str] = None, checkpoint_every: int = 1000,
           eval_every: int = 1, num_iterations: Optional[int] = None, seed: int = 0,
-          device="cuda", progress: bool = True, steps_per_call: int = 10, mesh=None):
+          device="cuda", progress: bool = True, steps_per_call: int = 10, mesh=None,
+          init_params: Optional[dict] = None):
     """The training loop (reference ``train_nerf``, src/train.py:13-207; the
     JAX ``train``).
 
@@ -496,6 +515,11 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
     table, Adam, StepLR, the generator) and continues from its iteration.
     ``metrics.jsonl`` (``log_path``) gets one row a step, written every
     ``LOG_FLUSH`` steps or more, a chunk behind the device.
+
+    ``init_params``, a JAX param tree of numpy arrays (``{"model": ...,
+    "appearance": (n_images, E)}``, ``utils/convert.read_params_npz``),
+    is the start in place of ``init_model``'s draw (``load_jax_params``);
+    the generator is seeded from ``seed`` all the same.
 
     With ``mesh`` (``parallel.make_mesh``) every rank runs this loop: the
     state is checked equal on every rank and placed on the mesh
@@ -524,6 +548,8 @@ def train(cfg: NeRFConfig, dataset: RayDataset, save_dir: str = "checkpoints",
         os.makedirs(save_dir, exist_ok=True)
     n_iters = num_iterations if num_iterations is not None else cfg.num_iterations
     model, table = init_model(cfg, dataset.n_images, seed, dev)
+    if init_params is not None:
+        load_jax_params(model, table, init_params)
     params = list(model.parameters()) + ([table] if table is not None else [])
     optimizer, scheduler = make_optimizer(cfg, params)
     gen = torch.Generator(device=dev).manual_seed(seed)

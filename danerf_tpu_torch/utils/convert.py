@@ -40,6 +40,31 @@ def params_from_jax(params: dict) -> dict:
     return sd
 
 
+def read_params_npz(path: str) -> dict:
+    """A JAX param tree saved as an ``.npz`` of its leaves under their
+    dotted names (``model.trunk.0.w``, ``model.density.b``,
+    ``appearance``) -> that tree of numpy arrays, a trunk as a list:
+    ``{"model": {"trunk": [{"w", "b"}, ...], "density": ...},
+    "appearance": (N, E)}``.  Numpy only: the file is data."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for name in z.files:
+            *parents, leaf = name.split(".")
+            node = tree
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[leaf] = z[name]
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
 def params_to_jax(state_dict: dict) -> dict:
     """state_dict -> JAX param pytree of numpy arrays (inverse of
     params_from_jax)."""

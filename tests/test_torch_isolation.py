@@ -10,7 +10,8 @@ custom scene of a JPEG and a PNG frame and a Blender scene downscaled by
 8, reads a BMP, a PGM, a TIFF, a GIF, a lossless and a lossy RGBA WebP and a GIF depth map
 through the one image reader, in a one-rank gloo group renders a sharded frame and trains on a
 mesh (``parallel/``), and renders the procedural scene on the device path and runs the
-full-scale study's scripts at a tiny size (``examples/``), trains the reference semantics and
+full-scale study's scripts at a tiny size (``examples/``), also from the
+JAX run's initial parameters (``--init-npz``), trains the reference semantics and
 runs a tiny parity study (``benchmarks/``, ``examples/parity_study.py``), with JAX, danerf_tpu,
 the repository's ``benchmarks/``, OpenCV, PIL, matplotlib,
 tensorstore, orbax, zstandard, msgpack and flax blocked), and
@@ -249,6 +250,15 @@ with tempfile.TemporaryDirectory() as tmp:
     block = measure_io_overlap.run(tmp, os.path.join(tmp, "r.json"), cfg=tiny, device="cpu")
     assert np.isfinite(rep["eval"]["val_psnr"]) and block["effects"]["Fog"]["frames"] == 1
     assert read_video(os.path.join(tmp, "spiral", "lego_spiral.mp4"))[0].shape == (1, 8, 8, 3)
+# the study from the JAX run's initial parameters (--init-npz): the committed
+# .npz read with numpy into the default-width model, one step at 24x24
+config_mod.NeRFConfig = Cfg
+with tempfile.TemporaryDirectory() as tmp:
+    rep = full_scale.main(["--iters", "1", "--size", "24", "--val-views", "1", "--frames", "1",
+                           "--out", tmp, "--report", os.path.join(tmp, "r.json"),
+                           "--init-npz", full_scale.JAX_INIT, "--device", "cpu"])
+    assert rep["init"]["from"] == "jax_init_seed0.npz" and rep["init"]["density_alive"] == 0.0
+    assert rep["train"]["iters"] == 1 and np.isfinite(rep["eval"]["val_psnr"])
 # the parity study's slice: the reference init and trainer, the probe, a
 # tiny study of two arms on a 24x24 scene, its statistics
 from danerf_tpu_torch.benchmarks.reference_init import (density_alive_probe,
